@@ -22,7 +22,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    exactly the tokens of the same engine on the CPU (plain versions), and
    each kernel's launch count over the run must equal its expected count.
    A bfloat16 run reports its agreement with float32 and its prefill and
-   decode tokens per second.
+   decode tokens per second; torch.profiler over 8 bfloat16 decode steps
+   reports the device's busy share and the top kernels.
 4. Summary: one JSON line of kernels, the card line, then the result line.
 
 Every time is a median of CUDA-event timings (L2 flushed before each
@@ -234,6 +235,49 @@ def serve(model, prompts, device, dtype, ops=None):
     return outs, eng, launches, stats
 
 
+def profile_decode(model, prompts, dtype, steps=8):
+    """torch.profiler over `steps` steady decode steps (all prompts already
+    prefilled): wall ms per step, the device's busy share (kernel time over
+    wall time), device ops (kernels, copies) per step and the top ones by
+    device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.serving import EngineConfig, LLMEngine, \
+        SamplingParams
+    eng = LLMEngine(model, EngineConfig(
+        block_size=16, max_num_seqs=8, max_num_batched_tokens=512,
+        device="cuda", dtype=dtype))
+    ids = [eng.add_request(p, SamplingParams(max_new_tokens=NEW_TOKENS))
+           for p in prompts]
+    while eng.step_counts["decode"] == 0:
+        eng.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    for i in ids:
+        eng.release_request(i)
+    # device-side events only (kernels, copies): a host op's device time
+    # repeats that of the kernels it launched
+    kernels = [(ev.self_device_time_total, ev.count, ev.key)
+               for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA
+               and ev.self_device_time_total > 0]
+    kernels.sort(reverse=True)
+    busy_us = sum(k[0] for k in kernels)
+    return {"steps": steps, "wall_ms_per_step": wall * 1e3 / steps,
+            "device_busy_share": busy_us / (wall * 1e6),
+            "device_ms_per_step": busy_us / 1e3 / steps,
+            "device_ops_per_step": sum(k[1] for k in kernels) / steps,
+            "top": [{"name": k[2][:90], "ms_per_step": k[0] / 1e3 / steps,
+                     "launches_per_step": k[1] / steps}
+                    for k in kernels[:10]]}
+
+
 def check_launches(eng, launches, what):
     layers = eng.cfg.num_hidden_layers
     want = {"flash_fwd_causal": layers * eng.step_counts["prefill"],
@@ -353,6 +397,19 @@ def main():
               flush=True)
     print(f"engine bfloat16 vs float32: {agree}/{total} generated tokens "
           f"agree; first difference per request {first_diff}", flush=True)
+
+    prof = profile_decode(model, prompts, torch.bfloat16)
+    result["decode_profile_bf16"] = prof
+    if prof["device_ms_per_step"] > 0:
+        print(f"decode profile bfloat16: {prof['wall_ms_per_step']:.3f} ms "
+              f"per step, device busy {prof['device_busy_share']:.3f}, "
+              f"{prof['device_ops_per_step']:.1f} device ops (kernels, "
+              f"copies) per step; top: " + "; ".join(
+                  f"{t['name'][:40]} {t['ms_per_step']:.4f} ms"
+                  for t in prof["top"][:6]), flush=True)
+    else:
+        print("decode profile bfloat16: the profiler recorded no device "
+              "time (not measured)", flush=True)
 
     # -- 4. summary --------------------------------------------------------
     main_case = {fa.KERNEL: cases[fa.KERNEL][2],          # fp32 S=384

@@ -57,6 +57,8 @@ def _check(q, k_new, v_new, k_blocks, v_blocks, block_table, pos0, kv_lens,
         if tuple(t.shape) != (nb, bs, h, d) or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous "
                              f"{(nb, bs, h, d)} pool")
+    if k_blocks.data_ptr() % 16 or v_blocks.data_ptr() % 16:
+        raise ValueError("pools must be 16-byte aligned (vector loads)")
     for t in (k_new, v_new, k_blocks, v_blocks):
         if t.dtype != q.dtype or t.device != q.device:
             raise ValueError("q, k_new, v_new and the pools must share one "

@@ -173,8 +173,6 @@ class LLMEngine:
         """One scheduler decision and one step body.  Returns the requests
         that FINISHED this step."""
         out = self.scheduler.schedule()
-        for r in out.preempted:
-            r.num_preemptions += 1
         self.num_preemptions += len(out.preempted)
         if out.kind == "prefill":
             self._prefill_body(out.prefill_request, out.chunk_start,

@@ -60,23 +60,6 @@ class BlockKVCache:
 
     # -- introspection ------------------------------------------------------
 
-    @staticmethod
-    def block_bytes(block_size, num_heads, head_dim,
-                    dtype=torch.float32) -> int:
-        """Bytes ONE physical block costs per layer (K + V pools)."""
-        itemsize = torch.empty((), dtype=dtype).element_size()
-        return 2 * int(block_size) * int(num_heads) * int(head_dim) \
-            * itemsize
-
-    @property
-    def bytes_per_block(self) -> int:
-        return self.num_layers * self.block_bytes(
-            self.block_size, self.num_heads, self.head_dim, self.dtype)
-
-    @property
-    def pool_bytes(self) -> int:
-        return self.num_blocks * self.bytes_per_block
-
     @property
     def num_slots(self) -> int:
         """Total physical token slots — also the "dropped write" sentinel:
@@ -106,14 +89,6 @@ class BlockKVCache:
     @property
     def blocks_in_use(self) -> int:
         return self.counts()["in_use"]
-
-    @property
-    def utilization(self) -> float:
-        c = self.counts()
-        return c["in_use"] / max(c["total"], 1)
-
-    def block_table(self, seq_id):
-        return list(self._tables[seq_id])
 
     def padded_table(self, seq_id, width):
         """Block table padded to `width` entries with num_blocks (an

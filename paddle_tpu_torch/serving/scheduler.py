@@ -90,7 +90,6 @@ class Request:
         self.generator = None              # per-request torch.Generator
         self.swap = None                   # host KV snapshot while evicted
         self.arrival = None                # admission tiebreak (set by add)
-        self.num_preemptions = 0           # times evicted mid-flight
 
     @property
     def prompt_len(self) -> int:
@@ -145,8 +144,6 @@ class Scheduler:
         self.waiting: deque = deque()
         self.running: list = []
         self._arrival = 0
-        self.num_evictions = 0
-        self.num_swap_ins = 0
 
     # -- request lifecycle --------------------------------------------------
 
@@ -261,7 +258,6 @@ class Scheduler:
             req.swap = None
             req.state = Request.RUNNING
             self.running.append(req)
-            self.num_swap_ins += 1
             return True
         start = req.num_computed
         chunk = min(req.prompt_len - start, self.max_num_batched_tokens)
@@ -328,7 +324,6 @@ class Scheduler:
         self.running.remove(req)
         self.waiting.appendleft(req)             # keeps arrival order
         preempted.append(req)
-        self.num_evictions += 1
 
     # -- completion ---------------------------------------------------------
 

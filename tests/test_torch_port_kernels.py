@@ -21,9 +21,13 @@ from paddle_tpu_torch.ops import ragged_paged_attention as rpa
 
 from _torch_port_util import MIXES, mix
 
-# the string condition is evaluated when each test runs, never at import
-needs_cuda = pytest.mark.skipif("not torch.cuda.is_available()",
-                                reason="needs a CUDA device (kernel vs plain)")
+
+@pytest.fixture
+def needs_cuda():
+    """Skip where there is no card; decided when the test runs, never at
+    import, so every worker collects the same tests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernel vs plain)")
 
 
 def _t(a):
@@ -31,7 +35,7 @@ def _t(a):
 
 
 @pytest.mark.cuda
-@needs_cuda
+@pytest.mark.usefixtures("needs_cuda")
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
                                         (torch.bfloat16, 3e-2)])
 @pytest.mark.parametrize("s,d", [(7, 64), (200, 64), (130, 128)])
@@ -49,7 +53,7 @@ def test_flash_kernel_matches_plain(s, d, dtype, atol):
 
 
 @pytest.mark.cuda
-@needs_cuda
+@pytest.mark.usefixtures("needs_cuda")
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
                                         (torch.bfloat16, 3e-2)])
 @pytest.mark.parametrize("mix_name", MIXES)
