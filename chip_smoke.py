@@ -9,11 +9,15 @@ Phases, in order; any failure exits non-zero and prints no result line:
    once), then hold each kernel against its plain PyTorch version on the
    card at the serving path's shapes, in float32 and bfloat16, and time
    kernel, plain version and (flash) the PyTorch SDPA call as a yardstick.
-   Tolerances (max absolute error): float32 2e-5 — both sides accumulate
-   in fp32 and differ only in summation order; bfloat16 3e-2 — outputs
-   rounded to bf16 (2^-8 relative) and the plain version also rounds the
-   probabilities to bf16 before the value product.  Pool writes must be
-   bitwise equal.
+   Tolerances: float32, max absolute error 2e-5 — both sides accumulate
+   in fp32 and differ only in summation order.  bfloat16, per element
+   |out - ref| <= 2^-7 max(|out|, |ref|) + 2^-8 (P |V|): one bf16 step of
+   the output (both sides round it once), plus twice the most that the
+   plain version's rounding of the probabilities to bf16 (2^-9 relative
+   each) can move the value product, P |V| being that product over |V|
+   in fp32.  So the limit follows each output's own magnitude: at rows of
+   hundreds of keys it is ~3e-3, not the ~2e-2 a short row needs.  Pool
+   writes must be bitwise equal.
 3. Engine: GPT-2 124M (full width, 12 layers, random weights from seed 0)
    served by `LLMEngine` with block_size 16, max_num_seqs 8,
    max_num_batched_tokens 512: five greedy prompts of 7, 64, 200, 384 and
@@ -22,8 +26,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    exactly the tokens of the same engine on the CPU (plain versions), and
    each kernel's launch count over the run must equal its expected count.
    A bfloat16 run reports its agreement with float32 and its prefill and
-   decode tokens per second; torch.profiler over 8 bfloat16 decode steps
-   reports the device's busy share and the top kernels.
+   decode tokens per second; 8 bfloat16 decode steps, timed alone and
+   then under torch.profiler, give the device's busy share of a step and
+   the top kernels.
 4. Summary: one JSON line of kernels, the card line, then the result line.
 
 Every time is a median of CUDA-event timings (L2 flushed before each
@@ -31,6 +36,7 @@ launch); every bound is max(bytes / 3.35 TB/s, FLOPs / peak for the type:
 989 TFLOP/s bf16, 67 TFLOP/s fp32), from this run's shapes and data.
 Details go to chiprun_out/chip_smoke.json.
 """
+import contextlib
 import json
 import os
 import statistics
@@ -43,7 +49,7 @@ import torch
 
 HBM_BPS = 3.35e12
 PEAK = {torch.float32: 67e12, torch.bfloat16: 989e12}
-TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+TOL_FP32 = 2e-5
 REPLACES = {
     "flash_fwd_causal": "paddle_tpu/ops/pallas_ops.py:135",
     "ragged_paged_attention": "paddle_tpu/ops/ragged_paged_attention.py:125",
@@ -85,6 +91,25 @@ class Timer:
         return statistics.median(times)
 
 
+def check_close(out, want, mag, what):
+    """Hold `out` against `want` at the tolerance of their dtype (module
+    docstring): float32 when `mag` is None, else bfloat16 with `mag` the
+    fp32 value product over |V|.  Returns the max absolute error and the
+    largest ratio of error to limit."""
+    out, want = out.float(), want.float()
+    diff = (out - want).abs()
+    err = diff.max().item()
+    if mag is None:
+        tol = TOL_FP32
+    else:
+        tol = 2.0 ** -7 * torch.maximum(out.abs(), want.abs()) \
+            + 2.0 ** -8 * mag
+    worst = (diff / tol).max().item()
+    if not bool((diff <= tol).all()):          # NaN fails too
+        fail(f"{what}: max error {err}, {worst:.3g}x its limit")
+    return err, worst
+
+
 def bound_ms(nbytes, flops, dtype):
     return max(nbytes / HBM_BPS, flops / PEAK[dtype]) * 1e3, \
         "bytes" if nbytes / HBM_BPS >= flops / PEAK[dtype] else "operations"
@@ -100,10 +125,11 @@ def check_flash(fa, timer, s, h, d, dtype, seed):
                for _ in range(3))
     out = fa.flash_attention_arrays(q, k, v)
     want = fa.mha_reference(q, k, v, is_causal=True)
+    mag = None if dtype == torch.float32 else fa.mha_reference(
+        q.float(), k.float(), v.float().abs(), is_causal=True)
     torch.cuda.synchronize()
-    err = (out.float() - want.float()).abs().max().item()
-    if not err <= TOL[dtype]:
-        fail(f"flash S={s} H={h} D={d} {dtype}: max error {err}")
+    err, ratio = check_close(out, want, mag,
+                             f"flash S={s} H={h} D={d} {dtype}")
     ms = timer(lambda: fa.flash_attention_arrays(q, k, v))
     plain_ms = timer(lambda: fa.mha_reference(q, k, v, is_causal=True))
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -114,8 +140,9 @@ def check_flash(fa, timer, s, h, d, dtype, seed):
     flops = 2 * d * h * s * (s + 1)       # 4*D*H per (query, visible key)
     bms, by = bound_ms(nbytes, flops, dtype)
     return dict(shape=f"B=1 S={s} H={h} D={d}", dtype=str(dtype),
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=by, library_ms=lib_ms)
+                max_abs_err=err, err_over_limit=ratio, ms=ms,
+                plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                library_ms=lib_ms)
 
 
 def ragged_case(rows, c, nb, bs, h, d, dtype, seed):
@@ -172,10 +199,16 @@ def check_ragged(rpa, timer, rows, c, dtype, seed):
     if not (torch.equal(kb, kr) and torch.equal(vb, vr)):
         fail(f"ragged C={c} {dtype}: pool writes differ from the plain "
              "version")
-    err = max((out[r, :n].float() - want[r, :n].float()).abs().max().item()
-              for r, n in enumerate(qlens) if n)
-    if not err <= TOL[dtype]:
-        fail(f"ragged C={c} {dtype}: max error {err}")
+    mag = [None] * len(qlens)
+    if dtype != torch.float32:
+        m, _, _ = rpa.ragged_paged_attention_reference(
+            q.float(), kn.float(), vn.float().abs(), kr.float(),
+            vr.float().abs(), tables, pos0, lens, slots)
+        mag = [m[r, :n] for r, n in enumerate(qlens)]
+    checks = [check_close(out[r, :n], want[r, :n], mag[r],
+                          f"ragged C={c} {dtype} row {r}")
+              for r, n in enumerate(qlens) if n]
+    err, ratio = max(e for e, _ in checks), max(w for _, w in checks)
     # both write the same values to the same slots: repeating is idempotent
     ms = timer(lambda: rpa.ragged_paged_attention_arrays(*args))
     plain_ms = timer(lambda: rpa.ragged_paged_attention_reference(
@@ -183,8 +216,8 @@ def check_ragged(rpa, timer, rows, c, dtype, seed):
     bms, by = bound_ms(nbytes, flops, dtype)
     lens_s = ",".join(str(r[0]) if r else "pad" for r in rows)
     return dict(shape=f"B={len(rows)} C={c} kv_lens=[{lens_s}] H={h} D={d} "
-                f"block_size={bs}", dtype=str(dtype), max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                f"block_size={bs}", dtype=str(dtype), max_abs_err=err,
+                err_over_limit=ratio, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                 library_ms=None)
 
 
@@ -236,31 +269,36 @@ def serve(model, prompts, device, dtype, ops=None):
 
 
 def profile_decode(model, prompts, dtype, steps=8):
-    """torch.profiler over `steps` steady decode steps (all prompts already
-    prefilled): wall ms per step, the device's busy share (kernel time over
-    wall time), device ops (kernels, copies) per step and the top ones by
-    device time."""
+    """Decode steps 1..`steps` (all prompts already prefilled), run twice on
+    fresh engines: once timed on the host clock alone, once under
+    torch.profiler.  Returns wall ms per step both ways, the device ms per
+    step and device ops (kernels, copies) per step from the profile, the
+    top ones by device time, and the device's busy share of the
+    unprofiled step (the profiler's own host cost lengthens its steps)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.serving import EngineConfig, LLMEngine, \
         SamplingParams
-    eng = LLMEngine(model, EngineConfig(
-        block_size=16, max_num_seqs=8, max_num_batched_tokens=512,
-        device="cuda", dtype=dtype))
-    ids = [eng.add_request(p, SamplingParams(max_new_tokens=NEW_TOKENS))
-           for p in prompts]
-    while eng.step_counts["decode"] == 0:
-        eng.step()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
+    wall = {}
+    for profiled in (False, True):
+        eng = LLMEngine(model, EngineConfig(
+            block_size=16, max_num_seqs=8, max_num_batched_tokens=512,
+            device="cuda", dtype=dtype))
+        ids = [eng.add_request(p, SamplingParams(max_new_tokens=NEW_TOKENS))
+               for p in prompts]
+        while eng.step_counts["decode"] == 0:
             eng.step()
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    for i in ids:
-        eng.release_request(i)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) if profiled \
+                else contextlib.nullcontext() as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                eng.step()
+            torch.cuda.synchronize()
+            wall[profiled] = (time.perf_counter() - t0) * 1e3 / steps
+        for i in ids:
+            eng.release_request(i)
     # device-side events only (kernels, copies): a host op's device time
     # repeats that of the kernels it launched
     kernels = [(ev.self_device_time_total, ev.count, ev.key)
@@ -268,10 +306,11 @@ def profile_decode(model, prompts, dtype, steps=8):
                if ev.device_type == DeviceType.CUDA
                and ev.self_device_time_total > 0]
     kernels.sort(reverse=True)
-    busy_us = sum(k[0] for k in kernels)
-    return {"steps": steps, "wall_ms_per_step": wall * 1e3 / steps,
-            "device_busy_share": busy_us / (wall * 1e6),
-            "device_ms_per_step": busy_us / 1e3 / steps,
+    device_ms = sum(k[0] for k in kernels) / 1e3 / steps
+    return {"steps": steps, "wall_ms_per_step": wall[False],
+            "profiled_wall_ms_per_step": wall[True],
+            "device_busy_share": device_ms / wall[False],
+            "device_ms_per_step": device_ms,
             "device_ops_per_step": sum(k[1] for k in kernels) / steps,
             "top": [{"name": k[2][:90], "ms_per_step": k[0] / 1e3 / steps,
                      "launches_per_step": k[1] / steps}
@@ -338,16 +377,18 @@ def main():
         for c in rows:
             lib = ("" if c["library_ms"] is None
                    else f" library_ms={c['library_ms']:.4f}")
+            tol = (f"tol {TOL_FP32}" if c["dtype"] == str(torch.float32)
+                   else "tol scaled to each output")
             print(f"kernel {name} [{c['shape']} {c['dtype']}] "
-                  f"max_abs_err={c['max_abs_err']:.3g} "
-                  f"(tol {TOL[getattr(torch, c['dtype'].split('.')[1])]}) "
+                  f"max_abs_err={c['max_abs_err']:.3g} ({tol}; "
+                  f"{c['err_over_limit']:.3g} of it) "
                   f"ms={c['ms']:.4f} plain_ms={c['plain_ms']:.4f} "
                   f"bound_ms={c['bound_ms']:.4f} ({c['bound_by']}){lib}",
                   flush=True)
     result["kernel_cases"] = cases
 
     # -- 3. engine ---------------------------------------------------------
-    cfg = gpt2_124m_config(stacked_blocks=True)
+    cfg = gpt2_124m_config()
     model = GPTForCausalLM(cfg, device="cpu",
                            generator=torch.Generator().manual_seed(0))
     rng = np.random.RandomState(0)
@@ -402,7 +443,10 @@ def main():
     result["decode_profile_bf16"] = prof
     if prof["device_ms_per_step"] > 0:
         print(f"decode profile bfloat16: {prof['wall_ms_per_step']:.3f} ms "
-              f"per step, device busy {prof['device_busy_share']:.3f}, "
+              f"per step ({prof['profiled_wall_ms_per_step']:.3f} under the "
+              f"profiler), device {prof['device_ms_per_step']:.3f} ms, "
+              f"busy {prof['device_busy_share']:.3f} of the unprofiled "
+              f"step, "
               f"{prof['device_ops_per_step']:.1f} device ops (kernels, "
               f"copies) per step; top: " + "; ".join(
                   f"{t['name'][:40]} {t['ms_per_step']:.4f} ms"

@@ -26,36 +26,26 @@ __all__ = ["GPTConfig", "GPTForCausalLM", "gpt_test_config",
 
 @dataclasses.dataclass
 class GPTConfig:
+    """The fields of the JAX `GPTConfig` that the port reads.  The others
+    (dropout, MoE, sequence/context/pipeline parallelism, recompute, the
+    block layout) select behaviour the port does not have yet, so they
+    cannot be set: the port always runs the stacked-blocks layout on one
+    device, without dropout."""
     vocab_size: int = 50304
     hidden_size: int = 768
     num_hidden_layers: int = 12
     num_attention_heads: int = 12
     intermediate_size: int = 3072
     max_position_embeddings: int = 1024
-    hidden_dropout_prob: float = 0.0
-    attention_dropout_prob: float = 0.0
     initializer_range: float = 0.02
     layer_norm_epsilon: float = 1e-5
-    use_flash_attention: bool = True
-    sequence_parallel: bool = True
-    context_parallel: bool = False
-    cp_layout: str = "contiguous"
-    moe_every_n: int = 0
-    moe_num_experts: int = 0
-    moe_top_k: int = 2
-    moe_capacity_factor: float = 1.25
-    stacked_blocks: bool = False
-    pp_num_microbatches: int = 0
-    pp_schedule: str = "gpipe"
-    pp_num_chunks: int = 1
-    recompute: bool = False
 
 
 def gpt_test_config(**kw):
     """Tiny config for tests."""
     d = dict(vocab_size=128, hidden_size=64, num_hidden_layers=2,
              num_attention_heads=4, intermediate_size=128,
-             max_position_embeddings=64, sequence_parallel=True)
+             max_position_embeddings=64)
     d.update(kw)
     return GPTConfig(**d)
 
@@ -127,10 +117,6 @@ class GPTForCausalLM(nn.Module):
     def __init__(self, cfg: GPTConfig, device=None, dtype=torch.float32,
                  generator=None):
         super().__init__()
-        if cfg.hidden_dropout_prob or cfg.attention_dropout_prob:
-            raise ValueError("the port serves without dropout")
-        if cfg.moe_every_n > 0:
-            raise ValueError("MoE is not ported yet")
         self.cfg = cfg
         dev = resolve_device(device)
         g = generator if generator is not None \

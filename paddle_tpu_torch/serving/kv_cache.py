@@ -9,17 +9,20 @@ and each sequence owns a block table (list of physical ids), so a request
 holds exactly ``ceil(len / block_size)`` blocks.  The engine's step
 programs write the pools in place.
 
-Host logic ported one-to-one: LIFO free list and refcounts, fork with
-copy-on-write of a shared partially-filled last block, `truncate_to`, and
-bit-exact `swap_out`/`swap_in` for preemption.  Every transition asserts
-the refcount/free-list invariants.
+Host logic ported one-to-one: LIFO free list and refcounts, `truncate_to`,
+and bit-exact `swap_out`/`swap_in` for preemption.  Every transition
+asserts the refcount/free-list invariants.
 
-Left out for later slices: automatic prefix caching (index, LRU parking,
-adoption), int8 pools, and the memory-microscope lifecycle ledger.
+Left out for later slices: fork with copy-on-write of a shared last block,
+automatic prefix caching (index, LRU parking, adoption), int8 pools, and
+the memory-microscope lifecycle ledger.  Until fork is ported no block is
+shared, so `_needs_cow` is always False.
 """
 from __future__ import annotations
 
 import torch
+
+from ..device import resolve_device
 
 __all__ = ["BlockKVCache", "BlockAllocatorError"]
 
@@ -38,14 +41,14 @@ class _Block:
 
 class BlockKVCache:
     def __init__(self, num_layers, num_blocks, block_size, num_heads,
-                 head_dim, dtype=torch.float32, device="cpu"):
+                 head_dim, dtype=torch.float32, device=None):
         self.num_layers = int(num_layers)
         self.num_blocks = int(num_blocks)
         self.block_size = int(block_size)
         self.num_heads = int(num_heads)
         self.head_dim = int(head_dim)
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         shape = (self.num_blocks, self.block_size, self.num_heads,
                  self.head_dim)
         self.k_blocks = [torch.zeros(shape, dtype=dtype, device=self.device)
@@ -158,11 +161,12 @@ class BlockKVCache:
         self._lengths[seq_id] = int(num_tokens)
 
     def grow_to(self, seq_id, num_tokens):
-        """Extend a sequence's table to cover `num_tokens` tokens,
-        copy-on-writing a shared partially-filled last block first."""
+        """Extend a sequence's table to cover `num_tokens` tokens."""
         t = self._tables[seq_id]
         if self._needs_cow(seq_id, num_tokens):
-            self._cow_last_block(seq_id)
+            raise BlockAllocatorError(
+                f"sequence {seq_id} would write a shared block: "
+                "copy-on-write is not ported")
         while len(t) < self.blocks_needed(num_tokens):
             t.append(self._take())
         self._lengths[seq_id] = max(self._lengths[seq_id], int(num_tokens))
@@ -181,28 +185,6 @@ class BlockKVCache:
             self._release(t.pop())
         self._lengths[seq_id] = min(self._lengths[seq_id],
                                     int(num_tokens))
-
-    # -- copy-on-fork -------------------------------------------------------
-
-    def fork(self, parent_id, child_id):
-        """Share the parent's blocks with a new sequence (refcount bump —
-        no copy until one of them appends into the shared last block)."""
-        if child_id in self._tables:
-            raise BlockAllocatorError(f"sequence {child_id} already exists")
-        t = self._tables[parent_id]
-        for idx in t:
-            self._blocks[idx].ref += 1
-        self._tables[child_id] = list(t)
-        self._lengths[child_id] = self._lengths[parent_id]
-
-    def _cow_last_block(self, seq_id):
-        t = self._tables[seq_id]
-        src = t[-1]
-        dst = self._take()
-        for pool in self.k_blocks + self.v_blocks:
-            pool[dst].copy_(pool[src])
-        t[-1] = dst
-        self._release(src)
 
     # -- preemption swap ----------------------------------------------------
 

@@ -6,6 +6,8 @@ identical in a mixed batch, under chunked prefill, and through a
 preemption; the prefill logits agree to 1e-4 (fp32, different reduction
 orders in the two frameworks).
 """
+import dataclasses
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -39,9 +41,7 @@ def jax_model():
 def port_model(jax_model):
     arrays = {n: np.asarray(a) for n, a in
               JaxEngine(jax_model)._param_arrays().items()}
-    m = GPTForCausalLM(gpt_test_config(stacked_blocks=True,
-                                       sequence_parallel=False),
-                       device="cpu")
+    m = GPTForCausalLM(gpt_test_config(), device="cpu")
     return m.load_params(params_from_numpy(arrays, device="cpu"))
 
 
@@ -116,3 +116,21 @@ def test_cuda_engine_raises_without_cuda(port_model, monkeypatch):
         LLMEngine(port_model, EngineConfig(device="cuda"))
     with pytest.raises(RuntimeError, match="CUDA device requested"):
         LLMEngine(port_model)          # device=None means cuda
+
+
+def test_kv_cache_raises_without_cuda(monkeypatch):
+    from paddle_tpu_torch.serving import BlockKVCache
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA device requested"):
+        BlockKVCache(1, 8, 4, 1, 2)    # device=None means cuda
+    assert BlockKVCache(1, 8, 4, 1, 2, device="cpu").k_blocks[0].is_cpu
+
+
+@pytest.mark.parametrize("option", [
+    "stacked_blocks", "sequence_parallel", "use_flash_attention",
+    "context_parallel", "hidden_dropout_prob", "moe_every_n", "recompute"])
+def test_config_has_no_unported_options(option):
+    # the JAX config's field exists, the port's cannot be set
+    assert option in {f.name for f in dataclasses.fields(jax_test_config())}
+    with pytest.raises(TypeError):
+        gpt_test_config(**{option: 1})

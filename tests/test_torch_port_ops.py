@@ -161,9 +161,9 @@ def test_final_layer_norm_matches_jax():
 
 
 def test_kv_cache_counts_match_jax_under_one_op_sequence():
-    mine = BlockKVCache(1, 8, 4, 1, 2)
+    mine = BlockKVCache(1, 8, 4, 1, 2, device="cpu")
     ref = JaxBlockKVCache(1, 8, 4, 1, 2)
-    ops = [("allocate", 0, 6), ("allocate", 1, 3), ("fork", 1, 2),
+    ops = [("allocate", 0, 6), ("allocate", 1, 3), ("allocate", 2, 3),
            ("grow_to", 2, 5), ("grow_to", 0, 9), ("truncate_to", 0, 4),
            ("swap_out", 1), ("free", 2), ("grow_to", 0, 13)]
     saved = {}
