@@ -5,19 +5,35 @@
 Phases, in order; any failure exits non-zero and prints no result line:
 
 1. Card: name and power limit (nvidia-smi); TF32 off for matmuls and cuDNN.
-2. Kernels: build every CUDA source of the serving path with nvcc (all at
-   once), then hold each kernel against its plain PyTorch version on the
-   card at the serving path's shapes, in float32 and bfloat16, and time
-   kernel, plain version and (flash) the PyTorch SDPA call as a yardstick.
-   Tolerances: float32, max absolute error 2e-5 — both sides accumulate
-   in fp32 and differ only in summation order.  bfloat16, per element
-   |out - ref| <= 2^-7 max(|out|, |ref|) + 2^-8 (P |V|): one bf16 step of
-   the output (both sides round it once), plus twice the most that the
-   plain version's rounding of the probabilities to bf16 (2^-9 relative
-   each) can move the value product, P |V| being that product over |V|
-   in fp32.  So the limit follows each output's own magnitude: at rows of
-   hundreds of keys it is ~3e-3, not the ~2e-2 a short row needs.  Pool
-   writes must be bitwise equal.
+2. Kernels: build every CUDA source (all at once), then hold each kernel
+   against its plain PyTorch version on the card, in float32 and bfloat16,
+   and time kernel, plain version and a PyTorch yardstick (SDPA, and for
+   the backward `torch.autograd.grad` through SDPA).  Forward kernels run
+   at the serving path's shapes and (flash) the training shape; the two
+   backward kernels at the training shape (B=8 S=1024 H=12 D=64, q, k, v
+   slices of one fused [B, S, 3, H, D] tensor), a ragged S=200 and S=512
+   H=16 D=128.  Tolerances
+   (`paddle_tpu_torch.ops.tolerance` derives the bf16 ones):
+   - forward, float32: max absolute error 2e-5 — both sides accumulate in
+     fp32 and differ only in summation order.  bfloat16, per element
+     |out - ref| <= 2^-7 max(|out|, |ref|) + 2^-8 (P |V|): one bf16 step
+     of the output (both sides round it once), plus the most that the
+     plain version's rounding of the probabilities to bf16 (at most 2^-8
+     of each, the bf16 unit roundoff) can move the value product, P |V|
+     being that product over |V| in fp32.  So the limit follows each
+     output's own magnitude: at rows of hundreds of keys it is ~3e-3, not
+     the ~2e-2 a short row needs.  Pool writes must be bitwise equal.
+   - backward, float32: max |err| <= 1e-4 max |ref| per gradient — both
+     sides accumulate in fp32 over up to 1024 keys or queries, in
+     different orders.  bfloat16, per element |out - ref| <= 2^-7
+     max(|out|, |ref|) + 2^-7 mag: one bf16 step of the output, plus the
+     rounding of p (for dV) and ds (for dK, dQ) to bf16, which both sides
+     make at the same points but from fp32 values that differ in their
+     last bits, so a value at a rounding boundary may round apart by up
+     to 2^-8 of it on each side; mag is the gradient's sum over
+     magnitudes in fp32 (P^T |dO|, scale W^T |Q|, scale W |K|), with
+     W = P (|dO|.|V|^T + |dO|.|out|) bounding ds = P (dP - delta) also
+     where the difference cancels to fp32 noise (a query's first key).
 3. Engine: GPT-2 124M (full width, 12 layers, random weights from seed 0)
    served by `LLMEngine` with block_size 16, max_num_seqs 8,
    max_num_batched_tokens 512: five greedy prompts of 7, 64, 200, 384 and
@@ -29,7 +45,21 @@ Phases, in order; any failure exits non-zero and prints no result line:
    decode tokens per second; 8 bfloat16 decode steps, timed alone and
    then under torch.profiler, give the device's busy share of a step and
    the top kernels.
-4. Summary: one JSON line of kernels, the card line, then the result line.
+4. Training, float32, card against CPU: GPT-2 124M at full width and
+   depth, weights from seed 0, one fixed random batch of B=1 S=1024,
+   3 AdamW steps (lr 1e-4) through `model(ids)` ->
+   `GPTPretrainingCriterion` -> `backward` -> `AdamW.step`, on the card
+   (kernels) and on the CPU (plain versions).  Step-1 losses agree to
+   1e-5 relative, each step-1 gradient to 1e-3 max |g|, step-3 losses to
+   1e-4 relative; each flash kernel (forward, dQ, dK/dV) launches 12
+   times per step on the card.
+5. Training, bfloat16, full size: B=8 S=1024, bf16 params with fp32
+   AdamW masters (lr 1e-4), 2 warm-up steps then 10 timed steps on one
+   repeated batch.  Every loss finite, step 12's below step 1's, 12
+   launches of each flash kernel per step; prints tokens/s and ms per
+   step, then profiles one step with torch.profiler (device ms, busy
+   share, top kernels).
+6. Summary: one JSON line of kernels, the card line, then the result line.
 
 Every time is a median of CUDA-event timings (L2 flushed before each
 launch); every bound is max(bytes / 3.35 TB/s, FLOPs / peak for the type:
@@ -50,10 +80,20 @@ import torch
 HBM_BPS = 3.35e12
 PEAK = {torch.float32: 67e12, torch.bfloat16: 989e12}
 TOL_FP32 = 2e-5
+BWD_REL_FP32 = 1e-4
+FWD, DQ, DKV, RAGGED = ("flash_fwd_causal", "flash_bwd_dq_causal",
+                        "flash_bwd_dkv_causal", "ragged_paged_attention")
 REPLACES = {
-    "flash_fwd_causal": "paddle_tpu/ops/pallas_ops.py:135",
-    "ragged_paged_attention": "paddle_tpu/ops/ragged_paged_attention.py:125",
+    FWD: "paddle_tpu/ops/pallas_ops.py:135",
+    DQ: "paddle_tpu/ops/pallas_ops.py:210",
+    DKV: "paddle_tpu/ops/pallas_ops.py:272",
+    RAGGED: "paddle_tpu/ops/ragged_paged_attention.py:125",
 }
+# the __global__ functions of paddle_tpu_torch/csrc, as the profiler names
+PORT_SYMBOLS = ("flash_fwd_causal_kernel", "flash_bwd_dq_kernel",
+                "flash_bwd_dkv_kernel", "ragged_write_kernel",
+                "ragged_attend_kernel")
+TRAIN_LR = 1e-4
 
 
 def fail(msg):
@@ -91,21 +131,12 @@ class Timer:
         return statistics.median(times)
 
 
-def check_close(out, want, mag, what):
-    """Hold `out` against `want` at the tolerance of their dtype (module
-    docstring): float32 when `mag` is None, else bfloat16 with `mag` the
-    fp32 value product over |V|.  Returns the max absolute error and the
-    largest ratio of error to limit."""
-    out, want = out.float(), want.float()
-    diff = (out - want).abs()
-    err = diff.max().item()
-    if mag is None:
-        tol = TOL_FP32
-    else:
-        tol = 2.0 ** -7 * torch.maximum(out.abs(), want.abs()) \
-            + 2.0 ** -8 * mag
-    worst = (diff / tol).max().item()
-    if not bool((diff <= tol).all()):          # NaN fails too
+def check_close(tol, out, want, limit, what):
+    """Hold `out` against `want` at `limit` (a number, or a per-element
+    tensor).  Returns the max absolute error and the largest ratio of
+    error to limit."""
+    err, worst, ok = tol.compare(out, want, limit)
+    if not ok:                                 # NaN fails too
         fail(f"{what}: max error {err}, {worst:.3g}x its limit")
     return err, worst
 
@@ -119,16 +150,16 @@ def bound_ms(nbytes, flops, dtype):
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def check_flash(fa, timer, s, h, d, dtype, seed):
+def check_flash(fa, tol, timer, s, h, d, dtype, seed, b=1):
     g = torch.Generator().manual_seed(seed)
-    q, k, v = (torch.randn(1, s, h, d, generator=g).to("cuda", dtype)
+    q, k, v = (torch.randn(b, s, h, d, generator=g).to("cuda", dtype)
                for _ in range(3))
     out = fa.flash_attention_arrays(q, k, v)
     want = fa.mha_reference(q, k, v, is_causal=True)
-    mag = None if dtype == torch.float32 else fa.mha_reference(
-        q.float(), k.float(), v.float().abs(), is_causal=True)
+    limit = TOL_FP32 if dtype == torch.float32 else tol.bf16_limit(
+        out, want, tol.flash_fwd_magnitude(q, k, v), tol.FWD_COEF)
     torch.cuda.synchronize()
-    err, ratio = check_close(out, want, mag,
+    err, ratio = check_close(tol, out, want, limit,
                              f"flash S={s} H={h} D={d} {dtype}")
     ms = timer(lambda: fa.flash_attention_arrays(q, k, v))
     plain_ms = timer(lambda: fa.mha_reference(q, k, v, is_causal=True))
@@ -136,13 +167,70 @@ def check_flash(fa, timer, s, h, d, dtype, seed):
     lib_ms = timer(lambda: torch.nn.functional.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True))
     item = q.element_size()
-    nbytes = 4 * s * h * d * item + 4 * h * s
-    flops = 2 * d * h * s * (s + 1)       # 4*D*H per (query, visible key)
+    nbytes = b * (4 * s * h * d * item + 4 * h * s)
+    flops = 2 * b * d * h * s * (s + 1)   # 4*D per (query, visible key)
     bms, by = bound_ms(nbytes, flops, dtype)
-    return dict(shape=f"B=1 S={s} H={h} D={d}", dtype=str(dtype),
+    return dict(shape=f"B={b} S={s} H={h} D={d}", dtype=str(dtype),
                 max_abs_err=err, err_over_limit=ratio, ms=ms,
                 plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                 library_ms=lib_ms)
+
+
+def check_flash_bwd(fa, tol, timer, b, s, h, d, dtype, seed):
+    """Both backward kernels against the plain backward at one shape, q, k
+    and v slices of one fused [B, S, 3, H, D] tensor.  Returns one case
+    per kernel; ``plain_ms`` and ``library_ms`` are of the whole backward
+    (dQ, dK and dV together), since neither splits."""
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = torch.randn(b, s, 3, h, d, generator=g).to(
+        "cuda", dtype).unbind(2)
+    do = torch.randn(b, s, h, d, generator=g).to("cuda", dtype)
+    scale = d ** -0.5
+    out, lse = fa.flash_attention_arrays(q, k, v, return_lse=True)
+    delta = fa.attention_delta(out, do)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, scale)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, scale)
+    want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, scale)
+    mags = (tol.flash_bwd_magnitudes(q, k, v, out, lse, do, scale)
+            if dtype != torch.float32 else (None,) * 3)
+    torch.cuda.synchronize()
+    checks = {}
+    for name, got, ref, mag in zip(("dq", "dk", "dv"), (dq, dk, dv), want,
+                                   mags):
+        limit = (BWD_REL_FP32 * ref.abs().max().item() if mag is None
+                 else tol.bf16_limit(got, ref, mag, tol.BWD_COEF))
+        checks[name] = check_close(
+            tol, got, ref, limit,
+            f"flash backward {name} B={b} S={s} H={h} D={d} {dtype}")
+    del mags
+    ms_dq = timer(lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, scale))
+    ms_dkv = timer(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, scale))
+    plain_ms = timer(lambda: fa.flash_attention_bwd_reference(
+        q, k, v, out, lse, do, scale), reps=10)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    ot = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt,
+                                                          is_causal=True)
+    dot = do.transpose(1, 2)
+    lib_ms = timer(lambda: torch.autograd.grad(ot, (qt, kt, vt), dot,
+                                               retain_graph=True))
+    item = q.element_size()
+    slab = b * s * h * d * item                # one [B, S, H, D] tensor
+    stats = 2 * b * h * s * 4                  # lse and delta, fp32
+    pairs = b * h * s * (s + 1) // 2           # visible (query, key) pairs
+    shape = f"B={b} S={s} H={h} D={d} fused qkv"
+    cases = {}
+    for kernel, ms, n_out, fl, errs in (
+            (fa.flash_bwd_dq.KERNEL, ms_dq, 1, 6, ("dq",)),
+            (fa.flash_bwd_dkv.KERNEL, ms_dkv, 2, 8, ("dk", "dv"))):
+        bms, by = bound_ms((4 + n_out) * slab + stats, fl * d * pairs, dtype)
+        cases[kernel] = dict(
+            shape=shape, dtype=str(dtype),
+            max_abs_err=max(checks[e][0] for e in errs),
+            err_over_limit=max(checks[e][1] for e in errs), ms=ms,
+            plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+            library_ms=lib_ms)
+    return cases
 
 
 def ragged_case(rows, c, nb, bs, h, d, dtype, seed):
@@ -186,7 +274,7 @@ def ragged_case(rows, c, nb, bs, h, d, dtype, seed):
     return (q, kn, vn, kb, vb, *idx), qlens, nbytes, flops
 
 
-def check_ragged(rpa, timer, rows, c, dtype, seed):
+def check_ragged(rpa, tol, timer, rows, c, dtype, seed):
     nb, bs, h, d = 512, 16, 12, 64          # the GPT-2 engine's pool
     args, qlens, nbytes, flops = ragged_case(rows, c, nb, bs, h, d, dtype,
                                              seed)
@@ -199,13 +287,15 @@ def check_ragged(rpa, timer, rows, c, dtype, seed):
     if not (torch.equal(kb, kr) and torch.equal(vb, vr)):
         fail(f"ragged C={c} {dtype}: pool writes differ from the plain "
              "version")
-    mag = [None] * len(qlens)
+    limits = [TOL_FP32] * len(qlens)
     if dtype != torch.float32:
         m, _, _ = rpa.ragged_paged_attention_reference(
             q.float(), kn.float(), vn.float().abs(), kr.float(),
             vr.float().abs(), tables, pos0, lens, slots)
-        mag = [m[r, :n] for r, n in enumerate(qlens)]
-    checks = [check_close(out[r, :n], want[r, :n], mag[r],
+        limits = [tol.bf16_limit(out[r, :n], want[r, :n], m[r, :n],
+                                 tol.FWD_COEF)
+                  for r, n in enumerate(qlens)]
+    checks = [check_close(tol, out[r, :n], want[r, :n], limits[r],
                           f"ragged C={c} {dtype} row {r}")
               for r, n in enumerate(qlens) if n]
     err, ratio = max(e for e, _ in checks), max(w for _, w in checks)
@@ -217,8 +307,8 @@ def check_ragged(rpa, timer, rows, c, dtype, seed):
     lens_s = ",".join(str(r[0]) if r else "pad" for r in rows)
     return dict(shape=f"B={len(rows)} C={c} kv_lens=[{lens_s}] H={h} D={d} "
                 f"block_size={bs}", dtype=str(dtype), max_abs_err=err,
-                err_over_limit=ratio, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                library_ms=None)
+                err_over_limit=ratio, ms=ms, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by, library_ms=None)
 
 
 # ---------------------------------------------------------------------------
@@ -268,6 +358,35 @@ def serve(model, prompts, device, dtype, ops=None):
     return outs, eng, launches, stats
 
 
+def device_table(prof, steps):
+    """Device ms per step, device ops (kernels, copies) per step, the top
+    ten by device time, and ms per step by group (the port's kernels,
+    cuBLAS matrix products, everything else), from a torch.profiler run
+    over `steps` steps.  Device-side events only: a host op's device time
+    repeats that of the kernels it launched."""
+    from torch.autograd import DeviceType
+    kernels = [(ev.self_device_time_total, ev.count, ev.key)
+               for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA
+               and ev.self_device_time_total > 0]
+    kernels.sort(reverse=True)
+    groups = {"port_kernels": 0.0, "matmul": 0.0, "other": 0.0}
+    for us, _, name in kernels:
+        low = name.lower()
+        if any(n in name for n in PORT_SYMBOLS):
+            group = "port_kernels"
+        elif any(n in low for n in ("nvjet", "gemm", "xmma", "cutlass")):
+            group = "matmul"
+        else:
+            group = "other"
+        groups[group] += us / 1e3 / steps
+    return (sum(k[0] for k in kernels) / 1e3 / steps,
+            sum(k[1] for k in kernels) / steps,
+            [{"name": k[2][:90], "ms_per_step": k[0] / 1e3 / steps,
+              "launches_per_step": k[1] / steps} for k in kernels[:10]],
+            groups)
+
+
 def profile_decode(model, prompts, dtype, steps=8):
     """Decode steps 1..`steps` (all prompts already prefilled), run twice on
     fresh engines: once timed on the host clock alone, once under
@@ -275,7 +394,6 @@ def profile_decode(model, prompts, dtype, steps=8):
     step and device ops (kernels, copies) per step from the profile, the
     top ones by device time, and the device's busy share of the
     unprofiled step (the profiler's own host cost lengthens its steps)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.serving import EngineConfig, LLMEngine, \
         SamplingParams
@@ -299,29 +417,20 @@ def profile_decode(model, prompts, dtype, steps=8):
             wall[profiled] = (time.perf_counter() - t0) * 1e3 / steps
         for i in ids:
             eng.release_request(i)
-    # device-side events only (kernels, copies): a host op's device time
-    # repeats that of the kernels it launched
-    kernels = [(ev.self_device_time_total, ev.count, ev.key)
-               for ev in prof.key_averages()
-               if ev.device_type == DeviceType.CUDA
-               and ev.self_device_time_total > 0]
-    kernels.sort(reverse=True)
-    device_ms = sum(k[0] for k in kernels) / 1e3 / steps
+    device_ms, n_ops, top, groups = device_table(prof, steps)
     return {"steps": steps, "wall_ms_per_step": wall[False],
             "profiled_wall_ms_per_step": wall[True],
             "device_busy_share": device_ms / wall[False],
             "device_ms_per_step": device_ms,
-            "device_ops_per_step": sum(k[1] for k in kernels) / steps,
-            "top": [{"name": k[2][:90], "ms_per_step": k[0] / 1e3 / steps,
-                     "launches_per_step": k[1] / steps}
-                    for k in kernels[:10]]}
+            "device_ops_per_step": n_ops, "top": top,
+            "ms_per_step_by_group": groups}
 
 
 def check_launches(eng, launches, what):
     layers = eng.cfg.num_hidden_layers
-    want = {"flash_fwd_causal": layers * eng.step_counts["prefill"],
-            "ragged_paged_attention": layers * (eng.step_counts["decode"]
-                                                + eng.step_counts["chunk"])}
+    want = {FWD: layers * eng.step_counts["prefill"],
+            RAGGED: layers * (eng.step_counts["decode"]
+                              + eng.step_counts["chunk"])}
     for name, n in want.items():
         if not (launches[name] > 0 and launches[name] == n):
             fail(f"{what}: {name} launched {launches[name]} times, "
@@ -332,6 +441,170 @@ def check_launches(eng, launches, what):
     return want
 
 
+# ---------------------------------------------------------------------------
+# phases 4 and 5: training
+# ---------------------------------------------------------------------------
+
+def make_step(model, lr=TRAIN_LR):
+    """The JAX package's pretraining step on `model` with a fresh AdamW:
+    crit(model(ids), labels) -> backward -> step -> clear_grad.  Returns
+    the step function, which returns the loss (a tensor, not synced) and
+    fills `grads` (when given) with the gradients on the host in fp32, and
+    the optimizer."""
+    from paddle_tpu_torch.models import GPTPretrainingCriterion
+    from paddle_tpu_torch.optimizer import AdamW
+    crit = GPTPretrainingCriterion(model.cfg)
+    opt = AdamW(learning_rate=lr, parameters=model.parameters())
+
+    def step(ids, labels, grads=None):
+        loss = crit(model(ids), labels)
+        loss.backward()
+        if grads is not None:
+            grads.update({n: p.grad.detach().float().cpu()
+                          for n, p in model.named_parameters()})
+        opt.step()
+        opt.clear_grad()
+        return loss.detach()
+
+    return step, opt
+
+
+def check_train_launches(launches, steps, layers, what):
+    want = layers * steps
+    for name in (FWD, DQ, DKV):
+        if launches[name] != want:
+            fail(f"{what}: {name} launched {launches[name]} times, expected "
+                 f"{want} ({layers} per step)")
+    if launches[RAGGED] != 0:
+        fail(f"{what}: the ragged kernel ran during training")
+
+
+def train_fp32_card_vs_cpu(ops, cfg, steps=3, seq=1024):
+    from paddle_tpu_torch.models import GPTForCausalLM
+    rng = np.random.RandomState(1)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (1, seq)))
+    labels = torch.from_numpy(rng.randint(0, cfg.vocab_size, (1, seq)))
+    runs = {}
+    for device in ("cuda", "cpu"):
+        model = GPTForCausalLM(cfg, device=device,
+                               generator=torch.Generator().manual_seed(0))
+        step, _ = make_step(model)
+        grads = {}
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        losses = [step(ids.to(device), labels.to(device),
+                       grads if i == 0 else None).item()
+                  for i in range(steps)]
+        runs[device] = dict(losses=losses, grads=grads,
+                            launches=ops.launch_counts(),
+                            seconds=time.perf_counter() - t0)
+        del model
+    gpu, cpu = runs["cuda"], runs["cpu"]
+    check_train_launches(gpu["launches"], steps, cfg.num_hidden_layers,
+                         "float32 training")
+    if set(cpu["launches"].values()) != {0}:
+        fail(f"float32 training on the CPU launched kernels: "
+             f"{cpu['launches']}")
+    rel = [abs(g - c) / abs(c) for g, c in zip(gpu["losses"], cpu["losses"])]
+    if not all(np.isfinite(gpu["losses"])) or rel[0] > 1e-5 \
+            or rel[-1] > 1e-4:
+        fail(f"float32 training: card losses {gpu['losses']} vs CPU "
+             f"{cpu['losses']} (relative {rel}; limits 1e-5 at step 1, "
+             f"1e-4 at step {steps})")
+    grad_ratio = {}
+    for name, gc in cpu["grads"].items():
+        err = (gpu["grads"][name] - gc).abs().max().item()
+        limit = 1e-3 * gc.abs().max().item()
+        grad_ratio[name] = err / limit if limit else float(err > 0)
+        if not err <= limit:
+            fail(f"float32 training: step-1 gradient of {name} differs by "
+                 f"{err} (limit {limit})")
+    return {"steps": steps, "batch": f"B=1 S={seq}",
+            "card_losses": gpu["losses"], "cpu_losses": cpu["losses"],
+            "loss_rel_diff": rel, "grad_err_over_limit": grad_ratio,
+            "launches": gpu["launches"], "card_s": gpu["seconds"],
+            "cpu_s": cpu["seconds"]}
+
+
+def train_bf16(ops, cfg, batch=8, seq=1024, warmup=2, timed=10):
+    """The full-size bf16 run; returns its record and the launches of all
+    its steps."""
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.models import GPTForCausalLM
+    rng = np.random.RandomState(2)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                       (batch, seq))).cuda()
+    labels = torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                          (batch, seq))).cuda()
+    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                           generator=torch.Generator().manual_seed(0))
+    step, opt = make_step(model)           # multi_precision: fp32 masters
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [step(ids, labels) for _ in range(warmup)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [step(ids, labels) for _ in range(timed)]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / timed
+    launches = ops.launch_counts()
+    losses = [x.item() for x in losses]
+    check_train_launches(launches, warmup + timed, cfg.num_hidden_layers,
+                         "bfloat16 training")
+    if not all(np.isfinite(losses)):
+        fail(f"bfloat16 training: non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"bfloat16 training: loss did not fall, {losses}")
+    if not all(p.dtype == torch.bfloat16 for p in model.parameters()) or \
+            len(opt._master_weights) != len(list(model.parameters())):
+        fail("bfloat16 training: params are not bf16 with fp32 masters")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # one more step, timed alone, then one under the profiler
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(ids, labels)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(ids, labels)
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    device_ms, n_ops, top, groups = device_table(prof, 1)
+    tokens = batch * seq
+    return {"batch": f"B={batch} S={seq}", "warmup": warmup,
+            "timed_steps": timed, "losses": losses, "ms_per_step": step_ms,
+            "tokens_per_s": tokens * 1e3 / step_ms,
+            "peak_memory_gb": peak_gb,
+            "profile": {"wall_ms": wall_ms, "profiled_wall_ms": prof_ms,
+                        "device_ms": device_ms,
+                        "device_busy_share": device_ms / wall_ms,
+                        "device_ops": n_ops, "top": top,
+                        "ms_by_group": groups}}, launches
+
+
+# ---------------------------------------------------------------------------
+
+def print_cases(cases):
+    for name, rows in cases.items():
+        for c in rows:
+            lib = ("" if c["library_ms"] is None
+                   else f" library_ms={c['library_ms']:.4f}")
+            if c["dtype"] != str(torch.float32):
+                tol = "tol scaled to each output"
+            elif name in (FWD, RAGGED):
+                tol = f"tol {TOL_FP32}"
+            else:
+                tol = f"tol {BWD_REL_FP32} max|ref|"
+            print(f"kernel {name} [{c['shape']} {c['dtype']}] "
+                  f"max_abs_err={c['max_abs_err']:.3g} ({tol}; "
+                  f"{c['err_over_limit']:.3g} of it) "
+                  f"ms={c['ms']:.4f} plain_ms={c['plain_ms']:.4f} "
+                  f"bound_ms={c['bound_ms']:.4f} ({c['bound_by']}){lib}",
+                  flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs a GPU")
@@ -340,6 +613,10 @@ def main():
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import ragged_paged_attention as rpa
+    from paddle_tpu_torch.ops import tolerance as tol
+    wrappers = {FWD: fa, DQ: fa.flash_bwd_dq, DKV: fa.flash_bwd_dkv,
+                RAGGED: rpa}
+    assert set(wrappers) == set(ops.launch_counts())
 
     # -- 1. card -----------------------------------------------------------
     card = card_line()
@@ -350,41 +627,39 @@ def main():
               "torch": torch.__version__, "cuda": torch.version.cuda}
 
     # -- 2. kernels --------------------------------------------------------
+    sources = sorted({w.SOURCE for w in wrappers.values()})
     t0 = time.perf_counter()
-    _build.build([fa.KERNEL, rpa.KERNEL])
+    _build.build(sources)
     result["build_s"] = time.perf_counter() - t0
     result["ptxas"] = {}
-    for name in (fa.KERNEL, rpa.KERNEL):
+    for name in sources:
         with open(os.path.join(_build.BUILD_DIR, name + ".log")) as f:
             result["ptxas"][name] = f.read()
-    print(f"built {fa.KERNEL}, {rpa.KERNEL} in {result['build_s']:.1f} s",
+    print(f"built {', '.join(sources)} in {result['build_s']:.1f} s",
           flush=True)
     timer = Timer()
-    cases = {fa.KERNEL: [], rpa.KERNEL: []}
+    cases = {name: [] for name in wrappers}
     decode_rows = [(1024, 1), (700, 1), (513, 1), (384, 1), (200, 1),
                    (64, 1), (7, 1), None]
     for dtype in (torch.float32, torch.bfloat16):
         for s in (7, 200, 384, 512, 700):
-            cases[fa.KERNEL].append(check_flash(fa, timer, s, 12, 64, dtype,
-                                                seed=s))
-        cases[fa.KERNEL].append(check_flash(fa, timer, 512, 16, 128, dtype,
-                                            seed=1))
-        cases[rpa.KERNEL].append(check_ragged(rpa, timer, decode_rows, 1,
-                                              dtype, seed=2))
-        cases[rpa.KERNEL].append(check_ragged(rpa, timer, [(700, 188)], 188,
-                                              dtype, seed=3))
-    for name, rows in cases.items():
-        for c in rows:
-            lib = ("" if c["library_ms"] is None
-                   else f" library_ms={c['library_ms']:.4f}")
-            tol = (f"tol {TOL_FP32}" if c["dtype"] == str(torch.float32)
-                   else "tol scaled to each output")
-            print(f"kernel {name} [{c['shape']} {c['dtype']}] "
-                  f"max_abs_err={c['max_abs_err']:.3g} ({tol}; "
-                  f"{c['err_over_limit']:.3g} of it) "
-                  f"ms={c['ms']:.4f} plain_ms={c['plain_ms']:.4f} "
-                  f"bound_ms={c['bound_ms']:.4f} ({c['bound_by']}){lib}",
-                  flush=True)
+            cases[FWD].append(check_flash(fa, tol, timer, s, 12, 64, dtype,
+                                          seed=s))
+        cases[FWD].append(check_flash(fa, tol, timer, 512, 16, 128, dtype,
+                                      seed=1))
+        cases[FWD].append(check_flash(fa, tol, timer, 1024, 12, 64, dtype,
+                                      seed=4, b=8))      # training shape
+        for b, s, h, d in ((8, 1024, 12, 64), (1, 200, 12, 64),
+                           (1, 512, 16, 128)):
+            for name, c in check_flash_bwd(fa, tol, timer, b, s, h, d, dtype,
+                                           seed=s + d).items():
+                cases[name].append(c)
+            torch.cuda.empty_cache()
+        cases[RAGGED].append(check_ragged(rpa, tol, timer, decode_rows, 1,
+                                          dtype, seed=2))
+        cases[RAGGED].append(check_ragged(rpa, tol, timer, [(700, 188)], 188,
+                                          dtype, seed=3))
+    print_cases(cases)
     result["kernel_cases"] = cases
 
     # -- 3. engine ---------------------------------------------------------
@@ -454,19 +729,64 @@ def main():
     else:
         print("decode profile bfloat16: the profiler recorded no device "
               "time (not measured)", flush=True)
+    del model
+    torch.cuda.empty_cache()
 
-    # -- 4. summary --------------------------------------------------------
-    main_case = {fa.KERNEL: cases[fa.KERNEL][2],          # fp32 S=384
-                 rpa.KERNEL: cases[rpa.KERNEL][0]}         # fp32 decode
+    # -- 4. training, float32, card against CPU ----------------------------
+    tr32 = train_fp32_card_vs_cpu(ops, cfg)
+    result["train_fp32"] = tr32
+    print(f"train float32 GPT-2 124M {tr32['batch']}: card losses "
+          f"{tr32['card_losses']}, CPU {tr32['cpu_losses']} (relative "
+          f"{tr32['loss_rel_diff'][0]:.3g} at step 1, "
+          f"{tr32['loss_rel_diff'][-1]:.3g} at step {tr32['steps']}); "
+          f"step-1 gradients within "
+          f"{max(tr32['grad_err_over_limit'].values()):.3g} of 1e-3 "
+          f"max|g|; launches {tr32['launches']}; card "
+          f"{tr32['card_s']:.1f} s, CPU {tr32['cpu_s']:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+
+    # -- 5. training, bfloat16, full size ----------------------------------
+    tr16, launches_train = train_bf16(ops, cfg)
+    result["train_bf16"] = tr16
+    p = tr16["profile"]
+    print(f"train bfloat16 GPT-2 124M {tr16['batch']}: "
+          f"{tr16['tokens_per_s']:.1f} tokens/s, {tr16['ms_per_step']:.3f} "
+          f"ms per step over {tr16['timed_steps']} steps ({card}); losses "
+          f"{tr16['losses'][0]:.4f} -> {tr16['losses'][-1]:.4f}; peak "
+          f"memory {tr16['peak_memory_gb']:.2f} GB; launches "
+          f"{launches_train}", flush=True)
+    if p["device_ms"] > 0:
+        print(f"train profile bfloat16: one step {p['wall_ms']:.3f} ms "
+              f"({p['profiled_wall_ms']:.3f} under the profiler), device "
+              f"{p['device_ms']:.3f} ms, busy {p['device_busy_share']:.3f}, "
+              f"{p['device_ops']:.0f} device ops; by group (ms) "
+              + ", ".join(f"{k} {v:.3f}" for k, v in p["ms_by_group"].items())
+              + "; top: " + "; ".join(
+                  f"{t['name'][:40]} {t['ms_per_step']:.3f} ms"
+                  for t in p["top"][:8]), flush=True)
+    else:
+        print("train profile bfloat16: the profiler recorded no device "
+              "time (not measured)", flush=True)
+
+    # -- 6. summary --------------------------------------------------------
+    # the serving kernels at fp32 S=384 / the decode step; the backward
+    # kernels at the training shape in bf16, the training path's dtype
+    main_case = {FWD: cases[FWD][2], RAGGED: cases[RAGGED][0],
+                 DQ: cases[DQ][3], DKV: cases[DKV][3]}
+    path_launches = {FWD: launches[FWD], RAGGED: launches[RAGGED],
+                     DQ: launches_train[DQ], DKV: launches_train[DKV]}
     kernels = []
-    for name, c in main_case.items():
+    for name in (FWD, RAGGED, DQ, DKV):
+        c = main_case[name]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"paddle_tpu_torch/csrc/{name}.cu",
-            "replaces": REPLACES[name], "launches": launches[name],
+            "source": f"paddle_tpu_torch/csrc/{wrappers[name].SOURCE}.cu",
+            "replaces": REPLACES[name], "launches": path_launches[name],
             "max_abs_err": c["max_abs_err"], "ms": c["ms"],
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
-            "bound_by": c["bound_by"], "library_ms": c["library_ms"]})
+            "bound_by": c["bound_by"], "library_ms": c["library_ms"],
+            "case": f"{c['shape']} {c['dtype']}"})
+    kernels[0]["launches_training"] = launches_train[FWD]
     result["kernels"] = kernels
     result["expected_launches"] = expected
     os.makedirs("chiprun_out", exist_ok=True)

@@ -6,7 +6,7 @@ import torch
 
 from .device import resolve_device
 
-__all__ = ["params_from_numpy"]
+__all__ = ["params_from_numpy", "params_to_numpy"]
 
 
 def params_from_numpy(d: dict, device=None, dtype=torch.float32) -> dict:
@@ -17,3 +17,10 @@ def params_from_numpy(d: dict, device=None, dtype=torch.float32) -> dict:
     dev = resolve_device(device)
     return {name: torch.from_numpy(np.array(a)).to(
         device=dev, dtype=dtype) for name, a in d.items()}
+
+
+def params_to_numpy(model) -> dict:
+    """The inverse of `params_from_numpy`: {name: float32 np.ndarray} of
+    ``model.param_arrays()``, keyed the same way, copied to the host."""
+    return {name: t.detach().float().cpu().numpy().copy()
+            for name, t in model.param_arrays().items()}

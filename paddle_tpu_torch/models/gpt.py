@@ -1,13 +1,17 @@
 """GPT decoder, stacked-blocks form — the port of the parts of
-`paddle_tpu/models/gpt.py` that serving runs.
+`paddle_tpu/models/gpt.py` that serving and pretraining run.
 
 `GPTForCausalLM` holds every block's weights stacked as ``[L, ...]``
 parameters under the names and shapes of `GPTStackedBlocks`, plus ``wte``,
 ``wpe``, ``lnf_w`` and ``lnf_b``; `param_arrays` returns them keyed like
 the JAX engine's ``_param_arrays``.  The block arithmetic is
 `_stacked_block_body` (pre-LN, tanh-GELU MLP, learned positions).
+``forward`` returns logits and ``pretrain_loss`` the causal-LM loss, both
+differentiable: attention goes through the flash kernels' autograd
+Function on the card.
 
-Left out for later slices: MoE, pipeline execution, dropout, and the dense
+Left out for later slices: MoE, pipeline execution (and the 1F1B fused
+loss), dropout, ``segment_ids``, ``recompute``, and the dense
 ``generate``.
 """
 from __future__ import annotations
@@ -19,8 +23,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
+from ..nn.functional import cross_entropy, layer_norm_arrays
+from ..ops.flash_attention import flash_attention_arrays
 
-__all__ = ["GPTConfig", "GPTForCausalLM", "gpt_test_config",
+__all__ = ["GPTConfig", "GPTForCausalLM", "GPTPretrainingCriterion",
+           "gpt_test_config",
            "gpt2_124m_config", "gpt3_1p3b_config", "gpt3_6p7b_config"]
 
 
@@ -105,8 +112,30 @@ BLOCK_PARAMS = ("ln1_w", "ln1_b", "qkv_w", "qkv_b", "out_w", "out_b",
                 "fc_out_b")
 
 
+def _causal_attn(q, k, v):
+    return flash_attention_arrays(q, k, v, is_causal=True), None
+
+
+class GPTPretrainingCriterion(nn.Module):
+    """Causal-LM loss over logits [B, S, V] and labels [B, S] — the
+    counterpart of `paddle_tpu.models.gpt.GPTPretrainingCriterion`:
+    per-position `cross_entropy` (fp32, ignore_index -100), then with
+    ``loss_mask`` ``sum(loss * mask) / max(sum(mask), 1)``, otherwise the
+    mean over ALL positions, ignored ones counted as 0."""
+
+    def __init__(self, cfg: GPTConfig = None):
+        super().__init__()         # cfg is unused, as in the JAX class
+
+    def forward(self, logits, labels, loss_mask=None):
+        loss = cross_entropy(logits, labels, reduction="none")
+        if loss_mask is not None:
+            mask = torch.as_tensor(loss_mask, device=loss.device).float()
+            return (loss * mask).sum() / mask.sum().clamp(min=1.0)
+        return loss.mean()
+
+
 class GPTForCausalLM(nn.Module):
-    """Stacked-blocks GPT with a tied LM head (inference only).
+    """Stacked-blocks GPT with a tied LM head.
 
     Weights are drawn on the CPU from ``generator`` (a seeded
     `torch.Generator`; default: a fresh one seeded 0) — normal with std
@@ -143,7 +172,37 @@ class GPTForCausalLM(nn.Module):
                 t = torch.empty(shape).normal_(
                     0.0, cfg.initializer_range, generator=g)
             self.register_parameter(name, nn.Parameter(
-                t.to(device=dev, dtype=dtype), requires_grad=False))
+                t.to(device=dev, dtype=dtype)))
+
+    def forward(self, input_ids, position_ids=None):
+        """[B, S] token ids -> [B, S, vocab] logits in the weights' dtype:
+        ``wte[ids] + wpe[pos]``, the blocks with causal flash attention,
+        the final `layer_norm_arrays`, then the tied head ``h @ wte.T`` —
+        the non-pipeline branch of the JAX ``GPTModel.forward`` and
+        ``GPTForCausalLM.forward``.  ``position_ids`` defaults to
+        ``0 .. S-1``."""
+        cfg = self.cfg
+        dev = self.wte.device
+        ids = torch.as_tensor(input_ids, device=dev).long()
+        pos = (torch.arange(ids.shape[-1], device=dev)
+               if position_ids is None
+               else torch.as_tensor(position_ids, device=dev).long())
+        h = self.wte[ids] + self.wpe[pos]
+        nh = cfg.num_attention_heads
+        hd = cfg.hidden_size // nh
+        eps = cfg.layer_norm_epsilon
+        for layer in range(cfg.num_hidden_layers):
+            p = {n: getattr(self, n)[layer] for n in BLOCK_PARAMS}
+            h, _ = _stacked_block_body(p, h, _causal_attn, nh, hd, eps)
+        h = layer_norm_arrays(h, self.lnf_w, self.lnf_b, eps)
+        return h @ self.wte.t()
+
+    def pretrain_loss(self, input_ids, labels, loss_mask=None,
+                      position_ids=None):
+        """``GPTPretrainingCriterion()(self(input_ids), labels,
+        loss_mask)`` — the non-1F1B branch of the JAX ``pretrain_loss``."""
+        return GPTPretrainingCriterion(self.cfg)(
+            self(input_ids, position_ids), labels, loss_mask)
 
     def param_arrays(self) -> dict:
         """{name: tensor} keyed like the JAX engine's ``_param_arrays``."""

@@ -1,6 +1,7 @@
 """Array-level ops of the port: each module pairs a CUDA kernel wrapper
 with its plain PyTorch version (`*_reference`)."""
-from .flash_attention import flash_attention_arrays, mha_reference
+from .flash_attention import (FlashAttention, flash_attention_arrays,
+                              flash_attention_bwd_reference, mha_reference)
 from .paged_attention import (paged_attention_arrays,
                               paged_cache_update_arrays,
                               paged_gather_kv_arrays, slot_mapping)
@@ -8,14 +9,17 @@ from .ragged_paged_attention import (ragged_paged_attention_arrays,
                                      ragged_paged_attention_reference)
 from . import flash_attention, ragged_paged_attention
 
-__all__ = ["flash_attention_arrays", "mha_reference",
+__all__ = ["flash_attention_arrays", "mha_reference", "FlashAttention",
+           "flash_attention_bwd_reference",
            "paged_attention_arrays", "paged_cache_update_arrays",
            "paged_gather_kv_arrays", "slot_mapping",
            "ragged_paged_attention_arrays",
            "ragged_paged_attention_reference", "launch_counts",
            "reset_launch_counts"]
 
-_KERNELS = (flash_attention, ragged_paged_attention)
+# every launch wrapper: a module or object with KERNEL and launches
+_KERNELS = (flash_attention, flash_attention.flash_bwd_dq,
+            flash_attention.flash_bwd_dkv, ragged_paged_attention)
 
 
 def launch_counts() -> dict:

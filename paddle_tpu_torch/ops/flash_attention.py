@@ -1,14 +1,18 @@
-"""Causal flash attention — the port of the flash-forward part of
-`paddle_tpu/ops/pallas_ops.py`.
+"""Causal flash attention — the port of the flash part of
+`paddle_tpu/ops/pallas_ops.py`, forward and backward.
 
-`flash_attention_arrays` launches the CUDA kernel
-``csrc/flash_fwd_causal.cu`` on a CUDA tensor and computes `mha_reference`
-(the plain version, `pallas_ops.py:73`) on a CPU tensor.  Layout
-``[batch, seq, heads, head_dim]``, as in the JAX package.
+`flash_attention_arrays` launches the CUDA kernel ``csrc/flash_fwd_causal.cu``
+on a CUDA tensor and computes `mha_reference` (the plain version,
+`pallas_ops.py:73`) on a CPU tensor.  Under autograd it goes through
+`FlashAttention`, the counterpart of `_flash_attn_core`'s custom_vjp
+(`pallas_ops.py:678-732`): the forward saves the logsumexp, and the
+backward launches the two kernels of ``csrc/flash_bwd_causal.cu``
+(`flash_bwd_dq`, then `flash_bwd_dkv`, as `_flash_bwd` does) on CUDA
+tensors, or computes `flash_attention_bwd_reference` on CPU tensors.
+Layout ``[batch, seq, heads, head_dim]``, as in the JAX package.
 
 Left out for later slices: the additive mask, ``kv_lens`` and packed
-``segment_ids`` variants, non-causal attention on the card, and the
-backward kernels.
+``segment_ids`` variants, and non-causal attention on the card.
 """
 from __future__ import annotations
 
@@ -19,9 +23,12 @@ import torch
 
 from . import _build
 
-__all__ = ["flash_attention_arrays", "mha_reference"]
+__all__ = ["flash_attention_arrays", "mha_reference", "FlashAttention",
+           "flash_attention_bwd_reference", "attention_delta",
+           "flash_bwd_dq", "flash_bwd_dkv"]
 
 KERNEL = "flash_fwd_causal"
+SOURCE = KERNEL       # csrc/<SOURCE>.cu
 launches = 0          # kernel launches since the last reset
 
 _NEG_INF = -1e30
@@ -35,17 +42,56 @@ def mha_reference(q, k, v, is_causal=False, scale=None, return_lse=False):
     to v's dtype.  With ``return_lse`` also the fp32 logsumexp [B, H, Sq]."""
     d = q.shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    logits = _masked_logits(q, k, scale, is_causal)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
+    if return_lse:
+        return out, torch.logsumexp(logits, dim=-1)
+    return out
+
+
+def _masked_logits(q, k, scale, is_causal):
+    """fp32 [B, H, Sq, Sk] logits times scale, -1e30 where masked."""
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     if is_causal:
         sq, sk = logits.shape[-2], logits.shape[-1]
         causal = torch.ones((sq, sk), dtype=torch.bool,
                             device=q.device).tril(sk - sq)
         logits = logits.masked_fill(~causal, _NEG_INF)
-    probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
-    if return_lse:
-        return out, torch.logsumexp(logits, dim=-1)
-    return out
+    return logits
+
+
+def attention_delta(out, do):
+    """``rowsum(float(dO) * float(out))`` as a contiguous fp32 [B, H, Sq]:
+    the ``delta`` of `_flash_bwd` (`pallas_ops.py:548-549`), formed from
+    the STORED output (bf16 in a bf16 run)."""
+    return torch.einsum("bqhd,bqhd->bhq", do.float(),
+                        out.float()).contiguous()
+
+
+def _bwd_plain(q, k, v, do, lse, delta, scale):
+    """The explicit recompute formula of the two backward kernels, with
+    their rounding points: p rounded to dO's dtype before the dV product,
+    ds to q's dtype before the dK product and to k's before the dQ product
+    (`pallas_ops.py:251`, `:313-316`); all products accumulate in fp32."""
+    p = torch.exp(_masked_logits(q, k, scale, True) - lse[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    ds = p * (dp - delta[..., None])
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), do.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).float(),
+                      q.float()) * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(),
+                      k.float()) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_reference(q, k, v, out, lse, do, scale):
+    """Plain causal flash backward: (dq, dk, dv) in the inputs' dtypes from
+    q, k, v [B, S, H, D], the forward's stored ``out`` and fp32 ``lse``
+    [B, H, Sq], and the output gradient ``do``.  Recomputes
+    ``p = exp(s * scale - lse)`` rather than differentiating the forward,
+    as `_flash_bwd` does (`pallas_ops.py:524-625`)."""
+    return _bwd_plain(q, k, v, do, lse, attention_delta(out, do), scale)
 
 
 def _check_qkv(q, k, v):
@@ -55,8 +101,7 @@ def _check_qkv(q, k, v):
                              f"{tuple(t.shape)}")
         if t.device != q.device or t.dtype != q.dtype:
             raise ValueError("q, k, v must share one device and dtype")
-        if t.stride(3) != 1 or (t.shape[2] > 1
-                                and t.stride(2) != t.shape[3]):
+        if not _head_layout(t):
             raise ValueError(f"{name} needs unit stride in D and stride D "
                              f"between heads, got strides {t.stride()}")
     b, sq, h, d = q.shape
@@ -69,6 +114,12 @@ def _check_qkv(q, k, v):
         raise ValueError(f"kernel takes head_dim 64 or 128, got {d}")
     if k.shape[1] < sq:
         raise ValueError("causal attention needs Sk >= Sq")
+
+
+def _head_layout(t):
+    """Unit stride in D and stride D between heads: the layout the kernels
+    index with only batch and sequence strides."""
+    return t.stride(3) == 1 and (t.shape[2] == 1 or t.stride(2) == t.shape[3])
 
 
 def _launch(q, k, v, scale):
@@ -100,21 +151,124 @@ def _lib():
     return lib
 
 
+class _BwdKernel:
+    """Launch wrapper of one kernel of ``csrc/flash_bwd_causal.cu``, with
+    its own launch counter.  ``(q, k, v, do, lse, delta, scale)`` ->
+    ``dq`` (the dQ kernel, one output) or ``(dk, dv)`` (the dK/dV kernel,
+    two), each a contiguous [B, S, H, D] in the inputs' dtype.  On a CUDA
+    tensor it launches the kernel and raises on anything the kernel does
+    not take; on a CPU tensor it computes the same outputs of the plain
+    backward."""
+
+    SOURCE = "flash_bwd_causal"
+
+    def __init__(self, kernel, n_out):
+        self.KERNEL = kernel
+        self.launches = 0          # kernel launches since the last reset
+        self._n_out = n_out
+
+    def __call__(self, q, k, v, do, lse, delta, scale):
+        if not q.is_cuda:
+            dq, dk, dv = _bwd_plain(q, k, v, do, lse, delta, scale)
+            return dq if self._n_out == 1 else (dk, dv)
+        _check_qkv(q, k, v)
+        if do.shape != q.shape or do.dtype != q.dtype \
+                or do.device != q.device or not _head_layout(do):
+            raise ValueError(f"do must match q in shape, dtype, device and "
+                             f"head layout: {tuple(do.shape)} {do.dtype} on "
+                             f"{do.device}, strides {do.stride()}")
+        b, sq, h, d = q.shape
+        sk = k.shape[1]
+        for name, t in (("lse", lse), ("delta", delta)):
+            if (tuple(t.shape) != (b, h, sq) or t.dtype != torch.float32
+                    or not t.is_contiguous() or t.device != q.device):
+                raise ValueError(f"{name} must be a contiguous float32 "
+                                 f"{(b, h, sq)} on {q.device}")
+        rows = sq if self._n_out == 1 else sk
+        outs = [torch.empty((b, rows, h, d), dtype=q.dtype, device=q.device)
+                for _ in range(self._n_out)]
+        err = self._fn()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), *(o.data_ptr() for o in outs),
+            b, h, sq, sk, d, int(q.dtype == torch.bfloat16), q.stride(0),
+            q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+            do.stride(0), do.stride(1), float(scale),
+            torch.cuda.current_stream(q.device).cuda_stream)
+        _build.check(err, self.KERNEL)
+        self.launches += 1
+        return outs[0] if self._n_out == 1 else tuple(outs)
+
+    def _fn(self):
+        fn = getattr(_build.load(self.SOURCE), self.KERNEL)
+        if fn.argtypes is None:
+            vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+            fn.argtypes = ([vp] * (6 + self._n_out) + [i] * 6 + [ll] * 8
+                           + [ctypes.c_float, vp])
+            fn.restype = ctypes.c_int
+        return fn
+
+
+flash_bwd_dq = _BwdKernel("flash_bwd_dq_causal", 1)
+flash_bwd_dkv = _BwdKernel("flash_bwd_dkv_causal", 2)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable causal attention: ``apply(q, k, v, scale)`` ->
+    ``(out, lse)``, lse not differentiable.  Saves ``(q, k, v, out, lse)``
+    — q, k, v are the caller's tensors (views of the fused qkv projection
+    in the GPT block), so nothing but out and lse is added to what the
+    graph keeps, as in the JAX custom_vjp."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        if q.is_cuda:
+            out, lse = _launch(q, k, v, scale)
+        else:
+            out, lse = mha_reference(q, k, v, is_causal=True, scale=scale,
+                                     return_lse=True)
+            out = out.to(q.dtype)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        if not q.is_cuda:
+            dq, dk, dv = flash_attention_bwd_reference(q, k, v, out, lse, do,
+                                                       ctx.scale)
+            return dq, dk, dv, None
+        if not _head_layout(do):
+            # autograd gives no layout guarantee; one copy of [B, S, H, D]
+            do = do.contiguous()
+        delta = attention_delta(out, do)
+        dq = flash_bwd_dq(q, k, v, do, lse, delta, ctx.scale)
+        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, ctx.scale)
+        return dq, dk, dv, None
+
+
 def flash_attention_arrays(q, k, v, is_causal=True, scale=None,
                            return_lse=False):
     """Causal attention over [B, S, H, D].  Returns ``out`` (in q's dtype)
     and, with ``return_lse``, the fp32 logsumexp [B, H, Sq].
 
-    On a CUDA tensor this launches the hand-written kernel — any S, head
-    dims 64 and 128, float32 or bfloat16 — and raises on anything the
-    kernel does not take; it never falls back.  On a CPU tensor it computes
-    `mha_reference`."""
+    On a CUDA tensor this launches the hand-written kernels — any S, head
+    dims 64 and 128, float32 or bfloat16 — and raises on anything they do
+    not take; it never falls back.  On a CPU tensor it computes
+    `mha_reference`.  When grad is enabled and an input requires it, the
+    causal call goes through `FlashAttention`, whose backward is the two
+    backward kernels (CUDA) or the plain backward (CPU)."""
     d = q.shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    if q.is_cuda and not is_causal:
+        raise NotImplementedError(
+            "the CUDA flash kernel is the causal variant only")
+    if is_causal and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v)):
+        out, lse = FlashAttention.apply(q, k, v, scale)
+        return (out, lse) if return_lse else out
     if q.is_cuda:
-        if not is_causal:
-            raise NotImplementedError(
-                "the CUDA flash kernel is the causal variant only")
         out, lse = _launch(q, k, v, scale)
         return (out, lse) if return_lse else out
     out = mha_reference(q, k, v, is_causal=is_causal, scale=scale,

@@ -25,6 +25,7 @@ __all__ = ["ragged_paged_attention_arrays",
            "ragged_paged_attention_reference"]
 
 KERNEL = "ragged_paged_attention"
+SOURCE = KERNEL       # csrc/<SOURCE>.cu
 launches = 0          # kernel launches since the last reset
 
 
