@@ -34,6 +34,16 @@ Phases, in order; any failure exits non-zero and prints no result line:
      magnitudes in fp32 (P^T |dO|, scale W^T |Q|, scale W |K|), with
      W = P (|dO|.|V|^T + |dO|.|out|) bounding ds = P (dP - delta) also
      where the difference cancels to fp32 noise (a query's first key).
+   - the generate kernels, at GPT-2 124M's decode shapes (B=8, H=12,
+     D=64, S_max=1024): flash decode at lengths 1, 257 and 1024 (and
+     H=16 D=128), yardstick SDPA over the prefix; the fused decode layer
+     at t = 1, 511 and 1023 without and with a row mask (no yardstick),
+     whose other ring rows must stay bitwise unchanged; LayerNorm at 8
+     and 8192 rows of 768, yardstick `F.layer_norm`; FFN at 8 and 512
+     rows, H=768 I=3072 gelu_tanh (no yardstick).  float32: 2e-5
+     absolute (FFN 1e-5 max|ref|; LN statistics 1e-5 relative).
+     bfloat16: one bf16 step of each output plus what each side rounds,
+     weighted by what it multiplies (the `tolerance` module docstring).
 3. Engine: GPT-2 124M (full width, 12 layers, random weights from seed 0)
    served by `LLMEngine` with block_size 16, max_num_seqs 8,
    max_num_batched_tokens 512: five greedy prompts of 7, 64, 200, 384 and
@@ -45,7 +55,18 @@ Phases, in order; any failure exits non-zero and prints no result line:
    decode tokens per second; 8 bfloat16 decode steps, timed alone and
    then under torch.profiler, give the device's busy share of a step and
    the top kernels.
-4. Training, float32, card against CPU: GPT-2 124M at full width and
+4. Generate: GPT-2 124M, weights from seed 0, greedy, in the default
+   mode (flash decode per step) and the fused mode (PTPU_FUSED_DECODE=1
+   PTPU_PALLAS_FFN=1: fused layer, LN and FFN per step).  float32, B=8,
+   prompt 256, 32 new tokens: the card's tokens must equal the CPU run's
+   in each mode, and each kernel's launches equal the expected count;
+   the fused-vs-default agreement is reported, not checked (the
+   arithmetic differs).  bfloat16, B=8, prompt 896, 128 new tokens
+   (S_max = 1024): decode tokens/s and ms per step (the time of a
+   prefill-only generate taken off), launches as expected (flash 12, and
+   12 x 127 of the decode kernel or of each fused kernel), the agreement,
+   and 8 decode steps timed alone and under torch.profiler per mode.
+5. Training, float32, card against CPU: GPT-2 124M at full width and
    depth, weights from seed 0, one fixed random batch of B=1 S=1024,
    3 AdamW steps (lr 1e-4) through `model(ids)` ->
    `GPTPretrainingCriterion` -> `backward` -> `AdamW.step`, on the card
@@ -53,17 +74,19 @@ Phases, in order; any failure exits non-zero and prints no result line:
    1e-5 relative, each step-1 gradient to 1e-3 max |g|, step-3 losses to
    1e-4 relative; each flash kernel (forward, dQ, dK/dV) launches 12
    times per step on the card.
-5. Training, bfloat16, full size: B=8 S=1024, bf16 params with fp32
+6. Training, bfloat16, full size: B=8 S=1024, bf16 params with fp32
    AdamW masters (lr 1e-4), 2 warm-up steps then 10 timed steps on one
    repeated batch.  Every loss finite, step 12's below step 1's, 12
    launches of each flash kernel per step; prints tokens/s and ms per
    step, then profiles one step with torch.profiler (device ms, busy
    share, top kernels).
-6. Summary: one JSON line of kernels, the card line, then the result line.
+7. Summary: one JSON line of the eight kernels, the card line, then the
+   result line.
 
 Every time is a median of CUDA-event timings (L2 flushed before each
-launch); every bound is max(bytes / 3.35 TB/s, FLOPs / peak for the type:
-989 TFLOP/s bf16, 67 TFLOP/s fp32), from this run's shapes and data.
+launch, the host's enqueue hidden behind a spin on the stream); every
+bound is max(bytes / 3.35 TB/s, FLOPs / peak for the type: 989 TFLOP/s
+bf16, 67 TFLOP/s fp32), from this run's shapes and data.
 Details go to chiprun_out/chip_smoke.json.
 """
 import contextlib
@@ -81,19 +104,32 @@ HBM_BPS = 3.35e12
 PEAK = {torch.float32: 67e12, torch.bfloat16: 989e12}
 TOL_FP32 = 2e-5
 BWD_REL_FP32 = 1e-4
+FFN_REL_FP32 = 1e-5
 FWD, DQ, DKV, RAGGED = ("flash_fwd_causal", "flash_bwd_dq_causal",
                         "flash_bwd_dkv_causal", "ragged_paged_attention")
+DECODE, FUSED, LN, FFN = ("flash_decode", "fused_decode_layer",
+                          "fused_layernorm", "fused_ffn")
+KERNELS = (FWD, RAGGED, DQ, DKV, DECODE, FUSED, LN, FFN)
 REPLACES = {
     FWD: "paddle_tpu/ops/pallas_ops.py:135",
     DQ: "paddle_tpu/ops/pallas_ops.py:210",
     DKV: "paddle_tpu/ops/pallas_ops.py:272",
     RAGGED: "paddle_tpu/ops/ragged_paged_attention.py:125",
+    DECODE: "paddle_tpu/ops/pallas_ops.py:1008",
+    FUSED: "paddle_tpu/ops/pallas_ops.py:1186",
+    LN: "paddle_tpu/ops/pallas_ops.py:1391",
+    FFN: "paddle_tpu/ops/pallas_ops.py:1548",
 }
 # the __global__ functions of paddle_tpu_torch/csrc, as the profiler names
 PORT_SYMBOLS = ("flash_fwd_causal_kernel", "flash_bwd_dq_kernel",
                 "flash_bwd_dkv_kernel", "ragged_write_kernel",
-                "ragged_attend_kernel")
+                "ragged_attend_kernel", "flash_decode_kernel",
+                "fused_decode_layer_kernel", "ln_fwd_kernel",
+                "fused_ffn_kernel")
 TRAIN_LR = 1e-4
+# the environment flags that select the decode kernels, by generate mode
+GEN_MODES = {"default": {},
+             "fused": {"PTPU_FUSED_DECODE": "1", "PTPU_PALLAS_FFN": "1"}}
 
 
 def fail(msg):
@@ -110,7 +146,10 @@ def card_line():
 
 
 class Timer:
-    """Median CUDA-event time of one call, L2 flushed before each."""
+    """Median CUDA-event time of one call, L2 flushed before each.  A spin
+    of ~1 ms on the stream before the start event lets the host enqueue
+    the call while the card is busy, so the time is the card's and not the
+    host's launch overhead (which would dominate calls of a few us)."""
 
     def __init__(self):
         self.flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
@@ -121,6 +160,7 @@ class Timer:
         times = []
         for _ in range(reps):
             self.flush.zero_()
+            torch.cuda._sleep(2_000_000)
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             s.record()
@@ -311,6 +351,157 @@ def check_ragged(rpa, tol, timer, rows, c, dtype, seed):
                 bound_ms=bms, bound_by=by, library_ms=None)
 
 
+def check_decode(fd, tol, timer, b, s_max, h, d, length, dtype, seed):
+    """The flash-decode kernel against its plain version; q is the
+    [B, 1, H, D] slice of a fused qkv projection, as in the GPT block."""
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(b, 1, 3, h, d, generator=g).to("cuda", dtype)[:, :, 0]
+    kc, vc = (torch.randn(b, s_max, h * d, generator=g).to("cuda", dtype)
+              for _ in range(2))
+    out = fd.flash_decode_arrays(q, kc, vc, length)
+    want = fd.flash_decode_reference(q, kc, vc, length)
+    limit = TOL_FP32 if dtype == torch.float32 else tol.decode_limit(
+        out, want, q, kc, vc, length, d ** -0.5)
+    torch.cuda.synchronize()
+    err, ratio = check_close(tol, out, want, limit,
+                             f"decode B={b} length={length} H={h} D={d} "
+                             f"{dtype}")
+    ms = timer(lambda: fd.flash_decode_arrays(q, kc, vc, length))
+    plain_ms = timer(lambda: fd.flash_decode_reference(q, kc, vc, length))
+    qt = q.transpose(1, 2)
+    kt, vt = (c[:, :length].view(b, length, h, d).transpose(1, 2)
+              for c in (kc, vc))
+    lib_ms = timer(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt))
+    item = q.element_size()
+    nbytes = 2 * b * h * d * item * (length + 1)   # K, V prefix; q, out
+    bms, by = bound_ms(nbytes, 4 * b * h * d * length, dtype)
+    return dict(shape=f"B={b} S_max={s_max} length={length} H={h} D={d}",
+                dtype=str(dtype), max_abs_err=err, err_over_limit=ratio,
+                ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                library_ms=lib_ms, tol=_tol_text(dtype, TOL_FP32))
+
+
+def _tol_text(dtype, fp32):
+    return f"tol {fp32}" if dtype == torch.float32 \
+        else "tol scaled to each output"
+
+
+def check_fused_layer(fdl, tol, timer, b, h, d, s_max, t, masked, dtype,
+                      seed):
+    """The fused decode layer against its plain version: y and the
+    written rows within their limits, every other ring row bitwise
+    unchanged."""
+    hd = h * d
+    g = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to("cuda", dtype)
+
+    args = (rnd(b, hd), 1 + rnd(hd, scale=0.1), rnd(hd, scale=0.1),
+            rnd(hd, 3 * hd, scale=hd ** -0.5), rnd(3 * hd, scale=0.1),
+            rnd(hd, hd, scale=hd ** -0.5), rnd(hd, scale=0.1))
+    kc, vc = rnd(b, s_max, hd), rnd(b, s_max, hd)
+    mask = None
+    if masked:
+        mask = torch.where(torch.rand(b, s_max, generator=g) < 0.3, -1e30,
+                           0.0).cuda()
+    kr, vr = kc.clone(), vc.clone()
+    y, _, _ = fdl.fused_decode_layer_arrays(*args, kc, vc, t, h,
+                                            cache_mask=mask)
+    plain = fdl.fused_decode_plain(*args, kr, vr, t, h, cache_mask=mask)
+    yr, _, _ = fdl.fused_decode_layer_reference(*args, kr, vr, t, h,
+                                                cache_mask=mask)
+    torch.cuda.synchronize()
+    what = f"fused layer B={b} hd={hd} t={t} mask={masked} {dtype}"
+    for c, r in ((kc, kr), (vc, vr)):
+        if not (torch.equal(c[:, :t], r[:, :t])
+                and torch.equal(c[:, t + 1:], r[:, t + 1:])):
+            fail(f"{what}: ring rows other than t changed")
+    if dtype == torch.float32:
+        limits = dict(y=TOL_FP32, k=TOL_FP32, v=TOL_FP32)
+    else:
+        limits = tol.fused_decode_limits(plain, args, kr, vr, t, h,
+                                         d ** -0.5)
+    checks = [check_close(tol, got, ref, limits[name], f"{what} {name}")
+              for name, got, ref in (("y", y, yr), ("k", kc[:, t], kr[:, t]),
+                                     ("v", vc[:, t], vr[:, t]))]
+    # repeating writes the same row: idempotent
+    ms = timer(lambda: fdl.fused_decode_layer_arrays(
+        *args, kc, vc, t, h, cache_mask=mask))
+    plain_ms = timer(lambda: fdl.fused_decode_layer_reference(
+        *args, kr, vr, t, h, cache_mask=mask))
+    item = y.element_size()
+    nbytes = ((4 * hd * hd + 6 * hd) * item      # weights, biases, LN
+              + 2 * b * hd * item                # x, y
+              + 2 * b * (t + 1) * hd * item      # prefix read, row written
+              + (4 * b * t if masked else 0))    # the mask's prefix
+    flops = 8 * b * hd * hd + 4 * b * t * hd
+    bms, by = bound_ms(nbytes, flops, dtype)
+    return dict(shape=f"B={b} hd={hd} H={h} S_max={s_max} t={t} "
+                f"mask={masked}", dtype=str(dtype),
+                max_abs_err=max(e for e, _ in checks),
+                err_over_limit=max(r for _, r in checks), ms=ms,
+                plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                library_ms=None, tol=_tol_text(dtype, TOL_FP32))
+
+
+def check_ln(fm, tol, timer, n, hidden, dtype, seed):
+    """The LayerNorm kernel against its plain version: y, and mu and rstd
+    to 1e-5 relative."""
+    g = torch.Generator().manual_seed(seed)
+    x = (torch.randn(n, hidden, generator=g) * 2 + 0.5).to("cuda", dtype)
+    w = (1 + 0.1 * torch.randn(hidden, generator=g)).to("cuda", dtype)
+    b = (0.1 * torch.randn(hidden, generator=g)).to("cuda", dtype)
+    y, mu, rs = fm.fused_layernorm_arrays(x, w, b, return_stats=True)
+    yr, mur, rsr = fm.fused_layernorm_reference(x, w, b)
+    torch.cuda.synchronize()
+    what = f"layernorm n={n} H={hidden} {dtype}"
+    for name, got, ref in (("mu", mu, mur), ("rstd", rs, rsr)):
+        check_close(tol, got, ref, 1e-5 * ref.abs() + 1e-6, f"{what} {name}")
+    limit = TOL_FP32 if dtype == torch.float32 else tol.bf16_limit(
+        y, yr, tol.ln_magnitude(x, w, b), tol.LN_COEF)
+    err, ratio = check_close(tol, y, yr, limit, what)
+    ms = timer(lambda: fm.fused_layernorm_arrays(x, w, b))
+    plain_ms = timer(lambda: fm.fused_layernorm_reference(x, w, b))
+    lib_ms = timer(lambda: torch.nn.functional.layer_norm(
+        x, (hidden,), w, b, 1e-5))
+    item = x.element_size()
+    nbytes = 2 * n * hidden * item + 2 * hidden * item + 8 * n
+    bms, by = bound_ms(nbytes, 8 * n * hidden, dtype)
+    return dict(shape=f"n={n} H={hidden}", dtype=str(dtype),
+                max_abs_err=err, err_over_limit=ratio, ms=ms,
+                plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                library_ms=lib_ms, tol=_tol_text(dtype, TOL_FP32))
+
+
+def check_ffn(fm, tol, timer, n, hidden, inter, act, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to("cuda", dtype)
+
+    args = (rnd(n, hidden), rnd(hidden, inter, scale=hidden ** -0.5),
+            rnd(inter, scale=0.1), rnd(inter, hidden, scale=inter ** -0.5))
+    y = fm.fused_ffn_arrays(*args, act=act)
+    yr = fm.fused_ffn_reference(*args, act=act)
+    limit = (FFN_REL_FP32 * yr.abs().max().item() if dtype == torch.float32
+             else tol.ffn_limit(*args, act))
+    torch.cuda.synchronize()
+    err, ratio = check_close(tol, y, yr, limit,
+                             f"ffn n={n} H={hidden} I={inter} {act} {dtype}")
+    ms = timer(lambda: fm.fused_ffn_arrays(*args, act=act))
+    plain_ms = timer(lambda: fm.fused_ffn_reference(*args, act=act))
+    item = y.element_size()
+    nbytes = (2 * hidden * inter + inter + 2 * n * hidden) * item
+    bms, by = bound_ms(nbytes, 4 * n * hidden * inter, dtype)
+    return dict(shape=f"n={n} H={hidden} I={inter} {act}", dtype=str(dtype),
+                max_abs_err=err, err_over_limit=ratio, ms=ms,
+                plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                library_ms=None,
+                tol=_tol_text(dtype, f"{FFN_REL_FP32} max|ref|"))
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the engine
 # ---------------------------------------------------------------------------
@@ -442,7 +633,164 @@ def check_launches(eng, launches, what):
 
 
 # ---------------------------------------------------------------------------
-# phases 4 and 5: training
+# phase 4: dense generate
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def decode_mode(mode):
+    """Set the flags of one generate mode (and unset the other's)."""
+    flags = {k for env in GEN_MODES.values() for k in env}
+    saved = {k: os.environ.get(k) for k in flags}
+    for k in flags:
+        os.environ.pop(k, None)
+    os.environ.update(GEN_MODES[mode])
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def check_gen_launches(launches, mode, layers, steps, what):
+    """One flash prefill per layer; per decode step and layer the decode
+    kernel (default) or the fused layer, LN and FFN (fused); nothing
+    else."""
+    want = dict.fromkeys(KERNELS, 0)
+    want[FWD] = layers
+    for name in ((DECODE,) if mode == "default" else (FUSED, LN, FFN)):
+        want[name] = layers * steps
+    if launches != want:
+        fail(f"{what}: launches {launches}, expected {want}")
+    return want
+
+
+def _agreement(a, b, prompt):
+    return float((a[:, prompt:] == b[:, prompt:]).float().mean())
+
+
+def generate_fp32_card_vs_cpu(ops, cfg, batch=8, prompt=256, new=32):
+    """Greedy fp32 generate in both modes on the card (kernels) and on the
+    CPU (plain versions): the tokens must be identical in each mode."""
+    from paddle_tpu_torch.models import GPTForCausalLM
+    rng = np.random.RandomState(3)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (batch, prompt))
+                           .astype(np.int32))
+    models = {dev: GPTForCausalLM(cfg, device=dev,
+                                  generator=torch.Generator().manual_seed(0))
+              for dev in ("cuda", "cpu")}
+    rec, toks = {}, {}
+    for mode in GEN_MODES:
+        out, secs, launches = {}, {}, {}
+        with decode_mode(mode):
+            for dev, model in models.items():
+                ops.reset_launch_counts()
+                t0 = time.perf_counter()
+                out[dev] = model.generate(ids.to(dev),
+                                          max_new_tokens=new).cpu()
+                secs[dev] = time.perf_counter() - t0
+                launches[dev] = ops.launch_counts()
+        what = f"float32 generate ({mode})"
+        want = check_gen_launches(launches["cuda"], mode,
+                                  cfg.num_hidden_layers, new - 1, what)
+        if set(launches["cpu"].values()) != {0}:
+            fail(f"{what} on the CPU launched kernels: {launches['cpu']}")
+        g, c = out["cuda"], out["cpu"]
+        if g.shape != (batch, prompt + new) or g.dtype != torch.int32:
+            fail(f"{what}: output {tuple(g.shape)} {g.dtype}")
+        if not torch.equal(g, c):
+            r, j = (int(i) for i in torch.nonzero(g != c)[0])
+            fail(f"{what}: card tokens differ from the CPU run at row {r} "
+                 f"position {j} (card {int(g[r, j])}, CPU {int(c[r, j])})")
+        toks[mode] = g
+        rec[mode] = {"card_s": secs["cuda"], "cpu_s": secs["cpu"],
+                     "launches": launches["cuda"], "expected": want}
+    rec["fused_vs_default_token_agreement"] = _agreement(
+        toks["fused"], toks["default"], prompt)
+    rec["batch"] = f"B={batch} prompt={prompt} new={new}"
+    return rec
+
+
+def profile_generate(model, ids, steps=8):
+    """Decode steps 1..`steps` after a prefill, through the port's cached
+    forward and greedy argmax (what `generate` runs per token), twice:
+    timed alone on the host clock, then under torch.profiler.  Returns
+    wall ms per step both ways and the device table of the profiled
+    window; the busy share is of the unprofiled step."""
+    from torch.profiler import ProfilerActivity, profile
+    b, p = ids.shape
+    wall = {}
+    for profiled in (False, True):
+        caches = model.init_caches(b, p + steps + 1)
+        with torch.no_grad():
+            tok = torch.argmax(model._forward_cached(ids, caches, 0, True), -1)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) if profiled \
+                    else contextlib.nullcontext() as prof:
+                t0 = time.perf_counter()
+                for i in range(steps):
+                    logits = model._forward_cached(tok[:, None], caches,
+                                                   p + i, False)
+                    tok = torch.argmax(logits, -1)
+                torch.cuda.synchronize()
+                wall[profiled] = (time.perf_counter() - t0) * 1e3 / steps
+    device_ms, n_ops, top, groups = device_table(prof, steps)
+    return {"steps": steps, "wall_ms_per_step": wall[False],
+            "profiled_wall_ms_per_step": wall[True],
+            "device_busy_share": device_ms / wall[False],
+            "device_ms_per_step": device_ms,
+            "device_ops_per_step": n_ops, "top": top,
+            "ms_per_step_by_group": groups}
+
+
+def generate_bf16(ops, cfg, batch=8, prompt=896, new=128):
+    """bf16 generate at GPT-2's full context in both modes: decode
+    tokens/s (the prefill-only generate's time taken off), launch counts,
+    the fused-vs-default agreement and a profiled window per mode.
+    Returns the record and the launches of each mode's timed run."""
+    from paddle_tpu_torch.models import GPTForCausalLM
+    rng = np.random.RandomState(4)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (batch, prompt))
+                           .astype(np.int32)).cuda()
+    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                           generator=torch.Generator().manual_seed(0))
+    rec, toks, path = {}, {}, {}
+    for mode in GEN_MODES:
+        with decode_mode(mode):
+            model.generate(ids[:, :64], max_new_tokens=4)       # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.generate(ids, max_new_tokens=1)
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            toks[mode] = model.generate(ids, max_new_tokens=new)
+            torch.cuda.synchronize()
+            total_s = time.perf_counter() - t0
+            path[mode] = ops.launch_counts()
+            check_gen_launches(path[mode], mode, cfg.num_hidden_layers,
+                               new - 1, f"bfloat16 generate ({mode})")
+            decode_s = total_s - prefill_s
+            rec[mode] = {"total_s": total_s, "prefill_s": prefill_s,
+                         "decode_ms_per_step": decode_s * 1e3 / (new - 1),
+                         "decode_tok_s": batch * (new - 1) / decode_s,
+                         "launches": path[mode],
+                         "profile": profile_generate(model, ids)}
+        if toks[mode].shape != (batch, prompt + new):
+            fail(f"bfloat16 generate ({mode}): output "
+                 f"{tuple(toks[mode].shape)}")
+    rec["fused_vs_default_token_agreement"] = _agreement(
+        toks["fused"], toks["default"], prompt)
+    rec["batch"] = f"B={batch} prompt={prompt} new={new} (S_max=1024)"
+    return rec, path
+
+
+# ---------------------------------------------------------------------------
+# phases 5 and 6: training
 # ---------------------------------------------------------------------------
 
 def make_step(model, lr=TRAIN_LR):
@@ -591,7 +939,9 @@ def print_cases(cases):
         for c in rows:
             lib = ("" if c["library_ms"] is None
                    else f" library_ms={c['library_ms']:.4f}")
-            if c["dtype"] != str(torch.float32):
+            if "tol" in c:
+                tol = c["tol"]
+            elif c["dtype"] != str(torch.float32):
                 tol = "tol scaled to each output"
             elif name in (FWD, RAGGED):
                 tol = f"tol {TOL_FP32}"
@@ -612,10 +962,14 @@ def main():
     from paddle_tpu_torch.models import GPTForCausalLM, gpt2_124m_config
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import flash_decode as fd
+    from paddle_tpu_torch.ops import fused_decode as fdl
+    from paddle_tpu_torch.ops import fused_mlp as fm
     from paddle_tpu_torch.ops import ragged_paged_attention as rpa
     from paddle_tpu_torch.ops import tolerance as tol
     wrappers = {FWD: fa, DQ: fa.flash_bwd_dq, DKV: fa.flash_bwd_dkv,
-                RAGGED: rpa}
+                RAGGED: rpa, DECODE: fd, FUSED: fdl, LN: fm.ln_fwd,
+                FFN: fm.ffn_fwd}
     assert set(wrappers) == set(ops.launch_counts())
 
     # -- 1. card -----------------------------------------------------------
@@ -659,6 +1013,22 @@ def main():
                                           dtype, seed=2))
         cases[RAGGED].append(check_ragged(rpa, tol, timer, [(700, 188)], 188,
                                           dtype, seed=3))
+        for length in (1, 257, 1024):
+            cases[DECODE].append(check_decode(fd, tol, timer, 8, 1024, 12,
+                                              64, length, dtype, length))
+        cases[DECODE].append(check_decode(fd, tol, timer, 8, 1024, 16, 128,
+                                          1024, dtype, 5))
+        for t in (1, 511, 1023):
+            for masked in (False, True):
+                cases[FUSED].append(check_fused_layer(
+                    fdl, tol, timer, 8, 12, 64, 1024, t, masked, dtype,
+                    seed=t + masked))
+        for n in (8, 8192):
+            cases[LN].append(check_ln(fm, tol, timer, n, 768, dtype, n))
+        for n in (8, 512):
+            cases[FFN].append(check_ffn(fm, tol, timer, n, 768, 3072,
+                                        "gelu_tanh", dtype, n))
+        torch.cuda.empty_cache()
     print_cases(cases)
     result["kernel_cases"] = cases
 
@@ -732,7 +1102,49 @@ def main():
     del model
     torch.cuda.empty_cache()
 
-    # -- 4. training, float32, card against CPU ----------------------------
+    # -- 4. dense generate -------------------------------------------------
+    gen32 = generate_fp32_card_vs_cpu(ops, cfg)
+    result["generate_fp32"] = gen32
+    print(f"generate float32 GPT-2 124M {gen32['batch']}: card tokens "
+          f"identical to the CPU run in both modes; launches default "
+          f"{gen32['default']['launches']}, fused "
+          f"{gen32['fused']['launches']} == expected; fused vs default "
+          f"agreement {gen32['fused_vs_default_token_agreement']:.3f}; "
+          f"card {gen32['default']['card_s']:.2f} / "
+          f"{gen32['fused']['card_s']:.2f} s, CPU "
+          f"{gen32['default']['cpu_s']:.1f} / {gen32['fused']['cpu_s']:.1f} "
+          f"s", flush=True)
+    torch.cuda.empty_cache()
+    gen16, launches_gen = generate_bf16(ops, cfg)
+    result["generate_bf16"] = gen16
+    for mode in GEN_MODES:
+        g = gen16[mode]
+        pr = g["profile"]
+        print(f"generate bfloat16 {mode} {gen16['batch']}: decode "
+              f"{g['decode_tok_s']:.1f} tok/s, {g['decode_ms_per_step']:.3f} "
+              f"ms per step ({card}); prefill {g['prefill_s'] * 1e3:.1f} ms; "
+              f"launches {g['launches']}", flush=True)
+        if pr["device_ms_per_step"] > 0:
+            print(f"generate profile bfloat16 {mode}: "
+                  f"{pr['wall_ms_per_step']:.3f} ms per step "
+                  f"({pr['profiled_wall_ms_per_step']:.3f} under the "
+                  f"profiler), device {pr['device_ms_per_step']:.3f} ms, "
+                  f"busy {pr['device_busy_share']:.3f}, "
+                  f"{pr['device_ops_per_step']:.1f} device ops per step; by "
+                  f"group (ms) " + ", ".join(
+                      f"{k} {v:.3f}"
+                      for k, v in pr["ms_per_step_by_group"].items())
+                  + "; top: " + "; ".join(
+                      f"{t['name'][:40]} {t['ms_per_step']:.4f} ms"
+                      for t in pr["top"][:6]), flush=True)
+        else:
+            print(f"generate profile bfloat16 {mode}: the profiler recorded "
+                  f"no device time (not measured)", flush=True)
+    print(f"generate bfloat16: fused vs default token agreement "
+          f"{gen16['fused_vs_default_token_agreement']:.3f}", flush=True)
+    torch.cuda.empty_cache()
+
+    # -- 5. training, float32, card against CPU ----------------------------
     tr32 = train_fp32_card_vs_cpu(ops, cfg)
     result["train_fp32"] = tr32
     print(f"train float32 GPT-2 124M {tr32['batch']}: card losses "
@@ -745,7 +1157,7 @@ def main():
           f"{tr32['card_s']:.1f} s, CPU {tr32['cpu_s']:.1f} s", flush=True)
     torch.cuda.empty_cache()
 
-    # -- 5. training, bfloat16, full size ----------------------------------
+    # -- 6. training, bfloat16, full size ----------------------------------
     tr16, launches_train = train_bf16(ops, cfg)
     result["train_bf16"] = tr16
     p = tr16["profile"]
@@ -768,15 +1180,31 @@ def main():
         print("train profile bfloat16: the profiler recorded no device "
               "time (not measured)", flush=True)
 
-    # -- 6. summary --------------------------------------------------------
+    # -- 7. summary --------------------------------------------------------
     # the serving kernels at fp32 S=384 / the decode step; the backward
-    # kernels at the training shape in bf16, the training path's dtype
+    # kernels at the training shape in bf16, the training path's dtype;
+    # the generate kernels at the bf16 full-context decode step
+    bf16 = str(torch.bfloat16)
+
+    def pick(name, shape):
+        return next(c for c in cases[name]
+                    if c["shape"] == shape and c["dtype"] == bf16)
+
     main_case = {FWD: cases[FWD][2], RAGGED: cases[RAGGED][0],
-                 DQ: cases[DQ][3], DKV: cases[DKV][3]}
+                 DQ: cases[DQ][3], DKV: cases[DKV][3],
+                 DECODE: pick(DECODE, "B=8 S_max=1024 length=1024 H=12 D=64"),
+                 FUSED: pick(FUSED, "B=8 hd=768 H=12 S_max=1024 t=1023 "
+                                    "mask=False"),
+                 LN: pick(LN, "n=8 H=768"),
+                 FFN: pick(FFN, "n=8 H=768 I=3072 gelu_tanh")}
     path_launches = {FWD: launches[FWD], RAGGED: launches[RAGGED],
-                     DQ: launches_train[DQ], DKV: launches_train[DKV]}
+                     DQ: launches_train[DQ], DKV: launches_train[DKV],
+                     DECODE: launches_gen["default"][DECODE],
+                     FUSED: launches_gen["fused"][FUSED],
+                     LN: launches_gen["fused"][LN],
+                     FFN: launches_gen["fused"][FFN]}
     kernels = []
-    for name in (FWD, RAGGED, DQ, DKV):
+    for name in KERNELS:
         c = main_case[name]
         kernels.append({
             "name": name, "route": "cuda",

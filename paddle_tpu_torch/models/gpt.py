@@ -1,5 +1,6 @@
 """GPT decoder, stacked-blocks form — the port of the parts of
-`paddle_tpu/models/gpt.py` that serving and pretraining run.
+`paddle_tpu/models/gpt.py` that serving, pretraining and dense generation
+run.
 
 `GPTForCausalLM` holds every block's weights stacked as ``[L, ...]``
 parameters under the names and shapes of `GPTStackedBlocks`, plus ``wte``,
@@ -10,13 +11,25 @@ the JAX engine's ``_param_arrays``.  The block arithmetic is
 differentiable: attention goes through the flash kernels' autograd
 Function on the card.
 
+``generate`` is the dense KV-cache decode of the JAX ``generate``: per-layer
+flat ``[B, S_max, H*D]`` rings (`init_caches`), a causal flash prefill,
+then one cached forward per token, driven from the host.  A decode step
+runs each layer as the JAX unrolled cached forward does
+(`_forward_cached_unrolled`, `gpt.py:627-695`): by default the block body
+with `ops.cached_attention_arrays` (the flash-decode kernel); under
+``PTPU_FUSED_DECODE=1`` the attention half as one fused-layer kernel,
+and under ``PTPU_PALLAS_FFN=1`` as well the MLP half as the fused
+LayerNorm and FFN kernels.
+
 Left out for later slices: MoE, pipeline execution (and the 1F1B fused
-loss), dropout, ``segment_ids``, ``recompute``, and the dense
-``generate``.
+loss), dropout, ``segment_ids``, ``recompute``, padded-prompt
+``generate(pad_token_id=...)``, the stacked-cache layer-scan decode, and
+CUDA-graph capture of the decode step.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import torch
 import torch.nn.functional as F
@@ -25,10 +38,16 @@ from torch import nn
 from ..device import resolve_device
 from ..nn.functional import cross_entropy, layer_norm_arrays
 from ..ops.flash_attention import flash_attention_arrays
+from ..ops.flash_decode import cached_attention_arrays
+from ..ops.fused_decode import fused_decode_layer_arrays, fused_decode_ok
+from ..ops.fused_mlp import (fused_ffn_arrays, fused_layernorm_arrays,
+                             ln_block_rows)
 
 __all__ = ["GPTConfig", "GPTForCausalLM", "GPTPretrainingCriterion",
            "gpt_test_config",
            "gpt2_124m_config", "gpt3_1p3b_config", "gpt3_6p7b_config"]
+
+_NEG_INF = -1e30
 
 
 @dataclasses.dataclass
@@ -94,6 +113,67 @@ def _stacked_mlp(p, h, eps):
     hn = _stacked_ln(h, p["ln2_w"], p["ln2_b"], eps)
     m = F.gelu(hn @ p["fc_in_w"] + p["fc_in_b"], approximate="tanh")
     return h + m @ p["fc_out_w"] + p["fc_out_b"]
+
+
+def _stacked_mlp_fused_decode(p, h, eps):
+    """The decode step's MLP half through the fused LayerNorm and FFN
+    kernels — `gpt.py:381-410`: the same arithmetic as `_stacked_mlp`
+    (gelu_tanh).  Returns None, and the caller runs `_stacked_mlp`, unless
+    ``PTPU_PALLAS_FFN == "1"``, the activations and both FFN weights share
+    one dtype, H and I are multiples of 128 and the row count has a JAX
+    row block (a multiple of 8)."""
+    if os.environ.get("PTPU_PALLAS_FFN") != "1":
+        return None
+    mb, s, H = h.shape
+    I = p["fc_in_w"].shape[-1]
+    if not (h.dtype == p["fc_in_w"].dtype == p["fc_out_w"].dtype
+            and H % 128 == 0 and I % 128 == 0
+            and ln_block_rows(mb * s) is not None):
+        return None
+    hn = fused_layernorm_arrays(h, p["ln2_w"], p["ln2_b"], eps)
+    m = fused_ffn_arrays(hn, p["fc_in_w"], p["fc_in_b"], p["fc_out_w"],
+                         act="gelu_tanh")
+    return h + m + p["fc_out_b"]
+
+
+def _cached_attn_arrays(q, k, v, kc, vc, t, prefill):
+    """Prefill / decode cached attention (`gpt.py:329-361`).  At the
+    static prefill (position 0) the rings beyond the chunk are empty, so
+    causal flash attention over the chunk plus the ring write at rows
+    ``[0, S)`` is exact; a decode step goes to `cached_attention_arrays`.
+    The rings are written in place."""
+    if prefill:
+        b, s = k.shape[0], k.shape[1]
+        kc[:, :s] = k.reshape(b, s, -1).to(kc.dtype)
+        vc[:, :s] = v.reshape(b, s, -1).to(vc.dtype)
+        return flash_attention_arrays(q, k, v, is_causal=True)
+    out, _, _ = cached_attention_arrays(q, k, v, kc, vc, t)
+    return out
+
+
+def _sample_next(logits, do_sample, temperature, top_k, top_p,
+                 generator=None):
+    """Next token of each row of [B, V] fp32 logits (`gpt.py:824-844`):
+    greedy argmax (the first maximal index), or temperature, then top-k,
+    then top-p (nucleus) filtering with -1e30, then one draw per row from
+    ``generator``.  Returns int64 [B]."""
+    if not do_sample:
+        return torch.argmax(logits, dim=-1)
+    ll = logits / max(float(temperature), 1e-6)
+    v = ll.shape[-1]
+    if top_k and top_k > 0:
+        asc = torch.sort(ll, dim=-1).values
+        kth = asc[:, min(max(v - int(top_k), 0), v - 1)]
+        ll = ll.masked_fill(ll < kth[:, None], _NEG_INF)
+    if top_p is not None and top_p < 1.0:
+        desc = torch.sort(ll, dim=-1, descending=True).values
+        probs = torch.softmax(desc, dim=-1)
+        keep = torch.cumsum(probs, dim=-1) - probs <= top_p
+        thresh = torch.where(keep, desc, torch.full_like(desc, float("inf"))
+                             ).min(dim=-1, keepdim=True).values
+        ll = ll.masked_fill(ll < thresh, _NEG_INF)
+    probs = torch.softmax(ll, dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0]
 
 
 def _stacked_block_body(p, h, attn_fn, nh, hd, eps):
@@ -224,3 +304,113 @@ class GPTForCausalLM(nn.Module):
                                  f"{tuple(mine[name].shape)}")
             mine[name].copy_(t)
         return self
+
+    # -- autoregressive decoding -------------------------------------------
+    def init_caches(self, batch_size, max_length, dtype=None):
+        """Per-layer ``(k, v)`` flat rings ``[B, S_max, H*D]`` of zeros on
+        the model's device, ``S_max`` = ``max_length`` rounded up to 128
+        (`gpt.py:973-1000`; only the valid prefix is ever read).  ``dtype``
+        defaults to the weights'.  The JAX package switches to stacked
+        ``[L, ...]`` caches above 32 layers, a trade of its layer scan;
+        the port always takes the per-layer form."""
+        cfg = self.cfg
+        s_max = -(-max_length // 128) * 128
+        shape = (batch_size, s_max, cfg.hidden_size)
+        dt = dtype or self.wte.dtype
+        return [tuple(torch.zeros(shape, dtype=dt, device=self.wte.device)
+                      for _ in range(2))
+                for _ in range(cfg.num_hidden_layers)]
+
+    def _forward_cached(self, input_ids, caches, t, prefill):
+        """[B, S] ids at absolute positions ``t .. t+S-1`` through every
+        layer with the rings (written in place) -> the last position's fp32
+        logits [B, V] — the cached branch of the JAX ``GPTModel.forward``
+        with `_forward_cached_unrolled`, then ``ln_f`` and the tied head
+        on the last position only (its rows are independent)."""
+        cfg = self.cfg
+        nh = cfg.num_attention_heads
+        hd = cfg.hidden_size // nh
+        eps = cfg.layer_norm_epsilon
+        ids = input_ids.long()
+        pos = t + torch.arange(ids.shape[1], device=ids.device)
+        h = self.wte[ids] + self.wpe[pos]
+        mb, s, H = h.shape
+        fused = (not prefill and s == 1 and fused_decode_ok(
+            h, self.qkv_w, caches[0][0], caches[0][1]))
+        for layer, (kc, vc) in enumerate(caches):
+            p = {n: getattr(self, n)[layer] for n in BLOCK_PARAMS}
+            if fused:
+                y, _, _ = fused_decode_layer_arrays(
+                    h.reshape(mb, H), p["ln1_w"], p["ln1_b"], p["qkv_w"],
+                    p["qkv_b"], p["out_w"], p["out_b"], kc, vc, t, nh, eps)
+                y3 = y.reshape(mb, 1, H)
+                h = _stacked_mlp_fused_decode(p, y3, eps)
+                if h is None:
+                    h = _stacked_mlp(p, y3, eps)
+                continue
+
+            def attn_fn(q, k, v, kc=kc, vc=vc):
+                return _cached_attn_arrays(q, k, v, kc, vc, t, prefill), None
+
+            h, _ = _stacked_block_body(p, h, attn_fn, nh, hd, eps)
+        hn = layer_norm_arrays(h[:, -1], self.lnf_w, self.lnf_b, eps)
+        return (hn @ self.wte.t()).float()
+
+    @torch.no_grad()
+    def generate(self, input_ids, max_new_tokens=32, do_sample=False,
+                 temperature=1.0, top_k=0, top_p=1.0, eos_token_id=None,
+                 seed=None, pad_token_id=None):
+        """KV-cache autoregressive decoding with the semantics of the JAX
+        ``GPTForCausalLM.generate`` (`gpt.py:1002-1210`): a prefill at
+        position 0, then one cached forward per token and none after the
+        last; greedy by default, temperature / top-k / top-p with
+        ``do_sample`` (drawn from a `torch.Generator` seeded by ``seed``, so
+        not JAX's stream); rows that emitted ``eos_token_id`` keep emitting
+        it and the loop stops when every row has.  Returns ``[B, P + n]``
+        int32 on the model's device.
+
+        The loop is driven from the host and syncs with it only to test
+        the finished flags when ``eos_token_id`` is set."""
+        if pad_token_id is not None:
+            raise NotImplementedError(
+                "padded-prompt generate (pad_token_id) needs the masked "
+                "flash forward; it is ROADMAP Queue 1 'Next' item 1, with "
+                "Queue 2 item 2's masked variant")
+        cfg = self.cfg
+        dev = self.wte.device
+        ids = torch.as_tensor(input_ids).to(dev, torch.int32)
+        if ids.dim() == 1:
+            ids = ids[None]
+        if max_new_tokens <= 0:
+            return ids
+        b, prompt = ids.shape
+        total = prompt + max_new_tokens
+        if total > cfg.max_position_embeddings:
+            raise ValueError(
+                f"prompt ({prompt}) + max_new_tokens ({max_new_tokens}) "
+                f"exceeds max_position_embeddings "
+                f"({cfg.max_position_embeddings})")
+        generator = None
+        if do_sample:
+            generator = torch.Generator(device=dev)
+            if seed is not None:
+                generator.manual_seed(int(seed))
+            else:
+                generator.seed()
+        caches = self.init_caches(b, total)
+        logits = self._forward_cached(ids, caches, 0, prefill=True)
+        finished = torch.zeros(b, dtype=torch.bool, device=dev)
+        toks = []
+        for i in range(max_new_tokens):
+            tok = _sample_next(logits, do_sample, temperature, top_k, top_p,
+                               generator)
+            if eos_token_id is not None:
+                tok = torch.where(finished, eos_token_id, tok)
+                finished |= tok == eos_token_id
+            toks.append(tok)
+            if i + 1 == max_new_tokens or (
+                    eos_token_id is not None and bool(finished.all())):
+                break
+            logits = self._forward_cached(tok[:, None], caches, prompt + i,
+                                          prefill=False)
+        return torch.cat([ids, torch.stack(toks, 1).to(torch.int32)], 1)

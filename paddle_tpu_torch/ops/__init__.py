@@ -2,15 +2,27 @@
 with its plain PyTorch version (`*_reference`)."""
 from .flash_attention import (FlashAttention, flash_attention_arrays,
                               flash_attention_bwd_reference, mha_reference)
+from .flash_decode import (cached_attention_arrays, flash_decode_arrays,
+                           flash_decode_reference)
+from .fused_decode import (fused_decode_layer_arrays,
+                           fused_decode_layer_reference)
+from .fused_mlp import (fused_ffn_arrays, fused_ffn_reference,
+                        fused_layernorm_arrays, fused_layernorm_reference)
 from .paged_attention import (paged_attention_arrays,
                               paged_cache_update_arrays,
                               paged_gather_kv_arrays, slot_mapping)
 from .ragged_paged_attention import (ragged_paged_attention_arrays,
                                      ragged_paged_attention_reference)
-from . import flash_attention, ragged_paged_attention
+from . import (flash_attention, flash_decode, fused_decode, fused_mlp,
+               ragged_paged_attention)
 
 __all__ = ["flash_attention_arrays", "mha_reference", "FlashAttention",
            "flash_attention_bwd_reference",
+           "cached_attention_arrays", "flash_decode_arrays",
+           "flash_decode_reference", "fused_decode_layer_arrays",
+           "fused_decode_layer_reference", "fused_layernorm_arrays",
+           "fused_layernorm_reference", "fused_ffn_arrays",
+           "fused_ffn_reference",
            "paged_attention_arrays", "paged_cache_update_arrays",
            "paged_gather_kv_arrays", "slot_mapping",
            "ragged_paged_attention_arrays",
@@ -19,7 +31,8 @@ __all__ = ["flash_attention_arrays", "mha_reference", "FlashAttention",
 
 # every launch wrapper: a module or object with KERNEL and launches
 _KERNELS = (flash_attention, flash_attention.flash_bwd_dq,
-            flash_attention.flash_bwd_dkv, ragged_paged_attention)
+            flash_attention.flash_bwd_dkv, ragged_paged_attention,
+            flash_decode, fused_decode, fused_mlp.ln_fwd, fused_mlp.ffn_fwd)
 
 
 def launch_counts() -> dict:

@@ -5,9 +5,10 @@ Each source becomes its own shared library with a plain C interface:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -o csrc/build/<name>-<hash>.so csrc/<name>.cu
 
-The file name carries a hash of the source and the flags, so an edited
-kernel is rebuilt and an unchanged one is loaded from the build directory
-(listed in ``.gitignore``).  Nothing here runs at import time: the CPU
+The file name carries a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited kernel or header is rebuilt
+and an unchanged one is loaded from the build directory (listed in
+``.gitignore``).  Nothing here runs at import time: the CPU
 tests import every module on a machine with no ``nvcc``.
 """
 from __future__ import annotations
@@ -45,8 +46,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(SRC_DIR, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(FLAGS).encode())
+    digest = hashlib.sha256(" ".join(FLAGS).encode())
+    headers = sorted(f for f in os.listdir(SRC_DIR) if f.endswith(".cuh"))
+    for f in [name + ".cu"] + headers:
+        with open(os.path.join(SRC_DIR, f), "rb") as fh:
+            digest.update(fh.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 

@@ -28,19 +28,74 @@ with ``mag`` that sum taken over magnitudes in fp32:
   w = p (|dO|.|v| + |dO|.|out|), not by |ds|.  If every term of the sum
   rounded apart, the gradients would differ by 2^-7 times P^T|dO| (dV),
   scale W^T|Q| (dK) and scale W|K| (dQ) (`flash_bwd_magnitudes`).
+- decode (``coef = DECODE_COEF = 2^-7``): both sides round each
+  probability to bf16, the plain version ``exp(s - m)`` at the row's
+  final max, the kernel at the running max of its key tile (then scaled
+  in fp32), so each is within 2^-8 of the exact product and the two
+  within 2^-7 P|V| (`decode_magnitude`).
+- LayerNorm (``coef = LN_COEF = 2^-20``): one bf16 step of the output,
+  plus the fp32 noise of what cancels in it.  The two sides sum the mean
+  in other orders (mu may differ by an ulp, a few 2^-24 of mean|x|) and
+  the kernel fuses the last multiply-add, so where x is close to mu, or
+  ``(x - mu) rstd w`` close to ``-b``, y's error is a few fp32 ulps of
+  those terms, not of y: `ln_magnitude` = ``(|x - mu| + mean|x|) rstd
+  |w| + |b|``, with 2^-20 leaving room for the error of the statistics.
+
+Chains of rounded intermediates (the fused decode layer and the FFN,
+`fused_decode_limits`, `ffn_limit`) are bounded stage by stage through
+the plain version.  Where both sides round to bf16 fp32 values that are
+within ``e`` of each other, the rounded values differ by at most
+``rounding_spread(v, e) = |round(v + e) - round(v - e)|``: one bf16 step
+where v lies within e of a rounding boundary, 0 elsewhere (rounding is
+monotonic).  Two fp32 sums of the same terms in other orders differ by
+at most ``FP32_SUM = 2^-16`` of the sum of the terms' magnitudes (about
+sqrt(n) 2^-24 is typical for the n <= 3072 terms here), and an input
+that may differ by d moves a product by d times the magnitudes it
+multiplies.
+
+- FFN: ``u = x W1 + b1`` within ``FP32_SUM (|x| |W1| + |b1|)``; h =
+  act(u) within 1.2 times that (the slope of gelu is at most 1.13, of
+  relu 1); h rounded differs by ``dh``, its spread; ``y32 = h W2`` within
+  ``dh |W2| + FP32_SUM |h| |W2|``; the limit of y is the spread of y32.
+- fused decode layer: xn (LN1) within ``LN_COEF`` of its LN terms (as
+  the LayerNorm limit), rounded to ``dxn``; q, k, v within ``e_qkv = dxn |Wqkv| +
+  FP32_SUM (|xn| |Wqkv| + |bqkv|)`` -- the written K and V rows' limit is
+  their spread; the score of key j within ``ds_j = scale (e_q . |k_j| +
+  FP32_SUM |q| . |k_j|)``, plus ``scale |q| . e_k`` for the current
+  token's key; shifts ds_j of the scores move the normalised
+  probabilities by ``p_j (ds_j + P ds)`` at most, so the attention output
+  is within ``P (ds |V|) + (P ds) P|V|``, plus ``2^-7 P|V|`` (each side
+  rounds p, at its final or running max, within 2^-8), ``p_self e_v`` and
+  ``FP32_SUM P|V|``, rounded to ``da``; ``y32 = x + (a Wo + bo)`` within
+  ``da |Wo| + FP32_SUM (|a| |Wo| + |bo| + |x|)``; the limit of y is the
+  spread of y32.
+
+A kernel whose partner rounds each ``q_d k_d`` product to bf16 before the
+per-head sum (the TPU decode kernels) moves each score by up to
+``qk_rounding * scale * sum_d |q_d k_d|`` more; the decode and fused-layer
+helpers take that as ``qk_rounding`` (2^-8 there, 0 against the port's
+plain versions).
 """
 from __future__ import annotations
 
 import torch
 
 from .flash_attention import _masked_logits, attention_delta, mha_reference
+from .flash_decode import flash_decode_reference
+from .fused_mlp import _act, fused_layernorm_reference
 
-__all__ = ["BF16_STEP", "FWD_COEF", "BWD_COEF", "bf16_limit", "compare",
-           "flash_fwd_magnitude", "flash_bwd_magnitudes"]
+__all__ = ["BF16_STEP", "FWD_COEF", "BWD_COEF", "DECODE_COEF", "LN_COEF",
+           "FP32_SUM", "bf16_limit", "compare", "flash_fwd_magnitude",
+           "flash_bwd_magnitudes", "decode_magnitude", "decode_limit",
+           "ln_magnitude", "rounding_spread", "fused_decode_limits",
+           "ffn_limit"]
 
 BF16_STEP = 2.0 ** -7
 FWD_COEF = 2.0 ** -8
 BWD_COEF = 2.0 ** -7
+DECODE_COEF = 2.0 ** -7
+LN_COEF = 2.0 ** -20
+FP32_SUM = 2.0 ** -16
 
 
 def bf16_limit(out, want, mag, coef):
@@ -77,3 +132,95 @@ def flash_bwd_magnitudes(q, k, v, out, lse, do, scale):
     mag_dk = torch.einsum("bhqk,bqhd->bkhd", w, q.float().abs()) * scale
     mag_dv = torch.einsum("bhqk,bqhd->bkhd", p, ado)
     return mag_dq, mag_dk, mag_dv
+
+
+def decode_magnitude(q, k_cache, v_cache, length, scale=None):
+    """P|V| [B, 1, H, D] in fp32: the plain decode of the widened inputs
+    with |V| (no rounding of p in fp32)."""
+    return flash_decode_reference(q.float(), k_cache.float(),
+                                  v_cache.float().abs(), length, scale)
+
+
+def _qk_abs_max(qa, keys):
+    """max over keys of sum_d |q_d| |k_d|: qa [B, H, D], keys [B, K, H, D]
+    -> [B, H]."""
+    return torch.einsum("bhd,bkhd->bhk", qa, keys.abs()).amax(-1)
+
+
+def decode_limit(out, want, q, k_cache, v_cache, length, scale,
+                 qk_rounding=0.0):
+    """Per-element bf16 limit of a decode output against ``want``."""
+    mag = decode_magnitude(q, k_cache, v_cache, length, scale)
+    limit = bf16_limit(out, want, mag, DECODE_COEF)
+    if qk_rounding:
+        b, _, h, d = q.shape
+        keys = k_cache[:, :length].reshape(b, length, h, d).float()
+        ds = qk_rounding * scale * _qk_abs_max(q[:, 0].float().abs(), keys)
+        limit = limit + 2 * ds[:, None, :, None] * mag
+    return limit
+
+
+def ln_magnitude(x2, w, b, eps=1e-5):
+    """(|x - mu| + mean|x|) rstd |w| + |b| [n, H] in fp32, from the plain
+    statistics."""
+    _, mu, rs = fused_layernorm_reference(x2, w, b, eps)
+    x = x2.float()
+    return (((x - mu).abs() + x.abs().mean(-1, keepdim=True)) * rs
+            * w.float().abs() + b.float().abs())
+
+
+def rounding_spread(v32, e, dtype):
+    """|round(v32 + e) - round(v32 - e)| in fp32, rounding to ``dtype``: how
+    far apart two values within ``e`` of ``v32`` can round."""
+    return ((v32 + e).to(dtype).float() - (v32 - e).to(dtype).float()).abs()
+
+
+def fused_decode_limits(plain, args, k_cache, v_cache, t, n_heads, scale,
+                        eps=1e-5, qk_rounding=0.0):
+    """{"y", "k", "v"}: per-element limits of y and of the written K and V
+    rows (module docstring), from ``plain`` = `fused_decode_plain` of the
+    same inputs ``args = (x, ln_w, ln_b, wqkv, bqkv, wo, bo)`` and rings."""
+    x, ln_w, ln_b, wqkv, bqkv, wo, bo = args
+    b, hd = x.shape
+    h, d = n_heads, hd // n_heads
+    wdt, cdt = wqkv.dtype, k_cache.dtype
+    e_xn = LN_COEF * ln_magnitude(x, ln_w, ln_b, eps)
+    dxn = rounding_spread(plain["xn32"], e_xn, wdt)
+    aw = wqkv.float().abs()
+    e_qkv = dxn @ aw + FP32_SUM * (plain["xn"].abs() @ aw
+                                   + bqkv.float().abs())
+    e_q, e_k, e_v = (e_qkv[:, i * hd:(i + 1) * hd].reshape(b, h, d)
+                     for i in range(3))
+    keys = torch.cat([k_cache[:, :t].reshape(b, t, h, d).float(),
+                      plain["k_new"].reshape(b, 1, h, d)], 1).abs()
+    vals = torch.cat([v_cache[:, :t].reshape(b, t, h, d).float(),
+                      plain["v_new"].reshape(b, 1, h, d)], 1).abs()
+    qa = plain["q"].abs().reshape(b, h, d)
+    ds = scale * torch.einsum("bhd,bkhd->bhk",
+                              e_q + (FP32_SUM + qk_rounding) * qa, keys)
+    ds[..., -1] += scale * (qa * e_k).sum(-1)
+    p = plain["p"]
+    pv = plain["pv_abs"].reshape(b, h, d)
+    e_a = (torch.einsum("bhk,bkhd->bhd", p * ds, vals)
+           + ((p * ds).sum(-1, keepdim=True) + DECODE_COEF + FP32_SUM) * pv
+           + p[..., -1:] * e_v).reshape(b, hd)
+    da = rounding_spread(plain["a32"], e_a, wdt)
+    awo = wo.float().abs()
+    e_y = da @ awo + FP32_SUM * (plain["a"].abs() @ awo + bo.float().abs()
+                                 + x.float().abs())
+    return {"y": rounding_spread(plain["y32"], e_y, x.dtype),
+            "k": rounding_spread(plain["k_new"], e_k.reshape(b, hd), cdt),
+            "v": rounding_spread(plain["v_new"], e_v.reshape(b, hd), cdt)}
+
+
+def ffn_limit(x2, w1, b1, w2, act):
+    """Per-element limit of the FFN's output against the plain version's
+    (module docstring)."""
+    xa, aw1, aw2 = x2.float().abs(), w1.float().abs(), w2.float().abs()
+    u = x2.float() @ w1.float() + b1.float()
+    e_h = 1.2 * FP32_SUM * (xa @ aw1 + b1.float().abs())
+    h32 = _act(u, act)
+    dh = rounding_spread(h32, e_h, x2.dtype)
+    h = h32.to(x2.dtype).float()
+    e_y = dh @ aw2 + FP32_SUM * (h.abs() @ aw2)
+    return rounding_spread(h @ w2.float(), e_y, x2.dtype)

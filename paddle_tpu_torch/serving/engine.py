@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..models.gpt import BLOCK_PARAMS, _stacked_block_body
+from ..models.gpt import BLOCK_PARAMS, _sample_next, _stacked_block_body
 from ..nn.functional import layer_norm_arrays
 from ..ops.flash_attention import flash_attention_arrays
 from ..ops.paged_attention import paged_cache_update_arrays
@@ -43,8 +43,6 @@ from .kv_cache import BlockKVCache
 from .scheduler import Request, SamplingParams, Scheduler
 
 __all__ = ["EngineConfig", "LLMEngine"]
-
-_NEG_INF = -1e30
 
 
 @dataclasses.dataclass
@@ -297,25 +295,9 @@ class LLMEngine:
         toks = torch.argmax(logits[:len(rows)], dim=-1).tolist()
         for i, req in enumerate(rows):
             if req.params.do_sample:
-                toks[i] = _sample_row(logits[i], req.params, req.generator)
+                sp = req.params
+                toks[i] = int(_sample_next(
+                    logits[i:i + 1], True, sp.temperature, sp.top_k,
+                    sp.top_p, req.generator)[0])
             req.record_token(toks[i])
 
-
-def _sample_row(logits, params, generator) -> int:
-    """Temperature, then top-k, then top-p (nucleus) filtering with the
-    JAX sampler's arithmetic, then one draw from ``generator``."""
-    ll = logits[None] / max(float(params.temperature), 1e-6)
-    v = ll.shape[-1]
-    if params.top_k > 0:
-        asc = torch.sort(ll, dim=-1).values
-        kth = asc[:, min(max(v - params.top_k, 0), v - 1)]
-        ll = ll.masked_fill(ll < kth[:, None], _NEG_INF)
-    if params.top_p < 1.0:
-        desc = torch.sort(ll, dim=-1, descending=True).values
-        probs = torch.softmax(desc, dim=-1)
-        keep = torch.cumsum(probs, dim=-1) - probs <= params.top_p
-        thresh = torch.where(keep, desc, torch.full_like(desc, float("inf"))
-                             ).min(dim=-1, keepdim=True).values
-        ll = ll.masked_fill(ll < thresh, _NEG_INF)
-    probs = torch.softmax(ll, dim=-1)
-    return int(torch.multinomial(probs[0], 1, generator=generator))

@@ -19,12 +19,23 @@ Tolerances against the plain version on the same inputs
   magnitudes (P^T|dO|, scale W^T|Q|, scale W|K|, with W = P (|dO|.|V|^T
   + |dO|.|out|) bounding ds = P (dP - delta) and its fp32 noise).
 - pool writes: bitwise.
+- decode, fused decode layer, LayerNorm, FFN, float32: max absolute error
+  2e-5 (FFN: 1e-5 max|ref|, sums over the intermediate); LayerNorm
+  statistics 1e-5 relative.  bfloat16: one bf16 step of each output plus
+  the rounding of what each side rounds (`tolerance` docstring): p for
+  decode (2^-7 P|V|); xn, p and the attention output through the weights
+  for the fused layer, and xn's effect on the written rows; for LayerNorm
+  the fp32 noise of its terms where they cancel; h for the FFN (2^-7 |h| |W2|).  The fused layer leaves
+  every ring row but row t bitwise unchanged.
 """
 import numpy as np
 import pytest
 import torch
 
 from paddle_tpu_torch.ops import flash_attention as fa
+from paddle_tpu_torch.ops import flash_decode as fd
+from paddle_tpu_torch.ops import fused_decode as fdl
+from paddle_tpu_torch.ops import fused_mlp as fm
 from paddle_tpu_torch.ops import ragged_paged_attention as rpa
 from paddle_tpu_torch.ops import tolerance as tol
 
@@ -147,3 +158,122 @@ def test_ragged_kernel_matches_plain(mix_name, dtype):
         n = qlens[b]
         err, ok = _fwd_ok(out[b, :n], want[b, :n], mag[b, :n])
         assert ok, (mix_name, b, err)
+
+
+def _randn(shape, seed, dtype, scale=1.0):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn(*shape, generator=g) * scale).to("cuda", dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.usefixtures("needs_cuda")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s_max,h,d,length",
+                         [(2, 256, 3, 64, 200), (3, 384, 2, 128, 300)])
+def test_flash_decode_kernel_matches_plain(b, s_max, h, d, length, dtype):
+    # q: the [B, 1, H, D] slice of a fused [B, 1, 3, H, D] projection
+    q = _randn((b, 1, 3, h, d), length, dtype)[:, :, 0]
+    kc = _randn((b, s_max, h * d), length + 1, dtype)
+    vc = _randn((b, s_max, h * d), length + 2, dtype)
+    fd.launches = 0
+    out = fd.flash_decode_arrays(q, kc, vc, length)
+    want = fd.flash_decode_reference(q, kc, vc, length)
+    torch.cuda.synchronize()
+    assert fd.launches == 1 and out.dtype == dtype
+    limit = TOL_FP32 if dtype == torch.float32 else tol.decode_limit(
+        out, want, q, kc, vc, length, d ** -0.5)
+    err, ratio, ok = tol.compare(out, want, limit)
+    assert ok, (err, ratio)
+
+
+@pytest.mark.cuda
+@pytest.mark.usefixtures("needs_cuda")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,d,s_max,t,masked",
+                         [(2, 2, 64, 256, 37, True),
+                          (3, 2, 128, 384, 300, False)])
+def test_fused_decode_layer_kernel_matches_plain(b, h, d, s_max, t, masked,
+                                                 dtype):
+    hd = h * d
+    x = _randn((b, hd), t, dtype)
+    ln_w = 1 + _randn((hd,), t + 1, dtype, 0.1)
+    ln_b = _randn((hd,), t + 2, dtype, 0.1)
+    wqkv = _randn((hd, 3 * hd), t + 3, dtype, hd ** -0.5)
+    bqkv = _randn((3 * hd,), t + 4, dtype, 0.1)
+    wo = _randn((hd, hd), t + 5, dtype, hd ** -0.5)
+    bo = _randn((hd,), t + 6, dtype, 0.1)
+    kc = _randn((b, s_max, hd), t + 7, dtype)
+    vc = _randn((b, s_max, hd), t + 8, dtype)
+    mask = None
+    if masked:
+        g = torch.Generator().manual_seed(t)
+        mask = torch.where(torch.rand(b, s_max, generator=g) < 0.3, -1e30,
+                           0.0).cuda()
+    kr, vr = kc.clone(), vc.clone()
+    args = (x, ln_w, ln_b, wqkv, bqkv, wo, bo)
+    fdl.launches = 0
+    y, _, _ = fdl.fused_decode_layer_arrays(*args, kc, vc, t, h,
+                                            cache_mask=mask)
+    plain = fdl.fused_decode_plain(*args, kr, vr, t, h, cache_mask=mask)
+    yr, _, _ = fdl.fused_decode_layer_reference(*args, kr, vr, t, h,
+                                                cache_mask=mask)
+    torch.cuda.synchronize()
+    assert fdl.launches == 1 and y.dtype == dtype
+    for c, r in ((kc, kr), (vc, vr)):
+        assert torch.equal(c[:, :t], r[:, :t])
+        assert torch.equal(c[:, t + 1:], r[:, t + 1:])
+    if dtype == torch.float32:
+        limits = dict(y=TOL_FP32, k=TOL_FP32, v=TOL_FP32)
+    else:
+        limits = tol.fused_decode_limits(plain, args, kr, vr, t, h,
+                                         d ** -0.5)
+    for name, got, ref in (("y", y, yr), ("k", kc[:, t], kr[:, t]),
+                           ("v", vc[:, t], vr[:, t])):
+        err, ratio, ok = tol.compare(got, ref, limits[name])
+        assert ok, (name, err, ratio)
+
+
+@pytest.mark.cuda
+@pytest.mark.usefixtures("needs_cuda")
+@pytest.mark.parametrize("xdt,pdt", [(torch.float32, torch.float32),
+                                     (torch.bfloat16, torch.bfloat16),
+                                     (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("n,hidden", [(8, 768), (100, 1000)])
+def test_layernorm_kernel_matches_plain(n, hidden, xdt, pdt):
+    x = _randn((n, hidden), n, xdt, 2.0) + 0.5
+    w = 1 + _randn((hidden,), n + 1, pdt, 0.1)
+    b = _randn((hidden,), n + 2, pdt, 0.1)
+    fm.ln_fwd.launches = 0
+    y, mu, rs = fm.fused_layernorm_arrays(x, w, b, return_stats=True)
+    yr, mur, rsr = fm.fused_layernorm_reference(x, w, b)
+    torch.cuda.synchronize()
+    assert fm.ln_fwd.launches == 1 and y.dtype == yr.dtype
+    torch.testing.assert_close(mu, mur, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(rs, rsr, rtol=1e-5, atol=0)
+    limit = TOL_FP32 if y.dtype == torch.float32 else tol.bf16_limit(
+        y, yr, tol.ln_magnitude(x, w, b), tol.LN_COEF)
+    err, ratio, ok = tol.compare(y, yr, limit)
+    assert ok, (err, ratio)
+
+
+@pytest.mark.cuda
+@pytest.mark.usefixtures("needs_cuda")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,hidden,inter,act", [(8, 768, 3072, "gelu_tanh"),
+                                                (40, 128, 256, "gelu"),
+                                                (512, 256, 512, "relu")])
+def test_ffn_kernel_matches_plain(n, hidden, inter, act, dtype):
+    x = _randn((n, hidden), n, dtype)
+    w1 = _randn((hidden, inter), n + 1, dtype, hidden ** -0.5)
+    b1 = _randn((inter,), n + 2, dtype, 0.1)
+    w2 = _randn((inter, hidden), n + 3, dtype, inter ** -0.5)
+    fm.ffn_fwd.launches = 0
+    y = fm.fused_ffn_arrays(x, w1, b1, w2, act)
+    y2 = fm.fused_ffn_arrays(x, w1, b1, w2, act)   # tickets were reset
+    yr = fm.fused_ffn_reference(x, w1, b1, w2, act)
+    torch.cuda.synchronize()
+    assert fm.ffn_fwd.launches == 2 and torch.equal(y, y2)
+    limit = (1e-5 * yr.float().abs().max().item() if dtype == torch.float32
+             else tol.ffn_limit(x, w1, b1, w2, act))
+    err, ratio, ok = tol.compare(y, yr, limit)
+    assert ok, (err, ratio)
