@@ -39,11 +39,16 @@ Phases, in order; any failure exits non-zero and prints no result line:
      H=16 D=128), yardstick SDPA over the prefix; the fused decode layer
      at t = 1, 511 and 1023 without and with a row mask (no yardstick),
      whose other ring rows must stay bitwise unchanged; LayerNorm at 8
-     and 8192 rows of 768, yardstick `F.layer_norm`; FFN at 8 and 512
-     rows, H=768 I=3072 gelu_tanh (no yardstick).  float32: 2e-5
+     and 8192 rows of 768, yardstick `F.layer_norm`; FFN at 8, 512 and
+     8192 rows, H=768 I=3072 gelu_tanh (no yardstick).  float32: 2e-5
      absolute (FFN 1e-5 max|ref|; LN statistics 1e-5 relative).
      bfloat16: one bf16 step of each output plus what each side rounds,
      weighted by what it multiplies (the `tolerance` module docstring).
+   - the LayerNorm backward at the training shape, 8192 rows of 768, in
+     fp32, bf16 and bf16 x with fp32 w and b, and in bf16 at 8 and 200
+     rows; yardstick `torch.autograd.grad` through `F.layer_norm`.  dx,
+     dw and db within 1e-5 of each output's sum over term magnitudes,
+     plus one bf16 step for a bf16 output; two launches bitwise equal.
 3. Engine: GPT-2 124M (full width, 12 layers, random weights from seed 0)
    served by `LLMEngine` with block_size 16, max_num_seqs 8,
    max_num_batched_tokens 512: five greedy prompts of 7, 64, 200, 384 and
@@ -80,7 +85,16 @@ Phases, in order; any failure exits non-zero and prints no result line:
    launches of each flash kernel per step; prints tokens/s and ms per
    step, then profiles one step with torch.profiler (device ms, busy
    share, top kernels).
-7. Summary: one JSON line of the eight kernels, the card line, then the
+   Phases 3-6 run the stacked-blocks layout (``stacked_blocks=True``).
+7. Training of the per-layer layout (the JAX default) under
+   PTPU_PALLAS_LN=1 PTPU_PALLAS_FFN=1: first one fp32 step of the stacked
+   model under PTPU_PALLAS_LN=1, whose ``ln_f`` launches the LayerNorm
+   forward and backward once each; then GPT-2 124M per-layer, fp32 card
+   against CPU as phase 5 (same limits), with 12 launches of each flash
+   kernel, 25 of the LayerNorm forward and backward and 12 of the FFN per
+   step and none on the CPU; then bf16 as phase 6 with the flags and
+   without them.
+8. Summary: one JSON line of the nine kernels, the card line, then the
    result line.
 
 Every time is a median of CUDA-event timings (L2 flushed before each
@@ -107,9 +121,10 @@ BWD_REL_FP32 = 1e-4
 FFN_REL_FP32 = 1e-5
 FWD, DQ, DKV, RAGGED = ("flash_fwd_causal", "flash_bwd_dq_causal",
                         "flash_bwd_dkv_causal", "ragged_paged_attention")
-DECODE, FUSED, LN, FFN = ("flash_decode", "fused_decode_layer",
-                          "fused_layernorm", "fused_ffn")
-KERNELS = (FWD, RAGGED, DQ, DKV, DECODE, FUSED, LN, FFN)
+DECODE, FUSED, LN, LN_BWD, FFN = ("flash_decode", "fused_decode_layer",
+                                  "fused_layernorm", "fused_layernorm_bwd",
+                                  "fused_ffn")
+KERNELS = (FWD, RAGGED, DQ, DKV, DECODE, FUSED, LN, LN_BWD, FFN)
 REPLACES = {
     FWD: "paddle_tpu/ops/pallas_ops.py:135",
     DQ: "paddle_tpu/ops/pallas_ops.py:210",
@@ -118,6 +133,7 @@ REPLACES = {
     DECODE: "paddle_tpu/ops/pallas_ops.py:1008",
     FUSED: "paddle_tpu/ops/pallas_ops.py:1186",
     LN: "paddle_tpu/ops/pallas_ops.py:1391",
+    LN_BWD: "paddle_tpu/ops/pallas_ops.py:1404",
     FFN: "paddle_tpu/ops/pallas_ops.py:1548",
 }
 # the __global__ functions of paddle_tpu_torch/csrc, as the profiler names
@@ -125,11 +141,15 @@ PORT_SYMBOLS = ("flash_fwd_causal_kernel", "flash_bwd_dq_kernel",
                 "flash_bwd_dkv_kernel", "ragged_write_kernel",
                 "ragged_attend_kernel", "flash_decode_kernel",
                 "fused_decode_layer_kernel", "ln_fwd_kernel",
-                "fused_ffn_kernel")
+                "ln_bwd_kernel", "ln_bwd_sum_kernel", "fused_ffn_kernel")
 TRAIN_LR = 1e-4
 # the environment flags that select the decode kernels, by generate mode
 GEN_MODES = {"default": {},
              "fused": {"PTPU_FUSED_DECODE": "1", "PTPU_PALLAS_FFN": "1"}}
+# ... and the training kernels of the per-layer model, by training mode
+TRAIN_MODES = {"flags": {"PTPU_PALLAS_LN": "1", "PTPU_PALLAS_FFN": "1"},
+               "no_flags": {}}
+FLAGS = ("PTPU_FUSED_DECODE", "PTPU_PALLAS_FFN", "PTPU_PALLAS_LN")
 
 
 def fail(msg):
@@ -475,6 +495,54 @@ def check_ln(fm, tol, timer, n, hidden, dtype, seed):
                 library_ms=lib_ms, tol=_tol_text(dtype, TOL_FP32))
 
 
+def check_ln_bwd(fm, tol, timer, n, hidden, xdt, pdt, seed):
+    """The LayerNorm backward kernel against its plain version: dx, dw and
+    db within `tolerance.ln_bwd_limits`, and a second launch bitwise equal
+    to the first (no atomics).  The yardstick is `torch.autograd.grad`
+    through `F.layer_norm` (on fp32 x where x and w differ in dtype)."""
+    g = torch.Generator().manual_seed(seed)
+    x = (torch.randn(n, hidden, generator=g) * 2 + 0.5).to("cuda", xdt)
+    w = (1 + 0.1 * torch.randn(hidden, generator=g)).to("cuda", pdt)
+    b = (0.1 * torch.randn(hidden, generator=g)).to("cuda", pdt)
+    dy = torch.randn(n, hidden, generator=g).to(
+        "cuda", torch.promote_types(xdt, pdt))
+    _, mu, rs = fm.fused_layernorm_reference(x, w, b)
+    got = fm.fused_layernorm_bwd(x, w, mu, rs, dy)
+    again = fm.fused_layernorm_bwd(x, w, mu, rs, dy)
+    want = fm.fused_layernorm_bwd_reference(x, w, mu, rs, dy)
+    torch.cuda.synchronize()
+    dtype = str(xdt) if xdt == pdt else f"x {xdt}, w/b {pdt}"
+    what = f"layernorm backward n={n} H={hidden} {dtype}"
+    if not all(torch.equal(a, c) for a, c in zip(got, again)):
+        fail(f"{what}: two launches differ")
+    limits = tol.ln_bwd_limits(got, want, x, w, mu, rs, dy)
+    checks = [check_close(tol, gv, wv, lim, f"{what} {name}")
+              for name, gv, wv, lim in zip(("dx", "dw", "db"), got, want,
+                                           limits)]
+    ms = timer(lambda: fm.fused_layernorm_bwd(x, w, mu, rs, dy))
+    plain_ms = timer(lambda: fm.fused_layernorm_bwd_reference(
+        x, w, mu, rs, dy))
+    xl = (x if xdt == pdt else x.float()).detach().requires_grad_()
+    wl, bl = (t.detach().requires_grad_() for t in (w, b))
+    yl = torch.nn.functional.layer_norm(xl, (hidden,), wl, bl, 1e-5)
+    dyl = dy.to(yl.dtype)
+    lib_ms = timer(lambda: torch.autograd.grad(yl, (xl, wl, bl), dyl,
+                                               retain_graph=True))
+    # x, dy read and dx written once; w, mu, rstd read, dw, db written
+    nbytes = (n * hidden * (2 * x.element_size() + dy.element_size())
+              + 3 * hidden * w.element_size() + 8 * n)
+    # ~14 fp32 operations per element, on the CUDA cores in every dtype
+    bms, by = bound_ms(nbytes, 14 * n * hidden, torch.float32)
+    return dict(shape=f"n={n} H={hidden}", dtype=dtype,
+                max_abs_err=max(e for e, _ in checks),
+                err_over_limit=max(r for _, r in checks), ms=ms,
+                plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                library_ms=lib_ms,
+                tol=f"tol {tol.LN_BWD_COEF} of each output's magnitude"
+                    + ("" if xdt == torch.float32
+                       else ", + 1 bf16 step of bf16 outputs"))
+
+
 def check_ffn(fm, tol, timer, n, hidden, inter, act, dtype, seed):
     g = torch.Generator().manual_seed(seed)
 
@@ -637,13 +705,12 @@ def check_launches(eng, launches, what):
 # ---------------------------------------------------------------------------
 
 @contextlib.contextmanager
-def decode_mode(mode):
-    """Set the flags of one generate mode (and unset the other's)."""
-    flags = {k for env in GEN_MODES.values() for k in env}
-    saved = {k: os.environ.get(k) for k in flags}
-    for k in flags:
+def flag_env(env):
+    """Set the kernel flags in ``env`` and unset the other `FLAGS`."""
+    saved = {k: os.environ.get(k) for k in FLAGS}
+    for k in FLAGS:
         os.environ.pop(k, None)
-    os.environ.update(GEN_MODES[mode])
+    os.environ.update(env)
     try:
         yield
     finally:
@@ -684,7 +751,7 @@ def generate_fp32_card_vs_cpu(ops, cfg, batch=8, prompt=256, new=32):
     rec, toks = {}, {}
     for mode in GEN_MODES:
         out, secs, launches = {}, {}, {}
-        with decode_mode(mode):
+        with flag_env(GEN_MODES[mode]):
             for dev, model in models.items():
                 ops.reset_launch_counts()
                 t0 = time.perf_counter()
@@ -759,7 +826,7 @@ def generate_bf16(ops, cfg, batch=8, prompt=896, new=128):
                            generator=torch.Generator().manual_seed(0))
     rec, toks, path = {}, {}, {}
     for mode in GEN_MODES:
-        with decode_mode(mode):
+        with flag_env(GEN_MODES[mode]):
             model.generate(ids[:, :64], max_new_tokens=4)       # warm-up
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -817,17 +884,32 @@ def make_step(model, lr=TRAIN_LR):
     return step, opt
 
 
-def check_train_launches(launches, steps, layers, what):
-    want = layers * steps
+def train_launches(cfg, steps, env):
+    """Expected launches of `steps` training steps under the flags `env`:
+    each flash kernel once per layer; under PTPU_PALLAS_LN the LayerNorm
+    forward and backward once per LayerNorm layer (2L+1 per-layer, ``ln_f``
+    alone stacked); under PTPU_PALLAS_FFN the FFN once per per-layer
+    block (the stacked blocks keep their own MLP); nothing else."""
+    layers = cfg.num_hidden_layers
+    want = dict.fromkeys(KERNELS, 0)
     for name in (FWD, DQ, DKV):
-        if launches[name] != want:
-            fail(f"{what}: {name} launched {launches[name]} times, expected "
-                 f"{want} ({layers} per step)")
-    if launches[RAGGED] != 0:
-        fail(f"{what}: the ragged kernel ran during training")
+        want[name] = layers * steps
+    if env.get("PTPU_PALLAS_LN") == "1":
+        per_step = 1 if cfg.stacked_blocks else 2 * layers + 1
+        want[LN] = want[LN_BWD] = per_step * steps
+    if env.get("PTPU_PALLAS_FFN") == "1" and not cfg.stacked_blocks:
+        want[FFN] = layers * steps
+    return want
 
 
-def train_fp32_card_vs_cpu(ops, cfg, steps=3, seq=1024):
+def check_train_launches(launches, want, what):
+    if launches != want:
+        fail(f"{what}: launches {launches}, expected {want}")
+
+
+def train_fp32_card_vs_cpu(ops, cfg, env, steps=3, seq=1024):
+    """`steps` fp32 AdamW steps on the card and on the CPU under the flags
+    `env`: losses, step-1 gradients and launches checked."""
     from paddle_tpu_torch.models import GPTForCausalLM
     rng = np.random.RandomState(1)
     ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (1, seq)))
@@ -838,17 +920,18 @@ def train_fp32_card_vs_cpu(ops, cfg, steps=3, seq=1024):
                                generator=torch.Generator().manual_seed(0))
         step, _ = make_step(model)
         grads = {}
-        ops.reset_launch_counts()
-        t0 = time.perf_counter()
-        losses = [step(ids.to(device), labels.to(device),
-                       grads if i == 0 else None).item()
-                  for i in range(steps)]
-        runs[device] = dict(losses=losses, grads=grads,
-                            launches=ops.launch_counts(),
-                            seconds=time.perf_counter() - t0)
+        with flag_env(env):
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            losses = [step(ids.to(device), labels.to(device),
+                           grads if i == 0 else None).item()
+                      for i in range(steps)]
+            runs[device] = dict(losses=losses, grads=grads,
+                                launches=ops.launch_counts(),
+                                seconds=time.perf_counter() - t0)
         del model
     gpu, cpu = runs["cuda"], runs["cpu"]
-    check_train_launches(gpu["launches"], steps, cfg.num_hidden_layers,
+    check_train_launches(gpu["launches"], train_launches(cfg, steps, env),
                          "float32 training")
     if set(cpu["launches"].values()) != {0}:
         fail(f"float32 training on the CPU launched kernels: "
@@ -874,10 +957,9 @@ def train_fp32_card_vs_cpu(ops, cfg, steps=3, seq=1024):
             "cpu_s": cpu["seconds"]}
 
 
-def train_bf16(ops, cfg, batch=8, seq=1024, warmup=2, timed=10):
-    """The full-size bf16 run; returns its record and the launches of all
-    its steps."""
-    from torch.profiler import ProfilerActivity, profile
+def train_bf16(ops, cfg, env, batch=8, seq=1024, warmup=2, timed=10):
+    """The full-size bf16 run under the flags `env`; returns its record and
+    the launches of all its steps."""
     from paddle_tpu_torch.models import GPTForCausalLM
     rng = np.random.RandomState(2)
     ids = torch.from_numpy(rng.randint(0, cfg.vocab_size,
@@ -887,17 +969,20 @@ def train_bf16(ops, cfg, batch=8, seq=1024, warmup=2, timed=10):
     model = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
                            generator=torch.Generator().manual_seed(0))
     step, opt = make_step(model)           # multi_precision: fp32 masters
-    ops.reset_launch_counts()
-    torch.cuda.reset_peak_memory_stats()
-    losses = [step(ids, labels) for _ in range(warmup)]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    losses += [step(ids, labels) for _ in range(timed)]
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) * 1e3 / timed
-    launches = ops.launch_counts()
+    with flag_env(env):
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        losses = [step(ids, labels) for _ in range(warmup)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses += [step(ids, labels) for _ in range(timed)]
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / timed
+        launches = ops.launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        profile_rec = profile_step(step, ids, labels)
     losses = [x.item() for x in losses]
-    check_train_launches(launches, warmup + timed, cfg.num_hidden_layers,
+    check_train_launches(launches, train_launches(cfg, warmup + timed, env),
                          "bfloat16 training")
     if not all(np.isfinite(losses)):
         fail(f"bfloat16 training: non-finite loss {losses}")
@@ -906,8 +991,18 @@ def train_bf16(ops, cfg, batch=8, seq=1024, warmup=2, timed=10):
     if not all(p.dtype == torch.bfloat16 for p in model.parameters()) or \
             len(opt._master_weights) != len(list(model.parameters())):
         fail("bfloat16 training: params are not bf16 with fp32 masters")
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    # one more step, timed alone, then one under the profiler
+    tokens = batch * seq
+    return {"batch": f"B={batch} S={seq}", "warmup": warmup,
+            "timed_steps": timed, "losses": losses, "ms_per_step": step_ms,
+            "tokens_per_s": tokens * 1e3 / step_ms,
+            "peak_memory_gb": peak_gb, "profile": profile_rec}, launches
+
+
+def profile_step(step, ids, labels):
+    """One more step timed alone, then one under torch.profiler: wall ms
+    both ways, device ms, busy share, device ops, top kernels and ms by
+    group."""
+    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     step(ids, labels)
@@ -920,16 +1015,33 @@ def train_bf16(ops, cfg, batch=8, seq=1024, warmup=2, timed=10):
         torch.cuda.synchronize()
         prof_ms = (time.perf_counter() - t0) * 1e3
     device_ms, n_ops, top, groups = device_table(prof, 1)
-    tokens = batch * seq
-    return {"batch": f"B={batch} S={seq}", "warmup": warmup,
-            "timed_steps": timed, "losses": losses, "ms_per_step": step_ms,
-            "tokens_per_s": tokens * 1e3 / step_ms,
-            "peak_memory_gb": peak_gb,
-            "profile": {"wall_ms": wall_ms, "profiled_wall_ms": prof_ms,
-                        "device_ms": device_ms,
-                        "device_busy_share": device_ms / wall_ms,
-                        "device_ops": n_ops, "top": top,
-                        "ms_by_group": groups}}, launches
+    return {"wall_ms": wall_ms, "profiled_wall_ms": prof_ms,
+            "device_ms": device_ms, "device_busy_share": device_ms / wall_ms,
+            "device_ops": n_ops, "top": top, "ms_by_group": groups}
+
+
+def train_stacked_ln_step(ops, cfg, seq=1024):
+    """One fp32 training step of the stacked model at B=1 under
+    PTPU_PALLAS_LN=1: its ``ln_f`` launches the LayerNorm forward and
+    backward once each, the blocks keep `_stacked_ln`."""
+    from paddle_tpu_torch.models import GPTForCausalLM
+    rng = np.random.RandomState(5)
+    ids, labels = (torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                                (1, seq))).cuda()
+                   for _ in range(2))
+    model = GPTForCausalLM(cfg, device="cuda",
+                           generator=torch.Generator().manual_seed(0))
+    step, _ = make_step(model)
+    env = {"PTPU_PALLAS_LN": "1"}
+    with flag_env(env):
+        ops.reset_launch_counts()
+        loss = step(ids, labels).item()
+        launches = ops.launch_counts()
+    check_train_launches(launches, train_launches(cfg, 1, env),
+                         "stacked float32 training under PTPU_PALLAS_LN=1")
+    if not np.isfinite(loss):
+        fail(f"stacked training under PTPU_PALLAS_LN=1: loss {loss}")
+    return {"loss": loss, "launches": launches, "batch": f"B=1 S={seq}"}
 
 
 # ---------------------------------------------------------------------------
@@ -955,6 +1067,28 @@ def print_cases(cases):
                   flush=True)
 
 
+def print_train(label, rec, launches, card):
+    p = rec["profile"]
+    print(f"train bfloat16 GPT-2 124M {label} {rec['batch']}: "
+          f"{rec['tokens_per_s']:.1f} tokens/s, {rec['ms_per_step']:.3f} "
+          f"ms per step over {rec['timed_steps']} steps ({card}); losses "
+          f"{rec['losses'][0]:.4f} -> {rec['losses'][-1]:.4f}; peak "
+          f"memory {rec['peak_memory_gb']:.2f} GB; launches {launches}",
+          flush=True)
+    if p["device_ms"] > 0:
+        print(f"train profile bfloat16 {label}: one step {p['wall_ms']:.3f} "
+              f"ms ({p['profiled_wall_ms']:.3f} under the profiler), device "
+              f"{p['device_ms']:.3f} ms, busy {p['device_busy_share']:.3f}, "
+              f"{p['device_ops']:.0f} device ops; by group (ms) "
+              + ", ".join(f"{k} {v:.3f}" for k, v in p["ms_by_group"].items())
+              + "; top: " + "; ".join(
+                  f"{t['name'][:40]} {t['ms_per_step']:.3f} ms"
+                  for t in p["top"][:8]), flush=True)
+    else:
+        print(f"train profile bfloat16 {label}: the profiler recorded no "
+              f"device time (not measured)", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs a GPU")
@@ -969,7 +1103,7 @@ def main():
     from paddle_tpu_torch.ops import tolerance as tol
     wrappers = {FWD: fa, DQ: fa.flash_bwd_dq, DKV: fa.flash_bwd_dkv,
                 RAGGED: rpa, DECODE: fd, FUSED: fdl, LN: fm.ln_fwd,
-                FFN: fm.ffn_fwd}
+                LN_BWD: fm.ln_bwd, FFN: fm.ffn_fwd}
     assert set(wrappers) == set(ops.launch_counts())
 
     # -- 1. card -----------------------------------------------------------
@@ -1025,15 +1159,21 @@ def main():
                     seed=t + masked))
         for n in (8, 8192):
             cases[LN].append(check_ln(fm, tol, timer, n, 768, dtype, n))
-        for n in (8, 512):
+        for n in (8, 512, 8192):              # decode, -, training rows
             cases[FFN].append(check_ffn(fm, tol, timer, n, 768, 3072,
                                         "gelu_tanh", dtype, n))
         torch.cuda.empty_cache()
+    bf16, f32 = torch.bfloat16, torch.float32
+    for n, xdt, pdt in ((8192, f32, f32), (8192, bf16, bf16),
+                        (8192, bf16, f32), (8, bf16, bf16),
+                        (200, bf16, bf16)):
+        cases[LN_BWD].append(check_ln_bwd(fm, tol, timer, n, 768, xdt, pdt,
+                                          seed=n + (xdt == pdt)))
     print_cases(cases)
     result["kernel_cases"] = cases
 
     # -- 3. engine ---------------------------------------------------------
-    cfg = gpt2_124m_config()
+    cfg = gpt2_124m_config(stacked_blocks=True)
     model = GPTForCausalLM(cfg, device="cpu",
                            generator=torch.Generator().manual_seed(0))
     rng = np.random.RandomState(0)
@@ -1145,7 +1285,7 @@ def main():
     torch.cuda.empty_cache()
 
     # -- 5. training, float32, card against CPU ----------------------------
-    tr32 = train_fp32_card_vs_cpu(ops, cfg)
+    tr32 = train_fp32_card_vs_cpu(ops, cfg, {})
     result["train_fp32"] = tr32
     print(f"train float32 GPT-2 124M {tr32['batch']}: card losses "
           f"{tr32['card_losses']}, CPU {tr32['cpu_losses']} (relative "
@@ -1158,29 +1298,40 @@ def main():
     torch.cuda.empty_cache()
 
     # -- 6. training, bfloat16, full size ----------------------------------
-    tr16, launches_train = train_bf16(ops, cfg)
+    tr16, launches_train = train_bf16(ops, cfg, {})
     result["train_bf16"] = tr16
-    p = tr16["profile"]
-    print(f"train bfloat16 GPT-2 124M {tr16['batch']}: "
-          f"{tr16['tokens_per_s']:.1f} tokens/s, {tr16['ms_per_step']:.3f} "
-          f"ms per step over {tr16['timed_steps']} steps ({card}); losses "
-          f"{tr16['losses'][0]:.4f} -> {tr16['losses'][-1]:.4f}; peak "
-          f"memory {tr16['peak_memory_gb']:.2f} GB; launches "
-          f"{launches_train}", flush=True)
-    if p["device_ms"] > 0:
-        print(f"train profile bfloat16: one step {p['wall_ms']:.3f} ms "
-              f"({p['profiled_wall_ms']:.3f} under the profiler), device "
-              f"{p['device_ms']:.3f} ms, busy {p['device_busy_share']:.3f}, "
-              f"{p['device_ops']:.0f} device ops; by group (ms) "
-              + ", ".join(f"{k} {v:.3f}" for k, v in p["ms_by_group"].items())
-              + "; top: " + "; ".join(
-                  f"{t['name'][:40]} {t['ms_per_step']:.3f} ms"
-                  for t in p["top"][:8]), flush=True)
-    else:
-        print("train profile bfloat16: the profiler recorded no device "
-              "time (not measured)", flush=True)
+    print_train("stacked", tr16, launches_train, card)
+    torch.cuda.empty_cache()
 
-    # -- 7. summary --------------------------------------------------------
+    # -- 7. training, per-layer layout, under the LN and FFN flags ---------
+    cfg_pl = gpt2_124m_config()            # stacked_blocks=False
+    st = train_stacked_ln_step(ops, cfg)
+    result["train_stacked_pallas_ln"] = st
+    print(f"train float32 stacked GPT-2 124M {st['batch']} under "
+          f"PTPU_PALLAS_LN=1: loss {st['loss']:.4f}; launches "
+          f"{st['launches']} == expected (ln_f: one LN forward, one LN "
+          f"backward)", flush=True)
+    torch.cuda.empty_cache()
+    pl32 = train_fp32_card_vs_cpu(ops, cfg_pl, TRAIN_MODES["flags"])
+    result["train_per_layer_fp32"] = pl32
+    print(f"train float32 per-layer GPT-2 124M {pl32['batch']} under "
+          f"PTPU_PALLAS_LN=1 PTPU_PALLAS_FFN=1: card losses "
+          f"{pl32['card_losses']}, CPU {pl32['cpu_losses']} (relative "
+          f"{pl32['loss_rel_diff'][0]:.3g} at step 1, "
+          f"{pl32['loss_rel_diff'][-1]:.3g} at step {pl32['steps']}); "
+          f"step-1 gradients within "
+          f"{max(pl32['grad_err_over_limit'].values()):.3g} of 1e-3 "
+          f"max|g|; launches {pl32['launches']} == expected; card "
+          f"{pl32['card_s']:.1f} s, CPU {pl32['cpu_s']:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    launches_pl = {}
+    for mode, env in TRAIN_MODES.items():
+        rec, launches_pl[mode] = train_bf16(ops, cfg_pl, env)
+        result[f"train_per_layer_bf16_{mode}"] = rec
+        print_train(f"per-layer, {mode}", rec, launches_pl[mode], card)
+        torch.cuda.empty_cache()
+
+    # -- 8. summary --------------------------------------------------------
     # the serving kernels at fp32 S=384 / the decode step; the backward
     # kernels at the training shape in bf16, the training path's dtype;
     # the generate kernels at the bf16 full-context decode step
@@ -1196,12 +1347,14 @@ def main():
                  FUSED: pick(FUSED, "B=8 hd=768 H=12 S_max=1024 t=1023 "
                                     "mask=False"),
                  LN: pick(LN, "n=8 H=768"),
+                 LN_BWD: pick(LN_BWD, "n=8192 H=768"),
                  FFN: pick(FFN, "n=8 H=768 I=3072 gelu_tanh")}
     path_launches = {FWD: launches[FWD], RAGGED: launches[RAGGED],
                      DQ: launches_train[DQ], DKV: launches_train[DKV],
                      DECODE: launches_gen["default"][DECODE],
                      FUSED: launches_gen["fused"][FUSED],
                      LN: launches_gen["fused"][LN],
+                     LN_BWD: launches_pl["flags"][LN_BWD],
                      FFN: launches_gen["fused"][FFN]}
     kernels = []
     for name in KERNELS:
@@ -1214,7 +1367,9 @@ def main():
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],
             "case": f"{c['shape']} {c['dtype']}"})
-    kernels[0]["launches_training"] = launches_train[FWD]
+    # launches of the per-layer bf16 training run under both flags
+    for k in kernels:
+        k["launches_training"] = launches_pl["flags"][k["name"]]
     result["kernels"] = kernels
     result["expected_launches"] = expected
     os.makedirs("chiprun_out", exist_ok=True)

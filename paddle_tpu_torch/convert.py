@@ -10,10 +10,12 @@ __all__ = ["params_from_numpy", "params_to_numpy"]
 
 
 def params_from_numpy(d: dict, device=None, dtype=torch.float32) -> dict:
-    """{name: np.ndarray} keyed like the JAX ``LLMEngine._param_arrays()``
-    (the stacked block weights plus ``wte``, ``wpe``, ``lnf_w``,
-    ``lnf_b``) -> {name: tensor} on ``device`` in ``dtype``, ready for
-    `GPTForCausalLM.load_params`."""
+    """{name: np.ndarray} keyed like `GPTForCausalLM.param_arrays` ->
+    {name: tensor} on ``device`` in ``dtype``, ready for
+    `GPTForCausalLM.load_params`: for the stacked layout the JAX
+    ``LLMEngine._param_arrays()`` (the stacked block weights plus ``wte``,
+    ``wpe``, ``lnf_w``, ``lnf_b``), for the per-layer layout the JAX
+    model's ``state_dict()``."""
     dev = resolve_device(device)
     return {name: torch.from_numpy(np.array(a)).to(
         device=dev, dtype=dtype) for name, a in d.items()}

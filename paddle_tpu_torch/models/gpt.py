@@ -1,30 +1,40 @@
-"""GPT decoder, stacked-blocks form — the port of the parts of
-`paddle_tpu/models/gpt.py` that serving, pretraining and dense generation
-run.
+"""GPT decoder — the port of the parts of `paddle_tpu/models/gpt.py` that
+serving, pretraining and dense generation run, in the JAX package's two
+layouts, chosen by ``GPTConfig.stacked_blocks``:
 
-`GPTForCausalLM` holds every block's weights stacked as ``[L, ...]``
-parameters under the names and shapes of `GPTStackedBlocks`, plus ``wte``,
-``wpe``, ``lnf_w`` and ``lnf_b``; `param_arrays` returns them keyed like
-the JAX engine's ``_param_arrays``.  The block arithmetic is
-`_stacked_block_body` (pre-LN, tanh-GELU MLP, learned positions).
+- per-layer (the default, as in the JAX package): `GPTModel` of
+  `GPTEmbeddings`, `GPTBlock`s (`GPTAttention`, `GPTMLP`, two
+  `LayerNorm`s) registered as ``h_{i}`` and ``ln_f``, with the JAX
+  ``state_dict()`` names.  Its LayerNorms take the fused kernels under
+  ``PTPU_PALLAS_LN=1`` and its MLP the fused FFN under
+  ``PTPU_PALLAS_FFN=1``, both differentiable.  It trains (``forward``,
+  ``pretrain_loss``); its cached ``generate`` is a later slice.
+- stacked: every block's weights stacked as ``[L, ...]`` parameters under
+  the names and shapes of `GPTStackedBlocks`, plus ``wte``, ``wpe``,
+  ``lnf_w`` and ``lnf_b``; `param_arrays` returns them keyed like the JAX
+  engine's ``_param_arrays``.  The block arithmetic is
+  `_stacked_block_body` (pre-LN, tanh-GELU MLP, learned positions); the
+  final LayerNorm is the gated `nn.functional.layer_norm`.
+
 ``forward`` returns logits and ``pretrain_loss`` the causal-LM loss, both
 differentiable: attention goes through the flash kernels' autograd
 Function on the card.
 
-``generate`` is the dense KV-cache decode of the JAX ``generate``: per-layer
-flat ``[B, S_max, H*D]`` rings (`init_caches`), a causal flash prefill,
-then one cached forward per token, driven from the host.  A decode step
-runs each layer as the JAX unrolled cached forward does
-(`_forward_cached_unrolled`, `gpt.py:627-695`): by default the block body
-with `ops.cached_attention_arrays` (the flash-decode kernel); under
-``PTPU_FUSED_DECODE=1`` the attention half as one fused-layer kernel,
-and under ``PTPU_PALLAS_FFN=1`` as well the MLP half as the fused
-LayerNorm and FFN kernels.
+``generate`` (stacked layout) is the dense KV-cache decode of the JAX
+``generate``: per-layer flat ``[B, S_max, H*D]`` rings (`init_caches`), a
+causal flash prefill, then one cached forward per token, driven from the
+host.  A decode step runs each layer as the JAX unrolled cached forward
+does (`_forward_cached_unrolled`, `gpt.py:627-695`): by default the block
+body with `ops.cached_attention_arrays` (the flash-decode kernel); under
+``PTPU_FUSED_DECODE=1`` the attention half as one fused-layer kernel, and
+under ``PTPU_PALLAS_FFN=1`` as well the MLP half as the fused LayerNorm
+and FFN kernels.
 
-Left out for later slices: MoE, pipeline execution (and the 1F1B fused
-loss), dropout, ``segment_ids``, ``recompute``, padded-prompt
-``generate(pad_token_id=...)``, the stacked-cache layer-scan decode, and
-CUDA-graph capture of the decode step.
+Left out for later slices: the per-layer cached forward and ``generate``,
+MoE, pipeline execution (and the 1F1B fused loss), dropout,
+``segment_ids``, ``recompute``, padded-prompt ``generate(pad_token_id=...)``,
+the stacked-cache layer-scan decode, and CUDA-graph capture of the decode
+step.
 """
 from __future__ import annotations
 
@@ -36,14 +46,17 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
-from ..nn.functional import cross_entropy, layer_norm_arrays
+from ..nn.functional import (cross_entropy, fused_ln_applies, layer_norm,
+                            layer_norm_arrays)
+from ..nn.layer import Embedding, LayerNorm, Linear
 from ..ops.flash_attention import flash_attention_arrays
 from ..ops.flash_decode import cached_attention_arrays
 from ..ops.fused_decode import fused_decode_layer_arrays, fused_decode_ok
-from ..ops.fused_mlp import (fused_ffn_arrays, fused_layernorm_arrays,
-                             ln_block_rows)
+from ..ops.fused_mlp import (ffn_geometry_ok, fused_ffn_arrays,
+                             fused_layernorm_arrays, maybe_fused_ffn)
 
 __all__ = ["GPTConfig", "GPTForCausalLM", "GPTPretrainingCriterion",
+           "GPTEmbeddings", "GPTAttention", "GPTMLP", "GPTBlock", "GPTModel",
            "gpt_test_config",
            "gpt2_124m_config", "gpt3_1p3b_config", "gpt3_6p7b_config"]
 
@@ -53,10 +66,10 @@ _NEG_INF = -1e30
 @dataclasses.dataclass
 class GPTConfig:
     """The fields of the JAX `GPTConfig` that the port reads.  The others
-    (dropout, MoE, sequence/context/pipeline parallelism, recompute, the
-    block layout) select behaviour the port does not have yet, so they
-    cannot be set: the port always runs the stacked-blocks layout on one
-    device, without dropout."""
+    (dropout, MoE, sequence/context/pipeline parallelism, recompute)
+    select behaviour the port does not have yet, so they cannot be set:
+    the port runs on one device, without dropout.  ``stacked_blocks``
+    picks the layout, per-layer by default as in the JAX package."""
     vocab_size: int = 50304
     hidden_size: int = 768
     num_hidden_layers: int = 12
@@ -65,6 +78,7 @@ class GPTConfig:
     max_position_embeddings: int = 1024
     initializer_range: float = 0.02
     layer_norm_epsilon: float = 1e-5
+    stacked_blocks: bool = False
 
 
 def gpt_test_config(**kw):
@@ -120,15 +134,12 @@ def _stacked_mlp_fused_decode(p, h, eps):
     kernels — `gpt.py:381-410`: the same arithmetic as `_stacked_mlp`
     (gelu_tanh).  Returns None, and the caller runs `_stacked_mlp`, unless
     ``PTPU_PALLAS_FFN == "1"``, the activations and both FFN weights share
-    one dtype, H and I are multiples of 128 and the row count has a JAX
-    row block (a multiple of 8)."""
+    one dtype and `ffn_geometry_ok` holds."""
     if os.environ.get("PTPU_PALLAS_FFN") != "1":
         return None
     mb, s, H = h.shape
-    I = p["fc_in_w"].shape[-1]
     if not (h.dtype == p["fc_in_w"].dtype == p["fc_out_w"].dtype
-            and H % 128 == 0 and I % 128 == 0
-            and ln_block_rows(mb * s) is not None):
+            and ffn_geometry_ok(mb * s, H, p["fc_in_w"].shape[-1], H)):
         return None
     hn = fused_layernorm_arrays(h, p["ln2_w"], p["ln2_b"], eps)
     m = fused_ffn_arrays(hn, p["fc_in_w"], p["fc_in_b"], p["fc_out_w"],
@@ -214,14 +225,119 @@ class GPTPretrainingCriterion(nn.Module):
         return loss.mean()
 
 
+# ---------------------------------------------------------------------------
+# per-layer layout (`gpt.py:143-280`, `:698-811`, the non-cache branches)
+# ---------------------------------------------------------------------------
+
+class GPTEmbeddings(nn.Module):
+    """``word_embeddings[ids] + position_embeddings[pos]``, both drawn
+    normal with std ``initializer_range`` (`gpt.py:143-169`; no dropout)."""
+
+    def __init__(self, cfg: GPTConfig, device, dtype, generator):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype, generator=generator,
+                  std=cfg.initializer_range)
+        self.word_embeddings = Embedding(cfg.vocab_size, cfg.hidden_size,
+                                         **kw)
+        self.position_embeddings = Embedding(cfg.max_position_embeddings,
+                                             cfg.hidden_size, **kw)
+
+    def forward(self, input_ids, position_ids=None):
+        if position_ids is None:
+            position_ids = torch.arange(input_ids.shape[-1],
+                                        device=input_ids.device)
+        return (self.word_embeddings(input_ids)
+                + self.position_embeddings(position_ids))
+
+
+class GPTAttention(nn.Module):
+    """Causal self-attention without a cache (`gpt.py:172-251`): the fused
+    ``qkv_proj``, ``[b, s, 3, heads, head_dim]``, causal flash attention
+    (differentiable), ``out_proj``."""
+
+    def __init__(self, cfg: GPTConfig, device, dtype, generator):
+        super().__init__()
+        self.num_heads = cfg.num_attention_heads
+        self.head_dim = cfg.hidden_size // cfg.num_attention_heads
+        kw = dict(device=device, dtype=dtype, generator=generator)
+        self.qkv_proj = Linear(cfg.hidden_size, 3 * cfg.hidden_size, **kw)
+        self.out_proj = Linear(cfg.hidden_size, cfg.hidden_size, **kw)
+
+    def forward(self, x):
+        b, s, h = x.shape
+        qkv = self.qkv_proj(x).reshape(b, s, 3, self.num_heads,
+                                       self.head_dim)
+        o = flash_attention_arrays(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2],
+                                   is_causal=True)
+        return self.out_proj(o.reshape(b, s, h))
+
+
+class GPTMLP(nn.Module):
+    """``fc_out(gelu_tanh(fc_in(x)))``, or under ``PTPU_PALLAS_FFN=1`` the
+    fused FFN plus ``fc_out.bias`` where `maybe_fused_ffn` takes it
+    (`gpt.py:254-280`)."""
+
+    def __init__(self, cfg: GPTConfig, device, dtype, generator):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype, generator=generator)
+        self.fc_in = Linear(cfg.hidden_size, cfg.intermediate_size, **kw)
+        self.fc_out = Linear(cfg.intermediate_size, cfg.hidden_size, **kw)
+
+    def forward(self, x):
+        y = maybe_fused_ffn(x, self.fc_in.weight, self.fc_in.bias,
+                            self.fc_out.weight, "gelu_tanh")
+        if y is not None:
+            return y + self.fc_out.bias
+        return self.fc_out(F.gelu(self.fc_in(x), approximate="tanh"))
+
+
+class GPTBlock(nn.Module):
+    """Pre-LN block (`gpt.py:698-723`, no MoE, no dropout)."""
+
+    def __init__(self, cfg: GPTConfig, device, dtype, generator):
+        super().__init__()
+        eps = cfg.layer_norm_epsilon
+        self.ln_1 = LayerNorm(cfg.hidden_size, eps, device, dtype)
+        self.attn = GPTAttention(cfg, device, dtype, generator)
+        self.ln_2 = LayerNorm(cfg.hidden_size, eps, device, dtype)
+        self.mlp = GPTMLP(cfg, device, dtype, generator)
+
+    def forward(self, x):
+        x = x + self.attn(self.ln_1(x))
+        return x + self.mlp(self.ln_2(x))
+
+
+class GPTModel(nn.Module):
+    """Embeddings, blocks ``h_0 .. h_{L-1}`` and ``ln_f``
+    (`gpt.py:726-811`, the per-layer branch without caches)."""
+
+    def __init__(self, cfg: GPTConfig, device, dtype, generator):
+        super().__init__()
+        self.embeddings = GPTEmbeddings(cfg, device, dtype, generator)
+        self.h = [GPTBlock(cfg, device, dtype, generator)
+                  for _ in range(cfg.num_hidden_layers)]
+        for i, blk in enumerate(self.h):
+            self.add_module(f"h_{i}", blk)
+        self.ln_f = LayerNorm(cfg.hidden_size, cfg.layer_norm_epsilon,
+                              device, dtype)
+
+    def forward(self, input_ids, position_ids=None):
+        x = self.embeddings(input_ids, position_ids)
+        for blk in self.h:
+            x = blk(x)
+        return self.ln_f(x)
+
+
 class GPTForCausalLM(nn.Module):
-    """Stacked-blocks GPT with a tied LM head.
+    """GPT with a tied LM head, in the layout ``cfg.stacked_blocks``
+    picks (module docstring).
 
     Weights are drawn on the CPU from ``generator`` (a seeded
     `torch.Generator`; default: a fresh one seeded 0) — normal with std
-    ``initializer_range`` for the matrices and embeddings, ones for the
-    LayerNorm scales, zeros for biases — then moved to ``device``, so one
-    seed gives the same model on every device."""
+    ``initializer_range`` for the embeddings (and, stacked, the matrices;
+    per-layer, the `Linear` weights are XavierNormal as in the JAX
+    layers), ones for the LayerNorm scales, zeros for biases — then moved
+    to ``device``, so one seed gives the same model on every device."""
 
     def __init__(self, cfg: GPTConfig, device=None, dtype=torch.float32,
                  generator=None):
@@ -230,6 +346,9 @@ class GPTForCausalLM(nn.Module):
         dev = resolve_device(device)
         g = generator if generator is not None \
             else torch.Generator().manual_seed(0)
+        if not cfg.stacked_blocks:
+            self.gpt = GPTModel(cfg, dev, dtype, g)
+            return
         L, H, I = (cfg.num_hidden_layers, cfg.hidden_size,
                    cfg.intermediate_size)
         shapes = {
@@ -254,19 +373,29 @@ class GPTForCausalLM(nn.Module):
             self.register_parameter(name, nn.Parameter(
                 t.to(device=dev, dtype=dtype)))
 
+    @property
+    def word_embeddings(self):
+        """The tied embedding and head matrix [vocab, H]."""
+        return (self.wte if self.cfg.stacked_blocks
+                else self.gpt.embeddings.word_embeddings.weight)
+
     def forward(self, input_ids, position_ids=None):
         """[B, S] token ids -> [B, S, vocab] logits in the weights' dtype:
-        ``wte[ids] + wpe[pos]``, the blocks with causal flash attention,
-        the final `layer_norm_arrays`, then the tied head ``h @ wte.T`` —
-        the non-pipeline branch of the JAX ``GPTModel.forward`` and
-        ``GPTForCausalLM.forward``.  ``position_ids`` defaults to
-        ``0 .. S-1``."""
+        the embeddings ``wte[ids] + wpe[pos]``, the blocks with causal
+        flash attention, the final LayerNorm (the gated `layer_norm`), then
+        the tied head ``h @ wte.T`` — the non-pipeline branch of the JAX
+        ``GPTModel.forward`` and ``GPTForCausalLM.forward``.
+        ``position_ids`` defaults to ``0 .. S-1``."""
         cfg = self.cfg
-        dev = self.wte.device
+        wte = self.word_embeddings
+        dev = wte.device
         ids = torch.as_tensor(input_ids, device=dev).long()
-        pos = (torch.arange(ids.shape[-1], device=dev)
-               if position_ids is None
+        pos = (None if position_ids is None
                else torch.as_tensor(position_ids, device=dev).long())
+        if not cfg.stacked_blocks:
+            return self.gpt(ids, pos) @ wte.t()
+        if pos is None:
+            pos = torch.arange(ids.shape[-1], device=dev)
         h = self.wte[ids] + self.wpe[pos]
         nh = cfg.num_attention_heads
         hd = cfg.hidden_size // nh
@@ -274,7 +403,7 @@ class GPTForCausalLM(nn.Module):
         for layer in range(cfg.num_hidden_layers):
             p = {n: getattr(self, n)[layer] for n in BLOCK_PARAMS}
             h, _ = _stacked_block_body(p, h, _causal_attn, nh, hd, eps)
-        h = layer_norm_arrays(h, self.lnf_w, self.lnf_b, eps)
+        h = layer_norm(h, cfg.hidden_size, self.lnf_w, self.lnf_b, eps)
         return h @ self.wte.t()
 
     def pretrain_loss(self, input_ids, labels, loss_mask=None,
@@ -285,7 +414,9 @@ class GPTForCausalLM(nn.Module):
             self(input_ids, position_ids), labels, loss_mask)
 
     def param_arrays(self) -> dict:
-        """{name: tensor} keyed like the JAX engine's ``_param_arrays``."""
+        """{name: tensor}: stacked, keyed like the JAX engine's
+        ``_param_arrays``; per-layer, like the JAX model's
+        ``state_dict()`` (``gpt.h_0.attn.qkv_proj.weight``, ...)."""
         return dict(self.named_parameters())
 
     @torch.no_grad()
@@ -306,6 +437,13 @@ class GPTForCausalLM(nn.Module):
         return self
 
     # -- autoregressive decoding -------------------------------------------
+    def _require_stacked(self, what):
+        if not self.cfg.stacked_blocks:
+            raise NotImplementedError(
+                f"{what} of the per-layer layout (its cached forward) is "
+                f"ROADMAP Queue 1 'Next' item 3; build the model with "
+                f"GPTConfig(stacked_blocks=True) to decode")
+
     def init_caches(self, batch_size, max_length, dtype=None):
         """Per-layer ``(k, v)`` flat rings ``[B, S_max, H*D]`` of zeros on
         the model's device, ``S_max`` = ``max_length`` rounded up to 128
@@ -313,6 +451,7 @@ class GPTForCausalLM(nn.Module):
         defaults to the weights'.  The JAX package switches to stacked
         ``[L, ...]`` caches above 32 layers, a trade of its layer scan;
         the port always takes the per-layer form."""
+        self._require_stacked("init_caches")
         cfg = self.cfg
         s_max = -(-max_length // 128) * 128
         shape = (batch_size, s_max, cfg.hidden_size)
@@ -326,7 +465,9 @@ class GPTForCausalLM(nn.Module):
         layer with the rings (written in place) -> the last position's fp32
         logits [B, V] — the cached branch of the JAX ``GPTModel.forward``
         with `_forward_cached_unrolled`, then ``ln_f`` and the tied head
-        on the last position only (its rows are independent)."""
+        on the last position only (its rows are independent; the fused
+        LayerNorm's gate is decided on all B*S rows, as the JAX package
+        normalises them all)."""
         cfg = self.cfg
         nh = cfg.num_attention_heads
         hd = cfg.hidden_size // nh
@@ -353,7 +494,10 @@ class GPTForCausalLM(nn.Module):
                 return _cached_attn_arrays(q, k, v, kc, vc, t, prefill), None
 
             h, _ = _stacked_block_body(p, h, attn_fn, nh, hd, eps)
-        hn = layer_norm_arrays(h[:, -1], self.lnf_w, self.lnf_b, eps)
+        ln = (fused_layernorm_arrays
+              if fused_ln_applies(mb * s, H, self.lnf_w, self.lnf_b)
+              else layer_norm_arrays)
+        hn = ln(h[:, -1], self.lnf_w, self.lnf_b, eps)
         return (hn @ self.wte.t()).float()
 
     @torch.no_grad()
@@ -376,6 +520,7 @@ class GPTForCausalLM(nn.Module):
                 "padded-prompt generate (pad_token_id) needs the masked "
                 "flash forward; it is ROADMAP Queue 1 'Next' item 1, with "
                 "Queue 2 item 2's masked variant")
+        self._require_stacked("generate")
         cfg = self.cfg
         dev = self.wte.device
         ids = torch.as_tensor(input_ids).to(dev, torch.int32)

@@ -7,7 +7,9 @@ from .flash_decode import (cached_attention_arrays, flash_decode_arrays,
 from .fused_decode import (fused_decode_layer_arrays,
                            fused_decode_layer_reference)
 from .fused_mlp import (fused_ffn_arrays, fused_ffn_reference,
-                        fused_layernorm_arrays, fused_layernorm_reference)
+                        fused_layernorm_arrays, fused_layernorm_bwd,
+                        fused_layernorm_bwd_reference,
+                        fused_layernorm_reference, maybe_fused_ffn)
 from .paged_attention import (paged_attention_arrays,
                               paged_cache_update_arrays,
                               paged_gather_kv_arrays, slot_mapping)
@@ -21,8 +23,9 @@ __all__ = ["flash_attention_arrays", "mha_reference", "FlashAttention",
            "cached_attention_arrays", "flash_decode_arrays",
            "flash_decode_reference", "fused_decode_layer_arrays",
            "fused_decode_layer_reference", "fused_layernorm_arrays",
-           "fused_layernorm_reference", "fused_ffn_arrays",
-           "fused_ffn_reference",
+           "fused_layernorm_reference", "fused_layernorm_bwd",
+           "fused_layernorm_bwd_reference", "fused_ffn_arrays",
+           "fused_ffn_reference", "maybe_fused_ffn",
            "paged_attention_arrays", "paged_cache_update_arrays",
            "paged_gather_kv_arrays", "slot_mapping",
            "ragged_paged_attention_arrays",
@@ -32,7 +35,8 @@ __all__ = ["flash_attention_arrays", "mha_reference", "FlashAttention",
 # every launch wrapper: a module or object with KERNEL and launches
 _KERNELS = (flash_attention, flash_attention.flash_bwd_dq,
             flash_attention.flash_bwd_dkv, ragged_paged_attention,
-            flash_decode, fused_decode, fused_mlp.ln_fwd, fused_mlp.ffn_fwd)
+            flash_decode, fused_decode, fused_mlp.ln_fwd, fused_mlp.ln_bwd,
+            fused_mlp.ffn_fwd)
 
 
 def launch_counts() -> dict:

@@ -41,6 +41,15 @@ with ``mag`` that sum taken over magnitudes in fp32:
   those terms, not of y: `ln_magnitude` = ``(|x - mu| + mean|x|) rstd
   |w| + |b|``, with 2^-20 leaving room for the error of the statistics.
 
+- LayerNorm backward (``coef = LN_BWD_COEF = 1e-5``): both sides compute
+  in fp32 from the same inputs and differ only in summation order (the
+  kernel sums a row in 32 lanes, dw and db in per-warp, per-block and
+  per-stride partials; at most ~100 terms in sequence for 8192 rows), so
+  each output is within 1e-5 of its sum over term magnitudes
+  (`ln_bwd_magnitudes`): ``rstd (|g| + mean|g| + |x^| mean|g x^|)`` for
+  dx, the column sums of ``|dy x^|`` and ``|dy|`` for dw and db.  An
+  output in bf16 adds one bf16 step (each side rounds it once).
+
 Chains of rounded intermediates (the fused decode layer and the FFN,
 `fused_decode_limits`, `ffn_limit`) are bounded stage by stage through
 the plain version.  Where both sides round to bf16 fp32 values that are
@@ -85,9 +94,10 @@ from .flash_decode import flash_decode_reference
 from .fused_mlp import _act, fused_layernorm_reference
 
 __all__ = ["BF16_STEP", "FWD_COEF", "BWD_COEF", "DECODE_COEF", "LN_COEF",
-           "FP32_SUM", "bf16_limit", "compare", "flash_fwd_magnitude",
-           "flash_bwd_magnitudes", "decode_magnitude", "decode_limit",
-           "ln_magnitude", "rounding_spread", "fused_decode_limits",
+           "LN_BWD_COEF", "FP32_SUM", "bf16_limit", "compare",
+           "flash_fwd_magnitude", "flash_bwd_magnitudes", "decode_magnitude",
+           "decode_limit", "ln_magnitude", "ln_bwd_magnitudes",
+           "ln_bwd_limits", "rounding_spread", "fused_decode_limits",
            "ffn_limit"]
 
 BF16_STEP = 2.0 ** -7
@@ -95,6 +105,7 @@ FWD_COEF = 2.0 ** -8
 BWD_COEF = 2.0 ** -7
 DECODE_COEF = 2.0 ** -7
 LN_COEF = 2.0 ** -20
+LN_BWD_COEF = 1e-5
 FP32_SUM = 2.0 ** -16
 
 
@@ -167,6 +178,28 @@ def ln_magnitude(x2, w, b, eps=1e-5):
     x = x2.float()
     return (((x - mu).abs() + x.abs().mean(-1, keepdim=True)) * rs
             * w.float().abs() + b.float().abs())
+
+
+def ln_bwd_magnitudes(x2, w, mu, rs, dy):
+    """(mag_dx [n, H], mag_dw [H], mag_db [H]) in fp32: each gradient's
+    sum over the magnitudes of its terms."""
+    xhat = ((x2.float() - mu) * rs).abs()
+    ady = dy.float().abs()
+    g = ady * w.float().abs()
+    mag_dx = rs * (g + g.mean(-1, keepdim=True)
+                   + xhat * (g * xhat).mean(-1, keepdim=True))
+    return mag_dx, (ady * xhat).sum(0), ady.sum(0)
+
+
+def ln_bwd_limits(got, want, x2, w, mu, rs, dy):
+    """Per-element limits of the LayerNorm backward's (dx, dw, db) ``got``
+    against ``want`` (module docstring): ``LN_BWD_COEF`` of each output's
+    magnitude, plus one bf16 step for an output in bf16."""
+    limits = []
+    for g, r, mag in zip(got, want, ln_bwd_magnitudes(x2, w, mu, rs, dy)):
+        limits.append(LN_BWD_COEF * mag if g.dtype == torch.float32
+                      else bf16_limit(g, r, mag, LN_BWD_COEF))
+    return limits
 
 
 def rounding_spread(v32, e, dtype):

@@ -62,6 +62,10 @@ class LLMEngine:
 
     def __init__(self, model, config: Optional[EngineConfig] = None):
         cfg = model.cfg
+        if not cfg.stacked_blocks:
+            raise ValueError(
+                "LLMEngine serves the stacked-blocks GPT form "
+                "(GPTConfig(stacked_blocks=True)), as the JAX engine does")
         self.cfg = cfg
         self.config = c = config or EngineConfig()
         self.device = resolve_device(c.device)

@@ -260,15 +260,21 @@ def test_ffn_reference_matches_jax_kernel(act, dtype, monkeypatch):
 
 
 def test_fused_mlp_refuses_grad():
+    """Neither refuses grad any more: with an input that requires it each
+    records its autograd Function and back-propagates; under
+    torch.no_grad() (the decode step) each records nothing."""
     x = torch.randn(8, 128, requires_grad=True)
     w, b = torch.ones(128), torch.zeros(128)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fm.fused_layernorm_arrays(x, w, b)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fm.fused_ffn_arrays(x, torch.ones(128, 128), torch.zeros(128),
-                            torch.ones(128, 128))
+    ffn = (torch.ones(128, 128), torch.zeros(128), torch.ones(128, 128))
+    for y in (fm.fused_layernorm_arrays(x, w, b),
+              fm.fused_ffn_arrays(x, *ffn)):
+        assert y.grad_fn is not None
+        x.grad = None
+        y.square().sum().backward()
+        assert x.grad.shape == (8, 128) and torch.isfinite(x.grad).all()
     with torch.no_grad():
-        assert fm.fused_layernorm_arrays(x, w, b).shape == (8, 128)
+        assert fm.fused_layernorm_arrays(x, w, b).grad_fn is None
+        assert fm.fused_ffn_arrays(x, *ffn).grad_fn is None
 
 
 # ---------------------------------------------------------------------------
@@ -293,7 +299,8 @@ def jax_model():
 def port_model(jax_model):
     arrays = {n: np.asarray(a) for n, a in
               JaxEngine(jax_model)._param_arrays().items()}
-    m = GPTForCausalLM(gpt_test_config(**CFG), device="cpu")
+    m = GPTForCausalLM(gpt_test_config(stacked_blocks=True, **CFG),
+                       device="cpu")
     return m.load_params(params_from_numpy(arrays, device="cpu"))
 
 

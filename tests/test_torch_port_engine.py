@@ -41,7 +41,7 @@ def jax_model():
 def port_model(jax_model):
     arrays = {n: np.asarray(a) for n, a in
               JaxEngine(jax_model)._param_arrays().items()}
-    m = GPTForCausalLM(gpt_test_config(), device="cpu")
+    m = GPTForCausalLM(gpt_test_config(stacked_blocks=True), device="cpu")
     return m.load_params(params_from_numpy(arrays, device="cpu"))
 
 
@@ -127,7 +127,7 @@ def test_kv_cache_raises_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("option", [
-    "stacked_blocks", "sequence_parallel", "use_flash_attention",
+    "pp_schedule", "sequence_parallel", "use_flash_attention",
     "context_parallel", "hidden_dropout_prob", "moe_every_n", "recompute"])
 def test_config_has_no_unported_options(option):
     # the JAX config's field exists, the port's cannot be set

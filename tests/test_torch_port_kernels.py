@@ -19,6 +19,9 @@ Tolerances against the plain version on the same inputs
   magnitudes (P^T|dO|, scale W^T|Q|, scale W|K|, with W = P (|dO|.|V|^T
   + |dO|.|out|) bounding ds = P (dP - delta) and its fp32 noise).
 - pool writes: bitwise.
+- LayerNorm backward: each of dx, dw, db within 1e-5 of its sum over
+  term magnitudes, plus one bf16 step for a bf16 output
+  (`tolerance.ln_bwd_limits`); a second launch bitwise equal.
 - decode, fused decode layer, LayerNorm, FFN, float32: max absolute error
   2e-5 (FFN: 1e-5 max|ref|, sums over the intermediate); LayerNorm
   statistics 1e-5 relative.  bfloat16: one bf16 step of each output plus
@@ -277,3 +280,65 @@ def test_ffn_kernel_matches_plain(n, hidden, inter, act, dtype):
              else tol.ffn_limit(x, w1, b1, w2, act))
     err, ratio, ok = tol.compare(y, yr, limit)
     assert ok, (err, ratio)
+
+
+@pytest.mark.cuda
+@pytest.mark.usefixtures("needs_cuda")
+@pytest.mark.parametrize("xdt,pdt", [(torch.float32, torch.float32),
+                                     (torch.bfloat16, torch.bfloat16),
+                                     (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("n,hidden", [(8, 768), (200, 768), (8192, 768),
+                                      (100, 1000), (300, 4096), (64, 1002)])
+def test_layernorm_bwd_kernel_matches_plain(n, hidden, xdt, pdt):
+    x = _randn((n, hidden), n, xdt, 2.0) + 0.5
+    w = 1 + _randn((hidden,), n + 1, pdt, 0.1)
+    b = _randn((hidden,), n + 2, pdt, 0.1)
+    # a strided dy: the [n, H] view of an [n, 2, H] tensor
+    dy = _randn((n, 2, hidden), n + 3, torch.promote_types(xdt, pdt))[:, 1]
+    _, mu, rs = fm.fused_layernorm_reference(x, w, b)
+    fm.ln_bwd.launches = 0
+    got = fm.fused_layernorm_bwd(x, w, mu, rs, dy)
+    again = fm.fused_layernorm_bwd(x, w, mu, rs, dy)
+    want = fm.fused_layernorm_bwd_reference(x, w, mu, rs, dy)
+    torch.cuda.synchronize()
+    assert fm.ln_bwd.launches == 2
+    assert [g.dtype for g in got] == [xdt, pdt, pdt]
+    assert all(torch.equal(a, c) for a, c in zip(got, again))  # no atomics
+    limits = tol.ln_bwd_limits(got, want, x, w, mu, rs, dy)
+    for name, g, r, lim in zip(("dx", "dw", "db"), got, want, limits):
+        err, ratio, ok = tol.compare(g, r, lim)
+        assert ok, (name, err, ratio)
+
+
+@pytest.mark.cuda
+@pytest.mark.usefixtures("needs_cuda")
+def test_layernorm_and_ffn_autograd_match_cpu():
+    """fp32 gradients of LN -> FFN through the two autograd Functions on
+    the card (forward kernels, the LN backward kernel, the FFN's
+    recompute in cuBLAS) against the same on the CPU (plain versions),
+    each within 1e-4 max|ref|: the card's forward outputs differ from the
+    plain ones by up to 2e-5 (LN) and 1e-5 max|ref| (FFN), and every
+    gradient is a sum of products of them, in fp32 on both sides."""
+    n, hidden, inter = 256, 768, 3072
+    ins = [_randn((n, hidden), 1, torch.float32),
+           1 + _randn((hidden,), 2, torch.float32, 0.1),
+           _randn((hidden,), 3, torch.float32, 0.1),
+           _randn((hidden, inter), 4, torch.float32, hidden ** -0.5),
+           _randn((inter,), 5, torch.float32, 0.1),
+           _randn((inter, hidden), 6, torch.float32, inter ** -0.5)]
+    dy = _randn((n, hidden), 7, torch.float32)
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        x, lw, lb, w1, b1, w2 = (t.detach().to(dev).requires_grad_()
+                                 for t in ins)
+        fm.ln_fwd.launches = fm.ln_bwd.launches = fm.ffn_fwd.launches = 0
+        h = fm.fused_layernorm_arrays(x, lw, lb)
+        fm.fused_ffn_arrays(h, w1, b1, w2, "gelu_tanh").backward(dy.to(dev))
+        launched = (fm.ln_fwd.launches, fm.ln_bwd.launches,
+                    fm.ffn_fwd.launches)
+        assert launched == ((1, 1, 1) if dev == "cuda" else (0, 0, 0))
+        grads[dev] = [t.grad.cpu() for t in (x, lw, lb, w1, b1, w2)]
+    for name, g, r in zip(("dx", "dlw", "dlb", "dw1", "db1", "dw2"),
+                          grads["cuda"], grads["cpu"]):
+        assert (g - r).abs().max().item() <= 1e-4 * r.abs().max().item(), \
+            name

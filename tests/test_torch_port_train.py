@@ -132,7 +132,7 @@ def test_bwd_wrappers_on_cpu_compute_the_plain_backward():
     assert set(ops.launch_counts()) == {
         "flash_fwd_causal", "flash_bwd_dq_causal", "flash_bwd_dkv_causal",
         "ragged_paged_attention", "flash_decode", "fused_decode_layer",
-        "fused_layernorm", "fused_ffn"}
+        "fused_layernorm", "fused_layernorm_bwd", "fused_ffn"}
     assert set(ops.launch_counts().values()) == {0}
 
 
@@ -256,7 +256,8 @@ def test_three_training_steps_match_jax():
     jmodel = JaxGPT(jax_test_config(stacked_blocks=True,
                                     sequence_parallel=False))
     jmodel.train()
-    model = GPTForCausalLM(gpt_test_config(), device="cpu").load_params(
+    model = GPTForCausalLM(gpt_test_config(stacked_blocks=True),
+                           device="cpu").load_params(
         params_from_numpy(_jax_arrays(jmodel), device="cpu"))
     rng = np.random.RandomState(0)
     ids = rng.randint(0, 128, (2, 24)).astype(np.int32)
@@ -293,7 +294,8 @@ def test_three_training_steps_match_jax():
 
 
 def test_pretrain_loss_is_the_criterion_of_the_logits():
-    model = GPTForCausalLM(gpt_test_config(num_hidden_layers=1),
+    model = GPTForCausalLM(gpt_test_config(num_hidden_layers=1,
+                                           stacked_blocks=True),
                            device="cpu")
     rng = np.random.RandomState(5)
     ids = _t(rng.randint(0, 128, (2, 9)))
