@@ -49,6 +49,16 @@ Phases, in order; any failure exits non-zero and prints no result line:
      rows; yardstick `torch.autograd.grad` through `F.layer_norm`.  dx,
      dw and db within 1e-5 of each output's sum over term magnitudes,
      plus one bf16 step for a bf16 output; two launches bitwise equal.
+   - the masked flash forward at the padded prefill's shape, B=8 H=12
+     D=64 S=896: the stride-0 [B, 1, S, S] view of a left-pad row (pads
+     0-300), an additive [B, H, S, S], an additive [1, 1, S, S], and
+     kv_lens S .. S-259; yardstick SDPA with the same mask plus causal.
+     Every row is compared, left-pad rows (all keys masked) included.
+   - the int8 ragged kernel at the engine's decode step and at a C=512
+     chunk from position 188 (33 blocks written), on int8 pools whose
+     scales the writes grow: codes and scales bitwise equal to the plain
+     version's, out within the forward limit (no yardstick).  The timed
+     calls repeat the write at the grown scales.
 3. Engine: GPT-2 124M (full width, 12 layers, random weights from seed 0)
    served by `LLMEngine` with block_size 16, max_num_seqs 8,
    max_num_batched_tokens 512: five greedy prompts of 7, 64, 200, 384 and
@@ -59,7 +69,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
    A bfloat16 run reports its agreement with float32 and its prefill and
    decode tokens per second; 8 bfloat16 decode steps, timed alone and
    then under torch.profiler, give the device's busy share of a step and
-   the top kernels.
+   the top kernels.  Then the same with ``kv_cache_dtype="int8"``: fp32
+   card tokens equal to the CPU int8 run's, the int8 kernel launched 12 x
+   (decode + chunk steps) and the fp one never; bf16 reports its token
+   agreement with the bf16 fp engine, num_blocks at equal pool bytes,
+   tokens/s and a profiled decode window.
 4. Generate: GPT-2 124M, weights from seed 0, greedy, in the default
    mode (flash decode per step) and the fused mode (PTPU_FUSED_DECODE=1
    PTPU_PALLAS_FFN=1: fused layer, LN and FFN per step).  float32, B=8,
@@ -71,6 +85,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
    prefill-only generate taken off), launches as expected (flash 12, and
    12 x 127 of the decode kernel or of each fused kernel), the agreement,
    and 8 decode steps timed alone and under torch.profiler per mode.
+   Padded prompts (`pad_token_id`; row r holds P - r (P // 8) tokens,
+   even rows right-, odd rows left-padded): float32 B=8 P=256 card
+   tokens equal to the CPU run's in both modes and the buffer
+   left-aligned, the masked forward launched 12 times per generate, the
+   decode kernel never (the masked branch, as in JAX), the fused kernels
+   12 x steps; bfloat16 P=896 + 128 new, ms per step per mode.
 5. Training, float32, card against CPU: GPT-2 124M at full width and
    depth, weights from seed 0, one fixed random batch of B=1 S=1024,
    3 AdamW steps (lr 1e-4) through `model(ids)` ->
@@ -94,8 +114,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    kernel, 25 of the LayerNorm forward and backward and 12 of the FFN per
    step and none on the CPU; then bf16 as phase 6 with the flags and
    without them.
-8. Summary: one JSON line of the nine kernels, the card line, then the
-   result line.
+8. Summary: one JSON line of the eleven kernels (the mask and int8
+   variants counted apart), the card line, then the result line.
 
 Every time is a median of CUDA-event timings (L2 flushed before each
 launch, the host's enqueue hidden behind a spin on the stream); every
@@ -124,9 +144,13 @@ FWD, DQ, DKV, RAGGED = ("flash_fwd_causal", "flash_bwd_dq_causal",
 DECODE, FUSED, LN, LN_BWD, FFN = ("flash_decode", "fused_decode_layer",
                                   "fused_layernorm", "fused_layernorm_bwd",
                                   "fused_ffn")
-KERNELS = (FWD, RAGGED, DQ, DKV, DECODE, FUSED, LN, LN_BWD, FFN)
+FWD_MASK, RAGGED8 = "flash_fwd_causal:mask", "ragged_paged_attention:int8"
+KERNELS = (FWD, FWD_MASK, RAGGED, RAGGED8, DQ, DKV, DECODE, FUSED, LN,
+           LN_BWD, FFN)
 REPLACES = {
     FWD: "paddle_tpu/ops/pallas_ops.py:135",
+    FWD_MASK: "paddle_tpu/ops/pallas_ops.py:135",
+    RAGGED8: "paddle_tpu/ops/ragged_paged_attention.py:125",
     DQ: "paddle_tpu/ops/pallas_ops.py:210",
     DKV: "paddle_tpu/ops/pallas_ops.py:272",
     RAGGED: "paddle_tpu/ops/ragged_paged_attention.py:125",
@@ -137,11 +161,13 @@ REPLACES = {
     FFN: "paddle_tpu/ops/pallas_ops.py:1548",
 }
 # the __global__ functions of paddle_tpu_torch/csrc, as the profiler names
-PORT_SYMBOLS = ("flash_fwd_causal_kernel", "flash_bwd_dq_kernel",
-                "flash_bwd_dkv_kernel", "ragged_write_kernel",
-                "ragged_attend_kernel", "flash_decode_kernel",
-                "fused_decode_layer_kernel", "ln_fwd_kernel",
-                "ln_bwd_kernel", "ln_bwd_sum_kernel", "fused_ffn_kernel")
+PORT_SYMBOLS = ("flash_fwd_causal_kernel", "flash_fwd_masked_kernel",
+                "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
+                "ragged_write_kernel", "ragged_attend_kernel",
+                "ragged_write_int8_kernel", "ragged_attend_int8_kernel",
+                "flash_decode_kernel", "fused_decode_layer_kernel",
+                "ln_fwd_kernel", "ln_bwd_kernel", "ln_bwd_sum_kernel",
+                "fused_ffn_kernel")
 TRAIN_LR = 1e-4
 # the environment flags that select the decode kernels, by generate mode
 GEN_MODES = {"default": {},
@@ -371,6 +397,148 @@ def check_ragged(rpa, tol, timer, rows, c, dtype, seed):
                 bound_ms=bms, bound_by=by, library_ms=None)
 
 
+def check_ragged_int8(rpa, tol, timer, rows, c, dtype, seed):
+    """The int8 entry against its plain version on int8 pools whose small
+    scales (< 0.005) the new rows grow: codes and scales bitwise, out
+    within the forward limit.  The timed calls repeat the write at the
+    grown scales (factor 1, no rescale)."""
+    nb, bs, h, d = 512, 16, 12, 64
+    args, qlens, _, flops = ragged_case(rows, c, nb, bs, h, d, dtype, seed)
+    q, kn, vn, _, _, tables, pos0, lens, slots = args
+    g = torch.Generator().manual_seed(seed)
+    kc, vc = (torch.randint(-127, 128, (nb, bs, h, d), generator=g,
+                            dtype=torch.int8).cuda() for _ in range(2))
+    ks, vs = ((torch.rand(nb, h, generator=g) * 0.005).cuda()
+              for _ in range(2))
+    before = ks.clone(), vs.clone()
+    ref = [t.clone() for t in (kc, vc, ks, vs)]
+    idx = (tables, pos0, lens, slots)
+    out, *got = rpa.ragged_paged_attention_arrays(q, kn, vn, kc, vc, *idx,
+                                                  ks, vs)
+    want, *wref = rpa.ragged_paged_attention_reference(q, kn, vn, ref[0],
+                                                       ref[1], *idx, ref[2],
+                                                       ref[3])
+    torch.cuda.synchronize()
+    what = f"ragged int8 C={c} {dtype}"
+    if not all(torch.equal(a, b) for a, b in zip(got, wref)):
+        fail(f"{what}: codes or scales differ from the plain version")
+    grown = sum(int((a != b).sum()) for a, b in zip(before, (ks, vs)))
+    if not grown:
+        fail(f"{what}: no scale grew")
+    limits = [TOL_FP32] * len(qlens)
+    if dtype != torch.float32:
+        m = rpa.folded_quant_attention(q.float(), ref[0], ref[1].abs(),
+                                       ref[2], ref[3], tables, pos0,
+                                       d ** -0.5)
+        limits = [tol.bf16_limit(out[r, :n], want[r, :n], m[r, :n],
+                                 tol.FWD_COEF)
+                  for r, n in enumerate(qlens)]
+    checks = [check_close(tol, out[r, :n], want[r, :n], limits[r],
+                          f"{what} row {r}")
+              for r, n in enumerate(qlens) if n]
+    ms = timer(lambda: rpa.ragged_paged_attention_arrays(
+        q, kn, vn, kc, vc, *idx, ks, vs))
+    plain_ms = timer(lambda: rpa.ragged_paged_attention_reference(
+        q, kn, vn, *ref[:2], *idx, *ref[2:]))
+    # what this data needs: each code of the rows' keys and each (block,
+    # head) scale they use read once, the new rows' codes written, each
+    # grown (block, head) slice of codes read and written, its scale
+    # written; q, k_new, v_new read and out written; the index arrays
+    keys = sum(r[0] for r in rows if r)
+    blocks = sum(-(-r[0] // bs) for r in rows if r)
+    writes = sum(qlens)
+    item = q.element_size()
+    nbytes = (2 * keys * h * d + 2 * blocks * h * 4 + 2 * writes * h * d
+              + grown * (2 * bs * d + 4) + 4 * len(rows) * c * h * d * item
+              + 4 * (tables.numel() + 2 * len(rows) + slots.numel()))
+    bms, by = bound_ms(nbytes, flops, dtype)
+    lens_s = ",".join(str(r[0]) if r else "pad" for r in rows)
+    return dict(shape=f"B={len(rows)} C={c} kv_lens=[{lens_s}] H={h} D={d} "
+                f"block_size={bs} int8 pools", dtype=str(dtype),
+                max_abs_err=max(e for e, _ in checks),
+                err_over_limit=max(w for _, w in checks), ms=ms,
+                plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                library_ms=None, scales_grown=grown)
+
+
+# left-pad counts of the padded prefill's eight rows
+PAD_COUNTS = (0, 43, 86, 129, 171, 214, 257, 300)
+
+
+def masked_inputs(kind, b, s, h, d, dtype, seed):
+    """q, k, v (slices of one fused qkv tensor), the mask and kv_lens of a
+    masked-forward case: ``pad`` the stride-0 [B, 1, S, S] view of a
+    [B, 1, 1, S] left-pad row (padded `generate`'s prefill), ``full`` an
+    additive [B, H, S, S], ``shared`` an additive [1, 1, S, S], ``lens``
+    kv_lens spread over S .. S - 259."""
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = torch.randn(b, s, 3, h, d, generator=g).to(
+        "cuda", dtype).unbind(2)
+    mask = lens = None
+    if kind == "pad":
+        pads = torch.tensor(PAD_COUNTS[:b])
+        row = torch.where(torch.arange(s)[None] < pads[:, None], -1e30, 0.0)
+        mask = row.cuda()[:, None, None, :].expand(b, 1, s, s)
+    elif kind == "full":
+        mask = (torch.randn(b, h, s, s, generator=g) * 2).cuda()
+    elif kind == "shared":
+        mask = (torch.randn(1, 1, s, s, generator=g) * 2).cuda()
+    else:
+        lens = torch.tensor([s - 37 * i for i in range(b)],
+                            dtype=torch.int32).cuda()
+    return q, k, v, mask, lens
+
+
+def check_flash_masked(fa, tol, timer, kind, dtype, seed, b=8, s=896, h=12,
+                       d=64):
+    """The masked / kv_lens flash forward against `mha_reference`, every
+    row (left-pad rows included); yardstick SDPA with the same additive
+    mask plus causal (and kv_lens as a mask)."""
+    q, k, v, mask, lens = masked_inputs(kind, b, s, h, d, dtype, seed)
+    out = fa.flash_attention_arrays(q, k, v, mask, kv_lens=lens)
+    want = fa.mha_reference(q, k, v, is_causal=True, mask=mask, kv_lens=lens)
+    limit = TOL_FP32
+    if dtype != torch.float32:
+        mag = fa.mha_reference(q.float(), k.float(), v.float().abs(),
+                               is_causal=True, mask=mask, kv_lens=lens)
+        limit = tol.bf16_limit(out, want, mag, tol.FWD_COEF)
+        del mag
+    torch.cuda.synchronize()
+    err, ratio = check_close(tol, out, want, limit,
+                             f"masked flash {kind} B={b} S={s} {dtype}")
+    del want, limit
+    ms = timer(lambda: fa.flash_attention_arrays(q, k, v, mask,
+                                                 kv_lens=lens))
+    plain_ms = timer(lambda: fa.mha_reference(q, k, v, is_causal=True,
+                                              mask=mask, kv_lens=lens),
+                     reps=10)
+    keys = torch.arange(s, device="cuda")
+    lib_mask = torch.where(keys[None, :] <= keys[:, None], 0.0, -1e30)
+    if mask is not None:
+        lib_mask = lib_mask + mask
+    if lens is not None:
+        lib_mask = lib_mask + torch.where(
+            keys[None, :] < lens[:, None], 0.0, -1e30)[:, None, None, :]
+    lib_mask = lib_mask.to(dtype)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib_ms = timer(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=lib_mask))
+    del lib_mask
+    item = q.element_size()
+    klen = [s] * b if lens is None else lens.tolist()
+    pairs = h * sum(n * (n + 1) // 2 + (s - n) * n for n in klen)
+    nbytes = (2 * b * s * h * d * item               # q read, out written
+              + 2 * sum(klen) * h * d * item         # the keys it needs
+              + 4 * b * h * s                        # lse
+              + (0 if mask is None else mask.untyped_storage().nbytes())
+              + (0 if lens is None else 4 * b))
+    bms, by = bound_ms(nbytes, 4 * d * pairs, dtype)
+    return dict(shape=f"B={b} S={s} H={h} D={d} {kind}", dtype=str(dtype),
+                max_abs_err=err, err_over_limit=ratio, ms=ms,
+                plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                library_ms=lib_ms, tol=_tol_text(dtype, TOL_FP32))
+
+
 def check_decode(fd, tol, timer, b, s_max, h, d, length, dtype, seed):
     """The flash-decode kernel against its plain version; q is the
     [B, 1, H, D] slice of a fused qkv projection, as in the GPT block."""
@@ -578,14 +746,14 @@ PROMPT_LENS = (7, 64, 200, 384, 700)
 NEW_TOKENS = 32
 
 
-def serve(model, prompts, device, dtype, ops=None):
+def serve(model, prompts, device, dtype, ops=None, kv_cache_dtype=None):
     """Run the engine to completion; returns (outputs, engine, launches,
     per-kind seconds and tokens)."""
     from paddle_tpu_torch.serving import EngineConfig, LLMEngine, \
         SamplingParams
     eng = LLMEngine(model, EngineConfig(
         block_size=16, max_num_seqs=8, max_num_batched_tokens=512,
-        device=device, dtype=dtype))
+        device=device, dtype=dtype, kv_cache_dtype=kv_cache_dtype))
     sp = SamplingParams(max_new_tokens=NEW_TOKENS)
     ids = [eng.add_request(p, sp) for p in prompts]
     stats = {"prefill_s": 0.0, "prefill_tokens": 0, "decode_s": 0.0,
@@ -646,7 +814,7 @@ def device_table(prof, steps):
             groups)
 
 
-def profile_decode(model, prompts, dtype, steps=8):
+def profile_decode(model, prompts, dtype, steps=8, kv_cache_dtype=None):
     """Decode steps 1..`steps` (all prompts already prefilled), run twice on
     fresh engines: once timed on the host clock alone, once under
     torch.profiler.  Returns wall ms per step both ways, the device ms per
@@ -660,7 +828,7 @@ def profile_decode(model, prompts, dtype, steps=8):
     for profiled in (False, True):
         eng = LLMEngine(model, EngineConfig(
             block_size=16, max_num_seqs=8, max_num_batched_tokens=512,
-            device="cuda", dtype=dtype))
+            device="cuda", dtype=dtype, kv_cache_dtype=kv_cache_dtype))
         ids = [eng.add_request(p, SamplingParams(max_new_tokens=NEW_TOKENS))
                for p in prompts]
         while eng.step_counts["decode"] == 0:
@@ -686,14 +854,17 @@ def profile_decode(model, prompts, dtype, steps=8):
 
 
 def check_launches(eng, launches, what):
+    """One flash prefill per layer and prefill step, one ragged launch per
+    layer and decode or chunk step, of the int8 entry for int8 pools and
+    of the fp one otherwise; nothing else."""
     layers = eng.cfg.num_hidden_layers
-    want = {FWD: layers * eng.step_counts["prefill"],
-            RAGGED: layers * (eng.step_counts["decode"]
-                              + eng.step_counts["chunk"])}
-    for name, n in want.items():
-        if not (launches[name] > 0 and launches[name] == n):
-            fail(f"{what}: {name} launched {launches[name]} times, "
-                 f"expected {n} ({eng.step_counts})")
+    ragged = layers * (eng.step_counts["decode"] + eng.step_counts["chunk"])
+    want = dict.fromkeys(KERNELS, 0)
+    want[FWD] = layers * eng.step_counts["prefill"]
+    want[RAGGED8 if eng.kv_quant else RAGGED] = ragged
+    if launches != want or not (want[FWD] and ragged):
+        fail(f"{what}: launches {launches}, expected {want} "
+             f"({eng.step_counts})")
     if eng.step_counts["chunk"] != 2:
         fail(f"{what}: expected the 700-token prompt in 2 ragged chunks, "
              f"got {eng.step_counts}")
@@ -721,13 +892,16 @@ def flag_env(env):
                 os.environ[k] = v
 
 
-def check_gen_launches(launches, mode, layers, steps, what):
-    """One flash prefill per layer; per decode step and layer the decode
-    kernel (default) or the fused layer, LN and FFN (fused); nothing
-    else."""
+def check_gen_launches(launches, mode, layers, steps, what, padded=False):
+    """One flash prefill per layer (the masked entry for padded prompts);
+    per decode step and layer the decode kernel (default) or the fused
+    layer, LN and FFN (fused); nothing else.  A padded default step takes
+    the masked branch, as in JAX: no decode kernel."""
     want = dict.fromkeys(KERNELS, 0)
-    want[FWD] = layers
-    for name in ((DECODE,) if mode == "default" else (FUSED, LN, FFN)):
+    want[FWD_MASK if padded else FWD] = layers
+    names = (FUSED, LN, FFN) if mode == "fused" else (
+        () if padded else (DECODE,))
+    for name in names:
         want[name] = layers * steps
     if launches != want:
         fail(f"{what}: launches {launches}, expected {want}")
@@ -738,30 +912,53 @@ def _agreement(a, b, prompt):
     return float((a[:, prompt:] == b[:, prompt:]).float().mean())
 
 
+PAD = 0
+
+
+def padded_ids(rng, vocab, batch, prompt):
+    """[batch, prompt] ids in 1..vocab-1, row r holding prompt - r
+    (prompt // 8) real tokens; even rows right-padded, odd rows
+    left-padded with PAD."""
+    ids = np.full((batch, prompt), PAD, np.int32)
+    for r in range(batch):
+        n = prompt - r * (prompt // 8)
+        toks = rng.randint(1, vocab, n)
+        if r % 2:
+            ids[r, prompt - n:] = toks
+        else:
+            ids[r, :n] = toks
+    return torch.from_numpy(ids)
+
+
 def generate_fp32_card_vs_cpu(ops, cfg, batch=8, prompt=256, new=32):
     """Greedy fp32 generate in both modes on the card (kernels) and on the
-    CPU (plain versions): the tokens must be identical in each mode."""
+    CPU (plain versions), unpadded and with padded prompts
+    (`padded_ids`, pad_token_id=PAD): the tokens must be identical in each
+    mode."""
     from paddle_tpu_torch.models import GPTForCausalLM
     rng = np.random.RandomState(3)
     ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (batch, prompt))
                            .astype(np.int32))
+    pids = padded_ids(rng, cfg.vocab_size, batch, prompt)
     models = {dev: GPTForCausalLM(cfg, device=dev,
                                   generator=torch.Generator().manual_seed(0))
               for dev in ("cuda", "cpu")}
     rec, toks = {}, {}
-    for mode in GEN_MODES:
+    for mode, padded in [(m, p) for p in (False, True) for m in GEN_MODES]:
         out, secs, launches = {}, {}, {}
+        kw = {"pad_token_id": PAD} if padded else {}
         with flag_env(GEN_MODES[mode]):
             for dev, model in models.items():
                 ops.reset_launch_counts()
                 t0 = time.perf_counter()
-                out[dev] = model.generate(ids.to(dev),
-                                          max_new_tokens=new).cpu()
+                out[dev] = model.generate((pids if padded else ids).to(dev),
+                                          max_new_tokens=new, **kw).cpu()
                 secs[dev] = time.perf_counter() - t0
                 launches[dev] = ops.launch_counts()
-        what = f"float32 generate ({mode})"
+        what = f"float32 {'padded ' if padded else ''}generate ({mode})"
         want = check_gen_launches(launches["cuda"], mode,
-                                  cfg.num_hidden_layers, new - 1, what)
+                                  cfg.num_hidden_layers, new - 1, what,
+                                  padded)
         if set(launches["cpu"].values()) != {0}:
             fail(f"{what} on the CPU launched kernels: {launches['cpu']}")
         g, c = out["cuda"], out["cpu"]
@@ -771,11 +968,20 @@ def generate_fp32_card_vs_cpu(ops, cfg, batch=8, prompt=256, new=32):
             r, j = (int(i) for i in torch.nonzero(g != c)[0])
             fail(f"{what}: card tokens differ from the CPU run at row {r} "
                  f"position {j} (card {int(g[r, j])}, CPU {int(c[r, j])})")
-        toks[mode] = g
-        rec[mode] = {"card_s": secs["cuda"], "cpu_s": secs["cpu"],
-                     "launches": launches["cuda"], "expected": want}
+        key = mode + ("_padded" if padded else "")
+        toks[key] = g
+        rec[key] = {"card_s": secs["cuda"], "cpu_s": secs["cpu"],
+                    "launches": launches["cuda"], "expected": want}
+    for r, row in enumerate(pids):                # [pads | prompt | new]
+        real = row[row != PAD]
+        got = toks["default_padded"][r, :prompt]
+        if not (torch.equal(got[prompt - len(real):], real)
+                and bool((got[:prompt - len(real)] == PAD).all())):
+            fail(f"float32 padded generate: row {r} is not left-aligned")
     rec["fused_vs_default_token_agreement"] = _agreement(
         toks["fused"], toks["default"], prompt)
+    rec["padded_fused_vs_default_token_agreement"] = _agreement(
+        toks["fused_padded"], toks["default_padded"], prompt)
     rec["batch"] = f"B={batch} prompt={prompt} new={new}"
     return rec
 
@@ -816,12 +1022,15 @@ def profile_generate(model, ids, steps=8):
 def generate_bf16(ops, cfg, batch=8, prompt=896, new=128):
     """bf16 generate at GPT-2's full context in both modes: decode
     tokens/s (the prefill-only generate's time taken off), launch counts,
-    the fused-vs-default agreement and a profiled window per mode.
-    Returns the record and the launches of each mode's timed run."""
+    the fused-vs-default agreement and a profiled window per mode; then
+    the same timing with padded prompts (`padded_ids`).  Returns the
+    record and the launches of each mode's timed run (padded ones keyed
+    ``<mode>_padded``)."""
     from paddle_tpu_torch.models import GPTForCausalLM
     rng = np.random.RandomState(4)
     ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (batch, prompt))
                            .astype(np.int32)).cuda()
+    pids = padded_ids(rng, cfg.vocab_size, batch, prompt).cuda()
     model = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
                            generator=torch.Generator().manual_seed(0))
     rec, toks, path = {}, {}, {}
@@ -850,8 +1059,36 @@ def generate_bf16(ops, cfg, batch=8, prompt=896, new=128):
         if toks[mode].shape != (batch, prompt + new):
             fail(f"bfloat16 generate ({mode}): output "
                  f"{tuple(toks[mode].shape)}")
+    for mode in GEN_MODES:
+        key, kw = mode + "_padded", {"pad_token_id": PAD}
+        with flag_env(GEN_MODES[mode]):
+            model.generate(pids[:, -64:], max_new_tokens=4, **kw)  # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.generate(pids, max_new_tokens=1, **kw)
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            toks[key] = model.generate(pids, max_new_tokens=new, **kw)
+            torch.cuda.synchronize()
+            total_s = time.perf_counter() - t0
+            path[key] = ops.launch_counts()
+            check_gen_launches(path[key], mode, cfg.num_hidden_layers,
+                               new - 1, f"bfloat16 padded generate ({mode})",
+                               padded=True)
+            decode_s = total_s - prefill_s
+            rec[key] = {"total_s": total_s, "prefill_s": prefill_s,
+                        "decode_ms_per_step": decode_s * 1e3 / (new - 1),
+                        "decode_tok_s": batch * (new - 1) / decode_s,
+                        "launches": path[key]}
+        if toks[key].shape != (batch, prompt + new):
+            fail(f"bfloat16 padded generate ({mode}): output "
+                 f"{tuple(toks[key].shape)}")
     rec["fused_vs_default_token_agreement"] = _agreement(
         toks["fused"], toks["default"], prompt)
+    rec["padded_fused_vs_default_token_agreement"] = _agreement(
+        toks["fused_padded"], toks["default_padded"], prompt)
     rec["batch"] = f"B={batch} prompt={prompt} new={new} (S_max=1024)"
     return rec, path
 
@@ -1055,7 +1292,7 @@ def print_cases(cases):
                 tol = c["tol"]
             elif c["dtype"] != str(torch.float32):
                 tol = "tol scaled to each output"
-            elif name in (FWD, RAGGED):
+            elif name in (FWD, RAGGED, RAGGED8):
                 tol = f"tol {TOL_FP32}"
             else:
                 tol = f"tol {BWD_REL_FP32} max|ref|"
@@ -1101,10 +1338,19 @@ def main():
     from paddle_tpu_torch.ops import fused_mlp as fm
     from paddle_tpu_torch.ops import ragged_paged_attention as rpa
     from paddle_tpu_torch.ops import tolerance as tol
-    wrappers = {FWD: fa, DQ: fa.flash_bwd_dq, DKV: fa.flash_bwd_dkv,
-                RAGGED: rpa, DECODE: fd, FUSED: fdl, LN: fm.ln_fwd,
-                LN_BWD: fm.ln_bwd, FFN: fm.ffn_fwd}
+    wrappers = {FWD: fa, FWD_MASK: fa.masked, DQ: fa.flash_bwd_dq,
+                DKV: fa.flash_bwd_dkv, RAGGED: rpa, RAGGED8: rpa.int8,
+                DECODE: fd, FUSED: fdl, LN: fm.ln_fwd, LN_BWD: fm.ln_bwd,
+                FFN: fm.ffn_fwd}
     assert set(wrappers) == set(ops.launch_counts())
+
+    phase_s, t_mark = {}, [time.perf_counter()]
+
+    def mark(name):
+        """Record the seconds since the previous mark as phase `name`."""
+        now = time.perf_counter()
+        phase_s[name] = now - t_mark[0]
+        t_mark[0] = now
 
     # -- 1. card -----------------------------------------------------------
     card = card_line()
@@ -1147,6 +1393,15 @@ def main():
                                           dtype, seed=2))
         cases[RAGGED].append(check_ragged(rpa, tol, timer, [(700, 188)], 188,
                                           dtype, seed=3))
+        cases[RAGGED8].append(check_ragged_int8(rpa, tol, timer, decode_rows,
+                                                1, dtype, seed=2))
+        cases[RAGGED8].append(check_ragged_int8(rpa, tol, timer,
+                                                [(700, 512)], 512, dtype,
+                                                seed=3))
+        for kind in ("pad", "full", "shared", "lens"):
+            cases[FWD_MASK].append(check_flash_masked(fa, tol, timer, kind,
+                                                      dtype, seed=7))
+            torch.cuda.empty_cache()
         for length in (1, 257, 1024):
             cases[DECODE].append(check_decode(fd, tol, timer, 8, 1024, 12,
                                               64, length, dtype, length))
@@ -1171,6 +1426,7 @@ def main():
                                           seed=n + (xdt == pdt)))
     print_cases(cases)
     result["kernel_cases"] = cases
+    mark("1-2 card, build, kernels")
 
     # -- 3. engine ---------------------------------------------------------
     cfg = gpt2_124m_config(stacked_blocks=True)
@@ -1239,8 +1495,75 @@ def main():
     else:
         print("decode profile bfloat16: the profiler recorded no device "
               "time (not measured)", flush=True)
+
+    mark("3 engine")
+
+    # -- 3b. the int8 KV engine ----------------------------------------------
+    gpu8, eng8, launches8, st8 = serve(model, prompts, "cuda", torch.float32,
+                                       ops, "int8")
+    check_launches(eng8, launches8, "int8 float32 engine")
+    cpu8, _, _, _ = serve(model, prompts, "cpu", torch.float32, None, "int8")
+    for i, (g, c) in enumerate(zip(gpu8, cpu8)):
+        if g.shape != (len(prompts[i]) + NEW_TOKENS,) or not np.array_equal(
+                g, c):
+            first = int(np.nonzero(g != c)[0][0]) if g.shape == c.shape \
+                else -1
+            fail(f"int8 engine request {i}: GPU float32 tokens differ from "
+                 f"the CPU run at position {first}")
+    serve(model, prompts[:2], "cuda", torch.bfloat16, None, "int8")  # warm-up
+    gpu8b, eng8b, launches8b, st8b = serve(model, prompts, "cuda",
+                                           torch.bfloat16, ops, "int8")
+    check_launches(eng8b, launches8b, "int8 bfloat16 engine")
+    gen = NEW_TOKENS * len(prompts)
+    int8 = {
+        "num_blocks": {"float32": eng8.cache.num_blocks,
+                       "bfloat16": eng8b.cache.num_blocks,
+                       "fp_pools": eng32.cache.num_blocks},
+        "pool_bytes": {"float32": eng8.cache.pool_bytes,
+                       "bfloat16": eng8b.cache.pool_bytes,
+                       "fp32_pools": eng32.cache.pool_bytes,
+                       "bf16_pools": eng16.cache.pool_bytes},
+        "bf16_vs_bf16_fp_token_agreement": sum(
+            int((a[len(p):] == b[len(p):]).sum())
+            for p, a, b in zip(prompts, gpu8b, gpu16)) / gen,
+        "fp32_vs_fp32_fp_token_agreement": sum(
+            int((a[len(p):] == b[len(p):]).sum())
+            for p, a, b in zip(prompts, gpu8, gpu32)) / gen,
+        "launches_fp32": launches8, "steps": eng8.step_counts}
+    for name, st in (("float32", st8), ("bfloat16", st8b)):
+        int8[name] = dict(
+            st, prefill_tok_s=st["prefill_tokens"] / st["prefill_s"],
+            decode_tok_s=st["decode_tokens"] / st["decode_s"])
+    int8["decode_profile_bf16"] = prof8 = profile_decode(
+        model, prompts, torch.bfloat16, kv_cache_dtype="int8")
+    result["engine_int8"] = int8
+    print(f"engine int8 float32: tokens identical to the CPU run for "
+          f"{len(prompts)} requests; launches {launches8} == expected; "
+          f"num_blocks {int8['num_blocks']} at pool bytes "
+          f"{int8['pool_bytes']}", flush=True)
+    for name in ("float32", "bfloat16"):
+        e = int8[name]
+        print(f"engine int8 {name}: prefill {e['prefill_tok_s']:.1f} tok/s, "
+              f"decode {e['decode_tok_s']:.1f} tok/s ({card})", flush=True)
+    print(f"engine int8 token agreement: bfloat16 vs the bfloat16 fp engine "
+          f"{int8['bf16_vs_bf16_fp_token_agreement']:.4f}, float32 vs the "
+          f"float32 fp engine {int8['fp32_vs_fp32_fp_token_agreement']:.4f}",
+          flush=True)
+    if prof8["device_ms_per_step"] > 0:
+        print(f"decode profile int8 bfloat16: "
+              f"{prof8['wall_ms_per_step']:.3f} ms per step, device "
+              f"{prof8['device_ms_per_step']:.3f} ms, busy "
+              f"{prof8['device_busy_share']:.3f}, "
+              f"{prof8['device_ops_per_step']:.1f} device ops per step; "
+              "top: " + "; ".join(f"{t['name'][:40]} {t['ms_per_step']:.4f} "
+                                  f"ms" for t in prof8["top"][:6]),
+              flush=True)
+    else:
+        print("decode profile int8 bfloat16: the profiler recorded no "
+              "device time (not measured)", flush=True)
     del model
     torch.cuda.empty_cache()
+    mark("3b int8 engine")
 
     # -- 4. dense generate -------------------------------------------------
     gen32 = generate_fp32_card_vs_cpu(ops, cfg)
@@ -1254,7 +1577,18 @@ def main():
           f"{gen32['fused']['card_s']:.2f} s, CPU "
           f"{gen32['default']['cpu_s']:.1f} / {gen32['fused']['cpu_s']:.1f} "
           f"s", flush=True)
+    print(f"generate float32 padded GPT-2 124M {gen32['batch']} (rows of "
+          f"256 - 32 r tokens, even rows right-, odd rows left-padded): card "
+          f"tokens identical to the CPU run in both modes, buffer "
+          f"left-aligned; launches default "
+          f"{gen32['default_padded']['launches']}, fused "
+          f"{gen32['fused_padded']['launches']} == expected; card "
+          f"{gen32['default_padded']['card_s']:.2f} / "
+          f"{gen32['fused_padded']['card_s']:.2f} s, CPU "
+          f"{gen32['default_padded']['cpu_s']:.1f} / "
+          f"{gen32['fused_padded']['cpu_s']:.1f} s", flush=True)
     torch.cuda.empty_cache()
+    mark("4 generate fp32")
     gen16, launches_gen = generate_bf16(ops, cfg)
     result["generate_bf16"] = gen16
     for mode in GEN_MODES:
@@ -1280,9 +1614,19 @@ def main():
         else:
             print(f"generate profile bfloat16 {mode}: the profiler recorded "
                   f"no device time (not measured)", flush=True)
+    for mode in GEN_MODES:
+        g = gen16[mode + "_padded"]
+        print(f"generate bfloat16 padded {mode} {gen16['batch']}: decode "
+              f"{g['decode_tok_s']:.1f} tok/s, {g['decode_ms_per_step']:.3f} "
+              f"ms per step ({card}); prefill {g['prefill_s'] * 1e3:.1f} ms; "
+              f"launches {g['launches']}", flush=True)
     print(f"generate bfloat16: fused vs default token agreement "
-          f"{gen16['fused_vs_default_token_agreement']:.3f}", flush=True)
+          f"{gen16['fused_vs_default_token_agreement']:.3f}, padded "
+          f"{gen16['padded_fused_vs_default_token_agreement']:.3f}",
+          flush=True)
     torch.cuda.empty_cache()
+
+    mark("4 generate bf16")
 
     # -- 5. training, float32, card against CPU ----------------------------
     tr32 = train_fp32_card_vs_cpu(ops, cfg, {})
@@ -1297,11 +1641,15 @@ def main():
           f"{tr32['card_s']:.1f} s, CPU {tr32['cpu_s']:.1f} s", flush=True)
     torch.cuda.empty_cache()
 
+    mark("5 train fp32")
+
     # -- 6. training, bfloat16, full size ----------------------------------
     tr16, launches_train = train_bf16(ops, cfg, {})
     result["train_bf16"] = tr16
     print_train("stacked", tr16, launches_train, card)
     torch.cuda.empty_cache()
+
+    mark("6 train bf16")
 
     # -- 7. training, per-layer layout, under the LN and FFN flags ---------
     cfg_pl = gpt2_124m_config()            # stacked_blocks=False
@@ -1331,10 +1679,13 @@ def main():
         print_train(f"per-layer, {mode}", rec, launches_pl[mode], card)
         torch.cuda.empty_cache()
 
+    mark("7 per-layer training")
+
     # -- 8. summary --------------------------------------------------------
-    # the serving kernels at fp32 S=384 / the decode step; the backward
-    # kernels at the training shape in bf16, the training path's dtype;
-    # the generate kernels at the bf16 full-context decode step
+    # the serving kernels at fp32 S=384 / the decode step (the int8 one
+    # too); the backward kernels at the training shape in bf16, the
+    # training path's dtype; the generate kernels at the bf16 full-context
+    # decode step, the masked forward at the bf16 padded prefill
     bf16 = str(torch.bfloat16)
 
     def pick(name, shape):
@@ -1342,6 +1693,8 @@ def main():
                     if c["shape"] == shape and c["dtype"] == bf16)
 
     main_case = {FWD: cases[FWD][2], RAGGED: cases[RAGGED][0],
+                 RAGGED8: cases[RAGGED8][0],
+                 FWD_MASK: pick(FWD_MASK, "B=8 S=896 H=12 D=64 pad"),
                  DQ: cases[DQ][3], DKV: cases[DKV][3],
                  DECODE: pick(DECODE, "B=8 S_max=1024 length=1024 H=12 D=64"),
                  FUSED: pick(FUSED, "B=8 hd=768 H=12 S_max=1024 t=1023 "
@@ -1350,6 +1703,8 @@ def main():
                  LN_BWD: pick(LN_BWD, "n=8192 H=768"),
                  FFN: pick(FFN, "n=8 H=768 I=3072 gelu_tanh")}
     path_launches = {FWD: launches[FWD], RAGGED: launches[RAGGED],
+                     RAGGED8: launches8[RAGGED8],
+                     FWD_MASK: launches_gen["default_padded"][FWD_MASK],
                      DQ: launches_train[DQ], DKV: launches_train[DKV],
                      DECODE: launches_gen["default"][DECODE],
                      FUSED: launches_gen["fused"][FUSED],
@@ -1372,6 +1727,10 @@ def main():
         k["launches_training"] = launches_pl["flags"][k["name"]]
     result["kernels"] = kernels
     result["expected_launches"] = expected
+    result["phase_s"] = phase_s
+    print("seconds by phase: " + ", ".join(f"{k} {v:.1f}"
+                                          for k, v in phase_s.items()),
+          flush=True)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(result, f, indent=1)

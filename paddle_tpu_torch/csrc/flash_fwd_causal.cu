@@ -1,9 +1,10 @@
 // Causal flash-attention forward for Hopper (sm_90a), plain C interface.
 //
 // Replaces: paddle_tpu/ops/pallas_ops.py `_flash_fwd_kernel` (reached via
-// `_flash_fwd` <- `flash_attention_arrays`), in its causal variant with no
-// additive mask, no kv_lens and no segment ids -- the whole-prompt prefill
-// of the serving engine.
+// `_flash_fwd` <- `flash_attention_arrays`), in its causal variant: with no
+// additive mask, no kv_lens and no segment ids (the whole-prompt prefill of
+// the serving engine, and training), and, in `flash_fwd_masked` below, with
+// the additive mask and kv_lens (the padded-prompt prefill of `generate`).
 //
 // What bounds it on this card: at GPT-2 widths (D = 64, S <= 1024) one
 // layer's causal attention is 2*S^2*H*D FLOPs over 4*S*H*D*itemsize bytes,
@@ -27,8 +28,23 @@
 // fused qkv projection need no copy.  out is a contiguous [B, Sq, H, D] in
 // the input type; lse is a contiguous fp32 [B, H, Sq].  Causal alignment is
 // at the end (query i sees keys <= i + Sk - Sq), as in the TPU kernel.
+//
+// The masked variant (`flash_fwd_masked`, a kernel of its own so that the
+// entry above keeps its arithmetic) adds the TPU kernel's additive mask
+// and kv_lens branches (`pallas_ops.py:162-173`, `:192-194`) to the causal
+// one.  The fp32 mask is read through four element strides (batch, head,
+// query, key; a stride of 0 broadcasts, so a [B, 1, 1, S] key-validity
+// row expanded to [B, 1, S, S] costs no copy), staged per tile in shared
+// memory, and added to the scaled score.  With kv_lens the key loop stops
+// at ceil(len / 32) tiles and keys at or past len are excluded.  Key tiles
+// are never skipped for a mask of -1e30: a left-pad query whose every key
+// is masked gets the uniform softmax over the keys causal and kv_lens
+// allow (-1e30 + s is -1e30 in fp32), as the plain version does.  Keys
+// that causal or kv_lens exclude carry exactly no weight (-inf, and p = 0);
+// the running max starts at -inf so that any finite mask value is exact.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 
 namespace {
 
@@ -132,6 +148,100 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_causal_kernel(
 }
 
 template <typename T, int D>
+__global__ void __launch_bounds__(THREADS) flash_fwd_masked_kernel(
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, T* __restrict__ out, float* __restrict__ lse,
+    const float* __restrict__ mask, const int* __restrict__ kv_lens, int H,
+    int Sq, int Sk, long long qsb, long long qss, long long ksb,
+    long long kss, long long vsb, long long vss, long long msb,
+    long long msh, long long msq, long long msk, float scale) {
+  constexpr int DP = D / TPR;
+  __shared__ float ks[BK][D];
+  __shared__ float vs[BK][D];
+  __shared__ float ms[BQ][BK + 1];   // the mask tile, padded: no conflicts
+  const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, row = tid / TPR, sub = tid % TPR;
+  const int qpos = tile * BQ + row;
+  const int offset = Sk - Sq;
+  const int lim = qpos + offset;    // last key this row may attend
+  const int klen = kv_lens ? min(max(kv_lens[b], 0), Sk) : Sk;
+
+  float qr[DP], acc[DP];
+  const T* qp = q + b * qsb + (long long)min(qpos, Sq - 1) * qss + h * D;
+#pragma unroll
+  for (int i = 0; i < DP; ++i) {
+    qr[i] = to_f(qp[sub + TPR * i]);
+    acc[i] = 0.f;
+  }
+  float m = -INFINITY, l = 0.f;
+
+  const T* kb = k + b * ksb + h * D;
+  const T* vb = v + b * vsb + h * D;
+  const float* mb = mask ? mask + b * msb + h * msh : nullptr;
+  const int kend = min(klen, tile * BQ + BQ + offset);   // exclusive
+  for (int k0 = 0; k0 < kend; k0 += BK) {
+    __syncthreads();   // the previous tile is no longer read
+    for (int e = tid; e < BK * D; e += THREADS) {
+      const int j = e / D, d = e % D, kp = k0 + j;
+      float kv = 0.f, vv = 0.f;
+      if (kp < Sk) {
+        kv = to_f(kb[kp * kss + d]);
+        vv = to_f(vb[kp * vss + d]);
+      }
+      ks[j][d] = kv;
+      vs[j][d] = vv;
+    }
+    if (mb) {
+      for (int e = tid; e < BQ * BK; e += THREADS) {
+        const int rr = e / BK, j = e % BK, kp = k0 + j;
+        const long long qq = min(tile * BQ + rr, Sq - 1);
+        ms[rr][j] = kp < Sk ? mb[qq * msq + kp * msk] : 0.f;
+      }
+    }
+    __syncthreads();
+
+    float s[BK];
+    float tmax = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < BK; ++j) {
+      float part = 0.f;
+#pragma unroll
+      for (int i = 0; i < DP; ++i) part = fmaf(qr[i], ks[j][sub + TPR * i], part);
+      part += __shfl_xor_sync(0xffffffffu, part, 1);
+      part += __shfl_xor_sync(0xffffffffu, part, 2);
+      const int kp = k0 + j;
+      float sc = part * scale;
+      if (mb) sc += ms[row][j];
+      s[j] = (kp <= lim && kp < klen) ? sc : -INFINITY;
+      tmax = fmaxf(tmax, s[j]);
+    }
+    const float mnew = fmaxf(m, tmax);
+    const float alpha = mnew == -INFINITY ? 1.f : expf(m - mnew);
+    float psum = 0.f;
+#pragma unroll
+    for (int i = 0; i < DP; ++i) acc[i] *= alpha;
+#pragma unroll
+    for (int j = 0; j < BK; ++j) {
+      const int kp = k0 + j;
+      const float p = (kp <= lim && kp < klen) ? expf(s[j] - mnew) : 0.f;
+      psum += p;
+#pragma unroll
+      for (int i = 0; i < DP; ++i) acc[i] = fmaf(p, vs[j][sub + TPR * i], acc[i]);
+    }
+    l = l * alpha + psum;
+    m = mnew;
+  }
+
+  if (qpos < Sq) {
+    const float ls = fmaxf(l, 1e-30f);
+    T* op = out + (((long long)b * Sq + qpos) * H + h) * D;
+#pragma unroll
+    for (int i = 0; i < DP; ++i) op[sub + TPR * i] = from_f<T>(acc[i] / ls);
+    if (sub == 0) lse[((long long)b * H + h) * Sq + qpos] = m + logf(ls);
+  }
+}
+
+template <typename T, int D>
 void launch(const void* q, const void* k, const void* v, void* out, void* lse,
             int B, int H, int Sq, int Sk, long long qsb, long long qss,
             long long ksb, long long kss, long long vsb, long long vss,
@@ -169,5 +279,41 @@ extern "C" int flash_fwd_causal(const void* q, const void* k, const void* v,
                        vsb, vss, scale, s);
   else
     return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The masked / kv_lens variant.  mask: fp32, element strides msb, msh, msq,
+// msk (0 broadcasts), or null; kv_lens: int32 [B], or null.  Returns
+// cudaGetLastError() after the launch; 1 (cudaErrorInvalidValue) for a
+// head size or type the kernel does not take.
+extern "C" int flash_fwd_masked(const void* q, const void* k, const void* v,
+                                void* out, void* lse, const void* mask,
+                                const void* kv_lens, int B, int H, int Sq,
+                                int Sk, int D, int is_bf16, long long qsb,
+                                long long qss, long long ksb, long long kss,
+                                long long vsb, long long vss, long long msb,
+                                long long msh, long long msq, long long msk,
+                                float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* m = static_cast<const float*>(mask);
+  const int* n = static_cast<const int*>(kv_lens);
+  dim3 grid((Sq + BQ - 1) / BQ, H, B);
+#define FFM_LAUNCH(T, DIM)                                                  \
+  flash_fwd_masked_kernel<T, DIM><<<grid, THREADS, 0, s>>>(                 \
+      static_cast<const T*>(q), static_cast<const T*>(k),                   \
+      static_cast<const T*>(v), static_cast<T*>(out),                       \
+      static_cast<float*>(lse), m, n, H, Sq, Sk, qsb, qss, ksb, kss, vsb,   \
+      vss, msb, msh, msq, msk, scale)
+  if (D == 64 && is_bf16)
+    FFM_LAUNCH(__nv_bfloat16, 64);
+  else if (D == 64)
+    FFM_LAUNCH(float, 64);
+  else if (D == 128 && is_bf16)
+    FFM_LAUNCH(__nv_bfloat16, 128);
+  else if (D == 128)
+    FFM_LAUNCH(float, 128);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+#undef FFM_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }

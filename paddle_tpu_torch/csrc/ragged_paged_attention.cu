@@ -2,9 +2,10 @@
 // interface.
 //
 // Replaces: paddle_tpu/ops/ragged_paged_attention.py `_ragged_fused_kernel`
-// (reached via `_ragged_kernel_call` <- `ragged_paged_attention_arrays`),
-// full-precision pools.  Unlike the TPU kernel, which serves only C == 1,
-// this one also serves chunked-prefill continuations (C > 1).
+// (reached via `_ragged_kernel_call` <- `ragged_paged_attention_arrays`):
+// full-precision pools here, int8 pools in the second entry below.  Unlike
+// the TPU kernel, which serves only C == 1, both also serve chunked-prefill
+// continuations (C > 1).
 //
 // What bounds it on this card: memory.  A decode step reads every live
 // row's K and V once (sum_r kv_len_r * H * D * 2 * itemsize bytes) and does
@@ -37,8 +38,33 @@
 // contiguous, 16-byte aligned [num_blocks, block_size, H, D]; out is a
 // contiguous [B, C, H, D] in the input type.  Shared memory holds one fp32
 // score per key of the table's width (max_blocks * block_size).
+//
+// int8 pools (`ragged_paged_attention_int8`): codes beside fp32 scales
+// [num_blocks, H], value = code * scale -- the TPU kernel's `quant` branch
+// (`ragged_paged_attention.py:189-245`, `:311-328`), for any C >= 1.
+//  1. Write.  One block per (row, logical block the row's positions
+//     pos0 .. pos0 + C - 1 touch): a chunk of C = 512 spans up to 33.
+//     The block takes the per-head abs-max over ALL of the group's
+//     in-pool rows first, grows each head's scale once (new = max(old,
+//     amax * (1/127))), rescales the block's old codes once where it grew
+//     (round(code * old / new)), then quantizes the new rows
+//     (round(x / new)).  A row writes only blocks it owns, so no two
+//     blocks touch one pool block; slots outside the pool are dropped and
+//     left out of the amax.  Rounding is rintf (half to even, as
+//     torch.round and jnp.round) and the division IEEE (no fast math), so
+//     the codes and scales are bitwise those of the plain version.  The
+//     group's pool block is that of its first in-pool slot; a slot of the
+//     group outside that block (not a position's slot) is dropped.  At
+//     decode the launch is one block per row and bound by load latency,
+//     so the rescale reads 16 codes per load and each thread issues all
+//     its loads before its stores.
+//  2. Attend.  The fp design, the codes loaded 4 at a time (char4) and the
+//     scales folded in as the plain version folds them: k_scale times the
+//     scaled logit, v_scale times each probability.  Bytes: 1 per code
+//     plus 4 per (block, head) scale read -- a quarter of fp32's.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -77,6 +103,13 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p,
   x[1] = a.y;
   x[2] = b.x;
   x[3] = b.y;
+}
+__device__ __forceinline__ void load4(const int8_t* p, float (&x)[VEC]) {
+  const char4 v = *reinterpret_cast<const char4*>(p);
+  x[0] = v.x;
+  x[1] = v.y;
+  x[2] = v.z;
+  x[3] = v.w;
 }
 
 // Block-wide max (is_max) or sum of one float per thread; every thread gets
@@ -197,6 +230,251 @@ __global__ void __launch_bounds__(THREADS) ragged_attend_kernel(
   }
 }
 
+// -- int8 pools ---------------------------------------------------------
+
+constexpr float QMAX = 127.f;
+
+__device__ __forceinline__ int8_t quantize(float x) {
+  return static_cast<int8_t>(fminf(fmaxf(rintf(x), -QMAX), QMAX));
+}
+
+// round(code * f) of the four codes packed in w
+__device__ __forceinline__ unsigned rescale4(unsigned w, float f) {
+  unsigned r = 0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float x = static_cast<signed char>((w >> (8 * k)) & 0xffu);
+    r |= static_cast<unsigned>(static_cast<unsigned char>(quantize(x * f)))
+         << (8 * k);
+  }
+  return r;
+}
+
+// One block per (logical block group i, row r); dynamic shared memory
+// holds 6 * H floats: amax, factor and write scale for each of K and V.
+template <typename T>
+__global__ void __launch_bounds__(THREADS) ragged_write_int8_kernel(
+    const T* __restrict__ knew, const T* __restrict__ vnew,
+    int8_t* __restrict__ kpool, int8_t* __restrict__ vpool,
+    float* __restrict__ kscale, float* __restrict__ vscale,
+    const int* __restrict__ pos0, const int* __restrict__ slots, int C,
+    int H, int D, int bs, long long num_slots, long long ksb, long long ksc,
+    long long vsb, long long vsc, float inv_qmax) {
+  extern __shared__ float sh[];
+  float* amax = sh;            // [2H]: K heads, then V heads
+  float* fac = sh + 2 * H;     // old / new, or 1
+  float* wsc = sh + 4 * H;     // new, or 1 where it is 0
+  __shared__ long long phys_s;
+  const int i = blockIdx.x, r = blockIdx.y;
+  const int p0 = max(pos0[r], 0);
+  const int lb = p0 / bs + i;
+  const int j0 = max(0, lb * bs - p0), j1 = min(C, (lb + 1) * bs - p0);
+  if (j0 >= j1) return;
+  const int* srow = slots + (long long)r * C;
+  if (threadIdx.x == 0) {
+    long long ph = -1;
+    for (int j = j0; j < j1 && ph < 0; ++j) {
+      const long long s = srow[j];
+      if (s >= 0 && s < num_slots) ph = s / bs;
+    }
+    phys_s = ph;
+  }
+  __syncthreads();
+  const long long phys = phys_s;
+  if (phys < 0) return;
+  const int HD = H * D, nj = j1 - j0;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+
+  // per-head abs-max of the group's rows, one warp per (K or V, head)
+  for (int t = warp; t < 2 * H; t += WARPS) {
+    const int h = t % H;
+    const T* src = t < H ? knew + r * ksb : vnew + r * vsb;
+    const long long sc = t < H ? ksc : vsc;
+    float m = 0.f;
+#pragma unroll 4
+    for (int e = lane; e < nj * D; e += 32) {
+      const int j = j0 + e / D;
+      const long long s = srow[j];
+      if (s >= 0 && s < num_slots && s / bs == phys)
+        m = fmaxf(m, fabsf(to_f(src[j * sc + h * D + e % D])));
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    if (lane == 0) amax[t] = m;
+  }
+  __syncthreads();
+  // grow the scales: new = max(old, amax / 127), never smaller
+  for (int t = threadIdx.x; t < 2 * H; t += THREADS) {
+    float* sp = (t < H ? kscale : vscale) + phys * H + t % H;
+    const float old = *sp;
+    const float nw = fmaxf(old, amax[t] * inv_qmax);
+    fac[t] = nw > 0.f ? old / nw : 1.f;
+    wsc[t] = nw > 0.f ? nw : 1.f;
+    *sp = nw;
+  }
+  __syncthreads();
+  // rescale the block's old codes once where the head's scale grew: 16
+  // codes per load (D % 16 == 0, so they share a head), a thread's RESC
+  // loads issued before any of its stores
+  constexpr int RESC = 8;
+  const long long base = phys * bs * HD;
+  const int nvec = 2 * bs * HD / 16;
+  for (int v0 = threadIdx.x; v0 < nvec; v0 += THREADS * RESC) {
+    uint4 c[RESC];
+    float f[RESC];
+    uint4* ptr[RESC];
+#pragma unroll
+    for (int u = 0; u < RESC; ++u) {
+      const int v = v0 + u * THREADS;
+      f[u] = 1.f;
+      if (v < nvec) {
+        const int kv = v * 16 >= bs * HD;
+        const int off = v * 16 - kv * bs * HD;
+        f[u] = fac[kv * H + (off % HD) / D];
+        ptr[u] = reinterpret_cast<uint4*>((kv ? vpool : kpool) + base + off);
+        if (f[u] != 1.f) c[u] = *ptr[u];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < RESC; ++u) {
+      if (f[u] == 1.f) continue;
+      c[u].x = rescale4(c[u].x, f[u]);
+      c[u].y = rescale4(c[u].y, f[u]);
+      c[u].z = rescale4(c[u].z, f[u]);
+      c[u].w = rescale4(c[u].w, f[u]);
+      *ptr[u] = c[u];
+    }
+  }
+  __syncthreads();
+  // quantize the new rows against the new scales
+  for (int e = threadIdx.x; e < 2 * nj * HD; e += THREADS) {
+    const int kv = e >= nj * HD;
+    const int off = e - kv * nj * HD;
+    const int j = j0 + off / HD, hd = off % HD;
+    const long long s = srow[j];
+    if (s < 0 || s >= num_slots || s / bs != phys) continue;
+    const float x = kv ? to_f(vnew[r * vsb + j * vsc + hd])
+                       : to_f(knew[r * ksb + j * ksc + hd]);
+    (kv ? vpool : kpool)[s * HD + hd] = quantize(x / wsc[kv * H + hd / D]);
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS) ragged_attend_int8_kernel(
+    const T* __restrict__ q, const int8_t* __restrict__ kpool,
+    const int8_t* __restrict__ vpool, const float* __restrict__ kscale,
+    const float* __restrict__ vscale, const int* __restrict__ table,
+    const int* __restrict__ pos0, const int* __restrict__ lens,
+    T* __restrict__ out, int C, int H, int nb, int bs, int maxb,
+    long long qsb, long long qsc, float scale) {
+  constexpr int TPK = D / VEC;          // threads per value row
+  constexpr int G = THREADS / TPK;      // key groups in pass 2
+  extern __shared__ float s[];          // one score per key
+  __shared__ float qs[D];
+  __shared__ float red[WARPS];
+  __shared__ float part[G][D];
+  const int jq = blockIdx.x, h = blockIdx.y, r = blockIdx.z;
+  const int tid = threadIdx.x;
+  const long long HD = (long long)H * D;
+  T* op = out + (((long long)r * C + jq) * H + h) * D;
+  const int kv_len = min(max(lens[r], 0), maxb * bs);
+  const int bound = max(0, min(pos0[r] + jq + 1, kv_len));   // keys [0, bound)
+  if (bound == 0) {
+    for (int d = tid; d < D; d += THREADS) op[d] = from_f<T>(0.f);
+    return;
+  }
+  const T* qp = q + r * qsb + jq * qsc + h * D;
+  for (int d = tid; d < D; d += THREADS) qs[d] = to_f(qp[d]);
+  __syncthreads();
+  const int* trow = table + (long long)r * maxb;
+
+  // pass 1: logits (q . codes) * scale * k_scale and their max
+  float mx = -1e30f;
+  for (int k = tid; k < bound; k += THREADS) {
+    const int blk = min(max(trow[k / bs], 0), nb - 1);
+    const int8_t* kr = kpool + ((long long)blk * bs + k % bs) * HD + h * D;
+    float dot = 0.f;
+#pragma unroll
+    for (int d = 0; d < D; d += VEC) {
+      float x[VEC];
+      load4(kr + d, x);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) dot = fmaf(x[i], qs[d + i], dot);
+    }
+    dot = dot * scale * kscale[(long long)blk * H + h];
+    s[k] = dot;
+    mx = fmaxf(mx, dot);
+  }
+  mx = block_reduce(mx, red, true);
+  // probabilities; each stored times its block's v_scale
+  float sum = 0.f;
+  for (int k = tid; k < bound; k += THREADS) {
+    const int blk = min(max(trow[k / bs], 0), nb - 1);
+    const float p = expf(s[k] - mx);
+    s[k] = p * vscale[(long long)blk * H + h];
+    sum += p;
+  }
+  sum = block_reduce(sum, red, false);   // also orders the s[] writes
+
+  // pass 2: scaled probabilities times value codes
+  const int g = tid / TPK, d0 = (tid % TPK) * VEC;
+  float acc[VEC] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+  for (int k = g; k < bound; k += G) {
+    const int blk = min(max(trow[k / bs], 0), nb - 1);
+    float x[VEC];
+    load4(vpool + ((long long)blk * bs + k % bs) * HD + h * D + d0, x);
+    const float p = s[k];
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) acc[i] = fmaf(p, x[i], acc[i]);
+  }
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) part[g][d0 + i] = acc[i];
+  __syncthreads();
+  const float inv = 1.f / fmaxf(sum, 1e-30f);
+  for (int d = tid; d < D; d += THREADS) {
+    float a = 0.f;
+#pragma unroll
+    for (int x = 0; x < G; ++x) a += part[x][d];
+    op[d] = from_f<T>(a * inv);
+  }
+}
+
+template <typename T, int D>
+cudaError_t launch_int8(const void* q, const void* knew, const void* vnew,
+                        void* kpool, void* vpool, void* kscale, void* vscale,
+                        const int* table, const int* pos0, const int* lens,
+                        const int* slots, void* out, int B, int C, int H,
+                        int nb, int bs, int maxb, long long qsb,
+                        long long qsc, long long ksb, long long ksc,
+                        long long vsb, long long vsc, float scale,
+                        float inv_qmax, cudaStream_t stream) {
+  const int groups = (C + bs - 2) / bs + 1;   // logical blocks C can span
+  ragged_write_int8_kernel<T><<<dim3(groups, B), THREADS,
+                                sizeof(float) * 6 * H, stream>>>(
+      static_cast<const T*>(knew), static_cast<const T*>(vnew),
+      static_cast<int8_t*>(kpool), static_cast<int8_t*>(vpool),
+      static_cast<float*>(kscale), static_cast<float*>(vscale), pos0, slots,
+      C, H, D, bs, (long long)nb * bs, ksb, ksc, vsb, vsc, inv_qmax);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t smem = sizeof(float) * (size_t)maxb * bs;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(ragged_attend_int8_kernel<T, D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  dim3 grid(C, H, B);
+  ragged_attend_int8_kernel<T, D><<<grid, THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const int8_t*>(kpool),
+      static_cast<const int8_t*>(vpool), static_cast<const float*>(kscale),
+      static_cast<const float*>(vscale), table, pos0, lens,
+      static_cast<T*>(out), C, H, nb, bs, maxb, qsb, qsc, scale);
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* knew, const void* vnew,
                    void* kpool, void* vpool, const int* table,
@@ -256,5 +534,40 @@ extern "C" int ragged_paged_attention(
   else
     return static_cast<int>(cudaErrorInvalidValue);
 #undef RPA_LAUNCH
+  return static_cast<int>(err);
+}
+
+// The int8-pool entry: the write launch, then the attend launch.  Returns
+// the first CUDA error; 1 (cudaErrorInvalidValue) for a head size or type
+// the kernel does not take.
+extern "C" int ragged_paged_attention_int8(
+    const void* q, const void* knew, const void* vnew, void* kpool,
+    void* vpool, void* kscale, void* vscale, const void* table,
+    const void* pos0, const void* lens, const void* slots, void* out, int B,
+    int C, int H, int D, int nb, int bs, int maxb, int is_bf16,
+    long long qsb, long long qsc, long long ksb, long long ksc,
+    long long vsb, long long vsc, float scale, float inv_qmax,
+    void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* t = static_cast<const int*>(table);
+  const int* p = static_cast<const int*>(pos0);
+  const int* n = static_cast<const int*>(lens);
+  const int* sl = static_cast<const int*>(slots);
+  cudaError_t err;
+#define RPA8_LAUNCH(T, DIM)                                                  \
+  err = launch_int8<T, DIM>(q, knew, vnew, kpool, vpool, kscale, vscale, t,  \
+                            p, n, sl, out, B, C, H, nb, bs, maxb, qsb, qsc,  \
+                            ksb, ksc, vsb, vsc, scale, inv_qmax, s)
+  if (D == 64 && is_bf16)
+    RPA8_LAUNCH(__nv_bfloat16, 64);
+  else if (D == 64)
+    RPA8_LAUNCH(float, 64);
+  else if (D == 128 && is_bf16)
+    RPA8_LAUNCH(__nv_bfloat16, 128);
+  else if (D == 128)
+    RPA8_LAUNCH(float, 128);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+#undef RPA8_LAUNCH
   return static_cast<int>(err);
 }

@@ -23,7 +23,11 @@ Function on the card.
 ``generate`` (stacked layout) is the dense KV-cache decode of the JAX
 ``generate``: per-layer flat ``[B, S_max, H*D]`` rings (`init_caches`), a
 causal flash prefill, then one cached forward per token, driven from the
-host.  A decode step runs each layer as the JAX unrolled cached forward
+host.  With ``pad_token_id`` the prompts may be padded (left or right):
+they are canonicalised to left padding, the pads masked by an additive
+cache mask (the masked flash forward at the prefill, the masked branch or
+the fused layer's row mask at each step) and positions counted per row.
+A decode step runs each layer as the JAX unrolled cached forward
 does (`_forward_cached_unrolled`, `gpt.py:627-695`): by default the block
 body with `ops.cached_attention_arrays` (the flash-decode kernel); under
 ``PTPU_FUSED_DECODE=1`` the attention half as one fused-layer kernel, and
@@ -32,9 +36,8 @@ and FFN kernels.
 
 Left out for later slices: the per-layer cached forward and ``generate``,
 MoE, pipeline execution (and the 1F1B fused loss), dropout,
-``segment_ids``, ``recompute``, padded-prompt ``generate(pad_token_id=...)``,
-the stacked-cache layer-scan decode, and CUDA-graph capture of the decode
-step.
+``segment_ids``, ``recompute``, the stacked-cache layer-scan decode, and
+CUDA-graph capture of the decode step.
 """
 from __future__ import annotations
 
@@ -147,18 +150,24 @@ def _stacked_mlp_fused_decode(p, h, eps):
     return h + m + p["fc_out_b"]
 
 
-def _cached_attn_arrays(q, k, v, kc, vc, t, prefill):
+def _cached_attn_arrays(q, k, v, kc, vc, t, prefill, cache_mask=None):
     """Prefill / decode cached attention (`gpt.py:329-361`).  At the
     static prefill (position 0) the rings beyond the chunk are empty, so
     causal flash attention over the chunk plus the ring write at rows
     ``[0, S)`` is exact; a decode step goes to `cached_attention_arrays`.
-    The rings are written in place."""
+    The rings are written in place.  ``cache_mask``: optional additive
+    [B, 1, 1, S_max] over cache positions (padded prompts); at the prefill
+    its first S columns, broadcast over the queries as a stride-0
+    [B, 1, S, S] view, are the flash mask."""
     if prefill:
         b, s = k.shape[0], k.shape[1]
         kc[:, :s] = k.reshape(b, s, -1).to(kc.dtype)
         vc[:, :s] = v.reshape(b, s, -1).to(vc.dtype)
-        return flash_attention_arrays(q, k, v, is_causal=True)
-    out, _, _ = cached_attention_arrays(q, k, v, kc, vc, t)
+        m = None
+        if cache_mask is not None:
+            m = cache_mask[:, :, :, :s].expand(b, 1, s, s)
+        return flash_attention_arrays(q, k, v, m, is_causal=True)
+    out, _, _ = cached_attention_arrays(q, k, v, kc, vc, t, mask=cache_mask)
     return out
 
 
@@ -460,20 +469,24 @@ class GPTForCausalLM(nn.Module):
                       for _ in range(2))
                 for _ in range(cfg.num_hidden_layers)]
 
-    def _forward_cached(self, input_ids, caches, t, prefill):
-        """[B, S] ids at absolute positions ``t .. t+S-1`` through every
+    def _forward_cached(self, input_ids, caches, t, prefill,
+                        position_ids=None, cache_mask=None):
+        """[B, S] ids written at ring rows ``t .. t+S-1`` through every
         layer with the rings (written in place) -> the last position's fp32
         logits [B, V] — the cached branch of the JAX ``GPTModel.forward``
         with `_forward_cached_unrolled`, then ``ln_f`` and the tied head
         on the last position only (its rows are independent; the fused
         LayerNorm's gate is decided on all B*S rows, as the JAX package
-        normalises them all)."""
+        normalises them all).  ``position_ids`` ([B, S], default the ring
+        rows) and ``cache_mask`` (additive [B, 1, 1, S_max]) serve padded
+        prompts."""
         cfg = self.cfg
         nh = cfg.num_attention_heads
         hd = cfg.hidden_size // nh
         eps = cfg.layer_norm_epsilon
         ids = input_ids.long()
-        pos = t + torch.arange(ids.shape[1], device=ids.device)
+        pos = (t + torch.arange(ids.shape[1], device=ids.device)
+               if position_ids is None else position_ids.long())
         h = self.wte[ids] + self.wpe[pos]
         mb, s, H = h.shape
         fused = (not prefill and s == 1 and fused_decode_ok(
@@ -483,7 +496,8 @@ class GPTForCausalLM(nn.Module):
             if fused:
                 y, _, _ = fused_decode_layer_arrays(
                     h.reshape(mb, H), p["ln1_w"], p["ln1_b"], p["qkv_w"],
-                    p["qkv_b"], p["out_w"], p["out_b"], kc, vc, t, nh, eps)
+                    p["qkv_b"], p["out_w"], p["out_b"], kc, vc, t, nh, eps,
+                    cache_mask=cache_mask)
                 y3 = y.reshape(mb, 1, H)
                 h = _stacked_mlp_fused_decode(p, y3, eps)
                 if h is None:
@@ -491,7 +505,8 @@ class GPTForCausalLM(nn.Module):
                 continue
 
             def attn_fn(q, k, v, kc=kc, vc=vc):
-                return _cached_attn_arrays(q, k, v, kc, vc, t, prefill), None
+                return _cached_attn_arrays(q, k, v, kc, vc, t, prefill,
+                                           cache_mask), None
 
             h, _ = _stacked_block_body(p, h, attn_fn, nh, hd, eps)
         ln = (fused_layernorm_arrays
@@ -513,13 +528,15 @@ class GPTForCausalLM(nn.Module):
         it and the loop stops when every row has.  Returns ``[B, P + n]``
         int32 on the model's device.
 
+        ``pad_token_id``: rows padded with it (left or right, no interior
+        pads) are rolled to left padding; the pads are masked out of every
+        attention (an additive -1e30 mask over the cache rows they fill)
+        and each row's positions count from its first real token.  The
+        returned buffer is left-aligned, ``[pads | prompt | generated]``
+        per row (`gpt.py:1081-1113`, `:1143-1150`).
+
         The loop is driven from the host and syncs with it only to test
         the finished flags when ``eos_token_id`` is set."""
-        if pad_token_id is not None:
-            raise NotImplementedError(
-                "padded-prompt generate (pad_token_id) needs the masked "
-                "flash forward; it is ROADMAP Queue 1 'Next' item 1, with "
-                "Queue 2 item 2's masked variant")
         self._require_stacked("generate")
         cfg = self.cfg
         dev = self.wte.device
@@ -543,7 +560,13 @@ class GPTForCausalLM(nn.Module):
             else:
                 generator.seed()
         caches = self.init_caches(b, total)
-        logits = self._forward_cached(ids, caches, 0, prefill=True)
+        shift = pos = cache_mask = None
+        if pad_token_id is not None:
+            ids, shift, pos, cache_mask = _left_pad(
+                ids, pad_token_id, caches[0][0].shape[1])
+        logits = self._forward_cached(ids, caches, 0, prefill=True,
+                                      position_ids=pos,
+                                      cache_mask=cache_mask)
         finished = torch.zeros(b, dtype=torch.bool, device=dev)
         toks = []
         for i in range(max_new_tokens):
@@ -556,6 +579,35 @@ class GPTForCausalLM(nn.Module):
             if i + 1 == max_new_tokens or (
                     eos_token_id is not None and bool(finished.all())):
                 break
+            if shift is not None:
+                pos = (prompt + i - shift)[:, None]
             logits = self._forward_cached(tok[:, None], caches, prompt + i,
-                                          prefill=False)
+                                          prefill=False, position_ids=pos,
+                                          cache_mask=cache_mask)
         return torch.cat([ids, torch.stack(toks, 1).to(torch.int32)], 1)
+
+
+def _left_pad(ids, pad_token_id, s_max):
+    """Canonicalise padded prompts [B, P] to left padding, as the JAX
+    ``generate`` does (`gpt.py:1081-1113`).  Two quantities: the roll
+    comes from each row's LAST real index (0 for a left-padded row), the
+    mask and positions from its pad COUNT.  Returns the rolled ids, the
+    pad counts [B], the prefill positions ``max(col - shift, 0)`` and the
+    additive fp32 cache mask [B, 1, 1, S_max] (-1e30 at each row's pad
+    rows)."""
+    b, p = ids.shape
+    dev = ids.device
+    valid = ids != pad_token_id
+    cols = torch.arange(p, dtype=torch.int32, device=dev)[None, :]
+    last1 = torch.where(valid, cols + 1, 0).amax(1)
+    roll = p - last1
+    shift = (p - valid.sum(1)).to(torch.int32)
+    idx = torch.remainder(cols - roll[:, None], p).long()
+    ids = torch.gather(ids, 1, idx)
+    ids = torch.where(cols >= shift[:, None], ids, pad_token_id).to(
+        torch.int32)
+    pos = torch.clamp(cols - shift[:, None], min=0)
+    j = torch.arange(s_max, device=dev)[None, :]
+    invalid = (j < shift[:, None]) & (j < p)
+    mask = torch.where(invalid, _NEG_INF, 0.0).to(torch.float32)
+    return ids, shift, pos, mask[:, None, None, :]

@@ -12,7 +12,9 @@ from .fused_mlp import (fused_ffn_arrays, fused_ffn_reference,
                         fused_layernorm_reference, maybe_fused_ffn)
 from .paged_attention import (paged_attention_arrays,
                               paged_cache_update_arrays,
-                              paged_gather_kv_arrays, slot_mapping)
+                              paged_gather_kv_arrays,
+                              quantized_cache_update_arrays,
+                              quantized_gather_kv_arrays, slot_mapping)
 from .ragged_paged_attention import (ragged_paged_attention_arrays,
                                      ragged_paged_attention_reference)
 from . import (flash_attention, flash_decode, fused_decode, fused_mlp,
@@ -27,14 +29,16 @@ __all__ = ["flash_attention_arrays", "mha_reference", "FlashAttention",
            "fused_layernorm_bwd_reference", "fused_ffn_arrays",
            "fused_ffn_reference", "maybe_fused_ffn",
            "paged_attention_arrays", "paged_cache_update_arrays",
-           "paged_gather_kv_arrays", "slot_mapping",
+           "paged_gather_kv_arrays", "quantized_cache_update_arrays",
+           "quantized_gather_kv_arrays", "slot_mapping",
            "ragged_paged_attention_arrays",
            "ragged_paged_attention_reference", "launch_counts",
            "reset_launch_counts"]
 
 # every launch wrapper: a module or object with KERNEL and launches
-_KERNELS = (flash_attention, flash_attention.flash_bwd_dq,
-            flash_attention.flash_bwd_dkv, ragged_paged_attention,
+_KERNELS = (flash_attention, flash_attention.masked,
+            flash_attention.flash_bwd_dq, flash_attention.flash_bwd_dkv,
+            ragged_paged_attention, ragged_paged_attention.int8,
             flash_decode, fused_decode, fused_mlp.ln_fwd, fused_mlp.ln_bwd,
             fused_mlp.ffn_fwd)
 

@@ -5,13 +5,17 @@ The scheduler (waiting queue, token-budget admission, preemption) lives on
 the host; each step runs one of three bodies on the device:
 
 - **prefill** — one request's whole prompt at its exact length: causal
-  flash attention within the prompt (`ops.flash_attention`) plus the paged
-  K/V writes.
+  flash attention within the prompt (`ops.flash_attention`, on the fp K/V
+  just computed) plus the paged K/V writes (quantizing ones for int8
+  pools).
 - **ragged** — the ``(max_num_seqs, 1)`` decode step, padded to
   ``max_num_seqs`` rows whatever the batch holds, and the ``(1, C)``
   chunked-prefill continuation.  Per layer ONE
   `ops.ragged_paged_attention` call writes the new tokens' K/V into their
-  slots and attends the ragged batch against the pools.
+  slots and attends the ragged batch against the pools: the int8 kernel
+  for ``kv_cache_dtype="int8"``, whose plain version on the CPU is the JAX
+  fallback's (quantized write, scale-folded attention), as the JAX
+  engine's ragged program computes both step kinds.
 - **sample** — greedy argmax, or temperature / top-k / top-p with a
   per-request `torch.Generator`.
 
@@ -21,7 +25,7 @@ The final LayerNorm and tied LM head follow the JAX ``_model_logits``
 writes are dropped and their outputs ignored.
 
 Left out for later slices: the bucketed fallback path, speculative
-verify, prefix caching, int8 KV, deadlines and shedding,
+verify, prefix caching, deadlines and shedding,
 fork/export/adopt, the monitor and tracing, CUDA-graph capture, and
 seeded sampling that reproduces the JAX package's PRNG streams.
 """
@@ -37,7 +41,8 @@ from ..device import resolve_device
 from ..models.gpt import BLOCK_PARAMS, _sample_next, _stacked_block_body
 from ..nn.functional import layer_norm_arrays
 from ..ops.flash_attention import flash_attention_arrays
-from ..ops.paged_attention import paged_cache_update_arrays
+from ..ops.paged_attention import (paged_cache_update_arrays,
+                                   quantized_cache_update_arrays)
 from ..ops.ragged_paged_attention import ragged_paged_attention_arrays
 from .kv_cache import BlockKVCache
 from .scheduler import Request, SamplingParams, Scheduler
@@ -55,6 +60,10 @@ class EngineConfig:
     max_model_len: Optional[int] = None    # default: max_position_embeddings
     device: Optional[str] = None           # None = "cuda"
     dtype: Optional[torch.dtype] = None    # None = the model's dtype
+    # "int8": int8 KV pools with per-block-per-head scales; the default
+    # num_blocks then fills the fp pool's bytes (~2x blocks for bf16, ~4x
+    # for fp32).  None = pools in the engine's dtype.
+    kv_cache_dtype: Optional[str] = None
 
 
 class LLMEngine:
@@ -81,11 +90,28 @@ class LLMEngine:
         self.blocks_per_seq = -(-ring // c.block_size)
         self.num_heads = cfg.num_attention_heads
         self.head_dim = cfg.hidden_size // self.num_heads
-        num_blocks = (c.num_blocks if c.num_blocks is not None
-                      else c.max_num_seqs * self.blocks_per_seq)
+        if c.kv_cache_dtype not in (None, "int8"):
+            raise ValueError(
+                f'kv_cache_dtype must be None or "int8", got '
+                f'{c.kv_cache_dtype!r}')
+        self.kv_quant = c.kv_cache_dtype
+        fp_blocks = c.max_num_seqs * self.blocks_per_seq
+        if c.num_blocks is not None:
+            num_blocks = c.num_blocks
+        elif self.kv_quant:
+            # the fp default pool's bytes, in int8 blocks
+            geo = (c.block_size, self.num_heads, self.head_dim)
+            layers = cfg.num_hidden_layers
+            budget = fp_blocks * BlockKVCache.block_bytes(
+                *geo, self.dtype) * layers
+            num_blocks = budget // (BlockKVCache.block_bytes(
+                *geo, self.dtype, self.kv_quant) * layers)
+        else:
+            num_blocks = fp_blocks
         self.cache = BlockKVCache(
             cfg.num_hidden_layers, num_blocks, c.block_size, self.num_heads,
-            self.head_dim, dtype=self.dtype, device=self.device)
+            self.head_dim, dtype=self.dtype, device=self.device,
+            kv_quant=self.kv_quant)
         self.scheduler = Scheduler(
             self.cache, max_num_seqs=c.max_num_seqs,
             max_num_batched_tokens=(c.max_num_batched_tokens
@@ -268,8 +294,16 @@ class LLMEngine:
 
         def attn_for_layer(l):
             def attn(q, k, v):
-                paged_cache_update_arrays(cache.k_blocks[l], k, slots)
-                paged_cache_update_arrays(cache.v_blocks[l], v, slots)
+                # flash reads the fp K/V just computed: only the STORED
+                # cache is quantized
+                if self.kv_quant:
+                    quantized_cache_update_arrays(
+                        cache.k_blocks[l], cache.k_scales[l], k, slots)
+                    quantized_cache_update_arrays(
+                        cache.v_blocks[l], cache.v_scales[l], v, slots)
+                else:
+                    paged_cache_update_arrays(cache.k_blocks[l], k, slots)
+                    paged_cache_update_arrays(cache.v_blocks[l], v, slots)
                 return flash_attention_arrays(q, k, v, is_causal=True), None
             return attn
 
@@ -283,11 +317,14 @@ class LLMEngine:
         cache = self.cache
 
         def attn_for_layer(l):
+            scales = ((cache.k_scales[l], cache.v_scales[l])
+                      if self.kv_quant else (None, None))
+
             def attn(q, k, v):
-                o, _, _ = ragged_paged_attention_arrays(
+                out = ragged_paged_attention_arrays(
                     q, k, v, cache.k_blocks[l], cache.v_blocks[l], tables,
-                    pos0, lens, slots)
-                return o, None
+                    pos0, lens, slots, *scales)
+                return out[0], None
             return attn
 
         return self._tail(self._run_blocks(self._embed(ids, pos),

@@ -7,15 +7,21 @@ K/V live per layer in pools of fixed-size physical blocks on the device
 
 and each sequence owns a block table (list of physical ids), so a request
 holds exactly ``ceil(len / block_size)`` blocks.  The engine's step
-programs write the pools in place.
+programs write the pools in place.  With ``kv_quant="int8"`` the pools
+hold int8 codes beside per-block-per-head fp32 scales
+
+    k_scales[l], v_scales[l] : [num_blocks, H]     (value = code * scale)
+
+and a block's scales are zeroed whenever the allocator hands it out.
 
 Host logic ported one-to-one: LIFO free list and refcounts, `truncate_to`,
 and bit-exact `swap_out`/`swap_in` for preemption.  Every transition
 asserts the refcount/free-list invariants.
 
 Left out for later slices: fork with copy-on-write of a shared last block,
-automatic prefix caching (index, LRU parking, adoption), int8 pools, and
-the memory-microscope lifecycle ledger.  Until fork is ported no block is
+automatic prefix caching (index, LRU parking, adoption) — and with them
+the scale copies of a copied block — and the memory-microscope lifecycle
+ledger.  Until fork is ported no block is
 shared, so `_needs_cow` is always False.
 """
 from __future__ import annotations
@@ -41,20 +47,34 @@ class _Block:
 
 class BlockKVCache:
     def __init__(self, num_layers, num_blocks, block_size, num_heads,
-                 head_dim, dtype=torch.float32, device=None):
+                 head_dim, dtype=torch.float32, device=None, kv_quant=None):
+        if kv_quant not in (None, "int8"):
+            raise ValueError(
+                f'kv_quant must be None or "int8", got {kv_quant!r}')
         self.num_layers = int(num_layers)
         self.num_blocks = int(num_blocks)
         self.block_size = int(block_size)
         self.num_heads = int(num_heads)
         self.head_dim = int(head_dim)
         self.dtype = dtype
+        self.kv_quant = kv_quant
         self.device = resolve_device(device)
         shape = (self.num_blocks, self.block_size, self.num_heads,
                  self.head_dim)
-        self.k_blocks = [torch.zeros(shape, dtype=dtype, device=self.device)
+        pool_dt = torch.int8 if kv_quant else dtype
+        self.k_blocks = [torch.zeros(shape, dtype=pool_dt, device=self.device)
                          for _ in range(num_layers)]
-        self.v_blocks = [torch.zeros(shape, dtype=dtype, device=self.device)
+        self.v_blocks = [torch.zeros(shape, dtype=pool_dt, device=self.device)
                          for _ in range(num_layers)]
+        self.k_scales = self.v_scales = None
+        if kv_quant:
+            sshape = (self.num_blocks, self.num_heads)
+            self.k_scales = [torch.zeros(sshape, dtype=torch.float32,
+                                         device=self.device)
+                             for _ in range(num_layers)]
+            self.v_scales = [torch.zeros(sshape, dtype=torch.float32,
+                                         device=self.device)
+                             for _ in range(num_layers)]
         self._blocks = [_Block(i) for i in range(self.num_blocks)]
         self._free = list(range(self.num_blocks - 1, -1, -1))  # LIFO
         self._tables: dict = {}        # seq_id -> [physical ids]
@@ -62,6 +82,28 @@ class BlockKVCache:
         self.peak_blocks_in_use = 0
 
     # -- introspection ------------------------------------------------------
+
+    @staticmethod
+    def block_bytes(block_size, num_heads, head_dim, dtype=torch.float32,
+                    kv_quant=None) -> int:
+        """Bytes ONE physical block costs per layer: K and V pools, plus
+        the fp32 per-head scales when quantized."""
+        per_tok = int(num_heads) * int(head_dim)
+        if kv_quant == "int8":
+            return 2 * (int(block_size) * per_tok + 4 * int(num_heads))
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        return 2 * int(block_size) * per_tok * itemsize
+
+    @property
+    def bytes_per_block(self) -> int:
+        """Bytes one block costs across all layers."""
+        return self.num_layers * self.block_bytes(
+            self.block_size, self.num_heads, self.head_dim, self.dtype,
+            self.kv_quant)
+
+    @property
+    def pool_bytes(self) -> int:
+        return self.num_blocks * self.bytes_per_block
 
     @property
     def num_slots(self) -> int:
@@ -157,8 +199,10 @@ class BlockKVCache:
         need = self.blocks_needed(num_tokens)
         if need > self.num_free_blocks:
             raise BlockAllocatorError("out of KV blocks")
-        self._tables[seq_id] = [self._take() for _ in range(need)]
+        ids = [self._take() for _ in range(need)]
+        self._tables[seq_id] = ids
         self._lengths[seq_id] = int(num_tokens)
+        self._reset_scales(ids)
 
     def grow_to(self, seq_id, num_tokens):
         """Extend a sequence's table to cover `num_tokens` tokens."""
@@ -167,9 +211,23 @@ class BlockKVCache:
             raise BlockAllocatorError(
                 f"sequence {seq_id} would write a shared block: "
                 "copy-on-write is not ported")
+        new_ids = []
         while len(t) < self.blocks_needed(num_tokens):
-            t.append(self._take())
+            new_ids.append(self._take())
+            t.append(new_ids[-1])
         self._lengths[seq_id] = max(self._lengths[seq_id], int(num_tokens))
+        self._reset_scales(new_ids)
+
+    def _reset_scales(self, ids):
+        """Zero the scales of freshly allocated blocks: a block's scale
+        only grows while it is owned, so a reallocated block must not
+        inherit the previous owner's range."""
+        if not self.kv_quant or not ids:
+            return
+        idx = torch.tensor(ids, dtype=torch.long, device=self.device)
+        for l in range(self.num_layers):
+            self.k_scales[l][idx] = 0.0
+            self.v_scales[l][idx] = 0.0
 
     def free(self, seq_id):
         for idx in self._tables.pop(seq_id):
@@ -198,6 +256,10 @@ class BlockKVCache:
             "k": [k[idx].cpu() for k in self.k_blocks],
             "v": [v[idx].cpu() for v in self.v_blocks],
         }
+        if self.kv_quant:
+            # the codes mean nothing without their scales
+            saved["ks"] = [s[idx].cpu() for s in self.k_scales]
+            saved["vs"] = [s[idx].cpu() for s in self.v_scales]
         self.free(seq_id)
         return saved
 
@@ -213,3 +275,6 @@ class BlockKVCache:
         for l in range(self.num_layers):
             self.k_blocks[l][idx] = saved["k"][l].to(self.device)
             self.v_blocks[l][idx] = saved["v"][l].to(self.device)
+            if self.kv_quant:
+                self.k_scales[l][idx] = saved["ks"][l].to(self.device)
+                self.v_scales[l][idx] = saved["vs"][l].to(self.device)

@@ -18,7 +18,11 @@ Tolerances against the plain version on the same inputs
   per element 2^-7 max(|out|, |ref|) + 2^-7 times the gradient's sum of
   magnitudes (P^T|dO|, scale W^T|Q|, scale W|K|, with W = P (|dO|.|V|^T
   + |dO|.|out|) bounding ds = P (dP - delta) and its fp32 noise).
-- pool writes: bitwise.
+- pool writes: bitwise; for int8 pools the codes and the scales too.
+- the int8 ragged kernel's output: the forward limit above (both sides
+  compute in fp32; bf16 rounds the output once).
+- the masked / kv_lens flash forward: the forward limit above, on every
+  row, left-pad rows (all keys masked) included.
 - LayerNorm backward: each of dx, dw, db within 1e-5 of its sum over
   term magnitudes, plus one bf16 step for a bf16 output
   (`tolerance.ln_bwd_limits`); a second launch bitwise equal.
@@ -161,6 +165,132 @@ def test_ragged_kernel_matches_plain(mix_name, dtype):
         n = qlens[b]
         err, ok = _fwd_ok(out[b, :n], want[b, :n], mag[b, :n])
         assert ok, (mix_name, b, err)
+
+
+def _int8_pools(nb, bs, h, d, seed):
+    rng = np.random.RandomState(seed)
+    codes = [_t(rng.randint(-127, 128, (nb, bs, h, d)).astype(np.int8))
+             for _ in range(2)]
+    scales = [_t((rng.rand(nb, h) * 0.02).astype(np.float32))
+              for _ in range(2)]
+    return codes, scales
+
+
+def _chunk_case(c, pos0, bs, nb, h, d, seed):
+    """One row writing C positions from pos0 (spanning several blocks,
+    starting mid-block) beside one decode row and one padding row."""
+    rng = np.random.RandomState(seed)
+    maxb = 8
+    tables = np.full((3, maxb), nb, np.int32)
+    ids = rng.permutation(nb)
+    need = -(-(pos0 + c) // bs)
+    tables[0, :need] = ids[:need]
+    tables[1, :2] = ids[need:need + 2]
+    p0 = np.array([pos0, 20, 0], np.int32)
+    lens = np.array([pos0 + c, 21, 0], np.int32)
+    slots = np.full((3, c), nb * bs, np.int32)
+    for j in range(c):
+        p = pos0 + j
+        slots[0, j] = tables[0, p // bs] * bs + p % bs
+    slots[1, 0] = tables[1, 1] * bs + 20 % bs
+    q, kn, vn = _t(rng.randn(3, c, 3, h, d).astype(np.float32)).unbind(2)
+    return (q, kn, vn, tables, p0, lens, slots, [0, 1], [c, 1],
+            (nb, bs, h, d))
+
+
+@pytest.mark.cuda
+@pytest.mark.usefixtures("needs_cuda")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", MIXES + ["chunk"])
+def test_ragged_int8_kernel_matches_plain(case, dtype):
+    if case == "chunk":
+        q, kn, vn, tables, pos0, lens, slots, valid, qlens, geo = \
+            _chunk_case(40, 13, 16, 24, 2, 64, 7)
+    else:
+        q, kn, vn, tables, pos0, lens, slots, valid, qlens, geo = mix(case)
+        rng = np.random.RandomState(2)
+        b, c, h, _ = q.shape
+        q, kn, vn = _t(3 * rng.randn(b, c, 3, h, 64).astype(
+            np.float32)).unbind(2)
+        geo = geo[:3] + (64,)
+    (kc, vc), (ks, vs) = _int8_pools(*geo, seed=3)
+    dev = [x.to("cuda", dtype) for x in (q, kn, vn)]
+    pools = [x.cuda() for x in (kc, vc, ks, vs)]
+    ref = [x.clone() for x in pools]
+    idx = [_t(a).cuda() for a in (tables, pos0, lens, slots)]
+    rpa.int8.launches = 0
+    out, *got = rpa.ragged_paged_attention_arrays(
+        *dev, pools[0], pools[1], *idx, k_scales=pools[2],
+        v_scales=pools[3])
+    want, *wref = rpa.ragged_paged_attention_reference(
+        *dev, ref[0], ref[1], *idx, ref[2], ref[3])
+    # P|V|: the plain attention of the widened q over |V| codes
+    mag = rpa.folded_quant_attention(
+        dev[0].float(), ref[0], ref[1].abs(), ref[2], ref[3], idx[0],
+        idx[1], 64 ** -0.5)
+    torch.cuda.synchronize()
+    assert rpa.int8.launches == 1 and out.dtype == dtype
+    for g, w in zip(got, wref):
+        assert torch.equal(g, w)
+    assert not torch.equal(pools[2], ks.cuda())    # some scale grew
+    for b in valid:
+        n = qlens[b]
+        err, ok = _fwd_ok(out[b, :n], want[b, :n], mag[b, :n])
+        assert ok, (case, b, err)
+
+
+def _mask_inputs(b, s, h, d, kind, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = torch.randn(b, s, 3, h, d, generator=g).to(
+        "cuda", dtype).unbind(2)
+    mask = lens = None
+    if kind in ("pad", "pad_lens"):
+        # left pads: a [B, 1, 1, S] key-validity row, a stride-0 view
+        pads = torch.tensor([0, 37, 150][:b])
+        row = torch.where(torch.arange(s)[None] < pads[:, None], -1e30, 0.0)
+        mask = row.cuda()[:, None, None, :].expand(b, 1, s, s)
+    if kind == "full":
+        mask = torch.randn(b, h, s, s, generator=g).cuda() * 2
+    if kind == "bool":
+        mask = (torch.rand(1, 1, s, s, generator=g) > 0.3).cuda()
+        mask[..., 0] = True
+    if kind in ("lens", "pad_lens"):
+        lens = torch.tensor([s, s - 50, 90][:b], dtype=torch.int32).cuda()
+    return q, k, v, mask, lens
+
+
+@pytest.mark.cuda
+@pytest.mark.usefixtures("needs_cuda")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,d,kind", [(3, 200, 3, 64, "pad"),
+                                          (3, 200, 3, 64, "pad_lens"),
+                                          (2, 130, 2, 128, "full"),
+                                          (2, 96, 2, 64, "bool"),
+                                          (3, 257, 2, 64, "lens")])
+def test_flash_masked_kernel_matches_plain(b, s, h, d, kind, dtype):
+    q, k, v, mask, lens = _mask_inputs(b, s, h, d, kind, dtype, s + d)
+    fa.launches = fa.masked.launches = 0
+    out, lse = fa.flash_attention_arrays(q, k, v, mask, kv_lens=lens,
+                                         return_lse=True)
+    want, want_lse = fa.mha_reference(q, k, v, is_causal=True,
+                                      return_lse=True, mask=mask,
+                                      kv_lens=lens)
+    mag = fa.mha_reference(q.float(), k.float(), v.float().abs(),
+                           is_causal=True, mask=mask, kv_lens=lens)
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.masked.launches) == (0, 1)
+    err, ok = _fwd_ok(out, want, mag)                  # every row
+    assert ok, err
+    assert (lse - want_lse).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.usefixtures("needs_cuda")
+def test_flash_masked_refuses_grad_on_the_card():
+    q, k, v, mask, _ = _mask_inputs(1, 64, 2, 64, "pad", torch.float32, 1)
+    q.requires_grad_()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fa.flash_attention_arrays(q, k, v, mask)
 
 
 def _randn(shape, seed, dtype, scale=1.0):
