@@ -57,8 +57,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    - the int8 ragged kernel at the engine's decode step and at a C=512
      chunk from position 188 (33 blocks written), on int8 pools whose
      scales the writes grow: codes and scales bitwise equal to the plain
-     version's, out within the forward limit (no yardstick).  The timed
-     calls repeat the write at the grown scales.
+     version's, out within the forward limit (no yardstick).  Each timed
+     call (kernel and plain version) starts from the pools and scales
+     before the write, restored outside the timed region, so it grows
+     the same scales and rescales the same codes.
 3. Engine: GPT-2 124M (full width, 12 layers, random weights from seed 0)
    served by `LLMEngine` with block_size 16, max_num_seqs 8,
    max_num_batched_tokens 512: five greedy prompts of 7, 64, 200, 384 and
@@ -161,10 +163,11 @@ REPLACES = {
     FFN: "paddle_tpu/ops/pallas_ops.py:1548",
 }
 # the __global__ functions of paddle_tpu_torch/csrc, as the profiler names
-PORT_SYMBOLS = ("flash_fwd_causal_kernel", "flash_fwd_masked_kernel",
-                "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
-                "ragged_write_kernel", "ragged_attend_kernel",
-                "ragged_write_int8_kernel", "ragged_attend_int8_kernel",
+# (template names: the mask and int8 variants are instantiations of
+# flash_fwd_causal_kernel and ragged_attend_kernel)
+PORT_SYMBOLS = ("flash_fwd_causal_kernel", "flash_bwd_dq_kernel",
+                "flash_bwd_dkv_kernel", "ragged_write_kernel",
+                "ragged_attend_kernel", "ragged_write_int8_kernel",
                 "flash_decode_kernel", "fused_decode_layer_kernel",
                 "ln_fwd_kernel", "ln_bwd_kernel", "ln_bwd_sum_kernel",
                 "fused_ffn_kernel")
@@ -195,16 +198,22 @@ class Timer:
     """Median CUDA-event time of one call, L2 flushed before each.  A spin
     of ~1 ms on the stream before the start event lets the host enqueue
     the call while the card is busy, so the time is the card's and not the
-    host's launch overhead (which would dominate calls of a few us)."""
+    host's launch overhead (which would dominate calls of a few us).
+    ``reset``, if given, runs before each call's flush, outside the timed
+    region: it restores state that the call changes."""
 
     def __init__(self):
         self.flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
 
-    def __call__(self, fn, reps=25, warmup=3):
+    def __call__(self, fn, reps=25, warmup=3, reset=None):
         for _ in range(warmup):
+            if reset:
+                reset()
             fn()
         times = []
         for _ in range(reps):
+            if reset:
+                reset()
             self.flush.zero_()
             torch.cuda._sleep(2_000_000)
             s = torch.cuda.Event(enable_timing=True)
@@ -400,8 +409,9 @@ def check_ragged(rpa, tol, timer, rows, c, dtype, seed):
 def check_ragged_int8(rpa, tol, timer, rows, c, dtype, seed):
     """The int8 entry against its plain version on int8 pools whose small
     scales (< 0.005) the new rows grow: codes and scales bitwise, out
-    within the forward limit.  The timed calls repeat the write at the
-    grown scales (factor 1, no rescale)."""
+    within the forward limit.  Each timed call starts from the state
+    before the write (restored untimed), so it rescales as the first
+    did."""
     nb, bs, h, d = 512, 16, 12, 64
     args, qlens, _, flops = ragged_case(rows, c, nb, bs, h, d, dtype, seed)
     q, kn, vn, _, _, tables, pos0, lens, slots = args
@@ -410,6 +420,7 @@ def check_ragged_int8(rpa, tol, timer, rows, c, dtype, seed):
                             dtype=torch.int8).cuda() for _ in range(2))
     ks, vs = ((torch.rand(nb, h, generator=g) * 0.005).cuda()
               for _ in range(2))
+    init = [t.clone() for t in (kc, vc, ks, vs)]
     before = ks.clone(), vs.clone()
     ref = [t.clone() for t in (kc, vc, ks, vs)]
     idx = (tables, pos0, lens, slots)
@@ -436,10 +447,13 @@ def check_ragged_int8(rpa, tol, timer, rows, c, dtype, seed):
     checks = [check_close(tol, out[r, :n], want[r, :n], limits[r],
                           f"{what} row {r}")
               for r, n in enumerate(qlens) if n]
+    def restore(state):
+        return lambda: [t.copy_(i) for t, i in zip(state, init)]
+
     ms = timer(lambda: rpa.ragged_paged_attention_arrays(
-        q, kn, vn, kc, vc, *idx, ks, vs))
+        q, kn, vn, kc, vc, *idx, ks, vs), reset=restore((kc, vc, ks, vs)))
     plain_ms = timer(lambda: rpa.ragged_paged_attention_reference(
-        q, kn, vn, *ref[:2], *idx, *ref[2:]))
+        q, kn, vn, *ref[:2], *idx, *ref[2:]), reset=restore(ref))
     # what this data needs: each code of the rows' keys and each (block,
     # head) scale they use read once, the new rows' codes written, each
     # grown (block, head) slice of codes read and written, its scale
@@ -489,6 +503,24 @@ def masked_inputs(kind, b, s, h, d, dtype, seed):
     return q, k, v, mask, lens
 
 
+def mask_entries_needed(mask, causal, klen):
+    """The distinct entries of a [B|1, H|1, S|1, S] mask (read through its
+    strides, 0 broadcasting) that the pairs causal and kv_lens allow touch:
+    a pair (b, q, k) is allowed if k <= q and k < klen[b], for every head;
+    a broadcast dimension counts the union of what it covers once."""
+    b, s = len(klen), causal.shape[0]
+    lens = torch.tensor(klen, device=causal.device)
+    keys = torch.arange(s, device=causal.device)
+    need = causal[None] & (keys < lens[:, None])[:, None, :]   # [B, S, S]
+    for dim, size, stride in ((0, mask.shape[0], mask.stride(0)),
+                              (1, mask.shape[2], mask.stride(2)),
+                              (2, mask.shape[3], mask.stride(3))):
+        if size == 1 or stride == 0:
+            need = need.any(dim, keepdim=True)
+    heads = 1 if mask.shape[1] == 1 or mask.stride(1) == 0 else mask.shape[1]
+    return int(need.sum()) * heads
+
+
 def check_flash_masked(fa, tol, timer, kind, dtype, seed, b=8, s=896, h=12,
                        d=64):
     """The masked / kv_lens flash forward against `mha_reference`, every
@@ -513,7 +545,8 @@ def check_flash_masked(fa, tol, timer, kind, dtype, seed, b=8, s=896, h=12,
                                               mask=mask, kv_lens=lens),
                      reps=10)
     keys = torch.arange(s, device="cuda")
-    lib_mask = torch.where(keys[None, :] <= keys[:, None], 0.0, -1e30)
+    causal = keys[None, :] <= keys[:, None]
+    lib_mask = torch.where(causal, 0.0, -1e30)
     if mask is not None:
         lib_mask = lib_mask + mask
     if lens is not None:
@@ -530,7 +563,8 @@ def check_flash_masked(fa, tol, timer, kind, dtype, seed, b=8, s=896, h=12,
     nbytes = (2 * b * s * h * d * item               # q read, out written
               + 2 * sum(klen) * h * d * item         # the keys it needs
               + 4 * b * h * s                        # lse
-              + (0 if mask is None else mask.untyped_storage().nbytes())
+              + (0 if mask is None else 4 * mask_entries_needed(
+                  mask, causal, klen))
               + (0 if lens is None else 4 * b))
     bms, by = bound_ms(nbytes, 4 * d * pairs, dtype)
     return dict(shape=f"B={b} S={s} H={h} D={d} {kind}", dtype=str(dtype),

@@ -29,13 +29,13 @@
 // the input type; lse is a contiguous fp32 [B, H, Sq].  Causal alignment is
 // at the end (query i sees keys <= i + Sk - Sq), as in the TPU kernel.
 //
-// The masked variant (`flash_fwd_masked`, a kernel of its own so that the
-// entry above keeps its arithmetic) adds the TPU kernel's additive mask
-// and kv_lens branches (`pallas_ops.py:162-173`, `:192-194`) to the causal
-// one.  The fp32 mask is read through four element strides (batch, head,
-// query, key; a stride of 0 broadcasts, so a [B, 1, 1, S] key-validity
-// row expanded to [B, 1, S, S] costs no copy), staged per tile in shared
-// memory, and added to the scaled score.  With kv_lens the key loop stops
+// The masked variant (`flash_fwd_masked`, the same kernel instantiated with
+// MASKED, so that the entry above keeps its arithmetic) adds the TPU
+// kernel's additive mask and kv_lens branches (`pallas_ops.py:162-173`,
+// `:192-194`) to the causal one.  The fp32 mask is read through four
+// element strides (batch, head, query, key; a stride of 0 broadcasts, so
+// a [B, 1, 1, S] key-validity row expanded to [B, 1, S, S] costs no
+// copy), staged per tile in shared memory, and added to the scaled score.  With kv_lens the key loop stops
 // at ceil(len / 32) tiles and keys at or past len are excluded.  Key tiles
 // are never skipped for a mask of -1e30: a left-pad query whose every key
 // is masked gets the uniform softmax over the keys causal and kv_lens
@@ -67,88 +67,10 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-template <typename T, int D>
+// MASKED adds the additive mask and kv_lens branches; without it the
+// arithmetic is that of the causal-only kernel, unchanged.
+template <typename T, int D, bool MASKED>
 __global__ void __launch_bounds__(THREADS) flash_fwd_causal_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, T* __restrict__ out, float* __restrict__ lse,
-    int H, int Sq, int Sk, long long qsb, long long qss, long long ksb,
-    long long kss, long long vsb, long long vss, float scale) {
-  constexpr int DP = D / TPR;
-  __shared__ float ks[BK][D];
-  __shared__ float vs[BK][D];
-  const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, row = tid / TPR, sub = tid % TPR;
-  const int qpos = tile * BQ + row;
-  const int offset = Sk - Sq;
-  const int lim = qpos + offset;    // last key this row may attend
-
-  float qr[DP], acc[DP];
-  const T* qp = q + b * qsb + (long long)min(qpos, Sq - 1) * qss + h * D;
-#pragma unroll
-  for (int i = 0; i < DP; ++i) {
-    qr[i] = to_f(qp[sub + TPR * i]);
-    acc[i] = 0.f;
-  }
-  float m = NEG, l = 0.f;
-
-  const T* kb = k + b * ksb + h * D;
-  const T* vb = v + b * vsb + h * D;
-  const int kend = min(Sk, tile * BQ + BQ + offset);   // exclusive
-  for (int k0 = 0; k0 < kend; k0 += BK) {
-    __syncthreads();   // the previous tile is no longer read
-    for (int e = tid; e < BK * D; e += THREADS) {
-      const int j = e / D, d = e % D, kp = k0 + j;
-      float kv = 0.f, vv = 0.f;
-      if (kp < Sk) {
-        kv = to_f(kb[kp * kss + d]);
-        vv = to_f(vb[kp * vss + d]);
-      }
-      ks[j][d] = kv;
-      vs[j][d] = vv;
-    }
-    __syncthreads();
-
-    float s[BK];
-    float tmax = NEG;
-#pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      float part = 0.f;
-#pragma unroll
-      for (int i = 0; i < DP; ++i) part = fmaf(qr[i], ks[j][sub + TPR * i], part);
-      part += __shfl_xor_sync(0xffffffffu, part, 1);
-      part += __shfl_xor_sync(0xffffffffu, part, 2);
-      const int kp = k0 + j;
-      s[j] = (kp <= lim && kp < Sk) ? part * scale : NEG;
-      tmax = fmaxf(tmax, s[j]);
-    }
-    const float mnew = fmaxf(m, tmax);
-    const float alpha = expf(m - mnew);
-    float psum = 0.f;
-#pragma unroll
-    for (int i = 0; i < DP; ++i) acc[i] *= alpha;
-#pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      const int kp = k0 + j;
-      const float p = (kp <= lim && kp < Sk) ? expf(s[j] - mnew) : 0.f;
-      psum += p;
-#pragma unroll
-      for (int i = 0; i < DP; ++i) acc[i] = fmaf(p, vs[j][sub + TPR * i], acc[i]);
-    }
-    l = l * alpha + psum;
-    m = mnew;
-  }
-
-  if (qpos < Sq) {
-    const float ls = fmaxf(l, 1e-30f);
-    T* op = out + (((long long)b * Sq + qpos) * H + h) * D;
-#pragma unroll
-    for (int i = 0; i < DP; ++i) op[sub + TPR * i] = from_f<T>(acc[i] / ls);
-    if (sub == 0) lse[((long long)b * H + h) * Sq + qpos] = m + logf(ls);
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS) flash_fwd_masked_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, T* __restrict__ out, float* __restrict__ lse,
     const float* __restrict__ mask, const int* __restrict__ kv_lens, int H,
@@ -156,15 +78,19 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_masked_kernel(
     long long kss, long long vsb, long long vss, long long msb,
     long long msh, long long msq, long long msk, float scale) {
   constexpr int DP = D / TPR;
+  // the logit of an excluded key: -1e30 as in the reference; -inf when
+  // masked, so that any finite mask value (-1e30 too) stays exact
+  const float none = MASKED ? -INFINITY : NEG;
   __shared__ float ks[BK][D];
   __shared__ float vs[BK][D];
-  __shared__ float ms[BQ][BK + 1];   // the mask tile, padded: no conflicts
+  __shared__ float ms[MASKED ? BQ : 1][BK + 1];   // mask tile, padded
   const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, row = tid / TPR, sub = tid % TPR;
   const int qpos = tile * BQ + row;
   const int offset = Sk - Sq;
   const int lim = qpos + offset;    // last key this row may attend
-  const int klen = kv_lens ? min(max(kv_lens[b], 0), Sk) : Sk;
+  const int klen =
+      MASKED && kv_lens ? min(max(kv_lens[b], 0), Sk) : Sk;
 
   float qr[DP], acc[DP];
   const T* qp = q + b * qsb + (long long)min(qpos, Sq - 1) * qss + h * D;
@@ -173,11 +99,11 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_masked_kernel(
     qr[i] = to_f(qp[sub + TPR * i]);
     acc[i] = 0.f;
   }
-  float m = -INFINITY, l = 0.f;
+  float m = none, l = 0.f;
 
   const T* kb = k + b * ksb + h * D;
   const T* vb = v + b * vsb + h * D;
-  const float* mb = mask ? mask + b * msb + h * msh : nullptr;
+  const float* mb = MASKED && mask ? mask + b * msb + h * msh : nullptr;
   const int kend = min(klen, tile * BQ + BQ + offset);   // exclusive
   for (int k0 = 0; k0 < kend; k0 += BK) {
     __syncthreads();   // the previous tile is no longer read
@@ -191,17 +117,19 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_masked_kernel(
       ks[j][d] = kv;
       vs[j][d] = vv;
     }
-    if (mb) {
-      for (int e = tid; e < BQ * BK; e += THREADS) {
-        const int rr = e / BK, j = e % BK, kp = k0 + j;
-        const long long qq = min(tile * BQ + rr, Sq - 1);
-        ms[rr][j] = kp < Sk ? mb[qq * msq + kp * msk] : 0.f;
+    if constexpr (MASKED) {
+      if (mb) {
+        for (int e = tid; e < BQ * BK; e += THREADS) {
+          const int rr = e / BK, j = e % BK, kp = k0 + j;
+          const long long qq = min(tile * BQ + rr, Sq - 1);
+          ms[rr][j] = kp < Sk ? mb[qq * msq + kp * msk] : 0.f;
+        }
       }
     }
     __syncthreads();
 
     float s[BK];
-    float tmax = -INFINITY;
+    float tmax = none;
 #pragma unroll
     for (int j = 0; j < BK; ++j) {
       float part = 0.f;
@@ -211,12 +139,15 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_masked_kernel(
       part += __shfl_xor_sync(0xffffffffu, part, 2);
       const int kp = k0 + j;
       float sc = part * scale;
-      if (mb) sc += ms[row][j];
-      s[j] = (kp <= lim && kp < klen) ? sc : -INFINITY;
+      if constexpr (MASKED) {
+        if (mb) sc += ms[row][j];
+      }
+      s[j] = (kp <= lim && kp < klen) ? sc : none;
       tmax = fmaxf(tmax, s[j]);
     }
     const float mnew = fmaxf(m, tmax);
-    const float alpha = mnew == -INFINITY ? 1.f : expf(m - mnew);
+    const float alpha =
+        MASKED && mnew == -INFINITY ? 1.f : expf(m - mnew);
     float psum = 0.f;
 #pragma unroll
     for (int i = 0; i < DP; ++i) acc[i] *= alpha;
@@ -241,17 +172,48 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_masked_kernel(
   }
 }
 
-template <typename T, int D>
+// One launch of the kernel; mask and kv_lens are null for the unmasked
+// entry (MASKED false).
+template <typename T, int D, bool MASKED>
 void launch(const void* q, const void* k, const void* v, void* out, void* lse,
-            int B, int H, int Sq, int Sk, long long qsb, long long qss,
-            long long ksb, long long kss, long long vsb, long long vss,
-            float scale, cudaStream_t stream) {
+            const float* mask, const int* kv_lens, int B, int H, int Sq,
+            int Sk, long long qsb, long long qss, long long ksb,
+            long long kss, long long vsb, long long vss, long long msb,
+            long long msh, long long msq, long long msk, float scale,
+            cudaStream_t stream) {
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_fwd_causal_kernel<T, D><<<grid, THREADS, 0, stream>>>(
+  flash_fwd_causal_kernel<T, D, MASKED><<<grid, THREADS, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out),
-      static_cast<float*>(lse), H, Sq, Sk, qsb, qss, ksb, kss, vsb, vss,
-      scale);
+      static_cast<float*>(lse), mask, kv_lens, H, Sq, Sk, qsb, qss, ksb, kss,
+      vsb, vss, msb, msh, msq, msk, scale);
+}
+
+template <bool MASKED>
+int dispatch(const void* q, const void* k, const void* v, void* out,
+             void* lse, const void* mask, const void* kv_lens, int B, int H,
+             int Sq, int Sk, int D, int is_bf16, long long qsb,
+             long long qss, long long ksb, long long kss, long long vsb,
+             long long vss, long long msb, long long msh, long long msq,
+             long long msk, float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* m = static_cast<const float*>(mask);
+  const int* n = static_cast<const int*>(kv_lens);
+#define FF_LAUNCH(T, DIM)                                                  \
+  launch<T, DIM, MASKED>(q, k, v, out, lse, m, n, B, H, Sq, Sk, qsb, qss,  \
+                         ksb, kss, vsb, vss, msb, msh, msq, msk, scale, s)
+  if (D == 64 && is_bf16)
+    FF_LAUNCH(__nv_bfloat16, 64);
+  else if (D == 64)
+    FF_LAUNCH(float, 64);
+  else if (D == 128 && is_bf16)
+    FF_LAUNCH(__nv_bfloat16, 128);
+  else if (D == 128)
+    FF_LAUNCH(float, 128);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+#undef FF_LAUNCH
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -264,22 +226,9 @@ extern "C" int flash_fwd_causal(const void* q, const void* k, const void* v,
                                 long long qss, long long ksb, long long kss,
                                 long long vsb, long long vss, float scale,
                                 void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64 && is_bf16)
-    launch<__nv_bfloat16, 64>(q, k, v, out, lse, B, H, Sq, Sk, qsb, qss, ksb,
-                              kss, vsb, vss, scale, s);
-  else if (D == 64)
-    launch<float, 64>(q, k, v, out, lse, B, H, Sq, Sk, qsb, qss, ksb, kss,
-                      vsb, vss, scale, s);
-  else if (D == 128 && is_bf16)
-    launch<__nv_bfloat16, 128>(q, k, v, out, lse, B, H, Sq, Sk, qsb, qss,
-                               ksb, kss, vsb, vss, scale, s);
-  else if (D == 128)
-    launch<float, 128>(q, k, v, out, lse, B, H, Sq, Sk, qsb, qss, ksb, kss,
-                       vsb, vss, scale, s);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  return dispatch<false>(q, k, v, out, lse, nullptr, nullptr, B, H, Sq, Sk,
+                         D, is_bf16, qsb, qss, ksb, kss, vsb, vss, 0, 0, 0,
+                         0, scale, stream);
 }
 
 // The masked / kv_lens variant.  mask: fp32, element strides msb, msh, msq,
@@ -294,26 +243,7 @@ extern "C" int flash_fwd_masked(const void* q, const void* k, const void* v,
                                 long long vsb, long long vss, long long msb,
                                 long long msh, long long msq, long long msk,
                                 float scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* m = static_cast<const float*>(mask);
-  const int* n = static_cast<const int*>(kv_lens);
-  dim3 grid((Sq + BQ - 1) / BQ, H, B);
-#define FFM_LAUNCH(T, DIM)                                                  \
-  flash_fwd_masked_kernel<T, DIM><<<grid, THREADS, 0, s>>>(                 \
-      static_cast<const T*>(q), static_cast<const T*>(k),                   \
-      static_cast<const T*>(v), static_cast<T*>(out),                       \
-      static_cast<float*>(lse), m, n, H, Sq, Sk, qsb, qss, ksb, kss, vsb,   \
-      vss, msb, msh, msq, msk, scale)
-  if (D == 64 && is_bf16)
-    FFM_LAUNCH(__nv_bfloat16, 64);
-  else if (D == 64)
-    FFM_LAUNCH(float, 64);
-  else if (D == 128 && is_bf16)
-    FFM_LAUNCH(__nv_bfloat16, 128);
-  else if (D == 128)
-    FFM_LAUNCH(float, 128);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-#undef FFM_LAUNCH
-  return static_cast<int>(cudaGetLastError());
+  return dispatch<true>(q, k, v, out, lse, mask, kv_lens, B, H, Sq, Sk, D,
+                        is_bf16, qsb, qss, ksb, kss, vsb, vss, msb, msh, msq,
+                        msk, scale, stream);
 }

@@ -58,9 +58,10 @@
 //     decode the launch is one block per row and bound by load latency,
 //     so the rescale reads 16 codes per load and each thread issues all
 //     its loads before its stores.
-//  2. Attend.  The fp design, the codes loaded 4 at a time (char4) and the
-//     scales folded in as the plain version folds them: k_scale times the
-//     scaled logit, v_scale times each probability.  Bytes: 1 per code
+//  2. Attend.  The fp kernel instantiated for int8 pools: the codes loaded
+//     4 at a time (char4) and the scales folded in as the plain version
+//     folds them: k_scale times the scaled logit, v_scale times each
+//     probability.  Bytes: 1 per code
 //     plus 4 per (block, head) scale read -- a quarter of fp32's.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -151,13 +152,19 @@ __global__ void ragged_write_kernel(const T* __restrict__ knew,
   }
 }
 
-template <typename T, int D>
+// P is the pools' element type: T, or int8_t codes whose per-(block,
+// head) fp32 scales kscale / vscale fold in as the plain version folds
+// them -- k_scale times the scaled logit, v_scale times each probability.
+// For T pools the scales are null and unread.
+template <typename T, typename P, int D>
 __global__ void __launch_bounds__(THREADS) ragged_attend_kernel(
-    const T* __restrict__ q, const T* __restrict__ kpool,
-    const T* __restrict__ vpool, const int* __restrict__ table,
+    const T* __restrict__ q, const P* __restrict__ kpool,
+    const P* __restrict__ vpool, const float* __restrict__ kscale,
+    const float* __restrict__ vscale, const int* __restrict__ table,
     const int* __restrict__ pos0, const int* __restrict__ lens,
     T* __restrict__ out, int C, int H, int nb, int bs, int maxb,
     long long qsb, long long qsc, float scale) {
+  constexpr bool QUANT = sizeof(P) == 1;
   constexpr int TPK = D / VEC;          // threads per value row
   constexpr int G = THREADS / TPK;      // key groups in pass 2
   extern __shared__ float s[];          // one score per key
@@ -180,11 +187,11 @@ __global__ void __launch_bounds__(THREADS) ragged_attend_kernel(
   __syncthreads();
   const int* trow = table + (long long)r * maxb;
 
-  // pass 1: scores and their max
+  // pass 1: scores (times k_scale for codes) and their max
   float mx = -1e30f;
   for (int k = tid; k < bound; k += THREADS) {
     const int blk = min(max(trow[k / bs], 0), nb - 1);
-    const T* kr = kpool + ((long long)blk * bs + k % bs) * HD + h * D;
+    const P* kr = kpool + ((long long)blk * bs + k % bs) * HD + h * D;
     float dot = 0.f;
 #pragma unroll
     for (int d = 0; d < D; d += VEC) {
@@ -193,15 +200,22 @@ __global__ void __launch_bounds__(THREADS) ragged_attend_kernel(
 #pragma unroll
       for (int i = 0; i < VEC; ++i) dot = fmaf(x[i], qs[d + i], dot);
     }
-    dot *= scale;
+    if constexpr (QUANT)
+      dot = dot * scale * kscale[(long long)blk * H + h];
+    else
+      dot *= scale;
     s[k] = dot;
     mx = fmaxf(mx, dot);
   }
   mx = block_reduce(mx, red, true);
+  // probabilities, each stored times its block's v_scale for codes
   float sum = 0.f;
   for (int k = tid; k < bound; k += THREADS) {
     const float p = expf(s[k] - mx);
-    s[k] = p;
+    if constexpr (QUANT)
+      s[k] = p * vscale[(long long)min(max(trow[k / bs], 0), nb - 1) * H + h];
+    else
+      s[k] = p;
     sum += p;
   }
   sum = block_reduce(sum, red, false);   // also orders the s[] writes
@@ -228,6 +242,28 @@ __global__ void __launch_bounds__(THREADS) ragged_attend_kernel(
     for (int x = 0; x < G; ++x) a += part[x][d];
     op[d] = from_f<T>(a * inv);
   }
+}
+
+// The attend launch, on the stream after the write launch.
+template <typename T, typename P, int D>
+cudaError_t attend(const void* q, const void* kpool, const void* vpool,
+                   const float* kscale, const float* vscale, const int* table,
+                   const int* pos0, const int* lens, void* out, int B, int C,
+                   int H, int nb, int bs, int maxb, long long qsb,
+                   long long qsc, float scale, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (size_t)maxb * bs;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        ragged_attend_kernel<T, P, D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  dim3 grid(C, H, B);
+  ragged_attend_kernel<T, P, D><<<grid, THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const P*>(kpool),
+      static_cast<const P*>(vpool), kscale, vscale, table, pos0, lens,
+      static_cast<T*>(out), C, H, nb, bs, maxb, qsb, qsc, scale);
+  return cudaGetLastError();
 }
 
 // -- int8 pools ---------------------------------------------------------
@@ -361,87 +397,6 @@ __global__ void __launch_bounds__(THREADS) ragged_write_int8_kernel(
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS) ragged_attend_int8_kernel(
-    const T* __restrict__ q, const int8_t* __restrict__ kpool,
-    const int8_t* __restrict__ vpool, const float* __restrict__ kscale,
-    const float* __restrict__ vscale, const int* __restrict__ table,
-    const int* __restrict__ pos0, const int* __restrict__ lens,
-    T* __restrict__ out, int C, int H, int nb, int bs, int maxb,
-    long long qsb, long long qsc, float scale) {
-  constexpr int TPK = D / VEC;          // threads per value row
-  constexpr int G = THREADS / TPK;      // key groups in pass 2
-  extern __shared__ float s[];          // one score per key
-  __shared__ float qs[D];
-  __shared__ float red[WARPS];
-  __shared__ float part[G][D];
-  const int jq = blockIdx.x, h = blockIdx.y, r = blockIdx.z;
-  const int tid = threadIdx.x;
-  const long long HD = (long long)H * D;
-  T* op = out + (((long long)r * C + jq) * H + h) * D;
-  const int kv_len = min(max(lens[r], 0), maxb * bs);
-  const int bound = max(0, min(pos0[r] + jq + 1, kv_len));   // keys [0, bound)
-  if (bound == 0) {
-    for (int d = tid; d < D; d += THREADS) op[d] = from_f<T>(0.f);
-    return;
-  }
-  const T* qp = q + r * qsb + jq * qsc + h * D;
-  for (int d = tid; d < D; d += THREADS) qs[d] = to_f(qp[d]);
-  __syncthreads();
-  const int* trow = table + (long long)r * maxb;
-
-  // pass 1: logits (q . codes) * scale * k_scale and their max
-  float mx = -1e30f;
-  for (int k = tid; k < bound; k += THREADS) {
-    const int blk = min(max(trow[k / bs], 0), nb - 1);
-    const int8_t* kr = kpool + ((long long)blk * bs + k % bs) * HD + h * D;
-    float dot = 0.f;
-#pragma unroll
-    for (int d = 0; d < D; d += VEC) {
-      float x[VEC];
-      load4(kr + d, x);
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) dot = fmaf(x[i], qs[d + i], dot);
-    }
-    dot = dot * scale * kscale[(long long)blk * H + h];
-    s[k] = dot;
-    mx = fmaxf(mx, dot);
-  }
-  mx = block_reduce(mx, red, true);
-  // probabilities; each stored times its block's v_scale
-  float sum = 0.f;
-  for (int k = tid; k < bound; k += THREADS) {
-    const int blk = min(max(trow[k / bs], 0), nb - 1);
-    const float p = expf(s[k] - mx);
-    s[k] = p * vscale[(long long)blk * H + h];
-    sum += p;
-  }
-  sum = block_reduce(sum, red, false);   // also orders the s[] writes
-
-  // pass 2: scaled probabilities times value codes
-  const int g = tid / TPK, d0 = (tid % TPK) * VEC;
-  float acc[VEC] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 4
-  for (int k = g; k < bound; k += G) {
-    const int blk = min(max(trow[k / bs], 0), nb - 1);
-    float x[VEC];
-    load4(vpool + ((long long)blk * bs + k % bs) * HD + h * D + d0, x);
-    const float p = s[k];
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) acc[i] = fmaf(p, x[i], acc[i]);
-  }
-#pragma unroll
-  for (int i = 0; i < VEC; ++i) part[g][d0 + i] = acc[i];
-  __syncthreads();
-  const float inv = 1.f / fmaxf(sum, 1e-30f);
-  for (int d = tid; d < D; d += THREADS) {
-    float a = 0.f;
-#pragma unroll
-    for (int x = 0; x < G; ++x) a += part[x][d];
-    op[d] = from_f<T>(a * inv);
-  }
-}
-
-template <typename T, int D>
 cudaError_t launch_int8(const void* q, const void* knew, const void* vnew,
                         void* kpool, void* vpool, void* kscale, void* vscale,
                         const int* table, const int* pos0, const int* lens,
@@ -457,22 +412,13 @@ cudaError_t launch_int8(const void* q, const void* knew, const void* vnew,
       static_cast<int8_t*>(kpool), static_cast<int8_t*>(vpool),
       static_cast<float*>(kscale), static_cast<float*>(vscale), pos0, slots,
       C, H, D, bs, (long long)nb * bs, ksb, ksc, vsb, vsc, inv_qmax);
-  cudaError_t err = cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const size_t smem = sizeof(float) * (size_t)maxb * bs;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(ragged_attend_int8_kernel<T, D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  dim3 grid(C, H, B);
-  ragged_attend_int8_kernel<T, D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const int8_t*>(kpool),
-      static_cast<const int8_t*>(vpool), static_cast<const float*>(kscale),
-      static_cast<const float*>(vscale), table, pos0, lens,
-      static_cast<T*>(out), C, H, nb, bs, maxb, qsb, qsc, scale);
-  return cudaGetLastError();
+  return attend<T, int8_t, D>(q, kpool, vpool,
+                              static_cast<const float*>(kscale),
+                              static_cast<const float*>(vscale), table, pos0,
+                              lens, out, B, C, H, nb, bs, maxb, qsb, qsc,
+                              scale, stream);
 }
 
 template <typename T, int D>
@@ -487,19 +433,9 @@ cudaError_t launch(const void* q, const void* knew, const void* vnew,
       static_cast<const T*>(knew), static_cast<const T*>(vnew),
       static_cast<T*>(kpool), static_cast<T*>(vpool), slots, C, H * D,
       (long long)nb * bs, ksb, ksc, vsb, vsc);
-  const size_t smem = sizeof(float) * (size_t)maxb * bs;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        ragged_attend_kernel<T, D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  dim3 grid(C, H, B);
-  ragged_attend_kernel<T, D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kpool),
-      static_cast<const T*>(vpool), table, pos0, lens, static_cast<T*>(out),
-      C, H, nb, bs, maxb, qsb, qsc, scale);
-  return cudaGetLastError();
+  return attend<T, T, D>(q, kpool, vpool, nullptr, nullptr, table, pos0,
+                         lens, out, B, C, H, nb, bs, maxb, qsb, qsc, scale,
+                         stream);
 }
 
 }  // namespace

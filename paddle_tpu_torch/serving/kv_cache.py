@@ -66,15 +66,16 @@ class BlockKVCache:
                          for _ in range(num_layers)]
         self.v_blocks = [torch.zeros(shape, dtype=pool_dt, device=self.device)
                          for _ in range(num_layers)]
-        self.k_scales = self.v_scales = None
+        self.k_scales = self.v_scales = self._scales = None
         if kv_quant:
-            sshape = (self.num_blocks, self.num_heads)
-            self.k_scales = [torch.zeros(sshape, dtype=torch.float32,
-                                         device=self.device)
-                             for _ in range(num_layers)]
-            self.v_scales = [torch.zeros(sshape, dtype=torch.float32,
-                                         device=self.device)
-                             for _ in range(num_layers)]
+            # one [K|V, L, num_blocks, H] tensor, so that a reset or a swap
+            # of a few blocks is one op over all layers; k_scales[l] and
+            # v_scales[l] are contiguous views of it
+            self._scales = torch.zeros(
+                (2, self.num_layers, self.num_blocks, self.num_heads),
+                dtype=torch.float32, device=self.device)
+            self.k_scales = list(self._scales[0].unbind(0))
+            self.v_scales = list(self._scales[1].unbind(0))
         self._blocks = [_Block(i) for i in range(self.num_blocks)]
         self._free = list(range(self.num_blocks - 1, -1, -1))  # LIFO
         self._tables: dict = {}        # seq_id -> [physical ids]
@@ -225,9 +226,7 @@ class BlockKVCache:
         if not self.kv_quant or not ids:
             return
         idx = torch.tensor(ids, dtype=torch.long, device=self.device)
-        for l in range(self.num_layers):
-            self.k_scales[l][idx] = 0.0
-            self.v_scales[l][idx] = 0.0
+        self._scales[:, :, idx] = 0.0
 
     def free(self, seq_id):
         for idx in self._tables.pop(seq_id):
@@ -257,9 +256,9 @@ class BlockKVCache:
             "v": [v[idx].cpu() for v in self.v_blocks],
         }
         if self.kv_quant:
-            # the codes mean nothing without their scales
-            saved["ks"] = [s[idx].cpu() for s in self.k_scales]
-            saved["vs"] = [s[idx].cpu() for s in self.v_scales]
+            # the codes mean nothing without their scales; [L, n, H] each
+            saved["ks"] = self._scales[0][:, idx].cpu()
+            saved["vs"] = self._scales[1][:, idx].cpu()
         self.free(seq_id)
         return saved
 
@@ -275,6 +274,6 @@ class BlockKVCache:
         for l in range(self.num_layers):
             self.k_blocks[l][idx] = saved["k"][l].to(self.device)
             self.v_blocks[l][idx] = saved["v"][l].to(self.device)
-            if self.kv_quant:
-                self.k_scales[l][idx] = saved["ks"][l].to(self.device)
-                self.v_scales[l][idx] = saved["vs"][l].to(self.device)
+        if self.kv_quant:
+            self._scales[0][:, idx] = saved["ks"].to(self.device)
+            self._scales[1][:, idx] = saved["vs"].to(self.device)
