@@ -54,6 +54,18 @@ Phases, in order; any failure exits non-zero and prints no result line:
      0-300), an additive [B, H, S, S], an additive [1, 1, S, S], and
      kv_lens S .. S-259; yardstick SDPA with the same mask plus causal.
      Every row is compared, left-pad rows (all keys masked) included.
+   - the variants of the three flash kernels, each against its plain
+     version with the limits above, every row: segment ids on the packed
+     training batch's own ids (phase 6b's, B=8 S=1024 H=12 D=64; its
+     allowed-pair fraction printed), forward, dQ and dK/dV; the
+     non-causal forward at B=1 S=384 and B=8 S=1024; the backward with
+     the pad mask (pad rows whose every key is masked too: the masked
+     statistic is the (row max, log l) pair), with kv_lens and
+     non-causal at the padded shape B=8 S=896.  Yardstick SDPA with the
+     call's mask (bool, or additive with a mask; SDPA has no segment
+     argument) and `torch.autograd.grad` through it.  Each bound counts
+     only the pairs the call allows (causal, same segment, kv_len) and
+     the mask entries those pairs touch.
    - the int8 ragged kernel at the engine's decode step and at a C=512
      chunk from position 188 (33 blocks written), on int8 pools whose
      scales the writes grow: codes and scales bitwise equal to the plain
@@ -107,7 +119,21 @@ Phases, in order; any failure exits non-zero and prints no result line:
    launches of each flash kernel per step; prints tokens/s and ms per
    step, then profiles one step with torch.profiler (device ms, busy
    share, top kernels).
-   Phases 3-6 run the stacked-blocks layout (``stacked_blocks=True``).
+6b. Packed training (stacked): documents of 16-1024 tokens
+   (``default_rng(0)``, tokens uniform in [3, vocab)) packed into
+   1024-token rows by a copy of the example's ``pack_documents``, the
+   example's loss mask, ``pretrain_loss(ids, labels, mask, segment_ids,
+   position_ids)``: 3 fp32 steps at B=1 on the card against the CPU (the
+   limits of phase 5; 12 launches of each segment-variant flash kernel
+   per step, none on the CPU), then 12 bf16 steps at B=8 as phase 6,
+   with tokens/s over all positions and over loss-mask positions, beside
+   the unpacked step.
+6c. Entry-point autograd, fp32: gradients of q, k and v through
+   `flash_attention_arrays` for a non-causal, a pad-masked and a
+   kv_lens call at B=8 S=896 H=12 D=64 on the card against the CPU,
+   within 1e-4 max|ref|; the card launches the non-causal forward, dQ
+   and dK/dV once each and the mask ones twice each.
+   Phases 3-6c run the stacked-blocks layout (``stacked_blocks=True``).
 7. Training of the per-layer layout (the JAX default) under
    PTPU_PALLAS_LN=1 PTPU_PALLAS_FFN=1: first one fp32 step of the stacked
    model under PTPU_PALLAS_LN=1, whose ``ln_f`` launches the LayerNorm
@@ -116,8 +142,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    kernel, 25 of the LayerNorm forward and backward and 12 of the FFN per
    step and none on the CPU; then bf16 as phase 6 with the flags and
    without them.
-8. Summary: one JSON line of the eleven kernels (the mask and int8
-   variants counted apart), the card line, then the result line.
+8. Summary: one JSON line of the nineteen entries (the nine kernels, the
+   int8 variant, and the mask, segment and non-causal variants of the
+   flash kernels, counted apart), the card line, then the result line.
 
 Every time is a median of CUDA-event timings (L2 flushed before each
 launch, the host's enqueue hidden behind a spin on the stream); every
@@ -147,14 +174,29 @@ DECODE, FUSED, LN, LN_BWD, FFN = ("flash_decode", "fused_decode_layer",
                                   "fused_layernorm", "fused_layernorm_bwd",
                                   "fused_ffn")
 FWD_MASK, RAGGED8 = "flash_fwd_causal:mask", "ragged_paged_attention:int8"
-KERNELS = (FWD, FWD_MASK, RAGGED, RAGGED8, DQ, DKV, DECODE, FUSED, LN,
-           LN_BWD, FFN)
+# the variants of the flash kernels (segment ids, non-causal, and the
+# backward's mask / kv_lens), each counted apart
+FWD_SEGS, FWD_NC = FWD + ":segs", FWD + ":noncausal"
+DQ_MASK, DQ_SEGS, DQ_NC = (DQ + ":mask", DQ + ":segs", DQ + ":noncausal")
+DKV_MASK, DKV_SEGS, DKV_NC = (DKV + ":mask", DKV + ":segs",
+                              DKV + ":noncausal")
+KERNELS = (FWD, FWD_MASK, FWD_SEGS, FWD_NC, RAGGED, RAGGED8, DQ, DQ_MASK,
+           DQ_SEGS, DQ_NC, DKV, DKV_MASK, DKV_SEGS, DKV_NC, DECODE, FUSED,
+           LN, LN_BWD, FFN)
 REPLACES = {
     FWD: "paddle_tpu/ops/pallas_ops.py:135",
     FWD_MASK: "paddle_tpu/ops/pallas_ops.py:135",
+    FWD_SEGS: "paddle_tpu/ops/pallas_ops.py:135",
+    FWD_NC: "paddle_tpu/ops/pallas_ops.py:135",
     RAGGED8: "paddle_tpu/ops/ragged_paged_attention.py:125",
     DQ: "paddle_tpu/ops/pallas_ops.py:210",
+    DQ_MASK: "paddle_tpu/ops/pallas_ops.py:210",
+    DQ_SEGS: "paddle_tpu/ops/pallas_ops.py:210",
+    DQ_NC: "paddle_tpu/ops/pallas_ops.py:210",
     DKV: "paddle_tpu/ops/pallas_ops.py:272",
+    DKV_MASK: "paddle_tpu/ops/pallas_ops.py:272",
+    DKV_SEGS: "paddle_tpu/ops/pallas_ops.py:272",
+    DKV_NC: "paddle_tpu/ops/pallas_ops.py:272",
     RAGGED: "paddle_tpu/ops/ragged_paged_attention.py:125",
     DECODE: "paddle_tpu/ops/pallas_ops.py:1008",
     FUSED: "paddle_tpu/ops/pallas_ops.py:1186",
@@ -249,14 +291,14 @@ def check_flash(fa, tol, timer, s, h, d, dtype, seed, b=1):
     g = torch.Generator().manual_seed(seed)
     q, k, v = (torch.randn(b, s, h, d, generator=g).to("cuda", dtype)
                for _ in range(3))
-    out = fa.flash_attention_arrays(q, k, v)
+    out = fa.flash_attention_arrays(q, k, v, is_causal=True)
     want = fa.mha_reference(q, k, v, is_causal=True)
     limit = TOL_FP32 if dtype == torch.float32 else tol.bf16_limit(
         out, want, tol.flash_fwd_magnitude(q, k, v), tol.FWD_COEF)
     torch.cuda.synchronize()
     err, ratio = check_close(tol, out, want, limit,
                              f"flash S={s} H={h} D={d} {dtype}")
-    ms = timer(lambda: fa.flash_attention_arrays(q, k, v))
+    ms = timer(lambda: fa.flash_attention_arrays(q, k, v, is_causal=True))
     plain_ms = timer(lambda: fa.mha_reference(q, k, v, is_causal=True))
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     lib_ms = timer(lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -281,7 +323,8 @@ def check_flash_bwd(fa, tol, timer, b, s, h, d, dtype, seed):
         "cuda", dtype).unbind(2)
     do = torch.randn(b, s, h, d, generator=g).to("cuda", dtype)
     scale = d ** -0.5
-    out, lse = fa.flash_attention_arrays(q, k, v, return_lse=True)
+    out, lse = fa.flash_attention_arrays(q, k, v, is_causal=True,
+                                         return_lse=True)
     delta = fa.attention_delta(out, do)
     dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, scale)
     dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, scale)
@@ -527,7 +570,7 @@ def check_flash_masked(fa, tol, timer, kind, dtype, seed, b=8, s=896, h=12,
     row (left-pad rows included); yardstick SDPA with the same additive
     mask plus causal (and kv_lens as a mask)."""
     q, k, v, mask, lens = masked_inputs(kind, b, s, h, d, dtype, seed)
-    out = fa.flash_attention_arrays(q, k, v, mask, kv_lens=lens)
+    out = fa.flash_attention_arrays(q, k, v, mask, True, kv_lens=lens)
     want = fa.mha_reference(q, k, v, is_causal=True, mask=mask, kv_lens=lens)
     limit = TOL_FP32
     if dtype != torch.float32:
@@ -539,7 +582,7 @@ def check_flash_masked(fa, tol, timer, kind, dtype, seed, b=8, s=896, h=12,
     err, ratio = check_close(tol, out, want, limit,
                              f"masked flash {kind} B={b} S={s} {dtype}")
     del want, limit
-    ms = timer(lambda: fa.flash_attention_arrays(q, k, v, mask,
+    ms = timer(lambda: fa.flash_attention_arrays(q, k, v, mask, True,
                                                  kv_lens=lens))
     plain_ms = timer(lambda: fa.mha_reference(q, k, v, is_causal=True,
                                               mask=mask, kv_lens=lens),
@@ -571,6 +614,219 @@ def check_flash_masked(fa, tol, timer, kind, dtype, seed, b=8, s=896, h=12,
                 max_abs_err=err, err_over_limit=ratio, ms=ms,
                 plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                 library_ms=lib_ms, tol=_tol_text(dtype, TOL_FP32))
+
+
+# ---------------------------------------------------------------------------
+# packed documents (a copy of examples/packed_pretraining.py's packer, so
+# that this script imports nothing of the JAX package)
+# ---------------------------------------------------------------------------
+
+def pack_documents(docs, row_len):
+    """Greedy-pack variable-length docs into fixed rows; returns
+    (ids, segment_ids, position_ids) — the packed pretraining triple.
+    Documents longer than row_len must be split by the caller first."""
+    rows, segs, poss = [], [], []
+    row, seg, pos, seg_id = [], [], [], 0
+    for doc in docs:
+        if len(doc) > row_len:
+            raise ValueError(
+                f"document of length {len(doc)} exceeds row_len {row_len}; "
+                "chunk long documents before packing")
+        if len(row) + len(doc) > row_len:
+            pad = row_len - len(row)
+            row += [0] * pad
+            seg += [seg_id + 1] * pad          # padding = its own segment
+            pos += list(range(pad))
+            rows.append(row), segs.append(seg), poss.append(pos)
+            row, seg, pos, seg_id = [], [], [], 0
+        row += list(doc)
+        seg += [seg_id] * len(doc)
+        pos += list(range(len(doc)))
+        seg_id += 1
+    if row:
+        pad = row_len - len(row)
+        rows.append(row + [0] * pad)
+        segs.append(seg + [seg_id + 1] * pad)
+        poss.append(pos + list(range(pad)))
+    return (np.asarray(rows, np.int32), np.asarray(segs, np.int32),
+            np.asarray(poss, np.int32))
+
+
+def packed_batch(vocab, batch, seq):
+    """The first `batch` full rows of packed documents: lengths from
+    ``numpy.random.default_rng(0).integers(16, 1025)``, tokens uniform in
+    [3, vocab).  Returns (ids, labels, loss_mask, segment_ids,
+    position_ids) as CPU tensors: labels the next token, the loss mask the
+    example's ``(segs == roll(segs, -1)) & (ids != 0)``."""
+    rng = np.random.default_rng(0)
+    docs = []
+    while True:
+        n = int(rng.integers(16, 1025))
+        docs.append(rng.integers(3, vocab, n))
+        if sum(len(d) for d in docs) < batch * seq:
+            continue
+        ids, segs, pos = pack_documents(docs, seq)
+        if len(ids) > batch:                 # the last row may be filling
+            break
+    ids, segs, pos = ids[:batch], segs[:batch], pos[:batch]
+    labels = np.roll(ids, -1, axis=1)
+    mask = ((segs == np.roll(segs, -1, axis=1)) & (ids != 0)).astype(
+        np.float32)
+    return tuple(torch.from_numpy(a) for a in (ids, labels, mask, segs, pos))
+
+
+def allowed_pairs(segs, causal, klen, sq, sk):
+    """[B, Sq, Sk] bool on the card: the (query, key) pairs a call allows
+    (causal, kv_lens, same segment)."""
+    dev = "cuda"
+    qi = torch.arange(sq, device=dev)[:, None]
+    kj = torch.arange(sk, device=dev)[None, :]
+    ok = (kj <= qi + sk - sq) if causal else torch.ones(
+        sq, sk, dtype=torch.bool, device=dev)
+    ok = ok[None] & (kj[None] < torch.tensor(klen, device=dev)[:, None, None])
+    if segs is not None:
+        ok = ok & (segs[:, :, None] == segs[:, None, :])
+    return ok
+
+
+def variant_inputs(kind, b, s, h, d, dtype, seed, segs=None):
+    """q, k, v (slices of one fused [B, S, 3, H, D] tensor), dO and the
+    branches (causal, attn_mask, kv_lens, segment ids) of a variant case:
+    ``segs`` the given packed ids, causal; ``nc`` non-causal; ``pad`` the
+    stride-0 [B, 1, S, S] view of a left-pad key row (`PAD_COUNTS`; its
+    pad queries have every key masked), causal; ``lens`` kv_lens S .. S -
+    37 (B - 1), causal.  Everything but the packed ids is drawn from
+    ``seed``."""
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = torch.randn(b, s, 3, h, d, generator=g).to(
+        "cuda", dtype).unbind(2)
+    do = torch.randn(b, s, h, d, generator=g).to("cuda", dtype)
+    mask = lens = None
+    if kind == "pad":
+        pads = torch.tensor(PAD_COUNTS[:b])
+        row = torch.where(torch.arange(s)[None] < pads[:, None], -1e30, 0.0)
+        mask = row.cuda()[:, None, None, :].expand(b, 1, s, s)
+    if kind == "lens":
+        lens = torch.tensor([s - 37 * i for i in range(b)],
+                            dtype=torch.int32).cuda()
+    return (q, k, v, do, kind != "nc", mask, lens,
+            None if segs is None else segs.cuda().int())
+
+
+def _library_mask(allowed, mask, dtype):
+    """SDPA's mask for a variant call: bool where no additive mask is
+    given, else additive (-1e30 outside ``allowed``, plus the mask)."""
+    if mask is None:
+        return allowed[:, None]
+    return (torch.where(allowed[:, None], 0.0, -1e30) + mask).to(dtype)
+
+
+def check_flash_variant(fa, tol, timer, kind, b, s, h, d, dtype, seed,
+                        segs=None, fwd=True, bwd=True):
+    """The variant forward and both variant backward kernels against their
+    plain versions on one input, every row (pad rows, whose every key the
+    mask closes, too): {kernel name: case} for the timed ones
+    (``fwd``, ``bwd``).  The yardstick is SDPA with the call's mask (a
+    bool [B, 1, S, S] of the allowed pairs, or additive with a mask; SDPA
+    has no segment argument), and for the backward `torch.autograd.grad`
+    through it.  Each bound counts only the pairs the call allows, and of
+    a mask only the entries those pairs touch."""
+    q, k, v, do, causal, mask, lens, sid = variant_inputs(
+        kind, b, s, h, d, dtype, seed, segs)
+    scale = d ** -0.5
+    m4 = None if mask is None else fa.normalize_mask(mask, b, h, s, s)
+    name = fa.variant_name(causal, m4, lens, sid)
+    br = dict(causal=causal, mask=m4, lens=lens, segs=sid)
+    out, lse, pair = fa._launch_variant(q, k, v, scale, causal, m4, lens,
+                                        sid, stats=True)
+    want = fa.mha_reference(q, k, v, m4, causal, scale, lens, sid)
+    limit = TOL_FP32
+    if dtype != torch.float32:
+        limit = tol.bf16_limit(out, want, tol.flash_fwd_magnitude(
+            q, k, v, causal, m4, lens, sid), tol.FWD_COEF)
+    torch.cuda.synchronize()
+    what = f"flash {name} {kind} B={b} S={s} H={h} D={d} {dtype}"
+    fwd_check = check_close(tol, out, want, limit, what)
+    del want, limit
+    klen = [s] * b if lens is None else lens.tolist()
+    allowed = allowed_pairs(sid, causal, klen, s, s)
+    pairs = h * int(allowed.sum())
+    keys = torch.arange(s, device="cuda")
+    needed = (0 if mask is None else mask_entries_needed(
+        mask, keys[None, :] <= keys[:, None] if causal
+        else torch.ones(s, s, dtype=torch.bool, device="cuda"), klen))
+    extra = 4 * needed + (0 if lens is None else 4 * b) \
+        + (0 if sid is None else 4 * b * s)       # mask, lens, ids read once
+    item = q.element_size()
+    slab = b * s * h * d * item
+    lib_mask = _library_mask(allowed, mask, dtype)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    shape = (f"B={b} S={s} H={h} D={d} {kind}"
+             + (f" allowed {pairs / (h * b * s * s):.4f} of all pairs"
+                if sid is not None else ""))
+    cases = {}
+    if fwd:
+        ms = timer(lambda: fa.flash_attention_arrays(
+            q, k, v, mask, causal, kv_lens=lens, segment_ids=sid))
+        plain_ms = timer(lambda: fa.mha_reference(q, k, v, m4, causal, scale,
+                                                  lens, sid), reps=10)
+        lib_ms = timer(lambda: sdpa(qt, kt, vt, attn_mask=lib_mask))
+        bms, by = bound_ms(4 * slab + 4 * b * h * s + extra, 4 * d * pairs,
+                           dtype)
+        cases[f"{fa.KERNEL}:{name}"] = dict(
+            shape=shape, dtype=str(dtype), max_abs_err=fwd_check[0],
+            err_over_limit=fwd_check[1], ms=ms, plain_ms=plain_ms,
+            bound_ms=bms, bound_by=by, library_ms=lib_ms,
+            tol=_tol_text(dtype, TOL_FP32))
+    if not bwd:
+        return cases
+    row_max, stat = (None, lse) if pair is None else pair
+    delta = fa.attention_delta(out, do)
+    dq = fa.flash_bwd_dq(q, k, v, do, stat, delta, scale, row_max=row_max,
+                         **br)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, stat, delta, scale,
+                              row_max=row_max, **br)
+    ref = fa.flash_attention_bwd_reference(
+        q, k, v, out, stat, do, scale, is_causal=causal, mask=m4,
+        kv_lens=lens, segment_ids=sid, row_max=row_max)
+    mags = (tol.flash_bwd_magnitudes(q, k, v, out, stat, do, scale,
+                                     row_max=row_max, **br)
+            if dtype != torch.float32 else (None,) * 3)
+    torch.cuda.synchronize()
+    checks = {}
+    for which, got, r, mag in zip(("dq", "dk", "dv"), (dq, dk, dv), ref,
+                                  mags):
+        limit = (BWD_REL_FP32 * r.abs().max().item() if mag is None
+                 else tol.bf16_limit(got, r, mag, tol.BWD_COEF))
+        checks[which] = check_close(tol, got, r, limit,
+                                    f"backward {which} {what}")
+    del ref, mags
+    ms_dq = timer(lambda: fa.flash_bwd_dq(q, k, v, do, stat, delta, scale,
+                                          row_max=row_max, **br))
+    ms_dkv = timer(lambda: fa.flash_bwd_dkv(q, k, v, do, stat, delta, scale,
+                                            row_max=row_max, **br))
+    plain_ms = timer(lambda: fa.flash_attention_bwd_reference(
+        q, k, v, out, stat, do, scale, is_causal=causal, mask=m4,
+        kv_lens=lens, segment_ids=sid, row_max=row_max), reps=10)
+    ot = sdpa(qt, kt, vt, attn_mask=lib_mask)
+    dot = do.transpose(1, 2)
+    lib_ms = timer(lambda: torch.autograd.grad(ot, (qt, kt, vt), dot,
+                                               retain_graph=True))
+    stats = (3 if pair is not None else 2) * b * h * s * 4
+    for kernel, ms, n_out, fl, errs in (
+            (fa.flash_bwd_dq, ms_dq, 1, 6, ("dq",)),
+            (fa.flash_bwd_dkv, ms_dkv, 2, 8, ("dk", "dv"))):
+        bms, by = bound_ms((4 + n_out) * slab + stats + extra,
+                           fl * d * pairs, dtype)
+        cases[f"{kernel.KERNEL}:{name}"] = dict(
+            shape=shape, dtype=str(dtype),
+            max_abs_err=max(checks[e][0] for e in errs),
+            err_over_limit=max(checks[e][1] for e in errs), ms=ms,
+            plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+            library_ms=lib_ms)
+    return cases
 
 
 def check_decode(fd, tol, timer, b, s_max, h, d, length, dtype, seed):
@@ -1133,17 +1389,16 @@ def generate_bf16(ops, cfg, batch=8, prompt=896, new=128):
 
 def make_step(model, lr=TRAIN_LR):
     """The JAX package's pretraining step on `model` with a fresh AdamW:
-    crit(model(ids), labels) -> backward -> step -> clear_grad.  Returns
-    the step function, which returns the loss (a tensor, not synced) and
-    fills `grads` (when given) with the gradients on the host in fp32, and
-    the optimizer."""
-    from paddle_tpu_torch.models import GPTPretrainingCriterion
+    ``model.pretrain_loss(*batch)`` -> backward -> step -> clear_grad, the
+    batch ``(ids, labels)`` or the packed ``(ids, labels, loss_mask,
+    segment_ids, position_ids)``.  Returns the step function, which
+    returns the loss (a tensor, not synced) and fills `grads` (when given)
+    with the gradients on the host in fp32, and the optimizer."""
     from paddle_tpu_torch.optimizer import AdamW
-    crit = GPTPretrainingCriterion(model.cfg)
     opt = AdamW(learning_rate=lr, parameters=model.parameters())
 
-    def step(ids, labels, grads=None):
-        loss = crit(model(ids), labels)
+    def step(batch, grads=None):
+        loss = model.pretrain_loss(*batch)
         loss.backward()
         if grads is not None:
             grads.update({n: p.grad.detach().float().cpu()
@@ -1155,15 +1410,16 @@ def make_step(model, lr=TRAIN_LR):
     return step, opt
 
 
-def train_launches(cfg, steps, env):
+def train_launches(cfg, steps, env, packed=False):
     """Expected launches of `steps` training steps under the flags `env`:
-    each flash kernel once per layer; under PTPU_PALLAS_LN the LayerNorm
+    each flash kernel once per layer (its segment variant on packed
+    rows); under PTPU_PALLAS_LN the LayerNorm
     forward and backward once per LayerNorm layer (2L+1 per-layer, ``ln_f``
     alone stacked); under PTPU_PALLAS_FFN the FFN once per per-layer
     block (the stacked blocks keep their own MLP); nothing else."""
     layers = cfg.num_hidden_layers
     want = dict.fromkeys(KERNELS, 0)
-    for name in (FWD, DQ, DKV):
+    for name in (FWD_SEGS, DQ_SEGS, DKV_SEGS) if packed else (FWD, DQ, DKV):
         want[name] = layers * steps
     if env.get("PTPU_PALLAS_LN") == "1":
         per_step = 1 if cfg.stacked_blocks else 2 * layers + 1
@@ -1178,13 +1434,18 @@ def check_train_launches(launches, want, what):
         fail(f"{what}: launches {launches}, expected {want}")
 
 
-def train_fp32_card_vs_cpu(ops, cfg, env, steps=3, seq=1024):
+def train_fp32_card_vs_cpu(ops, cfg, env, steps=3, seq=1024, packed=False):
     """`steps` fp32 AdamW steps on the card and on the CPU under the flags
-    `env`: losses, step-1 gradients and launches checked."""
+    `env`, on one random row or (``packed``) one row of packed documents:
+    losses, step-1 gradients and launches checked."""
     from paddle_tpu_torch.models import GPTForCausalLM
-    rng = np.random.RandomState(1)
-    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (1, seq)))
-    labels = torch.from_numpy(rng.randint(0, cfg.vocab_size, (1, seq)))
+    if packed:
+        batch = packed_batch(cfg.vocab_size, 1, seq)
+    else:
+        rng = np.random.RandomState(1)
+        batch = tuple(torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                                   (1, seq)))
+                      for _ in range(2))
     runs = {}
     for device in ("cuda", "cpu"):
         model = GPTForCausalLM(cfg, device=device,
@@ -1194,7 +1455,7 @@ def train_fp32_card_vs_cpu(ops, cfg, env, steps=3, seq=1024):
         with flag_env(env):
             ops.reset_launch_counts()
             t0 = time.perf_counter()
-            losses = [step(ids.to(device), labels.to(device),
+            losses = [step([t.to(device) for t in batch],
                            grads if i == 0 else None).item()
                       for i in range(steps)]
             runs[device] = dict(losses=losses, grads=grads,
@@ -1202,7 +1463,8 @@ def train_fp32_card_vs_cpu(ops, cfg, env, steps=3, seq=1024):
                                 seconds=time.perf_counter() - t0)
         del model
     gpu, cpu = runs["cuda"], runs["cpu"]
-    check_train_launches(gpu["launches"], train_launches(cfg, steps, env),
+    check_train_launches(gpu["launches"],
+                         train_launches(cfg, steps, env, packed),
                          "float32 training")
     if set(cpu["launches"].values()) != {0}:
         fail(f"float32 training on the CPU launched kernels: "
@@ -1221,39 +1483,45 @@ def train_fp32_card_vs_cpu(ops, cfg, env, steps=3, seq=1024):
         if not err <= limit:
             fail(f"float32 training: step-1 gradient of {name} differs by "
                  f"{err} (limit {limit})")
-    return {"steps": steps, "batch": f"B=1 S={seq}",
+    return {"steps": steps,
+            "batch": f"B=1 S={seq}" + (" packed" if packed else ""),
             "card_losses": gpu["losses"], "cpu_losses": cpu["losses"],
             "loss_rel_diff": rel, "grad_err_over_limit": grad_ratio,
             "launches": gpu["launches"], "card_s": gpu["seconds"],
             "cpu_s": cpu["seconds"]}
 
 
-def train_bf16(ops, cfg, env, batch=8, seq=1024, warmup=2, timed=10):
-    """The full-size bf16 run under the flags `env`; returns its record and
-    the launches of all its steps."""
+def train_bf16(ops, cfg, env, batch=8, seq=1024, warmup=2, timed=10,
+               packed=False):
+    """The full-size bf16 run under the flags `env`, on random rows or
+    (``packed``) rows of packed documents; returns its record and the
+    launches of all its steps."""
     from paddle_tpu_torch.models import GPTForCausalLM
-    rng = np.random.RandomState(2)
-    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size,
-                                       (batch, seq))).cuda()
-    labels = torch.from_numpy(rng.randint(0, cfg.vocab_size,
-                                          (batch, seq))).cuda()
+    if packed:
+        data = [t.cuda() for t in packed_batch(cfg.vocab_size, batch, seq)]
+    else:
+        rng = np.random.RandomState(2)
+        data = [torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                             (batch, seq))).cuda()
+                for _ in range(2)]
     model = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
                            generator=torch.Generator().manual_seed(0))
     step, opt = make_step(model)           # multi_precision: fp32 masters
     with flag_env(env):
         ops.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
-        losses = [step(ids, labels) for _ in range(warmup)]
+        losses = [step(data) for _ in range(warmup)]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        losses += [step(ids, labels) for _ in range(timed)]
+        losses += [step(data) for _ in range(timed)]
         torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t0) * 1e3 / timed
         launches = ops.launch_counts()
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        profile_rec = profile_step(step, ids, labels)
+        profile_rec = profile_step(step, data)
     losses = [x.item() for x in losses]
-    check_train_launches(launches, train_launches(cfg, warmup + timed, env),
+    check_train_launches(launches,
+                         train_launches(cfg, warmup + timed, env, packed),
                          "bfloat16 training")
     if not all(np.isfinite(losses)):
         fail(f"bfloat16 training: non-finite loss {losses}")
@@ -1263,26 +1531,33 @@ def train_bf16(ops, cfg, env, batch=8, seq=1024, warmup=2, timed=10):
             len(opt._master_weights) != len(list(model.parameters())):
         fail("bfloat16 training: params are not bf16 with fp32 masters")
     tokens = batch * seq
-    return {"batch": f"B={batch} S={seq}", "warmup": warmup,
-            "timed_steps": timed, "losses": losses, "ms_per_step": step_ms,
-            "tokens_per_s": tokens * 1e3 / step_ms,
-            "peak_memory_gb": peak_gb, "profile": profile_rec}, launches
+    rec = {"batch": f"B={batch} S={seq}" + (" packed" if packed else ""),
+           "warmup": warmup, "timed_steps": timed, "losses": losses,
+           "ms_per_step": step_ms, "tokens_per_s": tokens * 1e3 / step_ms,
+           "peak_memory_gb": peak_gb, "profile": profile_rec}
+    if packed:
+        trained = float(data[2].sum())
+        rec.update(loss_tokens=trained,
+                   loss_tokens_per_s=trained * 1e3 / step_ms,
+                   segments=int(sum(len(torch.unique(r))
+                                    for r in data[3].cpu())))
+    return rec, launches
 
 
-def profile_step(step, ids, labels):
+def profile_step(step, batch):
     """One more step timed alone, then one under torch.profiler: wall ms
     both ways, device ms, busy share, device ops, top kernels and ms by
     group."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    step(ids, labels)
+    step(batch)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(ids, labels)
+        step(batch)
         torch.cuda.synchronize()
         prof_ms = (time.perf_counter() - t0) * 1e3
     device_ms, n_ops, top, groups = device_table(prof, 1)
@@ -1297,22 +1572,66 @@ def train_stacked_ln_step(ops, cfg, seq=1024):
     backward once each, the blocks keep `_stacked_ln`."""
     from paddle_tpu_torch.models import GPTForCausalLM
     rng = np.random.RandomState(5)
-    ids, labels = (torch.from_numpy(rng.randint(0, cfg.vocab_size,
-                                                (1, seq))).cuda()
-                   for _ in range(2))
+    batch = [torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                          (1, seq))).cuda()
+             for _ in range(2)]
     model = GPTForCausalLM(cfg, device="cuda",
                            generator=torch.Generator().manual_seed(0))
     step, _ = make_step(model)
     env = {"PTPU_PALLAS_LN": "1"}
     with flag_env(env):
         ops.reset_launch_counts()
-        loss = step(ids, labels).item()
+        loss = step(batch).item()
         launches = ops.launch_counts()
     check_train_launches(launches, train_launches(cfg, 1, env),
                          "stacked float32 training under PTPU_PALLAS_LN=1")
     if not np.isfinite(loss):
         fail(f"stacked training under PTPU_PALLAS_LN=1: loss {loss}")
     return {"loss": loss, "launches": launches, "batch": f"B=1 S={seq}"}
+
+
+def entry_autograd_card_vs_cpu(ops, b=8, s=896, h=12, d=64):
+    """fp32 gradients of q, k and v through `flash_attention_arrays` on the
+    card (the variant kernels) against the same calls on the CPU (the plain
+    forward and backward): non-causal, the pad mask (`variant_inputs`:
+    its pad queries have every key masked) and kv_lens, at the padded
+    prefill's shape, each gradient within 1e-4 max|ref| (`BWD_REL_FP32`).
+    Returns the record and the launches of the three card calls."""
+    kinds = ("nc", "pad", "lens")
+    inputs = {kind: variant_inputs(kind, b, s, h, d, torch.float32, 11)
+              for kind in kinds}
+
+    def grads(kind, dev):
+        q, k, v, do, causal, mask, lens, _ = inputs[kind]
+        qt, kt, vt = (t.detach().to(dev).requires_grad_() for t in (q, k, v))
+        out = ops.flash_attention_arrays(
+            qt, kt, vt, None if mask is None else mask.to(dev), causal,
+            kv_lens=None if lens is None else lens.to(dev))
+        out.backward(do.to(dev))
+        return [t.grad.cpu() for t in (qt, kt, vt)]
+
+    ops.reset_launch_counts()
+    card = {kind: grads(kind, "cuda") for kind in kinds}
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    want = dict.fromkeys(KERNELS, 0)
+    want.update({FWD_NC: 1, DQ_NC: 1, DKV_NC: 1, FWD_MASK: 2, DQ_MASK: 2,
+                 DKV_MASK: 2})
+    if launches != want:
+        fail(f"entry-point autograd: launches {launches}, expected {want}")
+    rec = {"batch": f"B={b} S={s} H={h} D={d}", "launches": launches}
+    for kind in kinds:
+        ratios = {}
+        for what, g, r in zip(("dq", "dk", "dv"), card[kind],
+                              grads(kind, "cpu")):
+            err = (g - r).abs().max().item()
+            limit = BWD_REL_FP32 * r.abs().max().item()
+            if not err <= limit:
+                fail(f"entry-point autograd {kind}: {what} differs from the "
+                     f"CPU run by {err} (limit {limit})")
+            ratios[what] = err / limit
+        rec[kind] = ratios
+    return rec, launches
 
 
 # ---------------------------------------------------------------------------
@@ -1372,10 +1691,13 @@ def main():
     from paddle_tpu_torch.ops import fused_mlp as fm
     from paddle_tpu_torch.ops import ragged_paged_attention as rpa
     from paddle_tpu_torch.ops import tolerance as tol
-    wrappers = {FWD: fa, FWD_MASK: fa.masked, DQ: fa.flash_bwd_dq,
+    wrappers = {FWD: fa, FWD_MASK: fa.masked, FWD_SEGS: fa.segs,
+                FWD_NC: fa.noncausal, DQ: fa.flash_bwd_dq,
                 DKV: fa.flash_bwd_dkv, RAGGED: rpa, RAGGED8: rpa.int8,
                 DECODE: fd, FUSED: fdl, LN: fm.ln_fwd, LN_BWD: fm.ln_bwd,
                 FFN: fm.ffn_fwd}
+    for bwd in (fa.flash_bwd_dq, fa.flash_bwd_dkv):
+        wrappers.update({v.KERNEL: v for v in bwd.variants.values()})
     assert set(wrappers) == set(ops.launch_counts())
 
     phase_s, t_mark = {}, [time.perf_counter()]
@@ -1407,6 +1729,18 @@ def main():
           flush=True)
     timer = Timer()
     cases = {name: [] for name in wrappers}
+    # the packed training batch's own ids (B=8 S=1024, GPT-2's vocab)
+    kernel_segs = packed_batch(50304, 8, 1024)[3]
+    same = kernel_segs[:, :, None] == kernel_segs[:, None, :]
+    allowed = int((same & torch.ones(1024, 1024, dtype=torch.bool).tril()
+                   ).sum())
+    result["packed_allowed_pairs"] = {
+        "allowed": allowed, "causal": 8 * 1024 * 1025 // 2,
+        "fraction_of_causal": allowed / (8 * 1024 * 1025 // 2)}
+    print(f"packed batch B=8 S=1024: {allowed} allowed (query, key) pairs, "
+          f"{result['packed_allowed_pairs']['fraction_of_causal']:.4f} of "
+          f"the causal ones", flush=True)
+    del same
     decode_rows = [(1024, 1), (700, 1), (513, 1), (384, 1), (200, 1),
                    (64, 1), (7, 1), None]
     for dtype in (torch.float32, torch.bfloat16):
@@ -1435,6 +1769,19 @@ def main():
         for kind in ("pad", "full", "shared", "lens"):
             cases[FWD_MASK].append(check_flash_masked(fa, tol, timer, kind,
                                                       dtype, seed=7))
+            torch.cuda.empty_cache()
+        variant_runs = [("segs", 8, 1024, True, True),   # packed training
+                        ("nc", 1, 384, True, False),
+                        ("nc", 8, 1024, True, False),
+                        ("pad", 8, 896, False, True),    # padded shape
+                        ("lens", 8, 896, False, True),
+                        ("nc", 8, 896, True, True)]
+        for kind, b, s, fwd, bwd in variant_runs:
+            for name, c in check_flash_variant(
+                    fa, tol, timer, kind, b, s, 12, 64, dtype, seed=s + b,
+                    segs=kernel_segs if kind == "segs" else None, fwd=fwd,
+                    bwd=bwd).items():
+                cases[name].append(c)
             torch.cuda.empty_cache()
         for length in (1, 257, 1024):
             cases[DECODE].append(check_decode(fd, tol, timer, 8, 1024, 12,
@@ -1685,6 +2032,42 @@ def main():
 
     mark("6 train bf16")
 
+    # -- 6b. packed training -----------------------------------------------
+    pk32 = train_fp32_card_vs_cpu(ops, cfg, {}, packed=True)
+    result["train_packed_fp32"] = pk32
+    print(f"train float32 GPT-2 124M {pk32['batch']}: card losses "
+          f"{pk32['card_losses']}, CPU {pk32['cpu_losses']} (relative "
+          f"{pk32['loss_rel_diff'][0]:.3g} at step 1, "
+          f"{pk32['loss_rel_diff'][-1]:.3g} at step {pk32['steps']}); "
+          f"step-1 gradients within "
+          f"{max(pk32['grad_err_over_limit'].values()):.3g} of 1e-3 "
+          f"max|g|; launches {pk32['launches']}; card "
+          f"{pk32['card_s']:.1f} s, CPU {pk32['cpu_s']:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    pk16, launches_packed = train_bf16(ops, cfg, {}, packed=True)
+    result["train_packed_bf16"] = pk16
+    print_train("stacked, packed", pk16, launches_packed, card)
+    print(f"train bfloat16 packed vs unpacked, B=8 S=1024: "
+          f"{pk16['ms_per_step']:.3f} vs {tr16['ms_per_step']:.3f} ms per "
+          f"step; packed {pk16['tokens_per_s']:.1f} tokens/s over all "
+          f"positions, {pk16['loss_tokens_per_s']:.1f} over the "
+          f"{pk16['loss_tokens']:.0f} loss-mask positions of "
+          f"{pk16['segments']} segments ({card})", flush=True)
+    torch.cuda.empty_cache()
+    mark("6b packed training")
+
+    # -- 6c. entry-point autograd, float32, card against CPU ---------------
+    entry, launches_entry = entry_autograd_card_vs_cpu(ops)
+    result["entry_autograd_fp32"] = entry
+    print(f"entry-point autograd float32 {entry['batch']}: gradients of "
+          f"q, k, v within " + ", ".join(
+              f"{kind} {max(entry[kind].values()):.3g}"
+              for kind in ("nc", "pad", "lens"))
+          + f" of 1e-4 max|ref| of the CPU run; launches "
+          f"{ {k: n for k, n in launches_entry.items() if n} }", flush=True)
+    torch.cuda.empty_cache()
+    mark("6c entry-point autograd")
+
     # -- 7. training, per-layer layout, under the LN and FFN flags ---------
     cfg_pl = gpt2_124m_config()            # stacked_blocks=False
     st = train_stacked_ln_step(ops, cfg)
@@ -1724,7 +2107,7 @@ def main():
 
     def pick(name, shape):
         return next(c for c in cases[name]
-                    if c["shape"] == shape and c["dtype"] == bf16)
+                    if c["shape"].startswith(shape) and c["dtype"] == bf16)
 
     main_case = {FWD: cases[FWD][2], RAGGED: cases[RAGGED][0],
                  RAGGED8: cases[RAGGED8][0],
@@ -1735,7 +2118,15 @@ def main():
                                     "mask=False"),
                  LN: pick(LN, "n=8 H=768"),
                  LN_BWD: pick(LN_BWD, "n=8192 H=768"),
-                 FFN: pick(FFN, "n=8 H=768 I=3072 gelu_tanh")}
+                 FFN: pick(FFN, "n=8 H=768 I=3072 gelu_tanh"),
+                 FWD_SEGS: pick(FWD_SEGS, "B=8 S=1024 H=12 D=64 segs"),
+                 FWD_NC: pick(FWD_NC, "B=8 S=1024 H=12 D=64 nc"),
+                 DQ_SEGS: pick(DQ_SEGS, "B=8 S=1024 H=12 D=64 segs"),
+                 DKV_SEGS: pick(DKV_SEGS, "B=8 S=1024 H=12 D=64 segs"),
+                 DQ_MASK: pick(DQ_MASK, "B=8 S=896 H=12 D=64 pad"),
+                 DKV_MASK: pick(DKV_MASK, "B=8 S=896 H=12 D=64 pad"),
+                 DQ_NC: pick(DQ_NC, "B=8 S=896 H=12 D=64 nc"),
+                 DKV_NC: pick(DKV_NC, "B=8 S=896 H=12 D=64 nc")}
     path_launches = {FWD: launches[FWD], RAGGED: launches[RAGGED],
                      RAGGED8: launches8[RAGGED8],
                      FWD_MASK: launches_gen["default_padded"][FWD_MASK],
@@ -1745,6 +2136,10 @@ def main():
                      LN: launches_gen["fused"][LN],
                      LN_BWD: launches_pl["flags"][LN_BWD],
                      FFN: launches_gen["fused"][FFN]}
+    for name in (FWD_SEGS, DQ_SEGS, DKV_SEGS):
+        path_launches[name] = launches_packed[name]
+    for name in (FWD_NC, DQ_NC, DKV_NC, DQ_MASK, DKV_MASK):
+        path_launches[name] = launches_entry[name]
     kernels = []
     for name in KERNELS:
         c = main_case[name]

@@ -1,12 +1,15 @@
-// Causal flash-attention backward for Hopper (sm_90a), plain C interface:
-// two kernels, one for dQ and one for dK/dV, as in the TPU package.
+// Flash-attention backward for Hopper (sm_90a), plain C interface: two
+// kernels, one for dQ and one for dK/dV, as in the TPU package.
 //
 // Replaces: paddle_tpu/ops/pallas_ops.py `_flash_bwd_dq_kernel` and
 // `_flash_bwd_dkv_kernel` (both launched by `_flash_bwd`, the backward of
-// `_flash_attn_core`'s custom_vjp), in their causal variant with no additive
-// mask, no kv_lens and no segment ids -- the attention of GPT pretraining.
+// `_flash_attn_core`'s custom_vjp) in all their branches: the `_causal`
+// entries below take the causal kernels with no additive mask, no kv_lens
+// and no segment ids (unpacked GPT pretraining); the `_variant` entries the
+// others -- the additive mask and kv_lens, packed segment ids (packed
+// pretraining) and non-causal attention.
 //
-// Both rebuild the probabilities from the forward's logsumexp instead of
+// Both rebuild the probabilities from the forward's statistics instead of
 // reading a stored [S, S] matrix:
 //   p  = exp(q.k * scale - lse)       dp = dO.v
 //   ds = p * (dp - delta)             delta = rowsum(dO * out), given
@@ -31,50 +34,55 @@
 //   query row, each holding D/4 dims of q, dO and the fp32 dq accumulator
 //   in registers (dims d = sub + 4*i, so the four lanes of a row read
 //   consecutive shared-memory words).  Key/value tiles of 32 rows are
-//   staged once per block in shared memory as fp32; the loop runs from key
-//   0 up to the diagonal.
+//   staged once per block in shared memory as fp32; causal, the loop runs
+//   from key 0 up to the diagonal.
 // - dK/dV: one block per (64-key tile, head, batch), four threads per key
 //   row holding D/4 dims of k, v and the two accumulators.  Query and dO
-//   tiles of 32 rows are staged with their lse and delta; the loop starts
-//   at the first query tile that can see the key tile (the query at
+//   tiles of 32 rows are staged with their lse and delta; causal, the loop
+//   starts at the first query tile that can see the key tile (the query at
 //   max(k0 - (Sk - Sq), 0)) and runs to the end.
 // Both mask the ragged tile edges themselves, so any S works: padding rows
 // are staged as zeros and their p is set to 0 before the exp, so an
 // undefined lse is never used.
 //
+// The variants are the same kernels instantiated with the template flags
+// MASKED, SEGS and CAUSAL, so that the causal entries keep their
+// arithmetic:
+// - MASKED (`:235-237`, `:243-244`, `:260-261`, `:298-301`, `:307-308`):
+//   the fp32 mask is read through the forward's four element strides (0
+//   broadcasts: an expanded [B, 1, 1, S] row is never copied), per tile of
+//   keys for the dQ rows and per tile of queries for the dK/dV rows, and
+//   added to the scaled score; keys at or past kv_len get p = 0, the dQ
+//   loop stops at kv_len, and a dK/dV block whose keys all lie past it
+//   visits no query (the TPU kernel visits them all with p = 0).  The
+//   statistic is the pair (m, log l) of the masked forward, p =
+//   exp((s - m) - log l): a row whose every key the mask closes has m ~
+//   -1e30, where lse = m + log l has lost log l in fp32, and the pair gives
+//   the forward's 1/n there.
+// - SEGS (`:245-247`, `:262-266`, `:309-311`, `:326-330`): a pair whose ids
+//   differ gets p = 0; the dQ block visits only the key tiles inside its
+//   query tile's id envelope, the dK/dV block only the query tiles inside
+//   its key tile's (`_seg_kb_bounds`, for any id layout).
+// - without CAUSAL (`:258-259`, `:323-324`) there is no diagonal limit.
+// A dK/dV block whose loop range is empty writes its rows as exact zeros.
+//
 // Layout: q, k, v and dO are [B, S, H, D] with unit stride in D and stride
 // D between heads; batch and sequence strides are arguments, so slices of a
-// fused qkv projection need no copy.  lse and delta are contiguous fp32
-// [B, H, Sq].  dq, dk, dv are contiguous [B, S, H, D] in the input type.
-// Causal alignment is at the end (query i sees keys <= i + Sk - Sq).
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+// fused qkv projection need no copy.  lse, delta (and m) are contiguous
+// fp32 [B, H, Sq].  dq, dk, dv are contiguous [B, S, H, D] in the input
+// type.  Causal alignment is at the end (query i sees keys <= i + Sk - Sq).
+#include "flash_common.cuh"
 
 namespace {
+
+using flash::from_f;
+using flash::round_to;
+using flash::to_f;
 
 constexpr int BR = 64;              // output rows (queries or keys) per block
 constexpr int BT = 32;              // rows per staged shared-memory tile
 constexpr int TPR = 4;              // threads per output row
 constexpr int THREADS = BR * TPR;   // 256
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-// x rounded to T and widened back: the cast the TPU kernel makes before a
-// product with operands of type T.
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_f(from_f<T>(x));
-}
 
 // Sum over the four lanes of one row.
 __device__ __forceinline__ float row_sum(float x) {
@@ -83,23 +91,37 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
-template <typename T, int D>
+// The pointers and strides of the variant branches (null / 0 when absent).
+struct Branches {
+  const float* rowmax;   // m [B, H, Sq], with MASKED
+  const float* mask;
+  const int* kv_lens;
+  const int* segs;
+  long long msb, msh, msq, msk, ssb;
+};
+
+template <typename T, int D, bool MASKED, bool SEGS, bool CAUSAL>
 __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, const T* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
     T* __restrict__ dq, int H, int Sq, int Sk, long long qsb, long long qss,
     long long ksb, long long kss, long long vsb, long long vss,
-    long long dsb, long long dss, float scale) {
+    long long dsb, long long dss, float scale, const Branches br) {
   constexpr int DP = D / TPR;
   __shared__ float ks[BT][D];
   __shared__ float vs[BT][D];
+  __shared__ float ms[MASKED ? BR : 1][BT + 1];   // mask tile, padded
+  __shared__ int kid[SEGS ? BT : 1];               // the key tile's ids
+  __shared__ int red[SEGS ? 2 * THREADS / 32 : 1];
   const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, row = tid / TPR, sub = tid % TPR;
   const int qpos = tile * BR + row;
   const bool live = qpos < Sq;
   const int qc = min(qpos, Sq - 1);
-  const int lim = qpos + Sk - Sq;   // last key this row may attend
+  const int lim = qpos + Sk - Sq;   // last key this row may attend (causal)
+  const int klen =
+      MASKED && br.kv_lens ? min(max(br.kv_lens[b], 0), Sk) : Sk;
 
   float qr[DP], dor[DP], acc[DP];
   const T* qp = q + b * qsb + (long long)qc * qss + h * D;
@@ -112,11 +134,23 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(
   }
   const long long stat = ((long long)b * H + h) * Sq + qc;
   const float l = lse[stat], dl = delta[stat];
+  const float mr = MASKED ? br.rowmax[stat] : 0.f;
 
   const T* kb = k + b * ksb + h * D;
   const T* vb = v + b * vsb + h * D;
-  const int kend = min(Sk, tile * BR + BR + Sk - Sq);   // exclusive
-  for (int k0 = 0; k0 < kend; k0 += BT) {
+  const float* mb =
+      MASKED && br.mask ? br.mask + b * br.msb + h * br.msh : nullptr;
+  const int* sb = SEGS ? br.segs + b * br.ssb : nullptr;
+  int kbeg = 0;
+  int kend = CAUSAL ? min(klen, tile * BR + BR + Sk - Sq) : klen;  // excl.
+  int qid = 0;
+  if constexpr (SEGS) {
+    qid = sb[qc];
+    const int2 env = flash::seg_envelope<THREADS>(sb, Sk, qid, red);
+    kbeg = env.x / BT * BT;
+    kend = min(kend, env.y);
+  }
+  for (int k0 = kbeg; k0 < kend; k0 += BT) {
     __syncthreads();   // the previous tile is no longer read
     for (int e = tid; e < BT * D; e += THREADS) {
       const int j = e / D, d = e % D, kp = k0 + j;
@@ -127,6 +161,18 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(
       }
       ks[j][d] = kv;
       vs[j][d] = vv;
+    }
+    if constexpr (MASKED) {
+      if (mb) {
+        for (int e = tid; e < BR * BT; e += THREADS) {
+          const int rr = e / BT, j = e % BT, kp = k0 + j;
+          const long long qq = min(tile * BR + rr, Sq - 1);
+          ms[rr][j] = kp < Sk ? mb[qq * br.msq + kp * br.msk] : 0.f;
+        }
+      }
+    }
+    if constexpr (SEGS) {
+      if (tid < BT) kid[tid] = k0 + tid < Sk ? sb[k0 + tid] : 0;
     }
     __syncthreads();
 
@@ -141,8 +187,15 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(
       s = row_sum(s);
       dpv = row_sum(dpv);
       const int kp = k0 + j;
-      const float p = (live && kp <= lim && kp < Sk)
-                          ? expf(s * scale - l) : 0.f;
+      bool ok = live && (!CAUSAL || kp <= lim) && kp < klen;
+      if constexpr (SEGS) ok = ok && kid[j] == qid;
+      float p;
+      if constexpr (MASKED) {
+        const float sc = mb ? s * scale + ms[row][j] : s * scale;
+        p = ok ? expf((sc - mr) - l) : 0.f;
+      } else {
+        p = ok ? expf(s * scale - l) : 0.f;
+      }
       const float ds = round_to<T>(p * (dpv - dl));
 #pragma unroll
       for (int i = 0; i < DP; ++i) acc[i] = fmaf(ds, ks[j][sub + TPR * i], acc[i]);
@@ -156,7 +209,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool MASKED, bool SEGS, bool CAUSAL>
 __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, const T* __restrict__ dout,
@@ -164,18 +217,24 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(
     T* __restrict__ dk, T* __restrict__ dv, int H, int Sq, int Sk,
     long long qsb, long long qss, long long ksb, long long kss,
     long long vsb, long long vss, long long dsb, long long dss,
-    float scale) {
+    float scale, const Branches br) {
   constexpr int DP = D / TPR;
   __shared__ float qs[BT][D];
   __shared__ float dos[BT][D];
   __shared__ float ls[BT];
   __shared__ float dls[BT];
+  __shared__ float mrs[MASKED ? BT : 1];
+  __shared__ float ms[MASKED ? BT : 1][BR + 1];   // mask tile, padded
+  __shared__ int qid[SEGS ? BT : 1];               // the query tile's ids
+  __shared__ int red[SEGS ? 2 * THREADS / 32 : 1];
   const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, row = tid / TPR, sub = tid % TPR;
   const int kpos = tile * BR + row;
   const bool live = kpos < Sk;
   const int kc = min(kpos, Sk - 1);
   const int offset = Sk - Sq;
+  const int klen =
+      MASKED && br.kv_lens ? min(max(br.kv_lens[b], 0), Sk) : Sk;
 
   float kr[DP], vr[DP], dka[DP], dva[DP];
   const T* kp = k + b * ksb + (long long)kc * kss + h * D;
@@ -191,9 +250,21 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(
   const T* qb = q + b * qsb + h * D;
   const T* db = dout + b * dsb + h * D;
   const long long stat0 = ((long long)b * H + h) * Sq;
-  // the first query that sees this block's first key, rounded down to a tile
-  const int qstart = (max(tile * BR - offset, 0) / BT) * BT;
-  for (int q0 = qstart; q0 < Sq; q0 += BT) {
+  const float* mb =
+      MASKED && br.mask ? br.mask + b * br.msb + h * br.msh : nullptr;
+  const int* sb = SEGS ? br.segs + b * br.ssb : nullptr;
+  // causal: the first query that sees this block's first key, rounded down
+  // to a tile
+  int qstart = CAUSAL ? (max(tile * BR - offset, 0) / BT) * BT : 0;
+  int qend = MASKED && tile * BR >= klen ? 0 : Sq;   // keys past kv_len
+  int kid = 0;
+  if constexpr (SEGS) {
+    kid = sb[kc];
+    const int2 env = flash::seg_envelope<THREADS>(sb, Sq, kid, red);
+    qstart = max(qstart, env.x / BT * BT);
+    qend = min(qend, env.y);
+  }
+  for (int q0 = qstart; q0 < qend; q0 += BT) {
     __syncthreads();   // the previous tile is no longer read
     for (int e = tid; e < BT * D; e += THREADS) {
       const int i = e / D, d = e % D, qpos = q0 + i;
@@ -209,10 +280,24 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(
       const int qpos = q0 + tid;
       ls[tid] = qpos < Sq ? lse[stat0 + qpos] : 0.f;
       dls[tid] = qpos < Sq ? delta[stat0 + qpos] : 0.f;
+      if constexpr (MASKED) mrs[tid] = qpos < Sq ? br.rowmax[stat0 + qpos] : 0.f;
+      if constexpr (SEGS) qid[tid] = qpos < Sq ? sb[qpos] : 0;
+    }
+    if constexpr (MASKED) {
+      if (mb) {
+        for (int e = tid; e < BT * BR; e += THREADS) {
+          const int i = e / BR, c = e % BR, kk = tile * BR + c;
+          const long long qq = min(q0 + i, Sq - 1);
+          ms[i][c] = kk < Sk ? mb[qq * br.msq + kk * br.msk] : 0.f;
+        }
+      }
     }
     __syncthreads();
 
-#pragma unroll 4
+    // unrolled by 4, the masked loop's three staged statistics and mask
+    // entries per query took 239-254 registers at D = 64 (one block per
+    // SM) and ran 8-17 % slower than rolled (121-128 registers)
+#pragma unroll (MASKED ? 1 : 4)
     for (int i = 0; i < BT; ++i) {
       float s = 0.f, dpv = 0.f;
 #pragma unroll
@@ -223,8 +308,16 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(
       s = row_sum(s);
       dpv = row_sum(dpv);
       const int qpos = q0 + i;
-      const float p = (live && qpos < Sq && qpos + offset >= kpos)
-                          ? expf(s * scale - ls[i]) : 0.f;
+      bool ok = live && qpos < Sq && (!CAUSAL || qpos + offset >= kpos);
+      if constexpr (MASKED) ok = ok && kpos < klen;
+      if constexpr (SEGS) ok = ok && qid[i] == kid;
+      float p;
+      if constexpr (MASKED) {
+        const float sc = mb ? s * scale + ms[i][row] : s * scale;
+        p = ok ? expf((sc - mrs[i]) - ls[i]) : 0.f;
+      } else {
+        p = ok ? expf(s * scale - ls[i]) : 0.f;
+      }
       const float pb = round_to<T>(p);
       const float ds = round_to<T>(p * (dpv - dls[i]));
 #pragma unroll
@@ -251,44 +344,99 @@ struct Args {
   long long qsb, qss, ksb, kss, vsb, vss, dsb, dss;
   float scale;
   cudaStream_t stream;
+  Branches br;
 };
 
-template <typename T, int D>
+template <typename T, int D, bool MASKED, bool SEGS, bool CAUSAL>
 void launch_dq(const Args& a, void* dq) {
   dim3 grid((a.Sq + BR - 1) / BR, a.H, a.B);
-  flash_bwd_dq_kernel<T, D><<<grid, THREADS, 0, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<T*>(dq), a.H, a.Sq, a.Sk, a.qsb, a.qss, a.ksb, a.kss,
-      a.vsb, a.vss, a.dsb, a.dss, a.scale);
+  flash_bwd_dq_kernel<T, D, MASKED, SEGS, CAUSAL>
+      <<<grid, THREADS, 0, a.stream>>>(
+          static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+          static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+          static_cast<const float*>(a.lse),
+          static_cast<const float*>(a.delta), static_cast<T*>(dq), a.H,
+          a.Sq, a.Sk, a.qsb, a.qss, a.ksb, a.kss, a.vsb, a.vss, a.dsb,
+          a.dss, a.scale, a.br);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool MASKED, bool SEGS, bool CAUSAL>
 void launch_dkv(const Args& a, void* dk, void* dv) {
   dim3 grid((a.Sk + BR - 1) / BR, a.H, a.B);
-  flash_bwd_dkv_kernel<T, D><<<grid, THREADS, 0, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), a.H, a.Sq, a.Sk, a.qsb,
-      a.qss, a.ksb, a.kss, a.vsb, a.vss, a.dsb, a.dss, a.scale);
+  flash_bwd_dkv_kernel<T, D, MASKED, SEGS, CAUSAL>
+      <<<grid, THREADS, 0, a.stream>>>(
+          static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+          static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+          static_cast<const float*>(a.lse),
+          static_cast<const float*>(a.delta), static_cast<T*>(dk),
+          static_cast<T*>(dv), a.H, a.Sq, a.Sk, a.qsb, a.qss, a.ksb, a.kss,
+          a.vsb, a.vss, a.dsb, a.dss, a.scale, a.br);
+}
+
+// One launch of the dQ (dk null) or the dK/dV kernel for a head size and
+// type; cudaErrorInvalidValue for one the kernels do not take.
+template <bool MASKED, bool SEGS, bool CAUSAL>
+int dispatch(const Args& a, int D, int is_bf16, void* dq_or_dk, void* dv) {
+#define FB_LAUNCH(T, DIM)                                                  \
+  do {                                                                     \
+    if (dv)                                                                \
+      launch_dkv<T, DIM, MASKED, SEGS, CAUSAL>(a, dq_or_dk, dv);           \
+    else                                                                   \
+      launch_dq<T, DIM, MASKED, SEGS, CAUSAL>(a, dq_or_dk);                \
+  } while (0)
+  if (D == 64 && is_bf16)
+    FB_LAUNCH(__nv_bfloat16, 64);
+  else if (D == 64)
+    FB_LAUNCH(float, 64);
+  else if (D == 128 && is_bf16)
+    FB_LAUNCH(__nv_bfloat16, 128);
+  else if (D == 128)
+    FB_LAUNCH(float, 128);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+#undef FB_LAUNCH
+  return static_cast<int>(cudaGetLastError());
+}
+
+int dispatch_variant(const Args& a, int D, int is_bf16, int causal,
+                     void* dq_or_dk, void* dv) {
+  const bool m = a.br.mask || a.br.kv_lens, s = a.br.segs;
+  switch ((m ? 4 : 0) + (s ? 2 : 0) + (causal != 0)) {
+    case 0: return dispatch<false, false, false>(a, D, is_bf16, dq_or_dk, dv);
+    case 1: return dispatch<false, false, true>(a, D, is_bf16, dq_or_dk, dv);
+    case 2: return dispatch<false, true, false>(a, D, is_bf16, dq_or_dk, dv);
+    case 3: return dispatch<false, true, true>(a, D, is_bf16, dq_or_dk, dv);
+    case 4: return dispatch<true, false, false>(a, D, is_bf16, dq_or_dk, dv);
+    case 5: return dispatch<true, false, true>(a, D, is_bf16, dq_or_dk, dv);
+    case 6: return dispatch<true, true, false>(a, D, is_bf16, dq_or_dk, dv);
+    default: return dispatch<true, true, true>(a, D, is_bf16, dq_or_dk, dv);
+  }
 }
 
 Args make_args(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, int B, int H, int Sq,
                int Sk, long long qsb, long long qss, long long ksb,
                long long kss, long long vsb, long long vss, long long dsb,
-               long long dss, float scale, void* stream) {
+               long long dss, float scale, void* stream, Branches br) {
   return Args{q,   k,   v,   dout, lse, delta, B,   H,   Sq,    Sk,
               qsb, qss, ksb, kss,  vsb, vss,   dsb, dss, scale,
-              static_cast<cudaStream_t>(stream)};
+              static_cast<cudaStream_t>(stream), br};
+}
+
+Branches make_branches(const void* rowmax, const void* mask,
+                       const void* kv_lens, const void* segs, long long msb,
+                       long long msh, long long msq, long long msk,
+                       long long ssb) {
+  return Branches{static_cast<const float*>(rowmax),
+                  static_cast<const float*>(mask),
+                  static_cast<const int*>(kv_lens),
+                  static_cast<const int*>(segs), msb, msh, msq, msk, ssb};
 }
 
 }  // namespace
 
-// Both return cudaGetLastError() after the launch; 1 (cudaErrorInvalidValue)
-// for a head size the kernels do not take.
+// The causal entries.  Both return cudaGetLastError() after the launch; 1
+// (cudaErrorInvalidValue) for a head size the kernels do not take.
 extern "C" int flash_bwd_dq_causal(const void* q, const void* k,
                                    const void* v, const void* dout,
                                    const void* lse, const void* delta,
@@ -299,18 +447,9 @@ extern "C" int flash_bwd_dq_causal(const void* q, const void* k,
                                    long long vss, long long dsb,
                                    long long dss, float scale, void* stream) {
   const Args a = make_args(q, k, v, dout, lse, delta, B, H, Sq, Sk, qsb, qss,
-                           ksb, kss, vsb, vss, dsb, dss, scale, stream);
-  if (D == 64 && is_bf16)
-    launch_dq<__nv_bfloat16, 64>(a, dq);
-  else if (D == 64)
-    launch_dq<float, 64>(a, dq);
-  else if (D == 128 && is_bf16)
-    launch_dq<__nv_bfloat16, 128>(a, dq);
-  else if (D == 128)
-    launch_dq<float, 128>(a, dq);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+                           ksb, kss, vsb, vss, dsb, dss, scale, stream,
+                           Branches{});
+  return dispatch<false, false, true>(a, D, is_bf16, dq, nullptr);
 }
 
 extern "C" int flash_bwd_dkv_causal(const void* q, const void* k,
@@ -324,16 +463,42 @@ extern "C" int flash_bwd_dkv_causal(const void* q, const void* k,
                                     long long dss, float scale,
                                     void* stream) {
   const Args a = make_args(q, k, v, dout, lse, delta, B, H, Sq, Sk, qsb, qss,
-                           ksb, kss, vsb, vss, dsb, dss, scale, stream);
-  if (D == 64 && is_bf16)
-    launch_dkv<__nv_bfloat16, 64>(a, dk, dv);
-  else if (D == 64)
-    launch_dkv<float, 64>(a, dk, dv);
-  else if (D == 128 && is_bf16)
-    launch_dkv<__nv_bfloat16, 128>(a, dk, dv);
-  else if (D == 128)
-    launch_dkv<float, 128>(a, dk, dv);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+                           ksb, kss, vsb, vss, dsb, dss, scale, stream,
+                           Branches{});
+  return dispatch<false, false, true>(a, D, is_bf16, dk, dv);
+}
+
+// The variant entries.  mask: fp32, element strides msb, msh, msq, msk (0
+// broadcasts), or null; kv_lens: int32 [B], or null; segs: int32 [B, S]
+// with batch stride ssb and unit stride in S, or null; causal: 0 or 1.
+// With a mask or kv_lens, lse holds log l and rowmax the row max m of the
+// masked forward; rowmax is ignored otherwise.  Returns as above.
+extern "C" int flash_bwd_dq_variant(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, const void* rowmax, const void* mask,
+    const void* kv_lens, const void* segs, void* dq, int B, int H, int Sq,
+    int Sk, int D, int is_bf16, int causal, long long qsb, long long qss,
+    long long ksb, long long kss, long long vsb, long long vss, long long dsb,
+    long long dss, long long msb, long long msh, long long msq, long long msk,
+    long long ssb, float scale, void* stream) {
+  const Args a = make_args(
+      q, k, v, dout, lse, delta, B, H, Sq, Sk, qsb, qss, ksb, kss, vsb, vss,
+      dsb, dss, scale, stream,
+      make_branches(rowmax, mask, kv_lens, segs, msb, msh, msq, msk, ssb));
+  return dispatch_variant(a, D, is_bf16, causal, dq, nullptr);
+}
+
+extern "C" int flash_bwd_dkv_variant(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, const void* rowmax, const void* mask,
+    const void* kv_lens, const void* segs, void* dk, void* dv, int B, int H,
+    int Sq, int Sk, int D, int is_bf16, int causal, long long qsb,
+    long long qss, long long ksb, long long kss, long long vsb, long long vss,
+    long long dsb, long long dss, long long msb, long long msh, long long msq,
+    long long msk, long long ssb, float scale, void* stream) {
+  const Args a = make_args(
+      q, k, v, dout, lse, delta, B, H, Sq, Sk, qsb, qss, ksb, kss, vsb, vss,
+      dsb, dss, scale, stream,
+      make_branches(rowmax, mask, kv_lens, segs, msb, msh, msq, msk, ssb));
+  return dispatch_variant(a, D, is_bf16, causal, dk, dv);
 }

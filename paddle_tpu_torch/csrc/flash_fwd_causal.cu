@@ -1,10 +1,12 @@
-// Causal flash-attention forward for Hopper (sm_90a), plain C interface.
+// Flash-attention forward for Hopper (sm_90a), plain C interface.
 //
 // Replaces: paddle_tpu/ops/pallas_ops.py `_flash_fwd_kernel` (reached via
-// `_flash_fwd` <- `flash_attention_arrays`), in its causal variant: with no
-// additive mask, no kv_lens and no segment ids (the whole-prompt prefill of
-// the serving engine, and training), and, in `flash_fwd_masked` below, with
-// the additive mask and kv_lens (the padded-prompt prefill of `generate`).
+// `_flash_fwd` <- `flash_attention_arrays`) in all its branches:
+// `flash_fwd_causal` below is the causal kernel with no additive mask, no
+// kv_lens and no segment ids (the whole-prompt prefill of the serving
+// engine, and unpacked training); `flash_fwd_variant` takes the others --
+// the additive mask and kv_lens (the padded-prompt prefill of `generate`),
+// packed segment ids (packed pretraining) and non-causal attention.
 //
 // What bounds it on this card: at GPT-2 widths (D = 64, S <= 1024) one
 // layer's causal attention is 2*S^2*H*D FLOPs over 4*S*H*D*itemsize bytes,
@@ -29,10 +31,10 @@
 // the input type; lse is a contiguous fp32 [B, H, Sq].  Causal alignment is
 // at the end (query i sees keys <= i + Sk - Sq), as in the TPU kernel.
 //
-// The masked variant (`flash_fwd_masked`, the same kernel instantiated with
-// MASKED, so that the entry above keeps its arithmetic) adds the TPU
-// kernel's additive mask and kv_lens branches (`pallas_ops.py:162-173`,
-// `:192-194`) to the causal one.  The fp32 mask is read through four
+// The variants are the same kernel instantiated with the template flags
+// MASKED, SEGS and CAUSAL, so that the causal entry keeps its arithmetic.
+// MASKED adds the TPU kernel's additive mask and kv_lens branches
+// (`pallas_ops.py:162-173`, `:192-194`).  The fp32 mask is read through four
 // element strides (batch, head, query, key; a stride of 0 broadcasts, so
 // a [B, 1, 1, S] key-validity row expanded to [B, 1, S, S] costs no
 // copy), staged per tile in shared memory, and added to the scaled score.  With kv_lens the key loop stops
@@ -42,11 +44,28 @@
 // allow (-1e30 + s is -1e30 in fp32), as the plain version does.  Keys
 // that causal or kv_lens exclude carry exactly no weight (-inf, and p = 0);
 // the running max starts at -inf so that any finite mask value is exact.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+// With a stats output, MASKED also writes each row's max m and log l: lse =
+// m + log l rounds log l away where m is ~-1e30 (a row whose every key the
+// mask closes), and the backward needs the pair to rebuild p = 1/n there.
+//
+// SEGS (`:174-176`, `:195-201`): the [B, S] int32 ids, shared by queries and
+// keys (self-attention), are read through their batch stride; the key
+// tile's ids are staged beside K/V and a pair whose ids differ is excluded
+// as a causal-excluded key is (p = 0).  Key tiles outside the query tile's
+// id envelope -- the first to the last key whose id lies in [min, max] of
+// the tile's query ids, `_seg_kb_bounds` -- are not visited, so a packed
+// row costs the attention of its documents, not of the whole row; the
+// envelope holds for any id layout, sorted or not.  Without CAUSAL there is
+// no diagonal limit (the loop runs to kv_len or Sk), and Sq != Sk is allowed
+// when there are no segments.
 #include <math.h>
 
+#include "flash_common.cuh"
+
 namespace {
+
+using flash::from_f;
+using flash::to_f;
 
 constexpr int BQ = 64;              // query rows per block
 constexpr int BK = 32;              // keys per shared-memory tile
@@ -54,29 +73,20 @@ constexpr int TPR = 4;              // threads per query row
 constexpr int THREADS = BQ * TPR;   // 256
 constexpr float NEG = -1e30f;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// MASKED adds the additive mask and kv_lens branches; without it the
-// arithmetic is that of the causal-only kernel, unchanged.
-template <typename T, int D, bool MASKED>
+// MASKED adds the additive mask and kv_lens branches, SEGS the segment ids;
+// CAUSAL limits each row to the keys up to its diagonal.  With MASKED and
+// SEGS false and CAUSAL true the arithmetic is that of the causal-only
+// kernel, unchanged.
+template <typename T, int D, bool MASKED, bool SEGS, bool CAUSAL>
 __global__ void __launch_bounds__(THREADS) flash_fwd_causal_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, T* __restrict__ out, float* __restrict__ lse,
-    const float* __restrict__ mask, const int* __restrict__ kv_lens, int H,
-    int Sq, int Sk, long long qsb, long long qss, long long ksb,
-    long long kss, long long vsb, long long vss, long long msb,
-    long long msh, long long msq, long long msk, float scale) {
+    float* __restrict__ rowmax, float* __restrict__ logsum,
+    const float* __restrict__ mask, const int* __restrict__ kv_lens,
+    const int* __restrict__ segs, int H, int Sq, int Sk, long long qsb,
+    long long qss, long long ksb, long long kss, long long vsb,
+    long long vss, long long msb, long long msh, long long msq,
+    long long msk, long long ssb, float scale) {
   constexpr int DP = D / TPR;
   // the logit of an excluded key: -1e30 as in the reference; -inf when
   // masked, so that any finite mask value (-1e30 too) stays exact
@@ -84,11 +94,13 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_causal_kernel(
   __shared__ float ks[BK][D];
   __shared__ float vs[BK][D];
   __shared__ float ms[MASKED ? BQ : 1][BK + 1];   // mask tile, padded
+  __shared__ int kid[SEGS ? BK : 1];               // the key tile's ids
+  __shared__ int red[SEGS ? 2 * THREADS / 32 : 1];
   const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, row = tid / TPR, sub = tid % TPR;
   const int qpos = tile * BQ + row;
   const int offset = Sk - Sq;
-  const int lim = qpos + offset;    // last key this row may attend
+  const int lim = qpos + offset;    // last key this row may attend (causal)
   const int klen =
       MASKED && kv_lens ? min(max(kv_lens[b], 0), Sk) : Sk;
 
@@ -104,8 +116,23 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_causal_kernel(
   const T* kb = k + b * ksb + h * D;
   const T* vb = v + b * vsb + h * D;
   const float* mb = MASKED && mask ? mask + b * msb + h * msh : nullptr;
-  const int kend = min(klen, tile * BQ + BQ + offset);   // exclusive
-  for (int k0 = 0; k0 < kend; k0 += BK) {
+  const int* sb = SEGS ? segs + b * ssb : nullptr;
+  int kbeg = 0;
+  int kend = CAUSAL ? min(klen, tile * BQ + BQ + offset) : klen;  // excl.
+  int qid = 0;
+  if constexpr (SEGS) {
+    qid = sb[min(qpos, Sq - 1)];
+    const int2 env = flash::seg_envelope<THREADS>(sb, Sk, qid, red);
+    kbeg = env.x / BK * BK;
+    kend = min(kend, env.y);
+  }
+  // whether this row attends key kp of the staged tile (its j-th)
+  auto allowed = [&](int kp, int j) {
+    bool ok = (!CAUSAL || kp <= lim) && kp < klen;
+    if constexpr (SEGS) ok = ok && kid[j] == qid;
+    return ok;
+  };
+  for (int k0 = kbeg; k0 < kend; k0 += BK) {
     __syncthreads();   // the previous tile is no longer read
     for (int e = tid; e < BK * D; e += THREADS) {
       const int j = e / D, d = e % D, kp = k0 + j;
@@ -126,10 +153,18 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_causal_kernel(
         }
       }
     }
+    if constexpr (SEGS) {
+      if (tid < BK) kid[tid] = k0 + tid < Sk ? sb[k0 + tid] : 0;
+    }
     __syncthreads();
 
     float s[BK];
     float tmax = none;
+    // bit j: this row attends the tile's j-th key.  Testing once and
+    // keeping the bits holds the masked and segment instantiations to the
+    // causal kernel's registers (<= 128 at D = 64, two blocks per SM);
+    // re-testing in the loop below took 173-194.
+    unsigned okbits = 0u;
 #pragma unroll
     for (int j = 0; j < BK; ++j) {
       float part = 0.f;
@@ -142,7 +177,9 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_causal_kernel(
       if constexpr (MASKED) {
         if (mb) sc += ms[row][j];
       }
-      s[j] = (kp <= lim && kp < klen) ? sc : none;
+      const bool ok = allowed(kp, j);
+      okbits |= (ok ? 1u : 0u) << j;
+      s[j] = ok ? sc : none;
       tmax = fmaxf(tmax, s[j]);
     }
     const float mnew = fmaxf(m, tmax);
@@ -153,8 +190,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_causal_kernel(
     for (int i = 0; i < DP; ++i) acc[i] *= alpha;
 #pragma unroll
     for (int j = 0; j < BK; ++j) {
-      const int kp = k0 + j;
-      const float p = (kp <= lim && kp < klen) ? expf(s[j] - mnew) : 0.f;
+      const float p = (okbits >> j) & 1u ? expf(s[j] - mnew) : 0.f;
       psum += p;
 #pragma unroll
       for (int i = 0; i < DP; ++i) acc[i] = fmaf(p, vs[j][sub + TPR * i], acc[i]);
@@ -168,51 +204,55 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_causal_kernel(
     T* op = out + (((long long)b * Sq + qpos) * H + h) * D;
 #pragma unroll
     for (int i = 0; i < DP; ++i) op[sub + TPR * i] = from_f<T>(acc[i] / ls);
-    if (sub == 0) lse[((long long)b * H + h) * Sq + qpos] = m + logf(ls);
+    if (sub == 0) {
+      const long long r = ((long long)b * H + h) * Sq + qpos;
+      lse[r] = m + logf(ls);
+      if constexpr (MASKED) {
+        if (rowmax) {
+          rowmax[r] = m;
+          logsum[r] = logf(ls);
+        }
+      }
+    }
   }
 }
 
-// One launch of the kernel; mask and kv_lens are null for the unmasked
-// entry (MASKED false).
-template <typename T, int D, bool MASKED>
-void launch(const void* q, const void* k, const void* v, void* out, void* lse,
-            const float* mask, const int* kv_lens, int B, int H, int Sq,
-            int Sk, long long qsb, long long qss, long long ksb,
-            long long kss, long long vsb, long long vss, long long msb,
-            long long msh, long long msq, long long msk, float scale,
-            cudaStream_t stream) {
-  dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_fwd_causal_kernel<T, D, MASKED><<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out),
-      static_cast<float*>(lse), mask, kv_lens, H, Sq, Sk, qsb, qss, ksb, kss,
-      vsb, vss, msb, msh, msq, msk, scale);
+struct Args {
+  const void *q, *k, *v;
+  void *out, *lse, *rowmax, *logsum;
+  const float* mask;
+  const int *kv_lens, *segs;
+  int B, H, Sq, Sk;
+  long long qsb, qss, ksb, kss, vsb, vss, msb, msh, msq, msk, ssb;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <typename T, int D, bool MASKED, bool SEGS, bool CAUSAL>
+void launch(const Args& a) {
+  dim3 grid((a.Sq + BQ - 1) / BQ, a.H, a.B);
+  flash_fwd_causal_kernel<T, D, MASKED, SEGS, CAUSAL>
+      <<<grid, THREADS, 0, a.stream>>>(
+          static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+          static_cast<const T*>(a.v), static_cast<T*>(a.out),
+          static_cast<float*>(a.lse), static_cast<float*>(a.rowmax),
+          static_cast<float*>(a.logsum), a.mask, a.kv_lens, a.segs, a.H,
+          a.Sq, a.Sk, a.qsb, a.qss, a.ksb, a.kss, a.vsb, a.vss, a.msb, a.msh,
+          a.msq, a.msk, a.ssb, a.scale);
 }
 
-template <bool MASKED>
-int dispatch(const void* q, const void* k, const void* v, void* out,
-             void* lse, const void* mask, const void* kv_lens, int B, int H,
-             int Sq, int Sk, int D, int is_bf16, long long qsb,
-             long long qss, long long ksb, long long kss, long long vsb,
-             long long vss, long long msb, long long msh, long long msq,
-             long long msk, float scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* m = static_cast<const float*>(mask);
-  const int* n = static_cast<const int*>(kv_lens);
-#define FF_LAUNCH(T, DIM)                                                  \
-  launch<T, DIM, MASKED>(q, k, v, out, lse, m, n, B, H, Sq, Sk, qsb, qss,  \
-                         ksb, kss, vsb, vss, msb, msh, msq, msk, scale, s)
+template <bool MASKED, bool SEGS, bool CAUSAL>
+int dispatch(const Args& a, int D, int is_bf16) {
   if (D == 64 && is_bf16)
-    FF_LAUNCH(__nv_bfloat16, 64);
+    launch<__nv_bfloat16, 64, MASKED, SEGS, CAUSAL>(a);
   else if (D == 64)
-    FF_LAUNCH(float, 64);
+    launch<float, 64, MASKED, SEGS, CAUSAL>(a);
   else if (D == 128 && is_bf16)
-    FF_LAUNCH(__nv_bfloat16, 128);
+    launch<__nv_bfloat16, 128, MASKED, SEGS, CAUSAL>(a);
   else if (D == 128)
-    FF_LAUNCH(float, 128);
+    launch<float, 128, MASKED, SEGS, CAUSAL>(a);
   else
     return static_cast<int>(cudaErrorInvalidValue);
-#undef FF_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -226,24 +266,42 @@ extern "C" int flash_fwd_causal(const void* q, const void* k, const void* v,
                                 long long qss, long long ksb, long long kss,
                                 long long vsb, long long vss, float scale,
                                 void* stream) {
-  return dispatch<false>(q, k, v, out, lse, nullptr, nullptr, B, H, Sq, Sk,
-                         D, is_bf16, qsb, qss, ksb, kss, vsb, vss, 0, 0, 0,
-                         0, scale, stream);
+  const Args a{q,   k,   v,   out, lse, nullptr, nullptr, nullptr, nullptr,
+               nullptr, B, H, Sq, Sk, qsb, qss, ksb, kss, vsb, vss, 0, 0, 0,
+               0, 0, scale, static_cast<cudaStream_t>(stream)};
+  return dispatch<false, false, true>(a, D, is_bf16);
 }
 
-// The masked / kv_lens variant.  mask: fp32, element strides msb, msh, msq,
-// msk (0 broadcasts), or null; kv_lens: int32 [B], or null.  Returns
-// cudaGetLastError() after the launch; 1 (cudaErrorInvalidValue) for a
-// head size or type the kernel does not take.
-extern "C" int flash_fwd_masked(const void* q, const void* k, const void* v,
-                                void* out, void* lse, const void* mask,
-                                const void* kv_lens, int B, int H, int Sq,
-                                int Sk, int D, int is_bf16, long long qsb,
-                                long long qss, long long ksb, long long kss,
-                                long long vsb, long long vss, long long msb,
-                                long long msh, long long msq, long long msk,
-                                float scale, void* stream) {
-  return dispatch<true>(q, k, v, out, lse, mask, kv_lens, B, H, Sq, Sk, D,
-                        is_bf16, qsb, qss, ksb, kss, vsb, vss, msb, msh, msq,
-                        msk, scale, stream);
+// Every other branch.  mask: fp32, element strides msb, msh, msq, msk (0
+// broadcasts), or null; kv_lens: int32 [B], or null; segs: int32 [B, S]
+// with batch stride ssb and unit stride in S, or null; causal: 0 or 1.
+// rowmax and logsum: fp32 [B, H, Sq] outputs of m and log l, or null
+// (written only with a mask or kv_lens).  Returns cudaGetLastError() after
+// the launch; 1 (cudaErrorInvalidValue) for a head size or type the kernel
+// does not take.
+extern "C" int flash_fwd_variant(
+    const void* q, const void* k, const void* v, void* out, void* lse,
+    void* rowmax, void* logsum, const void* mask, const void* kv_lens,
+    const void* segs, int B, int H, int Sq, int Sk, int D, int is_bf16,
+    int causal, long long qsb, long long qss, long long ksb, long long kss,
+    long long vsb, long long vss, long long msb, long long msh,
+    long long msq, long long msk, long long ssb, float scale, void* stream) {
+  const Args a{q,   k,   v,   out, lse, rowmax, logsum,
+               static_cast<const float*>(mask),
+               static_cast<const int*>(kv_lens),
+               static_cast<const int*>(segs),
+               B,   H,   Sq,  Sk,  qsb, qss,    ksb,    kss, vsb, vss,
+               msb, msh, msq, msk, ssb, scale,
+               static_cast<cudaStream_t>(stream)};
+  const bool m = mask || kv_lens, s = segs;
+  switch ((m ? 4 : 0) + (s ? 2 : 0) + (causal != 0)) {
+    case 0: return dispatch<false, false, false>(a, D, is_bf16);
+    case 1: return dispatch<false, false, true>(a, D, is_bf16);
+    case 2: return dispatch<false, true, false>(a, D, is_bf16);
+    case 3: return dispatch<false, true, true>(a, D, is_bf16);
+    case 4: return dispatch<true, false, false>(a, D, is_bf16);
+    case 5: return dispatch<true, false, true>(a, D, is_bf16);
+    case 6: return dispatch<true, true, false>(a, D, is_bf16);
+    default: return dispatch<true, true, true>(a, D, is_bf16);
+  }
 }

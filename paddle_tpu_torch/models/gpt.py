@@ -18,7 +18,11 @@ layouts, chosen by ``GPTConfig.stacked_blocks``:
 
 ``forward`` returns logits and ``pretrain_loss`` the causal-LM loss, both
 differentiable: attention goes through the flash kernels' autograd
-Function on the card.
+Function on the card.  The stacked layout also trains on packed rows
+(`examples/packed_pretraining.py`): ``segment_ids`` [B, S] mark the
+documents, attention never crosses them (the segment branch of the flash
+kernels), and ``position_ids`` [B, S] restart at each document; the
+per-layer layout raises on ``segment_ids``, as the JAX one does.
 
 ``generate`` (stacked layout) is the dense KV-cache decode of the JAX
 ``generate``: per-layer flat ``[B, S_max, H*D]`` rings (`init_caches`), a
@@ -36,8 +40,8 @@ and FFN kernels.
 
 Left out for later slices: the per-layer cached forward and ``generate``,
 MoE, pipeline execution (and the 1F1B fused loss), dropout,
-``segment_ids``, ``recompute``, the stacked-cache layer-scan decode, and
-CUDA-graph capture of the decode step.
+``recompute``, the stacked-cache layer-scan decode, and CUDA-graph
+capture of the decode step.
 """
 from __future__ import annotations
 
@@ -216,6 +220,14 @@ def _causal_attn(q, k, v):
     return flash_attention_arrays(q, k, v, is_causal=True), None
 
 
+def _packed_attn(segment_ids):
+    """The attention closure of packed rows (`gpt.py:509-515`)."""
+    def attn(q, k, v):
+        return flash_attention_arrays(q, k, v, is_causal=True,
+                                      segment_ids=segment_ids), None
+    return attn
+
+
 class GPTPretrainingCriterion(nn.Module):
     """Causal-LM loss over logits [B, S, V] and labels [B, S] — the
     counterpart of `paddle_tpu.models.gpt.GPTPretrainingCriterion`:
@@ -330,7 +342,12 @@ class GPTModel(nn.Module):
         self.ln_f = LayerNorm(cfg.hidden_size, cfg.layer_norm_epsilon,
                               device, dtype)
 
-    def forward(self, input_ids, position_ids=None):
+    def forward(self, input_ids, position_ids=None, *, segment_ids=None):
+        if segment_ids is not None:
+            raise NotImplementedError(
+                "segment_ids are supported on the stacked-blocks training "
+                "path (no KV-cache decode); packed decoding is not a "
+                "standard inference shape")
         x = self.embeddings(input_ids, position_ids)
         for blk in self.h:
             x = blk(x)
@@ -388,13 +405,16 @@ class GPTForCausalLM(nn.Module):
         return (self.wte if self.cfg.stacked_blocks
                 else self.gpt.embeddings.word_embeddings.weight)
 
-    def forward(self, input_ids, position_ids=None):
+    def forward(self, input_ids, position_ids=None, *, segment_ids=None):
         """[B, S] token ids -> [B, S, vocab] logits in the weights' dtype:
         the embeddings ``wte[ids] + wpe[pos]``, the blocks with causal
         flash attention, the final LayerNorm (the gated `layer_norm`), then
-        the tied head ``h @ wte.T`` — the non-pipeline branch of the JAX
-        ``GPTModel.forward`` and ``GPTForCausalLM.forward``.
-        ``position_ids`` defaults to ``0 .. S-1``."""
+        the tied head ``h @ wte.T`` — the non-pipeline, non-cache branch
+        of the JAX ``GPTModel.forward`` and ``GPTForCausalLM.forward``.
+        ``position_ids`` ([S] or [B, S]) defaults to ``0 .. S-1``;
+        ``segment_ids`` [B, S] (stacked layout only; keyword-only, since
+        JAX's third positional is the caches) keeps attention inside each
+        packed document."""
         cfg = self.cfg
         wte = self.word_embeddings
         dev = wte.device
@@ -402,25 +422,31 @@ class GPTForCausalLM(nn.Module):
         pos = (None if position_ids is None
                else torch.as_tensor(position_ids, device=dev).long())
         if not cfg.stacked_blocks:
-            return self.gpt(ids, pos) @ wte.t()
+            return self.gpt(ids, pos, segment_ids=segment_ids) @ wte.t()
         if pos is None:
             pos = torch.arange(ids.shape[-1], device=dev)
         h = self.wte[ids] + self.wpe[pos]
         nh = cfg.num_attention_heads
         hd = cfg.hidden_size // nh
         eps = cfg.layer_norm_epsilon
+        attn = _causal_attn
+        if segment_ids is not None:
+            attn = _packed_attn(torch.as_tensor(segment_ids, device=dev,
+                                                dtype=torch.int32))
         for layer in range(cfg.num_hidden_layers):
             p = {n: getattr(self, n)[layer] for n in BLOCK_PARAMS}
-            h, _ = _stacked_block_body(p, h, _causal_attn, nh, hd, eps)
+            h, _ = _stacked_block_body(p, h, attn, nh, hd, eps)
         h = layer_norm(h, cfg.hidden_size, self.lnf_w, self.lnf_b, eps)
         return h @ self.wte.t()
 
     def pretrain_loss(self, input_ids, labels, loss_mask=None,
-                      position_ids=None):
-        """``GPTPretrainingCriterion()(self(input_ids), labels,
-        loss_mask)`` — the non-1F1B branch of the JAX ``pretrain_loss``."""
+                      segment_ids=None, position_ids=None):
+        """``GPTPretrainingCriterion()(self(input_ids, position_ids,
+        segment_ids=segment_ids), labels, loss_mask)`` in the JAX argument
+        order — the non-1F1B branch of the JAX ``pretrain_loss``."""
         return GPTPretrainingCriterion(self.cfg)(
-            self(input_ids, position_ids), labels, loss_mask)
+            self(input_ids, position_ids, segment_ids=segment_ids), labels,
+            loss_mask)
 
     def param_arrays(self) -> dict:
         """{name: tensor}: stacked, keyed like the JAX engine's
@@ -450,7 +476,7 @@ class GPTForCausalLM(nn.Module):
         if not self.cfg.stacked_blocks:
             raise NotImplementedError(
                 f"{what} of the per-layer layout (its cached forward) is "
-                f"ROADMAP Queue 1 'Next' item 3; build the model with "
+                f"ROADMAP Queue 1 item 2; build the model with "
                 f"GPTConfig(stacked_blocks=True) to decode")
 
     def init_caches(self, batch_size, max_length, dtype=None):

@@ -1,22 +1,33 @@
-"""Causal flash attention — the port of the flash part of
-`paddle_tpu/ops/pallas_ops.py`, forward and backward.
+"""Flash attention — the port of the flash part of
+`paddle_tpu/ops/pallas_ops.py`, forward and backward, with every branch of
+its three kernels: causal or not, an additive (or bool) mask, ``kv_lens``
+and packed ``segment_ids``.
 
-`flash_attention_arrays` launches the CUDA kernel ``csrc/flash_fwd_causal.cu``
-on a CUDA tensor and computes `mha_reference` (the plain version,
-`pallas_ops.py:73`) on a CPU tensor.  Under autograd it goes through
-`FlashAttention`, the counterpart of `_flash_attn_core`'s custom_vjp
-(`pallas_ops.py:678-732`): the forward saves the logsumexp, and the
-backward launches the two kernels of ``csrc/flash_bwd_causal.cu``
-(`flash_bwd_dq`, then `flash_bwd_dkv`, as `_flash_bwd` does) on CUDA
-tensors, or computes `flash_attention_bwd_reference` on CPU tensors.
-Layout ``[batch, seq, heads, head_dim]``, as in the JAX package.
+`flash_attention_arrays` launches the CUDA kernels of
+``csrc/flash_fwd_causal.cu`` on a CUDA tensor and computes `mha_reference`
+(the plain version, `pallas_ops.py:73`) on a CPU tensor.  Under autograd it
+goes through `FlashAttention`, the counterpart of `_flash_attn_core`'s
+custom_vjp (`pallas_ops.py:678-732`): the forward saves its softmax
+statistics, and the backward launches the two kernels of
+``csrc/flash_bwd_causal.cu`` (`flash_bwd_dq`, then `flash_bwd_dkv`, as
+`_flash_bwd` does) on CUDA tensors, or computes
+`flash_attention_bwd_reference` on CPU tensors.  Layout
+``[batch, seq, heads, head_dim]``, as in the JAX package.
 
-With an additive (or bool) ``attn_mask`` and / or ``kv_lens`` the forward
-on a CUDA tensor launches the masked entry of the same source,
-``flash_fwd_masked`` (counted apart, as `masked`); it is forward only.
+Each source has two entries: the causal one with no mask, no ``kv_lens``
+and no segments (the serving prefill and unpacked training), and a variant
+entry for everything else, whose kernels are template instantiations with
+``MASKED`` (mask and / or ``kv_lens``), ``SEGS`` and ``CAUSAL``.  Each
+wrapper counts the variant launches apart, by the first of: ``segs`` (any
+call with segment ids), ``mask`` (a mask or ``kv_lens``), ``noncausal``.
 
-Left out for later slices: packed ``segment_ids``, non-causal attention on
-the card, and the backward of the mask and ``kv_lens`` variants.
+The softmax statistic the backward reads is the logsumexp, except with a
+mask or ``kv_lens``: there it is the pair (row max ``m``, ``log l``), since
+a row whose every key the mask closes has ``m`` ~ -1e30, where
+``lse = m + log l`` rounds ``log l`` away in fp32.  With the pair the
+backward rebuilds the probabilities the forward used, so it is the
+derivative of the port's own forward on every row (JAX's kernels read lse
+and rebuild ``exp(0) = 1`` in place of ``1/n`` on such a row).
 """
 from __future__ import annotations
 
@@ -28,66 +39,120 @@ import torch
 from . import _build
 
 __all__ = ["flash_attention_arrays", "mha_reference", "FlashAttention",
-           "flash_attention_bwd_reference", "attention_delta",
-           "flash_bwd_dq", "flash_bwd_dkv", "masked", "normalize_mask"]
+           "flash_attention_bwd_reference", "softmax_stats",
+           "recompute_probs",
+           "attention_delta", "flash_bwd_dq", "flash_bwd_dkv", "masked",
+           "segs", "noncausal", "normalize_mask", "variant_name"]
 
 KERNEL = "flash_fwd_causal"
 SOURCE = KERNEL       # csrc/<SOURCE>.cu
-launches = 0          # unmasked kernel launches since the last reset
+BWD_SOURCE = "flash_bwd_causal"
+launches = 0          # causal (no mask, kv_lens or segments) launches
 
 _NEG_INF = -1e30
+VARIANTS = ("mask", "segs", "noncausal")
 
 
-class _MaskedKernel:
-    """Launch counter of the mask / kv_lens entry of the same source."""
-    KERNEL = "flash_fwd_causal:mask"
-    SOURCE = SOURCE
-    launches = 0
+class _Variant:
+    """Launch counter of one variant of a kernel (module docstring)."""
+
+    def __init__(self, kernel, source):
+        self.KERNEL = kernel
+        self.SOURCE = source
+        self.launches = 0
 
 
-masked = _MaskedKernel()
+masked = _Variant(KERNEL + ":mask", SOURCE)
+segs = _Variant(KERNEL + ":segs", SOURCE)
+noncausal = _Variant(KERNEL + ":noncausal", SOURCE)
+_FWD_VARIANTS = {"mask": masked, "segs": segs, "noncausal": noncausal}
 
 
-def mha_reference(q, k, v, is_causal=False, scale=None, return_lse=False,
-                  mask=None, kv_lens=None):
-    """q, k, v: [B, S, H, D] -> [B, Sq, H, D] in v's dtype.  fp32 logits
-    (einsum of the operands widened to fp32, as JAX's
-    ``preferred_element_type=float32``), additive -1e30 causal mask aligned
-    at the end (query i sees keys <= i + Sk - Sq), fp32 softmax, probs cast
+def variant_name(is_causal, mask, kv_lens, segment_ids):
+    """The counter a launch with these branches counts under: ``segs``,
+    ``mask`` (a mask or kv_lens), ``noncausal``, or None (the causal
+    entry)."""
+    if segment_ids is not None:
+        return "segs"
+    if mask is not None or kv_lens is not None:
+        return "mask"
+    return None if is_causal else "noncausal"
+
+
+# ---------------------------------------------------------------------------
+# plain versions: the CPU path and the kernels' oracle
+# ---------------------------------------------------------------------------
+
+def mha_reference(q, k, v, mask=None, is_causal=False, scale=None,
+                  kv_lens=None, segment_ids=None, *, return_lse=False):
+    """q, k, v: [B, S, H, D] -> [B, Sq, H, D] in v's dtype, in the JAX
+    argument order.  fp32 logits (einsum of the operands widened to fp32,
+    as JAX's ``preferred_element_type=float32``), fp32 softmax, probs cast
     to v's dtype.  With ``return_lse`` also the fp32 logsumexp [B, H, Sq].
 
     ``mask``: additive float or bool (True attends) [Sq, Sk], [B, Sq, Sk]
-    or [Bm, Hm, Sq, Sk]; ``kv_lens``: [B] valid key counts (>= 1).  In the
-    JAX order (`pallas_ops.py:73-103`): the scaled logits plus the mask
-    (fp32; a bool mask as 0 / -1e30); keys that causal or ``kv_lens``
-    exclude carry no weight.  Wherever a row keeps a key the mask leaves
-    open this is the JAX reference's arithmetic bit for bit.  A row whose
-    every allowed key the mask closes (a left-pad query) takes the uniform
-    softmax over its allowed keys, as the kernel computes it; JAX's
-    reference spreads such a row over the excluded keys too and its TPU
-    kernel over whole key tiles.  No real token reads such a row."""
-    d = q.shape[-1]
-    scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    if mask is None and kv_lens is None:
-        logits = _masked_logits(q, k, scale, is_causal)
-    else:
-        logits = _variant_logits(q, k, scale, is_causal, mask, kv_lens)
+    or [Bm, Hm, Sq, Sk]; ``kv_lens``: [B] valid key counts (>= 1);
+    ``segment_ids``: [B, S] int ids (self-attention): a pair attends iff
+    its ids match.  Causal aligns at the end (query i sees keys <=
+    i + Sk - Sq).  In the JAX order (`pallas_ops.py:73-103`): the scaled
+    logits plus the mask (fp32; a bool mask as 0 / -1e30); keys that
+    causal, ``kv_lens`` or the ids exclude carry no weight (-1e30, or -inf
+    where a mask or kv_lens is given).  Wherever a row keeps a key the mask
+    leaves open this is the JAX reference's arithmetic bit for bit.  A row
+    whose every allowed key the mask closes (a left-pad query) takes the
+    uniform softmax over its allowed keys, as the kernel computes it;
+    JAX's reference spreads such a row over the excluded keys too and its
+    TPU kernel over whole key tiles.  No real token reads such a row.  A
+    row with no allowed key at all (segment ids with kv_lens can make one)
+    is unspecified, as in JAX; here it is zeros."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    logits = _logits(q, k, scale, is_causal, mask, kv_lens, segment_ids)
     probs = torch.softmax(logits, dim=-1)
+    if kv_lens is not None and segment_ids is not None:
+        probs = probs.nan_to_num(0.0)           # rows with no allowed key
     out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
     if return_lse:
         return out, torch.logsumexp(logits, dim=-1)
     return out
 
 
-def _masked_logits(q, k, scale, is_causal):
-    """fp32 [B, H, Sq, Sk] logits times scale, -1e30 where masked."""
+def _logits(q, k, scale, is_causal, mask=None, kv_lens=None,
+            segment_ids=None):
+    """fp32 [B, H, Sq, Sk]: the scaled logits plus the mask, with the keys
+    that causal, kv_lens or the segment ids exclude at -1e30 (-inf where a
+    mask or kv_lens is given, so that any finite mask value stays exact)."""
+    b, sq, h, _ = q.shape
+    sk = k.shape[1]
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if mask is not None:
+        logits = logits + normalize_mask(mask, b, h, sq, sk)
+    allowed = None
     if is_causal:
-        sq, sk = logits.shape[-2], logits.shape[-1]
-        causal = torch.ones((sq, sk), dtype=torch.bool,
-                            device=q.device).tril(sk - sq)
-        logits = logits.masked_fill(~causal, _NEG_INF)
-    return logits
+        allowed = torch.ones((1, 1, sq, sk), dtype=torch.bool,
+                             device=q.device).tril(sk - sq)
+    if kv_lens is not None:
+        lens = torch.as_tensor(kv_lens, device=q.device).reshape(b, 1, 1, 1)
+        valid = torch.arange(sk, device=q.device) < lens
+        allowed = valid if allowed is None else allowed & valid
+    if segment_ids is not None:
+        ids = torch.as_tensor(segment_ids, device=q.device)
+        same = (ids[:, None, :, None] == ids[:, None, None, :])
+        allowed = same if allowed is None else allowed & same
+    if allowed is None:
+        return logits
+    fill = (float("-inf") if mask is not None or kv_lens is not None
+            else _NEG_INF)
+    return logits.masked_fill(~allowed, fill)
+
+
+def softmax_stats(q, k, scale, is_causal, mask=None, kv_lens=None,
+                  segment_ids=None):
+    """(row max m, log l), each fp32 [B, H, Sq]: the softmax statistics
+    the masked backward reads (module docstring); ``m + log l`` is the
+    logsumexp."""
+    logits = _logits(q, k, scale, is_causal, mask, kv_lens, segment_ids)
+    m = logits.amax(-1)
+    return m, torch.exp(logits - m[..., None]).sum(-1).log()
 
 
 def normalize_mask(attn_mask, b, h, sq, sk):
@@ -114,23 +179,6 @@ def normalize_mask(attn_mask, b, h, sq, sk):
     return m.expand(b, h, sq, sk)
 
 
-def _variant_logits(q, k, scale, is_causal, mask, kv_lens):
-    """fp32 [B, H, Sq, Sk]: scaled logits plus the mask, -inf at the keys
-    causal or kv_lens exclude."""
-    b, sq, h, _ = q.shape
-    sk = k.shape[1]
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    if mask is not None:
-        logits = logits + normalize_mask(mask, b, h, sq, sk)
-    allowed = torch.ones((1, 1, sq, sk), dtype=torch.bool, device=q.device)
-    if is_causal:
-        allowed = allowed.tril(sk - sq)
-    if kv_lens is not None:
-        lens = torch.as_tensor(kv_lens, device=q.device).reshape(b, 1, 1, 1)
-        allowed = allowed & (torch.arange(sk, device=q.device) < lens)
-    return logits.masked_fill(~allowed, float("-inf"))
-
-
 def attention_delta(out, do):
     """``rowsum(float(dO) * float(out))`` as a contiguous fp32 [B, H, Sq]:
     the ``delta`` of `_flash_bwd` (`pallas_ops.py:548-549`), formed from
@@ -139,12 +187,29 @@ def attention_delta(out, do):
                         out.float()).contiguous()
 
 
-def _bwd_plain(q, k, v, do, lse, delta, scale):
+def recompute_probs(q, k, scale, lse, causal=True, mask=None, lens=None,
+                    segs=None, row_max=None):
+    """fp32 [B, H, Sq, Sk] probabilities rebuilt from the forward's
+    statistic, as the backward kernels rebuild them: ``exp(s - lse)``, or
+    with ``row_max`` (masked calls, where ``lse`` holds log l)
+    ``exp((s - m) - log l)``."""
+    logits = _logits(q, k, scale, causal, mask, lens, segs)
+    if row_max is None:
+        return torch.exp(logits - lse[..., None])
+    p = torch.exp(logits - row_max[..., None] - lse[..., None])
+    if lens is not None and segs is not None:
+        p = p.nan_to_num(0.0)                   # rows with no allowed key
+    return p
+
+
+def _bwd_plain(q, k, v, do, lse, delta, scale, causal=True, mask=None,
+               lens=None, segs=None, row_max=None):
     """The explicit recompute formula of the two backward kernels, with
     their rounding points: p rounded to dO's dtype before the dV product,
     ds to q's dtype before the dK product and to k's before the dQ product
-    (`pallas_ops.py:251`, `:313-316`); all products accumulate in fp32."""
-    p = torch.exp(_masked_logits(q, k, scale, True) - lse[..., None])
+    (`pallas_ops.py:251`, `:313-316`); all products accumulate in fp32;
+    p from `recompute_probs`."""
+    p = recompute_probs(q, k, scale, lse, causal, mask, lens, segs, row_max)
     dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
     ds = p * (dp - delta[..., None])
     dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), do.float())
@@ -155,16 +220,26 @@ def _bwd_plain(q, k, v, do, lse, delta, scale):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def flash_attention_bwd_reference(q, k, v, out, lse, do, scale):
-    """Plain causal flash backward: (dq, dk, dv) in the inputs' dtypes from
-    q, k, v [B, S, H, D], the forward's stored ``out`` and fp32 ``lse``
-    [B, H, Sq], and the output gradient ``do``.  Recomputes
+def flash_attention_bwd_reference(q, k, v, out, lse, do, scale, *,
+                                  is_causal=True, mask=None, kv_lens=None,
+                                  segment_ids=None, row_max=None):
+    """Plain flash backward: (dq, dk, dv) in the inputs' dtypes from q, k,
+    v [B, S, H, D], the forward's stored ``out``, its fp32 statistic
+    ``lse`` [B, H, Sq] and the output gradient ``do``.  Recomputes
     ``p = exp(s * scale - lse)`` rather than differentiating the forward,
-    as `_flash_bwd` does (`pallas_ops.py:524-625`)."""
-    return _bwd_plain(q, k, v, do, lse, attention_delta(out, do), scale)
+    as `_flash_bwd` does (`pallas_ops.py:524-625`).  With a mask or
+    kv_lens pass ``row_max`` and ``lse`` = log l (`softmax_stats`):
+    ``p = exp((s - m) - log l)``.  Causal unless ``is_causal=False``, as
+    the kernels it mirrors."""
+    return _bwd_plain(q, k, v, do, lse, attention_delta(out, do), scale,
+                      is_causal, mask, kv_lens, segment_ids, row_max)
 
 
-def _check_qkv(q, k, v):
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _check_qkv(q, k, v, causal=True):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dim() != 4:
             raise ValueError(f"{name} must be [B, S, H, D], got "
@@ -182,7 +257,7 @@ def _check_qkv(q, k, v):
         raise ValueError(f"kernel takes float32 or bfloat16, got {q.dtype}")
     if d not in (64, 128):
         raise ValueError(f"kernel takes head_dim 64 or 128, got {d}")
-    if k.shape[1] < sq:
+    if causal and k.shape[1] < sq:
         raise ValueError("causal attention needs Sk >= Sq")
 
 
@@ -192,84 +267,113 @@ def _head_layout(t):
     return t.stride(3) == 1 and (t.shape[2] == 1 or t.stride(2) == t.shape[3])
 
 
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _bind(fn, n_ptr, n_int, n_ll):
+    """Set ctypes argument types once: pointers, ints, long longs, then the
+    float scale and the stream."""
+    if fn.argtypes is None:
+        vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [vp] * n_ptr + [i] * n_int + [ll] * n_ll \
+            + [ctypes.c_float, vp]
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def _launch(q, k, v, scale):
+    """The causal entry (no mask, kv_lens or segments)."""
     global launches
     _check_qkv(q, k, v)
     b, sq, h, d = q.shape
     sk = k.shape[1]
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    lib = _lib()
-    err = lib.flash_fwd_causal(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), b, h, sq, sk, d, int(q.dtype == torch.bfloat16),
-        q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
-        v.stride(1), float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    fn = _bind(_build.load(SOURCE).flash_fwd_causal, 5, 6, 6)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             lse.data_ptr(), b, h, sq, sk, d, int(q.dtype == torch.bfloat16),
+             q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
+             v.stride(1), float(scale), _stream(q))
     _build.check(err, KERNEL)
     launches += 1
     return out, lse
 
 
-def _lib():
-    lib = _build.load(KERNEL)
-    fn = lib.flash_fwd_causal
-    if fn.argtypes is None:
-        vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [vp] * 5 + [i] * 6 + [ll] * 6 + [ctypes.c_float, vp]
-        fn.restype = ctypes.c_int
-    return lib
-
-
-def _launch_masked(q, k, v, mask, lens, scale):
-    """The masked entry: ``mask`` an fp32 [B, H, Sq, Sk] view or None,
-    ``lens`` a contiguous int32 [B] or None, both on q's device."""
-    _check_qkv(q, k, v)
-    b, sq, h, d = q.shape
-    sk = k.shape[1]
-    for name, t in (("attn_mask", mask), ("kv_lens", lens)):
+def _variant_args(q, causal, mask, lens, sid):
+    """Checked pointers and strides of the variant entries: ``mask`` an
+    fp32 [B, H, Sq, Sk] view or None, ``lens`` an int32 [B] or None,
+    ``sid`` an int32 [B, S] with unit stride in S or None."""
+    for name, t in (("attn_mask", mask), ("kv_lens", lens),
+                    ("segment_ids", sid)):
         if t is not None and t.device != q.device:
             raise ValueError(f"{name} must be on {q.device}, got {t.device}")
+    if lens is not None and not lens.is_contiguous():
+        raise ValueError("kv_lens must be contiguous")
+    if sid is not None and sid.stride(1) != 1:
+        raise ValueError("segment_ids needs unit stride in S")
+    mstrides = mask.stride() if mask is not None else (0, 0, 0, 0)
+    ptrs = [0 if t is None else t.data_ptr() for t in (mask, lens, sid)]
+    return ptrs, [*mstrides, 0 if sid is None else sid.stride(0)], \
+        int(bool(causal))
+
+
+def _launch_variant(q, k, v, scale, causal, mask, lens, sid, stats=False):
+    """The variant entry.  Returns ``(out, lse, (row_max, log_sum))``,
+    the pair only with ``stats`` (and a mask or kv_lens)."""
+    _check_qkv(q, k, v, causal)
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    ptrs, strides, c = _variant_args(q, causal, mask, lens, sid)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    fn = _build.load(SOURCE).flash_fwd_masked
-    if fn.argtypes is None:
-        vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [vp] * 7 + [i] * 6 + [ll] * 10 + [ctypes.c_float, vp]
-        fn.restype = ctypes.c_int
-    mstrides = mask.stride() if mask is not None else (0, 0, 0, 0)
+    pair = None
+    if stats and (mask is not None or lens is not None):
+        pair = tuple(torch.empty_like(lse) for _ in range(2))
+    pair_ptrs = (0, 0) if pair is None else (t.data_ptr() for t in pair)
+    fn = _bind(_build.load(SOURCE).flash_fwd_variant, 10, 7, 11)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             lse.data_ptr(), 0 if mask is None else mask.data_ptr(),
-             0 if lens is None else lens.data_ptr(), b, h, sq, sk, d,
-             int(q.dtype == torch.bfloat16), q.stride(0), q.stride(1),
-             k.stride(0), k.stride(1), v.stride(0), v.stride(1), *mstrides,
-             float(scale), torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "flash_fwd_masked")
-    masked.launches += 1
-    return out, lse
+             lse.data_ptr(), *pair_ptrs, *ptrs, b, h, sq, sk, d,
+             int(q.dtype == torch.bfloat16), c, q.stride(0), q.stride(1),
+             k.stride(0), k.stride(1), v.stride(0), v.stride(1), *strides,
+             float(scale), _stream(q))
+    _build.check(err, "flash_fwd_variant")
+    _FWD_VARIANTS[variant_name(causal, mask, lens, sid)].launches += 1
+    return out, lse, pair
 
 
 class _BwdKernel:
-    """Launch wrapper of one kernel of ``csrc/flash_bwd_causal.cu``, with
-    its own launch counter.  ``(q, k, v, do, lse, delta, scale)`` ->
-    ``dq`` (the dQ kernel, one output) or ``(dk, dv)`` (the dK/dV kernel,
-    two), each a contiguous [B, S, H, D] in the inputs' dtype.  On a CUDA
-    tensor it launches the kernel and raises on anything the kernel does
-    not take; on a CPU tensor it computes the same outputs of the plain
-    backward."""
+    """Launch wrapper of one kernel of ``csrc/flash_bwd_causal.cu``, with a
+    launch counter for its causal entry and one per variant
+    (``variants``).  ``(q, k, v, do, lse, delta, scale)`` plus the
+    branches -> ``dq`` (the dQ kernel, one output) or ``(dk, dv)`` (the
+    dK/dV kernel, two), each a contiguous [B, S, H, D] in the inputs'
+    dtype; with a mask or kv_lens, ``lse`` is log l and ``row_max`` the
+    row max (module docstring).  On a CUDA tensor it launches the kernel
+    and raises on anything the kernel does not take; on a CPU tensor it
+    computes the same outputs of the plain backward."""
 
-    SOURCE = "flash_bwd_causal"
+    SOURCE = BWD_SOURCE
 
     def __init__(self, kernel, n_out):
         self.KERNEL = kernel
-        self.launches = 0          # kernel launches since the last reset
+        self.launches = 0          # causal-entry launches since the reset
+        self.variants = {n: _Variant(f"{kernel}:{n}", BWD_SOURCE)
+                         for n in VARIANTS}
         self._n_out = n_out
 
-    def __call__(self, q, k, v, do, lse, delta, scale):
+    def __call__(self, q, k, v, do, lse, delta, scale, *, causal=True,
+                 mask=None, lens=None, segs=None, row_max=None):
         if not q.is_cuda:
-            dq, dk, dv = _bwd_plain(q, k, v, do, lse, delta, scale)
+            dq, dk, dv = _bwd_plain(q, k, v, do, lse, delta, scale, causal,
+                                    mask, lens, segs, row_max)
             return dq if self._n_out == 1 else (dk, dv)
-        _check_qkv(q, k, v)
+        return self._launch(q, k, v, do, lse, delta, scale, causal, mask,
+                            lens, segs, row_max)
+
+    def _launch(self, q, k, v, do, lse, delta, scale, causal, mask, lens,
+                segs, row_max):
+        _check_qkv(q, k, v, causal)
         if do.shape != q.shape or do.dtype != q.dtype \
                 or do.device != q.device or not _head_layout(do):
             raise ValueError(f"do must match q in shape, dtype, device and "
@@ -277,127 +381,163 @@ class _BwdKernel:
                              f"{do.device}, strides {do.stride()}")
         b, sq, h, d = q.shape
         sk = k.shape[1]
-        for name, t in (("lse", lse), ("delta", delta)):
+        name = variant_name(causal, mask, lens, segs)
+        stats = (("lse", lse), ("delta", delta))
+        if mask is not None or lens is not None:
+            if row_max is None:
+                raise ValueError("a masked backward needs row_max")
+            stats += (("row_max", row_max),)
+        for what, t in stats:
             if (tuple(t.shape) != (b, h, sq) or t.dtype != torch.float32
                     or not t.is_contiguous() or t.device != q.device):
-                raise ValueError(f"{name} must be a contiguous float32 "
+                raise ValueError(f"{what} must be a contiguous float32 "
                                  f"{(b, h, sq)} on {q.device}")
         rows = sq if self._n_out == 1 else sk
         outs = [torch.empty((b, rows, h, d), dtype=q.dtype, device=q.device)
                 for _ in range(self._n_out)]
-        err = self._fn()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), *(o.data_ptr() for o in outs),
-            b, h, sq, sk, d, int(q.dtype == torch.bfloat16), q.stride(0),
-            q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-            do.stride(0), do.stride(1), float(scale),
-            torch.cuda.current_stream(q.device).cuda_stream)
+        common = (b, h, sq, sk, d, int(q.dtype == torch.bfloat16))
+        qkvd = (q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+                v.stride(0), v.stride(1), do.stride(0), do.stride(1))
+        lib = _build.load(self.SOURCE)
+        base = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr())
+        if name is None:
+            fn = _bind(getattr(lib, self.KERNEL), 6 + self._n_out, 6, 8)
+            err = fn(*base, *(o.data_ptr() for o in outs), *common, *qkvd,
+                     float(scale), _stream(q))
+        else:
+            ptrs, strides, c = _variant_args(q, causal, mask, lens, segs)
+            fn = _bind(getattr(lib, self.KERNEL.replace("_causal",
+                                                        "_variant")),
+                       10 + self._n_out, 7, 13)
+            err = fn(*base, 0 if row_max is None else row_max.data_ptr(),
+                     *ptrs, *(o.data_ptr() for o in outs), *common, c,
+                     *qkvd, *strides, float(scale), _stream(q))
         _build.check(err, self.KERNEL)
-        self.launches += 1
+        counter = self if name is None else self.variants[name]
+        counter.launches += 1
         return outs[0] if self._n_out == 1 else tuple(outs)
-
-    def _fn(self):
-        fn = getattr(_build.load(self.SOURCE), self.KERNEL)
-        if fn.argtypes is None:
-            vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            fn.argtypes = ([vp] * (6 + self._n_out) + [i] * 6 + [ll] * 8
-                           + [ctypes.c_float, vp])
-            fn.restype = ctypes.c_int
-        return fn
 
 
 flash_bwd_dq = _BwdKernel("flash_bwd_dq_causal", 1)
 flash_bwd_dkv = _BwdKernel("flash_bwd_dkv_causal", 2)
 
 
+def _forward(q, k, v, scale, causal, mask, lens, sid, stats=False):
+    """(out in q's dtype, lse, the masked pair or None) on either device:
+    the kernels on a CUDA tensor, the plain version on a CPU one."""
+    if q.is_cuda:
+        if variant_name(causal, mask, lens, sid) is None:
+            return (*_launch(q, k, v, scale), None)
+        return _launch_variant(q, k, v, scale, causal, mask, lens, sid,
+                               stats)
+    out, lse = mha_reference(q, k, v, mask, causal, scale, lens, sid,
+                             return_lse=True)
+    pair = None
+    if stats and (mask is not None or lens is not None):
+        pair = softmax_stats(q, k, scale, causal, mask, lens, sid)
+    return out.to(q.dtype), lse, pair
+
+
 class FlashAttention(torch.autograd.Function):
-    """Differentiable causal attention: ``apply(q, k, v, scale)`` ->
-    ``(out, lse)``, lse not differentiable.  Saves ``(q, k, v, out, lse)``
-    — q, k, v are the caller's tensors (views of the fused qkv projection
-    in the GPT block), so nothing but out and lse is added to what the
-    graph keeps, as in the JAX custom_vjp."""
+    """Differentiable attention: ``apply(q, k, v, scale, causal, mask,
+    lens, segs)`` -> ``(out, lse)``, lse not differentiable.  ``mask`` an
+    fp32 [B, H, Sq, Sk] view, ``lens`` int32 [B], ``segs`` int32 [B, S],
+    each or None; none of them gets a gradient, as on the JAX kernel path
+    (`pallas_ops.py:709-714`, `:783-787`, `:804`).  Saves q, k, v (the
+    caller's tensors: views of the fused qkv projection in the GPT block),
+    out, the softmax statistics and the branches' tensors, so nothing but
+    out and the statistics is added to what the graph keeps, as in the JAX
+    custom_vjp."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale):
-        if q.is_cuda:
-            out, lse = _launch(q, k, v, scale)
-        else:
-            out, lse = mha_reference(q, k, v, is_causal=True, scale=scale,
-                                     return_lse=True)
-            out = out.to(q.dtype)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.scale = scale
+    def forward(ctx, q, k, v, scale, causal=True, mask=None, lens=None,
+                segs=None):
+        out, lse, pair = _forward(q, k, v, scale, causal, mask, lens, segs,
+                                  stats=True)
+        row_max, stat = (None, lse) if pair is None else pair
+        ctx.save_for_backward(q, k, v, out, stat, row_max, mask, lens, segs)
+        ctx.scale, ctx.causal = scale, causal
         ctx.mark_non_differentiable(lse)
         return out, lse
 
     @staticmethod
     def backward(ctx, do, _dlse):
-        q, k, v, out, lse = ctx.saved_tensors
-        if not q.is_cuda:
-            dq, dk, dv = flash_attention_bwd_reference(q, k, v, out, lse, do,
-                                                       ctx.scale)
-            return dq, dk, dv, None
-        if not _head_layout(do):
+        q, k, v, out, stat, row_max, mask, lens, segs = ctx.saved_tensors
+        if q.is_cuda and not _head_layout(do):
             # autograd gives no layout guarantee; one copy of [B, S, H, D]
             do = do.contiguous()
         delta = attention_delta(out, do)
-        dq = flash_bwd_dq(q, k, v, do, lse, delta, ctx.scale)
-        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, ctx.scale)
-        return dq, dk, dv, None
+        kw = dict(causal=ctx.causal, mask=mask, lens=lens, segs=segs,
+                  row_max=row_max)
+        if q.is_cuda:
+            dq = flash_bwd_dq(q, k, v, do, stat, delta, ctx.scale, **kw)
+            dk, dv = flash_bwd_dkv(q, k, v, do, stat, delta, ctx.scale, **kw)
+        else:
+            dq, dk, dv = _bwd_plain(q, k, v, do, stat, delta, ctx.scale,
+                                    ctx.causal, mask, lens, segs, row_max)
+        return dq, dk, dv, None, None, None, None, None
 
 
-def flash_attention_arrays(q, k, v, attn_mask=None, is_causal=True,
-                           scale=None, kv_lens=None, return_lse=False):
-    """Attention over [B, S, H, D], causal by default.  Returns ``out`` (in
-    q's dtype) and, with ``return_lse``, the fp32 logsumexp [B, H, Sq].
+def flash_attention_arrays(q, k, v, attn_mask=None, is_causal=False,
+                           scale=None, kv_lens=None, segment_ids=None, *,
+                           return_lse=False):
+    """Attention over [B, S, H, D] in the JAX argument order and defaults
+    (non-causal unless ``is_causal``).  Returns ``out`` (in q's dtype)
+    and, with ``return_lse``, the fp32 logsumexp [B, H, Sq].
 
     ``attn_mask``: bool (True attends) or additive, [Sq, Sk], [B, Sq, Sk]
     or [Bm, Hm, Sq, Sk] (Bm in {1, B}, Hm in {1, H}); ``kv_lens``: [B]
-    valid key counts (>= 1).  Both compose with causal as in
-    `mha_reference`.
+    valid key counts (>= 1); ``segment_ids``: [B, S] packed-sequence ids,
+    self-attention only (positions attend iff their ids match).  All
+    compose with each other and with causal as in `mha_reference`.
 
     On a CUDA tensor this launches the hand-written kernels — any S, head
-    dims 64 and 128, float32 or bfloat16, causal — and raises on anything
-    they do not take; it never falls back.  On a CPU tensor it computes
-    `mha_reference`.  When grad is enabled and an input requires it, the
-    unmasked causal call goes through `FlashAttention`, whose backward is
-    the two backward kernels (CUDA) or the plain backward (CPU); a mask or
-    ``kv_lens`` under grad is differentiated through `mha_reference` on
-    the CPU (the JAX fallback's VJP) and raises on the card."""
+    dims 64 and 128, float32 or bfloat16, every branch — and raises on
+    anything they do not take; it never falls back.  On a CPU tensor it
+    computes `mha_reference`.  When grad is enabled and q, k or v requires
+    it, the call goes through `FlashAttention`, whose backward is the two
+    backward kernels (CUDA) or the plain backward (CPU); the mask, kv_lens
+    and ids get no gradient, as on the JAX kernel path.  On the CPU a mask
+    that itself requires grad is differentiated through `mha_reference`
+    instead (the JAX fallback's VJP)."""
     d = q.shape[-1]
+    b, sq, h, _ = q.shape
+    sk = k.shape[1]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    if q.is_cuda and not is_causal:
-        raise NotImplementedError(
-            "the CUDA flash kernel is the causal variant only")
-    grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
-    if attn_mask is not None or kv_lens is not None:
-        b, sq, h, _ = q.shape
-        mask = None if attn_mask is None else normalize_mask(
-            attn_mask, b, h, sq, k.shape[1])
-        lens = None if kv_lens is None else torch.as_tensor(
-            kv_lens, dtype=torch.int32, device=q.device).reshape(-1)
-        if lens is not None and lens.shape != (b,):
+    sid = None
+    if segment_ids is not None:
+        sid = torch.as_tensor(segment_ids, dtype=torch.int32,
+                              device=q.device)
+        if sq != sk or tuple(sid.shape) != (b, sq):
+            raise ValueError(
+                f"segment_ids must be [batch, seq] = [{b}, {sq}] for "
+                f"self-attention (got shape {tuple(sid.shape)}, key length "
+                f"{sk})")
+        if sid.stride(1) != 1:
+            sid = sid.contiguous()
+    lens = None
+    if kv_lens is not None:
+        lens = torch.as_tensor(kv_lens, dtype=torch.int32,
+                               device=q.device).reshape(-1)
+        if lens.shape != (b,):
             raise ValueError(f"kv_lens must be [{b}], got "
                              f"{tuple(torch.as_tensor(kv_lens).shape)}")
-        if q.is_cuda:
-            if grad:
-                raise NotImplementedError(
-                    "the backward of the masked / kv_lens flash attention "
-                    "is ROADMAP Queue 2 item 2 (the next slice): on the "
-                    "card the mask and kv_lens variants are forward only")
-            out, lse = _launch_masked(q, k, v, mask, lens, scale)
-            return (out, lse) if return_lse else out
-        out = mha_reference(q, k, v, is_causal=is_causal, scale=scale,
-                            return_lse=return_lse, mask=mask, kv_lens=lens)
-    elif is_causal and grad:
-        out, lse = FlashAttention.apply(q, k, v, scale)
-        return (out, lse) if return_lse else out
+        lens = lens.contiguous()
+    mask = None if attn_mask is None else normalize_mask(attn_mask, b, h,
+                                                         sq, sk)
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    mask_grad = (attn_mask is not None and attn_mask.requires_grad
+                 and torch.is_grad_enabled())
+    if grad and not (mask_grad and not q.is_cuda):
+        out, lse = FlashAttention.apply(q, k, v, scale, is_causal,
+                                        None if mask is None
+                                        else mask.detach(), lens, sid)
     elif q.is_cuda:
-        out, lse = _launch(q, k, v, scale)
-        return (out, lse) if return_lse else out
+        out, lse, _ = _forward(q, k, v, scale, is_causal, mask, lens, sid)
     else:
-        out = mha_reference(q, k, v, is_causal=is_causal, scale=scale,
+        res = mha_reference(q, k, v, mask, is_causal, scale, lens, sid,
                             return_lse=return_lse)
-    if return_lse:
-        return out[0].to(q.dtype), out[1]
-    return out.to(q.dtype)
+        out, lse = res if return_lse else (res, None)
+        out = out.to(q.dtype)
+    return (out, lse) if return_lse else out

@@ -89,7 +89,7 @@ from __future__ import annotations
 
 import torch
 
-from .flash_attention import _masked_logits, attention_delta, mha_reference
+from .flash_attention import attention_delta, mha_reference, recompute_probs
 from .flash_decode import flash_decode_reference
 from .fused_mlp import _act, fused_layernorm_reference
 
@@ -125,17 +125,20 @@ def compare(out, want, limit):
     return diff.max().item(), ratio.max().item(), within
 
 
-def flash_fwd_magnitude(q, k, v):
-    """P|V| in fp32: the causal attention of the widened inputs with |V|."""
-    return mha_reference(q.float(), k.float(), v.float().abs(),
-                         is_causal=True)
+def flash_fwd_magnitude(q, k, v, is_causal=True, mask=None, kv_lens=None,
+                        segment_ids=None):
+    """P|V| in fp32: the attention of the widened inputs with |V|, causal
+    unless ``is_causal=False``, with the branches given."""
+    return mha_reference(q.float(), k.float(), v.float().abs(), mask,
+                         is_causal, kv_lens=kv_lens, segment_ids=segment_ids)
 
 
-def flash_bwd_magnitudes(q, k, v, out, lse, do, scale):
+def flash_bwd_magnitudes(q, k, v, out, lse, do, scale, **branches):
     """(mag_dq, mag_dk, mag_dv) in fp32 [B, S, H, D]: scale W|K|,
     scale W^T|Q| and P^T|dO|, with W = P (|dO|.|V|^T + |dO|.|out|), from
-    the same recompute as the plain backward."""
-    p = torch.exp(_masked_logits(q, k, scale, True) - lse[..., None])
+    the same recompute as the plain backward (`recompute_probs`, whose
+    keywords ``branches`` takes)."""
+    p = recompute_probs(q, k, scale, lse, **branches)
     ado = do.float().abs()
     w = p * (torch.einsum("bqhd,bkhd->bhqk", ado, v.float().abs())
              + attention_delta(out.abs(), ado)[..., None])

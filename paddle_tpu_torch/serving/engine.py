@@ -58,12 +58,15 @@ class EngineConfig:
     # prefill token budget per step; None = whole prompt in one chunk
     max_num_batched_tokens: Optional[int] = None
     max_model_len: Optional[int] = None    # default: max_position_embeddings
-    device: Optional[str] = None           # None = "cuda"
-    dtype: Optional[torch.dtype] = None    # None = the model's dtype
     # "int8": int8 KV pools with per-block-per-head scales; the default
     # num_blocks then fills the fp pool's bytes (~2x blocks for bf16, ~4x
     # for fp32).  None = pools in the engine's dtype.
     kv_cache_dtype: Optional[str] = None
+    # port-only fields, keyword-only so that a positional call means what
+    # it means in JAX (whose next field, metrics_port, is not ported)
+    _: dataclasses.KW_ONLY
+    device: Optional[str] = None           # None = "cuda"
+    dtype: Optional[torch.dtype] = None    # None = the model's dtype
 
 
 class LLMEngine:

@@ -71,6 +71,10 @@ class SamplingParams:
     top_p: float = 1.0
     eos_token_id: Optional[int] = None
     seed: Optional[int] = None
+    # fields after the JAX fields the port has: JAX's next one,
+    # deadline_s, is not ported, so these are keyword-only and a
+    # positional call means what it means in JAX or raises
+    _: dataclasses.KW_ONLY
     tenant: Optional[str] = None
     priority: str = "interactive"
 

@@ -23,6 +23,12 @@ Tolerances against the plain version on the same inputs
   compute in fp32; bf16 rounds the output once).
 - the masked / kv_lens flash forward: the forward limit above, on every
   row, left-pad rows (all keys masked) included.
+- the variant entries of the flash kernels (segment ids, non-causal, mask
+  and kv_lens, forward and backward): the forward and backward limits
+  above, every row (rows the mask closes entirely too); lse and the
+  masked (row max, log l) pair within 1e-4; fp32 autograd through
+  `flash_attention_arrays` on the card within 1e-4 max|ref| of the same
+  call on the CPU.
 - LayerNorm backward: each of dx, dw, db within 1e-5 of its sum over
   term magnitudes, plus one bf16 step for a bf16 output
   (`tolerance.ln_bwd_limits`); a second launch bitwise equal.
@@ -39,6 +45,7 @@ import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch import ops
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import flash_decode as fd
 from paddle_tpu_torch.ops import fused_decode as fdl
@@ -87,7 +94,8 @@ def _fused_qkv(b, s, h, d, dtype, seed):
 @pytest.mark.parametrize("s,d", [(7, 64), (200, 64), (130, 128)])
 def test_flash_kernel_matches_plain(s, d, dtype):
     q, k, v = _fused_qkv(2, s, 3, d, dtype, s + d)
-    out, lse = fa.flash_attention_arrays(q, k, v, return_lse=True)
+    out, lse = fa.flash_attention_arrays(q, k, v, is_causal=True,
+                                         return_lse=True)
     want, want_lse = fa.mha_reference(q, k, v, is_causal=True,
                                       return_lse=True)
     torch.cuda.synchronize()
@@ -103,7 +111,8 @@ def test_flash_kernel_matches_plain(s, d, dtype):
 def test_flash_bwd_kernels_match_plain(s, d, dtype):
     q, k, v = _fused_qkv(2, s, 3, d, dtype, 10 * s + d)
     scale = d ** -0.5
-    out, lse = fa.flash_attention_arrays(q, k, v, return_lse=True)
+    out, lse = fa.flash_attention_arrays(q, k, v, is_causal=True,
+                                         return_lse=True)
     g = torch.Generator().manual_seed(s)
     # a strided dO: the [B, S, H, D] view of a [B, S, 2, H, D] tensor
     do = torch.randn(2, s, 2, 3, d, generator=g).to("cuda", dtype)[:, :, 1]
@@ -129,7 +138,7 @@ def test_flash_autograd_launches_both_bwd_kernels():
     q, k, v = (t.detach().requires_grad_()
                for t in _fused_qkv(1, 65, 2, 64, torch.float32, 3))
     fa.flash_bwd_dq.launches = fa.flash_bwd_dkv.launches = 0
-    out = fa.flash_attention_arrays(q, k, v)
+    out = fa.flash_attention_arrays(q, k, v, is_causal=True)
     out.square().sum().backward()
     torch.cuda.synchronize()
     assert fa.flash_bwd_dq.launches == 1 and fa.flash_bwd_dkv.launches == 1
@@ -270,8 +279,8 @@ def _mask_inputs(b, s, h, d, kind, dtype, seed):
 def test_flash_masked_kernel_matches_plain(b, s, h, d, kind, dtype):
     q, k, v, mask, lens = _mask_inputs(b, s, h, d, kind, dtype, s + d)
     fa.launches = fa.masked.launches = 0
-    out, lse = fa.flash_attention_arrays(q, k, v, mask, kv_lens=lens,
-                                         return_lse=True)
+    out, lse = fa.flash_attention_arrays(q, k, v, mask, is_causal=True,
+                                         kv_lens=lens, return_lse=True)
     want, want_lse = fa.mha_reference(q, k, v, is_causal=True,
                                       return_lse=True, mask=mask,
                                       kv_lens=lens)
@@ -284,13 +293,131 @@ def test_flash_masked_kernel_matches_plain(b, s, h, d, kind, dtype):
     assert (lse - want_lse).abs().max().item() <= 1e-4
 
 
+def _variant_inputs(kind, b, s, h, d, dtype, seed):
+    """q, k, v (slices of one fused qkv tensor), dO and the branches
+    (causal, mask, kv_lens, segment ids) of a variant case: ``segs``
+    sorted documents straddling the 64-row tiles in row 0 and the same ids
+    permuted in row 1, causal; ``segs_nc`` the same, non-causal; ``nc``
+    non-causal, Sk = s + 70; ``pad`` left-pad keys and rows (rows the mask
+    closes entirely), causal; ``lens_nc`` kv_lens, non-causal; ``all``
+    segments, an additive [B, H, S, S] mask and kv_lens, causal."""
+    g = torch.Generator().manual_seed(seed)
+    sk = s + 70 if kind == "nc" else s
+    qkv = torch.randn(b, sk, 3, h, d, generator=g).to("cuda", dtype)
+    q, k, v = qkv[:, :s, 0], qkv[:, :, 1], qkv[:, :, 2]
+    do = torch.randn(b, s, h, d, generator=g).to("cuda", dtype)
+    causal = kind in ("segs", "pad", "all")
+    mask = lens = segs = None
+    if kind in ("segs", "segs_nc", "all"):
+        cuts = [0, 50, 90, 150, 171, s]
+        row = torch.cat([torch.full((cuts[i + 1] - cuts[i],), i)
+                         for i in range(len(cuts) - 1)])
+        segs = torch.stack([row, row[torch.randperm(s, generator=g)]]
+                           + [row] * (b - 2)).int().cuda()
+    if kind == "pad":
+        m = torch.zeros(b, 1, s, s)
+        for r in range(b):
+            n = 13 + 40 * r
+            m[r, :, :, :n] = -1e30
+            m[r, :, :n, :] = -1e30
+        mask = m.cuda()
+    if kind == "all":
+        mask = (torch.randn(b, h, s, s, generator=g) * 2).cuda()
+    if kind in ("lens_nc", "all"):
+        lens = torch.tensor([s - 45 * r for r in range(b)],
+                            dtype=torch.int32).cuda()
+    return q, k, v, do, causal, mask, lens, segs
+
+
+VARIANT_CASES = [("segs", 3, 200, 3, 64), ("segs_nc", 2, 200, 2, 64),
+                 ("nc", 2, 130, 2, 64), ("pad", 2, 200, 3, 64),
+                 ("lens_nc", 3, 200, 2, 128), ("all", 2, 200, 2, 64)]
+
+
 @pytest.mark.cuda
 @pytest.mark.usefixtures("needs_cuda")
-def test_flash_masked_refuses_grad_on_the_card():
-    q, k, v, mask, _ = _mask_inputs(1, 64, 2, 64, "pad", torch.float32, 1)
-    q.requires_grad_()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fa.flash_attention_arrays(q, k, v, mask)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind,b,s,h,d", VARIANT_CASES)
+def test_flash_variant_kernels_match_plain(kind, b, s, h, d, dtype):
+    """The variant entries of the forward and both backward kernels
+    against the plain versions, every row; each counts one launch under
+    its variant."""
+    q, k, v, do, causal, mask, lens, segs = _variant_inputs(
+        kind, b, s, h, d, dtype, s + d)
+    scale = d ** -0.5
+    m4 = None if mask is None else fa.normalize_mask(mask, b, h, s,
+                                                     k.shape[1])
+    name = fa.variant_name(causal, m4, lens, segs)
+    counters = [fa.segs, fa.masked, fa.noncausal,
+                fa.flash_bwd_dq.variants[name],
+                fa.flash_bwd_dkv.variants[name]]
+    for c in counters:
+        c.launches = 0
+    out, lse, pair = fa._launch_variant(q, k, v, scale, causal, m4, lens,
+                                        segs, stats=True)
+    want, want_lse = fa.mha_reference(q, k, v, m4, causal, scale, lens,
+                                      segs, return_lse=True)
+    mag = tol.flash_fwd_magnitude(q, k, v, causal, m4, lens, segs)
+    row_max, stat = (None, lse) if pair is None else pair
+    delta = fa.attention_delta(out, do)
+    kw = dict(causal=causal, mask=m4, lens=lens, segs=segs, row_max=row_max)
+    dq = fa.flash_bwd_dq(q, k, v, do, stat, delta, scale, **kw)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, stat, delta, scale, **kw)
+    ref = fa.flash_attention_bwd_reference(
+        q, k, v, out, stat, do, scale, is_causal=causal, mask=m4,
+        kv_lens=lens, segment_ids=segs, row_max=row_max)
+    mags = tol.flash_bwd_magnitudes(q, k, v, out, stat, do, scale, **kw)
+    torch.cuda.synchronize()
+    assert [c.launches for c in counters] == [
+        int(name == "segs"), int(name == "mask"), int(name == "noncausal"),
+        1, 1]
+    err, ok = _fwd_ok(out, want, mag)
+    assert ok, ("out", err)
+    assert (lse - want_lse).abs().max().item() <= 1e-4
+    if pair is not None:
+        pm, pl = fa.softmax_stats(q, k, scale, causal, m4, lens, segs)
+        assert (pair[0] - pm).abs().max().item() <= 1e-4
+        assert (pair[1] - pl).abs().max().item() <= 1e-4
+    for what, got, r, mg in zip(("dq", "dk", "dv"), (dq, dk, dv), ref, mags):
+        assert got.shape == r.shape and got.dtype == dtype
+        limit = (BWD_REL_FP32 * r.abs().max().item()
+                 if dtype == torch.float32
+                 else tol.bf16_limit(got, r, mg, tol.BWD_COEF))
+        err, ratio, ok = tol.compare(got, r, limit)
+        assert ok, (what, err, ratio)
+
+
+@pytest.mark.cuda
+@pytest.mark.usefixtures("needs_cuda")
+@pytest.mark.parametrize("kind", ["segs", "nc", "pad", "lens_nc", "all"])
+def test_flash_autograd_variants_match_cpu(kind):
+    """fp32 gradients through `flash_attention_arrays` on the card (the
+    variant kernels) against the same call on the CPU (the plain forward
+    and backward), each within 1e-4 max|ref|; the card launches the
+    variant forward, dQ and dK/dV once each, the CPU nothing."""
+    q, k, v, do, causal, mask, lens, segs = _variant_inputs(
+        kind, 2, 200, 2, 64, torch.float32, 9)
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        qt, kt, vt = (t.detach().to(dev).requires_grad_() for t in (q, k, v))
+        ops.reset_launch_counts()
+        out = fa.flash_attention_arrays(
+            qt, kt, vt, None if mask is None else mask.to(dev), causal,
+            kv_lens=None if lens is None else lens.to(dev),
+            segment_ids=None if segs is None else segs.to(dev))
+        out.backward(do.to(dev))
+        counts = ops.launch_counts()
+        grads[dev] = [t.grad.cpu() for t in (qt, kt, vt)]
+        if dev == "cpu":
+            assert set(counts.values()) == {0}
+        else:
+            name = fa.variant_name(causal, mask, lens, segs)
+            assert {n: c for n, c in counts.items() if c} == {
+                f"{fa.KERNEL}:{name}": 1, f"{fa.flash_bwd_dq.KERNEL}:{name}": 1,
+                f"{fa.flash_bwd_dkv.KERNEL}:{name}": 1}
+    for what, g, r in zip(("dq", "dk", "dv"), grads["cuda"], grads["cpu"]):
+        assert (g - r).abs().max().item() <= \
+            BWD_REL_FP32 * r.abs().max().item(), what
 
 
 def _randn(shape, seed, dtype, scale=1.0):

@@ -58,7 +58,8 @@ def test_flash_lse_is_logsumexp_of_masked_logits():
     rng = np.random.RandomState(0)
     q, k, v = (_t(rng.randn(1, 9, 2, 16).astype(np.float32))
                for _ in range(3))
-    out, lse = fa.flash_attention_arrays(q, k, v, return_lse=True)
+    out, lse = fa.flash_attention_arrays(q, k, v, is_causal=True,
+                                         return_lse=True)
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k) / 4.0
     mask = torch.ones(9, 9, dtype=torch.bool).tril()
     want = torch.logsumexp(logits.masked_fill(~mask, -1e30), dim=-1)
@@ -144,7 +145,8 @@ def test_stacked_block_body_matches_jax():
         nh, H // nh, 1e-5)
     got, _ = _stacked_block_body(
         {n: _t(a) for n, a in p.items()}, _t(h),
-        lambda q, k, v: (fa.flash_attention_arrays(q, k, v), None),
+        lambda q, k, v: (fa.flash_attention_arrays(q, k, v, is_causal=True),
+                         None),
         nh, H // nh, 1e-5)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
                                rtol=1e-5)

@@ -109,7 +109,8 @@ def test_fully_masked_row_is_uniform_over_allowed_keys():
     mask = torch.zeros(1, 1, 1, s)
     mask[..., :3] = -1e30                      # three left pads
     m = mask.expand(1, 1, s, s)
-    out = fa.flash_attention_arrays(q, k, v, m, kv_lens=torch.tensor([6]))
+    out = fa.flash_attention_arrays(q, k, v, m, is_causal=True,
+                                    kv_lens=torch.tensor([6]))
     for i in range(3):                         # pad rows
         torch.testing.assert_close(out[0, i, 0], v[0, :i + 1, 0].mean(0))
     keys = torch.arange(s)
@@ -134,7 +135,8 @@ def test_masked_grad_on_cpu_matches_jax_vjp():
     _, vjp = jax.vjp(jf, *(jnp.asarray(a) for a in (q, k, v)))
     want = vjp(jnp.asarray(g))
     qt, kt, vt = (_t(a).requires_grad_() for a in (q, k, v))
-    fa.flash_attention_arrays(qt, kt, vt, _t(mask)).backward(_t(g))
+    fa.flash_attention_arrays(qt, kt, vt, _t(mask),
+                              is_causal=True).backward(_t(g))
     for got, w in zip((qt.grad, kt.grad, vt.grad), want):
         np.testing.assert_allclose(got.numpy(), np.asarray(w), atol=TOL,
                                    rtol=0)

@@ -111,9 +111,10 @@ def test_flash_no_grad_path_is_not_recorded():
     q, k, v = (torch.randn(1, 9, 2, 16, requires_grad=True)
                for _ in range(3))
     with torch.no_grad():
-        out = fa.flash_attention_arrays(q, k, v)
+        out = fa.flash_attention_arrays(q, k, v, is_causal=True)
     assert out.grad_fn is None
-    out2 = fa.flash_attention_arrays(q.detach(), k.detach(), v.detach())
+    out2 = fa.flash_attention_arrays(q.detach(), k.detach(), v.detach(),
+                                     is_causal=True)
     np.testing.assert_array_equal(out.numpy(), out2.numpy())
 
 
@@ -121,7 +122,8 @@ def test_bwd_wrappers_on_cpu_compute_the_plain_backward():
     rng = np.random.RandomState(3)
     q, k, v, do = (_t(rng.randn(1, 11, 2, 64).astype(np.float32))
                    for _ in range(4))
-    out, lse = fa.flash_attention_arrays(q, k, v, return_lse=True)
+    out, lse = fa.flash_attention_arrays(q, k, v, is_causal=True,
+                                         return_lse=True)
     want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, 0.125)
     delta = fa.attention_delta(out, do)
     ops.reset_launch_counts()
@@ -130,8 +132,12 @@ def test_bwd_wrappers_on_cpu_compute_the_plain_backward():
     for got, w in zip((dq, dk, dv), want):
         torch.testing.assert_close(got, w, atol=0, rtol=0)
     assert set(ops.launch_counts()) == {
-        "flash_fwd_causal", "flash_fwd_causal:mask", "flash_bwd_dq_causal",
-        "flash_bwd_dkv_causal", "ragged_paged_attention",
+        "flash_fwd_causal", "flash_fwd_causal:mask", "flash_fwd_causal:segs",
+        "flash_fwd_causal:noncausal", "flash_bwd_dq_causal",
+        "flash_bwd_dq_causal:mask", "flash_bwd_dq_causal:segs",
+        "flash_bwd_dq_causal:noncausal", "flash_bwd_dkv_causal",
+        "flash_bwd_dkv_causal:mask", "flash_bwd_dkv_causal:segs",
+        "flash_bwd_dkv_causal:noncausal", "ragged_paged_attention",
         "ragged_paged_attention:int8", "flash_decode", "fused_decode_layer",
         "fused_layernorm", "fused_layernorm_bwd", "fused_ffn"}
     assert set(ops.launch_counts().values()) == {0}
