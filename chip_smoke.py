@@ -605,7 +605,7 @@ def check_flash_masked(fa, tol, timer, kind, dtype, seed, b=8, s=896, h=12,
     pairs = h * sum(n * (n + 1) // 2 + (s - n) * n for n in klen)
     nbytes = (2 * b * s * h * d * item               # q read, out written
               + 2 * sum(klen) * h * d * item         # the keys it needs
-              + 4 * b * h * s                        # lse
+              + 3 * 4 * b * h * s                    # lse, m and log l
               + (0 if mask is None else 4 * mask_entries_needed(
                   mask, causal, klen))
               + (0 if lens is None else 4 * b))
@@ -737,8 +737,7 @@ def check_flash_variant(fa, tol, timer, kind, b, s, h, d, dtype, seed,
     m4 = None if mask is None else fa.normalize_mask(mask, b, h, s, s)
     name = fa.variant_name(causal, m4, lens, sid)
     br = dict(causal=causal, mask=m4, lens=lens, segs=sid)
-    out, lse, pair = fa._launch_variant(q, k, v, scale, causal, m4, lens,
-                                        sid, stats=True)
+    out, lse, pair = fa._launch(q, k, v, scale, causal, m4, lens, sid)
     want = fa.mha_reference(q, k, v, m4, causal, scale, lens, sid)
     limit = TOL_FP32
     if dtype != torch.float32:
@@ -773,8 +772,9 @@ def check_flash_variant(fa, tol, timer, kind, b, s, h, d, dtype, seed,
         plain_ms = timer(lambda: fa.mha_reference(q, k, v, m4, causal, scale,
                                                   lens, sid), reps=10)
         lib_ms = timer(lambda: sdpa(qt, kt, vt, attn_mask=lib_mask))
-        bms, by = bound_ms(4 * slab + 4 * b * h * s + extra, 4 * d * pairs,
-                           dtype)
+        nstat = 1 if pair is None else 3          # lse (and m, log l)
+        bms, by = bound_ms(4 * slab + nstat * 4 * b * h * s + extra,
+                           4 * d * pairs, dtype)
         cases[f"{fa.KERNEL}:{name}"] = dict(
             shape=shape, dtype=str(dtype), max_abs_err=fwd_check[0],
             err_over_limit=fwd_check[1], ms=ms, plain_ms=plain_ms,
@@ -1183,7 +1183,7 @@ def flag_env(env):
 
 
 def check_gen_launches(launches, mode, layers, steps, what, padded=False):
-    """One flash prefill per layer (the masked entry for padded prompts);
+    """One flash prefill per layer (the masked branch for padded prompts);
     per decode step and layer the decode kernel (default) or the fused
     layer, LN and FFN (fused); nothing else.  A padded default step takes
     the masked branch, as in JAX: no decode kernel."""

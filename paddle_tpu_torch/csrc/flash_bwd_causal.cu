@@ -3,11 +3,11 @@
 //
 // Replaces: paddle_tpu/ops/pallas_ops.py `_flash_bwd_dq_kernel` and
 // `_flash_bwd_dkv_kernel` (both launched by `_flash_bwd`, the backward of
-// `_flash_attn_core`'s custom_vjp) in all their branches: the `_causal`
-// entries below take the causal kernels with no additive mask, no kv_lens
-// and no segment ids (unpacked GPT pretraining); the `_variant` entries the
-// others -- the additive mask and kv_lens, packed segment ids (packed
-// pretraining) and non-causal attention.
+// `_flash_attn_core`'s custom_vjp) in all their branches, through one
+// entry each, `flash_bwd_dq` and `flash_bwd_dkv`: causal with no additive
+// mask, no kv_lens and no segment ids (unpacked GPT pretraining), the
+// additive mask and kv_lens, packed segment ids (packed pretraining) and
+// non-causal attention.
 //
 // Both rebuild the probabilities from the forward's statistics instead of
 // reading a stored [S, S] matrix:
@@ -45,9 +45,8 @@
 // are staged as zeros and their p is set to 0 before the exp, so an
 // undefined lse is never used.
 //
-// The variants are the same kernels instantiated with the template flags
-// MASKED, SEGS and CAUSAL, so that the causal entries keep their
-// arithmetic:
+// The branches are template flags of the two kernels, MASKED, SEGS and
+// CAUSAL, so that the plain causal instantiations keep their arithmetic:
 // - MASKED (`:235-237`, `:243-244`, `:260-261`, `:298-301`, `:307-308`):
 //   the fp32 mask is read through the forward's four element strides (0
 //   broadcasts: an expanded [B, 1, 1, S] row is never copied), per tile of
@@ -91,7 +90,7 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
-// The pointers and strides of the variant branches (null / 0 when absent).
+// The pointers and strides of the branches (null / 0 when absent).
 struct Branches {
   const float* rowmax;   // m [B, H, Sq], with MASKED
   const float* mask;
@@ -398,8 +397,8 @@ int dispatch(const Args& a, int D, int is_bf16, void* dq_or_dk, void* dv) {
   return static_cast<int>(cudaGetLastError());
 }
 
-int dispatch_variant(const Args& a, int D, int is_bf16, int causal,
-                     void* dq_or_dk, void* dv) {
+int dispatch_branches(const Args& a, int D, int is_bf16, int causal,
+                      void* dq_or_dk, void* dv) {
   const bool m = a.br.mask || a.br.kv_lens, s = a.br.segs;
   switch ((m ? 4 : 0) + (s ? 2 : 0) + (causal != 0)) {
     case 0: return dispatch<false, false, false>(a, D, is_bf16, dq_or_dk, dv);
@@ -435,45 +434,13 @@ Branches make_branches(const void* rowmax, const void* mask,
 
 }  // namespace
 
-// The causal entries.  Both return cudaGetLastError() after the launch; 1
+// mask: fp32, element strides msb, msh, msq, msk (0 broadcasts), or null;
+// kv_lens: int32 [B], or null; segs: int32 [B, S] with batch stride ssb and
+// unit stride in S, or null; causal: 0 or 1.  With a mask or kv_lens, lse
+// holds log l and rowmax the row max m of the masked forward; rowmax is
+// ignored otherwise.  Both return cudaGetLastError() after the launch; 1
 // (cudaErrorInvalidValue) for a head size the kernels do not take.
-extern "C" int flash_bwd_dq_causal(const void* q, const void* k,
-                                   const void* v, const void* dout,
-                                   const void* lse, const void* delta,
-                                   void* dq, int B, int H, int Sq, int Sk,
-                                   int D, int is_bf16, long long qsb,
-                                   long long qss, long long ksb,
-                                   long long kss, long long vsb,
-                                   long long vss, long long dsb,
-                                   long long dss, float scale, void* stream) {
-  const Args a = make_args(q, k, v, dout, lse, delta, B, H, Sq, Sk, qsb, qss,
-                           ksb, kss, vsb, vss, dsb, dss, scale, stream,
-                           Branches{});
-  return dispatch<false, false, true>(a, D, is_bf16, dq, nullptr);
-}
-
-extern "C" int flash_bwd_dkv_causal(const void* q, const void* k,
-                                    const void* v, const void* dout,
-                                    const void* lse, const void* delta,
-                                    void* dk, void* dv, int B, int H, int Sq,
-                                    int Sk, int D, int is_bf16, long long qsb,
-                                    long long qss, long long ksb,
-                                    long long kss, long long vsb,
-                                    long long vss, long long dsb,
-                                    long long dss, float scale,
-                                    void* stream) {
-  const Args a = make_args(q, k, v, dout, lse, delta, B, H, Sq, Sk, qsb, qss,
-                           ksb, kss, vsb, vss, dsb, dss, scale, stream,
-                           Branches{});
-  return dispatch<false, false, true>(a, D, is_bf16, dk, dv);
-}
-
-// The variant entries.  mask: fp32, element strides msb, msh, msq, msk (0
-// broadcasts), or null; kv_lens: int32 [B], or null; segs: int32 [B, S]
-// with batch stride ssb and unit stride in S, or null; causal: 0 or 1.
-// With a mask or kv_lens, lse holds log l and rowmax the row max m of the
-// masked forward; rowmax is ignored otherwise.  Returns as above.
-extern "C" int flash_bwd_dq_variant(
+extern "C" int flash_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, const void* rowmax, const void* mask,
     const void* kv_lens, const void* segs, void* dq, int B, int H, int Sq,
@@ -485,10 +452,10 @@ extern "C" int flash_bwd_dq_variant(
       q, k, v, dout, lse, delta, B, H, Sq, Sk, qsb, qss, ksb, kss, vsb, vss,
       dsb, dss, scale, stream,
       make_branches(rowmax, mask, kv_lens, segs, msb, msh, msq, msk, ssb));
-  return dispatch_variant(a, D, is_bf16, causal, dq, nullptr);
+  return dispatch_branches(a, D, is_bf16, causal, dq, nullptr);
 }
 
-extern "C" int flash_bwd_dkv_variant(
+extern "C" int flash_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, const void* rowmax, const void* mask,
     const void* kv_lens, const void* segs, void* dk, void* dv, int B, int H,
@@ -500,5 +467,5 @@ extern "C" int flash_bwd_dkv_variant(
       q, k, v, dout, lse, delta, B, H, Sq, Sk, qsb, qss, ksb, kss, vsb, vss,
       dsb, dss, scale, stream,
       make_branches(rowmax, mask, kv_lens, segs, msb, msh, msq, msk, ssb));
-  return dispatch_variant(a, D, is_bf16, causal, dk, dv);
+  return dispatch_branches(a, D, is_bf16, causal, dk, dv);
 }

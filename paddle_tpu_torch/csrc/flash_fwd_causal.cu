@@ -1,12 +1,12 @@
 // Flash-attention forward for Hopper (sm_90a), plain C interface.
 //
 // Replaces: paddle_tpu/ops/pallas_ops.py `_flash_fwd_kernel` (reached via
-// `_flash_fwd` <- `flash_attention_arrays`) in all its branches:
-// `flash_fwd_causal` below is the causal kernel with no additive mask, no
-// kv_lens and no segment ids (the whole-prompt prefill of the serving
-// engine, and unpacked training); `flash_fwd_variant` takes the others --
-// the additive mask and kv_lens (the padded-prompt prefill of `generate`),
-// packed segment ids (packed pretraining) and non-causal attention.
+// `_flash_fwd` <- `flash_attention_arrays`) in all its branches, through
+// one entry, `flash_fwd`: causal with no additive mask, no kv_lens and no
+// segment ids (the whole-prompt prefill of the serving engine, and unpacked
+// training), the additive mask and kv_lens (the padded-prompt prefill of
+// `generate`), packed segment ids (packed pretraining) and non-causal
+// attention.
 //
 // What bounds it on this card: at GPT-2 widths (D = 64, S <= 1024) one
 // layer's causal attention is 2*S^2*H*D FLOPs over 4*S*H*D*itemsize bytes,
@@ -31,8 +31,8 @@
 // the input type; lse is a contiguous fp32 [B, H, Sq].  Causal alignment is
 // at the end (query i sees keys <= i + Sk - Sq), as in the TPU kernel.
 //
-// The variants are the same kernel instantiated with the template flags
-// MASKED, SEGS and CAUSAL, so that the causal entry keeps its arithmetic.
+// The branches are template flags of one kernel, MASKED, SEGS and CAUSAL,
+// so that the plain causal instantiation keeps its arithmetic.
 // MASKED adds the TPU kernel's additive mask and kv_lens branches
 // (`pallas_ops.py:162-173`, `:192-194`).  The fp32 mask is read through four
 // element strides (batch, head, query, key; a stride of 0 broadcasts, so
@@ -44,9 +44,9 @@
 // allow (-1e30 + s is -1e30 in fp32), as the plain version does.  Keys
 // that causal or kv_lens exclude carry exactly no weight (-inf, and p = 0);
 // the running max starts at -inf so that any finite mask value is exact.
-// With a stats output, MASKED also writes each row's max m and log l: lse =
-// m + log l rounds log l away where m is ~-1e30 (a row whose every key the
-// mask closes), and the backward needs the pair to rebuild p = 1/n there.
+// MASKED also writes each row's max m and log l: lse = m + log l rounds
+// log l away where m is ~-1e30 (a row whose every key the mask closes), and
+// the backward needs the pair to rebuild p = 1/n there.
 //
 // SEGS (`:174-176`, `:195-201`): the [B, S] int32 ids, shared by queries and
 // keys (self-attention), are read through their batch stride; the key
@@ -208,10 +208,8 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_causal_kernel(
       const long long r = ((long long)b * H + h) * Sq + qpos;
       lse[r] = m + logf(ls);
       if constexpr (MASKED) {
-        if (rowmax) {
-          rowmax[r] = m;
-          logsum[r] = logf(ls);
-        }
+        rowmax[r] = m;
+        logsum[r] = logf(ls);
       }
     }
   }
@@ -258,28 +256,13 @@ int dispatch(const Args& a, int D, int is_bf16) {
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launch; 1 (cudaErrorInvalidValue)
-// for a head size or type the kernel does not take.
-extern "C" int flash_fwd_causal(const void* q, const void* k, const void* v,
-                                void* out, void* lse, int B, int H, int Sq,
-                                int Sk, int D, int is_bf16, long long qsb,
-                                long long qss, long long ksb, long long kss,
-                                long long vsb, long long vss, float scale,
-                                void* stream) {
-  const Args a{q,   k,   v,   out, lse, nullptr, nullptr, nullptr, nullptr,
-               nullptr, B, H, Sq, Sk, qsb, qss, ksb, kss, vsb, vss, 0, 0, 0,
-               0, 0, scale, static_cast<cudaStream_t>(stream)};
-  return dispatch<false, false, true>(a, D, is_bf16);
-}
-
-// Every other branch.  mask: fp32, element strides msb, msh, msq, msk (0
-// broadcasts), or null; kv_lens: int32 [B], or null; segs: int32 [B, S]
-// with batch stride ssb and unit stride in S, or null; causal: 0 or 1.
-// rowmax and logsum: fp32 [B, H, Sq] outputs of m and log l, or null
-// (written only with a mask or kv_lens).  Returns cudaGetLastError() after
-// the launch; 1 (cudaErrorInvalidValue) for a head size or type the kernel
-// does not take.
-extern "C" int flash_fwd_variant(
+// mask: fp32, element strides msb, msh, msq, msk (0 broadcasts), or null;
+// kv_lens: int32 [B], or null; segs: int32 [B, S] with batch stride ssb and
+// unit stride in S, or null; causal: 0 or 1.  rowmax and logsum: fp32
+// [B, H, Sq] outputs of m and log l, written with a mask or kv_lens (null
+// otherwise).  Returns cudaGetLastError() after the launch; 1
+// (cudaErrorInvalidValue) for a head size or type the kernel does not take.
+extern "C" int flash_fwd(
     const void* q, const void* k, const void* v, void* out, void* lse,
     void* rowmax, void* logsum, const void* mask, const void* kv_lens,
     const void* segs, int B, int H, int Sq, int Sk, int D, int is_bf16,

@@ -14,15 +14,17 @@ statistics, and the backward launches the two kernels of
 `flash_attention_bwd_reference` on CPU tensors.  Layout
 ``[batch, seq, heads, head_dim]``, as in the JAX package.
 
-Each source has two entries: the causal one with no mask, no ``kv_lens``
-and no segments (the serving prefill and unpacked training), and a variant
-entry for everything else, whose kernels are template instantiations with
-``MASKED`` (mask and / or ``kv_lens``), ``SEGS`` and ``CAUSAL``.  Each
-wrapper counts the variant launches apart, by the first of: ``segs`` (any
-call with segment ids), ``mask`` (a mask or ``kv_lens``), ``noncausal``.
+Each source has one entry per kernel, which picks the template
+instantiation (``MASKED`` for a mask and / or ``kv_lens``, ``SEGS``,
+``CAUSAL``) from the branches it is given.  Each wrapper counts the causal
+launches with no mask, ``kv_lens`` or segments (the serving prefill and
+unpacked training) under the kernel's name, and the others apart, by the
+first of: ``segs`` (any call with segment ids), ``mask`` (a mask or
+``kv_lens``), ``noncausal``.
 
 The softmax statistic the backward reads is the logsumexp, except with a
-mask or ``kv_lens``: there it is the pair (row max ``m``, ``log l``), since
+mask or ``kv_lens``: there it is the pair (row max ``m``, ``log l``), which
+the masked forward always writes, since
 a row whose every key the mask closes has ``m`` ~ -1e30, where
 ``lse = m + log l`` rounds ``log l`` away in fp32.  With the pair the
 backward rebuilds the probabilities the forward used, so it is the
@@ -282,28 +284,10 @@ def _bind(fn, n_ptr, n_int, n_ll):
     return fn
 
 
-def _launch(q, k, v, scale):
-    """The causal entry (no mask, kv_lens or segments)."""
-    global launches
-    _check_qkv(q, k, v)
-    b, sq, h, d = q.shape
-    sk = k.shape[1]
-    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
-    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    fn = _bind(_build.load(SOURCE).flash_fwd_causal, 5, 6, 6)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             lse.data_ptr(), b, h, sq, sk, d, int(q.dtype == torch.bfloat16),
-             q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
-             v.stride(1), float(scale), _stream(q))
-    _build.check(err, KERNEL)
-    launches += 1
-    return out, lse
-
-
-def _variant_args(q, causal, mask, lens, sid):
-    """Checked pointers and strides of the variant entries: ``mask`` an
-    fp32 [B, H, Sq, Sk] view or None, ``lens`` an int32 [B] or None,
-    ``sid`` an int32 [B, S] with unit stride in S or None."""
+def _branch_args(q, causal, mask, lens, sid):
+    """Checked pointers and strides of the branches: ``mask`` an fp32
+    [B, H, Sq, Sk] view or None, ``lens`` an int32 [B] or None, ``sid`` an
+    int32 [B, S] with unit stride in S or None."""
     for name, t in (("attn_mask", mask), ("kv_lens", lens),
                     ("segment_ids", sid)):
         if t is not None and t.device != q.device:
@@ -318,35 +302,40 @@ def _variant_args(q, causal, mask, lens, sid):
         int(bool(causal))
 
 
-def _launch_variant(q, k, v, scale, causal, mask, lens, sid, stats=False):
-    """The variant entry.  Returns ``(out, lse, (row_max, log_sum))``,
-    the pair only with ``stats`` (and a mask or kv_lens)."""
+def _launch(q, k, v, scale, causal=True, mask=None, lens=None, sid=None):
+    """The forward kernel.  Returns ``(out, lse, pair)``: ``pair`` is
+    ``(row_max, log_sum)`` with a mask or kv_lens, else None."""
+    global launches
     _check_qkv(q, k, v, causal)
     b, sq, h, d = q.shape
     sk = k.shape[1]
-    ptrs, strides, c = _variant_args(q, causal, mask, lens, sid)
+    ptrs, strides, c = _branch_args(q, causal, mask, lens, sid)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     pair = None
-    if stats and (mask is not None or lens is not None):
+    if mask is not None or lens is not None:
         pair = tuple(torch.empty_like(lse) for _ in range(2))
     pair_ptrs = (0, 0) if pair is None else (t.data_ptr() for t in pair)
-    fn = _bind(_build.load(SOURCE).flash_fwd_variant, 10, 7, 11)
+    fn = _bind(_build.load(SOURCE).flash_fwd, 10, 7, 11)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              lse.data_ptr(), *pair_ptrs, *ptrs, b, h, sq, sk, d,
              int(q.dtype == torch.bfloat16), c, q.stride(0), q.stride(1),
              k.stride(0), k.stride(1), v.stride(0), v.stride(1), *strides,
              float(scale), _stream(q))
-    _build.check(err, "flash_fwd_variant")
-    _FWD_VARIANTS[variant_name(causal, mask, lens, sid)].launches += 1
+    _build.check(err, KERNEL)
+    name = variant_name(causal, mask, lens, sid)
+    if name is None:
+        launches += 1
+    else:
+        _FWD_VARIANTS[name].launches += 1
     return out, lse, pair
 
 
 class _BwdKernel:
-    """Launch wrapper of one kernel of ``csrc/flash_bwd_causal.cu``, with a
-    launch counter for its causal entry and one per variant
-    (``variants``).  ``(q, k, v, do, lse, delta, scale)`` plus the
-    branches -> ``dq`` (the dQ kernel, one output) or ``(dk, dv)`` (the
+    """Launch wrapper of one kernel of ``csrc/flash_bwd_causal.cu`` (the
+    extern entry ``entry``), with a launch counter for its causal launches
+    with no other branch and one per variant (``variants``).
+    ``(q, k, v, do, lse, delta, scale)`` plus the branches -> ``dq`` (the dQ kernel, one output) or ``(dk, dv)`` (the
     dK/dV kernel, two), each a contiguous [B, S, H, D] in the inputs'
     dtype; with a mask or kv_lens, ``lse`` is log l and ``row_max`` the
     row max (module docstring).  On a CUDA tensor it launches the kernel
@@ -355,9 +344,10 @@ class _BwdKernel:
 
     SOURCE = BWD_SOURCE
 
-    def __init__(self, kernel, n_out):
+    def __init__(self, kernel, entry, n_out):
         self.KERNEL = kernel
-        self.launches = 0          # causal-entry launches since the reset
+        self.launches = 0          # causal launches since the reset
+        self._entry = entry
         self.variants = {n: _Variant(f"{kernel}:{n}", BWD_SOURCE)
                          for n in VARIANTS}
         self._n_out = n_out
@@ -398,43 +388,33 @@ class _BwdKernel:
         common = (b, h, sq, sk, d, int(q.dtype == torch.bfloat16))
         qkvd = (q.stride(0), q.stride(1), k.stride(0), k.stride(1),
                 v.stride(0), v.stride(1), do.stride(0), do.stride(1))
-        lib = _build.load(self.SOURCE)
-        base = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                lse.data_ptr(), delta.data_ptr())
-        if name is None:
-            fn = _bind(getattr(lib, self.KERNEL), 6 + self._n_out, 6, 8)
-            err = fn(*base, *(o.data_ptr() for o in outs), *common, *qkvd,
-                     float(scale), _stream(q))
-        else:
-            ptrs, strides, c = _variant_args(q, causal, mask, lens, segs)
-            fn = _bind(getattr(lib, self.KERNEL.replace("_causal",
-                                                        "_variant")),
-                       10 + self._n_out, 7, 13)
-            err = fn(*base, 0 if row_max is None else row_max.data_ptr(),
-                     *ptrs, *(o.data_ptr() for o in outs), *common, c,
-                     *qkvd, *strides, float(scale), _stream(q))
+        ptrs, strides, c = _branch_args(q, causal, mask, lens, segs)
+        fn = _bind(getattr(_build.load(self.SOURCE), self._entry),
+                   10 + self._n_out, 7, 13)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(),
+                 0 if row_max is None else row_max.data_ptr(), *ptrs,
+                 *(o.data_ptr() for o in outs), *common, c, *qkvd, *strides,
+                 float(scale), _stream(q))
         _build.check(err, self.KERNEL)
         counter = self if name is None else self.variants[name]
         counter.launches += 1
         return outs[0] if self._n_out == 1 else tuple(outs)
 
 
-flash_bwd_dq = _BwdKernel("flash_bwd_dq_causal", 1)
-flash_bwd_dkv = _BwdKernel("flash_bwd_dkv_causal", 2)
+flash_bwd_dq = _BwdKernel("flash_bwd_dq_causal", "flash_bwd_dq", 1)
+flash_bwd_dkv = _BwdKernel("flash_bwd_dkv_causal", "flash_bwd_dkv", 2)
 
 
-def _forward(q, k, v, scale, causal, mask, lens, sid, stats=False):
+def _forward(q, k, v, scale, causal, mask, lens, sid):
     """(out in q's dtype, lse, the masked pair or None) on either device:
-    the kernels on a CUDA tensor, the plain version on a CPU one."""
+    the kernel on a CUDA tensor, the plain version on a CPU one."""
     if q.is_cuda:
-        if variant_name(causal, mask, lens, sid) is None:
-            return (*_launch(q, k, v, scale), None)
-        return _launch_variant(q, k, v, scale, causal, mask, lens, sid,
-                               stats)
+        return _launch(q, k, v, scale, causal, mask, lens, sid)
     out, lse = mha_reference(q, k, v, mask, causal, scale, lens, sid,
                              return_lse=True)
     pair = None
-    if stats and (mask is not None or lens is not None):
+    if mask is not None or lens is not None:
         pair = softmax_stats(q, k, scale, causal, mask, lens, sid)
     return out.to(q.dtype), lse, pair
 
@@ -453,8 +433,7 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, scale, causal=True, mask=None, lens=None,
                 segs=None):
-        out, lse, pair = _forward(q, k, v, scale, causal, mask, lens, segs,
-                                  stats=True)
+        out, lse, pair = _forward(q, k, v, scale, causal, mask, lens, segs)
         row_max, stat = (None, lse) if pair is None else pair
         ctx.save_for_backward(q, k, v, out, stat, row_max, mask, lens, segs)
         ctx.scale, ctx.causal = scale, causal

@@ -23,7 +23,7 @@ Tolerances against the plain version on the same inputs
   compute in fp32; bf16 rounds the output once).
 - the masked / kv_lens flash forward: the forward limit above, on every
   row, left-pad rows (all keys masked) included.
-- the variant entries of the flash kernels (segment ids, non-causal, mask
+- the variant branches of the flash kernels (segment ids, non-causal, mask
   and kv_lens, forward and backward): the forward and backward limits
   above, every row (rows the mask closes entirely too); lse and the
   masked (row max, log l) pair within 1e-4; fp32 autograd through
@@ -339,7 +339,7 @@ VARIANT_CASES = [("segs", 3, 200, 3, 64), ("segs_nc", 2, 200, 2, 64),
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("kind,b,s,h,d", VARIANT_CASES)
 def test_flash_variant_kernels_match_plain(kind, b, s, h, d, dtype):
-    """The variant entries of the forward and both backward kernels
+    """The variant branches of the forward and both backward kernels
     against the plain versions, every row; each counts one launch under
     its variant."""
     q, k, v, do, causal, mask, lens, segs = _variant_inputs(
@@ -353,8 +353,7 @@ def test_flash_variant_kernels_match_plain(kind, b, s, h, d, dtype):
                 fa.flash_bwd_dkv.variants[name]]
     for c in counters:
         c.launches = 0
-    out, lse, pair = fa._launch_variant(q, k, v, scale, causal, m4, lens,
-                                        segs, stats=True)
+    out, lse, pair = fa._launch(q, k, v, scale, causal, m4, lens, segs)
     want, want_lse = fa.mha_reference(q, k, v, m4, causal, scale, lens,
                                       segs, return_lse=True)
     mag = tol.flash_fwd_magnitude(q, k, v, causal, m4, lens, segs)
