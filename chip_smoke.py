@@ -5,7 +5,13 @@
 Phases, in order; any failure exits non-zero and prints no result line:
 
 1. Card: name and power limit (nvidia-smi); TF32 off for matmuls and cuDNN.
-2. Kernels: build every CUDA source (all at once), then hold each kernel
+2. Kernels: build every CUDA source (all at once; the build time and the
+   flash instantiations' registers and spills from ``-Xptxas -v`` are
+   printed), read the flash libraries' machine code (`cuobjdump -sass`:
+   all 16 instantiations each of the bf16 forward and dK/dV, the
+   tensor-core kernels, must hold HGMMA, and the CUDA-core forward and
+   dK/dV must be left with their 16 fp32 instantiations, FFMA and no
+   HGMMA or HMMA), then hold each kernel
    against its plain PyTorch version on the card, in float32 and bfloat16,
    and time kernel, plain version and a PyTorch yardstick (SDPA, and for
    the backward `torch.autograd.grad` through SDPA).  Forward kernels run
@@ -16,13 +22,18 @@ Phases, in order; any failure exits non-zero and prints no result line:
    (`paddle_tpu_torch.ops.tolerance` derives the bf16 ones):
    - forward, float32: max absolute error 2e-5 — both sides accumulate in
      fp32 and differ only in summation order.  bfloat16, per element
-     |out - ref| <= 2^-7 max(|out|, |ref|) + 2^-8 (P |V|): one bf16 step
+     |out - ref| <= 2^-7 max(|out|, |ref|) + c (P |V|): one bf16 step
      of the output (both sides round it once), plus the most that the
-     plain version's rounding of the probabilities to bf16 (at most 2^-8
-     of each, the bf16 unit roundoff) can move the value product, P |V|
-     being that product over |V| in fp32.  So the limit follows each
-     output's own magnitude: at rows of hundreds of keys it is ~3e-3, not
-     the ~2e-2 a short row needs.  Pool writes must be bitwise equal.
+     rounding of the probabilities to bf16 (at most 2^-8 of each, the
+     bf16 unit roundoff) can move the value product, P |V| being that
+     product over |V| in fp32: c = 2^-8 for the ragged kernels (only the
+     plain version rounds p), 2^-7 for the flash forward (its
+     tensor-core kernel rounds p at the running max of each key tile, as
+     the TPU kernel does, and the plain version at the final max).  So
+     the limit follows each output's own magnitude: at rows of hundreds
+     of keys it is ~3e-3, not the ~2e-2 a short row needs.  Pool writes
+     must be bitwise equal.  Each flash case also prints its achieved
+     TFLOP/s (the FLOPs its bound counts over its time).
    - backward, float32: max |err| <= 1e-4 max |ref| per gradient — both
      sides accumulate in fp32 over up to 1024 keys or queries, in
      different orders.  bfloat16, per element |out - ref| <= 2^-7
@@ -112,11 +123,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
    (kernels) and on the CPU (plain versions).  Step-1 losses agree to
    1e-5 relative, each step-1 gradient to 1e-3 max |g|, step-3 losses to
    1e-4 relative; each flash kernel (forward, dQ, dK/dV) launches 12
-   times per step on the card.
+   times per step on the card (the CUDA-core designs: fp32).
 6. Training, bfloat16, full size: B=8 S=1024, bf16 params with fp32
    AdamW masters (lr 1e-4), 2 warm-up steps then 10 timed steps on one
    repeated batch.  Every loss finite, step 12's below step 1's, 12
-   launches of each flash kernel per step; prints tokens/s and ms per
+   launches of each flash kernel per step, of them the forward and dK/dV
+   on the tensor cores (12 each per step); prints tokens/s and ms per
    step, then profiles one step with torch.profiler (device ms, busy
    share, top kernels).
 6b. Packed training (stacked): documents of 16-1024 tokens
@@ -142,9 +154,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
    kernel, 25 of the LayerNorm forward and backward and 12 of the FFN per
    step and none on the CPU; then bf16 as phase 6 with the flags and
    without them.
-8. Summary: one JSON line of the nineteen entries (the nine kernels, the
-   int8 variant, and the mask, segment and non-causal variants of the
-   flash kernels, counted apart), the card line, then the result line.
+8. Summary: one JSON line of the twenty-one entries (the nine kernels,
+   the int8 variant, the mask, segment and non-causal variants of the
+   flash kernels, and the tensor-core forward and dK/dV -- every bf16
+   launch of those two, timed at the bf16 training shape -- counted
+   apart), the card line, then the result line.
 
 Every time is a median of CUDA-event timings (L2 flushed before each
 launch, the host's enqueue hidden behind a spin on the stream); every
@@ -155,6 +169,7 @@ Details go to chiprun_out/chip_smoke.json.
 import contextlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -180,14 +195,20 @@ FWD_SEGS, FWD_NC = FWD + ":segs", FWD + ":noncausal"
 DQ_MASK, DQ_SEGS, DQ_NC = (DQ + ":mask", DQ + ":segs", DQ + ":noncausal")
 DKV_MASK, DKV_SEGS, DKV_NC = (DKV + ":mask", DKV + ":segs",
                               DKV + ":noncausal")
-KERNELS = (FWD, FWD_MASK, FWD_SEGS, FWD_NC, RAGGED, RAGGED8, DQ, DQ_MASK,
-           DQ_SEGS, DQ_NC, DKV, DKV_MASK, DKV_SEGS, DKV_NC, DECODE, FUSED,
-           LN, LN_BWD, FFN)
+# the bf16 launches of the forward and dK/dV, any branch: the tensor-core
+# kernels (counted once more, apart from the counters above)
+FWD_TC, DKV_TC = FWD + ":tc", DKV + ":tc"
+FWD_ALL = (FWD, FWD_MASK, FWD_SEGS, FWD_NC)
+DKV_ALL = (DKV, DKV_MASK, DKV_SEGS, DKV_NC)
+KERNELS = (FWD, FWD_MASK, FWD_SEGS, FWD_NC, FWD_TC, RAGGED, RAGGED8, DQ,
+           DQ_MASK, DQ_SEGS, DQ_NC, DKV, DKV_MASK, DKV_SEGS, DKV_NC, DKV_TC,
+           DECODE, FUSED, LN, LN_BWD, FFN)
 REPLACES = {
     FWD: "paddle_tpu/ops/pallas_ops.py:135",
     FWD_MASK: "paddle_tpu/ops/pallas_ops.py:135",
     FWD_SEGS: "paddle_tpu/ops/pallas_ops.py:135",
     FWD_NC: "paddle_tpu/ops/pallas_ops.py:135",
+    FWD_TC: "paddle_tpu/ops/pallas_ops.py:135",
     RAGGED8: "paddle_tpu/ops/ragged_paged_attention.py:125",
     DQ: "paddle_tpu/ops/pallas_ops.py:210",
     DQ_MASK: "paddle_tpu/ops/pallas_ops.py:210",
@@ -197,6 +218,7 @@ REPLACES = {
     DKV_MASK: "paddle_tpu/ops/pallas_ops.py:272",
     DKV_SEGS: "paddle_tpu/ops/pallas_ops.py:272",
     DKV_NC: "paddle_tpu/ops/pallas_ops.py:272",
+    DKV_TC: "paddle_tpu/ops/pallas_ops.py:272",
     RAGGED: "paddle_tpu/ops/ragged_paged_attention.py:125",
     DECODE: "paddle_tpu/ops/pallas_ops.py:1008",
     FUSED: "paddle_tpu/ops/pallas_ops.py:1186",
@@ -207,8 +229,9 @@ REPLACES = {
 # the __global__ functions of paddle_tpu_torch/csrc, as the profiler names
 # (template names: the mask and int8 variants are instantiations of
 # flash_fwd_causal_kernel and ragged_attend_kernel)
-PORT_SYMBOLS = ("flash_fwd_causal_kernel", "flash_bwd_dq_kernel",
-                "flash_bwd_dkv_kernel", "ragged_write_kernel",
+PORT_SYMBOLS = ("flash_fwd_causal_kernel", "flash_fwd_tc_kernel",
+                "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
+                "flash_bwd_dkv_tc_kernel", "ragged_write_kernel",
                 "ragged_attend_kernel", "ragged_write_int8_kernel",
                 "flash_decode_kernel", "fused_decode_layer_kernel",
                 "ln_fwd_kernel", "ln_bwd_kernel", "ln_bwd_sum_kernel",
@@ -283,6 +306,102 @@ def bound_ms(nbytes, flops, dtype):
         "bytes" if nbytes / HBM_BPS >= flops / PEAK[dtype] else "operations"
 
 
+def tflops(flops, ms):
+    """The rate a call of `ms` achieves on `flops` useful operations."""
+    return flops / (ms * 1e-3) / 1e12
+
+
+def with_tc(want, bf16):
+    """`want` with the tensor-core counts: in bf16 every forward and dK/dV
+    launch counts once more under FWD_TC and DKV_TC, in fp32 never."""
+    want[FWD_TC] = sum(want[n] for n in FWD_ALL) if bf16 else 0
+    want[DKV_TC] = sum(want[n] for n in DKV_ALL) if bf16 else 0
+    return want
+
+
+def _sass_functions(lib):
+    """{function name: its SASS} of a built library (`cuobjdump -sass`,
+    from the toolkit of the `nvcc` that built it)."""
+    from paddle_tpu_torch.ops import _build
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", lib], capture_output=True,
+                         text=True, timeout=300, check=True).stdout
+    funcs, name = {}, None
+    for line in out.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ", 1)[1].strip()
+            funcs[name] = []
+        elif name is not None:
+            funcs[name].append(line)
+    return {n: "\n".join(body) for n, body in funcs.items()}
+
+
+def check_sass(paths):
+    """The design behind each flash entry, from the built libraries'
+    machine code: every instantiation of the bf16 forward and dK/dV kernels
+    (``flash_fwd_tc_kernel``, ``flash_bwd_dkv_tc_kernel``: 16 each, 8
+    flag combinations x D 64 and 128) contains HGMMA (warpgroup tensor-core
+    products), and the CUDA-core kernels they replaced
+    (``flash_fwd_causal_kernel``, ``flash_bwd_dkv_kernel``) are left with
+    their 16 fp32 instantiations only, FFMA and no HGMMA or HMMA.  Returns
+    {kernel: [instantiations, of them with HGMMA, with FFMA]}."""
+    wants = {"flash_fwd_tc_kernel": (FWD, True),
+             "flash_fwd_causal_kernel": (FWD, False),
+             "flash_bwd_dkv_tc_kernel": (DKV, True),
+             "flash_bwd_dkv_kernel": (DKV, False)}
+    funcs = {FWD: _sass_functions(paths["flash_fwd_causal"]),
+             DKV: _sass_functions(paths["flash_bwd_causal"])}
+    counts = {}
+    for kernel, (lib, tensor_cores) in wants.items():
+        # mangled: ..._kernel I <template arguments> E; the CUDA-core ones
+        # take the element type first ("If": float)
+        found = {n: body for n, body in funcs[lib].items()
+                 if f"{len(kernel)}{kernel}I" in n}
+        hgmma = sum("HGMMA" in body for body in found.values())
+        ffma = sum("FFMA" in body for body in found.values())
+        counts[kernel] = [len(found), hgmma, ffma]
+        if tensor_cores:
+            ok = len(found) == 16 and hgmma == 16
+        else:
+            ok = (len(found) == 16 and hgmma == 0 and ffma == 16
+                  and not any("HMMA" in b for b in found.values())
+                  and all(f"{len(kernel)}{kernel}If" in n for n in found))
+        if not ok:
+            fail(f"SASS of {kernel}: {len(found)} instantiations, {hgmma} "
+                 f"with HGMMA, {ffma} with FFMA ({sorted(found)[:4]} ...)")
+    return counts
+
+
+def short_name(mangled):
+    """``flash_fwd_tc_kernel<64,1,0,1>`` from a mangled kernel name (the
+    template arguments: element type, D, MASKED, SEGS, CAUSAL)."""
+    m = re.search(r"\d+(flash_\w+?_kernel)I(.*?)EE", mangled)
+    if not m:
+        return mangled
+    args = re.sub(r"^f(?=Li)", "f32,", m.group(2))
+    args = re.sub(r"13__nv_bfloat16", "bf16,", args)
+    args = re.sub(r"L[ib](\d+)E", r"\1,", args + "E")
+    return f"{m.group(1)}<{args.rstrip('E,')}>"
+
+
+def ptxas_table(log):
+    """[(function, registers, spill stores, spill loads)] from one
+    ``-Xptxas -v`` log."""
+    rows, name, spills = [], None, (0, 0)
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            name = line.rsplit("for ", 1)[1].strip()
+        elif "bytes spill stores" in line and name:
+            parts = line.replace(",", "").split()
+            spills = (int(parts[parts.index("spill") - 2]),
+                      int(parts[parts.index("loads") - 3]))
+        elif "Used" in line and "registers" in line and name:
+            regs = int(line.split("Used", 1)[1].split()[0])
+            rows.append((name, regs, *spills))
+            name, spills = None, (0, 0)
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -294,7 +413,7 @@ def check_flash(fa, tol, timer, s, h, d, dtype, seed, b=1):
     out = fa.flash_attention_arrays(q, k, v, is_causal=True)
     want = fa.mha_reference(q, k, v, is_causal=True)
     limit = TOL_FP32 if dtype == torch.float32 else tol.bf16_limit(
-        out, want, tol.flash_fwd_magnitude(q, k, v), tol.FWD_COEF)
+        out, want, tol.flash_fwd_magnitude(q, k, v), tol.FLASH_FWD_COEF)
     torch.cuda.synchronize()
     err, ratio = check_close(tol, out, want, limit,
                              f"flash S={s} H={h} D={d} {dtype}")
@@ -310,7 +429,7 @@ def check_flash(fa, tol, timer, s, h, d, dtype, seed, b=1):
     return dict(shape=f"B={b} S={s} H={h} D={d}", dtype=str(dtype),
                 max_abs_err=err, err_over_limit=ratio, ms=ms,
                 plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                library_ms=lib_ms)
+                library_ms=lib_ms, tflops=tflops(flops, ms))
 
 
 def check_flash_bwd(fa, tol, timer, b, s, h, d, dtype, seed):
@@ -367,7 +486,7 @@ def check_flash_bwd(fa, tol, timer, b, s, h, d, dtype, seed):
             max_abs_err=max(checks[e][0] for e in errs),
             err_over_limit=max(checks[e][1] for e in errs), ms=ms,
             plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-            library_ms=lib_ms)
+            library_ms=lib_ms, tflops=tflops(fl * d * pairs, ms))
     return cases
 
 
@@ -576,7 +695,7 @@ def check_flash_masked(fa, tol, timer, kind, dtype, seed, b=8, s=896, h=12,
     if dtype != torch.float32:
         mag = fa.mha_reference(q.float(), k.float(), v.float().abs(),
                                is_causal=True, mask=mask, kv_lens=lens)
-        limit = tol.bf16_limit(out, want, mag, tol.FWD_COEF)
+        limit = tol.bf16_limit(out, want, mag, tol.FLASH_FWD_COEF)
         del mag
     torch.cuda.synchronize()
     err, ratio = check_close(tol, out, want, limit,
@@ -613,7 +732,8 @@ def check_flash_masked(fa, tol, timer, kind, dtype, seed, b=8, s=896, h=12,
     return dict(shape=f"B={b} S={s} H={h} D={d} {kind}", dtype=str(dtype),
                 max_abs_err=err, err_over_limit=ratio, ms=ms,
                 plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                library_ms=lib_ms, tol=_tol_text(dtype, TOL_FP32))
+                library_ms=lib_ms, tol=_tol_text(dtype, TOL_FP32),
+                tflops=tflops(4 * d * pairs, ms))
 
 
 # ---------------------------------------------------------------------------
@@ -742,7 +862,7 @@ def check_flash_variant(fa, tol, timer, kind, b, s, h, d, dtype, seed,
     limit = TOL_FP32
     if dtype != torch.float32:
         limit = tol.bf16_limit(out, want, tol.flash_fwd_magnitude(
-            q, k, v, causal, m4, lens, sid), tol.FWD_COEF)
+            q, k, v, causal, m4, lens, sid), tol.FLASH_FWD_COEF)
     torch.cuda.synchronize()
     what = f"flash {name} {kind} B={b} S={s} H={h} D={d} {dtype}"
     fwd_check = check_close(tol, out, want, limit, what)
@@ -779,7 +899,7 @@ def check_flash_variant(fa, tol, timer, kind, b, s, h, d, dtype, seed,
             shape=shape, dtype=str(dtype), max_abs_err=fwd_check[0],
             err_over_limit=fwd_check[1], ms=ms, plain_ms=plain_ms,
             bound_ms=bms, bound_by=by, library_ms=lib_ms,
-            tol=_tol_text(dtype, TOL_FP32))
+            tol=_tol_text(dtype, TOL_FP32), tflops=tflops(4 * d * pairs, ms))
     if not bwd:
         return cases
     row_max, stat = (None, lse) if pair is None else pair
@@ -825,7 +945,7 @@ def check_flash_variant(fa, tol, timer, kind, b, s, h, d, dtype, seed,
             max_abs_err=max(checks[e][0] for e in errs),
             err_over_limit=max(checks[e][1] for e in errs), ms=ms,
             plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-            library_ms=lib_ms)
+            library_ms=lib_ms, tflops=tflops(fl * d * pairs, ms))
     return cases
 
 
@@ -1143,15 +1263,17 @@ def profile_decode(model, prompts, dtype, steps=8, kv_cache_dtype=None):
             "ms_per_step_by_group": groups}
 
 
-def check_launches(eng, launches, what):
-    """One flash prefill per layer and prefill step, one ragged launch per
-    layer and decode or chunk step, of the int8 entry for int8 pools and
-    of the fp one otherwise; nothing else."""
+def check_launches(eng, launches, what, bf16=False):
+    """One flash prefill per layer and prefill step (in bf16 the
+    tensor-core kernel), one ragged launch per layer and decode or chunk
+    step, of the int8 entry for int8 pools and of the fp one otherwise;
+    nothing else."""
     layers = eng.cfg.num_hidden_layers
     ragged = layers * (eng.step_counts["decode"] + eng.step_counts["chunk"])
     want = dict.fromkeys(KERNELS, 0)
     want[FWD] = layers * eng.step_counts["prefill"]
     want[RAGGED8 if eng.kv_quant else RAGGED] = ragged
+    with_tc(want, bf16)
     if launches != want or not (want[FWD] and ragged):
         fail(f"{what}: launches {launches}, expected {want} "
              f"({eng.step_counts})")
@@ -1182,17 +1304,20 @@ def flag_env(env):
                 os.environ[k] = v
 
 
-def check_gen_launches(launches, mode, layers, steps, what, padded=False):
-    """One flash prefill per layer (the masked branch for padded prompts);
-    per decode step and layer the decode kernel (default) or the fused
-    layer, LN and FFN (fused); nothing else.  A padded default step takes
-    the masked branch, as in JAX: no decode kernel."""
+def check_gen_launches(launches, mode, layers, steps, what, padded=False,
+                       bf16=False):
+    """One flash prefill per layer (the masked branch for padded prompts;
+    in bf16 the tensor-core kernel); per decode step and layer the decode
+    kernel (default) or the fused layer, LN and FFN (fused); nothing else.
+    A padded default step takes the masked branch, as in JAX: no decode
+    kernel."""
     want = dict.fromkeys(KERNELS, 0)
     want[FWD_MASK if padded else FWD] = layers
     names = (FUSED, LN, FFN) if mode == "fused" else (
         () if padded else (DECODE,))
     for name in names:
         want[name] = layers * steps
+    with_tc(want, bf16)
     if launches != want:
         fail(f"{what}: launches {launches}, expected {want}")
     return want
@@ -1339,7 +1464,8 @@ def generate_bf16(ops, cfg, batch=8, prompt=896, new=128):
             total_s = time.perf_counter() - t0
             path[mode] = ops.launch_counts()
             check_gen_launches(path[mode], mode, cfg.num_hidden_layers,
-                               new - 1, f"bfloat16 generate ({mode})")
+                               new - 1, f"bfloat16 generate ({mode})",
+                               bf16=True)
             decode_s = total_s - prefill_s
             rec[mode] = {"total_s": total_s, "prefill_s": prefill_s,
                          "decode_ms_per_step": decode_s * 1e3 / (new - 1),
@@ -1366,7 +1492,7 @@ def generate_bf16(ops, cfg, batch=8, prompt=896, new=128):
             path[key] = ops.launch_counts()
             check_gen_launches(path[key], mode, cfg.num_hidden_layers,
                                new - 1, f"bfloat16 padded generate ({mode})",
-                               padded=True)
+                               padded=True, bf16=True)
             decode_s = total_s - prefill_s
             rec[key] = {"total_s": total_s, "prefill_s": prefill_s,
                         "decode_ms_per_step": decode_s * 1e3 / (new - 1),
@@ -1410,10 +1536,11 @@ def make_step(model, lr=TRAIN_LR):
     return step, opt
 
 
-def train_launches(cfg, steps, env, packed=False):
+def train_launches(cfg, steps, env, packed=False, bf16=False):
     """Expected launches of `steps` training steps under the flags `env`:
     each flash kernel once per layer (its segment variant on packed
-    rows); under PTPU_PALLAS_LN the LayerNorm
+    rows; in bf16 the forward and dK/dV are the tensor-core kernels, so
+    12 of each per step); under PTPU_PALLAS_LN the LayerNorm
     forward and backward once per LayerNorm layer (2L+1 per-layer, ``ln_f``
     alone stacked); under PTPU_PALLAS_FFN the FFN once per per-layer
     block (the stacked blocks keep their own MLP); nothing else."""
@@ -1426,7 +1553,7 @@ def train_launches(cfg, steps, env, packed=False):
         want[LN] = want[LN_BWD] = per_step * steps
     if env.get("PTPU_PALLAS_FFN") == "1" and not cfg.stacked_blocks:
         want[FFN] = layers * steps
-    return want
+    return with_tc(want, bf16)
 
 
 def check_train_launches(launches, want, what):
@@ -1521,7 +1648,8 @@ def train_bf16(ops, cfg, env, batch=8, seq=1024, warmup=2, timed=10,
         profile_rec = profile_step(step, data)
     losses = [x.item() for x in losses]
     check_train_launches(launches,
-                         train_launches(cfg, warmup + timed, env, packed),
+                         train_launches(cfg, warmup + timed, env, packed,
+                                        bf16=True),
                          "bfloat16 training")
     if not all(np.isfinite(losses)):
         fail(f"bfloat16 training: non-finite loss {losses}")
@@ -1649,12 +1777,14 @@ def print_cases(cases):
                 tol = f"tol {TOL_FP32}"
             else:
                 tol = f"tol {BWD_REL_FP32} max|ref|"
+            rate = ("" if "tflops" not in c
+                    else f" {c['tflops']:.1f} TFLOP/s achieved")
             print(f"kernel {name} [{c['shape']} {c['dtype']}] "
                   f"max_abs_err={c['max_abs_err']:.3g} ({tol}; "
                   f"{c['err_over_limit']:.3g} of it) "
                   f"ms={c['ms']:.4f} plain_ms={c['plain_ms']:.4f} "
-                  f"bound_ms={c['bound_ms']:.4f} ({c['bound_by']}){lib}",
-                  flush=True)
+                  f"bound_ms={c['bound_ms']:.4f} ({c['bound_by']}){rate}"
+                  f"{lib}", flush=True)
 
 
 def print_train(label, rec, launches, card):
@@ -1692,8 +1822,9 @@ def main():
     from paddle_tpu_torch.ops import ragged_paged_attention as rpa
     from paddle_tpu_torch.ops import tolerance as tol
     wrappers = {FWD: fa, FWD_MASK: fa.masked, FWD_SEGS: fa.segs,
-                FWD_NC: fa.noncausal, DQ: fa.flash_bwd_dq,
-                DKV: fa.flash_bwd_dkv, RAGGED: rpa, RAGGED8: rpa.int8,
+                FWD_NC: fa.noncausal, FWD_TC: fa.tc, DQ: fa.flash_bwd_dq,
+                DKV: fa.flash_bwd_dkv, DKV_TC: fa.flash_bwd_dkv.tc,
+                RAGGED: rpa, RAGGED8: rpa.int8,
                 DECODE: fd, FUSED: fdl, LN: fm.ln_fwd, LN_BWD: fm.ln_bwd,
                 FFN: fm.ffn_fwd}
     for bwd in (fa.flash_bwd_dq, fa.flash_bwd_dkv):
@@ -1719,7 +1850,7 @@ def main():
     # -- 2. kernels --------------------------------------------------------
     sources = sorted({w.SOURCE for w in wrappers.values()})
     t0 = time.perf_counter()
-    _build.build(sources)
+    paths = _build.build(sources)
     result["build_s"] = time.perf_counter() - t0
     result["ptxas"] = {}
     for name in sources:
@@ -1727,6 +1858,20 @@ def main():
             result["ptxas"][name] = f.read()
     print(f"built {', '.join(sources)} in {result['build_s']:.1f} s",
           flush=True)
+    # registers and spills of the flash kernels' instantiations
+    regs = {}
+    for name in ("flash_fwd_causal", "flash_bwd_causal"):
+        for fn, n_regs, st, ld in ptxas_table(result["ptxas"][name]):
+            regs[short_name(fn)] = (n_regs, st, ld)
+    result["flash_registers"] = regs
+    print("ptxas registers (spill stores / loads, bytes) of the flash "
+          "instantiations <type, D, MASKED, SEGS, CAUSAL>: " + "; ".join(
+              f"{fn} {r}" + (f" ({st}/{ld})" if st or ld else "")
+              for fn, (r, st, ld) in sorted(regs.items())), flush=True)
+    result["sass"] = check_sass(paths)
+    print("SASS: " + "; ".join(
+        f"{k} {n} instantiations, {h} with HGMMA, {f} with FFMA"
+        for k, (n, h, f) in result["sass"].items()), flush=True)
     timer = Timer()
     cases = {name: [] for name in wrappers}
     # the packed training batch's own ids (B=8 S=1024, GPT-2's vocab)
@@ -1834,7 +1979,7 @@ def main():
     serve(model, prompts[:2], "cuda", torch.bfloat16)          # warm-up
     gpu16, eng16, launches16, st16 = serve(model, prompts, "cuda",
                                            torch.bfloat16, ops)
-    check_launches(eng16, launches16, "bfloat16 engine")
+    check_launches(eng16, launches16, "bfloat16 engine", bf16=True)
     agree, first_diff = 0, []
     for p, a, b in zip(prompts, gpu32, gpu16):
         ga, gb = a[len(p):], b[len(p):]
@@ -1894,7 +2039,7 @@ def main():
     serve(model, prompts[:2], "cuda", torch.bfloat16, None, "int8")  # warm-up
     gpu8b, eng8b, launches8b, st8b = serve(model, prompts, "cuda",
                                            torch.bfloat16, ops, "int8")
-    check_launches(eng8b, launches8b, "int8 bfloat16 engine")
+    check_launches(eng8b, launches8b, "int8 bfloat16 engine", bf16=True)
     gen = NEW_TOKENS * len(prompts)
     int8 = {
         "num_blocks": {"float32": eng8.cache.num_blocks,
@@ -2110,6 +2255,8 @@ def main():
                     if c["shape"].startswith(shape) and c["dtype"] == bf16)
 
     main_case = {FWD: cases[FWD][2], RAGGED: cases[RAGGED][0],
+                 FWD_TC: pick(FWD, "B=8 S=1024 H=12 D=64"),
+                 DKV_TC: pick(DKV, "B=8 S=1024 H=12 D=64"),
                  RAGGED8: cases[RAGGED8][0],
                  FWD_MASK: pick(FWD_MASK, "B=8 S=896 H=12 D=64 pad"),
                  DQ: cases[DQ][3], DKV: cases[DKV][3],
@@ -2131,6 +2278,8 @@ def main():
                      RAGGED8: launches8[RAGGED8],
                      FWD_MASK: launches_gen["default_padded"][FWD_MASK],
                      DQ: launches_train[DQ], DKV: launches_train[DKV],
+                     FWD_TC: launches_train[FWD_TC],
+                     DKV_TC: launches_train[DKV_TC],
                      DECODE: launches_gen["default"][DECODE],
                      FUSED: launches_gen["fused"][FUSED],
                      LN: launches_gen["fused"][LN],

@@ -22,25 +22,41 @@
 // What bounds them on this card: per visible (query, key) pair dQ does
 // 6*D FLOPs and dK/dV 8*D, over 5 and 6 [S, D] slabs of bytes per head, so
 // at GPT-2 widths (D = 64, S = 1024) both sit far above the ridge point and
-// the tensor cores would bound a fast kernel.  This first design computes
-// with fp32 FMAs on the CUDA cores (no mma/wgmma), so it is bound by the
-// CUDA cores' issue rate -- the FMAs and the shared-memory reads that feed
-// them; tensor-core tiles are later work.
+// the tensor cores bound a fast kernel.  The TPU's sequential grid axis
+// becomes a loop inside one block, and the two outputs come from two
+// grids, so no block writes what another writes and no atomics are needed.
 //
-// What the design does about it: the TPU's sequential grid axis becomes a
-// loop inside one block, and the two outputs come from two grids, so no
-// block writes what another writes and no atomics are needed.
+// bf16 dK/dV: `flash_bwd_dkv_tc_kernel`, on the tensor cores
+// (`flash_tc.cuh`), in the transposed form, keys as the M dimension of
+// `wgmma`.  One block per (64-key tile, head, batch) is one warpgroup.  K
+// and V are loaded once into 128-byte-swizzled shared memory; query tiles
+// of 64 rows (Q and dO, with their lse and delta -- or the masked pair --
+// and ids) fill a two-stage `cp.async` ring, tile j+1 copied while tile j
+// computes.  Per tile: S^T = K Q^T and dP^T = V dO^T (m64n64k16, K and V
+// as A, Q and dO as K-major B); p^T and ds^T = p^T (dP^T - delta) on the
+// accumulator fragments, each thread's columns indexing the staged
+// statistics; then dV += bf16(p)^T dO and dK += bf16(ds)^T Q with the A
+// operands repacked from the accumulators in registers and dO and Q read
+// MN-major from the same tiles (m64nDk16).  Only the tiles that cross the
+// diagonal, the kv_lens edge, the ragged query edge or a segment test
+// each pair.  dK and dV accumulate in fp32 registers (D = 128: 255
+// registers, a few spilled in the masked and segment instantiations).
+//
+// fp32 dK/dV, and dQ in both types: the first design, on the CUDA cores
+// (fp32 FMAs; no mma/wgmma), bound by the CUDA cores' issue rate -- the
+// FMAs and the shared-memory reads that feed them.
 // - dQ: one block per (64-query tile, head, batch).  Four threads share a
 //   query row, each holding D/4 dims of q, dO and the fp32 dq accumulator
 //   in registers (dims d = sub + 4*i, so the four lanes of a row read
 //   consecutive shared-memory words).  Key/value tiles of 32 rows are
 //   staged once per block in shared memory as fp32; causal, the loop runs
 //   from key 0 up to the diagonal.
-// - dK/dV: one block per (64-key tile, head, batch), four threads per key
-//   row holding D/4 dims of k, v and the two accumulators.  Query and dO
-//   tiles of 32 rows are staged with their lse and delta; causal, the loop
-//   starts at the first query tile that can see the key tile (the query at
-//   max(k0 - (Sk - Sq), 0)) and runs to the end.
+// - dK/dV (fp32): one block per (64-key tile, head, batch), four threads
+//   per key row holding D/4 dims of k, v and the two accumulators.  Query
+//   and dO tiles of 32 rows are staged with their lse and delta.
+// In both dK/dV designs, causal, the loop starts at the first query tile
+// that can see the key tile (the query at max(k0 - (Sk - Sq), 0)) and
+// runs to the end.
 // Both mask the ragged tile edges themselves, so any S works: padding rows
 // are staged as zeros and their p is set to 0 before the exp, so an
 // undefined lse is never used.
@@ -67,10 +83,15 @@
 //
 // Layout: q, k, v and dO are [B, S, H, D] with unit stride in D and stride
 // D between heads; batch and sequence strides are arguments, so slices of a
-// fused qkv projection need no copy.  lse, delta (and m) are contiguous
-// fp32 [B, H, Sq].  dq, dk, dv are contiguous [B, S, H, D] in the input
-// type.  Causal alignment is at the end (query i sees keys <= i + Sk - Sq).
+// fused qkv projection need no copy (bf16 dK/dV: 16-byte-aligned rows,
+// strides a multiple of 8 elements, for the 16-byte copies).  lse, delta
+// (and m) are contiguous fp32 [B, H, Sq].  dq, dk, dv are contiguous
+// [B, S, H, D] in the input type.  Causal alignment is at the end (query i
+// sees keys <= i + Sk - Sq).
+#include <type_traits>
+
 #include "flash_common.cuh"
+#include "flash_tc.cuh"
 
 namespace {
 
@@ -337,6 +358,195 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 dK/dV: the tensor-core kernel (header comment)
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+using namespace flash_tc;
+
+constexpr int BKV = 64;         // keys per block: one warpgroup
+constexpr int BQ = 64;          // queries per tile
+constexpr int THREADS = WG;     // 128
+
+// K and V ([64, D] each), then two stages of Q and dO ([64, D] each), all
+// bf16; 1024 bytes of slack to align the tiles for the swizzle.
+template <int D>
+constexpr int smem_bytes() {
+  return (2 * BKV + 4 * BQ) * D * 2 + 1024;
+}
+
+template <int D, bool MASKED, bool SEGS, bool CAUSAL>
+__global__ void __launch_bounds__(THREADS) flash_bwd_dkv_tc_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int Sq, int Sk,
+    long long qsb, long long qss, long long ksb, long long kss,
+    long long vsb, long long vss, long long dsb, long long dss,
+    float scale, const Branches br) {
+  constexpr uint32_t KT = BKV * D * 2, QT = BQ * D * 2;   // tile bytes
+  extern __shared__ uint8_t smem[];
+  // the query tile's statistics (and ids), one set per stage
+  __shared__ float ls[2][BQ], dls[2][BQ];
+  __shared__ float mrs[MASKED ? 2 : 1][MASKED ? BQ : 1];
+  __shared__ int qids[SEGS ? 2 : 1][SEGS ? BQ : 1];
+  __shared__ int red[SEGS ? 2 * THREADS / 32 : 1];
+  // K at sk, V at sv; stage st holds Q at sv + KT + 2 QT st and dO after it
+  const uint32_t sk = (smem_addr(smem) + 1023u) & ~1023u, sv = sk + KT;
+  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int k0 = kt * BKV, offset = Sk - Sq;
+  const int klen =
+      MASKED && br.kv_lens ? min(max(br.kv_lens[b], 0), Sk) : Sk;
+  // this thread's two key rows (accumulator values i with (i/2)%2 = r)
+  int kpos[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) kpos[r] = k0 + acc_row(2 * r, tid);
+
+  const bf16* qb = q + b * qsb + h * D;
+  const bf16* db = dout + b * dsb + h * D;
+  const long long stat0 = ((long long)b * H + h) * Sq;
+  const float* mb =
+      MASKED && br.mask ? br.mask + b * br.msb + h * br.msh : nullptr;
+  const int* sb = SEGS ? br.segs + b * br.ssb : nullptr;
+  // causal: the first query that sees this block's first key, rounded down
+  // to a tile; no query when every key lies past kv_len
+  int qstart = CAUSAL ? (max(k0 - offset, 0) / BQ) * BQ : 0;
+  int qend = MASKED && k0 >= klen ? 0 : Sq;
+  int kid[2] = {0, 0};
+  if constexpr (SEGS) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) kid[r] = sb[min(kpos[r], Sk - 1)];
+    const int2 env = flash::seg_envelope<THREADS>(
+        sb, Sq, min(kid[0], kid[1]), max(kid[0], kid[1]), red);
+    qstart = max(qstart, env.x / BQ * BQ);
+    qend = min(qend, env.y);
+  }
+  const int ntiles = qend > qstart ? (qend - qstart + BQ - 1) / BQ : 0;
+
+  // issue the copies of query tile `it` into its stage
+  auto stage = [&](int it) {
+    const int q0 = qstart + it * BQ, st = it & 1;
+    const uint32_t dst = sv + KT + 2 * QT * st;
+    load_tile<BQ, D, THREADS>(dst, qb, qss, q0, Sq, tid);
+    load_tile<BQ, D, THREADS>(dst + QT, db, dss, q0, Sq, tid);
+    if (tid < BQ) {
+      const int qp = q0 + tid;
+      const bool in = qp < Sq;
+      ls[st][tid] = in ? lse[stat0 + qp] : 0.f;
+      dls[st][tid] = in ? delta[stat0 + qp] : 0.f;
+      if constexpr (MASKED) mrs[st][tid] = in ? br.rowmax[stat0 + qp] : 0.f;
+      if constexpr (SEGS) qids[st][tid] = in ? sb[qp] : 0;
+    }
+  };
+  load_tile<BKV, D, THREADS>(sk, k + b * ksb + h * D, kss, k0, Sk, tid);
+  load_tile<BKV, D, THREADS>(sv, v + b * vsb + h * D, vss, k0, Sk, tid);
+  if (ntiles > 0) stage(0);
+  cp_async_commit();
+
+  float dka[D / 2], dva[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+  float s[BQ / 2], dp[BQ / 2];   // S^T and dP^T: rows keys, columns queries
+
+  // p (in s) and ds = p (dP - delta) (in dp) of query tile q0 in stage st
+  auto probs = [&](int q0, int st, auto test) {
+    constexpr bool TEST = decltype(test)::value;
+#pragma unroll
+    for (int i = 0; i < BQ / 2; ++i) {
+      const int r = (i / 2) % 2, c = acc_col(i, tid), qp = q0 + c;
+      float x = s[i] * scale;
+      float p;
+      if constexpr (MASKED) {
+        if (mb && (!TEST || (qp < Sq && kpos[r] < Sk)))
+          x += mb[(long long)qp * br.msq + (long long)kpos[r] * br.msk];
+        p = expf((x - mrs[st][c]) - ls[st][c]);
+      } else {
+        p = expf(x - ls[st][c]);
+      }
+      if constexpr (TEST) {
+        bool ok = qp < Sq && (!CAUSAL || qp + offset >= kpos[r]);
+        if constexpr (MASKED) ok = ok && kpos[r] < klen;
+        if constexpr (SEGS) ok = ok && qids[st][c] == kid[r];
+        p = ok ? p : 0.f;
+      }
+      s[i] = p;
+      dp[i] = p * (dp[i] - dls[st][c]);
+    }
+  };
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int q0 = qstart + it * BQ, st = it & 1;
+    const uint32_t sq = sv + KT + 2 * QT * st, sdo = sq + QT;
+    cp_async_wait<0>();
+    fence_async_smem();
+    __syncthreads();   // tile it has landed; tile it - 1 is no longer read
+    if (it + 1 < ntiles) stage(it + 1);
+    cp_async_commit();
+
+    // S^T = K Q^T and dP^T = V dO^T
+#pragma unroll
+    for (int i = 0; i < BQ / 2; ++i) s[i] = dp[i] = 0.f;
+    mma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      mma_ss_n64(s, desc_k<BKV>(sk, kk), desc_k<BQ>(sq, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      mma_ss_n64(dp, desc_k<BKV>(sv, kk), desc_k<BQ>(sdo, kk), 1);
+    mma_commit();
+    mma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    if (SEGS || (MASKED && k0 + BKV > klen) || q0 + BQ > Sq ||
+        (CAUSAL && q0 + offset < k0 + BKV - 1))
+      probs(q0, st, std::true_type{});
+    else
+      probs(q0, st, std::false_type{});
+
+    // dV += bf16(p)^T dO and dK += bf16(ds)^T Q, the A operands from the
+    // accumulators, dO and Q read MN-major from their tiles
+    uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      pack_a(pa[kk], s, kk);
+      pack_a(da[kk], dp, kk);
+    }
+    mma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      mma_rs<D>(dva, pa[kk], desc_mn<BQ>(sdo, kk));
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      mma_rs<D>(dka, da[kk], desc_mn<BQ>(sq, kk));
+    mma_commit();
+    mma_wait<0>();
+    fence_regs(dva);
+    fence_regs(dka);
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (kpos[r] >= Sk) continue;
+    const long long o = (((long long)b * Sk + kpos[r]) * H + h) * D;
+#pragma unroll
+    for (int i = 2 * r; i < D / 2; i += 4) {
+      const int c = acc_col(i, tid);
+      *reinterpret_cast<__nv_bfloat162*>(dk + o + c) =
+          __floats2bfloat162_rn(dka[i] * scale, dka[i + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + o + c) =
+          __floats2bfloat162_rn(dva[i], dva[i + 1]);
+    }
+  }
+}
+
+}  // namespace tc
+
 struct Args {
   const void *q, *k, *v, *dout, *lse, *delta;
   int B, H, Sq, Sk;
@@ -372,28 +582,50 @@ void launch_dkv(const Args& a, void* dk, void* dv) {
           a.vsb, a.vss, a.dsb, a.dss, a.scale, a.br);
 }
 
+template <int D, bool MASKED, bool SEGS, bool CAUSAL>
+void launch_dkv_tc(const Args& a, void* dk, void* dv) {
+  using tc::bf16;
+  constexpr int smem = tc::smem_bytes<D>();
+  auto* kernel = tc::flash_bwd_dkv_tc_kernel<D, MASKED, SEGS, CAUSAL>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  (void)attr;   // a refusal shows as the launch's error
+  dim3 grid((a.Sk + tc::BKV - 1) / tc::BKV, a.H, a.B);
+  kernel<<<grid, tc::THREADS, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), a.H, a.Sq, a.Sk,
+      a.qsb, a.qss, a.ksb, a.kss, a.vsb, a.vss, a.dsb, a.dss, a.scale, a.br);
+}
+
 // One launch of the dQ (dk null) or the dK/dV kernel for a head size and
-// type; cudaErrorInvalidValue for one the kernels do not take.
+// type; cudaErrorInvalidValue for one the kernels do not take.  The bf16
+// dK/dV takes the tensor-core kernel; dQ and fp32 the CUDA-core ones.
 template <bool MASKED, bool SEGS, bool CAUSAL>
 int dispatch(const Args& a, int D, int is_bf16, void* dq_or_dk, void* dv) {
-#define FB_LAUNCH(T, DIM)                                                  \
-  do {                                                                     \
-    if (dv)                                                                \
-      launch_dkv<T, DIM, MASKED, SEGS, CAUSAL>(a, dq_or_dk, dv);           \
-    else                                                                   \
-      launch_dq<T, DIM, MASKED, SEGS, CAUSAL>(a, dq_or_dk);                \
-  } while (0)
-  if (D == 64 && is_bf16)
-    FB_LAUNCH(__nv_bfloat16, 64);
-  else if (D == 64)
-    FB_LAUNCH(float, 64);
-  else if (D == 128 && is_bf16)
-    FB_LAUNCH(__nv_bfloat16, 128);
-  else if (D == 128)
-    FB_LAUNCH(float, 128);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-#undef FB_LAUNCH
+  if (D != 64 && D != 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (dv && is_bf16) {
+    if (D == 64)
+      launch_dkv_tc<64, MASKED, SEGS, CAUSAL>(a, dq_or_dk, dv);
+    else
+      launch_dkv_tc<128, MASKED, SEGS, CAUSAL>(a, dq_or_dk, dv);
+  } else if (dv) {
+    if (D == 64)
+      launch_dkv<float, 64, MASKED, SEGS, CAUSAL>(a, dq_or_dk, dv);
+    else
+      launch_dkv<float, 128, MASKED, SEGS, CAUSAL>(a, dq_or_dk, dv);
+  } else if (is_bf16) {
+    if (D == 64)
+      launch_dq<__nv_bfloat16, 64, MASKED, SEGS, CAUSAL>(a, dq_or_dk);
+    else
+      launch_dq<__nv_bfloat16, 128, MASKED, SEGS, CAUSAL>(a, dq_or_dk);
+  } else {
+    if (D == 64)
+      launch_dq<float, 64, MASKED, SEGS, CAUSAL>(a, dq_or_dk);
+    else
+      launch_dq<float, 128, MASKED, SEGS, CAUSAL>(a, dq_or_dk);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -55,17 +55,17 @@ __device__ __forceinline__ void block_min_max(int& lo, int& hi, int* red) {
   }
 }
 
-// The segment envelope of a tile: `own` is the id this thread's row holds
-// (each thread passes its row's).  Returns [first, last + 1) of the
-// positions of `ids` ([n] int32) whose id lies in [min, max] of the tile's
-// ids; an empty range (first >= last + 1) when none does.  Correct for ANY
-// id layout: every position whose id equals one of the tile's lies inside
-// the range, and the positions inside it with other ids are excluded by
-// the caller's in-tile equality test.
+// The segment envelope of a tile: `lo` and `hi` are the least and the
+// greatest id of this thread's rows (each thread passes its rows').
+// Returns [first, last + 1) of the positions of `ids` ([n] int32) whose id
+// lies in [min, max] of the tile's ids; an empty range (first >= last + 1)
+// when none does.  Correct for ANY id layout: every position whose id
+// equals one of the tile's lies inside the range, and the positions inside
+// it with other ids are excluded by the caller's in-tile equality test.
 template <int THREADS>
 __device__ __forceinline__ int2 seg_envelope(const int* __restrict__ ids,
-                                             int n, int own, int* red) {
-  int lo = own, hi = own;
+                                             int n, int lo, int hi,
+                                             int* red) {
   block_min_max<THREADS>(lo, hi, red);
   int first = n, last = -1;
   for (int p = threadIdx.x; p < n; p += THREADS) {
@@ -77,6 +77,13 @@ __device__ __forceinline__ int2 seg_envelope(const int* __restrict__ ids,
   }
   block_min_max<THREADS>(first, last, red);
   return make_int2(first, last + 1);
+}
+
+// The same for a thread that holds one row, whose id is `own`.
+template <int THREADS>
+__device__ __forceinline__ int2 seg_envelope(const int* __restrict__ ids,
+                                             int n, int own, int* red) {
+  return seg_envelope<THREADS>(ids, n, own, own, red);
 }
 
 }  // namespace flash

@@ -1,0 +1,268 @@
+// Tensor-core machinery shared by the bf16 flash kernels
+// (flash_fwd_causal.cu, flash_bwd_causal.cu): Hopper's warpgroup matrix
+// multiply (`wgmma.mma_async`, sm_90a) fed from 128-byte-swizzled shared
+// memory, asynchronous 16-byte copies into that layout, and the helpers
+// that name the (row, column) of each accumulator register.
+//
+// Shared-memory tiles.  A tile of ROWS rows of D bf16 (D a multiple of
+// 64) is stored as D/64 blocks of [ROWS][64]: each 128-byte row of a block
+// holds eight 16-byte chunks, chunk c of row r at r*128 + ((c ^ r%8) * 16)
+// -- the 128-byte swizzle (CUTLASS's Swizzle<3,4,3>), so that the eight
+// rows of a core matrix sit in eight different bank groups.  Every block
+// starts on a 1024-byte boundary, as the swizzle's descriptors require.
+// The same tile serves as a K-major operand (its rows are M or N, its
+// columns the reduction) and as an MN-major B operand (its rows are the
+// reduction, its columns N): the A and B of Q K^T and the B of P V read
+// one layout, and so do K Q^T, V dO^T, p^T dO and ds^T Q in the backward.
+//
+// Descriptors (PTX ISA, "Matrix Descriptor Format"): start address >> 4 in
+// bits 0-13, the leading byte offset >> 4 in 16-29, the stride byte offset
+// >> 4 in 32-45, the swizzle mode in 62-63 (1: 128 bytes).  K-major with
+// the 128-byte swizzle: the stride byte offset is the step between groups
+// of eight rows (1024 bytes); the leading one is unused (set to 16); the
+// k-th 16-wide step of the reduction moves the start address by 32 bytes
+// inside a block and to the next block every four steps.  MN-major: the
+// leading byte offset is the step between 64-wide blocks of N (ROWS *
+// 128 bytes), the stride byte offset the step between groups of eight
+// reduction rows (1024); the k-th step moves the start by 16 rows (2048
+// bytes).
+//
+// Accumulators (m64nNk16, fp32): thread t of the warpgroup holds N/2
+// values; value i is at row 16 (t/32) + (t%32)/4 + 8 ((i/2)%2) and column
+// 8 (i/4) + 2 (t%4) + i%2.  The A operand from registers (m64k16 bf16,
+// four 32-bit registers) takes the same rows and columns 2 (t%4) + {0, 1}
+// and 8 + 2 (t%4) + {0, 1}: the values 8k .. 8k+7 of a 64 x N accumulator,
+// packed in pairs, are exactly the A fragment of its k-th 16-wide column
+// slice (`pack_a`), so a product's output feeds the next product with no
+// shuffle.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace flash_tc {
+
+constexpr int WG = 128;   // threads of a warpgroup
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---------------------------------------------------------------------------
+// asynchronous copies
+// ---------------------------------------------------------------------------
+
+// 16 bytes from global to shared memory; zeros when !valid (src is then
+// not read, but must still be a mapped address).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's copy groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// Make this thread's generic-proxy writes to shared memory (cp.async
+// included, once waited for) visible to the async proxy that wgmma reads
+// through; a barrier must follow before another thread's wgmma.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Byte offset of 16-byte chunk c (0 .. D/8 - 1) of row r in a swizzled
+// tile of ROWS rows (header comment).
+template <int ROWS>
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return (c >> 3) * (ROWS * 128) + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+}
+
+// Copy rows row0 .. row0 + ROWS - 1 of a [n, D] bf16 matrix (row stride
+// `stride` elements, 16-byte aligned rows) into the swizzled tile at
+// `dst`; rows at or past n are zero-filled.  All THREADS threads call.
+template <int ROWS, int D, int THREADS>
+__device__ __forceinline__ void load_tile(uint32_t dst,
+                                          const __nv_bfloat16* g,
+                                          long long stride, int row0, int n,
+                                          int tid) {
+  constexpr int CPR = D / 8;   // chunks per row
+  static_assert(ROWS * CPR % THREADS == 0, "tile must split evenly");
+#pragma unroll
+  for (int i = 0; i < ROWS * CPR / THREADS; ++i) {
+    const int e = tid + i * THREADS, r = e / CPR, c = e % CPR;
+    const bool ok = row0 + r < n;
+    cp_async16(dst + swz<ROWS>(r, c),
+               g + (ok ? (long long)(row0 + r) * stride : 0) + c * 8, ok);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// wgmma
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint64_t desc_field(uint32_t x) {
+  return static_cast<uint64_t>((x & 0x3FFFF) >> 4);
+}
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return desc_field(addr) | desc_field(lbo) << 16 | desc_field(sbo) << 32 |
+         1ull << 62;
+}
+// The k-th 16-wide reduction step of a K-major tile of ROWS rows.
+template <int ROWS>
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int k) {
+  return make_desc(tile + (k >> 2) * (ROWS * 128) + (k & 3) * 32, 16, 1024);
+}
+// The k-th 16-row reduction step of an MN-major tile of ROWS rows.
+template <int ROWS>
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int k) {
+  return make_desc(tile + k * 2048, ROWS * 128, 1024);
+}
+
+__device__ __forceinline__ void mma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void mma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void mma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keep the compiler from moving reads or writes of an accumulator across
+// the asynchronous products (which it cannot see writing the registers).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (+)= A B, m64n64k16, A and B from shared memory (K-major).
+__device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t da,
+                                           uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d += A B, m64n64k16, A from registers (four packed bf16 pairs), B
+// from shared memory, MN-major (imm-trans-b = 1).
+__device__ __forceinline__ void mma_rs_n64(float (&d)[32],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A B, m64n128k16, A from registers (four packed bf16 pairs), B
+// from shared memory, MN-major (imm-trans-b = 1).
+__device__ __forceinline__ void mma_rs_n128(float (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+// d += A B with N = 64 or 128 (the two head sizes).
+template <int N>
+__device__ __forceinline__ void mma_rs(float (&d)[N / 2],
+                                       const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (N == 64)
+    mma_rs_n64(d, a, db);
+  else
+    mma_rs_n128(d, a, db);
+}
+
+// ---------------------------------------------------------------------------
+// fragments
+// ---------------------------------------------------------------------------
+
+// Row (0..63) and column of accumulator value i of thread t (header).
+__device__ __forceinline__ int acc_row(int i, int t) {
+  return (t / 32) * 16 + (t % 32) / 4 + ((i / 2) % 2) * 8;
+}
+__device__ __forceinline__ int acc_col(int i, int t) {
+  return (i / 4) * 8 + (t % 4) * 2 + (i % 2);
+}
+
+// Two floats rounded to bf16 (round to nearest even), lo in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The A fragment of the k-th 16-wide column slice of a 64 x N accumulator.
+template <int N>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&d)[N],
+                                       int k) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    a[j] = pack_bf16(d[8 * k + 2 * j], d[8 * k + 2 * j + 1]);
+}
+
+// Sum of x over the four threads that share an accumulator row.
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  x += __shfl_xor_sync(0xffffffffu, x, 2);
+  return x;
+}
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+  return x;
+}
+
+}  // namespace flash_tc

@@ -37,10 +37,12 @@ __all__ = ["flash_attention_arrays", "mha_reference", "FlashAttention",
 
 # every launch wrapper: a module or object with KERNEL and launches
 _KERNELS = (flash_attention, flash_attention.masked, flash_attention.segs,
-            flash_attention.noncausal, flash_attention.flash_bwd_dq,
+            flash_attention.noncausal, flash_attention.tc,
+            flash_attention.flash_bwd_dq,
             *flash_attention.flash_bwd_dq.variants.values(),
             flash_attention.flash_bwd_dkv,
             *flash_attention.flash_bwd_dkv.variants.values(),
+            flash_attention.flash_bwd_dkv.tc,
             ragged_paged_attention, ragged_paged_attention.int8,
             flash_decode, fused_decode, fused_mlp.ln_fwd, fused_mlp.ln_bwd,
             fused_mlp.ffn_fwd)

@@ -16,11 +16,19 @@ statistics, and the backward launches the two kernels of
 
 Each source has one entry per kernel, which picks the template
 instantiation (``MASKED`` for a mask and / or ``kv_lens``, ``SEGS``,
-``CAUSAL``) from the branches it is given.  Each wrapper counts the causal
+``CAUSAL``) from the branches it is given, and the design from the type:
+in bfloat16 the forward and the dK/dV kernel run on the tensor cores
+(``wgmma``, ``csrc/flash_tc.cuh``), in float32 on the CUDA cores; dQ runs
+on the CUDA cores in both.  Each wrapper counts the causal
 launches with no mask, ``kv_lens`` or segments (the serving prefill and
 unpacked training) under the kernel's name, and the others apart, by the
 first of: ``segs`` (any call with segment ids), ``mask`` (a mask or
-``kv_lens``), ``noncausal``.
+``kv_lens``), ``noncausal``.  The tensor-core launches are counted once
+more, apart, under ``flash_fwd_causal:tc`` and ``flash_bwd_dkv_causal:tc``
+(any branch).  The tensor-core kernels copy 16-byte rows: a bfloat16 call
+on the card needs q, k, v (and dO) to start on 16 bytes, with batch and
+sequence strides that are multiples of 8 elements (the slices of a fused
+``[B, S, 3, H, D]`` projection are); anything else raises.
 
 The softmax statistic the backward reads is the logsumexp, except with a
 mask or ``kv_lens``: there it is the pair (row max ``m``, ``log l``), which
@@ -67,6 +75,7 @@ class _Variant:
 masked = _Variant(KERNEL + ":mask", SOURCE)
 segs = _Variant(KERNEL + ":segs", SOURCE)
 noncausal = _Variant(KERNEL + ":noncausal", SOURCE)
+tc = _Variant(KERNEL + ":tc", SOURCE)   # bf16: the tensor-core kernel
 _FWD_VARIANTS = {"mask": masked, "segs": segs, "noncausal": noncausal}
 
 
@@ -261,6 +270,26 @@ def _check_qkv(q, k, v, causal=True):
         raise ValueError(f"kernel takes head_dim 64 or 128, got {d}")
     if causal and k.shape[1] < sq:
         raise ValueError("causal attention needs Sk >= Sq")
+    if q.is_cuda and q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            _check_aligned(name, t)
+
+
+def _aligned(t):
+    """What the 16-byte copies of the bf16 tensor-core kernels need: a
+    16-byte-aligned start, and batch and sequence strides that are
+    multiples of 8 elements (a dimension of size 1 takes any stride)."""
+    return t.data_ptr() % 16 == 0 and all(
+        t.shape[i] == 1 or t.stride(i) % 8 == 0 for i in (0, 1))
+
+
+def _check_aligned(name, t):
+    if not _aligned(t):
+        raise ValueError(
+            f"{name}: the bfloat16 kernels need a 16-byte-aligned start and "
+            f"batch and sequence strides that are multiples of 8 elements; "
+            f"got strides {t.stride()}, start at {t.data_ptr() % 16} bytes "
+            f"past 16")
 
 
 def _head_layout(t):
@@ -328,13 +357,17 @@ def _launch(q, k, v, scale, causal=True, mask=None, lens=None, sid=None):
         launches += 1
     else:
         _FWD_VARIANTS[name].launches += 1
+    if q.dtype == torch.bfloat16:
+        tc.launches += 1
     return out, lse, pair
 
 
 class _BwdKernel:
     """Launch wrapper of one kernel of ``csrc/flash_bwd_causal.cu`` (the
     extern entry ``entry``), with a launch counter for its causal launches
-    with no other branch and one per variant (``variants``).
+    with no other branch, one per variant (``variants``) and, with
+    ``tc_kernel``, one for its bf16 launches (``tc``: the tensor-core
+    kernel), else ``tc`` None.
     ``(q, k, v, do, lse, delta, scale)`` plus the branches -> ``dq`` (the dQ kernel, one output) or ``(dk, dv)`` (the
     dK/dV kernel, two), each a contiguous [B, S, H, D] in the inputs'
     dtype; with a mask or kv_lens, ``lse`` is log l and ``row_max`` the
@@ -344,12 +377,13 @@ class _BwdKernel:
 
     SOURCE = BWD_SOURCE
 
-    def __init__(self, kernel, entry, n_out):
+    def __init__(self, kernel, entry, n_out, tc_kernel=False):
         self.KERNEL = kernel
         self.launches = 0          # causal launches since the reset
         self._entry = entry
         self.variants = {n: _Variant(f"{kernel}:{n}", BWD_SOURCE)
                          for n in VARIANTS}
+        self.tc = _Variant(f"{kernel}:tc", BWD_SOURCE) if tc_kernel else None
         self._n_out = n_out
 
     def __call__(self, q, k, v, do, lse, delta, scale, *, causal=True,
@@ -369,6 +403,8 @@ class _BwdKernel:
             raise ValueError(f"do must match q in shape, dtype, device and "
                              f"head layout: {tuple(do.shape)} {do.dtype} on "
                              f"{do.device}, strides {do.stride()}")
+        if do.dtype == torch.bfloat16:
+            _check_aligned("do", do)
         b, sq, h, d = q.shape
         sk = k.shape[1]
         name = variant_name(causal, mask, lens, segs)
@@ -399,11 +435,14 @@ class _BwdKernel:
         _build.check(err, self.KERNEL)
         counter = self if name is None else self.variants[name]
         counter.launches += 1
+        if self.tc is not None and q.dtype == torch.bfloat16:
+            self.tc.launches += 1
         return outs[0] if self._n_out == 1 else tuple(outs)
 
 
 flash_bwd_dq = _BwdKernel("flash_bwd_dq_causal", "flash_bwd_dq", 1)
-flash_bwd_dkv = _BwdKernel("flash_bwd_dkv_causal", "flash_bwd_dkv", 2)
+flash_bwd_dkv = _BwdKernel("flash_bwd_dkv_causal", "flash_bwd_dkv", 2,
+                           tc_kernel=True)
 
 
 def _forward(q, k, v, scale, causal, mask, lens, sid):
@@ -443,7 +482,8 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do, _dlse):
         q, k, v, out, stat, row_max, mask, lens, segs = ctx.saved_tensors
-        if q.is_cuda and not _head_layout(do):
+        if q.is_cuda and not (_head_layout(do) and (
+                do.dtype != torch.bfloat16 or _aligned(do))):
             # autograd gives no layout guarantee; one copy of [B, S, H, D]
             do = do.contiguous()
         delta = attention_delta(out, do)

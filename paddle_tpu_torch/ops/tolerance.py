@@ -14,10 +14,21 @@ result to bf16 once, each by at most 2^-8 of it (the bf16 unit roundoff).
 The second bounds the rounding of an intermediate to bf16 inside a sum,
 with ``mag`` that sum taken over magnitudes in fp32:
 
-- attention forward (``coef = FWD_COEF = 2^-8``): the plain version rounds
-  each probability to bf16 (by at most 2^-8 of it) before the value
-  product and the kernel does not, which moves ``sum_k p_k v_k`` by at
-  most 2^-8 P|V| (`flash_fwd_magnitude`).
+- attention forward, kernels that do not round p (``coef = FWD_COEF =
+  2^-8``: the ragged kernels): the plain version rounds each probability
+  to bf16 (by at most 2^-8 of it) before the value product and the kernel
+  does not, which moves ``sum_k p_k v_k`` by at most 2^-8 P|V|.
+- flash forward (``coef = FLASH_FWD_COEF = 2^-7``): the tensor-core
+  kernel rounds p to bf16 for its PV product, as the TPU kernel does
+  (`pallas_ops.py:181`): ``exp(s - m)`` at the running max m of its key
+  tile, later scaled in fp32 by ``exp(m - m_final) / l``, with l the sum
+  of the unrounded p.  The plain version rounds the normalised
+  probability, at the row's final max.  Each rounds every product's
+  weight by at most 2^-8 of it, so each is within 2^-8 P|V| of the exact
+  ``sum_k p_k v_k`` and the two within 2^-7 P|V|
+  (`flash_fwd_magnitude`), the argument that ``DECODE_COEF`` makes.  The
+  TPU kernel rounds at the same points as the tensor-core one, so the
+  same limit holds between it and the plain version.
 - attention backward (``coef = BWD_COEF = 2^-7``): both sides round p (for
   dV) and ds (for dK, dQ) to bf16 at the same points, but from fp32 values
   that differ in their last bits (summation order); where such a value
@@ -93,7 +104,7 @@ from .flash_attention import attention_delta, mha_reference, recompute_probs
 from .flash_decode import flash_decode_reference
 from .fused_mlp import _act, fused_layernorm_reference
 
-__all__ = ["BF16_STEP", "FWD_COEF", "BWD_COEF", "DECODE_COEF", "LN_COEF",
+__all__ = ["BF16_STEP", "FWD_COEF", "FLASH_FWD_COEF", "BWD_COEF", "DECODE_COEF", "LN_COEF",
            "LN_BWD_COEF", "FP32_SUM", "bf16_limit", "compare",
            "flash_fwd_magnitude", "flash_bwd_magnitudes", "decode_magnitude",
            "decode_limit", "ln_magnitude", "ln_bwd_magnitudes",
@@ -102,6 +113,7 @@ __all__ = ["BF16_STEP", "FWD_COEF", "BWD_COEF", "DECODE_COEF", "LN_COEF",
 
 BF16_STEP = 2.0 ** -7
 FWD_COEF = 2.0 ** -8
+FLASH_FWD_COEF = 2.0 ** -7
 BWD_COEF = 2.0 ** -7
 DECODE_COEF = 2.0 ** -7
 LN_COEF = 2.0 ** -20

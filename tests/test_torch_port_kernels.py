@@ -12,7 +12,10 @@ Tolerances against the plain version on the same inputs
 
 - forward kernels, float32: max absolute error 2e-5 (both accumulate in
   fp32 and differ only in summation order); bfloat16: per element
-  2^-7 max(|out|, |ref|) + 2^-8 P|V|.
+  2^-7 max(|out|, |ref|) + 2^-8 P|V| (the ragged kernels, which do not
+  round p), 2^-7 max(|out|, |ref|) + 2^-7 P|V| (the flash forward, whose
+  tensor-core kernel rounds p at the running max of each key tile and the
+  plain version at the final max).
 - backward kernels, float32: max absolute error 1e-4 max|ref| per
   gradient (fp32 sums over up to S keys, in different orders); bfloat16:
   per element 2^-7 max(|out|, |ref|) + 2^-7 times the gradient's sum of
@@ -21,8 +24,11 @@ Tolerances against the plain version on the same inputs
 - pool writes: bitwise; for int8 pools the codes and the scales too.
 - the int8 ragged kernel's output: the forward limit above (both sides
   compute in fp32; bf16 rounds the output once).
-- the masked / kv_lens flash forward: the forward limit above, on every
-  row, left-pad rows (all keys masked) included.
+- the masked / kv_lens flash forward: the flash forward limit above, on
+  every row, left-pad rows (all keys masked) included.
+- the bf16 flash forward and dK/dV run on the tensor cores: each bf16
+  launch counts once more under ``:tc``, fp32 ones never; a bf16 slice
+  whose start or strides break the 16-byte copies raises ValueError.
 - the variant branches of the flash kernels (segment ids, non-causal, mask
   and kv_lens, forward and backward): the forward and backward limits
   above, every row (rows the mask closes entirely too); lse and the
@@ -71,11 +77,12 @@ def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
-def _fwd_ok(out, want, mag):
+def _fwd_ok(out, want, mag, coef=tol.FWD_COEF):
     """Max error, and whether every element is within the limit of its
-    dtype (module docstring); ``mag`` is P|V|, used in bf16 only."""
+    dtype (module docstring); ``mag`` is P|V| and ``coef`` its
+    coefficient, used in bf16 only."""
     limit = (TOL_FP32 if out.dtype == torch.float32
-             else tol.bf16_limit(out, want, mag, tol.FWD_COEF))
+             else tol.bf16_limit(out, want, mag, coef))
     err, _, ok = tol.compare(out, want, limit)
     return err, ok
 
@@ -88,18 +95,29 @@ def _fused_qkv(b, s, h, d, dtype, seed):
                                                       dtype).unbind(2)
 
 
+# S on and off the 64-row tiles; 6 (S=7) to 96 blocks, all below 132
+FLASH_SHAPES = [(7, 64), (65, 64), (200, 64), (1000, 64), (130, 128),
+                (129, 128), (1000, 128)]
+
+
+def _flash_fwd_ok(out, want, mag):
+    return _fwd_ok(out, want, mag, tol.FLASH_FWD_COEF)
+
+
 @pytest.mark.cuda
 @pytest.mark.usefixtures("needs_cuda")
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("s,d", [(7, 64), (200, 64), (130, 128)])
+@pytest.mark.parametrize("s,d", FLASH_SHAPES)
 def test_flash_kernel_matches_plain(s, d, dtype):
     q, k, v = _fused_qkv(2, s, 3, d, dtype, s + d)
+    fa.tc.launches = 0
     out, lse = fa.flash_attention_arrays(q, k, v, is_causal=True,
                                          return_lse=True)
     want, want_lse = fa.mha_reference(q, k, v, is_causal=True,
                                       return_lse=True)
     torch.cuda.synchronize()
-    err, ok = _fwd_ok(out, want, tol.flash_fwd_magnitude(q, k, v))
+    assert fa.tc.launches == int(dtype == torch.bfloat16)
+    err, ok = _flash_fwd_ok(out, want, tol.flash_fwd_magnitude(q, k, v))
     assert ok, err
     assert (lse - want_lse).abs().max().item() <= 1e-4
 
@@ -107,7 +125,7 @@ def test_flash_kernel_matches_plain(s, d, dtype):
 @pytest.mark.cuda
 @pytest.mark.usefixtures("needs_cuda")
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("s,d", [(7, 64), (200, 64), (130, 128)])
+@pytest.mark.parametrize("s,d", FLASH_SHAPES)
 def test_flash_bwd_kernels_match_plain(s, d, dtype):
     q, k, v = _fused_qkv(2, s, 3, d, dtype, 10 * s + d)
     scale = d ** -0.5
@@ -117,11 +135,13 @@ def test_flash_bwd_kernels_match_plain(s, d, dtype):
     # a strided dO: the [B, S, H, D] view of a [B, S, 2, H, D] tensor
     do = torch.randn(2, s, 2, 3, d, generator=g).to("cuda", dtype)[:, :, 1]
     delta = fa.attention_delta(out, do)
+    fa.flash_bwd_dkv.tc.launches = 0
     dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, scale)
     dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, scale)
     want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, scale)
     mags = tol.flash_bwd_magnitudes(q, k, v, out, lse, do, scale)
     torch.cuda.synchronize()
+    assert fa.flash_bwd_dkv.tc.launches == int(dtype == torch.bfloat16)
     for name, got, ref, mag in zip(("dq", "dk", "dv"), (dq, dk, dv), want,
                                    mags):
         assert got.shape == ref.shape and got.dtype == dtype
@@ -275,7 +295,12 @@ def _mask_inputs(b, s, h, d, kind, dtype, seed):
                                           (3, 200, 3, 64, "pad_lens"),
                                           (2, 130, 2, 128, "full"),
                                           (2, 96, 2, 64, "bool"),
-                                          (3, 257, 2, 64, "lens")])
+                                          (3, 257, 2, 64, "lens"),
+                                          (3, 200, 2, 128, "pad"),
+                                          (3, 129, 2, 128, "pad_lens"),
+                                          (2, 65, 2, 64, "full"),
+                                          (2, 96, 2, 128, "bool"),
+                                          (3, 257, 2, 128, "lens")])
 def test_flash_masked_kernel_matches_plain(b, s, h, d, kind, dtype):
     q, k, v, mask, lens = _mask_inputs(b, s, h, d, kind, dtype, s + d)
     fa.launches = fa.masked.launches = 0
@@ -288,7 +313,7 @@ def test_flash_masked_kernel_matches_plain(b, s, h, d, kind, dtype):
                            is_causal=True, mask=mask, kv_lens=lens)
     torch.cuda.synchronize()
     assert (fa.launches, fa.masked.launches) == (0, 1)
-    err, ok = _fwd_ok(out, want, mag)                  # every row
+    err, ok = _flash_fwd_ok(out, want, mag)            # every row
     assert ok, err
     assert (lse - want_lse).abs().max().item() <= 1e-4
 
@@ -331,7 +356,11 @@ def _variant_inputs(kind, b, s, h, d, dtype, seed):
 
 VARIANT_CASES = [("segs", 3, 200, 3, 64), ("segs_nc", 2, 200, 2, 64),
                  ("nc", 2, 130, 2, 64), ("pad", 2, 200, 3, 64),
-                 ("lens_nc", 3, 200, 2, 128), ("all", 2, 200, 2, 64)]
+                 ("lens_nc", 3, 200, 2, 128), ("all", 2, 200, 2, 64),
+                 # D=128 for every branch, S on and off the tile edges
+                 ("segs", 3, 257, 2, 128), ("segs_nc", 2, 256, 2, 128),
+                 ("nc", 2, 65, 2, 128), ("pad", 2, 129, 2, 128),
+                 ("lens_nc", 2, 65, 2, 64), ("all", 2, 1000, 2, 128)]
 
 
 @pytest.mark.cuda
@@ -350,7 +379,7 @@ def test_flash_variant_kernels_match_plain(kind, b, s, h, d, dtype):
     name = fa.variant_name(causal, m4, lens, segs)
     counters = [fa.segs, fa.masked, fa.noncausal,
                 fa.flash_bwd_dq.variants[name],
-                fa.flash_bwd_dkv.variants[name]]
+                fa.flash_bwd_dkv.variants[name], fa.tc, fa.flash_bwd_dkv.tc]
     for c in counters:
         c.launches = 0
     out, lse, pair = fa._launch(q, k, v, scale, causal, m4, lens, segs)
@@ -367,10 +396,11 @@ def test_flash_variant_kernels_match_plain(kind, b, s, h, d, dtype):
         kv_lens=lens, segment_ids=segs, row_max=row_max)
     mags = tol.flash_bwd_magnitudes(q, k, v, out, stat, do, scale, **kw)
     torch.cuda.synchronize()
+    bf16 = int(dtype == torch.bfloat16)
     assert [c.launches for c in counters] == [
         int(name == "segs"), int(name == "mask"), int(name == "noncausal"),
-        1, 1]
-    err, ok = _fwd_ok(out, want, mag)
+        1, 1, bf16, bf16]
+    err, ok = _flash_fwd_ok(out, want, mag)
     assert ok, ("out", err)
     assert (lse - want_lse).abs().max().item() <= 1e-4
     if pair is not None:
@@ -417,6 +447,41 @@ def test_flash_autograd_variants_match_cpu(kind):
     for what, g, r in zip(("dq", "dk", "dv"), grads["cuda"], grads["cpu"]):
         assert (g - r).abs().max().item() <= \
             BWD_REL_FP32 * r.abs().max().item(), what
+
+
+@pytest.mark.cuda
+@pytest.mark.usefixtures("needs_cuda")
+@pytest.mark.parametrize("bad", ["start", "stride"])
+def test_flash_bf16_misaligned_slice_raises(bad):
+    """The tensor-core kernels' 16-byte copies: a bf16 q, k, v or dO that
+    starts off 16 bytes, or whose sequence stride is not a multiple of 8
+    elements, raises ValueError naming it; the fp32 kernels take both."""
+    b, s, h, d = 2, 65, 2, 64
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = _fused_qkv(b, s, h, d, dtype, 1)
+        if bad == "start":
+            buf = torch.zeros(b * s * h * d + 8, dtype=dtype, device="cuda")
+            odd = buf[1:1 + b * s * h * d].view(b, s, h, d)
+        else:                  # sequence stride h*d + 2
+            odd = torch.zeros(b, s, h * d + 2, dtype=dtype,
+                              device="cuda")[..., :h * d].unflatten(-1, (h, d))
+        odd.copy_(q)
+        out, lse = fa.flash_attention_arrays(q, k, v, is_causal=True,
+                                             return_lse=True)
+        delta = fa.attention_delta(out, q)
+        calls = {"q": lambda: fa.flash_attention_arrays(odd, k, v,
+                                                        is_causal=True),
+                 "k": lambda: fa.flash_attention_arrays(q, odd, v,
+                                                        is_causal=True),
+                 "do": lambda: fa.flash_bwd_dkv(q, k, v, odd, lse, delta,
+                                                d ** -0.5)}
+        for name, call in calls.items():
+            if dtype == torch.float32:
+                call()
+            else:
+                with pytest.raises(ValueError, match=f"^{name}: .*strides"):
+                    call()
+    torch.cuda.synchronize()
 
 
 def _randn(shape, seed, dtype, scale=1.0):

@@ -133,11 +133,13 @@ def test_bwd_wrappers_on_cpu_compute_the_plain_backward():
         torch.testing.assert_close(got, w, atol=0, rtol=0)
     assert set(ops.launch_counts()) == {
         "flash_fwd_causal", "flash_fwd_causal:mask", "flash_fwd_causal:segs",
-        "flash_fwd_causal:noncausal", "flash_bwd_dq_causal",
+        "flash_fwd_causal:noncausal", "flash_fwd_causal:tc",
+        "flash_bwd_dq_causal",
         "flash_bwd_dq_causal:mask", "flash_bwd_dq_causal:segs",
         "flash_bwd_dq_causal:noncausal", "flash_bwd_dkv_causal",
         "flash_bwd_dkv_causal:mask", "flash_bwd_dkv_causal:segs",
-        "flash_bwd_dkv_causal:noncausal", "ragged_paged_attention",
+        "flash_bwd_dkv_causal:noncausal", "flash_bwd_dkv_causal:tc",
+        "ragged_paged_attention",
         "ragged_paged_attention:int8", "flash_decode", "fused_decode_layer",
         "fused_layernorm", "fused_layernorm_bwd", "fused_ffn"}
     assert set(ops.launch_counts().values()) == {0}
