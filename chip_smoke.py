@@ -8,9 +8,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
 2. Kernels: build every CUDA source (all at once; the build time and the
    flash instantiations' registers and spills from ``-Xptxas -v`` are
    printed), read the flash libraries' machine code (`cuobjdump -sass`:
-   all 16 instantiations each of the bf16 forward and dK/dV, the
-   tensor-core kernels, must hold HGMMA, and the CUDA-core forward and
-   dK/dV must be left with their 16 fp32 instantiations, FFMA and no
+   all 16 instantiations each of the bf16 forward, dQ and dK/dV, the
+   tensor-core kernels, must hold HGMMA, and the CUDA-core forward, dQ
+   and dK/dV must be left with their 16 fp32 instantiations, FFMA and no
    HGMMA or HMMA), then hold each kernel
    against its plain PyTorch version on the card, in float32 and bfloat16,
    and time kernel, plain version and a PyTorch yardstick (SDPA, and for
@@ -32,8 +32,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
      the TPU kernel does, and the plain version at the final max).  So
      the limit follows each output's own magnitude: at rows of hundreds
      of keys it is ~3e-3, not the ~2e-2 a short row needs.  Pool writes
-     must be bitwise equal.  Each flash case also prints its achieved
-     TFLOP/s (the FLOPs its bound counts over its time).
+     must be bitwise equal.  Each flash case (dQ and dK/dV apart) also
+     prints its achieved TFLOP/s (the FLOPs its bound counts over its
+     time).
    - backward, float32: max |err| <= 1e-4 max |ref| per gradient — both
      sides accumulate in fp32 over up to 1024 keys or queries, in
      different orders.  bfloat16, per element |out - ref| <= 2^-7
@@ -46,8 +47,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
      W = P (|dO|.|V|^T + |dO|.|out|) bounding ds = P (dP - delta) also
      where the difference cancels to fp32 noise (a query's first key).
    - the generate kernels, at GPT-2 124M's decode shapes (B=8, H=12,
-     D=64, S_max=1024): flash decode at lengths 1, 257 and 1024 (and
-     H=16 D=128), yardstick SDPA over the prefix; the fused decode layer
+     D=64, S_max=1024): flash decode at lengths 1, 2, 255, 257 and 1024
+     (and H=16 D=128), with its split count and achieved GB/s (the bytes
+     its bound counts over its time), yardstick SDPA over the prefix; the
+     fused decode layer
      at t = 1, 511 and 1023 without and with a row mask (no yardstick),
      whose other ring rows must stay bitwise unchanged; LayerNorm at 8
      and 8192 rows of 768, yardstick `F.layer_norm`; FFN at 8, 512 and
@@ -127,8 +130,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
 6. Training, bfloat16, full size: B=8 S=1024, bf16 params with fp32
    AdamW masters (lr 1e-4), 2 warm-up steps then 10 timed steps on one
    repeated batch.  Every loss finite, step 12's below step 1's, 12
-   launches of each flash kernel per step, of them the forward and dK/dV
-   on the tensor cores (12 each per step); prints tokens/s and ms per
+   launches of each flash kernel per step, all three on the tensor cores
+   (12 each per step); prints tokens/s and ms per
    step, then profiles one step with torch.profiler (device ms, busy
    share, top kernels).
 6b. Packed training (stacked): documents of 16-1024 tokens
@@ -154,10 +157,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    kernel, 25 of the LayerNorm forward and backward and 12 of the FFN per
    step and none on the CPU; then bf16 as phase 6 with the flags and
    without them.
-8. Summary: one JSON line of the twenty-one entries (the nine kernels,
+8. Summary: one JSON line of the twenty-two entries (the nine kernels,
    the int8 variant, the mask, segment and non-causal variants of the
-   flash kernels, and the tensor-core forward and dK/dV -- every bf16
-   launch of those two, timed at the bf16 training shape -- counted
+   flash kernels, and the tensor-core forward, dQ and dK/dV -- every bf16
+   launch of those three, timed at the bf16 training shape -- counted
    apart), the card line, then the result line.
 
 Every time is a median of CUDA-event timings (L2 flushed before each
@@ -195,14 +198,15 @@ FWD_SEGS, FWD_NC = FWD + ":segs", FWD + ":noncausal"
 DQ_MASK, DQ_SEGS, DQ_NC = (DQ + ":mask", DQ + ":segs", DQ + ":noncausal")
 DKV_MASK, DKV_SEGS, DKV_NC = (DKV + ":mask", DKV + ":segs",
                               DKV + ":noncausal")
-# the bf16 launches of the forward and dK/dV, any branch: the tensor-core
-# kernels (counted once more, apart from the counters above)
-FWD_TC, DKV_TC = FWD + ":tc", DKV + ":tc"
+# the bf16 launches of the three flash kernels, any branch: the
+# tensor-core kernels (counted once more, apart from the counters above)
+FWD_TC, DQ_TC, DKV_TC = FWD + ":tc", DQ + ":tc", DKV + ":tc"
 FWD_ALL = (FWD, FWD_MASK, FWD_SEGS, FWD_NC)
+DQ_ALL = (DQ, DQ_MASK, DQ_SEGS, DQ_NC)
 DKV_ALL = (DKV, DKV_MASK, DKV_SEGS, DKV_NC)
 KERNELS = (FWD, FWD_MASK, FWD_SEGS, FWD_NC, FWD_TC, RAGGED, RAGGED8, DQ,
-           DQ_MASK, DQ_SEGS, DQ_NC, DKV, DKV_MASK, DKV_SEGS, DKV_NC, DKV_TC,
-           DECODE, FUSED, LN, LN_BWD, FFN)
+           DQ_MASK, DQ_SEGS, DQ_NC, DQ_TC, DKV, DKV_MASK, DKV_SEGS, DKV_NC,
+           DKV_TC, DECODE, FUSED, LN, LN_BWD, FFN)
 REPLACES = {
     FWD: "paddle_tpu/ops/pallas_ops.py:135",
     FWD_MASK: "paddle_tpu/ops/pallas_ops.py:135",
@@ -214,6 +218,7 @@ REPLACES = {
     DQ_MASK: "paddle_tpu/ops/pallas_ops.py:210",
     DQ_SEGS: "paddle_tpu/ops/pallas_ops.py:210",
     DQ_NC: "paddle_tpu/ops/pallas_ops.py:210",
+    DQ_TC: "paddle_tpu/ops/pallas_ops.py:210",
     DKV: "paddle_tpu/ops/pallas_ops.py:272",
     DKV_MASK: "paddle_tpu/ops/pallas_ops.py:272",
     DKV_SEGS: "paddle_tpu/ops/pallas_ops.py:272",
@@ -230,7 +235,8 @@ REPLACES = {
 # (template names: the mask and int8 variants are instantiations of
 # flash_fwd_causal_kernel and ragged_attend_kernel)
 PORT_SYMBOLS = ("flash_fwd_causal_kernel", "flash_fwd_tc_kernel",
-                "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
+                "flash_bwd_dq_kernel", "flash_bwd_dq_tc_kernel",
+                "flash_bwd_dkv_kernel",
                 "flash_bwd_dkv_tc_kernel", "ragged_write_kernel",
                 "ragged_attend_kernel", "ragged_write_int8_kernel",
                 "flash_decode_kernel", "fused_decode_layer_kernel",
@@ -312,10 +318,12 @@ def tflops(flops, ms):
 
 
 def with_tc(want, bf16):
-    """`want` with the tensor-core counts: in bf16 every forward and dK/dV
-    launch counts once more under FWD_TC and DKV_TC, in fp32 never."""
-    want[FWD_TC] = sum(want[n] for n in FWD_ALL) if bf16 else 0
-    want[DKV_TC] = sum(want[n] for n in DKV_ALL) if bf16 else 0
+    """`want` with the tensor-core counts: in bf16 every forward, dQ and
+    dK/dV launch counts once more under FWD_TC, DQ_TC and DKV_TC, in fp32
+    never."""
+    for tc, names in ((FWD_TC, FWD_ALL), (DQ_TC, DQ_ALL),
+                      (DKV_TC, DKV_ALL)):
+        want[tc] = sum(want[n] for n in names) if bf16 else 0
     return want
 
 
@@ -338,19 +346,22 @@ def _sass_functions(lib):
 
 def check_sass(paths):
     """The design behind each flash entry, from the built libraries'
-    machine code: every instantiation of the bf16 forward and dK/dV kernels
-    (``flash_fwd_tc_kernel``, ``flash_bwd_dkv_tc_kernel``: 16 each, 8
-    flag combinations x D 64 and 128) contains HGMMA (warpgroup tensor-core
-    products), and the CUDA-core kernels they replaced
-    (``flash_fwd_causal_kernel``, ``flash_bwd_dkv_kernel``) are left with
-    their 16 fp32 instantiations only, FFMA and no HGMMA or HMMA.  Returns
+    machine code: every instantiation of the bf16 forward, dQ and dK/dV
+    kernels (``flash_fwd_tc_kernel``, ``flash_bwd_dq_tc_kernel``,
+    ``flash_bwd_dkv_tc_kernel``: 16 each, 8 flag combinations x D 64 and
+    128) contains HGMMA (warpgroup tensor-core products), and the CUDA-core
+    kernels they replaced (``flash_fwd_causal_kernel``,
+    ``flash_bwd_dq_kernel``, ``flash_bwd_dkv_kernel``) are left with their
+    16 fp32 instantiations only, FFMA and no HGMMA or HMMA.  Returns
     {kernel: [instantiations, of them with HGMMA, with FFMA]}."""
-    wants = {"flash_fwd_tc_kernel": (FWD, True),
-             "flash_fwd_causal_kernel": (FWD, False),
-             "flash_bwd_dkv_tc_kernel": (DKV, True),
-             "flash_bwd_dkv_kernel": (DKV, False)}
-    funcs = {FWD: _sass_functions(paths["flash_fwd_causal"]),
-             DKV: _sass_functions(paths["flash_bwd_causal"])}
+    fwd, bwd = "flash_fwd_causal", "flash_bwd_causal"    # the sources
+    wants = {"flash_fwd_tc_kernel": (fwd, True),
+             "flash_fwd_causal_kernel": (fwd, False),
+             "flash_bwd_dq_tc_kernel": (bwd, True),
+             "flash_bwd_dq_kernel": (bwd, False),
+             "flash_bwd_dkv_tc_kernel": (bwd, True),
+             "flash_bwd_dkv_kernel": (bwd, False)}
+    funcs = {src: _sass_functions(paths[src]) for src in (fwd, bwd)}
     counts = {}
     for kernel, (lib, tensor_cores) in wants.items():
         # mangled: ..._kernel I <template arguments> E; the CUDA-core ones
@@ -974,10 +985,13 @@ def check_decode(fd, tol, timer, b, s_max, h, d, length, dtype, seed):
     item = q.element_size()
     nbytes = 2 * b * h * d * item * (length + 1)   # K, V prefix; q, out
     bms, by = bound_ms(nbytes, 4 * b * h * d * length, dtype)
+    splits = fd._lib().flash_decode_splits(length)
     return dict(shape=f"B={b} S_max={s_max} length={length} H={h} D={d}",
                 dtype=str(dtype), max_abs_err=err, err_over_limit=ratio,
                 ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                library_ms=lib_ms, tol=_tol_text(dtype, TOL_FP32))
+                library_ms=lib_ms, tol=_tol_text(dtype, TOL_FP32),
+                splits=splits, blocks=splits * b * h,
+                gb_per_s=nbytes / (ms * 1e-3) / 1e9)
 
 
 def _tol_text(dtype, fp32):
@@ -1539,8 +1553,8 @@ def make_step(model, lr=TRAIN_LR):
 def train_launches(cfg, steps, env, packed=False, bf16=False):
     """Expected launches of `steps` training steps under the flags `env`:
     each flash kernel once per layer (its segment variant on packed
-    rows; in bf16 the forward and dK/dV are the tensor-core kernels, so
-    12 of each per step); under PTPU_PALLAS_LN the LayerNorm
+    rows; in bf16 all three are the tensor-core kernels, so 12 of each
+    per step); under PTPU_PALLAS_LN the LayerNorm
     forward and backward once per LayerNorm layer (2L+1 per-layer, ``ln_f``
     alone stacked); under PTPU_PALLAS_FFN the FFN once per per-layer
     block (the stacked blocks keep their own MLP); nothing else."""
@@ -1779,6 +1793,9 @@ def print_cases(cases):
                 tol = f"tol {BWD_REL_FP32} max|ref|"
             rate = ("" if "tflops" not in c
                     else f" {c['tflops']:.1f} TFLOP/s achieved")
+            if "splits" in c:
+                rate += (f" {c['splits']} splits ({c['blocks']} blocks), "
+                         f"{c['gb_per_s']:.1f} GB/s achieved")
             print(f"kernel {name} [{c['shape']} {c['dtype']}] "
                   f"max_abs_err={c['max_abs_err']:.3g} ({tol}; "
                   f"{c['err_over_limit']:.3g} of it) "
@@ -1823,7 +1840,8 @@ def main():
     from paddle_tpu_torch.ops import tolerance as tol
     wrappers = {FWD: fa, FWD_MASK: fa.masked, FWD_SEGS: fa.segs,
                 FWD_NC: fa.noncausal, FWD_TC: fa.tc, DQ: fa.flash_bwd_dq,
-                DKV: fa.flash_bwd_dkv, DKV_TC: fa.flash_bwd_dkv.tc,
+                DQ_TC: fa.flash_bwd_dq.tc, DKV: fa.flash_bwd_dkv,
+                DKV_TC: fa.flash_bwd_dkv.tc,
                 RAGGED: rpa, RAGGED8: rpa.int8,
                 DECODE: fd, FUSED: fdl, LN: fm.ln_fwd, LN_BWD: fm.ln_bwd,
                 FFN: fm.ffn_fwd}
@@ -1928,7 +1946,7 @@ def main():
                     bwd=bwd).items():
                 cases[name].append(c)
             torch.cuda.empty_cache()
-        for length in (1, 257, 1024):
+        for length in (1, 2, 255, 257, 1024):
             cases[DECODE].append(check_decode(fd, tol, timer, 8, 1024, 12,
                                               64, length, dtype, length))
         cases[DECODE].append(check_decode(fd, tol, timer, 8, 1024, 16, 128,
@@ -2256,6 +2274,7 @@ def main():
 
     main_case = {FWD: cases[FWD][2], RAGGED: cases[RAGGED][0],
                  FWD_TC: pick(FWD, "B=8 S=1024 H=12 D=64"),
+                 DQ_TC: pick(DQ, "B=8 S=1024 H=12 D=64"),
                  DKV_TC: pick(DKV, "B=8 S=1024 H=12 D=64"),
                  RAGGED8: cases[RAGGED8][0],
                  FWD_MASK: pick(FWD_MASK, "B=8 S=896 H=12 D=64 pad"),
@@ -2279,6 +2298,7 @@ def main():
                      FWD_MASK: launches_gen["default_padded"][FWD_MASK],
                      DQ: launches_train[DQ], DKV: launches_train[DKV],
                      FWD_TC: launches_train[FWD_TC],
+                     DQ_TC: launches_train[DQ_TC],
                      DKV_TC: launches_train[DKV_TC],
                      DECODE: launches_gen["default"][DECODE],
                      FUSED: launches_gen["fused"][FUSED],

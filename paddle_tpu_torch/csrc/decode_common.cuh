@@ -1,6 +1,7 @@
 // Device helpers shared by the decode-path kernels (flash_decode.cu,
 // fused_decode_layer.cu, fused_layernorm.cu, fused_ffn.cu): type
-// conversions, vector loads, reductions, and the streaming prefix attention
+// conversions, vector loads, reductions, the last-block ticket of a
+// cross-block sum, and the streaming prefix attention
 // of one decode query -- the counterpart of `_prefix_attn_loop`
 // (paddle_tpu/ops/pallas_ops.py), which the TPU's decode and fused-layer
 // kernels share the same way.
@@ -77,6 +78,23 @@ __device__ __forceinline__ float block_reduce(float v, float* red,
   for (int i = 1; i < WARPS; ++i) r = is_max ? fmaxf(r, red[i]) : r + red[i];
   __syncthreads();   // red is reused by the next reduction
   return r;
+}
+
+// Cross-block sums (fused_ffn.cu, flash_decode.cu): after this block's
+// writes, true in the block that is the `count`-th to take the ticket,
+// which resets it for the next launch.  Every thread calls; `flag` is
+// shared memory.
+__device__ __forceinline__ bool last_of(int* ticket, int count, int* flag) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    *flag = atomicAdd(ticket, 1) == count - 1;
+    if (*flag) *ticket = 0;
+  }
+  __syncthreads();
+  if (!*flag) return false;
+  __threadfence();
+  return true;
 }
 
 // Online-softmax attention of one fp32 query `qs` (shared memory, D

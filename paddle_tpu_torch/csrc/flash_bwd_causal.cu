@@ -26,40 +26,59 @@
 // becomes a loop inside one block, and the two outputs come from two
 // grids, so no block writes what another writes and no atomics are needed.
 //
-// bf16 dK/dV: `flash_bwd_dkv_tc_kernel`, on the tensor cores
-// (`flash_tc.cuh`), in the transposed form, keys as the M dimension of
-// `wgmma`.  One block per (64-key tile, head, batch) is one warpgroup.  K
-// and V are loaded once into 128-byte-swizzled shared memory; query tiles
-// of 64 rows (Q and dO, with their lse and delta -- or the masked pair --
-// and ids) fill a two-stage `cp.async` ring, tile j+1 copied while tile j
-// computes.  Per tile: S^T = K Q^T and dP^T = V dO^T (m64n64k16, K and V
-// as A, Q and dO as K-major B); p^T and ds^T = p^T (dP^T - delta) on the
-// accumulator fragments, each thread's columns indexing the staged
-// statistics; then dV += bf16(p)^T dO and dK += bf16(ds)^T Q with the A
-// operands repacked from the accumulators in registers and dO and Q read
-// MN-major from the same tiles (m64nDk16).  Only the tiles that cross the
-// diagonal, the kv_lens edge, the ragged query edge or a segment test
-// each pair.  dK and dV accumulate in fp32 registers (D = 128: 255
-// registers, a few spilled in the masked and segment instantiations).
+// The bf16 kernels run on the tensor cores (`flash_tc.cuh`), one
+// warpgroup (128 threads) per block, `wgmma` m64nNk16 bf16 -> fp32, every
+// operand in 128-byte-swizzled shared memory filled by 16-byte `cp.async`
+// copies (zero-fill past the ragged edge), or repacked in registers from
+// an accumulator.  Only the tiles that cross the diagonal, the kv_lens
+// edge, a ragged edge or a segment boundary test each (query, key) pair;
+// the interior tiles take the same step with no per-pair test.
 //
-// fp32 dK/dV, and dQ in both types: the first design, on the CUDA cores
-// (fp32 FMAs; no mma/wgmma), bound by the CUDA cores' issue rate -- the
-// FMAs and the shared-memory reads that feed them.
+// bf16 dQ: `flash_bwd_dq_tc_kernel`, the forward's layout.  One block per
+// (64-query tile, head, batch).  Q and dO of the tile are loaded once, and
+// each row's lse and delta (or the masked pair) and segment id sit in
+// registers; key tiles of 64 rows (K and V, with the key ids) fill a
+// two-stage `cp.async` ring, tile j+1 copied while tile j computes.  Per
+// tile: S = Q K^T and dP = dO V^T (m64n64k16, Q and dO as K-major A, K
+// and V as K-major B); p and ds = p (dP - delta) on the accumulator
+// fragments, each thread's (row, column) pairs from `acc_row` / `acc_col`;
+// then dQ += bf16(ds) K, the A operand repacked from the dP accumulator in
+// registers and K read MN-major from the same tile (m64nDk16).  dQ
+// accumulates in fp32 registers.  A segment tile is tested only when its
+// key ids or the query tile's ids are not all one id.  The query tiles run
+// longest first.
+//
+// bf16 dK/dV: `flash_bwd_dkv_tc_kernel`, in the transposed form, keys as
+// the M dimension of `wgmma`.  One block per (64-key tile, head, batch).
+// K and V are loaded once; query tiles of 64 rows (Q and dO, with their
+// lse and delta -- or the masked pair -- and ids) fill the two-stage ring.
+// Per tile: S^T = K Q^T and dP^T = V dO^T (K and V as A, Q and dO as
+// K-major B); p^T and ds^T = p^T (dP^T - delta) on the fragments, each
+// thread's columns indexing the staged statistics; then dV += bf16(p)^T
+// dO and dK += bf16(ds)^T Q with the A operands repacked from the
+// accumulators and dO and Q read MN-major (m64nDk16).  dK and dV
+// accumulate in fp32 registers (D = 128: 255 registers, a few spilled in
+// the masked and segment instantiations).
+//
+// fp32 dQ and dK/dV: the first design, on the CUDA cores (fp32 FMAs; no
+// mma/wgmma, since TF32 would break the fp32 limits), bound by the CUDA
+// cores' issue rate -- the FMAs and the shared-memory reads that feed them.
 // - dQ: one block per (64-query tile, head, batch).  Four threads share a
 //   query row, each holding D/4 dims of q, dO and the fp32 dq accumulator
 //   in registers (dims d = sub + 4*i, so the four lanes of a row read
 //   consecutive shared-memory words).  Key/value tiles of 32 rows are
 //   staged once per block in shared memory as fp32; causal, the loop runs
 //   from key 0 up to the diagonal.
-// - dK/dV (fp32): one block per (64-key tile, head, batch), four threads
-//   per key row holding D/4 dims of k, v and the two accumulators.  Query
-//   and dO tiles of 32 rows are staged with their lse and delta.
+// - dK/dV: one block per (64-key tile, head, batch), four threads per key
+//   row holding D/4 dims of k, v and the two accumulators.  Query and dO
+//   tiles of 32 rows are staged with their lse and delta.
 // In both dK/dV designs, causal, the loop starts at the first query tile
 // that can see the key tile (the query at max(k0 - (Sk - Sq), 0)) and
-// runs to the end.
-// Both mask the ragged tile edges themselves, so any S works: padding rows
-// are staged as zeros and their p is set to 0 before the exp, so an
-// undefined lse is never used.
+// runs to the end; in both dQ designs it stops at min(kv_len, the causal
+// limit of the tile's last query), rounded up to a key tile.
+// All mask the ragged tile edges themselves, so any S works: padding rows
+// are staged as zeros and their p is set to 0, so an undefined lse is
+// never used.
 //
 // The branches are template flags of the two kernels, MASKED, SEGS and
 // CAUSAL, so that the plain causal instantiations keep their arithmetic:
@@ -73,18 +92,19 @@
 //   statistic is the pair (m, log l) of the masked forward, p =
 //   exp((s - m) - log l): a row whose every key the mask closes has m ~
 //   -1e30, where lse = m + log l has lost log l in fp32, and the pair gives
-//   the forward's 1/n there.
+//   the forward's 1/n there.  The CUDA-core kernels stage the mask per
+//   tile in shared memory; the tensor-core ones read each thread's pairs.
 // - SEGS (`:245-247`, `:262-266`, `:309-311`, `:326-330`): a pair whose ids
 //   differ gets p = 0; the dQ block visits only the key tiles inside its
 //   query tile's id envelope, the dK/dV block only the query tiles inside
 //   its key tile's (`_seg_kb_bounds`, for any id layout).
 // - without CAUSAL (`:258-259`, `:323-324`) there is no diagonal limit.
-// A dK/dV block whose loop range is empty writes its rows as exact zeros.
+// A block whose loop range is empty writes its rows as exact zeros.
 //
 // Layout: q, k, v and dO are [B, S, H, D] with unit stride in D and stride
 // D between heads; batch and sequence strides are arguments, so slices of a
-// fused qkv projection need no copy (bf16 dK/dV: 16-byte-aligned rows,
-// strides a multiple of 8 elements, for the 16-byte copies).  lse, delta
+// fused qkv projection need no copy (bf16: 16-byte-aligned rows, strides
+// a multiple of 8 elements, for the 16-byte copies).  lse, delta
 // (and m) are contiguous fp32 [B, H, Sq].  dq, dk, dv are contiguous
 // [B, S, H, D] in the input type.  Causal alignment is at the end (query i
 // sees keys <= i + Sk - Sq).
@@ -359,7 +379,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// bf16 dK/dV: the tensor-core kernel (header comment)
+// bf16 dQ and dK/dV: the tensor-core kernels (header comment)
 // ---------------------------------------------------------------------------
 
 namespace tc {
@@ -367,15 +387,191 @@ namespace tc {
 using bf16 = __nv_bfloat16;
 using namespace flash_tc;
 
-constexpr int BKV = 64;         // keys per block: one warpgroup
-constexpr int BQ = 64;          // queries per tile
+constexpr int BKV = 64;         // keys per block (dK/dV) or per tile (dQ)
+constexpr int BQ = 64;          // queries per tile (dK/dV) or per block (dQ)
 constexpr int THREADS = WG;     // 128
 
-// K and V ([64, D] each), then two stages of Q and dO ([64, D] each), all
+// Both kernels hold two [64, D] tiles once and a two-stage ring of two
+// more (dQ: Q and dO, then K and V; dK/dV: K and V, then Q and dO), all
 // bf16; 1024 bytes of slack to align the tiles for the swizzle.
 template <int D>
 constexpr int smem_bytes() {
   return (2 * BKV + 4 * BQ) * D * 2 + 1024;
+}
+
+template <int D, bool MASKED, bool SEGS, bool CAUSAL>
+__global__ void __launch_bounds__(THREADS) flash_bwd_dq_tc_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    bf16* __restrict__ dq, int H, int Sq, int Sk, long long qsb,
+    long long qss, long long ksb, long long kss, long long vsb,
+    long long vss, long long dsb, long long dss, float scale,
+    const Branches br) {
+  constexpr uint32_t TILE = BQ * D * 2;   // bytes of one [64, D] tile
+  extern __shared__ uint8_t smem[];
+  // the key tile's ids, and the least and greatest of them per warp that
+  // loads them (warps 0 and 1), one set per stage
+  __shared__ int kids[SEGS ? 2 : 1][SEGS ? BKV : 1];
+  __shared__ int kext[SEGS ? 2 : 1][SEGS ? 4 : 1];
+  __shared__ int red[SEGS ? 2 * THREADS / 32 : 1];
+  // Q at sq, dO at sdo; stage st holds K at sq + TILE (2 + 2 st), V after
+  const uint32_t sq = (smem_addr(smem) + 1023u) & ~1023u, sdo = sq + TILE;
+  const int tile = gridDim.x - 1 - blockIdx.x;   // longest rows first
+  const int h = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
+  const int q0 = tile * BQ, offset = Sk - Sq;
+  const int klen =
+      MASKED && br.kv_lens ? min(max(br.kv_lens[b], 0), Sk) : Sk;
+  const float* mb =
+      MASKED && br.mask ? br.mask + b * br.msb + h * br.msh : nullptr;
+  const int* sb = SEGS ? br.segs + b * br.ssb : nullptr;
+  // this thread's two query rows (accumulator values i with (i/2)%2 = r),
+  // their statistics, mask rows and ids (rows past Sq read row Sq - 1 and
+  // are never written)
+  int qpos[2], qid[2] = {0, 0};
+  float ls[2], dls[2], mrs[2] = {0.f, 0.f};
+  const float* mrow[2] = {nullptr, nullptr};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    qpos[r] = q0 + acc_row(2 * r, tid);
+    const int qc = min(qpos[r], Sq - 1);
+    const long long stat = ((long long)b * H + h) * Sq + qc;
+    ls[r] = lse[stat];
+    dls[r] = delta[stat];
+    if constexpr (MASKED) {
+      mrs[r] = br.rowmax[stat];
+      if (mb) mrow[r] = mb + (long long)qc * br.msq;
+    }
+    if constexpr (SEGS) qid[r] = sb[qc];
+  }
+
+  const bf16* kb = k + b * ksb + h * D;
+  const bf16* vb = v + b * vsb + h * D;
+  int kbeg = 0;
+  int kend = CAUSAL ? min(klen, q0 + BQ + offset) : klen;   // exclusive
+  int qlo = 0, qhi = 0;   // the query tile's least and greatest id
+  if constexpr (SEGS) {
+    qlo = min(qid[0], qid[1]);
+    qhi = max(qid[0], qid[1]);
+    flash::block_min_max<THREADS>(qlo, qhi, red);
+    const int2 env = flash::seg_envelope<THREADS>(sb, Sk, qlo, qhi, red);
+    kbeg = env.x / BKV * BKV;
+    kend = min(kend, env.y);
+  }
+  const int ntiles = kend > kbeg ? (kend - kbeg + BKV - 1) / BKV : 0;
+
+  // issue the copies of key tile `it` into its stage
+  auto stage = [&](int it) {
+    const int k0 = kbeg + it * BKV, st = it & 1;
+    const uint32_t dst = sq + TILE * (2 + 2 * st);
+    load_tile<BKV, D, THREADS>(dst, kb, kss, k0, Sk, tid);
+    load_tile<BKV, D, THREADS>(dst + TILE, vb, vss, k0, Sk, tid);
+    if constexpr (SEGS) {
+      if (tid < BKV) {   // warps 0 and 1
+        const int id = sb[min(k0 + tid, Sk - 1)];
+        kids[st][tid] = id;
+        const int lo = __reduce_min_sync(0xffffffffu, id);
+        const int hi = __reduce_max_sync(0xffffffffu, id);
+        if (tid % 32 == 0) {
+          kext[st][2 * (tid / 32)] = lo;
+          kext[st][2 * (tid / 32) + 1] = hi;
+        }
+      }
+    }
+  };
+  load_tile<BQ, D, THREADS>(sq, q + b * qsb + h * D, qss, q0, Sq, tid);
+  load_tile<BQ, D, THREADS>(sdo, dout + b * dsb + h * D, dss, q0, Sq, tid);
+  if (ntiles > 0) stage(0);
+  cp_async_commit();
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float s[BKV / 2], dp[BKV / 2];   // S and dP: rows queries, columns keys
+
+  // ds = p (dP - delta) (in dp) of key tile k0 in stage st
+  auto probs = [&](int k0, int st, auto test) {
+    constexpr bool TEST = decltype(test)::value;
+#pragma unroll
+    for (int i = 0; i < BKV / 2; ++i) {
+      const int r = (i / 2) % 2, c = acc_col(i, tid), kp = k0 + c;
+      float x = s[i] * scale;
+      float p;
+      if constexpr (MASKED) {
+        if (mb && (!TEST || kp < Sk)) x += mrow[r][(long long)kp * br.msk];
+        p = expf((x - mrs[r]) - ls[r]);
+      } else {
+        p = expf(x - ls[r]);
+      }
+      if constexpr (TEST) {
+        bool ok = (!CAUSAL || kp <= qpos[r] + offset) && kp < klen;
+        if constexpr (SEGS) ok = ok && kids[st][c] == qid[r];
+        p = ok ? p : 0.f;
+      }
+      dp[i] = p * (dp[i] - dls[r]);
+    }
+  };
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int k0 = kbeg + it * BKV, st = it & 1;
+    const uint32_t sk = sq + TILE * (2 + 2 * st), sv = sk + TILE;
+    cp_async_wait<0>();
+    fence_async_smem();
+    __syncthreads();   // tile it has landed; tile it - 1 is no longer read
+    if (it + 1 < ntiles) stage(it + 1);
+    cp_async_commit();
+
+    // S = Q K^T and dP = dO V^T
+#pragma unroll
+    for (int i = 0; i < BKV / 2; ++i) s[i] = dp[i] = 0.f;
+    mma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      mma_ss_n64(s, desc_k<BQ>(sq, kk), desc_k<BKV>(sk, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      mma_ss_n64(dp, desc_k<BQ>(sdo, kk), desc_k<BKV>(sv, kk), 1);
+    mma_commit();
+    mma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // a segment tile needs no test when its keys and the query tile all
+    // carry one id
+    bool mixed = false;
+    if constexpr (SEGS)
+      mixed = qlo != qhi || kext[st][0] != qlo || kext[st][1] != qlo ||
+              kext[st][2] != qlo || kext[st][3] != qlo;
+    if (mixed || k0 + BKV > klen || (CAUSAL && k0 + BKV - 1 > q0 + offset))
+      probs(k0, st, std::true_type{});
+    else
+      probs(k0, st, std::false_type{});
+
+    // dQ += bf16(ds) K, the A operand from the dP accumulator, K read
+    // MN-major from its tile
+    uint32_t da[BKV / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk) pack_a(da[kk], dp, kk);
+    mma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk)
+      mma_rs<D>(acc, da[kk], desc_mn<BKV>(sk, kk));
+    mma_commit();
+    mma_wait<0>();
+    fence_regs(acc);
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (qpos[r] >= Sq) continue;
+    bf16* op = dq + (((long long)b * Sq + qpos[r]) * H + h) * D;
+#pragma unroll
+    for (int i = 2 * r; i < D / 2; i += 4) {
+      *reinterpret_cast<__nv_bfloat162*>(op + acc_col(i, tid)) =
+          __floats2bfloat162_rn(acc[i] * scale, acc[i + 1] * scale);
+    }
+  }
 }
 
 template <int D, bool MASKED, bool SEGS, bool CAUSAL>
@@ -583,6 +779,23 @@ void launch_dkv(const Args& a, void* dk, void* dv) {
 }
 
 template <int D, bool MASKED, bool SEGS, bool CAUSAL>
+void launch_dq_tc(const Args& a, void* dq) {
+  using tc::bf16;
+  constexpr int smem = tc::smem_bytes<D>();
+  auto* kernel = tc::flash_bwd_dq_tc_kernel<D, MASKED, SEGS, CAUSAL>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  (void)attr;   // a refusal shows as the launch's error
+  dim3 grid((a.Sq + tc::BQ - 1) / tc::BQ, a.H, a.B);
+  kernel<<<grid, tc::THREADS, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<bf16*>(dq), a.H, a.Sq, a.Sk, a.qsb, a.qss, a.ksb, a.kss,
+      a.vsb, a.vss, a.dsb, a.dss, a.scale, a.br);
+}
+
+template <int D, bool MASKED, bool SEGS, bool CAUSAL>
 void launch_dkv_tc(const Args& a, void* dk, void* dv) {
   using tc::bf16;
   constexpr int smem = tc::smem_bytes<D>();
@@ -599,9 +812,9 @@ void launch_dkv_tc(const Args& a, void* dk, void* dv) {
       a.qsb, a.qss, a.ksb, a.kss, a.vsb, a.vss, a.dsb, a.dss, a.scale, a.br);
 }
 
-// One launch of the dQ (dk null) or the dK/dV kernel for a head size and
-// type; cudaErrorInvalidValue for one the kernels do not take.  The bf16
-// dK/dV takes the tensor-core kernel; dQ and fp32 the CUDA-core ones.
+// One launch of the dQ (dv null) or the dK/dV kernel for a head size and
+// type; cudaErrorInvalidValue for one the kernels do not take.  bf16 takes
+// the tensor-core kernels, fp32 the CUDA-core ones.
 template <bool MASKED, bool SEGS, bool CAUSAL>
 int dispatch(const Args& a, int D, int is_bf16, void* dq_or_dk, void* dv) {
   if (D != 64 && D != 128) return static_cast<int>(cudaErrorInvalidValue);
@@ -617,9 +830,9 @@ int dispatch(const Args& a, int D, int is_bf16, void* dq_or_dk, void* dv) {
       launch_dkv<float, 128, MASKED, SEGS, CAUSAL>(a, dq_or_dk, dv);
   } else if (is_bf16) {
     if (D == 64)
-      launch_dq<__nv_bfloat16, 64, MASKED, SEGS, CAUSAL>(a, dq_or_dk);
+      launch_dq_tc<64, MASKED, SEGS, CAUSAL>(a, dq_or_dk);
     else
-      launch_dq<__nv_bfloat16, 128, MASKED, SEGS, CAUSAL>(a, dq_or_dk);
+      launch_dq_tc<128, MASKED, SEGS, CAUSAL>(a, dq_or_dk);
   } else {
     if (D == 64)
       launch_dq<float, 64, MASKED, SEGS, CAUSAL>(a, dq_or_dk);

@@ -8,105 +8,249 @@
 // What bounds it on this card: memory.  A step reads K and V of the valid
 // prefix once, 2 * B * length * H * D * itemsize bytes, and does 4 FLOPs
 // per element read, far below the ridge point.  As in the TPU kernel, only
-// ceil(length / 256) key tiles are read, never all S_max rows.
+// the valid prefix is read, never all S_max rows.
 //
-// What the design does about it: one 256-thread block per (head, row),
-// streaming tiles of 256 keys with an online softmax (fp32 m, l and
-// accumulator; `decode::prefix_attention` in decode_common.cuh, shared with
-// the fused layer).  Pass 1 of a tile: each thread takes one whole key and
-// dots it with q (staged in shared memory) using 16-byte (fp32) or 8-byte
-// (bf16) vector loads, so no cross-lane reduction is needed per key; a
-// block-wide max and sum update m and l.  Pass 2: D/4 threads cover one
-// value row with vector loads and the 256/(D/4) groups of them split the
-// tile's keys, each group keeping its own partial accumulator, rescaled by
-// the tile's alpha; the groups' partials are added in shared memory at the
-// end.  Shared memory holds one tile of probabilities, never a row per
-// S_max key, so any S_max works.  At B = 8 and H = 12 the grid is 96 blocks
-// on 132 SMs;
-// splitting a row's keys across blocks (split-K with a merge of the
-// partial softmax states) is later work.
+// What the design does about it: split-K.  The keys of each (row, head)
+// are cut into `splits` chunks of CHUNK = 128 keys, one block of four
+// warps per (chunk, head, row), so B * H * splits blocks keep every SM
+// busy (768 at B = 8, H = 12, length 1024, against 132 SMs; one block per
+// (head, row) gave 96).  Inside a block each warp takes a run of 32 keys.
+// LPK = D / VE lanes cover one key row with 16-byte loads (VE = 8 bf16 or
+// 4 fp32 values each), so a warp reads 32 / LPK whole rows -- whole
+// 128-byte lines -- per load, and U = 4 such loads of K and of V are in
+// flight before any arithmetic.  Each lane dots its VE values with q, the
+// LPK lanes of a key add theirs (shuffles inside the group only), and
+// the warp keeps its own online softmax (fp32 m, l and its lanes' share
+// of the accumulator); the four warps merge in shared memory.  One split
+// writes out directly.  With more, each block writes its fp32 partial (m,
+// l, acc[D]) to a scratch buffer, and the last block of its (row, head) to
+// finish -- a self-resetting ticket, as in fused_ffn.cu -- merges the
+// partials in split order, so the result does not depend on the order in
+// which blocks ran.
 //
 // Rounding points: logits are fp32 sums of q_d * k_d (the TPU kernel rounds
 // each product to bf16 before its per-head sum, an artefact of its (8, 128)
-// tiling that is not copied).  Each probability is rounded to the cache
-// type before the value product, as the TPU kernel's `seg_dot(p, expand)`
-// does; l sums the unrounded fp32 probabilities.
+// tiling that is not copied).  Each probability exp(s - m) is rounded to
+// the cache type before the value product, as the TPU kernel's
+// `seg_dot(p, expand)` does, at its warp's running max m (then rescaled in
+// fp32); l sums the unrounded fp32 probabilities; out = acc / max(l,
+// 1e-30).
 //
 // Layout: q is [B, 1, H, D] with unit stride in D and stride D between
 // heads (the batch stride is an argument, so a slice of a fused qkv
-// projection needs no copy); the rings are contiguous [B, S_max, H*D] in
-// q's type; out is a contiguous [B, 1, H, D] in q's type.
+// projection needs no copy; q is read element by element); the rings are
+// contiguous [B, S_max, H*D] in q's type, 16-byte aligned; out is a
+// contiguous [B, 1, H, D] in q's type.  part holds B * H * splits * (D +
+// 2) floats; tickets B * H ints, zero before and after every launch.
+#include <stdint.h>
+
 #include "decode_common.cuh"
 
 namespace {
 
 using namespace decode;
 
-constexpr int THREADS = 256;
+constexpr int THREADS = 128;
+constexpr int WARPS = THREADS / 32;
+constexpr int CHUNK = 128;              // keys per split
+constexpr int RUN = CHUNK / WARPS;      // keys per warp
+constexpr int U = 4;                    // loads of K (and V) in flight
 
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS) flash_decode_kernel(
-    const T* __restrict__ q, const T* __restrict__ kc,
-    const T* __restrict__ vc, T* __restrict__ out, int H, int S_max,
-    int length, long long qsb, float scale) {
-  constexpr int G = THREADS / (D / VEC);   // key groups of the value pass
-  __shared__ float qs[D];
-  __shared__ float ps[THREADS];
-  __shared__ float red[THREADS / 32];
-  __shared__ float part[G][D];
-  const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
-  const long long HD = (long long)H * D;
-  const T* qp = q + b * qsb + h * D;
-  for (int d = tid; d < D; d += THREADS) qs[d] = to_f(qp[d]);
-  __syncthreads();
-  const long long base = (long long)b * S_max * HD + h * D;
-  float m, l, acc[VEC];
-  prefix_attention<T, D, THREADS>(qs, kc + base, vc + base, HD, length,
-                                  scale, nullptr, ps, red, m, l, acc);
-  const int g = tid / (D / VEC), d0 = (tid % (D / VEC)) * VEC;
+// 16 bytes of a row, kept as loaded until used (4 registers, where
+// widened bf16 would take 8), and widened to 4 fp32 or 8 bf16 values
+__device__ __forceinline__ uint4 load16(const void* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+__device__ __forceinline__ void widen(uint4 v, float (&x)[4]) {
+  x[0] = __uint_as_float(v.x);
+  x[1] = __uint_as_float(v.y);
+  x[2] = __uint_as_float(v.z);
+  x[3] = __uint_as_float(v.w);
+}
+__device__ __forceinline__ void widen(uint4 v, float (&x)[8]) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-  for (int i = 0; i < VEC; ++i) part[g][d0 + i] = acc[i];
-  __syncthreads();
-  const float ls = fmaxf(l, 1e-30f);
-  T* op = out + ((long long)b * H + h) * D;
-  for (int d = tid; d < D; d += THREADS) {
-    float a = 0.f;
-#pragma unroll
-    for (int x = 0; x < G; ++x) a += part[x][d];
-    op[d] = from_f<T>(a / ls);
+  for (int i = 0; i < 4; ++i) {
+    const float2 f =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    x[2 * i] = f.x;
+    x[2 * i + 1] = f.y;
   }
 }
 
 template <typename T, int D>
-void launch(const void* q, const void* kc, const void* vc, void* out, int B,
-            int H, int S_max, int length, long long qsb, float scale,
-            cudaStream_t stream) {
-  dim3 grid(H, B);
+__global__ void __launch_bounds__(THREADS) flash_decode_kernel(
+    const T* __restrict__ q, const T* __restrict__ kc,
+    const T* __restrict__ vc, T* __restrict__ out, float* __restrict__ part,
+    int* __restrict__ tickets, int H, int S_max, int length, long long qsb,
+    float scale) {
+  constexpr int VE = 16 / sizeof(T);    // values per 16-byte load
+  constexpr int LPK = D / VE;           // lanes per key row
+  constexpr int KPW = 32 / LPK;         // key rows per warp load
+  __shared__ float wm[WARPS], wl[WARPS], wacc[WARPS][D];
+  __shared__ int is_last;
+  const int split = blockIdx.x, splits = gridDim.x;
+  const int h = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int grp = lane / LPK, d0 = (lane % LPK) * VE;
+  const long long HD = (long long)H * D;
+  const long long bh = (long long)b * H + h;
+
+  float qv[VE];
+  const T* qp = q + b * qsb + h * D + d0;
+#pragma unroll
+  for (int i = 0; i < VE; ++i) qv[i] = to_f(qp[i]);
+
+  const long long base = (long long)b * S_max * HD + h * D + d0;
+  const T* kb = kc + base;
+  const T* vb = vc + base;
+  const int k_lo = split * CHUNK + warp * RUN;
+  const int k_hi = min(k_lo + RUN, length);
+  float m = NEG, l = 0.f, acc[VE];
+#pragma unroll
+  for (int i = 0; i < VE; ++i) acc[i] = 0.f;
+  for (int k0 = k_lo; k0 < k_hi; k0 += U * KPW) {
+    uint4 kr[U], vr[U];
+    bool ok[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int key = k0 + u * KPW + grp;
+      ok[u] = key < k_hi;
+      const long long row = (long long)(ok[u] ? key : k_lo) * HD;
+      kr[u] = load16(kb + row);
+      vr[u] = load16(vb + row);
+    }
+    float s[U], mx = NEG;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      float kx[VE], dot = 0.f;
+      widen(kr[u], kx);
+#pragma unroll
+      for (int i = 0; i < VE; ++i) dot = fmaf(kx[i], qv[i], dot);
+#pragma unroll
+      for (int o = LPK / 2; o > 0; o >>= 1)
+        dot += __shfl_xor_sync(0xffffffffu, dot, o);
+      s[u] = ok[u] ? dot * scale : NEG;
+      mx = fmaxf(mx, s[u]);
+    }
+#pragma unroll
+    for (int o = LPK; o < 32; o <<= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    const float mnew = fmaxf(m, mx);
+    const float alpha = expf(m - mnew);
+    l *= alpha;
+#pragma unroll
+    for (int i = 0; i < VE; ++i) acc[i] *= alpha;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const float p = ok[u] ? expf(s[u] - mnew) : 0.f;
+      l += p;
+      const float pr = round_to<T>(p);
+      float vx[VE];
+      widen(vr[u], vx);
+#pragma unroll
+      for (int i = 0; i < VE; ++i) acc[i] = fmaf(pr, vx[i], acc[i]);
+    }
+    m = mnew;
+  }
+  // the warp's sums over its key groups (a warp with no key keeps m = NEG,
+  // l = 0, acc = 0, and weighs nothing below)
+#pragma unroll
+  for (int o = LPK; o < 32; o <<= 1) {
+    l += __shfl_xor_sync(0xffffffffu, l, o);
+#pragma unroll
+    for (int i = 0; i < VE; ++i)
+      acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], o);
+  }
+  if (grp == 0) {
+#pragma unroll
+    for (int i = 0; i < VE; ++i) wacc[warp][d0 + i] = acc[i];
+  }
+  if (lane == 0) {
+    wm[warp] = m;
+    wl[warp] = l;
+  }
+  __syncthreads();
+
+  // the block's (m, l, acc), warps in order
+  float bm = wm[0];
+#pragma unroll
+  for (int w = 1; w < WARPS; ++w) bm = fmaxf(bm, wm[w]);
+  float bl = 0.f, ba = 0.f;
+#pragma unroll
+  for (int w = 0; w < WARPS; ++w) {
+    const float f = expf(wm[w] - bm);
+    bl += wl[w] * f;
+    if (tid < D) ba += wacc[w][tid] * f;
+  }
+  T* op = out + bh * D;
+  if (splits == 1) {
+    if (tid < D) op[tid] = from_f<T>(ba / fmaxf(bl, 1e-30f));
+    return;
+  }
+
+  // this split's partial, then the merge in split order by the last block
+  float2* ml = reinterpret_cast<float2*>(part) + bh * splits;   // (m, l)
+  float* pacc = part + 2LL * gridDim.y * gridDim.z * splits +
+                bh * splits * D;                       // acc[D] per split
+  if (tid < D) pacc[(long long)split * D + tid] = ba;
+  if (tid == 0) ml[split] = make_float2(bm, bl);
+  if (!last_of(tickets + bh, splits, &is_last) || tid >= D) return;
+  // unrolled so that eight splits' loads are in flight at once; the sums
+  // still run in split order
+  float gm = NEG;
+#pragma unroll 8
+  for (int x = 0; x < splits; ++x) gm = fmaxf(gm, __ldcg(ml + x).x);
+  float gl = 0.f, ga = 0.f;
+#pragma unroll 8
+  for (int x = 0; x < splits; ++x) {
+    const float2 p = __ldcg(ml + x);
+    const float f = expf(p.x - gm);
+    gl += p.y * f;
+    ga += __ldcg(pacc + (long long)x * D + tid) * f;
+  }
+  op[tid] = from_f<T>(ga / fmaxf(gl, 1e-30f));
+}
+
+template <typename T, int D>
+void launch(const void* q, const void* kc, const void* vc, void* out,
+            void* part, void* tickets, int B, int H, int S_max, int length,
+            long long qsb, float scale, cudaStream_t stream) {
+  dim3 grid((length + CHUNK - 1) / CHUNK, H, B);
   flash_decode_kernel<T, D><<<grid, THREADS, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kc),
-      static_cast<const T*>(vc), static_cast<T*>(out), H, S_max, length, qsb,
-      scale);
+      static_cast<const T*>(vc), static_cast<T*>(out),
+      static_cast<float*>(part), static_cast<int*>(tickets), H, S_max,
+      length, qsb, scale);
 }
 
 }  // namespace
 
+// The number of splits (blocks per row and head) of a launch at `length`;
+// the wrapper sizes `part` with it.
+extern "C" int flash_decode_splits(int length) {
+  return (length + CHUNK - 1) / CHUNK;
+}
+
 // Returns cudaGetLastError() after the launch; 1 (cudaErrorInvalidValue)
 // for a head size or type the kernel does not take.
 extern "C" int flash_decode(const void* q, const void* kc, const void* vc,
-                            void* out, int B, int H, int D, int S_max,
-                            int length, int is_bf16, long long qsb,
-                            float scale, void* stream) {
+                            void* out, void* part, void* tickets, int B,
+                            int H, int D, int S_max, int length, int is_bf16,
+                            long long qsb, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64 && is_bf16)
-    launch<__nv_bfloat16, 64>(q, kc, vc, out, B, H, S_max, length, qsb,
-                              scale, s);
+    launch<__nv_bfloat16, 64>(q, kc, vc, out, part, tickets, B, H, S_max,
+                              length, qsb, scale, s);
   else if (D == 64)
-    launch<float, 64>(q, kc, vc, out, B, H, S_max, length, qsb, scale, s);
+    launch<float, 64>(q, kc, vc, out, part, tickets, B, H, S_max, length,
+                      qsb, scale, s);
   else if (D == 128 && is_bf16)
-    launch<__nv_bfloat16, 128>(q, kc, vc, out, B, H, S_max, length, qsb,
-                               scale, s);
+    launch<__nv_bfloat16, 128>(q, kc, vc, out, part, tickets, B, H, S_max,
+                               length, qsb, scale, s);
   else if (D == 128)
-    launch<float, 128>(q, kc, vc, out, B, H, S_max, length, qsb, scale, s);
+    launch<float, 128>(q, kc, vc, out, part, tickets, B, H, S_max, length,
+                       qsb, scale, s);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

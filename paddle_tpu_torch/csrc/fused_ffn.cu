@@ -69,22 +69,6 @@ __device__ __forceinline__ void fma_rows(float w, const float* p,
   acc[7] = fmaf(w, b.w, acc[7]);
 }
 
-// After this block's writes: true in the block that is the `count`-th to
-// take the ticket, which resets it for the next launch.
-__device__ __forceinline__ bool last_of(int* ticket, int count,
-                                        int* flag) {
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    *flag = atomicAdd(ticket, 1) == count - 1;
-    if (*flag) *ticket = 0;
-  }
-  __syncthreads();
-  if (!*flag) return false;
-  __threadfence();
-  return true;
-}
-
 // dst[r][c] = sum over s in [s0, s1), in order, of src[s][r0 + r][c], for
 // the `rows` rows of the tile; dst is [n, H2] (rows r0 ...) in float or T.
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }

@@ -40,6 +40,7 @@ _KERNELS = (flash_attention, flash_attention.masked, flash_attention.segs,
             flash_attention.noncausal, flash_attention.tc,
             flash_attention.flash_bwd_dq,
             *flash_attention.flash_bwd_dq.variants.values(),
+            flash_attention.flash_bwd_dq.tc,
             flash_attention.flash_bwd_dkv,
             *flash_attention.flash_bwd_dkv.variants.values(),
             flash_attention.flash_bwd_dkv.tc,

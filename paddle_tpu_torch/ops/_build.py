@@ -10,6 +10,9 @@ The file name carries a hash of the source, the shared headers
 and an unchanged one is loaded from the build directory (listed in
 ``.gitignore``).  Nothing here runs at import time: the CPU
 tests import every module on a machine with no ``nvcc``.
+
+`tickets` holds the int32 counters through which the last block of a
+cross-block sum (``fused_ffn.cu``, ``flash_decode.cu``) finds itself.
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ import shutil
 import subprocess
 import threading
 
-__all__ = ["SRC_DIR", "BUILD_DIR", "build", "load", "check"]
+__all__ = ["SRC_DIR", "BUILD_DIR", "build", "load", "check", "tickets"]
 
 SRC_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
@@ -30,6 +33,7 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()
+_TICKETS: dict = {}
 
 
 def _nvcc() -> str:
@@ -99,3 +103,16 @@ def check(err: int, what: str) -> None:
     refused launch never runs, and a later synchronize would not say so)."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def tickets(device, n: int):
+    """A per-device int32 buffer of at least ``n`` tickets, zero between
+    launches: the block that takes the last ticket of a group resets it.
+    The kernels that use it share it, one launch after another on the
+    stream."""
+    import torch
+    t = _TICKETS.get(device)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
+        _TICKETS[device] = t
+    return t

@@ -17,15 +17,14 @@ statistics, and the backward launches the two kernels of
 Each source has one entry per kernel, which picks the template
 instantiation (``MASKED`` for a mask and / or ``kv_lens``, ``SEGS``,
 ``CAUSAL``) from the branches it is given, and the design from the type:
-in bfloat16 the forward and the dK/dV kernel run on the tensor cores
-(``wgmma``, ``csrc/flash_tc.cuh``), in float32 on the CUDA cores; dQ runs
-on the CUDA cores in both.  Each wrapper counts the causal
-launches with no mask, ``kv_lens`` or segments (the serving prefill and
-unpacked training) under the kernel's name, and the others apart, by the
-first of: ``segs`` (any call with segment ids), ``mask`` (a mask or
-``kv_lens``), ``noncausal``.  The tensor-core launches are counted once
-more, apart, under ``flash_fwd_causal:tc`` and ``flash_bwd_dkv_causal:tc``
-(any branch).  The tensor-core kernels copy 16-byte rows: a bfloat16 call
+in bfloat16 all three run on the tensor cores (``wgmma``,
+``csrc/flash_tc.cuh``), in float32 on the CUDA cores.  Each wrapper counts
+the causal launches with no mask, ``kv_lens`` or segments (the serving
+prefill and unpacked training) under the kernel's name, and the others
+apart, by the first of: ``segs`` (any call with segment ids), ``mask`` (a
+mask or ``kv_lens``), ``noncausal``.  The tensor-core launches are counted
+once more, apart, under ``flash_fwd_causal:tc``, ``flash_bwd_dq_causal:tc``
+and ``flash_bwd_dkv_causal:tc`` (any branch).  The tensor-core kernels copy 16-byte rows: a bfloat16 call
 on the card needs q, k, v (and dO) to start on 16 bytes, with batch and
 sequence strides that are multiples of 8 elements (the slices of a fused
 ``[B, S, 3, H, D]`` projection are); anything else raises.
@@ -440,7 +439,8 @@ class _BwdKernel:
         return outs[0] if self._n_out == 1 else tuple(outs)
 
 
-flash_bwd_dq = _BwdKernel("flash_bwd_dq_causal", "flash_bwd_dq", 1)
+flash_bwd_dq = _BwdKernel("flash_bwd_dq_causal", "flash_bwd_dq", 1,
+                          tc_kernel=True)
 flash_bwd_dkv = _BwdKernel("flash_bwd_dkv_causal", "flash_bwd_dkv", 2,
                            tc_kernel=True)
 

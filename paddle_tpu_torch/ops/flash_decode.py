@@ -9,7 +9,12 @@ S_q = 1 step with q and the rings of one dtype goes to
 `flash_decode_arrays`, which on a CUDA tensor launches the kernel of
 ``csrc/flash_decode.cu`` (the port of `_decode_kernel`,
 `pallas_ops.py:1008`) and on a CPU tensor computes
-`flash_decode_reference`.  Everything else (prefill chunks, an extra
+`flash_decode_reference`.  The kernel splits each row's keys into chunks
+of 128 (split-K: ``flash_decode_splits(length)`` blocks per row and head);
+with more than one split the wrapper hands it an fp32 scratch buffer for
+the partial softmax states and the per-device int32 tickets of
+`_build.tickets`, through which the last block of each (row, head)
+merges the partials in split order.  Everything else (prefill chunks, an extra
 mask) runs the masked-softmax branch of `:862-877`, which is XLA in the
 JAX package and torch code here.
 
@@ -78,6 +83,9 @@ def _check(q, k_cache, v_cache, length):
         if c.dtype != q.dtype or c.device != q.device:
             raise ValueError("q and the rings must share one device and "
                              "dtype")
+        if c.data_ptr() % 16:
+            raise ValueError(f"{name} must start on 16 bytes for the "
+                             f"kernel's 16-byte loads")
     if k_cache.shape != v_cache.shape:
         raise ValueError("k_cache and v_cache differ in shape")
     if not 1 <= length <= k_cache.shape[1]:
@@ -89,8 +97,10 @@ def _lib():
     fn = lib.flash_decode
     if fn.argtypes is None:
         vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [vp] * 4 + [i] * 6 + [ll, ctypes.c_float, vp]
+        fn.argtypes = [vp] * 6 + [i] * 6 + [ll, ctypes.c_float, vp]
         fn.restype = ctypes.c_int
+        lib.flash_decode_splits.argtypes = [i]
+        lib.flash_decode_splits.restype = ctypes.c_int
     return lib
 
 
@@ -111,9 +121,17 @@ def flash_decode_arrays(q, k_cache, v_cache, length, scale=None):
         return flash_decode_reference(q, k_cache, v_cache, length, scale)
     _check(q, k_cache, v_cache, length)
     b, _, h, _ = q.shape
+    lib = _lib()
+    splits = lib.flash_decode_splits(length)
     out = torch.empty((b, 1, h, d), dtype=q.dtype, device=q.device)
-    err = _lib().flash_decode(
+    # each split's (m, l) and acc[D] in fp32 (freed on return, reused only
+    # by work queued later on this stream); one split writes out directly
+    part = (torch.empty(b * h * splits * (d + 2), dtype=torch.float32,
+                        device=q.device) if splits > 1 else None)
+    tickets = _build.tickets(q.device, b * h)   # one per (row, head)
+    err = lib.flash_decode(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
+        0 if part is None else part.data_ptr(), tickets.data_ptr(),
         b, h, d, k_cache.shape[1], length, int(q.dtype == torch.bfloat16),
         q.stride(0), float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)

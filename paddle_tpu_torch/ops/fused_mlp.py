@@ -349,20 +349,9 @@ def maybe_fused_ffn(x, w1, b1, w2, act):
     return fused_ffn_arrays(x, w1, b1, w2, act=act)
 
 
-# per-device int32 tickets of the FFN kernel's reduction tree, zero between
-# launches (the block that takes the last ticket of a group resets it)
-_TICKETS: dict = {}
 _ROWS = 8            # rows per tile of csrc/fused_ffn.cu
 _GROUP = 16          # slices per group of its reduction tree
 _BLOCKS = 264        # aim: two blocks per SM of an H100
-
-
-def _tickets(device, n):
-    t = _TICKETS.get(device)
-    if t is None or t.numel() < n:
-        t = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
-        _TICKETS[device] = t
-    return t
 
 
 def ffn_slice(n_rows, i):
@@ -409,7 +398,7 @@ def _ffn_launch(x2, w1, b1, w2, act):
     fn = ffn_fwd.fn([vp] * 7 + [ci] * 7 + [vp])
     err = fn(x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
              y.data_ptr(), part.data_ptr(),
-             _tickets(x2.device, tiles * (groups + 1)).data_ptr(), n, h,
+             _build.tickets(x2.device, tiles * (groups + 1)).data_ptr(), n, h,
              i, h2, bi,
              _ACTS.index(act), int(x2.dtype == torch.bfloat16),
              torch.cuda.current_stream(x2.device).cuda_stream)

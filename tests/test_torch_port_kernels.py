@@ -26,9 +26,15 @@ Tolerances against the plain version on the same inputs
   compute in fp32; bf16 rounds the output once).
 - the masked / kv_lens flash forward: the flash forward limit above, on
   every row, left-pad rows (all keys masked) included.
-- the bf16 flash forward and dK/dV run on the tensor cores: each bf16
-  launch counts once more under ``:tc``, fp32 ones never; a bf16 slice
-  whose start or strides break the 16-byte copies raises ValueError.
+- the bf16 flash forward, dQ and dK/dV run on the tensor cores: each
+  bf16 launch counts once more under ``:tc``, fp32 ones never; a bf16
+  slice whose start or strides break the 16-byte copies raises
+  ValueError.
+- the split-K flash decode: every length from one split (1, 2) to eight
+  (1000, 1024) and across the 128-key split edges (255, 256, 257), rings
+  longer than the length, B 1 and 8, D 64 and 128; a second launch on the
+  same buffers is bitwise equal to the first (the merge runs in split
+  order) and leaves the tickets at zero.
 - the variant branches of the flash kernels (segment ids, non-causal, mask
   and kv_lens, forward and backward): the forward and backward limits
   above, every row (rows the mask closes entirely too); lse and the
@@ -52,6 +58,7 @@ import pytest
 import torch
 
 from paddle_tpu_torch import ops
+from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import flash_decode as fd
 from paddle_tpu_torch.ops import fused_decode as fdl
@@ -135,13 +142,15 @@ def test_flash_bwd_kernels_match_plain(s, d, dtype):
     # a strided dO: the [B, S, H, D] view of a [B, S, 2, H, D] tensor
     do = torch.randn(2, s, 2, 3, d, generator=g).to("cuda", dtype)[:, :, 1]
     delta = fa.attention_delta(out, do)
-    fa.flash_bwd_dkv.tc.launches = 0
+    fa.flash_bwd_dq.tc.launches = fa.flash_bwd_dkv.tc.launches = 0
     dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, scale)
     dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, scale)
     want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, scale)
     mags = tol.flash_bwd_magnitudes(q, k, v, out, lse, do, scale)
     torch.cuda.synchronize()
-    assert fa.flash_bwd_dkv.tc.launches == int(dtype == torch.bfloat16)
+    bf16 = int(dtype == torch.bfloat16)
+    assert (fa.flash_bwd_dq.tc.launches, fa.flash_bwd_dkv.tc.launches) == (
+        bf16, bf16)
     for name, got, ref, mag in zip(("dq", "dk", "dv"), (dq, dk, dv), want,
                                    mags):
         assert got.shape == ref.shape and got.dtype == dtype
@@ -379,7 +388,8 @@ def test_flash_variant_kernels_match_plain(kind, b, s, h, d, dtype):
     name = fa.variant_name(causal, m4, lens, segs)
     counters = [fa.segs, fa.masked, fa.noncausal,
                 fa.flash_bwd_dq.variants[name],
-                fa.flash_bwd_dkv.variants[name], fa.tc, fa.flash_bwd_dkv.tc]
+                fa.flash_bwd_dkv.variants[name], fa.tc, fa.flash_bwd_dq.tc,
+                fa.flash_bwd_dkv.tc]
     for c in counters:
         c.launches = 0
     out, lse, pair = fa._launch(q, k, v, scale, causal, m4, lens, segs)
@@ -399,7 +409,7 @@ def test_flash_variant_kernels_match_plain(kind, b, s, h, d, dtype):
     bf16 = int(dtype == torch.bfloat16)
     assert [c.launches for c in counters] == [
         int(name == "segs"), int(name == "mask"), int(name == "noncausal"),
-        1, 1, bf16, bf16]
+        1, 1, bf16, bf16, bf16]
     err, ok = _flash_fwd_ok(out, want, mag)
     assert ok, ("out", err)
     assert (lse - want_lse).abs().max().item() <= 1e-4
@@ -455,7 +465,8 @@ def test_flash_autograd_variants_match_cpu(kind):
 def test_flash_bf16_misaligned_slice_raises(bad):
     """The tensor-core kernels' 16-byte copies: a bf16 q, k, v or dO that
     starts off 16 bytes, or whose sequence stride is not a multiple of 8
-    elements, raises ValueError naming it; the fp32 kernels take both."""
+    elements, raises ValueError naming it, in the forward, dQ and dK/dV;
+    the fp32 kernels take both."""
     b, s, h, d = 2, 65, 2, 64
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v = _fused_qkv(b, s, h, d, dtype, 1)
@@ -469,13 +480,17 @@ def test_flash_bf16_misaligned_slice_raises(bad):
         out, lse = fa.flash_attention_arrays(q, k, v, is_causal=True,
                                              return_lse=True)
         delta = fa.attention_delta(out, q)
-        calls = {"q": lambda: fa.flash_attention_arrays(odd, k, v,
-                                                        is_causal=True),
-                 "k": lambda: fa.flash_attention_arrays(q, odd, v,
-                                                        is_causal=True),
-                 "do": lambda: fa.flash_bwd_dkv(q, k, v, odd, lse, delta,
-                                                d ** -0.5)}
-        for name, call in calls.items():
+        calls = [("q", lambda: fa.flash_attention_arrays(odd, k, v,
+                                                         is_causal=True)),
+                 ("k", lambda: fa.flash_attention_arrays(q, odd, v,
+                                                         is_causal=True)),
+                 ("do", lambda: fa.flash_bwd_dkv(q, k, v, odd, lse, delta,
+                                                 d ** -0.5)),
+                 ("do", lambda: fa.flash_bwd_dq(q, k, v, odd, lse, delta,
+                                                d ** -0.5)),
+                 ("q", lambda: fa.flash_bwd_dq(odd, k, v, q, lse, delta,
+                                               d ** -0.5))]
+        for name, call in calls:
             if dtype == torch.float32:
                 call()
             else:
@@ -489,21 +504,34 @@ def _randn(shape, seed, dtype, scale=1.0):
     return (torch.randn(*shape, generator=g) * scale).to("cuda", dtype)
 
 
+# one split (1, 2), the 128-key split edges (255, 256, 257), eight splits
+# (1000, 1024), B 1 and 8, D 64 and 128, rings longer than the length
+DECODE_CASES = [(2, 256, 3, 64, 200), (3, 384, 2, 128, 300)] + [
+    (b, 1040, h, d, length) for length in (1, 2, 255, 256, 257, 1000, 1024)
+    for b, h, d in ((1, 12, 64), (8, 12, 64), (1, 16, 128), (8, 16, 128))]
+
+
 @pytest.mark.cuda
 @pytest.mark.usefixtures("needs_cuda")
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,s_max,h,d,length",
-                         [(2, 256, 3, 64, 200), (3, 384, 2, 128, 300)])
+@pytest.mark.parametrize("b,s_max,h,d,length", DECODE_CASES)
 def test_flash_decode_kernel_matches_plain(b, s_max, h, d, length, dtype):
+    """The split-K decode against its plain version; a second launch on the
+    same buffers gives the same bits (the merge runs in split order) and
+    leaves the tickets at zero."""
     # q: the [B, 1, H, D] slice of a fused [B, 1, 3, H, D] projection
     q = _randn((b, 1, 3, h, d), length, dtype)[:, :, 0]
     kc = _randn((b, s_max, h * d), length + 1, dtype)
     vc = _randn((b, s_max, h * d), length + 2, dtype)
     fd.launches = 0
     out = fd.flash_decode_arrays(q, kc, vc, length)
+    again = fd.flash_decode_arrays(q, kc, vc, length)
     want = fd.flash_decode_reference(q, kc, vc, length)
     torch.cuda.synchronize()
-    assert fd.launches == 1 and out.dtype == dtype
+    assert fd.launches == 2 and out.dtype == dtype
+    assert fd._lib().flash_decode_splits(length) == -(-length // 128)
+    assert torch.equal(out, again)
+    assert int(_build.tickets(q.device, b * h).abs().sum()) == 0
     limit = TOL_FP32 if dtype == torch.float32 else tol.decode_limit(
         out, want, q, kc, vc, length, d ** -0.5)
     err, ratio, ok = tol.compare(out, want, limit)

@@ -1,5 +1,5 @@
-"""The bf16 flash forward's limit (`tolerance.FLASH_FWD_COEF`) against the
-JAX package, on the CPU.
+"""The bf16 flash limits (`tolerance.FLASH_FWD_COEF`, `tolerance.BWD_COEF`)
+against the JAX package, on the CPU.
 
 The tensor-core forward rounds p to bf16 for its PV product at the running
 max of each key tile, as the TPU kernel `_flash_fwd_kernel` does
@@ -18,6 +18,19 @@ Rows the pad mask closes entirely (queries before the pad's end, whose
 every allowed key is masked) are left out: there JAX's kernel spreads the
 row over whole key tiles and the port over the allowed keys, a difference
 by design (ROADMAP Queue 3); no real token reads such a row.
+
+The backward: the tensor-core dQ and dK/dV round ds (and p for dV) to
+bf16 before their products, as `_flash_bwd_dq_kernel` and
+`_flash_bwd_dkv_kernel` do (`pallas_ops.py:250-251`, `:313-316`).  JAX's
+own `_flash_bwd`, run in bf16 in interpret mode with 128-row blocks on
+the output and lse of its bf16 forward, is held against the port's
+`flash_attention_bwd_reference` on the same out and statistic (JAX's lse;
+with a mask or kv_lens the port's (row max, log l) pair, which the masked
+backward reads) under the limit the card tests apply to the kernels:
+2^-7 max(|out|, |ref|) + `BWD_COEF` times the gradient's sum of
+magnitudes (`flash_bwd_magnitudes`), every element of dQ, dK and dV.
+dO is zero on the rows the pad mask closes entirely, so that those rows,
+whose p differs by design as above, carry no gradient on either side.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -89,3 +102,48 @@ def test_jax_bf16_flash_fwd_within_flash_limit(branch, d, monkeypatch):
         assert ok, (branch, d, r, err, ratio)
         lse_err = (got_lse[r, :, rows] - want_lse[r, :, rows]).abs().max()
         assert lse_err.item() <= 1e-4, (branch, d, r, lse_err.item())
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("branch", BRANCHES)
+def test_jax_bf16_flash_bwd_within_bwd_limit(branch, d, monkeypatch):
+    monkeypatch.setenv("PTPU_PALLAS_INTERPRET", "1")
+    q, k, v, causal, mask, lens, segs, first = _inputs(branch, d, 11 + d)
+    do = np.random.RandomState(13 + d).randn(B, S, H, d).astype(np.float32)
+    for r in range(B):
+        do[r, :first[r]] = 0.0
+    scale = d ** -0.5
+    qf, kf, vf, dof = (jpo._fold_heads(jnp.asarray(a, jnp.bfloat16))
+                       for a in (q, k, v, do))
+    kw = dict(n_heads=H, mask=None if mask is None else jnp.asarray(mask),
+              kv_lens=None if lens is None else jnp.asarray(lens)[:, None],
+              segments=None if segs is None else jnp.asarray(segs))
+    of, lse = jpo._flash_fwd(qf, kf, vf, causal, scale, block_q=128,
+                             block_k=128, **kw)
+    got = jpo._flash_bwd(qf, kf, vf, of, lse, dof, causal, scale,
+                         block_q=128, block_k=128, **kw)
+    assert all(g.dtype == jnp.bfloat16 for g in got)
+
+    def port(a):
+        return torch.from_numpy(np.array(
+            jpo._unfold_heads(a, b=B, h=H).astype(jnp.float32))).bfloat16()
+
+    qt, kt, vt, dot = (torch.from_numpy(a).bfloat16() for a in (q, k, v, do))
+    out = port(of)
+    mt, lt, st = (None if a is None else torch.from_numpy(a)
+                  for a in (mask, lens, segs))
+    stat = torch.from_numpy(np.array(lse)).reshape(B, H, S)
+    row_max = None
+    if mask is not None or lens is not None:
+        row_max, stat = fa.softmax_stats(qt, kt, scale, causal, mt, lt, st)
+    want = fa.flash_attention_bwd_reference(
+        qt, kt, vt, out, stat, dot, scale, is_causal=causal, mask=mt,
+        kv_lens=lt, segment_ids=st, row_max=row_max)
+    mags = tol.flash_bwd_magnitudes(qt, kt, vt, out, stat, dot, scale,
+                                    causal=causal, mask=mt, lens=lt,
+                                    segs=st, row_max=row_max)
+    for what, g, w, mag in zip(("dq", "dk", "dv"), got, want, mags):
+        g = port(g)
+        limit = tol.bf16_limit(g, w, mag, tol.BWD_COEF)
+        err, ratio, ok = tol.compare(g, w, limit)
+        assert ok, (branch, d, what, err, ratio)

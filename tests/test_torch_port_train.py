@@ -136,7 +136,8 @@ def test_bwd_wrappers_on_cpu_compute_the_plain_backward():
         "flash_fwd_causal:noncausal", "flash_fwd_causal:tc",
         "flash_bwd_dq_causal",
         "flash_bwd_dq_causal:mask", "flash_bwd_dq_causal:segs",
-        "flash_bwd_dq_causal:noncausal", "flash_bwd_dkv_causal",
+        "flash_bwd_dq_causal:noncausal", "flash_bwd_dq_causal:tc",
+        "flash_bwd_dkv_causal",
         "flash_bwd_dkv_causal:mask", "flash_bwd_dkv_causal:segs",
         "flash_bwd_dkv_causal:noncausal", "flash_bwd_dkv_causal:tc",
         "ragged_paged_attention",
