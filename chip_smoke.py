@@ -7,11 +7,13 @@ Phases, in order; any failure exits non-zero and prints no result line:
 1. Card: name and power limit (nvidia-smi); TF32 off for matmuls and cuDNN.
 2. Kernels: build every CUDA source (all at once; the build time and the
    flash instantiations' registers and spills from ``-Xptxas -v`` are
-   printed), read the flash libraries' machine code (`cuobjdump -sass`:
+   printed, and those of the FFN's designs and the LayerNorm forward),
+   read the flash and FFN libraries' machine code (`cuobjdump -sass`:
    all 16 instantiations each of the bf16 forward, dQ and dK/dV, the
-   tensor-core kernels, must hold HGMMA, and the CUDA-core forward, dQ
-   and dK/dV must be left with their 16 fp32 instantiations, FFMA and no
-   HGMMA or HMMA), then hold each kernel
+   tensor-core kernels, and all 16 of the FFN's tensor-core products must
+   hold HGMMA, and the CUDA-core forward, dQ and dK/dV must be left with
+   their 16 fp32 instantiations, FFMA and no HGMMA or HMMA), then hold
+   each kernel
    against its plain PyTorch version on the card, in float32 and bfloat16,
    and time kernel, plain version and a PyTorch yardstick (SDPA, and for
    the backward `torch.autograd.grad` through SDPA).  Forward kernels run
@@ -53,8 +55,15 @@ Phases, in order; any failure exits non-zero and prints no result line:
      fused decode layer
      at t = 1, 511 and 1023 without and with a row mask (no yardstick),
      whose other ring rows must stay bitwise unchanged; LayerNorm at 8
-     and 8192 rows of 768, yardstick `F.layer_norm`; FFN at 8, 512 and
-     8192 rows, H=768 I=3072 gelu_tanh (no yardstick).  float32: 2e-5
+     and 8192 rows of 768 and of 1002 (rows that do not fall into 16-byte
+     chunks), yardstick `F.layer_norm`, with its GB/s; FFN at 8, 256,
+     512, 1024 and 8192 rows, H=768 I=3072 gelu_tanh, and gelu and relu
+     at 8 and 512 rows, each on the design `ffn_design` picks (decode
+     rows: the decode design; bf16 from 64 rows: the tensor cores; fp32
+     above 64 rows: the CUDA cores), both launches counted under it
+     alone, a second launch bitwise the first, with its TFLOP/s and GB/s
+     and the cuBLAS composite addmm + activation + mm beside it (three
+     calls, not one: no yardstick).  float32: 2e-5
      absolute (FFN 1e-5 max|ref|; LN statistics 1e-5 relative).
      bfloat16: one bf16 step of each output plus what each side rounds,
      weighted by what it multiplies (the `tolerance` module docstring).
@@ -104,7 +113,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    tokens/s and a profiled decode window.
 4. Generate: GPT-2 124M, weights from seed 0, greedy, in the default
    mode (flash decode per step) and the fused mode (PTPU_FUSED_DECODE=1
-   PTPU_PALLAS_FFN=1: fused layer, LN and FFN per step).  float32, B=8,
+   PTPU_PALLAS_FFN=1: fused layer, LN and FFN -- its decode design -- per
+   step).  float32, B=8,
    prompt 256, 32 new tokens: the card's tokens must equal the CPU run's
    in each mode, and each kernel's launches equal the expected count;
    the fused-vs-default agreement is reported, not checked (the
@@ -155,13 +165,15 @@ Phases, in order; any failure exits non-zero and prints no result line:
    forward and backward once each; then GPT-2 124M per-layer, fp32 card
    against CPU as phase 5 (same limits), with 12 launches of each flash
    kernel, 25 of the LayerNorm forward and backward and 12 of the FFN per
-   step and none on the CPU; then bf16 as phase 6 with the flags and
-   without them.
-8. Summary: one JSON line of the twenty-two entries (the nine kernels,
+   step (fp32 at 1024 rows: the CUDA-core design) and none on the CPU;
+   then bf16 as phase 6 with the flags (the FFN's 144 launches all on
+   the tensor cores) and without them.
+8. Summary: one JSON line of the twenty-four entries (the nine kernels,
    the int8 variant, the mask, segment and non-causal variants of the
-   flash kernels, and the tensor-core forward, dQ and dK/dV -- every bf16
-   launch of those three, timed at the bf16 training shape -- counted
-   apart), the card line, then the result line.
+   flash kernels, the tensor-core forward, dQ and dK/dV -- every bf16
+   launch of those three, timed at the bf16 training shape -- and the
+   FFN's tensor-core and decode designs, counted apart; the FFN's own
+   entry is its CUDA-core design), the card line, then the result line.
 
 Every time is a median of CUDA-event timings (L2 flushed before each
 launch, the host's enqueue hidden behind a spin on the stream); every
@@ -191,6 +203,10 @@ FWD, DQ, DKV, RAGGED = ("flash_fwd_causal", "flash_bwd_dq_causal",
 DECODE, FUSED, LN, LN_BWD, FFN = ("flash_decode", "fused_decode_layer",
                                   "fused_layernorm", "fused_layernorm_bwd",
                                   "fused_ffn")
+# the FFN's three designs, each counted apart: FFN the CUDA-core kernel
+# (fp32 at many rows), FFN_TC bf16 on the tensor cores, FFN_DEC few rows
+FFN_TC, FFN_DEC = "fused_ffn_tc", "fused_ffn_decode"
+FFN_COUNTER = {"cuda_core": FFN, "tc": FFN_TC, "decode": FFN_DEC}
 FWD_MASK, RAGGED8 = "flash_fwd_causal:mask", "ragged_paged_attention:int8"
 # the variants of the flash kernels (segment ids, non-causal, and the
 # backward's mask / kv_lens), each counted apart
@@ -206,7 +222,7 @@ DQ_ALL = (DQ, DQ_MASK, DQ_SEGS, DQ_NC)
 DKV_ALL = (DKV, DKV_MASK, DKV_SEGS, DKV_NC)
 KERNELS = (FWD, FWD_MASK, FWD_SEGS, FWD_NC, FWD_TC, RAGGED, RAGGED8, DQ,
            DQ_MASK, DQ_SEGS, DQ_NC, DQ_TC, DKV, DKV_MASK, DKV_SEGS, DKV_NC,
-           DKV_TC, DECODE, FUSED, LN, LN_BWD, FFN)
+           DKV_TC, DECODE, FUSED, LN, LN_BWD, FFN, FFN_TC, FFN_DEC)
 REPLACES = {
     FWD: "paddle_tpu/ops/pallas_ops.py:135",
     FWD_MASK: "paddle_tpu/ops/pallas_ops.py:135",
@@ -230,6 +246,8 @@ REPLACES = {
     LN: "paddle_tpu/ops/pallas_ops.py:1391",
     LN_BWD: "paddle_tpu/ops/pallas_ops.py:1404",
     FFN: "paddle_tpu/ops/pallas_ops.py:1548",
+    FFN_TC: "paddle_tpu/ops/pallas_ops.py:1548",
+    FFN_DEC: "paddle_tpu/ops/pallas_ops.py:1548",
 }
 # the __global__ functions of paddle_tpu_torch/csrc, as the profiler names
 # (template names: the mask and int8 variants are instantiations of
@@ -240,8 +258,9 @@ PORT_SYMBOLS = ("flash_fwd_causal_kernel", "flash_fwd_tc_kernel",
                 "flash_bwd_dkv_tc_kernel", "ragged_write_kernel",
                 "ragged_attend_kernel", "ragged_write_int8_kernel",
                 "flash_decode_kernel", "fused_decode_layer_kernel",
-                "ln_fwd_kernel", "ln_bwd_kernel", "ln_bwd_sum_kernel",
-                "fused_ffn_kernel")
+                "ln_fwd_kernel", "ln_fwd_wide_kernel", "ln_bwd_kernel",
+                "ln_bwd_sum_kernel", "fused_ffn_kernel", "ffn_tc_kernel",
+                "ffn_dec_kernel")
 TRAIN_LR = 1e-4
 # the environment flags that select the decode kernels, by generate mode
 GEN_MODES = {"default": {},
@@ -345,23 +364,26 @@ def _sass_functions(lib):
 
 
 def check_sass(paths):
-    """The design behind each flash entry, from the built libraries'
-    machine code: every instantiation of the bf16 forward, dQ and dK/dV
-    kernels (``flash_fwd_tc_kernel``, ``flash_bwd_dq_tc_kernel``,
-    ``flash_bwd_dkv_tc_kernel``: 16 each, 8 flag combinations x D 64 and
-    128) contains HGMMA (warpgroup tensor-core products), and the CUDA-core
-    kernels they replaced (``flash_fwd_causal_kernel``,
+    """The design behind each flash entry and the FFN's tensor-core design,
+    from the built libraries' machine code: every instantiation of the
+    bf16 forward, dQ and dK/dV kernels (``flash_fwd_tc_kernel``,
+    ``flash_bwd_dq_tc_kernel``, ``flash_bwd_dkv_tc_kernel``: 16 each, 8
+    flag combinations x D 64 and 128) and of the FFN's products
+    (``ffn_tc_kernel``: 16, 4 tiles x 3 activations and the plain second
+    product) contains HGMMA (warpgroup tensor-core products), and the
+    CUDA-core flash kernels they replaced (``flash_fwd_causal_kernel``,
     ``flash_bwd_dq_kernel``, ``flash_bwd_dkv_kernel``) are left with their
     16 fp32 instantiations only, FFMA and no HGMMA or HMMA.  Returns
     {kernel: [instantiations, of them with HGMMA, with FFMA]}."""
-    fwd, bwd = "flash_fwd_causal", "flash_bwd_causal"    # the sources
+    fwd, bwd, ffn = "flash_fwd_causal", "flash_bwd_causal", FFN_TC
     wants = {"flash_fwd_tc_kernel": (fwd, True),
              "flash_fwd_causal_kernel": (fwd, False),
              "flash_bwd_dq_tc_kernel": (bwd, True),
              "flash_bwd_dq_kernel": (bwd, False),
              "flash_bwd_dkv_tc_kernel": (bwd, True),
-             "flash_bwd_dkv_kernel": (bwd, False)}
-    funcs = {src: _sass_functions(paths[src]) for src in (fwd, bwd)}
+             "flash_bwd_dkv_kernel": (bwd, False),
+             "ffn_tc_kernel": (ffn, True)}
+    funcs = {src: _sass_functions(paths[src]) for src in (fwd, bwd, ffn)}
     counts = {}
     for kernel, (lib, tensor_cores) in wants.items():
         # mangled: ..._kernel I <template arguments> E; the CUDA-core ones
@@ -385,14 +407,19 @@ def check_sass(paths):
 
 def short_name(mangled):
     """``flash_fwd_tc_kernel<64,1,0,1>`` from a mangled kernel name (the
-    template arguments: element type, D, MASKED, SEGS, CAUSAL)."""
-    m = re.search(r"\d+(flash_\w+?_kernel)I(.*?)EE", mangled)
+    template arguments: for the flash kernels element type, D, MASKED,
+    SEGS, CAUSAL; ``ffn_tc_kernel<warpgroups, BN, epilogue>``,
+    ``ffn_dec_kernel<type, loads, epilogue, dependent>``,
+    ``ln_fwd_kernel<x, w, y types, chunks, early>``)."""
+    m = re.search(r"\d+((?:flash|ffn|ln|fused)_\w+?_kernel)I(.*?E)E", mangled)
     if not m:
         return mangled
-    args = re.sub(r"^f(?=Li)", "f32,", m.group(2))
-    args = re.sub(r"13__nv_bfloat16", "bf16,", args)
-    args = re.sub(r"L[ib](\d+)E", r"\1,", args + "E")
-    return f"{m.group(1)}<{args.rstrip('E,')}>"
+    # a substitution (S_, S0_, ...) can only repeat __nv_bfloat16: float
+    # is a builtin type and never substituted
+    args = [("bf16" if t[0] in "1S" else "f32" if t == "f" else t[2:-1])
+            for t in re.findall(r"13__nv_bfloat16|S\d*_|L[ib]\d+E|f",
+                                m.group(2))]
+    return f"{m.group(1)}<{','.join(args)}>"
 
 
 def ptxas_table(log):
@@ -1060,7 +1087,8 @@ def check_fused_layer(fdl, tol, timer, b, h, d, s_max, t, masked, dtype,
 
 def check_ln(fm, tol, timer, n, hidden, dtype, seed):
     """The LayerNorm kernel against its plain version: y, and mu and rstd
-    to 1e-5 relative."""
+    to 1e-5 relative.  A width whose rows do not fall into 16-byte chunks
+    (1002) takes the kernel's scalar head and tail."""
     g = torch.Generator().manual_seed(seed)
     x = (torch.randn(n, hidden, generator=g) * 2 + 0.5).to("cuda", dtype)
     w = (1 + 0.1 * torch.randn(hidden, generator=g)).to("cuda", dtype)
@@ -1084,7 +1112,8 @@ def check_ln(fm, tol, timer, n, hidden, dtype, seed):
     return dict(shape=f"n={n} H={hidden}", dtype=str(dtype),
                 max_abs_err=err, err_over_limit=ratio, ms=ms,
                 plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                library_ms=lib_ms, tol=_tol_text(dtype, TOL_FP32))
+                library_ms=lib_ms, tol=_tol_text(dtype, TOL_FP32),
+                gb_per_s=nbytes / (ms * 1e-3) / 1e9)
 
 
 def check_ln_bwd(fm, tol, timer, n, hidden, xdt, pdt, seed):
@@ -1135,7 +1164,19 @@ def check_ln_bwd(fm, tol, timer, n, hidden, xdt, pdt, seed):
                        else ", + 1 bf16 step of bf16 outputs"))
 
 
-def check_ffn(fm, tol, timer, n, hidden, inter, act, dtype, seed):
+_ACT_FN = {"gelu": torch.nn.functional.gelu,
+           "gelu_tanh": lambda u: torch.nn.functional.gelu(
+               u, approximate="tanh"),
+           "relu": torch.relu}
+
+
+def check_ffn(fm, ops, tol, timer, n, hidden, inter, act, dtype, seed):
+    """The FFN against its plain version, within `tolerance.ffn_limit`
+    (bf16) or 1e-5 max|ref| (fp32); a second launch bitwise equal to the
+    first; both launches on the design `ffn_design` picks and counted
+    under it alone.  Times kernel, plain version and the cuBLAS composite
+    ``addmm`` + activation + ``mm`` (three calls, not one: it is no
+    ``library_ms``)."""
     g = torch.Generator().manual_seed(seed)
 
     def rnd(*shape, scale=1.0):
@@ -1143,22 +1184,37 @@ def check_ffn(fm, tol, timer, n, hidden, inter, act, dtype, seed):
 
     args = (rnd(n, hidden), rnd(hidden, inter, scale=hidden ** -0.5),
             rnd(inter, scale=0.1), rnd(inter, hidden, scale=inter ** -0.5))
+    what = f"ffn n={n} H={hidden} I={inter} {act} {dtype}"
+    design = fm.ffn_design(n, hidden, inter, dtype)
+    ops.reset_launch_counts()
     y = fm.fused_ffn_arrays(*args, act=act)
+    again = fm.fused_ffn_arrays(*args, act=act)
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
     yr = fm.fused_ffn_reference(*args, act=act)
     limit = (FFN_REL_FP32 * yr.abs().max().item() if dtype == torch.float32
              else tol.ffn_limit(*args, act))
     torch.cuda.synchronize()
-    err, ratio = check_close(tol, y, yr, limit,
-                             f"ffn n={n} H={hidden} I={inter} {act} {dtype}")
+    if counts != {FFN_COUNTER[design]: 2}:
+        fail(f"{what}: launches {counts}, expected 2 of the {design} "
+             f"design")
+    if not torch.equal(y, again):
+        fail(f"{what}: two launches differ")
+    err, ratio = check_close(tol, y, yr, limit, what)
     ms = timer(lambda: fm.fused_ffn_arrays(*args, act=act))
     plain_ms = timer(lambda: fm.fused_ffn_reference(*args, act=act))
+    x, w1, b1, w2 = args
+    fn = _ACT_FN[act]
+    composite_ms = timer(lambda: torch.mm(fn(torch.addmm(b1, x, w1)), w2))
     item = y.element_size()
     nbytes = (2 * hidden * inter + inter + 2 * n * hidden) * item
-    bms, by = bound_ms(nbytes, 4 * n * hidden * inter, dtype)
+    flops = 4 * n * hidden * inter
+    bms, by = bound_ms(nbytes, flops, dtype)
     return dict(shape=f"n={n} H={hidden} I={inter} {act}", dtype=str(dtype),
-                max_abs_err=err, err_over_limit=ratio, ms=ms,
+                design=design, max_abs_err=err, err_over_limit=ratio, ms=ms,
                 plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                library_ms=None,
+                library_ms=None, composite_ms=composite_ms,
+                tflops=tflops(flops, ms),
+                gb_per_s=nbytes / (ms * 1e-3) / 1e9,
                 tol=_tol_text(dtype, f"{FFN_REL_FP32} max|ref|"))
 
 
@@ -1318,16 +1374,26 @@ def flag_env(env):
                 os.environ[k] = v
 
 
-def check_gen_launches(launches, mode, layers, steps, what, padded=False,
+def ffn_counter(rows, cfg, dtype):
+    """The launch counter of the FFN design that ``rows`` rows of ``cfg``'s
+    MLP in ``dtype`` take (`fused_mlp.ffn_design`)."""
+    from paddle_tpu_torch.ops import fused_mlp as fm
+    return FFN_COUNTER[fm.ffn_design(rows, cfg.hidden_size,
+                                     cfg.intermediate_size, dtype)]
+
+
+def check_gen_launches(launches, mode, cfg, batch, steps, what, padded=False,
                        bf16=False):
     """One flash prefill per layer (the masked branch for padded prompts;
     in bf16 the tensor-core kernel); per decode step and layer the decode
-    kernel (default) or the fused layer, LN and FFN (fused); nothing else.
-    A padded default step takes the masked branch, as in JAX: no decode
-    kernel."""
+    kernel (default) or the fused layer, LN and FFN (fused; the FFN's
+    design for ``batch`` rows: the decode design); nothing else.  A padded
+    default step takes the masked branch, as in JAX: no decode kernel."""
+    layers = cfg.num_hidden_layers
     want = dict.fromkeys(KERNELS, 0)
     want[FWD_MASK if padded else FWD] = layers
-    names = (FUSED, LN, FFN) if mode == "fused" else (
+    ffn = ffn_counter(batch, cfg, torch.bfloat16 if bf16 else torch.float32)
+    names = (FUSED, LN, ffn) if mode == "fused" else (
         () if padded else (DECODE,))
     for name in names:
         want[name] = layers * steps
@@ -1385,9 +1451,8 @@ def generate_fp32_card_vs_cpu(ops, cfg, batch=8, prompt=256, new=32):
                 secs[dev] = time.perf_counter() - t0
                 launches[dev] = ops.launch_counts()
         what = f"float32 {'padded ' if padded else ''}generate ({mode})"
-        want = check_gen_launches(launches["cuda"], mode,
-                                  cfg.num_hidden_layers, new - 1, what,
-                                  padded)
+        want = check_gen_launches(launches["cuda"], mode, cfg, batch,
+                                  new - 1, what, padded)
         if set(launches["cpu"].values()) != {0}:
             fail(f"{what} on the CPU launched kernels: {launches['cpu']}")
         g, c = out["cuda"], out["cpu"]
@@ -1477,9 +1542,8 @@ def generate_bf16(ops, cfg, batch=8, prompt=896, new=128):
             torch.cuda.synchronize()
             total_s = time.perf_counter() - t0
             path[mode] = ops.launch_counts()
-            check_gen_launches(path[mode], mode, cfg.num_hidden_layers,
-                               new - 1, f"bfloat16 generate ({mode})",
-                               bf16=True)
+            check_gen_launches(path[mode], mode, cfg, batch, new - 1,
+                               f"bfloat16 generate ({mode})", bf16=True)
             decode_s = total_s - prefill_s
             rec[mode] = {"total_s": total_s, "prefill_s": prefill_s,
                          "decode_ms_per_step": decode_s * 1e3 / (new - 1),
@@ -1504,8 +1568,8 @@ def generate_bf16(ops, cfg, batch=8, prompt=896, new=128):
             torch.cuda.synchronize()
             total_s = time.perf_counter() - t0
             path[key] = ops.launch_counts()
-            check_gen_launches(path[key], mode, cfg.num_hidden_layers,
-                               new - 1, f"bfloat16 padded generate ({mode})",
+            check_gen_launches(path[key], mode, cfg, batch, new - 1,
+                               f"bfloat16 padded generate ({mode})",
                                padded=True, bf16=True)
             decode_s = total_s - prefill_s
             rec[key] = {"total_s": total_s, "prefill_s": prefill_s,
@@ -1550,14 +1614,16 @@ def make_step(model, lr=TRAIN_LR):
     return step, opt
 
 
-def train_launches(cfg, steps, env, packed=False, bf16=False):
-    """Expected launches of `steps` training steps under the flags `env`:
-    each flash kernel once per layer (its segment variant on packed
-    rows; in bf16 all three are the tensor-core kernels, so 12 of each
-    per step); under PTPU_PALLAS_LN the LayerNorm
+def train_launches(cfg, steps, env, packed=False, bf16=False, rows=1024):
+    """Expected launches of `steps` training steps of ``rows`` tokens under
+    the flags `env`: each flash kernel once per layer (its segment variant
+    on packed rows; in bf16 all three are the tensor-core kernels, so 12
+    of each per step); under PTPU_PALLAS_LN the LayerNorm
     forward and backward once per LayerNorm layer (2L+1 per-layer, ``ln_f``
     alone stacked); under PTPU_PALLAS_FFN the FFN once per per-layer
-    block (the stacked blocks keep their own MLP); nothing else."""
+    block (the stacked blocks keep their own MLP), of the design its rows
+    and dtype take (bf16 8192 rows: the tensor cores; fp32 1024 rows: the
+    CUDA cores); nothing else."""
     layers = cfg.num_hidden_layers
     want = dict.fromkeys(KERNELS, 0)
     for name in (FWD_SEGS, DQ_SEGS, DKV_SEGS) if packed else (FWD, DQ, DKV):
@@ -1566,7 +1632,8 @@ def train_launches(cfg, steps, env, packed=False, bf16=False):
         per_step = 1 if cfg.stacked_blocks else 2 * layers + 1
         want[LN] = want[LN_BWD] = per_step * steps
     if env.get("PTPU_PALLAS_FFN") == "1" and not cfg.stacked_blocks:
-        want[FFN] = layers * steps
+        dtype = torch.bfloat16 if bf16 else torch.float32
+        want[ffn_counter(rows, cfg, dtype)] = layers * steps
     return with_tc(want, bf16)
 
 
@@ -1605,7 +1672,7 @@ def train_fp32_card_vs_cpu(ops, cfg, env, steps=3, seq=1024, packed=False):
         del model
     gpu, cpu = runs["cuda"], runs["cpu"]
     check_train_launches(gpu["launches"],
-                         train_launches(cfg, steps, env, packed),
+                         train_launches(cfg, steps, env, packed, rows=seq),
                          "float32 training")
     if set(cpu["launches"].values()) != {0}:
         fail(f"float32 training on the CPU launched kernels: "
@@ -1663,7 +1730,7 @@ def train_bf16(ops, cfg, env, batch=8, seq=1024, warmup=2, timed=10,
     losses = [x.item() for x in losses]
     check_train_launches(launches,
                          train_launches(cfg, warmup + timed, env, packed,
-                                        bf16=True),
+                                        bf16=True, rows=batch * seq),
                          "bfloat16 training")
     if not all(np.isfinite(losses)):
         fail(f"bfloat16 training: non-finite loss {losses}")
@@ -1793,6 +1860,12 @@ def print_cases(cases):
                 tol = f"tol {BWD_REL_FP32} max|ref|"
             rate = ("" if "tflops" not in c
                     else f" {c['tflops']:.1f} TFLOP/s achieved")
+            if "design" in c:      # the FFN: TFLOP/s and GB/s both
+                rate += (f", {c['gb_per_s']:.1f} GB/s; design "
+                         f"{c['design']}; cuBLAS addmm + act + mm (three "
+                         f"calls, not one) {c['composite_ms']:.4f}")
+            elif "gb_per_s" in c and "splits" not in c:
+                rate += f" {c['gb_per_s']:.1f} GB/s achieved"
             if "splits" in c:
                 rate += (f" {c['splits']} splits ({c['blocks']} blocks), "
                          f"{c['gb_per_s']:.1f} GB/s achieved")
@@ -1844,7 +1917,7 @@ def main():
                 DKV_TC: fa.flash_bwd_dkv.tc,
                 RAGGED: rpa, RAGGED8: rpa.int8,
                 DECODE: fd, FUSED: fdl, LN: fm.ln_fwd, LN_BWD: fm.ln_bwd,
-                FFN: fm.ffn_fwd}
+                FFN: fm.ffn_fwd, FFN_TC: fm.ffn_tc, FFN_DEC: fm.ffn_decode}
     for bwd in (fa.flash_bwd_dq, fa.flash_bwd_dkv):
         wrappers.update({v.KERNEL: v for v in bwd.variants.values()})
     assert set(wrappers) == set(ops.launch_counts())
@@ -1886,6 +1959,22 @@ def main():
           "instantiations <type, D, MASKED, SEGS, CAUSAL>: " + "; ".join(
               f"{fn} {r}" + (f" ({st}/{ld})" if st or ld else "")
               for fn, (r, st, ld) in sorted(regs.items())), flush=True)
+    # ... and of the FFN's designs and the LayerNorm forward (the
+    # instantiations GPT-2's width takes: 3 chunks a lane in bf16, 6 fp32)
+    regs = {}
+    for name in (FFN_TC, FFN_DEC, FFN, LN):
+        for fn, n_regs, st, ld in ptxas_table(result["ptxas"][name]):
+            short = short_name(fn)
+            chunks = short.split(",")[3] if short.count(",") == 4 else ""
+            if name != LN or chunks in ("3", "6"):
+                regs[short] = (n_regs, st, ld)
+    result["ffn_ln_registers"] = regs
+    print("ptxas registers (spill stores / loads, bytes) of the FFN "
+          "designs <warpgroups, BN, epilogue> / <type, loads, epilogue, "
+          "dependent> and the LayerNorm forward <x, w, y, chunks, early>: "
+          + "; ".join(f"{fn} {r}" + (f" ({st}/{ld})" if st or ld else "")
+                      for fn, (r, st, ld) in sorted(regs.items())),
+          flush=True)
     result["sass"] = check_sass(paths)
     print("SASS: " + "; ".join(
         f"{k} {n} instantiations, {h} with HGMMA, {f} with FFMA"
@@ -1956,11 +2045,17 @@ def main():
                 cases[FUSED].append(check_fused_layer(
                     fdl, tol, timer, 8, 12, 64, 1024, t, masked, dtype,
                     seed=t + masked))
-        for n in (8, 8192):
-            cases[LN].append(check_ln(fm, tol, timer, n, 768, dtype, n))
-        for n in (8, 512, 8192):              # decode, -, training rows
-            cases[FFN].append(check_ffn(fm, tol, timer, n, 768, 3072,
-                                        "gelu_tanh", dtype, n))
+        for n in (8, 8192):        # decode, training rows; 1002: a row
+            for hidden in (768, 1002):   # not in 16-byte chunks
+                cases[LN].append(check_ln(fm, tol, timer, n, hidden, dtype,
+                                          n + hidden))
+        # decode rows, -, -, fp32 training rows (B=1), training rows; then
+        # the other activations at a decode and a tensor-core shape
+        ffn_runs = [(n, "gelu_tanh") for n in (8, 256, 512, 1024, 8192)]
+        ffn_runs += [(n, act) for act in ("gelu", "relu") for n in (8, 512)]
+        for n, act in ffn_runs:
+            c = check_ffn(fm, ops, tol, timer, n, 768, 3072, act, dtype, n)
+            cases[FFN_COUNTER[c["design"]]].append(c)
         torch.cuda.empty_cache()
     bf16, f32 = torch.bfloat16, torch.float32
     for n, xdt, pdt in ((8192, f32, f32), (8192, bf16, bf16),
@@ -2268,9 +2363,9 @@ def main():
     # decode step, the masked forward at the bf16 padded prefill
     bf16 = str(torch.bfloat16)
 
-    def pick(name, shape):
+    def pick(name, shape, dtype=bf16):
         return next(c for c in cases[name]
-                    if c["shape"].startswith(shape) and c["dtype"] == bf16)
+                    if c["shape"].startswith(shape) and c["dtype"] == dtype)
 
     main_case = {FWD: cases[FWD][2], RAGGED: cases[RAGGED][0],
                  FWD_TC: pick(FWD, "B=8 S=1024 H=12 D=64"),
@@ -2284,7 +2379,10 @@ def main():
                                     "mask=False"),
                  LN: pick(LN, "n=8 H=768"),
                  LN_BWD: pick(LN_BWD, "n=8192 H=768"),
-                 FFN: pick(FFN, "n=8 H=768 I=3072 gelu_tanh"),
+                 FFN: pick(FFN, "n=1024 H=768 I=3072 gelu_tanh",
+                           str(torch.float32)),
+                 FFN_TC: pick(FFN_TC, "n=8192 H=768 I=3072 gelu_tanh"),
+                 FFN_DEC: pick(FFN_DEC, "n=8 H=768 I=3072 gelu_tanh"),
                  FWD_SEGS: pick(FWD_SEGS, "B=8 S=1024 H=12 D=64 segs"),
                  FWD_NC: pick(FWD_NC, "B=8 S=1024 H=12 D=64 nc"),
                  DQ_SEGS: pick(DQ_SEGS, "B=8 S=1024 H=12 D=64 segs"),
@@ -2304,7 +2402,9 @@ def main():
                      FUSED: launches_gen["fused"][FUSED],
                      LN: launches_gen["fused"][LN],
                      LN_BWD: launches_pl["flags"][LN_BWD],
-                     FFN: launches_gen["fused"][FFN]}
+                     FFN: pl32["launches"][FFN],
+                     FFN_TC: launches_pl["flags"][FFN_TC],
+                     FFN_DEC: launches_gen["fused"][FFN_DEC]}
     for name in (FWD_SEGS, DQ_SEGS, DKV_SEGS):
         path_launches[name] = launches_packed[name]
     for name in (FWD_NC, DQ_NC, DKV_NC, DQ_MASK, DKV_MASK):

@@ -1,8 +1,8 @@
 // Device helpers shared by the decode-path kernels (flash_decode.cu,
-// fused_decode_layer.cu, fused_layernorm.cu, fused_ffn.cu): type
-// conversions, vector loads, reductions, the last-block ticket of a
-// cross-block sum, and the streaming prefix attention
-// of one decode query -- the counterpart of `_prefix_attn_loop`
+// fused_decode_layer.cu, fused_layernorm.cu, the three FFN sources): type
+// conversions, vector loads, the FFN's activation, reductions, the
+// last-block ticket of a cross-block sum, and the streaming prefix
+// attention of one decode query -- the counterpart of `_prefix_attn_loop`
 // (paddle_tpu/ops/pallas_ops.py), which the TPU's decode and fused-layer
 // kernels share the same way.
 #pragma once
@@ -53,6 +53,17 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p,
   x[3] = b.y;
 }
 
+// The FFN's activation in fp32 (`_ffn_act`, pallas_ops.py): 0 gelu (erf),
+// 1 gelu (tanh), 2 relu.
+__device__ __forceinline__ float activate(float u, int act) {
+  if (act == 0) return 0.5f * u * (1.f + erff(u * 0.70710678118654752f));
+  if (act == 1) {
+    const float inner = 0.7978845608028654f * (u + 0.044715f * u * u * u);
+    return 0.5f * u * (1.f + tanhf(inner));
+  }
+  return fmaxf(u, 0.f);
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -80,10 +91,10 @@ __device__ __forceinline__ float block_reduce(float v, float* red,
   return r;
 }
 
-// Cross-block sums (fused_ffn.cu, flash_decode.cu): after this block's
-// writes, true in the block that is the `count`-th to take the ticket,
-// which resets it for the next launch.  Every thread calls; `flag` is
-// shared memory.
+// Cross-block sums (fused_ffn.cu, fused_ffn_decode.cu, flash_decode.cu):
+// after this block's writes, true in the block that is the `count`-th to
+// take the ticket, which resets it for the next launch.  Every thread
+// calls; `flag` is shared memory.
 __device__ __forceinline__ bool last_of(int* ticket, int count, int* flag) {
   __threadfence();
   __syncthreads();

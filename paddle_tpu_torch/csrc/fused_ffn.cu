@@ -2,7 +2,9 @@
 // C interface.
 //
 // Replaces: paddle_tpu/ops/pallas_ops.py `_ffn_fwd_kernel` (reached via
-// `fused_ffn_2d` <- `fused_ffn_arrays`).  As there, the [n, I] intermediate
+// `fused_ffn_2d` <- `fused_ffn_arrays`) where `ops/fused_mlp.py`
+// `ffn_design` picks "cuda_core": fp32 above its decode rows, and widths
+// the other two designs do not take.  As there, the [n, I] intermediate
 // never reaches device memory.
 //
 // What bounds it on this card: at the decode shape (n = 8 rows) memory --
@@ -44,15 +46,6 @@ using namespace decode;
 constexpr int THREADS = 256;
 constexpr int RT = 8;   // rows per tile
 constexpr int GS = 16;  // slices per group of the reduction tree
-
-__device__ __forceinline__ float activate(float u, int act) {
-  if (act == 0) return 0.5f * u * (1.f + erff(u * 0.70710678118654752f));
-  if (act == 1) {
-    const float inner = 0.7978845608028654f * (u + 0.044715f * u * u * u);
-    return 0.5f * u * (1.f + tanhf(inner));
-  }
-  return fmaxf(u, 0.f);
-}
 
 // acc[r] += w * rows[r] for the RT rows stored at p (16-byte aligned)
 __device__ __forceinline__ void fma_rows(float w, const float* p,

@@ -46,7 +46,7 @@ _KERNELS = (flash_attention, flash_attention.masked, flash_attention.segs,
             flash_attention.flash_bwd_dkv.tc,
             ragged_paged_attention, ragged_paged_attention.int8,
             flash_decode, fused_decode, fused_mlp.ln_fwd, fused_mlp.ln_bwd,
-            fused_mlp.ffn_fwd)
+            fused_mlp.ffn_fwd, fused_mlp.ffn_tc, fused_mlp.ffn_decode)
 
 
 def launch_counts() -> dict:

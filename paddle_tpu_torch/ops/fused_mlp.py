@@ -6,8 +6,13 @@ pallas_ops.py:1443-1526`), `fused_ffn_arrays` / `fused_ffn_2d`
 
 On a CUDA tensor each launches its kernels (``csrc/fused_layernorm.cu``,
 the port of `_ln_fwd_kernel` `:1391`; ``csrc/fused_layernorm_bwd.cu``, of
-`_ln_bwd_kernel` `:1404`; ``csrc/fused_ffn.cu``, of `_ffn_fwd_kernel`
-`:1548`); on a CPU tensor each computes its plain version.  Both are
+`_ln_bwd_kernel` `:1404`; of `_ffn_fwd_kernel` `:1548` one of three
+designs that `ffn_design` picks from the rows, widths and dtype:
+``csrc/fused_ffn_tc.cu``, bf16 on the tensor cores, for many rows;
+``csrc/fused_ffn_decode.cu``, a bandwidth design for a few rows, bf16 or
+fp32; ``csrc/fused_ffn.cu``, fp32 on the CUDA cores, for many fp32 rows
+and widths the other two do not take); on a CPU tensor each computes its
+plain version.  Both are
 differentiable, as the JAX custom VJPs are: the LayerNorm's backward is the
 backward kernel (`LayerNormFunction`), the FFN's recomputes the intermediate
 in plain PyTorch (`FusedFFNFunction`, `_ffn_vjp_bwd` `:1607`).  Under
@@ -28,7 +33,9 @@ __all__ = ["fused_layernorm_arrays", "fused_layernorm_reference",
            "fused_layernorm_bwd", "fused_layernorm_bwd_reference",
            "LayerNormFunction", "fused_ffn_arrays", "fused_ffn_reference",
            "FusedFFNFunction", "maybe_fused_ffn", "ln_geometry_ok",
-           "ffn_geometry_ok", "ln_fwd", "ln_bwd", "ffn_fwd", "ln_block_rows"]
+           "ffn_geometry_ok", "ln_fwd", "ln_bwd", "ffn_fwd", "ffn_tc",
+           "ffn_decode", "ln_block_rows", "ffn_design",
+           "ffn_tc_tiles", "ffn_decode_loads"]
 
 _ACTS = ("gelu", "gelu_tanh", "relu")
 
@@ -51,7 +58,9 @@ class _Launcher:
 
 ln_fwd = _Launcher("fused_layernorm")
 ln_bwd = _Launcher("fused_layernorm_bwd")
-ffn_fwd = _Launcher("fused_ffn")
+ffn_fwd = _Launcher("fused_ffn")            # the CUDA-core design
+ffn_tc = _Launcher("fused_ffn_tc")          # bf16 on the tensor cores
+ffn_decode = _Launcher("fused_ffn_decode")  # a few rows, bandwidth
 
 
 def ln_block_rows(n):
@@ -120,6 +129,12 @@ def fused_layernorm_bwd_reference(x2, w, mu, rs, dy, b_dtype=None):
             dy32.sum(0).to(b_dtype or w.dtype))
 
 
+# Rows (one warp each) per block of the LayerNorm forward: one spreads a
+# few rows over as many SMs; 4 and 8 measured no faster at 8, 64 or 8192
+# rows on an H100 (PERF.md, `scripts/ffn_ln_probe.py`).
+LN_ROWS_PER_BLOCK = 1
+
+
 def _ln_launch(x2, w, b, eps):
     n, h = x2.shape
     for name, t in (("w", w), ("b", b)):
@@ -138,9 +153,9 @@ def _ln_launch(x2, w, b, eps):
     mu = torch.empty((n, 1), dtype=torch.float32, device=x2.device)
     rs = torch.empty((n, 1), dtype=torch.float32, device=x2.device)
     vp, i = ctypes.c_void_p, ctypes.c_int
-    fn = ln_fwd.fn([vp] * 6 + [i] * 4 + [ctypes.c_float, vp])
+    fn = ln_fwd.fn([vp] * 6 + [i] * 5 + [ctypes.c_float, vp])
     err = fn(x2.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
-             mu.data_ptr(), rs.data_ptr(), n, h,
+             mu.data_ptr(), rs.data_ptr(), n, h, LN_ROWS_PER_BLOCK,
              int(x2.dtype == torch.bfloat16), int(w.dtype == torch.bfloat16),
              eps, torch.cuda.current_stream(x2.device).cuda_stream)
     _build.check(err, ln_fwd.KERNEL)
@@ -349,21 +364,173 @@ def maybe_fused_ffn(x, w1, b1, w2, act):
     return fused_ffn_arrays(x, w1, b1, w2, act=act)
 
 
+# -- which design ------------------------------------------------------------
+
+# Measured on an H100 at GPT-2 width (PERF.md, `scripts/ffn_ln_probe.py`):
+# in bf16 the decode design wins at 8 and 16 rows, the tensor cores from
+# 24; in fp32 the decode design wins by 8 % or more up to 512 rows, ties
+# the CUDA-core kernel at 1024 (where its partials are 3x the weights) and
+# loses above.
+FFN_TC_MIN_ROWS = 24         # bf16 rows from which the tensor cores win
+FFN_DECODE_MAX_ROWS = 512    # fp32 rows up to which the decode design wins
+_SMS = 132                   # streaming multiprocessors of an H100
+_TC_TILES = ((2, 256), (2, 128), (1, 256), (1, 128))   # (warpgroups, BN)
+
+
+def ffn_design(n, h, i, dtype, h2=None):
+    """The FFN design for ``n`` rows of width ``h`` through an ``i``-wide
+    intermediate to ``h2`` (default ``h``) columns in ``dtype``:
+    ``"tc"`` (``csrc/fused_ffn_tc.cu``, bf16 from `FFN_TC_MIN_ROWS` rows),
+    ``"decode"`` (``csrc/fused_ffn_decode.cu``, bf16 below that and fp32
+    up to `FFN_DECODE_MAX_ROWS` rows) or ``"cuda_core"``
+    (``csrc/fused_ffn.cu``: fp32 above that, and any width that is not a
+    multiple of 128, which the other two do not take).  fp32 never takes
+    the tensor cores: TF32 would break the fp32 limit."""
+    if any(d % 128 for d in (h, i, h if h2 is None else h2)):
+        return "cuda_core"
+    if dtype == torch.bfloat16:
+        return "tc" if n >= FFN_TC_MIN_ROWS else "decode"
+    return "decode" if n <= FFN_DECODE_MAX_ROWS else "cuda_core"
+
+
+def ffn_tc_tiles(n, i, h2):
+    """((warpgroups, BN), (warpgroups, BN)) of the tensor-core design's two
+    products, [n, i] and [n, h2]: for each, of the BM = 64·warpgroups by
+    BN tiles whose BN divides its width, the one with the least ``waves ×
+    (BM + BN)`` -- whole waves of `_SMS` blocks times a tile's time per
+    unit of work (its area over its operand traffic, BM·BN / (BM + BN)) --
+    and on a tie the one with more blocks.  This picks the fastest tile
+    of each product at 256, 512, 1024 and 8192 rows of GPT-2's MLP as
+    measured (PERF.md, `scripts/ffn_ln_probe.py`)."""
+    def pick(m, width):
+        best = None
+        for wgs, bn in _TC_TILES:
+            if width % bn:
+                continue
+            tiles = -(-m // (64 * wgs)) * (width // bn)
+            key = (-(-tiles // _SMS) * (64 * wgs + bn), -tiles)
+            if best is None or key < best[0]:
+                best = (key, (wgs, bn))
+        return best[1]
+    return pick(n, i), pick(n, h2)
+
+
+def ffn_decode_loads(n, k, cols, dtype):
+    """16-byte loads per thread (4, 8 or 16) of one product of the decode
+    design, [n, k] by [k, cols]: a block takes 32 of them per k-chunk of
+    32·loads rows of the weights and 128 bytes of its columns; the most
+    loads that divide ``k`` and still leave a full wave of `_SMS` blocks,
+    else the fewest."""
+    cw = 128 // (2 if dtype == torch.bfloat16 else 4)
+    tiles = -(-n // 8)
+    fits = [l for l in (4, 8, 16) if k % (32 * l) == 0]
+    if not fits:
+        raise ValueError(f"width {k} is not a multiple of 128")
+    full = [l for l in fits if tiles * (cols // cw) * (k // (32 * l)) >= _SMS]
+    return max(full) if full else min(fits)
+
+
+# -- the CUDA-core design (csrc/fused_ffn.cu) --------------------------------
+
 _ROWS = 8            # rows per tile of csrc/fused_ffn.cu
 _GROUP = 16          # slices per group of its reduction tree
 _BLOCKS = 264        # aim: two blocks per SM of an H100
 
 
 def ffn_slice(n_rows, i):
-    """Columns of the intermediate each block takes: the widest power of
-    two from 16 up that divides ``i`` and still leaves about `_BLOCKS`
-    blocks for ``ceil(n_rows / 8)`` row tiles."""
+    """Columns of the intermediate each block of ``csrc/fused_ffn.cu``
+    takes: the widest power of two from 16 up that divides ``i`` and still
+    leaves about `_BLOCKS` blocks for ``ceil(n_rows / 8)`` row tiles."""
     tiles = -(-n_rows // _ROWS)
     bi = 16
     while i % (2 * bi) == 0 and 2 * bi <= 512 \
             and tiles * (i // (2 * bi)) >= _BLOCKS:
         bi *= 2
     return bi
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _cuda_core_launch(x2, w1, b1, w2, act):
+    n, h = x2.shape
+    i, h2 = w1.shape[1], w2.shape[1]
+    bi = ffn_slice(n, i)
+    if i % bi:
+        raise ValueError(f"intermediate size {i} is not a multiple of 16")
+    smem = (_ROWS * h + _ROWS * bi + 256 * _ROWS) * 4
+    if smem > 232448:
+        raise ValueError(f"hidden size {h} exceeds the kernel's shared "
+                         f"memory")
+    tiles, slices = -(-n // _ROWS), i // bi
+    groups = -(-slices // _GROUP)
+    y = torch.empty((n, h2), dtype=x2.dtype, device=x2.device)
+    # fp32 partials of each slice, then of each group of slices (freed on
+    # return, reused only by work queued later on this stream)
+    part = torch.empty((slices + groups, n, h2), dtype=torch.float32,
+                       device=x2.device)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn = ffn_fwd.fn([vp] * 7 + [ci] * 7 + [vp])
+    err = fn(x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+             y.data_ptr(), part.data_ptr(),
+             _build.tickets(x2.device, tiles * (groups + 1)).data_ptr(), n, h,
+             i, h2, bi,
+             _ACTS.index(act), int(x2.dtype == torch.bfloat16),
+             _stream(x2))
+    _build.check(err, ffn_fwd.KERNEL)
+    ffn_fwd.launches += 1
+    return y
+
+
+def _tc_launch(x2, w1, b1, w2, act):
+    n, h = x2.shape
+    i, h2 = w1.shape[1], w2.shape[1]
+    (g1, n1), (g2, n2) = ffn_tc_tiles(n, i, h2)
+    hbuf = torch.empty((n, i), dtype=x2.dtype, device=x2.device)
+    y = torch.empty((n, h2), dtype=x2.dtype, device=x2.device)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn = ffn_tc.fn([vp] * 6 + [ci] * 9 + [vp])
+    err = fn(x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+             hbuf.data_ptr(), y.data_ptr(), n, h, i, h2, _ACTS.index(act),
+             g1, n1, g2, n2, _stream(x2))
+    _build.check(err, ffn_tc.KERNEL)
+    ffn_tc.launches += 1
+    return y
+
+
+FFN_DECODE_OVERLAP = 1   # the second product as a programmatic dependent
+
+
+def _decode_launch(x2, w1, b1, w2, act):
+    n, h = x2.shape
+    i, h2 = w1.shape[1], w2.shape[1]
+    dt, dev = x2.dtype, x2.device
+    l1 = ffn_decode_loads(n, h, i, dt)
+    l2 = ffn_decode_loads(n, i, h2, dt)
+    cw = 64 if dt == torch.bfloat16 else 32     # columns of a block
+    hbuf = torch.empty((n, i), dtype=dt, device=dev)
+    y = torch.empty((n, h2), dtype=dt, device=dev)
+    # fp32 partials of each k-chunk of each product
+    part1 = torch.empty((h // (32 * l1), n, i), dtype=torch.float32,
+                        device=dev)
+    part2 = torch.empty((i // (32 * l2), n, h2), dtype=torch.float32,
+                        device=dev)
+    tk = _build.tickets(dev, -(-n // 8) * (i + h2) // cw)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn = ffn_decode.fn([vp] * 9 + [ci] * 9 + [vp])
+    err = fn(x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+             hbuf.data_ptr(), y.data_ptr(), part1.data_ptr(),
+             part2.data_ptr(), tk.data_ptr(), n, h, i, h2, l1, l2,
+             _ACTS.index(act), int(dt == torch.bfloat16), FFN_DECODE_OVERLAP,
+             _stream(x2))
+    _build.check(err, ffn_decode.KERNEL)
+    ffn_decode.launches += 1
+    return y
+
+
+_FFN_LAUNCH = {"tc": _tc_launch, "decode": _decode_launch,
+               "cuda_core": _cuda_core_launch}
 
 
 def _ffn_launch(x2, w1, b1, w2, act):
@@ -379,29 +546,12 @@ def _ffn_launch(x2, w1, b1, w2, act):
     if x2.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"kernel takes float32 or bfloat16, got "
                          f"{x2.dtype}")
-    bi = ffn_slice(n, i)
-    if i % bi:
-        raise ValueError(f"intermediate size {i} is not a multiple of 16")
-    smem = (_ROWS * h + _ROWS * bi + 256 * _ROWS) * 4
-    if smem > 232448:
-        raise ValueError(f"hidden size {h} exceeds the kernel's shared "
-                         f"memory")
     x2 = x2.contiguous()
-    tiles, slices = -(-n // _ROWS), i // bi
-    groups = -(-slices // _GROUP)
-    y = torch.empty((n, h2), dtype=x2.dtype, device=x2.device)
-    # fp32 partials of each slice, then of each group of slices (freed on
-    # return, reused only by work queued later on this stream)
-    part = torch.empty((slices + groups, n, h2), dtype=torch.float32,
-                       device=x2.device)
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn = ffn_fwd.fn([vp] * 7 + [ci] * 7 + [vp])
-    err = fn(x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-             y.data_ptr(), part.data_ptr(),
-             _build.tickets(x2.device, tiles * (groups + 1)).data_ptr(), n, h,
-             i, h2, bi,
-             _ACTS.index(act), int(x2.dtype == torch.bfloat16),
-             torch.cuda.current_stream(x2.device).cuda_stream)
-    _build.check(err, ffn_fwd.KERNEL)
-    ffn_fwd.launches += 1
-    return y
+    design = ffn_design(n, h, i, x2.dtype, h2)
+    if design != "cuda_core":
+        # 16-byte loads (and, on the tensor cores, copies) of every operand
+        for name, t in (("x", x2), ("w1", w1), ("b1", b1), ("w2", w2)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"fused_ffn ({design} design): {name} "
+                                 f"must start on 16 bytes")
+    return _FFN_LAUNCH[design](x2, w1, b1, w2, act)

@@ -590,10 +590,17 @@ def test_fused_decode_layer_kernel_matches_plain(b, h, d, s_max, t, masked,
 @pytest.mark.parametrize("xdt,pdt", [(torch.float32, torch.float32),
                                      (torch.bfloat16, torch.bfloat16),
                                      (torch.bfloat16, torch.float32)])
-@pytest.mark.parametrize("n,hidden", [(8, 768), (100, 1000)])
-def test_layernorm_kernel_matches_plain(n, hidden, xdt, pdt):
-    x = _randn((n, hidden), n, xdt, 2.0) + 0.5
-    w = 1 + _randn((hidden,), n + 1, pdt, 0.1)
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n,hidden", [(8, 768), (100, 1000), (37, 1002),
+                                      (16, 4096), (8192, 768)])
+def test_layernorm_kernel_matches_plain(n, hidden, offset, xdt, pdt):
+    """Rows read once into registers: widths whose rows fall into 16-byte
+    chunks (768, 1000 in bf16, 4096) and one whose rows do not (1002: a
+    scalar head and tail, alternating with the row), and x and w based
+    one element past 16 bytes (``offset``)."""
+    x = (_randn((n * hidden + offset,), n, xdt, 2.0) + 0.5)[offset:]
+    x = x.view(n, hidden)
+    w = (1 + _randn((hidden + offset,), n + 1, pdt, 0.1))[offset:]
     b = _randn((hidden,), n + 2, pdt, 0.1)
     fm.ln_fwd.launches = 0
     y, mu, rs = fm.fused_layernorm_arrays(x, w, b, return_stats=True)
@@ -608,27 +615,69 @@ def test_layernorm_kernel_matches_plain(n, hidden, xdt, pdt):
     assert ok, (err, ratio)
 
 
+# (n, H, I): the decode step, a few rows of a narrow model, the tensor-core
+# and CUDA-core shapes of a narrow and of GPT-2's MLP, the training rows
+FFN_SHAPES = [(8, 768, 3072), (40, 128, 256), (512, 256, 512),
+              (256, 768, 3072), (8192, 768, 3072)]
+
+
 @pytest.mark.cuda
 @pytest.mark.usefixtures("needs_cuda")
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,hidden,inter,act", [(8, 768, 3072, "gelu_tanh"),
-                                                (40, 128, 256, "gelu"),
-                                                (512, 256, 512, "relu")])
+@pytest.mark.parametrize("act", ["gelu", "gelu_tanh", "relu"])
+@pytest.mark.parametrize("n,hidden,inter", FFN_SHAPES)
 def test_ffn_kernel_matches_plain(n, hidden, inter, act, dtype):
+    """Each design (`ffn_design`: decode rows, the tensor cores for bf16,
+    the CUDA cores for fp32) within its limit, both launches counted
+    under it alone, a second launch bitwise the first."""
     x = _randn((n, hidden), n, dtype)
     w1 = _randn((hidden, inter), n + 1, dtype, hidden ** -0.5)
     b1 = _randn((inter,), n + 2, dtype, 0.1)
     w2 = _randn((inter, hidden), n + 3, dtype, inter ** -0.5)
-    fm.ffn_fwd.launches = 0
+    design = fm.ffn_design(n, hidden, inter, dtype)
+    counter = {"tc": fm.ffn_tc, "decode": fm.ffn_decode,
+               "cuda_core": fm.ffn_fwd}[design]
+    ops.reset_launch_counts()
     y = fm.fused_ffn_arrays(x, w1, b1, w2, act)
     y2 = fm.fused_ffn_arrays(x, w1, b1, w2, act)   # tickets were reset
     yr = fm.fused_ffn_reference(x, w1, b1, w2, act)
     torch.cuda.synchronize()
-    assert fm.ffn_fwd.launches == 2 and torch.equal(y, y2)
+    assert {k: v for k, v in ops.launch_counts().items() if v} == {
+        counter.KERNEL: 2}
+    assert torch.equal(y, y2)
     limit = (1e-5 * yr.float().abs().max().item() if dtype == torch.float32
              else tol.ffn_limit(x, w1, b1, w2, act))
     err, ratio, ok = tol.compare(y, yr, limit)
-    assert ok, (err, ratio)
+    assert ok, (design, err, ratio)
+
+
+@pytest.mark.cuda
+@pytest.mark.usefixtures("needs_cuda")
+@pytest.mark.parametrize("n", [8, 512])
+@pytest.mark.parametrize("bad", ["x", "w1", "b1", "w2"])
+def test_ffn_misaligned_slice_raises(bad, n):
+    """The decode and tensor-core designs load 16 bytes at a time: an
+    operand that starts off 16 bytes raises ValueError naming it, in bf16
+    and, for the decode design, fp32; the CUDA-core design (fp32, 512
+    rows) takes it."""
+    hidden, inter = 256, 512
+    for dtype in (torch.bfloat16, torch.float32):
+        shapes = {"x": (n, hidden), "w1": (hidden, inter), "b1": (inter,),
+                  "w2": (inter, hidden)}
+        args = {}
+        for i, (name, shape) in enumerate(shapes.items()):
+            numel = int(np.prod(shape))
+            buf = _randn((numel + 8,), i, dtype, 0.05)
+            start = 1 if name == bad else 0
+            args[name] = buf[start:start + numel].view(shape)
+        design = fm.ffn_design(n, hidden, inter, dtype)
+        call = lambda: fm.fused_ffn_arrays(*args.values(), "gelu")  # noqa
+        if design == "cuda_core":
+            call()
+        else:
+            with pytest.raises(ValueError, match=f"{bad} must start on 16"):
+                call()
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda
@@ -680,14 +729,89 @@ def test_layernorm_and_ffn_autograd_match_cpu():
     for dev in ("cuda", "cpu"):
         x, lw, lb, w1, b1, w2 = (t.detach().to(dev).requires_grad_()
                                  for t in ins)
-        fm.ln_fwd.launches = fm.ln_bwd.launches = fm.ffn_fwd.launches = 0
+        ops.reset_launch_counts()
         h = fm.fused_layernorm_arrays(x, lw, lb)
         fm.fused_ffn_arrays(h, w1, b1, w2, "gelu_tanh").backward(dy.to(dev))
         launched = (fm.ln_fwd.launches, fm.ln_bwd.launches,
-                    fm.ffn_fwd.launches)
+                    fm.ffn_fwd.launches + fm.ffn_tc.launches
+                    + fm.ffn_decode.launches)
         assert launched == ((1, 1, 1) if dev == "cuda" else (0, 0, 0))
         grads[dev] = [t.grad.cpu() for t in (x, lw, lb, w1, b1, w2)]
     for name, g, r in zip(("dx", "dlw", "dlb", "dw1", "db1", "dw2"),
                           grads["cuda"], grads["cpu"]):
         assert (g - r).abs().max().item() <= 1e-4 * r.abs().max().item(), \
             name
+
+
+# ---------------------------------------------------------------------------
+# the FFN's and the LayerNorm forward's launch geometry, on the CPU
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [8, 16, 40, 64, 256, 512, 1024, 8192, 65536])
+def test_ffn_design_picks(n, dtype):
+    """Decode rows (8: the fused-mode generate step) take the decode
+    design in both types; 8192 bf16 rows (training) take the tensor
+    cores; fp32 never does (TF32 would break the fp32 limit), and above
+    `FFN_DECODE_MAX_ROWS` stays on the CUDA cores."""
+    design = fm.ffn_design(n, 768, 3072, dtype)
+    if n == 8:
+        assert design == "decode"
+    if dtype == torch.bfloat16:
+        assert design == ("tc" if n >= fm.FFN_TC_MIN_ROWS else "decode")
+        if n == 8192:
+            assert design == "tc"
+    else:
+        assert design == ("decode" if n <= fm.FFN_DECODE_MAX_ROWS
+                          else "cuda_core")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,i,h2", [(768, 3000, 768), (700, 3072, 768),
+                                    (768, 3072, 720)])
+def test_ffn_design_widths_off_128_take_cuda_cores(h, i, h2, dtype):
+    """Widths the decode and tensor-core designs do not take (not
+    multiples of 128) go to the CUDA-core kernel, at any row count."""
+    for n in (8, 8192):
+        assert fm.ffn_design(n, h, i, dtype, h2) == "cuda_core"
+
+
+@pytest.mark.parametrize("n", [64, 200, 256, 512, 1024, 8192])
+@pytest.mark.parametrize("i,h2", [(3072, 768), (512, 256), (4096, 1024)])
+def test_ffn_tc_tiles_divide_the_widths(n, i, h2):
+    """Each product's tile (warpgroups, BN) is one the kernel has, BN
+    divides its width, and no other such tile takes fewer whole waves of
+    132 blocks times (BM + BN), or as few with more blocks."""
+    for (wgs, bn), width in zip(fm.ffn_tc_tiles(n, i, h2), (i, h2)):
+        assert (wgs, bn) in fm._TC_TILES and width % bn == 0
+
+        def key(t):
+            tiles = -(-n // (64 * t[0])) * (width // t[1])
+            return (-(-tiles // 132) * (64 * t[0] + t[1]), -tiles)
+        assert key((wgs, bn)) == min(key(t) for t in fm._TC_TILES
+                                     if width % t[1] == 0)
+
+
+@pytest.mark.parametrize("n,first,second", [
+    (256, (1, 128), (1, 128)), (512, (2, 128), (1, 128)),
+    (1024, (2, 256), (1, 128)), (8192, (2, 256), (2, 128))])
+def test_ffn_tc_tiles_at_gpt2_width(n, first, second):
+    """At GPT-2's MLP (I 3072, H 768) the picker takes the tiles that
+    measured fastest on the H100 for each product."""
+    assert fm.ffn_tc_tiles(n, 3072, 768) == (first, second)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,k,cols", [(8, 768, 3072), (8, 3072, 768),
+                                      (40, 128, 256), (64, 4096, 1024)])
+def test_ffn_decode_loads_divide_the_rows(n, k, cols, dtype):
+    """The decode design's k-chunks (32 rows a load) divide the weight's
+    rows; at GPT-2 width and 8 rows both products fill the 132 SMs."""
+    loads = fm.ffn_decode_loads(n, k, cols, dtype)
+    assert loads in (4, 8, 16) and k % (32 * loads) == 0
+    cw = 64 if dtype == torch.bfloat16 else 32
+    blocks = -(-n // 8) * (cols // cw) * (k // (32 * loads))
+    if (n, k) in ((8, 768), (8, 3072)):
+        assert blocks >= 132
+    with pytest.raises(ValueError, match="multiple of 128"):
+        fm.ffn_decode_loads(n, 100, cols, dtype)

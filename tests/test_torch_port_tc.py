@@ -31,6 +31,15 @@ backward reads) under the limit the card tests apply to the kernels:
 magnitudes (`flash_bwd_magnitudes`), every element of dQ, dK and dV.
 dO is zero on the rows the pad mask closes entirely, so that those rows,
 whose p differs by design as above, carry no gradient on either side.
+
+The FFN: JAX's `fused_ffn_arrays` (`_ffn_fwd_kernel` in interpret mode,
+one 256-row block, two 128-wide blocks of I) against the port's
+`fused_ffn_reference` at n=256, H=128, I=256, a shape the port's picker
+sends to the tensor-core design in bf16 (fp32 never takes the tensor
+cores), for each activation: fp32 within 1e-5 max|ref| (fp32 sums in other
+orders), bf16 within `tolerance.ffn_limit` (one bf16 step of y plus the
+rounding of h to bf16 through |W2|, the limit the card holds each design
+to against the same plain version).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -40,6 +49,7 @@ import torch
 from paddle_tpu.ops import pallas_ops as jpo
 
 from paddle_tpu_torch.ops import flash_attention as fa
+from paddle_tpu_torch.ops import fused_mlp as fm
 from paddle_tpu_torch.ops import tolerance as tol
 
 B, H, S = 2, 2, 256
@@ -147,3 +157,28 @@ def test_jax_bf16_flash_bwd_within_bwd_limit(branch, d, monkeypatch):
         limit = tol.bf16_limit(g, w, mag, tol.BWD_COEF)
         err, ratio, ok = tol.compare(g, w, limit)
         assert ok, (branch, d, what, err, ratio)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("act", ["gelu", "gelu_tanh", "relu"])
+def test_jax_ffn_kernel_matches_port_plain_at_tc_shape(act, dtype,
+                                                       monkeypatch):
+    monkeypatch.setenv("PTPU_PALLAS_INTERPRET", "1")
+    n, h, i = 256, 128, 256
+    jdt, tdt = {"float32": (jnp.float32, torch.float32),
+                "bfloat16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    assert (fm.ffn_design(n, h, i, tdt) == "tc") == (tdt == torch.bfloat16)
+    rng = np.random.RandomState(21)
+    arrays = (rng.randn(n, h), rng.randn(h, i) / np.sqrt(h),
+              0.1 * rng.randn(i), rng.randn(i, h) / np.sqrt(i))
+    arrays = [a.astype(np.float32) for a in arrays]
+    got = jpo.fused_ffn_arrays(*(jnp.asarray(a).astype(jdt)
+                                 for a in arrays), act=act)
+    assert got.dtype == jdt and got.shape == (n, h)
+    got = torch.from_numpy(np.asarray(got.astype(jnp.float32))).to(tdt)
+    args = [torch.from_numpy(a).to(tdt) for a in arrays]
+    want = fm.fused_ffn_reference(*args, act)
+    limit = (1e-5 * want.float().abs().max().item()
+             if tdt == torch.float32 else tol.ffn_limit(*args, act))
+    err, ratio, ok = tol.compare(got, want, limit)
+    assert ok, (act, dtype, err, ratio)

@@ -142,7 +142,8 @@ def test_bwd_wrappers_on_cpu_compute_the_plain_backward():
         "flash_bwd_dkv_causal:noncausal", "flash_bwd_dkv_causal:tc",
         "ragged_paged_attention",
         "ragged_paged_attention:int8", "flash_decode", "fused_decode_layer",
-        "fused_layernorm", "fused_layernorm_bwd", "fused_ffn"}
+        "fused_layernorm", "fused_layernorm_bwd", "fused_ffn",
+        "fused_ffn_tc", "fused_ffn_decode"}
     assert set(ops.launch_counts().values()) == {0}
 
 
