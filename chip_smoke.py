@@ -58,12 +58,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
      and 8192 rows of 768 and of 1002 (rows that do not fall into 16-byte
      chunks), yardstick `F.layer_norm`, with its GB/s; FFN at 8, 256,
      512, 1024 and 8192 rows, H=768 I=3072 gelu_tanh, and gelu and relu
-     at 8 and 512 rows, each on the design `ffn_design` picks (decode
-     rows: the decode design; bf16 from 64 rows: the tensor cores; fp32
-     above 64 rows: the CUDA cores), both launches counted under it
-     alone, a second launch bitwise the first, with its TFLOP/s and GB/s
-     and the cuBLAS composite addmm + activation + mm beside it (three
-     calls, not one: no yardstick).  float32: 2e-5
+     at 8 and 512 rows, each on the design `ffn_design` picks (bf16 below
+     24 rows and fp32 up to 512: the decode design; bf16 from 24 rows: the
+     tensor cores; fp32 above 512 rows: the CUDA cores), both launches
+     counted under it alone, a second launch bitwise the first, with its
+     TFLOP/s and GB/s and the cuBLAS composite addmm + activation + mm
+     beside it (three calls, not one: no yardstick).  float32: 2e-5
      absolute (FFN 1e-5 max|ref|; LN statistics 1e-5 relative).
      bfloat16: one bf16 step of each output plus what each side rounds,
      weighted by what it multiplies (the `tolerance` module docstring).
@@ -180,6 +180,18 @@ launch, the host's enqueue hidden behind a spin on the stream); every
 bound is max(bytes / 3.35 TB/s, FLOPs / peak for the type: 989 TFLOP/s
 bf16, 67 TFLOP/s fp32), from this run's shapes and data.
 Details go to chiprun_out/chip_smoke.json.
+
+Two measuring modes, not part of the check:
+
+    python3 chip_smoke.py --probe [--quick] [--parent DIR]
+    python3 chip_smoke.py --paths DIR
+
+``--probe`` checks and times the FFN's designs and the LayerNorm forward
+at GPT-2 124M's MLP, and the alternatives they were measured against,
+built from edited copies of their sources (`probe`).  ``--paths`` times
+fused-mode bf16 ``generate`` and the stacked bf16 training step, host
+and device, with the ``paddle_tpu_torch`` of DIR (`time_paths`): run it
+on two trees in turns in one call to compare them.
 """
 import contextlib
 import json
@@ -2439,5 +2451,486 @@ def main():
         "count": torch.cuda.device_count()}}))
 
 
+# ---------------------------------------------------------------------------
+# python3 chip_smoke.py --probe [--quick] [--parent DIR]: the designs of the
+# FFN and the LayerNorm forward at GPT-2 124M's MLP
+# ---------------------------------------------------------------------------
+
+PROBE_ROWS = (8, 16, 24, 32, 48, 64, 128, 256, 512, 1024, 2048, 4096, 8192)
+# edits of a source that build the alternatives the kernels measured
+# against: the decode FFN's second product queued after the first (not as
+# its programmatic dependent), the LayerNorm forward with 4 and 8 rows a
+# block
+PROBE_VARIANTS = {
+    "ffn_decode_serial": ("fused_ffn_decode", [(
+        "  cfg.numAttrs = DEPENDENT ? 1 : 0;\n", "  cfg.numAttrs = 0;\n")]),
+    "ln_rows4": ("fused_layernorm", [(
+        "constexpr int ROWS = 1; ", "constexpr int ROWS = 4; ")]),
+    "ln_rows8": ("fused_layernorm", [(
+        "constexpr int ROWS = 1; ", "constexpr int ROWS = 8; ")]),
+}
+
+
+def build_variants(sources):
+    """{label: ctypes library} of ``sources`` {label: (path, [(old, new)])}:
+    each source with every ``old`` replaced (it must occur once), built
+    with the kernels' flags into ``csrc/build/probe/<label>.so``, all
+    ``nvcc`` processes at once.  An edited source is written there too,
+    its headers found in ``paddle_tpu_torch/csrc``; an unedited one is
+    built in place, its headers found beside it."""
+    import ctypes
+    from paddle_tpu_torch.ops import _build
+    out_dir = os.path.join(_build.BUILD_DIR, "probe")
+    os.makedirs(out_dir, exist_ok=True)
+    procs = {}
+    for label, (path, edits) in sources.items():
+        if edits:
+            with open(path) as f:
+                text = f.read()
+            for old, new in edits:
+                if text.count(old) != 1:
+                    fail(f"probe variant {label}: {old!r} is not in "
+                         f"{path} once")
+                text = text.replace(old, new)
+            path = os.path.join(out_dir, label + ".cu")
+            with open(path, "w") as f:
+                f.write(text)
+        lib = os.path.join(out_dir, label + ".so")
+        procs[label] = (subprocess.Popen(
+            [_build._nvcc(), *_build.FLAGS, "-I", _build.SRC_DIR, "-o", lib,
+             path], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True), lib)
+    libs = {}
+    for label, (proc, lib) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            fail(f"probe variant {label}: nvcc exit {proc.returncode}\n{log}")
+        libs[label] = ctypes.CDLL(lib)
+    return libs
+
+
+def _c_fn(lib, name, argtypes):
+    import ctypes
+    fn = getattr(lib, name)
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return fn
+
+
+def probe_ffn_args(n, dtype, seed, h=768, i=3072):
+    g = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to("cuda", dtype)
+
+    return (rnd(n, h), rnd(h, i, scale=h ** -0.5), rnd(i, scale=0.1),
+            rnd(i, h, scale=i ** -0.5))
+
+
+def probe_decode(lib, args, l1, l2, act="gelu_tanh"):
+    """The decode FFN through `lib` with ``l1``, ``l2`` loads a thread."""
+    import ctypes
+    from paddle_tpu_torch.ops import _build
+    x, w1, b1, w2 = args
+    (n, h), i, h2 = x.shape, w1.shape[1], w2.shape[1]
+    dt = x.dtype
+    cw = 64 if dt == torch.bfloat16 else 32
+    hbuf = torch.empty((n, i), dtype=dt, device="cuda")
+    y = torch.empty((n, h2), dtype=dt, device="cuda")
+    p1 = torch.empty((h // (32 * l1), n, i), device="cuda")
+    p2 = torch.empty((i // (32 * l2), n, h2), device="cuda")
+    tk = _build.tickets(x.device, -(-n // 8) * (i + h2) // cw)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn = _c_fn(lib, "fused_ffn_decode", [vp] * 9 + [ci] * 8 + [vp])
+    _build.check(fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+                    w2.data_ptr(), hbuf.data_ptr(), y.data_ptr(),
+                    p1.data_ptr(), p2.data_ptr(), tk.data_ptr(), n, h, i,
+                    h2, l1, l2, ("gelu", "gelu_tanh", "relu").index(act),
+                    int(dt == torch.bfloat16),
+                    torch.cuda.current_stream().cuda_stream),
+                 "fused_ffn_decode")
+    return y
+
+
+def probe_tc(lib, args, tiles, act="gelu_tanh"):
+    """The tensor-core FFN through `lib` with ``tiles`` ((warpgroups, BN)
+    of each product)."""
+    import ctypes
+    from paddle_tpu_torch.ops import _build
+    x, w1, b1, w2 = args
+    (n, h), i, h2 = x.shape, w1.shape[1], w2.shape[1]
+    (g1, n1), (g2, n2) = tiles
+    hbuf = torch.empty((n, i), dtype=x.dtype, device="cuda")
+    y = torch.empty((n, h2), dtype=x.dtype, device="cuda")
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn = _c_fn(lib, "fused_ffn_tc", [vp] * 6 + [ci] * 9 + [vp])
+    _build.check(fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+                    w2.data_ptr(), hbuf.data_ptr(), y.data_ptr(), n, h, i,
+                    h2, ("gelu", "gelu_tanh", "relu").index(act), g1, n1,
+                    g2, n2, torch.cuda.current_stream().cuda_stream),
+                 "fused_ffn_tc")
+    return y
+
+
+def probe_cuda_core(lib, args, act):
+    """The CUDA-core FFN through `lib` (whose C interface is unchanged
+    since it was first ported)."""
+    import ctypes
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import fused_mlp as fm
+    x, w1, b1, w2 = args
+    (n, h), i, h2 = x.shape, w1.shape[1], w2.shape[1]
+    bi = fm.ffn_slice(n, i)
+    tiles, slices = -(-n // 8), i // bi
+    groups = -(-slices // 16)
+    y = torch.empty((n, h2), dtype=x.dtype, device="cuda")
+    part = torch.empty((slices + groups, n, h2), device="cuda")
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn = _c_fn(lib, "fused_ffn", [vp] * 7 + [ci] * 7 + [vp])
+    _build.check(fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+                    w2.data_ptr(), y.data_ptr(), part.data_ptr(),
+                    _build.tickets(x.device, tiles * (groups + 1)).data_ptr(),
+                    n, h, i, h2, bi, ("gelu", "gelu_tanh", "relu").index(act),
+                    int(x.dtype == torch.bfloat16),
+                    torch.cuda.current_stream().cuda_stream), "fused_ffn")
+    return y
+
+
+def probe_ln(lib, x, w, b):
+    """The LayerNorm forward's y through `lib`."""
+    import ctypes
+    from paddle_tpu_torch.ops import _build
+    n, h = x.shape
+    y = torch.empty((n, h), dtype=x.dtype, device="cuda")
+    mu = torch.empty((n, 1), device="cuda")
+    rs = torch.empty((n, 1), device="cuda")
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn = _c_fn(lib, "fused_layernorm",
+               [vp] * 6 + [ci] * 4 + [ctypes.c_float, vp])
+    _build.check(fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
+                    mu.data_ptr(), rs.data_ptr(), n, h,
+                    int(x.dtype == torch.bfloat16),
+                    int(w.dtype == torch.bfloat16), 1e-5,
+                    torch.cuda.current_stream().cuda_stream),
+                 "fused_layernorm")
+    return y
+
+
+def probe_check_ffn(fm, tol, design, n, dtype, act="gelu_tanh"):
+    args = probe_ffn_args(n, dtype, n)
+    launch = fm._FFN_LAUNCH[design]
+    y, y2 = launch(*args, act), launch(*args, act)
+    yr = fm.fused_ffn_reference(*args, act)
+    torch.cuda.synchronize()
+    limit = (FFN_REL_FP32 * yr.float().abs().max().item()
+             if dtype == torch.float32 else tol.ffn_limit(*args, act))
+    err, ratio, ok = tol.compare(y, yr, limit)
+    same = torch.equal(y, y2)
+    print(f"check ffn {design} n={n} {act} {dtype}: max_abs_err={err:.3g} "
+          f"({ratio:.3g} of its limit) repeat bitwise={same}", flush=True)
+    return ok and same
+
+
+def probe_check_ln(fm, tol, hidden, xdt, pdt, off, n=37):
+    g = torch.Generator().manual_seed(hidden + off)
+    xs = torch.randn(n * hidden + off, generator=g) * 2 + 0.5
+    x = xs.to("cuda", xdt)[off:].view(n, hidden)
+    w = (1 + 0.1 * torch.randn(hidden + off, generator=g)).to(
+        "cuda", pdt)[off:]
+    b = (0.1 * torch.randn(hidden, generator=g)).to("cuda", pdt)
+    y, mu, rs = fm.fused_layernorm_arrays(x, w, b, return_stats=True)
+    yr, mur, rsr = fm.fused_layernorm_reference(x, w, b)
+    torch.cuda.synchronize()
+    lim = (TOL_FP32 if y.dtype == torch.float32 else tol.bf16_limit(
+        y, yr, tol.ln_magnitude(x, w, b), tol.LN_COEF))
+    err, ratio, good = tol.compare(y, yr, lim)
+    stats = bool(((mu - mur).abs() <= 1e-5 * mur.abs() + 1e-6).all()
+                 and ((rs - rsr).abs() <= 1e-5 * rsr.abs()).all())
+    print(f"check layernorm H={hidden} x {xdt} w {pdt} offset {off}: "
+          f"max_abs_err={err:.3g} ({ratio:.3g} of its limit) stats "
+          f"ok={stats}", flush=True)
+    return good and stats
+
+
+def probe(argv):
+    """Build the FFN's three sources and the LayerNorm forward and print
+    their registers and spills; hold every FFN design at the rows it may
+    take and every activation, and the LayerNorm forward at H 768, 1000,
+    1002 and 4096 (bf16, fp32, mixed; a base one element past 16 bytes
+    too), against their plain versions with phase 2's limits and a
+    repeat bitwise.  Unless ``--quick``, then time at H=768 I=3072
+    gelu_tanh (this script's timer): each design at 8 to 8192 rows beside
+    the cuBLAS composite and the bound; the decode design against its
+    second product queued after the first, and with every number of loads
+    a thread of each product at 8 rows; the tensor-core design with every
+    tile of each product at 256, 512, 1024 and 8192 rows; a copy of h's
+    bytes at 8192 rows; the LayerNorm forward with 1, 4 and 8 rows a
+    block at 8, 64 and 8192 rows beside ``F.layer_norm``.  With
+    ``--parent DIR``, the fp32 CUDA-core FFN of DIR's
+    ``paddle_tpu_torch/csrc/fused_ffn.cu`` is held bitwise against this
+    tree's on 12 cases.  Exits non-zero on a failed check."""
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: the probe needs a GPU")
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import fused_mlp as fm
+    from paddle_tpu_torch.ops import tolerance as tol
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"card: {card_line()}", flush=True)
+    names = [FFN_TC, FFN_DEC, FFN, LN]
+    paths = _build.build(names)
+    for name in names:
+        with open(os.path.join(_build.BUILD_DIR, name + ".log")) as f:
+            for fn, regs, st, ld in ptxas_table(f.read()):
+                print(f"ptxas {name} {fn}: {regs} registers, spill "
+                      f"{st}/{ld} bytes", flush=True)
+    bf16, f32 = torch.bfloat16, torch.float32
+    ok = True
+    for design, dtype, rows in (("tc", bf16, (64, 200, 256, 512, 8192)),
+                                ("decode", bf16, (8, 40, 64, 256)),
+                                ("decode", f32, (8, 40, 64, 256)),
+                                ("cuda_core", f32, (8, 512))):
+        for n in rows:
+            ok &= probe_check_ffn(fm, tol, design, n, dtype)
+    for act in ("gelu", "relu"):
+        ok &= probe_check_ffn(fm, tol, "tc", 512, bf16, act)
+        ok &= probe_check_ffn(fm, tol, "decode", 8, bf16, act)
+        ok &= probe_check_ffn(fm, tol, "decode", 8, f32, act)
+    for hidden in (768, 1000, 1002, 4096):
+        for xdt, pdt in ((bf16, bf16), (f32, f32), (bf16, f32)):
+            for off in (0, 1):
+                ok &= probe_check_ln(fm, tol, hidden, xdt, pdt, off)
+    sources = {label: (os.path.join(_build.SRC_DIR, src + ".cu"), edits)
+               for label, (src, edits) in PROBE_VARIANTS.items()}
+    parent = argv[argv.index("--parent") + 1] if "--parent" in argv \
+        else None
+    if parent:
+        sources["parent_fused_ffn"] = (os.path.join(
+            parent, "paddle_tpu_torch", "csrc", "fused_ffn.cu"), [])
+    libs = build_variants(sources)
+    if parent:
+        import ctypes
+        own = ctypes.CDLL(paths[FFN])
+        same = 0
+        for n, h, i in ((1024, 768, 3072), (8192, 768, 3072),
+                        (8, 256, 400), (512, 256, 400)):
+            args = probe_ffn_args(n, f32, n + i, h, i)
+            for act in ("gelu", "gelu_tanh", "relu"):
+                same += torch.equal(probe_cuda_core(own, args, act),
+                                    probe_cuda_core(libs["parent_fused_ffn"],
+                                                    args, act))
+        print(f"fp32 CUDA-core FFN: {same} of 12 outputs bitwise the "
+              f"parent's ({parent})", flush=True)
+        ok &= same == 12
+    if not ok:
+        fail("a probe check failed")
+    if "--quick" in argv:
+        print("probe checks passed", flush=True)
+        return
+    own = {name: _build.load(name) for name in (FFN_TC, FFN_DEC)}
+    timer = Timer()
+    for dtype in (bf16, f32):
+        item = 2 if dtype == bf16 else 4
+        for n in PROBE_ROWS:
+            args = probe_ffn_args(n, dtype, 1)
+            x, w1, b1, w2 = args
+            bms, by = bound_ms((2 * 768 * 3072 + 3072 + 2 * n * 768) * item,
+                               4 * n * 768 * 3072, dtype)
+            cub = timer(lambda: torch.mm(torch.nn.functional.gelu(
+                torch.addmm(b1, x, w1), approximate="tanh"), w2))
+            line = (f"ffn n={n} {dtype}: bound {bms:.4f} ({by}), cuBLAS "
+                    f"addmm+gelu+mm {cub:.4f}")
+            for design in (("tc", "decode") if dtype == bf16
+                           else ("decode", "cuda_core")):
+                if design == "decode" and n > (4096 if dtype == f32
+                                               else 1024):
+                    continue      # 1024 row tiles: 0.6 GB of partials
+                launch = fm._FFN_LAUNCH[design]
+                ms = timer(lambda: launch(*args, "gelu_tanh"))
+                line += f", {design} {ms:.4f}"
+                if design == "decode":
+                    l1 = fm.ffn_decode_loads(n, 768, 3072, dtype)
+                    l2 = fm.ffn_decode_loads(n, 3072, 768, dtype)
+                    ms = timer(lambda: probe_decode(
+                        libs["ffn_decode_serial"], args, l1, l2))
+                    line += f" (second product queued after {ms:.4f})"
+            print(f"{line}; picked {fm.ffn_design(n, 768, 3072, dtype)}",
+                  flush=True)
+            del args, x, w1, b1, w2
+    for dtype in (bf16, f32):
+        args = probe_ffn_args(8, dtype, 3)
+        for l1 in (4, 8, 16):
+            for l2 in (4, 8, 16):
+                if 768 % (32 * l1) or 3072 % (32 * l2):
+                    continue
+                ms = timer(lambda: probe_decode(own[FFN_DEC], args, l1, l2))
+                print(f"ffn decode loads n=8 {dtype}: {l1} / {l2}: "
+                      f"{ms:.4f} ms", flush=True)
+        print(f"ffn decode loads n=8 {dtype}: picker "
+              f"{fm.ffn_decode_loads(8, 768, 3072, dtype)} / "
+              f"{fm.ffn_decode_loads(8, 3072, 768, dtype)}", flush=True)
+    for n in (256, 512, 1024, 8192):
+        args = probe_ffn_args(n, bf16, 2)
+        first, second = fm.ffn_tc_tiles(n, 3072, 768)
+        for t1 in fm._TC_TILES:
+            ms = timer(lambda: probe_tc(own[FFN_TC], args, (t1, second)))
+            print(f"ffn tc tiles n={n}: first {t1} second {second}: "
+                  f"{ms:.4f} ms", flush=True)
+        for t2 in fm._TC_TILES:
+            ms = timer(lambda: probe_tc(own[FFN_TC], args, (first, t2)))
+            print(f"ffn tc tiles n={n}: first {first} second {t2}: "
+                  f"{ms:.4f} ms", flush=True)
+        print(f"ffn tc tiles n={n}: picker {(first, second)}", flush=True)
+    hb = torch.empty(8192, 3072, dtype=bf16, device="cuda")
+    hc = torch.empty_like(hb)
+    print(f"ffn tc: one write and one read of h [8192, 3072] bf16 (a "
+          f"copy): {timer(lambda: hc.copy_(hb)):.4f} ms", flush=True)
+    del hb, hc
+    ln_libs = {1: _build.load(LN), 4: libs["ln_rows4"], 8: libs["ln_rows8"]}
+    for n in (8, 64, 8192):
+        for dtype in (bf16, f32):
+            g = torch.Generator().manual_seed(n)
+            x = (torch.randn(n, 768, generator=g) * 2 + 0.5).to("cuda", dtype)
+            w = (1 + 0.1 * torch.randn(768, generator=g)).to("cuda", dtype)
+            b = (0.1 * torch.randn(768, generator=g)).to("cuda", dtype)
+            lib = timer(lambda: torch.nn.functional.layer_norm(
+                x, (768,), w, b, 1e-5))
+            line = f"layernorm n={n} {dtype}: F.layer_norm {lib:.4f}"
+            want = probe_ln(ln_libs[1], x, w, b)
+            for rows, ln_lib in ln_libs.items():
+                ms = timer(lambda: probe_ln(ln_lib, x, w, b))
+                same = torch.equal(probe_ln(ln_lib, x, w, b), want)
+                line += f", {rows} rows a block {ms:.4f} (y bitwise {same})"
+            print(line, flush=True)
+
+
+# ---------------------------------------------------------------------------
+# python3 chip_smoke.py --paths DIR: host and device time of the paths the
+# FFN and LayerNorm designs run on, for the paddle_tpu_torch of DIR
+# ---------------------------------------------------------------------------
+
+def host_us(fn, calls=200, warmup=20):
+    """Host microseconds of one call of `fn`, enqueued `calls` times back
+    to back with no sync between (the card runs behind)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / calls
+    torch.cuda.synchronize()
+    return us
+
+
+def time_paths(tree, reps=3):
+    """With ``paddle_tpu_torch`` imported from ``tree`` (so that two trees
+    compare in one call, in turns): bf16 GPT-2 124M fused-mode
+    ``generate`` (B=8, prompt 896 + 128 new; decode ms per step as phase
+    4 takes it, `reps` times) and 16 decode steps timed alone and under
+    torch.profiler; the stacked bf16 training step (B=8 S=1024, 2 warm-up
+    then 10 timed steps, `reps` times) and one profiled step; and the host
+    microseconds of one FFN and one LayerNorm forward call at the decode
+    step's 8 rows.  Prints one JSON line."""
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: --paths needs a GPU")
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, tree)
+    import paddle_tpu_torch
+    if not os.path.abspath(paddle_tpu_torch.__file__).startswith(tree):
+        fail(f"paddle_tpu_torch came from {paddle_tpu_torch.__file__}")
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt2_124m_config
+    from paddle_tpu_torch.ops import fused_mlp as fm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = card_line()
+    cfg = gpt2_124m_config(stacked_blocks=True)
+    rec = {"tree": tree, "card": card}
+    rng = np.random.RandomState(4)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (8, 896))
+                           .astype(np.int32)).cuda()
+    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                           generator=torch.Generator().manual_seed(0))
+    with flag_env(GEN_MODES["fused"]):
+        model.generate(ids[:, :64], max_new_tokens=4)          # warm-up
+        steps = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.generate(ids, max_new_tokens=1)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            model.generate(ids, max_new_tokens=128)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            steps.append(((t2 - t1) - (t1 - t0)) * 1e3 / 127)
+        prof = profile_generate(model, ids, steps=16)
+    rec["fused_generate"] = {
+        "decode_ms_per_step": steps,
+        "wall_ms_per_step": prof["wall_ms_per_step"],
+        "device_ms_per_step": prof["device_ms_per_step"],
+        "device_busy_share": prof["device_busy_share"],
+        "device_ops_per_step": prof["device_ops_per_step"],
+        "ms_per_step_by_group": prof["ms_per_step_by_group"]}
+    del model
+    rng = np.random.RandomState(2)
+    data = [torch.from_numpy(rng.randint(0, cfg.vocab_size, (8, 1024)))
+            .cuda() for _ in range(2)]
+    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                           generator=torch.Generator().manual_seed(0))
+    step, _ = make_step(model)
+    with flag_env({}):
+        for _ in range(2):
+            step(data)
+        step_ms = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                step(data)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3 / 10)
+        prof = profile_step(step, data)
+    rec["stacked_step"] = {
+        "ms_per_step": step_ms, "wall_ms": prof["wall_ms"],
+        "device_ms": prof["device_ms"],
+        "device_busy_share": prof["device_busy_share"],
+        "device_ops": prof["device_ops"], "ms_by_group": prof["ms_by_group"]}
+    del model, step
+    g = torch.Generator().manual_seed(8)
+    x = torch.randn(8, 768, generator=g).to("cuda", torch.bfloat16)
+    w1 = (torch.randn(768, 3072, generator=g) / 28).to("cuda", torch.bfloat16)
+    b1 = torch.zeros(3072, dtype=torch.bfloat16, device="cuda")
+    w2 = (torch.randn(3072, 768, generator=g) / 56).to("cuda", torch.bfloat16)
+    lw = torch.ones(768, dtype=torch.bfloat16, device="cuda")
+    with torch.no_grad():
+        rec["host_us_per_call_8_rows"] = {
+            "ffn": host_us(lambda: fm.fused_ffn_arrays(x, w1, b1, w2,
+                                                       "gelu_tanh")),
+            "layernorm": host_us(lambda: fm.fused_layernorm_arrays(
+                x, lw, b1[:768])),
+            "three_empty": host_us(lambda: (
+                torch.empty((8, 3072), dtype=torch.bfloat16, device="cuda"),
+                torch.empty((3, 8, 3072), device="cuda"),
+                torch.empty((12, 8, 768), device="cuda")))}
+    g, s = rec["fused_generate"], rec["stacked_step"]
+    gen_ms = ", ".join(f"{v:.3f}" for v in g["decode_ms_per_step"])
+    train_ms = ", ".join(f"{v:.3f}" for v in s["ms_per_step"])
+    print(f"paths {tree} ({card}): fused generate decode {gen_ms} ms a "
+          f"step, profiled window wall {g['wall_ms_per_step']:.3f} device "
+          f"{g['device_ms_per_step']:.3f} ms ({g['device_ops_per_step']:.1f} "
+          f"ops); stacked step {train_ms} ms, device {s['device_ms']:.3f} ms "
+          f"({s['device_ops']:.0f} ops); "
+          f"host us per call at 8 rows: " + ", ".join(
+              f"{k} {v:.2f}"
+              for k, v in rec["host_us_per_call_8_rows"].items()),
+          flush=True)
+    print(json.dumps(rec), flush=True)
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--probe"]:
+        probe(sys.argv[2:])
+    elif sys.argv[1:2] == ["--paths"] and len(sys.argv) == 3:
+        time_paths(sys.argv[2])
+    elif len(sys.argv) > 1:
+        fail(f"unknown arguments {sys.argv[1:]}; see the docstring")
+    else:
+        main()

@@ -28,9 +28,9 @@
 // (`pallas_ops.py:1559-1564`).  The second launch is a programmatic
 // dependent launch: its blocks start while the first runs, issue their W2
 // loads, and only then wait (`griddepcontrol.wait`) for h, so both weight
-// matrices stream at once.  (One cooperative launch, each block doing a
-// unit of each product and waiting on per-slice flags for h, measured
-// slower: PERF.md.)
+// matrices stream at once.  (Measured slower, PERF.md: the second launch
+// queued after the first; one cooperative launch, each block doing a unit
+// of each product and waiting on per-slice flags for h.)
 //
 // Layout: x [n, H], w1 [H, I], b1 [I], w2 [I, H2], y [n, H2], h [n, I];
 // one type, contiguous, 16-byte aligned.  act: 0 gelu (erf), 1 gelu (tanh),
@@ -202,7 +202,7 @@ __global__ void __launch_bounds__(THREADS) ffn_dec_kernel(
 template <typename T, int EPI, bool DEPENDENT>
 cudaError_t skinny(int L, const T* in, const T* w, const T* bias, T* out,
                    float* part, int* tickets, int n, int K, int N, int act,
-                   bool overlap, cudaStream_t stream) {
+                   cudaStream_t stream) {
   dim3 grid(N / Vec<T>::CW, K / (GROUPS * L), (n + RT - 1) / RT);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
@@ -212,7 +212,7 @@ cudaError_t skinny(int L, const T* in, const T* w, const T* bias, T* out,
   attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = DEPENDENT && overlap ? 1 : 0;
+  cfg.numAttrs = DEPENDENT ? 1 : 0;
   cudaError_t err;
   if (L == 4)
     err = cudaLaunchKernelEx(&cfg, ffn_dec_kernel<T, 4, EPI, DEPENDENT>, in,
@@ -230,17 +230,17 @@ template <typename T>
 cudaError_t launch(const void* x, const void* w1, const void* b1,
                    const void* w2, void* h, void* y, void* part1,
                    void* part2, int* tickets, int n, int H, int I, int H2,
-                   int L1, int L2, int act, bool overlap, cudaStream_t s) {
+                   int L1, int L2, int act, cudaStream_t s) {
   const int tiles = (n + RT - 1) / RT;
   cudaError_t err = skinny<T, 0, false>(
       L1, static_cast<const T*>(x), static_cast<const T*>(w1),
       static_cast<const T*>(b1), static_cast<T*>(h),
-      static_cast<float*>(part1), tickets, n, H, I, act, overlap, s);
+      static_cast<float*>(part1), tickets, n, H, I, act, s);
   if (err != cudaSuccess) return err;
   return skinny<T, 1, true>(
       L2, static_cast<const T*>(h), static_cast<const T*>(w2), nullptr,
       static_cast<T*>(y), static_cast<float*>(part2),
-      tickets + tiles * (I / Vec<T>::CW), n, I, H2, act, overlap, s);
+      tickets + tiles * (I / Vec<T>::CW), n, I, H2, act, s);
 }
 
 bool chunk_ok(int L, int K) {
@@ -253,16 +253,16 @@ bool chunk_ok(int L, int K) {
 // L1, L2 (4, 8 or 16): the 16-byte loads a thread makes per chunk of each
 // product (chunks of 32 L rows of w1, w2).  part1, part2: fp32 scratch of
 // (H / (32 L1)) n I and (I / (32 L2)) n H2 floats; tickets: zero, at
-// least ceil(n / 8) (I + H2) / (64 bf16, 32 fp32) of them.  overlap: 1
-// launches the second product as the programmatic dependent of the first,
-// 0 after it.  Returns the first launch error; 1 (cudaErrorInvalidValue)
-// for an unknown activation, a chunk that does not divide H or I, or an I
-// or H2 that is not a multiple of 64 (bf16) or 32 (fp32) columns.
+// least ceil(n / 8) (I + H2) / (64 bf16, 32 fp32) of them.  The second
+// product is launched as the programmatic dependent of the first.  Returns
+// the first launch error; 1 (cudaErrorInvalidValue) for an unknown
+// activation, a chunk that does not divide H or I, or an I or H2 that is
+// not a multiple of 64 (bf16) or 32 (fp32) columns.
 extern "C" int fused_ffn_decode(const void* x, const void* w1, const void* b1,
                                 const void* w2, void* h, void* y, void* part1,
                                 void* part2, void* tickets, int n, int H,
                                 int I, int H2, int L1, int L2, int act,
-                                int is_bf16, int overlap, void* stream) {
+                                int is_bf16, void* stream) {
   const int cw = is_bf16 ? Vec<bf16>::CW : Vec<float>::CW;
   if (act < 0 || act > 2 || !chunk_ok(L1, H) || !chunk_ok(L2, I) ||
       I % cw || H2 % cw)
@@ -272,8 +272,8 @@ extern "C" int fused_ffn_decode(const void* x, const void* w1, const void* b1,
   int* tk = static_cast<int*>(tickets);
   const cudaError_t err =
       is_bf16 ? launch<bf16>(x, w1, b1, w2, h, y, part1, part2, tk, n, H, I,
-                             H2, L1, L2, act, overlap != 0, s)
+                             H2, L1, L2, act, s)
               : launch<float>(x, w1, b1, w2, h, y, part1, part2, tk, n, H, I,
-                              H2, L1, L2, act, overlap != 0, s);
+                              H2, L1, L2, act, s);
   return static_cast<int>(err);
 }

@@ -15,17 +15,18 @@
 // EARLY_ROWS rows where the row is short enough (NC * elements per chunk <=
 // 32), the loads of its chunks of w and b too (with many rows w and b are
 // read after the statistics, from L1, and the registers go to more rows in
-// flight: at most 8 chunks a lane, four blocks an SM); the mean and then the
-// mean of squared deviations (two passes as in the TPU kernel, not E[x^2] -
-// mu^2) are computed from the registers and reduced with shuffles in fp32,
-// and y is written once.  A row whose start is not on 16 bytes (x's row size
-// not a multiple of 16 bytes, or an offset base) reads its first elements up
-// to the next 16-byte boundary, and its last elements past the last whole
-// chunk, as scalars (lanes 0 .. 6 at most); w, b and y chunks that are not
-// on 16 bytes are read and written as scalars.  Rows wider than 32 chunks a
-// lane (8192 bf16, 4096 fp32 elements) take `ln_fwd_wide_kernel`, which
-// reads the row three times.  A block holds `warps` rows (the wrapper's
-// `LN_ROWS_PER_BLOCK`).
+// flight: at most 8 chunks a lane, 64 registers a thread); the mean and then
+// the mean of squared deviations (two passes as in the TPU kernel, not
+// E[x^2] - mu^2) are computed from the registers and reduced with shuffles
+// in fp32, and y is written once.  A row whose start is not on 16 bytes (x's
+// row size not a multiple of 16 bytes, or an offset base) reads its first
+// elements up to the next 16-byte boundary, and its last elements past the
+// last whole chunk, as scalars (lanes 0 .. 6 at most); w, b and y chunks
+// that are not on 16 bytes are read and written as scalars.  Rows wider
+// than 32 chunks a lane (8192 bf16, 4096 fp32 elements) take
+// `ln_fwd_wide_kernel`, which reads the row three times.  A block holds ROWS = 1 row, so a few rows
+// spread over as many SMs (4 and 8 rows a block measured no faster at 8,
+// 64 or 8192 rows: PERF.md).
 //
 // Types: x float or bf16; w and b of one type, float or bf16; y in
 // promote(x, w, b) (`pallas_ops.py:1455`): bf16 only when all three are.
@@ -39,8 +40,8 @@ namespace {
 using namespace decode;
 using bf16 = __nv_bfloat16;
 
-constexpr int MAX_WARPS = 8;
-constexpr int MIN_BLOCKS = 4;     // blocks an SM at most 8 chunks a lane
+constexpr int ROWS = 1;           // rows (one warp each) of a block
+constexpr int SM_THREADS = 1024;  // threads of an SM at 64 registers each
 constexpr int EARLY_MAX = 32;     // elements a lane keeps of w and b each
 constexpr int EARLY_ROWS = 1024;  // fewer rows load w and b early
 
@@ -109,15 +110,15 @@ __device__ __forceinline__ void store_vals(T* p, const float (&v)[V]) {
 // (a few rows: they would miss the caches after them); else after them,
 // from L1, which leaves registers for more rows in flight.
 template <typename TX, typename TP, typename TO, int NC, bool EARLY>
-__global__ void __launch_bounds__(32 * MAX_WARPS,
-                                  EARLY || NC > 8 ? 1 : MIN_BLOCKS)
+__global__ void __launch_bounds__(
+    32 * ROWS, EARLY || NC > 8 ? 1 : SM_THREADS / (32 * ROWS))
     ln_fwd_kernel(const TX* __restrict__ x, const TP* __restrict__ w,
                   const TP* __restrict__ b, TO* __restrict__ y,
                   float* __restrict__ mu, float* __restrict__ rstd, int n,
                   int H, float eps) {
   constexpr int V = 16 / sizeof(TX);       // elements of a chunk
   const int lane = threadIdx.x % 32;
-  const int row = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
+  const int row = blockIdx.x * ROWS + threadIdx.x / 32;
   if (row >= n) return;
   const TX* xr = x + (long long)row * H;
   TO* yr = y + (long long)row * H;
@@ -223,12 +224,12 @@ __global__ void __launch_bounds__(32 * MAX_WARPS,
 // Rows too wide for the registers: three passes over the row (the second
 // and third from L1 / L2).
 template <typename TX, typename TP, typename TO>
-__global__ void __launch_bounds__(32 * MAX_WARPS) ln_fwd_wide_kernel(
+__global__ void __launch_bounds__(32 * ROWS) ln_fwd_wide_kernel(
     const TX* __restrict__ x, const TP* __restrict__ w,
     const TP* __restrict__ b, TO* __restrict__ y, float* __restrict__ mu,
     float* __restrict__ rstd, int n, int H, float eps) {
   const int lane = threadIdx.x % 32;
-  const int row = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
+  const int row = blockIdx.x * ROWS + threadIdx.x / 32;
   if (row >= n) return;
   const TX* xr = x + (long long)row * H;
   TO* yr = y + (long long)row * H;
@@ -251,11 +252,11 @@ __global__ void __launch_bounds__(32 * MAX_WARPS) ln_fwd_wide_kernel(
 
 template <typename TX, typename TP, typename TO>
 cudaError_t launch(const void* x, const void* w, const void* b, void* y,
-                   void* mu, void* rstd, int n, int H, int warps, float eps,
+                   void* mu, void* rstd, int n, int H, float eps,
                    cudaStream_t stream) {
   constexpr int V = 16 / sizeof(TX);
   const int nc = (H / V + 31) / 32;   // chunks a lane holds, at most
-  const int blocks = (n + warps - 1) / warps;
+  const int blocks = (n + ROWS - 1) / ROWS;
   const TX* xp = static_cast<const TX*>(x);
   const TP* wp = static_cast<const TP*>(w);
   const TP* bp = static_cast<const TP*>(b);
@@ -266,11 +267,11 @@ cudaError_t launch(const void* x, const void* w, const void* b, void* y,
   if (nc <= K) {                                                          \
     if (K * V <= EARLY_MAX && n < EARLY_ROWS)                             \
       ln_fwd_kernel<TX, TP, TO, K, K * V <= EARLY_MAX>                    \
-          <<<blocks, 32 * warps, 0, stream>>>(xp, wp, bp, yp, mp, rp, n,  \
+          <<<blocks, 32 * ROWS, 0, stream>>>(xp, wp, bp, yp, mp, rp, n,  \
                                               H, eps);                    \
     else                                                                  \
       ln_fwd_kernel<TX, TP, TO, K, false>                                 \
-          <<<blocks, 32 * warps, 0, stream>>>(xp, wp, bp, yp, mp, rp, n,  \
+          <<<blocks, 32 * ROWS, 0, stream>>>(xp, wp, bp, yp, mp, rp, n,  \
                                               H, eps);                    \
     return cudaGetLastError();                                            \
   }
@@ -285,34 +286,28 @@ cudaError_t launch(const void* x, const void* w, const void* b, void* y,
   LN_CASE(24)
   LN_CASE(32)
 #undef LN_CASE
-  ln_fwd_wide_kernel<TX, TP, TO><<<blocks, 32 * warps, 0, stream>>>(
+  ln_fwd_wide_kernel<TX, TP, TO><<<blocks, 32 * ROWS, 0, stream>>>(
       xp, wp, bp, yp, mp, rp, n, H, eps);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// warps: rows per block, 1 to 8.  Returns cudaGetLastError() after the
-// launch; 1 (cudaErrorInvalidValue) for warps out of range.
+// Returns cudaGetLastError() after the launch.
 extern "C" int fused_layernorm(const void* x, const void* w, const void* b,
                                void* y, void* mu, void* rstd, int n, int H,
-                               int warps, int x_bf16, int p_bf16, float eps,
+                               int x_bf16, int p_bf16, float eps,
                                void* stream) {
-  if (warps < 1 || warps > MAX_WARPS)
-    return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (x_bf16 && p_bf16)
-    err = launch<bf16, bf16, bf16>(x, w, b, y, mu, rstd, n, H, warps, eps, s);
+    err = launch<bf16, bf16, bf16>(x, w, b, y, mu, rstd, n, H, eps, s);
   else if (x_bf16)
-    err = launch<bf16, float, float>(x, w, b, y, mu, rstd, n, H, warps, eps,
-                                     s);
+    err = launch<bf16, float, float>(x, w, b, y, mu, rstd, n, H, eps, s);
   else if (p_bf16)
-    err = launch<float, bf16, float>(x, w, b, y, mu, rstd, n, H, warps, eps,
-                                     s);
+    err = launch<float, bf16, float>(x, w, b, y, mu, rstd, n, H, eps, s);
   else
-    err = launch<float, float, float>(x, w, b, y, mu, rstd, n, H, warps, eps,
-                                      s);
+    err = launch<float, float, float>(x, w, b, y, mu, rstd, n, H, eps, s);
   return static_cast<int>(err);
 }

@@ -21,6 +21,7 @@ in plain PyTorch (`FusedFFNFunction`, `_ffn_vjp_bwd` `:1607`).  Under
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import os
 
@@ -129,12 +130,6 @@ def fused_layernorm_bwd_reference(x2, w, mu, rs, dy, b_dtype=None):
             dy32.sum(0).to(b_dtype or w.dtype))
 
 
-# Rows (one warp each) per block of the LayerNorm forward: one spreads a
-# few rows over as many SMs; 4 and 8 measured no faster at 8, 64 or 8192
-# rows on an H100 (PERF.md, `scripts/ffn_ln_probe.py`).
-LN_ROWS_PER_BLOCK = 1
-
-
 def _ln_launch(x2, w, b, eps):
     n, h = x2.shape
     for name, t in (("w", w), ("b", b)):
@@ -153,9 +148,9 @@ def _ln_launch(x2, w, b, eps):
     mu = torch.empty((n, 1), dtype=torch.float32, device=x2.device)
     rs = torch.empty((n, 1), dtype=torch.float32, device=x2.device)
     vp, i = ctypes.c_void_p, ctypes.c_int
-    fn = ln_fwd.fn([vp] * 6 + [i] * 5 + [ctypes.c_float, vp])
+    fn = ln_fwd.fn([vp] * 6 + [i] * 4 + [ctypes.c_float, vp])
     err = fn(x2.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
-             mu.data_ptr(), rs.data_ptr(), n, h, LN_ROWS_PER_BLOCK,
+             mu.data_ptr(), rs.data_ptr(), n, h,
              int(x2.dtype == torch.bfloat16), int(w.dtype == torch.bfloat16),
              eps, torch.cuda.current_stream(x2.device).cuda_stream)
     _build.check(err, ln_fwd.KERNEL)
@@ -366,15 +361,26 @@ def maybe_fused_ffn(x, w1, b1, w2, act):
 
 # -- which design ------------------------------------------------------------
 
-# Measured on an H100 at GPT-2 width (PERF.md, `scripts/ffn_ln_probe.py`):
+# Measured on an H100 at GPT-2 width (PERF.md, `chip_smoke.py --probe`):
 # in bf16 the decode design wins at 8 and 16 rows, the tensor cores from
 # 24; in fp32 the decode design wins by 8 % or more up to 512 rows, ties
 # the CUDA-core kernel at 1024 (where its partials are 3x the weights) and
 # loses above.
 FFN_TC_MIN_ROWS = 24         # bf16 rows from which the tensor cores win
 FFN_DECODE_MAX_ROWS = 512    # fp32 rows up to which the decode design wins
-_SMS = 132                   # streaming multiprocessors of an H100
+H100_SMS = 132               # the pickers' default SM count (H100 SXM)
 _TC_TILES = ((2, 256), (2, 128), (1, 256), (1, 128))   # (warpgroups, BN)
+_SM_COUNT: dict = {}
+
+
+def _sms(device):
+    """The streaming multiprocessors of ``device``, which the pickers
+    fill."""
+    sms = _SM_COUNT.get(device)
+    if sms is None:
+        sms = _SM_COUNT[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return sms
 
 
 def ffn_design(n, h, i, dtype, h2=None):
@@ -393,40 +399,41 @@ def ffn_design(n, h, i, dtype, h2=None):
     return "decode" if n <= FFN_DECODE_MAX_ROWS else "cuda_core"
 
 
-def ffn_tc_tiles(n, i, h2):
+def ffn_tc_tiles(n, i, h2, sms=H100_SMS):
     """((warpgroups, BN), (warpgroups, BN)) of the tensor-core design's two
-    products, [n, i] and [n, h2]: for each, of the BM = 64·warpgroups by
-    BN tiles whose BN divides its width, the one with the least ``waves ×
-    (BM + BN)`` -- whole waves of `_SMS` blocks times a tile's time per
-    unit of work (its area over its operand traffic, BM·BN / (BM + BN)) --
-    and on a tie the one with more blocks.  This picks the fastest tile
-    of each product at 256, 512, 1024 and 8192 rows of GPT-2's MLP as
-    measured (PERF.md, `scripts/ffn_ln_probe.py`)."""
+    products, [n, i] and [n, h2], on a card of ``sms`` SMs: for each, of
+    the BM = 64·warpgroups by BN tiles whose BN divides its width, the one
+    with the least ``waves × (BM + BN)`` -- whole waves of ``sms`` blocks
+    times a tile's time per unit of work (its area over its operand
+    traffic, BM·BN / (BM + BN)) -- and on a tie the one with more blocks.
+    On the H100 this picks the fastest tile of each product at 256, 512,
+    1024 and 8192 rows of GPT-2's MLP as measured (PERF.md,
+    `chip_smoke.py --probe`)."""
     def pick(m, width):
         best = None
         for wgs, bn in _TC_TILES:
             if width % bn:
                 continue
             tiles = -(-m // (64 * wgs)) * (width // bn)
-            key = (-(-tiles // _SMS) * (64 * wgs + bn), -tiles)
+            key = (-(-tiles // sms) * (64 * wgs + bn), -tiles)
             if best is None or key < best[0]:
                 best = (key, (wgs, bn))
         return best[1]
     return pick(n, i), pick(n, h2)
 
 
-def ffn_decode_loads(n, k, cols, dtype):
+def ffn_decode_loads(n, k, cols, dtype, sms=H100_SMS):
     """16-byte loads per thread (4, 8 or 16) of one product of the decode
     design, [n, k] by [k, cols]: a block takes 32 of them per k-chunk of
     32·loads rows of the weights and 128 bytes of its columns; the most
-    loads that divide ``k`` and still leave a full wave of `_SMS` blocks,
+    loads that divide ``k`` and still leave a full wave of ``sms`` blocks,
     else the fewest."""
     cw = 128 // (2 if dtype == torch.bfloat16 else 4)
     tiles = -(-n // 8)
     fits = [l for l in (4, 8, 16) if k % (32 * l) == 0]
     if not fits:
         raise ValueError(f"width {k} is not a multiple of 128")
-    full = [l for l in fits if tiles * (cols // cw) * (k // (32 * l)) >= _SMS]
+    full = [l for l in fits if tiles * (cols // cw) * (k // (32 * l)) >= sms]
     return max(full) if full else min(fits)
 
 
@@ -486,7 +493,7 @@ def _cuda_core_launch(x2, w1, b1, w2, act):
 def _tc_launch(x2, w1, b1, w2, act):
     n, h = x2.shape
     i, h2 = w1.shape[1], w2.shape[1]
-    (g1, n1), (g2, n2) = ffn_tc_tiles(n, i, h2)
+    (g1, n1), (g2, n2) = ffn_tc_tiles(n, i, h2, _sms(x2.device))
     hbuf = torch.empty((n, i), dtype=x2.dtype, device=x2.device)
     y = torch.empty((n, h2), dtype=x2.dtype, device=x2.device)
     vp, ci = ctypes.c_void_p, ctypes.c_int
@@ -499,31 +506,55 @@ def _tc_launch(x2, w1, b1, w2, act):
     return y
 
 
-FFN_DECODE_OVERLAP = 1   # the second product as a programmatic dependent
+@functools.lru_cache(maxsize=None)
+def _decode_plan(n, h, i, h2, dtype, sms):
+    """(loads a thread of each product, byte offsets of part1 and part2 in
+    the scratch, its bytes, tickets) of a decode-design call: h [n, i] in
+    ``dtype``, then the fp32 partials of each k-chunk of each product,
+    each from a 256-byte boundary."""
+    l1 = ffn_decode_loads(n, h, i, dtype, sms)
+    l2 = ffn_decode_loads(n, i, h2, dtype, sms)
+    item = 2 if dtype == torch.bfloat16 else 4
+
+    def pad(nbytes):
+        return -(-nbytes // 256) * 256
+
+    off1 = pad(n * i * item)
+    off2 = off1 + pad(h // (32 * l1) * n * i * 4)
+    size = off2 + pad(i // (32 * l2) * n * h2 * 4)
+    return l1, l2, off1, off2, size, -(-n // 8) * (i + h2) * item // 128
+
+
+_SCRATCH: dict = {}
+
+
+def _scratch(device, nbytes):
+    """The address of a per-device byte buffer of at least ``nbytes``,
+    grown as needed and kept (the decode design's h and partials: at
+    GPT-2 width 0.6 MB at 8 bf16 rows, 35 MB at 512 fp32 rows).  As with
+    the tickets, the launches that use it follow one another on the
+    stream."""
+    buf = _SCRATCH.get(device)
+    if buf is None or buf.numel() < nbytes:
+        buf = _SCRATCH[device] = torch.empty(nbytes, dtype=torch.uint8,
+                                             device=device)
+    return buf.data_ptr()
 
 
 def _decode_launch(x2, w1, b1, w2, act):
     n, h = x2.shape
     i, h2 = w1.shape[1], w2.shape[1]
     dt, dev = x2.dtype, x2.device
-    l1 = ffn_decode_loads(n, h, i, dt)
-    l2 = ffn_decode_loads(n, i, h2, dt)
-    cw = 64 if dt == torch.bfloat16 else 32     # columns of a block
-    hbuf = torch.empty((n, i), dtype=dt, device=dev)
+    l1, l2, off1, off2, size, n_tickets = _decode_plan(n, h, i, h2, dt,
+                                                       _sms(dev))
+    base = _scratch(dev, size)
     y = torch.empty((n, h2), dtype=dt, device=dev)
-    # fp32 partials of each k-chunk of each product
-    part1 = torch.empty((h // (32 * l1), n, i), dtype=torch.float32,
-                        device=dev)
-    part2 = torch.empty((i // (32 * l2), n, h2), dtype=torch.float32,
-                        device=dev)
-    tk = _build.tickets(dev, -(-n // 8) * (i + h2) // cw)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn = ffn_decode.fn([vp] * 9 + [ci] * 9 + [vp])
+    fn = ffn_decode.fn([vp] * 9 + [ci] * 8 + [vp])
     err = fn(x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-             hbuf.data_ptr(), y.data_ptr(), part1.data_ptr(),
-             part2.data_ptr(), tk.data_ptr(), n, h, i, h2, l1, l2,
-             _ACTS.index(act), int(dt == torch.bfloat16), FFN_DECODE_OVERLAP,
-             _stream(x2))
+             base, y.data_ptr(), base + off1, base + off2,
+             _build.tickets(dev, n_tickets).data_ptr(), n, h, i, h2, l1, l2,
+             _ACTS.index(act), int(dt == torch.bfloat16), _stream(x2))
     _build.check(err, ffn_decode.KERNEL)
     ffn_decode.launches += 1
     return y

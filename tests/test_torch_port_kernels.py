@@ -747,23 +747,28 @@ def test_layernorm_and_ffn_autograd_match_cpu():
 # the FFN's and the LayerNorm forward's launch geometry, on the CPU
 # ---------------------------------------------------------------------------
 
+# the design of each row count at GPT-2's MLP (H 768, I 3072), as measured
+# on the H100: bf16 takes the tensor cores from 24 rows, fp32 the decode
+# design up to 512 rows
+FFN_DESIGNS = {
+    torch.bfloat16: {8: "decode", 16: "decode", 24: "tc", 40: "tc",
+                     64: "tc", 256: "tc", 512: "tc", 1024: "tc",
+                     8192: "tc", 65536: "tc"},
+    torch.float32: {8: "decode", 16: "decode", 24: "decode", 40: "decode",
+                    64: "decode", 256: "decode", 512: "decode",
+                    1024: "cuda_core", 8192: "cuda_core",
+                    65536: "cuda_core"}}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n", [8, 16, 40, 64, 256, 512, 1024, 8192, 65536])
+@pytest.mark.parametrize("n", [8, 16, 24, 40, 64, 256, 512, 1024, 8192,
+                               65536])
 def test_ffn_design_picks(n, dtype):
     """Decode rows (8: the fused-mode generate step) take the decode
     design in both types; 8192 bf16 rows (training) take the tensor
-    cores; fp32 never does (TF32 would break the fp32 limit), and above
-    `FFN_DECODE_MAX_ROWS` stays on the CUDA cores."""
-    design = fm.ffn_design(n, 768, 3072, dtype)
-    if n == 8:
-        assert design == "decode"
-    if dtype == torch.bfloat16:
-        assert design == ("tc" if n >= fm.FFN_TC_MIN_ROWS else "decode")
-        if n == 8192:
-            assert design == "tc"
-    else:
-        assert design == ("decode" if n <= fm.FFN_DECODE_MAX_ROWS
-                          else "cuda_core")
+    cores; fp32 never does (TF32 would break the fp32 limit), and from
+    1024 rows stays on the CUDA cores."""
+    assert fm.ffn_design(n, 768, 3072, dtype) == FFN_DESIGNS[dtype][n]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -779,17 +784,12 @@ def test_ffn_design_widths_off_128_take_cuda_cores(h, i, h2, dtype):
 @pytest.mark.parametrize("n", [64, 200, 256, 512, 1024, 8192])
 @pytest.mark.parametrize("i,h2", [(3072, 768), (512, 256), (4096, 1024)])
 def test_ffn_tc_tiles_divide_the_widths(n, i, h2):
-    """Each product's tile (warpgroups, BN) is one the kernel has, BN
-    divides its width, and no other such tile takes fewer whole waves of
-    132 blocks times (BM + BN), or as few with more blocks."""
-    for (wgs, bn), width in zip(fm.ffn_tc_tiles(n, i, h2), (i, h2)):
-        assert (wgs, bn) in fm._TC_TILES and width % bn == 0
-
-        def key(t):
-            tiles = -(-n // (64 * t[0])) * (width // t[1])
-            return (-(-tiles // 132) * (64 * t[0] + t[1]), -tiles)
-        assert key((wgs, bn)) == min(key(t) for t in fm._TC_TILES
-                                     if width % t[1] == 0)
+    """Each product's tile (warpgroups, BN) is one the kernel has and BN
+    divides its width, on an H100's 132 SMs and on a card of 78."""
+    for sms in (132, 78):
+        for (wgs, bn), width in zip(fm.ffn_tc_tiles(n, i, h2, sms),
+                                    (i, h2)):
+            assert (wgs, bn) in fm._TC_TILES and width % bn == 0
 
 
 @pytest.mark.parametrize("n,first,second", [
@@ -815,3 +815,39 @@ def test_ffn_decode_loads_divide_the_rows(n, k, cols, dtype):
         assert blocks >= 132
     with pytest.raises(ValueError, match="multiple of 128"):
         fm.ffn_decode_loads(n, 100, cols, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,i,h2", [(8, 768, 3072, 768), (16, 128, 256, 128),
+                                      (512, 768, 3072, 768),
+                                      (64, 4096, 1024, 4096)])
+def test_ffn_decode_plan_lays_out_the_scratch(n, h, i, h2, dtype):
+    """The decode design's kept scratch holds h [n, i] in x's type and
+    the fp32 partials of each k-chunk of both products, apart and each
+    from a 256-byte boundary; the tickets cover every column slice of
+    both products."""
+    l1, l2, off1, off2, size, tickets = fm._decode_plan(n, h, i, h2, dtype,
+                                                        132)
+    item = 2 if dtype == torch.bfloat16 else 4
+    assert (l1, l2) == (fm.ffn_decode_loads(n, h, i, dtype),
+                        fm.ffn_decode_loads(n, i, h2, dtype))
+    assert off1 % 256 == 0 and off2 % 256 == 0
+    assert off1 >= n * i * item
+    assert off2 - off1 >= h // (32 * l1) * n * i * 4
+    assert size - off2 >= i // (32 * l2) * n * h2 * 4
+    cw = 128 // item
+    assert tickets == -(-n // 8) * (i // cw + h2 // cw)
+
+
+@pytest.mark.parametrize("sms,loads,first_256", [
+    (78, 8, (2, 128)), (132, 8, (1, 128)), (200, 4, (1, 128)),
+    (264, 4, (1, 128))])
+def test_ffn_pickers_follow_the_sm_count(sms, loads, first_256):
+    """The pickers fill the card they are given: with more SMs the decode
+    design takes fewer loads a thread (more, shorter k-chunks) at the
+    bf16 decode step of GPT-2's MLP, still a full wave; with fewer, the
+    tensor-core design's first product at 256 rows takes taller tiles."""
+    for k, cols in ((768, 3072), (3072, 768)):
+        got = fm.ffn_decode_loads(8, k, cols, torch.bfloat16, sms)
+        assert got == loads and (cols // 64) * (k // (32 * got)) >= sms
+    assert fm.ffn_tc_tiles(256, 3072, 768, sms)[0] == first_256
