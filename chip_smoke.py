@@ -9,10 +9,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
    flash instantiations' registers and spills from ``-Xptxas -v`` are
    printed, and those of the FFN's designs and the LayerNorm forward),
    read the flash and FFN libraries' machine code (`cuobjdump -sass`:
-   all 16 instantiations each of the bf16 forward, dQ and dK/dV, the
-   tensor-core kernels, and all 16 of the FFN's tensor-core products must
-   hold HGMMA, and the CUDA-core forward, dQ and dK/dV must be left with
-   their 16 fp32 instantiations, FFMA and no HGMMA or HMMA), then hold
+   all 16 instantiations each of the bf16 forward, dQ and dK/dV, of the
+   fp32 split-TF32 forward and dK/dV (the tensor-core kernels) and all
+   16 of the FFN's tensor-core products must hold HGMMA, the fp32 dQ must
+   be left with its 16 fp32 instantiations, FFMA and no HGMMA or HMMA,
+   and the CUDA-core fp32 forward and dK/dV must be gone), then hold
    each kernel
    against its plain PyTorch version on the card, in float32 and bfloat16,
    and time kernel, plain version and a PyTorch yardstick (SDPA, and for
@@ -23,7 +24,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    H=16 D=128.  Tolerances
    (`paddle_tpu_torch.ops.tolerance` derives the bf16 ones):
    - forward, float32: max absolute error 2e-5 — both sides accumulate in
-     fp32 and differ only in summation order.  bfloat16, per element
+     fp32 and differ only in summation order (the kernel's products are
+     split TF32, as accurate as fp32 products: `flash_tc.cuh`).  bfloat16, per element
      |out - ref| <= 2^-7 max(|out|, |ref|) + c (P |V|): one bf16 step
      of the output (both sides round it once), plus the most that the
      rounding of the probabilities to bf16 (at most 2^-8 of each, the
@@ -36,7 +38,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
      of keys it is ~3e-3, not the ~2e-2 a short row needs.  Pool writes
      must be bitwise equal.  Each flash case (dQ and dK/dV apart) also
      prints its achieved TFLOP/s (the FLOPs its bound counts over its
-     time).
+     time); a float32 one its bound with the products as three TF32
+     passes on the tensor cores (165 TFLOP/s) and, beside it, with the
+     CUDA cores' 67 TFLOP/s.
    - backward, float32: max |err| <= 1e-4 max |ref| per gradient — both
      sides accumulate in fp32 over up to 1024 keys or queries, in
      different orders.  bfloat16, per element |out - ref| <= 2^-7
@@ -136,7 +140,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    (kernels) and on the CPU (plain versions).  Step-1 losses agree to
    1e-5 relative, each step-1 gradient to 1e-3 max |g|, step-3 losses to
    1e-4 relative; each flash kernel (forward, dQ, dK/dV) launches 12
-   times per step on the card (the CUDA-core designs: fp32).
+   times per step on the card (fp32: the forward and dK/dV on the
+   tensor cores, split TF32, counted once more under ``:tc32``; dQ on
+   the CUDA cores).
 6. Training, bfloat16, full size: B=8 S=1024, bf16 params with fp32
    AdamW masters (lr 1e-4), 2 warm-up steps then 10 timed steps on one
    repeated batch.  Every loss finite, step 12's below step 1's, 12
@@ -168,17 +174,20 @@ Phases, in order; any failure exits non-zero and prints no result line:
    step (fp32 at 1024 rows: the CUDA-core design) and none on the CPU;
    then bf16 as phase 6 with the flags (the FFN's 144 launches all on
    the tensor cores) and without them.
-8. Summary: one JSON line of the twenty-four entries (the nine kernels,
+8. Summary: one JSON line of the twenty-six entries (the nine kernels,
    the int8 variant, the mask, segment and non-causal variants of the
    flash kernels, the tensor-core forward, dQ and dK/dV -- every bf16
-   launch of those three, timed at the bf16 training shape -- and the
+   launch of those three, timed at the bf16 training shape -- the fp32
+   split-TF32 forward and dK/dV -- every fp32 launch of those two, timed
+   at the fp32 training shape, launches from phase 5 -- and the
    FFN's tensor-core and decode designs, counted apart; the FFN's own
    entry is its CUDA-core design), the card line, then the result line.
 
 Every time is a median of CUDA-event timings (L2 flushed before each
 launch, the host's enqueue hidden behind a spin on the stream); every
 bound is max(bytes / 3.35 TB/s, FLOPs / peak for the type: 989 TFLOP/s
-bf16, 67 TFLOP/s fp32), from this run's shapes and data.
+bf16, 67 TFLOP/s fp32; fp32 flash 495 / 3 TFLOP/s, split TF32), from
+this run's shapes and data.
 Details go to chiprun_out/chip_smoke.json.
 
 Two measuring modes, not part of the check:
@@ -189,8 +198,8 @@ Two measuring modes, not part of the check:
 ``--probe`` checks and times the FFN's designs and the LayerNorm forward
 at GPT-2 124M's MLP, and the alternatives they were measured against,
 built from edited copies of their sources (`probe`).  ``--paths`` times
-fused-mode bf16 ``generate`` and the stacked bf16 training step, host
-and device, with the ``paddle_tpu_torch`` of DIR (`time_paths`): run it
+fused-mode bf16 ``generate`` and the stacked bf16 and fp32 training
+steps, host and device, with the ``paddle_tpu_torch`` of DIR (`time_paths`): run it
 on two trees in turns in one call to compare them.
 """
 import contextlib
@@ -207,6 +216,8 @@ import torch
 
 HBM_BPS = 3.35e12
 PEAK = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# TF32 on the tensor cores: a split-TF32 fp32 product is three TF32 ones
+PEAK_TF32, TF32_PASSES = 495e12, 3
 TOL_FP32 = 2e-5
 BWD_REL_FP32 = 1e-4
 FFN_REL_FP32 = 1e-5
@@ -227,20 +238,24 @@ DQ_MASK, DQ_SEGS, DQ_NC = (DQ + ":mask", DQ + ":segs", DQ + ":noncausal")
 DKV_MASK, DKV_SEGS, DKV_NC = (DKV + ":mask", DKV + ":segs",
                               DKV + ":noncausal")
 # the bf16 launches of the three flash kernels, any branch: the
-# tensor-core kernels (counted once more, apart from the counters above)
+# tensor-core kernels (counted once more, apart from the counters above);
+# the fp32 launches of the forward and dK/dV: the split-TF32 kernels
 FWD_TC, DQ_TC, DKV_TC = FWD + ":tc", DQ + ":tc", DKV + ":tc"
+FWD_TC32, DKV_TC32 = FWD + ":tc32", DKV + ":tc32"
 FWD_ALL = (FWD, FWD_MASK, FWD_SEGS, FWD_NC)
 DQ_ALL = (DQ, DQ_MASK, DQ_SEGS, DQ_NC)
 DKV_ALL = (DKV, DKV_MASK, DKV_SEGS, DKV_NC)
-KERNELS = (FWD, FWD_MASK, FWD_SEGS, FWD_NC, FWD_TC, RAGGED, RAGGED8, DQ,
-           DQ_MASK, DQ_SEGS, DQ_NC, DQ_TC, DKV, DKV_MASK, DKV_SEGS, DKV_NC,
-           DKV_TC, DECODE, FUSED, LN, LN_BWD, FFN, FFN_TC, FFN_DEC)
+KERNELS = (FWD, FWD_MASK, FWD_SEGS, FWD_NC, FWD_TC, FWD_TC32, RAGGED,
+           RAGGED8, DQ, DQ_MASK, DQ_SEGS, DQ_NC, DQ_TC, DKV, DKV_MASK,
+           DKV_SEGS, DKV_NC, DKV_TC, DKV_TC32, DECODE, FUSED, LN, LN_BWD,
+           FFN, FFN_TC, FFN_DEC)
 REPLACES = {
     FWD: "paddle_tpu/ops/pallas_ops.py:135",
     FWD_MASK: "paddle_tpu/ops/pallas_ops.py:135",
     FWD_SEGS: "paddle_tpu/ops/pallas_ops.py:135",
     FWD_NC: "paddle_tpu/ops/pallas_ops.py:135",
     FWD_TC: "paddle_tpu/ops/pallas_ops.py:135",
+    FWD_TC32: "paddle_tpu/ops/pallas_ops.py:135",
     RAGGED8: "paddle_tpu/ops/ragged_paged_attention.py:125",
     DQ: "paddle_tpu/ops/pallas_ops.py:210",
     DQ_MASK: "paddle_tpu/ops/pallas_ops.py:210",
@@ -252,6 +267,7 @@ REPLACES = {
     DKV_SEGS: "paddle_tpu/ops/pallas_ops.py:272",
     DKV_NC: "paddle_tpu/ops/pallas_ops.py:272",
     DKV_TC: "paddle_tpu/ops/pallas_ops.py:272",
+    DKV_TC32: "paddle_tpu/ops/pallas_ops.py:272",
     RAGGED: "paddle_tpu/ops/ragged_paged_attention.py:125",
     DECODE: "paddle_tpu/ops/pallas_ops.py:1008",
     FUSED: "paddle_tpu/ops/pallas_ops.py:1186",
@@ -262,17 +278,21 @@ REPLACES = {
     FFN_DEC: "paddle_tpu/ops/pallas_ops.py:1548",
 }
 # the __global__ functions of paddle_tpu_torch/csrc, as the profiler names
-# (template names: the mask and int8 variants are instantiations of
-# flash_fwd_causal_kernel and ragged_attend_kernel)
-PORT_SYMBOLS = ("flash_fwd_causal_kernel", "flash_fwd_tc_kernel",
+# (template names: the flash variants are instantiations of the flash
+# kernels, the int8 one of ragged_attend_kernel)
+PORT_SYMBOLS = ("flash_fwd_tc32_kernel", "flash_fwd_tc_kernel",
                 "flash_bwd_dq_kernel", "flash_bwd_dq_tc_kernel",
-                "flash_bwd_dkv_kernel",
+                "flash_bwd_dkv_tc32_kernel",
                 "flash_bwd_dkv_tc_kernel", "ragged_write_kernel",
                 "ragged_attend_kernel", "ragged_write_int8_kernel",
                 "flash_decode_kernel", "fused_decode_layer_kernel",
                 "ln_fwd_kernel", "ln_fwd_wide_kernel", "ln_bwd_kernel",
                 "ln_bwd_sum_kernel", "fused_ffn_kernel", "ffn_tc_kernel",
                 "ffn_dec_kernel")
+# ... and those a tree from before the split-TF32 kernels has, so that
+# `--paths` groups a parent's profile as its own (the CUDA-core fp32
+# forward and dK/dV)
+PARENT_SYMBOLS = ("flash_fwd_causal_kernel", "flash_bwd_dkv_kernel")
 TRAIN_LR = 1e-4
 # the environment flags that select the decode kernels, by generate mode
 GEN_MODES = {"default": {},
@@ -343,6 +363,21 @@ def bound_ms(nbytes, flops, dtype):
         "bytes" if nbytes / HBM_BPS >= flops / PEAK[dtype] else "operations"
 
 
+def flash_bound(nbytes, flops, dtype):
+    """``bound_ms`` and ``bound_by`` of a flash call: in fp32 the least time
+    of fp32-accurate products, three TF32 passes on the tensor cores
+    (``PEAK_TF32 / TF32_PASSES``, 165 TFLOP/s), with the CUDA cores' bound
+    (67 TFLOP/s) beside it as ``cuda_core_bound_ms``."""
+    if dtype != torch.float32:
+        bms, by = bound_ms(nbytes, flops, dtype)
+        return dict(bound_ms=bms, bound_by=by)
+    t_ops = TF32_PASSES * flops / PEAK_TF32
+    t_bytes = nbytes / HBM_BPS
+    return dict(bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                cuda_core_bound_ms=bound_ms(nbytes, flops, dtype)[0])
+
+
 def tflops(flops, ms):
     """The rate a call of `ms` achieves on `flops` useful operations."""
     return flops / (ms * 1e-3) / 1e12
@@ -350,11 +385,16 @@ def tflops(flops, ms):
 
 def with_tc(want, bf16):
     """`want` with the tensor-core counts: in bf16 every forward, dQ and
-    dK/dV launch counts once more under FWD_TC, DQ_TC and DKV_TC, in fp32
-    never."""
-    for tc, names in ((FWD_TC, FWD_ALL), (DQ_TC, DQ_ALL),
-                      (DKV_TC, DKV_ALL)):
-        want[tc] = sum(want[n] for n in names) if bf16 else 0
+    dK/dV launch counts once more under FWD_TC, DQ_TC and DKV_TC; in fp32
+    every forward and dK/dV launch under FWD_TC32 and DKV_TC32 (the fp32
+    dQ runs on the CUDA cores)."""
+    for tc, tc32, names in ((FWD_TC, FWD_TC32, FWD_ALL),
+                            (DQ_TC, None, DQ_ALL),
+                            (DKV_TC, DKV_TC32, DKV_ALL)):
+        n = sum(want[name] for name in names)
+        want[tc] = n if bf16 else 0
+        if tc32:
+            want[tc32] = 0 if bf16 else n
     return want
 
 
@@ -379,21 +419,26 @@ def check_sass(paths):
     """The design behind each flash entry and the FFN's tensor-core design,
     from the built libraries' machine code: every instantiation of the
     bf16 forward, dQ and dK/dV kernels (``flash_fwd_tc_kernel``,
-    ``flash_bwd_dq_tc_kernel``, ``flash_bwd_dkv_tc_kernel``: 16 each, 8
-    flag combinations x D 64 and 128) and of the FFN's products
-    (``ffn_tc_kernel``: 16, 4 tiles x 3 activations and the plain second
-    product) contains HGMMA (warpgroup tensor-core products), and the
-    CUDA-core flash kernels they replaced (``flash_fwd_causal_kernel``,
-    ``flash_bwd_dq_kernel``, ``flash_bwd_dkv_kernel``) are left with their
-    16 fp32 instantiations only, FFMA and no HGMMA or HMMA.  Returns
-    {kernel: [instantiations, of them with HGMMA, with FFMA]}."""
+    ``flash_bwd_dq_tc_kernel``, ``flash_bwd_dkv_tc_kernel``), of the fp32
+    split-TF32 forward and dK/dV (``flash_fwd_tc32_kernel``,
+    ``flash_bwd_dkv_tc32_kernel``; 16 each, 8 flag combinations x D 64
+    and 128) and of the FFN's products (``ffn_tc_kernel``: 16, 4 tiles x 3
+    activations and the plain second product) contains HGMMA (warpgroup
+    tensor-core products); the fp32 dQ (``flash_bwd_dq_kernel``) has its
+    16 fp32 instantiations only, FFMA and no HGMMA or HMMA; and the
+    CUDA-core fp32 forward and dK/dV (``flash_fwd_causal_kernel``,
+    ``flash_bwd_dkv_kernel``) are gone.  Returns {kernel: [instantiations,
+    of them with HGMMA, with FFMA]}."""
     fwd, bwd, ffn = "flash_fwd_causal", "flash_bwd_causal", FFN_TC
+    # kernel: (library, tensor cores: True, CUDA cores: False, gone: None)
     wants = {"flash_fwd_tc_kernel": (fwd, True),
-             "flash_fwd_causal_kernel": (fwd, False),
+             "flash_fwd_tc32_kernel": (fwd, True),
+             "flash_fwd_causal_kernel": (fwd, None),
              "flash_bwd_dq_tc_kernel": (bwd, True),
              "flash_bwd_dq_kernel": (bwd, False),
              "flash_bwd_dkv_tc_kernel": (bwd, True),
-             "flash_bwd_dkv_kernel": (bwd, False),
+             "flash_bwd_dkv_tc32_kernel": (bwd, True),
+             "flash_bwd_dkv_kernel": (bwd, None),
              "ffn_tc_kernel": (ffn, True)}
     funcs = {src: _sass_functions(paths[src]) for src in (fwd, bwd, ffn)}
     counts = {}
@@ -405,7 +450,9 @@ def check_sass(paths):
         hgmma = sum("HGMMA" in body for body in found.values())
         ffma = sum("FFMA" in body for body in found.values())
         counts[kernel] = [len(found), hgmma, ffma]
-        if tensor_cores:
+        if tensor_cores is None:
+            ok = not found
+        elif tensor_cores:
             ok = len(found) == 16 and hgmma == 16
         else:
             ok = (len(found) == 16 and hgmma == 0 and ffma == 16
@@ -475,10 +522,9 @@ def check_flash(fa, tol, timer, s, h, d, dtype, seed, b=1):
     item = q.element_size()
     nbytes = b * (4 * s * h * d * item + 4 * h * s)
     flops = 2 * b * d * h * s * (s + 1)   # 4*D per (query, visible key)
-    bms, by = bound_ms(nbytes, flops, dtype)
     return dict(shape=f"B={b} S={s} H={h} D={d}", dtype=str(dtype),
                 max_abs_err=err, err_over_limit=ratio, ms=ms,
-                plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                plain_ms=plain_ms, **flash_bound(nbytes, flops, dtype),
                 library_ms=lib_ms, tflops=tflops(flops, ms))
 
 
@@ -530,12 +576,12 @@ def check_flash_bwd(fa, tol, timer, b, s, h, d, dtype, seed):
     for kernel, ms, n_out, fl, errs in (
             (fa.flash_bwd_dq.KERNEL, ms_dq, 1, 6, ("dq",)),
             (fa.flash_bwd_dkv.KERNEL, ms_dkv, 2, 8, ("dk", "dv"))):
-        bms, by = bound_ms((4 + n_out) * slab + stats, fl * d * pairs, dtype)
         cases[kernel] = dict(
             shape=shape, dtype=str(dtype),
             max_abs_err=max(checks[e][0] for e in errs),
             err_over_limit=max(checks[e][1] for e in errs), ms=ms,
-            plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+            plain_ms=plain_ms,
+            **flash_bound((4 + n_out) * slab + stats, fl * d * pairs, dtype),
             library_ms=lib_ms, tflops=tflops(fl * d * pairs, ms))
     return cases
 
@@ -778,10 +824,9 @@ def check_flash_masked(fa, tol, timer, kind, dtype, seed, b=8, s=896, h=12,
               + (0 if mask is None else 4 * mask_entries_needed(
                   mask, causal, klen))
               + (0 if lens is None else 4 * b))
-    bms, by = bound_ms(nbytes, 4 * d * pairs, dtype)
     return dict(shape=f"B={b} S={s} H={h} D={d} {kind}", dtype=str(dtype),
                 max_abs_err=err, err_over_limit=ratio, ms=ms,
-                plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                plain_ms=plain_ms, **flash_bound(nbytes, 4 * d * pairs, dtype),
                 library_ms=lib_ms, tol=_tol_text(dtype, TOL_FP32),
                 tflops=tflops(4 * d * pairs, ms))
 
@@ -943,12 +988,11 @@ def check_flash_variant(fa, tol, timer, kind, b, s, h, d, dtype, seed,
                                                   lens, sid), reps=10)
         lib_ms = timer(lambda: sdpa(qt, kt, vt, attn_mask=lib_mask))
         nstat = 1 if pair is None else 3          # lse (and m, log l)
-        bms, by = bound_ms(4 * slab + nstat * 4 * b * h * s + extra,
-                           4 * d * pairs, dtype)
         cases[f"{fa.KERNEL}:{name}"] = dict(
             shape=shape, dtype=str(dtype), max_abs_err=fwd_check[0],
             err_over_limit=fwd_check[1], ms=ms, plain_ms=plain_ms,
-            bound_ms=bms, bound_by=by, library_ms=lib_ms,
+            **flash_bound(4 * slab + nstat * 4 * b * h * s + extra,
+                          4 * d * pairs, dtype), library_ms=lib_ms,
             tol=_tol_text(dtype, TOL_FP32), tflops=tflops(4 * d * pairs, ms))
     if not bwd:
         return cases
@@ -988,13 +1032,13 @@ def check_flash_variant(fa, tol, timer, kind, b, s, h, d, dtype, seed,
     for kernel, ms, n_out, fl, errs in (
             (fa.flash_bwd_dq, ms_dq, 1, 6, ("dq",)),
             (fa.flash_bwd_dkv, ms_dkv, 2, 8, ("dk", "dv"))):
-        bms, by = bound_ms((4 + n_out) * slab + stats + extra,
-                           fl * d * pairs, dtype)
         cases[f"{kernel.KERNEL}:{name}"] = dict(
             shape=shape, dtype=str(dtype),
             max_abs_err=max(checks[e][0] for e in errs),
             err_over_limit=max(checks[e][1] for e in errs), ms=ms,
-            plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+            plain_ms=plain_ms,
+            **flash_bound((4 + n_out) * slab + stats + extra,
+                          fl * d * pairs, dtype),
             library_ms=lib_ms, tflops=tflops(fl * d * pairs, ms))
     return cases
 
@@ -1292,7 +1336,7 @@ def device_table(prof, steps):
     groups = {"port_kernels": 0.0, "matmul": 0.0, "other": 0.0}
     for us, _, name in kernels:
         low = name.lower()
-        if any(n in name for n in PORT_SYMBOLS):
+        if any(n in name for n in PORT_SYMBOLS + PARENT_SYMBOLS):
             group = "port_kernels"
         elif any(n in low for n in ("nvjet", "gemm", "xmma", "cutlass")):
             group = "matmul"
@@ -1630,7 +1674,8 @@ def train_launches(cfg, steps, env, packed=False, bf16=False, rows=1024):
     """Expected launches of `steps` training steps of ``rows`` tokens under
     the flags `env`: each flash kernel once per layer (its segment variant
     on packed rows; in bf16 all three are the tensor-core kernels, so 12
-    of each per step); under PTPU_PALLAS_LN the LayerNorm
+    of each per step, in fp32 the forward and dK/dV, `:tc32`); under
+    PTPU_PALLAS_LN the LayerNorm
     forward and backward once per LayerNorm layer (2L+1 per-layer, ``ln_f``
     alone stacked); under PTPU_PALLAS_FFN the FFN once per per-layer
     block (the stacked blocks keep their own MLP), of the design its rows
@@ -1838,6 +1883,7 @@ def entry_autograd_card_vs_cpu(ops, b=8, s=896, h=12, d=64):
     want = dict.fromkeys(KERNELS, 0)
     want.update({FWD_NC: 1, DQ_NC: 1, DKV_NC: 1, FWD_MASK: 2, DQ_MASK: 2,
                  DKV_MASK: 2})
+    with_tc(want, False)
     if launches != want:
         fail(f"entry-point autograd: launches {launches}, expected {want}")
     rec = {"batch": f"B={b} S={s} H={h} D={d}", "launches": launches}
@@ -1881,12 +1927,15 @@ def print_cases(cases):
             if "splits" in c:
                 rate += (f" {c['splits']} splits ({c['blocks']} blocks), "
                          f"{c['gb_per_s']:.1f} GB/s achieved")
+            bound = f"bound_ms={c['bound_ms']:.4f} ({c['bound_by']}"
+            if "cuda_core_bound_ms" in c:      # fp32 flash: split TF32
+                bound += (f", split TF32; CUDA cores "
+                          f"{c['cuda_core_bound_ms']:.4f}")
             print(f"kernel {name} [{c['shape']} {c['dtype']}] "
                   f"max_abs_err={c['max_abs_err']:.3g} ({tol}; "
                   f"{c['err_over_limit']:.3g} of it) "
                   f"ms={c['ms']:.4f} plain_ms={c['plain_ms']:.4f} "
-                  f"bound_ms={c['bound_ms']:.4f} ({c['bound_by']}){rate}"
-                  f"{lib}", flush=True)
+                  f"{bound}){rate}{lib}", flush=True)
 
 
 def print_train(label, rec, launches, card):
@@ -1924,9 +1973,10 @@ def main():
     from paddle_tpu_torch.ops import ragged_paged_attention as rpa
     from paddle_tpu_torch.ops import tolerance as tol
     wrappers = {FWD: fa, FWD_MASK: fa.masked, FWD_SEGS: fa.segs,
-                FWD_NC: fa.noncausal, FWD_TC: fa.tc, DQ: fa.flash_bwd_dq,
-                DQ_TC: fa.flash_bwd_dq.tc, DKV: fa.flash_bwd_dkv,
-                DKV_TC: fa.flash_bwd_dkv.tc,
+                FWD_NC: fa.noncausal, FWD_TC: fa.tc, FWD_TC32: fa.tc32,
+                DQ: fa.flash_bwd_dq, DQ_TC: fa.flash_bwd_dq.tc,
+                DKV: fa.flash_bwd_dkv, DKV_TC: fa.flash_bwd_dkv.tc,
+                DKV_TC32: fa.flash_bwd_dkv.tc32,
                 RAGGED: rpa, RAGGED8: rpa.int8,
                 DECODE: fd, FUSED: fdl, LN: fm.ln_fwd, LN_BWD: fm.ln_bwd,
                 FFN: fm.ffn_fwd, FFN_TC: fm.ffn_tc, FFN_DEC: fm.ffn_decode}
@@ -2373,7 +2423,7 @@ def main():
     # too); the backward kernels at the training shape in bf16, the
     # training path's dtype; the generate kernels at the bf16 full-context
     # decode step, the masked forward at the bf16 padded prefill
-    bf16 = str(torch.bfloat16)
+    bf16, f32 = str(torch.bfloat16), str(torch.float32)
 
     def pick(name, shape, dtype=bf16):
         return next(c for c in cases[name]
@@ -2383,6 +2433,8 @@ def main():
                  FWD_TC: pick(FWD, "B=8 S=1024 H=12 D=64"),
                  DQ_TC: pick(DQ, "B=8 S=1024 H=12 D=64"),
                  DKV_TC: pick(DKV, "B=8 S=1024 H=12 D=64"),
+                 FWD_TC32: pick(FWD, "B=8 S=1024 H=12 D=64", f32),
+                 DKV_TC32: pick(DKV, "B=8 S=1024 H=12 D=64", f32),
                  RAGGED8: cases[RAGGED8][0],
                  FWD_MASK: pick(FWD_MASK, "B=8 S=896 H=12 D=64 pad"),
                  DQ: cases[DQ][3], DKV: cases[DKV][3],
@@ -2391,8 +2443,7 @@ def main():
                                     "mask=False"),
                  LN: pick(LN, "n=8 H=768"),
                  LN_BWD: pick(LN_BWD, "n=8192 H=768"),
-                 FFN: pick(FFN, "n=1024 H=768 I=3072 gelu_tanh",
-                           str(torch.float32)),
+                 FFN: pick(FFN, "n=1024 H=768 I=3072 gelu_tanh", f32),
                  FFN_TC: pick(FFN_TC, "n=8192 H=768 I=3072 gelu_tanh"),
                  FFN_DEC: pick(FFN_DEC, "n=8 H=768 I=3072 gelu_tanh"),
                  FWD_SEGS: pick(FWD_SEGS, "B=8 S=1024 H=12 D=64 segs"),
@@ -2410,6 +2461,8 @@ def main():
                      FWD_TC: launches_train[FWD_TC],
                      DQ_TC: launches_train[DQ_TC],
                      DKV_TC: launches_train[DKV_TC],
+                     FWD_TC32: tr32["launches"][FWD_TC32],
+                     DKV_TC32: tr32["launches"][DKV_TC32],
                      DECODE: launches_gen["default"][DECODE],
                      FUSED: launches_gen["fused"][FUSED],
                      LN: launches_gen["fused"][LN],
@@ -2827,7 +2880,9 @@ def time_paths(tree, reps=3):
     ``generate`` (B=8, prompt 896 + 128 new; decode ms per step as phase
     4 takes it, `reps` times) and 16 decode steps timed alone and under
     torch.profiler; the stacked bf16 training step (B=8 S=1024, 2 warm-up
-    then 10 timed steps, `reps` times) and one profiled step; and the host
+    then 10 timed steps, `reps` times) and one profiled step; the stacked
+    fp32 step (fp32 weights, B=8 S=1024, 1 warm-up then 3 timed steps,
+    `reps` times) and one profiled step; and the host
     microseconds of one FFN and one LayerNorm forward call at the decode
     step's 8 rows.  Prints one JSON line."""
     if not torch.cuda.is_available():
@@ -2894,6 +2949,31 @@ def time_paths(tree, reps=3):
         "device_busy_share": prof["device_busy_share"],
         "device_ops": prof["device_ops"], "ms_by_group": prof["ms_by_group"]}
     del model, step
+    torch.cuda.empty_cache()
+    # the fp32 stacked step (fp32 weights and masters): its forward and
+    # dK/dV flash kernels are the split-TF32 ones
+    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.float32,
+                           generator=torch.Generator().manual_seed(0))
+    step, _ = make_step(model)
+    with flag_env({}):
+        step(data)
+        step_ms = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                step(data)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3 / 3)
+        prof = profile_step(step, data)
+    rec["stacked_step_fp32"] = {
+        "ms_per_step": step_ms, "wall_ms": prof["wall_ms"],
+        "device_ms": prof["device_ms"],
+        "device_busy_share": prof["device_busy_share"],
+        "device_ops": prof["device_ops"], "ms_by_group": prof["ms_by_group"],
+        "top": prof["top"][:8]}
+    del model, step
+    torch.cuda.empty_cache()
     g = torch.Generator().manual_seed(8)
     x = torch.randn(8, 768, generator=g).to("cuda", torch.bfloat16)
     w1 = (torch.randn(768, 3072, generator=g) / 28).to("cuda", torch.bfloat16)
@@ -2911,13 +2991,19 @@ def time_paths(tree, reps=3):
                 torch.empty((3, 8, 3072), device="cuda"),
                 torch.empty((12, 8, 768), device="cuda")))}
     g, s = rec["fused_generate"], rec["stacked_step"]
+    s32 = rec["stacked_step_fp32"]
     gen_ms = ", ".join(f"{v:.3f}" for v in g["decode_ms_per_step"])
     train_ms = ", ".join(f"{v:.3f}" for v in s["ms_per_step"])
+    train32_ms = ", ".join(f"{v:.3f}" for v in s32["ms_per_step"])
     print(f"paths {tree} ({card}): fused generate decode {gen_ms} ms a "
           f"step, profiled window wall {g['wall_ms_per_step']:.3f} device "
           f"{g['device_ms_per_step']:.3f} ms ({g['device_ops_per_step']:.1f} "
           f"ops); stacked step {train_ms} ms, device {s['device_ms']:.3f} ms "
-          f"({s['device_ops']:.0f} ops); "
+          f"({s['device_ops']:.0f} ops); fp32 stacked step {train32_ms} ms, "
+          f"device {s32['device_ms']:.3f} ms ({s32['device_ops']:.0f} ops; "
+          f"by group " + ", ".join(f"{k} {v:.3f}"
+                                   for k, v in s32["ms_by_group"].items())
+          + "); "
           f"host us per call at 8 rows: " + ", ".join(
               f"{k} {v:.2f}"
               for k, v in rec["host_us_per_call_8_rows"].items()),

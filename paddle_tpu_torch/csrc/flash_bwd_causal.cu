@@ -60,21 +60,49 @@
 // accumulate in fp32 registers (D = 128: 255 registers, a few spilled in
 // the masked and segment instantiations).
 //
-// fp32 dQ and dK/dV: the first design, on the CUDA cores (fp32 FMAs; no
-// mma/wgmma, since TF32 would break the fp32 limits), bound by the CUDA
-// cores' issue rate -- the FMAs and the shared-memory reads that feed them.
-// - dQ: one block per (64-query tile, head, batch).  Four threads share a
-//   query row, each holding D/4 dims of q, dO and the fp32 dq accumulator
-//   in registers (dims d = sub + 4*i, so the four lanes of a row read
-//   consecutive shared-memory words).  Key/value tiles of 32 rows are
-//   staged once per block in shared memory as fp32; causal, the loop runs
-//   from key 0 up to the diagonal.
-// - dK/dV: one block per (64-key tile, head, batch), four threads per key
-//   row holding D/4 dims of k, v and the two accumulators.  Query and dO
-//   tiles of 32 rows are staged with their lse and delta.
-// In both dK/dV designs, causal, the loop starts at the first query tile
+// fp32 dK/dV: `flash_bwd_dkv_tc32_kernel`, on the tensor cores in split
+// TF32 (`flash_tc.cuh`, last section): each fp32 product is three TF32
+// `wgmma` products (m64nNk8) of the operands' hi and lo parts, lo_a hi_b
+// + hi_a lo_b + hi_a hi_b, as close to the exact product as an fp32
+// product is.  The bf16 kernel's form: keys as M, the same statistics,
+// branches and per-pair tests; p and ds stay fp32.  K and V are loaded
+// once and split in place into hi and lo tiles (the A operands of S^T =
+// K Q^T and dP^T = V dO^T, from shared memory).  TF32 operands are
+// K-major only, so Q and dO serve in two layouts: as loaded ([queries,
+// D]) for S^T and dP^T, and transposed ([D, queries], the queries of each
+// group of 8 permuted to match the A fragments in registers, `tf32_a`)
+// for dV += P^T dO and dK += dS^T Q, whose A operands come from the S^T
+// and dP^T accumulators.  Per query tile: Q and dO have landed by
+// `cp.async` in a raw buffer R; they are split into four tiles X0..X3
+// for S^T and dP^T, and the next tile's copy into R starts at once (its
+// statistics go to the other of two sets); once S^T and dP^T are done,
+// the threads read each value back from X as hi + lo (exact) and
+// overwrite X0..X3 with the transposes, split again; dV and then dK
+// accumulate in fp32 registers, one product's A fragments live at a time.
+// D = 64: two warpgroups a block, each owning 64 keys and sharing the
+// 64-query tiles (the staging of Q and dO is done once for 128 keys, and
+// eight warps hide each other's latency), 227 KB of shared memory, all
+// a block may take.  D = 128: one warpgroup, 32-query tiles, 226 KB.
+// Measured at the training shape on the H100 (PERF.md, PR 10): one
+// warpgroup with 64-query tiles and a raw copy kept (161 KB) took 0.58
+// ms; 32-query tiles with no raw copy, two blocks an SM, 0.48; two
+// warpgroups, 0.44; with the prefetch into R and the addresses of the
+// tile tasks recomputed in the loop (`fresh_tid`: kept across it they
+// spilled 90-180 bytes), 0.42.  dV and dK are summed in one level over
+// every query tile: the tensor core's truncated fp32 sums cost them ~0.15
+// of the fp32 limit (1e-4 max|ref|) there.
+//
+// fp32 dQ: the first design, on the CUDA cores (fp32 FMAs), bound by the
+// CUDA cores' issue rate -- the FMAs and the shared-memory reads that
+// feed them.  One block per (64-query tile, head, batch).  Four threads
+// share a query row, each holding D/4 dims of q, dO and the fp32 dq
+// accumulator in registers (dims d = sub + 4*i, so the four lanes of a
+// row read consecutive shared-memory words).  Key/value tiles of 32 rows
+// are staged once per block in shared memory as fp32; causal, the loop
+// runs from key 0 up to the diagonal.
+// In the dK/dV kernels, causal, the loop starts at the first query tile
 // that can see the key tile (the query at max(k0 - (Sk - Sq), 0)) and
-// runs to the end; in both dQ designs it stops at min(kv_len, the causal
+// runs to the end; in the dQ kernels it stops at min(kv_len, the causal
 // limit of the tile's last query), rounded up to a key tile.
 // All mask the ragged tile edges themselves, so any S works: padding rows
 // are staged as zeros and their p is set to 0, so an undefined lse is
@@ -92,8 +120,8 @@
 //   statistic is the pair (m, log l) of the masked forward, p =
 //   exp((s - m) - log l): a row whose every key the mask closes has m ~
 //   -1e30, where lse = m + log l has lost log l in fp32, and the pair gives
-//   the forward's 1/n there.  The CUDA-core kernels stage the mask per
-//   tile in shared memory; the tensor-core ones read each thread's pairs.
+//   the forward's 1/n there.  The CUDA-core dQ stages the mask per tile in
+//   shared memory; the tensor-core kernels read each thread's pairs.
 // - SEGS (`:245-247`, `:262-266`, `:309-311`, `:326-330`): a pair whose ids
 //   differ gets p = 0; the dQ block visits only the key tiles inside its
 //   query tile's id envelope, the dK/dV block only the query tiles inside
@@ -103,8 +131,8 @@
 //
 // Layout: q, k, v and dO are [B, S, H, D] with unit stride in D and stride
 // D between heads; batch and sequence strides are arguments, so slices of a
-// fused qkv projection need no copy (bf16: 16-byte-aligned rows, strides
-// a multiple of 8 elements, for the 16-byte copies).  lse, delta
+// fused qkv projection need no copy (the tensor-core kernels: 16-byte-
+// aligned rows, strides a multiple of 16 bytes, for the 16-byte copies).  lse, delta
 // (and m) are contiguous fp32 [B, H, Sq].  dq, dk, dv are contiguous
 // [B, S, H, D] in the input type.  Causal alignment is at the end (query i
 // sees keys <= i + Sk - Sq).
@@ -246,135 +274,6 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(
     T* op = dq + (((long long)b * Sq + qpos) * H + h) * D;
 #pragma unroll
     for (int i = 0; i < DP; ++i) op[sub + TPR * i] = from_f<T>(acc[i] * scale);
-  }
-}
-
-template <typename T, int D, bool MASKED, bool SEGS, bool CAUSAL>
-__global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const T* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    T* __restrict__ dk, T* __restrict__ dv, int H, int Sq, int Sk,
-    long long qsb, long long qss, long long ksb, long long kss,
-    long long vsb, long long vss, long long dsb, long long dss,
-    float scale, const Branches br) {
-  constexpr int DP = D / TPR;
-  __shared__ float qs[BT][D];
-  __shared__ float dos[BT][D];
-  __shared__ float ls[BT];
-  __shared__ float dls[BT];
-  __shared__ float mrs[MASKED ? BT : 1];
-  __shared__ float ms[MASKED ? BT : 1][BR + 1];   // mask tile, padded
-  __shared__ int qid[SEGS ? BT : 1];               // the query tile's ids
-  __shared__ int red[SEGS ? 2 * THREADS / 32 : 1];
-  const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, row = tid / TPR, sub = tid % TPR;
-  const int kpos = tile * BR + row;
-  const bool live = kpos < Sk;
-  const int kc = min(kpos, Sk - 1);
-  const int offset = Sk - Sq;
-  const int klen =
-      MASKED && br.kv_lens ? min(max(br.kv_lens[b], 0), Sk) : Sk;
-
-  float kr[DP], vr[DP], dka[DP], dva[DP];
-  const T* kp = k + b * ksb + (long long)kc * kss + h * D;
-  const T* vp = v + b * vsb + (long long)kc * vss + h * D;
-#pragma unroll
-  for (int i = 0; i < DP; ++i) {
-    kr[i] = to_f(kp[sub + TPR * i]);
-    vr[i] = to_f(vp[sub + TPR * i]);
-    dka[i] = 0.f;
-    dva[i] = 0.f;
-  }
-
-  const T* qb = q + b * qsb + h * D;
-  const T* db = dout + b * dsb + h * D;
-  const long long stat0 = ((long long)b * H + h) * Sq;
-  const float* mb =
-      MASKED && br.mask ? br.mask + b * br.msb + h * br.msh : nullptr;
-  const int* sb = SEGS ? br.segs + b * br.ssb : nullptr;
-  // causal: the first query that sees this block's first key, rounded down
-  // to a tile
-  int qstart = CAUSAL ? (max(tile * BR - offset, 0) / BT) * BT : 0;
-  int qend = MASKED && tile * BR >= klen ? 0 : Sq;   // keys past kv_len
-  int kid = 0;
-  if constexpr (SEGS) {
-    kid = sb[kc];
-    const int2 env = flash::seg_envelope<THREADS>(sb, Sq, kid, red);
-    qstart = max(qstart, env.x / BT * BT);
-    qend = min(qend, env.y);
-  }
-  for (int q0 = qstart; q0 < qend; q0 += BT) {
-    __syncthreads();   // the previous tile is no longer read
-    for (int e = tid; e < BT * D; e += THREADS) {
-      const int i = e / D, d = e % D, qpos = q0 + i;
-      float qv = 0.f, dv_ = 0.f;
-      if (qpos < Sq) {
-        qv = to_f(qb[qpos * qss + d]);
-        dv_ = to_f(db[qpos * dss + d]);
-      }
-      qs[i][d] = qv;
-      dos[i][d] = dv_;
-    }
-    if (tid < BT) {
-      const int qpos = q0 + tid;
-      ls[tid] = qpos < Sq ? lse[stat0 + qpos] : 0.f;
-      dls[tid] = qpos < Sq ? delta[stat0 + qpos] : 0.f;
-      if constexpr (MASKED) mrs[tid] = qpos < Sq ? br.rowmax[stat0 + qpos] : 0.f;
-      if constexpr (SEGS) qid[tid] = qpos < Sq ? sb[qpos] : 0;
-    }
-    if constexpr (MASKED) {
-      if (mb) {
-        for (int e = tid; e < BT * BR; e += THREADS) {
-          const int i = e / BR, c = e % BR, kk = tile * BR + c;
-          const long long qq = min(q0 + i, Sq - 1);
-          ms[i][c] = kk < Sk ? mb[qq * br.msq + kk * br.msk] : 0.f;
-        }
-      }
-    }
-    __syncthreads();
-
-    // unrolled by 4, the masked loop's three staged statistics and mask
-    // entries per query took 239-254 registers at D = 64 (one block per
-    // SM) and ran 8-17 % slower than rolled (121-128 registers)
-#pragma unroll (MASKED ? 1 : 4)
-    for (int i = 0; i < BT; ++i) {
-      float s = 0.f, dpv = 0.f;
-#pragma unroll
-      for (int c = 0; c < DP; ++c) {
-        s = fmaf(kr[c], qs[i][sub + TPR * c], s);
-        dpv = fmaf(vr[c], dos[i][sub + TPR * c], dpv);
-      }
-      s = row_sum(s);
-      dpv = row_sum(dpv);
-      const int qpos = q0 + i;
-      bool ok = live && qpos < Sq && (!CAUSAL || qpos + offset >= kpos);
-      if constexpr (MASKED) ok = ok && kpos < klen;
-      if constexpr (SEGS) ok = ok && qid[i] == kid;
-      float p;
-      if constexpr (MASKED) {
-        const float sc = mb ? s * scale + ms[i][row] : s * scale;
-        p = ok ? expf((sc - mrs[i]) - ls[i]) : 0.f;
-      } else {
-        p = ok ? expf(s * scale - ls[i]) : 0.f;
-      }
-      const float pb = round_to<T>(p);
-      const float ds = round_to<T>(p * (dpv - dls[i]));
-#pragma unroll
-      for (int c = 0; c < DP; ++c) {
-        dva[c] = fmaf(pb, dos[i][sub + TPR * c], dva[c]);
-        dka[c] = fmaf(ds, qs[i][sub + TPR * c], dka[c]);
-      }
-    }
-  }
-
-  if (live) {
-    const long long o = (((long long)b * Sk + kpos) * H + h) * D;
-#pragma unroll
-    for (int c = 0; c < DP; ++c) {
-      dk[o + sub + TPR * c] = from_f<T>(dka[c] * scale);
-      dv[o + sub + TPR * c] = from_f<T>(dva[c]);
-    }
   }
 }
 
@@ -743,6 +642,272 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_tc_kernel(
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// fp32 dK/dV: the split-TF32 tensor-core kernel (header comment)
+// ---------------------------------------------------------------------------
+
+namespace tc32 {
+
+using namespace flash_tc;
+
+constexpr int BKV = 64;         // keys per warpgroup
+
+// Per head size: warpgroups per block (each owns 64 keys and shares the
+// query tiles) and queries per tile.  The shared memory: K hi, K lo, V
+// hi, V lo ([64, D] per warpgroup, loaded once); the next query tile's Q
+// and dO as loaded (R); and four tiles X0..X3: Q hi, Q lo, dO hi, dO lo
+// ([BQ, D]) for S^T and dP^T, then overwritten by Q^T hi, Q^T lo, dO^T
+// hi, dO^T lo ([D, BQ]) for dK and dV.  All fp32, plus 1024 bytes of
+// slack to align the tiles for the swizzle, and the statistics of two
+// query tiles: D = 64, two warpgroups and 64-query tiles, 227 KB, all a
+// block may take (with MASKED and SEGS); D = 128, one warpgroup and
+// 32-query tiles, 226 KB.  Registers: 254-255 at D = 64 (up to 64 bytes
+// spilled with MASKED), 255 at D = 128 (390-510 bytes spilled: dK and
+// dV alone hold 128 a thread there).
+template <int D>
+struct Cfg {
+  static constexpr int WGS = D == 64 ? 2 : 1;
+  static constexpr int BQ = D == 64 ? 64 : 32;
+  static constexpr int THREADS = WGS * WG;
+  static constexpr uint32_t KT = BKV * D * 4, QT = BQ * D * 4;
+  static constexpr int SMEM = 4 * WGS * KT + 6 * QT + 1024;
+};
+
+template <int D, bool MASKED, bool SEGS, bool CAUSAL>
+__global__ void __launch_bounds__(Cfg<D>::THREADS) flash_bwd_dkv_tc32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ dk, float* __restrict__ dv, int H, int Sq, int Sk,
+    long long qsb, long long qss, long long ksb, long long kss,
+    long long vsb, long long vss, long long dsb, long long dss,
+    float scale, const Branches br) {
+  using C = Cfg<D>;
+  constexpr int BQ = C::BQ, WGS = C::WGS, THREADS = C::THREADS;
+  constexpr uint32_t KT = C::KT, QT = C::QT;
+  constexpr int NT = transpose_tasks<BQ, D, THREADS>;
+  extern __shared__ uint8_t smem[];
+  // the statistics (and ids) of two query tiles, by tile parity
+  __shared__ float ls[2][BQ], dls[2][BQ];
+  __shared__ float mrs[MASKED ? 2 : 1][MASKED ? BQ : 1];
+  __shared__ int qids[SEGS ? 2 : 1][SEGS ? BQ : 1];
+  // K hi of warpgroup w at skh + w KT, its K lo at skl + w KT; V likewise;
+  // the next tile's Q at rq and dO at rdo
+  const uint32_t base = smem_addr(smem);
+  const uint32_t skh = (base + 1023u) & ~1023u;
+  const uint32_t skl = skh + WGS * KT, svh = skl + WGS * KT;
+  const uint32_t svl = svh + WGS * KT, rq = svl + WGS * KT, rdo = rq + QT;
+  const uint32_t x0 = rdo + QT, x1 = x0 + QT, x2 = x1 + QT, x3 = x2 + QT;
+  // the id envelope's scratch, in X0 before the loop uses it (all 227 KB
+  // are taken)
+  int* const red = reinterpret_cast<int*>(smem + (x0 - base));
+  const int h = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
+  const int wg = tid / WG, wtid = tid % WG;
+  const int k0 = blockIdx.x * WGS * BKV, offset = Sk - Sq;
+  const int kw0 = k0 + wg * BKV;   // this warpgroup's first key
+  const int klen =
+      MASKED && br.kv_lens ? min(max(br.kv_lens[b], 0), Sk) : Sk;
+  // this thread's two key rows (accumulator values i with (i/2)%2 = r)
+  int kpos[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) kpos[r] = kw0 + acc_row(2 * r, wtid);
+
+  const float* qb = q + b * qsb + h * D;
+  const float* db = dout + b * dsb + h * D;
+  const long long stat0 = ((long long)b * H + h) * Sq;
+  const float* mb =
+      MASKED && br.mask ? br.mask + b * br.msb + h * br.msh : nullptr;
+  const int* sb = SEGS ? br.segs + b * br.ssb : nullptr;
+  // causal: the first query that sees this block's first key, rounded down
+  // to a tile; no query when every key lies past kv_len
+  int qstart = CAUSAL ? (max(k0 - offset, 0) / BQ) * BQ : 0;
+  int qend = MASKED && k0 >= klen ? 0 : Sq;
+  int kid[2] = {0, 0};
+  if constexpr (SEGS) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) kid[r] = sb[min(kpos[r], Sk - 1)];
+    const int2 env = flash::seg_envelope<THREADS>(
+        sb, Sq, min(kid[0], kid[1]), max(kid[0], kid[1]), red);
+    qstart = max(qstart, env.x / BQ * BQ);
+    qend = min(qend, env.y);
+  }
+  const int ntiles = qend > qstart ? (qend - qstart + BQ - 1) / BQ : 0;
+
+  // issue the copies of query tile `it` into R, and store its statistics
+  auto stage = [&](int it, int tid) {
+    const int q0 = qstart + it * BQ, st = it & 1;
+    load_tile_f32<BQ, D, THREADS>(rq, qb, qss, q0, Sq, tid);
+    load_tile_f32<BQ, D, THREADS>(rdo, db, dss, q0, Sq, tid);
+    if (tid < BQ) {
+      const int qp = q0 + tid;
+      const bool in = qp < Sq;
+      ls[st][tid] = in ? lse[stat0 + qp] : 0.f;
+      dls[st][tid] = in ? delta[stat0 + qp] : 0.f;
+      if constexpr (MASKED) mrs[st][tid] = in ? br.rowmax[stat0 + qp] : 0.f;
+      if constexpr (SEGS) qids[st][tid] = in ? sb[qp] : 0;
+    }
+  };
+#pragma unroll
+  for (int w = 0; w < WGS; ++w) {
+    load_tile_f32<BKV, D, THREADS>(skh + w * KT, k + b * ksb + h * D, kss,
+                                   k0 + w * BKV, Sk, tid);
+    load_tile_f32<BKV, D, THREADS>(svh + w * KT, v + b * vsb + h * D, vss,
+                                   k0 + w * BKV, Sk, tid);
+  }
+  cp_async_commit();
+  if (ntiles > 0) stage(0, tid);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();   // K and V have landed
+  split_tile<WGS * KT, THREADS>(skh, skh, skl, tid);
+  split_tile<WGS * KT, THREADS>(svh, svh, svl, tid);
+  const uint32_t wkh = skh + wg * KT, wkl = skl + wg * KT;
+  const uint32_t wvh = svh + wg * KT, wvl = svl + wg * KT;
+
+  float dka[D / 2], dva[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+  float s[BQ / 2], dp[BQ / 2];   // S^T and dP^T: rows keys, columns queries
+
+  // p (in s) and ds = p (dP - delta) (in dp) of query tile q0, parity st
+  auto probs = [&](int q0, int st, auto test) {
+    constexpr bool TEST = decltype(test)::value;
+#pragma unroll
+    for (int i = 0; i < BQ / 2; ++i) {
+      const int r = (i / 2) % 2, c = acc_col(i, wtid), qp = q0 + c;
+      float x = s[i] * scale;
+      float p;
+      if constexpr (MASKED) {
+        if (mb && (!TEST || (qp < Sq && kpos[r] < Sk)))
+          x += mb[(long long)qp * br.msq + (long long)kpos[r] * br.msk];
+        p = expf((x - mrs[st][c]) - ls[st][c]);
+      } else {
+        p = expf(x - ls[st][c]);
+      }
+      if constexpr (TEST) {
+        bool ok = qp < Sq && (!CAUSAL || qp + offset >= kpos[r]);
+        if constexpr (MASKED) ok = ok && kpos[r] < klen;
+        if constexpr (SEGS) ok = ok && qids[st][c] == kid[r];
+        p = ok ? p : 0.f;
+      }
+      s[i] = p;
+      dp[i] = p * (dp[i] - dls[st][c]);
+    }
+  };
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int q0 = qstart + it * BQ, st = it & 1;
+    const int tid = fresh_tid();   // tile addresses: recomputed, not kept
+    cp_async_wait<0>();
+    __syncthreads();   // tile it has landed in R; tile it - 1 is done
+    // Q and dO split into X0..X3, K-major as they were loaded
+    split_tile<QT, THREADS>(rq, x0, x1, tid);
+    split_tile<QT, THREADS>(rdo, x2, x3, tid);
+    fence_async_smem();
+    __syncthreads();   // the split tiles are visible to wgmma; R is read
+    if (it + 1 < ntiles) stage(it + 1, tid);
+    cp_async_commit();
+
+    // S^T = K Q^T and dP^T = V dO^T, the small terms first
+#pragma unroll
+    for (int i = 0; i < BQ / 2; ++i) s[i] = dp[i] = 0.f;
+    mma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      mma_tf32_ss<BQ>(s, desc_k<BKV>(wkl, kk), desc_k<BQ>(x0, kk));
+      mma_tf32_ss<BQ>(s, desc_k<BKV>(wkh, kk), desc_k<BQ>(x1, kk));
+      mma_tf32_ss<BQ>(s, desc_k<BKV>(wkh, kk), desc_k<BQ>(x0, kk));
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      mma_tf32_ss<BQ>(dp, desc_k<BKV>(wvl, kk), desc_k<BQ>(x2, kk));
+      mma_tf32_ss<BQ>(dp, desc_k<BKV>(wvh, kk), desc_k<BQ>(x3, kk));
+      mma_tf32_ss<BQ>(dp, desc_k<BKV>(wvh, kk), desc_k<BQ>(x2, kk));
+    }
+    mma_commit();
+    mma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // X0..X3 become Q^T and dO^T ([D, BQ], the queries permuted as the A
+    // fragments need), each from its hi + lo (exactly the value loaded)
+    float t[NT][8];
+    transpose_read<BQ, D, THREADS, true>(x0, x1, t, tid);
+    __syncthreads();   // every warp's products and reads of Q are done
+    transpose_write<BQ, D, THREADS>(t, x0, x1, tid);
+    transpose_read<BQ, D, THREADS, true>(x2, x3, t, tid);
+    __syncthreads();   // dO is read
+    transpose_write<BQ, D, THREADS>(t, x2, x3, tid);
+
+    if (SEGS || (MASKED && kw0 + BKV > klen) || q0 + BQ > Sq ||
+        (CAUSAL && q0 + offset < kw0 + BKV - 1))
+      probs(q0, st, std::true_type{});
+    else
+      probs(q0, st, std::false_type{});
+
+    fence_async_smem();
+    __syncthreads();   // the transposes are visible to wgmma
+
+    // dV += P^T dO, then dK += dS^T Q, the A operands from the
+    // accumulators: one product's fragments live at a time (both at once
+    // spilled hundreds of bytes at either D)
+    {
+      uint32_t ph[BQ / 8][4], pl[BQ / 8][4];
+#pragma unroll
+      for (int kk = 0; kk < BQ / 8; ++kk) tf32_a(ph[kk], pl[kk], s, kk);
+      fence_frag(ph);
+      fence_frag(pl);
+      mma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 8; ++kk) {
+        mma_tf32_rs<D>(dva, pl[kk], desc_k<D>(x2, kk));
+        mma_tf32_rs<D>(dva, ph[kk], desc_k<D>(x3, kk));
+        mma_tf32_rs<D>(dva, ph[kk], desc_k<D>(x2, kk));
+      }
+      mma_commit();
+      mma_wait<0>();
+      fence_regs(dva);
+      fence_frag(ph);
+      fence_frag(pl);
+    }
+    {
+      uint32_t dh[BQ / 8][4], dl[BQ / 8][4];
+#pragma unroll
+      for (int kk = 0; kk < BQ / 8; ++kk) tf32_a(dh[kk], dl[kk], dp, kk);
+      fence_frag(dh);
+      fence_frag(dl);
+      mma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 8; ++kk) {
+        mma_tf32_rs<D>(dka, dl[kk], desc_k<D>(x0, kk));
+        mma_tf32_rs<D>(dka, dh[kk], desc_k<D>(x1, kk));
+        mma_tf32_rs<D>(dka, dh[kk], desc_k<D>(x0, kk));
+      }
+      mma_commit();
+      mma_wait<0>();
+      fence_regs(dka);
+      fence_frag(dh);
+      fence_frag(dl);
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (kpos[r] >= Sk) continue;
+    const long long o = (((long long)b * Sk + kpos[r]) * H + h) * D;
+#pragma unroll
+    for (int i = 2 * r; i < D / 2; i += 4) {
+      const int c = acc_col(i, wtid);
+      *reinterpret_cast<float2*>(dk + o + c) =
+          make_float2(dka[i] * scale, dka[i + 1] * scale);
+      *reinterpret_cast<float2*>(dv + o + c) = make_float2(dva[i], dva[i + 1]);
+    }
+  }
+}
+
+}  // namespace tc32
+
 struct Args {
   const void *q, *k, *v, *dout, *lse, *delta;
   int B, H, Sq, Sk;
@@ -763,19 +928,6 @@ void launch_dq(const Args& a, void* dq) {
           static_cast<const float*>(a.delta), static_cast<T*>(dq), a.H,
           a.Sq, a.Sk, a.qsb, a.qss, a.ksb, a.kss, a.vsb, a.vss, a.dsb,
           a.dss, a.scale, a.br);
-}
-
-template <typename T, int D, bool MASKED, bool SEGS, bool CAUSAL>
-void launch_dkv(const Args& a, void* dk, void* dv) {
-  dim3 grid((a.Sk + BR - 1) / BR, a.H, a.B);
-  flash_bwd_dkv_kernel<T, D, MASKED, SEGS, CAUSAL>
-      <<<grid, THREADS, 0, a.stream>>>(
-          static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-          static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
-          static_cast<const float*>(a.lse),
-          static_cast<const float*>(a.delta), static_cast<T*>(dk),
-          static_cast<T*>(dv), a.H, a.Sq, a.Sk, a.qsb, a.qss, a.ksb, a.kss,
-          a.vsb, a.vss, a.dsb, a.dss, a.scale, a.br);
 }
 
 template <int D, bool MASKED, bool SEGS, bool CAUSAL>
@@ -812,9 +964,28 @@ void launch_dkv_tc(const Args& a, void* dk, void* dv) {
       a.qsb, a.qss, a.ksb, a.kss, a.vsb, a.vss, a.dsb, a.dss, a.scale, a.br);
 }
 
+template <int D, bool MASKED, bool SEGS, bool CAUSAL>
+void launch_dkv_tc32(const Args& a, void* dk, void* dv) {
+  constexpr int smem = tc32::Cfg<D>::SMEM;
+  auto* kernel = tc32::flash_bwd_dkv_tc32_kernel<D, MASKED, SEGS, CAUSAL>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  (void)attr;   // a refusal shows as the launch's error
+  using C = tc32::Cfg<D>;
+  const int keys = C::WGS * tc32::BKV;   // per block
+  dim3 grid((a.Sk + keys - 1) / keys, a.H, a.B);
+  kernel<<<grid, C::THREADS, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<float*>(dk), static_cast<float*>(dv), a.H, a.Sq, a.Sk,
+      a.qsb, a.qss, a.ksb, a.kss, a.vsb, a.vss, a.dsb, a.dss, a.scale, a.br);
+}
+
 // One launch of the dQ (dv null) or the dK/dV kernel for a head size and
 // type; cudaErrorInvalidValue for one the kernels do not take.  bf16 takes
-// the tensor-core kernels, fp32 the CUDA-core ones.
+// the bf16 tensor-core kernels; fp32 the split-TF32 dK/dV and the
+// CUDA-core dQ.
 template <bool MASKED, bool SEGS, bool CAUSAL>
 int dispatch(const Args& a, int D, int is_bf16, void* dq_or_dk, void* dv) {
   if (D != 64 && D != 128) return static_cast<int>(cudaErrorInvalidValue);
@@ -825,9 +996,9 @@ int dispatch(const Args& a, int D, int is_bf16, void* dq_or_dk, void* dv) {
       launch_dkv_tc<128, MASKED, SEGS, CAUSAL>(a, dq_or_dk, dv);
   } else if (dv) {
     if (D == 64)
-      launch_dkv<float, 64, MASKED, SEGS, CAUSAL>(a, dq_or_dk, dv);
+      launch_dkv_tc32<64, MASKED, SEGS, CAUSAL>(a, dq_or_dk, dv);
     else
-      launch_dkv<float, 128, MASKED, SEGS, CAUSAL>(a, dq_or_dk, dv);
+      launch_dkv_tc32<128, MASKED, SEGS, CAUSAL>(a, dq_or_dk, dv);
   } else if (is_bf16) {
     if (D == 64)
       launch_dq_tc<64, MASKED, SEGS, CAUSAL>(a, dq_or_dk);

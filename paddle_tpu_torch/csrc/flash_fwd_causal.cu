@@ -11,9 +11,10 @@
 // What bounds it on this card: at GPT-2 widths (D = 64, S <= 1024) one
 // layer's causal attention is 2*S^2*H*D FLOPs over 4*S*H*D*itemsize bytes,
 // about S/2 FLOPs per byte in fp32 and S FLOPs per byte in bf16 -- above
-// the H100's ridge point, so the tensor cores bound a fast kernel.
+// the H100's ridge point, so the tensor cores bound a fast kernel: bf16
+// at 989 TFLOP/s, fp32 at 495 / 3 (split TF32, below).
 //
-// Two designs behind the one entry:
+// Two designs behind the one entry, one per type:
 //
 // bf16: `flash_fwd_tc_kernel`, on the tensor cores (`flash_tc.cuh`).  One
 // block per (64-query tile, head, batch) is one warpgroup of 128 threads.
@@ -33,14 +34,40 @@
 // pair; the interior tiles below the diagonal go through the same step
 // with no per-element test.  The query tiles run longest first.
 //
-// fp32: `flash_fwd_causal_kernel`, the first design, on the CUDA cores
-// (fp32 FMAs; TF32 tensor cores would break the fp32 limits).  Bound by
-// the CUDA cores' fp32 rate and the shared-memory reads that feed the
-// FMAs.  One block per (64-query tile, head, batch).  Four threads share a
-// query row, each holding D/4 of q and of the fp32 accumulator in
-// registers (dims d = sub + 4*i, so the four lanes of a row read
-// consecutive shared-memory words).  Key/value tiles of 32 rows are staged
-// once per block in shared memory as fp32 and reused by all 64 rows.
+// fp32: `flash_fwd_tc32_kernel`, on the tensor cores in split TF32
+// (`flash_tc.cuh`, last section): each fp32 product is three TF32 `wgmma`
+// products (m64nNk8, fp32 accumulators) of the operands' hi and lo parts,
+// lo_a hi_b + hi_a lo_b + hi_a hi_b, hi = cvt.rna.tf32(x), lo = x - hi, as
+// close to the exact product as an fp32 product is (one TF32 pass of the
+// raw operands would keep ~3 digits and miss the fp32 limits).  The same
+// block shape as bf16: one warpgroup per (64-query tile, head, batch), the
+// same online softmax, masking and branches, the query tiles longest
+// first; p stays fp32 (split like any operand).  What differs:
+// - TF32 operands are K-major only (no transpose bit), so V, the B
+//   operand of P V, is written transposed by the threads, V^T [D, keys],
+//   split as it is written; the keys of each group of 8 are permuted
+//   there to match the A fragment the S accumulator gives in registers
+//   (`tf32_a`: P needs no shuffle).  K is split in place once its tile has
+//   landed, hi where it was loaded and lo over V's raw tile (already
+//   transposed), so a stage holds K and V once, not four tiles.
+// - D = 64: Q's hi and lo A fragments sit in registers (64 of them;
+//   S = Q K^T is RS), key tiles of 64 keys, two `cp.async` stages, 97 KB
+//   of shared memory: two blocks an SM.  D = 128: the O accumulator alone
+//   takes 64 registers, so Q's hi and lo are tiles in shared memory (SS),
+//   key tiles of 32 keys (K and V hi, lo for 64 keys would not fit two
+//   stages), two stages, 161 KB: one block an SM.
+// Per key tile: wait for its copy, start the next tile's copy, transpose
+// and split V, split K (a barrier between: K's lo overwrites V), S (3 x
+// D/8 `wgmma`s), the softmax, then P V (3 x BK/8), in two levels: the
+// tensor core truncates its fp32 sums (toward zero), and 3 BK/8 of those
+// a key tile into O for every tile of a 900-key row biased O by ~2e-5 of
+// its size, past the fp32 limit (2e-5 against the plain version, which
+// stays); so P V is summed per key tile in a fresh accumulator and added
+// to O on the CUDA cores (round to nearest).  Its A fragments are made
+// four k-steps at a time, so that the second accumulator fits: 252-255
+// registers at D = 64 (16-32 bytes spilled with MASKED and SEGS both),
+// 252-254 at D = 128.  S needs no second level: it is summed afresh for
+// every tile.
 //
 // In both the loop over key tiles stops at the diagonal, the online
 // softmax (max m, sum l) stays in fp32, and the ragged tile edge is
@@ -50,8 +77,8 @@
 //
 // Layout: q, k, v are [B, S, H, D] with unit stride in D and stride D
 // between heads; batch and sequence strides are arguments, so slices of a
-// fused qkv projection need no copy (bf16: 16-byte-aligned rows, strides
-// a multiple of 8 elements, for the 16-byte copies).  out is a contiguous
+// fused qkv projection need no copy (16-byte-aligned rows, strides a
+// multiple of 16 bytes, for the 16-byte copies).  out is a contiguous
 // [B, Sq, H, D] in the input type; lse is a contiguous fp32 [B, H, Sq].
 // Causal alignment is at the end (query i sees keys <= i + Sk - Sq), as in
 // the TPU kernel.
@@ -62,8 +89,7 @@
 // (`pallas_ops.py:162-173`, `:192-194`).  The fp32 mask is read through four
 // element strides (batch, head, query, key; a stride of 0 broadcasts, so
 // a [B, 1, 1, S] key-validity row expanded to [B, 1, S, S] costs no
-// copy), staged per tile in shared memory (fp32; the bf16 kernel reads
-// each thread's pairs), and added to the scaled score.  With kv_lens the
+// copy), read for each thread's pairs, and added to the scaled score.  With kv_lens the
 // key loop stops at the tile that holds key len - 1 and keys at or past
 // len are excluded.  Key tiles
 // are never skipped for a mask of -1e30: a left-pad query whose every key
@@ -76,9 +102,8 @@
 // the backward needs the pair to rebuild p = 1/n there.
 //
 // SEGS (`:174-176`, `:195-201`): the [B, S] int32 ids, shared by queries and
-// keys (self-attention), are read through their batch stride; the key
-// tile's ids are staged beside K/V (fp32; the bf16 kernel reads each
-// thread's columns) and a pair whose ids differ is excluded as a
+// keys (self-attention), are read through their batch stride, each
+// thread's columns, and a pair whose ids differ is excluded as a
 // causal-excluded key is (p = 0).  Key tiles outside the query tile's
 // id envelope -- the first to the last key whose id lies in [min, max] of
 // the tile's query ids, `_seg_kb_bounds` -- are not visited, so a packed
@@ -95,156 +120,7 @@
 
 namespace {
 
-using flash::from_f;
-using flash::to_f;
-
-constexpr int BQ = 64;              // query rows per block
-constexpr int BK = 32;              // keys per shared-memory tile
-constexpr int TPR = 4;              // threads per query row
-constexpr int THREADS = BQ * TPR;   // 256
 constexpr float NEG = -1e30f;
-
-// MASKED adds the additive mask and kv_lens branches, SEGS the segment ids;
-// CAUSAL limits each row to the keys up to its diagonal.  With MASKED and
-// SEGS false and CAUSAL true the arithmetic is that of the causal-only
-// kernel, unchanged.
-template <typename T, int D, bool MASKED, bool SEGS, bool CAUSAL>
-__global__ void __launch_bounds__(THREADS) flash_fwd_causal_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, T* __restrict__ out, float* __restrict__ lse,
-    float* __restrict__ rowmax, float* __restrict__ logsum,
-    const float* __restrict__ mask, const int* __restrict__ kv_lens,
-    const int* __restrict__ segs, int H, int Sq, int Sk, long long qsb,
-    long long qss, long long ksb, long long kss, long long vsb,
-    long long vss, long long msb, long long msh, long long msq,
-    long long msk, long long ssb, float scale) {
-  constexpr int DP = D / TPR;
-  // the logit of an excluded key: -1e30 as in the reference; -inf when
-  // masked, so that any finite mask value (-1e30 too) stays exact
-  const float none = MASKED ? -INFINITY : NEG;
-  __shared__ float ks[BK][D];
-  __shared__ float vs[BK][D];
-  __shared__ float ms[MASKED ? BQ : 1][BK + 1];   // mask tile, padded
-  __shared__ int kid[SEGS ? BK : 1];               // the key tile's ids
-  __shared__ int red[SEGS ? 2 * THREADS / 32 : 1];
-  const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, row = tid / TPR, sub = tid % TPR;
-  const int qpos = tile * BQ + row;
-  const int offset = Sk - Sq;
-  const int lim = qpos + offset;    // last key this row may attend (causal)
-  const int klen =
-      MASKED && kv_lens ? min(max(kv_lens[b], 0), Sk) : Sk;
-
-  float qr[DP], acc[DP];
-  const T* qp = q + b * qsb + (long long)min(qpos, Sq - 1) * qss + h * D;
-#pragma unroll
-  for (int i = 0; i < DP; ++i) {
-    qr[i] = to_f(qp[sub + TPR * i]);
-    acc[i] = 0.f;
-  }
-  float m = none, l = 0.f;
-
-  const T* kb = k + b * ksb + h * D;
-  const T* vb = v + b * vsb + h * D;
-  const float* mb = MASKED && mask ? mask + b * msb + h * msh : nullptr;
-  const int* sb = SEGS ? segs + b * ssb : nullptr;
-  int kbeg = 0;
-  int kend = CAUSAL ? min(klen, tile * BQ + BQ + offset) : klen;  // excl.
-  int qid = 0;
-  if constexpr (SEGS) {
-    qid = sb[min(qpos, Sq - 1)];
-    const int2 env = flash::seg_envelope<THREADS>(sb, Sk, qid, red);
-    kbeg = env.x / BK * BK;
-    kend = min(kend, env.y);
-  }
-  // whether this row attends key kp of the staged tile (its j-th)
-  auto allowed = [&](int kp, int j) {
-    bool ok = (!CAUSAL || kp <= lim) && kp < klen;
-    if constexpr (SEGS) ok = ok && kid[j] == qid;
-    return ok;
-  };
-  for (int k0 = kbeg; k0 < kend; k0 += BK) {
-    __syncthreads();   // the previous tile is no longer read
-    for (int e = tid; e < BK * D; e += THREADS) {
-      const int j = e / D, d = e % D, kp = k0 + j;
-      float kv = 0.f, vv = 0.f;
-      if (kp < Sk) {
-        kv = to_f(kb[kp * kss + d]);
-        vv = to_f(vb[kp * vss + d]);
-      }
-      ks[j][d] = kv;
-      vs[j][d] = vv;
-    }
-    if constexpr (MASKED) {
-      if (mb) {
-        for (int e = tid; e < BQ * BK; e += THREADS) {
-          const int rr = e / BK, j = e % BK, kp = k0 + j;
-          const long long qq = min(tile * BQ + rr, Sq - 1);
-          ms[rr][j] = kp < Sk ? mb[qq * msq + kp * msk] : 0.f;
-        }
-      }
-    }
-    if constexpr (SEGS) {
-      if (tid < BK) kid[tid] = k0 + tid < Sk ? sb[k0 + tid] : 0;
-    }
-    __syncthreads();
-
-    float s[BK];
-    float tmax = none;
-    // bit j: this row attends the tile's j-th key.  Testing once and
-    // keeping the bits holds the masked and segment instantiations to the
-    // causal kernel's registers (<= 128 at D = 64, two blocks per SM);
-    // re-testing in the loop below took 173-194.
-    unsigned okbits = 0u;
-#pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      float part = 0.f;
-#pragma unroll
-      for (int i = 0; i < DP; ++i) part = fmaf(qr[i], ks[j][sub + TPR * i], part);
-      part += __shfl_xor_sync(0xffffffffu, part, 1);
-      part += __shfl_xor_sync(0xffffffffu, part, 2);
-      const int kp = k0 + j;
-      float sc = part * scale;
-      if constexpr (MASKED) {
-        if (mb) sc += ms[row][j];
-      }
-      const bool ok = allowed(kp, j);
-      okbits |= (ok ? 1u : 0u) << j;
-      s[j] = ok ? sc : none;
-      tmax = fmaxf(tmax, s[j]);
-    }
-    const float mnew = fmaxf(m, tmax);
-    const float alpha =
-        MASKED && mnew == -INFINITY ? 1.f : expf(m - mnew);
-    float psum = 0.f;
-#pragma unroll
-    for (int i = 0; i < DP; ++i) acc[i] *= alpha;
-#pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      const float p = (okbits >> j) & 1u ? expf(s[j] - mnew) : 0.f;
-      psum += p;
-#pragma unroll
-      for (int i = 0; i < DP; ++i) acc[i] = fmaf(p, vs[j][sub + TPR * i], acc[i]);
-    }
-    l = l * alpha + psum;
-    m = mnew;
-  }
-
-  if (qpos < Sq) {
-    const float ls = fmaxf(l, 1e-30f);
-    T* op = out + (((long long)b * Sq + qpos) * H + h) * D;
-#pragma unroll
-    for (int i = 0; i < DP; ++i) op[sub + TPR * i] = from_f<T>(acc[i] / ls);
-    if (sub == 0) {
-      const long long r = ((long long)b * H + h) * Sq + qpos;
-      lse[r] = m + logf(ls);
-      if constexpr (MASKED) {
-        rowmax[r] = m;
-        logsum[r] = logf(ls);
-      }
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // bf16: the tensor-core kernel (header comment)
@@ -438,6 +314,265 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_tc_kernel(
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// fp32: the split-TF32 tensor-core kernel (header comment)
+// ---------------------------------------------------------------------------
+
+namespace tc32 {
+
+using namespace flash_tc;
+
+constexpr int BQ = 64;          // query rows per block: one warpgroup
+constexpr int THREADS = WG;     // 128
+constexpr int PCH = 4;          // k-steps of P V per set of A fragments
+
+// Per head size: keys per tile, and whether Q's A fragments sit in
+// registers (D = 64) or Q's hi and lo tiles in shared memory (D = 128,
+// where the O accumulator alone takes 64 registers).  The shared memory:
+// Q hi and lo (D = 128), two stages of K and V as loaded, then V^T hi and
+// lo, all fp32, plus 1024 bytes of slack to align the tiles for the
+// swizzle: 97 KB at D = 64 (two blocks an SM), 161 KB at D = 128.
+template <int D>
+struct Cfg {
+  static constexpr int BK = D == 64 ? 64 : 32;
+  static constexpr bool QREG = D == 64;
+  static constexpr uint32_t KT = BK * D * 4;   // one [BK, D] or [D, BK] tile
+  static constexpr uint32_t QT = QREG ? 0 : BQ * D * 4;
+  static constexpr int SMEM = 2 * QT + 6 * KT + 1024;
+};
+
+template <int D, bool MASKED, bool SEGS, bool CAUSAL>
+__global__ void __launch_bounds__(THREADS) flash_fwd_tc32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ out,
+    float* __restrict__ lse, float* __restrict__ rowmax,
+    float* __restrict__ logsum, const float* __restrict__ mask,
+    const int* __restrict__ kv_lens, const int* __restrict__ segs, int H,
+    int Sq, int Sk, long long qsb, long long qss, long long ksb,
+    long long kss, long long vsb, long long vss, long long msb,
+    long long msh, long long msq, long long msk, long long ssb,
+    float scale) {
+  using C = Cfg<D>;
+  constexpr int BK = C::BK;
+  constexpr uint32_t KT = C::KT, QT = C::QT;
+  extern __shared__ uint8_t smem[];
+  __shared__ int red[SEGS ? 2 * THREADS / 32 : 1];
+  // Q hi at sqh, lo at sqh + QT; stage st holds K at sk0 + 2 KT st and V
+  // after it (once split: K hi in K's place, K lo in V's); V^T hi at svh,
+  // lo at svl
+  const uint32_t sqh = (smem_addr(smem) + 1023u) & ~1023u;
+  const uint32_t sk0 = sqh + 2 * QT, svh = sk0 + 4 * KT, svl = svh + KT;
+  const int tile = gridDim.x - 1 - blockIdx.x;   // longest rows first
+  const int h = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
+  const int q0 = tile * BQ, offset = Sk - Sq;
+  const int klen = MASKED && kv_lens ? min(max(kv_lens[b], 0), Sk) : Sk;
+  // this thread's two query rows (accumulator values i with (i/2)%2 = r)
+  int qpos[2], lim[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    qpos[r] = q0 + acc_row(2 * r, tid);
+    lim[r] = qpos[r] + offset;   // last key the row may attend (causal)
+  }
+
+  const float* qb = q + b * qsb + h * D;
+  const float* kb = k + b * ksb + h * D;
+  const float* vb = v + b * vsb + h * D;
+  const float* mb = MASKED && mask ? mask + b * msb + h * msh : nullptr;
+  const int* sb = SEGS ? segs + b * ssb : nullptr;
+  int kbeg = 0;
+  int kend = CAUSAL ? min(klen, q0 + BQ + offset) : klen;   // exclusive
+  int qid[2] = {0, 0};
+  if constexpr (SEGS) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) qid[r] = sb[min(qpos[r], Sq - 1)];
+    const int2 env = flash::seg_envelope<THREADS>(
+        sb, Sk, min(qid[0], qid[1]), max(qid[0], qid[1]), red);
+    kbeg = env.x / BK * BK;
+    kend = min(kend, env.y);
+  }
+  const int ntiles = kend > kbeg ? (kend - kbeg + BK - 1) / BK : 0;
+
+  // Q: hi and lo A fragments of its 8-wide column slices (D = 64; rows
+  // past Sq are zeros), or its tile, split in place below
+  uint32_t qh[C::QREG ? D / 8 : 1][4], ql[C::QREG ? D / 8 : 1][4];
+  if constexpr (C::QREG) {
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int row = qpos[j & 1], col = 8 * kk + tid % 4 + 4 * (j >> 1);
+        const float x = row < Sq ? qb[(long long)row * qss + col] : 0.f;
+        const float hi = tf32_rna(x);
+        qh[kk][j] = __float_as_uint(hi);
+        ql[kk][j] = __float_as_uint(x - hi);
+      }
+    }
+  } else {
+    load_tile_f32<BQ, D, THREADS>(sqh, qb, qss, q0, Sq, tid);
+  }
+  cp_async_commit();
+  if (ntiles > 0) {
+    load_tile_f32<BK, D, THREADS>(sk0, kb, kss, kbeg, Sk, tid);
+    load_tile_f32<BK, D, THREADS>(sk0 + KT, vb, vss, kbeg, Sk, tid);
+  }
+  cp_async_commit();
+  if constexpr (!C::QREG) {
+    cp_async_wait<1>();
+    __syncthreads();   // Q has landed
+    split_tile<QT, THREADS>(sqh, sqh, sqh + QT, tid);
+  }
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  // running max and (this thread's part of the) sum of each row; an
+  // excluded key is -inf, and the max starts at -1e30 (-inf when MASKED,
+  // so that any finite mask value stays exact)
+  float m[2] = {MASKED ? -INFINITY : NEG, MASKED ? -INFINITY : NEG};
+  float l[2] = {0.f, 0.f};
+  float s[BK / 2];
+
+  // scale, mask and (TEST) exclude the scores of key tile k0 in s
+  auto score = [&](int k0, auto test) {
+    constexpr bool TEST = decltype(test)::value;
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      const int r = (i / 2) % 2, kp = k0 + acc_col(i, tid);
+      float x = s[i] * scale;
+      if constexpr (MASKED) {
+        if (mb && (!TEST || kp < Sk))
+          x += mb[(long long)min(qpos[r], Sq - 1) * msq + kp * msk];
+      }
+      if constexpr (TEST) {
+        bool ok = (!CAUSAL || kp <= lim[r]) && kp < klen;
+        if constexpr (SEGS) ok = ok && sb[min(kp, Sk - 1)] == qid[r];
+        x = ok ? x : -INFINITY;
+      }
+      s[i] = x;
+    }
+  };
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int k0 = kbeg + it * BK;
+    const uint32_t sk = sk0 + 2 * KT * (it & 1), sv = sk + KT;
+    cp_async_wait<0>();
+    __syncthreads();   // tile it has landed; tile it - 1 is no longer read
+    if (it + 1 < ntiles) {
+      const uint32_t nk = sk0 + 2 * KT * ((it + 1) & 1);
+      load_tile_f32<BK, D, THREADS>(nk, kb, kss, k0 + BK, Sk, tid);
+      load_tile_f32<BK, D, THREADS>(nk + KT, vb, vss, k0 + BK, Sk, tid);
+    }
+    cp_async_commit();
+    // V as V^T hi and lo; then K split in place, its lo over V
+    transpose_split<BK, D, THREADS>(sv, svh, svl, tid);
+    __syncthreads();   // V has been read
+    split_tile<KT, THREADS>(sk, sk, sv, tid);
+    fence_async_smem();
+    __syncthreads();   // the split tiles are visible to wgmma
+
+    // S = Q K^T: Q_lo K_hi + Q_hi K_lo + Q_hi K_hi
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
+    mma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      if constexpr (C::QREG) {
+        mma_tf32_rs<BK>(s, ql[kk], desc_k<BK>(sk, kk));
+        mma_tf32_rs<BK>(s, qh[kk], desc_k<BK>(sv, kk));
+        mma_tf32_rs<BK>(s, qh[kk], desc_k<BK>(sk, kk));
+      } else {
+        mma_tf32_ss<BK>(s, desc_k<BQ>(sqh + QT, kk), desc_k<BK>(sk, kk));
+        mma_tf32_ss<BK>(s, desc_k<BQ>(sqh, kk), desc_k<BK>(sv, kk));
+        mma_tf32_ss<BK>(s, desc_k<BQ>(sqh, kk), desc_k<BK>(sk, kk));
+      }
+    }
+    mma_commit();
+    mma_wait<0>();
+    fence_regs(s);
+
+    if (SEGS || k0 + BK > klen || (CAUSAL && k0 + BK - 1 > q0 + offset))
+      score(k0, std::true_type{});
+    else
+      score(k0, std::false_type{});
+
+    // online softmax on the fragments
+    float mx[2] = {m[0], m[1]}, base[2];
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i)
+      mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], s[i]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = quad_max(mx[r]);
+      const bool empty = MASKED && mx[r] == -INFINITY;   // no key yet
+      const float alpha = empty ? 1.f : expf(m[r] - mx[r]);
+      base[r] = empty ? 0.f : mx[r];
+      m[r] = mx[r];
+      l[r] *= alpha;
+#pragma unroll
+      for (int i = 2 * r; i < D / 2; i += 4) {
+        o[i] *= alpha;
+        o[i + 1] *= alpha;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      s[i] = expf(s[i] - base[(i / 2) % 2]);
+      l[(i / 2) % 2] += s[i];
+    }
+    // O += P V: P_lo V_hi + P_hi V_lo + P_hi V_hi, P from registers, summed
+    // per key tile in pv and added to O in fp32 (two-level: header), the
+    // A fragments made and used PCH k-steps at a time
+    float pv[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) pv[i] = 0.f;
+#pragma unroll
+    for (int k8 = 0; k8 < BK / 8; k8 += PCH) {
+      uint32_t ph[PCH][4], pl[PCH][4];
+#pragma unroll
+      for (int j = 0; j < PCH; ++j) tf32_a(ph[j], pl[j], s, k8 + j);
+      fence_frag(ph);
+      fence_frag(pl);
+      mma_fence();
+#pragma unroll
+      for (int j = 0; j < PCH; ++j) {
+        mma_tf32_rs<D>(pv, pl[j], desc_k<D>(svh, k8 + j));
+        mma_tf32_rs<D>(pv, ph[j], desc_k<D>(svl, k8 + j));
+        mma_tf32_rs<D>(pv, ph[j], desc_k<D>(svh, k8 + j));
+      }
+      mma_commit();
+      mma_wait<0>();
+      fence_regs(pv);
+      fence_frag(ph);
+      fence_frag(pl);
+    }
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] += pv[i];
+  }
+  cp_async_wait<0>();
+
+  float* ob = out + ((long long)b * Sq * H + h) * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float ls = fmaxf(quad_sum(l[r]), 1e-30f);
+    if (qpos[r] >= Sq) continue;
+    float* op = ob + (long long)qpos[r] * H * D;
+#pragma unroll
+    for (int i = 2 * r; i < D / 2; i += 4)
+      *reinterpret_cast<float2*>(op + acc_col(i, tid)) =
+          make_float2(o[i] / ls, o[i + 1] / ls);
+    if (tid % 4 == 0) {
+      const long long row = ((long long)b * H + h) * Sq + qpos[r];
+      lse[row] = m[r] + logf(ls);
+      if constexpr (MASKED) {
+        rowmax[row] = m[r];
+        logsum[row] = logf(ls);
+      }
+    }
+  }
+}
+
+}  // namespace tc32
+
 struct Args {
   const void *q, *k, *v;
   void *out, *lse, *rowmax, *logsum;
@@ -448,19 +583,6 @@ struct Args {
   float scale;
   cudaStream_t stream;
 };
-
-template <typename T, int D, bool MASKED, bool SEGS, bool CAUSAL>
-void launch(const Args& a) {
-  dim3 grid((a.Sq + BQ - 1) / BQ, a.H, a.B);
-  flash_fwd_causal_kernel<T, D, MASKED, SEGS, CAUSAL>
-      <<<grid, THREADS, 0, a.stream>>>(
-          static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-          static_cast<const T*>(a.v), static_cast<T*>(a.out),
-          static_cast<float*>(a.lse), static_cast<float*>(a.rowmax),
-          static_cast<float*>(a.logsum), a.mask, a.kv_lens, a.segs, a.H,
-          a.Sq, a.Sk, a.qsb, a.qss, a.ksb, a.kss, a.vsb, a.vss, a.msb, a.msh,
-          a.msq, a.msk, a.ssb, a.scale);
-}
 
 template <int D, bool MASKED, bool SEGS, bool CAUSAL>
 void launch_tc(const Args& a) {
@@ -480,17 +602,34 @@ void launch_tc(const Args& a) {
       a.msk, a.ssb, a.scale);
 }
 
-// bf16 takes the tensor-core kernel, fp32 the CUDA-core one.
+template <int D, bool MASKED, bool SEGS, bool CAUSAL>
+void launch_tc32(const Args& a) {
+  constexpr int smem = tc32::Cfg<D>::SMEM;
+  auto* kernel = tc32::flash_fwd_tc32_kernel<D, MASKED, SEGS, CAUSAL>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  (void)attr;   // a refusal shows as the launch's error
+  dim3 grid((a.Sq + tc32::BQ - 1) / tc32::BQ, a.H, a.B);
+  kernel<<<grid, tc32::THREADS, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<float*>(a.out),
+      static_cast<float*>(a.lse), static_cast<float*>(a.rowmax),
+      static_cast<float*>(a.logsum), a.mask, a.kv_lens, a.segs, a.H, a.Sq,
+      a.Sk, a.qsb, a.qss, a.ksb, a.kss, a.vsb, a.vss, a.msb, a.msh, a.msq,
+      a.msk, a.ssb, a.scale);
+}
+
+// bf16 takes the bf16 tensor-core kernel, fp32 the split-TF32 one.
 template <bool MASKED, bool SEGS, bool CAUSAL>
 int dispatch(const Args& a, int D, int is_bf16) {
   if (D == 64 && is_bf16)
     launch_tc<64, MASKED, SEGS, CAUSAL>(a);
   else if (D == 64)
-    launch<float, 64, MASKED, SEGS, CAUSAL>(a);
+    launch_tc32<64, MASKED, SEGS, CAUSAL>(a);
   else if (D == 128 && is_bf16)
     launch_tc<128, MASKED, SEGS, CAUSAL>(a);
   else if (D == 128)
-    launch<float, 128, MASKED, SEGS, CAUSAL>(a);
+    launch_tc32<128, MASKED, SEGS, CAUSAL>(a);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

@@ -1,6 +1,6 @@
-// Tensor-core machinery shared by the bf16 flash kernels
-// (flash_fwd_causal.cu, flash_bwd_causal.cu) and the bf16 FFN's products
-// (fused_ffn_tc.cu): Hopper's warpgroup matrix
+// Tensor-core machinery shared by the flash kernels (flash_fwd_causal.cu,
+// flash_bwd_causal.cu: bf16, and split TF32 for fp32 -- the last section)
+// and the bf16 FFN's products (fused_ffn_tc.cu): Hopper's warpgroup matrix
 // multiply (`wgmma.mma_async`, sm_90a) fed from 128-byte-swizzled shared
 // memory, asynchronous 16-byte copies into that layout, and the helpers
 // that name the (row, column) of each accumulator register.
@@ -359,6 +359,304 @@ __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
   return x;
+}
+
+// ---------------------------------------------------------------------------
+// float32 operands: split TF32 (the float32 flash forward and dK/dV)
+// ---------------------------------------------------------------------------
+//
+// A TF32 `wgmma` (m64nNk8, fp32 accumulators) reads 19 bits of each fp32
+// operand (sign, exponent, 10 mantissa bits) and drops the low 13.  An
+// fp32 product A B is taken as three of them:
+//
+//     A B ~ A_lo B_hi + A_hi B_lo + A_hi B_hi,   x_hi = rna_tf32(x),
+//                                                x_lo = x - x_hi (exact)
+//
+// (the small terms first).  x_hi has its low 13 bits zero, so the
+// hardware reads it as it is; it truncates x_lo to 11 significant bits,
+// and A_lo B_lo (~2^-22 of |A||B|) is left out: the sum is as close to
+// the exact product as an fp32 product with fp32 sums is
+// (tests/test_torch_port_tf32.py), where one pass of raw operands keeps
+// ~3 decimal digits.
+//
+// For .tf32 `wgmma` takes A and B from shared memory only K-major (the
+// transpose bits exist for f16 / bf16 alone).  An fp32 tile of ROWS rows of
+// D floats uses the same 128-byte-swizzled layout and descriptors as a bf16
+// tile of 2D columns: `load_tile_f32`, `desc_k` (a k-step of 8 fp32 is 32
+// bytes, as a k-step of 16 bf16 is).  A B operand whose reduction runs
+// along the rows of its source (V in P V; dO and Q in P^T dO and dS^T Q)
+// is written transposed by the threads (`transpose_split`).
+//
+// The A fragment from registers (m64k8 tf32, four 32-bit registers) holds
+// rows 16 (t/32) + (t%32)/4 + {0, 8} and columns t%4 and t%4 + 4 of each
+// 8-wide slice, while an accumulator holds columns 2 (t%4) + {0, 1}: the
+// values 4k .. 4k+3 of a 64 x N accumulator, taken in the order 4k, 4k+2,
+// 4k+1, 4k+3, are the A fragment of its k-th 8-wide slice with the
+// columns of the slice permuted (`tf32_a`).  The B tile matches it: within
+// each group of 8 reduction indices, position p holds index 2p (p < 4) or
+// 2 (p - 4) + 1, which `transpose_split` writes.  The sum over the
+// reduction does not depend on its order beyond fp32 rounding.
+
+// x rounded to TF32, ties away from zero (`cvt.rna.tf32.f32`), as the bits
+// of an fp32 value whose low 13 bits are zero.
+__device__ __forceinline__ float tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
+
+// threadIdx.x read afresh where it is called, so that the compiler
+// recomputes what derives from it inside a loop instead of keeping it in
+// registers across the loop (addresses of a tile's tasks: the kernels
+// that call this are short of registers).
+__device__ __forceinline__ int fresh_tid() {
+  int t;
+  asm volatile("mov.u32 %0, %%tid.x;\n" : "=r"(t));
+  return t;
+}
+
+// fp32 words of shared memory by their shared-window address.
+__device__ __forceinline__ float lds32(uint32_t a) {
+  float x;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(x) : "r"(a) : "memory");
+  return x;
+}
+__device__ __forceinline__ float4 lds128(uint32_t a) {
+  float4 x;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(x.x), "=f"(x.y), "=f"(x.z), "=f"(x.w)
+               : "r"(a)
+               : "memory");
+  return x;
+}
+__device__ __forceinline__ void sts128(uint32_t a, float4 x) {
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(a),
+               "f"(x.x), "f"(x.y), "f"(x.z), "f"(x.w)
+               : "memory");
+}
+
+// hi and lo of four values: hi = tf32_rna(x), lo = x - hi.
+__device__ __forceinline__ void split4(float4 x, float4& hi, float4& lo) {
+  hi = make_float4(tf32_rna(x.x), tf32_rna(x.y), tf32_rna(x.z),
+                   tf32_rna(x.w));
+  lo = make_float4(x.x - hi.x, x.y - hi.y, x.z - hi.z, x.w - hi.w);
+}
+
+// Copy rows row0 .. row0 + ROWS - 1 of a [n, D] fp32 matrix (row stride
+// `stride` elements, 16-byte aligned rows) into the swizzled tile at `dst`
+// (the layout of a bf16 tile of 2D columns); rows at or past n are
+// zero-filled.  All THREADS threads call.
+template <int ROWS, int D, int THREADS>
+__device__ __forceinline__ void load_tile_f32(uint32_t dst, const float* g,
+                                              long long stride, int row0,
+                                              int n, int tid) {
+  load_tile<ROWS, 2 * D, THREADS>(
+      dst, reinterpret_cast<const __nv_bfloat16*>(g), 2 * stride, row0, n,
+      tid);
+}
+
+// Split the BYTES-byte fp32 tile at `src` into hi and lo tiles of the
+// same layout (any layout: the split is per element; hi may be src).
+template <int BYTES, int THREADS>
+__device__ __forceinline__ void split_tile(uint32_t src, uint32_t hi,
+                                           uint32_t lo, int tid) {
+  static_assert(BYTES % (16 * THREADS) == 0, "tile must split evenly");
+#pragma unroll 4
+  for (int off = 16 * tid; off < BYTES; off += 16 * THREADS) {
+    float4 h, l;
+    split4(lds128(src + off), h, l);
+    sts128(hi + off, h);
+    sts128(lo + off, l);
+  }
+}
+
+// Transposing an [R, C] fp32 tile (swizzled, R rows) into [C, R] hi and lo
+// tiles (swizzled, C rows), the R index permuted within each group of 8 as
+// the A fragment needs (header), in two halves, so that the transpose may
+// overwrite its source between them.  A task is one column c and one
+// group of 8 rows: eight 4-byte reads (the 32 lanes of a warp read 32
+// columns of one row: no bank conflict), four 16-byte writes (eight lanes
+// write one chunk of eight rows: none either).  A thread holds NT tasks.
+template <int R, int C, int THREADS>
+constexpr int transpose_tasks = C * (R / 8) / THREADS;
+
+// Read this thread's tasks of the tile at `a`, plus the tile at `b` when
+// SUM (hi + lo gives back the split value exactly).
+template <int R, int C, int THREADS, bool SUM, int NT>
+__device__ __forceinline__ void transpose_read(uint32_t a, uint32_t b,
+                                               float (&x)[NT][8], int tid) {
+  static_assert(C * (R / 8) == NT * THREADS, "tile must split evenly");
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    const int task = tid + t * THREADS, c = task % C, g = task / C;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const uint32_t off = swz<R>(8 * g + j, c / 4) + (c % 4) * 4;
+      x[t][j] = SUM ? lds32(a + off) + lds32(b + off) : lds32(a + off);
+    }
+  }
+}
+
+// Write this thread's tasks, split, as the transposed hi and lo tiles.
+template <int R, int C, int THREADS, int NT>
+__device__ __forceinline__ void transpose_write(const float (&x)[NT][8],
+                                                uint32_t hi, uint32_t lo,
+                                                int tid) {
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    const int task = tid + t * THREADS, c = task % C, g = task / C;
+    float4 eh, el, oh, ol;
+    split4(make_float4(x[t][0], x[t][2], x[t][4], x[t][6]), eh, el);
+    split4(make_float4(x[t][1], x[t][3], x[t][5], x[t][7]), oh, ol);
+    sts128(hi + swz<C>(c, 2 * g), eh);
+    sts128(hi + swz<C>(c, 2 * g + 1), oh);
+    sts128(lo + swz<C>(c, 2 * g), el);
+    sts128(lo + swz<C>(c, 2 * g + 1), ol);
+  }
+}
+
+// The [R, C] tile at `raw` as its transposed hi and lo tiles, elsewhere.
+template <int R, int C, int THREADS>
+__device__ __forceinline__ void transpose_split(uint32_t raw, uint32_t hi,
+                                                uint32_t lo, int tid) {
+  float x[transpose_tasks<R, C, THREADS>][8];
+  transpose_read<R, C, THREADS, false>(raw, raw, x, tid);
+  transpose_write<R, C, THREADS>(x, hi, lo, tid);
+}
+
+// Keep the compiler from computing A fragments after the products that
+// read them have been issued, or reusing their registers before the
+// products are done (it cannot see `wgmma` read them asynchronously):
+// called before `mma_fence` and after `mma_wait`.
+template <int M>
+__device__ __forceinline__ void fence_frag(uint32_t (&a)[M][4]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+// hi and lo A fragments of the k-th 8-wide column slice of a 64 x N
+// accumulator, its columns permuted (header).
+template <int N>
+__device__ __forceinline__ void tf32_a(uint32_t (&hi)[4], uint32_t (&lo)[4],
+                                       const float (&d)[N], int k) {
+  const float x[4] = {d[4 * k], d[4 * k + 2], d[4 * k + 1], d[4 * k + 3]};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float h = tf32_rna(x[j]);
+    hi[j] = __float_as_uint(h);
+    lo[j] = __float_as_uint(x[j] - h);
+  }
+}
+
+// d += A B, m64n32k8 tf32, A and B from shared memory (K-major).
+__device__ __forceinline__ void mma_tf32_ss_n32(float (&d)[16], uint64_t da,
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d += A B, m64n64k8 tf32, A and B from shared memory (K-major).
+__device__ __forceinline__ void mma_tf32_ss_n64(float (&d)[32], uint64_t da,
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d += A B, m64n64k8 tf32, A from registers (the tf32 fragment: `tf32_a`),
+// B from shared memory (K-major).
+__device__ __forceinline__ void mma_tf32_rs_n64(float (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A B, m64n128k8 tf32, A from registers (the tf32 fragment: `tf32_a`),
+// B from shared memory (K-major).
+__device__ __forceinline__ void mma_tf32_rs_n128(float (&d)[64],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A B, both from shared memory, N = 32 or 64.
+template <int N>
+__device__ __forceinline__ void mma_tf32_ss(float (&d)[N / 2], uint64_t da,
+                                            uint64_t db) {
+  if constexpr (N == 32)
+    mma_tf32_ss_n32(d, da, db);
+  else
+    mma_tf32_ss_n64(d, da, db);
+}
+
+// d += A B, A from registers, N = 64 or 128.
+template <int N>
+__device__ __forceinline__ void mma_tf32_rs(float (&d)[N / 2],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  if constexpr (N == 64)
+    mma_tf32_rs_n64(d, a, db);
+  else
+    mma_tf32_rs_n128(d, a, db);
 }
 
 }  // namespace flash_tc

@@ -18,16 +18,22 @@ Each source has one entry per kernel, which picks the template
 instantiation (``MASKED`` for a mask and / or ``kv_lens``, ``SEGS``,
 ``CAUSAL``) from the branches it is given, and the design from the type:
 in bfloat16 all three run on the tensor cores (``wgmma``,
-``csrc/flash_tc.cuh``), in float32 on the CUDA cores.  Each wrapper counts
+``csrc/flash_tc.cuh``); in float32 the forward and dK/dV run on the
+tensor cores too, each fp32 product as three TF32 products of the
+operands' hi and lo parts (split TF32, as accurate as fp32 products:
+``flash_tc.cuh``), and dQ on the CUDA cores.  Each wrapper counts
 the causal launches with no mask, ``kv_lens`` or segments (the serving
 prefill and unpacked training) under the kernel's name, and the others
 apart, by the first of: ``segs`` (any call with segment ids), ``mask`` (a
 mask or ``kv_lens``), ``noncausal``.  The tensor-core launches are counted
-once more, apart, under ``flash_fwd_causal:tc``, ``flash_bwd_dq_causal:tc``
-and ``flash_bwd_dkv_causal:tc`` (any branch).  The tensor-core kernels copy 16-byte rows: a bfloat16 call
-on the card needs q, k, v (and dO) to start on 16 bytes, with batch and
-sequence strides that are multiples of 8 elements (the slices of a fused
-``[B, S, 3, H, D]`` projection are); anything else raises.
+once more, apart, any branch: bfloat16 under ``flash_fwd_causal:tc``,
+``flash_bwd_dq_causal:tc`` and ``flash_bwd_dkv_causal:tc``, float32 under
+``flash_fwd_causal:tc32`` and ``flash_bwd_dkv_causal:tc32``.  The
+tensor-core kernels copy 16-byte rows: on the card q, k, v (and dO) must
+start on 16 bytes, with batch and sequence strides of a multiple of 16
+bytes (8 bfloat16 or 4 float32 elements; the slices of a fused
+``[B, S, 3, H, D]`` projection are), for every bfloat16 kernel and the
+float32 forward and dK/dV; anything else raises.
 
 The softmax statistic the backward reads is the logsumexp, except with a
 mask or ``kv_lens``: there it is the pair (row max ``m``, ``log l``), which
@@ -75,6 +81,7 @@ masked = _Variant(KERNEL + ":mask", SOURCE)
 segs = _Variant(KERNEL + ":segs", SOURCE)
 noncausal = _Variant(KERNEL + ":noncausal", SOURCE)
 tc = _Variant(KERNEL + ":tc", SOURCE)   # bf16: the tensor-core kernel
+tc32 = _Variant(KERNEL + ":tc32", SOURCE)   # fp32: the split-TF32 kernel
 _FWD_VARIANTS = {"mask": masked, "segs": segs, "noncausal": noncausal}
 
 
@@ -249,7 +256,7 @@ def flash_attention_bwd_reference(q, k, v, out, lse, do, scale, *,
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check_qkv(q, k, v, causal=True):
+def _check_qkv(q, k, v, causal=True, aligned=True):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dim() != 4:
             raise ValueError(f"{name} must be [B, S, H, D], got "
@@ -269,26 +276,27 @@ def _check_qkv(q, k, v, causal=True):
         raise ValueError(f"kernel takes head_dim 64 or 128, got {d}")
     if causal and k.shape[1] < sq:
         raise ValueError("causal attention needs Sk >= Sq")
-    if q.is_cuda and q.dtype == torch.bfloat16:
+    if q.is_cuda and aligned:
         for name, t in (("q", q), ("k", k), ("v", v)):
             _check_aligned(name, t)
 
 
 def _aligned(t):
-    """What the 16-byte copies of the bf16 tensor-core kernels need: a
-    16-byte-aligned start, and batch and sequence strides that are
-    multiples of 8 elements (a dimension of size 1 takes any stride)."""
+    """What the 16-byte copies of the tensor-core kernels need: a
+    16-byte-aligned start, and batch and sequence strides of a multiple of
+    16 bytes (a dimension of size 1 takes any stride)."""
     return t.data_ptr() % 16 == 0 and all(
-        t.shape[i] == 1 or t.stride(i) % 8 == 0 for i in (0, 1))
+        t.shape[i] == 1 or t.stride(i) * t.element_size() % 16 == 0
+        for i in (0, 1))
 
 
 def _check_aligned(name, t):
     if not _aligned(t):
         raise ValueError(
-            f"{name}: the bfloat16 kernels need a 16-byte-aligned start and "
-            f"batch and sequence strides that are multiples of 8 elements; "
-            f"got strides {t.stride()}, start at {t.data_ptr() % 16} bytes "
-            f"past 16")
+            f"{name}: the tensor-core kernels need a 16-byte-aligned start "
+            f"and batch and sequence strides of a multiple of 16 bytes "
+            f"({16 // t.element_size()} {t.dtype} elements); got strides "
+            f"{t.stride()}, start at {t.data_ptr() % 16} bytes past 16")
 
 
 def _head_layout(t):
@@ -356,17 +364,17 @@ def _launch(q, k, v, scale, causal=True, mask=None, lens=None, sid=None):
         launches += 1
     else:
         _FWD_VARIANTS[name].launches += 1
-    if q.dtype == torch.bfloat16:
-        tc.launches += 1
+    (tc if q.dtype == torch.bfloat16 else tc32).launches += 1
     return out, lse, pair
 
 
 class _BwdKernel:
     """Launch wrapper of one kernel of ``csrc/flash_bwd_causal.cu`` (the
     extern entry ``entry``), with a launch counter for its causal launches
-    with no other branch, one per variant (``variants``) and, with
-    ``tc_kernel``, one for its bf16 launches (``tc``: the tensor-core
-    kernel), else ``tc`` None.
+    with no other branch, one per variant (``variants``), one for its bf16
+    launches (``tc``: the bf16 tensor-core kernel) and, with
+    ``tc32_kernel``, one for its fp32 launches (``tc32``: the split-TF32
+    tensor-core kernel), else ``tc32`` None.
     ``(q, k, v, do, lse, delta, scale)`` plus the branches -> ``dq`` (the dQ kernel, one output) or ``(dk, dv)`` (the
     dK/dV kernel, two), each a contiguous [B, S, H, D] in the inputs'
     dtype; with a mask or kv_lens, ``lse`` is log l and ``row_max`` the
@@ -376,13 +384,15 @@ class _BwdKernel:
 
     SOURCE = BWD_SOURCE
 
-    def __init__(self, kernel, entry, n_out, tc_kernel=False):
+    def __init__(self, kernel, entry, n_out, tc32_kernel=False):
         self.KERNEL = kernel
         self.launches = 0          # causal launches since the reset
         self._entry = entry
         self.variants = {n: _Variant(f"{kernel}:{n}", BWD_SOURCE)
                          for n in VARIANTS}
-        self.tc = _Variant(f"{kernel}:tc", BWD_SOURCE) if tc_kernel else None
+        self.tc = _Variant(f"{kernel}:tc", BWD_SOURCE)
+        self.tc32 = (_Variant(f"{kernel}:tc32", BWD_SOURCE) if tc32_kernel
+                     else None)
         self._n_out = n_out
 
     def __call__(self, q, k, v, do, lse, delta, scale, *, causal=True,
@@ -396,13 +406,15 @@ class _BwdKernel:
 
     def _launch(self, q, k, v, do, lse, delta, scale, causal, mask, lens,
                 segs, row_max):
-        _check_qkv(q, k, v, causal)
+        bf16 = q.dtype == torch.bfloat16
+        aligned = bf16 or self.tc32 is not None
+        _check_qkv(q, k, v, causal, aligned)
         if do.shape != q.shape or do.dtype != q.dtype \
                 or do.device != q.device or not _head_layout(do):
             raise ValueError(f"do must match q in shape, dtype, device and "
                              f"head layout: {tuple(do.shape)} {do.dtype} on "
                              f"{do.device}, strides {do.stride()}")
-        if do.dtype == torch.bfloat16:
+        if aligned:
             _check_aligned("do", do)
         b, sq, h, d = q.shape
         sk = k.shape[1]
@@ -420,7 +432,7 @@ class _BwdKernel:
         rows = sq if self._n_out == 1 else sk
         outs = [torch.empty((b, rows, h, d), dtype=q.dtype, device=q.device)
                 for _ in range(self._n_out)]
-        common = (b, h, sq, sk, d, int(q.dtype == torch.bfloat16))
+        common = (b, h, sq, sk, d, int(bf16))
         qkvd = (q.stride(0), q.stride(1), k.stride(0), k.stride(1),
                 v.stride(0), v.stride(1), do.stride(0), do.stride(1))
         ptrs, strides, c = _branch_args(q, causal, mask, lens, segs)
@@ -434,15 +446,16 @@ class _BwdKernel:
         _build.check(err, self.KERNEL)
         counter = self if name is None else self.variants[name]
         counter.launches += 1
-        if self.tc is not None and q.dtype == torch.bfloat16:
+        if bf16:
             self.tc.launches += 1
+        elif self.tc32 is not None:
+            self.tc32.launches += 1
         return outs[0] if self._n_out == 1 else tuple(outs)
 
 
-flash_bwd_dq = _BwdKernel("flash_bwd_dq_causal", "flash_bwd_dq", 1,
-                          tc_kernel=True)
+flash_bwd_dq = _BwdKernel("flash_bwd_dq_causal", "flash_bwd_dq", 1)
 flash_bwd_dkv = _BwdKernel("flash_bwd_dkv_causal", "flash_bwd_dkv", 2,
-                           tc_kernel=True)
+                           tc32_kernel=True)
 
 
 def _forward(q, k, v, scale, causal, mask, lens, sid):
@@ -482,8 +495,7 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do, _dlse):
         q, k, v, out, stat, row_max, mask, lens, segs = ctx.saved_tensors
-        if q.is_cuda and not (_head_layout(do) and (
-                do.dtype != torch.bfloat16 or _aligned(do))):
+        if q.is_cuda and not (_head_layout(do) and _aligned(do)):
             # autograd gives no layout guarantee; one copy of [B, S, H, D]
             do = do.contiguous()
         delta = attention_delta(out, do)

@@ -27,9 +27,10 @@ Tolerances against the plain version on the same inputs
 - the masked / kv_lens flash forward: the flash forward limit above, on
   every row, left-pad rows (all keys masked) included.
 - the bf16 flash forward, dQ and dK/dV run on the tensor cores: each
-  bf16 launch counts once more under ``:tc``, fp32 ones never; a bf16
-  slice whose start or strides break the 16-byte copies raises
-  ValueError.
+  bf16 launch counts once more under ``:tc``, fp32 ones never (the fp32
+  forward and dK/dV count under ``:tc32``: tests/test_torch_port_tc.py);
+  a slice whose start or strides break the 16-byte copies raises
+  ValueError, in every bf16 kernel and the fp32 forward and dK/dV.
 - the split-K flash decode: every length from one split (1, 2) to eight
   (1000, 1024) and across the 128-key split edges (255, 256, 257), rings
   longer than the length, B 1 and 8, D 64 and 128; a second launch on the
@@ -433,7 +434,8 @@ def test_flash_autograd_variants_match_cpu(kind):
     """fp32 gradients through `flash_attention_arrays` on the card (the
     variant kernels) against the same call on the CPU (the plain forward
     and backward), each within 1e-4 max|ref|; the card launches the
-    variant forward, dQ and dK/dV once each, the CPU nothing."""
+    variant forward, dQ and dK/dV once each (the forward and dK/dV also
+    under ``:tc32``), the CPU nothing."""
     q, k, v, do, causal, mask, lens, segs = _variant_inputs(
         kind, 2, 200, 2, 64, torch.float32, 9)
     grads = {}
@@ -453,7 +455,8 @@ def test_flash_autograd_variants_match_cpu(kind):
             name = fa.variant_name(causal, mask, lens, segs)
             assert {n: c for n, c in counts.items() if c} == {
                 f"{fa.KERNEL}:{name}": 1, f"{fa.flash_bwd_dq.KERNEL}:{name}": 1,
-                f"{fa.flash_bwd_dkv.KERNEL}:{name}": 1}
+                f"{fa.flash_bwd_dkv.KERNEL}:{name}": 1,
+                f"{fa.KERNEL}:tc32": 1, f"{fa.flash_bwd_dkv.KERNEL}:tc32": 1}
     for what, g, r in zip(("dq", "dk", "dv"), grads["cuda"], grads["cpu"]):
         assert (g - r).abs().max().item() <= \
             BWD_REL_FP32 * r.abs().max().item(), what
@@ -463,10 +466,11 @@ def test_flash_autograd_variants_match_cpu(kind):
 @pytest.mark.usefixtures("needs_cuda")
 @pytest.mark.parametrize("bad", ["start", "stride"])
 def test_flash_bf16_misaligned_slice_raises(bad):
-    """The tensor-core kernels' 16-byte copies: a bf16 q, k, v or dO that
-    starts off 16 bytes, or whose sequence stride is not a multiple of 8
-    elements, raises ValueError naming it, in the forward, dQ and dK/dV;
-    the fp32 kernels take both."""
+    """The tensor-core kernels' 16-byte copies: a q, k, v or dO that
+    starts off 16 bytes, or whose sequence stride is not a multiple of 16
+    bytes, raises ValueError naming it, in the bf16 forward, dQ and dK/dV
+    and the fp32 forward and dK/dV (split TF32); the fp32 dQ (CUDA cores)
+    takes both."""
     b, s, h, d = 2, 65, 2, 64
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v = _fused_qkv(b, s, h, d, dtype, 1)
@@ -490,8 +494,8 @@ def test_flash_bf16_misaligned_slice_raises(bad):
                                                 d ** -0.5)),
                  ("q", lambda: fa.flash_bwd_dq(odd, k, v, q, lse, delta,
                                                d ** -0.5))]
-        for name, call in calls:
-            if dtype == torch.float32:
+        for i, (name, call) in enumerate(calls):
+            if dtype == torch.float32 and i >= 3:    # the CUDA-core dQ
                 call()
             else:
                 with pytest.raises(ValueError, match=f"^{name}: .*strides"):

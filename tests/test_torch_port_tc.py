@@ -1,5 +1,7 @@
 """The bf16 flash limits (`tolerance.FLASH_FWD_COEF`, `tolerance.BWD_COEF`)
-against the JAX package, on the CPU.
+against the JAX package, on the CPU; and, on the card, the float32 flash
+forward and dK/dV kernels (split TF32 on the tensor cores) against their
+plain versions.
 
 The tensor-core forward rounds p to bf16 for its PV product at the running
 max of each key tile, as the TPU kernel `_flash_fwd_kernel` does
@@ -40,13 +42,25 @@ cores), for each activation: fp32 within 1e-5 max|ref| (fp32 sums in other
 orders), bf16 within `tolerance.ffn_limit` (one bf16 step of y plus the
 rounding of h to bf16 through |W2|, the limit the card holds each design
 to against the same plain version).
+
+The float32 tensor-core kernels (card tests, the ``cuda`` marker; they
+skip without a card): the forward and dK/dV of every branch (causal, a
+left-pad mask whose pad rows are closed entirely, kv_lens, segment ids
+sorted and permuted, non-causal, and segments with an additive mask and
+kv_lens), D 64 and 128, S 200 and 1000 (off the key tiles), q, k, v
+slices of one fused projection: out within 2e-5, lse and the masked pair
+within 1e-4, dK and dV within 1e-4 max|ref| (the float32 limits, which
+the split keeps: tests/test_torch_port_tf32.py), one launch each under
+``:tc32``, and a second launch of each bitwise equal to the first.  JAX
+is imported by the JAX tests alone (the ``jx`` fixture), so on a machine
+without it run:
+
+    python -m pytest --noconftest -p no:cacheprovider -q \
+        tests/test_torch_port_tc.py
 """
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-
-from paddle_tpu.ops import pallas_ops as jpo
 
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import fused_mlp as fm
@@ -55,6 +69,16 @@ from paddle_tpu_torch.ops import tolerance as tol
 B, H, S = 2, 2, 256
 PADS = (0, 37)
 BRANCHES = ["causal", "pad_mask", "kv_lens", "segments", "noncausal"]
+
+
+@pytest.fixture
+def jx():
+    """(jax.numpy, the JAX package's pallas_ops), imported when a test
+    runs: the card's machine has no JAX and runs this file's card tests
+    alone, where the JAX tests skip."""
+    jnp = pytest.importorskip("jax.numpy")
+    from paddle_tpu.ops import pallas_ops as jpo
+    return jnp, jpo
 
 
 def _inputs(branch, d, seed):
@@ -83,7 +107,8 @@ def _inputs(branch, d, seed):
 
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("branch", BRANCHES)
-def test_jax_bf16_flash_fwd_within_flash_limit(branch, d, monkeypatch):
+def test_jax_bf16_flash_fwd_within_flash_limit(branch, d, monkeypatch, jx):
+    jnp, jpo = jx
     monkeypatch.setenv("PTPU_PALLAS_INTERPRET", "1")
     q, k, v, causal, mask, lens, segs, first = _inputs(branch, d, 7 + d)
     scale = d ** -0.5
@@ -116,7 +141,8 @@ def test_jax_bf16_flash_fwd_within_flash_limit(branch, d, monkeypatch):
 
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("branch", BRANCHES)
-def test_jax_bf16_flash_bwd_within_bwd_limit(branch, d, monkeypatch):
+def test_jax_bf16_flash_bwd_within_bwd_limit(branch, d, monkeypatch, jx):
+    jnp, jpo = jx
     monkeypatch.setenv("PTPU_PALLAS_INTERPRET", "1")
     q, k, v, causal, mask, lens, segs, first = _inputs(branch, d, 11 + d)
     do = np.random.RandomState(13 + d).randn(B, S, H, d).astype(np.float32)
@@ -162,7 +188,8 @@ def test_jax_bf16_flash_bwd_within_bwd_limit(branch, d, monkeypatch):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("act", ["gelu", "gelu_tanh", "relu"])
 def test_jax_ffn_kernel_matches_port_plain_at_tc_shape(act, dtype,
-                                                       monkeypatch):
+                                                       monkeypatch, jx):
+    jnp, jpo = jx
     monkeypatch.setenv("PTPU_PALLAS_INTERPRET", "1")
     n, h, i = 256, 128, 256
     jdt, tdt = {"float32": (jnp.float32, torch.float32),
@@ -182,3 +209,91 @@ def test_jax_ffn_kernel_matches_port_plain_at_tc_shape(act, dtype,
              if tdt == torch.float32 else tol.ffn_limit(*args, act))
     err, ratio, ok = tol.compare(got, want, limit)
     assert ok, (act, dtype, err, ratio)
+
+
+# ---------------------------------------------------------------------------
+# the float32 forward and dK/dV on the card (split TF32)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def needs_cuda():
+    """Skip where there is no card; decided when the test runs, never at
+    import, so every worker collects the same tests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernel vs plain)")
+
+
+TC32_BRANCHES = ["causal", "pad_mask", "kv_lens", "segments", "noncausal",
+                 "all"]
+
+
+def _tc32_inputs(branch, b, s, h, d, seed):
+    """fp32 q, k, v (slices of one fused [B, S, 3, H, D] tensor), dO and
+    the branches of a case on the card: ``pad_mask`` left-pad keys and rows
+    (rows the mask closes entirely), ``segments`` documents across the
+    tiles in row 0 and permuted ids in row 1, ``all`` segments, an
+    additive [B, H, S, S] mask and kv_lens, causal."""
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = torch.randn(b, s, 3, h, d, generator=g).cuda().unbind(2)
+    do = torch.randn(b, s, h, d, generator=g).cuda()
+    mask = lens = segs = None
+    if branch == "pad_mask":
+        m = torch.zeros(b, 1, s, s)
+        for r in range(b):
+            m[r, :, :, :13 + 40 * r] = -1e30
+            m[r, :, :13 + 40 * r, :] = -1e30
+        mask = m.expand(b, h, s, s).cuda()
+    if branch in ("segments", "all"):
+        cuts = [0, 50, 90, 150, 171, s]
+        row = torch.cat([torch.full((cuts[i + 1] - cuts[i],), i)
+                         for i in range(len(cuts) - 1)])
+        segs = torch.stack([row, row[torch.randperm(s, generator=g)]]
+                           + [row] * (b - 2)).int().cuda()
+    if branch == "all":
+        mask = (torch.randn(b, h, s, s, generator=g) * 2).cuda()
+    if branch in ("kv_lens", "all"):
+        lens = torch.tensor([s - 45 * r for r in range(b)],
+                            dtype=torch.int32).cuda()
+    return q, k, v, do, branch != "noncausal", mask, lens, segs
+
+
+@pytest.mark.cuda
+@pytest.mark.usefixtures("needs_cuda")
+@pytest.mark.parametrize("s", [200, 1000])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("branch", TC32_BRANCHES)
+def test_fp32_tc_flash_fwd_and_dkv_match_plain(branch, d, s):
+    """The split-TF32 forward and dK/dV against the plain versions, every
+    row: out within 2e-5, lse and the masked pair within 1e-4, dK and dV
+    within 1e-4 max|ref|; one launch each under ``:tc32``; a second launch
+    of each bitwise equal to the first."""
+    q, k, v, do, causal, mask, lens, segs = _tc32_inputs(branch, 2, s, 2, d,
+                                                         s + d)
+    scale = d ** -0.5
+    fa.tc32.launches = fa.flash_bwd_dkv.tc32.launches = 0
+    out, lse, pair = fa._launch(q, k, v, scale, causal, mask, lens, segs)
+    again = fa._launch(q, k, v, scale, causal, mask, lens, segs)
+    want, want_lse = fa.mha_reference(q, k, v, mask, causal, scale, lens,
+                                      segs, return_lse=True)
+    row_max, stat = (None, lse) if pair is None else pair
+    delta = fa.attention_delta(out, do)
+    kw = dict(causal=causal, mask=mask, lens=lens, segs=segs,
+              row_max=row_max)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, stat, delta, scale, **kw)
+    dk2, dv2 = fa.flash_bwd_dkv(q, k, v, do, stat, delta, scale, **kw)
+    ref = fa.flash_attention_bwd_reference(
+        q, k, v, out, stat, do, scale, is_causal=causal, mask=mask,
+        kv_lens=lens, segment_ids=segs, row_max=row_max)
+    torch.cuda.synchronize()
+    assert (fa.tc32.launches, fa.flash_bwd_dkv.tc32.launches) == (2, 2)
+    assert (out - want).abs().max().item() <= 2e-5
+    assert (lse - want_lse).abs().max().item() <= 1e-4
+    if pair is not None:
+        pm, pl = fa.softmax_stats(q, k, scale, causal, mask, lens, segs)
+        assert (pair[0] - pm).abs().max().item() <= 1e-4
+        assert (pair[1] - pl).abs().max().item() <= 1e-4
+    for what, got, r in (("dk", dk, ref[1]), ("dv", dv, ref[2])):
+        err = (got - r).abs().max().item()
+        assert err <= 1e-4 * r.abs().max().item(), (what, err)
+    assert torch.equal(again[0], out) and torch.equal(again[1], lse)
+    assert torch.equal(dk2, dk) and torch.equal(dv2, dv)
