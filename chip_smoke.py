@@ -10,11 +10,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    printed, and those of the FFN's designs and the LayerNorm forward),
    read the flash and FFN libraries' machine code (`cuobjdump -sass`:
    all 16 instantiations each of the bf16 forward, dQ and dK/dV, of the
-   fp32 split-TF32 forward and dK/dV (the tensor-core kernels) and all
-   16 of the FFN's tensor-core products must hold HGMMA, the fp32 dQ must
-   be left with its 16 fp32 instantiations, FFMA and no HGMMA or HMMA,
-   and the CUDA-core fp32 forward and dK/dV must be gone), then hold
-   each kernel
+   fp32 split-TF32 forward, dQ and dK/dV (the tensor-core kernels) and
+   all 16 of each of the FFN's two tensor-core designs' products must
+   hold HGMMA, and the CUDA-core fp32 forward, dQ and dK/dV must be
+   gone), then hold each kernel
    against its plain PyTorch version on the card, in float32 and bfloat16,
    and time kernel, plain version and a PyTorch yardstick (SDPA, and for
    the backward `torch.autograd.grad` through SDPA).  Forward kernels run
@@ -43,8 +42,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
      CUDA cores' 67 TFLOP/s.
    - backward, float32: max |err| <= 1e-4 max |ref| per gradient — both
      sides accumulate in fp32 over up to 1024 keys or queries, in
-     different orders.  bfloat16, per element |out - ref| <= 2^-7
-     max(|out|, |ref|) + 2^-7 mag: one bf16 step of the output, plus the
+     different orders (the kernels' products split TF32).  bfloat16, per
+     element |out - ref| <= 2^-7 max(|out|, |ref|) + 2^-7 mag: one bf16
+     step of the output, plus the
      rounding of p (for dV) and ds (for dK, dQ) to bf16, which both sides
      make at the same points but from fp32 values that differ in their
      last bits, so a value at a rounding boundary may round apart by up
@@ -61,14 +61,17 @@ Phases, in order; any failure exits non-zero and prints no result line:
      whose other ring rows must stay bitwise unchanged; LayerNorm at 8
      and 8192 rows of 768 and of 1002 (rows that do not fall into 16-byte
      chunks), yardstick `F.layer_norm`, with its GB/s; FFN at 8, 256,
-     512, 1024 and 8192 rows, H=768 I=3072 gelu_tanh, and gelu and relu
-     at 8 and 512 rows, each on the design `ffn_design` picks (bf16 below
-     24 rows and fp32 up to 512: the decode design; bf16 from 24 rows: the
-     tensor cores; fp32 above 512 rows: the CUDA cores), both launches
-     counted under it alone, a second launch bitwise the first, with its
-     TFLOP/s and GB/s and the cuBLAS composite addmm + activation + mm
-     beside it (three calls, not one: no yardstick).  float32: 2e-5
-     absolute (FFN 1e-5 max|ref|; LN statistics 1e-5 relative).
+     512, 1024 and 8192 rows, H=768 I=3072 gelu_tanh, gelu and relu
+     at 8 and 512 rows, and at 1024 rows with I=3008 (a width off 128),
+     each on the design `ffn_design` picks (bf16 below 24 rows and fp32
+     up to `FFN_DECODE_MAX_ROWS`: the decode design; bf16 from 24 rows:
+     the tensor cores; fp32 above: the tensor cores in split TF32; widths
+     off 128: the CUDA cores), both launches counted under it alone, a
+     second launch bitwise the first, with its TFLOP/s and GB/s, its
+     bound (fp32: split TF32, the CUDA cores' beside it) and the cuBLAS
+     composite addmm + activation + mm beside it (three calls, not one:
+     no yardstick).  float32: 2e-5 absolute (FFN 1e-5 max|ref|; LN
+     statistics 1e-5 relative).
      bfloat16: one bf16 step of each output plus what each side rounds,
      weighted by what it multiplies (the `tolerance` module docstring).
    - the LayerNorm backward at the training shape, 8192 rows of 768, in
@@ -140,9 +143,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    (kernels) and on the CPU (plain versions).  Step-1 losses agree to
    1e-5 relative, each step-1 gradient to 1e-3 max |g|, step-3 losses to
    1e-4 relative; each flash kernel (forward, dQ, dK/dV) launches 12
-   times per step on the card (fp32: the forward and dK/dV on the
-   tensor cores, split TF32, counted once more under ``:tc32``; dQ on
-   the CUDA cores).
+   times per step on the card (fp32: all three on the tensor cores,
+   split TF32, counted once more under ``:tc32``).
 6. Training, bfloat16, full size: B=8 S=1024, bf16 params with fp32
    AdamW masters (lr 1e-4), 2 warm-up steps then 10 timed steps on one
    repeated batch.  Every loss finite, step 12's below step 1's, 12
@@ -163,7 +165,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    `flash_attention_arrays` for a non-causal, a pad-masked and a
    kv_lens call at B=8 S=896 H=12 D=64 on the card against the CPU,
    within 1e-4 max|ref|; the card launches the non-causal forward, dQ
-   and dK/dV once each and the mask ones twice each.
+   and dK/dV once each and the mask ones twice each.  Then the gradients
+   of x, w1, b1 and w2 through `fused_ffn_arrays` at 1024 rows, H=768,
+   I=3008 (a width off 128: the CUDA-core FFN, which no GPT-2 path
+   reaches) against the CPU, within 1e-4 max|ref|, one launch.
    Phases 3-6c run the stacked-blocks layout (``stacked_blocks=True``).
 7. Training of the per-layer layout (the JAX default) under
    PTPU_PALLAS_LN=1 PTPU_PALLAS_FFN=1: first one fp32 step of the stacked
@@ -171,23 +176,24 @@ Phases, in order; any failure exits non-zero and prints no result line:
    forward and backward once each; then GPT-2 124M per-layer, fp32 card
    against CPU as phase 5 (same limits), with 12 launches of each flash
    kernel, 25 of the LayerNorm forward and backward and 12 of the FFN per
-   step (fp32 at 1024 rows: the CUDA-core design) and none on the CPU;
+   step (fp32 at 1024 rows: the split-TF32 design) and none on the CPU;
    then bf16 as phase 6 with the flags (the FFN's 144 launches all on
    the tensor cores) and without them.
-8. Summary: one JSON line of the twenty-six entries (the nine kernels,
+8. Summary: one JSON line of the twenty-eight entries (the nine kernels,
    the int8 variant, the mask, segment and non-causal variants of the
    flash kernels, the tensor-core forward, dQ and dK/dV -- every bf16
    launch of those three, timed at the bf16 training shape -- the fp32
-   split-TF32 forward and dK/dV -- every fp32 launch of those two, timed
-   at the fp32 training shape, launches from phase 5 -- and the
-   FFN's tensor-core and decode designs, counted apart; the FFN's own
-   entry is its CUDA-core design), the card line, then the result line.
+   split-TF32 forward, dQ and dK/dV -- every fp32 launch of those three,
+   timed at the fp32 training shape, launches from phase 5 -- and the
+   FFN's bf16 and fp32 tensor-core designs and decode design, counted
+   apart; the FFN's own entry is its CUDA-core design, timed at I=3008,
+   launches from phase 6c), the card line, then the result line.
 
 Every time is a median of CUDA-event timings (L2 flushed before each
 launch, the host's enqueue hidden behind a spin on the stream); every
 bound is max(bytes / 3.35 TB/s, FLOPs / peak for the type: 989 TFLOP/s
-bf16, 67 TFLOP/s fp32; fp32 flash 495 / 3 TFLOP/s, split TF32), from
-this run's shapes and data.
+bf16, 67 TFLOP/s fp32; fp32 flash and FFN 495 / 3 TFLOP/s, split TF32),
+from this run's shapes and data.
 Details go to chiprun_out/chip_smoke.json.
 
 Two measuring modes, not part of the check:
@@ -198,9 +204,10 @@ Two measuring modes, not part of the check:
 ``--probe`` checks and times the FFN's designs and the LayerNorm forward
 at GPT-2 124M's MLP, and the alternatives they were measured against,
 built from edited copies of their sources (`probe`).  ``--paths`` times
-fused-mode bf16 ``generate`` and the stacked bf16 and fp32 training
-steps, host and device, with the ``paddle_tpu_torch`` of DIR (`time_paths`): run it
-on two trees in turns in one call to compare them.
+fused-mode bf16 ``generate``, the stacked bf16 and fp32 training steps
+and the per-layer fp32 step under the LN and FFN flags, host and
+device, with the ``paddle_tpu_torch`` of DIR (`time_paths`): run it on
+two trees in turns in one call to compare them.
 """
 import contextlib
 import json
@@ -221,15 +228,21 @@ PEAK_TF32, TF32_PASSES = 495e12, 3
 TOL_FP32 = 2e-5
 BWD_REL_FP32 = 1e-4
 FFN_REL_FP32 = 1e-5
+# an intermediate width that is no multiple of 128 (but of 64): the widths
+# only the FFN's CUDA-core design takes
+FFN_ODD_INTER = 3008
 FWD, DQ, DKV, RAGGED = ("flash_fwd_causal", "flash_bwd_dq_causal",
                         "flash_bwd_dkv_causal", "ragged_paged_attention")
 DECODE, FUSED, LN, LN_BWD, FFN = ("flash_decode", "fused_decode_layer",
                                   "fused_layernorm", "fused_layernorm_bwd",
                                   "fused_ffn")
-# the FFN's three designs, each counted apart: FFN the CUDA-core kernel
-# (fp32 at many rows), FFN_TC bf16 on the tensor cores, FFN_DEC few rows
-FFN_TC, FFN_DEC = "fused_ffn_tc", "fused_ffn_decode"
-FFN_COUNTER = {"cuda_core": FFN, "tc": FFN_TC, "decode": FFN_DEC}
+# the FFN's four designs, each counted apart: FFN the CUDA-core kernel
+# (widths off multiples of 128), FFN_TC bf16 on the tensor cores, FFN_TC32
+# fp32 on the tensor cores (split TF32), FFN_DEC few rows
+FFN_TC, FFN_TC32, FFN_DEC = ("fused_ffn_tc", "fused_ffn_tc32",
+                             "fused_ffn_decode")
+FFN_COUNTER = {"cuda_core": FFN, "tc": FFN_TC, "tc32": FFN_TC32,
+               "decode": FFN_DEC}
 FWD_MASK, RAGGED8 = "flash_fwd_causal:mask", "ragged_paged_attention:int8"
 # the variants of the flash kernels (segment ids, non-causal, and the
 # backward's mask / kv_lens), each counted apart
@@ -239,16 +252,16 @@ DKV_MASK, DKV_SEGS, DKV_NC = (DKV + ":mask", DKV + ":segs",
                               DKV + ":noncausal")
 # the bf16 launches of the three flash kernels, any branch: the
 # tensor-core kernels (counted once more, apart from the counters above);
-# the fp32 launches of the forward and dK/dV: the split-TF32 kernels
+# their fp32 launches: the split-TF32 kernels
 FWD_TC, DQ_TC, DKV_TC = FWD + ":tc", DQ + ":tc", DKV + ":tc"
-FWD_TC32, DKV_TC32 = FWD + ":tc32", DKV + ":tc32"
+FWD_TC32, DQ_TC32, DKV_TC32 = FWD + ":tc32", DQ + ":tc32", DKV + ":tc32"
 FWD_ALL = (FWD, FWD_MASK, FWD_SEGS, FWD_NC)
 DQ_ALL = (DQ, DQ_MASK, DQ_SEGS, DQ_NC)
 DKV_ALL = (DKV, DKV_MASK, DKV_SEGS, DKV_NC)
 KERNELS = (FWD, FWD_MASK, FWD_SEGS, FWD_NC, FWD_TC, FWD_TC32, RAGGED,
-           RAGGED8, DQ, DQ_MASK, DQ_SEGS, DQ_NC, DQ_TC, DKV, DKV_MASK,
-           DKV_SEGS, DKV_NC, DKV_TC, DKV_TC32, DECODE, FUSED, LN, LN_BWD,
-           FFN, FFN_TC, FFN_DEC)
+           RAGGED8, DQ, DQ_MASK, DQ_SEGS, DQ_NC, DQ_TC, DQ_TC32, DKV,
+           DKV_MASK, DKV_SEGS, DKV_NC, DKV_TC, DKV_TC32, DECODE, FUSED, LN,
+           LN_BWD, FFN, FFN_TC, FFN_TC32, FFN_DEC)
 REPLACES = {
     FWD: "paddle_tpu/ops/pallas_ops.py:135",
     FWD_MASK: "paddle_tpu/ops/pallas_ops.py:135",
@@ -262,6 +275,7 @@ REPLACES = {
     DQ_SEGS: "paddle_tpu/ops/pallas_ops.py:210",
     DQ_NC: "paddle_tpu/ops/pallas_ops.py:210",
     DQ_TC: "paddle_tpu/ops/pallas_ops.py:210",
+    DQ_TC32: "paddle_tpu/ops/pallas_ops.py:210",
     DKV: "paddle_tpu/ops/pallas_ops.py:272",
     DKV_MASK: "paddle_tpu/ops/pallas_ops.py:272",
     DKV_SEGS: "paddle_tpu/ops/pallas_ops.py:272",
@@ -275,24 +289,26 @@ REPLACES = {
     LN_BWD: "paddle_tpu/ops/pallas_ops.py:1404",
     FFN: "paddle_tpu/ops/pallas_ops.py:1548",
     FFN_TC: "paddle_tpu/ops/pallas_ops.py:1548",
+    FFN_TC32: "paddle_tpu/ops/pallas_ops.py:1548",
     FFN_DEC: "paddle_tpu/ops/pallas_ops.py:1548",
 }
 # the __global__ functions of paddle_tpu_torch/csrc, as the profiler names
 # (template names: the flash variants are instantiations of the flash
 # kernels, the int8 one of ragged_attend_kernel)
 PORT_SYMBOLS = ("flash_fwd_tc32_kernel", "flash_fwd_tc_kernel",
-                "flash_bwd_dq_kernel", "flash_bwd_dq_tc_kernel",
+                "flash_bwd_dq_tc32_kernel", "flash_bwd_dq_tc_kernel",
                 "flash_bwd_dkv_tc32_kernel",
                 "flash_bwd_dkv_tc_kernel", "ragged_write_kernel",
                 "ragged_attend_kernel", "ragged_write_int8_kernel",
                 "flash_decode_kernel", "fused_decode_layer_kernel",
                 "ln_fwd_kernel", "ln_fwd_wide_kernel", "ln_bwd_kernel",
                 "ln_bwd_sum_kernel", "fused_ffn_kernel", "ffn_tc_kernel",
-                "ffn_dec_kernel")
+                "ffn_tc32_kernel", "wt_split_kernel", "ffn_dec_kernel")
 # ... and those a tree from before the split-TF32 kernels has, so that
 # `--paths` groups a parent's profile as its own (the CUDA-core fp32
-# forward and dK/dV)
-PARENT_SYMBOLS = ("flash_fwd_causal_kernel", "flash_bwd_dkv_kernel")
+# forward, dQ and dK/dV)
+PARENT_SYMBOLS = ("flash_fwd_causal_kernel", "flash_bwd_dq_kernel",
+                  "flash_bwd_dkv_kernel")
 TRAIN_LR = 1e-4
 # the environment flags that select the decode kernels, by generate mode
 GEN_MODES = {"default": {},
@@ -364,10 +380,10 @@ def bound_ms(nbytes, flops, dtype):
 
 
 def flash_bound(nbytes, flops, dtype):
-    """``bound_ms`` and ``bound_by`` of a flash call: in fp32 the least time
-    of fp32-accurate products, three TF32 passes on the tensor cores
-    (``PEAK_TF32 / TF32_PASSES``, 165 TFLOP/s), with the CUDA cores' bound
-    (67 TFLOP/s) beside it as ``cuda_core_bound_ms``."""
+    """``bound_ms`` and ``bound_by`` of a flash or FFN call: in fp32 the
+    least time of fp32-accurate products, three TF32 passes on the tensor
+    cores (``PEAK_TF32 / TF32_PASSES``, 165 TFLOP/s), with the CUDA cores'
+    bound (67 TFLOP/s) beside it as ``cuda_core_bound_ms``."""
     if dtype != torch.float32:
         bms, by = bound_ms(nbytes, flops, dtype)
         return dict(bound_ms=bms, bound_by=by)
@@ -386,15 +402,13 @@ def tflops(flops, ms):
 def with_tc(want, bf16):
     """`want` with the tensor-core counts: in bf16 every forward, dQ and
     dK/dV launch counts once more under FWD_TC, DQ_TC and DKV_TC; in fp32
-    every forward and dK/dV launch under FWD_TC32 and DKV_TC32 (the fp32
-    dQ runs on the CUDA cores)."""
+    under FWD_TC32, DQ_TC32 and DKV_TC32."""
     for tc, tc32, names in ((FWD_TC, FWD_TC32, FWD_ALL),
-                            (DQ_TC, None, DQ_ALL),
+                            (DQ_TC, DQ_TC32, DQ_ALL),
                             (DKV_TC, DKV_TC32, DKV_ALL)):
         n = sum(want[name] for name in names)
         want[tc] = n if bf16 else 0
-        if tc32:
-            want[tc32] = 0 if bf16 else n
+        want[tc32] = 0 if bf16 else n
     return want
 
 
@@ -416,48 +430,44 @@ def _sass_functions(lib):
 
 
 def check_sass(paths):
-    """The design behind each flash entry and the FFN's tensor-core design,
-    from the built libraries' machine code: every instantiation of the
-    bf16 forward, dQ and dK/dV kernels (``flash_fwd_tc_kernel``,
+    """The design behind each flash entry and the FFN's tensor-core
+    designs, from the built libraries' machine code: every instantiation
+    of the bf16 forward, dQ and dK/dV kernels (``flash_fwd_tc_kernel``,
     ``flash_bwd_dq_tc_kernel``, ``flash_bwd_dkv_tc_kernel``), of the fp32
-    split-TF32 forward and dK/dV (``flash_fwd_tc32_kernel``,
-    ``flash_bwd_dkv_tc32_kernel``; 16 each, 8 flag combinations x D 64
-    and 128) and of the FFN's products (``ffn_tc_kernel``: 16, 4 tiles x 3
+    split-TF32 forward, dQ and dK/dV (``flash_fwd_tc32_kernel``,
+    ``flash_bwd_dq_tc32_kernel``, ``flash_bwd_dkv_tc32_kernel``; 16 each,
+    8 flag combinations x D 64 and 128) and of the FFN's products
+    (``ffn_tc_kernel``, ``ffn_tc32_kernel``: 16 each, 4 tiles x 3
     activations and the plain second product) contains HGMMA (warpgroup
-    tensor-core products); the fp32 dQ (``flash_bwd_dq_kernel``) has its
-    16 fp32 instantiations only, FFMA and no HGMMA or HMMA; and the
-    CUDA-core fp32 forward and dK/dV (``flash_fwd_causal_kernel``,
+    tensor-core products); and the CUDA-core fp32 forward, dQ and dK/dV
+    (``flash_fwd_causal_kernel``, ``flash_bwd_dq_kernel``,
     ``flash_bwd_dkv_kernel``) are gone.  Returns {kernel: [instantiations,
     of them with HGMMA, with FFMA]}."""
-    fwd, bwd, ffn = "flash_fwd_causal", "flash_bwd_causal", FFN_TC
-    # kernel: (library, tensor cores: True, CUDA cores: False, gone: None)
+    fwd, bwd = "flash_fwd_causal", "flash_bwd_causal"
+    # kernel: (library, tensor cores: True, gone: None)
     wants = {"flash_fwd_tc_kernel": (fwd, True),
              "flash_fwd_tc32_kernel": (fwd, True),
              "flash_fwd_causal_kernel": (fwd, None),
              "flash_bwd_dq_tc_kernel": (bwd, True),
-             "flash_bwd_dq_kernel": (bwd, False),
+             "flash_bwd_dq_tc32_kernel": (bwd, True),
+             "flash_bwd_dq_kernel": (bwd, None),
              "flash_bwd_dkv_tc_kernel": (bwd, True),
              "flash_bwd_dkv_tc32_kernel": (bwd, True),
              "flash_bwd_dkv_kernel": (bwd, None),
-             "ffn_tc_kernel": (ffn, True)}
-    funcs = {src: _sass_functions(paths[src]) for src in (fwd, bwd, ffn)}
+             "ffn_tc_kernel": (FFN_TC, True),
+             "ffn_tc32_kernel": (FFN_TC32, True)}
+    funcs = {src: _sass_functions(paths[src])
+             for src in (fwd, bwd, FFN_TC, FFN_TC32)}
     counts = {}
     for kernel, (lib, tensor_cores) in wants.items():
-        # mangled: ..._kernel I <template arguments> E; the CUDA-core ones
-        # take the element type first ("If": float)
+        # mangled: ..._kernel I <template arguments> E
         found = {n: body for n, body in funcs[lib].items()
                  if f"{len(kernel)}{kernel}I" in n}
         hgmma = sum("HGMMA" in body for body in found.values())
         ffma = sum("FFMA" in body for body in found.values())
         counts[kernel] = [len(found), hgmma, ffma]
-        if tensor_cores is None:
-            ok = not found
-        elif tensor_cores:
-            ok = len(found) == 16 and hgmma == 16
-        else:
-            ok = (len(found) == 16 and hgmma == 0 and ffma == 16
-                  and not any("HMMA" in b for b in found.values())
-                  and all(f"{len(kernel)}{kernel}If" in n for n in found))
+        ok = (not found) if tensor_cores is None else (
+            len(found) == 16 and hgmma == 16)
         if not ok:
             fail(f"SASS of {kernel}: {len(found)} instantiations, {hgmma} "
                  f"with HGMMA, {ffma} with FFMA ({sorted(found)[:4]} ...)")
@@ -1232,7 +1242,8 @@ def check_ffn(fm, ops, tol, timer, n, hidden, inter, act, dtype, seed):
     first; both launches on the design `ffn_design` picks and counted
     under it alone.  Times kernel, plain version and the cuBLAS composite
     ``addmm`` + activation + ``mm`` (three calls, not one: it is no
-    ``library_ms``)."""
+    ``library_ms``).  The fp32 bound is that of split-TF32 products on
+    the tensor cores, the CUDA cores' beside it (`flash_bound`)."""
     g = torch.Generator().manual_seed(seed)
 
     def rnd(*shape, scale=1.0):
@@ -1264,10 +1275,9 @@ def check_ffn(fm, ops, tol, timer, n, hidden, inter, act, dtype, seed):
     item = y.element_size()
     nbytes = (2 * hidden * inter + inter + 2 * n * hidden) * item
     flops = 4 * n * hidden * inter
-    bms, by = bound_ms(nbytes, flops, dtype)
     return dict(shape=f"n={n} H={hidden} I={inter} {act}", dtype=str(dtype),
                 design=design, max_abs_err=err, err_over_limit=ratio, ms=ms,
-                plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                plain_ms=plain_ms, **flash_bound(nbytes, flops, dtype),
                 library_ms=None, composite_ms=composite_ms,
                 tflops=tflops(flops, ms),
                 gb_per_s=nbytes / (ms * 1e-3) / 1e9,
@@ -1901,6 +1911,47 @@ def entry_autograd_card_vs_cpu(ops, b=8, s=896, h=12, d=64):
     return rec, launches
 
 
+def ffn_entry_card_vs_cpu(ops, n=1024, hidden=768, inter=FFN_ODD_INTER):
+    """fp32 gradients of x, w1, b1 and w2 through `fused_ffn_arrays`
+    (gelu_tanh) at an intermediate width off 128 -- the CUDA-core design's
+    rows, which no GPT-2 path reaches (`maybe_fused_ffn` gates on widths of
+    128) -- on the card against the CPU, each within 1e-4 max|ref|, one
+    launch of the CUDA-core design.  Returns the record and the card's
+    launches."""
+    from paddle_tpu_torch.ops import fused_mlp as fm
+    g = torch.Generator().manual_seed(17)
+    ins = (torch.randn(n, hidden, generator=g),
+           torch.randn(hidden, inter, generator=g) * hidden ** -0.5,
+           torch.randn(inter, generator=g) * 0.1,
+           torch.randn(inter, hidden, generator=g) * inter ** -0.5)
+    dy = torch.randn(n, hidden, generator=g)
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        ts = [t.to(dev).requires_grad_() for t in ins]
+        ops.reset_launch_counts()
+        fm.fused_ffn_arrays(*ts, "gelu_tanh").backward(dy.to(dev))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = ops.launch_counts()
+        grads[dev] = [t.grad.cpu() for t in ts]
+    want = dict.fromkeys(KERNELS, 0)
+    want[FFN] = 1
+    if launches != want:
+        fail(f"entry-point FFN autograd: launches {launches}, expected "
+             f"{want}")
+    ratios = {}
+    for name, gc, gr in zip(("dx", "dw1", "db1", "dw2"), grads["cuda"],
+                            grads["cpu"]):
+        err = (gc - gr).abs().max().item()
+        limit = BWD_REL_FP32 * gr.abs().max().item()
+        if not err <= limit:
+            fail(f"entry-point FFN autograd: {name} differs from the CPU "
+                 f"run by {err} (limit {limit})")
+        ratios[name] = err / limit
+    return {"shape": f"n={n} H={hidden} I={inter}",
+            "grad_err_over_limit": ratios, "launches": launches}, launches
+
+
 # ---------------------------------------------------------------------------
 
 def print_cases(cases):
@@ -1928,7 +1979,7 @@ def print_cases(cases):
                 rate += (f" {c['splits']} splits ({c['blocks']} blocks), "
                          f"{c['gb_per_s']:.1f} GB/s achieved")
             bound = f"bound_ms={c['bound_ms']:.4f} ({c['bound_by']}"
-            if "cuda_core_bound_ms" in c:      # fp32 flash: split TF32
+            if "cuda_core_bound_ms" in c:      # fp32: split TF32
                 bound += (f", split TF32; CUDA cores "
                           f"{c['cuda_core_bound_ms']:.4f}")
             print(f"kernel {name} [{c['shape']} {c['dtype']}] "
@@ -1975,11 +2026,13 @@ def main():
     wrappers = {FWD: fa, FWD_MASK: fa.masked, FWD_SEGS: fa.segs,
                 FWD_NC: fa.noncausal, FWD_TC: fa.tc, FWD_TC32: fa.tc32,
                 DQ: fa.flash_bwd_dq, DQ_TC: fa.flash_bwd_dq.tc,
+                DQ_TC32: fa.flash_bwd_dq.tc32,
                 DKV: fa.flash_bwd_dkv, DKV_TC: fa.flash_bwd_dkv.tc,
                 DKV_TC32: fa.flash_bwd_dkv.tc32,
                 RAGGED: rpa, RAGGED8: rpa.int8,
                 DECODE: fd, FUSED: fdl, LN: fm.ln_fwd, LN_BWD: fm.ln_bwd,
-                FFN: fm.ffn_fwd, FFN_TC: fm.ffn_tc, FFN_DEC: fm.ffn_decode}
+                FFN: fm.ffn_fwd, FFN_TC: fm.ffn_tc, FFN_TC32: fm.ffn_tc32,
+                FFN_DEC: fm.ffn_decode}
     for bwd in (fa.flash_bwd_dq, fa.flash_bwd_dkv):
         wrappers.update({v.KERNEL: v for v in bwd.variants.values()})
     assert set(wrappers) == set(ops.launch_counts())
@@ -2024,7 +2077,7 @@ def main():
     # ... and of the FFN's designs and the LayerNorm forward (the
     # instantiations GPT-2's width takes: 3 chunks a lane in bf16, 6 fp32)
     regs = {}
-    for name in (FFN_TC, FFN_DEC, FFN, LN):
+    for name in (FFN_TC, FFN_TC32, FFN_DEC, FFN, LN):
         for fn, n_regs, st, ld in ptxas_table(result["ptxas"][name]):
             short = short_name(fn)
             chunks = short.split(",")[3] if short.count(",") == 4 else ""
@@ -2112,11 +2165,15 @@ def main():
                 cases[LN].append(check_ln(fm, tol, timer, n, hidden, dtype,
                                           n + hidden))
         # decode rows, -, -, fp32 training rows (B=1), training rows; then
-        # the other activations at a decode and a tensor-core shape
-        ffn_runs = [(n, "gelu_tanh") for n in (8, 256, 512, 1024, 8192)]
-        ffn_runs += [(n, act) for act in ("gelu", "relu") for n in (8, 512)]
-        for n, act in ffn_runs:
-            c = check_ffn(fm, ops, tol, timer, n, 768, 3072, act, dtype, n)
+        # the other activations at a decode and a tensor-core shape; then
+        # an intermediate width off 128, which only the CUDA-core design
+        # takes
+        ffn_runs = [(n, "gelu_tanh", 3072) for n in (8, 256, 512, 1024, 8192)]
+        ffn_runs += [(n, act, 3072) for act in ("gelu", "relu")
+                     for n in (8, 512)]
+        ffn_runs.append((1024, "gelu_tanh", FFN_ODD_INTER))
+        for n, act, inter in ffn_runs:
+            c = check_ffn(fm, ops, tol, timer, n, 768, inter, act, dtype, n)
             cases[FFN_COUNTER[c["design"]]].append(c)
         torch.cuda.empty_cache()
     bf16, f32 = torch.bfloat16, torch.float32
@@ -2385,6 +2442,14 @@ def main():
               for kind in ("nc", "pad", "lens"))
           + f" of 1e-4 max|ref| of the CPU run; launches "
           f"{ {k: n for k, n in launches_entry.items() if n} }", flush=True)
+    ffn_entry, launches_ffn_entry = ffn_entry_card_vs_cpu(ops)
+    result["entry_ffn_fp32"] = ffn_entry
+    print(f"entry-point FFN autograd float32 {ffn_entry['shape']} (the "
+          f"CUDA-core design): gradients within "
+          f"{max(ffn_entry['grad_err_over_limit'].values()):.3g} of 1e-4 "
+          f"max|ref| of the CPU run; launches "
+          f"{ {k: n for k, n in launches_ffn_entry.items() if n} }",
+          flush=True)
     torch.cuda.empty_cache()
     mark("6c entry-point autograd")
 
@@ -2434,6 +2499,7 @@ def main():
                  DQ_TC: pick(DQ, "B=8 S=1024 H=12 D=64"),
                  DKV_TC: pick(DKV, "B=8 S=1024 H=12 D=64"),
                  FWD_TC32: pick(FWD, "B=8 S=1024 H=12 D=64", f32),
+                 DQ_TC32: pick(DQ, "B=8 S=1024 H=12 D=64", f32),
                  DKV_TC32: pick(DKV, "B=8 S=1024 H=12 D=64", f32),
                  RAGGED8: cases[RAGGED8][0],
                  FWD_MASK: pick(FWD_MASK, "B=8 S=896 H=12 D=64 pad"),
@@ -2443,8 +2509,11 @@ def main():
                                     "mask=False"),
                  LN: pick(LN, "n=8 H=768"),
                  LN_BWD: pick(LN_BWD, "n=8192 H=768"),
-                 FFN: pick(FFN, "n=1024 H=768 I=3072 gelu_tanh", f32),
+                 FFN: pick(FFN, f"n=1024 H=768 I={FFN_ODD_INTER} gelu_tanh",
+                           f32),
                  FFN_TC: pick(FFN_TC, "n=8192 H=768 I=3072 gelu_tanh"),
+                 FFN_TC32: pick(FFN_TC32, "n=8192 H=768 I=3072 gelu_tanh",
+                                f32),
                  FFN_DEC: pick(FFN_DEC, "n=8 H=768 I=3072 gelu_tanh"),
                  FWD_SEGS: pick(FWD_SEGS, "B=8 S=1024 H=12 D=64 segs"),
                  FWD_NC: pick(FWD_NC, "B=8 S=1024 H=12 D=64 nc"),
@@ -2462,13 +2531,15 @@ def main():
                      DQ_TC: launches_train[DQ_TC],
                      DKV_TC: launches_train[DKV_TC],
                      FWD_TC32: tr32["launches"][FWD_TC32],
+                     DQ_TC32: tr32["launches"][DQ_TC32],
                      DKV_TC32: tr32["launches"][DKV_TC32],
                      DECODE: launches_gen["default"][DECODE],
                      FUSED: launches_gen["fused"][FUSED],
                      LN: launches_gen["fused"][LN],
                      LN_BWD: launches_pl["flags"][LN_BWD],
-                     FFN: pl32["launches"][FFN],
+                     FFN: launches_ffn_entry[FFN],
                      FFN_TC: launches_pl["flags"][FFN_TC],
+                     FFN_TC32: pl32["launches"][FFN_TC32],
                      FFN_DEC: launches_gen["fused"][FFN_DEC]}
     for name in (FWD_SEGS, DQ_SEGS, DKV_SEGS):
         path_launches[name] = launches_packed[name]
@@ -2624,6 +2695,49 @@ def probe_tc(lib, args, tiles, act="gelu_tanh"):
     return y
 
 
+def probe_tc32(lib, args, tiles, act="gelu_tanh"):
+    """The split-TF32 FFN through `lib` with ``tiles`` ((warpgroups, BN) of
+    each product)."""
+    import ctypes
+    from paddle_tpu_torch.ops import _build
+    x, w1, b1, w2 = args
+    (n, h), i, h2 = x.shape, w1.shape[1], w2.shape[1]
+    (g1, n1), (g2, n2) = tiles
+    hbuf = torch.empty((n, i), device="cuda")
+    w1t = torch.empty((2, i, h), device="cuda")
+    w2t = torch.empty((2, h2, i), device="cuda")
+    y = torch.empty((n, h2), device="cuda")
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn = _c_fn(lib, "fused_ffn_tc32", [vp] * 8 + [ci] * 9 + [vp])
+    _build.check(fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+                    w2.data_ptr(), hbuf.data_ptr(), w1t.data_ptr(),
+                    w2t.data_ptr(), y.data_ptr(), n, h, i, h2,
+                    ("gelu", "gelu_tanh", "relu").index(act), g1, n1, g2, n2,
+                    torch.cuda.current_stream().cuda_stream),
+                 "fused_ffn_tc32")
+    return y
+
+
+def probe_kernel_ms(fn, calls=20):
+    """{kernel name: device ms per call} of `fn` under torch.profiler
+    (after a warm-up call)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = e.cuda_time_total
+        if us > 0:
+            out[short_name(e.key)] = us / 1e3 / calls
+    return out
+
+
 def probe_cuda_core(lib, args, act):
     """The CUDA-core FFN through `lib` (whose C interface is unchanged
     since it was first ported)."""
@@ -2705,17 +2819,19 @@ def probe_check_ln(fm, tol, hidden, xdt, pdt, off, n=37):
 
 
 def probe(argv):
-    """Build the FFN's three sources and the LayerNorm forward and print
+    """Build the FFN's four sources and the LayerNorm forward and print
     their registers and spills; hold every FFN design at the rows it may
     take and every activation, and the LayerNorm forward at H 768, 1000,
     1002 and 4096 (bf16, fp32, mixed; a base one element past 16 bytes
     too), against their plain versions with phase 2's limits and a
     repeat bitwise.  Unless ``--quick``, then time at H=768 I=3072
     gelu_tanh (this script's timer): each design at 8 to 8192 rows beside
-    the cuBLAS composite and the bound; the decode design against its
-    second product queued after the first, and with every number of loads
-    a thread of each product at 8 rows; the tensor-core design with every
-    tile of each product at 256, 512, 1024 and 8192 rows; a copy of h's
+    the cuBLAS composite and the bound (fp32: split TF32); the decode
+    design against its second product queued after the first, and with
+    every number of loads a thread of each product at 8 rows; the two
+    tensor-core designs with every tile of each product at 256, 512, 1024
+    and 8192 rows, and the split-TF32 design's device ms by kernel (its
+    transposing pre-pass and its two products; torch.profiler); a copy of h's
     bytes at 8192 rows; the LayerNorm forward with 1, 4 and 8 rows a
     block at 8, 64 and 8192 rows beside ``F.layer_norm``.  With
     ``--parent DIR``, the fp32 CUDA-core FFN of DIR's
@@ -2728,7 +2844,7 @@ def probe(argv):
     from paddle_tpu_torch.ops import tolerance as tol
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"card: {card_line()}", flush=True)
-    names = [FFN_TC, FFN_DEC, FFN, LN]
+    names = [FFN_TC, FFN_TC32, FFN_DEC, FFN, LN]
     paths = _build.build(names)
     for name in names:
         with open(os.path.join(_build.BUILD_DIR, name + ".log")) as f:
@@ -2738,6 +2854,8 @@ def probe(argv):
     bf16, f32 = torch.bfloat16, torch.float32
     ok = True
     for design, dtype, rows in (("tc", bf16, (64, 200, 256, 512, 8192)),
+                                ("tc32", f32, (8, 64, 200, 256, 512, 1024,
+                                               8192)),
                                 ("decode", bf16, (8, 40, 64, 256)),
                                 ("decode", f32, (8, 40, 64, 256)),
                                 ("cuda_core", f32, (8, 512))):
@@ -2745,6 +2863,7 @@ def probe(argv):
             ok &= probe_check_ffn(fm, tol, design, n, dtype)
     for act in ("gelu", "relu"):
         ok &= probe_check_ffn(fm, tol, "tc", 512, bf16, act)
+        ok &= probe_check_ffn(fm, tol, "tc32", 512, f32, act)
         ok &= probe_check_ffn(fm, tol, "decode", 8, bf16, act)
         ok &= probe_check_ffn(fm, tol, "decode", 8, f32, act)
     for hidden in (768, 1000, 1002, 4096):
@@ -2778,21 +2897,22 @@ def probe(argv):
     if "--quick" in argv:
         print("probe checks passed", flush=True)
         return
-    own = {name: _build.load(name) for name in (FFN_TC, FFN_DEC)}
+    own = {name: _build.load(name) for name in (FFN_TC, FFN_TC32, FFN_DEC)}
     timer = Timer()
     for dtype in (bf16, f32):
         item = 2 if dtype == bf16 else 4
         for n in PROBE_ROWS:
             args = probe_ffn_args(n, dtype, 1)
             x, w1, b1, w2 = args
-            bms, by = bound_ms((2 * 768 * 3072 + 3072 + 2 * n * 768) * item,
-                               4 * n * 768 * 3072, dtype)
+            bnd = flash_bound((2 * 768 * 3072 + 3072 + 2 * n * 768) * item,
+                              4 * n * 768 * 3072, dtype)
+            bms, by = bnd["bound_ms"], bnd["bound_by"]
             cub = timer(lambda: torch.mm(torch.nn.functional.gelu(
                 torch.addmm(b1, x, w1), approximate="tanh"), w2))
             line = (f"ffn n={n} {dtype}: bound {bms:.4f} ({by}), cuBLAS "
                     f"addmm+gelu+mm {cub:.4f}")
             for design in (("tc", "decode") if dtype == bf16
-                           else ("decode", "cuda_core")):
+                           else ("decode", "tc32", "cuda_core")):
                 if design == "decode" and n > (4096 if dtype == f32
                                                else 1024):
                     continue      # 1024 row tiles: 0.6 GB of partials
@@ -2832,6 +2952,22 @@ def probe(argv):
             print(f"ffn tc tiles n={n}: first {first} second {t2}: "
                   f"{ms:.4f} ms", flush=True)
         print(f"ffn tc tiles n={n}: picker {(first, second)}", flush=True)
+        args = probe_ffn_args(n, f32, 2)
+        first, second = fm.ffn_tc_tiles(n, 3072, 768, tiles=fm._TC32_TILES)
+        for t1 in fm._TC32_TILES:
+            ms = timer(lambda: probe_tc32(own[FFN_TC32], args, (t1, second)))
+            print(f"ffn tc32 tiles n={n}: first {t1} second {second}: "
+                  f"{ms:.4f} ms", flush=True)
+        for t2 in fm._TC32_TILES:
+            ms = timer(lambda: probe_tc32(own[FFN_TC32], args, (first, t2)))
+            print(f"ffn tc32 tiles n={n}: first {first} second {t2}: "
+                  f"{ms:.4f} ms", flush=True)
+        print(f"ffn tc32 tiles n={n}: picker {(first, second)}; device ms "
+              f"by kernel (torch.profiler): " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in probe_kernel_ms(
+                      lambda: probe_tc32(own[FFN_TC32], args,
+                                         (first, second))).items()),
+              flush=True)
     hb = torch.empty(8192, 3072, dtype=bf16, device="cuda")
     hc = torch.empty_like(hb)
     print(f"ffn tc: one write and one read of h [8192, 3072] bf16 (a "
@@ -2881,8 +3017,9 @@ def time_paths(tree, reps=3):
     4 takes it, `reps` times) and 16 decode steps timed alone and under
     torch.profiler; the stacked bf16 training step (B=8 S=1024, 2 warm-up
     then 10 timed steps, `reps` times) and one profiled step; the stacked
-    fp32 step (fp32 weights, B=8 S=1024, 1 warm-up then 3 timed steps,
-    `reps` times) and one profiled step; and the host
+    fp32 step and the per-layer fp32 step under PTPU_PALLAS_LN=1
+    PTPU_PALLAS_FFN=1 (fp32 weights, B=8 S=1024, each 1 warm-up then 3
+    timed steps, `reps` times, and one profiled step); and the host
     microseconds of one FFN and one LayerNorm forward call at the decode
     step's 8 rows.  Prints one JSON line."""
     if not torch.cuda.is_available():
@@ -2950,30 +3087,35 @@ def time_paths(tree, reps=3):
         "device_ops": prof["device_ops"], "ms_by_group": prof["ms_by_group"]}
     del model, step
     torch.cuda.empty_cache()
-    # the fp32 stacked step (fp32 weights and masters): its forward and
-    # dK/dV flash kernels are the split-TF32 ones
-    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.float32,
-                           generator=torch.Generator().manual_seed(0))
-    step, _ = make_step(model)
-    with flag_env({}):
-        step(data)
-        step_ms = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(3):
-                step(data)
-            torch.cuda.synchronize()
-            step_ms.append((time.perf_counter() - t0) * 1e3 / 3)
-        prof = profile_step(step, data)
-    rec["stacked_step_fp32"] = {
-        "ms_per_step": step_ms, "wall_ms": prof["wall_ms"],
-        "device_ms": prof["device_ms"],
-        "device_busy_share": prof["device_busy_share"],
-        "device_ops": prof["device_ops"], "ms_by_group": prof["ms_by_group"],
-        "top": prof["top"][:8]}
-    del model, step
-    torch.cuda.empty_cache()
+    # the fp32 stacked step (fp32 weights and masters) and the fp32
+    # per-layer step under the LN and FFN flags: their flash kernels and
+    # (flags) FFN are the split-TF32 ones
+    for key, cfg_fp32, env in (
+            ("stacked_step_fp32", cfg, {}),
+            ("per_layer_flags_step_fp32", gpt2_124m_config(),
+             TRAIN_MODES["flags"])):
+        model = GPTForCausalLM(cfg_fp32, device="cuda", dtype=torch.float32,
+                               generator=torch.Generator().manual_seed(0))
+        step, _ = make_step(model)
+        with flag_env(env):
+            step(data)
+            step_ms = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    step(data)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3 / 3)
+            prof = profile_step(step, data)
+        rec[key] = {
+            "ms_per_step": step_ms, "wall_ms": prof["wall_ms"],
+            "device_ms": prof["device_ms"],
+            "device_busy_share": prof["device_busy_share"],
+            "device_ops": prof["device_ops"],
+            "ms_by_group": prof["ms_by_group"], "top": prof["top"][:8]}
+        del model, step
+        torch.cuda.empty_cache()
     g = torch.Generator().manual_seed(8)
     x = torch.randn(8, 768, generator=g).to("cuda", torch.bfloat16)
     w1 = (torch.randn(768, 3072, generator=g) / 28).to("cuda", torch.bfloat16)
@@ -2991,19 +3133,23 @@ def time_paths(tree, reps=3):
                 torch.empty((3, 8, 3072), device="cuda"),
                 torch.empty((12, 8, 768), device="cuda")))}
     g, s = rec["fused_generate"], rec["stacked_step"]
-    s32 = rec["stacked_step_fp32"]
     gen_ms = ", ".join(f"{v:.3f}" for v in g["decode_ms_per_step"])
     train_ms = ", ".join(f"{v:.3f}" for v in s["ms_per_step"])
-    train32_ms = ", ".join(f"{v:.3f}" for v in s32["ms_per_step"])
+    fp32 = []
+    for key, label in (("stacked_step_fp32", "fp32 stacked step"),
+                       ("per_layer_flags_step_fp32",
+                        "fp32 per-layer step under the LN and FFN flags")):
+        s32 = rec[key]
+        fp32.append(
+            f"{label} " + ", ".join(f"{v:.3f}" for v in s32["ms_per_step"])
+            + f" ms, device {s32['device_ms']:.3f} ms "
+            f"({s32['device_ops']:.0f} ops; by group " + ", ".join(
+                f"{k} {v:.3f}" for k, v in s32["ms_by_group"].items()) + ")")
     print(f"paths {tree} ({card}): fused generate decode {gen_ms} ms a "
           f"step, profiled window wall {g['wall_ms_per_step']:.3f} device "
           f"{g['device_ms_per_step']:.3f} ms ({g['device_ops_per_step']:.1f} "
           f"ops); stacked step {train_ms} ms, device {s['device_ms']:.3f} ms "
-          f"({s['device_ops']:.0f} ops); fp32 stacked step {train32_ms} ms, "
-          f"device {s32['device_ms']:.3f} ms ({s32['device_ops']:.0f} ops; "
-          f"by group " + ", ".join(f"{k} {v:.3f}"
-                                   for k, v in s32["ms_by_group"].items())
-          + "); "
+          f"({s['device_ops']:.0f} ops); " + "; ".join(fp32) + "; "
           f"host us per call at 8 rows: " + ", ".join(
               f"{k} {v:.2f}"
               for k, v in rec["host_us_per_call_8_rows"].items()),

@@ -92,20 +92,39 @@
 // every query tile: the tensor core's truncated fp32 sums cost them ~0.15
 // of the fp32 limit (1e-4 max|ref|) there.
 //
-// fp32 dQ: the first design, on the CUDA cores (fp32 FMAs), bound by the
-// CUDA cores' issue rate -- the FMAs and the shared-memory reads that
-// feed them.  One block per (64-query tile, head, batch).  Four threads
-// share a query row, each holding D/4 dims of q, dO and the fp32 dq
-// accumulator in registers (dims d = sub + 4*i, so the four lanes of a
-// row read consecutive shared-memory words).  Key/value tiles of 32 rows
-// are staged once per block in shared memory as fp32; causal, the loop
-// runs from key 0 up to the diagonal.
+// fp32 dQ: `flash_bwd_dq_tc32_kernel`, on the tensor cores in split TF32
+// (the products as in the dK/dV above), in the bf16 dQ's form: queries as
+// M, the same statistics, branches and per-pair tests; p and ds stay
+// fp32.  What bounds it: as the dK/dV, the products at 495 / 3 TFLOP/s
+// (three TF32 passes), plus the splits and the transpose on the CUDA
+// cores.  Q and dO are loaded once and split in place into hi and lo
+// tiles (the A operands of S = Q K^T and dP = dO V^T, from shared
+// memory).  Per key tile: K and V land by `cp.async` in their hi tiles;
+// the threads write K^T hi and lo ([D, keys], the keys of each group of 8
+// permuted to match the dS fragments, `tf32_a`: dQ += dS K needs K with
+// the keys as its reduction, and TF32 operands are K-major only), split V
+// in place, then K in place; S and dP; once every warpgroup's S and dP are
+// done the next tile's copy into the K hi and V hi tiles starts, and runs
+// under ds = p (dP - delta) and dQ += dS K, whose A operands come from the
+// dP accumulator in registers.  dQ is summed in one level over every key
+// tile, as dK and dV are: the tensor core's truncated sums stay a small
+// share of the 1e-4 max|ref| limit (emulated at S = 1024: 0.03 at randn
+// scale 1, 0.24-0.43 at scale 4, where a per-tile second level buys
+// 0.02-0.03 of it; 0.09 with an additive randn*2 mask at S = 896, 0.02
+// with two levels: tests/test_torch_port_tf32_dq_ffn.py), and a second
+// accumulator would cost D/2 registers.  D = 64: two warpgroups a
+// block, each owning 64 queries and sharing 64-key tiles (the splits and
+// the transpose are done once for 128 queries); D = 128: one warpgroup,
+// 32-key tiles; 225 KB of shared memory either way.  Causal, a warpgroup
+// skips the products of a key tile that lies past all of its queries.
+// Measured at the training shape on the H100 (PERF.md, PR 11): 0.36 ms,
+// against 1.45 for the CUDA-core kernel it replaced.
 // In the dK/dV kernels, causal, the loop starts at the first query tile
 // that can see the key tile (the query at max(k0 - (Sk - Sq), 0)) and
 // runs to the end; in the dQ kernels it stops at min(kv_len, the causal
 // limit of the tile's last query), rounded up to a key tile.
 // All mask the ragged tile edges themselves, so any S works: padding rows
-// are staged as zeros and their p is set to 0, so an undefined lse is
+// are copied as zeros and their p is set to 0, so an undefined lse is
 // never used.
 //
 // The branches are template flags of the two kernels, MASKED, SEGS and
@@ -120,8 +139,8 @@
 //   statistic is the pair (m, log l) of the masked forward, p =
 //   exp((s - m) - log l): a row whose every key the mask closes has m ~
 //   -1e30, where lse = m + log l has lost log l in fp32, and the pair gives
-//   the forward's 1/n there.  The CUDA-core dQ stages the mask per tile in
-//   shared memory; the tensor-core kernels read each thread's pairs.
+//   the forward's 1/n there.  Each thread reads the mask at its own
+//   pairs.
 // - SEGS (`:245-247`, `:262-266`, `:309-311`, `:326-330`): a pair whose ids
 //   differ gets p = 0; the dQ block visits only the key tiles inside its
 //   query tile's id envelope, the dK/dV block only the query tiles inside
@@ -131,8 +150,8 @@
 //
 // Layout: q, k, v and dO are [B, S, H, D] with unit stride in D and stride
 // D between heads; batch and sequence strides are arguments, so slices of a
-// fused qkv projection need no copy (the tensor-core kernels: 16-byte-
-// aligned rows, strides a multiple of 16 bytes, for the 16-byte copies).  lse, delta
+// fused qkv projection need no copy (16-byte-aligned rows, strides a
+// multiple of 16 bytes, for the 16-byte copies).  lse, delta
 // (and m) are contiguous fp32 [B, H, Sq].  dq, dk, dv are contiguous
 // [B, S, H, D] in the input type.  Causal alignment is at the end (query i
 // sees keys <= i + Sk - Sq).
@@ -143,22 +162,6 @@
 
 namespace {
 
-using flash::from_f;
-using flash::round_to;
-using flash::to_f;
-
-constexpr int BR = 64;              // output rows (queries or keys) per block
-constexpr int BT = 32;              // rows per staged shared-memory tile
-constexpr int TPR = 4;              // threads per output row
-constexpr int THREADS = BR * TPR;   // 256
-
-// Sum over the four lanes of one row.
-__device__ __forceinline__ float row_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  x += __shfl_xor_sync(0xffffffffu, x, 2);
-  return x;
-}
-
 // The pointers and strides of the branches (null / 0 when absent).
 struct Branches {
   const float* rowmax;   // m [B, H, Sq], with MASKED
@@ -167,115 +170,6 @@ struct Branches {
   const int* segs;
   long long msb, msh, msq, msk, ssb;
 };
-
-template <typename T, int D, bool MASKED, bool SEGS, bool CAUSAL>
-__global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const T* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    T* __restrict__ dq, int H, int Sq, int Sk, long long qsb, long long qss,
-    long long ksb, long long kss, long long vsb, long long vss,
-    long long dsb, long long dss, float scale, const Branches br) {
-  constexpr int DP = D / TPR;
-  __shared__ float ks[BT][D];
-  __shared__ float vs[BT][D];
-  __shared__ float ms[MASKED ? BR : 1][BT + 1];   // mask tile, padded
-  __shared__ int kid[SEGS ? BT : 1];               // the key tile's ids
-  __shared__ int red[SEGS ? 2 * THREADS / 32 : 1];
-  const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, row = tid / TPR, sub = tid % TPR;
-  const int qpos = tile * BR + row;
-  const bool live = qpos < Sq;
-  const int qc = min(qpos, Sq - 1);
-  const int lim = qpos + Sk - Sq;   // last key this row may attend (causal)
-  const int klen =
-      MASKED && br.kv_lens ? min(max(br.kv_lens[b], 0), Sk) : Sk;
-
-  float qr[DP], dor[DP], acc[DP];
-  const T* qp = q + b * qsb + (long long)qc * qss + h * D;
-  const T* dp = dout + b * dsb + (long long)qc * dss + h * D;
-#pragma unroll
-  for (int i = 0; i < DP; ++i) {
-    qr[i] = to_f(qp[sub + TPR * i]);
-    dor[i] = to_f(dp[sub + TPR * i]);
-    acc[i] = 0.f;
-  }
-  const long long stat = ((long long)b * H + h) * Sq + qc;
-  const float l = lse[stat], dl = delta[stat];
-  const float mr = MASKED ? br.rowmax[stat] : 0.f;
-
-  const T* kb = k + b * ksb + h * D;
-  const T* vb = v + b * vsb + h * D;
-  const float* mb =
-      MASKED && br.mask ? br.mask + b * br.msb + h * br.msh : nullptr;
-  const int* sb = SEGS ? br.segs + b * br.ssb : nullptr;
-  int kbeg = 0;
-  int kend = CAUSAL ? min(klen, tile * BR + BR + Sk - Sq) : klen;  // excl.
-  int qid = 0;
-  if constexpr (SEGS) {
-    qid = sb[qc];
-    const int2 env = flash::seg_envelope<THREADS>(sb, Sk, qid, red);
-    kbeg = env.x / BT * BT;
-    kend = min(kend, env.y);
-  }
-  for (int k0 = kbeg; k0 < kend; k0 += BT) {
-    __syncthreads();   // the previous tile is no longer read
-    for (int e = tid; e < BT * D; e += THREADS) {
-      const int j = e / D, d = e % D, kp = k0 + j;
-      float kv = 0.f, vv = 0.f;
-      if (kp < Sk) {
-        kv = to_f(kb[kp * kss + d]);
-        vv = to_f(vb[kp * vss + d]);
-      }
-      ks[j][d] = kv;
-      vs[j][d] = vv;
-    }
-    if constexpr (MASKED) {
-      if (mb) {
-        for (int e = tid; e < BR * BT; e += THREADS) {
-          const int rr = e / BT, j = e % BT, kp = k0 + j;
-          const long long qq = min(tile * BR + rr, Sq - 1);
-          ms[rr][j] = kp < Sk ? mb[qq * br.msq + kp * br.msk] : 0.f;
-        }
-      }
-    }
-    if constexpr (SEGS) {
-      if (tid < BT) kid[tid] = k0 + tid < Sk ? sb[k0 + tid] : 0;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int j = 0; j < BT; ++j) {
-      float s = 0.f, dpv = 0.f;
-#pragma unroll
-      for (int i = 0; i < DP; ++i) {
-        s = fmaf(qr[i], ks[j][sub + TPR * i], s);
-        dpv = fmaf(dor[i], vs[j][sub + TPR * i], dpv);
-      }
-      s = row_sum(s);
-      dpv = row_sum(dpv);
-      const int kp = k0 + j;
-      bool ok = live && (!CAUSAL || kp <= lim) && kp < klen;
-      if constexpr (SEGS) ok = ok && kid[j] == qid;
-      float p;
-      if constexpr (MASKED) {
-        const float sc = mb ? s * scale + ms[row][j] : s * scale;
-        p = ok ? expf((sc - mr) - l) : 0.f;
-      } else {
-        p = ok ? expf(s * scale - l) : 0.f;
-      }
-      const float ds = round_to<T>(p * (dpv - dl));
-#pragma unroll
-      for (int i = 0; i < DP; ++i) acc[i] = fmaf(ds, ks[j][sub + TPR * i], acc[i]);
-    }
-  }
-
-  if (live) {
-    T* op = dq + (((long long)b * Sq + qpos) * H + h) * D;
-#pragma unroll
-    for (int i = 0; i < DP; ++i) op[sub + TPR * i] = from_f<T>(acc[i] * scale);
-  }
-}
 
 // ---------------------------------------------------------------------------
 // bf16 dQ and dK/dV: the tensor-core kernels (header comment)
@@ -906,6 +800,223 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS) flash_bwd_dkv_tc32_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// fp32 dQ: the split-TF32 tensor-core kernel (header comment)
+// ---------------------------------------------------------------------------
+
+// Per head size: warpgroups per block (each owns 64 queries and shares the
+// key tiles) and keys per tile.  The shared memory: Q hi, Q lo, dO hi, dO
+// lo ([64, D] per warpgroup, split in place once loaded); then per key
+// tile K hi, K lo, V hi, V lo ([BK, D]; K and V land raw in their hi
+// tiles and are split in place) and K^T hi, K^T lo ([D, BK], the keys of
+// each group of 8 permuted as the dS fragments need).  All fp32, plus 1024
+// bytes of slack to align the tiles for the swizzle: 225 KB at either
+// head size, one block an SM.
+template <int D>
+struct DqCfg {
+  static constexpr int WGS = D == 64 ? 2 : 1;
+  static constexpr int BK = D == 64 ? 64 : 32;
+  static constexpr int THREADS = WGS * WG;
+  static constexpr uint32_t QT = 64 * D * 4, KT = BK * D * 4;
+  static constexpr int SMEM = 4 * WGS * QT + 6 * KT + 1024;
+};
+
+template <int D, bool MASKED, bool SEGS, bool CAUSAL>
+__global__ void __launch_bounds__(DqCfg<D>::THREADS) flash_bwd_dq_tc32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ dq, int H, int Sq, int Sk, long long qsb,
+    long long qss, long long ksb, long long kss, long long vsb,
+    long long vss, long long dsb, long long dss, float scale,
+    const Branches br) {
+  using C = DqCfg<D>;
+  constexpr int BK = C::BK, WGS = C::WGS, THREADS = C::THREADS;
+  constexpr uint32_t QT = C::QT, KT = C::KT;
+  extern __shared__ uint8_t smem[];
+  __shared__ int red[SEGS ? 2 * THREADS / 32 : 1];
+  // Q hi of warpgroup w at sqh + w QT, its Q lo at sql + w QT; dO
+  // likewise; the key tile's K hi, K lo, V hi, V lo, K^T hi, K^T lo
+  const uint32_t sqh = (smem_addr(smem) + 1023u) & ~1023u;
+  const uint32_t sql = sqh + WGS * QT, sdh = sql + WGS * QT;
+  const uint32_t sdl = sdh + WGS * QT, skh = sdl + WGS * QT;
+  const uint32_t skl = skh + KT, svh = skl + KT, svl = svh + KT;
+  const uint32_t sth = svl + KT, stl = sth + KT;
+  const int tile = gridDim.x - 1 - blockIdx.x;   // longest rows first
+  const int h = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
+  const int wg = tid / WG, wtid = tid % WG;
+  const int q0 = tile * 64 * WGS, offset = Sk - Sq;
+  const int qw0 = q0 + 64 * wg;   // this warpgroup's first query
+  const int klen =
+      MASKED && br.kv_lens ? min(max(br.kv_lens[b], 0), Sk) : Sk;
+  const float* mb =
+      MASKED && br.mask ? br.mask + b * br.msb + h * br.msh : nullptr;
+  const int* sb = SEGS ? br.segs + b * br.ssb : nullptr;
+  // this thread's two query rows (accumulator values i with (i/2)%2 = r),
+  // their statistics, mask rows and ids (rows past Sq read row Sq - 1 and
+  // are never written)
+  int qpos[2], qid[2] = {0, 0};
+  float ls[2], dls[2], mrs[2] = {0.f, 0.f};
+  const float* mrow[2] = {nullptr, nullptr};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    qpos[r] = qw0 + acc_row(2 * r, wtid);
+    const int qc = min(qpos[r], Sq - 1);
+    const long long stat = ((long long)b * H + h) * Sq + qc;
+    ls[r] = lse[stat];
+    dls[r] = delta[stat];
+    if constexpr (MASKED) {
+      mrs[r] = br.rowmax[stat];
+      if (mb) mrow[r] = mb + (long long)qc * br.msq;
+    }
+    if constexpr (SEGS) qid[r] = sb[qc];
+  }
+
+  const float* kb = k + b * ksb + h * D;
+  const float* vb = v + b * vsb + h * D;
+  int kbeg = 0;
+  int kend = CAUSAL ? min(klen, q0 + 64 * WGS + offset) : klen;   // excl.
+  if constexpr (SEGS) {
+    const int2 env = flash::seg_envelope<THREADS>(
+        sb, Sk, min(qid[0], qid[1]), max(qid[0], qid[1]), red);
+    kbeg = env.x / BK * BK;
+    kend = min(kend, env.y);
+  }
+  const int ntiles = kend > kbeg ? (kend - kbeg + BK - 1) / BK : 0;
+
+  // key tile `it` as loaded, into the K hi and V hi tiles
+  auto stage = [&](int it, int tid) {
+    const int k0 = kbeg + it * BK;
+    load_tile_f32<BK, D, THREADS>(skh, kb, kss, k0, Sk, tid);
+    load_tile_f32<BK, D, THREADS>(svh, vb, vss, k0, Sk, tid);
+  };
+#pragma unroll
+  for (int w = 0; w < WGS; ++w) {
+    load_tile_f32<64, D, THREADS>(sqh + w * QT, q + b * qsb + h * D, qss,
+                                  q0 + 64 * w, Sq, tid);
+    load_tile_f32<64, D, THREADS>(sdh + w * QT, dout + b * dsb + h * D, dss,
+                                  q0 + 64 * w, Sq, tid);
+  }
+  cp_async_commit();
+  if (ntiles > 0) stage(0, tid);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();   // Q and dO have landed
+  split_tile<WGS * QT, THREADS>(sqh, sqh, sql, tid);
+  split_tile<WGS * QT, THREADS>(sdh, sdh, sdl, tid);
+  const uint32_t wqh = sqh + wg * QT, wql = sql + wg * QT;
+  const uint32_t wdh = sdh + wg * QT, wdl = sdl + wg * QT;
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float s[BK / 2], dp[BK / 2];   // S and dP: rows queries, columns keys
+
+  // ds = p (dP - delta) (in dp) of key tile k0
+  auto probs = [&](int k0, auto test) {
+    constexpr bool TEST = decltype(test)::value;
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      const int r = (i / 2) % 2, kp = k0 + acc_col(i, wtid);
+      float x = s[i] * scale;
+      float p;
+      if constexpr (MASKED) {
+        if (mb && (!TEST || kp < Sk)) x += mrow[r][(long long)kp * br.msk];
+        p = expf((x - mrs[r]) - ls[r]);
+      } else {
+        p = expf(x - ls[r]);
+      }
+      if constexpr (TEST) {
+        bool ok = (!CAUSAL || kp <= qpos[r] + offset) && kp < klen;
+        if constexpr (SEGS) ok = ok && sb[min(kp, Sk - 1)] == qid[r];
+        p = ok ? p : 0.f;
+      }
+      dp[i] = p * (dp[i] - dls[r]);
+    }
+  };
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int k0 = kbeg + it * BK;
+    const int tid = fresh_tid();   // tile addresses: recomputed, not kept
+    cp_async_wait<0>();
+    __syncthreads();   // tile it has landed; tile it - 1 is done
+    // K as K^T hi and lo, V split in place; then K split in place
+    transpose_split<BK, D, THREADS>(skh, sth, stl, tid);
+    split_tile<KT, THREADS>(svh, svh, svl, tid);
+    __syncthreads();   // K has been read
+    split_tile<KT, THREADS>(skh, skh, skl, tid);
+    fence_async_smem();
+    __syncthreads();   // the split tiles are visible to wgmma
+
+    // a warpgroup whose queries all precede the tile's first key skips it
+    const bool live = !CAUSAL || k0 <= qw0 + 63 + offset;
+    if (live) {
+      // S = Q K^T and dP = dO V^T, the small terms first
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) s[i] = dp[i] = 0.f;
+      mma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {
+        mma_tf32_ss<BK>(s, desc_k<64>(wql, kk), desc_k<BK>(skh, kk));
+        mma_tf32_ss<BK>(s, desc_k<64>(wqh, kk), desc_k<BK>(skl, kk));
+        mma_tf32_ss<BK>(s, desc_k<64>(wqh, kk), desc_k<BK>(skh, kk));
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {
+        mma_tf32_ss<BK>(dp, desc_k<64>(wdl, kk), desc_k<BK>(svh, kk));
+        mma_tf32_ss<BK>(dp, desc_k<64>(wdh, kk), desc_k<BK>(svl, kk));
+        mma_tf32_ss<BK>(dp, desc_k<64>(wdh, kk), desc_k<BK>(svh, kk));
+      }
+      mma_commit();
+      mma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+    }
+    __syncthreads();   // every warpgroup's S and dP are done: K, V are free
+    if (it + 1 < ntiles) stage(it + 1, tid);
+    cp_async_commit();
+    if (!live) continue;
+
+    if (SEGS || k0 + BK > klen || (CAUSAL && k0 + BK - 1 > qw0 + offset))
+      probs(k0, std::true_type{});
+    else
+      probs(k0, std::false_type{});
+
+    // dQ += dS K: dS_lo K^T_hi + dS_hi K^T_lo + dS_hi K^T_hi, the A
+    // operands from the dP accumulator, summed into dQ in one level (the
+    // tensor core's truncated sums cost it a small share of the limit:
+    // tests/test_torch_port_tf32.py)
+    uint32_t ah[BK / 8][4], al[BK / 8][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk) tf32_a(ah[kk], al[kk], dp, kk);
+    fence_frag(ah);
+    fence_frag(al);
+    mma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk) {
+      mma_tf32_rs<D>(acc, al[kk], desc_k<D>(sth, kk));
+      mma_tf32_rs<D>(acc, ah[kk], desc_k<D>(stl, kk));
+      mma_tf32_rs<D>(acc, ah[kk], desc_k<D>(sth, kk));
+    }
+    mma_commit();
+    mma_wait<0>();
+    fence_regs(acc);
+    fence_frag(ah);
+    fence_frag(al);
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (qpos[r] >= Sq) continue;
+    float* op = dq + (((long long)b * Sq + qpos[r]) * H + h) * D;
+#pragma unroll
+    for (int i = 2 * r; i < D / 2; i += 4)
+      *reinterpret_cast<float2*>(op + acc_col(i, wtid)) =
+          make_float2(acc[i] * scale, acc[i + 1] * scale);
+  }
+}
+
 }  // namespace tc32
 
 struct Args {
@@ -916,19 +1027,6 @@ struct Args {
   cudaStream_t stream;
   Branches br;
 };
-
-template <typename T, int D, bool MASKED, bool SEGS, bool CAUSAL>
-void launch_dq(const Args& a, void* dq) {
-  dim3 grid((a.Sq + BR - 1) / BR, a.H, a.B);
-  flash_bwd_dq_kernel<T, D, MASKED, SEGS, CAUSAL>
-      <<<grid, THREADS, 0, a.stream>>>(
-          static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-          static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
-          static_cast<const float*>(a.lse),
-          static_cast<const float*>(a.delta), static_cast<T*>(dq), a.H,
-          a.Sq, a.Sk, a.qsb, a.qss, a.ksb, a.kss, a.vsb, a.vss, a.dsb,
-          a.dss, a.scale, a.br);
-}
 
 template <int D, bool MASKED, bool SEGS, bool CAUSAL>
 void launch_dq_tc(const Args& a, void* dq) {
@@ -982,10 +1080,26 @@ void launch_dkv_tc32(const Args& a, void* dk, void* dv) {
       a.qsb, a.qss, a.ksb, a.kss, a.vsb, a.vss, a.dsb, a.dss, a.scale, a.br);
 }
 
+template <int D, bool MASKED, bool SEGS, bool CAUSAL>
+void launch_dq_tc32(const Args& a, void* dq) {
+  using C = tc32::DqCfg<D>;
+  auto* kernel = tc32::flash_bwd_dq_tc32_kernel<D, MASKED, SEGS, CAUSAL>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  (void)attr;   // a refusal shows as the launch's error
+  const int rows = 64 * C::WGS;   // queries per block
+  dim3 grid((a.Sq + rows - 1) / rows, a.H, a.B);
+  kernel<<<grid, C::THREADS, C::SMEM, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<float*>(dq), a.H, a.Sq, a.Sk, a.qsb, a.qss, a.ksb, a.kss,
+      a.vsb, a.vss, a.dsb, a.dss, a.scale, a.br);
+}
+
 // One launch of the dQ (dv null) or the dK/dV kernel for a head size and
 // type; cudaErrorInvalidValue for one the kernels do not take.  bf16 takes
-// the bf16 tensor-core kernels; fp32 the split-TF32 dK/dV and the
-// CUDA-core dQ.
+// the bf16 tensor-core kernels, fp32 the split-TF32 ones.
 template <bool MASKED, bool SEGS, bool CAUSAL>
 int dispatch(const Args& a, int D, int is_bf16, void* dq_or_dk, void* dv) {
   if (D != 64 && D != 128) return static_cast<int>(cudaErrorInvalidValue);
@@ -1006,9 +1120,9 @@ int dispatch(const Args& a, int D, int is_bf16, void* dq_or_dk, void* dv) {
       launch_dq_tc<128, MASKED, SEGS, CAUSAL>(a, dq_or_dk);
   } else {
     if (D == 64)
-      launch_dq<float, 64, MASKED, SEGS, CAUSAL>(a, dq_or_dk);
+      launch_dq_tc32<64, MASKED, SEGS, CAUSAL>(a, dq_or_dk);
     else
-      launch_dq<float, 128, MASKED, SEGS, CAUSAL>(a, dq_or_dk);
+      launch_dq_tc32<128, MASKED, SEGS, CAUSAL>(a, dq_or_dk);
   }
   return static_cast<int>(cudaGetLastError());
 }

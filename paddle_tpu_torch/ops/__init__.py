@@ -42,13 +42,15 @@ _KERNELS = (flash_attention, flash_attention.masked, flash_attention.segs,
             flash_attention.flash_bwd_dq,
             *flash_attention.flash_bwd_dq.variants.values(),
             flash_attention.flash_bwd_dq.tc,
+            flash_attention.flash_bwd_dq.tc32,
             flash_attention.flash_bwd_dkv,
             *flash_attention.flash_bwd_dkv.variants.values(),
             flash_attention.flash_bwd_dkv.tc,
             flash_attention.flash_bwd_dkv.tc32,
             ragged_paged_attention, ragged_paged_attention.int8,
             flash_decode, fused_decode, fused_mlp.ln_fwd, fused_mlp.ln_bwd,
-            fused_mlp.ffn_fwd, fused_mlp.ffn_tc, fused_mlp.ffn_decode)
+            fused_mlp.ffn_fwd, fused_mlp.ffn_tc, fused_mlp.ffn_tc32,
+            fused_mlp.ffn_decode)
 
 
 def launch_counts() -> dict:

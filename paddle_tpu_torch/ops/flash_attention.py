@@ -18,22 +18,22 @@ Each source has one entry per kernel, which picks the template
 instantiation (``MASKED`` for a mask and / or ``kv_lens``, ``SEGS``,
 ``CAUSAL``) from the branches it is given, and the design from the type:
 in bfloat16 all three run on the tensor cores (``wgmma``,
-``csrc/flash_tc.cuh``); in float32 the forward and dK/dV run on the
-tensor cores too, each fp32 product as three TF32 products of the
-operands' hi and lo parts (split TF32, as accurate as fp32 products:
-``flash_tc.cuh``), and dQ on the CUDA cores.  Each wrapper counts
+``csrc/flash_tc.cuh``); in float32 all three run on the tensor cores
+too, each fp32 product as three TF32 products of the operands' hi and lo
+parts (split TF32, as accurate as fp32 products: ``flash_tc.cuh``).
+Each wrapper counts
 the causal launches with no mask, ``kv_lens`` or segments (the serving
 prefill and unpacked training) under the kernel's name, and the others
 apart, by the first of: ``segs`` (any call with segment ids), ``mask`` (a
 mask or ``kv_lens``), ``noncausal``.  The tensor-core launches are counted
 once more, apart, any branch: bfloat16 under ``flash_fwd_causal:tc``,
 ``flash_bwd_dq_causal:tc`` and ``flash_bwd_dkv_causal:tc``, float32 under
-``flash_fwd_causal:tc32`` and ``flash_bwd_dkv_causal:tc32``.  The
-tensor-core kernels copy 16-byte rows: on the card q, k, v (and dO) must
-start on 16 bytes, with batch and sequence strides of a multiple of 16
-bytes (8 bfloat16 or 4 float32 elements; the slices of a fused
-``[B, S, 3, H, D]`` projection are), for every bfloat16 kernel and the
-float32 forward and dK/dV; anything else raises.
+``flash_fwd_causal:tc32``, ``flash_bwd_dq_causal:tc32`` and
+``flash_bwd_dkv_causal:tc32``.  The kernels copy 16-byte rows: on the
+card q, k, v (and dO) must start on 16 bytes, with batch and sequence
+strides of a multiple of 16 bytes (8 bfloat16 or 4 float32 elements; the
+slices of a fused ``[B, S, 3, H, D]`` projection are); anything else
+raises.
 
 The softmax statistic the backward reads is the logsumexp, except with a
 mask or ``kv_lens``: there it is the pair (row max ``m``, ``log l``), which
@@ -256,7 +256,7 @@ def flash_attention_bwd_reference(q, k, v, out, lse, do, scale, *,
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check_qkv(q, k, v, causal=True, aligned=True):
+def _check_qkv(q, k, v, causal=True):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dim() != 4:
             raise ValueError(f"{name} must be [B, S, H, D], got "
@@ -276,13 +276,13 @@ def _check_qkv(q, k, v, causal=True, aligned=True):
         raise ValueError(f"kernel takes head_dim 64 or 128, got {d}")
     if causal and k.shape[1] < sq:
         raise ValueError("causal attention needs Sk >= Sq")
-    if q.is_cuda and aligned:
+    if q.is_cuda:
         for name, t in (("q", q), ("k", k), ("v", v)):
             _check_aligned(name, t)
 
 
 def _aligned(t):
-    """What the 16-byte copies of the tensor-core kernels need: a
+    """What the 16-byte copies of the kernels need: a
     16-byte-aligned start, and batch and sequence strides of a multiple of
     16 bytes (a dimension of size 1 takes any stride)."""
     return t.data_ptr() % 16 == 0 and all(
@@ -293,7 +293,7 @@ def _aligned(t):
 def _check_aligned(name, t):
     if not _aligned(t):
         raise ValueError(
-            f"{name}: the tensor-core kernels need a 16-byte-aligned start "
+            f"{name}: the flash kernels need a 16-byte-aligned start "
             f"and batch and sequence strides of a multiple of 16 bytes "
             f"({16 // t.element_size()} {t.dtype} elements); got strides "
             f"{t.stride()}, start at {t.data_ptr() % 16} bytes past 16")
@@ -372,9 +372,8 @@ class _BwdKernel:
     """Launch wrapper of one kernel of ``csrc/flash_bwd_causal.cu`` (the
     extern entry ``entry``), with a launch counter for its causal launches
     with no other branch, one per variant (``variants``), one for its bf16
-    launches (``tc``: the bf16 tensor-core kernel) and, with
-    ``tc32_kernel``, one for its fp32 launches (``tc32``: the split-TF32
-    tensor-core kernel), else ``tc32`` None.
+    launches (``tc``: the bf16 tensor-core kernel) and one for its fp32
+    launches (``tc32``: the split-TF32 tensor-core kernel).
     ``(q, k, v, do, lse, delta, scale)`` plus the branches -> ``dq`` (the dQ kernel, one output) or ``(dk, dv)`` (the
     dK/dV kernel, two), each a contiguous [B, S, H, D] in the inputs'
     dtype; with a mask or kv_lens, ``lse`` is log l and ``row_max`` the
@@ -384,15 +383,14 @@ class _BwdKernel:
 
     SOURCE = BWD_SOURCE
 
-    def __init__(self, kernel, entry, n_out, tc32_kernel=False):
+    def __init__(self, kernel, entry, n_out):
         self.KERNEL = kernel
         self.launches = 0          # causal launches since the reset
         self._entry = entry
         self.variants = {n: _Variant(f"{kernel}:{n}", BWD_SOURCE)
                          for n in VARIANTS}
         self.tc = _Variant(f"{kernel}:tc", BWD_SOURCE)
-        self.tc32 = (_Variant(f"{kernel}:tc32", BWD_SOURCE) if tc32_kernel
-                     else None)
+        self.tc32 = _Variant(f"{kernel}:tc32", BWD_SOURCE)
         self._n_out = n_out
 
     def __call__(self, q, k, v, do, lse, delta, scale, *, causal=True,
@@ -407,15 +405,13 @@ class _BwdKernel:
     def _launch(self, q, k, v, do, lse, delta, scale, causal, mask, lens,
                 segs, row_max):
         bf16 = q.dtype == torch.bfloat16
-        aligned = bf16 or self.tc32 is not None
-        _check_qkv(q, k, v, causal, aligned)
+        _check_qkv(q, k, v, causal)
         if do.shape != q.shape or do.dtype != q.dtype \
                 or do.device != q.device or not _head_layout(do):
             raise ValueError(f"do must match q in shape, dtype, device and "
                              f"head layout: {tuple(do.shape)} {do.dtype} on "
                              f"{do.device}, strides {do.stride()}")
-        if aligned:
-            _check_aligned("do", do)
+        _check_aligned("do", do)
         b, sq, h, d = q.shape
         sk = k.shape[1]
         name = variant_name(causal, mask, lens, segs)
@@ -446,16 +442,12 @@ class _BwdKernel:
         _build.check(err, self.KERNEL)
         counter = self if name is None else self.variants[name]
         counter.launches += 1
-        if bf16:
-            self.tc.launches += 1
-        elif self.tc32 is not None:
-            self.tc32.launches += 1
+        (self.tc if bf16 else self.tc32).launches += 1
         return outs[0] if self._n_out == 1 else tuple(outs)
 
 
 flash_bwd_dq = _BwdKernel("flash_bwd_dq_causal", "flash_bwd_dq", 1)
-flash_bwd_dkv = _BwdKernel("flash_bwd_dkv_causal", "flash_bwd_dkv", 2,
-                           tc32_kernel=True)
+flash_bwd_dkv = _BwdKernel("flash_bwd_dkv_causal", "flash_bwd_dkv", 2)
 
 
 def _forward(q, k, v, scale, causal, mask, lens, sid):

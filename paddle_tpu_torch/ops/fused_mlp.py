@@ -6,13 +6,14 @@ pallas_ops.py:1443-1526`), `fused_ffn_arrays` / `fused_ffn_2d`
 
 On a CUDA tensor each launches its kernels (``csrc/fused_layernorm.cu``,
 the port of `_ln_fwd_kernel` `:1391`; ``csrc/fused_layernorm_bwd.cu``, of
-`_ln_bwd_kernel` `:1404`; of `_ffn_fwd_kernel` `:1548` one of three
+`_ln_bwd_kernel` `:1404`; of `_ffn_fwd_kernel` `:1548` one of four
 designs that `ffn_design` picks from the rows, widths and dtype:
 ``csrc/fused_ffn_tc.cu``, bf16 on the tensor cores, for many rows;
-``csrc/fused_ffn_decode.cu``, a bandwidth design for a few rows, bf16 or
-fp32; ``csrc/fused_ffn.cu``, fp32 on the CUDA cores, for many fp32 rows
-and widths the other two do not take); on a CPU tensor each computes its
-plain version.  Both are
+``csrc/fused_ffn_tc32.cu``, fp32 on the tensor cores in split TF32, for
+many rows; ``csrc/fused_ffn_decode.cu``, a bandwidth design for a few
+rows, bf16 or fp32; ``csrc/fused_ffn.cu``, on the CUDA cores, for widths
+the other three do not take); on a CPU tensor each computes its plain
+version.  Both are
 differentiable, as the JAX custom VJPs are: the LayerNorm's backward is the
 backward kernel (`LayerNormFunction`), the FFN's recomputes the intermediate
 in plain PyTorch (`FusedFFNFunction`, `_ffn_vjp_bwd` `:1607`).  Under
@@ -35,7 +36,7 @@ __all__ = ["fused_layernorm_arrays", "fused_layernorm_reference",
            "LayerNormFunction", "fused_ffn_arrays", "fused_ffn_reference",
            "FusedFFNFunction", "maybe_fused_ffn", "ln_geometry_ok",
            "ffn_geometry_ok", "ln_fwd", "ln_bwd", "ffn_fwd", "ffn_tc",
-           "ffn_decode", "ln_block_rows", "ffn_design",
+           "ffn_tc32", "ffn_decode", "ln_block_rows", "ffn_design",
            "ffn_tc_tiles", "ffn_decode_loads"]
 
 _ACTS = ("gelu", "gelu_tanh", "relu")
@@ -61,6 +62,7 @@ ln_fwd = _Launcher("fused_layernorm")
 ln_bwd = _Launcher("fused_layernorm_bwd")
 ffn_fwd = _Launcher("fused_ffn")            # the CUDA-core design
 ffn_tc = _Launcher("fused_ffn_tc")          # bf16 on the tensor cores
+ffn_tc32 = _Launcher("fused_ffn_tc32")      # fp32 on the tensor cores
 ffn_decode = _Launcher("fused_ffn_decode")  # a few rows, bandwidth
 
 
@@ -363,13 +365,16 @@ def maybe_fused_ffn(x, w1, b1, w2, act):
 
 # Measured on an H100 at GPT-2 width (PERF.md, `chip_smoke.py --probe`):
 # in bf16 the decode design wins at 8 and 16 rows, the tensor cores from
-# 24; in fp32 the decode design wins by 8 % or more up to 512 rows, ties
-# the CUDA-core kernel at 1024 (where its partials are 3x the weights) and
-# loses above.
+# 24; in fp32 the decode design wins up to 64 rows (0.0916 ms against the
+# split-TF32 tensor cores' 0.1116), the tensor cores from 128 (0.1119
+# against 0.1588), and the CUDA-core kernel at no row count.
 FFN_TC_MIN_ROWS = 24         # bf16 rows from which the tensor cores win
-FFN_DECODE_MAX_ROWS = 512    # fp32 rows up to which the decode design wins
+FFN_DECODE_MAX_ROWS = 64     # fp32 rows up to which the decode design wins
 H100_SMS = 132               # the pickers' default SM count (H100 SXM)
 _TC_TILES = ((2, 256), (2, 128), (1, 256), (1, 128))   # (warpgroups, BN)
+# fp32's: BN at most 128, the output and each k-tile's sum both in
+# registers (csrc/fused_ffn_tc32.cu)
+_TC32_TILES = ((2, 128), (2, 64), (1, 128), (1, 64))
 _SM_COUNT: dict = {}
 
 
@@ -387,35 +392,37 @@ def ffn_design(n, h, i, dtype, h2=None):
     """The FFN design for ``n`` rows of width ``h`` through an ``i``-wide
     intermediate to ``h2`` (default ``h``) columns in ``dtype``:
     ``"tc"`` (``csrc/fused_ffn_tc.cu``, bf16 from `FFN_TC_MIN_ROWS` rows),
-    ``"decode"`` (``csrc/fused_ffn_decode.cu``, bf16 below that and fp32
-    up to `FFN_DECODE_MAX_ROWS` rows) or ``"cuda_core"``
-    (``csrc/fused_ffn.cu``: fp32 above that, and any width that is not a
-    multiple of 128, which the other two do not take).  fp32 never takes
-    the tensor cores: TF32 would break the fp32 limit."""
+    ``"tc32"`` (``csrc/fused_ffn_tc32.cu``, fp32 above
+    `FFN_DECODE_MAX_ROWS` rows, on the tensor cores in split TF32, as
+    accurate as fp32 products), ``"decode"`` (``csrc/fused_ffn_decode.cu``,
+    bf16 below `FFN_TC_MIN_ROWS` and fp32 up to `FFN_DECODE_MAX_ROWS`
+    rows) or ``"cuda_core"`` (``csrc/fused_ffn.cu``: any width that is not
+    a multiple of 128, which the other three do not take)."""
     if any(d % 128 for d in (h, i, h if h2 is None else h2)):
         return "cuda_core"
     if dtype == torch.bfloat16:
         return "tc" if n >= FFN_TC_MIN_ROWS else "decode"
-    return "decode" if n <= FFN_DECODE_MAX_ROWS else "cuda_core"
+    return "decode" if n <= FFN_DECODE_MAX_ROWS else "tc32"
 
 
-def ffn_tc_tiles(n, i, h2, sms=H100_SMS):
-    """((warpgroups, BN), (warpgroups, BN)) of the tensor-core design's two
+def ffn_tc_tiles(n, i, h2, sms=H100_SMS, tiles=_TC_TILES):
+    """((warpgroups, BN), (warpgroups, BN)) of a tensor-core design's two
     products, [n, i] and [n, h2], on a card of ``sms`` SMs: for each, of
-    the BM = 64·warpgroups by BN tiles whose BN divides its width, the one
+    the BM = 64·warpgroups by BN ``tiles`` (bf16's by default, fp32's
+    `_TC32_TILES`) whose BN divides its width, the one
     with the least ``waves × (BM + BN)`` -- whole waves of ``sms`` blocks
     times a tile's time per unit of work (its area over its operand
     traffic, BM·BN / (BM + BN)) -- and on a tie the one with more blocks.
     On the H100 this picks the fastest tile of each product at 256, 512,
-    1024 and 8192 rows of GPT-2's MLP as measured (PERF.md,
-    `chip_smoke.py --probe`)."""
+    1024 and 8192 rows of GPT-2's MLP as measured in bf16, and in fp32
+    one within 5 % of the fastest (PERF.md, `chip_smoke.py --probe`)."""
     def pick(m, width):
         best = None
-        for wgs, bn in _TC_TILES:
+        for wgs, bn in tiles:
             if width % bn:
                 continue
-            tiles = -(-m // (64 * wgs)) * (width // bn)
-            key = (-(-tiles // sms) * (64 * wgs + bn), -tiles)
+            blocks = -(-m // (64 * wgs)) * (width // bn)
+            key = (-(-blocks // sms) * (64 * wgs + bn), -blocks)
             if best is None or key < best[0]:
                 best = (key, (wgs, bn))
         return best[1]
@@ -490,6 +497,26 @@ def _cuda_core_launch(x2, w1, b1, w2, act):
     return y
 
 
+def _tc32_launch(x2, w1, b1, w2, act):
+    n, h = x2.shape
+    i, h2 = w1.shape[1], w2.shape[1]
+    (g1, n1), (g2, n2) = ffn_tc_tiles(n, i, h2, _sms(x2.device), _TC32_TILES)
+    # the kept scratch: h [n, i], then W1^T and W2^T split ([2, i, h],
+    # [2, h2, i]), each from a 256-byte boundary
+    off1 = -(-n * i * 4 // 256) * 256
+    off2 = off1 + -(-2 * i * h * 4 // 256) * 256
+    base = _scratch(x2.device, off2 + 2 * h2 * i * 4)
+    y = torch.empty((n, h2), dtype=x2.dtype, device=x2.device)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn = ffn_tc32.fn([vp] * 8 + [ci] * 9 + [vp])
+    err = fn(x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+             base, base + off1, base + off2, y.data_ptr(), n, h, i, h2,
+             _ACTS.index(act), g1, n1, g2, n2, _stream(x2))
+    _build.check(err, ffn_tc32.KERNEL)
+    ffn_tc32.launches += 1
+    return y
+
+
 def _tc_launch(x2, w1, b1, w2, act):
     n, h = x2.shape
     i, h2 = w1.shape[1], w2.shape[1]
@@ -531,9 +558,9 @@ _SCRATCH: dict = {}
 def _scratch(device, nbytes):
     """The address of a per-device byte buffer of at least ``nbytes``,
     grown as needed and kept (the decode design's h and partials: at
-    GPT-2 width 0.6 MB at 8 bf16 rows, 35 MB at 512 fp32 rows).  As with
-    the tickets, the launches that use it follow one another on the
-    stream."""
+    GPT-2 width 0.6 MB at 8 bf16 rows; the fp32 tensor-core design's h
+    and split weights: 138 MB at 8192 rows).  As with the tickets, the
+    launches that use it follow one another on the stream."""
     buf = _SCRATCH.get(device)
     if buf is None or buf.numel() < nbytes:
         buf = _SCRATCH[device] = torch.empty(nbytes, dtype=torch.uint8,
@@ -560,8 +587,8 @@ def _decode_launch(x2, w1, b1, w2, act):
     return y
 
 
-_FFN_LAUNCH = {"tc": _tc_launch, "decode": _decode_launch,
-               "cuda_core": _cuda_core_launch}
+_FFN_LAUNCH = {"tc": _tc_launch, "tc32": _tc32_launch,
+               "decode": _decode_launch, "cuda_core": _cuda_core_launch}
 
 
 def _ffn_launch(x2, w1, b1, w2, act):

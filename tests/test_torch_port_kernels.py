@@ -26,11 +26,11 @@ Tolerances against the plain version on the same inputs
   compute in fp32; bf16 rounds the output once).
 - the masked / kv_lens flash forward: the flash forward limit above, on
   every row, left-pad rows (all keys masked) included.
-- the bf16 flash forward, dQ and dK/dV run on the tensor cores: each
-  bf16 launch counts once more under ``:tc``, fp32 ones never (the fp32
-  forward and dK/dV count under ``:tc32``: tests/test_torch_port_tc.py);
-  a slice whose start or strides break the 16-byte copies raises
-  ValueError, in every bf16 kernel and the fp32 forward and dK/dV.
+- the flash forward, dQ and dK/dV run on the tensor cores in both types:
+  each bf16 launch counts once more under ``:tc``, each fp32 launch
+  under ``:tc32`` (split TF32: tests/test_torch_port_tc.py); a slice
+  whose start or strides break the 16-byte copies raises ValueError, in
+  all three kernels of both types.
 - the split-K flash decode: every length from one split (1, 2) to eight
   (1000, 1024) and across the 128-key split edges (255, 256, 257), rings
   longer than the length, B 1 and 8, D 64 and 128; a second launch on the
@@ -434,8 +434,8 @@ def test_flash_autograd_variants_match_cpu(kind):
     """fp32 gradients through `flash_attention_arrays` on the card (the
     variant kernels) against the same call on the CPU (the plain forward
     and backward), each within 1e-4 max|ref|; the card launches the
-    variant forward, dQ and dK/dV once each (the forward and dK/dV also
-    under ``:tc32``), the CPU nothing."""
+    variant forward, dQ and dK/dV once each (each also under ``:tc32``),
+    the CPU nothing."""
     q, k, v, do, causal, mask, lens, segs = _variant_inputs(
         kind, 2, 200, 2, 64, torch.float32, 9)
     grads = {}
@@ -456,7 +456,8 @@ def test_flash_autograd_variants_match_cpu(kind):
             assert {n: c for n, c in counts.items() if c} == {
                 f"{fa.KERNEL}:{name}": 1, f"{fa.flash_bwd_dq.KERNEL}:{name}": 1,
                 f"{fa.flash_bwd_dkv.KERNEL}:{name}": 1,
-                f"{fa.KERNEL}:tc32": 1, f"{fa.flash_bwd_dkv.KERNEL}:tc32": 1}
+                f"{fa.KERNEL}:tc32": 1, f"{fa.flash_bwd_dq.KERNEL}:tc32": 1,
+                f"{fa.flash_bwd_dkv.KERNEL}:tc32": 1}
     for what, g, r in zip(("dq", "dk", "dv"), grads["cuda"], grads["cpu"]):
         assert (g - r).abs().max().item() <= \
             BWD_REL_FP32 * r.abs().max().item(), what
@@ -468,9 +469,8 @@ def test_flash_autograd_variants_match_cpu(kind):
 def test_flash_bf16_misaligned_slice_raises(bad):
     """The tensor-core kernels' 16-byte copies: a q, k, v or dO that
     starts off 16 bytes, or whose sequence stride is not a multiple of 16
-    bytes, raises ValueError naming it, in the bf16 forward, dQ and dK/dV
-    and the fp32 forward and dK/dV (split TF32); the fp32 dQ (CUDA cores)
-    takes both."""
+    bytes, raises ValueError naming it, in the forward, dQ and dK/dV of
+    both types (bf16 and split-TF32 fp32)."""
     b, s, h, d = 2, 65, 2, 64
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v = _fused_qkv(b, s, h, d, dtype, 1)
@@ -494,12 +494,9 @@ def test_flash_bf16_misaligned_slice_raises(bad):
                                                 d ** -0.5)),
                  ("q", lambda: fa.flash_bwd_dq(odd, k, v, q, lse, delta,
                                                d ** -0.5))]
-        for i, (name, call) in enumerate(calls):
-            if dtype == torch.float32 and i >= 3:    # the CUDA-core dQ
+        for name, call in calls:
+            with pytest.raises(ValueError, match=f"^{name}: .*strides"):
                 call()
-            else:
-                with pytest.raises(ValueError, match=f"^{name}: .*strides"):
-                    call()
     torch.cuda.synchronize()
 
 
@@ -632,14 +629,14 @@ FFN_SHAPES = [(8, 768, 3072), (40, 128, 256), (512, 256, 512),
 @pytest.mark.parametrize("n,hidden,inter", FFN_SHAPES)
 def test_ffn_kernel_matches_plain(n, hidden, inter, act, dtype):
     """Each design (`ffn_design`: decode rows, the tensor cores for bf16,
-    the CUDA cores for fp32) within its limit, both launches counted
-    under it alone, a second launch bitwise the first."""
+    split TF32 on the tensor cores for fp32) within its limit, both
+    launches counted under it alone, a second launch bitwise the first."""
     x = _randn((n, hidden), n, dtype)
     w1 = _randn((hidden, inter), n + 1, dtype, hidden ** -0.5)
     b1 = _randn((inter,), n + 2, dtype, 0.1)
     w2 = _randn((inter, hidden), n + 3, dtype, inter ** -0.5)
     design = fm.ffn_design(n, hidden, inter, dtype)
-    counter = {"tc": fm.ffn_tc, "decode": fm.ffn_decode,
+    counter = {"tc": fm.ffn_tc, "tc32": fm.ffn_tc32, "decode": fm.ffn_decode,
                "cuda_core": fm.ffn_fwd}[design]
     ops.reset_launch_counts()
     y = fm.fused_ffn_arrays(x, w1, b1, w2, act)
@@ -662,8 +659,8 @@ def test_ffn_kernel_matches_plain(n, hidden, inter, act, dtype):
 def test_ffn_misaligned_slice_raises(bad, n):
     """The decode and tensor-core designs load 16 bytes at a time: an
     operand that starts off 16 bytes raises ValueError naming it, in bf16
-    and, for the decode design, fp32; the CUDA-core design (fp32, 512
-    rows) takes it."""
+    and fp32 (8 rows: the decode design; 512: the tensor cores, split
+    TF32 in fp32); the CUDA-core design would take it."""
     hidden, inter = 256, 512
     for dtype in (torch.bfloat16, torch.float32):
         shapes = {"x": (n, hidden), "w1": (hidden, inter), "b1": (inter,),
@@ -738,7 +735,7 @@ def test_layernorm_and_ffn_autograd_match_cpu():
         fm.fused_ffn_arrays(h, w1, b1, w2, "gelu_tanh").backward(dy.to(dev))
         launched = (fm.ln_fwd.launches, fm.ln_bwd.launches,
                     fm.ffn_fwd.launches + fm.ffn_tc.launches
-                    + fm.ffn_decode.launches)
+                    + fm.ffn_tc32.launches + fm.ffn_decode.launches)
         assert launched == ((1, 1, 1) if dev == "cuda" else (0, 0, 0))
         grads[dev] = [t.grad.cpu() for t in (x, lw, lb, w1, b1, w2)]
     for name, g, r in zip(("dx", "dlw", "dlb", "dw1", "db1", "dw2"),
@@ -753,15 +750,14 @@ def test_layernorm_and_ffn_autograd_match_cpu():
 
 # the design of each row count at GPT-2's MLP (H 768, I 3072), as measured
 # on the H100: bf16 takes the tensor cores from 24 rows, fp32 the decode
-# design up to 512 rows
+# design up to 64 rows and the split-TF32 tensor cores above
 FFN_DESIGNS = {
     torch.bfloat16: {8: "decode", 16: "decode", 24: "tc", 40: "tc",
                      64: "tc", 256: "tc", 512: "tc", 1024: "tc",
                      8192: "tc", 65536: "tc"},
     torch.float32: {8: "decode", 16: "decode", 24: "decode", 40: "decode",
-                    64: "decode", 256: "decode", 512: "decode",
-                    1024: "cuda_core", 8192: "cuda_core",
-                    65536: "cuda_core"}}
+                    64: "decode", 256: "tc32", 512: "tc32", 1024: "tc32",
+                    8192: "tc32", 65536: "tc32"}}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -769,9 +765,9 @@ FFN_DESIGNS = {
                                65536])
 def test_ffn_design_picks(n, dtype):
     """Decode rows (8: the fused-mode generate step) take the decode
-    design in both types; 8192 bf16 rows (training) take the tensor
-    cores; fp32 never does (TF32 would break the fp32 limit), and from
-    1024 rows stays on the CUDA cores."""
+    design in both types; training rows (1024 and 8192) take the tensor
+    cores in both, fp32 as split TF32 (as accurate as fp32 products);
+    no width of 128s takes the CUDA-core design."""
     assert fm.ffn_design(n, 768, 3072, dtype) == FFN_DESIGNS[dtype][n]
 
 

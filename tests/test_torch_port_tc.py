@@ -1,7 +1,7 @@
 """The bf16 flash limits (`tolerance.FLASH_FWD_COEF`, `tolerance.BWD_COEF`)
-against the JAX package, on the CPU; and, on the card, the float32 flash
-forward and dK/dV kernels (split TF32 on the tensor cores) against their
-plain versions.
+and the float32 dQ limit against the JAX package, on the CPU; and, on the
+card, the float32 flash forward, dQ and dK/dV kernels and the float32 FFN
+(split TF32 on the tensor cores) against their plain versions.
 
 The tensor-core forward rounds p to bf16 for its PV product at the running
 max of each key tile, as the TPU kernel `_flash_fwd_kernel` does
@@ -33,25 +33,32 @@ backward reads) under the limit the card tests apply to the kernels:
 magnitudes (`flash_bwd_magnitudes`), every element of dQ, dK and dV.
 dO is zero on the rows the pad mask closes entirely, so that those rows,
 whose p differs by design as above, carry no gradient on either side.
+The same in fp32: JAX's fp32 `_flash_bwd` (interpret mode, its products
+at HIGHEST) gives a dQ within 1e-4 max|ref| of the port's plain dQ on the
+same out and statistic, for every branch at D 64 and 128 -- the limit the
+card holds the split-TF32 dQ to against that plain version.
 
 The FFN: JAX's `fused_ffn_arrays` (`_ffn_fwd_kernel` in interpret mode,
 one 256-row block, two 128-wide blocks of I) against the port's
 `fused_ffn_reference` at n=256, H=128, I=256, a shape the port's picker
-sends to the tensor-core design in bf16 (fp32 never takes the tensor
-cores), for each activation: fp32 within 1e-5 max|ref| (fp32 sums in other
+sends to the tensor-core designs (bf16, and fp32 in split TF32), for each
+activation: fp32 within 1e-5 max|ref| (fp32 sums in other
 orders), bf16 within `tolerance.ffn_limit` (one bf16 step of y plus the
 rounding of h to bf16 through |W2|, the limit the card holds each design
 to against the same plain version).
 
 The float32 tensor-core kernels (card tests, the ``cuda`` marker; they
-skip without a card): the forward and dK/dV of every branch (causal, a
-left-pad mask whose pad rows are closed entirely, kv_lens, segment ids
+skip without a card): the forward, dQ and dK/dV of every branch (causal,
+a left-pad mask whose pad rows are closed entirely, kv_lens, segment ids
 sorted and permuted, non-causal, and segments with an additive mask and
 kv_lens), D 64 and 128, S 200 and 1000 (off the key tiles), q, k, v
 slices of one fused projection: out within 2e-5, lse and the masked pair
-within 1e-4, dK and dV within 1e-4 max|ref| (the float32 limits, which
-the split keeps: tests/test_torch_port_tf32.py), one launch each under
-``:tc32``, and a second launch of each bitwise equal to the first.  JAX
+within 1e-4, dQ, dK and dV within 1e-4 max|ref| (the float32 limits,
+which the split keeps: tests/test_torch_port_tf32.py,
+tests/test_torch_port_tf32_dq_ffn.py), one launch each under ``:tc32``,
+and a second launch of each bitwise equal to the first; the split-TF32
+FFN (``fused_ffn_tc32``) at 64, 200, 333 and 1024 rows, each activation,
+within 1e-5 max|ref| and bitwise on a second launch.  JAX
 is imported by the JAX tests alone (the ``jx`` fixture), so on a machine
 without it run:
 
@@ -185,6 +192,48 @@ def test_jax_bf16_flash_bwd_within_bwd_limit(branch, d, monkeypatch, jx):
         assert ok, (branch, d, what, err, ratio)
 
 
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("branch", BRANCHES)
+def test_jax_fp32_flash_dq_within_bwd_limit(branch, d, monkeypatch, jx):
+    """JAX's fp32 `_flash_bwd` (`_flash_bwd_dq_kernel` in interpret mode,
+    128-row blocks, fp32 products at HIGHEST) against the port's plain
+    dQ on JAX's own fp32 out and statistic (with a mask or kv_lens the
+    port's (row max, log l) pair), within 1e-4 max|ref|: the limit the
+    card holds the split-TF32 dQ to against the same plain version."""
+    jnp, jpo = jx
+    monkeypatch.setenv("PTPU_PALLAS_INTERPRET", "1")
+    q, k, v, causal, mask, lens, segs, first = _inputs(branch, d, 17 + d)
+    do = np.random.RandomState(19 + d).randn(B, S, H, d).astype(np.float32)
+    for r in range(B):
+        do[r, :first[r]] = 0.0
+    scale = d ** -0.5
+    qf, kf, vf, dof = (jpo._fold_heads(jnp.asarray(a)) for a in (q, k, v, do))
+    kw = dict(n_heads=H, mask=None if mask is None else jnp.asarray(mask),
+              kv_lens=None if lens is None else jnp.asarray(lens)[:, None],
+              segments=None if segs is None else jnp.asarray(segs))
+    of, lse = jpo._flash_fwd(qf, kf, vf, causal, scale, block_q=128,
+                             block_k=128, **kw)
+    got = jpo._flash_bwd(qf, kf, vf, of, lse, dof, causal, scale,
+                         block_q=128, block_k=128, **kw)[0]
+    assert got.dtype == jnp.float32
+    got = torch.from_numpy(np.array(jpo._unfold_heads(got, b=B, h=H)))
+    qt, kt, vt, dot = (torch.from_numpy(a) for a in (q, k, v, do))
+    out = torch.from_numpy(np.array(jpo._unfold_heads(of, b=B, h=H)))
+    mt, lt, st = (None if a is None else torch.from_numpy(a)
+                  for a in (mask, lens, segs))
+    stat = torch.from_numpy(np.array(lse)).reshape(B, H, S)
+    row_max = None
+    if mask is not None or lens is not None:
+        row_max, stat = fa.softmax_stats(qt, kt, scale, causal, mt, lt, st)
+    want = fa.flash_attention_bwd_reference(
+        qt, kt, vt, out, stat, dot, scale, is_causal=causal, mask=mt,
+        kv_lens=lt, segment_ids=st, row_max=row_max)[0]
+    for r in range(B):
+        rows = slice(first[r], S)
+        err = (got[r, rows] - want[r, rows]).abs().max().item()
+        assert err <= 1e-4 * want[r].abs().max().item(), (branch, d, r, err)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("act", ["gelu", "gelu_tanh", "relu"])
 def test_jax_ffn_kernel_matches_port_plain_at_tc_shape(act, dtype,
@@ -194,7 +243,8 @@ def test_jax_ffn_kernel_matches_port_plain_at_tc_shape(act, dtype,
     n, h, i = 256, 128, 256
     jdt, tdt = {"float32": (jnp.float32, torch.float32),
                 "bfloat16": (jnp.bfloat16, torch.bfloat16)}[dtype]
-    assert (fm.ffn_design(n, h, i, tdt) == "tc") == (tdt == torch.bfloat16)
+    assert fm.ffn_design(n, h, i, tdt) == ("tc" if tdt == torch.bfloat16
+                                           else "tc32")
     rng = np.random.RandomState(21)
     arrays = (rng.randn(n, h), rng.randn(h, i) / np.sqrt(h),
               0.1 * rng.randn(i), rng.randn(i, h) / np.sqrt(i))
@@ -212,7 +262,7 @@ def test_jax_ffn_kernel_matches_port_plain_at_tc_shape(act, dtype,
 
 
 # ---------------------------------------------------------------------------
-# the float32 forward and dK/dV on the card (split TF32)
+# the float32 flash kernels and FFN on the card (split TF32)
 # ---------------------------------------------------------------------------
 
 @pytest.fixture
@@ -297,3 +347,62 @@ def test_fp32_tc_flash_fwd_and_dkv_match_plain(branch, d, s):
         assert err <= 1e-4 * r.abs().max().item(), (what, err)
     assert torch.equal(again[0], out) and torch.equal(again[1], lse)
     assert torch.equal(dk2, dk) and torch.equal(dv2, dv)
+
+
+@pytest.mark.cuda
+@pytest.mark.usefixtures("needs_cuda")
+@pytest.mark.parametrize("s", [200, 1000])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("branch", TC32_BRANCHES)
+def test_fp32_tc_flash_dq_matches_plain(branch, d, s):
+    """The split-TF32 dQ against the plain backward, every row, on the
+    forward's own statistics: within 1e-4 max|ref|; one launch under
+    ``flash_bwd_dq_causal:tc32``; a second launch bitwise equal to the
+    first."""
+    q, k, v, do, causal, mask, lens, segs = _tc32_inputs(branch, 2, s, 2, d,
+                                                         s + d + 1)
+    scale = d ** -0.5
+    out, lse, pair = fa._launch(q, k, v, scale, causal, mask, lens, segs)
+    row_max, stat = (None, lse) if pair is None else pair
+    delta = fa.attention_delta(out, do)
+    kw = dict(causal=causal, mask=mask, lens=lens, segs=segs,
+              row_max=row_max)
+    fa.flash_bwd_dq.tc32.launches = 0
+    dq = fa.flash_bwd_dq(q, k, v, do, stat, delta, scale, **kw)
+    again = fa.flash_bwd_dq(q, k, v, do, stat, delta, scale, **kw)
+    ref = fa.flash_attention_bwd_reference(
+        q, k, v, out, stat, do, scale, is_causal=causal, mask=mask,
+        kv_lens=lens, segment_ids=segs, row_max=row_max)[0]
+    torch.cuda.synchronize()
+    assert fa.flash_bwd_dq.tc32.launches == 2
+    err = (dq - ref).abs().max().item()
+    assert err <= 1e-4 * ref.abs().max().item(), err
+    assert torch.equal(again, dq)
+
+
+@pytest.mark.cuda
+@pytest.mark.usefixtures("needs_cuda")
+@pytest.mark.parametrize("act", ["gelu", "gelu_tanh", "relu"])
+@pytest.mark.parametrize("n,h,i", [(64, 768, 3072), (200, 768, 3072),
+                                   (1024, 768, 3072), (333, 256, 512)])
+def test_fp32_tc_ffn_matches_plain(n, h, i, act):
+    """The split-TF32 FFN (``csrc/fused_ffn_tc32.cu``) against the fp32
+    plain version within 1e-5 max|ref| (the float32 FFN limit, which the
+    split and its two levels of sums keep:
+    tests/test_torch_port_tf32_dq_ffn.py); launched under ``fused_ffn_tc32``;
+    a second launch bitwise equal to the first."""
+    g = torch.Generator().manual_seed(n + i)
+    args = (torch.randn(n, h, generator=g),
+            torch.randn(h, i, generator=g) * h ** -0.5,
+            torch.randn(i, generator=g) * 0.1,
+            torch.randn(i, h, generator=g) * i ** -0.5)
+    args = [a.cuda() for a in args]
+    fm.ffn_tc32.launches = 0
+    y = fm._tc32_launch(*args, act)
+    again = fm._tc32_launch(*args, act)
+    want = fm.fused_ffn_reference(*args, act)
+    torch.cuda.synchronize()
+    assert fm.ffn_tc32.launches == 2
+    err = (y - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item(), err
+    assert torch.equal(again, y)

@@ -137,13 +137,13 @@ def test_bwd_wrappers_on_cpu_compute_the_plain_backward():
         "flash_fwd_causal:tc32", "flash_bwd_dq_causal",
         "flash_bwd_dq_causal:mask", "flash_bwd_dq_causal:segs",
         "flash_bwd_dq_causal:noncausal", "flash_bwd_dq_causal:tc",
-        "flash_bwd_dkv_causal",
+        "flash_bwd_dq_causal:tc32", "flash_bwd_dkv_causal",
         "flash_bwd_dkv_causal:mask", "flash_bwd_dkv_causal:segs",
         "flash_bwd_dkv_causal:noncausal", "flash_bwd_dkv_causal:tc",
         "flash_bwd_dkv_causal:tc32", "ragged_paged_attention",
         "ragged_paged_attention:int8", "flash_decode", "fused_decode_layer",
         "fused_layernorm", "fused_layernorm_bwd", "fused_ffn",
-        "fused_ffn_tc", "fused_ffn_decode"}
+        "fused_ffn_tc", "fused_ffn_tc32", "fused_ffn_decode"}
     assert set(ops.launch_counts().values()) == {0}
 
 
