@@ -52,28 +52,28 @@ Phases, in order; any failure exits non-zero and prints no result line:
      magnitudes in fp32 (P^T |dO|, scale W^T |Q|, scale W |K|), with
      W = P (|dO|.|V|^T + |dO|.|out|) bounding ds = P (dP - delta) also
      where the difference cancels to fp32 noise (a query's first key).
-   - the generate kernels, at GPT-2 124M's decode shapes (B=8, H=12,
-     D=64, S_max=1024): flash decode at lengths 1, 2, 255, 257 and 1024
-     (and H=16 D=128), with its split count and achieved GB/s (the bytes
-     its bound counts over its time), yardstick SDPA over the prefix; the
-     fused decode layer
-     at t = 1, 511 and 1023 without and with a row mask (no yardstick),
-     whose other ring rows must stay bitwise unchanged; LayerNorm at 8
-     and 8192 rows of 768 and of 1002 (rows that do not fall into 16-byte
-     chunks), yardstick `F.layer_norm`, with its GB/s; FFN at 8, 256,
-     512, 1024 and 8192 rows, H=768 I=3072 gelu_tanh, gelu and relu
-     at 8 and 512 rows, and at 1024 rows with I=3008 (a width off 128),
-     each on the design `ffn_design` picks (bf16 below 24 rows and fp32
-     up to `FFN_DECODE_MAX_ROWS`: the decode design; bf16 from 24 rows:
-     the tensor cores; fp32 above: the tensor cores in split TF32; widths
-     off 128: the CUDA cores), both launches counted under it alone, a
-     second launch bitwise the first, with its TFLOP/s and GB/s, its
+   - the generate kernels, at GPT-2 124M's decode shapes (B=8, H=12, D=64,
+     S_max=1024): flash decode at lengths 1, 2, 255, 257 and 1024 (and H=16
+     D=128), with its split count and achieved GB/s (the bytes its bound
+     counts over its time), yardstick SDPA over the prefix; the fused
+     decode layer at t = 1, 127, 128, 129 (the edges of its runs of 32
+     keys), 511 and 1023 without and with a row mask, and at H=16 D=128
+     t=1023 (no yardstick), whose other ring rows must stay bitwise
+     unchanged; LayerNorm at 8 and 8192 rows of 768 and of 1002 (rows that
+     do not fall into 16-byte chunks), yardstick `F.layer_norm`, with its
+     GB/s; FFN at 8, 256, 512, 1024 and 8192 rows, H=768 I=3072 gelu_tanh,
+     gelu and relu at 8 and 512 rows, and at 1024 rows with I=3008 (a width
+     off 128), each on the design `ffn_design` picks (bf16 below 24 rows
+     and fp32 up to `FFN_DECODE_MAX_ROWS`: the decode design; bf16 from 24
+     rows: the tensor cores; fp32 above: the tensor cores in split TF32;
+     widths off 128: the CUDA cores), both launches counted under it alone,
+     a second launch bitwise the first, with its TFLOP/s and GB/s, its
      bound (fp32: split TF32, the CUDA cores' beside it) and the cuBLAS
-     composite addmm + activation + mm beside it (three calls, not one:
-     no yardstick).  float32: 2e-5 absolute (FFN 1e-5 max|ref|; LN
-     statistics 1e-5 relative).
-     bfloat16: one bf16 step of each output plus what each side rounds,
-     weighted by what it multiplies (the `tolerance` module docstring).
+     composite addmm + activation + mm beside it (three calls, not one: no
+     yardstick). float32: 2e-5 absolute (FFN 1e-5 max|ref|; LN statistics
+     1e-5 relative). bfloat16: one bf16 step of each output plus what each
+     side rounds, weighted by what it multiplies (the `tolerance` module
+     docstring).
    - the LayerNorm backward at the training shape, 8192 rows of 768, in
      fp32, bf16 and bf16 x with fp32 w and b, and in bf16 at 8 and 200
      rows; yardstick `torch.autograd.grad` through `F.layer_norm`.  dx,
@@ -102,7 +102,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
      version's, out within the forward limit (no yardstick).  Each timed
      call (kernel and plain version) starts from the pools and scales
      before the write, restored outside the timed region, so it grows
-     the same scales and rescales the same codes.
+     the same scales and rescales the same codes.  Both ragged kernels
+     also at the split-K attend's edges (rows of 127, 128 and 129 keys,
+     one at the table's full width of 1024, a padding row, a 1-key row)
+     and at the decode step with H=16 D=128; each ragged case times its
+     write and its attend launch alone too, and prints the attend's
+     splits per (row, query, head).
 3. Engine: GPT-2 124M (full width, 12 layers, random weights from seed 0)
    served by `LLMEngine` with block_size 16, max_num_seqs 8,
    max_num_batched_tokens 512: five greedy prompts of 7, 64, 200, 384 and
@@ -199,17 +204,21 @@ Details go to chiprun_out/chip_smoke.json.
 Two measuring modes, not part of the check:
 
     python3 chip_smoke.py --probe [--quick] [--parent DIR]
-    python3 chip_smoke.py --paths DIR
+    python3 chip_smoke.py --paths DIR [--train]
 
 ``--probe`` checks and times the FFN's designs and the LayerNorm forward
 at GPT-2 124M's MLP, and the alternatives they were measured against,
-built from edited copies of their sources (`probe`).  ``--paths`` times
-fused-mode bf16 ``generate``, the stacked bf16 and fp32 training steps
-and the per-layer fp32 step under the LN and FFN flags, host and
-device, with the ``paddle_tpu_torch`` of DIR (`time_paths`): run it on
+built from edited copies of their sources (`probe`).  ``--paths`` checks
+and times the ragged, fused-layer and flash decode kernels at the kernel
+phase's shapes (with a digest of the decode kernel's outputs), times
+fused-mode bf16 ``generate`` and the bf16 engine's decode steps (fp and
+int8 pools), host and device, and with ``--train`` the stacked bf16 and
+fp32 training steps and the per-layer fp32 step under the LN and FFN
+flags, all with the ``paddle_tpu_torch`` of DIR (`time_paths`): run it on
 two trees in turns in one call to compare them.
 """
 import contextlib
+import hashlib
 import json
 import os
 import re
@@ -480,13 +489,15 @@ def short_name(mangled):
     SEGS, CAUSAL; ``ffn_tc_kernel<warpgroups, BN, epilogue>``,
     ``ffn_dec_kernel<type, loads, epilogue, dependent>``,
     ``ln_fwd_kernel<x, w, y types, chunks, early>``)."""
-    m = re.search(r"\d+((?:flash|ffn|ln|fused)_\w+?_kernel)I(.*?E)E", mangled)
+    m = re.search(r"\d+((?:flash|ffn|ln|fused|ragged)_\w+?_kernel)I(.*?E)E",
+                  mangled)
     if not m:
         return mangled
     # a substitution (S_, S0_, ...) can only repeat __nv_bfloat16: float
-    # is a builtin type and never substituted
-    args = [("bf16" if t[0] in "1S" else "f32" if t == "f" else t[2:-1])
-            for t in re.findall(r"13__nv_bfloat16|S\d*_|L[ib]\d+E|f",
+    # is a builtin type and never substituted; a: int8_t (signed char)
+    args = [("bf16" if t[0] in "1S" else "f32" if t == "f"
+             else "i8" if t == "a" else t[2:-1])
+            for t in re.findall(r"13__nv_bfloat16|S\d*_|L[ib]\d+E|f|a",
                                 m.group(2))]
     return f"{m.group(1)}<{','.join(args)}>"
 
@@ -637,8 +648,8 @@ def ragged_case(rows, c, nb, bs, h, d, dtype, seed):
     return (q, kn, vn, kb, vb, *idx), qlens, nbytes, flops
 
 
-def check_ragged(rpa, tol, timer, rows, c, dtype, seed):
-    nb, bs, h, d = 512, 16, 12, 64          # the GPT-2 engine's pool
+def check_ragged(rpa, tol, timer, rows, c, dtype, seed, h=12, d=64):
+    nb, bs = 512, 16                        # the GPT-2 engine's pool
     args, qlens, nbytes, flops = ragged_case(rows, c, nb, bs, h, d, dtype,
                                              seed)
     q, kn, vn, kb, vb, tables, pos0, lens, slots = args
@@ -666,21 +677,43 @@ def check_ragged(rpa, tol, timer, rows, c, dtype, seed):
     ms = timer(lambda: rpa.ragged_paged_attention_arrays(*args))
     plain_ms = timer(lambda: rpa.ragged_paged_attention_reference(
         q, kn, vn, kr, vr, tables, pos0, lens, slots))
+    parts = ragged_parts_ms(rpa, timer, args)
     bms, by = bound_ms(nbytes, flops, dtype)
     lens_s = ",".join(str(r[0]) if r else "pad" for r in rows)
     return dict(shape=f"B={len(rows)} C={c} kv_lens=[{lens_s}] H={h} D={d} "
                 f"block_size={bs}", dtype=str(dtype), max_abs_err=err,
                 err_over_limit=ratio, ms=ms, plain_ms=plain_ms,
-                bound_ms=bms, bound_by=by, library_ms=None)
+                bound_ms=bms, bound_by=by, library_ms=None, **parts,
+                max_splits=ragged_grid_splits(rpa, rows, c, h, 1024))
 
 
-def check_ragged_int8(rpa, tol, timer, rows, c, dtype, seed):
+def ragged_parts_ms(rpa, timer, args, reset=None):
+    """{write_ms, attend_ms}: the write and the attend launch of the call,
+    each timed alone (`ragged_paged_attention_part`), where the tree has
+    them; {} for a tree from before the split."""
+    part = getattr(rpa, "ragged_paged_attention_part", None)
+    if part is None:
+        return {}
+    return {f"{name}_ms": timer(lambda: part(name, *args), reset=reset)
+            for name in ("write", "attend")}
+
+
+def ragged_grid_splits(rpa, rows, c, h, width):
+    """The attend launch's blocks per (row, query, head), or None for a
+    tree from before the split."""
+    splits = getattr(rpa, "ragged_splits", None)
+    return None if splits is None else splits(
+        len(rows), c, h, width, torch.cuda.get_device_properties(
+            0).multi_processor_count)
+
+
+def check_ragged_int8(rpa, tol, timer, rows, c, dtype, seed, h=12, d=64):
     """The int8 entry against its plain version on int8 pools whose small
     scales (< 0.005) the new rows grow: codes and scales bitwise, out
     within the forward limit.  Each timed call starts from the state
     before the write (restored untimed), so it rescales as the first
-    did."""
-    nb, bs, h, d = 512, 16, 12, 64
+    did; the write and the attend are also timed alone."""
+    nb, bs = 512, 16
     args, qlens, _, flops = ragged_case(rows, c, nb, bs, h, d, dtype, seed)
     q, kn, vn, _, _, tables, pos0, lens, slots = args
     g = torch.Generator().manual_seed(seed)
@@ -722,6 +755,8 @@ def check_ragged_int8(rpa, tol, timer, rows, c, dtype, seed):
         q, kn, vn, kc, vc, *idx, ks, vs), reset=restore((kc, vc, ks, vs)))
     plain_ms = timer(lambda: rpa.ragged_paged_attention_reference(
         q, kn, vn, *ref[:2], *idx, *ref[2:]), reset=restore(ref))
+    parts = ragged_parts_ms(rpa, timer, (q, kn, vn, kc, vc, *idx, ks, vs),
+                            reset=restore((kc, vc, ks, vs)))
     # what this data needs: each code of the rows' keys and each (block,
     # head) scale they use read once, the new rows' codes written, each
     # grown (block, head) slice of codes read and written, its scale
@@ -740,7 +775,15 @@ def check_ragged_int8(rpa, tol, timer, rows, c, dtype, seed):
                 max_abs_err=max(e for e, _ in checks),
                 err_over_limit=max(w for _, w in checks), ms=ms,
                 plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                library_ms=None, scales_grown=grown)
+                library_ms=None, scales_grown=grown, **parts,
+                max_splits=ragged_grid_splits(rpa, rows, c, h, 1024))
+
+
+# the engine's decode step (lens after the write; None: a padding row),
+# and rows at the ragged kernel's split edges and the table's full width
+DECODE_ROWS = [(1024, 1), (700, 1), (513, 1), (384, 1), (200, 1), (64, 1),
+               (7, 1), None]
+EDGE_ROWS = [(127, 1), (128, 1), (129, 1), (1024, 1), None, (1, 1)]
 
 
 # left-pad counts of the padded prefill's eight rows
@@ -1978,6 +2021,10 @@ def print_cases(cases):
             if "splits" in c:
                 rate += (f" {c['splits']} splits ({c['blocks']} blocks), "
                          f"{c['gb_per_s']:.1f} GB/s achieved")
+            if "write_ms" in c:      # the ragged kernels' two launches
+                rate += (f" write alone {c['write_ms']:.4f}, attend alone "
+                         f"{c['attend_ms']:.4f} ms; {c['max_splits']} "
+                         f"splits a (row, query, head) at most")
             bound = f"bound_ms={c['bound_ms']:.4f} ({c['bound_by']}"
             if "cuda_core_bound_ms" in c:      # fp32: split TF32
                 bound += (f", split TF32; CUDA cores "
@@ -2090,6 +2137,17 @@ def main():
           + "; ".join(f"{fn} {r}" + (f" ({st}/{ld})" if st or ld else "")
                       for fn, (r, st, ld) in sorted(regs.items())),
           flush=True)
+    # ... and of the split-K decode kernels (ragged, fused layer, decode)
+    regs = {}
+    for name in (RAGGED, FUSED, DECODE):
+        for fn, n_regs, st, ld in ptxas_table(result["ptxas"][name]):
+            regs[short_name(fn)] = (n_regs, st, ld)
+    result["decode_registers"] = regs
+    print("ptxas registers (spill stores / loads, bytes) of the ragged, "
+          "fused-layer and decode kernels <q, pool, D> / <type, D>: "
+          + "; ".join(f"{fn} {r}" + (f" ({st}/{ld})" if st or ld else "")
+                      for fn, (r, st, ld) in sorted(regs.items())),
+          flush=True)
     result["sass"] = check_sass(paths)
     print("SASS: " + "; ".join(
         f"{k} {n} instantiations, {h} with HGMMA, {f} with FFMA"
@@ -2108,8 +2166,6 @@ def main():
           f"{result['packed_allowed_pairs']['fraction_of_causal']:.4f} of "
           f"the causal ones", flush=True)
     del same
-    decode_rows = [(1024, 1), (700, 1), (513, 1), (384, 1), (200, 1),
-                   (64, 1), (7, 1), None]
     for dtype in (torch.float32, torch.bfloat16):
         for s in (7, 200, 384, 512, 700):
             cases[FWD].append(check_flash(fa, tol, timer, s, 12, 64, dtype,
@@ -2124,15 +2180,23 @@ def main():
                                            seed=s + d).items():
                 cases[name].append(c)
             torch.cuda.empty_cache()
-        cases[RAGGED].append(check_ragged(rpa, tol, timer, decode_rows, 1,
+        cases[RAGGED].append(check_ragged(rpa, tol, timer, DECODE_ROWS, 1,
                                           dtype, seed=2))
         cases[RAGGED].append(check_ragged(rpa, tol, timer, [(700, 188)], 188,
                                           dtype, seed=3))
-        cases[RAGGED8].append(check_ragged_int8(rpa, tol, timer, decode_rows,
+        cases[RAGGED8].append(check_ragged_int8(rpa, tol, timer, DECODE_ROWS,
                                                 1, dtype, seed=2))
         cases[RAGGED8].append(check_ragged_int8(rpa, tol, timer,
                                                 [(700, 512)], 512, dtype,
                                                 seed=3))
+        # the split edges (127, 128, 129 keys; the table's full width) and
+        # gpt3_1p3b's heads (H=16 D=128)
+        for check, key in ((check_ragged, RAGGED),
+                           (check_ragged_int8, RAGGED8)):
+            cases[key].append(check(rpa, tol, timer, EDGE_ROWS, 1, dtype,
+                                    seed=5))
+            cases[key].append(check(rpa, tol, timer, DECODE_ROWS, 1, dtype,
+                                    seed=6, h=16, d=128))
         for kind in ("pad", "full", "shared", "lens"):
             cases[FWD_MASK].append(check_flash_masked(fa, tol, timer, kind,
                                                       dtype, seed=7))
@@ -2155,11 +2219,13 @@ def main():
                                               64, length, dtype, length))
         cases[DECODE].append(check_decode(fd, tol, timer, 8, 1024, 16, 128,
                                           1024, dtype, 5))
-        for t in (1, 511, 1023):
+        for t in (1, 127, 128, 129, 511, 1023):   # the split edges too
             for masked in (False, True):
                 cases[FUSED].append(check_fused_layer(
                     fdl, tol, timer, 8, 12, 64, 1024, t, masked, dtype,
                     seed=t + masked))
+        cases[FUSED].append(check_fused_layer(      # gpt3_1p3b's heads
+            fdl, tol, timer, 8, 16, 128, 1024, 1023, False, dtype, seed=9))
         for n in (8, 8192):        # decode, training rows; 1002: a row
             for hidden in (768, 1002):   # not in 16-byte chunks
                 cases[LN].append(check_ln(fm, tol, timer, n, hidden, dtype,
@@ -3010,58 +3076,64 @@ def host_us(fn, calls=200, warmup=20):
     return us
 
 
-def time_paths(tree, reps=3):
-    """With ``paddle_tpu_torch`` imported from ``tree`` (so that two trees
-    compare in one call, in turns): bf16 GPT-2 124M fused-mode
-    ``generate`` (B=8, prompt 896 + 128 new; decode ms per step as phase
-    4 takes it, `reps` times) and 16 decode steps timed alone and under
-    torch.profiler; the stacked bf16 training step (B=8 S=1024, 2 warm-up
-    then 10 timed steps, `reps` times) and one profiled step; the stacked
-    fp32 step and the per-layer fp32 step under PTPU_PALLAS_LN=1
-    PTPU_PALLAS_FFN=1 (fp32 weights, B=8 S=1024, each 1 warm-up then 3
-    timed steps, `reps` times, and one profiled step); and the host
-    microseconds of one FFN and one LayerNorm forward call at the decode
-    step's 8 rows.  Prints one JSON line."""
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is False: --paths needs a GPU")
-    tree = os.path.abspath(tree)
-    sys.path.insert(0, tree)
-    import paddle_tpu_torch
-    if not os.path.abspath(paddle_tpu_torch.__file__).startswith(tree):
-        fail(f"paddle_tpu_torch came from {paddle_tpu_torch.__file__}")
+def decode_digest(fd, b, s_max, h, d, length, dtype, seed):
+    """sha256 of the flash decode kernel's output on `check_decode`'s
+    inputs: two trees whose digests agree give the same bits."""
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(b, 1, 3, h, d, generator=g).to("cuda", dtype)[:, :, 0]
+    kc, vc = (torch.randn(b, s_max, h * d, generator=g).to("cuda", dtype)
+              for _ in range(2))
+    out = fd.flash_decode_arrays(q, kc, vc, length)
+    return hashlib.sha256(out.view(torch.uint8).cpu().numpy()
+                          .tobytes()).hexdigest()[:16]
+
+
+def time_decode_kernels(tree_ops, timer):
+    """[case]: the ragged kernel (fp and int8 pools, the decode step, the
+    split edges, H=16 D=128 and the C=188 / C=512 chunks), the fused
+    layer (t = 1, 127-129, 511 and 1023, masked at 1023, H=16 D=128) and
+    the flash decode kernel (lengths 1, 2, 255, 257 and 1024, H=16 D=128;
+    with the sha256 of its output), each in fp32 and bf16 against its
+    plain version, with the modules of one tree (`check_*`)."""
+    rpa, fdl, fd, tol = (tree_ops[k] for k in ("rpa", "fdl", "fd", "tol"))
+    out = []
+    for dtype in (torch.float32, torch.bfloat16):
+        runs = [(check_ragged, RAGGED, DECODE_ROWS, 1, {}),
+                (check_ragged, RAGGED, EDGE_ROWS, 1, {}),
+                (check_ragged, RAGGED, DECODE_ROWS, 1, dict(h=16, d=128)),
+                (check_ragged, RAGGED, [(700, 188)], 188, {}),
+                (check_ragged_int8, RAGGED8, DECODE_ROWS, 1, {}),
+                (check_ragged_int8, RAGGED8, EDGE_ROWS, 1, {}),
+                (check_ragged_int8, RAGGED8, DECODE_ROWS, 1,
+                 dict(h=16, d=128)),
+                (check_ragged_int8, RAGGED8, [(700, 512)], 512, {})]
+        for check, name, rows, c, kw in runs:
+            out.append(dict(check(rpa, tol, timer, rows, c, dtype, seed=2,
+                                  **kw), kernel=name))
+        for h, d, t, masked in ([(12, 64, t, False)
+                                 for t in (1, 127, 128, 129, 511, 1023)]
+                                + [(12, 64, 1023, True), (16, 128, 1023,
+                                                          False)]):
+            out.append(dict(check_fused_layer(fdl, tol, timer, 8, h, d, 1024,
+                                              t, masked, dtype, seed=t),
+                            kernel=FUSED))
+        for h, d, length in ([(12, 64, n) for n in (1, 2, 255, 257, 1024)]
+                             + [(16, 128, 1024)]):
+            c = check_decode(fd, tol, timer, 8, 1024, h, d, length, dtype,
+                             length)
+            c["sha256"] = decode_digest(fd, 8, 1024, h, d, length, dtype,
+                                        length)
+            out.append(dict(c, kernel=DECODE))
+        torch.cuda.empty_cache()
+    return out
+
+
+def time_training(rec, cfg, reps):
+    """The training paths of `time_paths` into ``rec``: the stacked bf16
+    step, the stacked fp32 step and the per-layer fp32 step under the LN
+    and FFN flags (B=8 S=1024), each timed `reps` times and profiled
+    once."""
     from paddle_tpu_torch.models import GPTForCausalLM, gpt2_124m_config
-    from paddle_tpu_torch.ops import fused_mlp as fm
-    torch.backends.cuda.matmul.allow_tf32 = False
-    card = card_line()
-    cfg = gpt2_124m_config(stacked_blocks=True)
-    rec = {"tree": tree, "card": card}
-    rng = np.random.RandomState(4)
-    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (8, 896))
-                           .astype(np.int32)).cuda()
-    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
-                           generator=torch.Generator().manual_seed(0))
-    with flag_env(GEN_MODES["fused"]):
-        model.generate(ids[:, :64], max_new_tokens=4)          # warm-up
-        steps = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            model.generate(ids, max_new_tokens=1)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            model.generate(ids, max_new_tokens=128)
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-            steps.append(((t2 - t1) - (t1 - t0)) * 1e3 / 127)
-        prof = profile_generate(model, ids, steps=16)
-    rec["fused_generate"] = {
-        "decode_ms_per_step": steps,
-        "wall_ms_per_step": prof["wall_ms_per_step"],
-        "device_ms_per_step": prof["device_ms_per_step"],
-        "device_busy_share": prof["device_busy_share"],
-        "device_ops_per_step": prof["device_ops_per_step"],
-        "ms_per_step_by_group": prof["ms_per_step_by_group"]}
-    del model
     rng = np.random.RandomState(2)
     data = [torch.from_numpy(rng.randint(0, cfg.vocab_size, (8, 1024)))
             .cuda() for _ in range(2)]
@@ -3116,6 +3188,99 @@ def time_paths(tree, reps=3):
             "ms_by_group": prof["ms_by_group"], "top": prof["top"][:8]}
         del model, step
         torch.cuda.empty_cache()
+
+
+def time_paths(tree, train=False, reps=3):
+    """With ``paddle_tpu_torch`` imported from ``tree`` (so that two trees
+    compare in one call, in turns): the decode kernels at the shapes of
+    the kernel phase (`time_decode_kernels`); bf16 GPT-2 124M fused-mode
+    ``generate`` (B=8, prompt 896 + 128 new; decode ms per step as phase
+    4 takes it, `reps` times) and 16 decode steps timed alone and under
+    torch.profiler; 8 bf16 engine decode steps, fp and int8 pools, timed
+    alone and under torch.profiler (phase 3's `profile_decode`); and the
+    host microseconds of one FFN and one LayerNorm forward call at the
+    decode step's 8 rows.  With ``train`` also the stacked bf16 training
+    step (B=8 S=1024, 2 warm-up then 10 timed steps, `reps` times) and one
+    profiled step; the stacked fp32 step and the per-layer fp32 step under
+    PTPU_PALLAS_LN=1 PTPU_PALLAS_FFN=1 (fp32 weights, B=8 S=1024, each 1
+    warm-up then 3 timed steps, `reps` times, and one profiled step).
+    Prints one JSON line."""
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: --paths needs a GPU")
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, tree)
+    import paddle_tpu_torch
+    if not os.path.abspath(paddle_tpu_torch.__file__).startswith(tree):
+        fail(f"paddle_tpu_torch came from {paddle_tpu_torch.__file__}")
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt2_124m_config
+    from paddle_tpu_torch.ops import flash_decode as fd
+    from paddle_tpu_torch.ops import fused_decode as fdl
+    from paddle_tpu_torch.ops import fused_mlp as fm
+    from paddle_tpu_torch.ops import ragged_paged_attention as rpa
+    from paddle_tpu_torch.ops import tolerance as tol
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    cfg = gpt2_124m_config(stacked_blocks=True)
+    rec = {"tree": tree, "card": card}
+    rec["kernels"] = time_decode_kernels(
+        dict(rpa=rpa, fdl=fdl, fd=fd, tol=tol), Timer())
+    for c in rec["kernels"]:
+        extra = "".join(f" {k} {c[k]:.4f}" for k in ("write_ms", "attend_ms")
+                        if k in c)
+        print(f"paths {tree} kernel {c['kernel']} [{c['shape']} "
+              f"{c['dtype']}] ms {c['ms']:.4f}{extra} bound "
+              f"{c['bound_ms']:.4f} ({c['err_over_limit']:.3g} of its "
+              f"limit)" + (f" sha256 {c['sha256']}" if "sha256" in c
+                           else ""), flush=True)
+    model = GPTForCausalLM(cfg, device="cpu",
+                           generator=torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in PROMPT_LENS]
+    for pools in (None, "int8"):
+        prof = profile_decode(model, prompts, torch.bfloat16,
+                              kv_cache_dtype=pools)
+        rec[f"engine_decode_{pools or 'fp'}"] = {
+            k: prof[k] for k in ("wall_ms_per_step", "device_ms_per_step",
+                                 "device_busy_share", "device_ops_per_step",
+                                 "ms_per_step_by_group", "top")}
+        print(f"paths {tree} engine decode bf16, {pools or 'fp'} pools: "
+              f"wall {prof['wall_ms_per_step']:.3f} device "
+              f"{prof['device_ms_per_step']:.3f} ms a step ("
+              + ", ".join(f"{k} {v:.3f}" for k, v in
+                          prof["ms_per_step_by_group"].items()) + ")",
+              flush=True)
+    del model
+    rng = np.random.RandomState(4)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (8, 896))
+                           .astype(np.int32)).cuda()
+    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                           generator=torch.Generator().manual_seed(0))
+    with flag_env(GEN_MODES["fused"]):
+        model.generate(ids[:, :64], max_new_tokens=4)          # warm-up
+        steps = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.generate(ids, max_new_tokens=1)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            model.generate(ids, max_new_tokens=128)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            steps.append(((t2 - t1) - (t1 - t0)) * 1e3 / 127)
+        prof = profile_generate(model, ids, steps=16)
+    rec["fused_generate"] = {
+        "decode_ms_per_step": steps,
+        "wall_ms_per_step": prof["wall_ms_per_step"],
+        "device_ms_per_step": prof["device_ms_per_step"],
+        "device_busy_share": prof["device_busy_share"],
+        "device_ops_per_step": prof["device_ops_per_step"],
+        "ms_per_step_by_group": prof["ms_per_step_by_group"]}
+    del model
+    if train:
+        time_training(rec, cfg, reps)
     g = torch.Generator().manual_seed(8)
     x = torch.randn(8, 768, generator=g).to("cuda", torch.bfloat16)
     w1 = (torch.randn(768, 3072, generator=g) / 28).to("cuda", torch.bfloat16)
@@ -3132,25 +3297,26 @@ def time_paths(tree, reps=3):
                 torch.empty((8, 3072), dtype=torch.bfloat16, device="cuda"),
                 torch.empty((3, 8, 3072), device="cuda"),
                 torch.empty((12, 8, 768), device="cuda")))}
-    g, s = rec["fused_generate"], rec["stacked_step"]
+    g = rec["fused_generate"]
     gen_ms = ", ".join(f"{v:.3f}" for v in g["decode_ms_per_step"])
-    train_ms = ", ".join(f"{v:.3f}" for v in s["ms_per_step"])
-    fp32 = []
-    for key, label in (("stacked_step_fp32", "fp32 stacked step"),
+    train = []
+    for key, label in (("stacked_step", "stacked step"),
+                       ("stacked_step_fp32", "fp32 stacked step"),
                        ("per_layer_flags_step_fp32",
                         "fp32 per-layer step under the LN and FFN flags")):
-        s32 = rec[key]
-        fp32.append(
-            f"{label} " + ", ".join(f"{v:.3f}" for v in s32["ms_per_step"])
-            + f" ms, device {s32['device_ms']:.3f} ms "
-            f"({s32['device_ops']:.0f} ops; by group " + ", ".join(
-                f"{k} {v:.3f}" for k, v in s32["ms_by_group"].items()) + ")")
+        if key not in rec:
+            continue
+        st = rec[key]
+        train.append(
+            f"{label} " + ", ".join(f"{v:.3f}" for v in st["ms_per_step"])
+            + f" ms, device {st['device_ms']:.3f} ms "
+            f"({st['device_ops']:.0f} ops; by group " + ", ".join(
+                f"{k} {v:.3f}" for k, v in st["ms_by_group"].items()) + ")")
     print(f"paths {tree} ({card}): fused generate decode {gen_ms} ms a "
           f"step, profiled window wall {g['wall_ms_per_step']:.3f} device "
           f"{g['device_ms_per_step']:.3f} ms ({g['device_ops_per_step']:.1f} "
-          f"ops); stacked step {train_ms} ms, device {s['device_ms']:.3f} ms "
-          f"({s['device_ops']:.0f} ops); " + "; ".join(fp32) + "; "
-          f"host us per call at 8 rows: " + ", ".join(
+          f"ops); " + "".join(t + "; " for t in train)
+          + "host us per call at 8 rows: " + ", ".join(
               f"{k} {v:.2f}"
               for k, v in rec["host_us_per_call_8_rows"].items()),
           flush=True)
@@ -3160,8 +3326,9 @@ def time_paths(tree, reps=3):
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--probe"]:
         probe(sys.argv[2:])
-    elif sys.argv[1:2] == ["--paths"] and len(sys.argv) == 3:
-        time_paths(sys.argv[2])
+    elif sys.argv[1:2] == ["--paths"] and len(sys.argv) in (3, 4) and \
+            sys.argv[3:] in ([], ["--train"]):
+        time_paths(sys.argv[2], train=sys.argv[3:] == ["--train"])
     elif len(sys.argv) > 1:
         fail(f"unknown arguments {sys.argv[1:]}; see the docstring")
     else:

@@ -14,7 +14,9 @@
 // are cut into `splits` chunks of CHUNK = 128 keys, one block of four
 // warps per (chunk, head, row), so B * H * splits blocks keep every SM
 // busy (768 at B = 8, H = 12, length 1024, against 132 SMs; one block per
-// (head, row) gave 96).  Inside a block each warp takes a run of 32 keys.
+// (head, row) gave 96).  Inside a block each warp takes a run of 32 keys
+// (the key loop and merges of `decode_common.cuh`, shared with the fused
+// layer and the ragged kernel).
 // LPK = D / VE lanes cover one key row with 16-byte loads (VE = 8 bf16 or
 // 4 fp32 values each), so a warp reads 32 / LPK whole rows -- whole
 // 128-byte lines -- per load, and U = 4 such loads of K and of V are in
@@ -56,133 +58,34 @@ constexpr int CHUNK = 128;              // keys per split
 constexpr int RUN = CHUNK / WARPS;      // keys per warp
 constexpr int U = 4;                    // loads of K (and V) in flight
 
-// 16 bytes of a row, kept as loaded until used (4 registers, where
-// widened bf16 would take 8), and widened to 4 fp32 or 8 bf16 values
-__device__ __forceinline__ uint4 load16(const void* p) {
-  return *reinterpret_cast<const uint4*>(p);
-}
-__device__ __forceinline__ void widen(uint4 v, float (&x)[4]) {
-  x[0] = __uint_as_float(v.x);
-  x[1] = __uint_as_float(v.y);
-  x[2] = __uint_as_float(v.z);
-  x[3] = __uint_as_float(v.w);
-}
-__device__ __forceinline__ void widen(uint4 v, float (&x)[8]) {
-  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
-    x[2 * i] = f.x;
-    x[2 * i + 1] = f.y;
-  }
-}
-
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS) flash_decode_kernel(
     const T* __restrict__ q, const T* __restrict__ kc,
     const T* __restrict__ vc, T* __restrict__ out, float* __restrict__ part,
     int* __restrict__ tickets, int H, int S_max, int length, long long qsb,
     float scale) {
-  constexpr int VE = 16 / sizeof(T);    // values per 16-byte load
-  constexpr int LPK = D / VE;           // lanes per key row
-  constexpr int KPW = 32 / LPK;         // key rows per warp load
-  __shared__ float wm[WARPS], wl[WARPS], wacc[WARPS][D];
-  __shared__ int is_last;
+  constexpr int LPK = D / VE<T>;        // lanes per key row
+  __shared__ SplitSmem<WARPS, D> sh;
   const int split = blockIdx.x, splits = gridDim.x;
   const int h = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
-  const int grp = lane / LPK, d0 = (lane % LPK) * VE;
+  const int d0 = (lane % LPK) * VE<T>;
   const long long HD = (long long)H * D;
   const long long bh = (long long)b * H + h;
 
-  float qv[VE];
+  float qv[VE<T>];
   const T* qp = q + b * qsb + h * D + d0;
 #pragma unroll
-  for (int i = 0; i < VE; ++i) qv[i] = to_f(qp[i]);
+  for (int i = 0; i < VE<T>; ++i) qv[i] = to_f(qp[i]);
 
   const long long base = (long long)b * S_max * HD + h * D + d0;
-  const T* kb = kc + base;
-  const T* vb = vc + base;
-  const int k_lo = split * CHUNK + warp * RUN;
-  const int k_hi = min(k_lo + RUN, length);
-  float m = NEG, l = 0.f, acc[VE];
-#pragma unroll
-  for (int i = 0; i < VE; ++i) acc[i] = 0.f;
-  for (int k0 = k_lo; k0 < k_hi; k0 += U * KPW) {
-    uint4 kr[U], vr[U];
-    bool ok[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int key = k0 + u * KPW + grp;
-      ok[u] = key < k_hi;
-      const long long row = (long long)(ok[u] ? key : k_lo) * HD;
-      kr[u] = load16(kb + row);
-      vr[u] = load16(vb + row);
-    }
-    float s[U], mx = NEG;
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      float kx[VE], dot = 0.f;
-      widen(kr[u], kx);
-#pragma unroll
-      for (int i = 0; i < VE; ++i) dot = fmaf(kx[i], qv[i], dot);
-#pragma unroll
-      for (int o = LPK / 2; o > 0; o >>= 1)
-        dot += __shfl_xor_sync(0xffffffffu, dot, o);
-      s[u] = ok[u] ? dot * scale : NEG;
-      mx = fmaxf(mx, s[u]);
-    }
-#pragma unroll
-    for (int o = LPK; o < 32; o <<= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-    const float mnew = fmaxf(m, mx);
-    const float alpha = expf(m - mnew);
-    l *= alpha;
-#pragma unroll
-    for (int i = 0; i < VE; ++i) acc[i] *= alpha;
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const float p = ok[u] ? expf(s[u] - mnew) : 0.f;
-      l += p;
-      const float pr = round_to<T>(p);
-      float vx[VE];
-      widen(vr[u], vx);
-#pragma unroll
-      for (int i = 0; i < VE; ++i) acc[i] = fmaf(pr, vx[i], acc[i]);
-    }
-    m = mnew;
-  }
-  // the warp's sums over its key groups (a warp with no key keeps m = NEG,
-  // l = 0, acc = 0, and weighs nothing below)
-#pragma unroll
-  for (int o = LPK; o < 32; o <<= 1) {
-    l += __shfl_xor_sync(0xffffffffu, l, o);
-#pragma unroll
-    for (int i = 0; i < VE; ++i)
-      acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], o);
-  }
-  if (grp == 0) {
-#pragma unroll
-    for (int i = 0; i < VE; ++i) wacc[warp][d0 + i] = acc[i];
-  }
-  if (lane == 0) {
-    wm[warp] = m;
-    wl[warp] = l;
-  }
-  __syncthreads();
-
-  // the block's (m, l, acc), warps in order
-  float bm = wm[0];
-#pragma unroll
-  for (int w = 1; w < WARPS; ++w) bm = fmaxf(bm, wm[w]);
-  float bl = 0.f, ba = 0.f;
-#pragma unroll
-  for (int w = 0; w < WARPS; ++w) {
-    const float f = expf(wm[w] - bm);
-    bl += wl[w] * f;
-    if (tid < D) ba += wacc[w][tid] * f;
-  }
+  const RingKeys<T, false> keys{kc + base, vc + base, HD, scale, nullptr};
+  const int lo = split * CHUNK;
+  float m, l, acc[VE<T>];
+  warp_attend<T, D, U, RUN>(keys, qv, lo + warp * RUN,
+                            min(lo + CHUNK, length), CHUNK, m, l, acc);
+  float bm, bl, ba;
+  block_state<T, D, WARPS>(sh, m, l, acc, bm, bl, ba);
   T* op = out + bh * D;
   if (splits == 1) {
     if (tid < D) op[tid] = from_f<T>(ba / fmaxf(bl, 1e-30f));
@@ -193,22 +96,11 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(
   float2* ml = reinterpret_cast<float2*>(part) + bh * splits;   // (m, l)
   float* pacc = part + 2LL * gridDim.y * gridDim.z * splits +
                 bh * splits * D;                       // acc[D] per split
-  if (tid < D) pacc[(long long)split * D + tid] = ba;
-  if (tid == 0) ml[split] = make_float2(bm, bl);
-  if (!last_of(tickets + bh, splits, &is_last) || tid >= D) return;
-  // unrolled so that eight splits' loads are in flight at once; the sums
-  // still run in split order
-  float gm = NEG;
-#pragma unroll 8
-  for (int x = 0; x < splits; ++x) gm = fmaxf(gm, __ldcg(ml + x).x);
-  float gl = 0.f, ga = 0.f;
-#pragma unroll 8
-  for (int x = 0; x < splits; ++x) {
-    const float2 p = __ldcg(ml + x);
-    const float f = expf(p.x - gm);
-    gl += p.y * f;
-    ga += __ldcg(pacc + (long long)x * D + tid) * f;
-  }
+  float gm, gl, ga;
+  if (!merge_splits<D, WARPS>(sh, ml, pacc, tickets + bh, split, splits, bm,
+                              bl, ba, gm, gl, ga) ||
+      tid >= D)
+    return;
   op[tid] = from_f<T>(ga / fmaxf(gl, 1e-30f));
 }
 

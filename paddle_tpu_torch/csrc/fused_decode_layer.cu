@@ -10,43 +10,75 @@
 //
 // What bounds it on this card: memory.  A step reads the layer's weights
 // once (4 * hd^2 elements: 4.7 MB in bf16 at GPT-2 width) and the valid
-// K/V prefix once (2 * B * t * hd elements), at a few FLOPs per element.
+// K/V prefix once (2 * B * t * hd elements: 25 MB at B = 8, t = 1023), at
+// a few FLOPs per element.
 //
 // What the design does about it: a cooperative launch (all blocks
 // co-resident, `cooperative_groups::this_grid().sync()` between the three
 // phases, each of which needs all of the previous one), 256 threads a
-// block, grid = min(co-resident blocks, max(qkv column tiles, B * H)).
-//  1. Every block computes LN1 of all B rows (fp32 statistics, two passes)
-//     into shared memory, rounded to the weights' type, then takes column
-//     tiles of wqkv in a grid-stride loop.  A tile is 32 bytes of columns
-//     (8 fp32 / 16 bf16) over all hd rows: the lanes of a warp read 32/cw
-//     rows of one tile, one full sector each, and the 8 warps split the
-//     rows; each thread keeps one fp32 sum per batch row, so the weights
-//     are read once for all rows (up to 8 at a time), and a fixed-order sum
-//     over the threads of a column finishes the tile.  q, k and v go to an
-//     fp32 scratch with the fp32 bias added.
-//  2. One block per (row, head): the streaming online softmax of the
-//     decode kernel over the t cached keys (csrc/flash_decode.cu, with the
-//     mask added to the scores), then the current token's term from the
-//     fp32 k and v, then the output rounded to the weights' type into the
-//     scratch.  The same block writes the new K/V rows (rounded to the
-//     cache type) at row t, which no block of this launch reads.
-//  3. Every block stages the attention output, then column tiles of wo as
-//     in phase 1; y = x + (proj + bo) in fp32, cast to x's type.
-// Phase 2 has only B * H tasks (96 at GPT-2 decode), so the attention over
-// a long prefix runs on fewer SMs than the card has; splitting the keys is
-// later work, as for the decode kernel.
+// block, as many blocks as fit on the card at once (the wrapper's grid).
+// Every phase is a grid-stride loop over units of work that each read
+// their bytes with 16-byte loads, all issued before any arithmetic:
+//  1. qkv.  Every block that has a unit computes LN1 of all B rows while
+//     the weights of its first unit are in flight: the statistics a warp
+//     a row (fp32, two passes over the row's 16-byte pieces, the second
+//     from L1), then xn a thread a column for every row, rounded to the
+//     weights' type into shared memory.  A unit is 128 bytes of wqkv's
+//     columns (64 bf16 / 32 fp32) by a chunk of 32 L1 of its rows: 8
+//     threads a 128-byte row segment, 32 rows at once, L1 loads a thread
+//     (216 units at GPT-2 width in either type, where tiles of 32 bytes
+//     read 2 bytes a lane made 144).  Each thread keeps an
+//     fp32 sum per (batch row, column) of its rows for up to 8 batch rows
+//     a pass, the four row groups of a warp add by shuffles and the warps
+//     in warp order (one barrier), and the unit writes an fp32 partial per
+//     k-chunk.
+//  2. Attention, split-K at warp granularity: one task per (split, head,
+//     row), one warp each, with as many splits of whole runs of 32 keys
+//     as let every task run in one round of the co-resident warps
+//     (`fused_split`: 11 splits of 96 keys, 1056 tasks at B = 8, t = 1023
+//     on an H100's 132 blocks of 8 warps), so that every warp runs its
+//     chain of memory round trips on its own (block tasks of 128 keys,
+//     each waiting on its barriers, took 30 of the kernel's 50 us at
+//     t = 1023, PERF.md).  A warp sums its q from the k-chunk partials in chunk
+//     order (+ the fp32 bias) straight into registers, runs the key loop
+//     of `decode_common.cuh` (shared with flash_decode and the ragged
+//     kernel: 16-byte loads, D / VE lanes a key, a whole run of 32 keys in
+//     flight where that is at most 8 loads a lane, an online softmax; the
+//     mask added to the scores) and writes its fp32 partial (m, l,
+//     acc[D]).  The last warp of the (row, head) to finish (a
+//     self-resetting ticket, `warp_last_of`) merges the splits in split
+//     order, its loads issued eight chunks and eight splits at a time,
+//     adds the current token's term from the fp32 q, k and v (summed as
+//     q), writes the output rounded to the weights' type to the scratch,
+//     and the new K/V rows (rounded to the cache type) at row t, which no
+//     block of this launch reads.  Phase 2 has no block barrier.
+//  3. Out-proj as phase 1 over wo (L3 loads a thread), each unit staging
+//     its chunk of the attention output; the weights of a block's first
+//     unit are loaded before the grid sync that ends phase 2.  The last
+//     unit of a column slice to finish (ticket) adds the k-chunk partials
+//     in chunk order: y = x + (proj + bo) in fp32, cast to x's type.
+// Sums are fp32 and in a fixed order throughout, so a second launch gives
+// the first one's bits.  The cooperative launch stays: one launch a layer
+// is what the TPU kernel is for, and a step of the host-bound fused mode
+// pays for every launch.
 //
 // Rounding points (the TPU kernel's, `pallas_ops.py:1208-1256`): LN in
 // fp32; xn rounded to the weights' type before the qkv product; q, k, v in
-// fp32; probabilities rounded to the cache type before the value product;
-// the attention output rounded to the weights' type before the out-proj;
-// the residual in fp32.  q.k sums in fp32 (the TPU kernel rounds each
-// product to bf16 first; not copied).
+// fp32; probabilities rounded to the cache type before the value product,
+// each at its warp's running max (then rescaled in fp32); the attention
+// output rounded to the weights' type before the out-proj; the residual
+// in fp32.  q.k sums in fp32 (the TPU kernel rounds each product to bf16
+// first; not copied).
 //
 // Layout: x, y [B, hd]; wqkv [hd, 3hd]; wo [hd, hd]; biases and LN
-// parameters [hd] / [3hd]; rings contiguous [B, S_max, hd]; all one type.
-// mask: null or a contiguous fp32 [B, S_max]; scratch: fp32 [B, 4hd].
+// parameters [hd] / [3hd]; rings contiguous [B, S_max, hd]; all one type,
+// the weights 16-byte aligned.  mask: null or a contiguous fp32 [B, S_max].
+// Scratch (fp32, from the wrapper's per-device buffer): part1
+// [hd / (32 L1)][B][3hd], attn [B][hd], part2 ((m, l) [B H][splits], then
+// acc [B H][splits][D]), part3 [hd / (32 L3)][B][hd]; tickets: B H + hd /
+// (128 bytes of columns) ints, zero before and after every launch.  The
+// wrapper's `fused_plan` lays these out and picks L1, L3, the split and
+// the grid.
 #include <cooperative_groups.h>
 
 #include "decode_common.cuh"
@@ -59,7 +91,21 @@ using namespace decode;
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int RB = 8;           // batch rows per pass over a weight tile
+constexpr int RB = 8;                    // batch rows per pass over a unit
+constexpr int SEG = 8;                   // threads per 128-byte row segment
+constexpr int GROUPS = THREADS / SEG;    // weight rows loaded at once
+constexpr int RUN = 32;                  // keys a warp task walks at once
+// loads of K (and V) a lane keeps in flight: a whole run of 32 keys where
+// that is at most 8 loads (bf16 at D = 64; 16 keys in fp32)
+template <typename T, int D>
+constexpr int U = RUN / (32 / (D / VE<T>)) < 8 ? RUN / (32 / (D / VE<T>))
+                                               : 8;
+
+// columns of a unit (128 bytes of a weight row), loads a thread at most
+template <typename T>
+constexpr int CW = 128 / static_cast<int>(sizeof(T));
+template <typename T>
+constexpr int LMAX = 2 * static_cast<int>(sizeof(T));   // 4 bf16, 8 fp32
 
 template <typename T>
 struct Args {
@@ -73,166 +119,396 @@ struct Args {
   T* kc;
   T* vc;
   const float* mask;   // null: no mask
-  float* scratch;      // [B, 4hd]: q | k | v (fp32), then the attention out
+  float* part1;        // [chunks1][B][3hd]
+  float* attn;         // [B][hd]
+  float* part2;        // (m, l) [B H][splits], then acc [B H][splits][D]
+  float* part3;        // [chunks3][B][hd]
+  int* tickets;        // B H (phase 2), then hd / CW (phase 3)
   T* y;
   int B, H, S_max, t;
+  int l1, l3;          // loads a thread per unit of phases 1 and 3
+  int chunk;           // keys per split of phase 2
   float eps, scale;
 };
 
-// xs layout: row chunk c of RB rows, then k, then the row in the chunk:
-// xs[(c * K + k) * RB + r], rows past B zero.
-__device__ __forceinline__ float* xs_at(float* xs, int K, int row, int k) {
-  return xs + ((long long)(row / RB) * K + k) * RB + row % RB;
+// The weights of one unit into registers: rows k0 + grp + 32 l (l < L) of
+// W [K, N], this thread's 16 bytes of columns c0 .. c0 + CW.
+template <typename T>
+__device__ __forceinline__ void load_unit(const T* __restrict__ W, int N,
+                                          int k0, int c0, int L,
+                                          uint4 (&wr)[LMAX<T>]) {
+  const int seg = threadIdx.x % SEG, grp = threadIdx.x / SEG;
+#pragma unroll
+  for (int l = 0; l < LMAX<T>; ++l)
+    if (l < L)
+      wr[l] = __ldg(reinterpret_cast<const uint4*>(
+          W + (long long)(k0 + grp + GROUPS * l) * N + c0 + seg * VE<T>));
 }
 
-// One column tile: sums[r][col] = sum_k xs[r][k] * W[k][col] for the CW
-// columns from col0 and every row; calls epi(row, col, sum) once each.
-template <typename T, typename Epi>
-__device__ __forceinline__ void gemv_tile(const T* __restrict__ W, int ncols,
-                                          int K, int col0, const float* xs,
-                                          int B, float* red, Epi epi) {
-  constexpr int CW = 32 / sizeof(T);   // columns: 32 bytes of a row
-  constexpr int KR = 32 / CW;          // rows a warp reads at once
+// One unit's fp32 partial sums: part[row * N + c0 + c] = sum over the
+// unit's weight rows k of xs(row, k) * W[k][c0 + c], for every batch row.
+// xs holds the activations as [row chunk][k][RB] fp32 (rows past B zero)
+// with `kstride` k's a chunk; the unit's rows are xk0 + grp + 32 l.
+template <typename T>
+__device__ __forceinline__ void gemv_unit(const uint4 (&wr)[LMAX<T>], int L,
+                                          const float* xs, int kstride,
+                                          int xk0, int B, float* red,
+                                          float* __restrict__ part, int N,
+                                          int c0) {
+  constexpr int V = VE<T>, C = CW<T>;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int col = col0 + lane % CW;
-  const int kk = warp * KR + lane / CW;
-  const T* wc = W + col;
-  for (int c = 0; c * RB < B; ++c) {
-    float acc[RB];
+  const int seg = tid % SEG, grp = tid / SEG;
+  for (int rc = 0; rc * RB < B; ++rc) {
+    float acc[RB][V];
 #pragma unroll
-    for (int r = 0; r < RB; ++r) acc[r] = 0.f;
-    const float* xc = xs + (long long)c * K * RB;
-#pragma unroll 4
-    for (int k = kk; k < K; k += WARPS * KR) {
-      const float w = to_f(wc[(long long)k * ncols]);
-      const float4 a = *reinterpret_cast<const float4*>(xc + k * RB);
-      const float4 b = *reinterpret_cast<const float4*>(xc + k * RB + 4);
-      acc[0] = fmaf(w, a.x, acc[0]);
-      acc[1] = fmaf(w, a.y, acc[1]);
-      acc[2] = fmaf(w, a.z, acc[2]);
-      acc[3] = fmaf(w, a.w, acc[3]);
-      acc[4] = fmaf(w, b.x, acc[4]);
-      acc[5] = fmaf(w, b.y, acc[5]);
-      acc[6] = fmaf(w, b.z, acc[6]);
-      acc[7] = fmaf(w, b.w, acc[7]);
+    for (int r = 0; r < RB; ++r)
+#pragma unroll
+      for (int j = 0; j < V; ++j) acc[r][j] = 0.f;
+    const float* xc = xs + (long long)rc * kstride * RB;
+#pragma unroll
+    for (int l = 0; l < LMAX<T>; ++l) {
+      if (l < L) {
+        float wv[V];
+        widen(wr[l], wv);
+        const float* xr = xc + (xk0 + grp + GROUPS * l) * RB;
+        const float4 a = *reinterpret_cast<const float4*>(xr);
+        const float4 b = *reinterpret_cast<const float4*>(xr + 4);
+        const float xv[RB] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+        for (int r = 0; r < RB; ++r)
+#pragma unroll
+          for (int j = 0; j < V; ++j)
+            acc[r][j] = fmaf(wv[j], xv[r], acc[r][j]);
+      }
     }
+    // over the four row groups of a warp (lanes 8 and 16 apart), then over
+    // the warps in order
 #pragma unroll
-    for (int r = 0; r < RB; ++r) red[r * THREADS + tid] = acc[r];
+    for (int r = 0; r < RB; ++r)
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        acc[r][j] += __shfl_xor_sync(0xffffffffu, acc[r][j], 8);
+        acc[r][j] += __shfl_xor_sync(0xffffffffu, acc[r][j], 16);
+      }
+    if (lane < SEG) {
+#pragma unroll
+      for (int r = 0; r < RB; ++r)
+#pragma unroll
+        for (int j = 0; j < V; ++j)
+          red[(warp * RB + r) * C + seg * V + j] = acc[r][j];
+    }
     __syncthreads();
-    if (tid < CW * RB) {
-      const int cl = tid % CW, r = tid / CW;
+    for (int e = tid; e < RB * C; e += THREADS) {
+      const int r = e / C, c = e % C;
+      if (rc * RB + r >= B) continue;
       float s = 0.f;
-      for (int j = cl; j < THREADS; j += CW) s += red[r * THREADS + j];
-      if (c * RB + r < B) epi(c * RB + r, col0 + cl, s);
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) s += red[(w * RB + r) * C + c];
+      part[(long long)(rc * RB + r) * N + c0 + c] = s;
     }
     __syncthreads();   // red is reused
   }
 }
 
+// sum over the k-chunk partials of column `col` of row `row`, in chunk order
+__device__ __forceinline__ float chunk_sum(const float* part, int chunks,
+                                           int B, int N, int row, int col) {
+  const float* p = part + (long long)row * N + col;
+  const long long step = (long long)B * N;
+  float s = 0.f;
+  for (int c0 = 0; c0 < chunks; c0 += 8) {   // 8 loads in flight
+    float v[8];
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+      v[c] = c0 + c < chunks ? __ldcg(p + (c0 + c) * step) : 0.f;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) s += v[c];
+  }
+  return s;
+}
+
+// One block an SM: held to 128 registers for two, the kernel spills
+// 200-256 bytes and its bf16 layer at t = 1023 took 0.0464 ms against
+// 0.0403 on an H100 (PERF.md).
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS) fused_decode_layer_kernel(
     Args<T> a) {
-  constexpr int TPK = D / VEC;
-  constexpr int G = THREADS / TPK;
+  constexpr int C = CW<T>;
+  constexpr int LPK = D / VE<T>;
   extern __shared__ __align__(16) float xs[];   // [ceil(B/RB)][hd][RB]
-  __shared__ __align__(16) float red[RB * THREADS];
-  __shared__ float qs[D], kn[D], vn[D];
-  __shared__ float ps[THREADS];
-  __shared__ float red2[WARPS];
-  __shared__ float part[G][D];
+  __shared__ __align__(16) float red[WARPS * RB * C];
+  __shared__ int is_last;
   cg::grid_group grid = cg::this_grid();
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int B = a.B, H = a.H, hd = H * D, S_max = a.S_max, t = a.t;
-  float* qkv = a.scratch;                      // [B, 3hd]
-  float* attn = a.scratch + (long long)B * 3 * hd;   // [B, hd]
   const int nrows = (B + RB - 1) / RB * RB;
+  const int ncol3 = 3 * hd;
 
-  // -- phase 1: LN1 of every row, then the qkv columns ---------------------
-  for (int row = warp; row < nrows; row += WARPS) {
-    if (row >= B) {
-      for (int k = lane; k < hd; k += 32) *xs_at(xs, hd, row, k) = 0.f;
-      continue;
+  // -- phase 1: LN1 of every row, then the qkv units ----------------------
+  const int slices1 = ncol3 / C, chunks1 = hd / (GROUPS * a.l1);
+  const int units1 = slices1 * chunks1;
+  uint4 wr[LMAX<T>];
+  if (blockIdx.x < units1)   // in flight while LN1 runs
+    load_unit(a.wqkv, ncol3, blockIdx.x / slices1 * GROUPS * a.l1,
+              blockIdx.x % slices1 * C, a.l1, wr);
+  // LN1 (a block with no unit of phase 1 skips it: nothing reads its xs).
+  // The statistics, a warp a row: the row's 16-byte pieces, four a lane
+  // in flight, summed once for the mean and again (from L1) for the
+  // variance; kept in `red`, free until the first unit.
+  float* stats = red;                            // mu, rstd per row
+  const int nvec = hd / VE<T>;
+  // the LN weights of this thread's first four columns, in flight with x
+  float w[4], bb[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int k = tid + j * THREADS;
+    const bool ok = k < hd && blockIdx.x < units1;
+    w[j] = ok ? to_f(a.lnw[k]) : 0.f;
+    bb[j] = ok ? to_f(a.lnb[k]) : 0.f;
+  }
+  for (int row = warp; row < B && blockIdx.x < units1; row += WARPS) {
+    const uint4* xv =
+        reinterpret_cast<const uint4*>(a.x + (long long)row * hd);
+    float mu = 0.f;
+    for (int pass = 0; pass < 2; ++pass) {
+      float acc = 0.f;
+      for (int v0 = lane; v0 < nvec; v0 += 4 * 32) {
+        uint4 r[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (v0 + 32 * j < nvec) r[j] = __ldg(xv + v0 + 32 * j);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (v0 + 32 * j >= nvec) continue;
+          float f[VE<T>];
+          widen(r[j], f);
+#pragma unroll
+          for (int i = 0; i < VE<T>; ++i) {
+            const float c = f[i] - mu;
+            acc = pass ? fmaf(c, c, acc) : acc + f[i];
+          }
+        }
+      }
+      const float total = warp_sum(acc);
+      if (pass == 0) {
+        mu = total / hd;
+      } else if (lane == 0) {
+        stats[2 * row] = mu;
+        stats[2 * row + 1] = 1.f / sqrtf(total / hd + a.eps);
+      }
     }
-    const T* xr = a.x + (long long)row * hd;
-    float s = 0.f;
-    for (int k = lane; k < hd; k += 32) s += to_f(xr[k]);
-    const float mu = warp_sum(s) / hd;
-    float v = 0.f;
-    for (int k = lane; k < hd; k += 32) {
-      const float c = to_f(xr[k]) - mu;
-      v = fmaf(c, c, v);
-    }
-    const float rs = 1.f / sqrtf(warp_sum(v) / hd + a.eps);
-    for (int k = lane; k < hd; k += 32)
-      *xs_at(xs, hd, row, k) = round_to<T>(
-          (to_f(xr[k]) - mu) * rs * to_f(a.lnw[k]) + to_f(a.lnb[k]));
   }
   __syncthreads();
-  constexpr int CW = 32 / sizeof(T);
-  const int ncol3 = 3 * hd;
-  for (int tile = blockIdx.x; tile * CW < ncol3; tile += gridDim.x)
-    gemv_tile(a.wqkv, ncol3, hd, tile * CW, xs, B, red,
-              [&](int r, int c, float s) {
-                qkv[(long long)r * ncol3 + c] = s + to_f(a.bqkv[c]);
-              });
-  grid.sync();
-
-  // -- phase 2: attention per (row, head), and the ring write --------------
-  const int g = tid / TPK, d0 = (tid % TPK) * VEC;
-  for (int task = blockIdx.x; task < B * H; task += gridDim.x) {
-    const int b = task / H, h = task % H;
-    const float* qr = qkv + (long long)b * ncol3 + h * D;
-    for (int d = tid; d < D; d += THREADS) {
-      qs[d] = __ldcg(qr + d);
-      kn[d] = __ldcg(qr + hd + d);
-      vn[d] = __ldcg(qr + 2 * hd + d);
-    }
-    __syncthreads();
-    const long long base = (long long)b * S_max * hd + h * D;
-    float m, l, acc[VEC];
-    prefix_attention<T, D, THREADS>(
-        qs, a.kc + base, a.vc + base, hd, t, a.scale,
-        a.mask ? a.mask + (long long)b * S_max : nullptr, ps, red2, m, l,
-        acc);
+  // ... then xn, a thread a column k for every row: xs(row, k) for the RB
+  // rows of a chunk are 8 consecutive floats, written as two float4s
+  // (neighbouring threads on neighbouring k: no bank conflict); the LN
+  // weights four columns a thread at a time, x from L1
+  for (int k0 = tid; k0 < hd && blockIdx.x < units1; k0 += 4 * THREADS) {
+    if (k0 != tid) {
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) part[g][d0 + i] = acc[i];
-    // the current token's term, from the fp32 q, k, v
-    const float s_self =
-        block_reduce<THREADS>(tid < D ? qs[tid] * kn[tid] : 0.f, red2,
-                              false) *
-        a.scale;   // its barriers also order part[]
-    const float m2 = fmaxf(m, s_self);
-    const float alpha = expf(m - m2);
-    const float p_self = expf(s_self - m2);
-    const float ls = fmaxf(alpha * l + p_self, 1e-30f);
-    const float p_r = round_to<T>(p_self);
-    for (int d = tid; d < D; d += THREADS) {
-      float s = 0.f;
-#pragma unroll
-      for (int x = 0; x < G; ++x) s += part[x][d];
-      const float o = (s * alpha + p_r * vn[d]) / ls;
-      attn[(long long)b * hd + h * D + d] = round_to<T>(o);
-      const long long w = base + (long long)t * hd + d;
-      a.kc[w] = from_f<T>(kn[d]);
-      a.vc[w] = from_f<T>(vn[d]);
+      for (int j = 0; j < 4; ++j) {
+        const int k = k0 + j * THREADS;
+        w[j] = k < hd ? to_f(a.lnw[k]) : 0.f;
+        bb[j] = k < hd ? to_f(a.lnb[k]) : 0.f;
+      }
     }
-    __syncthreads();   // qs, kn, vn, part are reused by the next task
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int k = k0 + j * THREADS;
+      if (k >= hd) continue;
+      for (int rc = 0; rc * RB < nrows; ++rc) {
+        float o[RB];
+#pragma unroll
+        for (int r = 0; r < RB; ++r) {
+          const int row = rc * RB + r;
+          o[r] = row < B ? round_to<T>((to_f(a.x[(long long)row * hd + k]) -
+                                        stats[2 * row]) *
+                                           stats[2 * row + 1] * w[j] +
+                                       bb[j])
+                         : 0.f;
+        }
+        float4* dst =
+            reinterpret_cast<float4*>(xs + ((long long)rc * hd + k) * RB);
+        dst[0] = make_float4(o[0], o[1], o[2], o[3]);
+        dst[1] = make_float4(o[4], o[5], o[6], o[7]);
+      }
+    }
+  }
+  __syncthreads();
+  for (int u = blockIdx.x; u < units1; u += gridDim.x) {
+    const int k0 = u / slices1 * GROUPS * a.l1, c0 = u % slices1 * C;
+    if (u != blockIdx.x) load_unit(a.wqkv, ncol3, k0, c0, a.l1, wr);
+    gemv_unit<T>(wr, a.l1, xs, hd, k0, B, red,
+                 a.part1 + (long long)(u / slices1) * B * ncol3, ncol3, c0);
   }
   grid.sync();
+
+  // -- phase 2: attention per (split, head, row), one warp each, and the
+  //    ring write ---------------------------------------------------------
+  const int splits = (t + a.chunk - 1) / a.chunk;
+  const int bhs = B * H;
+  const int d0 = (lane % LPK) * VE<T>;
+  constexpr int DPL = D / 32;                    // dims a lane merges
+  for (int task = blockIdx.x * WARPS + warp; task < bhs * splits;
+       task += gridDim.x * WARPS) {
+    const int bh = task / splits, split = task % splits;
+    const int b = bh / H, h = bh % H;
+    // this lane's q, straight into registers (nothing waits on it before
+    // the K and V loads are in flight): the k-chunk partials in chunk
+    // order, then the bias, as `chunk_sum`
+    float qv[VE<T>];
+#pragma unroll
+    for (int i = 0; i < VE<T>; ++i) qv[i] = 0.f;
+    for (int c = 0; c < chunks1; ++c) {
+      const float* p = a.part1 + ((long long)c * B + b) * ncol3 + h * D + d0;
+#pragma unroll
+      for (int i = 0; i < VE<T>; i += 4) {
+        const float4 v = __ldcg(reinterpret_cast<const float4*>(p + i));
+        qv[i] += v.x;
+        qv[i + 1] += v.y;
+        qv[i + 2] += v.z;
+        qv[i + 3] += v.w;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < VE<T>; ++i) qv[i] += to_f(a.bqkv[h * D + d0 + i]);
+    const long long base = (long long)b * S_max * hd + h * D;
+    const RingKeys<T, true> keys{
+        a.kc + base + d0, a.vc + base + d0, hd, a.scale,
+        a.mask ? a.mask + (long long)b * S_max : nullptr};
+    const int lo = split * a.chunk;
+    float m, l, acc[VE<T>];
+    warp_attend<T, D, U<T, D>, RUN>(keys, qv, lo, min(lo + a.chunk, t),
+                                    RUN, m, l, acc);
+    // this split's partial; the last warp of the (row, head) to finish
+    // merges the splits in split order
+    float2* ml = reinterpret_cast<float2*>(a.part2) + (long long)bh * splits;
+    float* pacc = a.part2 + 2LL * bhs * splits + (long long)bh * splits * D;
+    if (lane < LPK) {
+#pragma unroll
+      for (int i = 0; i < VE<T>; ++i)
+        pacc[(long long)split * D + d0 + i] = acc[i];
+    }
+    if (lane == 0) ml[split] = make_float2(m, l);
+    if (!warp_last_of(a.tickets + bh, splits)) continue;
+    // the merge, its loads in few round trips: q, k and v of the dims this
+    // lane merges (the k-chunk partials, four chunks at once, summed in
+    // chunk order as `chunk_sum`) beside the splits' (m, l), a lane each;
+    // then the splits' acc, eight splits at once, added in split order
+    float qd[DPL], kd[DPL], vd[DPL];
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) qd[i] = kd[i] = vd[i] = 0.f;
+    for (int c0 = 0; c0 < chunks1; c0 += 4) {
+      float pq[4][DPL], pk[4][DPL], pv[4][DPL];
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int i = 0; i < DPL; ++i) {
+          const bool ok = c0 + c < chunks1;
+          const float* p = a.part1 + ((long long)(c0 + c) * B + b) * ncol3 +
+                           h * D + lane + 32 * i;
+          pq[c][i] = ok ? __ldcg(p) : 0.f;
+          pk[c][i] = ok ? __ldcg(p + hd) : 0.f;
+          pv[c][i] = ok ? __ldcg(p + 2 * hd) : 0.f;
+        }
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int i = 0; i < DPL; ++i) {
+          if (c0 + c >= chunks1) continue;
+          qd[i] += pq[c][i];
+          kd[i] += pk[c][i];
+          vd[i] += pv[c][i];
+        }
+    }
+    float gm = NEG;
+    for (int x0 = 0; x0 < splits; x0 += 32)
+      gm = fmaxf(gm, warp_max(x0 + lane < splits ? __ldcg(ml + x0 + lane).x
+                                                 : NEG));
+    float gl = 0.f, ga[DPL];
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) ga[i] = 0.f;
+    for (int x0 = 0; x0 < splits; x0 += 32) {
+      const float2 p =
+          x0 + lane < splits ? __ldcg(ml + x0 + lane) : make_float2(NEG, 0.f);
+      const float f = expf(p.x - gm);   // this lane's split's weight
+      const int n = min(32, splits - x0);
+      for (int j0 = 0; j0 < n; j0 += 8) {
+        float pa[8][DPL];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int i = 0; i < DPL; ++i)
+            pa[j][i] = j0 + j < n
+                           ? __ldcg(pacc + (long long)(x0 + j0 + j) * D +
+                                    lane + 32 * i)
+                           : 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (j0 + j >= n) break;
+          const float fj = __shfl_sync(0xffffffffu, f, j0 + j);
+          gl += __shfl_sync(0xffffffffu, p.y, j0 + j) * fj;
+#pragma unroll
+          for (int i = 0; i < DPL; ++i) ga[i] += pa[j][i] * fj;
+        }
+      }
+    }
+    // the current token's term, from the fp32 q, k, v
+    float qk = 0.f;
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) {
+      const int d = h * D + lane + 32 * i;
+      qd[i] += to_f(a.bqkv[d]);
+      kd[i] += to_f(a.bqkv[hd + d]);
+      vd[i] += to_f(a.bqkv[2 * hd + d]);
+      qk = fmaf(qd[i], kd[i], qk);
+    }
+    const float s_self = warp_sum(qk) * a.scale;
+    const float m2 = fmaxf(gm, s_self);
+    const float alpha = expf(gm - m2);
+    const float p_self = expf(s_self - m2);
+    const float ls = fmaxf(alpha * gl + p_self, 1e-30f);
+    const float p_r = round_to<T>(p_self);
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) {
+      const int d = lane + 32 * i;
+      const float o = (ga[i] * alpha + p_r * vd[i]) / ls;
+      a.attn[(long long)b * hd + h * D + d] = round_to<T>(o);
+      const long long w = base + (long long)t * hd + d;
+      a.kc[w] = from_f<T>(kd[i]);
+      a.vc[w] = from_f<T>(vd[i]);
+    }
+  }
 
   // -- phase 3: out-proj, bias, residual -----------------------------------
-  for (int e = tid; e < nrows * hd; e += THREADS) {
-    const int row = e / hd, k = e % hd;
-    *xs_at(xs, hd, row, k) =
-        row < B ? __ldcg(attn + (long long)row * hd + k) : 0.f;
+  const int slices3 = hd / C, rows3 = GROUPS * a.l3, chunks3 = hd / rows3;
+  const int units3 = slices3 * chunks3;
+  if (blockIdx.x < units3)   // in flight through the grid sync
+    load_unit(a.wo, hd, blockIdx.x / slices3 * rows3,
+              blockIdx.x % slices3 * C, a.l3, wr);
+  grid.sync();
+  for (int u = blockIdx.x; u < units3; u += gridDim.x) {
+    const int chunk = u / slices3, slice = u % slices3;
+    const int k0 = chunk * rows3, c0 = slice * C;
+    if (u != blockIdx.x) load_unit(a.wo, hd, k0, c0, a.l3, wr);
+    // this unit's rows of the attention output, [row chunk][k][RB]
+    for (int e = tid; e < nrows * rows3; e += THREADS) {
+      const int row = e / rows3, k = e % rows3;
+      xs[((row / RB) * rows3 + k) * RB + row % RB] =
+          row < B ? __ldcg(a.attn + (long long)row * hd + k0 + k) : 0.f;
+    }
+    __syncthreads();
+    float* part = a.part3 + (long long)chunk * B * hd;
+    gemv_unit<T>(wr, a.l3, xs, rows3, 0, B, red, part, hd, c0);
+    if (!last_of(a.tickets + bhs + slice, chunks3, &is_last)) continue;
+    for (int e = tid; e < B * C; e += THREADS) {
+      const int r = e / C, c = c0 + e % C;
+      const float s = chunk_sum(a.part3, chunks3, B, hd, r, c);
+      const long long i = (long long)r * hd + c;
+      a.y[i] = from_f<T>(to_f(a.x[i]) + (s + to_f(a.bo[c])));
+    }
+    __syncthreads();   // is_last and xs are reused by the next unit
   }
-  __syncthreads();
-  for (int tile = blockIdx.x; tile * CW < hd; tile += gridDim.x)
-    gemv_tile(a.wo, hd, hd, tile * CW, xs, B, red,
-              [&](int r, int c, float s) {
-                const long long i = (long long)r * hd + c;
-                a.y[i] = from_f<T>(to_f(a.x[i]) + (s + to_f(a.bo[c])));
-              });
 }
 
 // Co-resident blocks of one kernel at one dynamic shared-memory size, per
@@ -265,63 +541,85 @@ cudaError_t resident_blocks(int dev, size_t smem, int* blocks) {
   return cudaSuccess;
 }
 
+size_t smem_bytes(int B, int hd) {
+  return sizeof(float) * (size_t)((B + RB - 1) / RB) * RB * hd;
+}
+
 template <typename T, int D>
-cudaError_t launch(const Args<T>& args, cudaStream_t stream) {
-  auto kernel = fused_decode_layer_kernel<T, D>;
-  const int hd = args.H * D;
-  const size_t smem =
-      sizeof(float) * (size_t)((args.B + RB - 1) / RB) * RB * hd;
-  int dev, resident;
+cudaError_t blocks_of(int B, int H, int* blocks) {
+  int dev;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  if ((err = resident_blocks<T, D>(dev, smem, &resident)) != cudaSuccess)
-    return err;
-  if (resident < 1) return cudaErrorInvalidConfiguration;
-  constexpr int CW = 32 / sizeof(T);
-  int want = 3 * hd / CW;
-  if (args.B * args.H > want) want = args.B * args.H;
-  const int grid = want < resident ? want : resident;
+  return resident_blocks<T, D>(dev, smem_bytes(B, H * D), blocks);
+}
+
+template <typename T, int D>
+cudaError_t launch(const Args<T>& args, int grid, cudaStream_t stream) {
+  const int hd = args.H * D;
+  int resident;
+  cudaError_t err = blocks_of<T, D>(args.B, args.H, &resident);
+  if (err != cudaSuccess) return err;
+  if (grid < 1 || grid > resident) return cudaErrorInvalidConfiguration;
+  const int l1 = args.l1, l3 = args.l3;
+  if (l1 < 1 || l1 > LMAX<T> || hd % (GROUPS * l1) || l3 < 1 ||
+      l3 > LMAX<T> || hd % (GROUPS * l3) || hd % CW<T> || args.chunk < 1)
+    return cudaErrorInvalidValue;
   Args<T> copy = args;
   void* params[] = {&copy};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel),
-                                    dim3(grid), dim3(THREADS), params, smem,
-                                    stream);
+  err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(fused_decode_layer_kernel<T, D>), dim3(grid),
+      dim3(THREADS), params, smem_bytes(args.B, hd), stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-template <typename T>
-Args<T> make_args(const void* x, const void* lnw, const void* lnb,
-                  const void* wqkv, const void* bqkv, const void* wo,
-                  const void* bo, void* kc, void* vc, const void* mask,
-                  void* scratch, void* y, int B, int H, int S_max, int t,
-                  float eps, float scale) {
-  return Args<T>{static_cast<const T*>(x),    static_cast<const T*>(lnw),
-                 static_cast<const T*>(lnb),  static_cast<const T*>(wqkv),
-                 static_cast<const T*>(bqkv), static_cast<const T*>(wo),
-                 static_cast<const T*>(bo),   static_cast<T*>(kc),
-                 static_cast<T*>(vc),         static_cast<const float*>(mask),
-                 static_cast<float*>(scratch), static_cast<T*>(y),
-                 B, H, S_max, t, eps, scale};
-}
-
 }  // namespace
+
+// The co-resident blocks of the kernel for B rows of H heads of D dims
+// (the most a launch's grid may have); a negative CUDA error on failure,
+// -1 (cudaErrorInvalidValue) for a head size the kernel does not take.
+extern "C" int fused_decode_layer_blocks(int B, int H, int D, int is_bf16) {
+  int blocks = 0;
+  cudaError_t err;
+  if (D == 64 && is_bf16)
+    err = blocks_of<__nv_bfloat16, 64>(B, H, &blocks);
+  else if (D == 64)
+    err = blocks_of<float, 64>(B, H, &blocks);
+  else if (D == 128 && is_bf16)
+    err = blocks_of<__nv_bfloat16, 128>(B, H, &blocks);
+  else if (D == 128)
+    err = blocks_of<float, 128>(B, H, &blocks);
+  else
+    err = cudaErrorInvalidValue;
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
+}
 
 // Returns the launch's CUDA error (cudaLaunchCooperativeKernel, then
 // cudaGetLastError()); 1 (cudaErrorInvalidValue) for a head size or type
-// the kernel does not take.
+// the kernel does not take, or loads a thread (l1, l3) that do not divide
+// hd into chunks of 32 rows; 9 (cudaErrorInvalidConfiguration) for a grid
+// larger than the co-resident blocks.
 extern "C" int fused_decode_layer(
     const void* x, const void* lnw, const void* lnb, const void* wqkv,
     const void* bqkv, const void* wo, const void* bo, void* kc, void* vc,
-    const void* mask, void* scratch, void* y, int B, int H, int D, int S_max,
-    int t, int is_bf16, float eps, float scale, void* stream) {
+    const void* mask, void* part1, void* attn, void* part2, void* part3,
+    void* tickets, void* y, int B, int H, int D, int S_max, int t,
+    int is_bf16, int l1, int l3, int chunk, int grid, float eps, float scale,
+    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-#define FDL_LAUNCH(T, DIM)                                                 \
-  err = launch<T, DIM>(make_args<T>(x, lnw, lnb, wqkv, bqkv, wo, bo, kc,   \
-                                    vc, mask, scratch, y, B, H, S_max, t,  \
-                                    eps, scale),                           \
-                       s)
+#define FDL_LAUNCH(T, DIM)                                                   \
+  err = launch<T, DIM>(                                                      \
+      Args<T>{static_cast<const T*>(x),      static_cast<const T*>(lnw),     \
+              static_cast<const T*>(lnb),    static_cast<const T*>(wqkv),    \
+              static_cast<const T*>(bqkv),   static_cast<const T*>(wo),      \
+              static_cast<const T*>(bo),     static_cast<T*>(kc),            \
+              static_cast<T*>(vc),           static_cast<const float*>(mask), \
+              static_cast<float*>(part1),    static_cast<float*>(attn),      \
+              static_cast<float*>(part2),    static_cast<float*>(part3),     \
+              static_cast<int*>(tickets),    static_cast<T*>(y),             \
+              B, H, S_max, t, l1, l3, chunk, eps, scale},                    \
+      grid, s)
   if (D == 64 && is_bf16)
     FDL_LAUNCH(__nv_bfloat16, 64);
   else if (D == 64)

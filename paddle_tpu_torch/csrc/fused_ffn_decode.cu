@@ -71,13 +71,6 @@ __device__ __forceinline__ void unpack(const uint4& r, float (&v)[8]) {
   }
 }
 
-__device__ __forceinline__ void wait_prior_grid() {
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
-}
-__device__ __forceinline__ void launch_dependents() {
-  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-}
-
 // EPI 0: out = round(act(in W + bias)); EPI 1: out = round(in W).
 // Grid: (N / CW column slices, K / (32 L) chunks, row tiles).  DEPENDENT:
 // launched as the dependent of the previous launch, whose output `in` is.
@@ -96,7 +89,7 @@ __global__ void __launch_bounds__(THREADS) ffn_dec_kernel(
   const int c0 = blockIdx.x * CW, chunk = blockIdx.y, chunks = gridDim.y;
   const int k0 = chunk * R, r0 = blockIdx.z * RT, rows = min(RT, n - r0);
 
-  if constexpr (!DEPENDENT) launch_dependents();
+  if constexpr (!DEPENDENT) trigger_dependents();
   uint4 wr[L];
 #pragma unroll
   for (int l = 0; l < L; ++l)

@@ -10,34 +10,57 @@
 // What bounds it on this card: memory.  A decode step reads every live
 // row's K and V once (sum_r kv_len_r * H * D * 2 * itemsize bytes) and does
 // 4 FLOPs per element read, far below the ridge point; the bound is those
-// bytes over 3.35 TB/s.  At serving batch sizes the grid is small (one
-// block per row and head), so what limits a simple kernel is memory
-// latency: how many independent loads each block keeps in flight.
+// bytes over 3.35 TB/s.  At serving batch sizes one block per (row, head)
+// gives 96 blocks, and the longest row's blocks set the step's time, so
+// what limits a simple kernel is memory latency: how many independent
+// loads are in flight, on how many SMs.
 //
 // What the design does about it:
 //  1. Write.  A first launch, one block per (row, query position), copies
 //     the new token's K and V rows into their pool slots; a slot outside
 //     [0, num_blocks * block_size) is a padding entry and is dropped.
-//  2. Attend.  A second launch on the same stream (so every write is
-//     visible) runs one 256-thread block per (query, head, row).  Pass 1:
-//     each thread takes whole keys (k = tid, tid + 256, ...) and dots its
-//     key row with q (staged in shared memory) using 16-byte (fp32) or
-//     8-byte (bf16) vector loads -- no cross-lane reduction per key.  The
-//     scores go to shared memory; a block-wide max and sum give the exact
-//     softmax (fp32).  Pass 2: D/4 threads cover one value row with vector
-//     loads and the 256/(D/4) groups of them split the keys, so a thread
-//     has many independent loads in flight; the groups' partial sums are
-//     added in shared memory.
-//     Query j of row r attends keys 0 .. min(pos0[r] + j, kv_lens[r] - 1),
-//     read through the row's block table, and no table entry past that
-//     bound is dereferenced (padding rows carry kv_lens = 0 and sentinel
-//     table entries, and produce 0).
+//  2. Attend, split-K.  A second launch on the same stream (so every
+//     write is visible): one block of four warps per (split, head, row
+//     and query).  Query j of row r attends keys 0 .. min(pos0[r] + j,
+//     kv_lens[r] - 1), read through the row's block table, and no table
+//     entry past that bound is dereferenced (padding rows carry kv_lens =
+//     0 and sentinel table entries, and produce 0).  The keys go to splits
+//     of whole chunks of 128 keys (8 pool blocks of 16; the wrapper's
+//     CHUNK), each split one block: the grid has max_splits blocks per
+//     (head, row, query), which
+//     the wrapper takes from host-known shapes alone (how full B * C * H
+//     blocks leave the grid, and the table's width: `ragged_splits`), and
+//     each block derives its row's own split count from pos0 and kv_lens
+//     on the device -- a row longer than max_splits chunks takes wider
+//     chunks, blocks past its last split return at once -- so the launch
+//     reads no device value on the host and can be captured.  Inside a
+//     block the key loop of `decode_common.cuh` (shared with flash_decode
+//     and the fused layer): each warp walks runs of 32 keys through the
+//     table with 16-byte loads (4 fp32, 8 bf16 or 16 int8 values a lane;
+//     D / those lanes a key row, whole 64- to 512-byte rows per warp
+//     load), 4 loads of K and of V a lane in flight, and an online
+//     softmax in fp32.  p stays in fp32 (the plain version rounds the
+//     normalised p, the kernel does not: the FWD_COEF limit).  One split
+//     writes out; more write fp32 partials (m, l, acc[D]) that the last
+//     block of the (row, query, head) merges in split order (a
+//     self-resetting ticket).
+//     A chunk of C = 188 or 512 queries fills the card with B * C * H
+//     blocks already: max_splits is 1 there, and no scratch is read.
+//     The attend is launched as the programmatic dependent of the write,
+//     which lets it start at once: its blocks load pos0, kv_lens, q and
+//     the split's table entries (into shared memory) before the bound is
+//     known.  With fp pools it reads the call's own positions (pos0 ..
+//     pos0 + C - 1) from k_new / v_new, the values the write stores, and
+//     no pool slot the write touches, so it runs beside the write; with
+//     int8 pools it waits for the write before reading (the write may
+//     rescale a block's old codes).  The first block waits for the write
+//     before it ends, so the stream's next work finds both done.  The
+//     write kernels below are unchanged but for that one trigger.
 //
 // Layout: q, k_new, v_new are [B, C, H, D] with unit stride in D and stride
 // D between heads (row and position strides are arguments); pools are
 // contiguous, 16-byte aligned [num_blocks, block_size, H, D]; out is a
-// contiguous [B, C, H, D] in the input type.  Shared memory holds one fp32
-// score per key of the table's width (max_blocks * block_size).
+// contiguous [B, C, H, D] in the input type.
 //
 // int8 pools (`ragged_paged_attention_int8`): codes beside fp32 scales
 // [num_blocks, H], value = code * scale -- the TPU kernel's `quant` branch
@@ -58,79 +81,29 @@
 //     decode the launch is one block per row and bound by load latency,
 //     so the rescale reads 16 codes per load and each thread issues all
 //     its loads before its stores.
-//  2. Attend.  The fp kernel instantiated for int8 pools: the codes loaded
-//     4 at a time (char4) and the scales folded in as the plain version
-//     folds them: k_scale times the scaled logit, v_scale times each
-//     probability.  Bytes: 1 per code
+//  2. Attend.  The fp kernel instantiated for int8 pools: 16 codes a
+//     16-byte load (widened exactly by the float trick of `widen`) and the
+//     scales folded in as the plain version folds them: k_scale times the
+//     scaled logit, v_scale times each probability.  Bytes: 1 per code
 //     plus 4 per (block, head) scale read -- a quarter of fp32's.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "decode_common.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
+using namespace decode;
+
+constexpr int THREADS = 256;            // the int8 write
 constexpr int WARPS = THREADS / 32;
-constexpr int VEC = 4;      // elements per vector load
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ void load4(const float* p, float (&x)[VEC]) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  x[0] = v.x;
-  x[1] = v.y;
-  x[2] = v.z;
-  x[3] = v.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p,
-                                      float (&x)[VEC]) {
-  const uint2 v = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&v.x));
-  const float2 b = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&v.y));
-  x[0] = a.x;
-  x[1] = a.y;
-  x[2] = b.x;
-  x[3] = b.y;
-}
-__device__ __forceinline__ void load4(const int8_t* p, float (&x)[VEC]) {
-  const char4 v = *reinterpret_cast<const char4*>(p);
-  x[0] = v.x;
-  x[1] = v.y;
-  x[2] = v.z;
-  x[3] = v.w;
-}
-
-// Block-wide max (is_max) or sum of one float per thread; every thread gets
-// the result.  `red` holds WARPS floats.
-__device__ __forceinline__ float block_reduce(float v, float* red,
-                                              bool is_max) {
-  const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const float u = __shfl_xor_sync(0xffffffffu, v, o);
-    v = is_max ? fmaxf(v, u) : v + u;
-  }
-  if (lane == 0) red[w] = v;
-  __syncthreads();
-  float r = red[0];
-#pragma unroll
-  for (int i = 1; i < WARPS; ++i) r = is_max ? fmaxf(r, red[i]) : r + red[i];
-  __syncthreads();   // red is reused by the next reduction
-  return r;
-}
+constexpr int A_THREADS = 128;          // the attend: four warps
+constexpr int A_WARPS = A_THREADS / 32;
+constexpr int RUN = 32;                 // keys per warp run
+constexpr int TBL = 2 * A_THREADS;      // table entries loaded ahead
+// loads of K (and V) a lane keeps in flight (8 measured no faster on an
+// H100 and took the bf16 kernel from 71 to 147 registers, too many for
+// the decode step's 768 blocks to be resident at once; PERF.md)
+constexpr int U = 4;
 
 template <typename T>
 __global__ void ragged_write_kernel(const T* __restrict__ knew,
@@ -141,6 +114,8 @@ __global__ void ragged_write_kernel(const T* __restrict__ knew,
                                     int HD, long long num_slots,
                                     long long ksb, long long ksc,
                                     long long vsb, long long vsc) {
+  trigger_dependents();   // the attend may start (it reads no slot this
+                          // launch writes)
   const int r = blockIdx.x / C, j = blockIdx.x % C;
   const long long slot = slots[blockIdx.x];
   if (slot < 0 || slot >= num_slots) return;
@@ -152,118 +127,195 @@ __global__ void ragged_write_kernel(const T* __restrict__ knew,
   }
 }
 
-// P is the pools' element type: T, or int8_t codes whose per-(block,
-// head) fp32 scales kscale / vscale fold in as the plain version folds
-// them -- k_scale times the scaled logit, v_scale times each probability.
-// For T pools the scales are null and unread.
+// The keys of one (row, head) through the row's block table: key k is
+// slot k % bs of pool block table[k / bs] (clamped into the pool, as the
+// TPU kernel's index map).  P is the pools' element type: T, whose p stays
+// in fp32 (no rounding before the value product), or int8_t codes whose
+// per-(block, head) fp32 scales fold in as the plain version folds them --
+// k_scale times the scaled logit, v_scale times each probability.
+template <typename P>
+struct PagedKeys {
+  static constexpr bool QUANT = sizeof(P) == 1;
+  const P* kp;          // the K pool at head h, this lane's d0
+  const P* vp;
+  const P* kn;          // fp pools: k_new, v_new of the row at head h and
+  const P* vn;          // d0, taken for keys pos .. (the call's own
+  long long ksc, vsc;   // positions, which the write stores) at these
+  int pos;              // position strides; int8 pools: pos past the keys
+  const int* trow;      // the row's block table
+  const int* tbl;       // its entries first_e .. first_e + n_pre - 1, or
+  int first_e, n_pre;   // n_pre 0 (shared memory, loaded ahead)
+  const float* ks;      // the scales at head h (stride H a block), or null
+  const float* vs;
+  int bs, nb, H;
+  long long HD;
+  float scale;
+  struct Row {
+    long long off;
+    int blk;
+  };
+  __device__ __forceinline__ Row locate(int key) const {
+    if (!QUANT && key >= pos) return {key - pos, -1};
+    const int e = key / bs;
+    const int raw = static_cast<unsigned>(e - first_e) <
+                            static_cast<unsigned>(n_pre)
+                        ? tbl[e - first_e]
+                        : trow[e];
+    const int blk = min(max(raw, 0), nb - 1);
+    return {((long long)blk * bs + key % bs) * HD, blk};
+  }
+  // blk -1: off is the position's index j among the call's new rows
+  __device__ __forceinline__ const P* k(Row r) const {
+    return r.blk < 0 ? kn + r.off * ksc : kp + r.off;
+  }
+  __device__ __forceinline__ const P* v(Row r) const {
+    return r.blk < 0 ? vn + r.off * vsc : vp + r.off;
+  }
+  __device__ __forceinline__ float logit(float dot, Row r) const {
+    if constexpr (QUANT)
+      return dot * scale * ks[(long long)r.blk * H];
+    else
+      return dot * scale;
+  }
+  __device__ __forceinline__ float weight(float p, Row r) const {
+    if constexpr (QUANT)
+      return p * vs[(long long)r.blk * H];
+    else
+      return p;
+  }
+};
+
+// One block of four warps per (split, head, row and query).  Query j of
+// row r attends keys [0, bound), bound = min(pos0[r] + j + 1, kv_len);
+// the row's keys go to splits of `chunk` keys (whole chunks of chunk_keys,
+// so that at most max_splits = gridDim.x splits cover the bound), from
+// pos0 and kv_lens on the device: blocks past the row's last split do
+// nothing, and a bound of 0 (padding rows) writes zeros.  One split
+// writes out directly; more merge through part and the tickets.
 template <typename T, typename P, int D>
-__global__ void __launch_bounds__(THREADS) ragged_attend_kernel(
-    const T* __restrict__ q, const P* __restrict__ kpool,
+__global__ void __launch_bounds__(A_THREADS) ragged_attend_kernel(
+    const T* __restrict__ q, const T* __restrict__ knew,
+    const T* __restrict__ vnew, const P* __restrict__ kpool,
     const P* __restrict__ vpool, const float* __restrict__ kscale,
     const float* __restrict__ vscale, const int* __restrict__ table,
     const int* __restrict__ pos0, const int* __restrict__ lens,
-    T* __restrict__ out, int C, int H, int nb, int bs, int maxb,
-    long long qsb, long long qsc, float scale) {
-  constexpr bool QUANT = sizeof(P) == 1;
-  constexpr int TPK = D / VEC;          // threads per value row
-  constexpr int G = THREADS / TPK;      // key groups in pass 2
-  extern __shared__ float s[];          // one score per key
-  __shared__ float qs[D];
-  __shared__ float red[WARPS];
-  __shared__ float part[G][D];
-  const int jq = blockIdx.x, h = blockIdx.y, r = blockIdx.z;
-  const int tid = threadIdx.x;
+    T* __restrict__ out, float* __restrict__ part, int* __restrict__ tickets,
+    int C, int H, int nb, int bs, int maxb, int chunk_keys, long long qsb,
+    long long qsc, long long ksb, long long ksc, long long vsb,
+    long long vsc, float scale) {
+  constexpr int LPK = D / VE<P>;        // lanes per key row
+  __shared__ SplitSmem<A_WARPS, D> sh;
+  __shared__ int tbl[TBL];
+  const int split = blockIdx.x, max_splits = gridDim.x;
+  const int h = blockIdx.y, rj = blockIdx.z, r = rj / C, jq = rj % C;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int d0 = (lane % LPK) * VE<P>;
   const long long HD = (long long)H * D;
-  T* op = out + (((long long)r * C + jq) * H + h) * D;
+  const long long g = (long long)rj * H + h;       // the (row, query, head)
+  T* op = out + g * D;
+  const int* trow = table + (long long)r * maxb;
+  // issued before the bound is known, none of them depending on it: the
+  // row's length and position, q, and the table entries of this split's
+  // keys if its chunk is chunk_keys (every split of a decode step, whose
+  // grid covers the table's width)
+  const int len_r = lens[r], pos_r = pos0[r];
+  float qv[VE<P>];
+  const T* qp = q + r * qsb + jq * qsc + h * D + d0;
+#pragma unroll
+  for (int i = 0; i < VE<P>; ++i) qv[i] = to_f(qp[i]);
+  const int first_e = split * chunk_keys / bs;
+  const int n_e = min((split * chunk_keys + chunk_keys - 1) / bs, maxb - 1) -
+                  first_e + 1;
+  const bool ahead = n_e <= TBL;
+  for (int e = tid; ahead && e < n_e; e += A_THREADS)
+    tbl[e] = trow[first_e + e];
   // never read past the row's written keys nor past its table
-  const int kv_len = min(max(lens[r], 0), maxb * bs);
-  const int bound = max(0, min(pos0[r] + jq + 1, kv_len));   // keys [0, bound)
-  if (bound == 0) {
-    for (int d = tid; d < D; d += THREADS) op[d] = from_f<T>(0.f);
+  const int kv_len = min(max(len_r, 0), maxb * bs);
+  const int bound = max(0, min(pos_r + jq + 1, kv_len));
+  const int per = (bound + max_splits - 1) / max_splits;
+  const int chunk =
+      max(chunk_keys, (per + chunk_keys - 1) / chunk_keys * chunk_keys);
+  const int splits = (bound + chunk - 1) / chunk;
+  // the first block waits for the write launch before it ends, so that
+  // what follows on the stream finds both launches done; with int8 pools
+  // every block that reads waits first (the write may rescale a block's
+  // old codes)
+  const bool first = blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0;
+  if (bound == 0 || split >= splits) {
+    if (bound == 0 && split == 0)
+      for (int d = tid; d < D; d += A_THREADS) op[d] = from_f<T>(0.f);
+    if (first) wait_prior_grid();
     return;
   }
-  const T* qp = q + r * qsb + jq * qsc + h * D;
-  for (int d = tid; d < D; d += THREADS) qs[d] = to_f(qp[d]);
-  __syncthreads();
-  const int* trow = table + (long long)r * maxb;
-
-  // pass 1: scores (times k_scale for codes) and their max
-  float mx = -1e30f;
-  for (int k = tid; k < bound; k += THREADS) {
-    const int blk = min(max(trow[k / bs], 0), nb - 1);
-    const P* kr = kpool + ((long long)blk * bs + k % bs) * HD + h * D;
-    float dot = 0.f;
-#pragma unroll
-    for (int d = 0; d < D; d += VEC) {
-      float x[VEC];
-      load4(kr + d, x);
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) dot = fmaf(x[i], qs[d + i], dot);
-    }
-    if constexpr (QUANT)
-      dot = dot * scale * kscale[(long long)blk * H + h];
-    else
-      dot *= scale;
-    s[k] = dot;
-    mx = fmaxf(mx, dot);
+  __syncthreads();                      // tbl
+  if (PagedKeys<P>::QUANT) wait_prior_grid();
+  const PagedKeys<P> keys{kpool + h * D + d0,
+                          vpool + h * D + d0,
+                          reinterpret_cast<const P*>(knew) + r * ksb + h * D +
+                              d0,
+                          reinterpret_cast<const P*>(vnew) + r * vsb + h * D +
+                              d0,
+                          ksc,
+                          vsc,
+                          PagedKeys<P>::QUANT ? bound : pos_r,
+                          trow,
+                          tbl,
+                          first_e,
+                          ahead && chunk == chunk_keys ? n_e : 0,
+                          kscale ? kscale + h : nullptr,
+                          vscale ? vscale + h : nullptr,
+                          bs, nb, H, HD, scale};
+  const int lo = split * chunk;
+  float m, l, acc[VE<P>];
+  warp_attend<P, D, U, RUN>(keys, qv, lo + warp * RUN,
+                            min(lo + chunk, bound), A_WARPS * RUN, m, l, acc);
+  float bm, bl, ba;
+  block_state<P, D, A_WARPS>(sh, m, l, acc, bm, bl, ba);
+  if (splits == 1) {
+    if (tid < D) op[tid] = from_f<T>(ba / fmaxf(bl, 1e-30f));
+    if (first) wait_prior_grid();
+    return;
   }
-  mx = block_reduce(mx, red, true);
-  // probabilities, each stored times its block's v_scale for codes
-  float sum = 0.f;
-  for (int k = tid; k < bound; k += THREADS) {
-    const float p = expf(s[k] - mx);
-    if constexpr (QUANT)
-      s[k] = p * vscale[(long long)min(max(trow[k / bs], 0), nb - 1) * H + h];
-    else
-      s[k] = p;
-    sum += p;
-  }
-  sum = block_reduce(sum, red, false);   // also orders the s[] writes
-
-  // pass 2: probabilities times values
-  const int g = tid / TPK, d0 = (tid % TPK) * VEC;
-  float acc[VEC] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 4
-  for (int k = g; k < bound; k += G) {
-    const int blk = min(max(trow[k / bs], 0), nb - 1);
-    float x[VEC];
-    load4(vpool + ((long long)blk * bs + k % bs) * HD + h * D + d0, x);
-    const float p = s[k];
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) acc[i] = fmaf(p, x[i], acc[i]);
-  }
-#pragma unroll
-  for (int i = 0; i < VEC; ++i) part[g][d0 + i] = acc[i];
-  __syncthreads();
-  const float inv = 1.f / fmaxf(sum, 1e-30f);
-  for (int d = tid; d < D; d += THREADS) {
-    float a = 0.f;
-#pragma unroll
-    for (int x = 0; x < G; ++x) a += part[x][d];
-    op[d] = from_f<T>(a * inv);
-  }
+  const long long groups = (long long)gridDim.y * gridDim.z;
+  float2* ml = reinterpret_cast<float2*>(part) + g * max_splits;
+  float* pacc = part + 2 * groups * max_splits + g * max_splits * D;
+  float gm, gl, ga;
+  if (merge_splits<D, A_WARPS>(sh, ml, pacc, tickets + g, split, splits, bm,
+                               bl, ba, gm, gl, ga) &&
+      tid < D)
+    op[tid] = from_f<T>(ga / fmaxf(gl, 1e-30f));
+  if (first) wait_prior_grid();
 }
 
 // The attend launch, on the stream after the write launch.
 template <typename T, typename P, int D>
-cudaError_t attend(const void* q, const void* kpool, const void* vpool,
-                   const float* kscale, const float* vscale, const int* table,
-                   const int* pos0, const int* lens, void* out, int B, int C,
-                   int H, int nb, int bs, int maxb, long long qsb,
-                   long long qsc, float scale, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)maxb * bs;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        ragged_attend_kernel<T, P, D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  dim3 grid(C, H, B);
-  ragged_attend_kernel<T, P, D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const P*>(kpool),
-      static_cast<const P*>(vpool), kscale, vscale, table, pos0, lens,
-      static_cast<T*>(out), C, H, nb, bs, maxb, qsb, qsc, scale);
-  return cudaGetLastError();
+cudaError_t attend(const void* q, const void* knew, const void* vnew,
+                   const void* kpool, const void* vpool, const float* kscale,
+                   const float* vscale, const int* table, const int* pos0,
+                   const int* lens, void* out, float* part, int* tickets,
+                   int B, int C, int H, int nb, int bs, int maxb,
+                   int max_splits, int chunk_keys, long long qsb,
+                   long long qsc, long long ksb, long long ksc,
+                   long long vsb, long long vsc, float scale,
+                   cudaStream_t stream) {
+  // a programmatic dependent of the write launch: its blocks start while
+  // the write runs and wait for it only before reading the pools
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(max_splits, H, B * C);
+  cfg.blockDim = dim3(A_THREADS);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, ragged_attend_kernel<T, P, D>, static_cast<const T*>(q),
+      static_cast<const T*>(knew), static_cast<const T*>(vnew),
+      static_cast<const P*>(kpool), static_cast<const P*>(vpool), kscale,
+      vscale, table, pos0, lens, static_cast<T*>(out), part, tickets, C, H,
+      nb, bs, maxb, chunk_keys, qsb, qsc, ksb, ksc, vsb, vsc, scale);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 // -- int8 pools ---------------------------------------------------------
@@ -301,6 +353,8 @@ __global__ void __launch_bounds__(THREADS) ragged_write_int8_kernel(
   float* fac = sh + 2 * H;     // old / new, or 1
   float* wsc = sh + 4 * H;     // new, or 1 where it is 0
   __shared__ long long phys_s;
+  trigger_dependents();   // the attend may start (it waits before it
+                          // reads the pools)
   const int i = blockIdx.x, r = blockIdx.y;
   const int p0 = max(pos0[r], 0);
   const int lb = p0 / bs + i;
@@ -396,69 +450,92 @@ __global__ void __launch_bounds__(THREADS) ragged_write_int8_kernel(
   }
 }
 
+// parts: 1 the write launch, 2 the attend launch, 3 both (the write first).
 template <typename T, int D>
 cudaError_t launch_int8(const void* q, const void* knew, const void* vnew,
                         void* kpool, void* vpool, void* kscale, void* vscale,
                         const int* table, const int* pos0, const int* lens,
-                        const int* slots, void* out, int B, int C, int H,
-                        int nb, int bs, int maxb, long long qsb,
+                        const int* slots, void* out, float* part,
+                        int* tickets, int B, int C, int H, int nb, int bs,
+                        int maxb, int max_splits, int chunk_keys, int parts,
+                        long long qsb,
                         long long qsc, long long ksb, long long ksc,
                         long long vsb, long long vsc, float scale,
                         float inv_qmax, cudaStream_t stream) {
-  const int groups = (C + bs - 2) / bs + 1;   // logical blocks C can span
-  ragged_write_int8_kernel<T><<<dim3(groups, B), THREADS,
-                                sizeof(float) * 6 * H, stream>>>(
-      static_cast<const T*>(knew), static_cast<const T*>(vnew),
-      static_cast<int8_t*>(kpool), static_cast<int8_t*>(vpool),
-      static_cast<float*>(kscale), static_cast<float*>(vscale), pos0, slots,
-      C, H, D, bs, (long long)nb * bs, ksb, ksc, vsb, vsc, inv_qmax);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return attend<T, int8_t, D>(q, kpool, vpool,
+  if (parts & 1) {
+    const int groups = (C + bs - 2) / bs + 1;   // logical blocks C can span
+    ragged_write_int8_kernel<T><<<dim3(groups, B), THREADS,
+                                  sizeof(float) * 6 * H, stream>>>(
+        static_cast<const T*>(knew), static_cast<const T*>(vnew),
+        static_cast<int8_t*>(kpool), static_cast<int8_t*>(vpool),
+        static_cast<float*>(kscale), static_cast<float*>(vscale), pos0,
+        slots, C, H, D, bs, (long long)nb * bs, ksb, ksc, vsb, vsc,
+        inv_qmax);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess || !(parts & 2)) return err;
+  }
+  return attend<T, int8_t, D>(q, knew, vnew, kpool, vpool,
                               static_cast<const float*>(kscale),
                               static_cast<const float*>(vscale), table, pos0,
-                              lens, out, B, C, H, nb, bs, maxb, qsb, qsc,
-                              scale, stream);
+                              lens, out, part, tickets, B, C, H, nb, bs, maxb,
+                              max_splits, chunk_keys, qsb, qsc, ksb, ksc, vsb,
+                              vsc, scale, stream);
 }
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* knew, const void* vnew,
                    void* kpool, void* vpool, const int* table,
                    const int* pos0, const int* lens, const int* slots,
-                   void* out, int B, int C, int H, int nb, int bs, int maxb,
-                   long long qsb, long long qsc, long long ksb,
+                   void* out, float* part, int* tickets, int B, int C, int H,
+                   int nb, int bs, int maxb, int max_splits, int chunk_keys,
+                   int parts, long long qsb, long long qsc, long long ksb,
                    long long ksc, long long vsb, long long vsc, float scale,
                    cudaStream_t stream) {
-  ragged_write_kernel<T><<<B * C, 128, 0, stream>>>(
-      static_cast<const T*>(knew), static_cast<const T*>(vnew),
-      static_cast<T*>(kpool), static_cast<T*>(vpool), slots, C, H * D,
-      (long long)nb * bs, ksb, ksc, vsb, vsc);
-  return attend<T, T, D>(q, kpool, vpool, nullptr, nullptr, table, pos0,
-                         lens, out, B, C, H, nb, bs, maxb, qsb, qsc, scale,
-                         stream);
+  if (parts & 1) {
+    ragged_write_kernel<T><<<B * C, 128, 0, stream>>>(
+        static_cast<const T*>(knew), static_cast<const T*>(vnew),
+        static_cast<T*>(kpool), static_cast<T*>(vpool), slots, C, H * D,
+        (long long)nb * bs, ksb, ksc, vsb, vsc);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess || !(parts & 2)) return err;
+  }
+  return attend<T, T, D>(q, knew, vnew, kpool, vpool, nullptr, nullptr,
+                         table, pos0, lens, out, part, tickets, B, C, H, nb,
+                         bs, maxb, max_splits, chunk_keys, qsb, qsc, ksb, ksc,
+                         vsb, vsc, scale, stream);
 }
 
 }  // namespace
 
-// Returns the first CUDA error of the two launches (cudaGetLastError());
-// 1 (cudaErrorInvalidValue) for a head size or type the kernel does not
-// take.
+// The fp-pool entry: the write launch, then the attend launch (parts 3;
+// 1 or 2 launch one of them, to time them apart).  max_splits: the grid's
+// blocks per (row, query, head); chunk_keys: keys per split at the least
+// (128).  part: fp32 scratch of B * C * H * max_splits * (D + 2) floats,
+// tickets B * C * H ints, zero before and after every launch (both unread
+// with max_splits 1).  Returns
+// the first CUDA error (cudaGetLastError()); 1 (cudaErrorInvalidValue) for
+// a head size or type the kernel does not take.
 extern "C" int ragged_paged_attention(
     const void* q, const void* knew, const void* vnew, void* kpool,
     void* vpool, const void* table, const void* pos0, const void* lens,
-    const void* slots, void* out, int B, int C, int H, int D, int nb, int bs,
-    int maxb, int is_bf16, long long qsb, long long qsc, long long ksb,
+    const void* slots, void* out, void* part, void* tickets, int B, int C,
+    int H, int D, int nb, int bs, int maxb, int is_bf16, int max_splits,
+    int chunk_keys, int parts, long long qsb, long long qsc, long long ksb,
     long long ksc, long long vsb, long long vsc, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* t = static_cast<const int*>(table);
   const int* p = static_cast<const int*>(pos0);
   const int* n = static_cast<const int*>(lens);
   const int* sl = static_cast<const int*>(slots);
+  float* pt = static_cast<float*>(part);
+  int* tk = static_cast<int*>(tickets);
+  if (max_splits < 1 || chunk_keys < 1 || parts < 1 || parts > 3)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
 #define RPA_LAUNCH(T, DIM)                                                   \
-  err = launch<T, DIM>(q, knew, vnew, kpool, vpool, t, p, n, sl, out, B, C,  \
-                       H, nb, bs, maxb, qsb, qsc, ksb, ksc, vsb, vsc, scale, \
-                       s)
+  err = launch<T, DIM>(q, knew, vnew, kpool, vpool, t, p, n, sl, out, pt,    \
+                       tk, B, C, H, nb, bs, maxb, max_splits, chunk_keys,    \
+                       parts, qsb, qsc, ksb, ksc, vsb, vsc, scale, s)
   if (D == 64 && is_bf16)
     RPA_LAUNCH(__nv_bfloat16, 64);
   else if (D == 64)
@@ -473,14 +550,15 @@ extern "C" int ragged_paged_attention(
   return static_cast<int>(err);
 }
 
-// The int8-pool entry: the write launch, then the attend launch.  Returns
-// the first CUDA error; 1 (cudaErrorInvalidValue) for a head size or type
-// the kernel does not take.
+// The int8-pool entry: the write launch, then the attend launch (parts as
+// above).  Returns the first CUDA error; 1 (cudaErrorInvalidValue) for a
+// head size or type the kernel does not take.
 extern "C" int ragged_paged_attention_int8(
     const void* q, const void* knew, const void* vnew, void* kpool,
     void* vpool, void* kscale, void* vscale, const void* table,
-    const void* pos0, const void* lens, const void* slots, void* out, int B,
-    int C, int H, int D, int nb, int bs, int maxb, int is_bf16,
+    const void* pos0, const void* lens, const void* slots, void* out,
+    void* part, void* tickets, int B, int C, int H, int D, int nb, int bs,
+    int maxb, int is_bf16, int max_splits, int chunk_keys, int parts,
     long long qsb, long long qsc, long long ksb, long long ksc,
     long long vsb, long long vsc, float scale, float inv_qmax,
     void* stream) {
@@ -489,11 +567,16 @@ extern "C" int ragged_paged_attention_int8(
   const int* p = static_cast<const int*>(pos0);
   const int* n = static_cast<const int*>(lens);
   const int* sl = static_cast<const int*>(slots);
+  float* pt = static_cast<float*>(part);
+  int* tk = static_cast<int*>(tickets);
+  if (max_splits < 1 || chunk_keys < 1 || parts < 1 || parts > 3)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
 #define RPA8_LAUNCH(T, DIM)                                                  \
   err = launch_int8<T, DIM>(q, knew, vnew, kpool, vpool, kscale, vscale, t,  \
-                            p, n, sl, out, B, C, H, nb, bs, maxb, qsb, qsc,  \
-                            ksb, ksc, vsb, vsc, scale, inv_qmax, s)
+                            p, n, sl, out, pt, tk, B, C, H, nb, bs, maxb,    \
+                            max_splits, chunk_keys, parts, qsb, qsc, ksb,    \
+                            ksc, vsb, vsc, scale, inv_qmax, s)
   if (D == 64 && is_bf16)
     RPA8_LAUNCH(__nv_bfloat16, 64);
   else if (D == 64)

@@ -12,7 +12,10 @@ and an unchanged one is loaded from the build directory (listed in
 tests import every module on a machine with no ``nvcc``.
 
 `tickets` holds the int32 counters through which the last block of a
-cross-block sum (``fused_ffn.cu``, ``flash_decode.cu``) finds itself.
+cross-block sum (``fused_ffn.cu``, ``flash_decode.cu``,
+``fused_decode_layer.cu``, ``ragged_paged_attention.cu``) finds itself;
+`scratch` the kept per-device buffers of the kernels' partial sums; `sms`
+the SM count the wrappers' planners fill.
 """
 from __future__ import annotations
 
@@ -23,7 +26,8 @@ import shutil
 import subprocess
 import threading
 
-__all__ = ["SRC_DIR", "BUILD_DIR", "build", "load", "check", "tickets"]
+__all__ = ["SRC_DIR", "BUILD_DIR", "build", "load", "check", "tickets",
+           "scratch", "sms"]
 
 SRC_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
@@ -34,6 +38,8 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _LIBS: dict = {}
 _LOCK = threading.Lock()
 _TICKETS: dict = {}
+_SCRATCH: dict = {}
+_SMS: dict = {}
 
 
 def _nvcc() -> str:
@@ -116,3 +122,27 @@ def tickets(device, n: int):
         t = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
         _TICKETS[device] = t
     return t
+
+
+def scratch(owner: str, device, nbytes: int) -> int:
+    """The address of ``owner``'s per-device byte buffer of at least
+    ``nbytes``, grown as needed and kept, so that a call allocates
+    nothing.  As with the tickets, the launches that use one buffer follow
+    one another on the stream."""
+    import torch
+    buf = _SCRATCH.get((owner, device))
+    if buf is None or buf.numel() < nbytes:
+        buf = torch.empty(max(nbytes, 256), dtype=torch.uint8, device=device)
+        _SCRATCH[(owner, device)] = buf
+    return buf.data_ptr()
+
+
+def sms(device) -> int:
+    """The streaming multiprocessors of ``device``, which the planners
+    fill."""
+    n = _SMS.get(device)
+    if n is None:
+        import torch
+        n = _SMS[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return n

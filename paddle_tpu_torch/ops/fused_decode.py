@@ -7,6 +7,10 @@ plus the current one -> out-proj -> residual.  On a CUDA tensor
 `fused_decode_layer_arrays` launches the cooperative kernel of
 ``csrc/fused_decode_layer.cu`` (the port of `_fused_decode_layer_kernel`,
 `:1186`); on a CPU tensor it computes `fused_decode_layer_reference`.
+`fused_plan` lays the launch out from host-known shapes (CPU-testable):
+the loads a thread of the two weight products (`fused_loads`), the
+split-K attention's splits (`fused_split`), the grid, and the fp32
+partials in the kernel's one kept per-device scratch buffer.
 
 The JAX gate's VMEM budget (resident weights above 8 MiB go unfused) and
 its tile and backend conditions state TPU limits and are not ported:
@@ -16,15 +20,18 @@ choose the arithmetic.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import os
+from typing import NamedTuple
 
 import torch
 
 from . import _build
 
 __all__ = ["fused_decode_layer_arrays", "fused_decode_layer_reference",
-           "fused_decode_plain", "fused_decode_ok"]
+           "fused_decode_plain", "fused_decode_ok", "fused_plan",
+           "fused_loads", "fused_split"]
 
 KERNEL = "fused_decode_layer"
 SOURCE = KERNEL       # csrc/<SOURCE>.cu
@@ -32,6 +39,12 @@ launches = 0          # kernel launches since the last reset
 
 # shared memory a block may hold on sm_90 (232,448 bytes)
 _SMEM_LIMIT = 232448
+# the kernel's static shared memory at most (bf16): the weight products'
+# cross-warp sums
+_SMEM_FIXED = 16400
+RUN = 32              # keys a warp task of the attention phase walks at once
+_ROWS = 32            # weight rows a unit loads at once (256 threads / 8)
+_WARPS = 8            # warps a block
 
 
 def fused_decode_ok(x, wqkv, k_cache, v_cache) -> bool:
@@ -41,6 +54,82 @@ def fused_decode_ok(x, wqkv, k_cache, v_cache) -> bool:
         return False
     return (x.dtype == wqkv.dtype == k_cache.dtype == v_cache.dtype
             and x.dtype in (torch.float32, torch.bfloat16))
+
+
+def fused_loads(k, cols, dtype, blocks):
+    """16-byte loads a thread per unit of one weight product, [B, k] by
+    [k, cols]: a unit is 128 bytes of columns by 32 * loads rows.  The
+    fewest loads whose units fit in one wave of ``blocks`` (each unit one
+    round trip to memory, on as many SMs as possible), else the most the
+    kernel holds (4 bf16, 8 fp32); loads must cut ``k`` into whole chunks
+    of 32 rows."""
+    item = 2 if dtype == torch.bfloat16 else 4
+    cw = 128 // item
+    fits = [l for l in (1, 2, 4, 8)
+            if l <= 2 * item and k % (_ROWS * l) == 0]
+    if not fits or cols % cw:
+        raise ValueError(f"widths {k} x {cols} are not multiples of "
+                         f"{_ROWS} rows and {cw} columns")
+    for l in fits:
+        if cols // cw * (k // (_ROWS * l)) <= blocks:
+            return l
+    return fits[-1]
+
+
+def fused_split(t, bh, warps):
+    """(keys a split, splits) of the attention phase for ``bh`` (row,
+    head) pairs at prefix length ``t`` on ``warps`` co-resident warps: a
+    split is one warp's task, whole runs of `RUN` keys, and as many
+    splits as let every task run in one round of the warps."""
+    splits = max(1, min(-(-t // RUN), warps // bh))
+    chunk = -(-(-(-t // splits)) // RUN) * RUN
+    return chunk, -(-t // chunk)
+
+
+class FusedPlan(NamedTuple):
+    """A launch of the fused layer: loads a thread of the qkv (l1) and
+    out-proj (l3) products, keys per split and splits of the attention,
+    the grid, byte offsets of the scratch's parts (part1, attn, part2,
+    part3, each from a 256-byte boundary), its bytes, and the tickets."""
+    l1: int
+    l3: int
+    chunk: int
+    splits: int
+    grid: int
+    offsets: tuple
+    nbytes: int
+    tickets: int
+
+
+@functools.lru_cache(maxsize=None)
+def fused_plan(b, h, d, t, dtype, blocks):
+    """The launch of one fused layer of ``b`` rows, ``h`` heads of ``d``
+    at prefix length ``t`` in ``dtype``, on a card that holds ``blocks``
+    co-resident blocks of the kernel (eight warps each): the grid is
+    every block that has work in some phase, the attention one split a
+    warp (`fused_split`)."""
+    hd = h * d
+    l1 = fused_loads(hd, 3 * hd, dtype, blocks)
+    l3 = fused_loads(hd, hd, dtype, blocks)
+    chunk, splits = fused_split(t, b * h, _WARPS * blocks)
+    cw = 128 // (2 if dtype == torch.bfloat16 else 4)
+    units1 = 3 * hd // cw * (hd // (_ROWS * l1))
+    units3 = hd // cw * (hd // (_ROWS * l3))
+    grid = min(blocks, max(units1, -(-b * h * splits // _WARPS), units3))
+
+    def pad(nbytes):
+        return -(-nbytes // 256) * 256
+
+    sizes = (hd // (_ROWS * l1) * b * 3 * hd * 4,       # part1
+             b * hd * 4,                                 # attn
+             b * h * splits * (d + 2) * 4,               # part2
+             hd // (_ROWS * l3) * b * hd * 4)            # part3
+    offsets, at = [], 0
+    for n in sizes:
+        offsets.append(at)
+        at += pad(n)
+    return FusedPlan(l1, l3, chunk, splits, grid, tuple(offsets), at,
+                     b * h + hd // cw)
 
 
 def _mask2d(cache_mask, b, s_max):
@@ -145,9 +234,14 @@ def _check(x, ln_w, ln_b, wqkv, bqkv, wo, bo, k_cache, v_cache, t, n_heads,
     if mask is not None and (tuple(mask.shape) != (b, s_max)
                              or not mask.is_contiguous()):
         raise ValueError(f"cache_mask must be [B, S_max] = {(b, s_max)}")
-    # the kernel stages all B rows in fp32, 8 rows at a time, beside ~16 KB
-    # of fixed buffers
-    if -(-b // 8) * 8 * hd * 4 + 16384 > _SMEM_LIMIT:
+    for name, a in (("wqkv", wqkv), ("wo", wo), ("k_cache", k_cache),
+                    ("v_cache", v_cache)):
+        if a.data_ptr() % 16:
+            raise ValueError(f"{name} must start on 16 bytes for the "
+                             f"kernel's 16-byte loads")
+    # the kernel stages all B rows in fp32, 8 rows at a time, beside its
+    # fixed buffers
+    if -(-b // 8) * 8 * hd * 4 + _SMEM_FIXED > _SMEM_LIMIT:
         raise ValueError(f"B * hidden = {b * hd} activations exceed the "
                          f"kernel's shared memory")
 
@@ -157,10 +251,22 @@ def _lib():
     fn = lib.fused_decode_layer
     if fn.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([vp] * 12 + [i] * 6
+        fn.argtypes = ([vp] * 16 + [i] * 10
                        + [ctypes.c_float, ctypes.c_float, vp])
         fn.restype = ctypes.c_int
+        lib.fused_decode_layer_blocks.argtypes = [i] * 4
+        lib.fused_decode_layer_blocks.restype = i
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _blocks(device, rows8, h, d, bf16):
+    """Co-resident blocks of the kernel for ``rows8`` row chunks of 8 (its
+    shared memory) on ``device`` (the current one when first asked)."""
+    n = _lib().fused_decode_layer_blocks(8 * rows8, h, d, bf16)
+    if n < 1:
+        raise RuntimeError(f"{KERNEL}: no co-resident block ({n})")
+    return n
 
 
 def fused_decode_layer_arrays(x, ln_w, ln_b, wqkv, bqkv, wo, bo, k_cache,
@@ -185,23 +291,36 @@ def fused_decode_layer_arrays(x, ln_w, ln_b, wqkv, bqkv, wo, bo, k_cache,
         return fused_decode_layer_reference(
             x, ln_w, ln_b, wqkv, bqkv, wo, bo, k_cache, v_cache, t, n_heads,
             eps, scale, cache_mask)
+    y = _launch(x, ln_w, ln_b, wqkv, bqkv, wo, bo, k_cache, v_cache, t,
+                n_heads, eps, scale, cache_mask)
+    launches += 1
+    return y, k_cache, v_cache
+
+
+def _launch(x, ln_w, ln_b, wqkv, bqkv, wo, bo, k_cache, v_cache, t, n_heads,
+            eps, scale, cache_mask):
+    """Checks, plans and launches the kernel; returns y."""
+    b, hd = x.shape
+    d = hd // n_heads
     mask = _mask2d(cache_mask, b, k_cache.shape[1])
     if mask is not None:
         mask = mask.contiguous()
     _check(x, ln_w, ln_b, wqkv, bqkv, wo, bo, k_cache, v_cache, t, n_heads,
            mask)
+    bf16 = int(x.dtype == torch.bfloat16)
+    dev = x.device
+    plan = fused_plan(b, n_heads, d, t, x.dtype,
+                      _blocks(dev, -(-b // 8), n_heads, d, bf16))
     y = torch.empty_like(x)
-    # fp32 scratch: the qkv projection, then the attention output.  Freed
-    # on return: the caching allocator gives its memory only to work queued
-    # later on this stream, which runs after the kernel.
-    scratch = torch.empty((b, 4 * hd), dtype=torch.float32, device=x.device)
+    base = _build.scratch(KERNEL, dev, plan.nbytes)
     err = _lib().fused_decode_layer(
         x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), wqkv.data_ptr(),
         bqkv.data_ptr(), wo.data_ptr(), bo.data_ptr(), k_cache.data_ptr(),
         v_cache.data_ptr(), 0 if mask is None else mask.data_ptr(),
-        scratch.data_ptr(), y.data_ptr(), b, n_heads, d,
-        k_cache.shape[1], t, int(x.dtype == torch.bfloat16), float(eps),
-        float(scale), torch.cuda.current_stream(x.device).cuda_stream)
+        *(base + off for off in plan.offsets),
+        _build.tickets(dev, plan.tickets).data_ptr(), y.data_ptr(), b,
+        n_heads, d, k_cache.shape[1], t, bf16, plan.l1, plan.l3, plan.chunk,
+        plan.grid, float(eps), float(scale),
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, KERNEL)
-    launches += 1
-    return y, k_cache, v_cache
+    return y

@@ -375,17 +375,6 @@ _TC_TILES = ((2, 256), (2, 128), (1, 256), (1, 128))   # (warpgroups, BN)
 # fp32's: BN at most 128, the output and each k-tile's sum both in
 # registers (csrc/fused_ffn_tc32.cu)
 _TC32_TILES = ((2, 128), (2, 64), (1, 128), (1, 64))
-_SM_COUNT: dict = {}
-
-
-def _sms(device):
-    """The streaming multiprocessors of ``device``, which the pickers
-    fill."""
-    sms = _SM_COUNT.get(device)
-    if sms is None:
-        sms = _SM_COUNT[device] = torch.cuda.get_device_properties(
-            device).multi_processor_count
-    return sms
 
 
 def ffn_design(n, h, i, dtype, h2=None):
@@ -500,7 +489,8 @@ def _cuda_core_launch(x2, w1, b1, w2, act):
 def _tc32_launch(x2, w1, b1, w2, act):
     n, h = x2.shape
     i, h2 = w1.shape[1], w2.shape[1]
-    (g1, n1), (g2, n2) = ffn_tc_tiles(n, i, h2, _sms(x2.device), _TC32_TILES)
+    (g1, n1), (g2, n2) = ffn_tc_tiles(n, i, h2, _build.sms(x2.device),
+                                      _TC32_TILES)
     # the kept scratch: h [n, i], then W1^T and W2^T split ([2, i, h],
     # [2, h2, i]), each from a 256-byte boundary
     off1 = -(-n * i * 4 // 256) * 256
@@ -520,7 +510,7 @@ def _tc32_launch(x2, w1, b1, w2, act):
 def _tc_launch(x2, w1, b1, w2, act):
     n, h = x2.shape
     i, h2 = w1.shape[1], w2.shape[1]
-    (g1, n1), (g2, n2) = ffn_tc_tiles(n, i, h2, _sms(x2.device))
+    (g1, n1), (g2, n2) = ffn_tc_tiles(n, i, h2, _build.sms(x2.device))
     hbuf = torch.empty((n, i), dtype=x2.dtype, device=x2.device)
     y = torch.empty((n, h2), dtype=x2.dtype, device=x2.device)
     vp, ci = ctypes.c_void_p, ctypes.c_int
@@ -552,20 +542,11 @@ def _decode_plan(n, h, i, h2, dtype, sms):
     return l1, l2, off1, off2, size, -(-n // 8) * (i + h2) * item // 128
 
 
-_SCRATCH: dict = {}
-
-
 def _scratch(device, nbytes):
-    """The address of a per-device byte buffer of at least ``nbytes``,
-    grown as needed and kept (the decode design's h and partials: at
-    GPT-2 width 0.6 MB at 8 bf16 rows; the fp32 tensor-core design's h
-    and split weights: 138 MB at 8192 rows).  As with the tickets, the
-    launches that use it follow one another on the stream."""
-    buf = _SCRATCH.get(device)
-    if buf is None or buf.numel() < nbytes:
-        buf = _SCRATCH[device] = torch.empty(nbytes, dtype=torch.uint8,
-                                             device=device)
-    return buf.data_ptr()
+    """The address of the FFN's kept per-device scratch (the decode
+    design's h and partials: at GPT-2 width 0.6 MB at 8 bf16 rows; the
+    fp32 tensor-core design's h and split weights: 138 MB at 8192 rows)."""
+    return _build.scratch("fused_ffn", device, nbytes)
 
 
 def _decode_launch(x2, w1, b1, w2, act):
@@ -573,7 +554,7 @@ def _decode_launch(x2, w1, b1, w2, act):
     i, h2 = w1.shape[1], w2.shape[1]
     dt, dev = x2.dtype, x2.device
     l1, l2, off1, off2, size, n_tickets = _decode_plan(n, h, i, h2, dt,
-                                                       _sms(dev))
+                                                       _build.sms(dev))
     base = _scratch(dev, size)
     y = torch.empty((n, h2), dtype=dt, device=dev)
     vp, ci = ctypes.c_void_p, ctypes.c_int

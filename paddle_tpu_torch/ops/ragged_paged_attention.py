@@ -6,6 +6,12 @@ On a CUDA tensor `ragged_paged_attention_arrays` launches a kernel of
 ``csrc/ragged_paged_attention.cu`` (any chunk width C >= 1: decode rows and
 chunked-prefill continuations): ``ragged_paged_attention`` for fp pools,
 ``ragged_paged_attention_int8`` (counted apart, as `int8`) for int8 pools.
+Its attend launch is split-K: `ragged_splits` takes the grid's splits
+per (row, query, head) from host-known shapes alone (B, C, H and the
+table's width), and each block finds its row's own split count from
+pos0 and kv_lens on the card, so a call reads no device value on the
+host and adds no sync.  The partials live in a kept per-device scratch
+buffer; the tickets are `_build.tickets`.
 On a CPU tensor it computes `ragged_paged_attention_reference`, the JAX
 fallback composition (`:521-534`), which is the oracle this port is held
 against: the paged write then `paged_attention_arrays` for fp pools; the
@@ -26,11 +32,14 @@ from .paged_attention import (INV_QMAX, _NEG_INF, paged_attention_arrays,
 
 __all__ = ["ragged_paged_attention_arrays",
            "ragged_paged_attention_reference", "folded_quant_attention",
-           "int8"]
+           "ragged_paged_attention_part", "ragged_splits", "int8"]
 
 KERNEL = "ragged_paged_attention"
 SOURCE = KERNEL       # csrc/<SOURCE>.cu
 launches = 0          # fp-pool kernel launches since the last reset
+
+CHUNK = 128           # keys per split: 8 pool blocks of 16
+_WAVE = 8             # attend blocks an SM that the splits aim to fill
 
 
 class _Int8Kernel:
@@ -94,6 +103,23 @@ def ragged_paged_attention_reference(q, k_new, v_new, k_blocks, v_blocks,
     return out, k_blocks, v_blocks, k_scales, v_scales
 
 
+def ragged_splits(b, c, h, width, sms):
+    """Blocks per (row, query, head) of the attend launch: enough that the
+    B * C * H groups fill ``_WAVE`` blocks an SM of ``sms``, at most the
+    CHUNKs of the table's ``width`` (blocks per row times block size).  A
+    row longer than that many CHUNKs takes wider chunks on the card; a
+    chunked-prefill call (C = 188, 512) already fills the card and gets
+    1, so it needs no partials."""
+    groups = b * c * h
+    return max(1, min(-(-width // CHUNK), -(-_WAVE * sms // groups)))
+
+
+def _scratch_bytes(b, c, h, d, splits):
+    """Bytes of the attend's partials: (m, l) and acc[D] in fp32 for each
+    split of each (row, query, head); none with one split."""
+    return 0 if splits == 1 else b * c * h * splits * (d + 2) * 4
+
+
 def _check(q, k_new, v_new, k_blocks, v_blocks, block_table, pos0, kv_lens,
            slots, k_scales, v_scales):
     b, c, h, d = q.shape
@@ -118,6 +144,16 @@ def _check(q, k_new, v_new, k_blocks, v_blocks, block_table, pos0, kv_lens,
                              f"{t.dtype} on {t.device}")
     if k_blocks.data_ptr() % 16 or v_blocks.data_ptr() % 16:
         raise ValueError("pools must be 16-byte aligned (vector loads)")
+    if k_scales is None:
+        # the fp attend reads the call's own rows from k_new / v_new with
+        # 16-byte loads
+        for name, t in (("k_new", k_new), ("v_new", v_new)):
+            steps = [t.stride(i) for i in (0, 1) if t.shape[i] > 1]
+            if t.data_ptr() % 16 or any(x * t.element_size() % 16
+                                        for x in steps):
+                raise ValueError(f"{name} must start on 16 bytes with row "
+                                 f"and position strides of a multiple of "
+                                 f"16 bytes, got strides {t.stride()}")
     if k_scales is not None:
         for name, t in (("k_scales", k_scales), ("v_scales", v_scales)):
             if (tuple(t.shape) != (nb, h) or t.dtype != torch.float32
@@ -141,15 +177,62 @@ def _check(q, k_new, v_new, k_blocks, v_blocks, block_table, pos0, kv_lens,
 
 
 def _fn(name, n_ptr, n_float):
-    """The C entry ``name``: n_ptr pointers, 8 ints, 6 strides, n_float
+    """The C entry ``name``: n_ptr pointers, 11 ints, 6 strides, n_float
     floats and the stream."""
     fn = getattr(_build.load(SOURCE), name)
     if fn.argtypes is None:
         vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = ([vp] * n_ptr + [i] * 8 + [ll] * 6
+        fn.argtypes = ([vp] * n_ptr + [i] * 11 + [ll] * 6
                        + [ctypes.c_float] * n_float + [vp])
         fn.restype = ctypes.c_int
     return fn
+
+
+def _launch(parts, q, k_new, v_new, k_blocks, v_blocks, block_table, pos0,
+            kv_lens, slots, k_scales, v_scales, scale):
+    """Checks, then the write launch (parts 1), the attend launch (2) or
+    both (3) of the entry for the pools' type; returns out."""
+    _check(q, k_new, v_new, k_blocks, v_blocks, block_table, pos0, kv_lens,
+           slots, k_scales, v_scales)
+    b, c, h, d = q.shape
+    nb, bs = k_blocks.shape[0], k_blocks.shape[1]
+    maxb = block_table.shape[1]
+    dev = q.device
+    splits = ragged_splits(b, c, h, maxb * bs, _build.sms(dev))
+    out = torch.empty((b, c, h, d), dtype=q.dtype, device=dev)
+    quant = k_scales is not None
+    ptrs = [q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+            k_blocks.data_ptr(), v_blocks.data_ptr()]
+    if quant:
+        ptrs += [k_scales.data_ptr(), v_scales.data_ptr()]
+    nbytes = _scratch_bytes(b, c, h, d, splits)
+    ptrs += [block_table.data_ptr(), pos0.data_ptr(), kv_lens.data_ptr(),
+             slots.data_ptr(), out.data_ptr(),
+             _build.scratch(KERNEL, dev, nbytes) if nbytes else 0,
+             _build.tickets(dev, b * c * h).data_ptr() if nbytes else 0]
+    ints = [b, c, h, d, nb, bs, maxb, int(q.dtype == torch.bfloat16),
+            splits, CHUNK, parts]
+    strides = [q.stride(0), q.stride(1), k_new.stride(0), k_new.stride(1),
+               v_new.stride(0), v_new.stride(1)]
+    floats = [float(scale)] + ([INV_QMAX] if quant else [])
+    name = "ragged_paged_attention_int8" if quant else KERNEL
+    err = _fn(name, len(ptrs), len(floats))(
+        *ptrs, *ints, *strides, *floats,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, name)
+    return out
+
+
+def ragged_paged_attention_part(part, q, k_new, v_new, k_blocks, v_blocks,
+                                block_table, pos0, kv_lens, slots,
+                                k_scales=None, v_scales=None):
+    """One launch of `ragged_paged_attention_arrays` alone on CUDA tensors,
+    ``part`` "write" (the pools and scales updated in place) or "attend"
+    (returns out), to time the two apart.  Not counted as a launch of the
+    kernel."""
+    return _launch({"write": 1, "attend": 2}[part], q, k_new, v_new,
+                   k_blocks, v_blocks, block_table, pos0, kv_lens, slots,
+                   k_scales, v_scales, 1.0 / math.sqrt(q.shape[-1]))
 
 
 def ragged_paged_attention_arrays(q, k_new, v_new, k_blocks, v_blocks,
@@ -184,27 +267,8 @@ def ragged_paged_attention_arrays(q, k_new, v_new, k_blocks, v_blocks,
         return ragged_paged_attention_reference(
             q, k_new, v_new, k_blocks, v_blocks, block_table, pos0, kv_lens,
             slots, k_scales, v_scales, scale=scale)
-    _check(q, k_new, v_new, k_blocks, v_blocks, block_table, pos0, kv_lens,
-           slots, k_scales, v_scales)
-    b, c, h, _ = q.shape
-    nb, bs = k_blocks.shape[0], k_blocks.shape[1]
-    out = torch.empty((b, c, h, d), dtype=q.dtype, device=q.device)
-    ptrs = [q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-            k_blocks.data_ptr(), v_blocks.data_ptr()]
-    if quant:
-        ptrs += [k_scales.data_ptr(), v_scales.data_ptr()]
-    ptrs += [block_table.data_ptr(), pos0.data_ptr(), kv_lens.data_ptr(),
-             slots.data_ptr(), out.data_ptr()]
-    ints = [b, c, h, d, nb, bs, block_table.shape[1],
-            int(q.dtype == torch.bfloat16)]
-    strides = [q.stride(0), q.stride(1), k_new.stride(0), k_new.stride(1),
-               v_new.stride(0), v_new.stride(1)]
-    floats = [float(scale)] + ([INV_QMAX] if quant else [])
-    name = "ragged_paged_attention_int8" if quant else KERNEL
-    err = _fn(name, len(ptrs), len(floats))(
-        *ptrs, *ints, *strides, *floats,
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, name)
+    out = _launch(3, q, k_new, v_new, k_blocks, v_blocks, block_table,
+                  pos0, kv_lens, slots, k_scales, v_scales, scale)
     if quant:
         int8.launches += 1
         return out, k_blocks, v_blocks, k_scales, v_scales

@@ -22,6 +22,10 @@ Tolerances against the plain version on the same inputs
   magnitudes (P^T|dO|, scale W^T|Q|, scale W|K|, with W = P (|dO|.|V|^T
   + |dO|.|out|) bounding ds = P (dP - delta) and its fp32 noise).
 - pool writes: bitwise; for int8 pools the codes and the scales too.
+- the split-K ragged attend, fp and int8 pools: the mixes and rows at its
+  edges (1, 127, 128, 129 keys, the table's full width of 1024 keys, a
+  padding row, D = 128, a C > 1 chunk beside a decode row); a second fp
+  launch gives the same bits and leaves the tickets at zero.
 - the int8 ragged kernel's output: the forward limit above (both sides
   compute in fp32; bf16 rounds the output once).
 - the masked / kv_lens flash forward: the flash forward limit above, on
@@ -52,7 +56,9 @@ Tolerances against the plain version on the same inputs
   decode (2^-7 P|V|); xn, p and the attention output through the weights
   for the fused layer, and xn's effect on the written rows; for LayerNorm
   the fp32 noise of its terms where they cancel; h for the FFN (2^-7 |h| |W2|).  The fused layer leaves
-  every ring row but row t bitwise unchanged.
+  every ring row but row t bitwise unchanged, at t on both sides of its
+  128-key split edges and at 1023, and a second launch gives the same
+  bits.
 """
 import numpy as np
 import pytest
@@ -175,23 +181,77 @@ def test_flash_autograd_launches_both_bwd_kernels():
     assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
 
 
+# rows at the split-K attend's edges, block size 16: (rows, C, table
+# blocks, H, D); a row: (kv_len after the write, valid queries) or None
+# (padding).  One 128-key chunk and one more key, the table's full width
+# (1024 keys: eight splits), a decode row beside a C > 1 chunk, and
+# gpt3_1p3b's head width
+SPLIT_EDGES = {
+    "edges": ([(1, 1), (127, 1), (128, 1), (129, 1), (1024, 1), None], 1,
+              64, 12, 64),
+    "edges_d128": ([(129, 1), (1024, 1), (300, 1), None], 1, 64, 4, 128),
+    "chunk_beside_decode": ([(300, 60), (129, 1), None], 60, 24, 2, 64),
+}
+
+
+def _edge_case(name, nb=160, bs=16, seed=5):
+    """(q, k_new, v_new, tables, pos0, lens, slots, valid, qlens,
+    geometry) in `mix`'s layout for a `SPLIT_EDGES` case."""
+    rows, c, maxb, h, d = SPLIT_EDGES[name]
+    rng = np.random.RandomState(seed)
+    b = len(rows)
+    tables = np.full((b, maxb), nb, np.int32)
+    pos0, lens = np.zeros(b, np.int32), np.zeros(b, np.int32)
+    slots = np.full((b, c), nb * bs, np.int32)
+    free = list(rng.permutation(nb))
+    qlens = []
+    for r, row in enumerate(rows):
+        if row is None:
+            qlens.append(0)
+            continue
+        kv, nq = row
+        nblk = -(-kv // bs)
+        tables[r, :nblk] = [free.pop() for _ in range(nblk)]
+        pos0[r], lens[r] = kv - nq, kv
+        for j in range(nq):
+            p = pos0[r] + j
+            slots[r, j] = tables[r, p // bs] * bs + p % bs
+        qlens.append(nq)
+    q, kn, vn = (rng.randn(b, c, h, d).astype(np.float32) for _ in range(3))
+    valid = [r for r, n in enumerate(qlens) if n]
+    return q, kn, vn, tables, pos0, lens, slots, valid, qlens, (nb, bs, h, d)
+
+
 @pytest.mark.cuda
 @pytest.mark.usefixtures("needs_cuda")
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("mix_name", MIXES)
+@pytest.mark.parametrize("mix_name", MIXES + sorted(SPLIT_EDGES))
 def test_ragged_kernel_matches_plain(mix_name, dtype):
-    q, kn, vn, tables, pos0, lens, slots, valid, qlens, geo = mix(mix_name)
-    nb, bs, H, _ = geo
-    d = 64
-    rng = np.random.RandomState(2)
-    b, c, _, _ = q.shape
-    q, kn, vn = _t(rng.randn(b, c, 3, H, d).astype(np.float32)).unbind(2)
+    """The mixes of tests/test_ragged_attention.py (D = 64) and the
+    split-K edges; a second launch gives the same bits (the splits merge
+    in split order) and leaves the tickets at zero."""
+    if mix_name in SPLIT_EDGES:
+        q, kn, vn, tables, pos0, lens, slots, valid, qlens, geo = \
+            _edge_case(mix_name)
+        nb, bs, H, d = geo
+        rng = np.random.RandomState(2)
+        b, c = q.shape[:2]
+    else:
+        q, kn, vn, tables, pos0, lens, slots, valid, qlens, geo = \
+            mix(mix_name)
+        nb, bs, H, _ = geo
+        d = 64
+        rng = np.random.RandomState(2)
+        b, c, _, _ = q.shape
+        q, kn, vn = _t(rng.randn(b, c, 3, H, d).astype(np.float32)).unbind(2)
     kb = _t(rng.randn(nb, bs, H, d).astype(np.float32))
     vb = _t(rng.randn(nb, bs, H, d).astype(np.float32))
-    dev = [x.to("cuda", dtype) for x in (q, kn, vn, kb, vb)]
+    dev = [(_t(x) if isinstance(x, np.ndarray) else x).to("cuda", dtype)
+           for x in (q, kn, vn, kb, vb)]
     idx = [_t(a).cuda() for a in (tables, pos0, lens, slots)]
     ref = [x.clone() for x in dev[3:]]
     out, k2, v2 = rpa.ragged_paged_attention_arrays(*dev, *idx)
+    again, _, _ = rpa.ragged_paged_attention_arrays(*dev, *idx)
     want, k2r, v2r = rpa.ragged_paged_attention_reference(
         *dev[:3], *ref, *idx)
     # P|V|: the plain version on the widened inputs with |V| pools
@@ -200,10 +260,38 @@ def test_ragged_kernel_matches_plain(mix_name, dtype):
         ref[0].float(), ref[1].float().abs(), *idx)
     torch.cuda.synchronize()
     assert torch.equal(k2, k2r) and torch.equal(v2, v2r)
+    assert int(_build.tickets(dev[0].device, b * c * H).abs().sum()) == 0
     for b in valid:
         n = qlens[b]
+        assert torch.equal(out[b, :n], again[b, :n])
         err, ok = _fwd_ok(out[b, :n], want[b, :n], mag[b, :n])
         assert ok, (mix_name, b, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.usefixtures("needs_cuda")
+@pytest.mark.parametrize("bad", ["start", "stride"])
+def test_ragged_misaligned_new_rows_raise(bad):
+    """The fp attend reads the call's own rows from k_new / v_new with
+    16-byte loads: a k_new that starts off 16 bytes, or whose row stride
+    is not a multiple of 16 bytes, raises ValueError naming it."""
+    q, kn, vn, tables, pos0, lens, slots, _, _, geo = _edge_case("edges")
+    nb, bs, h, d = geo
+    dev = [_t(x).to("cuda", torch.bfloat16) for x in (q, kn, vn)]
+    pools = [torch.zeros(nb, bs, h, d, dtype=torch.bfloat16, device="cuda")
+             for _ in range(2)]
+    idx = [_t(a).cuda() for a in (tables, pos0, lens, slots)]
+    b, c = dev[1].shape[:2]
+    if bad == "start":
+        buf = torch.zeros(b * c * h * d + 8, dtype=torch.bfloat16,
+                          device="cuda")
+        odd = buf[1:1 + b * c * h * d].view(b, c, h, d)
+    else:                  # row stride h*d + 2
+        odd = torch.zeros(b, c * h * d + 2, dtype=torch.bfloat16,
+                          device="cuda")[:, :c * h * d].view(b, c, h, d)
+    odd.copy_(dev[1])
+    with pytest.raises(ValueError, match="^k_new must start on 16 bytes"):
+        rpa.ragged_paged_attention_arrays(dev[0], odd, dev[2], *pools, *idx)
 
 
 def _int8_pools(nb, bs, h, d, seed):
@@ -240,11 +328,15 @@ def _chunk_case(c, pos0, bs, nb, h, d, seed):
 @pytest.mark.cuda
 @pytest.mark.usefixtures("needs_cuda")
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", MIXES + ["chunk"])
+@pytest.mark.parametrize("case", MIXES + ["chunk"] + sorted(SPLIT_EDGES))
 def test_ragged_int8_kernel_matches_plain(case, dtype):
     if case == "chunk":
         q, kn, vn, tables, pos0, lens, slots, valid, qlens, geo = \
             _chunk_case(40, 13, 16, 24, 2, 64, 7)
+    elif case in SPLIT_EDGES:
+        q, kn, vn, tables, pos0, lens, slots, valid, qlens, geo = \
+            _edge_case(case)
+        q, kn, vn = (_t(3 * x) for x in (q, kn, vn))
     else:
         q, kn, vn, tables, pos0, lens, slots, valid, qlens, geo = mix(case)
         rng = np.random.RandomState(2)
@@ -266,7 +358,7 @@ def test_ragged_int8_kernel_matches_plain(case, dtype):
     # P|V|: the plain attention of the widened q over |V| codes
     mag = rpa.folded_quant_attention(
         dev[0].float(), ref[0], ref[1].abs(), ref[2], ref[3], idx[0],
-        idx[1], 64 ** -0.5)
+        idx[1], geo[3] ** -0.5)
     torch.cuda.synchronize()
     assert rpa.int8.launches == 1 and out.dtype == dtype
     for g, w in zip(got, wref):
@@ -544,9 +636,22 @@ def test_flash_decode_kernel_matches_plain(b, s_max, h, d, length, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,h,d,s_max,t,masked",
                          [(2, 2, 64, 256, 37, True),
-                          (3, 2, 128, 384, 300, False)])
+                          (3, 2, 128, 384, 300, False),
+                          # the split-K attention's edges at GPT-2 width:
+                          # one 128-key split, two, and the full ring
+                          (8, 12, 64, 1024, 1, False),
+                          (8, 12, 64, 1024, 127, True),
+                          (8, 12, 64, 1024, 128, False),
+                          (8, 12, 64, 1024, 129, True),
+                          (8, 12, 64, 1024, 1023, True),
+                          # two row chunks of 8; gpt3_1p3b's heads
+                          (9, 2, 64, 512, 200, True),
+                          (4, 16, 128, 512, 257, False)])
 def test_fused_decode_layer_kernel_matches_plain(b, h, d, s_max, t, masked,
                                                  dtype):
+    """Within the limits of the module docstring; every ring row but row t
+    unchanged; a second launch gives the same bits (fixed-order sums, the
+    splits merged in split order) and leaves the tickets at zero."""
     hd = h * d
     x = _randn((b, hd), t, dtype)
     ln_w = 1 + _randn((hd,), t + 1, dtype, 0.1)
@@ -584,6 +689,11 @@ def test_fused_decode_layer_kernel_matches_plain(b, h, d, s_max, t, masked,
                            ("v", vc[:, t], vr[:, t])):
         err, ratio, ok = tol.compare(got, ref, limits[name])
         assert ok, (name, err, ratio)
+    again, _, _ = fdl.fused_decode_layer_arrays(*args, kc, vc, t, h,
+                                                cache_mask=mask)
+    torch.cuda.synchronize()
+    assert torch.equal(y, again)
+    assert int(_build.tickets(x.device, 1).abs().sum()) == 0
 
 
 @pytest.mark.cuda
