@@ -209,8 +209,9 @@ Two measuring modes, not part of the check:
 ``--probe`` checks and times the FFN's designs and the LayerNorm forward
 at GPT-2 124M's MLP, and the alternatives they were measured against,
 built from edited copies of their sources (`probe`).  ``--paths`` checks
-and times the ragged, fused-layer and flash decode kernels at the kernel
-phase's shapes (with a digest of the decode kernel's outputs), times
+and times the ragged, fused-layer and flash decode kernels and the
+LayerNorm backward at the kernel phase's shapes (with a digest of the
+decode kernel's outputs), times
 fused-mode bf16 ``generate`` and the bf16 engine's decode steps (fp and
 int8 pools), host and device, and with ``--train`` the stacked bf16 and
 fp32 training steps and the per-layer fp32 step under the LN and FFN
@@ -311,13 +312,13 @@ PORT_SYMBOLS = ("flash_fwd_tc32_kernel", "flash_fwd_tc_kernel",
                 "ragged_attend_kernel", "ragged_write_int8_kernel",
                 "flash_decode_kernel", "fused_decode_layer_kernel",
                 "ln_fwd_kernel", "ln_fwd_wide_kernel", "ln_bwd_kernel",
-                "ln_bwd_sum_kernel", "fused_ffn_kernel", "ffn_tc_kernel",
+                "ln_bwd_wide_kernel", "fused_ffn_kernel", "ffn_tc_kernel",
                 "ffn_tc32_kernel", "wt_split_kernel", "ffn_dec_kernel")
-# ... and those a tree from before the split-TF32 kernels has, so that
-# `--paths` groups a parent's profile as its own (the CUDA-core fp32
-# forward, dQ and dK/dV)
+# ... and those a tree from before has, so that `--paths` groups a
+# parent's profile as its own (the CUDA-core fp32 forward, dQ and dK/dV;
+# the LayerNorm backward's second launch)
 PARENT_SYMBOLS = ("flash_fwd_causal_kernel", "flash_bwd_dq_kernel",
-                  "flash_bwd_dkv_kernel")
+                  "flash_bwd_dkv_kernel", "ln_bwd_sum_kernel")
 TRAIN_LR = 1e-4
 # the environment flags that select the decode kernels, by generate mode
 GEN_MODES = {"default": {},
@@ -777,6 +778,15 @@ def check_ragged_int8(rpa, tol, timer, rows, c, dtype, seed, h=12, d=64):
                 plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                 library_ms=None, scales_grown=grown, **parts,
                 max_splits=ragged_grid_splits(rpa, rows, c, h, 1024))
+
+
+# the LayerNorm backward's rows and types at H = 768 (x, w/b): training
+# rows in each type, the decode step's rows, a count between
+LN_BWD_CASES = ((8192, torch.float32, torch.float32),
+                (8192, torch.bfloat16, torch.bfloat16),
+                (8192, torch.bfloat16, torch.float32),
+                (8, torch.bfloat16, torch.bfloat16),
+                (200, torch.bfloat16, torch.bfloat16))
 
 
 # the engine's decode step (lens after the write; None: a padding row),
@@ -2242,10 +2252,7 @@ def main():
             c = check_ffn(fm, ops, tol, timer, n, 768, inter, act, dtype, n)
             cases[FFN_COUNTER[c["design"]]].append(c)
         torch.cuda.empty_cache()
-    bf16, f32 = torch.bfloat16, torch.float32
-    for n, xdt, pdt in ((8192, f32, f32), (8192, bf16, bf16),
-                        (8192, bf16, f32), (8, bf16, bf16),
-                        (200, bf16, bf16)):
+    for n, xdt, pdt in LN_BWD_CASES:
         cases[LN_BWD].append(check_ln_bwd(fm, tol, timer, n, 768, xdt, pdt,
                                           seed=n + (xdt == pdt)))
     print_cases(cases)
@@ -2650,7 +2657,7 @@ PROBE_ROWS = (8, 16, 24, 32, 48, 64, 128, 256, 512, 1024, 2048, 4096, 8192)
 # edits of a source that build the alternatives the kernels measured
 # against: the decode FFN's second product queued after the first (not as
 # its programmatic dependent), the LayerNorm forward with 4 and 8 rows a
-# block
+# block, the LayerNorm backward with a ring of 2 and 4 rows
 PROBE_VARIANTS = {
     "ffn_decode_serial": ("fused_ffn_decode", [(
         "  cfg.numAttrs = DEPENDENT ? 1 : 0;\n", "  cfg.numAttrs = 0;\n")]),
@@ -2658,6 +2665,10 @@ PROBE_VARIANTS = {
         "constexpr int ROWS = 1; ", "constexpr int ROWS = 4; ")]),
     "ln_rows8": ("fused_layernorm", [(
         "constexpr int ROWS = 1; ", "constexpr int ROWS = 8; ")]),
+    "ln_bwd_ring2": ("fused_layernorm_bwd", [(
+        "constexpr int NBUF = 3; ", "constexpr int NBUF = 2; ")]),
+    "ln_bwd_ring4": ("fused_layernorm_bwd", [(
+        "constexpr int NBUF = 3; ", "constexpr int NBUF = 4; ")]),
 }
 
 
@@ -2848,6 +2859,51 @@ def probe_ln(lib, x, w, b):
     return y
 
 
+def probe_ln_bwd(lib, x, w, mu, rs, dy, plan):
+    """(dx, dw, db) of the LayerNorm backward in ``lib`` under ``plan``
+    (an `LnBwdPlan`), as `fused_layernorm_bwd` launches it."""
+    import ctypes
+    from paddle_tpu_torch.ops import _build
+    n, h = x.shape
+    dx = torch.empty_like(x)
+    dw, db = (torch.empty(h, dtype=w.dtype, device="cuda") for _ in range(2))
+    part = _build.scratch("probe_ln_bwd", x.device, (plan.grid + plan.groups)
+                          * (-(-2 * h // 4) * 4) * 4)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    err = _c_fn(lib, "fused_layernorm_bwd", [vp] * 10 + [ci] * 10 + [vp])(
+        x.data_ptr(), w.data_ptr(), mu.data_ptr(), rs.data_ptr(),
+        dy.data_ptr(), dx.data_ptr(), dw.data_ptr(), db.data_ptr(), part,
+        _build.tickets(x.device, plan.groups + 1).data_ptr(), n, h,
+        plan.grid, plan.warps, plan.s, plan.seg, plan.k, int(plan.wide),
+        int(x.dtype == torch.bfloat16), int(w.dtype == torch.bfloat16),
+        torch.cuda.current_stream().cuda_stream)
+    if err:
+        fail(f"layernorm backward probe: CUDA error {err}")
+    return dx, dw, db
+
+
+def probe_ln_bwd_plans(fm, n, h, dtype, sms):
+    """The planner's plan for [n, h] and the row design's others: every
+    chunk count a lane may hold (1 to `NC_MAX`: 2 in bf16, 3 in fp32)
+    whose warps a row stay within 16, laid out as the planner lays out
+    its own."""
+    import math
+    v = 16 // dtype.itemsize
+    nvec = h // v
+    base = fm.ln_bwd_plan(n, h, dtype, sms)
+    plans = [base]
+    for nc in range(1, 3 if v == 8 else 4):
+        s = -(-nvec // (32 * nc))
+        if s > 16 or s == base.s:
+            continue
+        g = 16 // s
+        grid = max(1, min(-(-n // (2 * g)), sms))
+        plans.append(base._replace(
+            grid=grid, warps=s * g, s=s, seg=-(-nvec // s),
+            k=grid if grid <= 16 else math.isqrt(grid - 1) + 1))
+    return plans
+
+
 def probe_check_ffn(fm, tol, design, n, dtype, act="gelu_tanh"):
     args = probe_ffn_args(n, dtype, n)
     launch = fm._FFN_LAUNCH[design]
@@ -2885,8 +2941,8 @@ def probe_check_ln(fm, tol, hidden, xdt, pdt, off, n=37):
 
 
 def probe(argv):
-    """Build the FFN's four sources and the LayerNorm forward and print
-    their registers and spills; hold every FFN design at the rows it may
+    """Build the FFN's four sources and the LayerNorm forward and backward
+    and print their registers and spills; hold every FFN design at the rows it may
     take and every activation, and the LayerNorm forward at H 768, 1000,
     1002 and 4096 (bf16, fp32, mixed; a base one element past 16 bytes
     too), against their plain versions with phase 2's limits and a
@@ -2899,7 +2955,10 @@ def probe(argv):
     and 8192 rows, and the split-TF32 design's device ms by kernel (its
     transposing pre-pass and its two products; torch.profiler); a copy of h's
     bytes at 8192 rows; the LayerNorm forward with 1, 4 and 8 rows a
-    block at 8, 64 and 8192 rows beside ``F.layer_norm``.  With
+    block at 8, 64 and 8192 rows beside ``F.layer_norm``; the LayerNorm
+    backward at `LN_BWD_CASES` under the planner's plan with rings of 2,
+    3 and 4 rows and under every other number of warps a row the row
+    design takes (each checked within its limits).  With
     ``--parent DIR``, the fp32 CUDA-core FFN of DIR's
     ``paddle_tpu_torch/csrc/fused_ffn.cu`` is held bitwise against this
     tree's on 12 cases.  Exits non-zero on a failed check."""
@@ -2910,7 +2969,7 @@ def probe(argv):
     from paddle_tpu_torch.ops import tolerance as tol
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"card: {card_line()}", flush=True)
-    names = [FFN_TC, FFN_TC32, FFN_DEC, FFN, LN]
+    names = [FFN_TC, FFN_TC32, FFN_DEC, FFN, LN, LN_BWD]
     paths = _build.build(names)
     for name in names:
         with open(os.path.join(_build.BUILD_DIR, name + ".log")) as f:
@@ -3055,6 +3114,34 @@ def probe(argv):
                 same = torch.equal(probe_ln(ln_lib, x, w, b), want)
                 line += f", {rows} rows a block {ms:.4f} (y bitwise {same})"
             print(line, flush=True)
+    bwd_libs = {3: _build.load(LN_BWD), 2: libs["ln_bwd_ring2"],
+                4: libs["ln_bwd_ring4"]}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for n, xdt, pdt in LN_BWD_CASES:
+        g = torch.Generator().manual_seed(n)
+        x = (torch.randn(n, 768, generator=g) * 2 + 0.5).to("cuda", xdt)
+        w = (1 + 0.1 * torch.randn(768, generator=g)).to("cuda", pdt)
+        b = (0.1 * torch.randn(768, generator=g)).to("cuda", pdt)
+        dy = torch.randn(n, 768, generator=g).to(
+            "cuda", torch.promote_types(xdt, pdt))
+        _, mu, rs = fm.fused_layernorm_reference(x, w, b)
+        want = fm.fused_layernorm_bwd_reference(x, w, mu, rs, dy)
+        line = f"layernorm backward n={n} x {xdt}, w {pdt}:"
+        for i, plan in enumerate(probe_ln_bwd_plans(fm, n, 768, xdt, sms)):
+            for ring, lib in bwd_libs.items():
+                if i and ring != 3:
+                    continue
+                got = probe_ln_bwd(lib, x, w, mu, rs, dy, plan)
+                for gv, wv, lim in zip(got, want, tol.ln_bwd_limits(
+                        got, want, x, w, mu, rs, dy)):
+                    if not tol.compare(gv, wv, lim)[2]:
+                        fail(f"layernorm backward probe n={n}: {plan}, "
+                             f"ring {ring}, outside the limits")
+                ms = timer(lambda: probe_ln_bwd(lib, x, w, mu, rs, dy, plan))
+                line += (f" {plan.s} warps a row, grid {plan.grid}, ring "
+                         f"{ring}{' (picked)' if i == 0 and ring == 3 else ''}"
+                         f" {ms:.4f};")
+        print(line, flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -3193,9 +3280,11 @@ def time_training(rec, cfg, reps):
 def time_paths(tree, train=False, reps=3):
     """With ``paddle_tpu_torch`` imported from ``tree`` (so that two trees
     compare in one call, in turns): the decode kernels at the shapes of
-    the kernel phase (`time_decode_kernels`); bf16 GPT-2 124M fused-mode
-    ``generate`` (B=8, prompt 896 + 128 new; decode ms per step as phase
-    4 takes it, `reps` times) and 16 decode steps timed alone and under
+    the kernel phase (`time_decode_kernels`) and the LayerNorm backward's
+    cases (`LN_BWD_CASES`, with `F.layer_norm` autograd's time); bf16
+    GPT-2 124M fused-mode ``generate`` (B=8, prompt 896 + 128 new; decode
+    ms per step as phase 4 takes it, `reps` times) and 16 decode steps
+    timed alone and under
     torch.profiler; 8 bf16 engine decode steps, fp and int8 pools, timed
     alone and under torch.profiler (phase 3's `profile_decode`); and the
     host microseconds of one FFN and one LayerNorm forward call at the
@@ -3223,14 +3312,22 @@ def time_paths(tree, train=False, reps=3):
     card = card_line()
     cfg = gpt2_124m_config(stacked_blocks=True)
     rec = {"tree": tree, "card": card}
+    timer = Timer()
     rec["kernels"] = time_decode_kernels(
-        dict(rpa=rpa, fdl=fdl, fd=fd, tol=tol), Timer())
+        dict(rpa=rpa, fdl=fdl, fd=fd, tol=tol), timer)
+    # the LayerNorm backward's cases of the kernel phase
+    rec["kernels"] += [
+        dict(check_ln_bwd(fm, tol, timer, n, 768, xdt, pdt,
+                          seed=n + (xdt == pdt)), kernel=LN_BWD)
+        for n, xdt, pdt in LN_BWD_CASES]
     for c in rec["kernels"]:
         extra = "".join(f" {k} {c[k]:.4f}" for k in ("write_ms", "attend_ms")
                         if k in c)
+        lib = ("" if c.get("library_ms") is None
+               else f" library {c['library_ms']:.4f}")
         print(f"paths {tree} kernel {c['kernel']} [{c['shape']} "
               f"{c['dtype']}] ms {c['ms']:.4f}{extra} bound "
-              f"{c['bound_ms']:.4f} ({c['err_over_limit']:.3g} of its "
+              f"{c['bound_ms']:.4f}{lib} ({c['err_over_limit']:.3g} of its "
               f"limit)" + (f" sha256 {c['sha256']}" if "sha256" in c
                            else ""), flush=True)
     model = GPTForCausalLM(cfg, device="cpu",

@@ -45,67 +45,6 @@ constexpr int SM_THREADS = 1024;  // threads of an SM at 64 registers each
 constexpr int EARLY_MAX = 32;     // elements a lane keeps of w and b each
 constexpr int EARLY_ROWS = 1024;  // fewer rows load w and b early
 
-// V consecutive elements of T at p as floats: one or two 16-byte loads
-// where p is on 16 bytes, else V scalar loads.
-template <typename T, int V>
-__device__ __forceinline__ void load_vals(const T* p, float (&v)[V]) {
-  constexpr int PER = 16 / sizeof(T);   // elements per 16-byte load
-  if (reinterpret_cast<uintptr_t>(p) % 16 == 0 && V % PER == 0) {
-#pragma unroll
-    for (int q = 0; q < V / PER; ++q) {
-      const uint4 r = __ldg(reinterpret_cast<const uint4*>(p) + q);
-      const uint32_t w[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if constexpr (sizeof(T) == 4) {
-          v[q * PER + j] = __uint_as_float(w[j]);
-        } else {
-          v[q * PER + 2 * j] = __uint_as_float(w[j] << 16);
-          v[q * PER + 2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
-        }
-      }
-    }
-  } else if (sizeof(T) == 2 && V == 4 &&
-             reinterpret_cast<uintptr_t>(p) % 8 == 0) {
-    const uint2 r = __ldg(reinterpret_cast<const uint2*>(p));
-    v[0] = __uint_as_float(r.x << 16);
-    v[1] = __uint_as_float(r.x & 0xffff0000u);
-    v[2] = __uint_as_float(r.y << 16);
-    v[3] = __uint_as_float(r.y & 0xffff0000u);
-  } else {
-#pragma unroll
-    for (int j = 0; j < V; ++j) v[j] = to_f(p[j]);
-  }
-}
-
-// V floats rounded to T and stored at p: 16-byte stores where p is on 16
-// bytes, else scalar ones.
-template <typename T, int V>
-__device__ __forceinline__ void store_vals(T* p, const float (&v)[V]) {
-  constexpr int PER = 16 / sizeof(T);
-  if (reinterpret_cast<uintptr_t>(p) % 16 == 0 && V % PER == 0) {
-#pragma unroll
-    for (int q = 0; q < V / PER; ++q) {
-      uint32_t w[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if constexpr (sizeof(T) == 4) {
-          w[j] = __float_as_uint(v[q * PER + j]);
-        } else {
-          const __nv_bfloat162 b2 =
-              __floats2bfloat162_rn(v[q * PER + 2 * j],
-                                    v[q * PER + 2 * j + 1]);
-          w[j] = *reinterpret_cast<const uint32_t*>(&b2);
-        }
-      }
-      reinterpret_cast<uint4*>(p)[q] = make_uint4(w[0], w[1], w[2], w[3]);
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < V; ++j) p[j] = from_f<T>(v[j]);
-  }
-}
-
 // EARLY: w's and b's chunks are loaded with x's, before the statistics
 // (a few rows: they would miss the caches after them); else after them,
 // from L1, which leaves registers for more rows in flight.

@@ -54,8 +54,7 @@
 //     no pool slot the write touches, so it runs beside the write; with
 //     int8 pools it waits for the write before reading (the write may
 //     rescale a block's old codes).  The first block waits for the write
-//     before it ends, so the stream's next work finds both done.  The
-//     write kernels below are unchanged but for that one trigger.
+//     before it ends, so the stream's next work finds both done.
 //
 // Layout: q, k_new, v_new are [B, C, H, D] with unit stride in D and stride
 // D between heads (row and position strides are arguments); pools are
@@ -65,22 +64,25 @@
 // int8 pools (`ragged_paged_attention_int8`): codes beside fp32 scales
 // [num_blocks, H], value = code * scale -- the TPU kernel's `quant` branch
 // (`ragged_paged_attention.py:189-245`, `:311-328`), for any C >= 1.
-//  1. Write.  One block per (row, logical block the row's positions
-//     pos0 .. pos0 + C - 1 touch): a chunk of C = 512 spans up to 33.
-//     The block takes the per-head abs-max over ALL of the group's
-//     in-pool rows first, grows each head's scale once (new = max(old,
-//     amax * (1/127))), rescales the block's old codes once where it grew
-//     (round(code * old / new)), then quantizes the new rows
-//     (round(x / new)).  A row writes only blocks it owns, so no two
-//     blocks touch one pool block; slots outside the pool are dropped and
-//     left out of the amax.  Rounding is rintf (half to even, as
+//  1. Write.  One warp per (row, logical block the row's positions
+//     pos0 .. pos0 + C - 1 touch, K or V head): a chunk of C = 512 spans
+//     up to 33 blocks, so 33 * 2H warps; the decode step 2H a row.  The
+//     scale is per (pool block, head), so the heads are independent and
+//     a warp needs no barrier: it takes its head's abs-max over ALL of
+//     the group's in-pool rows, grows the scale once (new = max(old,
+//     amax * (1/127))), rescales the head's old codes in the block once
+//     where it grew (round(code * old / new)), then quantizes the new
+//     rows (round(x / new)).  A row writes only blocks it owns, so no two
+//     warps touch one (block, head); slots outside the pool are dropped
+//     and left out of the amax.  Rounding is rintf (half to even, as
 //     torch.round and jnp.round) and the division IEEE (no fast math), so
 //     the codes and scales are bitwise those of the plain version.  The
 //     group's pool block is that of its first in-pool slot; a slot of the
 //     group outside that block (not a position's slot) is dropped.  At
-//     decode the launch is one block per row and bound by load latency,
-//     so the rescale reads 16 codes per load and each thread issues all
-//     its loads before its stores.
+//     decode the write is a chain of round trips (slots; rows, scale and
+//     old codes together; stores), so the lanes hold the group's slots,
+//     the old codes are loaded before the scale is known, and rows and
+//     codes move 16 bytes a lane.
 //  2. Attend.  The fp kernel instantiated for int8 pools: 16 codes a
 //     16-byte load (widened exactly by the float trick of `widen`) and the
 //     scales folded in as the plain version folds them: k_scale times the
@@ -94,8 +96,7 @@ namespace {
 
 using namespace decode;
 
-constexpr int THREADS = 256;            // the int8 write
-constexpr int WARPS = THREADS / 32;
+constexpr int W_WARPS = 4;              // the int8 write: a warp a head
 constexpr int A_THREADS = 128;          // the attend: four warps
 constexpr int A_WARPS = A_THREADS / 32;
 constexpr int RUN = 32;                 // keys per warp run
@@ -338,115 +339,141 @@ __device__ __forceinline__ unsigned rescale4(unsigned w, float f) {
   return r;
 }
 
-// One block per (logical block group i, row r); dynamic shared memory
-// holds 6 * H floats: amax, factor and write scale for each of K and V.
-template <typename T>
-__global__ void __launch_bounds__(THREADS) ragged_write_int8_kernel(
+// round(code * f) of the sixteen codes packed in c
+__device__ __forceinline__ uint4 rescale16(uint4 c, float f) {
+  return make_uint4(rescale4(c.x, f), rescale4(c.y, f), rescale4(c.z, f),
+                    rescale4(c.w, f));
+}
+
+// One warp per (logical block group i = blockIdx.x, row r = blockIdx.y,
+// K or V head u = blockIdx.z * W_WARPS + warp): the group's rows
+// j0 .. j1 - 1 of the call are positions of one logical block.  No
+// barrier: nothing is shared between the warps of a block.
+//  - the slots: lane j holds the slot of row j0 + j (32 rows a window),
+//    the group's pool block `base` / bs is that of its first in-pool slot
+//    (a ballot), and a row is kept where its slot lies in that block;
+//  - the old codes of the head in that block (bs * D codes at stride
+//    H * D) are loaded at once, before it is known whether they change;
+//  - amax: lane l reads 16 values of a kept row (16-byte loads; D / 16
+//    lanes a row, 32 / (D / 16) rows a pass), the warp takes the max;
+//  - the scale: new = max(old, amax * inv_qmax), never smaller, stored
+//    by lane 0; where it grew the old codes become round(code * old /
+//    new), 16 a store;
+//  - quantize: round(x / new) of the kept rows, 16 codes a store.
+template <typename T, int D>
+__global__ void __launch_bounds__(32 * W_WARPS) ragged_write_int8_kernel(
     const T* __restrict__ knew, const T* __restrict__ vnew,
     int8_t* __restrict__ kpool, int8_t* __restrict__ vpool,
     float* __restrict__ kscale, float* __restrict__ vscale,
     const int* __restrict__ pos0, const int* __restrict__ slots, int C,
-    int H, int D, int bs, long long num_slots, long long ksb, long long ksc,
+    int H, int bs, long long num_slots, long long ksb, long long ksc,
     long long vsb, long long vsc, float inv_qmax) {
-  extern __shared__ float sh[];
-  float* amax = sh;            // [2H]: K heads, then V heads
-  float* fac = sh + 2 * H;     // old / new, or 1
-  float* wsc = sh + 4 * H;     // new, or 1 where it is 0
-  __shared__ long long phys_s;
+  constexpr unsigned FULL = 0xffffffffu;
+  constexpr int LPR = D / 16;       // lanes of a row: 16 values each
+  constexpr int RPP = 32 / LPR;     // rows a pass
+  constexpr int RW = 4;             // old-code words (16 codes) a lane
+                                    // loads at once
   trigger_dependents();   // the attend may start (it waits before it
                           // reads the pools)
+  const int lane = threadIdx.x % 32;
+  const int u = blockIdx.z * W_WARPS + threadIdx.x / 32;
+  if (u >= 2 * H) return;
   const int i = blockIdx.x, r = blockIdx.y;
   const int p0 = max(pos0[r], 0);
   const int lb = p0 / bs + i;
   const int j0 = max(0, lb * bs - p0), j1 = min(C, (lb + 1) * bs - p0);
   if (j0 >= j1) return;
-  const int* srow = slots + (long long)r * C;
-  if (threadIdx.x == 0) {
-    long long ph = -1;
-    for (int j = j0; j < j1 && ph < 0; ++j) {
-      const long long s = srow[j];
-      if (s >= 0 && s < num_slots) ph = s / bs;
-    }
-    phys_s = ph;
+  const int nj = j1 - j0;
+  const int* srow = slots + (long long)r * C + j0;
+  // the slot of row w0 + lane of the group (window w0), or -1
+  auto slot_at = [&](int w0) -> long long {
+    return w0 + lane < nj ? srow[w0 + lane] : -1;
+  };
+  const long long s0 = slot_at(0);
+  long long first = -1;
+  for (int w0 = 0; w0 < nj && first < 0; w0 += 32) {
+    const long long sl = w0 ? slot_at(w0) : s0;
+    const unsigned in = __ballot_sync(FULL, sl >= 0 && sl < num_slots);
+    if (in) first = __shfl_sync(FULL, sl, __ffs(in) - 1);
   }
-  __syncthreads();
-  const long long phys = phys_s;
-  if (phys < 0) return;
-  const int HD = H * D, nj = j1 - j0;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  if (first < 0) return;
+  const long long base = first / bs * bs;   // the block's first slot
+  const bool kv = u >= H;
+  const int h = kv ? u - H : u;
+  const long long HD = (long long)H * D;
+  const T* src = (kv ? vnew + r * vsb : knew + r * ksb) + h * D;
+  const long long sc = kv ? vsc : ksc;
+  int8_t* pool = (kv ? vpool : kpool) + base * HD + h * D;
+  float* sp = (kv ? vscale : kscale) + base / bs * H + h;
+  const float old = *sp;
+  // the head's old codes in the block, word w = (row w / LPR, 16 codes
+  // at (w % LPR) * 16)
+  const int nw = bs * LPR;
+  uint4 c[RW];
+  auto word = [&](int w) {
+    return reinterpret_cast<uint4*>(pool + (w / LPR) * HD + (w % LPR) * 16);
+  };
+#pragma unroll
+  for (int t = 0; t < RW; ++t)
+    if (lane + 32 * t < nw) c[t] = *word(lane + 32 * t);
 
-  // per-head abs-max of the group's rows, one warp per (K or V, head)
-  for (int t = warp; t < 2 * H; t += WARPS) {
-    const int h = t % H;
-    const T* src = t < H ? knew + r * ksb : vnew + r * vsb;
-    const long long sc = t < H ? ksc : vsc;
-    float m = 0.f;
-#pragma unroll 4
-    for (int e = lane; e < nj * D; e += 32) {
-      const int j = j0 + e / D;
-      const long long s = srow[j];
-      if (s >= 0 && s < num_slots && s / bs == phys)
-        m = fmaxf(m, fabsf(to_f(src[j * sc + h * D + e % D])));
+  const int jr = lane / LPR, e0 = (lane % LPR) * 16;
+  // rows of window w0 whose slot lies in the block, a bit each
+  auto kept = [&](int w0) {
+    const long long sl = w0 ? slot_at(w0) : s0;
+    return __ballot_sync(FULL, sl >= base && sl < base + bs);
+  };
+  float m = 0.f;
+  for (int w0 = 0; w0 < nj; w0 += 32) {
+    const unsigned keep = kept(w0);
+#pragma unroll 2
+    for (int jj = jr; jj < 32; jj += RPP) {
+      if (!(keep >> jj & 1)) continue;
+      float v[16];
+      load_vals<T, 16>(src + (j0 + w0 + jj) * sc + e0, v);
+#pragma unroll
+      for (int e = 0; e < 16; ++e) m = fmaxf(m, fabsf(v[e]));
     }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-    if (lane == 0) amax[t] = m;
   }
-  __syncthreads();
-  // grow the scales: new = max(old, amax / 127), never smaller
-  for (int t = threadIdx.x; t < 2 * H; t += THREADS) {
-    float* sp = (t < H ? kscale : vscale) + phys * H + t % H;
-    const float old = *sp;
-    const float nw = fmaxf(old, amax[t] * inv_qmax);
-    fac[t] = nw > 0.f ? old / nw : 1.f;
-    wsc[t] = nw > 0.f ? nw : 1.f;
-    *sp = nw;
-  }
-  __syncthreads();
-  // rescale the block's old codes once where the head's scale grew: 16
-  // codes per load (D % 16 == 0, so they share a head), a thread's RESC
-  // loads issued before any of its stores
-  constexpr int RESC = 8;
-  const long long base = phys * bs * HD;
-  const int nvec = 2 * bs * HD / 16;
-  for (int v0 = threadIdx.x; v0 < nvec; v0 += THREADS * RESC) {
-    uint4 c[RESC];
-    float f[RESC];
-    uint4* ptr[RESC];
+  m = warp_max(m);
+  const float nw_scale = fmaxf(old, m * inv_qmax);
+  const float fac = nw_scale > 0.f ? old / nw_scale : 1.f;
+  const float wsc = nw_scale > 0.f ? nw_scale : 1.f;
+  if (lane == 0) *sp = nw_scale;
+  if (fac != 1.f) {
+    for (int w0 = 0; w0 < nw; w0 += 32 * RW) {
 #pragma unroll
-    for (int u = 0; u < RESC; ++u) {
-      const int v = v0 + u * THREADS;
-      f[u] = 1.f;
-      if (v < nvec) {
-        const int kv = v * 16 >= bs * HD;
-        const int off = v * 16 - kv * bs * HD;
-        f[u] = fac[kv * H + (off % HD) / D];
-        ptr[u] = reinterpret_cast<uint4*>((kv ? vpool : kpool) + base + off);
-        if (f[u] != 1.f) c[u] = *ptr[u];
+      for (int t = 0; t < RW; ++t)
+        if (w0 && w0 + lane + 32 * t < nw) c[t] = *word(w0 + lane + 32 * t);
+#pragma unroll
+      for (int t = 0; t < RW; ++t)
+        if (w0 + lane + 32 * t < nw)
+          *word(w0 + lane + 32 * t) = rescale16(c[t], fac);
+    }
+  }
+  __syncwarp();   // the rescaled codes before the new rows' codes
+  for (int w0 = 0; w0 < nj; w0 += 32) {
+    const long long sl = w0 ? slot_at(w0) : s0;
+    const unsigned keep = kept(w0);
+#pragma unroll 2
+    for (int jj = jr; jj < 32; jj += RPP) {
+      const long long sj = __shfl_sync(FULL, sl, jj);
+      if (!(keep >> jj & 1)) continue;
+      float v[16];
+      load_vals<T, 16>(src + (j0 + w0 + jj) * sc + e0, v);
+      uint32_t q[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        q[k] = 0;
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+          q[k] |= static_cast<uint32_t>(static_cast<uint8_t>(
+                      quantize(v[4 * k + b] / wsc)))
+                  << (8 * b);
       }
+      *reinterpret_cast<uint4*>(pool + (sj - base) * HD + e0) =
+          make_uint4(q[0], q[1], q[2], q[3]);
     }
-#pragma unroll
-    for (int u = 0; u < RESC; ++u) {
-      if (f[u] == 1.f) continue;
-      c[u].x = rescale4(c[u].x, f[u]);
-      c[u].y = rescale4(c[u].y, f[u]);
-      c[u].z = rescale4(c[u].z, f[u]);
-      c[u].w = rescale4(c[u].w, f[u]);
-      *ptr[u] = c[u];
-    }
-  }
-  __syncthreads();
-  // quantize the new rows against the new scales
-  for (int e = threadIdx.x; e < 2 * nj * HD; e += THREADS) {
-    const int kv = e >= nj * HD;
-    const int off = e - kv * nj * HD;
-    const int j = j0 + off / HD, hd = off % HD;
-    const long long s = srow[j];
-    if (s < 0 || s >= num_slots || s / bs != phys) continue;
-    const float x = kv ? to_f(vnew[r * vsb + j * vsc + hd])
-                       : to_f(knew[r * ksb + j * ksc + hd]);
-    (kv ? vpool : kpool)[s * HD + hd] = quantize(x / wsc[kv * H + hd / D]);
   }
 }
 
@@ -464,13 +491,12 @@ cudaError_t launch_int8(const void* q, const void* knew, const void* vnew,
                         float inv_qmax, cudaStream_t stream) {
   if (parts & 1) {
     const int groups = (C + bs - 2) / bs + 1;   // logical blocks C can span
-    ragged_write_int8_kernel<T><<<dim3(groups, B), THREADS,
-                                  sizeof(float) * 6 * H, stream>>>(
+    const dim3 grid(groups, B, (2 * H + W_WARPS - 1) / W_WARPS);
+    ragged_write_int8_kernel<T, D><<<grid, 32 * W_WARPS, 0, stream>>>(
         static_cast<const T*>(knew), static_cast<const T*>(vnew),
         static_cast<int8_t*>(kpool), static_cast<int8_t*>(vpool),
         static_cast<float*>(kscale), static_cast<float*>(vscale), pos0,
-        slots, C, H, D, bs, (long long)nb * bs, ksb, ksc, vsb, vsc,
-        inv_qmax);
+        slots, C, H, bs, (long long)nb * bs, ksb, ksc, vsb, vsc, inv_qmax);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess || !(parts & 2)) return err;
   }

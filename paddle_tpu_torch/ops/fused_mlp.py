@@ -25,6 +25,7 @@ import ctypes
 import functools
 import math
 import os
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -37,9 +38,11 @@ __all__ = ["fused_layernorm_arrays", "fused_layernorm_reference",
            "FusedFFNFunction", "maybe_fused_ffn", "ln_geometry_ok",
            "ffn_geometry_ok", "ln_fwd", "ln_bwd", "ffn_fwd", "ffn_tc",
            "ffn_tc32", "ffn_decode", "ln_block_rows", "ffn_design",
-           "ffn_tc_tiles", "ffn_decode_loads"]
+           "ffn_tc_tiles", "ffn_decode_loads", "ln_bwd_plan",
+           "LnBwdPlan"]
 
 _ACTS = ("gelu", "gelu_tanh", "relu")
+H100_SMS = 132               # the planners' default SM count (H100 SXM)
 
 
 class _Launcher:
@@ -161,21 +164,77 @@ def _ln_launch(x2, w, b, eps):
 
 
 _LN_BWD_SMEM = 232448     # shared memory a block may take on an H100
-_LN_BWD_GRID = 264        # partial rows of dw and db: two blocks per SM
+_LN_BWD_WIDE_GRID = 264   # the wide design's blocks: two per SM
+_LN_BWD_BLOCK_WARPS = 16  # warps of a block (128 registers each): one an SM
+_LN_BWD_GROUP_ROWS = 2    # rows a group of warps takes at the least
+_LN_BWD_ONE_LEVEL = 16    # blocks whose partials one merge level adds
 
 
-def ln_bwd_geometry(n, h):
-    """(blocks, warps per block) of the backward kernel for [n, H]: up to
-    16 warps, as many as leave each its fp32 row of both partial sums in
-    shared memory, and at most `_LN_BWD_GRID` blocks.  Raises ValueError
-    for an H that leaves no room for one warp."""
-    warps = 16
-    while warps > 1 and 8 * warps * h > _LN_BWD_SMEM:
-        warps //= 2
-    if 8 * warps * h > _LN_BWD_SMEM:
-        raise ValueError(f"hidden size {h} exceeds the LayerNorm backward "
-                         f"kernel's shared memory")
-    return max(1, min(-(-n // warps), _LN_BWD_GRID)), warps
+class LnBwdPlan(NamedTuple):
+    """The launch of ``csrc/fused_layernorm_bwd.cu`` for [n, H]: ``grid``
+    blocks of ``warps`` warps; the row design (``wide`` False): ``s``
+    warps a row, each ``seg`` chunks of 16 bytes of x, ``warps // s`` rows
+    a block at a time; the wide design: one warp a row.  Both merge the
+    blocks' partial sums in groups of ``k`` blocks."""
+    grid: int
+    warps: int
+    s: int
+    seg: int
+    k: int
+    wide: bool
+
+    @property
+    def groups(self):
+        """Partial rows of the merge's second level."""
+        return -(-self.grid // self.k)
+
+
+def ln_bwd_plan(n, h, x_dtype, sms=H100_SMS):
+    """`LnBwdPlan` of the LayerNorm backward for ``n`` rows of width
+    ``h``, x in ``x_dtype``, on a card of ``sms`` SMs, from host values
+    only.  The row design: a lane holds 8 columns with x in bf16 (16 where
+    16 warps of 8 do not cover the row) and 12 in fp32 (their w and dw
+    and db partials in registers: `NC_MAX` of the source; fewer warps a
+    row measured no faster in bf16, more slower in fp32: PERF.md), so s
+    is the fewest warps whose lanes cover a row, at most 16; a block
+    holds 16 // s groups of s warps (one block an SM: 128 registers a
+    thread, and the shared-memory ring of rows in flight); as many blocks
+    as give each group two rows, at most one an SM, and a multiple that
+    makes the groups a multiple of the rows' alignment period (16 /
+    gcd(h * itemsize, 16)).  Wider rows
+    take the wide design: up to 16 warps a block, as many as leave each
+    its fp32 row of both partial sums in shared memory, at most
+    `_LN_BWD_WIDE_GRID` blocks; raises ValueError for an h that leaves no
+    room for one warp.  k, the blocks of a first-level group of the
+    merge, is the grid up to `_LN_BWD_ONE_LEVEL` blocks (one level: a
+    ticket's round trip fewer), else ceil(sqrt(grid)), so that neither
+    level adds more than ~sqrt(grid) partials in sequence."""
+    xb = x_dtype.itemsize
+    v = 16 // xb                           # x's values in a chunk
+    nvec = h // v
+    for nc in ((1, 2) if xb == 2 else (3,)):   # chunks a lane
+        s = max(1, -(-nvec // (32 * nc)))
+        if s <= _LN_BWD_BLOCK_WARPS:
+            break
+    if s <= _LN_BWD_BLOCK_WARPS:
+        seg = max(1, -(-nvec // s))
+        g = _LN_BWD_BLOCK_WARPS // s
+        grid = max(1, min(-(-n // (g * _LN_BWD_GROUP_ROWS)), sms))
+        period = 16 // math.gcd(h * xb, 16)
+        step = period // math.gcd(period, g)
+        grid = -(-grid // step) * step
+        wide = False
+    else:
+        warps = 16
+        while warps > 1 and 8 * warps * h > _LN_BWD_SMEM:
+            warps //= 2
+        if 8 * warps * h > _LN_BWD_SMEM:
+            raise ValueError(f"hidden size {h} exceeds the LayerNorm "
+                             f"backward kernel's shared memory")
+        grid = max(1, min(-(-n // warps), _LN_BWD_WIDE_GRID))
+        s, g, seg, wide = 1, warps, 0, True
+    k = grid if grid <= _LN_BWD_ONE_LEVEL else math.isqrt(grid - 1) + 1
+    return LnBwdPlan(grid, s * g, s, seg, k, wide)
 
 
 def fused_layernorm_bwd(x2, w, mu, rs, dy, b_dtype=None):
@@ -210,18 +269,21 @@ def fused_layernorm_bwd(x2, w, mu, rs, dy, b_dtype=None):
     if n == 0:
         zeros = torch.zeros(h, dtype=w.dtype, device=x2.device)
         return dx, zeros, zeros.clone()
-    grid, warps = ln_bwd_geometry(n, h)
+    plan = ln_bwd_plan(n, h, x2.dtype, _build.sms(x2.device))
     x2, dy = x2.contiguous(), dy.contiguous()
     dw = torch.empty(h, dtype=w.dtype, device=x2.device)
     db = torch.empty(h, dtype=w.dtype, device=x2.device)
-    part = torch.empty((2, grid, h), dtype=torch.float32, device=x2.device)
-    # four elements a load where every row starts on 16 bytes
-    vec = h % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (x2, w, dy, dx))
+    # the blocks' partial rows, then the first level's group rows (fp32,
+    # 2h rounded up to 4 floats each)
+    part = _build.scratch(ln_bwd.SOURCE, x2.device,
+                          (plan.grid + plan.groups) * (-(-2 * h // 4) * 4) * 4)
+    tickets = _build.tickets(x2.device, plan.groups + 1)
     vp, i = ctypes.c_void_p, ctypes.c_int
-    fn = ln_bwd.fn([vp] * 9 + [i] * 7 + [vp])
+    fn = ln_bwd.fn([vp] * 10 + [i] * 10 + [vp])
     err = fn(x2.data_ptr(), w.data_ptr(), mu.data_ptr(), rs.data_ptr(),
              dy.data_ptr(), dx.data_ptr(), dw.data_ptr(), db.data_ptr(),
-             part.data_ptr(), n, h, grid, warps, int(vec),
+             part, tickets.data_ptr(), n, h, plan.grid, plan.warps, plan.s,
+             plan.seg, plan.k, int(plan.wide),
              int(x2.dtype == torch.bfloat16), int(w.dtype == torch.bfloat16),
              torch.cuda.current_stream(x2.device).cuda_stream)
     _build.check(err, ln_bwd.KERNEL)
@@ -370,7 +432,6 @@ def maybe_fused_ffn(x, w1, b1, w2, act):
 # against 0.1588), and the CUDA-core kernel at no row count.
 FFN_TC_MIN_ROWS = 24         # bf16 rows from which the tensor cores win
 FFN_DECODE_MAX_ROWS = 64     # fp32 rows up to which the decode design wins
-H100_SMS = 132               # the pickers' default SM count (H100 SXM)
 _TC_TILES = ((2, 256), (2, 128), (1, 256), (1, 128))   # (warpgroups, BN)
 # fp32's: BN at most 128, the output and each k-tile's sum both in
 # registers (csrc/fused_ffn_tc32.cu)

@@ -54,9 +54,14 @@ with ``mag`` that sum taken over magnitudes in fp32:
 
 - LayerNorm backward (``coef = LN_BWD_COEF = 1e-5``): both sides compute
   in fp32 from the same inputs and differ only in summation order (the
-  kernel sums a row in 32 lanes, dw and db in per-warp, per-block and
-  per-stride partials; at most ~100 terms in sequence for 8192 rows), so
-  each output is within 1e-5 of its sum over term magnitudes
+  kernel sums a row in a lane's at most 18 columns, a 32-lane shuffle
+  tree and up to 16 warps: at most ~40 terms in sequence; dw and db in
+  per-lane partials over a group's rows, the block's groups, a merge
+  group's blocks and the merge groups (`fused_mlp.ln_bwd_plan`): 41
+  terms in sequence for 8192 bf16 rows of H = 768, 128 for 65536), and
+  n terms in sequence add at most (n - 1) 2^-24 of their magnitudes
+  (7.6e-6 for 128), so each output is within 1e-5 of its sum over term
+  magnitudes
   (`ln_bwd_magnitudes`): ``rstd (|g| + mean|g| + |x^| mean|g x^|)`` for
   dx, the column sums of ``|dy x^|`` and ``|dy|`` for dw and db.  An
   output in bf16 adds one bf16 step (each side rounds it once).

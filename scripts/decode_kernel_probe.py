@@ -8,11 +8,15 @@ Copies ``paddle_tpu_torch`` into ``paddle_tpu_torch/csrc/build/stamps/``
 warp at its first attention task's start, after its keys, after its
 ticket, and at its last task's end) and of
 ``csrc/ragged_paged_attention.cu`` (each attend block at its start, after
-its keys, after its warps' merge, and at its end), builds the copy, and
-runs the fused layer at GPT-2 124M's decode shapes (B=8, S_max=1024: bf16
-t=1 and t=1023, fp32 t=1023; bf16 H=16 D=128 t=1023) and the ragged
-kernel at `chip_smoke.py`'s decode step (bf16 and fp32), each once after
-an L2 flush as `chip_smoke.Timer` times it.  Prints, in microseconds from
+its keys, after its warps' merge, and at its end) and of
+``csrc/fused_layernorm_bwd.cu`` (each warp of the row design at its start,
+when its first row is in shared memory, after its rows, after its
+block's partial row, and at its end, the merge's last block included),
+builds the copy, and runs the fused layer at GPT-2 124M's decode shapes
+(B=8, S_max=1024: bf16 t=1 and t=1023, fp32 t=1023; bf16 H=16 D=128
+t=1023), the ragged kernel at `chip_smoke.py`'s decode step (bf16 and
+fp32) and the LayerNorm backward at `chip_smoke.LN_BWD_CASES`, each once
+after an L2 flush as `chip_smoke.Timer` times it.  Prints, in microseconds from
 the first block's start, the min-max over blocks (or min/median/max over
 warps and blocks) of each stamp, beside the call's CUDA-event time.  The
 stamps change what they measure by a few instructions a block; compare
@@ -127,13 +131,52 @@ using namespace decode;""")
                 "  rstamp(3);\n  if (first) wait_prior_grid();\n}")
 
 
+def stamp_ln_bwd(src):
+    src = _sub(src, "namespace {\n\nusing namespace decode;", f"""\
+{CLOCK}
+__device__ unsigned long long l_stamps[4096][5];
+extern "C" int ln_bwd_stamps(void* out, int clear) {{
+  static unsigned long long zero[4096][5];
+  if (clear)
+    return (int)cudaMemcpyToSymbol(l_stamps, zero, sizeof(zero));
+  return (int)cudaMemcpyFromSymbol(out, l_stamps, sizeof(l_stamps));
+}}
+namespace {{
+
+using namespace decode;""")
+    src = _sub(src, "__global__ void __launch_bounds__(MAX_THREADS, 1) "
+               "ln_bwd_kernel(", "__device__ __forceinline__ void lstamp(int "
+               "i) {\n  if (threadIdx.x % 32 == 0)\n    l_stamps[blockIdx.x "
+               "* 16 + threadIdx.x / 32][i] = gtime();\n}\n\ntemplate "
+               "<typename TX, typename TP, typename TD, int NC>\n"
+               "__global__ void __launch_bounds__(MAX_THREADS, 1) "
+               "ln_bwd_kernel(")
+    src = _sub(src, "template <typename TX, typename TP, typename TD, int NC>"
+               "\n__device__ __forceinline__ void lstamp",
+               "__device__ __forceinline__ void lstamp")
+    src = _sub(src, "  // copy row `row`'s chunks", "  lstamp(0);\n"
+               "  // copy row `row`'s chunks")
+    src = _sub(src, "    __syncwarp();                // lane 0's copy of its "
+               "statistics\n", "    __syncwarp();                // lane 0's "
+               "copy of its statistics\n    if (it == 0) lstamp(1);\n")
+    src = _sub(src, "  // the block's sum: each group's partial row",
+               "  lstamp(2);\n  // the block's sum: each group's partial row")
+    src = _sub(src, "  if (gridDim.x == 1) return;\n  // the partials are read",
+               "  lstamp(3);\n  if (gridDim.x == 1) return;\n  // the "
+               "partials are read")
+    return _sub(src, "                 reinterpret_cast<int*>(ring));\n}",
+                "                 reinterpret_cast<int*>(ring));\n"
+                "  lstamp(4);\n}")
+
+
 def make_copy():
     shutil.rmtree(COPY, ignore_errors=True)
     dst = os.path.join(COPY, "paddle_tpu_torch")
     shutil.copytree(os.path.join(ROOT, "paddle_tpu_torch"), dst,
                     ignore=shutil.ignore_patterns("build", "__pycache__"))
     for name, fn in (("fused_decode_layer", stamp_fused),
-                     ("ragged_paged_attention", stamp_ragged)):
+                     ("ragged_paged_attention", stamp_ragged),
+                     ("fused_layernorm_bwd", stamp_ln_bwd)):
         path = os.path.join(dst, "csrc", name + ".cu")
         with open(path) as f:
             src = fn(f.read())
@@ -142,6 +185,8 @@ def make_copy():
 
 
 def spread(v):
+    if not len(v):
+        return "none"
     return f"{v.min():.2f}/{np.median(v):.2f}/{v.max():.2f}"
 
 
@@ -154,6 +199,7 @@ def main():
     import chip_smoke as cs
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import fused_decode as fdl
+    from paddle_tpu_torch.ops import fused_mlp as fm
     from paddle_tpu_torch.ops import ragged_paged_attention as rpa
     if not fdl.__file__.startswith(COPY):
         raise SystemExit(f"probe: imported {fdl.__file__}")
@@ -238,6 +284,39 @@ def main():
             parts.append(f"{n} ({len(v)} blocks) {spread(v)}")
         print(f"ragged {str(dtype)[6:]} decode step: event {ms:.4f} ms; "
               + "; ".join(parts), flush=True)
+
+
+    llib = _build.load("fused_layernorm_bwd")
+    lnames = ("start", "first row in", "rows done", "block sum written",
+              "end (after the merge; none with one block)")
+    for n, xdt, pdt in cs.LN_BWD_CASES:
+        g = torch.Generator().manual_seed(n)
+        x = (torch.randn(n, 768, generator=g) * 2 + 0.5).to("cuda", xdt)
+        w = (1 + 0.1 * torch.randn(768, generator=g)).to("cuda", pdt)
+        b = (0.1 * torch.randn(768, generator=g)).to("cuda", pdt)
+        dy = torch.randn(n, 768, generator=g).to(
+            "cuda", torch.promote_types(xdt, pdt))
+        _, mu, rs = fm.fused_layernorm_reference(x, w, b)
+        ms = timer(lambda: fm.fused_layernorm_bwd(x, w, mu, rs, dy))
+        torch.cuda.synchronize()
+        llib.ln_bwd_stamps(None, 1)
+        once(lambda: fm.fused_layernorm_bwd(x, w, mu, rs, dy))
+        st = np.zeros((4096, 5), np.uint64)
+        err = llib.ln_bwd_stamps(ctypes.c_void_p(st.ctypes.data), 0)
+        if err:
+            raise SystemExit(f"probe: CUDA error {err}")
+        plan = fm.ln_bwd_plan(n, 768, xdt, _build.sms(x.device))
+        st = st.astype(np.int64).reshape(-1, 16, 5)[:plan.grid,
+                                                    :plan.warps]
+        st = st.reshape(-1, 5)
+        t0 = st[:, 0].min()
+        parts = []
+        for i, name in enumerate(lnames):
+            v = (st[:, i][st[:, i] > 0] - t0) / 1e3
+            parts.append(f"{name} ({len(v)} warps) {spread(v)}")
+        print(f"layernorm backward n={n} {str(xdt)[6:]}/{str(pdt)[6:]} "
+              f"grid={plan.grid}x{plan.warps} warps, k={plan.k}: event "
+              f"{ms:.4f} ms; " + "; ".join(parts), flush=True)
 
 
 if __name__ == "__main__":

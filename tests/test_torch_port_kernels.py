@@ -48,7 +48,14 @@ Tolerances against the plain version on the same inputs
   call on the CPU.
 - LayerNorm backward: each of dx, dw, db within 1e-5 of its sum over
   term magnitudes, plus one bf16 step for a bf16 output
-  (`tolerance.ln_bwd_limits`); a second launch bitwise equal.
+  (`tolerance.ln_bwd_limits`); a second launch bitwise equal; no rows,
+  one row, H = 2048 and 4096 and the wide design (H = 20000); rows off 16
+  bytes (H = 1002, and x, w, dy at an offset into their buffers); three
+  launches bitwise equal with both merge levels, the tickets left at
+  zero.
+- int8 paged-KV write: codes and scales bitwise the plain version's at
+  the decode step, the split edges, H = 16 D = 128 and a C = 512 chunk
+  over 33 blocks.
 - decode, fused decode layer, LayerNorm, FFN, float32: max absolute error
   2e-5 (FFN: 1e-5 max|ref|, sums over the intermediate); LayerNorm
   statistics 1e-5 relative.  bfloat16: one bf16 step of each output plus
@@ -307,10 +314,10 @@ def _chunk_case(c, pos0, bs, nb, h, d, seed):
     """One row writing C positions from pos0 (spanning several blocks,
     starting mid-block) beside one decode row and one padding row."""
     rng = np.random.RandomState(seed)
-    maxb = 8
+    need = -(-(pos0 + c) // bs)
+    maxb = max(8, need)
     tables = np.full((3, maxb), nb, np.int32)
     ids = rng.permutation(nb)
-    need = -(-(pos0 + c) // bs)
     tables[0, :need] = ids[:need]
     tables[1, :2] = ids[need:need + 2]
     p0 = np.array([pos0, 20, 0], np.int32)
@@ -325,14 +332,23 @@ def _chunk_case(c, pos0, bs, nb, h, d, seed):
             (nb, bs, h, d))
 
 
+# _chunk_case's (C, pos0, bs, nb, H, D, seed): a chunk over 4 blocks; the
+# engine's C = 512 chunk from mid-block (33 blocks); a decode step at
+# gpt3_1p3b's heads (H=16 D=128)
+INT8_CHUNKS = {"chunk": (40, 13, 16, 24, 2, 64, 7),
+               "chunk_512": (512, 13, 16, 48, 2, 64, 11),
+               "decode_h16_d128": (1, 700, 16, 64, 16, 128, 12)}
+
+
 @pytest.mark.cuda
 @pytest.mark.usefixtures("needs_cuda")
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", MIXES + ["chunk"] + sorted(SPLIT_EDGES))
+@pytest.mark.parametrize("case", MIXES + sorted(INT8_CHUNKS)
+                         + sorted(SPLIT_EDGES))
 def test_ragged_int8_kernel_matches_plain(case, dtype):
-    if case == "chunk":
+    if case in INT8_CHUNKS:
         q, kn, vn, tables, pos0, lens, slots, valid, qlens, geo = \
-            _chunk_case(40, 13, 16, 24, 2, 64, 7)
+            _chunk_case(*INT8_CHUNKS[case])
     elif case in SPLIT_EDGES:
         q, kn, vn, tables, pos0, lens, slots, valid, qlens, geo = \
             _edge_case(case)
@@ -797,7 +813,9 @@ def test_ffn_misaligned_slice_raises(bad, n):
                                      (torch.bfloat16, torch.bfloat16),
                                      (torch.bfloat16, torch.float32)])
 @pytest.mark.parametrize("n,hidden", [(8, 768), (200, 768), (8192, 768),
-                                      (100, 1000), (300, 4096), (64, 1002)])
+                                      (100, 1000), (300, 4096), (64, 1002),
+                                      (0, 768), (1, 768), (1, 1002),
+                                      (333, 2048), (40, 20000)])
 def test_layernorm_bwd_kernel_matches_plain(n, hidden, xdt, pdt):
     x = _randn((n, hidden), n, xdt, 2.0) + 0.5
     w = 1 + _randn((hidden,), n + 1, pdt, 0.1)
@@ -810,13 +828,72 @@ def test_layernorm_bwd_kernel_matches_plain(n, hidden, xdt, pdt):
     again = fm.fused_layernorm_bwd(x, w, mu, rs, dy)
     want = fm.fused_layernorm_bwd_reference(x, w, mu, rs, dy)
     torch.cuda.synchronize()
-    assert fm.ln_bwd.launches == 2
+    assert fm.ln_bwd.launches == (2 if n else 0)   # none for no rows
     assert [g.dtype for g in got] == [xdt, pdt, pdt]
     assert all(torch.equal(a, c) for a, c in zip(got, again))  # no atomics
     limits = tol.ln_bwd_limits(got, want, x, w, mu, rs, dy)
     for name, g, r, lim in zip(("dx", "dw", "db"), got, want, limits):
+        if not g.numel():                           # dx of no rows
+            continue
         err, ratio, ok = tol.compare(g, r, lim)
         assert ok, (name, err, ratio)
+
+
+def _offset(t, k):
+    """t's values in a contiguous tensor whose storage starts k elements
+    into its buffer (rows off 16 bytes where k * itemsize is not)."""
+    buf = torch.empty(t.numel() + k, dtype=t.dtype, device=t.device)
+    out = buf[k:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.usefixtures("needs_cuda")
+@pytest.mark.parametrize("xdt,pdt", [(torch.float32, torch.float32),
+                                     (torch.bfloat16, torch.bfloat16),
+                                     (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("n,hidden,k", [(100, 768, 1), (77, 1002, 3),
+                                        (5000, 768, 2)])
+def test_layernorm_bwd_kernel_offset_rows(n, hidden, k, xdt, pdt):
+    """x, dy and w at k elements into their buffers: every row starts off
+    16 bytes, so each takes a scalar head and tail (and dy, w the scalar
+    loads of chunks off 16 bytes); within the limits of the aligned
+    test, bitwise on a second launch."""
+    x = _offset(_randn((n, hidden), 5, xdt, 2.0) + 0.5, k)
+    w = _offset(1 + _randn((hidden,), 6, pdt, 0.1), k)
+    b = _randn((hidden,), 7, pdt, 0.1)
+    dy = _offset(_randn((n, hidden), 8, torch.promote_types(xdt, pdt)), k)
+    _, mu, rs = fm.fused_layernorm_reference(x, w, b)
+    got = fm.fused_layernorm_bwd(x, w, mu, rs, dy)
+    again = fm.fused_layernorm_bwd(x, w, mu, rs, dy)
+    want = fm.fused_layernorm_bwd_reference(x, w, mu, rs, dy)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    limits = tol.ln_bwd_limits(got, want, x, w, mu, rs, dy)
+    for name, g, r, lim in zip(("dx", "dw", "db"), got, want, limits):
+        err, ratio, ok = tol.compare(g, r, lim)
+        assert ok, (name, err, ratio)
+
+
+@pytest.mark.cuda
+@pytest.mark.usefixtures("needs_cuda")
+@pytest.mark.parametrize("n", [8192, 65536])
+def test_layernorm_bwd_kernel_deterministic(n):
+    """At the most blocks the plan takes (both merge levels), three
+    launches give the same bits and leave the tickets at zero."""
+    x = _randn((n, 768), 1, torch.bfloat16, 2.0)
+    w = 1 + _randn((768,), 2, torch.bfloat16, 0.1)
+    b = _randn((768,), 3, torch.bfloat16, 0.1)
+    dy = _randn((n, 768), 4, torch.bfloat16)
+    _, mu, rs = fm.fused_layernorm_reference(x, w, b)
+    plan = fm.ln_bwd_plan(n, 768, x.dtype, _build.sms(x.device))
+    assert plan.groups > 1
+    first = fm.fused_layernorm_bwd(x, w, mu, rs, dy)
+    for _ in range(2):
+        assert all(torch.equal(a, c) for a, c in zip(
+            first, fm.fused_layernorm_bwd(x, w, mu, rs, dy)))
+    assert not _build.tickets(x.device, plan.groups + 1).any()
 
 
 @pytest.mark.cuda
