@@ -53,13 +53,15 @@ Phases, in order; any failure exits non-zero and prints no result line:
      W = P (|dO|.|V|^T + |dO|.|out|) bounding ds = P (dP - delta) also
      where the difference cancels to fp32 noise (a query's first key).
    - the generate kernels, at GPT-2 124M's decode shapes (B=8, H=12, D=64,
-     S_max=1024): flash decode at lengths 1, 2, 255, 257 and 1024 (and H=16
-     D=128), with its split count and achieved GB/s (the bytes its bound
-     counts over its time), yardstick SDPA over the prefix; the fused
-     decode layer at t = 1, 127, 128, 129 (the edges of its runs of 32
-     keys), 511 and 1023 without and with a row mask, and at H=16 D=128
-     t=1023 (no yardstick), whose other ring rows must stay bitwise
-     unchanged; LayerNorm at 8 and 8192 rows of 768 and of 1002 (rows that
+     S_max=1024), each with its length or t in device memory as a
+     captured decode step passes it (and bitwise the int form's output):
+     flash decode at lengths 1, 2, 128, 129, 130, 255, 257, 512 and 1024
+     (t = 1, 127-129, 511 and 1023 among them; and H=16 D=128), with its
+     split count and achieved GB/s (the bytes its bound counts over its
+     time), yardstick SDPA over the prefix; the fused decode layer at
+     t = 1, 127, 128, 129 (the edges of its runs of 32 keys), 511 and 1023
+     without and with a row mask, and at H=16 D=128 t=1023 (no
+     yardstick), whose other ring rows must stay bitwise unchanged; LayerNorm at 8 and 8192 rows of 768 and of 1002 (rows that
      do not fall into 16-byte chunks), yardstick `F.layer_norm`, with its
      GB/s; FFN at 8, 256, 512, 1024 and 8192 rows, H=768 I=3072 gelu_tanh,
      gelu and relu at 8 and 512 rows, and at 1024 rows with I=3008 (a width
@@ -112,35 +114,47 @@ Phases, in order; any failure exits non-zero and prints no result line:
    served by `LLMEngine` with block_size 16, max_num_seqs 8,
    max_num_batched_tokens 512: five greedy prompts of 7, 64, 200, 384 and
    700 tokens, 32 new tokens each (the 700-token prompt runs as a (1, 512)
-   then a (1, 188) ragged chunk).  The float32 run on the card must give
-   exactly the tokens of the same engine on the CPU (plain versions), and
-   each kernel's launch count over the run must equal its expected count.
-   A bfloat16 run reports its agreement with float32 and its prefill and
-   decode tokens per second; 8 bfloat16 decode steps, timed alone and
-   then under torch.profiler, give the device's busy share of a step and
-   the top kernels.  Then the same with ``kv_cache_dtype="int8"``: fp32
-   card tokens equal to the CPU int8 run's, the int8 kernel launched 12 x
-   (decode + chunk steps) and the fp one never; bf16 reports its token
-   agreement with the bf16 fp engine, num_blocks at equal pool bytes,
-   tokens/s and a profiled decode window.
-4. Generate: GPT-2 124M, weights from seed 0, greedy, in the default
-   mode (flash decode per step) and the fused mode (PTPU_FUSED_DECODE=1
-   PTPU_PALLAS_FFN=1: fused layer, LN and FFN -- its decode design -- per
-   step).  float32, B=8,
-   prompt 256, 32 new tokens: the card's tokens must equal the CPU run's
-   in each mode, and each kernel's launches equal the expected count;
-   the fused-vs-default agreement is reported, not checked (the
-   arithmetic differs).  bfloat16, B=8, prompt 896, 128 new tokens
-   (S_max = 1024): decode tokens/s and ms per step (the time of a
-   prefill-only generate taken off), launches as expected (flash 12, and
-   12 x 127 of the decode kernel or of each fused kernel), the agreement,
-   and 8 decode steps timed alone and under torch.profiler per mode.
-   Padded prompts (`pad_token_id`; row r holds P - r (P // 8) tokens,
-   even rows right-, odd rows left-padded): float32 B=8 P=256 card
-   tokens equal to the CPU run's in both modes and the buffer
-   left-aligned, the masked forward launched 12 times per generate, the
-   decode kernel never (the masked branch, as in JAX), the fused kernels
-   12 x steps; bfloat16 P=896 + 128 new, ms per step per mode.
+   then a (1, 188) ragged chunk).  The decode steps run as one captured
+   CUDA graph (``("ragged", 8, 1)``; prefill and chunk steps eager).  The
+   float32 run on the card must give exactly the tokens of the same
+   engine on the CPU (plain versions), each kernel's launch count over
+   the run (replays counted) must equal its expected count, and the run
+   must capture exactly one graph.  A bfloat16 run, captured and again
+   eager (``PTPU_CUDA_GRAPHS=0``), must give identical tokens, each its
+   expected launches, one capture and none; it reports its agreement
+   with float32 and its prefill and decode tokens per second; 8 bfloat16
+   decode steps (after the step's warm-up and capture), timed alone and
+   then under torch.profiler, eager and captured in turns (eager,
+   captured, captured, eager), give wall and device ms a step, the
+   device's busy share and the top kernels.  Then the same with
+   ``kv_cache_dtype="int8"``: fp32 card tokens equal to the CPU int8
+   run's, the int8 kernel launched 12 x (decode + chunk steps) and the fp
+   one never; bf16 captured against eager, its token agreement with the
+   bf16 fp engine, num_blocks at equal pool bytes, tokens/s and the
+   profiled decode windows in turns.
+4. Generate: GPT-2 124M, weights from seed 0, greedy, each decode step
+   one captured CUDA graph, in six paths (`GEN_PATHS`): the stacked
+   layout in the default mode (flash decode per step) and the fused mode
+   (PTPU_FUSED_DECODE=1 PTPU_PALLAS_FFN=1: fused layer, LN and FFN -- its
+   decode design -- per step), each with prompts of one length and
+   padded (`pad_token_id`; row r holds P - r (P // 8) tokens, even rows
+   right-, odd rows left-padded: the masked forward launched 12 times
+   per generate, the decode kernel never -- the masked branch, as in JAX
+   -- the fused kernels 12 x steps), and the per-layer layout (the JAX
+   default) without flags and under PTPU_PALLAS_LN=1 PTPU_PALLAS_FFN=1
+   (25 LN and 12 FFN launches a forward besides 12 decode kernels a
+   step).  float32, B=8, prompt 256, 32 new tokens: the card's tokens
+   must equal the CPU run's on every path, each kernel's launches
+   (replays counted) the expected count, each path one capture, padded
+   buffers left-aligned; the fused-vs-default agreement is reported, not
+   checked (the arithmetic differs).  bfloat16, B=8, prompt 896, 128 new
+   tokens (S_max = 1024), eager and captured in turns (eager, captured,
+   captured, eager): identical tokens, launches as expected in every
+   turn, one capture a path (its host ms), decode tokens/s and ms per
+   step (the time of a prefill-only generate taken off), and 8 decode
+   steps as `generate` runs them (after the warm-up and capture) timed
+   alone and under torch.profiler, eager and captured: wall and device
+   ms a step and busy share.
 5. Training, float32, card against CPU: GPT-2 124M at full width and
    depth, weights from seed 0, one fixed random batch of B=1 S=1024,
    3 AdamW steps (lr 1e-4) through `model(ids)` ->
@@ -209,9 +223,10 @@ Two measuring modes, not part of the check:
 ``--probe`` checks and times the FFN's designs and the LayerNorm forward
 at GPT-2 124M's MLP, and the alternatives they were measured against,
 built from edited copies of their sources (`probe`).  ``--paths`` checks
-and times the ragged, fused-layer and flash decode kernels and the
-LayerNorm backward at the kernel phase's shapes (with a digest of the
-decode kernel's outputs), times
+and times the ragged, fused-layer and flash decode kernels (their int
+lengths, which a tree from before takes too) and the LayerNorm backward
+at the kernel phase's shapes (with a digest of the decode kernel's
+outputs), times
 fused-mode bf16 ``generate`` and the bf16 engine's decode steps (fp and
 int8 pools), host and device, and with ``--train`` the stacked bf16 and
 fp32 training steps and the per-layer fp32 step under the LN and FFN
@@ -327,6 +342,18 @@ GEN_MODES = {"default": {},
 TRAIN_MODES = {"flags": {"PTPU_PALLAS_LN": "1", "PTPU_PALLAS_FFN": "1"},
                "no_flags": {}}
 FLAGS = ("PTPU_FUSED_DECODE", "PTPU_PALLAS_FFN", "PTPU_PALLAS_LN")
+# the switch of the captured decode steps (paddle_tpu_torch.graphs)
+GRAPHS = "PTPU_CUDA_GRAPHS"
+# the dense generate paths: layout (stacked?), kernel flags (a key of
+# GEN_MODES, or "flags": TRAIN_MODES["flags"]), padded prompts
+GEN_PATHS = {"stacked default": (True, "default", False),
+             "stacked fused": (True, "fused", False),
+             "stacked default padded": (True, "default", True),
+             "stacked fused padded": (True, "fused", True),
+             "per-layer default": (False, "default", False),
+             "per-layer flags": (False, "flags", False)}
+# eager and captured decode steps, in turns
+TURNS = ("eager", "captured", "captured", "eager")
 
 
 def fail(msg):
@@ -1106,14 +1133,28 @@ def check_flash_variant(fa, tol, timer, kind, b, s, h, d, dtype, seed,
     return cases
 
 
-def check_decode(fd, tol, timer, b, s_max, h, d, length, dtype, seed):
+def device_int(n, on):
+    """``n`` as the int32 [1] tensor on the card that the decode steps
+    pass the kernels (``on``), else the int."""
+    return torch.tensor([n], dtype=torch.int32, device="cuda") if on else n
+
+
+def check_decode(fd, tol, timer, b, s_max, h, d, length, dtype, seed,
+                 device_len=True):
     """The flash-decode kernel against its plain version; q is the
-    [B, 1, H, D] slice of a fused qkv projection, as in the GPT block."""
+    [B, 1, H, D] slice of a fused qkv projection, as in the GPT block.
+    With ``device_len`` the kernel reads the length from the card, as in
+    a captured decode step, and must give the int form's bits too."""
     g = torch.Generator().manual_seed(seed)
     q = torch.randn(b, 1, 3, h, d, generator=g).to("cuda", dtype)[:, :, 0]
     kc, vc = (torch.randn(b, s_max, h * d, generator=g).to("cuda", dtype)
               for _ in range(2))
-    out = fd.flash_decode_arrays(q, kc, vc, length)
+    n = device_int(length, device_len)
+    out = fd.flash_decode_arrays(q, kc, vc, n)
+    if device_len and not torch.equal(
+            out, fd.flash_decode_arrays(q, kc, vc, length)):
+        fail(f"decode B={b} length={length} H={h} D={d} {dtype}: the "
+             f"device length's output differs from the int length's")
     want = fd.flash_decode_reference(q, kc, vc, length)
     limit = TOL_FP32 if dtype == torch.float32 else tol.decode_limit(
         out, want, q, kc, vc, length, d ** -0.5)
@@ -1121,7 +1162,7 @@ def check_decode(fd, tol, timer, b, s_max, h, d, length, dtype, seed):
     err, ratio = check_close(tol, out, want, limit,
                              f"decode B={b} length={length} H={h} D={d} "
                              f"{dtype}")
-    ms = timer(lambda: fd.flash_decode_arrays(q, kc, vc, length))
+    ms = timer(lambda: fd.flash_decode_arrays(q, kc, vc, n))
     plain_ms = timer(lambda: fd.flash_decode_reference(q, kc, vc, length))
     qt = q.transpose(1, 2)
     kt, vt = (c[:, :length].view(b, length, h, d).transpose(1, 2)
@@ -1132,7 +1173,8 @@ def check_decode(fd, tol, timer, b, s_max, h, d, length, dtype, seed):
     nbytes = 2 * b * h * d * item * (length + 1)   # K, V prefix; q, out
     bms, by = bound_ms(nbytes, 4 * b * h * d * length, dtype)
     splits = fd._lib().flash_decode_splits(length)
-    return dict(shape=f"B={b} S_max={s_max} length={length} H={h} D={d}",
+    return dict(shape=f"B={b} S_max={s_max} length={length} H={h} D={d}"
+                + (" device length" if device_len else ""),
                 dtype=str(dtype), max_abs_err=err, err_over_limit=ratio,
                 ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                 library_ms=lib_ms, tol=_tol_text(dtype, TOL_FP32),
@@ -1146,10 +1188,11 @@ def _tol_text(dtype, fp32):
 
 
 def check_fused_layer(fdl, tol, timer, b, h, d, s_max, t, masked, dtype,
-                      seed):
+                      seed, device_len=True):
     """The fused decode layer against its plain version: y and the
     written rows within their limits, every other ring row bitwise
-    unchanged."""
+    unchanged.  With ``device_len`` the kernel reads t from the card, as
+    in a captured decode step, and must give the int form's bits too."""
     hd = h * d
     g = torch.Generator().manual_seed(seed)
 
@@ -1165,8 +1208,18 @@ def check_fused_layer(fdl, tol, timer, b, h, d, s_max, t, masked, dtype,
         mask = torch.where(torch.rand(b, s_max, generator=g) < 0.3, -1e30,
                            0.0).cuda()
     kr, vr = kc.clone(), vc.clone()
-    y, _, _ = fdl.fused_decode_layer_arrays(*args, kc, vc, t, h,
+    ki, vi = kc.clone(), vc.clone()
+    n = device_int(t, device_len)
+    y, _, _ = fdl.fused_decode_layer_arrays(*args, kc, vc, n, h,
                                             cache_mask=mask)
+    if device_len:
+        yi, _, _ = fdl.fused_decode_layer_arrays(*args, ki, vi, t, h,
+                                                 cache_mask=mask)
+        if not (torch.equal(y, yi) and torch.equal(kc, ki)
+                and torch.equal(vc, vi)):
+            fail(f"fused layer B={b} hd={hd} t={t} {dtype}: the device "
+                 f"t's output differs from the int t's")
+    del ki, vi
     plain = fdl.fused_decode_plain(*args, kr, vr, t, h, cache_mask=mask)
     yr, _, _ = fdl.fused_decode_layer_reference(*args, kr, vr, t, h,
                                                 cache_mask=mask)
@@ -1186,7 +1239,7 @@ def check_fused_layer(fdl, tol, timer, b, h, d, s_max, t, masked, dtype,
                                      ("v", vc[:, t], vr[:, t]))]
     # repeating writes the same row: idempotent
     ms = timer(lambda: fdl.fused_decode_layer_arrays(
-        *args, kc, vc, t, h, cache_mask=mask))
+        *args, kc, vc, n, h, cache_mask=mask))
     plain_ms = timer(lambda: fdl.fused_decode_layer_reference(
         *args, kr, vr, t, h, cache_mask=mask))
     item = y.element_size()
@@ -1197,7 +1250,8 @@ def check_fused_layer(fdl, tol, timer, b, h, d, s_max, t, masked, dtype,
     flops = 8 * b * hd * hd + 4 * b * t * hd
     bms, by = bound_ms(nbytes, flops, dtype)
     return dict(shape=f"B={b} hd={hd} H={h} S_max={s_max} t={t} "
-                f"mask={masked}", dtype=str(dtype),
+                f"mask={masked}" + (" device t" if device_len else ""),
+                dtype=str(dtype),
                 max_abs_err=max(e for e, _ in checks),
                 err_over_limit=max(r for _, r in checks), ms=ms,
                 plain_ms=plain_ms, bound_ms=bms, bound_by=by,
@@ -1345,6 +1399,21 @@ PROMPT_LENS = (7, 64, 200, 384, 700)
 NEW_TOKENS = 32
 
 
+@contextlib.contextmanager
+def graphs_env(on):
+    """Decode steps captured as CUDA graphs (``on``) or run eagerly
+    (``PTPU_CUDA_GRAPHS=0``)."""
+    saved = os.environ.get(GRAPHS)
+    os.environ[GRAPHS] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop(GRAPHS, None)
+        else:
+            os.environ[GRAPHS] = saved
+
+
 def serve(model, prompts, device, dtype, ops=None, kv_cache_dtype=None):
     """Run the engine to completion; returns (outputs, engine, launches,
     per-kind seconds and tokens)."""
@@ -1381,7 +1450,31 @@ def serve(model, prompts, device, dtype, ops=None, kv_cache_dtype=None):
     outs = [eng.request_output(i) for i in ids]
     for i in ids:
         eng.release_request(i)
+    step = getattr(eng, "_steps", {}).get(("ragged", 8, 1))
+    stats["captures"] = dict(getattr(eng, "compiles", {}))
+    stats["capture_ms"] = None if step is None else step.run.capture_ms
     return outs, eng, launches, stats
+
+
+def serve_turns(model, prompts, dtype, ops, kv_cache_dtype, what, bf16):
+    """The engine's bf16 run eager and captured on the card: identical
+    tokens, each the expected launches (replays counted), one capture in
+    the captured run and none in the eager one.  Returns the captured
+    run's (outputs, engine, launches, stats) and the eager run's stats."""
+    runs = {}
+    for turn in ("eager", "captured"):
+        with graphs_env(turn == "captured"):
+            runs[turn] = serve(model, prompts, "cuda", dtype, ops,
+                               kv_cache_dtype)
+        check_launches(runs[turn][1], runs[turn][2], f"{what} ({turn})",
+                       bf16=bf16, captured=turn == "captured")
+    for i, (a, b) in enumerate(zip(runs["eager"][0], runs["captured"][0])):
+        if not np.array_equal(a, b):
+            first = int(np.nonzero(a != b)[0][0]) if a.shape == b.shape \
+                else -1
+            fail(f"{what} request {i}: captured tokens differ from the "
+                 f"eager run at position {first}")
+    return runs["captured"], runs["eager"][3]
 
 
 def device_table(prof, steps):
@@ -1414,12 +1507,14 @@ def device_table(prof, steps):
 
 
 def profile_decode(model, prompts, dtype, steps=8, kv_cache_dtype=None):
-    """Decode steps 1..`steps` (all prompts already prefilled), run twice on
+    """Decode steps 3..`steps` + 2 (all prompts already prefilled; the
+    first two are the captured step's warm-up and capture), run twice on
     fresh engines: once timed on the host clock alone, once under
     torch.profiler.  Returns wall ms per step both ways, the device ms per
     step and device ops (kernels, copies) per step from the profile, the
     top ones by device time, and the device's busy share of the
-    unprofiled step (the profiler's own host cost lengthens its steps)."""
+    unprofiled step (the profiler's own host cost lengthens its steps),
+    with the engine's captures."""
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.serving import EngineConfig, LLMEngine, \
         SamplingParams
@@ -1430,7 +1525,7 @@ def profile_decode(model, prompts, dtype, steps=8, kv_cache_dtype=None):
             device="cuda", dtype=dtype, kv_cache_dtype=kv_cache_dtype))
         ids = [eng.add_request(p, SamplingParams(max_new_tokens=NEW_TOKENS))
                for p in prompts]
-        while eng.step_counts["decode"] == 0:
+        while eng.step_counts["decode"] < 2:
             eng.step()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -1449,14 +1544,44 @@ def profile_decode(model, prompts, dtype, steps=8, kv_cache_dtype=None):
             "device_busy_share": device_ms / wall[False],
             "device_ms_per_step": device_ms,
             "device_ops_per_step": n_ops, "top": top,
-            "ms_per_step_by_group": groups}
+            "ms_per_step_by_group": groups,
+            "captures": dict(getattr(eng, "compiles", {}))}
 
 
-def check_launches(eng, launches, what, bf16=False):
+def profile_turns(profile, what, card):
+    """``profile()`` (a `profile_decode` or `profile_generate`) eager and
+    captured in `TURNS`; prints and returns the turns."""
+    turns = []
+    for turn in TURNS:
+        with graphs_env(turn == "captured"):
+            pr = profile()
+        pr["turn"] = turn
+        turns.append(pr)
+        if pr["device_ms_per_step"] > 0:
+            print(f"{what} {turn}: wall {pr['wall_ms_per_step']:.3f} ms a "
+                  f"step ({pr['profiled_wall_ms_per_step']:.3f} under the "
+                  f"profiler), device {pr['device_ms_per_step']:.3f} ms, busy "
+                  f"{pr['device_busy_share']:.3f}, "
+                  f"{pr['device_ops_per_step']:.1f} device ops a step, "
+                  f"captures {pr['captures']} ({card}); by group (ms) "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in
+                              pr["ms_per_step_by_group"].items())
+                  + "; top: " + "; ".join(
+                      f"{t['name'][:40]} {t['ms_per_step']:.4f} ms"
+                      for t in pr["top"][:5]), flush=True)
+        else:
+            print(f"{what} {turn}: wall {pr['wall_ms_per_step']:.3f} ms a "
+                  f"step; the profiler recorded no device time (not "
+                  f"measured)", flush=True)
+    return turns
+
+
+def check_launches(eng, launches, what, bf16=False, captured=True):
     """One flash prefill per layer and prefill step (in bf16 the
     tensor-core kernel), one ragged launch per layer and decode or chunk
     step, of the int8 entry for int8 pools and of the fp one otherwise;
-    nothing else."""
+    nothing else.  The decode steps ran as one captured graph (its
+    replays counted) where ``captured``, eagerly otherwise."""
     layers = eng.cfg.num_hidden_layers
     ragged = layers * (eng.step_counts["decode"] + eng.step_counts["chunk"])
     want = dict.fromkeys(KERNELS, 0)
@@ -1469,6 +1594,9 @@ def check_launches(eng, launches, what, bf16=False):
     if eng.step_counts["chunk"] != 2:
         fail(f"{what}: expected the 700-token prompt in 2 ragged chunks, "
              f"got {eng.step_counts}")
+    if eng.compiles != ({"ragged": 1} if captured else {}):
+        fail(f"{what}: captures {eng.compiles}, expected "
+             f"{'one decode graph' if captured else 'none'}")
     return want
 
 
@@ -1502,20 +1630,29 @@ def ffn_counter(rows, cfg, dtype):
 
 
 def check_gen_launches(launches, mode, cfg, batch, steps, what, padded=False,
-                       bf16=False):
+                       bf16=False, prompt=None):
     """One flash prefill per layer (the masked branch for padded prompts;
     in bf16 the tensor-core kernel); per decode step and layer the decode
     kernel (default) or the fused layer, LN and FFN (fused; the FFN's
     design for ``batch`` rows: the decode design); nothing else.  A padded
-    default step takes the masked branch, as in JAX: no decode kernel."""
+    default step takes the masked branch, as in JAX: no decode kernel.
+    Mode "flags" (the per-layer layout under the LN and FFN flags): the
+    default's launches, and per forward (the prefill of ``prompt`` rows a
+    batch row, then each step) two LayerNorms a layer and ``ln_f`` and
+    the FFN of each layer, the FFN on the design its rows take."""
     layers = cfg.num_hidden_layers
+    dtype = torch.bfloat16 if bf16 else torch.float32
     want = dict.fromkeys(KERNELS, 0)
     want[FWD_MASK if padded else FWD] = layers
-    ffn = ffn_counter(batch, cfg, torch.bfloat16 if bf16 else torch.float32)
+    ffn = ffn_counter(batch, cfg, dtype)
     names = (FUSED, LN, ffn) if mode == "fused" else (
         () if padded else (DECODE,))
     for name in names:
         want[name] = layers * steps
+    if mode == "flags":
+        want[LN] = (2 * layers + 1) * (steps + 1)
+        want[ffn] += layers * steps
+        want[ffn_counter(batch * prompt, cfg, dtype)] += layers
     with_tc(want, bf16)
     if launches != want:
         fail(f"{what}: launches {launches}, expected {want}")
@@ -1544,34 +1681,54 @@ def padded_ids(rng, vocab, batch, prompt):
     return torch.from_numpy(ids)
 
 
-def generate_fp32_card_vs_cpu(ops, cfg, batch=8, prompt=256, new=32):
-    """Greedy fp32 generate in both modes on the card (kernels) and on the
-    CPU (plain versions), unpadded and with padded prompts
-    (`padded_ids`, pad_token_id=PAD): the tokens must be identical in each
-    mode."""
+def gen_env(mode):
+    """The kernel flags of a generate mode (`GEN_PATHS`)."""
+    return TRAIN_MODES["flags"] if mode == "flags" else GEN_MODES[mode]
+
+
+def _captures(model):
+    return dict(getattr(model, "compiles", {}))
+
+
+def generate_fp32_card_vs_cpu(ops, cfg, cfg_pl, batch=8, prompt=256,
+                              new=32):
+    """Greedy fp32 generate of every `GEN_PATHS` path (the stacked
+    ``cfg`` and the per-layer ``cfg_pl``) on the card, its decode steps
+    captured, and on the CPU (plain versions), padded paths on
+    `padded_ids` with pad_token_id=PAD: the tokens must be identical, the
+    card's launches (replays counted) as expected, and each path one
+    capture."""
     from paddle_tpu_torch.models import GPTForCausalLM
     rng = np.random.RandomState(3)
     ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (batch, prompt))
                            .astype(np.int32))
     pids = padded_ids(rng, cfg.vocab_size, batch, prompt)
-    models = {dev: GPTForCausalLM(cfg, device=dev,
-                                  generator=torch.Generator().manual_seed(0))
-              for dev in ("cuda", "cpu")}
+    models = {}
     rec, toks = {}, {}
-    for mode, padded in [(m, p) for p in (False, True) for m in GEN_MODES]:
+    for path, (stacked, mode, padded) in GEN_PATHS.items():
+        if stacked not in models:
+            models.clear()
+            models[stacked] = {dev: GPTForCausalLM(
+                cfg if stacked else cfg_pl, device=dev,
+                generator=torch.Generator().manual_seed(0))
+                for dev in ("cuda", "cpu")}
         out, secs, launches = {}, {}, {}
         kw = {"pad_token_id": PAD} if padded else {}
-        with flag_env(GEN_MODES[mode]):
-            for dev, model in models.items():
+        before = _captures(models[stacked]["cuda"])
+        with flag_env(gen_env(mode)):
+            for dev, model in models[stacked].items():
                 ops.reset_launch_counts()
                 t0 = time.perf_counter()
                 out[dev] = model.generate((pids if padded else ids).to(dev),
                                           max_new_tokens=new, **kw).cpu()
                 secs[dev] = time.perf_counter() - t0
                 launches[dev] = ops.launch_counts()
-        what = f"float32 {'padded ' if padded else ''}generate ({mode})"
+        what = f"float32 generate ({path})"
+        after = _captures(models[stacked]["cuda"])
+        if after.get("decode", 0) != before.get("decode", 0) + 1:
+            fail(f"{what}: captures {before} -> {after}, expected one")
         want = check_gen_launches(launches["cuda"], mode, cfg, batch,
-                                  new - 1, what, padded)
+                                  new - 1, what, padded, prompt=prompt)
         if set(launches["cpu"].values()) != {0}:
             fail(f"{what} on the CPU launched kernels: {launches['cpu']}")
         g, c = out["cuda"], out["cpu"]
@@ -1581,46 +1738,71 @@ def generate_fp32_card_vs_cpu(ops, cfg, batch=8, prompt=256, new=32):
             r, j = (int(i) for i in torch.nonzero(g != c)[0])
             fail(f"{what}: card tokens differ from the CPU run at row {r} "
                  f"position {j} (card {int(g[r, j])}, CPU {int(c[r, j])})")
-        key = mode + ("_padded" if padded else "")
-        toks[key] = g
-        rec[key] = {"card_s": secs["cuda"], "cpu_s": secs["cpu"],
-                    "launches": launches["cuda"], "expected": want}
+        toks[path] = g
+        rec[path] = {"card_s": secs["cuda"], "cpu_s": secs["cpu"],
+                     "launches": launches["cuda"], "expected": want}
     for r, row in enumerate(pids):                # [pads | prompt | new]
         real = row[row != PAD]
-        got = toks["default_padded"][r, :prompt]
+        got = toks["stacked default padded"][r, :prompt]
         if not (torch.equal(got[prompt - len(real):], real)
                 and bool((got[:prompt - len(real)] == PAD).all())):
             fail(f"float32 padded generate: row {r} is not left-aligned")
     rec["fused_vs_default_token_agreement"] = _agreement(
-        toks["fused"], toks["default"], prompt)
+        toks["stacked fused"], toks["stacked default"], prompt)
     rec["padded_fused_vs_default_token_agreement"] = _agreement(
-        toks["fused_padded"], toks["default_padded"], prompt)
+        toks["stacked fused padded"], toks["stacked default padded"],
+        prompt)
     rec["batch"] = f"B={batch} prompt={prompt} new={new}"
     return rec
 
 
-def profile_generate(model, ids, steps=8):
-    """Decode steps 1..`steps` after a prefill, through the port's cached
-    forward and greedy argmax (what `generate` runs per token), twice:
-    timed alone on the host clock, then under torch.profiler.  Returns
-    wall ms per step both ways and the device table of the profiled
-    window; the busy share is of the unprofiled step."""
+def profile_generate(model, ids, steps=8, pad_token_id=None):
+    """Decode steps 3..`steps` + 2 after a prefill, as `generate` runs
+    them (the key's static-buffer step, then greedy argmax; the first two
+    steps are its warm-up and capture), twice: timed alone on the host
+    clock, then under torch.profiler.  Returns wall ms per step both
+    ways and the device table of the profiled window; the busy share is
+    of the unprofiled step.  A tree from before the captured steps steps
+    `_forward_cached` itself (unpadded only)."""
     from torch.profiler import ProfilerActivity, profile
     b, p = ids.shape
     wall = {}
+    decode_step = getattr(model, "_decode_step", None)
     for profiled in (False, True):
-        caches = model.init_caches(b, p + steps + 1)
         with torch.no_grad():
-            tok = torch.argmax(model._forward_cached(ids, caches, 0, True), -1)
+            if decode_step is None:
+                caches = model.init_caches(b, p + steps + 2)
+                logits = model._forward_cached(ids, caches, 0, True)
+
+                def one(tok, i):
+                    return model._forward_cached(tok[:, None], caches,
+                                                 p + i, False)
+            else:
+                from paddle_tpu_torch.models.gpt import _left_pad
+                st = decode_step(b, p + steps + 2, pad_token_id is not None)
+                x, pos, mask = ids, None, None
+                if pad_token_id is not None:
+                    x, shift, pos, mask = _left_pad(
+                        ids, pad_token_id, st.caches[0][0].shape[1])
+                    st.shift.copy_(shift)
+                    st.mask.copy_(mask)
+                logits = model._forward_cached(x, st.caches, 0, True, pos,
+                                               mask)
+                st.t.fill_(p)
+
+                def one(tok, i):
+                    st.tok.copy_(tok[:, None])
+                    return st.run()
+            tok = torch.argmax(logits, -1)
+            for i in range(2):
+                tok = torch.argmax(one(tok, i), -1)
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) if profiled \
                     else contextlib.nullcontext() as prof:
                 t0 = time.perf_counter()
-                for i in range(steps):
-                    logits = model._forward_cached(tok[:, None], caches,
-                                                   p + i, False)
-                    tok = torch.argmax(logits, -1)
+                for i in range(2, steps + 2):
+                    tok = torch.argmax(one(tok, i), -1)
                 torch.cuda.synchronize()
                 wall[profiled] = (time.perf_counter() - t0) * 1e3 / steps
     device_ms, n_ops, top, groups = device_table(prof, steps)
@@ -1629,81 +1811,107 @@ def profile_generate(model, ids, steps=8):
             "device_busy_share": device_ms / wall[False],
             "device_ms_per_step": device_ms,
             "device_ops_per_step": n_ops, "top": top,
-            "ms_per_step_by_group": groups}
+            "ms_per_step_by_group": groups, "captures": _captures(model)}
 
 
-def generate_bf16(ops, cfg, batch=8, prompt=896, new=128):
-    """bf16 generate at GPT-2's full context in both modes: decode
-    tokens/s (the prefill-only generate's time taken off), launch counts,
-    the fused-vs-default agreement and a profiled window per mode; then
-    the same timing with padded prompts (`padded_ids`).  Returns the
-    record and the launches of each mode's timed run (padded ones keyed
-    ``<mode>_padded``)."""
+def generate_bf16(ops, cfg, cfg_pl, card, batch=8, prompt=896, new=128):
+    """bf16 generate at GPT-2's full context, every `GEN_PATHS` path
+    (per-layer: ``cfg_pl``), eager and captured in `TURNS`: decode ms per
+    step (the time of a prefill-only generate taken off), launches as
+    expected in every turn (replays counted), captured tokens identical
+    to eager ones, one capture per path (its capture ms), and a profiled
+    window per path and turn kind.  Returns the record and the launches
+    of each path's captured run."""
     from paddle_tpu_torch.models import GPTForCausalLM
     rng = np.random.RandomState(4)
     ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (batch, prompt))
                            .astype(np.int32)).cuda()
     pids = padded_ids(rng, cfg.vocab_size, batch, prompt).cuda()
-    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
-                           generator=torch.Generator().manual_seed(0))
-    rec, toks, path = {}, {}, {}
-    for mode in GEN_MODES:
-        with flag_env(GEN_MODES[mode]):
-            model.generate(ids[:, :64], max_new_tokens=4)       # warm-up
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            model.generate(ids, max_new_tokens=1)
-            torch.cuda.synchronize()
-            prefill_s = time.perf_counter() - t0
-            ops.reset_launch_counts()
-            t0 = time.perf_counter()
-            toks[mode] = model.generate(ids, max_new_tokens=new)
-            torch.cuda.synchronize()
-            total_s = time.perf_counter() - t0
-            path[mode] = ops.launch_counts()
-            check_gen_launches(path[mode], mode, cfg, batch, new - 1,
-                               f"bfloat16 generate ({mode})", bf16=True)
-            decode_s = total_s - prefill_s
-            rec[mode] = {"total_s": total_s, "prefill_s": prefill_s,
-                         "decode_ms_per_step": decode_s * 1e3 / (new - 1),
-                         "decode_tok_s": batch * (new - 1) / decode_s,
-                         "launches": path[mode],
-                         "profile": profile_generate(model, ids)}
-        if toks[mode].shape != (batch, prompt + new):
-            fail(f"bfloat16 generate ({mode}): output "
-                 f"{tuple(toks[mode].shape)}")
-    for mode in GEN_MODES:
-        key, kw = mode + "_padded", {"pad_token_id": PAD}
-        with flag_env(GEN_MODES[mode]):
-            model.generate(pids[:, -64:], max_new_tokens=4, **kw)  # warm-up
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            model.generate(pids, max_new_tokens=1, **kw)
-            torch.cuda.synchronize()
-            prefill_s = time.perf_counter() - t0
-            ops.reset_launch_counts()
-            t0 = time.perf_counter()
-            toks[key] = model.generate(pids, max_new_tokens=new, **kw)
-            torch.cuda.synchronize()
-            total_s = time.perf_counter() - t0
-            path[key] = ops.launch_counts()
-            check_gen_launches(path[key], mode, cfg, batch, new - 1,
-                               f"bfloat16 padded generate ({mode})",
-                               padded=True, bf16=True)
-            decode_s = total_s - prefill_s
-            rec[key] = {"total_s": total_s, "prefill_s": prefill_s,
-                        "decode_ms_per_step": decode_s * 1e3 / (new - 1),
-                        "decode_tok_s": batch * (new - 1) / decode_s,
-                        "launches": path[key]}
-        if toks[key].shape != (batch, prompt + new):
-            fail(f"bfloat16 padded generate ({mode}): output "
-                 f"{tuple(toks[key].shape)}")
+    models = {}
+    rec, toks, path_launches = {}, {}, {}
+    for path, (stacked, mode, padded) in GEN_PATHS.items():
+        if stacked not in models:
+            models.clear()
+            torch.cuda.empty_cache()
+            models[stacked] = GPTForCausalLM(
+                cfg if stacked else cfg_pl, device="cuda",
+                dtype=torch.bfloat16,
+                generator=torch.Generator().manual_seed(0))
+        model = models[stacked]
+        x = pids if padded else ids
+        kw = {"pad_token_id": PAD} if padded else {}
+        what = f"bfloat16 generate ({path})"
+        r = rec[path] = {"turns": []}
+        before = _captures(model)
+        with flag_env(gen_env(mode)):
+            model.generate(x, max_new_tokens=3, **kw)   # warm-up, capture
+            for turn in TURNS:
+                with graphs_env(turn == "captured"):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    model.generate(x, max_new_tokens=1, **kw)
+                    torch.cuda.synchronize()
+                    prefill_s = time.perf_counter() - t0
+                    ops.reset_launch_counts()
+                    t0 = time.perf_counter()
+                    out = model.generate(x, max_new_tokens=new, **kw)
+                    torch.cuda.synchronize()
+                    total_s = time.perf_counter() - t0
+                    launches = ops.launch_counts()
+                check_gen_launches(launches, mode, cfg, batch, new - 1,
+                                   f"{what} {turn}", padded, bf16=True,
+                                   prompt=prompt)
+                if out.shape != (batch, prompt + new):
+                    fail(f"{what}: output {tuple(out.shape)}")
+                first = toks.setdefault(path, out)     # the eager turn's
+                if not torch.equal(out, first):
+                    r_, j = (int(i) for i in torch.nonzero(out != first)[0])
+                    fail(f"{what}: {turn} tokens differ from the eager "
+                         f"run's at row {r_} position {j}")
+                if turn == "captured":
+                    path_launches[path] = launches
+                decode_s = total_s - prefill_s
+                r["turns"].append({
+                    "turn": turn, "total_s": total_s,
+                    "prefill_s": prefill_s,
+                    "decode_ms_per_step": decode_s * 1e3 / (new - 1),
+                    "decode_tok_s": batch * (new - 1) / decode_s})
+            r["profile"] = {}
+            for turn in ("eager", "captured"):
+                with graphs_env(turn == "captured"):
+                    r["profile"][turn] = profile_generate(
+                        model, x, pad_token_id=kw.get("pad_token_id"))
+            step = model._decode_step(batch, prompt + new, padded)
+        after = _captures(model)
+        if after.get("decode", 0) != before.get("decode", 0) + 1:
+            fail(f"{what}: captures {before} -> {after}, expected one")
+        r["capture_ms"] = step.run.capture_ms
+        r["launches"] = path_launches[path]
+        r["replay_launches"] = step.run.launches
+        ms = {t: [x_["decode_ms_per_step"] for x_ in r["turns"]
+                  if x_["turn"] == t] for t in ("eager", "captured")}
+        pe, pc = r["profile"]["eager"], r["profile"]["captured"]
+        print(f"{what} B={batch} {prompt}+{new}: decode ms a step eager "
+              + " / ".join(f"{v:.3f}" for v in ms["eager"]) + ", captured "
+              + " / ".join(f"{v:.3f}" for v in ms["captured"])
+              + f"; profiled window wall {pe['wall_ms_per_step']:.3f} / "
+              f"{pc['wall_ms_per_step']:.3f}, device "
+              f"{pe['device_ms_per_step']:.3f} / "
+              f"{pc['device_ms_per_step']:.3f} ms, busy "
+              f"{pe['device_busy_share']:.3f} / "
+              f"{pc['device_busy_share']:.3f} (eager / captured); 1 "
+              f"capture of {r['capture_ms']:.1f} ms; tokens identical; "
+              f"launches {{{', '.join(f'{k}: {n}' for k, n in r['launches'].items() if n)}}} "
+              f"({card})", flush=True)
     rec["fused_vs_default_token_agreement"] = _agreement(
-        toks["fused"], toks["default"], prompt)
+        toks["stacked fused"], toks["stacked default"], prompt)
     rec["padded_fused_vs_default_token_agreement"] = _agreement(
-        toks["fused_padded"], toks["default_padded"], prompt)
+        toks["stacked fused padded"], toks["stacked default padded"],
+        prompt)
+    rec["per_layer_flags_vs_default_token_agreement"] = _agreement(
+        toks["per-layer flags"], toks["per-layer default"], prompt)
     rec["batch"] = f"B={batch} prompt={prompt} new={new} (S_max=1024)"
-    return rec, path
+    return rec, path_launches
 
 
 # ---------------------------------------------------------------------------
@@ -2224,7 +2432,9 @@ def main():
                     bwd=bwd).items():
                 cases[name].append(c)
             torch.cuda.empty_cache()
-        for length in (1, 2, 255, 257, 1024):
+        # t = 1, 127-129, 511, 1023 (lengths t + 1), one split and the
+        # split edges
+        for length in (1, 2, 128, 129, 130, 255, 257, 512, 1024):
             cases[DECODE].append(check_decode(fd, tol, timer, 8, 1024, 12,
                                               64, length, dtype, length))
         cases[DECODE].append(check_decode(fd, tol, timer, 8, 1024, 16, 128,
@@ -2279,12 +2489,12 @@ def main():
                  f"tokens differ from the CPU run at position {first} "
                  f"(GPU {g[first]}, CPU {c[first]})")
     print(f"engine float32: tokens identical to the CPU run for "
-          f"{len(prompts)} requests; launches {launches} == expected; "
-          f"steps {eng32.step_counts}", flush=True)
+          f"{len(prompts)} requests, decode steps captured (1 graph, "
+          f"{st32['capture_ms']:.1f} ms); launches {launches} == expected "
+          f"(replays counted); steps {eng32.step_counts}", flush=True)
     serve(model, prompts[:2], "cuda", torch.bfloat16)          # warm-up
-    gpu16, eng16, launches16, st16 = serve(model, prompts, "cuda",
-                                           torch.bfloat16, ops)
-    check_launches(eng16, launches16, "bfloat16 engine", bf16=True)
+    (gpu16, eng16, launches16, st16), st16_eager = serve_turns(
+        model, prompts, torch.bfloat16, ops, None, "bfloat16 engine", True)
     agree, first_diff = 0, []
     for p, a, b in zip(prompts, gpu32, gpu16):
         ga, gb = a[len(p):], b[len(p):]
@@ -2293,39 +2503,29 @@ def main():
         first_diff.append(int(diff[0]) if diff.size else None)
     total = NEW_TOKENS * len(prompts)
     engine = {}
-    for name, st in (("float32", st32), ("bfloat16", st16)):
+    for name, st in (("float32", st32), ("bfloat16", st16),
+                     ("bfloat16_eager", st16_eager)):
         engine[name] = dict(
             st, prefill_tok_s=st["prefill_tokens"] / st["prefill_s"],
             decode_tok_s=st["decode_tokens"] / st["decode_s"])
     engine["bf16_vs_fp32_token_agreement"] = agree / total
     engine["bf16_first_diff_per_request"] = first_diff
     engine["launches_fp32"] = launches
+    engine["launches_bf16"] = launches16
     engine["steps"] = eng32.step_counts
     result["engine"] = engine
-    for name in ("float32", "bfloat16"):
+    for name in ("float32", "bfloat16", "bfloat16_eager"):
         e = engine[name]
         print(f"engine {name}: prefill {e['prefill_tok_s']:.1f} tok/s "
               f"({e['prefill_tokens']} tokens), decode "
-              f"{e['decode_tok_s']:.1f} tok/s ({e['decode_tokens']} tokens)",
-              flush=True)
-    print(f"engine bfloat16 vs float32: {agree}/{total} generated tokens "
-          f"agree; first difference per request {first_diff}", flush=True)
-
-    prof = profile_decode(model, prompts, torch.bfloat16)
-    result["decode_profile_bf16"] = prof
-    if prof["device_ms_per_step"] > 0:
-        print(f"decode profile bfloat16: {prof['wall_ms_per_step']:.3f} ms "
-              f"per step ({prof['profiled_wall_ms_per_step']:.3f} under the "
-              f"profiler), device {prof['device_ms_per_step']:.3f} ms, "
-              f"busy {prof['device_busy_share']:.3f} of the unprofiled "
-              f"step, "
-              f"{prof['device_ops_per_step']:.1f} device ops (kernels, "
-              f"copies) per step; top: " + "; ".join(
-                  f"{t['name'][:40]} {t['ms_per_step']:.4f} ms"
-                  for t in prof["top"][:6]), flush=True)
-    else:
-        print("decode profile bfloat16: the profiler recorded no device "
-              "time (not measured)", flush=True)
+              f"{e['decode_tok_s']:.1f} tok/s ({e['decode_tokens']} tokens)"
+              f", captures {e['captures']}", flush=True)
+    print(f"engine bfloat16: captured tokens identical to the eager run; "
+          f"vs float32: {agree}/{total} generated tokens agree; first "
+          f"difference per request {first_diff}", flush=True)
+    result["decode_profile_bf16"] = profile_turns(
+        lambda: profile_decode(model, prompts, torch.bfloat16),
+        "engine decode profile bfloat16, fp pools", card)
 
     mark("3 engine")
 
@@ -2342,9 +2542,9 @@ def main():
             fail(f"int8 engine request {i}: GPU float32 tokens differ from "
                  f"the CPU run at position {first}")
     serve(model, prompts[:2], "cuda", torch.bfloat16, None, "int8")  # warm-up
-    gpu8b, eng8b, launches8b, st8b = serve(model, prompts, "cuda",
-                                           torch.bfloat16, ops, "int8")
-    check_launches(eng8b, launches8b, "int8 bfloat16 engine", bf16=True)
+    (gpu8b, eng8b, launches8b, st8b), st8b_eager = serve_turns(
+        model, prompts, torch.bfloat16, ops, "int8", "int8 bfloat16 engine",
+        True)
     gen = NEW_TOKENS * len(prompts)
     int8 = {
         "num_blocks": {"float32": eng8.cache.num_blocks,
@@ -2361,99 +2561,58 @@ def main():
             int((a[len(p):] == b[len(p):]).sum())
             for p, a, b in zip(prompts, gpu8, gpu32)) / gen,
         "launches_fp32": launches8, "steps": eng8.step_counts}
-    for name, st in (("float32", st8), ("bfloat16", st8b)):
+    for name, st in (("float32", st8), ("bfloat16", st8b),
+                     ("bfloat16_eager", st8b_eager)):
         int8[name] = dict(
             st, prefill_tok_s=st["prefill_tokens"] / st["prefill_s"],
             decode_tok_s=st["decode_tokens"] / st["decode_s"])
-    int8["decode_profile_bf16"] = prof8 = profile_decode(
-        model, prompts, torch.bfloat16, kv_cache_dtype="int8")
     result["engine_int8"] = int8
     print(f"engine int8 float32: tokens identical to the CPU run for "
-          f"{len(prompts)} requests; launches {launches8} == expected; "
-          f"num_blocks {int8['num_blocks']} at pool bytes "
-          f"{int8['pool_bytes']}", flush=True)
-    for name in ("float32", "bfloat16"):
+          f"{len(prompts)} requests; launches {launches8} == expected "
+          f"(replays counted); num_blocks {int8['num_blocks']} at pool "
+          f"bytes {int8['pool_bytes']}", flush=True)
+    for name in ("float32", "bfloat16", "bfloat16_eager"):
         e = int8[name]
         print(f"engine int8 {name}: prefill {e['prefill_tok_s']:.1f} tok/s, "
-              f"decode {e['decode_tok_s']:.1f} tok/s ({card})", flush=True)
-    print(f"engine int8 token agreement: bfloat16 vs the bfloat16 fp engine "
+              f"decode {e['decode_tok_s']:.1f} tok/s, captures "
+              f"{e['captures']} ({card})", flush=True)
+    print(f"engine int8 bfloat16: captured tokens identical to the eager "
+          f"run; token agreement: bfloat16 vs the bfloat16 fp engine "
           f"{int8['bf16_vs_bf16_fp_token_agreement']:.4f}, float32 vs the "
           f"float32 fp engine {int8['fp32_vs_fp32_fp_token_agreement']:.4f}",
           flush=True)
-    if prof8["device_ms_per_step"] > 0:
-        print(f"decode profile int8 bfloat16: "
-              f"{prof8['wall_ms_per_step']:.3f} ms per step, device "
-              f"{prof8['device_ms_per_step']:.3f} ms, busy "
-              f"{prof8['device_busy_share']:.3f}, "
-              f"{prof8['device_ops_per_step']:.1f} device ops per step; "
-              "top: " + "; ".join(f"{t['name'][:40]} {t['ms_per_step']:.4f} "
-                                  f"ms" for t in prof8["top"][:6]),
-              flush=True)
-    else:
-        print("decode profile int8 bfloat16: the profiler recorded no "
-              "device time (not measured)", flush=True)
+    int8["decode_profile_bf16"] = profile_turns(
+        lambda: profile_decode(model, prompts, torch.bfloat16,
+                               kv_cache_dtype="int8"),
+        "engine decode profile bfloat16, int8 pools", card)
     del model
     torch.cuda.empty_cache()
     mark("3b int8 engine")
 
     # -- 4. dense generate -------------------------------------------------
-    gen32 = generate_fp32_card_vs_cpu(ops, cfg)
+    cfg_pl = gpt2_124m_config()            # stacked_blocks=False
+    gen32 = generate_fp32_card_vs_cpu(ops, cfg, cfg_pl)
     result["generate_fp32"] = gen32
-    print(f"generate float32 GPT-2 124M {gen32['batch']}: card tokens "
-          f"identical to the CPU run in both modes; launches default "
-          f"{gen32['default']['launches']}, fused "
-          f"{gen32['fused']['launches']} == expected; fused vs default "
-          f"agreement {gen32['fused_vs_default_token_agreement']:.3f}; "
-          f"card {gen32['default']['card_s']:.2f} / "
-          f"{gen32['fused']['card_s']:.2f} s, CPU "
-          f"{gen32['default']['cpu_s']:.1f} / {gen32['fused']['cpu_s']:.1f} "
-          f"s", flush=True)
-    print(f"generate float32 padded GPT-2 124M {gen32['batch']} (rows of "
-          f"256 - 32 r tokens, even rows right-, odd rows left-padded): card "
-          f"tokens identical to the CPU run in both modes, buffer "
-          f"left-aligned; launches default "
-          f"{gen32['default_padded']['launches']}, fused "
-          f"{gen32['fused_padded']['launches']} == expected; card "
-          f"{gen32['default_padded']['card_s']:.2f} / "
-          f"{gen32['fused_padded']['card_s']:.2f} s, CPU "
-          f"{gen32['default_padded']['cpu_s']:.1f} / "
-          f"{gen32['fused_padded']['cpu_s']:.1f} s", flush=True)
+    for path in GEN_PATHS:
+        g = gen32[path]
+        print(f"generate float32 GPT-2 124M {path} {gen32['batch']}: card "
+              f"tokens (decode steps captured) identical to the CPU run; "
+              f"launches {{{', '.join(f'{k}: {n}' for k, n in g['launches'].items() if n)}}} "
+              f"== expected; card {g['card_s']:.2f} s, CPU {g['cpu_s']:.1f} "
+              f"s", flush=True)
+    print(f"generate float32: padded buffers left-aligned; fused vs default "
+          f"agreement {gen32['fused_vs_default_token_agreement']:.3f}, "
+          f"padded {gen32['padded_fused_vs_default_token_agreement']:.3f}",
+          flush=True)
     torch.cuda.empty_cache()
     mark("4 generate fp32")
-    gen16, launches_gen = generate_bf16(ops, cfg)
+    gen16, launches_gen = generate_bf16(ops, cfg, cfg_pl, card)
     result["generate_bf16"] = gen16
-    for mode in GEN_MODES:
-        g = gen16[mode]
-        pr = g["profile"]
-        print(f"generate bfloat16 {mode} {gen16['batch']}: decode "
-              f"{g['decode_tok_s']:.1f} tok/s, {g['decode_ms_per_step']:.3f} "
-              f"ms per step ({card}); prefill {g['prefill_s'] * 1e3:.1f} ms; "
-              f"launches {g['launches']}", flush=True)
-        if pr["device_ms_per_step"] > 0:
-            print(f"generate profile bfloat16 {mode}: "
-                  f"{pr['wall_ms_per_step']:.3f} ms per step "
-                  f"({pr['profiled_wall_ms_per_step']:.3f} under the "
-                  f"profiler), device {pr['device_ms_per_step']:.3f} ms, "
-                  f"busy {pr['device_busy_share']:.3f}, "
-                  f"{pr['device_ops_per_step']:.1f} device ops per step; by "
-                  f"group (ms) " + ", ".join(
-                      f"{k} {v:.3f}"
-                      for k, v in pr["ms_per_step_by_group"].items())
-                  + "; top: " + "; ".join(
-                      f"{t['name'][:40]} {t['ms_per_step']:.4f} ms"
-                      for t in pr["top"][:6]), flush=True)
-        else:
-            print(f"generate profile bfloat16 {mode}: the profiler recorded "
-                  f"no device time (not measured)", flush=True)
-    for mode in GEN_MODES:
-        g = gen16[mode + "_padded"]
-        print(f"generate bfloat16 padded {mode} {gen16['batch']}: decode "
-              f"{g['decode_tok_s']:.1f} tok/s, {g['decode_ms_per_step']:.3f} "
-              f"ms per step ({card}); prefill {g['prefill_s'] * 1e3:.1f} ms; "
-              f"launches {g['launches']}", flush=True)
     print(f"generate bfloat16: fused vs default token agreement "
           f"{gen16['fused_vs_default_token_agreement']:.3f}, padded "
-          f"{gen16['padded_fused_vs_default_token_agreement']:.3f}",
+          f"{gen16['padded_fused_vs_default_token_agreement']:.3f}; "
+          f"per-layer flags vs default "
+          f"{gen16['per_layer_flags_vs_default_token_agreement']:.3f}",
           flush=True)
     torch.cuda.empty_cache()
 
@@ -2527,7 +2686,6 @@ def main():
     mark("6c entry-point autograd")
 
     # -- 7. training, per-layer layout, under the LN and FFN flags ---------
-    cfg_pl = gpt2_124m_config()            # stacked_blocks=False
     st = train_stacked_ln_step(ops, cfg)
     result["train_stacked_pallas_ln"] = st
     print(f"train float32 stacked GPT-2 124M {st['batch']} under "
@@ -2598,7 +2756,7 @@ def main():
                  DKV_NC: pick(DKV_NC, "B=8 S=896 H=12 D=64 nc")}
     path_launches = {FWD: launches[FWD], RAGGED: launches[RAGGED],
                      RAGGED8: launches8[RAGGED8],
-                     FWD_MASK: launches_gen["default_padded"][FWD_MASK],
+                     FWD_MASK: launches_gen["stacked default padded"][FWD_MASK],
                      DQ: launches_train[DQ], DKV: launches_train[DKV],
                      FWD_TC: launches_train[FWD_TC],
                      DQ_TC: launches_train[DQ_TC],
@@ -2606,14 +2764,14 @@ def main():
                      FWD_TC32: tr32["launches"][FWD_TC32],
                      DQ_TC32: tr32["launches"][DQ_TC32],
                      DKV_TC32: tr32["launches"][DKV_TC32],
-                     DECODE: launches_gen["default"][DECODE],
-                     FUSED: launches_gen["fused"][FUSED],
-                     LN: launches_gen["fused"][LN],
+                     DECODE: launches_gen["stacked default"][DECODE],
+                     FUSED: launches_gen["stacked fused"][FUSED],
+                     LN: launches_gen["stacked fused"][LN],
                      LN_BWD: launches_pl["flags"][LN_BWD],
                      FFN: launches_ffn_entry[FFN],
                      FFN_TC: launches_pl["flags"][FFN_TC],
                      FFN_TC32: pl32["launches"][FFN_TC32],
-                     FFN_DEC: launches_gen["fused"][FFN_DEC]}
+                     FFN_DEC: launches_gen["stacked fused"][FFN_DEC]}
     for name in (FWD_SEGS, DQ_SEGS, DKV_SEGS):
         path_launches[name] = launches_packed[name]
     for name in (FWD_NC, DQ_NC, DKV_NC, DQ_MASK, DKV_MASK):
@@ -3179,9 +3337,10 @@ def time_decode_kernels(tree_ops, timer):
     """[case]: the ragged kernel (fp and int8 pools, the decode step, the
     split edges, H=16 D=128 and the C=188 / C=512 chunks), the fused
     layer (t = 1, 127-129, 511 and 1023, masked at 1023, H=16 D=128) and
-    the flash decode kernel (lengths 1, 2, 255, 257 and 1024, H=16 D=128;
-    with the sha256 of its output), each in fp32 and bf16 against its
-    plain version, with the modules of one tree (`check_*`)."""
+    the flash decode kernel (lengths 1, 2, 128-130, 255, 257, 512 and
+    1024, H=16 D=128; with the sha256 of its output), each in fp32 and
+    bf16 against its plain version, with the modules of one tree
+    (`check_*`), the lengths and t as ints."""
     rpa, fdl, fd, tol = (tree_ops[k] for k in ("rpa", "fdl", "fd", "tol"))
     out = []
     for dtype in (torch.float32, torch.bfloat16):
@@ -3202,12 +3361,14 @@ def time_decode_kernels(tree_ops, timer):
                                 + [(12, 64, 1023, True), (16, 128, 1023,
                                                           False)]):
             out.append(dict(check_fused_layer(fdl, tol, timer, 8, h, d, 1024,
-                                              t, masked, dtype, seed=t),
+                                              t, masked, dtype, seed=t,
+                                              device_len=False),
                             kernel=FUSED))
-        for h, d, length in ([(12, 64, n) for n in (1, 2, 255, 257, 1024)]
+        for h, d, length in ([(12, 64, n) for n in (1, 2, 128, 129, 130, 255,
+                                                   257, 512, 1024)]
                              + [(16, 128, 1024)]):
             c = check_decode(fd, tol, timer, 8, 1024, h, d, length, dtype,
-                             length)
+                             length, device_len=False)
             c["sha256"] = decode_digest(fd, 8, 1024, h, d, length, dtype,
                                         length)
             out.append(dict(c, kernel=DECODE))

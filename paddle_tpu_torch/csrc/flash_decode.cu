@@ -3,7 +3,12 @@
 // Replaces: paddle_tpu/ops/pallas_ops.py `_decode_kernel` (reached via
 // `flash_decode_arrays` <- `cached_attention_arrays`): one query per row
 // (S_q = 1) against the first `length` rows of flat [B, S_max, H*D] cache
-// rings, `length` shared by the batch.
+// rings, `length` shared by the batch.  As the TPU kernel takes its length
+// through scalar prefetch (`len_ref`) over a grid fixed by the shapes, so
+// that one compiled program serves every step of the decode loop, this one
+// may read the length from device memory (`len`, an int32 position or
+// length, plus `length`) over a grid fixed by S_max: a launch captured in a
+// CUDA graph at one step serves the next.
 //
 // What bounds it on this card: memory.  A step reads K and V of the valid
 // prefix once, 2 * B * length * H * D * itemsize bytes, and does 4 FLOPs
@@ -14,7 +19,8 @@
 // are cut into `splits` chunks of CHUNK = 128 keys, one block of four
 // warps per (chunk, head, row), so B * H * splits blocks keep every SM
 // busy (768 at B = 8, H = 12, length 1024, against 132 SMs; one block per
-// (head, row) gave 96).  Inside a block each warp takes a run of 32 keys
+// (head, row) gave 96).  The grid holds the splits of all S_max rows; the
+// blocks past the live prefix's splits return at once.  Inside a block each warp takes a run of 32 keys
 // (the key loop and merges of `decode_common.cuh`, shared with the fused
 // layer and the ragged kernel).
 // LPK = D / VE lanes cover one key row with 16-byte loads (VE = 8 bf16 or
@@ -26,8 +32,8 @@
 // of the accumulator); the four warps merge in shared memory.  One split
 // writes out directly.  With more, each block writes its fp32 partial (m,
 // l, acc[D]) to a scratch buffer, and the last block of its (row, head) to
-// finish -- a self-resetting ticket, as in fused_ffn.cu -- merges the
-// partials in split order, so the result does not depend on the order in
+// finish -- a self-resetting ticket, as in fused_ffn.cu, counting the live
+// splits only -- merges the partials in split order, so the result does not depend on the order in
 // which blocks ran.
 //
 // Rounding points: logits are fp32 sums of q_d * k_d (the TPU kernel rounds
@@ -42,8 +48,9 @@
 // heads (the batch stride is an argument, so a slice of a fused qkv
 // projection needs no copy; q is read element by element); the rings are
 // contiguous [B, S_max, H*D] in q's type, 16-byte aligned; out is a
-// contiguous [B, 1, H, D] in q's type.  part holds B * H * splits * (D +
-// 2) floats; tickets B * H ints, zero before and after every launch.
+// contiguous [B, 1, H, D] in q's type.  part holds B * H * splits(S_max)
+// * (D + 2) floats; tickets B * H ints, zero before and after every
+// launch.  The length is clamped into [1, S_max].
 #include <stdint.h>
 
 #include "decode_common.cuh"
@@ -62,11 +69,15 @@ template <typename T, int D>
 __global__ void __launch_bounds__(THREADS) flash_decode_kernel(
     const T* __restrict__ q, const T* __restrict__ kc,
     const T* __restrict__ vc, T* __restrict__ out, float* __restrict__ part,
-    int* __restrict__ tickets, int H, int S_max, int length, long long qsb,
-    float scale) {
+    int* __restrict__ tickets, const int* __restrict__ len, int H,
+    int S_max, int length, long long qsb, float scale) {
   constexpr int LPK = D / VE<T>;        // lanes per key row
   __shared__ SplitSmem<WARPS, D> sh;
-  const int split = blockIdx.x, splits = gridDim.x;
+  if (len) length += __ldg(len);
+  length = min(max(length, 1), S_max);
+  // the live splits; gridDim.x is the most, those of S_max
+  const int split = blockIdx.x, splits = (length + CHUNK - 1) / CHUNK;
+  if (split >= splits) return;
   const int h = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   const int d0 = (lane % LPK) * VE<T>;
@@ -93,9 +104,10 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(
   }
 
   // this split's partial, then the merge in split order by the last block
-  float2* ml = reinterpret_cast<float2*>(part) + bh * splits;   // (m, l)
-  float* pacc = part + 2LL * gridDim.y * gridDim.z * splits +
-                bh * splits * D;                       // acc[D] per split
+  const int most = gridDim.x;           // splits the scratch holds a row
+  float2* ml = reinterpret_cast<float2*>(part) + bh * most;     // (m, l)
+  float* pacc = part + 2LL * gridDim.y * gridDim.z * most +
+                bh * most * D;                         // acc[D] per split
   float gm, gl, ga;
   if (!merge_splits<D, WARPS>(sh, ml, pacc, tickets + bh, split, splits, bm,
                               bl, ba, gm, gl, ga) ||
@@ -106,42 +118,47 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(
 
 template <typename T, int D>
 void launch(const void* q, const void* kc, const void* vc, void* out,
-            void* part, void* tickets, int B, int H, int S_max, int length,
-            long long qsb, float scale, cudaStream_t stream) {
-  dim3 grid((length + CHUNK - 1) / CHUNK, H, B);
+            void* part, void* tickets, const int* len, int B, int H,
+            int S_max, int length, long long qsb, float scale,
+            cudaStream_t stream) {
+  dim3 grid((S_max + CHUNK - 1) / CHUNK, H, B);
   flash_decode_kernel<T, D><<<grid, THREADS, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kc),
       static_cast<const T*>(vc), static_cast<T*>(out),
-      static_cast<float*>(part), static_cast<int*>(tickets), H, S_max,
+      static_cast<float*>(part), static_cast<int*>(tickets), len, H, S_max,
       length, qsb, scale);
 }
 
 }  // namespace
 
-// The number of splits (blocks per row and head) of a launch at `length`;
-// the wrapper sizes `part` with it.
+// The number of splits (blocks per row and head) of `length` keys; the
+// grid and `part` hold those of S_max.
 extern "C" int flash_decode_splits(int length) {
   return (length + CHUNK - 1) / CHUNK;
 }
 
-// Returns cudaGetLastError() after the launch; 1 (cudaErrorInvalidValue)
-// for a head size or type the kernel does not take.
+// The length is `length` plus, where `len` is not null, the int32 at
+// `len` in device memory (a ring position, with `length` 1).  Returns
+// cudaGetLastError() after the launch; 1 (cudaErrorInvalidValue) for a
+// head size or type the kernel does not take.
 extern "C" int flash_decode(const void* q, const void* kc, const void* vc,
-                            void* out, void* part, void* tickets, int B,
-                            int H, int D, int S_max, int length, int is_bf16,
-                            long long qsb, float scale, void* stream) {
+                            void* out, void* part, void* tickets,
+                            const void* len, int B, int H, int D, int S_max,
+                            int length, int is_bf16, long long qsb,
+                            float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* n = static_cast<const int*>(len);
   if (D == 64 && is_bf16)
-    launch<__nv_bfloat16, 64>(q, kc, vc, out, part, tickets, B, H, S_max,
+    launch<__nv_bfloat16, 64>(q, kc, vc, out, part, tickets, n, B, H, S_max,
                               length, qsb, scale, s);
   else if (D == 64)
-    launch<float, 64>(q, kc, vc, out, part, tickets, B, H, S_max, length,
+    launch<float, 64>(q, kc, vc, out, part, tickets, n, B, H, S_max, length,
                       qsb, scale, s);
   else if (D == 128 && is_bf16)
-    launch<__nv_bfloat16, 128>(q, kc, vc, out, part, tickets, B, H, S_max,
-                               length, qsb, scale, s);
+    launch<__nv_bfloat16, 128>(q, kc, vc, out, part, tickets, n, B, H,
+                               S_max, length, qsb, scale, s);
   else if (D == 128)
-    launch<float, 128>(q, kc, vc, out, part, tickets, B, H, S_max, length,
+    launch<float, 128>(q, kc, vc, out, part, tickets, n, B, H, S_max, length,
                        qsb, scale, s);
   else
     return static_cast<int>(cudaErrorInvalidValue);

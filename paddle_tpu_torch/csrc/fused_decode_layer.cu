@@ -7,6 +7,11 @@
 // cached keys (plus an optional additive row mask) and the current token
 // -> out-proj -> residual.  The TPU kernel exists to cut the launch count
 // of a decode step; this one keeps that: one launch per layer per step.
+// Like the TPU kernel, which takes t through scalar prefetch (`len_ref`)
+// over a grid fixed by the shapes, this one may read t from device memory
+// (`tpos`) and work out its split geometry from it: the grid and scratch
+// are sized for every t < S_max, so a launch captured in a CUDA graph at
+// one step serves the next.
 //
 // What bounds it on this card: memory.  A step reads the layer's weights
 // once (4 * hd^2 elements: 4.7 MB in bf16 at GPT-2 width) and the valid
@@ -35,7 +40,8 @@
 //  2. Attention, split-K at warp granularity: one task per (split, head,
 //     row), one warp each, with as many splits of whole runs of 32 keys
 //     as let every task run in one round of the co-resident warps
-//     (`fused_split`: 11 splits of 96 keys, 1056 tasks at B = 8, t = 1023
+//     (`fused_split`, computed here from t and the wrapper's cap of splits
+//     a (row, head): 11 splits of 96 keys, 1056 tasks at B = 8, t = 1023
 //     on an H100's 132 blocks of 8 warps), so that every warp runs its
 //     chain of memory round trips on its own (block tasks of 128 keys,
 //     each waiting on its barriers, took 30 of the kernel's 50 us at
@@ -77,8 +83,9 @@
 // [hd / (32 L1)][B][3hd], attn [B][hd], part2 ((m, l) [B H][splits], then
 // acc [B H][splits][D]), part3 [hd / (32 L3)][B][hd]; tickets: B H + hd /
 // (128 bytes of columns) ints, zero before and after every launch.  The
-// wrapper's `fused_plan` lays these out and picks L1, L3, the split and
-// the grid.
+// wrapper's `fused_plan` lays these out for the most splits any t < S_max
+// takes and picks L1, L3, the cap of splits and the grid.  t is clamped
+// into [1, S_max - 1].
 #include <cooperative_groups.h>
 
 #include "decode_common.cuh"
@@ -125,9 +132,10 @@ struct Args {
   float* part3;        // [chunks3][B][hd]
   int* tickets;        // B H (phase 2), then hd / CW (phase 3)
   T* y;
+  const int* tpos;     // null, or t - `t` in device memory
   int B, H, S_max, t;
   int l1, l3;          // loads a thread per unit of phases 1 and 3
-  int chunk;           // keys per split of phase 2
+  int cap;             // splits a (row, head) at most in phase 2
   float eps, scale;
 };
 
@@ -240,7 +248,8 @@ __global__ void __launch_bounds__(THREADS) fused_decode_layer_kernel(
   __shared__ int is_last;
   cg::grid_group grid = cg::this_grid();
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int B = a.B, H = a.H, hd = H * D, S_max = a.S_max, t = a.t;
+  const int B = a.B, H = a.H, hd = H * D, S_max = a.S_max;
+  const int t = min(max(a.t + (a.tpos ? __ldg(a.tpos) : 0), 1), S_max - 1);
   const int nrows = (B + RB - 1) / RB * RB;
   const int ncol3 = 3 * hd;
 
@@ -345,7 +354,11 @@ __global__ void __launch_bounds__(THREADS) fused_decode_layer_kernel(
 
   // -- phase 2: attention per (split, head, row), one warp each, and the
   //    ring write ---------------------------------------------------------
-  const int splits = (t + a.chunk - 1) / a.chunk;
+  // the split of `fused_split` (ops/fused_decode.py): at most `cap`
+  // splits of whole runs of RUN keys
+  const int want = max(1, min((t + RUN - 1) / RUN, a.cap));
+  const int span = ((t + want - 1) / want + RUN - 1) / RUN * RUN;
+  const int splits = (t + span - 1) / span;      // keys a split: span
   const int bhs = B * H;
   const int d0 = (lane % LPK) * VE<T>;
   constexpr int DPL = D / 32;                    // dims a lane merges
@@ -376,9 +389,9 @@ __global__ void __launch_bounds__(THREADS) fused_decode_layer_kernel(
     const RingKeys<T, true> keys{
         a.kc + base + d0, a.vc + base + d0, hd, a.scale,
         a.mask ? a.mask + (long long)b * S_max : nullptr};
-    const int lo = split * a.chunk;
+    const int lo = split * span;
     float m, l, acc[VE<T>];
-    warp_attend<T, D, U<T, D>, RUN>(keys, qv, lo, min(lo + a.chunk, t),
+    warp_attend<T, D, U<T, D>, RUN>(keys, qv, lo, min(lo + span, t),
                                     RUN, m, l, acc);
     // this split's partial; the last warp of the (row, head) to finish
     // merges the splits in split order
@@ -562,13 +575,22 @@ cudaError_t launch(const Args<T>& args, int grid, cudaStream_t stream) {
   if (grid < 1 || grid > resident) return cudaErrorInvalidConfiguration;
   const int l1 = args.l1, l3 = args.l3;
   if (l1 < 1 || l1 > LMAX<T> || hd % (GROUPS * l1) || l3 < 1 ||
-      l3 > LMAX<T> || hd % (GROUPS * l3) || hd % CW<T> || args.chunk < 1)
+      l3 > LMAX<T> || hd % (GROUPS * l3) || hd % CW<T> || args.cap < 0)
     return cudaErrorInvalidValue;
-  Args<T> copy = args;
-  void* params[] = {&copy};
-  err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(fused_decode_layer_kernel<T, D>), dim3(grid),
-      dim3(THREADS), params, smem_bytes(args.B, hd), stream);
+  // cooperative: every block co-resident, for the grid syncs; launched
+  // through cudaLaunchKernelEx, which a stream capture records as a
+  // cooperative kernel node of a CUDA graph
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem_bytes(args.B, hd);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, fused_decode_layer_kernel<T, D>, args);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -594,7 +616,8 @@ extern "C" int fused_decode_layer_blocks(int B, int H, int D, int is_bf16) {
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
-// Returns the launch's CUDA error (cudaLaunchCooperativeKernel, then
+// t is `t` plus, where `tpos` is not null, the int32 at `tpos` in device
+// memory.  Returns the launch's CUDA error (cudaLaunchKernelEx, then
 // cudaGetLastError()); 1 (cudaErrorInvalidValue) for a head size or type
 // the kernel does not take, or loads a thread (l1, l3) that do not divide
 // hd into chunks of 32 rows; 9 (cudaErrorInvalidConfiguration) for a grid
@@ -603,9 +626,9 @@ extern "C" int fused_decode_layer(
     const void* x, const void* lnw, const void* lnb, const void* wqkv,
     const void* bqkv, const void* wo, const void* bo, void* kc, void* vc,
     const void* mask, void* part1, void* attn, void* part2, void* part3,
-    void* tickets, void* y, int B, int H, int D, int S_max, int t,
-    int is_bf16, int l1, int l3, int chunk, int grid, float eps, float scale,
-    void* stream) {
+    void* tickets, void* y, const void* tpos, int B, int H, int D,
+    int S_max, int t, int is_bf16, int l1, int l3, int cap, int grid,
+    float eps, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
 #define FDL_LAUNCH(T, DIM)                                                   \
@@ -618,7 +641,8 @@ extern "C" int fused_decode_layer(
               static_cast<float*>(part1),    static_cast<float*>(attn),      \
               static_cast<float*>(part2),    static_cast<float*>(part3),     \
               static_cast<int*>(tickets),    static_cast<T*>(y),             \
-              B, H, S_max, t, l1, l3, chunk, eps, scale},                    \
+              static_cast<const int*>(tpos), B, H, S_max, t, l1, l3, cap,    \
+              eps, scale},                                                   \
       grid, s)
   if (D == 64 && is_bf16)
     FDL_LAUNCH(__nv_bfloat16, 64);

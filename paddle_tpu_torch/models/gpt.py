@@ -8,7 +8,9 @@ layouts, chosen by ``GPTConfig.stacked_blocks``:
   ``state_dict()`` names.  Its LayerNorms take the fused kernels under
   ``PTPU_PALLAS_LN=1`` and its MLP the fused FFN under
   ``PTPU_PALLAS_FFN=1``, both differentiable.  It trains (``forward``,
-  ``pretrain_loss``); its cached ``generate`` is a later slice.
+  ``pretrain_loss``) and generates: its cached forward is the JAX one
+  (`gpt.py:199-234`, `:713-723`, `:753-774`), the flash prefill then
+  `ops.cached_attention_arrays` per step.
 - stacked: every block's weights stacked as ``[L, ...]`` parameters under
   the names and shapes of `GPTStackedBlocks`, plus ``wte``, ``wpe``,
   ``lnf_w`` and ``lnf_b``; `param_arrays` returns them keyed like the JAX
@@ -24,10 +26,15 @@ documents, attention never crosses them (the segment branch of the flash
 kernels), and ``position_ids`` [B, S] restart at each document; the
 per-layer layout raises on ``segment_ids``, as the JAX one does.
 
-``generate`` (stacked layout) is the dense KV-cache decode of the JAX
+``generate`` (both layouts) is the dense KV-cache decode of the JAX
 ``generate``: per-layer flat ``[B, S_max, H*D]`` rings (`init_caches`), a
 causal flash prefill, then one cached forward per token, driven from the
-host.  With ``pad_token_id`` the prompts may be padded (left or right):
+host.  The decode step reads its token, its ring row t and (padded) its
+pad counts and mask from static buffers that outlive it, and writes its
+fp32 logits; on the card it is captured as one CUDA graph and replayed
+per token (`graphs.StepGraph`; ``PTPU_CUDA_GRAPHS=0`` runs it eagerly),
+the counterpart of JAX's one compiled decode loop.  With ``pad_token_id``
+(stacked layout, as in JAX) the prompts may be padded (left or right):
 they are canonicalised to left padding, the pads masked by an additive
 cache mask (the masked flash forward at the prefill, the masked branch or
 the fused layer's row mask at each step) and positions counted per row.
@@ -38,10 +45,8 @@ body with `ops.cached_attention_arrays` (the flash-decode kernel); under
 under ``PTPU_PALLAS_FFN=1`` as well the MLP half as the fused LayerNorm
 and FFN kernels.
 
-Left out for later slices: the per-layer cached forward and ``generate``,
-MoE, pipeline execution (and the 1F1B fused loss), dropout,
-``recompute``, the stacked-cache layer-scan decode, and CUDA-graph
-capture of the decode step.
+Left out for later slices: MoE, pipeline execution (and the 1F1B fused
+loss), dropout, ``recompute``, and the stacked-cache layer-scan decode.
 """
 from __future__ import annotations
 
@@ -53,6 +58,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
+from ..graphs import StepGraph
 from ..nn.functional import (cross_entropy, fused_ln_applies, layer_norm,
                             layer_norm_arrays)
 from ..nn.layer import Embedding, LayerNorm, Linear
@@ -247,7 +253,7 @@ class GPTPretrainingCriterion(nn.Module):
 
 
 # ---------------------------------------------------------------------------
-# per-layer layout (`gpt.py:143-280`, `:698-811`, the non-cache branches)
+# per-layer layout (`gpt.py:143-280`, `:698-811`)
 # ---------------------------------------------------------------------------
 
 class GPTEmbeddings(nn.Module):
@@ -272,9 +278,15 @@ class GPTEmbeddings(nn.Module):
 
 
 class GPTAttention(nn.Module):
-    """Causal self-attention without a cache (`gpt.py:172-251`): the fused
-    ``qkv_proj``, ``[b, s, 3, heads, head_dim]``, causal flash attention
-    (differentiable), ``out_proj``."""
+    """Causal self-attention (`gpt.py:172-251`): the fused ``qkv_proj``,
+    ``[b, s, 3, heads, head_dim]``, causal flash attention
+    (differentiable), ``out_proj``.  With ``cache`` (a ``(k, v)`` pair of
+    flat [B, S_max, H*D] rings, written in place) it is the cached branch
+    (`gpt.py:199-234`): ``time_step`` None is the static prefill at
+    position 0 (causal flash over the chunk and the ring write), else the
+    chunk goes to `cached_attention_arrays` at position ``time_step`` (an
+    int or an int32 [1] device tensor); it then returns ``(out,
+    cache)``."""
 
     def __init__(self, cfg: GPTConfig, device, dtype, generator):
         super().__init__()
@@ -284,12 +296,19 @@ class GPTAttention(nn.Module):
         self.qkv_proj = Linear(cfg.hidden_size, 3 * cfg.hidden_size, **kw)
         self.out_proj = Linear(cfg.hidden_size, cfg.hidden_size, **kw)
 
-    def forward(self, x):
+    def forward(self, x, cache=None, time_step=None):
         b, s, h = x.shape
         qkv = self.qkv_proj(x).reshape(b, s, 3, self.num_heads,
                                        self.head_dim)
-        o = flash_attention_arrays(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2],
-                                   is_causal=True)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        if cache is not None:
+            kc, vc = cache
+            if time_step is None:
+                o = _cached_attn_arrays(q, k, v, kc, vc, 0, True)
+            else:
+                o, _, _ = cached_attention_arrays(q, k, v, kc, vc, time_step)
+            return self.out_proj(o.reshape(b, s, h)), cache
+        o = flash_attention_arrays(q, k, v, is_causal=True)
         return self.out_proj(o.reshape(b, s, h))
 
 
@@ -313,7 +332,8 @@ class GPTMLP(nn.Module):
 
 
 class GPTBlock(nn.Module):
-    """Pre-LN block (`gpt.py:698-723`, no MoE, no dropout)."""
+    """Pre-LN block (`gpt.py:698-723`, no MoE, no dropout); with
+    ``cache`` it returns ``(x, cache)`` (`GPTAttention`)."""
 
     def __init__(self, cfg: GPTConfig, device, dtype, generator):
         super().__init__()
@@ -323,14 +343,21 @@ class GPTBlock(nn.Module):
         self.ln_2 = LayerNorm(cfg.hidden_size, eps, device, dtype)
         self.mlp = GPTMLP(cfg, device, dtype, generator)
 
-    def forward(self, x):
+    def forward(self, x, cache=None, time_step=None):
+        if cache is not None:
+            a, cache = self.attn(self.ln_1(x), cache=cache,
+                                 time_step=time_step)
+            x = x + a
+            return x + self.mlp(self.ln_2(x)), cache
         x = x + self.attn(self.ln_1(x))
         return x + self.mlp(self.ln_2(x))
 
 
 class GPTModel(nn.Module):
     """Embeddings, blocks ``h_0 .. h_{L-1}`` and ``ln_f``
-    (`gpt.py:726-811`, the per-layer branch without caches)."""
+    (`gpt.py:726-811`, the per-layer branches).  With ``caches`` (one
+    ``(k, v)`` ring pair a layer) it returns ``(ln_f(x), caches)``, the
+    positions ``time_step + [0, S)`` unless given (`gpt.py:753-774`)."""
 
     def __init__(self, cfg: GPTConfig, device, dtype, generator):
         super().__init__()
@@ -342,13 +369,29 @@ class GPTModel(nn.Module):
         self.ln_f = LayerNorm(cfg.hidden_size, cfg.layer_norm_epsilon,
                               device, dtype)
 
-    def forward(self, input_ids, position_ids=None, *, segment_ids=None):
+    def forward(self, input_ids, position_ids=None, caches=None,
+                time_step=None, segment_ids=None, cache_mask=None):
         if segment_ids is not None:
             raise NotImplementedError(
                 "segment_ids are supported on the stacked-blocks training "
                 "path (no KV-cache decode); packed decoding is not a "
                 "standard inference shape")
+        if caches is not None and position_ids is None:
+            # decode positions are absolute: time_step + [0, s)
+            t = 0 if time_step is None else time_step
+            position_ids = t + torch.arange(input_ids.shape[-1],
+                                            device=input_ids.device)
         x = self.embeddings(input_ids, position_ids)
+        if caches is not None:
+            if cache_mask is not None:
+                raise NotImplementedError(
+                    "padded-prompt cache_mask is wired on the "
+                    "stacked-blocks path; use stacked_blocks=True")
+            new_caches = []
+            for blk, cache in zip(self.h, caches):
+                x, c = blk(x, cache=cache, time_step=time_step)
+                new_caches.append(c)
+            return self.ln_f(x), new_caches
         for blk in self.h:
             x = blk(x)
         return self.ln_f(x)
@@ -369,6 +412,10 @@ class GPTForCausalLM(nn.Module):
                  generator=None):
         super().__init__()
         self.cfg = cfg
+        # generate's decode steps by shape key, and the CUDA graphs
+        # captured of them by kind ({"decode": n})
+        self._decode_steps: dict = {}
+        self.compiles: dict = {}
         dev = resolve_device(device)
         g = generator if generator is not None \
             else torch.Generator().manual_seed(0)
@@ -472,41 +519,40 @@ class GPTForCausalLM(nn.Module):
         return self
 
     # -- autoregressive decoding -------------------------------------------
-    def _require_stacked(self, what):
-        if not self.cfg.stacked_blocks:
-            raise NotImplementedError(
-                f"{what} of the per-layer layout (its cached forward) is "
-                f"ROADMAP Queue 1 item 2; build the model with "
-                f"GPTConfig(stacked_blocks=True) to decode")
-
     def init_caches(self, batch_size, max_length, dtype=None):
         """Per-layer ``(k, v)`` flat rings ``[B, S_max, H*D]`` of zeros on
         the model's device, ``S_max`` = ``max_length`` rounded up to 128
         (`gpt.py:973-1000`; only the valid prefix is ever read).  ``dtype``
         defaults to the weights'.  The JAX package switches to stacked
-        ``[L, ...]`` caches above 32 layers, a trade of its layer scan;
-        the port always takes the per-layer form."""
-        self._require_stacked("init_caches")
+        ``[L, ...]`` caches above 32 layers (stacked layout), a trade of
+        its layer scan; the port always takes the per-layer form."""
         cfg = self.cfg
         s_max = -(-max_length // 128) * 128
         shape = (batch_size, s_max, cfg.hidden_size)
-        dt = dtype or self.wte.dtype
-        return [tuple(torch.zeros(shape, dtype=dt, device=self.wte.device)
+        wte = self.word_embeddings
+        dt = dtype or wte.dtype
+        return [tuple(torch.zeros(shape, dtype=dt, device=wte.device)
                       for _ in range(2))
                 for _ in range(cfg.num_hidden_layers)]
 
     def _forward_cached(self, input_ids, caches, t, prefill,
                         position_ids=None, cache_mask=None):
-        """[B, S] ids written at ring rows ``t .. t+S-1`` through every
-        layer with the rings (written in place) -> the last position's fp32
-        logits [B, V] — the cached branch of the JAX ``GPTModel.forward``
-        with `_forward_cached_unrolled`, then ``ln_f`` and the tied head
-        on the last position only (its rows are independent; the fused
-        LayerNorm's gate is decided on all B*S rows, as the JAX package
-        normalises them all).  ``position_ids`` ([B, S], default the ring
-        rows) and ``cache_mask`` (additive [B, 1, 1, S_max]) serve padded
+        """[B, S] ids written at ring rows ``t .. t+S-1`` (``t`` an int or
+        an int32 [1] device tensor) through every layer with the rings
+        (written in place) -> the last position's fp32 logits [B, V] — the
+        cached branch of the JAX ``GPTModel.forward``, then ``ln_f`` and
+        the tied head on the last position only (its rows are
+        independent; the fused LayerNorm's gate is decided on all B*S
+        rows, as the JAX package normalises them all).  Stacked: the
+        blocks as `_forward_cached_unrolled`; per-layer: `GPTModel`'s
+        cached branch.  ``position_ids`` ([B, S], default the ring rows)
+        and ``cache_mask`` (additive [B, 1, 1, S_max]) serve padded
         prompts."""
         cfg = self.cfg
+        if not cfg.stacked_blocks:
+            h, _ = self.gpt(input_ids.long(), position_ids, caches,
+                            None if prefill else t, cache_mask=cache_mask)
+            return (h[:, -1] @ self.word_embeddings.t()).float()
         nh = cfg.num_attention_heads
         hd = cfg.hidden_size // nh
         eps = cfg.layer_norm_epsilon
@@ -541,31 +587,50 @@ class GPTForCausalLM(nn.Module):
         hn = ln(h[:, -1], self.lnf_w, self.lnf_b, eps)
         return (hn @ self.wte.t()).float()
 
+    def _decode_step(self, batch, max_length, padded):
+        """The `_DecodeStep` of ``generate`` for this shape key — JAX's
+        ``gen_key`` less the sampling parameters, which stay outside the
+        step: (B, S_max, dtype, layout, the kernel flags that pick the
+        step's path, padded).  It is made anew when the weights have moved
+        (the graph holds their addresses)."""
+        wte = self.word_embeddings
+        s_max = -(-max_length // 128) * 128
+        key = (batch, s_max, wte.dtype, self.cfg.stacked_blocks,
+               tuple(os.environ.get(k) for k in _DECODE_FLAGS), padded)
+        weights = tuple(p.data_ptr() for p in self.parameters())
+        step = self._decode_steps.get(key)
+        if step is None or step.weights != weights:
+            step = self._decode_steps[key] = _DecodeStep(
+                self, batch, s_max, padded, weights)
+        return step
+
     @torch.no_grad()
     def generate(self, input_ids, max_new_tokens=32, do_sample=False,
                  temperature=1.0, top_k=0, top_p=1.0, eos_token_id=None,
                  seed=None, pad_token_id=None):
         """KV-cache autoregressive decoding with the semantics of the JAX
-        ``GPTForCausalLM.generate`` (`gpt.py:1002-1210`): a prefill at
-        position 0, then one cached forward per token and none after the
-        last; greedy by default, temperature / top-k / top-p with
-        ``do_sample`` (drawn from a `torch.Generator` seeded by ``seed``, so
-        not JAX's stream); rows that emitted ``eos_token_id`` keep emitting
-        it and the loop stops when every row has.  Returns ``[B, P + n]``
-        int32 on the model's device.
+        ``GPTForCausalLM.generate`` (`gpt.py:1002-1210`), in both layouts:
+        a prefill at position 0, then one cached forward per token and
+        none after the last; greedy by default, temperature / top-k /
+        top-p with ``do_sample`` (drawn from a `torch.Generator` seeded by
+        ``seed``, so not JAX's stream); rows that emitted ``eos_token_id``
+        keep emitting it and the loop stops when every row has.  Returns
+        ``[B, P + n]`` int32 on the model's device.
 
-        ``pad_token_id``: rows padded with it (left or right, no interior
-        pads) are rolled to left padding; the pads are masked out of every
-        attention (an additive -1e30 mask over the cache rows they fill)
-        and each row's positions count from its first real token.  The
-        returned buffer is left-aligned, ``[pads | prompt | generated]``
-        per row (`gpt.py:1081-1113`, `:1143-1150`).
+        ``pad_token_id`` (stacked layout; the per-layer one raises, as in
+        JAX): rows padded with it (left or right, no interior pads) are
+        rolled to left padding; the pads are masked out of every attention
+        (an additive -1e30 mask over the cache rows they fill) and each
+        row's positions count from its first real token.  The returned
+        buffer is left-aligned, ``[pads | prompt | generated]`` per row
+        (`gpt.py:1081-1113`, `:1143-1150`).
 
         The loop is driven from the host and syncs with it only to test
-        the finished flags when ``eos_token_id`` is set."""
-        self._require_stacked("generate")
+        the finished flags when ``eos_token_id`` is set.  Each decode step
+        is the key's `_DecodeStep` (`_decode_step`): on the card one CUDA
+        graph replay, then the sampler."""
         cfg = self.cfg
-        dev = self.wte.device
+        dev = self.word_embeddings.device
         ids = torch.as_tensor(input_ids).to(dev, torch.int32)
         if ids.dim() == 1:
             ids = ids[None]
@@ -585,14 +650,17 @@ class GPTForCausalLM(nn.Module):
                 generator.manual_seed(int(seed))
             else:
                 generator.seed()
-        caches = self.init_caches(b, total)
-        shift = pos = cache_mask = None
+        step = self._decode_step(b, total, pad_token_id is not None)
+        pos = cache_mask = None
         if pad_token_id is not None:
             ids, shift, pos, cache_mask = _left_pad(
-                ids, pad_token_id, caches[0][0].shape[1])
-        logits = self._forward_cached(ids, caches, 0, prefill=True,
+                ids, pad_token_id, step.caches[0][0].shape[1])
+            step.shift.copy_(shift)
+            step.mask.copy_(cache_mask)
+        logits = self._forward_cached(ids, step.caches, 0, prefill=True,
                                       position_ids=pos,
                                       cache_mask=cache_mask)
+        step.t.fill_(prompt)
         finished = torch.zeros(b, dtype=torch.bool, device=dev)
         toks = []
         for i in range(max_new_tokens):
@@ -605,12 +673,45 @@ class GPTForCausalLM(nn.Module):
             if i + 1 == max_new_tokens or (
                     eos_token_id is not None and bool(finished.all())):
                 break
-            if shift is not None:
-                pos = (prompt + i - shift)[:, None]
-            logits = self._forward_cached(tok[:, None], caches, prompt + i,
-                                          prefill=False, position_ids=pos,
-                                          cache_mask=cache_mask)
+            step.tok.copy_(tok[:, None])
+            logits = step.run()
         return torch.cat([ids, torch.stack(toks, 1).to(torch.int32)], 1)
+
+
+# the kernel flags whose values pick the path of a decode step
+_DECODE_FLAGS = ("PTPU_FUSED_DECODE", "PTPU_PALLAS_FFN", "PTPU_PALLAS_LN")
+
+
+class _DecodeStep:
+    """One decode step of ``generate`` over buffers that outlive it: the
+    token ``tok`` [B, 1], the ring row ``t`` (int32 [1] on the device;
+    the step writes row t, then adds one to it), the rings ``caches``
+    and, for padded prompts, the pad counts ``shift`` [B] and the
+    additive ``mask`` [B, 1, 1, S_max], from which the step takes each
+    row's position ``t - shift``.  ``run()`` returns the fp32 logits
+    [B, V]; it is a `StepGraph` of kind "decode" counted in the model's
+    ``compiles``, so on the card one CUDA graph replay."""
+
+    def __init__(self, model, batch, s_max, padded, weights):
+        dev = model.word_embeddings.device
+        self.weights = weights
+        self.caches = model.init_caches(batch, s_max)
+        self.tok = torch.zeros(batch, 1, dtype=torch.long, device=dev)
+        self.t = torch.zeros(1, dtype=torch.int32, device=dev)
+        self.shift = self.mask = None
+        if padded:
+            self.shift = torch.zeros(batch, dtype=torch.int32, device=dev)
+            self.mask = torch.zeros(batch, 1, 1, s_max, device=dev)
+
+        def step():
+            pos = (None if self.shift is None
+                   else (self.t - self.shift)[:, None])
+            logits = model._forward_cached(self.tok, self.caches, self.t,
+                                           False, pos, self.mask)
+            self.t += 1
+            return logits
+
+        self.run = StepGraph(step, dev, "decode", model.compiles)
 
 
 def _left_pad(ids, pad_token_id, s_max):

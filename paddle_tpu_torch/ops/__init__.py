@@ -33,7 +33,7 @@ __all__ = ["flash_attention_arrays", "mha_reference", "FlashAttention",
            "quantized_gather_kv_arrays", "slot_mapping",
            "ragged_paged_attention_arrays",
            "ragged_paged_attention_reference", "launch_counts",
-           "reset_launch_counts"]
+           "reset_launch_counts", "add_launches"]
 
 # every launch wrapper: a module or object with KERNEL and launches
 _KERNELS = (flash_attention, flash_attention.masked, flash_attention.segs,
@@ -61,3 +61,11 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for m in _KERNELS:
         m.launches = 0
+
+
+def add_launches(counts: dict) -> None:
+    """Add ``{kernel name: launches}`` to the wrappers' counts: the
+    launches a CUDA-graph replay runs, which no wrapper counts
+    (`paddle_tpu_torch.graphs`)."""
+    for m in _KERNELS:
+        m.launches += counts.get(m.KERNEL, 0)

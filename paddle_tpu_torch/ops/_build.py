@@ -15,7 +15,14 @@ tests import every module on a machine with no ``nvcc``.
 cross-block sum (``fused_ffn.cu``, ``flash_decode.cu``,
 ``fused_decode_layer.cu``, ``ragged_paged_attention.cu``) finds itself;
 `scratch` the kept per-device buffers of the kernels' partial sums; `sms`
-the SM count the wrappers' planners fill.
+the SM count the wrappers' planners fill; `device_int` the argument pair of
+a length or position that may live in device memory.
+
+A CUDA graph keeps the addresses its launches were captured with, so the
+kept buffers are safe to capture: a buffer that grows is replaced but
+never freed (a graph captured before may still use it), and one that
+would have to grow during a capture raises instead (the captured step
+runs once eagerly first, which sizes every buffer it uses).
 """
 from __future__ import annotations
 
@@ -27,7 +34,7 @@ import subprocess
 import threading
 
 __all__ = ["SRC_DIR", "BUILD_DIR", "build", "load", "check", "tickets",
-           "scratch", "sms"]
+           "scratch", "sms", "device_int"]
 
 SRC_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
@@ -39,6 +46,7 @@ _LIBS: dict = {}
 _LOCK = threading.Lock()
 _TICKETS: dict = {}
 _SCRATCH: dict = {}
+_RETIRED: list = []   # replaced buffers, kept for the graphs that hold them
 _SMS: dict = {}
 
 
@@ -111,17 +119,37 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err}")
 
 
+def _capturing(device) -> bool:
+    import torch
+    return (torch.device(device).type == "cuda"
+            and torch.cuda.is_current_stream_capturing())
+
+
+def _kept(store, key, device, n, make):
+    """``store[key]`` if it holds ``n`` elements, else a new one from
+    ``make(n)``; the one it replaces is retired, not freed.  Raises during
+    a CUDA-graph capture where it would have to grow."""
+    buf = store.get(key)
+    if buf is not None and buf.numel() >= n:
+        return buf
+    if _capturing(device):
+        raise RuntimeError(
+            f"kernel buffer {key} would grow to {n} elements during a "
+            f"CUDA-graph capture; run the step once before capturing it")
+    if buf is not None:
+        _RETIRED.append(buf)
+    buf = store[key] = make(n)
+    return buf
+
+
 def tickets(device, n: int):
     """A per-device int32 buffer of at least ``n`` tickets, zero between
     launches: the block that takes the last ticket of a group resets it.
     The kernels that use it share it, one launch after another on the
     stream."""
     import torch
-    t = _TICKETS.get(device)
-    if t is None or t.numel() < n:
-        t = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
-        _TICKETS[device] = t
-    return t
+    return _kept(_TICKETS, device, device, n, lambda n: torch.zeros(
+        max(n, 64), dtype=torch.int32, device=device))
 
 
 def scratch(owner: str, device, nbytes: int) -> int:
@@ -130,11 +158,25 @@ def scratch(owner: str, device, nbytes: int) -> int:
     nothing.  As with the tickets, the launches that use one buffer follow
     one another on the stream."""
     import torch
-    buf = _SCRATCH.get((owner, device))
-    if buf is None or buf.numel() < nbytes:
-        buf = torch.empty(max(nbytes, 256), dtype=torch.uint8, device=device)
-        _SCRATCH[(owner, device)] = buf
-    return buf.data_ptr()
+    return _kept(_SCRATCH, (owner, device), device, nbytes,
+                 lambda n: torch.empty(max(n, 256), dtype=torch.uint8,
+                                       device=device)).data_ptr()
+
+
+def device_int(value, device, what):
+    """The (pointer, int) pair by which a kernel takes a length or position:
+    ``(0, value)`` for a Python int, ``(value.data_ptr(), 0)`` for an int32
+    tensor of one element on ``device``, which the kernel reads in device
+    memory (and adds the int to)."""
+    import torch
+    if not isinstance(value, torch.Tensor):
+        return 0, int(value)
+    if (value.dtype != torch.int32 or value.numel() != 1
+            or value.device != torch.device(device)):
+        raise ValueError(f"{what} must be an int or an int32 tensor of one "
+                         f"element on {device}, got {value.dtype} "
+                         f"{tuple(value.shape)} on {value.device}")
+    return value.data_ptr(), 0
 
 
 def sms(device) -> int:

@@ -14,9 +14,15 @@ of 128 (split-K: ``flash_decode_splits(length)`` blocks per row and head);
 with more than one split the wrapper hands it an fp32 scratch buffer for
 the partial softmax states and the per-device int32 tickets of
 `_build.tickets`, through which the last block of each (row, head)
-merges the partials in split order.  Everything else (prefill chunks, an extra
-mask) runs the masked-softmax branch of `:862-877`, which is XLA in the
-JAX package and torch code here.
+merges the partials in split order.  The grid and the scratch hold the
+splits of all ``S_max`` rows, and the length may be an int32 tensor on
+the card that the kernel reads there (the blocks past its splits return
+at once): a launch captured in a CUDA graph at one step serves the next,
+as the TPU kernel's scalar-prefetched length lets one compiled program
+serve every step.  `cached_attention_arrays` takes its position ``t`` the
+same way and writes the rings at that device index.  Everything else
+(prefill chunks, an extra mask) runs the masked-softmax branch of
+`:862-877`, which is XLA in the JAX package and torch code here.
 
 The JAX gate `_decode_ok` (`:1133-1174`) also sends short rings
 (``S_max < PTPU_FLASH_DECODE_MIN_SMAX``) and non-TPU backends to that
@@ -45,7 +51,8 @@ _NEG_INF = -1e30
 
 def flash_decode_reference(q, k_cache, v_cache, length, scale=None):
     """Plain decode attention: q [B, 1, H, D] against the first ``length``
-    rows of flat [B, S_max, H*D] rings -> [B, 1, H, D] in q's dtype.
+    rows (an int, or a one-element tensor read to the host) of flat
+    [B, S_max, H*D] rings -> [B, 1, H, D] in q's dtype.
 
     The kernel's arithmetic: fp32 logits ``q . k`` (the products are NOT
     rounded to bf16 first, unlike the TPU kernel's per-head matmul against
@@ -54,6 +61,7 @@ def flash_decode_reference(q, k_cache, v_cache, length, scale=None):
     expand)`, `pallas_ops.py:997`), the sum divided by the fp32 ``l``."""
     b, _, h, d = q.shape
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    length = int(length)
     kc = k_cache[:, :length].reshape(b, length, h, d).float()
     vc = v_cache[:, :length].reshape(b, length, h, d)
     s = torch.einsum("bhd,bkhd->bhk", q[:, 0].float(), kc) * scale
@@ -88,7 +96,8 @@ def _check(q, k_cache, v_cache, length):
                              f"kernel's 16-byte loads")
     if k_cache.shape != v_cache.shape:
         raise ValueError("k_cache and v_cache differ in shape")
-    if not 1 <= length <= k_cache.shape[1]:
+    if not isinstance(length, torch.Tensor) and not (
+            1 <= length <= k_cache.shape[1]):
         raise ValueError(f"length {length} outside [1, {k_cache.shape[1]}]")
 
 
@@ -97,7 +106,7 @@ def _lib():
     fn = lib.flash_decode
     if fn.argtypes is None:
         vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [vp] * 6 + [i] * 6 + [ll, ctypes.c_float, vp]
+        fn.argtypes = [vp] * 7 + [i] * 6 + [ll, ctypes.c_float, vp]
         fn.restype = ctypes.c_int
         lib.flash_decode_splits.argtypes = [i]
         lib.flash_decode_splits.restype = ctypes.c_int
@@ -107,22 +116,33 @@ def _lib():
 def flash_decode_arrays(q, k_cache, v_cache, length, scale=None):
     """Decode attention of q [B, 1, H, D] against the first ``length``
     (>= 1, shared by the batch) rows of the flat rings.  Returns
-    [B, 1, H, D] in q's dtype.
+    [B, 1, H, D] in q's dtype.  ``length``: an int, or an int32 [1]
+    tensor on q's device that the kernel reads there (clamped into
+    [1, S_max]).
 
     On a CUDA tensor this launches the kernel (float32 / bfloat16, head
     dims 64 and 128, q and rings of one dtype) and raises on anything it
     does not take; it never falls back.  On a CPU tensor it computes
     `flash_decode_reference`."""
+    return _decode(q, k_cache, v_cache, length, 0, scale)
+
+
+def _decode(q, k_cache, v_cache, n, add, scale):
+    """`flash_decode_arrays` at length ``n + add``, ``n`` an int or a
+    device tensor (``add`` 1 turns a ring position into the length)."""
     global launches
     d = q.shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    length = int(length)
     if not q.is_cuda:
-        return flash_decode_reference(q, k_cache, v_cache, length, scale)
-    _check(q, k_cache, v_cache, length)
+        return flash_decode_reference(q, k_cache, v_cache, int(n) + add,
+                                      scale)
+    _check(q, k_cache, v_cache, n if isinstance(n, torch.Tensor)
+           else int(n) + add)
     b, _, h, _ = q.shape
+    s_max = k_cache.shape[1]
+    ptr, length = _build.device_int(n, q.device, "length")
     lib = _lib()
-    splits = lib.flash_decode_splits(length)
+    splits = lib.flash_decode_splits(s_max)
     out = torch.empty((b, 1, h, d), dtype=q.dtype, device=q.device)
     # each split's (m, l) and acc[D] in fp32 (freed on return, reused only
     # by work queued later on this stream); one split writes out directly
@@ -131,8 +151,8 @@ def flash_decode_arrays(q, k_cache, v_cache, length, scale=None):
     tickets = _build.tickets(q.device, b * h)   # one per (row, head)
     err = lib.flash_decode(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
-        0 if part is None else part.data_ptr(), tickets.data_ptr(),
-        b, h, d, k_cache.shape[1], length, int(q.dtype == torch.bfloat16),
+        0 if part is None else part.data_ptr(), tickets.data_ptr(), ptr,
+        b, h, d, s_max, length + add, int(q.dtype == torch.bfloat16),
         q.stride(0), float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, KERNEL)
@@ -169,17 +189,27 @@ def cached_attention_arrays(q, k, v, k_cache, v_cache, t, scale=None,
                             mask=None):
     """KV-cache attention for one chunk.  q, k, v: [B, S, H, D] (S = 1 per
     decode step); k_cache, v_cache: flat [B, S_max, H*D] rings; t: the
-    absolute position of the chunk's first token.  Writes k and v at rows
-    ``[t, t + S)`` in place, then attends causally over the rings.
+    absolute position of the chunk's first token, an int or an int32 [1]
+    tensor on q's device (then the write, the causal mask and the decode
+    kernel's length read it there, and nothing syncs with the host).
+    Writes k and v at rows ``[t, t + S)`` in place, then attends causally
+    over the rings.
 
     Returns ``(out [B, S, H, D] in q's dtype, k_cache, v_cache)``."""
     b, s, h, d = q.shape
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    t = int(t)
-    k_cache[:, t:t + s] = k.reshape(b, s, h * d).to(k_cache.dtype)
-    v_cache[:, t:t + s] = v.reshape(b, s, h * d).to(v_cache.dtype)
+    kn = k.reshape(b, s, h * d).to(k_cache.dtype)
+    vn = v.reshape(b, s, h * d).to(v_cache.dtype)
+    if isinstance(t, torch.Tensor):
+        rows = t.reshape(1).long() + torch.arange(s, device=t.device)
+        k_cache.index_copy_(1, rows, kn)
+        v_cache.index_copy_(1, rows, vn)
+    else:
+        t = int(t)
+        k_cache[:, t:t + s] = kn
+        v_cache[:, t:t + s] = vn
     if mask is None and s == 1 and q.dtype == k_cache.dtype == v_cache.dtype:
-        out = flash_decode_arrays(q, k_cache, v_cache, t + 1, scale=scale)
+        out = _decode(q, k_cache, v_cache, t, 1, scale)
     else:
         out = _masked_cached_attention(q, k_cache, v_cache, t, scale, mask)
     return out, k_cache, v_cache

@@ -8,9 +8,13 @@ plus the current one -> out-proj -> residual.  On a CUDA tensor
 ``csrc/fused_decode_layer.cu`` (the port of `_fused_decode_layer_kernel`,
 `:1186`); on a CPU tensor it computes `fused_decode_layer_reference`.
 `fused_plan` lays the launch out from host-known shapes (CPU-testable):
-the loads a thread of the two weight products (`fused_loads`), the
-split-K attention's splits (`fused_split`), the grid, and the fp32
-partials in the kernel's one kept per-device scratch buffer.
+the loads a thread of the two weight products (`fused_loads`), the most
+splits of the split-K attention (`fused_split`) any t < S_max takes, the
+grid, and the fp32 partials in the kernel's one kept per-device scratch
+buffer.  The kernel works out the split of its own t, which may be a
+device tensor (an int32 [1] on the card): a launch captured in a CUDA
+graph at one step then serves the next, as the TPU kernel's scalar
+prefetch of t lets one compiled program serve every step.
 
 The JAX gate's VMEM budget (resident weights above 8 MiB go unfused) and
 its tile and backend conditions state TPU limits and are not ported:
@@ -80,7 +84,8 @@ def fused_split(t, bh, warps):
     """(keys a split, splits) of the attention phase for ``bh`` (row,
     head) pairs at prefix length ``t`` on ``warps`` co-resident warps: a
     split is one warp's task, whole runs of `RUN` keys, and as many
-    splits as let every task run in one round of the warps."""
+    splits as let every task run in one round of the warps.  The kernel
+    computes the same from its t and the cap ``warps // bh``."""
     splits = max(1, min(-(-t // RUN), warps // bh))
     chunk = -(-(-(-t // splits)) // RUN) * RUN
     return chunk, -(-t // chunk)
@@ -88,12 +93,13 @@ def fused_split(t, bh, warps):
 
 class FusedPlan(NamedTuple):
     """A launch of the fused layer: loads a thread of the qkv (l1) and
-    out-proj (l3) products, keys per split and splits of the attention,
-    the grid, byte offsets of the scratch's parts (part1, attn, part2,
-    part3, each from a 256-byte boundary), its bytes, and the tickets."""
+    out-proj (l3) products, the cap of splits a (row, head) that the
+    kernel's `fused_split` takes, the most splits any t < S_max takes, the
+    grid, byte offsets of the scratch's parts (part1, attn, part2, part3,
+    each from a 256-byte boundary), its bytes, and the tickets."""
     l1: int
     l3: int
-    chunk: int
+    cap: int
     splits: int
     grid: int
     offsets: tuple
@@ -102,16 +108,19 @@ class FusedPlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=None)
-def fused_plan(b, h, d, t, dtype, blocks):
+def fused_plan(b, h, d, s_max, dtype, blocks):
     """The launch of one fused layer of ``b`` rows, ``h`` heads of ``d``
-    at prefix length ``t`` in ``dtype``, on a card that holds ``blocks``
-    co-resident blocks of the kernel (eight warps each): the grid is
-    every block that has work in some phase, the attention one split a
-    warp (`fused_split`)."""
+    over rings of ``s_max`` rows in ``dtype``, on a card that holds
+    ``blocks`` co-resident blocks of the kernel (eight warps each), for
+    any t < ``s_max``: the grid is every block that has work in some
+    phase, the attention one split a warp (`fused_split`), the scratch
+    and grid sized for the most splits, ``min(cap, ceil((s_max - 1) /
+    RUN))``."""
     hd = h * d
     l1 = fused_loads(hd, 3 * hd, dtype, blocks)
     l3 = fused_loads(hd, hd, dtype, blocks)
-    chunk, splits = fused_split(t, b * h, _WARPS * blocks)
+    cap = _WARPS * blocks // (b * h)
+    splits = max(1, min(-(-(s_max - 1) // RUN), cap))
     cw = 128 // (2 if dtype == torch.bfloat16 else 4)
     units1 = 3 * hd // cw * (hd // (_ROWS * l1))
     units3 = hd // cw * (hd // (_ROWS * l3))
@@ -128,7 +137,7 @@ def fused_plan(b, h, d, t, dtype, blocks):
     for n in sizes:
         offsets.append(at)
         at += pad(n)
-    return FusedPlan(l1, l3, chunk, splits, grid, tuple(offsets), at,
+    return FusedPlan(l1, l3, cap, splits, grid, tuple(offsets), at,
                      b * h + hd // cw)
 
 
@@ -146,7 +155,9 @@ def fused_decode_plain(x, ln_w, ln_b, wqkv, bqkv, wo, bo, k_cache, v_cache,
     weights' dtype), q, k_new, v_new, ``a32`` and ``a`` (the attention
     output before and after that rounding), ``y32`` (y before its cast),
     ``p`` [B, H, t+1] (the normalised probabilities, the current token
-    last) and ``pv_abs`` = P|V| [B, hd]."""
+    last) and ``pv_abs`` = P|V| [B, hd].  A tensor ``t`` is read to the
+    host."""
+    t = int(t)
     b, hd = x.shape
     h = n_heads
     d = hd // h
@@ -194,7 +205,9 @@ def fused_decode_layer_reference(x, ln_w, ln_b, wqkv, bqkv, wo, bo, k_cache,
     the cache dtype before the value product; the attention output
     rounded to the weights' dtype before the out-proj; ``y = x + (proj +
     bo)`` in fp32, then cast.  Writes k_new / v_new, rounded to the cache
-    dtype, at row t in place.  Returns ``(y, k_cache, v_cache)``."""
+    dtype, at row t in place.  ``t``: an int or a one-element int tensor,
+    read to the host.  Returns ``(y, k_cache, v_cache)``."""
+    t = int(t)
     r = fused_decode_plain(x, ln_w, ln_b, wqkv, bqkv, wo, bo, k_cache,
                            v_cache, t, n_heads, eps, scale, cache_mask)
     k_cache[:, t] = r["k_new"].to(k_cache.dtype)
@@ -229,7 +242,7 @@ def _check(x, ln_w, ln_b, wqkv, bqkv, wo, bo, k_cache, v_cache, t, n_heads,
                 or c.dtype != x.dtype or c.device != x.device):
             raise ValueError(f"{name} must be a contiguous {x.dtype} "
                              f"[{b}, S_max, {hd}] ring on {x.device}")
-    if not 1 <= t < s_max:
+    if not isinstance(t, torch.Tensor) and not 1 <= t < s_max:
         raise ValueError(f"t {t} outside [1, {s_max - 1}]")
     if mask is not None and (tuple(mask.shape) != (b, s_max)
                              or not mask.is_contiguous()):
@@ -251,7 +264,7 @@ def _lib():
     fn = lib.fused_decode_layer
     if fn.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([vp] * 16 + [i] * 10
+        fn.argtypes = ([vp] * 17 + [i] * 10
                        + [ctypes.c_float, ctypes.c_float, vp])
         fn.restype = ctypes.c_int
         lib.fused_decode_layer_blocks.argtypes = [i] * 4
@@ -274,9 +287,11 @@ def fused_decode_layer_arrays(x, ln_w, ln_b, wqkv, bqkv, wo, bo, k_cache,
                               cache_mask=None):
     """One decode layer: x [B, hd] -> ``(y [B, hd], k_cache, v_cache)``,
     the flat [B, S_max, hd] rings written in place at row ``t`` (>= 1, the
-    prefix length).  ``cache_mask``: optional additive [B, S_max] (or
-    [B, 1, 1, S_max]) over the prefix rows; the current token is always
-    attended.
+    prefix length): an int, or an int32 [1] tensor on x's device that the
+    kernel reads there (clamped into [1, S_max - 1]), so that a captured
+    launch serves every step.  ``cache_mask``: optional additive [B,
+    S_max] (or [B, 1, 1, S_max]) over the prefix rows; the current token
+    is always attended.
 
     On a CUDA tensor this launches the kernel (one launch; float32 /
     bfloat16, head dims 64 and 128, everything of one dtype) and raises on
@@ -286,7 +301,6 @@ def fused_decode_layer_arrays(x, ln_w, ln_b, wqkv, bqkv, wo, bo, k_cache,
     b, hd = x.shape
     d = hd // n_heads
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    t = int(t)
     if not x.is_cuda:
         return fused_decode_layer_reference(
             x, ln_w, ln_b, wqkv, bqkv, wo, bo, k_cache, v_cache, t, n_heads,
@@ -309,8 +323,9 @@ def _launch(x, ln_w, ln_b, wqkv, bqkv, wo, bo, k_cache, v_cache, t, n_heads,
            mask)
     bf16 = int(x.dtype == torch.bfloat16)
     dev = x.device
-    plan = fused_plan(b, n_heads, d, t, x.dtype,
+    plan = fused_plan(b, n_heads, d, k_cache.shape[1], x.dtype,
                       _blocks(dev, -(-b // 8), n_heads, d, bf16))
+    tpos, t = _build.device_int(t, dev, "t")
     y = torch.empty_like(x)
     base = _build.scratch(KERNEL, dev, plan.nbytes)
     err = _lib().fused_decode_layer(
@@ -318,9 +333,9 @@ def _launch(x, ln_w, ln_b, wqkv, bqkv, wo, bo, k_cache, v_cache, t, n_heads,
         bqkv.data_ptr(), wo.data_ptr(), bo.data_ptr(), k_cache.data_ptr(),
         v_cache.data_ptr(), 0 if mask is None else mask.data_ptr(),
         *(base + off for off in plan.offsets),
-        _build.tickets(dev, plan.tickets).data_ptr(), y.data_ptr(), b,
-        n_heads, d, k_cache.shape[1], t, bf16, plan.l1, plan.l3, plan.chunk,
-        plan.grid, float(eps), float(scale),
+        _build.tickets(dev, plan.tickets).data_ptr(), y.data_ptr(), tpos,
+        b, n_heads, d, k_cache.shape[1], t, bf16, plan.l1, plan.l3,
+        plan.cap, plan.grid, float(eps), float(scale),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, KERNEL)
     return y

@@ -15,9 +15,19 @@ the host; each step runs one of three bodies on the device:
   slots and attends the ragged batch against the pools: the int8 kernel
   for ``kv_cache_dtype="int8"``, whose plain version on the CPU is the JAX
   fallback's (quantized write, scale-folded attention), as the JAX
-  engine's ragged program computes both step kinds.
+  engine's ragged program computes both step kinds.  The decode step
+  reads its inputs from one static device buffer (``toks | pos0 | lens |
+  slots | tables``), filled each step by ONE host-to-device copy from a
+  pinned staging buffer, and ends at the fp32 logits: on the card it is
+  captured as one CUDA graph, keyed ``("ragged", max_num_seqs, 1)`` as
+  the JAX engine keys its compiled program, and replayed every step
+  (`graphs.StepGraph`; ``PTPU_CUDA_GRAPHS=0`` runs it eagerly).  Its
+  captures are counted in ``compiles`` by kind, as the JAX engine counts
+  its compiles (`_count_compile`).  Prefill and chunk steps run
+  eagerly.
 - **sample** — greedy argmax, or temperature / top-k / top-p with a
-  per-request `torch.Generator`.
+  per-request `torch.Generator`, after the step (outside its graph, as
+  JAX's separate ``sample`` program).
 
 The final LayerNorm and tied LM head follow the JAX ``_model_logits``
 (`nn.functional.layer_norm_arrays`, not the block LN).  Padding rows carry
@@ -26,8 +36,9 @@ writes are dropped and their outputs ignored.
 
 Left out for later slices: the bucketed fallback path, speculative
 verify, prefix caching, deadlines and shedding,
-fork/export/adopt, the monitor and tracing, CUDA-graph capture, and
-seeded sampling that reproduces the JAX package's PRNG streams.
+fork/export/adopt, the monitor and tracing, CUDA-graph capture of the
+prefill and chunk steps, and seeded sampling that reproduces the JAX
+package's PRNG streams.
 """
 from __future__ import annotations
 
@@ -38,6 +49,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..graphs import StepGraph
 from ..models.gpt import BLOCK_PARAMS, _sample_next, _stacked_block_body
 from ..nn.functional import layer_norm_arrays
 from ..ops.flash_attention import flash_attention_arrays
@@ -125,6 +137,9 @@ class LLMEngine:
         # continuation, "decode" = ragged (max_num_seqs, 1))
         self.step_counts = {"prefill": 0, "chunk": 0, "decode": 0}
         self.num_preemptions = 0
+        # captured step graphs by kind, and the decode steps by JAX key
+        self.compiles: dict = {}
+        self._steps: dict = {}
 
     # -- request API --------------------------------------------------------
 
@@ -243,12 +258,17 @@ class LLMEngine:
     def _decode_body(self, rows):
         bb = self.scheduler.max_num_seqs
         maxb = self.blocks_per_seq
-        # one host buffer, one copy to the device: toks | pos0 | lens |
-        # slots | tables
-        host = np.zeros(4 * bb + bb * maxb, np.int32)
+        step = self._steps.get(("ragged", bb, 1))
+        if step is None:
+            step = self._steps[("ragged", bb, 1)] = _DecodeStep(self, bb,
+                                                                maxb)
+        # the staging buffer was last copied from before the previous
+        # step's sampler synced with the host
+        host = step.host
         toks, pos0, lens, slots = (host[i * bb:(i + 1) * bb]
                                    for i in range(4))
         tables = host[4 * bb:].reshape(bb, maxb)
+        host[:3 * bb] = 0                   # toks, pos0, lens
         slots[:] = self.cache.num_slots
         tables[:] = self.cache.num_blocks
         for i, req in enumerate(rows):
@@ -259,12 +279,8 @@ class LLMEngine:
             lens[i] = req.total_len
             tables[i] = self.cache.padded_table(req.req_id, maxb)
             slots[i] = self.cache.slot(req.req_id, p)
-        dev = torch.from_numpy(host).to(self.device)
-        d_toks, d_pos0, d_lens, d_slots = (dev[i * bb:(i + 1) * bb]
-                                           for i in range(4))
-        logits = self._ragged_logits(
-            d_toks.view(bb, 1), d_pos0, d_lens,
-            dev[4 * bb:].view(bb, maxb), d_slots.view(bb, 1))
+        step.inputs.copy_(step.staging, non_blocking=True)
+        logits = step.run()
         self.step_counts["decode"] += 1
         self._sample_rows(rows, logits)
 
@@ -345,3 +361,29 @@ class LLMEngine:
                     sp.top_p, req.generator)[0])
             req.record_token(toks[i])
 
+
+class _DecodeStep:
+    """The engine's ``(max_num_seqs, 1)`` ragged decode step over buffers
+    that outlive it: ``inputs``, one int32 device buffer ``toks | pos0 |
+    lens | slots | tables`` (``bb`` each, then ``bb`` rows of ``maxb``),
+    its staging copy ``staging`` (pinned on the card; ``host`` is its
+    numpy view), the pools and scales of the engine's `BlockKVCache` and
+    the weights.  ``run()`` returns the fp32 logits [bb, V]; it is a
+    `StepGraph` of kind "ragged" counted in the engine's ``compiles``."""
+
+    def __init__(self, engine, bb, maxb):
+        n = 4 * bb + bb * maxb
+        dev = engine.device
+        self.staging = torch.zeros(n, dtype=torch.int32,
+                                   pin_memory=dev.type == "cuda")
+        self.host = self.staging.numpy()
+        self.inputs = torch.zeros(n, dtype=torch.int32, device=dev)
+        toks, pos0, lens, slots = (self.inputs[i * bb:(i + 1) * bb]
+                                   for i in range(4))
+        tables = self.inputs[4 * bb:].view(bb, maxb)
+
+        def step():
+            return engine._ragged_logits(toks.view(bb, 1), pos0, lens,
+                                         tables, slots.view(bb, 1))
+
+        self.run = StepGraph(step, dev, "ragged", engine.compiles)

@@ -245,8 +245,10 @@ def main():
                                 ctypes.c_void_p(warps.ctypes.data), 0)
         if err:
             raise SystemExit(f"probe: CUDA error {err}")
-        plan = fdl.fused_plan(8, h, d, t, dtype, fdl._blocks(
-            kc.device, 1, h, d, int(dtype == torch.bfloat16)))
+        resident = fdl._blocks(kc.device, 1, h, d,
+                               int(dtype == torch.bfloat16))
+        plan = fdl.fused_plan(8, h, d, kc.shape[1], dtype, resident)
+        chunk, splits = fdl.fused_split(t, 8 * h, 8 * resident)
         st = blocks[:plan.grid].astype(np.int64)
         t0 = st[:, 0].min()
         rel = (st - t0) / 1e3
@@ -254,7 +256,7 @@ def main():
         busy = w[:, 4] > 0
         wr = (w[busy, :4] - t0) / 1e3
         print(f"fused {str(dtype)[6:]} t={t} H={h} D={d} grid={plan.grid} "
-              f"splits={plan.splits}x{plan.chunk} keys: event {ms:.4f} ms; "
+              f"splits={splits}x{chunk} keys: event {ms:.4f} ms; "
               + "; ".join(f"{n} {rel[:, i].min():.2f}-{rel[:, i].max():.2f}"
                           for i, n in enumerate(names)), flush=True)
         print(f"  attention warps: {busy.sum()} busy, tasks "

@@ -418,10 +418,11 @@ def test_init_caches_and_argument_checks(port_model):
     assert port_model.generate(ids[0], max_new_tokens=2).shape == (1, P + 2)
     with pytest.raises(ValueError, match="max_position_embeddings"):
         port_model.generate(ids, max_new_tokens=64 - P + 1)
-    # a padded generate of the per-layer layout raises, as in JAX
-    # (`gpt.py:766-769`): its cached forward is not ported
+    # a padded generate of the per-layer layout raises JAX's own refusal
+    # (`gpt.py:766-769`): the cache mask is wired on the stacked path only
     per_layer = GPTForCausalLM(gpt_test_config(**CFG), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError,
+                       match="cache_mask is wired on the stacked-blocks"):
         per_layer.generate(ids, max_new_tokens=2, pad_token_id=0)
 
 

@@ -15,7 +15,8 @@ flash kernel runs in interpret mode.
 - the gates `ln_geometry_ok` / `ffn_geometry_ok` against the JAX ones;
 - the final LayerNorm of the stacked model under ``PTPU_PALLAS_LN=1`` in
   bf16 (the fault repaired in this slice);
-- the per-layer test GPT: ``state_dict`` names, logits with the flags off
+- the per-layer test GPT: ``state_dict`` names (and a short greedy
+  ``generate`` with the JAX per-layer tokens), logits with the flags off
   and on, and three AdamW steps under both flags;
 - the stacked model under ``PTPU_PALLAS_LN=1``: logits and greedy
   ``generate``.
@@ -298,15 +299,19 @@ def test_per_layer_state_dict_names_match_jax(jax_state):
     model = GPTForCausalLM(gpt_test_config(**CFG), device="cpu")
     assert set(model.state_dict()) == set(jax_state)
     assert "gpt.h_1.mlp.fc_out.bias" in jax_state
-    _, loaded = _models(jax_state)
+    jmodel, loaded = _models(jax_state)
     for name, a in params_to_numpy(loaded).items():
         np.testing.assert_array_equal(a, jax_state[name], err_msg=name)
     with pytest.raises(ValueError, match="stacked"):
         JaxEngine(JaxGPT(jax_test_config(sequence_parallel=False)))
     with pytest.raises(ValueError, match="stacked"):
         LLMEngine(loaded, EngineConfig(device="cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        loaded.generate(torch.zeros(1, 4, dtype=torch.int32))
+    # the per-layer layout generates, with the JAX per-layer tokens
+    ids = np.random.RandomState(5).randint(0, 128, (1, 4)).astype(np.int32)
+    jmodel.eval()
+    want = jmodel.generate(paddle.to_tensor(ids), max_new_tokens=3).numpy()
+    got = loaded.generate(torch.from_numpy(ids), max_new_tokens=3)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 class _Spy:

@@ -306,7 +306,7 @@ def _layer_inputs(seed):
 def fused_emulation(args, t, mask):
     """y [B, hd] of the fused layer as the kernel computes it: q, k, v
     from the plain layer's fp32 qkv (the kernel's sums differ in order
-    only), the prefix by `splitk_attend` (the splits of `fdl.fused_plan`,
+    only), the prefix by `splitk_attend` (the splits of `fdl.fused_split`,
     one warp each, p rounded to the cache type at the warp's running max,
     which moves once a run of 32 keys in bf16), the current
     token's term from the fp32 k and v, the output rounded to the
@@ -318,7 +318,7 @@ def fused_emulation(args, t, mask):
     cdt = kc.dtype
     plain = fdl.fused_decode_plain(*args, t, H, cache_mask=mask)
     # the splits of an H100 (264 co-resident blocks)
-    chunk = fdl.fused_plan(b, H, d, t, x.dtype, 264).chunk
+    chunk = fdl.fused_split(t, b * H, 8 * 264)[0]
     per_load = _keys_a_load(d, kc.element_size())
     q = plain["q"].reshape(b, H, d)
     kn, vn = (plain[n].reshape(b, H, d) for n in ("k_new", "v_new"))
@@ -438,21 +438,21 @@ def test_fused_loads_refuses_widths_off_the_units():
         fdl.fused_loads(100, 300, torch.bfloat16, 264)
 
 
-# (B, H, D, t, dtype, blocks) -> (l1, l3, keys a split, splits, grid,
-# tickets)
+# (B, H, D, S_max, dtype, blocks) -> (l1, l3, cap of splits a (row, head),
+# the most splits any t < S_max takes, grid, tickets)
 FUSED_PLANS = [
-    ((8, 12, 64, 1, torch.bfloat16, 264), (4, 2, 32, 1, 216, 108)),
-    ((8, 12, 64, 129, torch.bfloat16, 264), (4, 2, 32, 5, 216, 108)),
-    ((8, 12, 64, 511, torch.bfloat16, 264), (4, 2, 32, 16, 216, 108)),
-    ((8, 12, 64, 1023, torch.bfloat16, 264), (4, 2, 64, 16, 216, 108)),
-    ((8, 12, 64, 1023, torch.float32, 264), (8, 4, 64, 16, 216, 120)),
-    ((8, 16, 128, 1023, torch.bfloat16, 264), (4, 4, 64, 16, 264, 160))]
+    ((8, 12, 64, 128, torch.bfloat16, 264), (4, 2, 22, 4, 216, 108)),
+    ((8, 12, 64, 256, torch.bfloat16, 264), (4, 2, 22, 8, 216, 108)),
+    ((8, 12, 64, 1024, torch.bfloat16, 264), (4, 2, 22, 22, 264, 108)),
+    ((8, 12, 64, 1024, torch.float32, 264), (8, 4, 22, 22, 264, 120)),
+    ((8, 16, 128, 1024, torch.bfloat16, 264), (4, 4, 16, 16, 264, 160)),
+    ((8, 12, 64, 1024, torch.bfloat16, 132), (4, 4, 11, 11, 132, 108))]
 
 
 @pytest.mark.parametrize("args,want", FUSED_PLANS)
 def test_fused_plan_table(args, want):
     plan = fdl.fused_plan(*args)
-    assert (plan.l1, plan.l3, plan.chunk, plan.splits, plan.grid,
+    assert (plan.l1, plan.l3, plan.cap, plan.splits, plan.grid,
             plan.tickets) == want
 
 
@@ -473,15 +473,16 @@ def test_fused_split_table(args, want):
     assert bh * splits <= max(warps, bh)
 
 
-@pytest.mark.parametrize("b,h,d,t,dtype", [
-    (8, 12, 64, 1023, torch.bfloat16), (8, 12, 64, 1, torch.float32),
-    (3, 2, 128, 300, torch.bfloat16), (72, 12, 64, 700, torch.float32)])
-def test_fused_plan_lays_out_the_scratch(b, h, d, t, dtype):
+@pytest.mark.parametrize("b,h,d,s_max,dtype", [
+    (8, 12, 64, 1024, torch.bfloat16), (8, 12, 64, 128, torch.float32),
+    (3, 2, 128, 384, torch.bfloat16), (72, 12, 64, 768, torch.float32)])
+def test_fused_plan_lays_out_the_scratch(b, h, d, s_max, dtype):
     """One kept buffer: the qkv partials of each k-chunk, the attention
     output, the splits' (m, l) and acc[D], the out-proj partials, each
     from a 256-byte boundary and apart; tickets for every (row, head) and
-    every out-proj column slice."""
-    plan = fdl.fused_plan(b, h, d, t, dtype, 264)
+    every out-proj column slice.  The splits and the grid hold those of
+    every t < S_max, which the kernel works out from its device t."""
+    plan = fdl.fused_plan(b, h, d, s_max, dtype, 264)
     hd = h * d
     cw = 64 if dtype == torch.bfloat16 else 32
     sizes = (hd // (32 * plan.l1) * b * 3 * hd * 4, b * hd * 4,
@@ -490,6 +491,9 @@ def test_fused_plan_lays_out_the_scratch(b, h, d, t, dtype):
     ends = list(plan.offsets[1:]) + [plan.nbytes]
     for off, end, n in zip(plan.offsets, ends, sizes):
         assert off % 256 == 0 and end - off >= n
-    assert plan.splits == math.ceil(t / plan.chunk)
+    assert plan.cap == 8 * 264 // (b * h)
+    most = max(fdl.fused_split(t, b * h, 8 * 264)[1]
+               for t in range(1, s_max))
+    assert plan.splits == most
     assert plan.tickets == b * h + hd // cw
-    assert 1 <= plan.grid <= 264
+    assert min(264, -(-b * h * most // 8)) <= plan.grid <= 264
