@@ -20,7 +20,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    at the serving path's shapes and (flash) the training shape; the two
    backward kernels at the training shape (B=8 S=1024 H=12 D=64, q, k, v
    slices of one fused [B, S, 3, H, D] tensor), a ragged S=200 and S=512
-   H=16 D=128.  Tolerances
+   H=16 D=128; in bfloat16 also the forward, dQ and dK/dV at GPT-3 1.3B's
+   training shape (phase 9c: B=2 S=2048 H=16 D=128).  Tolerances
    (`paddle_tpu_torch.ops.tolerance` derives the bf16 ones):
    - forward, float32: max absolute error 2e-5 — both sides accumulate in
      fp32 and differ only in summation order (the kernel's products are
@@ -198,6 +199,36 @@ Phases, in order; any failure exits non-zero and prints no result line:
    step (fp32 at 1024 rows: the split-TF32 design) and none on the CPU;
    then bf16 as phase 6 with the flags (the FFN's 144 launches all on
    the tensor cores) and without them.
+9. The training recipe (run after phase 7, before the summary's lines):
+   configuration A's optimizer, GPT-3's (Brown et al. 2020, App. B):
+   AdamW(beta2=0.95, weight_decay=0.1 but for biases and LayerNorms,
+   ClipGradByGlobalNorm(1.0)) under LinearWarmup(CosineAnnealingDecay(lr,
+   steps - 2, eta_min=lr / 10), 2, 0, lr) (`make_step`).
+   9a. fp32, card against CPU, GPT-2 124M at B=1 S=1024, 3 steps, dropout
+   0, stacked and per-layer (the latter under the LN and FFN flags):
+   phase 5's limits and launches.  Then the stacked model with
+   ``recompute`` against without, on the card: losses and step-1
+   gradients (expected bitwise; the max differences printed, phase 5's
+   limits checked), the flash forward 24 launches a step under
+   recompute, dQ and dK/dV 12.
+   9b. Configuration A: per-layer GPT-2 124M, fp32 weights under
+   ``auto_cast(level="O1", dtype="bfloat16")`` with
+   ``GradScaler(init_loss_scaling=2**15)``, dropout 0.1 at every site
+   (GPT-2's), the recipe at lr 6e-4, both flags, B=8 S=1024, 2 warm-up and
+   10 timed steps as phase 6: losses finite and falling, the scale and
+   skipped steps, launches (the flash kernels on ``:tc``, the FFN on its
+   bf16 tensor-core design, the LayerNorm kernels fp32), ms per step,
+   tokens/s, peak memory and the profiled step.  One more forward at B=2
+   records each dropout site's keep mask: kept fraction within 5 sigma of
+   0.9; the eval-mode logits bitwise those of p = 0.
+   9c. Configuration B: GPT-3 1.3B stacked (H=2048, 24 layers, 16 heads,
+   D=128, I=8192, full depth), bf16 weights and AdamW moments
+   (``multi_precision=False``), the recipe at lr 2e-4, B=2 S=2048
+   (`bench.py:258-273`), ``ln_f`` under PTPU_PALLAS_LN: 2 warm-up and 5
+   timed steps without, then with ``recompute`` from the same weights:
+   finite losses, step-1 losses equal, launches (the flash forward 48 a
+   step under recompute, 24 without), ms per step, tokens/s and peak
+   memory of each.
 8. Summary: one JSON line of the twenty-eight entries (the nine kernels,
    the int8 variant, the mask, segment and non-causal variants of the
    flash kernels, the tensor-core forward, dQ and dK/dV -- every bf16
@@ -234,6 +265,7 @@ flags, all with the ``paddle_tpu_torch`` of DIR (`time_paths`): run it on
 two trees in turns in one call to compare them.
 """
 import contextlib
+import dataclasses
 import hashlib
 import json
 import os
@@ -335,6 +367,12 @@ PORT_SYMBOLS = ("flash_fwd_tc32_kernel", "flash_fwd_tc_kernel",
 PARENT_SYMBOLS = ("flash_fwd_causal_kernel", "flash_bwd_dq_kernel",
                   "flash_bwd_dkv_kernel", "ln_bwd_sum_kernel")
 TRAIN_LR = 1e-4
+# the training recipe (phase 9): warm-up steps of the schedule, the peak
+# rates of GPT-3 Small (A, GPT-2 124M's width) and GPT-3 XL (B, 1.3B),
+# Brown et al. 2020, App. B, and GPT-2's dropout (resid / embd / attn 0.1)
+RECIPE_WARMUP = 2
+RECIPE_LR, RECIPE_LR_1P3B = 6e-4, 2e-4
+DROPOUT = {"hidden_dropout_prob": 0.1, "attention_dropout_prob": 0.1}
 # the environment flags that select the decode kernels, by generate mode
 GEN_MODES = {"default": {},
              "fused": {"PTPU_FUSED_DECODE": "1", "PTPU_PALLAS_FFN": "1"}}
@@ -1918,26 +1956,74 @@ def generate_bf16(ops, cfg, cfg_pl, card, batch=8, prompt=896, new=128):
 # phases 5 and 6: training
 # ---------------------------------------------------------------------------
 
-def make_step(model, lr=TRAIN_LR):
+def no_decay(name):
+    """The recipe's parameters without weight decay: biases and LayerNorms
+    (the port's names: per-layer ``...ln_1.weight``, ``...bias``; stacked
+    ``ln1_w``, ``qkv_b``, ``lnf_b``)."""
+    return "ln" in name or name.endswith(("bias", "_b"))
+
+
+def make_step(model, lr=TRAIN_LR, recipe=None):
     """The JAX package's pretraining step on `model` with a fresh AdamW:
     ``model.pretrain_loss(*batch)`` -> backward -> step -> clear_grad, the
     batch ``(ids, labels)`` or the packed ``(ids, labels, loss_mask,
     segment_ids, position_ids)``.  Returns the step function, which
     returns the loss (a tensor, not synced) and fills `grads` (when given)
-    with the gradients on the host in fp32, and the optimizer."""
-    from paddle_tpu_torch.optimizer import AdamW
-    opt = AdamW(learning_rate=lr, parameters=model.parameters())
+    with the gradients on the host in fp32, and the optimizer.
+
+    ``recipe`` (a dict: ``steps`` the run's length, ``amp`` None or an
+    `auto_cast` level, ``multi_precision``) makes it configuration A's
+    recipe, GPT-3's (Brown et al. 2020, App. B): AdamW(beta2=0.95,
+    weight_decay=0.1 but for biases and LayerNorms, ClipGradByGlobalNorm
+    (1.0), parameters named) under LinearWarmup(CosineAnnealingDecay(lr,
+    steps - RECIPE_WARMUP, eta_min=lr / 10), RECIPE_WARMUP, 0, lr), the
+    schedule stepped after each step; with ``amp`` the forward runs under
+    ``auto_cast(level=amp, dtype="bfloat16")`` and the loss through a
+    GradScaler(init_loss_scaling=2**15): ``step.scales`` gets the scale
+    after each step and ``step.skipped`` each skipped step's index."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm, lr as L
+    scaler = sched = None
+    if recipe is None:
+        opt = AdamW(learning_rate=lr, parameters=model.parameters())
+    else:
+        sched = L.LinearWarmup(L.CosineAnnealingDecay(
+            lr, max(recipe["steps"] - RECIPE_WARMUP, 1), eta_min=lr / 10),
+            RECIPE_WARMUP, 0.0, lr)
+        opt = AdamW(learning_rate=sched, beta2=0.95, weight_decay=0.1,
+                    apply_decay_param_fun=lambda n: not no_decay(n),
+                    grad_clip=ClipGradByGlobalNorm(1.0),
+                    parameters=model.named_parameters(),
+                    multi_precision=recipe.get("multi_precision", True))
+        if recipe.get("amp"):
+            scaler = amp.GradScaler(init_loss_scaling=2.0 ** 15)
+    scales, skipped = [], []
 
     def step(batch, grads=None):
-        loss = model.pretrain_loss(*batch)
-        loss.backward()
+        if scaler is None:
+            loss = model.pretrain_loss(*batch)
+            loss.backward()
+        else:
+            with amp.auto_cast(level=recipe["amp"], dtype="bfloat16"):
+                loss = model.pretrain_loss(*batch)
+            scaler.scale(loss).backward()
         if grads is not None:
             grads.update({n: p.grad.detach().float().cpu()
                           for n, p in model.named_parameters()})
-        opt.step()
+        if scaler is None:
+            opt.step()
+        else:
+            before = opt._step_count
+            scaler.step(opt)
+            if opt._step_count == before:
+                skipped.append(len(scales))
+            scales.append(scaler._scale)
         opt.clear_grad()
+        if sched is not None:
+            sched.step()
         return loss.detach()
 
+    step.scales, step.skipped = scales, skipped
     return step, opt
 
 
@@ -1945,7 +2031,8 @@ def train_launches(cfg, steps, env, packed=False, bf16=False, rows=1024):
     """Expected launches of `steps` training steps of ``rows`` tokens under
     the flags `env`: each flash kernel once per layer (its segment variant
     on packed rows; in bf16 all three are the tensor-core kernels, so 12
-    of each per step, in fp32 the forward and dK/dV, `:tc32`); under
+    of each per step, in fp32 the forward and dK/dV, `:tc32`), the
+    forward twice per layer of a stacked model under ``recompute``; under
     PTPU_PALLAS_LN the LayerNorm
     forward and backward once per LayerNorm layer (2L+1 per-layer, ``ln_f``
     alone stacked); under PTPU_PALLAS_FFN the FFN once per per-layer
@@ -1956,6 +2043,8 @@ def train_launches(cfg, steps, env, packed=False, bf16=False, rows=1024):
     want = dict.fromkeys(KERNELS, 0)
     for name in (FWD_SEGS, DQ_SEGS, DKV_SEGS) if packed else (FWD, DQ, DKV):
         want[name] = layers * steps
+    if cfg.stacked_blocks and cfg.recompute:
+        want[FWD_SEGS if packed else FWD] *= 2
     if env.get("PTPU_PALLAS_LN") == "1":
         per_step = 1 if cfg.stacked_blocks else 2 * layers + 1
         want[LN] = want[LN_BWD] = per_step * steps
@@ -1970,10 +2059,12 @@ def check_train_launches(launches, want, what):
         fail(f"{what}: launches {launches}, expected {want}")
 
 
-def train_fp32_card_vs_cpu(ops, cfg, env, steps=3, seq=1024, packed=False):
+def train_fp32_card_vs_cpu(ops, cfg, env, steps=3, seq=1024, packed=False,
+                           recipe=False):
     """`steps` fp32 AdamW steps on the card and on the CPU under the flags
-    `env`, on one random row or (``packed``) one row of packed documents:
-    losses, step-1 gradients and launches checked."""
+    `env`, on one random row or (``packed``) one row of packed documents;
+    with ``recipe`` configuration A's optimizer, clip and schedule
+    (`make_step`): losses, step-1 gradients and launches checked."""
     from paddle_tpu_torch.models import GPTForCausalLM
     if packed:
         batch = packed_batch(cfg.vocab_size, 1, seq)
@@ -1986,7 +2077,8 @@ def train_fp32_card_vs_cpu(ops, cfg, env, steps=3, seq=1024, packed=False):
     for device in ("cuda", "cpu"):
         model = GPTForCausalLM(cfg, device=device,
                                generator=torch.Generator().manual_seed(0))
-        step, _ = make_step(model)
+        step, _ = make_step(model, recipe={"steps": steps} if recipe
+                            else None)
         grads = {}
         with flag_env(env):
             ops.reset_launch_counts()
@@ -2028,10 +2120,12 @@ def train_fp32_card_vs_cpu(ops, cfg, env, steps=3, seq=1024, packed=False):
 
 
 def train_bf16(ops, cfg, env, batch=8, seq=1024, warmup=2, timed=10,
-               packed=False):
+               packed=False, dtype=torch.bfloat16, recipe=None, lr=TRAIN_LR):
     """The full-size bf16 run under the flags `env`, on random rows or
-    (``packed``) rows of packed documents; returns its record and the
-    launches of all its steps."""
+    (``packed``) rows of packed documents: bf16 weights with fp32 masters,
+    or ``dtype`` weights and the optimizer of ``recipe`` (`make_step`;
+    with its ``amp``, O1's bf16 compute over fp32 weights); returns its
+    record and the launches of all its steps."""
     from paddle_tpu_torch.models import GPTForCausalLM
     if packed:
         data = [t.cuda() for t in packed_batch(cfg.vocab_size, batch, seq)]
@@ -2040,9 +2134,11 @@ def train_bf16(ops, cfg, env, batch=8, seq=1024, warmup=2, timed=10,
         data = [torch.from_numpy(rng.randint(0, cfg.vocab_size,
                                              (batch, seq))).cuda()
                 for _ in range(2)]
-    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+    model = GPTForCausalLM(cfg, device="cuda", dtype=dtype,
                            generator=torch.Generator().manual_seed(0))
-    step, opt = make_step(model)           # multi_precision: fp32 masters
+    if recipe is not None:
+        recipe = dict(recipe, steps=warmup + timed)
+    step, opt = make_step(model, lr, recipe)   # fp32 masters of bf16
     with flag_env(env):
         ops.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
@@ -2064,14 +2160,18 @@ def train_bf16(ops, cfg, env, batch=8, seq=1024, warmup=2, timed=10,
         fail(f"bfloat16 training: non-finite loss {losses}")
     if not losses[-1] < losses[0]:
         fail(f"bfloat16 training: loss did not fall, {losses}")
-    if not all(p.dtype == torch.bfloat16 for p in model.parameters()) or \
-            len(opt._master_weights) != len(list(model.parameters())):
-        fail("bfloat16 training: params are not bf16 with fp32 masters")
+    masters = (dtype == torch.bfloat16
+               and opt._multi_precision) * len(list(model.parameters()))
+    if not all(p.dtype == dtype for p in model.parameters()) or \
+            len(opt._master_weights) != masters:
+        fail(f"bfloat16 training: params are not {dtype} with {masters} "
+             f"fp32 masters")
     tokens = batch * seq
     rec = {"batch": f"B={batch} S={seq}" + (" packed" if packed else ""),
            "warmup": warmup, "timed_steps": timed, "losses": losses,
            "ms_per_step": step_ms, "tokens_per_s": tokens * 1e3 / step_ms,
-           "peak_memory_gb": peak_gb, "profile": profile_rec}
+           "peak_memory_gb": peak_gb, "profile": profile_rec,
+           "scales": step.scales, "skipped_steps": step.skipped}
     if packed:
         trained = float(data[2].sum())
         rec.update(loss_tokens=trained,
@@ -2211,6 +2311,204 @@ def ffn_entry_card_vs_cpu(ops, n=1024, hidden=768, inter=FFN_ODD_INTER):
         ratios[name] = err / limit
     return {"shape": f"n={n} H={hidden} I={inter}",
             "grad_err_over_limit": ratios, "launches": launches}, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the training recipe
+# ---------------------------------------------------------------------------
+
+def train_recompute_card(ops, cfg, steps=3, seq=1024):
+    """The stacked fp32 model under the recipe with ``recompute`` against
+    without, on the card, B=1: losses of `steps` steps and the step-1
+    gradients, expected bitwise equal (the same kernels on the same
+    inputs), held at least to phase 5's limits; launches (the forward
+    twice a layer under recompute) and the peak memory each adds to what
+    was allocated before it (the weights included)."""
+    from paddle_tpu_torch.models import GPTForCausalLM
+    rng = np.random.RandomState(1)
+    batch = [torch.from_numpy(rng.randint(0, cfg.vocab_size, (1, seq)))
+             .cuda() for _ in range(2)]
+    runs = {}
+    for rc in (False, True):
+        c = dataclasses.replace(cfg, recompute=rc)
+        model = GPTForCausalLM(c, device="cuda",
+                               generator=torch.Generator().manual_seed(0))
+        step, _ = make_step(model, recipe={"steps": steps})
+        grads = {}
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        losses = [step(batch, grads if i == 0 else None).item()
+                  for i in range(steps)]
+        runs[rc] = dict(losses=losses, grads=grads,
+                        launches=ops.launch_counts(),
+                        peak_gb=(torch.cuda.max_memory_allocated() - base)
+                        / 1e9)
+        check_train_launches(runs[rc]["launches"],
+                             train_launches(c, steps, {}),
+                             f"float32 stacked recipe, recompute={rc}")
+        del model, step
+        torch.cuda.empty_cache()
+    on, off = runs[True], runs[False]
+    loss_diff = max(abs(a - b) for a, b in zip(on["losses"], off["losses"]))
+    grad_diff, grad_ratio = 0.0, 0.0
+    for name, g in off["grads"].items():
+        err = (on["grads"][name] - g).abs().max().item()
+        grad_diff = max(grad_diff, err)
+        grad_ratio = max(grad_ratio, err / (1e-3 * g.abs().max().item()
+                                            or 1.0))
+    rel = [abs(a - b) / abs(b) for a, b in zip(on["losses"], off["losses"])]
+    if not (np.isfinite(on["losses"]).all() and rel[0] <= 1e-5
+            and rel[-1] <= 1e-4 and grad_ratio <= 1.0):
+        fail(f"recompute against none: losses {on['losses']} vs "
+             f"{off['losses']}, step-1 gradients {grad_ratio:.3g} of 1e-3 "
+             f"max|g|")
+    return {"batch": f"B=1 S={seq}", "steps": steps,
+            "losses_recompute": on["losses"], "losses": off["losses"],
+            "max_loss_diff": loss_diff, "max_grad_diff": grad_diff,
+            "bitwise": loss_diff == 0.0 and grad_diff == 0.0,
+            "launches_recompute": on["launches"], "launches": off["launches"],
+            "peak_gb_recompute": on["peak_gb"], "peak_gb": off["peak_gb"]}
+
+
+def dropout_sites(ops, cfg, batch=2, seq=1024):
+    """Configuration A's dropout on the card, apart from the timed run: one
+    forward of the per-layer model in training mode under O1, each site's
+    keep mask recorded (1 + 3 per layer); its kept fraction must lie within
+    5 sigma of 0.9 (sigma = sqrt(0.9 * 0.1 / n) over the n entries of the
+    mask).  Then the logits with dropout 0 in training mode against the
+    dropout model in eval mode: bitwise equal (p = 0 and eval draw
+    nothing)."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import GPTForCausalLM
+    from paddle_tpu_torch.nn import functional as PF
+    rng = np.random.RandomState(4)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (batch, seq))
+                           ).cuda()
+    keep_mask, masks = PF._keep_mask, []
+
+    def spy(shape, keep, device, generator=None):
+        m = keep_mask(shape, keep, device, generator)
+        masks.append((m.float().mean(), m.numel(), keep))
+        return m
+    model = GPTForCausalLM(cfg, device="cuda",
+                           generator=torch.Generator().manual_seed(0))
+    zero = GPTForCausalLM(dataclasses.replace(
+        cfg, hidden_dropout_prob=0.0, attention_dropout_prob=0.0),
+        device="cuda", generator=torch.Generator().manual_seed(0))
+    with flag_env(TRAIN_MODES["flags"]), torch.no_grad(), \
+            amp.auto_cast(level="O1", dtype="bfloat16"):
+        PF._keep_mask = spy
+        try:
+            model(ids)
+        finally:
+            PF._keep_mask = keep_mask
+        model.eval()
+        same = torch.equal(model(ids), zero(ids))
+    sites = []
+    for kept, n, keep in masks:
+        sigma = (keep * (1 - keep) / n) ** 0.5
+        sites.append({"kept": kept.item(), "n": n,
+                      "sigmas": (kept.item() - keep) / sigma})
+    if len(sites) != 1 + 3 * cfg.num_hidden_layers:
+        fail(f"dropout: {len(sites)} sites drew, expected "
+             f"{1 + 3 * cfg.num_hidden_layers}")
+    worst = max(abs(x["sigmas"]) for x in sites)
+    if worst > 5:
+        fail(f"dropout: a site kept a fraction {worst:.2f} sigma from 0.9")
+    if not same:
+        fail("dropout: eval-mode logits differ from p = 0's")
+    del model, zero
+    torch.cuda.empty_cache()
+    return {"sites": sites, "max_abs_sigmas": worst,
+            "p0_bitwise_eval": same, "batch": f"B={batch} S={seq}"}
+
+
+def step_memory(model, opt, batch):
+    """One more step with its peak memory split: through the forward and
+    backward, then in the optimizer step, each beside what was allocated
+    when it began (GB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    model.pretrain_loss(*batch).backward()
+    backward = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    grads = torch.cuda.memory_allocated()
+    opt.step()
+    opt.clear_grad()
+    return {"before_step_gb": before / 1e9,
+            "forward_backward_peak_gb": backward / 1e9,
+            "before_update_gb": grads / 1e9,
+            "update_peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def train_1p3b(ops, warmup=2, timed=5, batch=2, seq=2048):
+    """Configuration B: GPT-3 1.3B stacked, bf16 weights and AdamW moments
+    (``multi_precision=False``), the recipe at lr 2e-4, B=2 S=2048 (the
+    JAX bench's settings), ``ln_f`` under PTPU_PALLAS_LN, without and then
+    with ``recompute`` from the same weights and batch: losses finite,
+    step-1 losses equal, launches as `train_launches` (recompute: the
+    flash forward twice a layer), ms per step, tokens/s and peak memory of
+    each, beside what was allocated before the run (the weights and what
+    earlier phases keep); then one more step's peaks (`step_memory`)."""
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt3_1p3b_config
+    cfg = gpt3_1p3b_config(stacked_blocks=True)
+    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                           generator=torch.Generator().manual_seed(0))
+    init = {n: p.detach().to("cpu", copy=True)
+            for n, p in model.named_parameters()}
+    rng = np.random.RandomState(3)
+    data = [torch.from_numpy(rng.randint(0, cfg.vocab_size, (batch, seq)))
+            .cuda() for _ in range(2)]
+    env = TRAIN_MODES["flags"]
+    recs = {}
+    for rc in (False, True):
+        model.cfg = dataclasses.replace(cfg, recompute=rc)
+        if rc:
+            model.load_params(init)
+        step, opt = make_step(model, RECIPE_LR_1P3B,
+                              {"steps": warmup + timed,
+                               "multi_precision": False})
+        with flag_env(env):
+            ops.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            losses = [step(data) for _ in range(warmup)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses += [step(data) for _ in range(timed)]
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) * 1e3 / timed
+            launches = ops.launch_counts()
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            weights_gb = sum(p.numel() * p.element_size()
+                             for p in model.parameters()) / 1e9
+            split = step_memory(model, opt, data)
+        losses = [x.item() for x in losses]
+        check_train_launches(launches, train_launches(
+            model.cfg, warmup + timed, env, bf16=True, rows=batch * seq),
+            f"GPT-3 1.3B training, recompute={rc}")
+        if not all(np.isfinite(losses)) or opt._master_weights:
+            fail(f"GPT-3 1.3B training, recompute={rc}: losses {losses}, "
+                 f"{len(opt._master_weights)} masters")
+        recs[rc] = {"losses": losses, "ms_per_step": step_ms,
+                    "tokens_per_s": batch * seq * 1e3 / step_ms,
+                    "peak_memory_gb": peak_gb,
+                    "before_run_gb": base / 1e9, "weights_gb": weights_gb,
+                    "step_memory": split, "launches": launches}
+        del step, opt
+        torch.cuda.empty_cache()
+    del model
+    torch.cuda.empty_cache()
+    first = (recs[True]["losses"][0], recs[False]["losses"][0])
+    if abs(first[0] - first[1]) > 1e-5 * abs(first[1]):
+        fail(f"GPT-3 1.3B: step-1 loss with recompute {first[0]}, "
+             f"without {first[1]}")
+    return {"batch": f"B={batch} S={seq}", "warmup": warmup,
+            "timed_steps": timed, "recompute": recs[True],
+            "no_recompute": recs[False],
+            "step1_bitwise": first[0] == first[1]}
 
 
 # ---------------------------------------------------------------------------
@@ -2396,6 +2694,13 @@ def main():
                            (1, 512, 16, 128)):
             for name, c in check_flash_bwd(fa, tol, timer, b, s, h, d, dtype,
                                            seed=s + d).items():
+                cases[name].append(c)
+            torch.cuda.empty_cache()
+        if dtype == torch.bfloat16:     # gpt3_1p3b's training shape (9c)
+            cases[FWD].append(check_flash(fa, tol, timer, 2048, 16, 128,
+                                          dtype, seed=21, b=2))
+            for name, c in check_flash_bwd(fa, tol, timer, 2, 2048, 16, 128,
+                                           dtype, seed=22).items():
                 cases[name].append(c)
             torch.cuda.empty_cache()
         cases[RAGGED].append(check_ragged(rpa, tol, timer, DECODE_ROWS, 1,
@@ -2713,6 +3018,72 @@ def main():
         torch.cuda.empty_cache()
 
     mark("7 per-layer training")
+
+    # -- 9. the training recipe --------------------------------------------
+    recipe = {}
+    for name, c in (("stacked", cfg), ("per-layer", cfg_pl)):
+        env = {} if c.stacked_blocks else TRAIN_MODES["flags"]
+        r = train_fp32_card_vs_cpu(ops, c, env, recipe=True)
+        recipe[f"fp32_{name}"] = r
+        print(f"recipe float32 {name} GPT-2 124M {r['batch']} (AdamW beta2 "
+              f"0.95, wd 0.1 but biases and LNs, clip 1.0, warmup-cosine"
+              f"{'; LN and FFN flags' if env else ''}): card losses "
+              f"{r['card_losses']}, CPU {r['cpu_losses']} (relative "
+              f"{r['loss_rel_diff'][0]:.3g} at step 1, "
+              f"{r['loss_rel_diff'][-1]:.3g} at step {r['steps']}); step-1 "
+              f"gradients within {max(r['grad_err_over_limit'].values()):.3g}"
+              f" of 1e-3 max|g|; launches "
+              f"{ {k: n for k, n in r['launches'].items() if n} }",
+              flush=True)
+        torch.cuda.empty_cache()
+    rc = train_recompute_card(ops, cfg)
+    recipe["fp32_recompute"] = rc
+    print(f"recipe float32 stacked {rc['batch']}: recompute against none on "
+          f"the card: bitwise {rc['bitwise']} (max loss difference "
+          f"{rc['max_loss_diff']:.3g}, max step-1 gradient difference "
+          f"{rc['max_grad_diff']:.3g}); launches with recompute "
+          f"{ {k: n for k, n in rc['launches_recompute'].items() if n} }; "
+          f"peak over what was allocated before {rc['peak_gb_recompute']:.2f}"
+          f" GB against {rc['peak_gb']:.2f}", flush=True)
+    mark("9a recipe fp32")
+    cfg_a = gpt2_124m_config(**DROPOUT)        # per-layer, configuration A
+    tr_a, launches_a = train_bf16(ops, cfg_a, TRAIN_MODES["flags"],
+                                  dtype=torch.float32, recipe={"amp": "O1"},
+                                  lr=RECIPE_LR)
+    recipe["bf16_O1_A"] = tr_a
+    print_train("per-layer, configuration A (fp32 weights, O1 bf16, "
+                "GradScaler, dropout 0.1, recipe)", tr_a, launches_a, card)
+    print(f"recipe A: loss scale {tr_a['scales'][0]:.0f} -> "
+          f"{tr_a['scales'][-1]:.0f}, skipped steps {tr_a['skipped_steps']}",
+          flush=True)
+    torch.cuda.empty_cache()
+    drop = dropout_sites(ops, cfg_a)
+    recipe["dropout"] = drop
+    print(f"recipe A dropout {drop['batch']}: {len(drop['sites'])} sites, "
+          f"kept {min(x['kept'] for x in drop['sites']):.5f}-"
+          f"{max(x['kept'] for x in drop['sites']):.5f} (at most "
+          f"{drop['max_abs_sigmas']:.2f} sigma from 0.9); eval logits "
+          f"bitwise those of p = 0: {drop['p0_bitwise_eval']}", flush=True)
+    mark("9b recipe A")
+    b13 = train_1p3b(ops)
+    recipe["gpt3_1p3b"] = b13
+    for key in ("no_recompute", "recompute"):
+        r = b13[key]
+        print(f"recipe B GPT-3 1.3B stacked bf16 {b13['batch']} {key}: "
+              f"{r['ms_per_step']:.3f} ms per step, {r['tokens_per_s']:.1f} "
+              f"tokens/s over {b13['timed_steps']} steps ({card}); losses "
+              f"{r['losses'][0]:.4f} -> {r['losses'][-1]:.4f}; peak memory "
+              f"{r['peak_memory_gb']:.2f} GB ({r['before_run_gb']:.2f} "
+              f"before the run, weights {r['weights_gb']:.2f}); one more "
+              f"step: " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                    r["step_memory"].items())
+              + f"; launches {dict((k, n) for k, n in r['launches'].items() if n)}",
+              flush=True)
+    print(f"recipe B: step-1 losses bitwise equal with and without "
+          f"recompute: {b13['step1_bitwise']}", flush=True)
+    result["recipe"] = recipe
+    torch.cuda.empty_cache()
+    mark("9c recipe B")
 
     # -- 8. summary --------------------------------------------------------
     # the serving kernels at fp32 S=384 / the decode step (the int8 one

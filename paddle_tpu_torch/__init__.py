@@ -10,6 +10,7 @@ Kernels on the serving path are hand-written CUDA C++ for ``sm_90a``
 (`ops._build`).  On a CPU tensor every wrapper computes its plain PyTorch
 version instead — that is what the CPU parity tests run.
 """
+from . import amp
 from .device import resolve_device
 
-__all__ = ["resolve_device"]
+__all__ = ["amp", "resolve_device"]

@@ -45,8 +45,22 @@ body with `ops.cached_attention_arrays` (the flash-decode kernel); under
 under ``PTPU_PALLAS_FFN=1`` as well the MLP half as the fused LayerNorm
 and FFN kernels.
 
+Training takes the JAX recipe's two switches.  Dropout
+(``hidden_dropout_prob``: after the embeddings and on each block's
+attention and MLP outputs; ``attention_dropout_prob``: on the flash
+output, after the kernel), per-layer only, drawn from the default
+generator of the weights' device, in training mode (``self.training``);
+the stacked layout raises on it, as the JAX one does (`gpt.py:445-446`).
+``recompute`` (stacked only; the JAX per-layer layout ignores it, and so
+does the port's): each block's body runs under `recompute`, so the
+backward runs its forward again (the flash forward twice a block) in place
+of keeping its activations.  Under `amp.auto_cast` the ops cast their
+inputs by the names JAX dispatches them under (`amp`): the layers' ops,
+``lm_head`` (`gpt.py:887`), and the stacked blocks as the one op
+``gpt_stacked_blocks`` (`gpt.py:553`, `:563`).
+
 Left out for later slices: MoE, pipeline execution (and the 1F1B fused
-loss), dropout, ``recompute``, and the stacked-cache layer-scan decode.
+loss), and the stacked-cache layer-scan decode.
 """
 from __future__ import annotations
 
@@ -57,11 +71,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..amp import cast_inputs
 from ..device import resolve_device
+from ..distributed.fleet.utils.recompute import recompute
 from ..graphs import StepGraph
-from ..nn.functional import (cross_entropy, fused_ln_applies, layer_norm,
-                            layer_norm_arrays)
-from ..nn.layer import Embedding, LayerNorm, Linear
+from ..nn.functional import (cross_entropy, embedding, flash_attention,
+                             fused_ln_applies, layer_norm, layer_norm_arrays,
+                             linear)
+from ..nn.layer import Dropout, Embedding, LayerNorm, Linear
 from ..ops.flash_attention import flash_attention_arrays
 from ..ops.flash_decode import cached_attention_arrays
 from ..ops.fused_decode import fused_decode_layer_arrays, fused_decode_ok
@@ -79,19 +96,23 @@ _NEG_INF = -1e30
 @dataclasses.dataclass
 class GPTConfig:
     """The fields of the JAX `GPTConfig` that the port reads.  The others
-    (dropout, MoE, sequence/context/pipeline parallelism, recompute)
-    select behaviour the port does not have yet, so they cannot be set:
-    the port runs on one device, without dropout.  ``stacked_blocks``
-    picks the layout, per-layer by default as in the JAX package."""
+    (MoE, sequence/context/pipeline parallelism) select behaviour the port
+    does not have yet, so they cannot be set: the port runs on one device.
+    ``stacked_blocks`` picks the layout, per-layer by default as in the
+    JAX package; the dropout probabilities and ``recompute`` act as the
+    module docstring says."""
     vocab_size: int = 50304
     hidden_size: int = 768
     num_hidden_layers: int = 12
     num_attention_heads: int = 12
     intermediate_size: int = 3072
     max_position_embeddings: int = 1024
+    hidden_dropout_prob: float = 0.0
+    attention_dropout_prob: float = 0.0
     initializer_range: float = 0.02
     layer_norm_epsilon: float = 1e-5
     stacked_blocks: bool = False
+    recompute: bool = False
 
 
 def gpt_test_config(**kw):
@@ -226,6 +247,28 @@ def _causal_attn(q, k, v):
     return flash_attention_arrays(q, k, v, is_causal=True), None
 
 
+def _stacked_layer(p, attn, nh, hd, eps):
+    """``h -> h`` through one stacked block, its weights ``p`` bound now
+    (`recompute` calls it again in the backward)."""
+    def block(h):
+        return _stacked_block_body(p, h, attn, nh, hd, eps)[0]
+    return block
+
+
+def _row_linear(layer, x):
+    """A `Linear` as the JAX ``RowParallelLinear`` computes it
+    (`parallel/mp_layers.py:89-97`): the op ``linear`` without the bias,
+    then the bias added, so under `amp.auto_cast` the sum takes the
+    wider of the two dtypes."""
+    return linear(x, layer.weight) + layer.bias
+
+
+def _lm_head(h, wte):
+    """The tied head ``h @ wte.T``, the op ``lm_head`` (`gpt.py:887`)."""
+    h, wte = cast_inputs("lm_head", h, wte)
+    return h @ wte.t()
+
+
 def _packed_attn(segment_ids):
     """The attention closure of packed rows (`gpt.py:509-515`)."""
     def attn(q, k, v):
@@ -258,7 +301,8 @@ class GPTPretrainingCriterion(nn.Module):
 
 class GPTEmbeddings(nn.Module):
     """``word_embeddings[ids] + position_embeddings[pos]``, both drawn
-    normal with std ``initializer_range`` (`gpt.py:143-169`; no dropout)."""
+    normal with std ``initializer_range``, then dropout
+    (``hidden_dropout_prob``; `gpt.py:143-169`)."""
 
     def __init__(self, cfg: GPTConfig, device, dtype, generator):
         super().__init__()
@@ -268,19 +312,22 @@ class GPTEmbeddings(nn.Module):
                                          **kw)
         self.position_embeddings = Embedding(cfg.max_position_embeddings,
                                              cfg.hidden_size, **kw)
+        self.dropout = Dropout(cfg.hidden_dropout_prob)
 
     def forward(self, input_ids, position_ids=None):
         if position_ids is None:
             position_ids = torch.arange(input_ids.shape[-1],
                                         device=input_ids.device)
-        return (self.word_embeddings(input_ids)
-                + self.position_embeddings(position_ids))
+        return self.dropout(self.word_embeddings(input_ids)
+                            + self.position_embeddings(position_ids))
 
 
 class GPTAttention(nn.Module):
     """Causal self-attention (`gpt.py:172-251`): the fused ``qkv_proj``,
     ``[b, s, 3, heads, head_dim]``, causal flash attention
-    (differentiable), ``out_proj``.  With ``cache`` (a ``(k, v)`` pair of
+    (differentiable; `nn.functional.flash_attention`, with the attention
+    dropout in training), ``out_proj`` (its bias added after the product,
+    `_row_linear`).  With ``cache`` (a ``(k, v)`` pair of
     flat [B, S_max, H*D] rings, written in place) it is the cached branch
     (`gpt.py:199-234`): ``time_step`` None is the static prefill at
     position 0 (causal flash over the chunk and the ring write), else the
@@ -292,6 +339,7 @@ class GPTAttention(nn.Module):
         super().__init__()
         self.num_heads = cfg.num_attention_heads
         self.head_dim = cfg.hidden_size // cfg.num_attention_heads
+        self.attn_drop = cfg.attention_dropout_prob
         kw = dict(device=device, dtype=dtype, generator=generator)
         self.qkv_proj = Linear(cfg.hidden_size, 3 * cfg.hidden_size, **kw)
         self.out_proj = Linear(cfg.hidden_size, cfg.hidden_size, **kw)
@@ -307,15 +355,16 @@ class GPTAttention(nn.Module):
                 o = _cached_attn_arrays(q, k, v, kc, vc, 0, True)
             else:
                 o, _, _ = cached_attention_arrays(q, k, v, kc, vc, time_step)
-            return self.out_proj(o.reshape(b, s, h)), cache
-        o = flash_attention_arrays(q, k, v, is_causal=True)
-        return self.out_proj(o.reshape(b, s, h))
+            return _row_linear(self.out_proj, o.reshape(b, s, h)), cache
+        o = flash_attention(q, k, v, is_causal=True,
+                            dropout_p=self.attn_drop, training=self.training)
+        return _row_linear(self.out_proj, o.reshape(b, s, h))
 
 
 class GPTMLP(nn.Module):
-    """``fc_out(gelu_tanh(fc_in(x)))``, or under ``PTPU_PALLAS_FFN=1`` the
-    fused FFN plus ``fc_out.bias`` where `maybe_fused_ffn` takes it
-    (`gpt.py:254-280`)."""
+    """``fc_out(gelu_tanh(fc_in(x)))`` (``fc_out`` as `_row_linear`), or
+    under ``PTPU_PALLAS_FFN=1`` the fused FFN plus ``fc_out.bias`` where
+    `maybe_fused_ffn` takes it (`gpt.py:254-280`)."""
 
     def __init__(self, cfg: GPTConfig, device, dtype, generator):
         super().__init__()
@@ -328,11 +377,13 @@ class GPTMLP(nn.Module):
                             self.fc_out.weight, "gelu_tanh")
         if y is not None:
             return y + self.fc_out.bias
-        return self.fc_out(F.gelu(self.fc_in(x), approximate="tanh"))
+        return _row_linear(self.fc_out,
+                           F.gelu(self.fc_in(x), approximate="tanh"))
 
 
 class GPTBlock(nn.Module):
-    """Pre-LN block (`gpt.py:698-723`, no MoE, no dropout); with
+    """Pre-LN block (`gpt.py:698-723`, no MoE), dropout
+    (``hidden_dropout_prob``) on the attention and MLP outputs; with
     ``cache`` it returns ``(x, cache)`` (`GPTAttention`)."""
 
     def __init__(self, cfg: GPTConfig, device, dtype, generator):
@@ -342,15 +393,16 @@ class GPTBlock(nn.Module):
         self.attn = GPTAttention(cfg, device, dtype, generator)
         self.ln_2 = LayerNorm(cfg.hidden_size, eps, device, dtype)
         self.mlp = GPTMLP(cfg, device, dtype, generator)
+        self.dropout = Dropout(cfg.hidden_dropout_prob)
 
     def forward(self, x, cache=None, time_step=None):
         if cache is not None:
             a, cache = self.attn(self.ln_1(x), cache=cache,
                                  time_step=time_step)
-            x = x + a
-            return x + self.mlp(self.ln_2(x)), cache
-        x = x + self.attn(self.ln_1(x))
-        return x + self.mlp(self.ln_2(x))
+            x = x + self.dropout(a)
+            return x + self.dropout(self.mlp(self.ln_2(x))), cache
+        x = x + self.dropout(self.attn(self.ln_1(x)))
+        return x + self.dropout(self.mlp(self.ln_2(x)))
 
 
 class GPTModel(nn.Module):
@@ -422,6 +474,9 @@ class GPTForCausalLM(nn.Module):
         if not cfg.stacked_blocks:
             self.gpt = GPTModel(cfg, dev, dtype, g)
             return
+        if cfg.hidden_dropout_prob or cfg.attention_dropout_prob:
+            raise ValueError(
+                "stacked_blocks path does not support dropout yet")
         L, H, I = (cfg.num_hidden_layers, cfg.hidden_size,
                    cfg.intermediate_size)
         shapes = {
@@ -457,7 +512,8 @@ class GPTForCausalLM(nn.Module):
         the embeddings ``wte[ids] + wpe[pos]``, the blocks with causal
         flash attention, the final LayerNorm (the gated `layer_norm`), then
         the tied head ``h @ wte.T`` — the non-pipeline, non-cache branch
-        of the JAX ``GPTModel.forward`` and ``GPTForCausalLM.forward``.
+        of the JAX ``GPTModel.forward`` and ``GPTForCausalLM.forward``
+        (stacked under ``recompute``, each block `recompute`).
         ``position_ids`` ([S] or [B, S]) defaults to ``0 .. S-1``;
         ``segment_ids`` [B, S] (stacked layout only; keyword-only, since
         JAX's third positional is the caches) keeps attention inside each
@@ -469,10 +525,10 @@ class GPTForCausalLM(nn.Module):
         pos = (None if position_ids is None
                else torch.as_tensor(position_ids, device=dev).long())
         if not cfg.stacked_blocks:
-            return self.gpt(ids, pos, segment_ids=segment_ids) @ wte.t()
+            return _lm_head(self.gpt(ids, pos, segment_ids=segment_ids), wte)
         if pos is None:
             pos = torch.arange(ids.shape[-1], device=dev)
-        h = self.wte[ids] + self.wpe[pos]
+        h = embedding(ids, self.wte) + embedding(pos, self.wpe)
         nh = cfg.num_attention_heads
         hd = cfg.hidden_size // nh
         eps = cfg.layer_norm_epsilon
@@ -480,11 +536,15 @@ class GPTForCausalLM(nn.Module):
         if segment_ids is not None:
             attn = _packed_attn(torch.as_tensor(segment_ids, device=dev,
                                                 dtype=torch.int32))
+        h, *stacked = cast_inputs("gpt_stacked_blocks", h,
+                                  *(getattr(self, n) for n in BLOCK_PARAMS))
         for layer in range(cfg.num_hidden_layers):
-            p = {n: getattr(self, n)[layer] for n in BLOCK_PARAMS}
-            h, _ = _stacked_block_body(p, h, attn, nh, hd, eps)
+            block = _stacked_layer(
+                {n: w[layer] for n, w in zip(BLOCK_PARAMS, stacked)}, attn,
+                nh, hd, eps)
+            h = recompute(block, h) if cfg.recompute else block(h)
         h = layer_norm(h, cfg.hidden_size, self.lnf_w, self.lnf_b, eps)
-        return h @ self.wte.t()
+        return _lm_head(h, self.wte)
 
     def pretrain_loss(self, input_ids, labels, loss_mask=None,
                       segment_ids=None, position_ids=None):

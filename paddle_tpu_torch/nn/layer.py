@@ -1,5 +1,6 @@
 """Layers of the port with the Paddle conventions of `paddle_tpu.nn`
-(`nn/common.py` `Linear`, `Embedding`; `nn/norm.py` `LayerNorm`):
+(`nn/common.py` `Linear`, `Embedding`, `Dropout`; `nn/norm.py`
+`LayerNorm`):
 ``Linear.weight`` is [in, out], ``LayerNorm`` holds ``weight`` and
 ``bias``.  Weights are drawn on the CPU from an explicit `torch.Generator`
 (default: a fresh one seeded 0), then moved to ``device`` (None means
@@ -12,9 +13,9 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from .functional import layer_norm, linear
+from .functional import dropout, embedding, layer_norm, linear
 
-__all__ = ["Linear", "LayerNorm", "Embedding"]
+__all__ = ["Linear", "LayerNorm", "Embedding", "Dropout"]
 
 
 def _param(t, device, dtype):
@@ -80,4 +81,25 @@ class Embedding(nn.Module):
         self.weight = _param(_normal(shape, std, generator), device, dtype)
 
     def forward(self, ids):
-        return self.weight[ids]
+        return embedding(ids, self.weight)
+
+
+class Dropout(nn.Module):
+    """`nn.functional.dropout` with this layer's ``p``, ``axis`` and
+    ``mode``, in training mode only (``self.training``); draws from
+    ``generator``, else the default generator of the input's device."""
+
+    def __init__(self, p=0.5, axis=None, mode="upscale_in_train",
+                 generator=None):
+        super().__init__()
+        self.p = p
+        self.axis = axis
+        self.mode = mode
+        self.generator = generator
+
+    def forward(self, x):
+        return dropout(x, p=self.p, axis=self.axis, training=self.training,
+                       mode=self.mode, generator=self.generator)
+
+    def extra_repr(self):
+        return f"p={self.p}"

@@ -30,6 +30,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..amp import cast_inputs
 from . import _build
 
 __all__ = ["fused_layernorm_arrays", "fused_layernorm_reference",
@@ -412,7 +413,9 @@ def maybe_fused_ffn(x, w1, b1, w2, act):
     """The fused FFN where the JAX package takes it (`maybe_fused_ffn`,
     `pallas_ops.py:1635`), else None and the caller runs its own
     formulation: ``PTPU_PALLAS_FFN == "1"``, ``b1`` given, x, w1 and w2 of
-    one dtype, and `ffn_geometry_ok` for the rows of x."""
+    one dtype, and `ffn_geometry_ok` for the rows of x.  Its inputs are
+    cast as the op ``linear`` (`amp.cast_inputs`), the name JAX dispatches
+    the kernel under (`pallas_ops.py:1656`), after the gate."""
     if os.environ.get("PTPU_PALLAS_FFN") != "1" or b1 is None:
         return None
     if not x.dtype == w1.dtype == w2.dtype:
@@ -420,6 +423,7 @@ def maybe_fused_ffn(x, w1, b1, w2, act):
     if not ffn_geometry_ok(math.prod(x.shape[:-1]), x.shape[-1],
                            w1.shape[-1], w2.shape[-1]):
         return None
+    x, w1, b1, w2 = cast_inputs("linear", x, w1, b1, w2)
     return fused_ffn_arrays(x, w1, b1, w2, act=act)
 
 

@@ -130,7 +130,11 @@ def test_kv_cache_raises_without_cuda(monkeypatch):
     "pp_schedule", "sequence_parallel", "use_flash_attention",
     "context_parallel", "hidden_dropout_prob", "moe_every_n", "recompute"])
 def test_config_has_no_unported_options(option):
-    # the JAX config's field exists, the port's cannot be set
+    # the JAX config's field exists; the port's cannot be set unless the
+    # port has the behaviour (dropout and recompute: the training recipe)
     assert option in {f.name for f in dataclasses.fields(jax_test_config())}
+    if option in ("hidden_dropout_prob", "recompute"):
+        assert getattr(gpt_test_config(**{option: 1}), option) == 1
+        return
     with pytest.raises(TypeError):
         gpt_test_config(**{option: 1})
