@@ -229,6 +229,28 @@ Phases, in order; any failure exits non-zero and prints no result line:
    finite losses, step-1 losses equal, launches (the flash forward 48 a
    step under recompute, 24 without), ms per step, tokens/s and peak
    memory of each.
+10. The high-level API (run after phase 9, before the summary's lines):
+   `paddle_tpu_torch.Model` over the per-layer GPT-2 124M (12 layers,
+   768, vocab 50257, weights from seed 0) under PTPU_PALLAS_LN=1
+   PTPU_PALLAS_FFN=1, ``prepare(AdamW(lr 1e-4), GPTPretrainingCriterion())``
+   (`fit_phase`).  fp32: ``fit`` of 2 batches at B=2 S=256 on the card
+   and on the CPU from the same weights and batches, losses within phase
+   5's limits; each card step launches one training step's kernels
+   (flash forward, dQ and dK/dV 12 each on ``:tc32``, LN 25 and 25, the
+   FFN 12 on the design of 512 fp32 rows), the CPU none.  bf16 (fp32
+   masters), B=8 S=1024, phase 6's batch as 12 rows of a
+   ``TensorDataset`` a batch: turns of the bare step (`make_step`) and
+   of ``fit`` (bare, fit, fit, bare; ms per step after 2 steps, from the
+   steps' end times), the first fit with 2 eval batches,
+   ``ModelCheckpoint`` and PTPU_MONITOR=1: losses finite and falling,
+   each step's launches one bf16 training step's (``:tc``, the FFN's
+   tensor-core design), the eval's two forwards', the checkpoint files,
+   ``train/goodput_examples_per_s`` and ``train/data_wait_frac``; then
+   ``save`` -> a new ``Model`` -> ``load`` -> ``predict`` (2 rows of 128
+   tokens) bitwise equal to ``predict`` before the save.  Then steps of
+   the bare model with PTPU_TRAIN_STATS=1 sampling every second step
+   (sampled against unsampled ms, each step synced alone), and the host
+   µs of one step's telemetry hooks with the gates off and on.
 8. Summary: one JSON line of the twenty-eight entries (the nine kernels,
    the int8 variant, the mask, segment and non-causal variants of the
    flash kernels, the tensor-core forward, dQ and dK/dV -- every bf16
@@ -237,7 +259,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    timed at the fp32 training shape, launches from phase 5 -- and the
    FFN's bf16 and fp32 tensor-core designs and decode design, counted
    apart; the FFN's own entry is its CUDA-core design, timed at I=3008,
-   launches from phase 6c), the card line, then the result line.
+   launches from phase 6c; each entry also carries its launches in
+   phase 7's per-layer bf16 run and in phase 10's bf16 fit), the card
+   line, then the result line.
 
 Every time is a median of CUDA-event timings (L2 flushed before each
 launch, the host's enqueue hidden behind a spin on the stream); every
@@ -2512,6 +2536,284 @@ def train_1p3b(ops, warmup=2, timed=5, batch=2, seq=2048):
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the high-level Model API
+# ---------------------------------------------------------------------------
+
+# the timed fit: train batches (one epoch), the first of them warm-up,
+# eval batches
+FIT_STEPS, FIT_WARMUP, FIT_EVAL = 12, 2, 2
+# the checkpoints phase 10 writes, removed at its end
+FIT_DIR = os.path.join("chiprun_out", "fit_checkpoints")
+
+
+def step_log(ops):
+    """A `hapi` callback that keeps each train step's loss, the time it
+    ended (`Model.train_batch` reads the loss back, so the card is done)
+    and the launch counts then."""
+    from paddle_tpu_torch.hapi.callbacks import Callback
+
+    class StepLog(Callback):
+        def __init__(self):
+            super().__init__()
+            self.losses, self.ends, self.launches = [], [], []
+
+        def on_train_batch_end(self, step, logs=None):
+            self.losses.append(logs["loss"])
+            self.ends.append(time.perf_counter())
+            self.launches.append(ops.launch_counts())
+
+    return StepLog()
+
+
+def step_launches(log):
+    """The launches of each logged step (counts reset before the run)."""
+    prev = dict.fromkeys(log.launches[0], 0)
+    out = []
+    for counts in log.launches:
+        out.append({k: counts[k] - prev[k] for k in counts})
+        prev = counts
+    return out
+
+
+def forward_launches(cfg, env, bf16, rows):
+    """One forward of the per-layer model of ``rows`` tokens under the
+    flags `env`: a flash forward a layer, 2L+1 LayerNorm forwards and an
+    FFN a layer (the design its rows take)."""
+    layers = cfg.num_hidden_layers
+    want = dict.fromkeys(KERNELS, 0)
+    want[FWD] = layers
+    if env.get("PTPU_PALLAS_LN") == "1":
+        want[LN] = 2 * layers + 1
+    if env.get("PTPU_PALLAS_FFN") == "1":
+        dtype = torch.bfloat16 if bf16 else torch.float32
+        want[ffn_counter(rows, cfg, dtype)] = layers
+    return with_tc(want, bf16)
+
+
+def fit_model(cfg, device, dtype, lr=TRAIN_LR):
+    """A per-layer GPT from seed 0 in a prepared `Model`: AdamW (fp32
+    masters of bf16 weights) and `GPTPretrainingCriterion`, as
+    `make_step`'s optimizer."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import GPTForCausalLM, GPTPretrainingCriterion
+    from paddle_tpu_torch.optimizer import AdamW
+    net = GPTForCausalLM(cfg, device=device, dtype=dtype,
+                         generator=torch.Generator().manual_seed(0))
+    model = pt.Model(net)
+    model.prepare(AdamW(learning_rate=lr, parameters=net.parameters()),
+                  GPTPretrainingCriterion())
+    return model
+
+
+def fit_fp32_card_vs_cpu(ops, cfg, batch=2, seq=256, steps=2):
+    """`Model.fit` of ``steps`` fp32 batches (B=``batch``, S=``seq``) on
+    the card and on the CPU from the same weights and batches, under the
+    LN and FFN flags: losses within phase 5's limits, each card step's
+    launches one training step's, none on the CPU."""
+    from paddle_tpu_torch import io
+    env = TRAIN_MODES["flags"]
+    rng = np.random.RandomState(7)
+    rows = [rng.randint(0, cfg.vocab_size, (batch * steps, seq))
+            for _ in range(2)]
+    runs = {}
+    for device in ("cuda", "cpu"):
+        model = fit_model(cfg, device, torch.float32)
+        log = step_log(ops)
+        with flag_env(env):
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            model.fit(io.TensorDataset(rows), batch_size=batch, epochs=1,
+                      shuffle=False, verbose=0, callbacks=[log])
+            runs[device] = dict(losses=log.losses, log=log,
+                                seconds=time.perf_counter() - t0)
+        del model
+    gpu, cpu = runs["cuda"], runs["cpu"]
+    want = train_launches(cfg, 1, env, rows=batch * seq)
+    for i, got in enumerate(step_launches(gpu["log"])):
+        check_train_launches(got, want, f"float32 fit, step {i + 1}")
+    if set(cpu["log"].launches[-1].values()) != {0}:
+        fail(f"float32 fit on the CPU launched kernels: "
+             f"{cpu['log'].launches[-1]}")
+    rel = [abs(g - c) / abs(c) for g, c in zip(gpu["losses"], cpu["losses"])]
+    if len(rel) != steps or not all(np.isfinite(gpu["losses"])) \
+            or rel[0] > 1e-5 or rel[-1] > 1e-4:
+        fail(f"float32 fit: card losses {gpu['losses']} vs CPU "
+             f"{cpu['losses']} (relative {rel}; limits 1e-5 at step 1, "
+             f"1e-4 at step {steps})")
+    return {"batch": f"B={batch} S={seq}", "steps": steps,
+            "card_losses": gpu["losses"], "cpu_losses": cpu["losses"],
+            "loss_rel_diff": rel, "launches_per_step": want,
+            "card_s": gpu["seconds"], "cpu_s": cpu["seconds"]}
+
+
+def bare_turn(step, data, warmup=FIT_WARMUP, timed=FIT_STEPS - FIT_WARMUP):
+    """ms per step of the bare training step (`make_step`), timed after
+    ``warmup`` steps with the host clock between syncs."""
+    for _ in range(warmup):
+        step(data)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        step(data)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / timed
+
+
+def fit_turn(ops, model, dataset, eval_data=None, callbacks=()):
+    """One epoch of `Model.fit` on ``dataset`` (batch 8, in order): its
+    ms per train step after `FIT_WARMUP` steps, from the steps' end
+    times, and the step log."""
+    log = step_log(ops)
+    model.fit(dataset, eval_data, batch_size=8, epochs=1, shuffle=False,
+              verbose=0, callbacks=[log, *callbacks])
+    ends = log.ends
+    ms = (ends[-1] - ends[FIT_WARMUP - 1]) * 1e3 / (len(ends) - FIT_WARMUP)
+    return ms, log
+
+
+def train_stats_cost(step, data, steps=8):
+    """ms of steps sampled by ``PTPU_TRAIN_STATS`` (every second step)
+    against those not sampled, each step synced alone; medians."""
+    from paddle_tpu_torch.monitor import train as mtrain
+    saved = os.environ.get("PTPU_TRAIN_STATS_EVERY")
+    os.environ["PTPU_TRAIN_STATS_EVERY"] = "2"
+    mtrain.enable(True)
+    try:
+        times, sampled = [], []
+        for _ in range(steps):
+            before = mtrain.layer_stats()[1]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(data)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            sampled.append(mtrain.layer_stats()[1] != before)
+    finally:
+        mtrain.enable(False)
+        mtrain.reset()
+        if saved is None:
+            os.environ.pop("PTPU_TRAIN_STATS_EVERY")
+        else:
+            os.environ["PTPU_TRAIN_STATS_EVERY"] = saved
+    on = [t for t, s in zip(times, sampled) if s]
+    off = [t for t, s in zip(times, sampled) if not s]
+    if len(on) != steps // 2 or len(off) != steps - steps // 2:
+        fail(f"PTPU_TRAIN_STATS sampled {sampled}, expected every second "
+             f"step")
+    return {"sampled_ms": statistics.median(on),
+            "unsampled_ms": statistics.median(off), "steps": steps,
+            "all_ms": times}
+
+
+def telemetry_host_us():
+    """Host µs of one step's telemetry hooks (`Model`'s three perf
+    segments, the optimizer's counter, gauge and gates), gates off and
+    on."""
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.monitor import perf as mperf
+    from paddle_tpu_torch.monitor import train as mtrain
+
+    def hooks():
+        for name in ("forward", "backward", "optimizer"):
+            with mperf.segment("train", name) as s:
+                s.sync()
+        monitor.counter("optimizer/steps").inc()
+        monitor.gauge("optimizer/lr").set(1e-4)
+        mtrain.enabled()
+        monitor.enabled()
+    out = {}
+    for on in (False, True):
+        monitor.enable(on)
+        mperf.enable(on)
+        out["on" if on else "off"] = host_us(hooks, calls=2000, warmup=200)
+    mperf.enable(False)
+    mperf.reset()
+    monitor.enable(True)
+    return out
+
+
+def fit_phase(ops, cfg, card):
+    """Phase 10 (module docstring): `Model.fit` of the per-layer GPT-2 124M
+    under the LN and FFN flags.  Returns its record and the launches of
+    the bf16 fit turn (train and eval)."""
+    import shutil
+
+    from paddle_tpu_torch import io, monitor
+    from paddle_tpu_torch.hapi.callbacks import ModelCheckpoint
+    env = TRAIN_MODES["flags"]
+    rec = {"fp32": fit_fp32_card_vs_cpu(ops, cfg)}
+    torch.cuda.empty_cache()
+    # bf16: phase 6's repeated batch, as dataset rows in fit's order
+    rng = np.random.RandomState(2)
+    data = [rng.randint(0, cfg.vocab_size, (8, 1024)) for _ in range(2)]
+    train = io.TensorDataset([np.tile(d, (FIT_STEPS, 1)) for d in data])
+    evals = io.TensorDataset([np.tile(d, (FIT_EVAL, 1)) for d in data])
+    card_data = [torch.from_numpy(d).cuda() for d in data]
+    with flag_env(env):
+        bare = fit_model(cfg, "cuda", torch.bfloat16).network
+        step, _ = make_step(bare)
+        fit = fit_model(cfg, "cuda", torch.bfloat16)
+        turns = {"bare": [bare_turn(step, card_data)]}
+        monitor.enable(True)
+        monitor.reset()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        fit_ms, log = fit_turn(ops, fit, train, evals,
+                               [ModelCheckpoint(save_freq=FIT_STEPS,
+                                                save_dir=FIT_DIR)])
+        fit_s = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        snap = monitor.snapshot()
+        turns["fit"] = [fit_ms, fit_turn(ops, fit, train)[0]]
+        turns["bare"].append(bare_turn(step, card_data))
+        # save -> a new Model -> load -> predict: the same logits
+        probe = [d[:2, :128] for d in data[:1]]
+        (before,) = fit.predict_batch(probe)
+        fit.save(os.path.join(FIT_DIR, "probe"))
+        again = fit_model(cfg, "cuda", torch.bfloat16)   # seed-0 weights
+        again.load(os.path.join(FIT_DIR, "probe"))
+        (after,) = again.predict_batch(probe)
+        stats = train_stats_cost(step, card_data)
+    files = sorted(os.listdir(FIT_DIR))
+    shutil.rmtree(FIT_DIR)
+    del bare, step, fit, again
+    torch.cuda.empty_cache()
+    losses = log.losses
+    if len(losses) != FIT_STEPS or not all(np.isfinite(losses)) \
+            or not losses[-1] < losses[0]:
+        fail(f"bfloat16 fit: losses {losses} (finite and falling expected)")
+    want = train_launches(cfg, 1, env, bf16=True, rows=8 * 1024)
+    per_step = step_launches(log)
+    for i, got in enumerate(per_step):
+        check_train_launches(got, want, f"bfloat16 fit, step {i + 1}")
+    eval_want = {k: FIT_EVAL * n for k, n in
+                 forward_launches(cfg, env, True, 8 * 1024).items()}
+    eval_got = {k: launches[k] - log.launches[-1][k] for k in launches}
+    check_train_launches(eval_got, eval_want, "bfloat16 fit's evaluation")
+    if files != ["final.pdopt", "final.pdparams", "probe.pdopt",
+                 "probe.pdparams"]:
+        fail(f"bfloat16 fit: checkpoints {files}")
+    if before.dtype != np.float32 or not np.array_equal(before, after):
+        fail(f"bfloat16 fit: logits after save / load differ by "
+             f"{np.abs(before - after).max()}")
+    goodput = snap.get("train/goodput_examples_per_s", 0.0)
+    if not goodput > 0:
+        fail(f"bfloat16 fit: no goodput recorded ({snap})")
+    rec.update(
+        batch="B=8 S=1024", steps=FIT_STEPS, eval_batches=FIT_EVAL,
+        losses=losses, fit_s=fit_s, ms_per_step=turns,
+        fit_minus_bare_ms=(statistics.mean(turns["fit"])
+                           - statistics.mean(turns["bare"])),
+        launches_per_step=per_step[-1], eval_launches=eval_got,
+        goodput_examples_per_s=goodput,
+        data_wait_frac=snap.get("train/data_wait_frac"),
+        step_time_s=snap.get("train/step_time"),
+        checkpoints=files, predict_after_load_bitwise=True,
+        train_stats=stats, telemetry_host_us=telemetry_host_us())
+    return rec, launches
+
+
+# ---------------------------------------------------------------------------
 
 def print_cases(cases):
     for name, rows in cases.items():
@@ -3085,6 +3387,46 @@ def main():
     torch.cuda.empty_cache()
     mark("9c recipe B")
 
+    # -- 10. the high-level Model API ---------------------------------------
+    cfg_fit = gpt2_124m_config(vocab_size=50257)      # per-layer, GPT-2's
+    fit, launches_fit = fit_phase(ops, cfg_fit, card)
+    result["fit"] = fit
+    f32 = fit["fp32"]
+    print(f"fit float32 per-layer GPT-2 124M {f32['batch']} under "
+          f"PTPU_PALLAS_LN=1 PTPU_PALLAS_FFN=1, {f32['steps']} steps: card "
+          f"losses {f32['card_losses']}, CPU {f32['cpu_losses']} (relative "
+          f"{f32['loss_rel_diff'][0]:.3g} at step 1, "
+          f"{f32['loss_rel_diff'][-1]:.3g} at step {f32['steps']}); "
+          f"launches a step "
+          f"{ {k: n for k, n in f32['launches_per_step'].items() if n} }; "
+          f"card {f32['card_s']:.1f} s, CPU {f32['cpu_s']:.1f} s",
+          flush=True)
+    t = fit["ms_per_step"]
+    print(f"fit bfloat16 per-layer GPT-2 124M {fit['batch']}, both flags, "
+          f"{fit['steps']} batches + {fit['eval_batches']} eval batches, "
+          f"ModelCheckpoint, PTPU_MONITOR=1: losses {fit['losses'][0]:.4f} "
+          f"-> {fit['losses'][-1]:.4f}; ms per step after "
+          f"{FIT_WARMUP} (turns bare, fit, fit, bare): bare "
+          f"{t['bare'][0]:.3f}, fit {t['fit'][0]:.3f}, fit "
+          f"{t['fit'][1]:.3f}, bare {t['bare'][1]:.3f}: Model's own "
+          f"{fit['fit_minus_bare_ms']:.3f} ms a step ({card}); "
+          f"train/goodput_examples_per_s {fit['goodput_examples_per_s']:.2f}"
+          f", train/data_wait_frac {fit['data_wait_frac']:.5f}; whole fit "
+          f"(eval, checkpoint) {fit['fit_s']:.1f} s; launches a step "
+          f"{ {k: n for k, n in fit['launches_per_step'].items() if n} }, "
+          f"eval {({k: n for k, n in fit['eval_launches'].items() if n})}; "
+          f"save -> new Model -> load -> predict bitwise equal logits",
+          flush=True)
+    ts = fit["train_stats"]
+    hu = fit["telemetry_host_us"]
+    print(f"fit PTPU_TRAIN_STATS: a sampled bf16 step {ts['sampled_ms']:.3f}"
+          f" ms against {ts['unsampled_ms']:.3f} unsampled (medians of "
+          f"{ts['steps'] // 2} each, each step synced alone; {card}); one "
+          f"step's telemetry hooks on the host {hu['off']:.3f} us with the "
+          f"gates off, {hu['on']:.3f} us on", flush=True)
+    torch.cuda.empty_cache()
+    mark("10 Model.fit")
+
     # -- 8. summary --------------------------------------------------------
     # the serving kernels at fp32 S=384 / the decode step (the int8 one
     # too); the backward kernels at the training shape in bf16, the
@@ -3158,9 +3500,11 @@ def main():
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],
             "case": f"{c['shape']} {c['dtype']}"})
-    # launches of the per-layer bf16 training run under both flags
+    # launches of the per-layer bf16 training run under both flags, and of
+    # phase 10's bf16 fit (12 train and 2 eval batches)
     for k in kernels:
         k["launches_training"] = launches_pl["flags"][k["name"]]
+        k["launches_fit"] = launches_fit[k["name"]]
     result["kernels"] = kernels
     result["expected_launches"] = expected
     result["phase_s"] = phase_s

@@ -9,8 +9,14 @@ Kernels on the serving path are hand-written CUDA C++ for ``sm_90a``
 (``paddle_tpu_torch/csrc``), built with ``nvcc`` at first use
 (`ops._build`).  On a CPU tensor every wrapper computes its plain PyTorch
 version instead — that is what the CPU parity tests run.
+
+The high-level API is at the top, as in the JAX package:
+``paddle_tpu_torch.Model(net).prepare(opt, loss, metrics).fit(loader)``,
+`summary`, and `save` / `load` in the JAX package's checkpoint format.
 """
 from . import amp
 from .device import resolve_device
+from .framework.io_ import load, save
+from .hapi import Model, summary
 
-__all__ = ["amp", "resolve_device"]
+__all__ = ["amp", "resolve_device", "Model", "summary", "save", "load"]

@@ -28,7 +28,7 @@ __all__ = ["linear", "layer_norm", "layer_norm_arrays", "fused_ln_applies",
            "flash_attention"]
 
 
-def linear(x, weight, bias=None):
+def linear(x, weight, bias=None, name=None):
     """``x @ weight + bias`` with weight shaped [in, out] (the Paddle
     convention, `nn/functional/__init__.py:245-250`); the op ``linear``."""
     if bias is None:
@@ -38,18 +38,19 @@ def linear(x, weight, bias=None):
     return x @ weight + bias
 
 
-def softmax(x, axis=-1, dtype=None):
+def softmax(x, axis=-1, dtype=None, name=None):
     """Softmax over ``axis``, first cast to ``dtype`` when given; the op
-    ``softmax``."""
+    ``softmax``.  ``name`` is accepted and unused, as in JAX."""
     (x,) = cast_inputs("softmax", x)
     if dtype is not None:
         x = x.to(dtype)
     return torch.softmax(x, dim=axis)
 
 
-def embedding(x, weight, padding_idx=None):
+def embedding(x, weight, padding_idx=None, sparse=False, name=None):
     """Rows of ``weight`` by the ids ``x`` (zeros at ``padding_idx``); the
-    op ``embedding``."""
+    op ``embedding``.  ``sparse`` and ``name`` are accepted and unused, as
+    in JAX."""
     (weight,) = cast_inputs("embedding", weight)
     out = weight[x]
     if padding_idx is not None:
@@ -72,13 +73,14 @@ def _drop(x, keep_mask, p):
 
 
 def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
-            generator=None):
+            name=None, *, generator=None):
     """`nn/functional/__init__.py:892-909`: in training, ``upscale_in_train``
     keeps an element with probability ``1 - p`` and divides it by ``1 -
     p``, ``downscale_in_infer`` keeps it as it is; ``axis`` (an int or a
     list) draws one decision per index of those axes, shared along the
     others.  Outside training ``downscale_in_infer`` multiplies by ``1 -
-    p`` and ``upscale_in_train`` returns x; p = 0 returns x."""
+    p`` and ``upscale_in_train`` returns x; p = 0 returns x.  ``name`` is
+    accepted and unused, as in JAX; ``generator`` is keyword-only."""
     if not training or p == 0.0:
         if mode == "downscale_in_infer" and not training and p > 0.0:
             return x * (1.0 - p)
@@ -137,11 +139,13 @@ def fused_ln_applies(n_rows, h, weight, bias, n_axes=1):
             and ln_geometry_ok(n_rows, h))
 
 
-def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
+def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5,
+               name=None):
     """LayerNorm over the trailing ``normalized_shape`` axes — the
     counterpart of `paddle_tpu.nn.functional.layer_norm`: the fused kernels
     (`fused_layernorm_arrays`, differentiable) where `fused_ln_applies`,
-    else `layer_norm_arrays`; the op ``layer_norm``."""
+    else `layer_norm_arrays`; the op ``layer_norm``.  ``name`` is accepted
+    and unused, as in JAX."""
     if isinstance(normalized_shape, int):
         normalized_shape = (normalized_shape,)
     x, weight, bias = cast_inputs("layer_norm", x, weight, bias)
@@ -153,27 +157,78 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
                              tuple(range(-n_axes, 0)))
 
 
-def cross_entropy(logits, labels, ignore_index=-100, reduction="mean"):
-    """Hard-label softmax cross entropy over the last axis, in fp32 — the
-    hard-label branch of `paddle_tpu.nn.functional.cross_entropy`:
-    ``logsumexp(float(logits)) - float(logits[label])``, the label clipped
-    into range for the gather, and 0 where the label is ``ignore_index``.
-    ``reduction="none"`` returns the per-position loss, ``"mean"`` its sum
-    over the count of valid labels (at least 1).  No fp32 log-prob tensor
-    is formed beyond what `torch.logsumexp` needs.  The op
-    ``cross_entropy``."""
-    (logits,) = cast_inputs("cross_entropy", logits)
-    if reduction not in ("none", "mean"):
-        raise ValueError(f"reduction must be 'none' or 'mean', got "
-                         f"{reduction!r}")
-    lbl = torch.as_tensor(labels, device=logits.device).long()
-    if lbl.dim() == logits.dim():
-        lbl = lbl.squeeze(-1)
-    clipped = lbl.clamp(0, logits.shape[-1] - 1)
-    picked = logits.gather(-1, clipped.unsqueeze(-1)).squeeze(-1).float()
-    nll = torch.logsumexp(logits.float(), dim=-1) - picked
+def cross_entropy(input, label, weight=None, ignore_index=-100,
+                  reduction="mean", soft_label=False, axis=-1,
+                  use_softmax=True, label_smoothing=0.0, name=None):
+    """Softmax cross entropy over ``axis`` in fp32 — the arithmetic of
+    `paddle_tpu.nn.functional.cross_entropy` (`nn/functional/__init__.py:
+    975-1043`), in its argument order; the op ``cross_entropy`` (``input``
+    and ``weight`` cast by `amp.cast_inputs`).
+
+    Hard labels: ``logsumexp(float(input)) - float(input[label])``, the
+    label clipped into range for the gather (no fp32 log-prob tensor
+    beyond what `torch.logsumexp` needs); with ``label_smoothing`` ε,
+    ``(1 - ε) nll + ε (lse - mean(input))``; with ``use_softmax=False``
+    ``input`` holds probabilities: ``-log(max(p[label], 1e-30))`` and the
+    smoothing term ``-mean(log(max(p, 1e-30)))``.  0 where the label is
+    ``ignore_index``; times ``weight[label]`` with class weights.
+    ``"mean"`` divides the sum by the count of valid labels (at least 1),
+    or with ``weight`` by the sum of the valid labels' weights.
+
+    Soft labels: ``-sum(label * log_softmax(input))`` over ``axis`` (or
+    of ``log(max(input, 1e-30))`` without softmax); ``weight`` and
+    ``ignore_index`` do not apply, ``"mean"`` is the plain mean.
+    ``reduction`` ``"none"`` / ``"sum"`` as named."""
+    if weight is None:
+        (input,) = cast_inputs("cross_entropy", input)
+    else:
+        input, weight = cast_inputs("cross_entropy", input,
+                                    torch.as_tensor(weight,
+                                                    device=input.device))
+    dim = axis % input.dim()
+    if soft_label:
+        if use_softmax:
+            logp = torch.log_softmax(input.float(), dim=dim)
+        else:
+            logp = torch.log(input.float().clamp(min=1e-30))
+        tgt = torch.as_tensor(label, device=input.device).float()
+        return _reduce_loss(-(tgt * logp).sum(dim), reduction)
+    lbl = torch.as_tensor(label, device=input.device).long()
+    if lbl.dim() == input.dim():
+        lbl = lbl.squeeze(dim)
+    clipped = lbl.clamp(0, input.shape[dim] - 1)
+    picked = input.gather(dim, clipped.unsqueeze(dim)).squeeze(dim).float()
+    if use_softmax:
+        lse = torch.logsumexp(input.float(), dim=dim)
+        nll = lse - picked
+        if label_smoothing > 0.0:
+            smooth = lse - input.float().mean(dim)
+            nll = (1.0 - label_smoothing) * nll + label_smoothing * smooth
+    else:
+        nll = -torch.log(picked.clamp(min=1e-30))
+        if label_smoothing > 0.0:
+            smooth = -torch.log(input.float().clamp(min=1e-30)).mean(dim)
+            nll = (1.0 - label_smoothing) * nll + label_smoothing * smooth
     valid = lbl != ignore_index
     loss = torch.where(valid, nll, torch.zeros((), device=nll.device))
+    if weight is not None:
+        wt = weight[clipped]
+        loss = loss * wt
     if reduction == "mean":
-        return loss.sum() / valid.sum().clamp(min=1).float()
+        if weight is not None:
+            denom = torch.where(valid, wt, torch.zeros((), dtype=wt.dtype,
+                                                       device=wt.device)).sum()
+        else:
+            denom = valid.sum().float().clamp(min=1.0)
+        return loss.sum() / denom
+    return _reduce_loss(loss, reduction)
+
+
+def _reduce_loss(loss, reduction):
+    """``"mean"`` / ``"sum"`` over every element, anything else as is
+    (`nn/functional/__init__.py:966-971`)."""
+    if reduction == "mean":
+        return loss.mean()
+    if reduction == "sum":
+        return loss.sum()
     return loss

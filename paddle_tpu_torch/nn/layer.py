@@ -87,10 +87,11 @@ class Embedding(nn.Module):
 class Dropout(nn.Module):
     """`nn.functional.dropout` with this layer's ``p``, ``axis`` and
     ``mode``, in training mode only (``self.training``); draws from
-    ``generator``, else the default generator of the input's device."""
+    ``generator`` (keyword-only), else the default generator of the
+    input's device.  ``name`` is accepted and unused, as in JAX."""
 
     def __init__(self, p=0.5, axis=None, mode="upscale_in_train",
-                 generator=None):
+                 name=None, *, generator=None):
         super().__init__()
         self.p = p
         self.axis = axis

@@ -19,21 +19,60 @@ to give each its name in the model (the port's models use the JAX
 ``param_<i>`` by its place in the list.  `AdamW`'s
 ``apply_decay_param_fun`` is given that name.
 
-Left out for later slices: ZeRO state placement and the training
-telemetry (``monitor.train``, the sampled grad norm).
+Telemetry, as in JAX: each step counts ``optimizer/steps`` and sets
+``optimizer/lr``; every ``PTPU_GRADNORM_EVERY`` steps (default 10) the
+post-clip global gradient norm goes to the ``optimizer/grad_norm`` gauge;
+under ``PTPU_TRAIN_STATS=1`` every ``PTPU_TRAIN_STATS_EVERY`` steps the
+per-parameter gradient, parameter and update norms go to
+`monitor.train.observe_layer_stats`.  JAX keeps the sampled gradients and
+reduces them when a scrape reads the gauge (its arrays never change);
+torch gradients do change in place (``clear_grad(set_to_zero=True)``,
+the clip, the scaler), so the step enqueues its own reduction, one 0-d
+float32 tensor on the device with no host sync, and the gauge reads it
+at scrape time.  The per-parameter norms are one batch of reductions and
+one host transfer a sampled step, read from the parameter in its own
+dtype before and after the update (not from the fp32 master), as JAX
+reads them.
+
+Left out for later slices: ZeRO state placement.
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
 
-from .clip import ClipGradBase, chunks
+from .. import monitor
+from ..monitor import train as mtrain
+from .clip import ClipGradBase, _norms, chunks
 from .lr import LRScheduler
 
 __all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW", "Adamax",
            "Adagrad", "Adadelta", "RMSProp", "Lamb", "Lars"]
 
 _LOW_PRECISION = (torch.bfloat16, torch.float16)
+
+
+# eager grad-norm telemetry sampling stride (1 = every step)
+_GRADNORM_EVERY = max(1, int(os.environ.get("PTPU_GRADNORM_EVERY", "10")))
+
+# The sampled post-clip global grad norm: None, a 0-d float32 device
+# tensor enqueued by the step (no host sync there), or the float the
+# gauge's callback read from it at the first scrape.
+_gradnorm_cell = [None]
+
+
+def _gradnorm_value():
+    held = _gradnorm_cell[0]
+    if held is None:
+        return 0.0
+    if isinstance(held, float):
+        return held
+    val = float(held)
+    if _gradnorm_cell[0] is held:   # racing a newer sample: keep theirs
+        _gradnorm_cell[0] = val
+    return val
 
 
 def _f32(x) -> torch.Tensor:
@@ -134,10 +173,17 @@ class Optimizer:
         return p.grad if g is None else g
 
     # -- public API -------------------------------------------------------
-    @torch.no_grad()
     def step(self) -> None:
         """One update of every parameter that has a gradient; the step
-        count (1-based, for bias correction) advances even when none has."""
+        count (1-based, for bias correction) advances even when none has.
+        Then the ``optimizer/steps`` counter and the ``optimizer/lr``
+        gauge."""
+        self._step_impl()
+        monitor.counter("optimizer/steps").inc()
+        monitor.gauge("optimizer/lr").set(self.get_lr())
+
+    @torch.no_grad()
+    def _step_impl(self) -> None:
         self._step_count += 1
         params = [p for p in self._parameter_list
                   if p.grad is not None and p.requires_grad]
@@ -147,6 +193,19 @@ class Optimizer:
             return
         if self._grad_clip is not None:
             grads = self._grad_clip.apply(grads)
+        if (monitor.enabled()
+                and self._step_count % _GRADNORM_EVERY == 1 % _GRADNORM_EVERY):
+            # post-clip global grad norm, read at scrape time
+            _gradnorm_cell[0] = torch.linalg.vector_norm(
+                torch.stack(_norms(grads)))
+            monitor.gauge("optimizer/grad_norm",
+                          "post-clip global gradient L2 norm (sampled, "
+                          "computed at scrape time)", fn=_gradnorm_value)
+        sample_stats = False
+        if mtrain.enabled():
+            every = mtrain.sample_every()
+            sample_stats = self._step_count % every == 1 % every
+        old = [p.detach().clone() for p in params] if sample_stats else None
         states = [self._ensure_state(p) for p in params]
         works = [self._master_weights.get(id(p), p) for p in params]
         extras = [self._extra_for(p) for p in params]
@@ -166,6 +225,8 @@ class Optimizer:
         for p, w in zip(params, works):
             if w is not p:
                 p.copy_(w)                 # master -> param dtype
+        if sample_stats:
+            self._observe_layer_stats(params, old, grads)
 
     def clear_grad(self, set_to_zero=False) -> None:
         self._unscaled_grads = {}
@@ -187,6 +248,26 @@ class Optimizer:
     # -- checkpointing ----------------------------------------------------
     def _param_names(self) -> dict:
         return self._names
+
+    def _observe_layer_stats(self, params, old, grads):
+        """Per-parameter gradient, parameter and update norms (post-clip
+        gradients; the parameter in its own dtype before the update and
+        the update as its change), each a float32 reduction, stacked and
+        brought to the host in ONE transfer; `monitor.train` derives the
+        update ratio, exports the ``train/*{layer}`` gauges and keeps the
+        ranked table.  Runs only on ``PTPU_TRAIN_STATS`` sampled steps:
+        the one sync is the documented price of the diagnostic."""
+        new = [p.detach().float() for p in params]
+        before = [o.float() for o in old]
+        delta = torch._foreach_sub(new, before)
+        stats = torch.stack([torch.stack(_norms(grads)),
+                             torch.stack(_norms(before)),
+                             torch.stack(_norms(delta))], 1).cpu().numpy()
+        names = self._param_names()
+        mtrain.observe_layer_stats(
+            [(names.get(id(p), f"param_{i}"), stats[i, 0], stats[i, 1],
+              stats[i, 2]) for i, p in enumerate(params)],
+            step=self._step_count)
 
     def state_dict(self) -> dict:
         """The JAX keys: ``<param name>.<slot>`` and ``<param
