@@ -108,7 +108,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
      the same scales and rescales the same codes.  Both ragged kernels
      also at the split-K attend's edges (rows of 127, 128 and 129 keys,
      one at the table's full width of 1024, a padding row, a 1-key row)
-     and at the decode step with H=16 D=128; each ragged case times its
+     and at the decode step with H=16 D=128, and at speculative decoding's
+     verify shape (8, 5): rows of 1-5 queries (0-4 drafts; query
+     positions past a row's drafts and a padding row on the dropped
+     slot; the int8 scales grow); each ragged case times its
      write and its attend launch alone too, and prints the attend's
      splits per (row, query, head).
 3. Engine: GPT-2 124M (full width, 12 layers, random weights from seed 0)
@@ -251,6 +254,33 @@ Phases, in order; any failure exits non-zero and prints no result line:
    the bare model with PTPU_TRAIN_STATS=1 sampling every second step
    (sampled against unsampled ms, each step synced alone), and the host
    µs of one step's telemetry hooks with the gates off and on.
+11. Serving completeness (run after phase 10, before the summary's
+   lines): GPT-2 124M stacked, weights from seed 0, `LLMEngine` with
+   block 16 and 8 sequences (`serving_phase`).  float32: seeded sampling
+   (T 0.8, top-k 50, top-p 0.95, seeds 7-10; prompts of 7, 64, 200 and
+   384 tokens, 32 new), the card's tokens equal to the CPU engine's and
+   each row to the card's solo dense ``generate(seed=7+i)`` (the
+   threefry streams of `core.random`); prefix caching (8 requests, a
+   256-token shared prefix and tails of 8-72, 16 new, greedy) with the
+   tokens of caching off, 7 hits of 256 tokens and the parked blocks
+   printed, one ``ragged`` capture; speculative decoding at k = 4 (8
+   greedy prompts of distinct tokens, 64 new) equal to spec off on fp
+   pools and agreeing on at least 0.9 of the tokens on int8 pools (JAX's
+   tolerance), accept rate printed, one ``ragged`` and one ``verify``
+   capture each (a seeded request after them, which never drafts, runs
+   the plain step); fork (a 200-token prompt, three seeded children after
+   its first token) with the parent's tokens equal to an unforked run and
+   the peak blocks below four unshared copies; export after 8 tokens and
+   adopt in another engine, greedy and seeded, equal to a run that never
+   migrated.  bfloat16, in turns: prefix caching off, on, on, off (16
+   requests, a 512-token shared prefix, tails 16-64, 32 new): wall,
+   prefill ms and prompt tokens computed, first-token ms per request;
+   speculative decoding plain, k = 4, k = 4, plain (8 greedy prompts, 128
+   new): wall ms per emitted token, tokens a step, accept rate, and the
+   device ms of a captured verify step (8, 5) and plain step (8, 1) (CUDA
+   events around 20 graph replays); the sampler's host ms over eight
+   seeded rows (threefry over 8 x 50304 values) against eight greedy
+   rows.  Each turn's tokens equal the other turn of its kind.
 8. Summary: one JSON line of the twenty-eight entries (the nine kernels,
    the int8 variant, the mask, segment and non-causal variants of the
    flash kernels, the tensor-core forward, dQ and dK/dV -- every bf16
@@ -260,8 +290,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    FFN's bf16 and fp32 tensor-core designs and decode design, counted
    apart; the FFN's own entry is its CUDA-core design, timed at I=3008,
    launches from phase 6c; each entry also carries its launches in
-   phase 7's per-layer bf16 run and in phase 10's bf16 fit), the card
-   line, then the result line.
+   phase 7's per-layer bf16 run, in phase 10's bf16 fit and in phase
+   11), the card line, then the result line.
 
 Every time is a median of CUDA-event timings (L2 flushed before each
 launch, the host's enqueue hidden behind a spin on the stream); every
@@ -2814,6 +2844,366 @@ def fit_phase(ops, cfg, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 11: serving completeness
+# ---------------------------------------------------------------------------
+
+# seeded sampling: temperature, top-k, top-p of phase 11's sampling rows
+SERVE_SAMPLE = {"do_sample": True, "temperature": 0.8, "top_k": 50,
+                "top_p": 0.95}
+SEEDED_LENS = (7, 64, 200, 384)
+# the distinct-token prompts of the spec runs (no draft at their first
+# decode step, so both the plain and the verify step run)
+SPEC_LENS = (7, 32, 64, 100, 128, 200, 256, 384)
+SPEC_K = 4
+# verify-shape rows of the kernel phase: (kv_len after the write, 1 + the
+# row's drafts), 0-4 drafts, one padding row
+VERIFY_ROWS = [(1024, 5), (700, 4), (513, 3), (384, 2), (200, 1),
+               (64, 5), (7, 3), None]
+
+
+def engine11(model, device, dtype, **kw):
+    """Phase 11's engine: block 16, 8 sequences, whole prompts a step."""
+    from paddle_tpu_torch.serving import EngineConfig, LLMEngine
+    return LLMEngine(model, EngineConfig(block_size=16, max_num_seqs=8,
+                                         device=device, dtype=dtype, **kw))
+
+
+def run_steps(eng, prompts, params):
+    """Run requests to completion a step at a time (each step synced on
+    the card).  Returns the outputs and the run's record: wall seconds,
+    prefill seconds and the prompt tokens prefill computed (adopted
+    prefix tokens not counted), decode seconds, steps (verify steps
+    apart) and the tokens they emitted, and each request's first-token
+    ms from the start."""
+    cuda = eng.device.type == "cuda"
+    ids = [eng.add_request(p, sp) for p, sp in zip(prompts, params)]
+    st = {"prefill_s": 0.0, "prefill_tokens": 0, "decode_s": 0.0,
+          "decode_steps": 0, "verify_steps": 0, "decode_tokens": 0}
+    first = {}
+    t_start = time.perf_counter()
+    while eng.has_unfinished():
+        reqs = [eng._requests[i] for i in ids]
+        computed = sum(r.num_computed for r in reqs)
+        emitted = sum(len(r.output_ids) for r in reqs)
+        hits = eng.cache.prefix_hit_tokens
+        decodes, verifies = eng.step_counts["decode"], eng.verify_steps
+        t0 = time.perf_counter()
+        eng.step()
+        if cuda:
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        if eng.step_counts["decode"] > decodes:
+            st["decode_s"] += t1 - t0
+            st["decode_steps"] += 1
+            st["verify_steps"] += eng.verify_steps - verifies
+            st["decode_tokens"] += sum(len(r.output_ids)
+                                       for r in reqs) - emitted
+        else:
+            st["prefill_s"] += t1 - t0
+            st["prefill_tokens"] += (sum(r.num_computed for r in reqs)
+                                     - computed
+                                     - (eng.cache.prefix_hit_tokens - hits))
+        for i, r in zip(ids, reqs):
+            if i not in first and r.output_ids:
+                first[i] = (t1 - t_start) * 1e3
+    st["wall_s"] = time.perf_counter() - t_start
+    st["first_token_ms"] = [first[i] for i in ids]
+    outs = [eng.request_output(i) for i in ids]
+    for i in ids:
+        eng.release_request(i)
+    return outs, st
+
+
+def same_tokens(a, b, what):
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x is None or y is None or x.shape != y.shape \
+                or not np.array_equal(x, y):
+            first = (int(np.nonzero(x != y)[0][0])
+                     if x is not None and y is not None
+                     and x.shape == y.shape else -1)
+            fail(f"{what}: request {i} differs at position {first}")
+
+
+def agreement(a, b, prompts):
+    """Fraction of generated tokens that agree."""
+    return float(np.mean([float((x[len(p):] == y[len(p):]).mean())
+                          for x, y, p in zip(a, b, prompts)]))
+
+
+def graph_ms(step, reps=20):
+    """Device ms of one replay of a captured step (`StepGraph`), CUDA
+    events around ``reps`` replays after three."""
+    g = step.run.graph
+    if g is None:
+        fail(f"{step.KIND} step was never captured")
+    for _ in range(3):
+        g.replay()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(reps):
+        g.replay()
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e) / reps
+
+
+def sampler_ms(eng, vocab, sample, reps=20):
+    """Host ms of the engine's sampler over eight rows of random fp32
+    logits [8, vocab] (it ends in a copy of the tokens to the host):
+    seeded sampling rows (threefry over 8 x vocab values) or greedy
+    rows."""
+    from paddle_tpu_torch.serving import SamplingParams
+    from paddle_tpu_torch.serving.scheduler import Request
+    logits = torch.randn(8, vocab, generator=torch.Generator().manual_seed(
+        1)).cuda() * 3
+    rows = []
+    for i in range(8):
+        sp = (SamplingParams(seed=i, **SERVE_SAMPLE) if sample
+              else SamplingParams())
+        r = Request(i, [1], sp)
+        r.key = eng._init_key(sp)
+        rows.append(r)
+    times = []
+    for i in range(reps + 3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng._sample_tokens(rows, logits)
+        if i >= 3:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def serving_phase(ops, card):
+    """Phase 11 (module docstring): serving completeness at GPT-2 124M.
+    Returns its record and the launches of the phase."""
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt2_124m_config
+    from paddle_tpu_torch.serving import SamplingParams
+    cfg = gpt2_124m_config(stacked_blocks=True)
+    v = cfg.vocab_size
+    model = GPTForCausalLM(cfg, device="cpu",
+                           generator=torch.Generator().manual_seed(0))
+    f32, bf16 = torch.float32, torch.bfloat16
+    rng = np.random.RandomState(11)
+    rec = {}
+    ops.reset_launch_counts()
+
+    # (a) float32: seeded sampling, card against CPU and solo generate
+    prompts = [rng.randint(0, v, (n,)).astype(np.int32) for n in SEEDED_LENS]
+    params = [SamplingParams(max_new_tokens=NEW_TOKENS, seed=7 + i,
+                             **SERVE_SAMPLE) for i in range(len(prompts))]
+    card_out = engine11(model, "cuda", f32).generate(prompts, params)
+    cpu_out = engine11(model, "cpu", f32).generate(prompts, params)
+    same_tokens(card_out, cpu_out, "phase 11 seeded fp32, card vs CPU")
+    dense = GPTForCausalLM(cfg, device="cuda",
+                           generator=torch.Generator().manual_seed(0))
+    solo = [dense.generate(torch.from_numpy(p[None]).cuda(),
+                           max_new_tokens=NEW_TOKENS, seed=7 + i,
+                           **SERVE_SAMPLE)[0].cpu().numpy()
+            for i, p in enumerate(prompts)]
+    same_tokens(card_out, solo, "phase 11 seeded fp32, engine vs solo "
+                "generate(seed=7+i)")
+    del dense
+    print(f"serving fp32 seeded sampling (T 0.8, top-k 50, top-p 0.95, "
+          f"seeds 7-10, prompts {SEEDED_LENS}, {NEW_TOKENS} new): card "
+          f"tokens equal the CPU engine's and each row its solo dense "
+          f"generate(seed)", flush=True)
+
+    # prefix caching: a 256-token shared prefix, tails of 8-72
+    shared = rng.randint(0, v, (256,)).astype(np.int32)
+    tails = np.linspace(8, 72, 8).astype(int)
+    pre = [np.concatenate([shared, rng.randint(0, v, (t,)).astype(np.int32)])
+           for t in tails]
+    sp = SamplingParams(max_new_tokens=16)
+    off = engine11(model, "cuda", f32).generate(pre, sp)
+    eng = engine11(model, "cuda", f32, enable_prefix_caching=True)
+    on = eng.generate(pre, sp)
+    same_tokens(on, off, "phase 11 prefix caching fp32, on vs off")
+    c = eng.cache
+    if c.prefix_hit_tokens != 7 * 256 or c.prefix_hits != 7:
+        fail(f"phase 11 prefix caching: {c.prefix_hits} hits, "
+             f"{c.prefix_hit_tokens} hit tokens, expected 7 and 7 x 256")
+    if eng.compiles != {"ragged": 1}:
+        fail(f"phase 11 prefix caching: captures {eng.compiles}")
+    rec["prefix_fp32"] = {"hits": c.prefix_hits,
+                          "hit_tokens": c.prefix_hit_tokens,
+                          "parked_blocks": c.num_parked_blocks,
+                          "blocks_in_use": c.blocks_in_use}
+    print(f"serving fp32 prefix caching (8 requests, 256-token shared "
+          f"prefix, tails {tails.tolist()}, 16 new): tokens equal with it "
+          f"off; {c.prefix_hits} hits, {c.prefix_hit_tokens} hit tokens, "
+          f"{c.num_parked_blocks} parked blocks at idle", flush=True)
+
+    # speculative decoding, k = 4: greedy, fp32 and int8 pools
+    perm = rng.permutation(v).astype(np.int32)
+    spec_prompts = [np.roll(perm, 97 * i)[:n] for i, n in enumerate(SPEC_LENS)]
+    sp = SamplingParams(max_new_tokens=64)
+    rec["spec_fp32"] = {}
+    for kv in (None, "int8"):
+        plain = engine11(model, "cuda", f32, kv_cache_dtype=kv).generate(
+            spec_prompts, sp)
+        eng = engine11(model, "cuda", f32, kv_cache_dtype=kv,
+                       speculative_tokens=SPEC_K)
+        spec = eng.generate(spec_prompts, sp)
+        # a sampling row never drafts: its steps take the plain step
+        eng.generate(spec_prompts[:1], SamplingParams(
+            max_new_tokens=4, seed=1, **SERVE_SAMPLE))
+        agree = agreement(spec, plain, spec_prompts)
+        if kv is None:
+            same_tokens(spec, plain, "phase 11 spec fp32, k=4 vs off")
+        elif agree < 0.9:
+            fail(f"phase 11 spec int8: agreement {agree} with plain int8 "
+                 "decoding, below JAX's 0.9")
+        if eng.compiles != {"ragged": 1, "verify": 1}:
+            fail(f"phase 11 spec {kv}: captures {eng.compiles}, expected "
+                 "one ragged and one verify")
+        rate = eng._spec_accepted_total / max(eng._spec_proposed_total, 1)
+        rec["spec_fp32"][kv or "fp"] = {
+            "proposed": eng._spec_proposed_total,
+            "accepted": eng._spec_accepted_total, "accept_rate": rate,
+            "verify_steps": eng.verify_steps,
+            "decode_steps": eng.step_counts["decode"],
+            "agreement_with_plain": agree, "captures": dict(eng.compiles)}
+        print(f"serving fp32 spec decoding k={SPEC_K}, {kv or 'fp'} pools "
+              f"(8 greedy prompts {SPEC_LENS}, 64 new): "
+              + ("tokens equal spec off" if kv is None else
+                 f"{agree:.4f} of the tokens agree with spec off")
+              + f"; accept rate {rate:.4f} ({eng._spec_accepted_total}/"
+              f"{eng._spec_proposed_total}), {eng.verify_steps} verify of "
+              f"{eng.step_counts['decode']} decode steps; captures "
+              f"{eng.compiles}", flush=True)
+
+    # fork: three seeded children of a 200-token prompt
+    prompt = rng.randint(0, v, (200,)).astype(np.int32)
+    greedy = SamplingParams(max_new_tokens=NEW_TOKENS)
+    [solo_parent] = engine11(model, "cuda", f32).generate([prompt], greedy)
+    eng = engine11(model, "cuda", f32)
+    parent = eng.add_request(prompt, greedy)
+    eng.step()
+    kids = [eng.fork_request(parent, SamplingParams(
+        max_new_tokens=NEW_TOKENS, seed=20 + j, **SERVE_SAMPLE))
+        for j in range(3)]
+    while eng.has_unfinished():
+        eng.step()
+    got = eng.request_output(parent)
+    kid_out = [eng.request_output(k) for k in kids]
+    same_tokens([got], [solo_parent], "phase 11 fork: the parent")
+    unshared = 4 * eng.cache.blocks_needed(len(prompt) + 1 + NEW_TOKENS)
+    peak = eng.cache.peak_blocks_in_use
+    if peak >= unshared or any(len(k) != len(prompt) + 1 + NEW_TOKENS
+                               for k in kid_out):
+        fail(f"phase 11 fork: peak {peak} blocks (unshared {unshared}), "
+             f"children {[len(k) for k in kid_out]}")
+    rec["fork_fp32"] = {"peak_blocks": peak, "unshared_blocks": unshared}
+    print(f"serving fp32 fork: parent of 200 tokens equal to an unforked "
+          f"run; three seeded children; peak {peak} blocks against "
+          f"{unshared} unshared", flush=True)
+
+    # export / adopt after 8 tokens, greedy and seeded
+    mig = [rng.randint(0, v, (n,)).astype(np.int32) for n in (100, 150)]
+    params = [SamplingParams(max_new_tokens=NEW_TOKENS),
+              SamplingParams(max_new_tokens=NEW_TOKENS, seed=5,
+                             **SERVE_SAMPLE)]
+    ref = engine11(model, "cuda", f32).generate(mig, params)
+    src, dst = engine11(model, "cuda", f32), engine11(model, "cuda", f32)
+    rids = [src.add_request(p, s) for p, s in zip(mig, params)]
+    while min(len(src._requests[r].output_ids) for r in rids) < 8:
+        src.step()
+    hands = [src.export_request(r) for r in rids]
+    new = [dst.adopt_request(h["prompt_ids"], s, h["output_ids"], h["key"],
+                             h["kv"]) for h, s in zip(hands, params)]
+    while dst.has_unfinished():
+        dst.step()
+    same_tokens([dst.request_output(r) for r in new], ref,
+                "phase 11 export / adopt")
+    print("serving fp32 export after 8 tokens / adopt in another engine: "
+          "greedy and seeded tokens equal a run that never migrated",
+          flush=True)
+    del src, dst, eng
+    torch.cuda.empty_cache()
+
+    # (b) bfloat16, timed in turns: prefix caching off / on
+    shared = rng.randint(0, v, (512,)).astype(np.int32)
+    tails = np.linspace(16, 64, 16).astype(int)
+    pre = [np.concatenate([shared, rng.randint(0, v, (t,)).astype(np.int32)])
+           for t in tails]
+    sp = [SamplingParams(max_new_tokens=NEW_TOKENS)] * len(pre)
+    engine11(model, "cuda", bf16).generate(pre[:2], sp[:2])     # warm-up
+    turns, outs = [], {}
+    for on in (False, True, True, False):
+        eng = engine11(model, "cuda", bf16, enable_prefix_caching=on)
+        out, st = run_steps(eng, pre, sp)
+        st.update(prefix_caching=on, hits=eng.cache.prefix_hits,
+                  parked_blocks=eng.cache.num_parked_blocks)
+        if on in outs:
+            same_tokens(out, outs[on], "phase 11 bf16 prefix turns")
+        outs[on] = out
+        turns.append(st)
+    rec["prefix_bf16"] = {"turns": turns, "agreement_on_vs_off": agreement(
+        outs[True], outs[False], pre)}
+    for st in turns:
+        print(f"serving bf16 prefix caching {'on' if st['prefix_caching'] else 'off'}"
+              f" (16 requests, 512-token shared prefix, tails 16-64, "
+              f"{NEW_TOKENS} new): wall {st['wall_s'] * 1e3:.1f} ms, "
+              f"prefill {st['prefill_s'] * 1e3:.1f} ms for "
+              f"{st['prefill_tokens']} prompt tokens, decode "
+              f"{st['decode_s'] * 1e3:.1f} ms, first token ms per request "
+              f"{[round(t, 1) for t in st['first_token_ms']]}, hits "
+              f"{st['hits']} ({card})", flush=True)
+    print(f"serving bf16 prefix caching: on vs off, "
+          f"{rec['prefix_bf16']['agreement_on_vs_off']:.4f} of the tokens "
+          f"agree", flush=True)
+
+    # speculative decoding, plain against k = 4
+    sp = [SamplingParams(max_new_tokens=128)] * len(spec_prompts)
+    turns, outs, engines = [], {}, {}
+    for k in (0, SPEC_K, SPEC_K, 0):
+        eng = engine11(model, "cuda", bf16, speculative_tokens=k)
+        out, st = run_steps(eng, spec_prompts, sp)
+        st.update(spec_tokens=k, accept_rate=(
+            eng._spec_accepted_total / max(eng._spec_proposed_total, 1)),
+            ms_per_token=st["decode_s"] * 1e3 / st["decode_tokens"],
+            tokens_per_step=st["decode_tokens"] / st["decode_steps"])
+        if k in outs:
+            same_tokens(out, outs[k], "phase 11 bf16 spec turns")
+        outs[k], engines[k] = out, eng
+        turns.append(st)
+    plain_ms = graph_ms(engines[0]._steps[("ragged", 8, 1)])
+    verify_ms = graph_ms(engines[SPEC_K]._steps[("verify", 8, SPEC_K + 1)])
+    rec["spec_bf16"] = {"turns": turns, "agreement": agreement(
+        outs[SPEC_K], outs[0], spec_prompts),
+        "captured_plain_step_device_ms": plain_ms,
+        "captured_verify_step_device_ms": verify_ms}
+    for st in turns:
+        print(f"serving bf16 spec k={st['spec_tokens']} (8 greedy prompts, "
+              f"128 new): {st['ms_per_token']:.4f} wall ms per emitted "
+              f"token, {st['tokens_per_step']:.3f} tokens a step, accept "
+              f"rate {st['accept_rate']:.4f}, {st['decode_steps']} steps "
+              f"({st['verify_steps']} verify), wall {st['wall_s'] * 1e3:.1f}"
+              f" ms ({card})", flush=True)
+    print(f"serving bf16 captured steps: verify (8, {SPEC_K + 1}) "
+          f"{verify_ms:.4f} device ms, plain (8, 1) {plain_ms:.4f}; spec vs "
+          f"plain tokens agree {rec['spec_bf16']['agreement']:.4f} ({card})",
+          flush=True)
+    del engines
+
+    # the sampler: eight seeded rows against eight greedy rows
+    eng = engine11(model, "cuda", bf16)
+    rec["sampler_ms"] = {"seeded": sampler_ms(eng, v, True),
+                         "greedy": sampler_ms(eng, v, False)}
+    print(f"serving sampler, 8 rows of {v} logits: seeded (threefry) "
+          f"{rec['sampler_ms']['seeded']:.3f} ms, greedy "
+          f"{rec['sampler_ms']['greedy']:.3f} ms a step ({card})", flush=True)
+    launches = ops.launch_counts()
+    if not (launches[RAGGED] and launches[RAGGED8] and launches[FWD]):
+        fail(f"phase 11: launches {launches}")
+    rec["launches"] = launches
+    del model, eng
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+# ---------------------------------------------------------------------------
 
 def print_cases(cases):
     for name, rows in cases.items():
@@ -3014,14 +3404,17 @@ def main():
         cases[RAGGED8].append(check_ragged_int8(rpa, tol, timer,
                                                 [(700, 512)], 512, dtype,
                                                 seed=3))
-        # the split edges (127, 128, 129 keys; the table's full width) and
-        # gpt3_1p3b's heads (H=16 D=128)
+        # the split edges (127, 128, 129 keys; the table's full width),
+        # gpt3_1p3b's heads (H=16 D=128), and speculative decoding's
+        # verify step (8, k+1): rows of 0-4 drafts, a padding row
         for check, key in ((check_ragged, RAGGED),
                            (check_ragged_int8, RAGGED8)):
             cases[key].append(check(rpa, tol, timer, EDGE_ROWS, 1, dtype,
                                     seed=5))
             cases[key].append(check(rpa, tol, timer, DECODE_ROWS, 1, dtype,
                                     seed=6, h=16, d=128))
+            cases[key].append(check(rpa, tol, timer, VERIFY_ROWS,
+                                    SPEC_K + 1, dtype, seed=8))
         for kind in ("pad", "full", "shared", "lens"):
             cases[FWD_MASK].append(check_flash_masked(fa, tol, timer, kind,
                                                       dtype, seed=7))
@@ -3427,6 +3820,10 @@ def main():
     torch.cuda.empty_cache()
     mark("10 Model.fit")
 
+    # -- 11. serving completeness -------------------------------------------
+    result["serving"], launches_serving = serving_phase(ops, card)
+    mark("11 serving completeness")
+
     # -- 8. summary --------------------------------------------------------
     # the serving kernels at fp32 S=384 / the decode step (the int8 one
     # too); the backward kernels at the training shape in bf16, the
@@ -3500,11 +3897,12 @@ def main():
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],
             "case": f"{c['shape']} {c['dtype']}"})
-    # launches of the per-layer bf16 training run under both flags, and of
-    # phase 10's bf16 fit (12 train and 2 eval batches)
+    # launches of the per-layer bf16 training run under both flags, of
+    # phase 10's bf16 fit (12 train and 2 eval batches) and of phase 11
     for k in kernels:
         k["launches_training"] = launches_pl["flags"][k["name"]]
         k["launches_fit"] = launches_fit[k["name"]]
+        k["launches_serving"] = launches_serving[k["name"]]
     result["kernels"] = kernels
     result["expected_launches"] = expected
     result["phase_s"] = phase_s

@@ -12,11 +12,15 @@ version instead — that is what the CPU parity tests run.
 
 The high-level API is at the top, as in the JAX package:
 ``paddle_tpu_torch.Model(net).prepare(opt, loss, metrics).fit(loader)``,
-`summary`, and `save` / `load` in the JAX package's checkpoint format.
+`summary`, and `save` / `load` in the JAX package's checkpoint format;
+`seed` resets the root key of the port's threefry PRNG (`core.random`),
+as ``paddle.seed`` does the JAX package's.
 """
-from . import amp
+from . import amp, core
+from .core.random import seed
 from .device import resolve_device
 from .framework.io_ import load, save
 from .hapi import Model, summary
 
-__all__ = ["amp", "resolve_device", "Model", "summary", "save", "load"]
+__all__ = ["amp", "core", "seed", "resolve_device", "Model", "summary",
+           "save", "load"]

@@ -72,6 +72,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..amp import cast_inputs
+from ..core import random as _random
 from ..device import resolve_device
 from ..distributed.fleet.utils.recompute import recompute
 from ..graphs import StepGraph
@@ -202,29 +203,45 @@ def _cached_attn_arrays(q, k, v, kc, vc, t, prefill, cache_mask=None):
     return out
 
 
-def _sample_next(logits, do_sample, temperature, top_k, top_p,
-                 generator=None):
-    """Next token of each row of [B, V] fp32 logits (`gpt.py:824-844`):
-    greedy argmax (the first maximal index), or temperature, then top-k,
-    then top-p (nucleus) filtering with -1e30, then one draw per row from
-    ``generator``.  Returns int64 [B]."""
+def _filter_logits(logits, temperature, top_k, top_p):
+    """Temperature, then top-k, then top-p (nucleus) filtering of [R, V]
+    fp32 logits with -1e30, a row at a time as the JAX engine's sampler
+    computes it (`engine.py:1792-1805`): ``temperature``, ``top_p`` fp32
+    [R] and ``top_k`` int [R] tensors on the logits' device (a row's
+    top_k 0 and top_p >= 1 filter nothing).  The division is by a device
+    tensor, so a true division (a CPU scalar divisor would make it a
+    product with the reciprocal on the card)."""
+    ll = logits / torch.clamp(temperature, min=1e-6)[:, None]
+    v = ll.shape[-1]
+    asc = torch.sort(ll, dim=-1).values
+    kth = asc.gather(1, torch.clamp(v - top_k.long(), 0, v - 1)[:, None])
+    cut = (top_k > 0)[:, None]
+    ll = torch.where(cut & (ll < kth), _NEG_INF, ll)
+    # the filtered row sorted: the same sort with the cut values at -1e30
+    # (still ascending), reversed
+    desc = torch.where(cut & (asc < kth), _NEG_INF, asc).flip(-1)
+    probs = torch.softmax(desc, dim=-1)
+    keep = torch.cumsum(probs, dim=-1) - probs <= top_p[:, None]
+    thresh = torch.where(keep, desc, float("inf")).amin(-1, keepdim=True)
+    return torch.where((top_p < 1.0)[:, None] & (ll < thresh), _NEG_INF, ll)
+
+
+def _sample_next(logits, key, do_sample, temperature, top_k, top_p):
+    """Next token of each row of [B, V] fp32 logits, in JAX's argument
+    order (`gpt.py:824-844`): greedy argmax (the first maximal index), or
+    `_filter_logits` then ``categorical(key, logits)`` — one key for the
+    whole batch, gumbel noise of shape [B, V] (`core.random`).  Returns
+    int64 [B]."""
     if not do_sample:
         return torch.argmax(logits, dim=-1)
-    ll = logits / max(float(temperature), 1e-6)
-    v = ll.shape[-1]
-    if top_k and top_k > 0:
-        asc = torch.sort(ll, dim=-1).values
-        kth = asc[:, min(max(v - int(top_k), 0), v - 1)]
-        ll = ll.masked_fill(ll < kth[:, None], _NEG_INF)
-    if top_p is not None and top_p < 1.0:
-        desc = torch.sort(ll, dim=-1, descending=True).values
-        probs = torch.softmax(desc, dim=-1)
-        keep = torch.cumsum(probs, dim=-1) - probs <= top_p
-        thresh = torch.where(keep, desc, torch.full_like(desc, float("inf"))
-                             ).min(dim=-1, keepdim=True).values
-        ll = ll.masked_fill(ll < thresh, _NEG_INF)
-    probs = torch.softmax(ll, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+    b, dev = logits.shape[0], logits.device
+    ll = _filter_logits(
+        logits,
+        torch.full((b,), float(temperature), device=dev),
+        torch.full((b,), int(top_k or 0), device=dev),
+        torch.full((b,), 1.0 if top_p is None else float(top_p),
+                   device=dev))
+    return _random.categorical(key, ll)
 
 
 def _stacked_block_body(p, h, attn_fn, nh, hd, eps):
@@ -672,10 +689,13 @@ class GPTForCausalLM(nn.Module):
         ``GPTForCausalLM.generate`` (`gpt.py:1002-1210`), in both layouts:
         a prefill at position 0, then one cached forward per token and
         none after the last; greedy by default, temperature / top-k /
-        top-p with ``do_sample`` (drawn from a `torch.Generator` seeded by
-        ``seed``, so not JAX's stream); rows that emitted ``eos_token_id``
-        keep emitting it and the loop stops when every row has.  Returns
-        ``[B, P + n]`` int32 on the model's device.
+        top-p with ``do_sample``, drawn from JAX's threefry stream
+        (`core.random`): the key ``PRNGKey(seed)``, or ``next_key()``
+        when ``seed`` is None, split once a step, one categorical draw
+        over the batch, so a seed gives the JAX package's tokens; rows
+        that emitted ``eos_token_id`` keep emitting it and the loop stops
+        when every row has.  Returns ``[B, P + n]`` int32 on the model's
+        device.
 
         ``pad_token_id`` (stacked layout; the per-layer one raises, as in
         JAX): rows padded with it (left or right, no interior pads) are
@@ -703,13 +723,11 @@ class GPTForCausalLM(nn.Module):
                 f"prompt ({prompt}) + max_new_tokens ({max_new_tokens}) "
                 f"exceeds max_position_embeddings "
                 f"({cfg.max_position_embeddings})")
-        generator = None
-        if do_sample:
-            generator = torch.Generator(device=dev)
-            if seed is not None:
-                generator.manual_seed(int(seed))
-            else:
-                generator.seed()
+        # the key as JAX threads it (`gpt.py:1126-1131`): split once a
+        # step when sampling
+        key = ((_random.PRNGKey(seed) if seed is not None
+                else _random.next_key()) if do_sample
+               else _random.PRNGKey(0)).to(dev)
         step = self._decode_step(b, total, pad_token_id is not None)
         pos = cache_mask = None
         if pad_token_id is not None:
@@ -724,8 +742,11 @@ class GPTForCausalLM(nn.Module):
         finished = torch.zeros(b, dtype=torch.bool, device=dev)
         toks = []
         for i in range(max_new_tokens):
-            tok = _sample_next(logits, do_sample, temperature, top_k, top_p,
-                               generator)
+            sub = None
+            if do_sample:
+                key, sub = _random.split(key)
+            tok = _sample_next(logits, sub, do_sample, temperature, top_k,
+                               top_p)
             if eos_token_id is not None:
                 tok = torch.where(finished, eos_token_id, tok)
                 finished |= tok == eos_token_id

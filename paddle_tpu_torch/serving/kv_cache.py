@@ -7,34 +7,81 @@ K/V live per layer in pools of fixed-size physical blocks on the device
 
 and each sequence owns a block table (list of physical ids), so a request
 holds exactly ``ceil(len / block_size)`` blocks.  The engine's step
-programs write the pools in place.  With ``kv_quant="int8"`` the pools
-hold int8 codes beside per-block-per-head fp32 scales
+programs write the pools in place; no operation here reallocates a pool,
+so a captured step graph that reads them stays valid.  With
+``kv_quant="int8"`` the pools hold int8 codes beside per-block-per-head
+fp32 scales
 
     k_scales[l], v_scales[l] : [num_blocks, H]     (value = code * scale)
 
 and a block's scales are zeroed whenever the allocator hands it out.
 
-Host logic ported one-to-one: LIFO free list and refcounts, `truncate_to`,
-and bit-exact `swap_out`/`swap_in` for preemption.  Every transition
-asserts the refcount/free-list invariants.
+Host logic ported one-to-one:
 
-Left out for later slices: fork with copy-on-write of a shared last block,
-automatic prefix caching (index, LRU parking, adoption) — and with them
-the scale copies of a copied block — and the memory-microscope lifecycle
-ledger.  Until fork is ported no block is
-shared, so `_needs_cow` is always False.
+- **free list** — LIFO stack of physical ids and refcounts;
+- **copy-on-fork** — `fork(parent, child)` shares every parent block by
+  bumping refcounts; the first append into a SHARED partially filled last
+  block copies it (`_cow_last_block`: codes, and for int8 pools the K and
+  V scales of every layer), and `privatize_last_block` does so at once for
+  a child that re-writes its last inherited position;
+- **preemption by eviction** — bit-exact `swap_out` / `swap_in`;
+- **automatic prefix caching** — a map from chained content keys
+  (`prefix_block_keys`: block j's key is the sha1 of key j-1 and block j's
+  tokens) to the FULL blocks that hold them (`register_prefix`);
+  `match_prefix` walks a new prompt's chain to its longest indexed prefix
+  and `adopt_prefix` starts the sequence's table from those blocks by
+  refcount bump.  A block whose refcount drops to 0 while indexed is
+  PARKED on an LRU instead of the free list: it stays adoptable and is
+  reclaimed last (`_take` drains the free list first, then the
+  least-recently-used parked block, dropping its index entry).  Parked
+  blocks count as allocatable (`num_free_blocks`) and as in use
+  (`blocks_in_use`): they hold live bytes.  Every capacity view derives
+  from `counts()`;
+- **speculative rollback** — `truncate_to` releases the blocks reserved
+  for rejected draft positions.
+
+Every transition asserts the refcount/free-list invariants.  The JAX
+package's monitor counters are plain ints here (``prefix_hits``,
+``prefix_hit_tokens``, ``prefix_evictions``).
+
+Left out for later slices: the memory-microscope lifecycle ledger
+(``acct``) and its chain ids.
 """
 from __future__ import annotations
 
+import hashlib
+import struct
+import time
+from collections import OrderedDict
+
+import numpy as np
 import torch
 
 from ..device import resolve_device
 
-__all__ = ["BlockKVCache", "BlockAllocatorError"]
+__all__ = ["BlockKVCache", "BlockAllocatorError", "prefix_block_keys",
+           "snapshot_to_handoff", "snapshot_from_handoff"]
 
 
 class BlockAllocatorError(RuntimeError):
     pass
+
+
+def prefix_block_keys(token_ids, block_size) -> list:
+    """Chained content keys for every FULL block of `token_ids`:
+    key_j = sha1(key_{j-1} || tokens[j*bs:(j+1)*bs] as little-endian
+    int64), so equal keys imply equal block-aligned token prefixes (the
+    JAX package's keys, byte for byte)."""
+    bs = int(block_size)
+    keys = []
+    prev = b""
+    for j in range(len(token_ids) // bs):
+        block = token_ids[j * bs:(j + 1) * bs]
+        prev = hashlib.sha1(
+            prev + struct.pack(f"<{bs}q", *[int(t) for t in block])
+        ).digest()
+        keys.append(prev)
+    return keys
 
 
 class _Block:
@@ -81,6 +128,14 @@ class BlockKVCache:
         self._tables: dict = {}        # seq_id -> [physical ids]
         self._lengths: dict = {}       # seq_id -> token count covered
         self.peak_blocks_in_use = 0
+        # prefix cache (inert until register_prefix)
+        self._prefix_index: dict = {}  # chain key (bytes) -> physical id
+        self._block_key: dict = {}     # physical id -> chain key
+        self._lru: "OrderedDict" = OrderedDict()   # parked id -> monotonic
+        #                                park time, least recent first
+        self.prefix_hits = 0
+        self.prefix_hit_tokens = 0
+        self.prefix_evictions = 0
 
     # -- introspection ------------------------------------------------------
 
@@ -116,25 +171,43 @@ class BlockKVCache:
     def counts(self) -> dict:
         """The one accounting source every capacity view derives from.
         Invariants: ``free + in_use == total`` and ``allocatable == free +
-        parked`` (``parked`` is 0 until prefix caching is ported)."""
+        parked``: parked prefix blocks are allocatable (reclaimed last by
+        `_take`) but in use for the utilization view."""
         free = len(self._free)
+        parked = len(self._lru)
         return {
             "total": self.num_blocks,
             "free": free,
-            "parked": 0,
-            "allocatable": free,
+            "parked": parked,
+            "allocatable": free + parked,
             "in_use": self.num_blocks - free,
-            "referenced": self.num_blocks - free,
+            "referenced": self.num_blocks - free - parked,
             "peak_in_use": self.peak_blocks_in_use,
         }
 
     @property
     def num_free_blocks(self) -> int:
+        """Allocatable blocks: free plus parked, the number admission
+        budgets against."""
         return self.counts()["allocatable"]
 
     @property
+    def num_parked_blocks(self) -> int:
+        """Unreferenced blocks held by the prefix index."""
+        return self.counts()["parked"]
+
+    @property
     def blocks_in_use(self) -> int:
+        """Blocks holding live bytes: referenced or parked."""
         return self.counts()["in_use"]
+
+    @property
+    def utilization(self) -> float:
+        c = self.counts()
+        return c["in_use"] / max(c["total"], 1)
+
+    def block_table(self, seq_id):
+        return list(self._tables[seq_id])
 
     def padded_table(self, seq_id, width):
         """Block table padded to `width` entries with num_blocks (an
@@ -158,9 +231,16 @@ class BlockKVCache:
     # -- allocate / grow / free --------------------------------------------
 
     def _take(self) -> int:
-        if not self._free:
+        if self._free:
+            i = self._free.pop()
+        elif self._lru:
+            # reclaimed last, least recently used first: the parked block
+            # stops being adoptable the moment its bytes are handed out
+            i, _ = self._lru.popitem(last=False)
+            self._drop_index(i)
+            self.prefix_evictions += 1
+        else:
             raise BlockAllocatorError("out of KV blocks")
-        i = self._free.pop()
         blk = self._blocks[i]
         assert blk.ref == 0, f"free list handed out a referenced block {i}"
         blk.ref = 1
@@ -173,7 +253,17 @@ class BlockKVCache:
         assert blk.ref > 0, f"double free of block {idx}"
         blk.ref -= 1
         if blk.ref == 0:
-            self._free.append(idx)
+            if idx in self._block_key:
+                # indexed prefix block: park (its content stays adoptable)
+                self._lru[idx] = time.monotonic()
+                self._lru.move_to_end(idx)
+            else:
+                self._free.append(idx)
+
+    def _drop_index(self, idx) -> None:
+        key = self._block_key.pop(idx, None)
+        if key is not None:
+            self._prefix_index.pop(key, None)
 
     def _needs_cow(self, seq_id, num_tokens) -> bool:
         """Will growing to `num_tokens` write into a SHARED partially-
@@ -206,12 +296,13 @@ class BlockKVCache:
         self._reset_scales(ids)
 
     def grow_to(self, seq_id, num_tokens):
-        """Extend a sequence's table to cover `num_tokens` tokens."""
+        """Extend a sequence's table to cover `num_tokens` tokens,
+        copying a shared partially filled last block first (the append
+        target must be privately owned: forked siblings keep reading the
+        original)."""
         t = self._tables[seq_id]
         if self._needs_cow(seq_id, num_tokens):
-            raise BlockAllocatorError(
-                f"sequence {seq_id} would write a shared block: "
-                "copy-on-write is not ported")
+            self._cow_last_block(seq_id)
         new_ids = []
         while len(t) < self.blocks_needed(num_tokens):
             new_ids.append(self._take())
@@ -242,6 +333,113 @@ class BlockKVCache:
             self._release(t.pop())
         self._lengths[seq_id] = min(self._lengths[seq_id],
                                     int(num_tokens))
+
+    # -- copy-on-fork -------------------------------------------------------
+
+    def fork(self, parent_id, child_id):
+        """Share the parent's blocks with a new sequence (refcount bump:
+        no copy until one of them appends into the shared last block)."""
+        if child_id in self._tables:
+            raise BlockAllocatorError(f"sequence {child_id} already exists")
+        t = self._tables[parent_id]
+        for idx in t:
+            self._blocks[idx].ref += 1
+        self._tables[child_id] = list(t)
+        self._lengths[child_id] = self._lengths[parent_id]
+
+    def _copy_block(self, src, dst):
+        """Copy block ``src`` into ``dst`` in every layer's pools, and for
+        int8 pools both its K and V scales."""
+        for l in range(self.num_layers):
+            self.k_blocks[l][dst] = self.k_blocks[l][src]
+            self.v_blocks[l][dst] = self.v_blocks[l][src]
+        if self.kv_quant:
+            self._scales[:, :, dst] = self._scales[:, :, src]
+
+    def _cow_last_block(self, seq_id):
+        t = self._tables[seq_id]
+        src = t[-1]
+        dst = self._take()
+        self._copy_block(src, dst)
+        t[-1] = dst
+        self._release(src)
+
+    def privatize_last_block(self, seq_id):
+        """Copy the sequence's last block now if it is shared.  A forked
+        child re-writes its last inherited position (it re-feeds the
+        parent's last sampled token), and that write must never land in
+        a block the parent still reads."""
+        t = self._tables[seq_id]
+        if t and self._blocks[t[-1]].ref > 1:
+            self._cow_last_block(seq_id)
+
+    # -- automatic prefix caching -------------------------------------------
+
+    def register_prefix(self, seq_id, keys, num_tokens) -> None:
+        """Index `seq_id`'s fully written leading blocks under their chain
+        keys (`prefix_block_keys` of the prompt).  Only blocks wholly
+        inside the first `num_tokens` computed tokens are indexed: a full
+        block is never written again while referenced.  First writer
+        wins: an existing key keeps pointing at its original block."""
+        t = self._tables[seq_id]
+        full = min(len(keys), int(num_tokens) // self.block_size, len(t))
+        for j in range(full):
+            key = keys[j]
+            if key in self._prefix_index:
+                continue
+            idx = t[j]
+            if idx in self._block_key:
+                continue   # already indexed under another chain
+            self._prefix_index[key] = idx
+            self._block_key[idx] = key
+
+    def match_prefix(self, keys, max_blocks=None) -> int:
+        """Longest indexed prefix of `keys`, in blocks.  Walks the chain in
+        order and stops at the first miss; refreshes the recency of every
+        parked block it matches."""
+        limit = len(keys) if max_blocks is None else min(len(keys),
+                                                        int(max_blocks))
+        n = 0
+        for j in range(limit):
+            idx = self._prefix_index.get(keys[j])
+            if idx is None:
+                break
+            if idx in self._lru:
+                self._lru.move_to_end(idx)
+            n += 1
+        return n
+
+    def adoptable_free_blocks(self, keys, n_blocks) -> int:
+        """`num_free_blocks` minus the first `n_blocks` matched blocks that
+        are parked: adopting revives them, so an admission check must not
+        count them as reclaimable capacity too."""
+        parked = sum(1 for key in keys[:n_blocks]
+                     if self._prefix_index.get(key) in self._lru)
+        return self.num_free_blocks - parked
+
+    def adopt_prefix(self, seq_id, keys, n_blocks) -> int:
+        """Start `seq_id` from the cached chain: its table begins with the
+        `n_blocks` indexed blocks (refcount bump; parked blocks leave the
+        LRU; no bytes move).  Returns the adopted token count."""
+        if seq_id in self._tables:
+            raise BlockAllocatorError(f"sequence {seq_id} already exists")
+        ids = []
+        for key in keys[:n_blocks]:
+            idx = self._prefix_index[key]
+            blk = self._blocks[idx]
+            if blk.ref == 0:
+                self._lru.pop(idx, None)
+            blk.ref += 1
+            ids.append(idx)
+        self._tables[seq_id] = ids
+        hit_tokens = len(ids) * self.block_size
+        self._lengths[seq_id] = hit_tokens
+        self.peak_blocks_in_use = max(self.peak_blocks_in_use,
+                                      self.blocks_in_use)
+        if ids:
+            self.prefix_hits += 1
+            self.prefix_hit_tokens += hit_tokens
+        return hit_tokens
 
     # -- preemption swap ----------------------------------------------------
 
@@ -277,3 +475,34 @@ class BlockKVCache:
         if self.kv_quant:
             self._scales[0][:, idx] = saved["ks"].to(self.device)
             self._scales[1][:, idx] = saved["vs"].to(self.device)
+
+
+def snapshot_to_handoff(saved) -> dict:
+    """A `swap_out` snapshot in the JAX package's layout, the ``kv`` of a
+    migration handoff: per-layer lists ``k``, ``v`` of [n, block_size, H,
+    D] and, for int8 pools, ``ks``, ``vs`` of [n, H], as numpy arrays (a
+    bf16 pool's as torch bf16 tensors: numpy has no bf16)."""
+    def host(t):
+        return t.clone() if t.dtype == torch.bfloat16 else t.numpy().copy()
+
+    out = {"len": saved["len"], "k": [host(t) for t in saved["k"]],
+           "v": [host(t) for t in saved["v"]]}
+    if "ks" in saved:
+        out["ks"] = [s.numpy().copy() for s in saved["ks"].unbind(0)]
+        out["vs"] = [s.numpy().copy() for s in saved["vs"].unbind(0)]
+    return out
+
+
+def snapshot_from_handoff(kv) -> dict:
+    """The inverse of `snapshot_to_handoff`: a handoff's ``kv`` (from
+    either package) as a snapshot `BlockKVCache.swap_in` takes."""
+    def tensor(a):
+        return a if isinstance(a, torch.Tensor) else torch.from_numpy(
+            np.array(a))
+
+    out = {"len": int(kv["len"]), "k": [tensor(a) for a in kv["k"]],
+           "v": [tensor(a) for a in kv["v"]]}
+    if "ks" in kv:
+        out["ks"] = torch.stack([tensor(a) for a in kv["ks"]])
+        out["vs"] = torch.stack([tensor(a) for a in kv["vs"]])
+    return out

@@ -16,8 +16,15 @@ Multi-tenant policy: admission candidates are ordered by (priority class,
 weighted tenant service, arrival), a deficit-style fair share; with default
 params every ordering is plain FIFO/youngest-first.
 
-Left out for later slices: SLO-burn shedding (needs the monitor), prefix
-caching adoption, speculative-decode reservations, and deadlines.
+With prefix caching on, a fresh request first adopts its longest cached
+block-aligned prefix (capped below the whole prompt: the last prompt
+token is recomputed for its logits), and its chunk budget counts only the
+uncached tokens.  With speculative decoding on, the decode branch
+reserves each greedy row's draft extent (`_decode_reserve_len`); the
+engine rolls the tables back to the accepted length after the step.
+
+Left out for later slices: SLO-burn shedding (``should_shed`` /
+``worst_fast_burn``: they read ``monitor.slo``).
 """
 from __future__ import annotations
 
@@ -71,10 +78,12 @@ class SamplingParams:
     top_p: float = 1.0
     eos_token_id: Optional[int] = None
     seed: Optional[int] = None
-    # fields after the JAX fields the port has: JAX's next one,
-    # deadline_s, is not ported, so these are keyword-only and a
-    # positional call means what it means in JAX or raises
-    _: dataclasses.KW_ONLY
+    # wall-clock budget from admission; an expired request is aborted at
+    # the next engine step via release_request() (resilience.Deadline;
+    # None = no deadline)
+    deadline_s: Optional[float] = None
+    # multi-tenant scheduling: the tenant for weighted fair share (None =
+    # the shared default pool) and the priority class
     tenant: Optional[str] = None
     priority: str = "interactive"
 
@@ -91,9 +100,18 @@ class Request:
         self.state = Request.WAITING
         self.output_ids: list = []         # generated tokens (incl. eos)
         self.num_computed = 0              # prompt tokens prefilled so far
-        self.generator = None              # per-request torch.Generator
+        self.key = None                    # per-request PRNG key (engine;
+        #                                    int64 host tensor [2])
         self.swap = None                   # host KV snapshot while evicted
+        self.prefix_keys = None            # chained block keys (engine;
+        #                                    set only with prefix caching)
+        self.prefix_hit_tokens = 0         # prompt tokens adopted cached
         self.arrival = None                # admission tiebreak (set by add)
+        self.deadline = None               # resilience.Deadline (engine)
+        self.spec_proposed = 0             # draft tokens proposed
+        self.spec_accepted = 0             # draft tokens accepted
+        self.finish_reason = None          # stop|abort|deadline|released|
+        #                                    migrated, set once at finish
 
     @property
     def prompt_len(self) -> int:
@@ -138,16 +156,42 @@ class SchedulerOutput:
 
 class Scheduler:
     def __init__(self, cache, max_num_seqs=8, max_num_batched_tokens=2048,
-                 weights=None):
+                 spec_tokens=0, max_model_len=None, weights=None):
         self.cache = cache
         self.max_num_seqs = int(max_num_seqs)
         self.max_num_batched_tokens = int(max_num_batched_tokens)
         self.tenant_weights = (dict(weights) if weights is not None
                                else tenant_weights())
         self.tenant_served: dict = {}
+        # speculative decoding: a decode step may write up to spec_tokens
+        # draft positions past each row's last token, so the decode branch
+        # reserves blocks for that extent (clamped so no write position
+        # reaches max_model_len)
+        self.spec_tokens = max(0, int(spec_tokens))
+        self.max_model_len = (None if max_model_len is None
+                              else int(max_model_len))
         self.waiting: deque = deque()
         self.running: list = []
         self._arrival = 0
+        self.num_evictions = 0
+        self.num_swap_ins = 0
+
+    def _decode_reserve_len(self, req) -> int:
+        """Token coverage the decode step needs for `req`: total_len (the
+        write of position total_len - 1) plus the row's real draft budget,
+        the engine proposer's clamp: sampling rows and rows within one
+        token of max_new_tokens or max_model_len reserve nothing extra."""
+        extra = self.spec_tokens
+        if extra:
+            p = req.params
+            if p.do_sample:
+                extra = 0
+            else:
+                extra = min(extra,
+                            p.max_new_tokens - len(req.output_ids) - 1)
+                if self.max_model_len is not None:
+                    extra = min(extra, self.max_model_len - req.total_len)
+        return req.total_len + max(0, extra)
 
     # -- request lifecycle --------------------------------------------------
 
@@ -234,11 +278,14 @@ class Scheduler:
             for req in list(self.running):   # oldest first
                 if req.state != Request.RUNNING or not req.prefill_done:
                     continue
-                # this step writes position total_len - 1
-                if not self._ensure_blocks(req, req.total_len, preempted,
+                # this step writes position total_len - 1, plus the
+                # draft extent with speculative decoding (rolled back to
+                # the accepted length by the engine after the step)
+                reserve = self._decode_reserve_len(req)
+                if not self._ensure_blocks(req, reserve, preempted,
                                            protect=req):
                     continue                 # req itself was evicted
-                self.cache.grow_to(req.req_id, req.total_len)
+                self.cache.grow_to(req.req_id, reserve)
                 rows.append(req)
             # a later row's reservation may have evicted an earlier row
             rows = [r for r in rows if r.state == Request.RUNNING]
@@ -255,21 +302,54 @@ class Scheduler:
         swap-resume landed in `running` with no step to emit, or None when
         `req` cannot start right now."""
         if req.swap is not None:
-            if len(req.swap["k"][0]) > self.cache.num_free_blocks:
+            if not self._can_swap_in(req):
                 return None
             self.waiting.remove(req)
             self.cache.swap_in(req.req_id, req.swap)
             req.swap = None
             req.state = Request.RUNNING
             self.running.append(req)
+            self.num_swap_ins += 1
             return True
-        start = req.num_computed
-        chunk = min(req.prompt_len - start, self.max_num_batched_tokens)
-        if self.cache.blocks_needed(start + chunk) \
-                > self.cache.num_free_blocks:
+        start = req.num_computed    # > 0 only for forked children, which
+        #                             already hold (shared) prefix blocks
+        forked = req.req_id in self.cache._tables
+        # prefix caching: adopt the longest cached run, capped below the
+        # whole prompt and block-aligned, only when the rest of the chunk
+        # fits too (a failed admission holds no blocks)
+        hit_blocks = 0
+        if (not forked and start == 0 and req.prefix_keys
+                and not req.prefix_hit_tokens):
+            hit_blocks = self.cache.match_prefix(
+                req.prefix_keys,
+                max_blocks=(req.prompt_len - 1) // self.cache.block_size)
+        # the chunk budget counts only uncached tokens
+        hit_tokens = hit_blocks * self.cache.block_size
+        chunk = min(req.prompt_len - start - hit_tokens,
+                    self.max_num_batched_tokens)
+        target = start + hit_tokens + chunk
+        if hit_blocks:
+            need = self.cache.blocks_needed(target) - hit_blocks
+            fits = need <= self.cache.adoptable_free_blocks(
+                req.prefix_keys, hit_blocks)
+        elif forked:
+            fits = self.cache.can_grow_to(req.req_id, target)
+        else:
+            fits = (self.cache.blocks_needed(target)
+                    <= self.cache.num_free_blocks)
+        if not fits:
             return None
         self.waiting.remove(req)
-        self.cache.allocate(req.req_id, start + chunk)
+        if hit_blocks:
+            req.prefix_hit_tokens = self.cache.adopt_prefix(
+                req.req_id, req.prefix_keys, hit_blocks)
+            req.num_computed = req.prefix_hit_tokens
+            start = req.num_computed
+            self.cache.grow_to(req.req_id, target)
+        elif forked:
+            self.cache.grow_to(req.req_id, target)
+        else:
+            self.cache.allocate(req.req_id, target)
         req.state = Request.RUNNING
         self.running.append(req)
         self._charge(req, chunk)
@@ -287,6 +367,9 @@ class Scheduler:
             chunk_len=chunk, preempted=tuple(preempted))
 
     # -- eviction -----------------------------------------------------------
+
+    def _can_swap_in(self, req) -> bool:
+        return len(req.swap["k"][0]) <= self.cache.num_free_blocks
 
     def _ensure_blocks(self, req, target_len, preempted, protect=None) -> bool:
         """Make the pool able to cover `target_len` for `req`, evicting as
@@ -328,6 +411,7 @@ class Scheduler:
         self.running.remove(req)
         self.waiting.appendleft(req)             # keeps arrival order
         preempted.append(req)
+        self.num_evictions += 1
 
     # -- completion ---------------------------------------------------------
 

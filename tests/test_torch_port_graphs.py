@@ -29,7 +29,8 @@ On the card (marked ``cuda``; skipped here):
 - ``generate`` (both layouts, default and fused mode, padded) and the
   engine (fp and int8 pools) give the same tokens captured as eager
   (``PTPU_CUDA_GRAPHS=0``), with one capture per key and the same
-  replay-counted launches.
+  replay-counted launches; with prefix caching and speculative decoding
+  the engine keeps one ``ragged`` and one ``verify`` capture.
 
 On a machine without JAX run:
 
@@ -442,3 +443,39 @@ def test_engine_captured_equals_eager(kv, monkeypatch):
     assert runs["0"][1] == runs["1"][1]
     assert runs["1"][2].compiles == {"ragged": 1}
     assert runs["0"][2].compiles == {}
+
+
+@pytest.mark.cuda
+@pytest.mark.usefixtures("needs_cuda")
+@pytest.mark.parametrize("kv", [None, "int8"])
+def test_engine_captures_stay_flat_with_prefix_and_spec(kv, monkeypatch):
+    """Prefix caching and k=3 speculative decoding on the card: one
+    ``ragged`` and one ``verify`` capture across batch compositions, hit /
+    miss mixes and spec rounds (adoption and copy-on-write move only
+    tables and pool rows), and the tokens of the same engine run eagerly
+    (``PTPU_CUDA_GRAPHS=0``)."""
+    model = GPTForCausalLM(gpt_test_config(stacked_blocks=True, **CARD_CFG),
+                           device="cpu")
+    rng = np.random.RandomState(4)
+    cyc = np.tile(rng.randint(0, 512, (3,)).astype(np.int32), 6)
+    rounds = [[np.concatenate([cyc, rng.randint(0, 512, (n,))]).astype(
+        np.int32) for n in ns] for ns in ((4, 6, 4), (4, 6, 4, 6, 4), (5,))]
+    params = [SamplingParams(max_new_tokens=8),
+              SamplingParams(max_new_tokens=8, do_sample=True, seed=3,
+                             temperature=0.8, top_k=20)]
+    runs = {}
+    for graphs_env in ("0", "1"):
+        monkeypatch.setenv(graphs.ENV, graphs_env)
+        eng = LLMEngine(model, EngineConfig(
+            block_size=16, max_num_seqs=8, device="cuda", kv_cache_dtype=kv,
+            enable_prefix_caching=True, speculative_tokens=3))
+        outs = [eng.generate(r, [params[i % 2] for i in range(len(r))])
+                for r in rounds]
+        runs[graphs_env] = (outs, eng)
+    for a, b in zip(runs["0"][0], runs["1"][0]):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+    eng = runs["1"][1]
+    assert eng.compiles == {"ragged": 1, "verify": 1}
+    assert eng.cache.prefix_hits > 0 and eng.verify_steps > 0
+    assert runs["0"][1].compiles == {}

@@ -479,22 +479,37 @@ def _positional(cls):
 @pytest.mark.parametrize("port,jax_cls", [(SamplingParams, JaxSamplingParams),
                                           (EngineConfig, JaxEngineConfig)])
 def test_positional_dataclass_fields_are_jaxs(port, jax_cls):
+    # every JAX field, in JAX's order (deadline_s and the engine's
+    # metrics_port .. spec_lookup_window restored); the port's own fields
+    # (the engine's device and dtype) keyword-only after them
     mine = _positional(port)
-    assert mine == _positional(jax_cls)[:len(mine)]
+    assert mine == _positional(jax_cls)
     extra = [f.name for f in dataclasses.fields(port) if f.kw_only]
-    assert extra and not set(extra) & set(mine)
+    assert not set(extra) & {f.name for f in dataclasses.fields(jax_cls)}
+    assert extra == (["device", "dtype"] if port is EngineConfig else [])
 
 
 def test_positional_calls_mean_what_they_mean_in_jax():
-    eight = (4, False, 1.0, 0, 1.0, None, None, 5.0)
-    assert JaxSamplingParams(*eight).deadline_s == 5.0
+    ten = (4, False, 1.0, 0, 1.0, None, None, 5.0, "acme", "batch")
+    want = JaxSamplingParams(*ten)
+    assert want.deadline_s == 5.0
+    assert dataclasses.asdict(SamplingParams(*ten)) == dataclasses.asdict(
+        want)
+    assert SamplingParams(*ten[:8]).deadline_s == 5.0
     with pytest.raises(TypeError):
-        SamplingParams(*eight)
-    assert SamplingParams(*eight[:7]) == SamplingParams(max_new_tokens=4)
+        SamplingParams(*ten, "cpu")
     six = (16, None, 8, None, None, "int8")
     assert JaxEngineConfig(*six).kv_cache_dtype == "int8"
     assert EngineConfig(*six).kv_cache_dtype == "int8"
+    thirteen = six + (None, "bucketed", True, 3, 4, 2, 64)
+    want = dataclasses.asdict(JaxEngineConfig(*thirteen))
+    got = dataclasses.asdict(EngineConfig(*thirteen))
+    assert {k: got[k] for k in want} == want
+    # the JAX engine's metrics endpoint is not ported: setting it raises
+    assert JaxEngineConfig(*six, 9090).metrics_port == 9090
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        EngineConfig(*six, 9090)
     with pytest.raises(TypeError):
-        EngineConfig(*six, "cpu")
+        EngineConfig(*thirteen, "cpu")
     cfg = EngineConfig(*six, device="cpu", dtype=torch.bfloat16)
     assert (cfg.device, cfg.dtype) == ("cpu", torch.bfloat16)
