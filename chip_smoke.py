@@ -281,7 +281,41 @@ Phases, in order; any failure exits non-zero and prints no result line:
    events around 20 graph replays); the sampler's host ms over eight
    seeded rows (threefry over 8 x 50304 values) against eight greedy
    rows.  Each turn's tokens equal the other turn of its kind.
-8. Summary: one JSON line of the twenty-eight entries (the nine kernels,
+12. float16 (run after phase 11, before the summary's lines).  12a:
+   every fp16 kernel against its fp16 plain version at the
+   fp16 limits of `ops/tolerance.py` (`fp16_kernel_cases`): the flash
+   forward at S=384, the training shape and H=16 D=128, dQ and dK/dV at
+   the training shape, the masked forward (pad, kv_lens) at B=8 S=896,
+   the segment and non-causal variants forward and backward at B=8
+   S=1024 / 896, the ragged kernel at the decode step, the verify step
+   (8, 5) and a chunk of 512 on fp16 pools and at the decode step and
+   C=512 on int8 pools with fp16 q, flash decode at full context (H=12
+   D=64, H=16 D=128); times, bounds and SDPA times as phase 2.  12b:
+   GPT-2 124M stacked, weights from seed 0, cast to fp16 by
+   ``amp.decorate(level="O2", dtype="float16")``, served by `LLMEngine`
+   (block 16, 8 sequences) on fp16 and on int8 pools: five greedy
+   prompts (`PROMPT_LENS`) and two seeded ones (100, 300 tokens; T 0.8,
+   top-k 50, top-p 0.95), 32 new, eager and captured: identical tokens,
+   the launches (the flash prefill on ``:tc16``, the ragged kernel on
+   ``:fp16`` / ``:int8:fp16``, nothing else), one ``ragged`` capture, and
+   each greedy token teacher-forced under the same weights in fp32 on
+   the card within `NEAR_ARGMAX` of its top logit (2^-10 on fp16 pools,
+   3 * 2^-7 on int8 pools); then three short requests (7, 24 greedy, 16
+   seeded, 8 new) on the card and on the CPU engine (plain versions; the
+   host's fp16 GEMMs are far slower than fp32), held as the fp32 phases
+   hold card against CPU: each row identical, except at most one greedy
+   row that parts at a near-tie (both tokens within `NEAR_ARGMAX` of the
+   fp32 model's top logit there; `cpu_differences`).  12c: default-mode
+   ``generate`` of the same fp16 model, B=8 256 + 32 greedy, eager and
+   captured (identical tokens, one capture, 12 fp16 flash decode launches
+   a step), teacher-forced as 12b.  12d: configuration A's recipe (phase
+   9b) under ``auto_cast(level="O1", dtype="float16")`` over fp32
+   weights and under O2 after ``decorate(dtype="float16")``, each with
+   ``GradScaler(init_loss_scaling=2**15)``, without the LN / FFN flags
+   (their kernels take fp32 and bf16 only), B=8 S=1024, 2 warm-up and
+   6 timed steps: losses finite and falling, the scale and skipped
+   steps, ``:tc16`` launches, ms per step and the profiled step.
+8. Summary: one JSON line of the thirty-four entries (the nine kernels,
    the int8 variant, the mask, segment and non-causal variants of the
    flash kernels, the tensor-core forward, dQ and dK/dV -- every bf16
    launch of those three, timed at the bf16 training shape -- the fp32
@@ -289,14 +323,19 @@ Phases, in order; any failure exits non-zero and prints no result line:
    timed at the fp32 training shape, launches from phase 5 -- and the
    FFN's bf16 and fp32 tensor-core designs and decode design, counted
    apart; the FFN's own entry is its CUDA-core design, timed at I=3008,
-   launches from phase 6c; each entry also carries its launches in
-   phase 7's per-layer bf16 run, in phase 10's bf16 fit and in phase
-   11), the card line, then the result line.
+   launches from phase 6c; the fp16 launches of the flash forward, dQ
+   and dK/dV (timed at the fp16 training shape, launches from phase
+   12d's O1 run), of the ragged kernel on fp16 and on int8 pools (the
+   decode step, launches from phase 12b) and of flash decode (full
+   context, launches from phase 12c); each entry also carries its
+   launches in phase 7's per-layer bf16 run, in phase 10's bf16 fit, in
+   phase 11 and in phase 12), the card line, then the result line.
 
 Every time is a median of CUDA-event timings (L2 flushed before each
 launch, the host's enqueue hidden behind a spin on the stream); every
 bound is max(bytes / 3.35 TB/s, FLOPs / peak for the type: 989 TFLOP/s
-bf16, 67 TFLOP/s fp32; fp32 flash and FFN 495 / 3 TFLOP/s, split TF32),
+bf16 and fp16, 67 TFLOP/s fp32; fp32 flash and FFN 495 / 3 TFLOP/s,
+split TF32),
 from this run's shapes and data.
 Details go to chiprun_out/chip_smoke.json.
 
@@ -333,7 +372,7 @@ import numpy as np
 import torch
 
 HBM_BPS = 3.35e12
-PEAK = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK = {torch.float32: 67e12, torch.bfloat16: 989e12, torch.float16: 989e12}
 # TF32 on the tensor cores: a split-TF32 fp32 product is three TF32 ones
 PEAK_TF32, TF32_PASSES = 495e12, 3
 TOL_FP32 = 2e-5
@@ -366,13 +405,21 @@ DKV_MASK, DKV_SEGS, DKV_NC = (DKV + ":mask", DKV + ":segs",
 # their fp32 launches: the split-TF32 kernels
 FWD_TC, DQ_TC, DKV_TC = FWD + ":tc", DQ + ":tc", DKV + ":tc"
 FWD_TC32, DQ_TC32, DKV_TC32 = FWD + ":tc32", DQ + ":tc32", DKV + ":tc32"
+# their fp16 launches (the same kernels instantiated in fp16), and the fp16
+# launches of the ragged (fp16 pools; int8 pools with fp16 q) and decode
+# kernels, each counted once more
+FWD_TC16, DQ_TC16, DKV_TC16 = FWD + ":tc16", DQ + ":tc16", DKV + ":tc16"
+RAGGED16, RAGGED8_16, DECODE16 = (RAGGED + ":fp16", RAGGED + ":int8:fp16",
+                                  "flash_decode:fp16")
+HALF_AND_FP32 = (torch.bfloat16, torch.float16, torch.float32)
 FWD_ALL = (FWD, FWD_MASK, FWD_SEGS, FWD_NC)
 DQ_ALL = (DQ, DQ_MASK, DQ_SEGS, DQ_NC)
 DKV_ALL = (DKV, DKV_MASK, DKV_SEGS, DKV_NC)
 KERNELS = (FWD, FWD_MASK, FWD_SEGS, FWD_NC, FWD_TC, FWD_TC32, RAGGED,
            RAGGED8, DQ, DQ_MASK, DQ_SEGS, DQ_NC, DQ_TC, DQ_TC32, DKV,
            DKV_MASK, DKV_SEGS, DKV_NC, DKV_TC, DKV_TC32, DECODE, FUSED, LN,
-           LN_BWD, FFN, FFN_TC, FFN_TC32, FFN_DEC)
+           LN_BWD, FFN, FFN_TC, FFN_TC32, FFN_DEC, FWD_TC16, DQ_TC16,
+           DKV_TC16, RAGGED16, RAGGED8_16, DECODE16)
 REPLACES = {
     FWD: "paddle_tpu/ops/pallas_ops.py:135",
     FWD_MASK: "paddle_tpu/ops/pallas_ops.py:135",
@@ -380,7 +427,13 @@ REPLACES = {
     FWD_NC: "paddle_tpu/ops/pallas_ops.py:135",
     FWD_TC: "paddle_tpu/ops/pallas_ops.py:135",
     FWD_TC32: "paddle_tpu/ops/pallas_ops.py:135",
+    FWD_TC16: "paddle_tpu/ops/pallas_ops.py:135",
     RAGGED8: "paddle_tpu/ops/ragged_paged_attention.py:125",
+    RAGGED16: "paddle_tpu/ops/ragged_paged_attention.py:125",
+    RAGGED8_16: "paddle_tpu/ops/ragged_paged_attention.py:125",
+    DQ_TC16: "paddle_tpu/ops/pallas_ops.py:210",
+    DKV_TC16: "paddle_tpu/ops/pallas_ops.py:272",
+    DECODE16: "paddle_tpu/ops/pallas_ops.py:1008",
     DQ: "paddle_tpu/ops/pallas_ops.py:210",
     DQ_MASK: "paddle_tpu/ops/pallas_ops.py:210",
     DQ_SEGS: "paddle_tpu/ops/pallas_ops.py:210",
@@ -528,16 +581,23 @@ def tflops(flops, ms):
     return flops / (ms * 1e-3) / 1e12
 
 
-def with_tc(want, bf16):
-    """`want` with the tensor-core counts: in bf16 every forward, dQ and
-    dK/dV launch counts once more under FWD_TC, DQ_TC and DKV_TC; in fp32
-    under FWD_TC32, DQ_TC32 and DKV_TC32."""
-    for tc, tc32, names in ((FWD_TC, FWD_TC32, FWD_ALL),
-                            (DQ_TC, DQ_TC32, DQ_ALL),
-                            (DKV_TC, DKV_TC32, DKV_ALL)):
+def with_tc(want, dtype):
+    """`want` with the counts by type: in bf16 every forward, dQ and dK/dV
+    launch counts once more under FWD_TC, DQ_TC and DKV_TC; in fp32 under
+    FWD_TC32, DQ_TC32 and DKV_TC32; in fp16 under FWD_TC16, DQ_TC16 and
+    DKV_TC16, and every ragged and decode launch once more under RAGGED16,
+    RAGGED8_16 and DECODE16.  ``dtype``: the torch type the kernels ran
+    in."""
+    for counters, names in (((FWD_TC, FWD_TC16, FWD_TC32), FWD_ALL),
+                            ((DQ_TC, DQ_TC16, DQ_TC32), DQ_ALL),
+                            ((DKV_TC, DKV_TC16, DKV_TC32), DKV_ALL)):
         n = sum(want[name] for name in names)
-        want[tc] = n if bf16 else 0
-        want[tc32] = 0 if bf16 else n
+        for dt, counter in zip(HALF_AND_FP32, counters):
+            want[counter] = n if dtype == dt else 0
+    fp16 = dtype == torch.float16
+    for counter, name in ((RAGGED16, RAGGED), (RAGGED8_16, RAGGED8),
+                          (DECODE16, DECODE)):
+        want[counter] = want[name] if fp16 else 0
     return want
 
 
@@ -561,8 +621,10 @@ def _sass_functions(lib):
 def check_sass(paths):
     """The design behind each flash entry and the FFN's tensor-core
     designs, from the built libraries' machine code: every instantiation
-    of the bf16 forward, dQ and dK/dV kernels (``flash_fwd_tc_kernel``,
-    ``flash_bwd_dq_tc_kernel``, ``flash_bwd_dkv_tc_kernel``), of the fp32
+    of the bf16 and fp16 forward, dQ and dK/dV kernels
+    (``flash_fwd_tc_kernel``, ``flash_bwd_dq_tc_kernel``,
+    ``flash_bwd_dkv_tc_kernel``; 32 each, 2 types x 8 flag combinations x
+    D 64 and 128), of the fp32
     split-TF32 forward, dQ and dK/dV (``flash_fwd_tc32_kernel``,
     ``flash_bwd_dq_tc32_kernel``, ``flash_bwd_dkv_tc32_kernel``; 16 each,
     8 flag combinations x D 64 and 128) and of the FFN's products
@@ -573,18 +635,18 @@ def check_sass(paths):
     ``flash_bwd_dkv_kernel``) are gone.  Returns {kernel: [instantiations,
     of them with HGMMA, with FFMA]}."""
     fwd, bwd = "flash_fwd_causal", "flash_bwd_causal"
-    # kernel: (library, tensor cores: True, gone: None)
-    wants = {"flash_fwd_tc_kernel": (fwd, True),
-             "flash_fwd_tc32_kernel": (fwd, True),
+    # kernel: (library, instantiations on the tensor cores, or None: gone)
+    wants = {"flash_fwd_tc_kernel": (fwd, 32),
+             "flash_fwd_tc32_kernel": (fwd, 16),
              "flash_fwd_causal_kernel": (fwd, None),
-             "flash_bwd_dq_tc_kernel": (bwd, True),
-             "flash_bwd_dq_tc32_kernel": (bwd, True),
+             "flash_bwd_dq_tc_kernel": (bwd, 32),
+             "flash_bwd_dq_tc32_kernel": (bwd, 16),
              "flash_bwd_dq_kernel": (bwd, None),
-             "flash_bwd_dkv_tc_kernel": (bwd, True),
-             "flash_bwd_dkv_tc32_kernel": (bwd, True),
+             "flash_bwd_dkv_tc_kernel": (bwd, 32),
+             "flash_bwd_dkv_tc32_kernel": (bwd, 16),
              "flash_bwd_dkv_kernel": (bwd, None),
-             "ffn_tc_kernel": (FFN_TC, True),
-             "ffn_tc32_kernel": (FFN_TC32, True)}
+             "ffn_tc_kernel": (FFN_TC, 16),
+             "ffn_tc32_kernel": (FFN_TC32, 16)}
     funcs = {src: _sass_functions(paths[src])
              for src in (fwd, bwd, FFN_TC, FFN_TC32)}
     counts = {}
@@ -596,7 +658,7 @@ def check_sass(paths):
         ffma = sum("FFMA" in body for body in found.values())
         counts[kernel] = [len(found), hgmma, ffma]
         ok = (not found) if tensor_cores is None else (
-            len(found) == 16 and hgmma == 16)
+            len(found) == tensor_cores and hgmma == tensor_cores)
         if not ok:
             fail(f"SASS of {kernel}: {len(found)} instantiations, {hgmma} "
                  f"with HGMMA, {ffma} with FFMA ({sorted(found)[:4]} ...)")
@@ -613,12 +675,16 @@ def short_name(mangled):
                   mangled)
     if not m:
         return mangled
-    # a substitution (S_, S0_, ...) can only repeat __nv_bfloat16: float
-    # is a builtin type and never substituted; a: int8_t (signed char)
-    args = [("bf16" if t[0] in "1S" else "f32" if t == "f"
-             else "i8" if t == "a" else t[2:-1])
-            for t in re.findall(r"13__nv_bfloat16|S\d*_|L[ib]\d+E|f|a",
-                                m.group(2))]
+    # a substitution (S_, S0_, ...) can only repeat a 16-bit type named
+    # before it (__nv_bfloat16 or __half): float is a builtin type and
+    # never substituted; a: int8_t (signed char)
+    args, named = [], "bf16"
+    for t in re.findall(r"13__nv_bfloat16|6__half|S\d*_|L[ib]\d+E|f|a",
+                        m.group(2)):
+        if t[0] in "16":
+            named = "bf16" if t[0] == "1" else "f16"
+        args.append(named if t[0] in "16S" else "f32" if t == "f"
+                    else "i8" if t == "a" else t[2:-1])
     return f"{m.group(1)}<{','.join(args)}>"
 
 
@@ -650,8 +716,8 @@ def check_flash(fa, tol, timer, s, h, d, dtype, seed, b=1):
                for _ in range(3))
     out = fa.flash_attention_arrays(q, k, v, is_causal=True)
     want = fa.mha_reference(q, k, v, is_causal=True)
-    limit = TOL_FP32 if dtype == torch.float32 else tol.bf16_limit(
-        out, want, tol.flash_fwd_magnitude(q, k, v), tol.FLASH_FWD_COEF)
+    limit = TOL_FP32 if dtype == torch.float32 else tol.flash_fwd_limit(
+        out, want, q, k, v)
     torch.cuda.synchronize()
     err, ratio = check_close(tol, out, want, limit,
                              f"flash S={s} H={h} D={d} {dtype}")
@@ -685,18 +751,17 @@ def check_flash_bwd(fa, tol, timer, b, s, h, d, dtype, seed):
     dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, scale)
     dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, scale)
     want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, scale)
-    mags = (tol.flash_bwd_magnitudes(q, k, v, out, lse, do, scale)
-            if dtype != torch.float32 else (None,) * 3)
+    limits = ([BWD_REL_FP32 * ref.abs().max().item() for ref in want]
+              if dtype == torch.float32 else tol.flash_bwd_limits(
+                  (dq, dk, dv), want, q, k, v, out, lse, do, scale))
     torch.cuda.synchronize()
     checks = {}
-    for name, got, ref, mag in zip(("dq", "dk", "dv"), (dq, dk, dv), want,
-                                   mags):
-        limit = (BWD_REL_FP32 * ref.abs().max().item() if mag is None
-                 else tol.bf16_limit(got, ref, mag, tol.BWD_COEF))
+    for name, got, ref, limit in zip(("dq", "dk", "dv"), (dq, dk, dv), want,
+                                     limits):
         checks[name] = check_close(
             tol, got, ref, limit,
             f"flash backward {name} B={b} S={s} H={h} D={d} {dtype}")
-    del mags
+    del limits
     ms_dq = timer(lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, scale))
     ms_dkv = timer(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, scale))
     plain_ms = timer(lambda: fa.flash_attention_bwd_reference(
@@ -768,6 +833,22 @@ def ragged_case(rows, c, nb, bs, h, d, dtype, seed):
     return (q, kn, vn, kb, vb, *idx), qlens, nbytes, flops
 
 
+def ragged_subnormal(rpa, args, kr, vr, mag, dtype):
+    """fp16: [B, C, H, D], the sum of |v| over each query's keys, which a
+    subnormal fp16 p of the plain version may weight (`tolerance`): the
+    mean of |v| (the reference with q = 0, `mag`'s pools after the write)
+    times the query's key count; None in bf16."""
+    if dtype != torch.float16:
+        return None
+    q, kn, vn, _, _, tables, pos0, lens, slots = args
+    mean, _, _ = rpa.ragged_paged_attention_reference(
+        torch.zeros_like(q, dtype=torch.float32), kn.float(),
+        vn.float().abs(), kr.float(), vr.float().abs(), tables, pos0, lens,
+        slots)
+    keys = pos0[:, None] + 1 + torch.arange(q.shape[1], device=q.device)
+    return mean * keys[:, :, None, None].float()
+
+
 def check_ragged(rpa, tol, timer, rows, c, dtype, seed, h=12, d=64):
     nb, bs = 512, 16                        # the GPT-2 engine's pool
     args, qlens, nbytes, flops = ragged_case(rows, c, nb, bs, h, d, dtype,
@@ -786,8 +867,9 @@ def check_ragged(rpa, tol, timer, rows, c, dtype, seed, h=12, d=64):
         m, _, _ = rpa.ragged_paged_attention_reference(
             q.float(), kn.float(), vn.float().abs(), kr.float(),
             vr.float().abs(), tables, pos0, lens, slots)
-        limits = [tol.bf16_limit(out[r, :n], want[r, :n], m[r, :n],
-                                 tol.FWD_COEF)
+        sub = ragged_subnormal(rpa, args, kr, vr, m, dtype)
+        limits = [tol.half_limit(out[r, :n], want[r, :n], m[r, :n], "fwd",
+                                 None if sub is None else sub[r, :n])
                   for r, n in enumerate(qlens)]
     checks = [check_close(tol, out[r, :n], want[r, :n], limits[r],
                           f"ragged C={c} {dtype} row {r}")
@@ -862,8 +944,7 @@ def check_ragged_int8(rpa, tol, timer, rows, c, dtype, seed, h=12, d=64):
         m = rpa.folded_quant_attention(q.float(), ref[0], ref[1].abs(),
                                        ref[2], ref[3], tables, pos0,
                                        d ** -0.5)
-        limits = [tol.bf16_limit(out[r, :n], want[r, :n], m[r, :n],
-                                 tol.FWD_COEF)
+        limits = [tol.half_limit(out[r, :n], want[r, :n], m[r, :n], "fwd")
                   for r, n in enumerate(qlens)]
     checks = [check_close(tol, out[r, :n], want[r, :n], limits[r],
                           f"{what} row {r}")
@@ -971,10 +1052,7 @@ def check_flash_masked(fa, tol, timer, kind, dtype, seed, b=8, s=896, h=12,
     want = fa.mha_reference(q, k, v, is_causal=True, mask=mask, kv_lens=lens)
     limit = TOL_FP32
     if dtype != torch.float32:
-        mag = fa.mha_reference(q.float(), k.float(), v.float().abs(),
-                               is_causal=True, mask=mask, kv_lens=lens)
-        limit = tol.bf16_limit(out, want, mag, tol.FLASH_FWD_COEF)
-        del mag
+        limit = tol.flash_fwd_limit(out, want, q, k, v, True, mask, lens)
     torch.cuda.synchronize()
     err, ratio = check_close(tol, out, want, limit,
                              f"masked flash {kind} B={b} S={s} {dtype}")
@@ -1138,8 +1216,8 @@ def check_flash_variant(fa, tol, timer, kind, b, s, h, d, dtype, seed,
     want = fa.mha_reference(q, k, v, m4, causal, scale, lens, sid)
     limit = TOL_FP32
     if dtype != torch.float32:
-        limit = tol.bf16_limit(out, want, tol.flash_fwd_magnitude(
-            q, k, v, causal, m4, lens, sid), tol.FLASH_FWD_COEF)
+        limit = tol.flash_fwd_limit(out, want, q, k, v, causal, m4, lens,
+                                    sid)
     torch.cuda.synchronize()
     what = f"flash {name} {kind} B={b} S={s} H={h} D={d} {dtype}"
     fwd_check = check_close(tol, out, want, limit, what)
@@ -1187,18 +1265,17 @@ def check_flash_variant(fa, tol, timer, kind, b, s, h, d, dtype, seed,
     ref = fa.flash_attention_bwd_reference(
         q, k, v, out, stat, do, scale, is_causal=causal, mask=m4,
         kv_lens=lens, segment_ids=sid, row_max=row_max)
-    mags = (tol.flash_bwd_magnitudes(q, k, v, out, stat, do, scale,
-                                     row_max=row_max, **br)
-            if dtype != torch.float32 else (None,) * 3)
+    limits = ([BWD_REL_FP32 * r.abs().max().item() for r in ref]
+              if dtype == torch.float32 else tol.flash_bwd_limits(
+                  (dq, dk, dv), ref, q, k, v, out, stat, do, scale,
+                  row_max=row_max, **br))
     torch.cuda.synchronize()
     checks = {}
-    for which, got, r, mag in zip(("dq", "dk", "dv"), (dq, dk, dv), ref,
-                                  mags):
-        limit = (BWD_REL_FP32 * r.abs().max().item() if mag is None
-                 else tol.bf16_limit(got, r, mag, tol.BWD_COEF))
+    for which, got, r, limit in zip(("dq", "dk", "dv"), (dq, dk, dv), ref,
+                                    limits):
         checks[which] = check_close(tol, got, r, limit,
                                     f"backward {which} {what}")
-    del ref, mags
+    del ref, limits
     ms_dq = timer(lambda: fa.flash_bwd_dq(q, k, v, do, stat, delta, scale,
                                           row_max=row_max, **br))
     ms_dkv = timer(lambda: fa.flash_bwd_dkv(q, k, v, do, stat, delta, scale,
@@ -1548,7 +1625,7 @@ def serve(model, prompts, device, dtype, ops=None, kv_cache_dtype=None):
     return outs, eng, launches, stats
 
 
-def serve_turns(model, prompts, dtype, ops, kv_cache_dtype, what, bf16):
+def serve_turns(model, prompts, dtype, ops, kv_cache_dtype, what):
     """The engine's bf16 run eager and captured on the card: identical
     tokens, each the expected launches (replays counted), one capture in
     the captured run and none in the eager one.  Returns the captured
@@ -1559,7 +1636,7 @@ def serve_turns(model, prompts, dtype, ops, kv_cache_dtype, what, bf16):
             runs[turn] = serve(model, prompts, "cuda", dtype, ops,
                                kv_cache_dtype)
         check_launches(runs[turn][1], runs[turn][2], f"{what} ({turn})",
-                       bf16=bf16, captured=turn == "captured")
+                       dtype=dtype, captured=turn == "captured")
     for i, (a, b) in enumerate(zip(runs["eager"][0], runs["captured"][0])):
         if not np.array_equal(a, b):
             first = int(np.nonzero(a != b)[0][0]) if a.shape == b.shape \
@@ -1668,18 +1745,14 @@ def profile_turns(profile, what, card):
     return turns
 
 
-def check_launches(eng, launches, what, bf16=False, captured=True):
+def check_launches(eng, launches, what, dtype=torch.float32, captured=True):
     """One flash prefill per layer and prefill step (in bf16 the
     tensor-core kernel), one ragged launch per layer and decode or chunk
     step, of the int8 entry for int8 pools and of the fp one otherwise;
     nothing else.  The decode steps ran as one captured graph (its
     replays counted) where ``captured``, eagerly otherwise."""
-    layers = eng.cfg.num_hidden_layers
-    ragged = layers * (eng.step_counts["decode"] + eng.step_counts["chunk"])
-    want = dict.fromkeys(KERNELS, 0)
-    want[FWD] = layers * eng.step_counts["prefill"]
-    want[RAGGED8 if eng.kv_quant else RAGGED] = ragged
-    with_tc(want, bf16)
+    want = engine_launches(eng, dtype)
+    ragged = want[RAGGED8 if eng.kv_quant else RAGGED]
     if launches != want or not (want[FWD] and ragged):
         fail(f"{what}: launches {launches}, expected {want} "
              f"({eng.step_counts})")
@@ -1722,7 +1795,7 @@ def ffn_counter(rows, cfg, dtype):
 
 
 def check_gen_launches(launches, mode, cfg, batch, steps, what, padded=False,
-                       bf16=False, prompt=None):
+                       dtype=torch.float32, prompt=None):
     """One flash prefill per layer (the masked branch for padded prompts;
     in bf16 the tensor-core kernel); per decode step and layer the decode
     kernel (default) or the fused layer, LN and FFN (fused; the FFN's
@@ -1733,7 +1806,6 @@ def check_gen_launches(launches, mode, cfg, batch, steps, what, padded=False,
     batch row, then each step) two LayerNorms a layer and ``ln_f`` and
     the FFN of each layer, the FFN on the design its rows take."""
     layers = cfg.num_hidden_layers
-    dtype = torch.bfloat16 if bf16 else torch.float32
     want = dict.fromkeys(KERNELS, 0)
     want[FWD_MASK if padded else FWD] = layers
     ffn = ffn_counter(batch, cfg, dtype)
@@ -1745,7 +1817,7 @@ def check_gen_launches(launches, mode, cfg, batch, steps, what, padded=False,
         want[LN] = (2 * layers + 1) * (steps + 1)
         want[ffn] += layers * steps
         want[ffn_counter(batch * prompt, cfg, dtype)] += layers
-    with_tc(want, bf16)
+    with_tc(want, dtype)
     if launches != want:
         fail(f"{what}: launches {launches}, expected {want}")
     return want
@@ -1951,7 +2023,8 @@ def generate_bf16(ops, cfg, cfg_pl, card, batch=8, prompt=896, new=128):
                     total_s = time.perf_counter() - t0
                     launches = ops.launch_counts()
                 check_gen_launches(launches, mode, cfg, batch, new - 1,
-                                   f"{what} {turn}", padded, bf16=True,
+                                   f"{what} {turn}", padded,
+                                   dtype=torch.bfloat16,
                                    prompt=prompt)
                 if out.shape != (batch, prompt + new):
                     fail(f"{what}: output {tuple(out.shape)}")
@@ -2032,7 +2105,8 @@ def make_step(model, lr=TRAIN_LR, recipe=None):
     (1.0), parameters named) under LinearWarmup(CosineAnnealingDecay(lr,
     steps - RECIPE_WARMUP, eta_min=lr / 10), RECIPE_WARMUP, 0, lr), the
     schedule stepped after each step; with ``amp`` the forward runs under
-    ``auto_cast(level=amp, dtype="bfloat16")`` and the loss through a
+    ``auto_cast(level=amp, dtype=amp_dtype)`` (``amp_dtype`` "bfloat16"
+    unless the recipe names "float16") and the loss through a
     GradScaler(init_loss_scaling=2**15): ``step.scales`` gets the scale
     after each step and ``step.skipped`` each skipped step's index."""
     from paddle_tpu_torch import amp
@@ -2058,7 +2132,8 @@ def make_step(model, lr=TRAIN_LR, recipe=None):
             loss = model.pretrain_loss(*batch)
             loss.backward()
         else:
-            with amp.auto_cast(level=recipe["amp"], dtype="bfloat16"):
+            with amp.auto_cast(level=recipe["amp"],
+                               dtype=recipe.get("amp_dtype", "bfloat16")):
                 loss = model.pretrain_loss(*batch)
             scaler.scale(loss).backward()
         if grads is not None:
@@ -2081,7 +2156,8 @@ def make_step(model, lr=TRAIN_LR, recipe=None):
     return step, opt
 
 
-def train_launches(cfg, steps, env, packed=False, bf16=False, rows=1024):
+def train_launches(cfg, steps, env, packed=False, dtype=torch.float32,
+                   rows=1024):
     """Expected launches of `steps` training steps of ``rows`` tokens under
     the flags `env`: each flash kernel once per layer (its segment variant
     on packed rows; in bf16 all three are the tensor-core kernels, so 12
@@ -2103,9 +2179,8 @@ def train_launches(cfg, steps, env, packed=False, bf16=False, rows=1024):
         per_step = 1 if cfg.stacked_blocks else 2 * layers + 1
         want[LN] = want[LN_BWD] = per_step * steps
     if env.get("PTPU_PALLAS_FFN") == "1" and not cfg.stacked_blocks:
-        dtype = torch.bfloat16 if bf16 else torch.float32
         want[ffn_counter(rows, cfg, dtype)] = layers * steps
-    return with_tc(want, bf16)
+    return with_tc(want, dtype)
 
 
 def check_train_launches(launches, want, what):
@@ -2178,8 +2253,9 @@ def train_bf16(ops, cfg, env, batch=8, seq=1024, warmup=2, timed=10,
     """The full-size bf16 run under the flags `env`, on random rows or
     (``packed``) rows of packed documents: bf16 weights with fp32 masters,
     or ``dtype`` weights and the optimizer of ``recipe`` (`make_step`;
-    with its ``amp``, O1's bf16 compute over fp32 weights); returns its
-    record and the launches of all its steps."""
+    with its ``amp``, O1's compute in its ``amp_dtype``, bf16 unless
+    named, over fp32 weights; O2 after `amp.decorate` to that type, fp32
+    masters); returns its record and the launches of all its steps."""
     from paddle_tpu_torch.models import GPTForCausalLM
     if packed:
         data = [t.cuda() for t in packed_batch(cfg.vocab_size, batch, seq)]
@@ -2190,8 +2266,16 @@ def train_bf16(ops, cfg, env, batch=8, seq=1024, warmup=2, timed=10,
                 for _ in range(2)]
     model = GPTForCausalLM(cfg, device="cuda", dtype=dtype,
                            generator=torch.Generator().manual_seed(0))
+    half = dtype                    # the type the flash kernels run in
     if recipe is not None:
         recipe = dict(recipe, steps=warmup + timed)
+        if recipe.get("amp"):
+            from paddle_tpu_torch import amp
+            half = {"bfloat16": torch.bfloat16, "float16": torch.float16}[
+                recipe.get("amp_dtype", "bfloat16")]
+            if recipe["amp"] == "O2":
+                amp.decorate(model, level="O2", dtype=half)
+                dtype = half
     step, opt = make_step(model, lr, recipe)   # fp32 masters of bf16
     with flag_env(env):
         ops.reset_launch_counts()
@@ -2208,13 +2292,13 @@ def train_bf16(ops, cfg, env, batch=8, seq=1024, warmup=2, timed=10,
     losses = [x.item() for x in losses]
     check_train_launches(launches,
                          train_launches(cfg, warmup + timed, env, packed,
-                                        bf16=True, rows=batch * seq),
-                         "bfloat16 training")
+                                        dtype=half, rows=batch * seq),
+                         f"{half} training")
     if not all(np.isfinite(losses)):
         fail(f"bfloat16 training: non-finite loss {losses}")
     if not losses[-1] < losses[0]:
         fail(f"bfloat16 training: loss did not fall, {losses}")
-    masters = (dtype == torch.bfloat16
+    masters = (dtype in (torch.bfloat16, torch.float16)
                and opt._multi_precision) * len(list(model.parameters()))
     if not all(p.dtype == dtype for p in model.parameters()) or \
             len(opt._master_weights) != masters:
@@ -2308,7 +2392,7 @@ def entry_autograd_card_vs_cpu(ops, b=8, s=896, h=12, d=64):
     want = dict.fromkeys(KERNELS, 0)
     want.update({FWD_NC: 1, DQ_NC: 1, DKV_NC: 1, FWD_MASK: 2, DQ_MASK: 2,
                  DKV_MASK: 2})
-    with_tc(want, False)
+    with_tc(want, torch.float32)
     if launches != want:
         fail(f"entry-point autograd: launches {launches}, expected {want}")
     rec = {"batch": f"B={b} S={s} H={h} D={d}", "launches": launches}
@@ -2541,7 +2625,8 @@ def train_1p3b(ops, warmup=2, timed=5, batch=2, seq=2048):
             split = step_memory(model, opt, data)
         losses = [x.item() for x in losses]
         check_train_launches(launches, train_launches(
-            model.cfg, warmup + timed, env, bf16=True, rows=batch * seq),
+            model.cfg, warmup + timed, env, dtype=torch.bfloat16,
+            rows=batch * seq),
             f"GPT-3 1.3B training, recompute={rc}")
         if not all(np.isfinite(losses)) or opt._master_weights:
             fail(f"GPT-3 1.3B training, recompute={rc}: losses {losses}, "
@@ -2605,7 +2690,7 @@ def step_launches(log):
     return out
 
 
-def forward_launches(cfg, env, bf16, rows):
+def forward_launches(cfg, env, dtype, rows):
     """One forward of the per-layer model of ``rows`` tokens under the
     flags `env`: a flash forward a layer, 2L+1 LayerNorm forwards and an
     FFN a layer (the design its rows take)."""
@@ -2615,9 +2700,8 @@ def forward_launches(cfg, env, bf16, rows):
     if env.get("PTPU_PALLAS_LN") == "1":
         want[LN] = 2 * layers + 1
     if env.get("PTPU_PALLAS_FFN") == "1":
-        dtype = torch.bfloat16 if bf16 else torch.float32
         want[ffn_counter(rows, cfg, dtype)] = layers
-    return with_tc(want, bf16)
+    return with_tc(want, dtype)
 
 
 def fit_model(cfg, device, dtype, lr=TRAIN_LR):
@@ -2812,12 +2896,12 @@ def fit_phase(ops, cfg, card):
     if len(losses) != FIT_STEPS or not all(np.isfinite(losses)) \
             or not losses[-1] < losses[0]:
         fail(f"bfloat16 fit: losses {losses} (finite and falling expected)")
-    want = train_launches(cfg, 1, env, bf16=True, rows=8 * 1024)
+    want = train_launches(cfg, 1, env, dtype=torch.bfloat16, rows=8 * 1024)
     per_step = step_launches(log)
     for i, got in enumerate(per_step):
         check_train_launches(got, want, f"bfloat16 fit, step {i + 1}")
     eval_want = {k: FIT_EVAL * n for k, n in
-                 forward_launches(cfg, env, True, 8 * 1024).items()}
+                 forward_launches(cfg, env, torch.bfloat16, 8 * 1024).items()}
     eval_got = {k: launches[k] - log.launches[-1][k] for k in launches}
     check_train_launches(eval_got, eval_want, "bfloat16 fit's evaluation")
     if files != ["final.pdopt", "final.pdparams", "probe.pdopt",
@@ -3204,6 +3288,317 @@ def serving_phase(ops, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 12: float16
+# ---------------------------------------------------------------------------
+
+# the largest gap allowed between the fp32 model's top logit and its
+# logit of a token the fp16 model chose (teacher forcing;
+# `near_argmax_gap`), by pool type: about four times this phase's largest
+# reading (NVIDIA H100 80GB HBM3, 700.00 W): 0.0002 on fp16 pools and
+# 0.0000 in `generate` -> 2^-10; 0.0058 on int8 pools, whose codes round K
+# and V to 2^-8 of a row's largest |value| (fp16: 2^-11 of each) ->
+# 3 * 2^-7
+NEAR_ARGMAX = {"fp16": 2.0 ** -10, "int8": 3 * 2.0 ** -7}
+FP16_SEEDED_LENS = (100, 300)
+# the requests held against the CPU engine: greedy prompt lengths, seeded
+# prompt lengths, new tokens (the CPU's fp16 GEMMs are slow)
+FP16_CPU_REQUESTS = ((7, 24), (16,), 8)
+FP16_GEN = dict(batch=8, prompt=256, new=32)
+
+
+def fp16_kernel_cases(fa, fd, rpa, tol, timer, cases, kernel_segs):
+    """Phase 12a: every fp16 kernel against its fp16 plain version at the
+    limits of `tolerance` (fp16), at the shapes of the main path: the
+    forward at S=384, at the training shape and at H=16 D=128; dQ and
+    dK/dV at the training shape; the masked forward (pad, kv_lens) at
+    the padded prefill's shape; the segment and non-causal variants,
+    forward and backward, at the training shape and the padded one; the
+    ragged kernel at the decode step, the verify step (8, 5) and a chunk
+    of 512 on fp16 pools, and on int8 pools with fp16 q at the decode
+    step and C=512; flash decode at full context (H=12 D=64, H=16 D=128).
+    The cases go into ``cases`` under the fp16 counters (`FWD_TC16`, ...)
+    or, for the flash variants, the variant's own."""
+    f16 = torch.float16
+    cases[FWD_TC16].append(check_flash(fa, tol, timer, 384, 12, 64, f16,
+                                       seed=384))
+    cases[FWD_TC16].append(check_flash(fa, tol, timer, 1024, 12, 64, f16,
+                                       seed=4, b=8))    # training shape
+    cases[FWD_TC16].append(check_flash(fa, tol, timer, 512, 16, 128, f16,
+                                       seed=1))
+    for name, c in check_flash_bwd(fa, tol, timer, 8, 1024, 12, 64, f16,
+                                   seed=1088).items():
+        cases[{DQ: DQ_TC16, DKV: DKV_TC16}[name]].append(c)
+    torch.cuda.empty_cache()
+    for kind in ("pad", "lens"):
+        cases[FWD_MASK].append(check_flash_masked(fa, tol, timer, kind, f16,
+                                                  seed=7))
+        torch.cuda.empty_cache()
+    for kind, b, s, fwd, bwd in (("segs", 8, 1024, True, True),
+                                 ("nc", 8, 1024, True, False),
+                                 ("pad", 8, 896, False, True),
+                                 ("lens", 8, 896, False, True),
+                                 ("nc", 8, 896, True, True)):
+        for name, c in check_flash_variant(
+                fa, tol, timer, kind, b, s, 12, 64, f16, seed=s + b,
+                segs=kernel_segs if kind == "segs" else None, fwd=fwd,
+                bwd=bwd).items():
+            cases[name].append(c)
+        torch.cuda.empty_cache()
+    cases[RAGGED16].append(check_ragged(rpa, tol, timer, DECODE_ROWS, 1, f16,
+                                        seed=2))
+    cases[RAGGED16].append(check_ragged(rpa, tol, timer, VERIFY_ROWS,
+                                        SPEC_K + 1, f16, seed=8))
+    cases[RAGGED16].append(check_ragged(rpa, tol, timer, [(700, 512)], 512,
+                                        f16, seed=3))
+    cases[RAGGED8_16].append(check_ragged_int8(rpa, tol, timer, DECODE_ROWS,
+                                               1, f16, seed=2))
+    cases[RAGGED8_16].append(check_ragged_int8(rpa, tol, timer, [(700, 512)],
+                                               512, f16, seed=3))
+    cases[DECODE16].append(check_decode(fd, tol, timer, 8, 1024, 12, 64,
+                                        1024, f16, 1024))
+    cases[DECODE16].append(check_decode(fd, tol, timer, 8, 1024, 16, 128,
+                                        1024, f16, 5))
+    torch.cuda.empty_cache()
+
+
+def near_argmax_gap(model, outs, prompts):
+    """The largest gap, over every generated token of ``outs`` (greedy
+    sequences after ``prompts``), between ``model``'s largest logit and its
+    logit of the token chosen, teacher-forced on the whole sequence (one
+    forward a sequence, on the model's device)."""
+    gap = 0.0
+    dev = next(model.parameters()).device
+    with torch.no_grad():
+        for out, p in zip(outs, prompts):
+            ids = torch.as_tensor(np.asarray(out, np.int64))[None].to(dev)
+            logits = model(ids)[0, len(p) - 1:-1].float()
+            tok = ids[0, len(p):]
+            g = logits.max(-1).values - logits.gather(-1, tok[:, None])[:, 0]
+            gap = max(gap, float(g.max()))
+    return gap
+
+
+def engine_launches(eng, dtype):
+    """The launches of an engine's run: one flash prefill per layer and
+    prefill step, one ragged launch per layer and decode or chunk step (of
+    the int8 entry for int8 pools), counted by type (`with_tc`)."""
+    layers = eng.cfg.num_hidden_layers
+    want = dict.fromkeys(KERNELS, 0)
+    want[FWD] = layers * eng.step_counts["prefill"]
+    want[RAGGED8 if eng.kv_quant else RAGGED] = layers * (
+        eng.step_counts["decode"] + eng.step_counts["chunk"])
+    return with_tc(want, dtype)
+
+
+def cpu_differences(ref32, card, cpu, prompts, params, limit, what):
+    """The card engine's rows ``card`` against the CPU engine's ``cpu``:
+    each identical, except at most one greedy row whose first difference
+    j is a near-tie: the card's and the CPU's token at j both within
+    ``limit`` of ``ref32``'s top logit on the common prefix.  Returns
+    [(row, j, the two gaps)] of the rows that differ."""
+    dev = next(ref32.parameters()).device
+    differ = []
+    for i, (a, b, p, sp) in enumerate(zip(card, cpu, prompts, params)):
+        a, b = np.asarray(a), np.asarray(b)
+        if a.shape == b.shape and np.array_equal(a, b):
+            continue
+        if a.shape != b.shape or sp.do_sample:
+            fail(f"{what}: row {i} ({'seeded' if sp.do_sample else 'greedy'}"
+                 f") differs from the CPU engine's")
+        j = int(np.nonzero(a != b)[0][0])
+        with torch.no_grad():
+            logits = ref32(torch.as_tensor(a[None, :j].astype(np.int64))
+                           .to(dev))[0, -1].float()
+        gaps = [float(logits.max() - logits[int(t)]) for t in (a[j], b[j])]
+        if j < len(p) or max(gaps) > limit:
+            fail(f"{what}: row {i} parts from the CPU engine's at {j}, "
+                 f"tokens {a[j]} / {b[j]} {gaps} below the fp32 model's "
+                 f"top logit (limit {limit})")
+        differ.append((i, j, gaps))
+    if len(differ) > 1:
+        fail(f"{what}: {len(differ)} rows differ from the CPU engine's "
+             f"({differ})")
+    return differ
+
+
+def fp16_engine(ops, model16, ref32, requests, cpu_requests, kv, card):
+    """Phase 12b on one pool type (``kv``: None or "int8"): the fp16
+    engine's run of ``requests`` (prompts, params) eager and captured
+    (identical tokens, the expected launches, one ``ragged`` capture),
+    the teacher-forced gap of its greedy tokens under ``ref32`` (the same
+    weights in fp32, on the card); then ``cpu_requests`` on the card and
+    on the CPU (plain versions; the host's fp16 GEMMs are far slower than
+    its fp32 ones, so these are short) and the share of generated tokens
+    that agree, held by `cpu_differences`."""
+    f16 = torch.float16
+    limit = NEAR_ARGMAX[kv or "fp16"]
+    prompts, params = requests
+    runs = {}
+    for turn in ("eager", "captured"):
+        with graphs_env(turn == "captured"):
+            eng = engine11(model16, "cuda", f16, kv_cache_dtype=kv)
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            outs = eng.generate(prompts, params)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = ops.launch_counts()
+        what = f"float16 engine, {kv or 'fp16'} pools ({turn})"
+        want = engine_launches(eng, f16)
+        if launches != want or not want[RAGGED8_16 if kv else RAGGED16]:
+            fail(f"{what}: launches {launches}, expected {want} "
+                 f"({eng.step_counts})")
+        if eng.compiles != ({"ragged": 1} if turn == "captured" else {}):
+            fail(f"{what}: captures {eng.compiles}")
+        runs[turn] = (outs, launches, secs, dict(eng.step_counts))
+    same_tokens(runs["eager"][0], runs["captured"][0],
+                f"float16 engine, {kv or 'fp16'} pools, captured vs eager")
+    outs, launches, secs, steps = runs["captured"]
+    greedy = [i for i, sp in enumerate(params) if not sp.do_sample]
+    gap = near_argmax_gap(ref32, [outs[i] for i in greedy],
+                          [prompts[i] for i in greedy])
+    short, short_params = cpu_requests
+    on_card = engine11(model16, "cuda", f16, kv_cache_dtype=kv).generate(
+        short, short_params)
+    t0 = time.perf_counter()
+    cpu = engine11(model16, "cpu", f16, kv_cache_dtype=kv).generate(
+        short, short_params)
+    cpu_s = time.perf_counter() - t0
+    rec = {"pools": kv or "fp16", "card_s": secs, "eager_s": runs["eager"][2],
+           "cpu_s": cpu_s, "steps": steps, "launches": launches,
+           "agreement_with_cpu": agreement(on_card, cpu, short),
+           "cpu_differences": cpu_differences(
+               ref32, on_card, cpu, short, short_params, limit,
+               f"float16 engine, {kv or 'fp16'} pools, card vs CPU"),
+           "near_argmax_gap": gap}
+    print(f"engine float16 GPT-2 124M (O2), {rec['pools']} pools, "
+          f"{len(greedy)} greedy and {len(prompts) - len(greedy)} seeded "
+          f"requests, {NEW_TOKENS} new: captured tokens identical to the "
+          f"eager run; the fp32 model's top logit over the card's greedy "
+          f"token at most {gap:.6f} (limit {limit}); against the CPU "
+          f"engine (plain versions, prompts {[len(p) for p in short]}) "
+          f"{rec['agreement_with_cpu']:.4f} of the tokens agree, rows "
+          f"parting at a near-tie {rec['cpu_differences']} (CPU "
+          f"{cpu_s:.1f} s); launches "
+          f"{ {k: n for k, n in launches.items() if n} }; card "
+          f"{secs:.2f} s captured, {runs['eager'][2]:.2f} s eager ({card})",
+          flush=True)
+    if not gap <= limit:
+        fail(f"float16 engine, {rec['pools']} pools: a greedy token "
+             f"{gap:.6f} below the fp32 model's top logit")
+    return rec
+
+
+def fp16_generate(ops, cfg, ref32, card):
+    """Phase 12c: default-mode ``generate`` of the O2-fp16 stacked GPT-2
+    124M, B=8, 256 + 32 greedy, captured and eager (identical tokens),
+    the decode kernel's fp16 launches (12 a step, replays counted), and
+    the card's tokens teacher-forced under ``ref32`` (fp32, the card)."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import GPTForCausalLM
+    b, p, new = FP16_GEN["batch"], FP16_GEN["prompt"], FP16_GEN["new"]
+    rng = np.random.RandomState(12)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (b, p))
+                           .astype(np.int32)).cuda()
+    model = amp.decorate(GPTForCausalLM(
+        cfg, device="cuda", generator=torch.Generator().manual_seed(0)),
+        level="O2", dtype="float16")
+    with flag_env({}):
+        model.generate(ids, max_new_tokens=3)          # warm-up, capture
+        outs, launches = {}, {}
+        for turn in ("eager", "captured"):
+            with graphs_env(turn == "captured"):
+                ops.reset_launch_counts()
+                outs[turn] = model.generate(ids, max_new_tokens=new).cpu()
+                torch.cuda.synchronize()
+                launches[turn] = ops.launch_counts()
+            check_gen_launches(launches[turn], "default", cfg, b, new - 1,
+                               f"float16 generate ({turn})",
+                               dtype=torch.float16, prompt=p)
+    if not torch.equal(outs["eager"], outs["captured"]):
+        fail("float16 generate: captured tokens differ from the eager run")
+    if _captures(model).get("decode") != 1:
+        fail(f"float16 generate: captures {_captures(model)}")
+    gap = near_argmax_gap(ref32, list(outs["captured"].numpy()),
+                          list(ids.cpu().numpy()))
+    print(f"generate float16 GPT-2 124M (O2) B={b} {p}+{new}, default "
+          f"mode: captured tokens identical to the eager run, one capture; "
+          f"the fp32 model's top logit over the card's token at most "
+          f"{gap:.6f} "
+          f"(limit {NEAR_ARGMAX['fp16']}); launches "
+          f"{ {k: n for k, n in launches['captured'].items() if n} } "
+          f"({card})", flush=True)
+    if not gap <= NEAR_ARGMAX["fp16"]:
+        fail(f"float16 generate: a token {gap:.6f} below the fp32 model's "
+             f"top logit")
+    del model
+    torch.cuda.empty_cache()
+    return {"batch": f"B={b} prompt={p} new={new}", "near_argmax_gap": gap,
+            "launches": launches["captured"]}, launches["captured"]
+
+
+def fp16_phase(ops, card):
+    """Phase 12b-d (module docstring): the fp16 engine on fp16 and int8
+    pools, fp16 ``generate`` and configuration A's recipe under fp16 O1
+    and O2.  Returns the record and the launches of the phase's runs by
+    name (``engine``, ``engine_int8``, ``generate``, ``O1``, ``O2``)."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt2_124m_config
+    from paddle_tpu_torch.serving import SamplingParams
+    cfg = gpt2_124m_config(stacked_blocks=True)
+    model16 = amp.decorate(GPTForCausalLM(
+        cfg, device="cpu", generator=torch.Generator().manual_seed(0)),
+        level="O2", dtype="float16")
+    rng = np.random.RandomState(0)
+
+    def requests(greedy, seeded, new):
+        prompts = [rng.randint(0, cfg.vocab_size, (n,)).astype(np.int32)
+                   for n in greedy + seeded]
+        return prompts, (
+            [SamplingParams(max_new_tokens=new)] * len(greedy)
+            + [SamplingParams(max_new_tokens=new, seed=7 + i,
+                              **SERVE_SAMPLE) for i in range(len(seeded))])
+
+    card_requests = requests(PROMPT_LENS, FP16_SEEDED_LENS, NEW_TOKENS)
+    cpu_requests = requests(*FP16_CPU_REQUESTS)
+    ref32 = GPTForCausalLM(cfg, device="cuda",
+                           generator=torch.Generator().manual_seed(0))
+    rec, launches, secs = {}, {}, {}
+    for kv, key in ((None, "engine"), ("int8", "engine_int8")):
+        t0 = time.perf_counter()
+        rec[key] = fp16_engine(ops, model16, ref32, card_requests,
+                               cpu_requests, kv, card)
+        launches[key] = rec[key]["launches"]
+        secs[key] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rec["generate"], launches["generate"] = fp16_generate(ops, cfg, ref32,
+                                                          card)
+    secs["generate"] = time.perf_counter() - t0
+    del model16, ref32
+    torch.cuda.empty_cache()
+    cfg_a = gpt2_124m_config(**DROPOUT)        # per-layer, configuration A
+    for level in ("O1", "O2"):
+        t0 = time.perf_counter()
+        r, launches[level] = train_bf16(
+            ops, cfg_a, {}, warmup=2, timed=6, dtype=torch.float32,
+            recipe={"amp": level, "amp_dtype": "float16"}, lr=RECIPE_LR)
+        rec[f"recipe_A_{level}"] = r
+        print_train(f"per-layer, configuration A under {level} "
+                    f"(GradScaler, dropout 0.1, recipe; no LN / FFN flags)",
+                    r, launches[level], card, "float16")
+        print(f"recipe A fp16 {level}: loss scale {r['scales'][0]:.0f} -> "
+              f"{r['scales'][-1]:.0f}, skipped steps {r['skipped_steps']}",
+              flush=True)
+        torch.cuda.empty_cache()
+        secs[level] = time.perf_counter() - t0
+    rec["seconds"] = secs
+    print("fp16 phase seconds: " + ", ".join(f"{k} {v:.1f}"
+                                             for k, v in secs.items()),
+          flush=True)
+    return rec, launches
+
+
+# ---------------------------------------------------------------------------
 
 def print_cases(cases):
     for name, rows in cases.items():
@@ -3244,16 +3639,16 @@ def print_cases(cases):
                   f"{bound}){rate}{lib}", flush=True)
 
 
-def print_train(label, rec, launches, card):
+def print_train(label, rec, launches, card, dtype="bfloat16"):
     p = rec["profile"]
-    print(f"train bfloat16 GPT-2 124M {label} {rec['batch']}: "
+    print(f"train {dtype} GPT-2 124M {label} {rec['batch']}: "
           f"{rec['tokens_per_s']:.1f} tokens/s, {rec['ms_per_step']:.3f} "
           f"ms per step over {rec['timed_steps']} steps ({card}); losses "
           f"{rec['losses'][0]:.4f} -> {rec['losses'][-1]:.4f}; peak "
           f"memory {rec['peak_memory_gb']:.2f} GB; launches {launches}",
           flush=True)
     if p["device_ms"] > 0:
-        print(f"train profile bfloat16 {label}: one step {p['wall_ms']:.3f} "
+        print(f"train profile {dtype} {label}: one step {p['wall_ms']:.3f} "
               f"ms ({p['profiled_wall_ms']:.3f} under the profiler), device "
               f"{p['device_ms']:.3f} ms, busy {p['device_busy_share']:.3f}, "
               f"{p['device_ops']:.0f} device ops; by group (ms) "
@@ -3262,7 +3657,7 @@ def print_train(label, rec, launches, card):
                   f"{t['name'][:40]} {t['ms_per_step']:.3f} ms"
                   for t in p["top"][:8]), flush=True)
     else:
-        print(f"train profile bfloat16 {label}: the profiler recorded no "
+        print(f"train profile {dtype} {label}: the profiler recorded no "
               f"device time (not measured)", flush=True)
 
 
@@ -3280,11 +3675,14 @@ def main():
     from paddle_tpu_torch.ops import tolerance as tol
     wrappers = {FWD: fa, FWD_MASK: fa.masked, FWD_SEGS: fa.segs,
                 FWD_NC: fa.noncausal, FWD_TC: fa.tc, FWD_TC32: fa.tc32,
+                FWD_TC16: fa.tc16,
                 DQ: fa.flash_bwd_dq, DQ_TC: fa.flash_bwd_dq.tc,
-                DQ_TC32: fa.flash_bwd_dq.tc32,
+                DQ_TC32: fa.flash_bwd_dq.tc32, DQ_TC16: fa.flash_bwd_dq.tc16,
                 DKV: fa.flash_bwd_dkv, DKV_TC: fa.flash_bwd_dkv.tc,
                 DKV_TC32: fa.flash_bwd_dkv.tc32,
-                RAGGED: rpa, RAGGED8: rpa.int8,
+                DKV_TC16: fa.flash_bwd_dkv.tc16,
+                RAGGED: rpa, RAGGED8: rpa.int8, RAGGED16: rpa.fp16,
+                RAGGED8_16: rpa.int8_fp16, DECODE16: fd.fp16,
                 DECODE: fd, FUSED: fdl, LN: fm.ln_fwd, LN_BWD: fm.ln_bwd,
                 FFN: fm.ffn_fwd, FFN_TC: fm.ffn_tc, FFN_TC32: fm.ffn_tc32,
                 FFN_DEC: fm.ffn_decode}
@@ -3494,7 +3892,7 @@ def main():
           f"(replays counted); steps {eng32.step_counts}", flush=True)
     serve(model, prompts[:2], "cuda", torch.bfloat16)          # warm-up
     (gpu16, eng16, launches16, st16), st16_eager = serve_turns(
-        model, prompts, torch.bfloat16, ops, None, "bfloat16 engine", True)
+        model, prompts, torch.bfloat16, ops, None, "bfloat16 engine")
     agree, first_diff = 0, []
     for p, a, b in zip(prompts, gpu32, gpu16):
         ga, gb = a[len(p):], b[len(p):]
@@ -3543,8 +3941,7 @@ def main():
                  f"the CPU run at position {first}")
     serve(model, prompts[:2], "cuda", torch.bfloat16, None, "int8")  # warm-up
     (gpu8b, eng8b, launches8b, st8b), st8b_eager = serve_turns(
-        model, prompts, torch.bfloat16, ops, "int8", "int8 bfloat16 engine",
-        True)
+        model, prompts, torch.bfloat16, ops, "int8", "int8 bfloat16 engine")
     gen = NEW_TOKENS * len(prompts)
     int8 = {
         "num_blocks": {"float32": eng8.cache.num_blocks,
@@ -3824,12 +4221,21 @@ def main():
     result["serving"], launches_serving = serving_phase(ops, card)
     mark("11 serving completeness")
 
+    # -- 12. float16 ----------------------------------------------------------
+    n_before = {name: len(c) for name, c in cases.items()}
+    fp16_kernel_cases(fa, fd, rpa, tol, timer, cases, kernel_segs)
+    print_cases({name: c[n_before[name]:] for name, c in cases.items()})
+    mark("12a fp16 kernels")
+    result["fp16"], launches_fp16 = fp16_phase(ops, card)
+    mark("12b-d fp16 engine, generate, recipe A")
+
     # -- 8. summary --------------------------------------------------------
     # the serving kernels at fp32 S=384 / the decode step (the int8 one
     # too); the backward kernels at the training shape in bf16, the
     # training path's dtype; the generate kernels at the bf16 full-context
     # decode step, the masked forward at the bf16 padded prefill
-    bf16, f32 = str(torch.bfloat16), str(torch.float32)
+    bf16, f32, f16 = (str(torch.bfloat16), str(torch.float32),
+                      str(torch.float16))
 
     def pick(name, shape, dtype=bf16):
         return next(c for c in cases[name]
@@ -3863,7 +4269,14 @@ def main():
                  DQ_MASK: pick(DQ_MASK, "B=8 S=896 H=12 D=64 pad"),
                  DKV_MASK: pick(DKV_MASK, "B=8 S=896 H=12 D=64 pad"),
                  DQ_NC: pick(DQ_NC, "B=8 S=896 H=12 D=64 nc"),
-                 DKV_NC: pick(DKV_NC, "B=8 S=896 H=12 D=64 nc")}
+                 DKV_NC: pick(DKV_NC, "B=8 S=896 H=12 D=64 nc"),
+                 FWD_TC16: pick(FWD_TC16, "B=8 S=1024 H=12 D=64", f16),
+                 DQ_TC16: pick(DQ_TC16, "B=8 S=1024 H=12 D=64", f16),
+                 DKV_TC16: pick(DKV_TC16, "B=8 S=1024 H=12 D=64", f16),
+                 RAGGED16: cases[RAGGED16][0],
+                 RAGGED8_16: cases[RAGGED8_16][0],
+                 DECODE16: pick(DECODE16,
+                                "B=8 S_max=1024 length=1024 H=12 D=64", f16)}
     path_launches = {FWD: launches[FWD], RAGGED: launches[RAGGED],
                      RAGGED8: launches8[RAGGED8],
                      FWD_MASK: launches_gen["stacked default padded"][FWD_MASK],
@@ -3886,6 +4299,13 @@ def main():
         path_launches[name] = launches_packed[name]
     for name in (FWD_NC, DQ_NC, DKV_NC, DQ_MASK, DKV_MASK):
         path_launches[name] = launches_entry[name]
+    # the fp16 counters: the flash kernels in phase 12's O1 recipe run,
+    # the ragged kernel in its engines, the decode kernel in its generate
+    for name in (FWD_TC16, DQ_TC16, DKV_TC16):
+        path_launches[name] = launches_fp16["O1"][name]
+    path_launches[RAGGED16] = launches_fp16["engine"][RAGGED16]
+    path_launches[RAGGED8_16] = launches_fp16["engine_int8"][RAGGED8_16]
+    path_launches[DECODE16] = launches_fp16["generate"][DECODE16]
     kernels = []
     for name in KERNELS:
         c = main_case[name]
@@ -3903,6 +4323,8 @@ def main():
         k["launches_training"] = launches_pl["flags"][k["name"]]
         k["launches_fit"] = launches_fit[k["name"]]
         k["launches_serving"] = launches_serving[k["name"]]
+        k["launches_fp16"] = sum(run[k["name"]]
+                                 for run in launches_fp16.values())
     result["kernels"] = kernels
     result["expected_launches"] = expected
     result["phase_s"] = phase_s

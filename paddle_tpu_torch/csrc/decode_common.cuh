@@ -6,8 +6,11 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace decode {
 
@@ -18,6 +21,7 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
@@ -25,6 +29,31 @@ __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ __half from_f<__half>(float x) {
+  return __float2half_rn(x);
+}
+
+// The two values of a 32-bit word of a 2-byte type T (bf16 or fp16) as
+// floats, the low half first; and two floats rounded into one.
+template <typename T>
+__device__ __forceinline__ float2 unpack2(uint32_t w) {
+  if constexpr (std::is_same<T, __half>::value)
+    return __half22float2(*reinterpret_cast<const __half2*>(&w));
+  else
+    return make_float2(__uint_as_float(w << 16),
+                       __uint_as_float(w & 0xffff0000u));
+}
+template <typename T>
+__device__ __forceinline__ uint32_t pack2f(float lo, float hi) {
+  if constexpr (std::is_same<T, __half>::value) {
+    const __half2 h2 = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&h2);
+  } else {
+    const __nv_bfloat162 b2 = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&b2);
+  }
 }
 // x rounded to T and widened back
 template <typename T>
@@ -68,18 +97,20 @@ __device__ __forceinline__ void load_vals(const T* p, float (&v)[V]) {
         if constexpr (sizeof(T) == 4) {
           v[q * PER + j] = __uint_as_float(w[j]);
         } else {
-          v[q * PER + 2 * j] = __uint_as_float(w[j] << 16);
-          v[q * PER + 2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
+          const float2 f = unpack2<T>(w[j]);
+          v[q * PER + 2 * j] = f.x;
+          v[q * PER + 2 * j + 1] = f.y;
         }
       }
     }
   } else if (sizeof(T) == 2 && V == 4 &&
              reinterpret_cast<uintptr_t>(p) % 8 == 0) {
     const uint2 r = __ldg(reinterpret_cast<const uint2*>(p));
-    v[0] = __uint_as_float(r.x << 16);
-    v[1] = __uint_as_float(r.x & 0xffff0000u);
-    v[2] = __uint_as_float(r.y << 16);
-    v[3] = __uint_as_float(r.y & 0xffff0000u);
+    const float2 a = unpack2<T>(r.x), b = unpack2<T>(r.y);
+    v[0] = a.x;
+    v[1] = a.y;
+    v[2] = b.x;
+    v[3] = b.y;
   } else {
 #pragma unroll
     for (int j = 0; j < V; ++j) v[j] = to_f(p[j]);
@@ -97,14 +128,10 @@ __device__ __forceinline__ void store_vals(T* p, const float (&v)[V]) {
       uint32_t w[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        if constexpr (sizeof(T) == 4) {
+        if constexpr (sizeof(T) == 4)
           w[j] = __float_as_uint(v[q * PER + j]);
-        } else {
-          const __nv_bfloat162 b2 =
-              __floats2bfloat162_rn(v[q * PER + 2 * j],
-                                    v[q * PER + 2 * j + 1]);
-          w[j] = *reinterpret_cast<const uint32_t*>(&b2);
-        }
+        else
+          w[j] = pack2f<T>(v[q * PER + 2 * j], v[q * PER + 2 * j + 1]);
       }
       reinterpret_cast<uint4*>(p)[q] = make_uint4(w[0], w[1], w[2], w[3]);
     }
@@ -193,7 +220,7 @@ __device__ __forceinline__ bool warp_last_of(int* ticket, int count) {
 // same way.  A block of WARPS warps takes one split -- a run of keys of one
 // (query, head) -- and each warp keeps its own online softmax:
 //  - LPK = D / VE lanes cover one key row with 16-byte loads (VE = 4 fp32,
-//    8 bf16 or 16 int8 values a load), so a warp reads KPW = 32 / LPK
+//    8 bf16 / fp16 or 16 int8 values a load), so a warp reads KPW = 32 / LPK
 //    whole rows per load, and U such loads of K and of V are in flight
 //    before any arithmetic;
 //  - each lane dots its VE values with q, the LPK lanes of a key add
@@ -250,10 +277,29 @@ __device__ __forceinline__ void widen(uint4 v, float (&x)[16]) {
 template <typename P>
 constexpr int VE = 16 / static_cast<int>(sizeof(P));
 
+// A 16-byte load of P widened (`widen` by the number of values, which
+// takes 8 values for bf16; fp16 here).
+template <typename P>
+__device__ __forceinline__ void widen_as(uint4 v, float (&x)[VE<P>]) {
+  if constexpr (std::is_same<P, __half>::value) {
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = unpack2<__half>(w[i]);
+      x[2 * i] = f.x;
+      x[2 * i + 1] = f.y;
+    }
+  } else {
+    widen(v, x);
+  }
+}
+
 // The keys of one (row, head) of a dense [B, S_max, H*D] ring: rows HD
-// apart, p rounded to the cache type T before the value product (the TPU
-// kernels' `seg_dot(p, expand)`).  MASKABLE: `mrow`, if not null, is an
-// additive fp32 mask over the rows.
+// apart, p rounded to the cache type T before the value product where the
+// TPU kernels round it (`seg_dot(p, expand)` in their `fast` type: bf16
+// for a bf16 cache, fp32 otherwise, so an fp16 cache keeps p in fp32,
+// `pallas_ops.py:1038`).  MASKABLE: `mrow`, if not null, is an additive
+// fp32 mask over the rows.
 template <typename T, bool MASKABLE>
 struct RingKeys {
   const T* kb;      // K of key 0, at this lane's d0
@@ -275,7 +321,10 @@ struct RingKeys {
     return s;
   }
   __device__ __forceinline__ float weight(float p, Row) const {
-    return round_to<T>(p);
+    if constexpr (std::is_same<T, __half>::value)
+      return p;
+    else
+      return round_to<T>(p);
   }
 };
 
@@ -316,7 +365,7 @@ __device__ __forceinline__ void warp_attend(const Keys& keys,
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         float kx[VE<P>], dot = 0.f;
-        widen(kr[u], kx);
+        widen_as<P>(kr[u], kx);
 #pragma unroll
         for (int i = 0; i < VE<P>; ++i) dot = fmaf(kx[i], qv[i], dot);
 #pragma unroll
@@ -339,7 +388,7 @@ __device__ __forceinline__ void warp_attend(const Keys& keys,
         l += p;
         const float pr = keys.weight(p, row[u]);
         float vx[VE<P>];
-        widen(vr[u], vx);
+        widen_as<P>(vr[u], vx);
 #pragma unroll
         for (int i = 0; i < VE<P>; ++i) acc[i] = fmaf(pr, vx[i], acc[i]);
       }

@@ -15,9 +15,11 @@
 //   ds = p * (dp - delta)             delta = rowsum(dO * out), given
 //   dQ = scale * sum_k ds K           dK = scale * sum_q ds Q
 //   dV = sum_q p dO
-// Rounding points follow the TPU kernels: in bf16, p is rounded to dO's
-// type before the dV product and ds to the operand's type before the dK and
-// dQ products; everything else accumulates in fp32.
+// Rounding points follow the TPU kernels: in bf16 and fp16, p is rounded
+// to dO's type before the dV product and ds to the operand's type before
+// the dK and dQ products; everything else accumulates in fp32.  In fp16 a
+// loss-scaled ds may pass 65504 and round to inf, as in the TPU kernel;
+// the gradient is then not finite and the loss scaler skips the step.
 //
 // What bounds them on this card: per visible (query, key) pair dQ does
 // 6*D FLOPs and dK/dV 8*D, over 5 and 6 [S, D] slabs of bytes per head, so
@@ -26,16 +28,18 @@
 // becomes a loop inside one block, and the two outputs come from two
 // grids, so no block writes what another writes and no atomics are needed.
 //
-// The bf16 kernels run on the tensor cores (`flash_tc.cuh`), one
-// warpgroup (128 threads) per block, `wgmma` m64nNk16 bf16 -> fp32, every
+// The bf16 and fp16 kernels (one template, instantiated per 16-bit type T;
+// the entries take the type as a code: 0 fp32, 1 bf16, 2 fp16) run on the
+// tensor cores (`flash_tc.cuh`), one
+// warpgroup (128 threads) per block, `wgmma` m64nNk16 T -> fp32, every
 // operand in 128-byte-swizzled shared memory filled by 16-byte `cp.async`
 // copies (zero-fill past the ragged edge), or repacked in registers from
 // an accumulator.  Only the tiles that cross the diagonal, the kv_lens
 // edge, a ragged edge or a segment boundary test each (query, key) pair;
 // the interior tiles take the same step with no per-pair test.
 //
-// bf16 dQ: `flash_bwd_dq_tc_kernel`, the forward's layout.  One block per
-// (64-query tile, head, batch).  Q and dO of the tile are loaded once, and
+// bf16 / fp16 dQ: `flash_bwd_dq_tc_kernel`, the forward's layout.  One
+// block per (64-query tile, head, batch).  Q and dO of the tile are loaded once, and
 // each row's lse and delta (or the masked pair) and segment id sit in
 // registers; key tiles of 64 rows (K and V, with the key ids) fill a
 // two-stage `cp.async` ring, tile j+1 copied while tile j computes.  Per
@@ -48,7 +52,7 @@
 // key ids or the query tile's ids are not all one id.  The query tiles run
 // longest first.
 //
-// bf16 dK/dV: `flash_bwd_dkv_tc_kernel`, in the transposed form, keys as
+// bf16 / fp16 dK/dV: `flash_bwd_dkv_tc_kernel`, in the transposed form, keys as
 // the M dimension of `wgmma`.  One block per (64-key tile, head, batch).
 // K and V are loaded once; query tiles of 64 rows (Q and dO, with their
 // lse and delta -- or the masked pair -- and ids) fill the two-stage ring.
@@ -172,12 +176,11 @@ struct Branches {
 };
 
 // ---------------------------------------------------------------------------
-// bf16 dQ and dK/dV: the tensor-core kernels (header comment)
+// bf16 and fp16 dQ and dK/dV: the tensor-core kernels (header comment)
 // ---------------------------------------------------------------------------
 
 namespace tc {
 
-using bf16 = __nv_bfloat16;
 using namespace flash_tc;
 
 constexpr int BKV = 64;         // keys per block (dK/dV) or per tile (dQ)
@@ -186,18 +189,21 @@ constexpr int THREADS = WG;     // 128
 
 // Both kernels hold two [64, D] tiles once and a two-stage ring of two
 // more (dQ: Q and dO, then K and V; dK/dV: K and V, then Q and dO), all
-// bf16; 1024 bytes of slack to align the tiles for the swizzle.
+// of the 2-byte type T; 1024 bytes of slack to align the tiles for the
+// swizzle.
 template <int D>
 constexpr int smem_bytes() {
   return (2 * BKV + 4 * BQ) * D * 2 + 1024;
 }
 
-template <int D, bool MASKED, bool SEGS, bool CAUSAL>
+// T: __nv_bfloat16 or __half, the inputs' and the outputs' type and the
+// operand type of every product (p and ds rounded to T).
+template <typename T, int D, bool MASKED, bool SEGS, bool CAUSAL>
 __global__ void __launch_bounds__(THREADS) flash_bwd_dq_tc_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const T* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    bf16* __restrict__ dq, int H, int Sq, int Sk, long long qsb,
+    T* __restrict__ dq, int H, int Sq, int Sk, long long qsb,
     long long qss, long long ksb, long long kss, long long vsb,
     long long vss, long long dsb, long long dss, float scale,
     const Branches br) {
@@ -238,8 +244,8 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_tc_kernel(
     if constexpr (SEGS) qid[r] = sb[qc];
   }
 
-  const bf16* kb = k + b * ksb + h * D;
-  const bf16* vb = v + b * vsb + h * D;
+  const T* kb = k + b * ksb + h * D;
+  const T* vb = v + b * vsb + h * D;
   int kbeg = 0;
   int kend = CAUSAL ? min(klen, q0 + BQ + offset) : klen;   // exclusive
   int qlo = 0, qhi = 0;   // the query tile's least and greatest id
@@ -320,10 +326,10 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_tc_kernel(
     mma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      mma_ss_n64(s, desc_k<BQ>(sq, kk), desc_k<BKV>(sk, kk), 1);
+      mma_ss_n64<T>(s, desc_k<BQ>(sq, kk), desc_k<BKV>(sk, kk), 1);
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      mma_ss_n64(dp, desc_k<BQ>(sdo, kk), desc_k<BKV>(sv, kk), 1);
+      mma_ss_n64<T>(dp, desc_k<BQ>(sdo, kk), desc_k<BKV>(sv, kk), 1);
     mma_commit();
     mma_wait<0>();
     fence_regs(s);
@@ -340,15 +346,15 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_tc_kernel(
     else
       probs(k0, st, std::false_type{});
 
-    // dQ += bf16(ds) K, the A operand from the dP accumulator, K read
+    // dQ += T(ds) K, the A operand from the dP accumulator, K read
     // MN-major from its tile
     uint32_t da[BKV / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < BKV / 16; ++kk) pack_a(da[kk], dp, kk);
+    for (int kk = 0; kk < BKV / 16; ++kk) pack_a<T>(da[kk], dp, kk);
     mma_fence();
 #pragma unroll
     for (int kk = 0; kk < BKV / 16; ++kk)
-      mma_rs<D>(acc, da[kk], desc_mn<BKV>(sk, kk));
+      mma_rs<D, T>(acc, da[kk], desc_mn<BKV>(sk, kk));
     mma_commit();
     mma_wait<0>();
     fence_regs(acc);
@@ -358,21 +364,19 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_tc_kernel(
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (qpos[r] >= Sq) continue;
-    bf16* op = dq + (((long long)b * Sq + qpos[r]) * H + h) * D;
+    T* op = dq + (((long long)b * Sq + qpos[r]) * H + h) * D;
 #pragma unroll
-    for (int i = 2 * r; i < D / 2; i += 4) {
-      *reinterpret_cast<__nv_bfloat162*>(op + acc_col(i, tid)) =
-          __floats2bfloat162_rn(acc[i] * scale, acc[i + 1] * scale);
-    }
+    for (int i = 2 * r; i < D / 2; i += 4)
+      store2<T>(op + acc_col(i, tid), acc[i] * scale, acc[i + 1] * scale);
   }
 }
 
-template <int D, bool MASKED, bool SEGS, bool CAUSAL>
+template <typename T, int D, bool MASKED, bool SEGS, bool CAUSAL>
 __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_tc_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const T* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int Sq, int Sk,
+    T* __restrict__ dk, T* __restrict__ dv, int H, int Sq, int Sk,
     long long qsb, long long qss, long long ksb, long long kss,
     long long vsb, long long vss, long long dsb, long long dss,
     float scale, const Branches br) {
@@ -395,8 +399,8 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_tc_kernel(
 #pragma unroll
   for (int r = 0; r < 2; ++r) kpos[r] = k0 + acc_row(2 * r, tid);
 
-  const bf16* qb = q + b * qsb + h * D;
-  const bf16* db = dout + b * dsb + h * D;
+  const T* qb = q + b * qsb + h * D;
+  const T* db = dout + b * dsb + h * D;
   const long long stat0 = ((long long)b * H + h) * Sq;
   const float* mb =
       MASKED && br.mask ? br.mask + b * br.msb + h * br.msh : nullptr;
@@ -482,10 +486,10 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_tc_kernel(
     mma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      mma_ss_n64(s, desc_k<BKV>(sk, kk), desc_k<BQ>(sq, kk), 1);
+      mma_ss_n64<T>(s, desc_k<BKV>(sk, kk), desc_k<BQ>(sq, kk), 1);
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      mma_ss_n64(dp, desc_k<BKV>(sv, kk), desc_k<BQ>(sdo, kk), 1);
+      mma_ss_n64<T>(dp, desc_k<BKV>(sv, kk), desc_k<BQ>(sdo, kk), 1);
     mma_commit();
     mma_wait<0>();
     fence_regs(s);
@@ -497,21 +501,21 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_tc_kernel(
     else
       probs(q0, st, std::false_type{});
 
-    // dV += bf16(p)^T dO and dK += bf16(ds)^T Q, the A operands from the
+    // dV += T(p)^T dO and dK += T(ds)^T Q, the A operands from the
     // accumulators, dO and Q read MN-major from their tiles
     uint32_t pa[BQ / 16][4], da[BQ / 16][4];
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk) {
-      pack_a(pa[kk], s, kk);
-      pack_a(da[kk], dp, kk);
+      pack_a<T>(pa[kk], s, kk);
+      pack_a<T>(da[kk], dp, kk);
     }
     mma_fence();
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk)
-      mma_rs<D>(dva, pa[kk], desc_mn<BQ>(sdo, kk));
+      mma_rs<D, T>(dva, pa[kk], desc_mn<BQ>(sdo, kk));
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk)
-      mma_rs<D>(dka, da[kk], desc_mn<BQ>(sq, kk));
+      mma_rs<D, T>(dka, da[kk], desc_mn<BQ>(sq, kk));
     mma_commit();
     mma_wait<0>();
     fence_regs(dva);
@@ -526,10 +530,8 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_tc_kernel(
 #pragma unroll
     for (int i = 2 * r; i < D / 2; i += 4) {
       const int c = acc_col(i, tid);
-      *reinterpret_cast<__nv_bfloat162*>(dk + o + c) =
-          __floats2bfloat162_rn(dka[i] * scale, dka[i + 1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv + o + c) =
-          __floats2bfloat162_rn(dva[i], dva[i + 1]);
+      store2<T>(dk + o + c, dka[i] * scale, dka[i + 1] * scale);
+      store2<T>(dv + o + c, dva[i], dva[i + 1]);
     }
   }
 }
@@ -1028,37 +1030,35 @@ struct Args {
   Branches br;
 };
 
-template <int D, bool MASKED, bool SEGS, bool CAUSAL>
+template <typename T, int D, bool MASKED, bool SEGS, bool CAUSAL>
 void launch_dq_tc(const Args& a, void* dq) {
-  using tc::bf16;
   constexpr int smem = tc::smem_bytes<D>();
-  auto* kernel = tc::flash_bwd_dq_tc_kernel<D, MASKED, SEGS, CAUSAL>;
+  auto* kernel = tc::flash_bwd_dq_tc_kernel<T, D, MASKED, SEGS, CAUSAL>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   (void)attr;   // a refusal shows as the launch's error
   dim3 grid((a.Sq + tc::BQ - 1) / tc::BQ, a.H, a.B);
   kernel<<<grid, tc::THREADS, smem, a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<bf16*>(dq), a.H, a.Sq, a.Sk, a.qsb, a.qss, a.ksb, a.kss,
+      static_cast<T*>(dq), a.H, a.Sq, a.Sk, a.qsb, a.qss, a.ksb, a.kss,
       a.vsb, a.vss, a.dsb, a.dss, a.scale, a.br);
 }
 
-template <int D, bool MASKED, bool SEGS, bool CAUSAL>
+template <typename T, int D, bool MASKED, bool SEGS, bool CAUSAL>
 void launch_dkv_tc(const Args& a, void* dk, void* dv) {
-  using tc::bf16;
   constexpr int smem = tc::smem_bytes<D>();
-  auto* kernel = tc::flash_bwd_dkv_tc_kernel<D, MASKED, SEGS, CAUSAL>;
+  auto* kernel = tc::flash_bwd_dkv_tc_kernel<T, D, MASKED, SEGS, CAUSAL>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   (void)attr;   // a refusal shows as the launch's error
   dim3 grid((a.Sk + tc::BKV - 1) / tc::BKV, a.H, a.B);
   kernel<<<grid, tc::THREADS, smem, a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), a.H, a.Sq, a.Sk,
+      static_cast<T*>(dk), static_cast<T*>(dv), a.H, a.Sq, a.Sk,
       a.qsb, a.qss, a.ksb, a.kss, a.vsb, a.vss, a.dsb, a.dss, a.scale, a.br);
 }
 
@@ -1098,47 +1098,58 @@ void launch_dq_tc32(const Args& a, void* dq) {
 }
 
 // One launch of the dQ (dv null) or the dK/dV kernel for a head size and
-// type; cudaErrorInvalidValue for one the kernels do not take.  bf16 takes
-// the bf16 tensor-core kernels, fp32 the split-TF32 ones.
-template <bool MASKED, bool SEGS, bool CAUSAL>
-int dispatch(const Args& a, int D, int is_bf16, void* dq_or_dk, void* dv) {
-  if (D != 64 && D != 128) return static_cast<int>(cudaErrorInvalidValue);
-  if (dv && is_bf16) {
-    if (D == 64)
-      launch_dkv_tc<64, MASKED, SEGS, CAUSAL>(a, dq_or_dk, dv);
-    else
-      launch_dkv_tc<128, MASKED, SEGS, CAUSAL>(a, dq_or_dk, dv);
-  } else if (dv) {
-    if (D == 64)
-      launch_dkv_tc32<64, MASKED, SEGS, CAUSAL>(a, dq_or_dk, dv);
-    else
-      launch_dkv_tc32<128, MASKED, SEGS, CAUSAL>(a, dq_or_dk, dv);
-  } else if (is_bf16) {
-    if (D == 64)
-      launch_dq_tc<64, MASKED, SEGS, CAUSAL>(a, dq_or_dk);
-    else
-      launch_dq_tc<128, MASKED, SEGS, CAUSAL>(a, dq_or_dk);
-  } else {
-    if (D == 64)
-      launch_dq_tc32<64, MASKED, SEGS, CAUSAL>(a, dq_or_dk);
-    else
-      launch_dq_tc32<128, MASKED, SEGS, CAUSAL>(a, dq_or_dk);
+// type code (0 fp32, 1 bf16, 2 fp16); cudaErrorInvalidValue for one the
+// kernels do not take.  bf16 and fp16 take the 16-bit tensor-core kernels,
+// fp32 the split-TF32 ones.
+template <int D, bool MASKED, bool SEGS, bool CAUSAL>
+int dispatch_type(const Args& a, int dtype, void* dq_or_dk, void* dv) {
+  switch (dtype) {
+    case 0:
+      if (dv)
+        launch_dkv_tc32<D, MASKED, SEGS, CAUSAL>(a, dq_or_dk, dv);
+      else
+        launch_dq_tc32<D, MASKED, SEGS, CAUSAL>(a, dq_or_dk);
+      break;
+    case 1:
+      if (dv)
+        launch_dkv_tc<__nv_bfloat16, D, MASKED, SEGS, CAUSAL>(a, dq_or_dk,
+                                                               dv);
+      else
+        launch_dq_tc<__nv_bfloat16, D, MASKED, SEGS, CAUSAL>(a, dq_or_dk);
+      break;
+    case 2:
+      if (dv)
+        launch_dkv_tc<__half, D, MASKED, SEGS, CAUSAL>(a, dq_or_dk, dv);
+      else
+        launch_dq_tc<__half, D, MASKED, SEGS, CAUSAL>(a, dq_or_dk);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-int dispatch_branches(const Args& a, int D, int is_bf16, int causal,
+template <bool MASKED, bool SEGS, bool CAUSAL>
+int dispatch(const Args& a, int D, int dtype, void* dq_or_dk, void* dv) {
+  if (D == 64)
+    return dispatch_type<64, MASKED, SEGS, CAUSAL>(a, dtype, dq_or_dk, dv);
+  if (D == 128)
+    return dispatch_type<128, MASKED, SEGS, CAUSAL>(a, dtype, dq_or_dk, dv);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int dispatch_branches(const Args& a, int D, int dtype, int causal,
                       void* dq_or_dk, void* dv) {
   const bool m = a.br.mask || a.br.kv_lens, s = a.br.segs;
   switch ((m ? 4 : 0) + (s ? 2 : 0) + (causal != 0)) {
-    case 0: return dispatch<false, false, false>(a, D, is_bf16, dq_or_dk, dv);
-    case 1: return dispatch<false, false, true>(a, D, is_bf16, dq_or_dk, dv);
-    case 2: return dispatch<false, true, false>(a, D, is_bf16, dq_or_dk, dv);
-    case 3: return dispatch<false, true, true>(a, D, is_bf16, dq_or_dk, dv);
-    case 4: return dispatch<true, false, false>(a, D, is_bf16, dq_or_dk, dv);
-    case 5: return dispatch<true, false, true>(a, D, is_bf16, dq_or_dk, dv);
-    case 6: return dispatch<true, true, false>(a, D, is_bf16, dq_or_dk, dv);
-    default: return dispatch<true, true, true>(a, D, is_bf16, dq_or_dk, dv);
+    case 0: return dispatch<false, false, false>(a, D, dtype, dq_or_dk, dv);
+    case 1: return dispatch<false, false, true>(a, D, dtype, dq_or_dk, dv);
+    case 2: return dispatch<false, true, false>(a, D, dtype, dq_or_dk, dv);
+    case 3: return dispatch<false, true, true>(a, D, dtype, dq_or_dk, dv);
+    case 4: return dispatch<true, false, false>(a, D, dtype, dq_or_dk, dv);
+    case 5: return dispatch<true, false, true>(a, D, dtype, dq_or_dk, dv);
+    case 6: return dispatch<true, true, false>(a, D, dtype, dq_or_dk, dv);
+    default: return dispatch<true, true, true>(a, D, dtype, dq_or_dk, dv);
   }
 }
 
@@ -1168,13 +1179,15 @@ Branches make_branches(const void* rowmax, const void* mask,
 // kv_lens: int32 [B], or null; segs: int32 [B, S] with batch stride ssb and
 // unit stride in S, or null; causal: 0 or 1.  With a mask or kv_lens, lse
 // holds log l and rowmax the row max m of the masked forward; rowmax is
-// ignored otherwise.  Both return cudaGetLastError() after the launch; 1
-// (cudaErrorInvalidValue) for a head size the kernels do not take.
+// ignored otherwise.  dtype: the element type's code (0 fp32, 1 bf16, 2
+// fp16).  Both return cudaGetLastError() after the launch; 1
+// (cudaErrorInvalidValue) for a head size or type code the kernels do not
+// take.
 extern "C" int flash_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, const void* rowmax, const void* mask,
     const void* kv_lens, const void* segs, void* dq, int B, int H, int Sq,
-    int Sk, int D, int is_bf16, int causal, long long qsb, long long qss,
+    int Sk, int D, int dtype, int causal, long long qsb, long long qss,
     long long ksb, long long kss, long long vsb, long long vss, long long dsb,
     long long dss, long long msb, long long msh, long long msq, long long msk,
     long long ssb, float scale, void* stream) {
@@ -1182,14 +1195,14 @@ extern "C" int flash_bwd_dq(
       q, k, v, dout, lse, delta, B, H, Sq, Sk, qsb, qss, ksb, kss, vsb, vss,
       dsb, dss, scale, stream,
       make_branches(rowmax, mask, kv_lens, segs, msb, msh, msq, msk, ssb));
-  return dispatch_branches(a, D, is_bf16, causal, dq, nullptr);
+  return dispatch_branches(a, D, dtype, causal, dq, nullptr);
 }
 
 extern "C" int flash_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, const void* rowmax, const void* mask,
     const void* kv_lens, const void* segs, void* dk, void* dv, int B, int H,
-    int Sq, int Sk, int D, int is_bf16, int causal, long long qsb,
+    int Sq, int Sk, int D, int dtype, int causal, long long qsb,
     long long qss, long long ksb, long long kss, long long vsb, long long vss,
     long long dsb, long long dss, long long msb, long long msh, long long msq,
     long long msk, long long ssb, float scale, void* stream) {
@@ -1197,5 +1210,5 @@ extern "C" int flash_bwd_dkv(
       q, k, v, dout, lse, delta, B, H, Sq, Sk, qsb, qss, ksb, kss, vsb, vss,
       dsb, dss, scale, stream,
       make_branches(rowmax, mask, kv_lens, segs, msb, msh, msq, msk, ssb));
-  return dispatch_branches(a, D, is_bf16, causal, dk, dv);
+  return dispatch_branches(a, D, dtype, causal, dk, dv);
 }

@@ -24,7 +24,7 @@
 // (the key loop and merges of `decode_common.cuh`, shared with the fused
 // layer and the ragged kernel).
 // LPK = D / VE lanes cover one key row with 16-byte loads (VE = 8 bf16 or
-// 4 fp32 values each), so a warp reads 32 / LPK whole rows -- whole
+// fp16, or 4 fp32 values each), so a warp reads 32 / LPK whole rows -- whole
 // 128-byte lines -- per load, and U = 4 such loads of K and of V are in
 // flight before any arithmetic.  Each lane dots its VE values with q, the
 // LPK lanes of a key add theirs (shuffles inside the group only), and
@@ -37,12 +37,15 @@
 // which blocks ran.
 //
 // Rounding points: logits are fp32 sums of q_d * k_d (the TPU kernel rounds
-// each product to bf16 before its per-head sum, an artefact of its (8, 128)
-// tiling that is not copied).  Each probability exp(s - m) is rounded to
-// the cache type before the value product, as the TPU kernel's
-// `seg_dot(p, expand)` does, at its warp's running max m (then rescaled in
-// fp32); l sums the unrounded fp32 probabilities; out = acc / max(l,
-// 1e-30).
+// each product to bf16 before its per-head sum in bf16, an artefact of its
+// (8, 128) tiling that is not copied).  With a bf16 cache each probability
+// exp(s - m) is rounded to bf16 before the value product, as the TPU
+// kernel's `seg_dot(p, expand)` does, at its warp's running max m (then
+// rescaled in fp32); with an fp32 or fp16 cache p stays fp32, as the TPU
+// kernel computes in fp32 for any cache but bf16 (`fast`,
+// `pallas_ops.py:1038`): the fp16 instantiation is the fp32 arithmetic on
+// 2-byte loads.  l sums the unrounded fp32 probabilities; out = acc /
+// max(l, 1e-30), rounded to the cache type.
 //
 // Layout: q is [B, 1, H, D] with unit stride in D and stride D between
 // heads (the batch stride is an argument, so a slice of a fused qkv
@@ -138,29 +141,30 @@ extern "C" int flash_decode_splits(int length) {
 }
 
 // The length is `length` plus, where `len` is not null, the int32 at
-// `len` in device memory (a ring position, with `length` 1).  Returns
+// `len` in device memory (a ring position, with `length` 1).  dtype: the
+// element type's code (0 fp32, 1 bf16, 2 fp16).  Returns
 // cudaGetLastError() after the launch; 1 (cudaErrorInvalidValue) for a
-// head size or type the kernel does not take.
+// head size or type code the kernel does not take.
 extern "C" int flash_decode(const void* q, const void* kc, const void* vc,
                             void* out, void* part, void* tickets,
                             const void* len, int B, int H, int D, int S_max,
-                            int length, int is_bf16, long long qsb,
+                            int length, int dtype, long long qsb,
                             float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* n = static_cast<const int*>(len);
-  if (D == 64 && is_bf16)
-    launch<__nv_bfloat16, 64>(q, kc, vc, out, part, tickets, n, B, H, S_max,
-                              length, qsb, scale, s);
-  else if (D == 64)
-    launch<float, 64>(q, kc, vc, out, part, tickets, n, B, H, S_max, length,
-                      qsb, scale, s);
-  else if (D == 128 && is_bf16)
-    launch<__nv_bfloat16, 128>(q, kc, vc, out, part, tickets, n, B, H,
-                               S_max, length, qsb, scale, s);
-  else if (D == 128)
-    launch<float, 128>(q, kc, vc, out, part, tickets, n, B, H, S_max, length,
-                       qsb, scale, s);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
+#define FD_LAUNCH(T, DIM)                                                    \
+  launch<T, DIM>(q, kc, vc, out, part, tickets, n, B, H, S_max, length, qsb, \
+                 scale, s)
+  if (D != 64 && D != 128) return static_cast<int>(cudaErrorInvalidValue);
+  switch (dtype * 2 + (D == 128)) {
+    case 0: FD_LAUNCH(float, 64); break;
+    case 1: FD_LAUNCH(float, 128); break;
+    case 2: FD_LAUNCH(__nv_bfloat16, 64); break;
+    case 3: FD_LAUNCH(__nv_bfloat16, 128); break;
+    case 4: FD_LAUNCH(__half, 64); break;
+    case 5: FD_LAUNCH(__half, 128); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef FD_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }

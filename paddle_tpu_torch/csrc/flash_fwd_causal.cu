@@ -10,25 +10,28 @@
 //
 // What bounds it on this card: at GPT-2 widths (D = 64, S <= 1024) one
 // layer's causal attention is 2*S^2*H*D FLOPs over 4*S*H*D*itemsize bytes,
-// about S/2 FLOPs per byte in fp32 and S FLOPs per byte in bf16 -- above
-// the H100's ridge point, so the tensor cores bound a fast kernel: bf16
-// at 989 TFLOP/s, fp32 at 495 / 3 (split TF32, below).
+// about S/2 FLOPs per byte in fp32 and S FLOPs per byte in bf16 / fp16 --
+// above the H100's ridge point, so the tensor cores bound a fast kernel:
+// bf16 and fp16 at 989 TFLOP/s, fp32 at 495 / 3 (split TF32, below).
 //
-// Two designs behind the one entry, one per type:
+// Two designs behind the one entry (the type is a code: 0 fp32, 1 bf16, 2
+// fp16):
 //
-// bf16: `flash_fwd_tc_kernel`, on the tensor cores (`flash_tc.cuh`).  One
-// block per (64-query tile, head, batch) is one warpgroup of 128 threads.
-// Both products are `wgmma` m64nNk16 bf16 -> fp32: S = Q K^T with Q and K
+// bf16 and fp16: `flash_fwd_tc_kernel<T>`, on the tensor cores
+// (`flash_tc.cuh`), one instantiation per 16-bit type T.  One block per
+// (64-query tile, head, batch) is one warpgroup of 128 threads.  Both
+// products are `wgmma` m64nNk16 T -> fp32 (`.bf16.bf16` or `.f16.f16`, the
+// same shapes and layouts): S = Q K^T with Q and K
 // read from 128-byte-swizzled shared memory (K stored [keys, D], K-major as
 // the B operand), and O += P V with P from registers -- the S accumulator
-// rounded to bf16 and repacked in place as the A operand -- and V read
+// rounded to T and repacked in place as the A operand -- and V read
 // MN-major from the same swizzled layout.  Key/value tiles of 64 rows fill
 // a two-stage ring by `cp.async` (zero-fill past the ragged edge): tile j+1
 // is copied while tile j computes.  The online softmax runs on the
 // accumulator fragments (each thread holds two rows, 16 columns of each;
 // the row max and sum reduce over the four threads of a row).  p is
-// rounded to bf16 for the PV product at the running max of its key tile,
-// as the TPU kernel rounds it (`pallas_ops.py:181`), and l sums the
+// rounded to T for the PV product at the running max of its key tile, as
+// the TPU kernel rounds it to v's type (`pallas_ops.py:181`), and l sums the
 // unrounded fp32 p (`:180`).  Only the tiles that cross the diagonal, the
 // kv_lens edge or a segment (every tile with SEGS) test each (row, key)
 // pair; the interior tiles below the diagonal go through the same step
@@ -40,7 +43,8 @@
 // lo_a hi_b + hi_a lo_b + hi_a hi_b, hi = cvt.rna.tf32(x), lo = x - hi, as
 // close to the exact product as an fp32 product is (one TF32 pass of the
 // raw operands would keep ~3 digits and miss the fp32 limits).  The same
-// block shape as bf16: one warpgroup per (64-query tile, head, batch), the
+// block shape as the 16-bit kernel: one warpgroup per (64-query tile,
+// head, batch), the
 // same online softmax, masking and branches, the query tiles longest
 // first; p stays fp32 (split like any operand).  What differs:
 // - TF32 operands are K-major only (no transpose bit), so V, the B
@@ -73,7 +77,9 @@
 // softmax (max m, sum l) stays in fp32, and the ragged tile edge is
 // masked here, so any S works (the TPU kernel needed S % 128 == 0).
 // Masked logits are -1e30 as in the reference, and a masked key
-// contributes exactly 0.
+// contributes exactly 0.  Scores, the mask and the softmax statistics stay
+// fp32 in every type (the TPU kernel adds the mask as fp32, whatever its
+// type: `pallas_ops.py:162-165`), so -1e30 needs no clamp in fp16 either.
 //
 // Layout: q, k, v are [B, S, H, D] with unit stride in D and stride D
 // between heads; batch and sequence strides are arguments, so slices of a
@@ -123,29 +129,30 @@ namespace {
 constexpr float NEG = -1e30f;
 
 // ---------------------------------------------------------------------------
-// bf16: the tensor-core kernel (header comment)
+// bf16 and fp16: the tensor-core kernel (header comment)
 // ---------------------------------------------------------------------------
 
 namespace tc {
 
-using bf16 = __nv_bfloat16;
 using namespace flash_tc;
 
 constexpr int BQ = 64;          // query rows per block: one warpgroup
 constexpr int BK = 64;          // keys per tile
 constexpr int THREADS = WG;     // 128
 
-// Q, then two stages of K and V, each [64, D] bf16; 1024 bytes of slack to
-// align the tiles for the swizzle.
+// Q, then two stages of K and V, each [64, D] of a 2-byte type; 1024 bytes
+// of slack to align the tiles for the swizzle.
 template <int D>
 constexpr int smem_bytes() {
   return 5 * BK * D * 2 + 1024;
 }
 
-template <int D, bool MASKED, bool SEGS, bool CAUSAL>
+// T: __nv_bfloat16 or __half, the inputs' and the output's type and the
+// operand type of both products (P rounded to T).
+template <typename T, int D, bool MASKED, bool SEGS, bool CAUSAL>
 __global__ void __launch_bounds__(THREADS) flash_fwd_tc_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, bf16* __restrict__ out,
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, T* __restrict__ out,
     float* __restrict__ lse, float* __restrict__ rowmax,
     float* __restrict__ logsum, const float* __restrict__ mask,
     const int* __restrict__ kv_lens, const int* __restrict__ segs, int H,
@@ -170,8 +177,8 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_tc_kernel(
     lim[r] = qpos[r] + offset;   // last key the row may attend (causal)
   }
 
-  const bf16* kb = k + b * ksb + h * D;
-  const bf16* vb = v + b * vsb + h * D;
+  const T* kb = k + b * ksb + h * D;
+  const T* vb = v + b * vsb + h * D;
   const float* mb = MASKED && mask ? mask + b * msb + h * msh : nullptr;
   const int* sb = SEGS ? segs + b * ssb : nullptr;
   int kbeg = 0;
@@ -242,7 +249,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_tc_kernel(
     mma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      mma_ss_n64(s, desc_k<BQ>(sq, kk), desc_k<BK>(sk, kk), 1);
+      mma_ss_n64<T>(s, desc_k<BQ>(sq, kk), desc_k<BK>(sk, kk), 1);
     mma_commit();
     mma_wait<0>();
     fence_regs(s);
@@ -276,31 +283,29 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_tc_kernel(
       s[i] = expf(s[i] - base[(i / 2) % 2]);
       l[(i / 2) % 2] += s[i];
     }
-    // O += P V, P rounded to bf16 as the A operand
+    // O += P V, P rounded to T as the A operand
     uint32_t pa[BK / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) pack_a(pa[kk], s, kk);
+    for (int kk = 0; kk < BK / 16; ++kk) pack_a<T>(pa[kk], s, kk);
     mma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
-      mma_rs<D>(o, pa[kk], desc_mn<BK>(sv, kk));
+      mma_rs<D, T>(o, pa[kk], desc_mn<BK>(sv, kk));
     mma_commit();
     mma_wait<0>();
     fence_regs(o);
   }
   cp_async_wait<0>();
 
-  bf16* ob = out + ((long long)b * Sq * H + h) * D;
+  T* ob = out + ((long long)b * Sq * H + h) * D;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const float ls = fmaxf(quad_sum(l[r]), 1e-30f);
     if (qpos[r] >= Sq) continue;
-    bf16* op = ob + (long long)qpos[r] * H * D;
+    T* op = ob + (long long)qpos[r] * H * D;
 #pragma unroll
-    for (int i = 2 * r; i < D / 2; i += 4) {
-      *reinterpret_cast<__nv_bfloat162*>(op + acc_col(i, tid)) =
-          __floats2bfloat162_rn(o[i] / ls, o[i + 1] / ls);
-    }
+    for (int i = 2 * r; i < D / 2; i += 4)
+      store2<T>(op + acc_col(i, tid), o[i] / ls, o[i + 1] / ls);
     if (tid % 4 == 0) {
       const long long row = ((long long)b * H + h) * Sq + qpos[r];
       lse[row] = m[r] + logf(ls);
@@ -584,18 +589,17 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int D, bool MASKED, bool SEGS, bool CAUSAL>
+template <typename T, int D, bool MASKED, bool SEGS, bool CAUSAL>
 void launch_tc(const Args& a) {
-  using tc::bf16;
   constexpr int smem = tc::smem_bytes<D>();
-  auto* kernel = tc::flash_fwd_tc_kernel<D, MASKED, SEGS, CAUSAL>;
+  auto* kernel = tc::flash_fwd_tc_kernel<T, D, MASKED, SEGS, CAUSAL>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   (void)attr;   // a refusal shows as the launch's error
   dim3 grid((a.Sq + tc::BQ - 1) / tc::BQ, a.H, a.B);
   kernel<<<grid, tc::THREADS, smem, a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<bf16*>(a.out),
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<T*>(a.out),
       static_cast<float*>(a.lse), static_cast<float*>(a.rowmax),
       static_cast<float*>(a.logsum), a.mask, a.kv_lens, a.segs, a.H, a.Sq,
       a.Sk, a.qsb, a.qss, a.ksb, a.kss, a.vsb, a.vss, a.msb, a.msh, a.msq,
@@ -619,20 +623,25 @@ void launch_tc32(const Args& a) {
       a.msk, a.ssb, a.scale);
 }
 
-// bf16 takes the bf16 tensor-core kernel, fp32 the split-TF32 one.
-template <bool MASKED, bool SEGS, bool CAUSAL>
-int dispatch(const Args& a, int D, int is_bf16) {
-  if (D == 64 && is_bf16)
-    launch_tc<64, MASKED, SEGS, CAUSAL>(a);
-  else if (D == 64)
-    launch_tc32<64, MASKED, SEGS, CAUSAL>(a);
-  else if (D == 128 && is_bf16)
-    launch_tc<128, MASKED, SEGS, CAUSAL>(a);
-  else if (D == 128)
-    launch_tc32<128, MASKED, SEGS, CAUSAL>(a);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
+// The element type by its code (0 fp32, 1 bf16, 2 fp16): bf16 and fp16
+// take the 16-bit tensor-core kernel, fp32 the split-TF32 one; any other
+// code or head size is refused.
+template <int D, bool MASKED, bool SEGS, bool CAUSAL>
+int dispatch_type(const Args& a, int dtype) {
+  switch (dtype) {
+    case 0: launch_tc32<D, MASKED, SEGS, CAUSAL>(a); break;
+    case 1: launch_tc<__nv_bfloat16, D, MASKED, SEGS, CAUSAL>(a); break;
+    case 2: launch_tc<__half, D, MASKED, SEGS, CAUSAL>(a); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool MASKED, bool SEGS, bool CAUSAL>
+int dispatch(const Args& a, int D, int dtype) {
+  if (D == 64) return dispatch_type<64, MASKED, SEGS, CAUSAL>(a, dtype);
+  if (D == 128) return dispatch_type<128, MASKED, SEGS, CAUSAL>(a, dtype);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -641,12 +650,13 @@ int dispatch(const Args& a, int D, int is_bf16) {
 // kv_lens: int32 [B], or null; segs: int32 [B, S] with batch stride ssb and
 // unit stride in S, or null; causal: 0 or 1.  rowmax and logsum: fp32
 // [B, H, Sq] outputs of m and log l, written with a mask or kv_lens (null
-// otherwise).  Returns cudaGetLastError() after the launch; 1
-// (cudaErrorInvalidValue) for a head size or type the kernel does not take.
+// otherwise).  dtype: the element type's code (0 fp32, 1 bf16, 2 fp16).
+// Returns cudaGetLastError() after the launch; 1 (cudaErrorInvalidValue)
+// for a head size or type code the kernel does not take.
 extern "C" int flash_fwd(
     const void* q, const void* k, const void* v, void* out, void* lse,
     void* rowmax, void* logsum, const void* mask, const void* kv_lens,
-    const void* segs, int B, int H, int Sq, int Sk, int D, int is_bf16,
+    const void* segs, int B, int H, int Sq, int Sk, int D, int dtype,
     int causal, long long qsb, long long qss, long long ksb, long long kss,
     long long vsb, long long vss, long long msb, long long msh,
     long long msq, long long msk, long long ssb, float scale, void* stream) {
@@ -659,13 +669,13 @@ extern "C" int flash_fwd(
                static_cast<cudaStream_t>(stream)};
   const bool m = mask || kv_lens, s = segs;
   switch ((m ? 4 : 0) + (s ? 2 : 0) + (causal != 0)) {
-    case 0: return dispatch<false, false, false>(a, D, is_bf16);
-    case 1: return dispatch<false, false, true>(a, D, is_bf16);
-    case 2: return dispatch<false, true, false>(a, D, is_bf16);
-    case 3: return dispatch<false, true, true>(a, D, is_bf16);
-    case 4: return dispatch<true, false, false>(a, D, is_bf16);
-    case 5: return dispatch<true, false, true>(a, D, is_bf16);
-    case 6: return dispatch<true, true, false>(a, D, is_bf16);
-    default: return dispatch<true, true, true>(a, D, is_bf16);
+    case 0: return dispatch<false, false, false>(a, D, dtype);
+    case 1: return dispatch<false, false, true>(a, D, dtype);
+    case 2: return dispatch<false, true, false>(a, D, dtype);
+    case 3: return dispatch<false, true, true>(a, D, dtype);
+    case 4: return dispatch<true, false, false>(a, D, dtype);
+    case 5: return dispatch<true, false, true>(a, D, dtype);
+    case 6: return dispatch<true, true, false>(a, D, dtype);
+    default: return dispatch<true, true, true>(a, D, dtype);
   }
 }

@@ -1,9 +1,15 @@
 // Tensor-core machinery shared by the flash kernels (flash_fwd_causal.cu,
-// flash_bwd_causal.cu: bf16, and split TF32 for fp32 -- the last section)
-// and the bf16 FFN's products (fused_ffn_tc.cu): Hopper's warpgroup matrix
+// flash_bwd_causal.cu: bf16 and fp16, and split TF32 for fp32 -- the last
+// section) and the bf16 FFN's products (fused_ffn_tc.cu): Hopper's
+// warpgroup matrix
 // multiply (`wgmma.mma_async`, sm_90a) fed from 128-byte-swizzled shared
 // memory, asynchronous 16-byte copies into that layout, and the helpers
 // that name the (row, column) of each accumulator register.
+//
+// The 16-bit products take their operand type T (`__nv_bfloat16`, the
+// default, or `__half`) as a template parameter: `wgmma`'s f16 form,
+// m64nNk16.f32.f16.f16, has the bf16 form's shapes, layouts and swizzle,
+// so one tile, descriptor and fragment layout serves both.
 //
 // Shared-memory tiles.  A tile of ROWS rows of D bf16 (D a multiple of
 // 64) is stored as D/64 blocks of [ROWS][64]: each 128-byte row of a block
@@ -39,10 +45,17 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace flash_tc {
+
+// true for fp16 operands, false for bf16 (the products' operand type)
+template <typename T>
+constexpr bool is_f16 = std::is_same<T, __half>::value;
 
 constexpr int WG = 128;   // threads of a warpgroup
 
@@ -84,15 +97,16 @@ __device__ __forceinline__ uint32_t swz(int r, int c) {
   return (c >> 3) * (ROWS * 128) + r * 128 + (((c & 7) ^ (r & 7)) << 4);
 }
 
-// Copy rows row0 .. row0 + ROWS - 1 of a [n, D] bf16 matrix (row stride
-// `stride` elements, 16-byte aligned rows) into the swizzled tile at
-// `dst`; rows at or past n are zero-filled.  All THREADS threads call.
-template <int ROWS, int D, int THREADS>
-__device__ __forceinline__ void load_tile(uint32_t dst,
-                                          const __nv_bfloat16* g,
+// Copy rows row0 .. row0 + ROWS - 1 of a [n, D] matrix of a 2-byte type
+// E (row stride `stride` elements, 16-byte aligned rows) into the swizzled
+// tile at `dst`; rows at or past n are zero-filled.  All THREADS threads
+// call.
+template <int ROWS, int D, int THREADS, typename E>
+__device__ __forceinline__ void load_tile(uint32_t dst, const E* g,
                                           long long stride, int row0, int n,
                                           int tid) {
   constexpr int CPR = D / 8;   // chunks per row
+  static_assert(sizeof(E) == 2, "a 16-byte chunk holds 8 elements");
   static_assert(ROWS * CPR % THREADS == 0, "tile must split evenly");
 #pragma unroll
   for (int i = 0; i < ROWS * CPR / THREADS; ++i) {
@@ -144,87 +158,108 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d (+)= A B, m64n64k16, A and B from shared memory (K-major).
+// d (+)= A B, m64n64k16, A and B from shared memory (K-major); TY the
+// operand type's name in the instruction.
+#define FLASH_TC_MMA_SS_N64(TY)                                              \
+  asm volatile(                                                              \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                          \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"           \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "    \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "    \
+      "%28, %29, %30, %31}, "                                                \
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"                                        \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),          \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),          \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),     \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),     \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),     \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),     \
+        "+f"(d[30]), "+f"(d[31])                                             \
+      : "l"(da), "l"(db), "r"(accumulate))
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t da,
                                            uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
+  if constexpr (is_f16<T>)
+    FLASH_TC_MMA_SS_N64("f16");
+  else
+    FLASH_TC_MMA_SS_N64("bf16");
 }
+#undef FLASH_TC_MMA_SS_N64
 
-// d += A B, m64n64k16, A from registers (four packed bf16 pairs), B
-// from shared memory, MN-major (imm-trans-b = 1).
+// d += A B, m64n64k16, A from registers (four packed pairs of T), B from
+// shared memory, MN-major (imm-trans-b = 1).
+#define FLASH_TC_MMA_RS_N64(TY)                                              \
+  asm volatile(                                                              \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                          \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"           \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "    \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "    \
+      "%28, %29, %30, %31}, "                                                \
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                          \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),          \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),          \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),     \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),     \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),     \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),     \
+        "+f"(d[30]), "+f"(d[31])                                             \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void mma_rs_n64(float (&d)[32],
                                            const uint32_t (&a)[4],
                                            uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  if constexpr (is_f16<T>)
+    FLASH_TC_MMA_RS_N64("f16");
+  else
+    FLASH_TC_MMA_RS_N64("bf16");
 }
+#undef FLASH_TC_MMA_RS_N64
 
-// d += A B, m64n128k16, A from registers (four packed bf16 pairs), B
-// from shared memory, MN-major (imm-trans-b = 1).
+// d += A B, m64n128k16, A from registers (four packed pairs of T), B from
+// shared memory, MN-major (imm-trans-b = 1).
+#define FLASH_TC_MMA_RS_N128(TY)                                             \
+  asm volatile(                                                              \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                          \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {"          \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "    \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "    \
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "    \
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "    \
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "                  \
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"                          \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),          \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),          \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),     \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),     \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),     \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),     \
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),     \
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),     \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),     \
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),     \
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),     \
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),     \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])                   \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void mma_rs_n128(float (&d)[64],
                                             const uint32_t (&a)[4],
                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  if constexpr (is_f16<T>)
+    FLASH_TC_MMA_RS_N128("f16");
+  else
+    FLASH_TC_MMA_RS_N128("bf16");
 }
+#undef FLASH_TC_MMA_RS_N128
 
-
-// d += A B with N = 64 or 128 (the two head sizes).
-template <int N>
+// d += A B with N = 64 or 128 (the two head sizes), operands of type T.
+template <int N, typename T = __nv_bfloat16>
 __device__ __forceinline__ void mma_rs(float (&d)[N / 2],
                                        const uint32_t (&a)[4], uint64_t db) {
   if constexpr (N == 64)
-    mma_rs_n64(d, a, db);
+    mma_rs_n64<T>(d, a, db);
   else
-    mma_rs_n128(d, a, db);
+    mma_rs_n128<T>(d, a, db);
 }
 
 // d (+)= A B, m64n128k16, A and B from shared memory, A K-major, B
@@ -334,19 +369,33 @@ __device__ __forceinline__ int acc_col(int i, int t) {
   return (i / 4) * 8 + (t % 4) * 2 + (i % 2);
 }
 
-// Two floats rounded to bf16 (round to nearest even), lo in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
+// Two floats rounded to T (bf16 or fp16, round to nearest even), lo in the
+// low half.
+template <typename T = __nv_bfloat16>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (is_f16<T>) {
+    const __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  } else {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
 }
 
-// The A fragment of the k-th 16-wide column slice of a 64 x N accumulator.
-template <int N>
+// The A fragment (pairs of T) of the k-th 16-wide column slice of a 64 x N
+// accumulator.
+template <typename T = __nv_bfloat16, int N>
 __device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&d)[N],
                                        int k) {
 #pragma unroll
   for (int j = 0; j < 4; ++j)
-    a[j] = pack_bf16(d[8 * k + 2 * j], d[8 * k + 2 * j + 1]);
+    a[j] = pack2<T>(d[8 * k + 2 * j], d[8 * k + 2 * j + 1]);
+}
+
+// Two floats rounded to T and stored at p (4-byte aligned): an output pair.
+template <typename T>
+__device__ __forceinline__ void store2(T* p, float lo, float hi) {
+  *reinterpret_cast<uint32_t*>(p) = pack2<T>(lo, hi);
 }
 
 // Sum of x over the four threads that share an accumulator row.

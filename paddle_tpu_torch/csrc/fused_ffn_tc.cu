@@ -119,7 +119,7 @@ __global__ void __launch_bounds__(WG * WGS) ffn_tc_kernel(
       v1 = decode::activate(v1 + bb.y, EPI);
     }
     *reinterpret_cast<uint32_t*>(c + (long long)r * N + col) =
-        pack_bf16(v0, v1);
+        pack2(v0, v1);
   }
 }
 

@@ -36,11 +36,15 @@
 //     reads no device value on the host and can be captured.  Inside a
 //     block the key loop of `decode_common.cuh` (shared with flash_decode
 //     and the fused layer): each warp walks runs of 32 keys through the
-//     table with 16-byte loads (4 fp32, 8 bf16 or 16 int8 values a lane;
+//     table with 16-byte loads (4 fp32, 8 bf16 / fp16 or 16 int8 values a
+//     lane;
 //     D / those lanes a key row, whole 64- to 512-byte rows per warp
 //     load), 4 loads of K and of V a lane in flight, and an online
-//     softmax in fp32.  p stays in fp32 (the plain version rounds the
-//     normalised p, the kernel does not: the FWD_COEF limit).  One split
+//     softmax in fp32.  p stays in fp32 in every type (the plain version
+//     rounds the normalised p to a bf16 pool's type, the kernel does not:
+//     the FWD_COEF limit; fp16 pools are computed in fp32 with p unrounded,
+//     as the TPU kernel's `fast` type is fp32 for any pool but bf16,
+//     `ragged_paged_attention.py:174-175`).  One split
 //     writes out; more write fp32 partials (m, l, acc[D]) that the last
 //     block of the (row, query, head) merges in split order (a
 //     self-resetting ticket).
@@ -63,7 +67,8 @@
 //
 // int8 pools (`ragged_paged_attention_int8`): codes beside fp32 scales
 // [num_blocks, H], value = code * scale -- the TPU kernel's `quant` branch
-// (`ragged_paged_attention.py:189-245`, `:311-328`), for any C >= 1.
+// (`ragged_paged_attention.py:189-245`, `:311-328`), for any C >= 1 and q,
+// k_new, v_new in fp32, bf16 or fp16 (read as fp32 for the quantization).
 //  1. Write.  One warp per (row, logical block the row's positions
 //     pos0 .. pos0 + C - 1 touch, K or V head): a chunk of C = 512 spans
 //     up to 33 blocks, so 33 * 2H warps; the decode step 2H a row.  The
@@ -538,14 +543,15 @@ cudaError_t launch(const void* q, const void* knew, const void* vnew,
 // blocks per (row, query, head); chunk_keys: keys per split at the least
 // (128).  part: fp32 scratch of B * C * H * max_splits * (D + 2) floats,
 // tickets B * C * H ints, zero before and after every launch (both unread
-// with max_splits 1).  Returns
-// the first CUDA error (cudaGetLastError()); 1 (cudaErrorInvalidValue) for
-// a head size or type the kernel does not take.
+// with max_splits 1).  dtype: the element type's code of q, k_new, v_new,
+// the pools and out (0 fp32, 1 bf16, 2 fp16).  Returns the first CUDA
+// error (cudaGetLastError()); 1 (cudaErrorInvalidValue) for a head size or
+// type code the kernel does not take.
 extern "C" int ragged_paged_attention(
     const void* q, const void* knew, const void* vnew, void* kpool,
     void* vpool, const void* table, const void* pos0, const void* lens,
     const void* slots, void* out, void* part, void* tickets, int B, int C,
-    int H, int D, int nb, int bs, int maxb, int is_bf16, int max_splits,
+    int H, int D, int nb, int bs, int maxb, int dtype, int max_splits,
     int chunk_keys, int parts, long long qsb, long long qsc, long long ksb,
     long long ksc, long long vsb, long long vsc, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -562,29 +568,31 @@ extern "C" int ragged_paged_attention(
   err = launch<T, DIM>(q, knew, vnew, kpool, vpool, t, p, n, sl, out, pt,    \
                        tk, B, C, H, nb, bs, maxb, max_splits, chunk_keys,    \
                        parts, qsb, qsc, ksb, ksc, vsb, vsc, scale, s)
-  if (D == 64 && is_bf16)
-    RPA_LAUNCH(__nv_bfloat16, 64);
-  else if (D == 64)
-    RPA_LAUNCH(float, 64);
-  else if (D == 128 && is_bf16)
-    RPA_LAUNCH(__nv_bfloat16, 128);
-  else if (D == 128)
-    RPA_LAUNCH(float, 128);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (D != 64 && D != 128) return static_cast<int>(cudaErrorInvalidValue);
+  switch (dtype * 2 + (D == 128)) {
+    case 0: RPA_LAUNCH(float, 64); break;
+    case 1: RPA_LAUNCH(float, 128); break;
+    case 2: RPA_LAUNCH(__nv_bfloat16, 64); break;
+    case 3: RPA_LAUNCH(__nv_bfloat16, 128); break;
+    case 4: RPA_LAUNCH(__half, 64); break;
+    case 5: RPA_LAUNCH(__half, 128); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 #undef RPA_LAUNCH
   return static_cast<int>(err);
 }
 
 // The int8-pool entry: the write launch, then the attend launch (parts as
-// above).  Returns the first CUDA error; 1 (cudaErrorInvalidValue) for a
-// head size or type the kernel does not take.
+// above).  dtype: the code of q, k_new, v_new and out (0 fp32, 1 bf16, 2
+// fp16; the pools are int8).  Returns the first CUDA error; 1
+// (cudaErrorInvalidValue) for a head size or type code the kernel does
+// not take.
 extern "C" int ragged_paged_attention_int8(
     const void* q, const void* knew, const void* vnew, void* kpool,
     void* vpool, void* kscale, void* vscale, const void* table,
     const void* pos0, const void* lens, const void* slots, void* out,
     void* part, void* tickets, int B, int C, int H, int D, int nb, int bs,
-    int maxb, int is_bf16, int max_splits, int chunk_keys, int parts,
+    int maxb, int dtype, int max_splits, int chunk_keys, int parts,
     long long qsb, long long qsc, long long ksb, long long ksc,
     long long vsb, long long vsc, float scale, float inv_qmax,
     void* stream) {
@@ -603,16 +611,16 @@ extern "C" int ragged_paged_attention_int8(
                             p, n, sl, out, pt, tk, B, C, H, nb, bs, maxb,    \
                             max_splits, chunk_keys, parts, qsb, qsc, ksb,    \
                             ksc, vsb, vsc, scale, inv_qmax, s)
-  if (D == 64 && is_bf16)
-    RPA8_LAUNCH(__nv_bfloat16, 64);
-  else if (D == 64)
-    RPA8_LAUNCH(float, 64);
-  else if (D == 128 && is_bf16)
-    RPA8_LAUNCH(__nv_bfloat16, 128);
-  else if (D == 128)
-    RPA8_LAUNCH(float, 128);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (D != 64 && D != 128) return static_cast<int>(cudaErrorInvalidValue);
+  switch (dtype * 2 + (D == 128)) {
+    case 0: RPA8_LAUNCH(float, 64); break;
+    case 1: RPA8_LAUNCH(float, 128); break;
+    case 2: RPA8_LAUNCH(__nv_bfloat16, 64); break;
+    case 3: RPA8_LAUNCH(__nv_bfloat16, 128); break;
+    case 4: RPA8_LAUNCH(__half, 64); break;
+    case 5: RPA8_LAUNCH(__half, 128); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 #undef RPA8_LAUNCH
   return static_cast<int>(err);
 }

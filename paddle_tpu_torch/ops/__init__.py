@@ -38,17 +38,16 @@ __all__ = ["flash_attention_arrays", "mha_reference", "FlashAttention",
 # every launch wrapper: a module or object with KERNEL and launches
 _KERNELS = (flash_attention, flash_attention.masked, flash_attention.segs,
             flash_attention.noncausal, flash_attention.tc,
-            flash_attention.tc32,
+            flash_attention.tc16, flash_attention.tc32,
             flash_attention.flash_bwd_dq,
             *flash_attention.flash_bwd_dq.variants.values(),
-            flash_attention.flash_bwd_dq.tc,
-            flash_attention.flash_bwd_dq.tc32,
+            *flash_attention.flash_bwd_dq.types.values(),
             flash_attention.flash_bwd_dkv,
             *flash_attention.flash_bwd_dkv.variants.values(),
-            flash_attention.flash_bwd_dkv.tc,
-            flash_attention.flash_bwd_dkv.tc32,
+            *flash_attention.flash_bwd_dkv.types.values(),
             ragged_paged_attention, ragged_paged_attention.int8,
-            flash_decode, fused_decode, fused_mlp.ln_fwd, fused_mlp.ln_bwd,
+            ragged_paged_attention.fp16, ragged_paged_attention.int8_fp16,
+            flash_decode, flash_decode.fp16, fused_decode, fused_mlp.ln_fwd, fused_mlp.ln_bwd,
             fused_mlp.ffn_fwd, fused_mlp.ffn_tc, fused_mlp.ffn_tc32,
             fused_mlp.ffn_decode)
 

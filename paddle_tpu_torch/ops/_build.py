@@ -16,7 +16,10 @@ cross-block sum (``fused_ffn.cu``, ``flash_decode.cu``,
 ``fused_decode_layer.cu``, ``ragged_paged_attention.cu``) finds itself;
 `scratch` the kept per-device buffers of the kernels' partial sums; `sms`
 the SM count the wrappers' planners fill; `device_int` the argument pair of
-a length or position that may live in device memory.
+a length or position that may live in device memory; `dtype_code` the
+element type the attention kernels' C entries take (0 float32, 1
+bfloat16, 2 float16): each entry returns ``cudaErrorInvalidValue`` for a
+code it does not instantiate, which `check` raises on.
 
 A CUDA graph keeps the addresses its launches were captured with, so the
 kept buffers are safe to capture: a buffer that grows is replaced but
@@ -34,7 +37,7 @@ import subprocess
 import threading
 
 __all__ = ["SRC_DIR", "BUILD_DIR", "build", "load", "check", "tickets",
-           "scratch", "sms", "device_int"]
+           "scratch", "sms", "device_int", "dtype_code", "Counter"]
 
 SRC_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
@@ -110,6 +113,31 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(build([name])[name])
             _LIBS[name] = lib
         return lib
+
+
+class Counter:
+    """The launch counter of one variant of a kernel (a branch or a type
+    that a wrapper counts apart), named ``KERNEL``, built from
+    ``csrc/<SOURCE>.cu``."""
+
+    def __init__(self, kernel, source):
+        self.KERNEL = kernel
+        self.SOURCE = source
+        self.launches = 0
+
+
+_DTYPE_CODES = ("float32", "bfloat16", "float16")
+
+
+def dtype_code(dtype) -> int:
+    """The element-type code of the attention kernels' C entries: 0
+    float32, 1 bfloat16, 2 float16.  Raises for any other type, so that no
+    tensor reaches an instantiation of another type."""
+    name = str(dtype).replace("torch.", "")
+    if name not in _DTYPE_CODES:
+        raise ValueError(f"the kernels take float32, bfloat16 or float16, "
+                         f"got {dtype}")
+    return _DTYPE_CODES.index(name)
 
 
 def check(err: int, what: str) -> None:

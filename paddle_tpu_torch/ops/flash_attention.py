@@ -16,9 +16,11 @@ statistics, and the backward launches the two kernels of
 
 Each source has one entry per kernel, which picks the template
 instantiation (``MASKED`` for a mask and / or ``kv_lens``, ``SEGS``,
-``CAUSAL``) from the branches it is given, and the design from the type:
-in bfloat16 all three run on the tensor cores (``wgmma``,
-``csrc/flash_tc.cuh``); in float32 all three run on the tensor cores
+``CAUSAL``) from the branches it is given, and the design from the type,
+passed as a code (`_build.dtype_code`): in bfloat16 and float16 all three
+run on the tensor cores (``wgmma``, ``csrc/flash_tc.cuh``; one template,
+instantiated per 16-bit type, p and ds rounded to that type as the TPU
+kernels round them); in float32 all three run on the tensor cores
 too, each fp32 product as three TF32 products of the operands' hi and lo
 parts (split TF32, as accurate as fp32 products: ``flash_tc.cuh``).
 Each wrapper counts
@@ -27,13 +29,12 @@ prefill and unpacked training) under the kernel's name, and the others
 apart, by the first of: ``segs`` (any call with segment ids), ``mask`` (a
 mask or ``kv_lens``), ``noncausal``.  The tensor-core launches are counted
 once more, apart, any branch: bfloat16 under ``flash_fwd_causal:tc``,
-``flash_bwd_dq_causal:tc`` and ``flash_bwd_dkv_causal:tc``, float32 under
-``flash_fwd_causal:tc32``, ``flash_bwd_dq_causal:tc32`` and
-``flash_bwd_dkv_causal:tc32``.  The kernels copy 16-byte rows: on the
-card q, k, v (and dO) must start on 16 bytes, with batch and sequence
-strides of a multiple of 16 bytes (8 bfloat16 or 4 float32 elements; the
-slices of a fused ``[B, S, 3, H, D]`` projection are); anything else
-raises.
+``flash_bwd_dq_causal:tc`` and ``flash_bwd_dkv_causal:tc``, float16 under
+``:tc16`` and float32 under ``:tc32`` of the same names.  The kernels copy
+16-byte rows: on the card q, k, v (and dO) must start on 16 bytes, with
+batch and sequence strides of a multiple of 16 bytes (8 bfloat16 or
+float16, or 4 float32 elements; the slices of a fused ``[B, S, 3, H, D]``
+projection are); anything else raises.
 
 The softmax statistic the backward reads is the logsumexp, except with a
 mask or ``kv_lens``: there it is the pair (row max ``m``, ``log l``), which
@@ -67,22 +68,19 @@ launches = 0          # causal (no mask, kv_lens or segments) launches
 _NEG_INF = -1e30
 VARIANTS = ("mask", "segs", "noncausal")
 
-
-class _Variant:
-    """Launch counter of one variant of a kernel (module docstring)."""
-
-    def __init__(self, kernel, source):
-        self.KERNEL = kernel
-        self.SOURCE = source
-        self.launches = 0
-
-
-masked = _Variant(KERNEL + ":mask", SOURCE)
-segs = _Variant(KERNEL + ":segs", SOURCE)
-noncausal = _Variant(KERNEL + ":noncausal", SOURCE)
-tc = _Variant(KERNEL + ":tc", SOURCE)   # bf16: the tensor-core kernel
-tc32 = _Variant(KERNEL + ":tc32", SOURCE)   # fp32: the split-TF32 kernel
+# the variants' counters (module docstring); by type: bf16 and fp16 the
+# tensor-core kernel, fp32 the split-TF32 one
+masked = _build.Counter(KERNEL + ":mask", SOURCE)
+segs = _build.Counter(KERNEL + ":segs", SOURCE)
+noncausal = _build.Counter(KERNEL + ":noncausal", SOURCE)
+tc = _build.Counter(KERNEL + ":tc", SOURCE)
+tc16 = _build.Counter(KERNEL + ":tc16", SOURCE)
+tc32 = _build.Counter(KERNEL + ":tc32", SOURCE)
 _FWD_VARIANTS = {"mask": masked, "segs": segs, "noncausal": noncausal}
+# the counter suffix of each type the kernels take
+_TYPE_SUFFIX = {torch.bfloat16: "tc", torch.float16: "tc16",
+                torch.float32: "tc32"}
+_FWD_TYPES = {torch.bfloat16: tc, torch.float16: tc16, torch.float32: tc32}
 
 
 def variant_name(is_causal, mask, kv_lens, segment_ids):
@@ -270,8 +268,9 @@ def _check_qkv(q, k, v, causal=True):
     if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != q.shape[2:]:
         raise ValueError(f"shape mismatch q {tuple(q.shape)} k "
                          f"{tuple(k.shape)} v {tuple(v.shape)}")
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"kernel takes float32 or bfloat16, got {q.dtype}")
+    if q.dtype not in _TYPE_SUFFIX:
+        raise ValueError(f"kernel takes float32, bfloat16 or float16, got "
+                         f"{q.dtype}")
     if d not in (64, 128):
         raise ValueError(f"kernel takes head_dim 64 or 128, got {d}")
     if causal and k.shape[1] < sq:
@@ -355,7 +354,7 @@ def _launch(q, k, v, scale, causal=True, mask=None, lens=None, sid=None):
     fn = _bind(_build.load(SOURCE).flash_fwd, 10, 7, 11)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              lse.data_ptr(), *pair_ptrs, *ptrs, b, h, sq, sk, d,
-             int(q.dtype == torch.bfloat16), c, q.stride(0), q.stride(1),
+             _build.dtype_code(q.dtype), c, q.stride(0), q.stride(1),
              k.stride(0), k.stride(1), v.stride(0), v.stride(1), *strides,
              float(scale), _stream(q))
     _build.check(err, KERNEL)
@@ -364,16 +363,17 @@ def _launch(q, k, v, scale, causal=True, mask=None, lens=None, sid=None):
         launches += 1
     else:
         _FWD_VARIANTS[name].launches += 1
-    (tc if q.dtype == torch.bfloat16 else tc32).launches += 1
+    _FWD_TYPES[q.dtype].launches += 1
     return out, lse, pair
 
 
 class _BwdKernel:
     """Launch wrapper of one kernel of ``csrc/flash_bwd_causal.cu`` (the
     extern entry ``entry``), with a launch counter for its causal launches
-    with no other branch, one per variant (``variants``), one for its bf16
-    launches (``tc``: the bf16 tensor-core kernel) and one for its fp32
-    launches (``tc32``: the split-TF32 tensor-core kernel).
+    with no other branch, one per variant (``variants``), and one per type
+    (``types``): its bf16 launches (``tc``: the 16-bit tensor-core
+    kernel), its fp16 launches (``tc16``: the same kernel in fp16) and its
+    fp32 launches (``tc32``: the split-TF32 tensor-core kernel).
     ``(q, k, v, do, lse, delta, scale)`` plus the branches -> ``dq`` (the dQ kernel, one output) or ``(dk, dv)`` (the
     dK/dV kernel, two), each a contiguous [B, S, H, D] in the inputs'
     dtype; with a mask or kv_lens, ``lse`` is log l and ``row_max`` the
@@ -387,10 +387,13 @@ class _BwdKernel:
         self.KERNEL = kernel
         self.launches = 0          # causal launches since the reset
         self._entry = entry
-        self.variants = {n: _Variant(f"{kernel}:{n}", BWD_SOURCE)
+        self.variants = {n: _build.Counter(f"{kernel}:{n}", BWD_SOURCE)
                          for n in VARIANTS}
-        self.tc = _Variant(f"{kernel}:tc", BWD_SOURCE)
-        self.tc32 = _Variant(f"{kernel}:tc32", BWD_SOURCE)
+        self.types = {dt: _build.Counter(f"{kernel}:{n}", BWD_SOURCE)
+                      for dt, n in _TYPE_SUFFIX.items()}
+        self.tc, self.tc16, self.tc32 = (
+            self.types[dt] for dt in (torch.bfloat16, torch.float16,
+                                      torch.float32))
         self._n_out = n_out
 
     def __call__(self, q, k, v, do, lse, delta, scale, *, causal=True,
@@ -404,7 +407,6 @@ class _BwdKernel:
 
     def _launch(self, q, k, v, do, lse, delta, scale, causal, mask, lens,
                 segs, row_max):
-        bf16 = q.dtype == torch.bfloat16
         _check_qkv(q, k, v, causal)
         if do.shape != q.shape or do.dtype != q.dtype \
                 or do.device != q.device or not _head_layout(do):
@@ -428,7 +430,7 @@ class _BwdKernel:
         rows = sq if self._n_out == 1 else sk
         outs = [torch.empty((b, rows, h, d), dtype=q.dtype, device=q.device)
                 for _ in range(self._n_out)]
-        common = (b, h, sq, sk, d, int(bf16))
+        common = (b, h, sq, sk, d, _build.dtype_code(q.dtype))
         qkvd = (q.stride(0), q.stride(1), k.stride(0), k.stride(1),
                 v.stride(0), v.stride(1), do.stride(0), do.stride(1))
         ptrs, strides, c = _branch_args(q, causal, mask, lens, segs)
@@ -442,7 +444,7 @@ class _BwdKernel:
         _build.check(err, self.KERNEL)
         counter = self if name is None else self.variants[name]
         counter.launches += 1
-        (self.tc if bf16 else self.tc32).launches += 1
+        self.types[q.dtype].launches += 1
         return outs[0] if self._n_out == 1 else tuple(outs)
 
 
@@ -516,12 +518,12 @@ def flash_attention_arrays(q, k, v, attn_mask=None, is_causal=False,
     compose with each other and with causal as in `mha_reference`.
 
     On a CUDA tensor this launches the hand-written kernels — any S, head
-    dims 64 and 128, float32 or bfloat16, every branch — and raises on
-    anything they do not take; it never falls back.  On a CPU tensor it
-    computes `mha_reference`.  When grad is enabled and q, k or v requires
-    it, the call goes through `FlashAttention`, whose backward is the two
-    backward kernels (CUDA) or the plain backward (CPU); the mask, kv_lens
-    and ids get no gradient, as on the JAX kernel path.  On the CPU a mask
+    dims 64 and 128, float32, bfloat16 or float16, every branch — and
+    raises on anything they do not take; it never falls back.  On a CPU
+    tensor it computes `mha_reference`.  When grad is enabled and q, k or
+    v requires it, the call goes through `FlashAttention`, whose backward
+    is the two backward kernels (CUDA) or the plain backward (CPU); the
+    mask, kv_lens and ids get no gradient, as on the JAX kernel path.  On the CPU a mask
     that itself requires grad is differentiated through `mha_reference`
     instead (the JAX fallback's VJP)."""
     d = q.shape[-1]

@@ -40,11 +40,15 @@ import torch
 from . import _build
 
 __all__ = ["cached_attention_arrays", "flash_decode_arrays",
-           "flash_decode_reference"]
+           "flash_decode_reference", "fp16"]
 
 KERNEL = "flash_decode"
 SOURCE = KERNEL       # csrc/<SOURCE>.cu
 launches = 0          # kernel launches since the last reset
+
+
+# the float16 launches, counted once more
+fp16 = _build.Counter(KERNEL + ":fp16", SOURCE)
 
 _NEG_INF = -1e30
 
@@ -57,8 +61,10 @@ def flash_decode_reference(q, k_cache, v_cache, length, scale=None):
     The kernel's arithmetic: fp32 logits ``q . k`` (the products are NOT
     rounded to bf16 first, unlike the TPU kernel's per-head matmul against
     an indicator), fp32 softmax statistics, each probability ``exp(s - m)``
-    rounded to the cache dtype before the value product (`seg_dot(p,
-    expand)`, `pallas_ops.py:997`), the sum divided by the fp32 ``l``."""
+    rounded to a bf16 cache's dtype before the value product (`seg_dot(p,
+    expand)`, `pallas_ops.py:997`) and kept in fp32 for an fp32 or fp16
+    cache (the TPU kernel's ``fast`` type, `:1038`: fp32 for any cache but
+    bf16), the sum divided by the fp32 ``l``."""
     b, _, h, d = q.shape
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     length = int(length)
@@ -67,7 +73,9 @@ def flash_decode_reference(q, k_cache, v_cache, length, scale=None):
     s = torch.einsum("bhd,bkhd->bhk", q[:, 0].float(), kc) * scale
     p = torch.exp(s - s.amax(-1, keepdim=True))
     l = p.sum(-1)                                            # [B, H]
-    acc = torch.einsum("bhk,bkhd->bhd", p.to(vc.dtype).float(), vc.float())
+    if vc.dtype == torch.bfloat16:
+        p = p.to(vc.dtype).float()
+    acc = torch.einsum("bhk,bkhd->bhd", p, vc.float())
     out = acc / l.clamp(min=1e-30)[..., None]
     return out[:, None].to(q.dtype)
 
@@ -76,8 +84,9 @@ def _check(q, k_cache, v_cache, length):
     if q.dim() != 4 or q.shape[1] != 1:
         raise ValueError(f"q must be [B, 1, H, D], got {tuple(q.shape)}")
     b, _, h, d = q.shape
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"kernel takes float32 or bfloat16, got {q.dtype}")
+    if q.dtype not in (torch.float32, torch.bfloat16, torch.float16):
+        raise ValueError(f"kernel takes float32, bfloat16 or float16, got "
+                         f"{q.dtype}")
     if d not in (64, 128):
         raise ValueError(f"kernel takes head_dim 64 or 128, got {d}")
     if q.stride(3) != 1 or (h > 1 and q.stride(2) != d):
@@ -120,9 +129,9 @@ def flash_decode_arrays(q, k_cache, v_cache, length, scale=None):
     tensor on q's device that the kernel reads there (clamped into
     [1, S_max]).
 
-    On a CUDA tensor this launches the kernel (float32 / bfloat16, head
-    dims 64 and 128, q and rings of one dtype) and raises on anything it
-    does not take; it never falls back.  On a CPU tensor it computes
+    On a CUDA tensor this launches the kernel (float32 / bfloat16 /
+    float16, head dims 64 and 128, q and rings of one dtype) and raises on
+    anything it does not take; it never falls back.  On a CPU tensor it computes
     `flash_decode_reference`."""
     return _decode(q, k_cache, v_cache, length, 0, scale)
 
@@ -152,11 +161,13 @@ def _decode(q, k_cache, v_cache, n, add, scale):
     err = lib.flash_decode(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
         0 if part is None else part.data_ptr(), tickets.data_ptr(), ptr,
-        b, h, d, s_max, length + add, int(q.dtype == torch.bfloat16),
+        b, h, d, s_max, length + add, _build.dtype_code(q.dtype),
         q.stride(0), float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, KERNEL)
     launches += 1
+    if q.dtype == torch.float16:
+        fp16.launches += 1
     return out
 
 

@@ -5,7 +5,8 @@ int8 pools with per-block-per-head scales.
 On a CUDA tensor `ragged_paged_attention_arrays` launches a kernel of
 ``csrc/ragged_paged_attention.cu`` (any chunk width C >= 1: decode rows and
 chunked-prefill continuations): ``ragged_paged_attention`` for fp pools,
-``ragged_paged_attention_int8`` (counted apart, as `int8`) for int8 pools.
+``ragged_paged_attention_int8`` (counted apart, as `int8`) for int8 pools;
+a float16 launch counts once more, as `fp16` or `int8_fp16`.
 Its attend launch is split-K: `ragged_splits` takes the grid's splits
 per (row, query, head) from host-known shapes alone (B, C, H and the
 table's width), and each block finds its row's own split count from
@@ -16,7 +17,12 @@ On a CPU tensor it computes `ragged_paged_attention_reference`, the JAX
 fallback composition (`:521-534`), which is the oracle this port is held
 against: the paged write then `paged_attention_arrays` for fp pools; the
 quantized write then the scale-folded attention `folded_quant_attention`
-for int8 pools.
+for int8 pools.  fp pools are float32, bfloat16 or float16 (q's type);
+int8 pools take q, k_new and v_new in any of the three.  The kernel keeps
+p in fp32 in every type, as the TPU kernel computes fp16 pools (and int8)
+in fp32 (`ragged_paged_attention.py:174-175`); the plain version rounds
+the normalised probabilities to an fp pool's type, as the JAX fallback
+does.
 """
 from __future__ import annotations
 
@@ -32,7 +38,8 @@ from .paged_attention import (INV_QMAX, _NEG_INF, paged_attention_arrays,
 
 __all__ = ["ragged_paged_attention_arrays",
            "ragged_paged_attention_reference", "folded_quant_attention",
-           "ragged_paged_attention_part", "ragged_splits", "int8"]
+           "ragged_paged_attention_part", "ragged_splits", "int8", "fp16",
+           "int8_fp16"]
 
 KERNEL = "ragged_paged_attention"
 SOURCE = KERNEL       # csrc/<SOURCE>.cu
@@ -42,14 +49,11 @@ CHUNK = 128           # keys per split: 8 pool blocks of 16
 _WAVE = 8             # attend blocks an SM that the splits aim to fill
 
 
-class _Int8Kernel:
-    """Launch counter of the int8-pool entry of the same source."""
-    KERNEL = "ragged_paged_attention:int8"
-    SOURCE = SOURCE
-    launches = 0
-
-
-int8 = _Int8Kernel()
+int8 = _build.Counter(KERNEL + ":int8", SOURCE)   # the int8-pool entry
+# float16 launches, counted once more: fp16 pools, and int8 pools with
+# fp16 q (the fp16 instantiations of the two entries)
+fp16 = _build.Counter(KERNEL + ":fp16", SOURCE)
+int8_fp16 = _build.Counter(KERNEL + ":int8:fp16", SOURCE)
 
 
 def folded_quant_attention(q, k_blocks, v_blocks, k_scales, v_scales,
@@ -160,8 +164,9 @@ def _check(q, k_new, v_new, k_blocks, v_blocks, block_table, pos0, kv_lens,
                     or not t.is_contiguous() or t.device != q.device):
                 raise ValueError(f"{name} must be a contiguous float32 "
                                  f"{(nb, h)} on {q.device}")
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"kernel takes float32 or bfloat16, got {q.dtype}")
+    if q.dtype not in (torch.float32, torch.bfloat16, torch.float16):
+        raise ValueError(f"kernel takes float32, bfloat16 or float16, got "
+                         f"{q.dtype}")
     if d not in (64, 128):
         raise ValueError(f"kernel takes head_dim 64 or 128, got {d}")
     shapes = (("block_table", block_table, 2), ("pos0", pos0, 1),
@@ -210,7 +215,7 @@ def _launch(parts, q, k_new, v_new, k_blocks, v_blocks, block_table, pos0,
              slots.data_ptr(), out.data_ptr(),
              _build.scratch(KERNEL, dev, nbytes) if nbytes else 0,
              _build.tickets(dev, b * c * h).data_ptr() if nbytes else 0]
-    ints = [b, c, h, d, nb, bs, maxb, int(q.dtype == torch.bfloat16),
+    ints = [b, c, h, d, nb, bs, maxb, _build.dtype_code(q.dtype),
             splits, CHUNK, parts]
     strides = [q.stride(0), q.stride(1), k_new.stride(0), k_new.stride(1),
                v_new.stride(0), v_new.stride(1)]
@@ -254,9 +259,13 @@ def ragged_paged_attention_arrays(q, k_new, v_new, k_blocks, v_blocks,
     ``(k_scales, v_scales)`` for int8 pools — mirrors the JAX signature.
     Output at padding rows and padded query positions is unspecified.
 
-    On a CUDA tensor this launches the kernel (q float32 / bfloat16, head
-    dims 64 and 128) and raises on anything it does not take; it never
-    falls back.  On a CPU tensor it computes the reference."""
+    On a CUDA tensor this launches the kernel (q float32 / bfloat16 /
+    float16, fp pools of q's type or int8 pools; head dims 64 and 128) and
+    raises on anything it does not take; it never falls back.  Any block
+    size the engine takes is taken, fp16 pools too (the TPU kernel's gate
+    asks a sublane multiple of the pool type: 8 rows for fp16,
+    `ragged_paged_attention.py:106`; the card has no such tiling).  On a
+    CPU tensor it computes the reference."""
     global launches
     d = q.shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
@@ -269,6 +278,8 @@ def ragged_paged_attention_arrays(q, k_new, v_new, k_blocks, v_blocks,
             slots, k_scales, v_scales, scale=scale)
     out = _launch(3, q, k_new, v_new, k_blocks, v_blocks, block_table,
                   pos0, kv_lens, slots, k_scales, v_scales, scale)
+    if q.dtype == torch.float16:
+        (int8_fp16 if quant else fp16).launches += 1
     if quant:
         int8.launches += 1
         return out, k_blocks, v_blocks, k_scales, v_scales

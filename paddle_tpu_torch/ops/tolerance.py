@@ -95,6 +95,43 @@ multiplies.
   ``da |Wo| + FP32_SUM (|a| |Wo| + |bo| + |x|)``; the limit of y is the
   spread of y32.
 
+float16: the bf16 argument with fp16's unit roundoff, 2^-11 (a 10-bit
+mantissa), and its narrow range: values below 2^-14 are subnormal, spaced
+2^-24 apart, so rounding one moves it by up to 2^-25 absolute, not
+relative; scores, softmax statistics and sums stay fp32 (65504, fp16's
+largest value, bounds nothing but the stored values).  Per element
+
+    |out - ref| <= 2^-10 max(|out|, |ref|) + (coef + 2^-16) mag
+                   + 2^-24 (1 + sub)
+
+(`fp16_limit`): one fp16 step of the output (each side rounds once, by at
+most 2^-11, or 2^-25 absolute below 2^-14: the 2^-24); the intermediates
+each side rounds, ``coef`` times the same magnitudes as in bf16; the fp32
+sums in other orders (``FP32_SUM`` = 2^-16 of the magnitudes); and where a
+rounded intermediate can be subnormal, 2^-24 times ``sub``, the sum of
+the magnitudes it multiplies:
+
+- flash forward (``FP16_FLASH_FWD_COEF = 2^-10``): both sides round p to
+  fp16 (the kernel at its tile's running max, the plain version
+  normalised), 2^-11 each; a subnormal p, 2^-25 absolute each, weights
+  one |v|: ``sub = sum over the row's allowed keys of |v|``
+  (`flash_fwd_subnormal`).
+- flash backward (``FP16_BWD_COEF = 2^-10``): p and ds rounded at the
+  same points from fp32 values apart in their last bits, as in bf16, one
+  step apart at most; a subnormal p or ds adds 2^-24 times what it
+  multiplies: sum of |dO| over the key's allowed queries (dV), scale sum
+  of |Q| (dK), scale sum of |K| over the query's allowed keys (dQ)
+  (`flash_bwd_subnormal`).  Under a loss scale an fp16 ds may overflow to
+  inf; both sides then give a non-finite gradient, which a loss scaler
+  skips (a NaN still fails `compare`).
+- ragged (``FP16_FWD_COEF = 2^-11``): the kernel keeps p in fp32, as the
+  TPU kernel computes fp16 pools in fp32 (`ragged_paged_attention.py:174`);
+  the plain version (the JAX fallback) rounds the normalised p to fp16:
+  2^-11 P|V|, ``sub`` the sum of |v| over the row's keys.
+- decode (``FP16_DECODE_COEF = 0``): neither rounds p (the TPU kernel's
+  ``fast`` type is fp32 for an fp16 cache, `pallas_ops.py:1038`, and the
+  plain version mirrors it), so the fp32 limit plus the output's step.
+
 A kernel whose partner rounds each ``q_d k_d`` product to bf16 before the
 per-head sum (the TPU decode kernels) moves each score by up to
 ``qk_rounding * scale * sum_d |q_d k_d|`` more; the decode and fused-layer
@@ -105,12 +142,17 @@ from __future__ import annotations
 
 import torch
 
-from .flash_attention import attention_delta, mha_reference, recompute_probs
+from .flash_attention import (_logits, attention_delta, mha_reference,
+                              recompute_probs)
 from .flash_decode import flash_decode_reference
 from .fused_mlp import _act, fused_layernorm_reference
 
 __all__ = ["BF16_STEP", "FWD_COEF", "FLASH_FWD_COEF", "BWD_COEF", "DECODE_COEF", "LN_COEF",
-           "LN_BWD_COEF", "FP32_SUM", "bf16_limit", "compare",
+           "LN_BWD_COEF", "FP32_SUM", "FP16_STEP", "FP16_TINY",
+           "FP16_FLASH_FWD_COEF", "FP16_BWD_COEF", "FP16_FWD_COEF",
+           "FP16_DECODE_COEF", "bf16_limit", "fp16_limit", "half_limit",
+           "flash_fwd_subnormal", "flash_bwd_subnormal", "flash_fwd_limit",
+           "flash_bwd_limits", "compare",
            "flash_fwd_magnitude", "flash_bwd_magnitudes", "decode_magnitude",
            "decode_limit", "ln_magnitude", "ln_bwd_magnitudes",
            "ln_bwd_limits", "rounding_spread", "fused_decode_limits",
@@ -124,12 +166,92 @@ DECODE_COEF = 2.0 ** -7
 LN_COEF = 2.0 ** -20
 LN_BWD_COEF = 1e-5
 FP32_SUM = 2.0 ** -16
+FP16_STEP = 2.0 ** -10
+FP16_TINY = 2.0 ** -24
+FP16_FLASH_FWD_COEF = 2.0 ** -10
+FP16_BWD_COEF = 2.0 ** -10
+FP16_FWD_COEF = 2.0 ** -11
+FP16_DECODE_COEF = 0.0
+# the bf16 coefficient of each kind of kernel and its fp16 counterpart
+_COEFS = {"flash_fwd": (FLASH_FWD_COEF, FP16_FLASH_FWD_COEF),
+          "bwd": (BWD_COEF, FP16_BWD_COEF), "fwd": (FWD_COEF, FP16_FWD_COEF),
+          "decode": (DECODE_COEF, FP16_DECODE_COEF)}
 
 
 def bf16_limit(out, want, mag, coef):
     """Per-element bf16 limit of the module docstring."""
     return BF16_STEP * torch.maximum(out.float().abs(), want.float().abs()) \
         + coef * mag
+
+
+def fp16_limit(out, want, mag, coef, sub=None):
+    """Per-element fp16 limit of the module docstring; ``sub`` the sum of
+    the magnitudes a subnormal intermediate multiplies (None: none can
+    be)."""
+    limit = (FP16_STEP * torch.maximum(out.float().abs(), want.float().abs())
+             + (coef + FP32_SUM) * mag + FP16_TINY)
+    return limit if sub is None else limit + FP16_TINY * sub
+
+
+def half_limit(out, want, mag, kind, sub=None):
+    """The limit of a bf16 or fp16 output (by ``out``'s dtype) of a kernel
+    of ``kind``: "flash_fwd", "bwd", "fwd" (kernels that keep p in fp32
+    against a plain version that rounds it) or "decode"."""
+    bf16, fp16 = _COEFS[kind]
+    if out.dtype == torch.float16:
+        return fp16_limit(out, want, mag, fp16, sub)
+    return bf16_limit(out, want, mag, bf16)
+
+
+def _allowed(q, k, is_causal, mask, kv_lens, segment_ids):
+    """fp32 [B, H, Sq, Sk]: 1 where a key can carry weight (its logit is
+    not excluded), else 0."""
+    logits = _logits(q, k, 1.0, is_causal, mask, kv_lens, segment_ids)
+    return (logits > -1e29).float()
+
+
+def flash_fwd_subnormal(q, k, v, is_causal=True, mask=None, kv_lens=None,
+                        segment_ids=None):
+    """[B, Sq, H, D]: the sum of |v| over each row's allowed keys, which a
+    subnormal fp16 p may weight (module docstring)."""
+    allowed = _allowed(q, k, is_causal, mask, kv_lens, segment_ids)
+    return torch.einsum("bhqk,bkhd->bqhd", allowed, v.float().abs())
+
+
+def flash_bwd_subnormal(q, k, do, scale, causal=True, mask=None, lens=None,
+                        segs=None):
+    """(sub_dq, sub_dk, sub_dv) [B, S, H, D]: what a subnormal fp16 ds or p
+    multiplies (module docstring)."""
+    allowed = _allowed(q, k, causal, mask, lens, segs)
+    sub_dq = torch.einsum("bhqk,bkhd->bqhd", allowed, k.float().abs())
+    sub_dk = torch.einsum("bhqk,bqhd->bkhd", allowed, q.float().abs())
+    sub_dv = torch.einsum("bhqk,bqhd->bkhd", allowed, do.float().abs())
+    return sub_dq * scale, sub_dk * scale, sub_dv
+
+
+def flash_fwd_limit(out, want, q, k, v, is_causal=True, mask=None,
+                    kv_lens=None, segment_ids=None):
+    """Per-element limit of a bf16 or fp16 flash forward output against
+    the plain version."""
+    branches = (is_causal, mask, kv_lens, segment_ids)
+    mag = flash_fwd_magnitude(q, k, v, *branches)
+    sub = (flash_fwd_subnormal(q, k, v, *branches)
+           if out.dtype == torch.float16 else None)
+    return half_limit(out, want, mag, "flash_fwd", sub)
+
+
+def flash_bwd_limits(got, want, q, k, v, out, lse, do, scale, **branches):
+    """Per-element limits of a bf16 or fp16 backward's (dq, dk, dv)
+    ``got`` against ``want``; ``branches`` the keywords of
+    `recompute_probs`."""
+    mags = flash_bwd_magnitudes(q, k, v, out, lse, do, scale, **branches)
+    subs = (None,) * 3
+    if q.dtype == torch.float16:
+        subs = flash_bwd_subnormal(q, k, do, scale, **{
+            n: branches[n] for n in ("causal", "mask", "lens", "segs")
+            if n in branches})
+    return [half_limit(g, w, m, "bwd", s)
+            for g, w, m, s in zip(got, want, mags, subs)]
 
 
 def compare(out, want, limit):
@@ -180,9 +302,10 @@ def _qk_abs_max(qa, keys):
 
 def decode_limit(out, want, q, k_cache, v_cache, length, scale,
                  qk_rounding=0.0):
-    """Per-element bf16 limit of a decode output against ``want``."""
+    """Per-element bf16 or fp16 limit of a decode output against
+    ``want``."""
     mag = decode_magnitude(q, k_cache, v_cache, length, scale)
-    limit = bf16_limit(out, want, mag, DECODE_COEF)
+    limit = half_limit(out, want, mag, "decode")
     if qk_rounding:
         b, _, h, d = q.shape
         keys = k_cache[:, :length].reshape(b, length, h, d).float()
