@@ -290,7 +290,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
    S=1024 / 896, the ragged kernel at the decode step, the verify step
    (8, 5) and a chunk of 512 on fp16 pools and at the decode step and
    C=512 on int8 pools with fp16 q, flash decode at full context (H=12
-   D=64, H=16 D=128); times, bounds and SDPA times as phase 2.  12b:
+   D=64, H=16 D=128), the LayerNorm forward at 8192 and 8 rows (fp16 x
+   and w; fp16 x, fp32 w), its backward at 8192 (both) and 200 rows, the
+   FFN at 8 rows (decode design), 2048 and 8192 (tensor cores) and
+   I=3008 (CUDA cores); times, bounds and SDPA / ``F.layer_norm`` times
+   as phase 2.  12b:
    GPT-2 124M stacked, weights from seed 0, cast to fp16 by
    ``amp.decorate(level="O2", dtype="float16")``, served by `LLMEngine`
    (block 16, 8 sequences) on fp16 and on int8 pools: five greedy
@@ -308,14 +312,32 @@ Phases, in order; any failure exits non-zero and prints no result line:
    fp32 model's top logit there; `cpu_differences`).  12c: default-mode
    ``generate`` of the same fp16 model, B=8 256 + 32 greedy, eager and
    captured (identical tokens, one capture, 12 fp16 flash decode launches
-   a step), teacher-forced as 12b.  12d: configuration A's recipe (phase
+   a step), teacher-forced as 12b; then once more under PTPU_PALLAS_LN=1
+   (a second capture; ``ln_f`` on the fp16 LayerNorm, one launch a
+   forward), teacher-forced too.  12d: configuration A's recipe (phase
    9b) under ``auto_cast(level="O1", dtype="float16")`` over fp32
    weights and under O2 after ``decorate(dtype="float16")``, each with
-   ``GradScaler(init_loss_scaling=2**15)``, without the LN / FFN flags
-   (their kernels take fp32 and bf16 only), B=8 S=1024, 2 warm-up and
-   6 timed steps: losses finite and falling, the scale and skipped
-   steps, ``:tc16`` launches, ms per step and the profiled step.
-8. Summary: one JSON line of the thirty-four entries (the nine kernels,
+   ``GradScaler(init_loss_scaling=2**15)``, without and then with the LN
+   and FFN flags, B=8 S=1024, 2 warm-up and 6 timed steps: losses finite
+   and falling, the scale and skipped steps (with the flags: the scale
+   stays, no step skipped), launches (``:tc16``; with the flags the LN
+   kernels in fp32, the black list, and the FFN's tensor cores in fp16
+   under O1 only: under O2 its gate refuses the fp32 LN output beside
+   fp16 weights, as JAX's does), ms per step and the profiled step.
+   12e: ``generate`` of the O2-cast per-layer model under both flags,
+   B=8 256 + 32, eager and captured (identical tokens, one capture): the
+   fp16 LayerNorm (25 a forward), the FFN's tensor cores at the
+   prefill's 2048 rows and decode design at 8 (12 a step), teacher-forced
+   under the per-layer fp32 model within ``NEAR_ARGMAX["fp16"]``.  12f:
+   pure fp16 (`pure_fp16`): the ``.to(float16)`` per-layer model stepped
+   without ``auto_cast`` (AdamW, a static GradScaler of 2^10), 4 steps
+   at B=8 S=1024, without the flags and under both (the fp16 LayerNorm
+   forward and backward, 25 each a step, and the FFN's tensor cores):
+   losses finite, no step skipped, step 1's loss and gradients under the
+   flags within the stated fp16 limits of the step without them.  12g:
+   the FFN's CUDA-core design in fp16 through ``fused_ffn_arrays`` at
+   I=3008 (`ffn_entry_fp16`).
+8. Summary: one JSON line of the thirty-nine entries (the nine kernels,
    the int8 variant, the mask, segment and non-causal variants of the
    flash kernels, the tensor-core forward, dQ and dK/dV -- every bf16
    launch of those three, timed at the bf16 training shape -- the fp32
@@ -327,9 +349,15 @@ Phases, in order; any failure exits non-zero and prints no result line:
    and dK/dV (timed at the fp16 training shape, launches from phase
    12d's O1 run), of the ragged kernel on fp16 and on int8 pools (the
    decode step, launches from phase 12b) and of flash decode (full
-   context, launches from phase 12c); each entry also carries its
-   launches in phase 7's per-layer bf16 run, in phase 10's bf16 fit, in
-   phase 11 and in phase 12), the card line, then the result line.
+   context, launches from phase 12c); the fp16 launches of the
+   LayerNorm forward and backward (timed at 8192 rows, launches from
+   12f's run under the flags) and of the FFN's tensor cores (8192 rows,
+   launches from 12d's O1 run with the flags), decode design (8 rows,
+   launches from 12e) and CUDA cores (I=3008, launches from 12g); each
+   entry also carries its launches in phase 7's per-layer bf16 run, in
+   phase 10's bf16 fit, in phase 11 and in phase 12); it fails if an
+   entry's main path launched it no time; the card line, then the result
+   line.
 
 Every time is a median of CUDA-event timings (L2 flushed before each
 launch, the host's enqueue hidden behind a spin on the stream); every
@@ -411,6 +439,11 @@ FWD_TC32, DQ_TC32, DKV_TC32 = FWD + ":tc32", DQ + ":tc32", DKV + ":tc32"
 FWD_TC16, DQ_TC16, DKV_TC16 = FWD + ":tc16", DQ + ":tc16", DKV + ":tc16"
 RAGGED16, RAGGED8_16, DECODE16 = (RAGGED + ":fp16", RAGGED + ":int8:fp16",
                                   "flash_decode:fp16")
+# ... and those of the LayerNorm forward and backward and of each FFN design
+# (a launch with a float16 x or w), each counted once more
+LN16, LN_BWD16, FFN16, FFN_TC16, FFN_DEC16 = (
+    k + ":fp16" for k in (LN, LN_BWD, FFN, FFN_TC, FFN_DEC))
+FFN_COUNTER16 = {"cuda_core": FFN16, "tc": FFN_TC16, "decode": FFN_DEC16}
 HALF_AND_FP32 = (torch.bfloat16, torch.float16, torch.float32)
 FWD_ALL = (FWD, FWD_MASK, FWD_SEGS, FWD_NC)
 DQ_ALL = (DQ, DQ_MASK, DQ_SEGS, DQ_NC)
@@ -419,7 +452,8 @@ KERNELS = (FWD, FWD_MASK, FWD_SEGS, FWD_NC, FWD_TC, FWD_TC32, RAGGED,
            RAGGED8, DQ, DQ_MASK, DQ_SEGS, DQ_NC, DQ_TC, DQ_TC32, DKV,
            DKV_MASK, DKV_SEGS, DKV_NC, DKV_TC, DKV_TC32, DECODE, FUSED, LN,
            LN_BWD, FFN, FFN_TC, FFN_TC32, FFN_DEC, FWD_TC16, DQ_TC16,
-           DKV_TC16, RAGGED16, RAGGED8_16, DECODE16)
+           DKV_TC16, RAGGED16, RAGGED8_16, DECODE16, LN16, LN_BWD16, FFN16,
+           FFN_TC16, FFN_DEC16)
 REPLACES = {
     FWD: "paddle_tpu/ops/pallas_ops.py:135",
     FWD_MASK: "paddle_tpu/ops/pallas_ops.py:135",
@@ -455,6 +489,11 @@ REPLACES = {
     FFN_TC: "paddle_tpu/ops/pallas_ops.py:1548",
     FFN_TC32: "paddle_tpu/ops/pallas_ops.py:1548",
     FFN_DEC: "paddle_tpu/ops/pallas_ops.py:1548",
+    LN16: "paddle_tpu/ops/pallas_ops.py:1391",
+    LN_BWD16: "paddle_tpu/ops/pallas_ops.py:1404",
+    FFN16: "paddle_tpu/ops/pallas_ops.py:1548",
+    FFN_TC16: "paddle_tpu/ops/pallas_ops.py:1548",
+    FFN_DEC16: "paddle_tpu/ops/pallas_ops.py:1548",
 }
 # the __global__ functions of paddle_tpu_torch/csrc, as the profiler names
 # (template names: the flash variants are instantiations of the flash
@@ -581,13 +620,16 @@ def tflops(flops, ms):
     return flops / (ms * 1e-3) / 1e12
 
 
-def with_tc(want, dtype):
+def with_tc(want, dtype, ln_dtype=None):
     """`want` with the counts by type: in bf16 every forward, dQ and dK/dV
     launch counts once more under FWD_TC, DQ_TC and DKV_TC; in fp32 under
     FWD_TC32, DQ_TC32 and DKV_TC32; in fp16 under FWD_TC16, DQ_TC16 and
-    DKV_TC16, and every ragged and decode launch once more under RAGGED16,
-    RAGGED8_16 and DECODE16.  ``dtype``: the torch type the kernels ran
-    in."""
+    DKV_TC16, and every ragged, decode and FFN launch once more under
+    RAGGED16, RAGGED8_16, DECODE16 and the FFN design's fp16 counter.
+    ``dtype``: the torch type the kernels ran in; ``ln_dtype`` (default
+    ``dtype``) the LayerNorms' (float32 under ``auto_cast``, whose black
+    list holds ``layer_norm``): in fp16 each LayerNorm launch counts once
+    more under LN16 and LN_BWD16."""
     for counters, names in (((FWD_TC, FWD_TC16, FWD_TC32), FWD_ALL),
                             ((DQ_TC, DQ_TC16, DQ_TC32), DQ_ALL),
                             ((DKV_TC, DKV_TC16, DKV_TC32), DKV_ALL)):
@@ -596,8 +638,12 @@ def with_tc(want, dtype):
             want[counter] = n if dtype == dt else 0
     fp16 = dtype == torch.float16
     for counter, name in ((RAGGED16, RAGGED), (RAGGED8_16, RAGGED8),
-                          (DECODE16, DECODE)):
+                          (DECODE16, DECODE), (FFN16, FFN),
+                          (FFN_TC16, FFN_TC), (FFN_DEC16, FFN_DEC)):
         want[counter] = want[name] if fp16 else 0
+    ln16 = (dtype if ln_dtype is None else ln_dtype) == torch.float16
+    for counter, name in ((LN16, LN), (LN_BWD16, LN_BWD)):
+        want[counter] = want[name] if ln16 else 0
     return want
 
 
@@ -628,8 +674,9 @@ def check_sass(paths):
     split-TF32 forward, dQ and dK/dV (``flash_fwd_tc32_kernel``,
     ``flash_bwd_dq_tc32_kernel``, ``flash_bwd_dkv_tc32_kernel``; 16 each,
     8 flag combinations x D 64 and 128) and of the FFN's products
-    (``ffn_tc_kernel``, ``ffn_tc32_kernel``: 16 each, 4 tiles x 3
-    activations and the plain second product) contains HGMMA (warpgroup
+    (``ffn_tc_kernel``: 32, bf16 and fp16 x 4 tiles x 3 activations and
+    the plain second product; ``ffn_tc32_kernel``: 16, 4 tiles x 4)
+    contains HGMMA (warpgroup
     tensor-core products); and the CUDA-core fp32 forward, dQ and dK/dV
     (``flash_fwd_causal_kernel``, ``flash_bwd_dq_kernel``,
     ``flash_bwd_dkv_kernel``) are gone.  Returns {kernel: [instantiations,
@@ -645,7 +692,7 @@ def check_sass(paths):
              "flash_bwd_dkv_tc_kernel": (bwd, 32),
              "flash_bwd_dkv_tc32_kernel": (bwd, 16),
              "flash_bwd_dkv_kernel": (bwd, None),
-             "ffn_tc_kernel": (FFN_TC, 16),
+             "ffn_tc_kernel": (FFN_TC, 32),
              "ffn_tc32_kernel": (FFN_TC32, 16)}
     funcs = {src: _sass_functions(paths[src])
              for src in (fwd, bwd, FFN_TC, FFN_TC32)}
@@ -668,7 +715,7 @@ def check_sass(paths):
 def short_name(mangled):
     """``flash_fwd_tc_kernel<64,1,0,1>`` from a mangled kernel name (the
     template arguments: for the flash kernels element type, D, MASKED,
-    SEGS, CAUSAL; ``ffn_tc_kernel<warpgroups, BN, epilogue>``,
+    SEGS, CAUSAL; ``ffn_tc_kernel<type, warpgroups, BN, epilogue>``,
     ``ffn_dec_kernel<type, loads, epilogue, dependent>``,
     ``ln_fwd_kernel<x, w, y types, chunks, early>``)."""
     m = re.search(r"\d+((?:flash|ffn|ln|fused|ragged)_\w+?_kernel)I(.*?E)E",
@@ -1427,34 +1474,41 @@ def check_fused_layer(fdl, tol, timer, b, h, d, s_max, t, masked, dtype,
                 library_ms=None, tol=_tol_text(dtype, TOL_FP32))
 
 
-def check_ln(fm, tol, timer, n, hidden, dtype, seed):
-    """The LayerNorm kernel against its plain version: y, and mu and rstd
-    to 1e-5 relative.  A width whose rows do not fall into 16-byte chunks
-    (1002) takes the kernel's scalar head and tail."""
+def check_ln(fm, tol, timer, n, hidden, dtype, seed, pdt=None):
+    """The LayerNorm kernel against its plain version: y (within
+    `tolerance.ln_limit`, or TOL_FP32 where y is fp32), and mu and rstd
+    to 1e-5 relative; x in ``dtype``, w and b in ``pdt`` (default
+    ``dtype``).  A width whose rows do not fall into 16-byte chunks (1002)
+    takes the kernel's scalar head and tail.  The yardstick is
+    ``F.layer_norm`` (on x cast to y's type where x and w differ)."""
+    pdt = pdt or dtype
     g = torch.Generator().manual_seed(seed)
     x = (torch.randn(n, hidden, generator=g) * 2 + 0.5).to("cuda", dtype)
-    w = (1 + 0.1 * torch.randn(hidden, generator=g)).to("cuda", dtype)
-    b = (0.1 * torch.randn(hidden, generator=g)).to("cuda", dtype)
+    w = (1 + 0.1 * torch.randn(hidden, generator=g)).to("cuda", pdt)
+    b = (0.1 * torch.randn(hidden, generator=g)).to("cuda", pdt)
     y, mu, rs = fm.fused_layernorm_arrays(x, w, b, return_stats=True)
     yr, mur, rsr = fm.fused_layernorm_reference(x, w, b)
     torch.cuda.synchronize()
-    what = f"layernorm n={n} H={hidden} {dtype}"
+    types = str(dtype) if pdt == dtype else f"x {dtype}, w/b {pdt}"
+    what = f"layernorm n={n} H={hidden} {types}"
     for name, got, ref in (("mu", mu, mur), ("rstd", rs, rsr)):
         check_close(tol, got, ref, 1e-5 * ref.abs() + 1e-6, f"{what} {name}")
-    limit = TOL_FP32 if dtype == torch.float32 else tol.bf16_limit(
-        y, yr, tol.ln_magnitude(x, w, b), tol.LN_COEF)
+    limit = TOL_FP32 if y.dtype == torch.float32 else tol.ln_limit(
+        y, yr, x, w, b)
     err, ratio = check_close(tol, y, yr, limit, what)
     ms = timer(lambda: fm.fused_layernorm_arrays(x, w, b))
     plain_ms = timer(lambda: fm.fused_layernorm_reference(x, w, b))
+    xl = x if pdt == dtype else x.to(y.dtype)     # F.layer_norm: one type
     lib_ms = timer(lambda: torch.nn.functional.layer_norm(
-        x, (hidden,), w, b, 1e-5))
-    item = x.element_size()
-    nbytes = 2 * n * hidden * item + 2 * hidden * item + 8 * n
+        xl, (hidden,), w, b, 1e-5))
+    # x read and y written once, w and b read, mu and rstd written
+    nbytes = (n * hidden * (x.element_size() + y.element_size())
+              + 2 * hidden * w.element_size() + 8 * n)
     bms, by = bound_ms(nbytes, 8 * n * hidden, dtype)
-    return dict(shape=f"n={n} H={hidden}", dtype=str(dtype),
+    return dict(shape=f"n={n} H={hidden}", dtype=types,
                 max_abs_err=err, err_over_limit=ratio, ms=ms,
                 plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                library_ms=lib_ms, tol=_tol_text(dtype, TOL_FP32),
+                library_ms=lib_ms, tol=_tol_text(y.dtype, TOL_FP32),
                 gb_per_s=nbytes / (ms * 1e-3) / 1e9)
 
 
@@ -1502,8 +1556,10 @@ def check_ln_bwd(fm, tol, timer, n, hidden, xdt, pdt, seed):
                 plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                 library_ms=lib_ms,
                 tol=f"tol {tol.LN_BWD_COEF} of each output's magnitude"
-                    + ("" if xdt == torch.float32
-                       else ", + 1 bf16 step of bf16 outputs"))
+                    + {torch.float32: "", torch.bfloat16: ", + 1 bf16 step",
+                       torch.float16: ", + 1 fp16 step + 2^-24"}[xdt]
+                    + ("" if xdt == torch.float32 else " of dx"
+                       if pdt == torch.float32 else " of each output"))
 
 
 _ACT_FN = {"gelu": torch.nn.functional.gelu,
@@ -1514,9 +1570,10 @@ _ACT_FN = {"gelu": torch.nn.functional.gelu,
 
 def check_ffn(fm, ops, tol, timer, n, hidden, inter, act, dtype, seed):
     """The FFN against its plain version, within `tolerance.ffn_limit`
-    (bf16) or 1e-5 max|ref| (fp32); a second launch bitwise equal to the
-    first; both launches on the design `ffn_design` picks and counted
-    under it alone.  Times kernel, plain version and the cuBLAS composite
+    (bf16, fp16) or 1e-5 max|ref| (fp32); a second launch bitwise equal to
+    the first; both launches on the design `ffn_design` picks and counted
+    under it alone (and, in fp16, its fp16 counter).  Times kernel, plain
+    version and the cuBLAS composite
     ``addmm`` + activation + ``mm`` (three calls, not one: it is no
     ``library_ms``).  The fp32 bound is that of split-TF32 products on
     the tensor cores, the CUDA cores' beside it (`flash_bound`)."""
@@ -1537,9 +1594,12 @@ def check_ffn(fm, ops, tol, timer, n, hidden, inter, act, dtype, seed):
     limit = (FFN_REL_FP32 * yr.abs().max().item() if dtype == torch.float32
              else tol.ffn_limit(*args, act))
     torch.cuda.synchronize()
-    if counts != {FFN_COUNTER[design]: 2}:
-        fail(f"{what}: launches {counts}, expected 2 of the {design} "
-             f"design")
+    want = {FFN_COUNTER[design]: 2}
+    if dtype == torch.float16:
+        want[FFN_COUNTER16[design]] = 2
+    if counts != want:
+        fail(f"{what}: launches {counts}, expected {want} ({design} "
+             f"design)")
     if not torch.equal(y, again):
         fail(f"{what}: two launches differ")
     err, ratio = check_close(tol, y, yr, limit, what)
@@ -1795,7 +1855,7 @@ def ffn_counter(rows, cfg, dtype):
 
 
 def check_gen_launches(launches, mode, cfg, batch, steps, what, padded=False,
-                       dtype=torch.float32, prompt=None):
+                       dtype=torch.float32, prompt=None, ln_f=False):
     """One flash prefill per layer (the masked branch for padded prompts;
     in bf16 the tensor-core kernel); per decode step and layer the decode
     kernel (default) or the fused layer, LN and FFN (fused; the FFN's
@@ -1804,7 +1864,9 @@ def check_gen_launches(launches, mode, cfg, batch, steps, what, padded=False,
     Mode "flags" (the per-layer layout under the LN and FFN flags): the
     default's launches, and per forward (the prefill of ``prompt`` rows a
     batch row, then each step) two LayerNorms a layer and ``ln_f`` and
-    the FFN of each layer, the FFN on the design its rows take."""
+    the FFN of each layer, the FFN on the design its rows take.  ``ln_f``:
+    a stacked model under PTPU_PALLAS_LN alone, whose ``ln_f`` launches
+    the LayerNorm once a forward."""
     layers = cfg.num_hidden_layers
     want = dict.fromkeys(KERNELS, 0)
     want[FWD_MASK if padded else FWD] = layers
@@ -1817,6 +1879,8 @@ def check_gen_launches(launches, mode, cfg, batch, steps, what, padded=False,
         want[LN] = (2 * layers + 1) * (steps + 1)
         want[ffn] += layers * steps
         want[ffn_counter(batch * prompt, cfg, dtype)] += layers
+    if ln_f:
+        want[LN] = steps + 1
     with_tc(want, dtype)
     if launches != want:
         fail(f"{what}: launches {launches}, expected {want}")
@@ -2157,7 +2221,7 @@ def make_step(model, lr=TRAIN_LR, recipe=None):
 
 
 def train_launches(cfg, steps, env, packed=False, dtype=torch.float32,
-                   rows=1024):
+                   rows=1024, amp=None):
     """Expected launches of `steps` training steps of ``rows`` tokens under
     the flags `env`: each flash kernel once per layer (its segment variant
     on packed rows; in bf16 all three are the tensor-core kernels, so 12
@@ -2168,7 +2232,10 @@ def train_launches(cfg, steps, env, packed=False, dtype=torch.float32,
     alone stacked); under PTPU_PALLAS_FFN the FFN once per per-layer
     block (the stacked blocks keep their own MLP), of the design its rows
     and dtype take (bf16 8192 rows: the tensor cores; fp32 1024 rows: the
-    CUDA cores); nothing else."""
+    CUDA cores); nothing else.  Under ``auto_cast`` (``amp`` its level)
+    the LayerNorms run in fp32 (its black list), and under O2 the FFN
+    gate refuses the fp32 LayerNorm output beside the cast weights, as
+    the JAX gate does (``x.dtype == w1.dtype``): no FFN launch."""
     layers = cfg.num_hidden_layers
     want = dict.fromkeys(KERNELS, 0)
     for name in (FWD_SEGS, DQ_SEGS, DKV_SEGS) if packed else (FWD, DQ, DKV):
@@ -2178,9 +2245,10 @@ def train_launches(cfg, steps, env, packed=False, dtype=torch.float32,
     if env.get("PTPU_PALLAS_LN") == "1":
         per_step = 1 if cfg.stacked_blocks else 2 * layers + 1
         want[LN] = want[LN_BWD] = per_step * steps
-    if env.get("PTPU_PALLAS_FFN") == "1" and not cfg.stacked_blocks:
+    if env.get("PTPU_PALLAS_FFN") == "1" and not cfg.stacked_blocks \
+            and amp != "O2":
         want[ffn_counter(rows, cfg, dtype)] = layers * steps
-    return with_tc(want, dtype)
+    return with_tc(want, dtype, torch.float32 if amp else None)
 
 
 def check_train_launches(launches, want, what):
@@ -2292,7 +2360,8 @@ def train_bf16(ops, cfg, env, batch=8, seq=1024, warmup=2, timed=10,
     losses = [x.item() for x in losses]
     check_train_launches(launches,
                          train_launches(cfg, warmup + timed, env, packed,
-                                        dtype=half, rows=batch * seq),
+                                        dtype=half, rows=batch * seq,
+                                        amp=(recipe or {}).get("amp")),
                          f"{half} training")
     if not all(np.isfinite(losses)):
         fail(f"bfloat16 training: non-finite loss {losses}")
@@ -3306,7 +3375,8 @@ FP16_CPU_REQUESTS = ((7, 24), (16,), 8)
 FP16_GEN = dict(batch=8, prompt=256, new=32)
 
 
-def fp16_kernel_cases(fa, fd, rpa, tol, timer, cases, kernel_segs):
+def fp16_kernel_cases(fa, fd, rpa, fm, ops, tol, timer, cases,
+                      kernel_segs):
     """Phase 12a: every fp16 kernel against its fp16 plain version at the
     limits of `tolerance` (fp16), at the shapes of the main path: the
     forward at S=384, at the training shape and at H=16 D=128; dQ and
@@ -3315,9 +3385,14 @@ def fp16_kernel_cases(fa, fd, rpa, tol, timer, cases, kernel_segs):
     forward and backward, at the training shape and the padded one; the
     ragged kernel at the decode step, the verify step (8, 5) and a chunk
     of 512 on fp16 pools, and on int8 pools with fp16 q at the decode
-    step and C=512; flash decode at full context (H=12 D=64, H=16 D=128).
-    The cases go into ``cases`` under the fp16 counters (`FWD_TC16`, ...)
-    or, for the flash variants, the variant's own."""
+    step and C=512; flash decode at full context (H=12 D=64, H=16 D=128);
+    the LayerNorm forward at the training and decode rows (8192, 8) with
+    fp16 x and w and with fp16 x and fp32 w, its backward at 8192 rows
+    (both) and 200; the FFN at a decode step (8 rows, the decode design),
+    the prefill and training rows (2048, 8192: the tensor cores) and the
+    CUDA-core width (`FFN_ODD_INTER`).  The cases go into ``cases`` under
+    the fp16 counters (`FWD_TC16`, ...) or, for the flash variants, the
+    variant's own."""
     f16 = torch.float16
     cases[FWD_TC16].append(check_flash(fa, tol, timer, 384, 12, 64, f16,
                                        seed=384))
@@ -3358,6 +3433,18 @@ def fp16_kernel_cases(fa, fd, rpa, tol, timer, cases, kernel_segs):
                                         1024, f16, 1024))
     cases[DECODE16].append(check_decode(fd, tol, timer, 8, 1024, 16, 128,
                                         1024, f16, 5))
+    for n in (8192, 8):
+        for pdt in (f16, torch.float32):
+            cases[LN16].append(check_ln(fm, tol, timer, n, 768, f16,
+                                        n + 16, pdt))
+    for n, pdt in ((8192, f16), (8192, torch.float32), (200, f16)):
+        cases[LN_BWD16].append(check_ln_bwd(fm, tol, timer, n, 768, f16, pdt,
+                                            seed=n + 16))
+    for n, inter in ((8, 3072), (2048, 3072), (8192, 3072),
+                     (1024, FFN_ODD_INTER)):
+        c = check_ffn(fm, ops, tol, timer, n, 768, inter, "gelu_tanh", f16,
+                      n + 16)
+        cases[FFN_COUNTER16[c["design"]]].append(c)
     torch.cuda.empty_cache()
 
 
@@ -3493,7 +3580,10 @@ def fp16_generate(ops, cfg, ref32, card):
     """Phase 12c: default-mode ``generate`` of the O2-fp16 stacked GPT-2
     124M, B=8, 256 + 32 greedy, captured and eager (identical tokens),
     the decode kernel's fp16 launches (12 a step, replays counted), and
-    the card's tokens teacher-forced under ``ref32`` (fp32, the card)."""
+    the card's tokens teacher-forced under ``ref32`` (fp32, the card);
+    then once more, captured, under PTPU_PALLAS_LN=1: its ``ln_f`` on the
+    fp16 LayerNorm forward (one launch a forward, a second capture), the
+    tokens teacher-forced too."""
     from paddle_tpu_torch import amp
     from paddle_tpu_torch.models import GPTForCausalLM
     b, p, new = FP16_GEN["batch"], FP16_GEN["prompt"], FP16_GEN["new"]
@@ -3519,6 +3609,30 @@ def fp16_generate(ops, cfg, ref32, card):
         fail("float16 generate: captured tokens differ from the eager run")
     if _captures(model).get("decode") != 1:
         fail(f"float16 generate: captures {_captures(model)}")
+    env = {"PTPU_PALLAS_LN": "1"}
+    with flag_env(env), graphs_env(True):
+        model.generate(ids, max_new_tokens=3)          # warm-up, capture
+        ops.reset_launch_counts()
+        outs["ln_f"] = model.generate(ids, max_new_tokens=new).cpu()
+        torch.cuda.synchronize()
+        launches["ln_f"] = ops.launch_counts()
+    check_gen_launches(launches["ln_f"], "default", cfg, b, new - 1,
+                       "float16 generate under PTPU_PALLAS_LN=1",
+                       dtype=torch.float16, prompt=p, ln_f=True)
+    if _captures(model).get("decode") != 2:
+        fail(f"float16 generate: captures {_captures(model)}, expected a "
+             f"second under PTPU_PALLAS_LN=1")
+    gap_ln = near_argmax_gap(ref32, list(outs["ln_f"].numpy()),
+                             list(ids.cpu().numpy()))
+    print(f"generate float16 GPT-2 124M (O2) B={b} {p}+{new} under "
+          f"PTPU_PALLAS_LN=1: ln_f on the fp16 LayerNorm, the fp32 model's "
+          f"top logit over the card's token at most {gap_ln:.6f}; "
+          f"agreement with the flag-less run "
+          f"{_agreement(outs['ln_f'], outs['captured'], p):.4f}; launches "
+          f"{ {k: n for k, n in launches['ln_f'].items() if n} }", flush=True)
+    if not gap_ln <= NEAR_ARGMAX["fp16"]:
+        fail(f"float16 generate under PTPU_PALLAS_LN=1: a token "
+             f"{gap_ln:.6f} below the fp32 model's top logit")
     gap = near_argmax_gap(ref32, list(outs["captured"].numpy()),
                           list(ids.cpu().numpy()))
     print(f"generate float16 GPT-2 124M (O2) B={b} {p}+{new}, default "
@@ -3534,16 +3648,235 @@ def fp16_generate(ops, cfg, ref32, card):
     del model
     torch.cuda.empty_cache()
     return {"batch": f"B={b} prompt={p} new={new}", "near_argmax_gap": gap,
-            "launches": launches["captured"]}, launches["captured"]
+            "near_argmax_gap_ln_f": gap_ln,
+            "launches": launches["captured"],
+            "launches_ln_f": launches["ln_f"]}, launches
+
+
+def fp16_generate_flags(ops, ref32, card):
+    """Phase 12e: ``generate`` of the O2-cast (``amp.decorate``) per-layer
+    GPT-2 124M under PTPU_PALLAS_LN=1 PTPU_PALLAS_FFN=1, outside
+    ``auto_cast``, B=8, 256 + 32 greedy, eager and captured (identical
+    tokens, one capture): the fp16 LayerNorm forward (25 a forward: the
+    prefill's 2048 rows and each step's 8), the FFN on the tensor cores at
+    the prefill's 2048 rows and on the decode design at 8, the fp16 flash
+    forward and flash decode; every token teacher-forced under ``ref32``
+    (the per-layer model in fp32, the card) within ``NEAR_ARGMAX["fp16"]``
+    of its top logit.  Returns the record and the captured run's
+    launches."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import GPTForCausalLM
+    cfg = ref32.cfg
+    b, p, new = FP16_GEN["batch"], FP16_GEN["prompt"], FP16_GEN["new"]
+    rng = np.random.RandomState(12)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (b, p))
+                           .astype(np.int32)).cuda()
+    model = amp.decorate(GPTForCausalLM(
+        cfg, device="cuda", generator=torch.Generator().manual_seed(0)),
+        level="O2", dtype="float16")
+    outs, launches, secs = {}, {}, {}
+    with flag_env(TRAIN_MODES["flags"]):
+        model.generate(ids, max_new_tokens=3)          # warm-up, capture
+        for turn in ("eager", "captured"):
+            with graphs_env(turn == "captured"):
+                ops.reset_launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs[turn] = model.generate(ids, max_new_tokens=new).cpu()
+                torch.cuda.synchronize()
+                secs[turn] = time.perf_counter() - t0
+                launches[turn] = ops.launch_counts()
+            check_gen_launches(launches[turn], "flags", cfg, b, new - 1,
+                               f"float16 per-layer generate under both "
+                               f"flags ({turn})", dtype=torch.float16,
+                               prompt=p)
+    if not torch.equal(outs["eager"], outs["captured"]):
+        fail("float16 per-layer generate under both flags: captured tokens "
+             "differ from the eager run")
+    if _captures(model).get("decode") != 1:
+        fail(f"float16 per-layer generate: captures {_captures(model)}")
+    gap = near_argmax_gap(ref32, list(outs["captured"].numpy()),
+                          list(ids.cpu().numpy()))
+    got = launches["captured"]
+    print(f"generate float16 per-layer GPT-2 124M (O2) B={b} {p}+{new} "
+          f"under PTPU_PALLAS_LN=1 PTPU_PALLAS_FFN=1: captured tokens "
+          f"identical to the eager run, one capture; the fp32 model's top "
+          f"logit over the card's token at most {gap:.6f} (limit "
+          f"{NEAR_ARGMAX['fp16']}); {secs['captured']:.3f} s captured, "
+          f"{secs['eager']:.3f} s eager; launches "
+          f"{ {k: n for k, n in got.items() if n} } ({card})", flush=True)
+    if not gap <= NEAR_ARGMAX["fp16"]:
+        fail(f"float16 per-layer generate under both flags: a token "
+             f"{gap:.6f} below the fp32 model's top logit")
+    del model
+    torch.cuda.empty_cache()
+    return {"batch": f"B={b} prompt={p} new={new}", "near_argmax_gap": gap,
+            "seconds": secs, "launches": got}, got
+
+
+# pure fp16 (phase 12f): steps, the GradScaler's static scale, and the
+# limits of the flags step against the step without them, both fp16 on the
+# card.  Loss: one fp16 step (2^-10) relative -- a mean over 8192 tokens of
+# fp32 cross entropies whose fp16 logits the two paths round at other
+# points.  Gradients: each of the 3L + 1 sites where the paths round
+# differently (2L + 1 LayerNorms: y rounded once from fp32 against the
+# normalised x, times w, plus b each rounded; L FFNs: h rounded from fp32
+# against u and gelu(u) each rounded) moves what flows through it by at
+# most one fp16 step (2^-10) relative, to first order additively through
+# the backward: (3L + 1) 2^-10 of each tensor's largest gradient.
+PURE_FP16_STEPS = 4
+PURE_FP16_SCALE = 2.0 ** 10
+PURE_FP16_LOSS_REL = 2.0 ** -10
+
+
+def pure_fp16(ops, card, batch=8, seq=1024, steps=PURE_FP16_STEPS):
+    """Phase 12f: the per-layer GPT-2 124M cast by ``.to(float16)`` and
+    stepped without ``auto_cast`` (AdamW with fp32 masters, a static
+    `GradScaler` of `PURE_FP16_SCALE`), B=8 S=1024, `PURE_FP16_STEPS`
+    steps, without the flags (torch LayerNorm and matmuls) and under
+    PTPU_PALLAS_LN=1 PTPU_PALLAS_FFN=1 (the fp16 LayerNorm forward and
+    backward, 25 each a step at 8192 rows, and the FFN on the tensor
+    cores, 12 a step): losses finite, no step skipped, the launches; the
+    flags step's first loss and gradients against the other's within the
+    limits above; ms per step over steps 2 on, without and with them.
+    Returns the record and the launches of each run."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt2_124m_config
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = gpt2_124m_config()
+    rng = np.random.RandomState(2)
+    data = [torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                         (batch, seq))).cuda()
+            for _ in range(2)]
+    runs, launches = {}, {}
+    for mode in ("no_flags", "flags"):
+        model = GPTForCausalLM(cfg, device="cuda",
+                               generator=torch.Generator().manual_seed(0))
+        model.to(torch.float16)
+        opt = AdamW(learning_rate=TRAIN_LR, parameters=model.parameters())
+        scaler = amp.GradScaler(init_loss_scaling=PURE_FP16_SCALE,
+                                use_dynamic_loss_scaling=False)
+        losses, skipped, grads = [], [], None
+        with flag_env(TRAIN_MODES[mode]):
+            ops.reset_launch_counts()
+            for i in range(steps):
+                if i == 1:        # steps after the first (and its copy)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                loss = model.pretrain_loss(*data)
+                scaler.scale(loss).backward()
+                if i == 0:
+                    grads = {n: p.grad.float() / PURE_FP16_SCALE
+                             for n, p in model.named_parameters()}
+                before = opt._step_count
+                scaler.step(opt)
+                if opt._step_count == before:
+                    skipped.append(i)
+                opt.clear_grad()
+                losses.append(loss.detach())
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / (steps - 1)
+            launches[mode] = ops.launch_counts()
+        losses = [x.item() for x in losses]
+        check_train_launches(launches[mode], train_launches(
+            cfg, steps, TRAIN_MODES[mode], dtype=torch.float16,
+            rows=batch * seq), f"pure float16 training ({mode})")
+        if not all(np.isfinite(losses)) or skipped:
+            fail(f"pure float16 training ({mode}): losses {losses}, skipped "
+                 f"steps {skipped}")
+        if not all(p.dtype == torch.float16 for p in model.parameters()):
+            fail(f"pure float16 training ({mode}): parameters left fp16")
+        runs[mode] = {"losses": losses, "ms_per_step": ms, "grads": grads}
+        del model, opt
+        torch.cuda.empty_cache()
+    plain, flags = runs["no_flags"], runs["flags"]
+    loss_rel = abs(flags["losses"][0] - plain["losses"][0]) / abs(
+        plain["losses"][0])
+    if not loss_rel <= PURE_FP16_LOSS_REL:
+        fail(f"pure float16 training: first loss {flags['losses'][0]} under "
+             f"the flags against {plain['losses'][0]} without (relative "
+             f"{loss_rel}, limit {PURE_FP16_LOSS_REL})")
+    coef = (3 * cfg.num_hidden_layers + 1) * 2.0 ** -10
+    ratios = {}
+    for name, gp in plain["grads"].items():
+        err = (flags["grads"][name] - gp).abs().max().item()
+        limit = coef * gp.abs().max().item()
+        ratios[name] = err / limit if limit else float(err > 0)
+        if not err <= limit:
+            fail(f"pure float16 training: step-1 gradient of {name} under "
+                 f"the flags differs by {err} (limit {limit})")
+    rec = {"batch": f"B={batch} S={seq}", "steps": steps,
+           "scale": PURE_FP16_SCALE,
+           "losses": {m: r["losses"] for m, r in runs.items()},
+           "ms_per_step": {m: r["ms_per_step"] for m, r in runs.items()},
+           "loss_rel_diff": loss_rel, "grad_limit_coef": coef,
+           "grad_err_over_limit": ratios, "launches": launches}
+    print(f"train pure float16 per-layer GPT-2 124M B={batch} S={seq}, "
+          f"{steps} steps (AdamW, static scale {PURE_FP16_SCALE:.0f}): "
+          f"losses {plain['losses']} without the flags, {flags['losses']} "
+          f"under both; first loss relative {loss_rel:.3g} (limit "
+          f"{PURE_FP16_LOSS_REL}); step-1 gradients within "
+          f"{max(ratios.values()):.3g} of {coef:.4g} max|g|; ms per step "
+          f"{plain['ms_per_step']:.3f} / {flags['ms_per_step']:.3f} (host "
+          f"clock, steps 2-{steps}; {card}); launches under the "
+          f"flags { {k: n for k, n in launches['flags'].items() if n} }",
+          flush=True)
+    return rec, launches
+
+
+def ffn_entry_fp16(fm, ops, tol, n=1024, hidden=768, inter=FFN_ODD_INTER):
+    """Phase 12g: the FFN's CUDA-core design in fp16, the one no GPT-2
+    path reaches (`maybe_fused_ffn` gates on widths of 128), through the
+    entry point `fused_ffn_arrays` with autograd at I=3008: y within
+    `tolerance.ffn_limit` of the plain version, the gradients (plain
+    recompute on both sides) bitwise those of the plain version's
+    autograd through `_ffn_vjp_ref`, one launch.  Returns the record and
+    the launches."""
+    g = torch.Generator().manual_seed(19)
+    f16 = torch.float16
+    ins = (torch.randn(n, hidden, generator=g),
+           torch.randn(hidden, inter, generator=g) * hidden ** -0.5,
+           torch.randn(inter, generator=g) * 0.1,
+           torch.randn(inter, hidden, generator=g) * inter ** -0.5)
+    ins = [t.to("cuda", f16) for t in ins]
+    dy = torch.randn(n, hidden, generator=g).to("cuda", f16)
+    ts = [t.clone().requires_grad_() for t in ins]
+    ops.reset_launch_counts()
+    y = fm.fused_ffn_arrays(*ts, "gelu_tanh")
+    y.backward(dy)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    want = with_tc(dict.fromkeys(KERNELS, 0) | {FFN: 1}, f16)
+    if launches != want:
+        fail(f"entry-point FFN float16: launches {launches}, expected "
+             f"{want}")
+    ref = [t.clone().requires_grad_() for t in ins]
+    fm._ffn_vjp_ref(*ref, "gelu_tanh").backward(dy)
+    err, ratio = check_close(tol, y, fm.fused_ffn_reference(
+        *ins, "gelu_tanh"), tol.ffn_limit(*ins, "gelu_tanh"),
+        "entry-point FFN float16")
+    for name, a, r in zip(("dx", "dw1", "db1", "dw2"), ts, ref):
+        if not torch.equal(a.grad, r.grad):
+            fail(f"entry-point FFN float16: {name} differs from the plain "
+                 f"autograd's")
+    return {"shape": f"n={n} H={hidden} I={inter}", "max_abs_err": err,
+            "err_over_limit": ratio, "launches": launches}, launches
 
 
 def fp16_phase(ops, card):
-    """Phase 12b-d (module docstring): the fp16 engine on fp16 and int8
-    pools, fp16 ``generate`` and configuration A's recipe under fp16 O1
-    and O2.  Returns the record and the launches of the phase's runs by
-    name (``engine``, ``engine_int8``, ``generate``, ``O1``, ``O2``)."""
+    """Phase 12b-g (module docstring): the fp16 engine on fp16 and int8
+    pools, fp16 ``generate`` (stacked, and its ``ln_f`` under
+    PTPU_PALLAS_LN), configuration A's recipe under fp16 O1 and O2
+    without and with the LN and FFN flags, per-layer fp16 ``generate``
+    under both flags, pure fp16 training and the CUDA-core FFN's fp16
+    entry.  Returns the record and the launches of the phase's runs by
+    name (``engine``, ``engine_int8``, ``generate``, ``generate_ln_f``,
+    ``O1``, ``O2``, ``O1_flags``, ``O2_flags``, ``generate_flags``,
+    ``pure``, ``pure_no_flags``, ``ffn_entry``)."""
     from paddle_tpu_torch import amp
     from paddle_tpu_torch.models import GPTForCausalLM, gpt2_124m_config
+    from paddle_tpu_torch.ops import fused_mlp as fm
+    from paddle_tpu_torch.ops import tolerance as tol
     from paddle_tpu_torch.serving import SamplingParams
     cfg = gpt2_124m_config(stacked_blocks=True)
     model16 = amp.decorate(GPTForCausalLM(
@@ -3571,26 +3904,58 @@ def fp16_phase(ops, card):
         launches[key] = rec[key]["launches"]
         secs[key] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    rec["generate"], launches["generate"] = fp16_generate(ops, cfg, ref32,
-                                                          card)
+    rec["generate"], gen = fp16_generate(ops, cfg, ref32, card)
+    launches["generate"], launches["generate_ln_f"] = (gen["captured"],
+                                                       gen["ln_f"])
     secs["generate"] = time.perf_counter() - t0
     del model16, ref32
     torch.cuda.empty_cache()
     cfg_a = gpt2_124m_config(**DROPOUT)        # per-layer, configuration A
-    for level in ("O1", "O2"):
-        t0 = time.perf_counter()
-        r, launches[level] = train_bf16(
-            ops, cfg_a, {}, warmup=2, timed=6, dtype=torch.float32,
-            recipe={"amp": level, "amp_dtype": "float16"}, lr=RECIPE_LR)
-        rec[f"recipe_A_{level}"] = r
-        print_train(f"per-layer, configuration A under {level} "
-                    f"(GradScaler, dropout 0.1, recipe; no LN / FFN flags)",
-                    r, launches[level], card, "float16")
-        print(f"recipe A fp16 {level}: loss scale {r['scales'][0]:.0f} -> "
-              f"{r['scales'][-1]:.0f}, skipped steps {r['skipped_steps']}",
-              flush=True)
-        torch.cuda.empty_cache()
-        secs[level] = time.perf_counter() - t0
+    for flags in (False, True):
+        for level in ("O1", "O2"):
+            key = f"{level}_flags" if flags else level
+            t0 = time.perf_counter()
+            r, launches[key] = train_bf16(
+                ops, cfg_a, TRAIN_MODES["flags" if flags else "no_flags"],
+                warmup=2, timed=6, dtype=torch.float32,
+                recipe={"amp": level, "amp_dtype": "float16"}, lr=RECIPE_LR)
+            rec[f"recipe_A_{key}"] = r
+            print_train(f"per-layer, configuration A under {level} "
+                        f"(GradScaler, dropout 0.1, recipe; "
+                        + ("LN and FFN flags" if flags else "no LN / FFN flags")
+                        + ")", r, launches[key], card, "float16")
+            print(f"recipe A fp16 {key}: loss scale {r['scales'][0]:.0f} -> "
+                  f"{r['scales'][-1]:.0f}, skipped steps "
+                  f"{r['skipped_steps']}", flush=True)
+            if flags and (r["skipped_steps"] or len(set(r["scales"])) != 1):
+                fail(f"recipe A fp16 {key}: scales {r['scales']}, skipped "
+                     f"steps {r['skipped_steps']}")
+            torch.cuda.empty_cache()
+            secs[key] = time.perf_counter() - t0
+    print("recipe A fp16 ms per step, no flags / LN and FFN flags: "
+          + ", ".join(f"{lv} {rec[f'recipe_A_{lv}']['ms_per_step']:.3f} / "
+                      f"{rec[f'recipe_A_{lv}_flags']['ms_per_step']:.3f}"
+                      for lv in ("O1", "O2")) + f" ({card})", flush=True)
+    t0 = time.perf_counter()
+    cfg_pl = gpt2_124m_config()
+    ref32 = GPTForCausalLM(cfg_pl, device="cuda",
+                           generator=torch.Generator().manual_seed(0))
+    rec["generate_flags"], launches["generate_flags"] = fp16_generate_flags(
+        ops, ref32, card)
+    del ref32
+    torch.cuda.empty_cache()
+    secs["generate_flags"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rec["pure"], pure = pure_fp16(ops, card)
+    launches["pure"], launches["pure_no_flags"] = (pure["flags"],
+                                                   pure["no_flags"])
+    secs["pure"] = time.perf_counter() - t0
+    rec["ffn_entry"], launches["ffn_entry"] = ffn_entry_fp16(fm, ops, tol)
+    print(f"entry-point FFN float16 {rec['ffn_entry']['shape']} (the "
+          f"CUDA-core design): y within {rec['ffn_entry']['err_over_limit']:.3g}"
+          f" of its limit, gradients bitwise the plain autograd's; launches "
+          f"{ {k: n for k, n in launches['ffn_entry'].items() if n} }",
+          flush=True)
     rec["seconds"] = secs
     print("fp16 phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                              for k, v in secs.items()),
@@ -3685,7 +4050,9 @@ def main():
                 RAGGED8_16: rpa.int8_fp16, DECODE16: fd.fp16,
                 DECODE: fd, FUSED: fdl, LN: fm.ln_fwd, LN_BWD: fm.ln_bwd,
                 FFN: fm.ffn_fwd, FFN_TC: fm.ffn_tc, FFN_TC32: fm.ffn_tc32,
-                FFN_DEC: fm.ffn_decode}
+                FFN_DEC: fm.ffn_decode, LN16: fm.ln_fwd16,
+                LN_BWD16: fm.ln_bwd16, FFN16: fm.ffn_fwd16,
+                FFN_TC16: fm.ffn_tc16, FFN_DEC16: fm.ffn_decode16}
     for bwd in (fa.flash_bwd_dq, fa.flash_bwd_dkv):
         wrappers.update({v.KERNEL: v for v in bwd.variants.values()})
     assert set(wrappers) == set(ops.launch_counts())
@@ -3738,8 +4105,9 @@ def main():
                 regs[short] = (n_regs, st, ld)
     result["ffn_ln_registers"] = regs
     print("ptxas registers (spill stores / loads, bytes) of the FFN "
-          "designs <warpgroups, BN, epilogue> / <type, loads, epilogue, "
-          "dependent> and the LayerNorm forward <x, w, y, chunks, early>: "
+          "designs <type, warpgroups, BN, epilogue> / <type, loads, "
+          "epilogue, dependent> and the LayerNorm forward <x, w, y, chunks, "
+          "early>: "
           + "; ".join(f"{fn} {r}" + (f" ({st}/{ld})" if st or ld else "")
                       for fn, (r, st, ld) in sorted(regs.items())),
           flush=True)
@@ -4223,11 +4591,11 @@ def main():
 
     # -- 12. float16 ----------------------------------------------------------
     n_before = {name: len(c) for name, c in cases.items()}
-    fp16_kernel_cases(fa, fd, rpa, tol, timer, cases, kernel_segs)
+    fp16_kernel_cases(fa, fd, rpa, fm, ops, tol, timer, cases, kernel_segs)
     print_cases({name: c[n_before[name]:] for name, c in cases.items()})
     mark("12a fp16 kernels")
     result["fp16"], launches_fp16 = fp16_phase(ops, card)
-    mark("12b-d fp16 engine, generate, recipe A")
+    mark("12b-g fp16 engine, generate, recipe A, per-layer flags, pure")
 
     # -- 8. summary --------------------------------------------------------
     # the serving kernels at fp32 S=384 / the decode step (the int8 one
@@ -4276,7 +4644,15 @@ def main():
                  RAGGED16: cases[RAGGED16][0],
                  RAGGED8_16: cases[RAGGED8_16][0],
                  DECODE16: pick(DECODE16,
-                                "B=8 S_max=1024 length=1024 H=12 D=64", f16)}
+                                "B=8 S_max=1024 length=1024 H=12 D=64", f16),
+                 LN16: pick(LN16, "n=8192 H=768", f16),
+                 LN_BWD16: pick(LN_BWD16, "n=8192 H=768", f16),
+                 FFN16: pick(FFN16, f"n=1024 H=768 I={FFN_ODD_INTER} "
+                                    f"gelu_tanh", f16),
+                 FFN_TC16: pick(FFN_TC16, "n=8192 H=768 I=3072 gelu_tanh",
+                                f16),
+                 FFN_DEC16: pick(FFN_DEC16, "n=8 H=768 I=3072 gelu_tanh",
+                                 f16)}
     path_launches = {FWD: launches[FWD], RAGGED: launches[RAGGED],
                      RAGGED8: launches8[RAGGED8],
                      FWD_MASK: launches_gen["stacked default padded"][FWD_MASK],
@@ -4306,6 +4682,15 @@ def main():
     path_launches[RAGGED16] = launches_fp16["engine"][RAGGED16]
     path_launches[RAGGED8_16] = launches_fp16["engine_int8"][RAGGED8_16]
     path_launches[DECODE16] = launches_fp16["generate"][DECODE16]
+    # ... the LayerNorm's in the pure fp16 run (forward and backward at
+    # 8192 rows), the FFN's tensor cores in recipe A's fp16 O1 run with the
+    # flags, its decode design in the per-layer fp16 generate, its CUDA
+    # cores in the fp16 entry-point call
+    path_launches[LN16] = launches_fp16["pure"][LN16]
+    path_launches[LN_BWD16] = launches_fp16["pure"][LN_BWD16]
+    path_launches[FFN_TC16] = launches_fp16["O1_flags"][FFN_TC16]
+    path_launches[FFN_DEC16] = launches_fp16["generate_flags"][FFN_DEC16]
+    path_launches[FFN16] = launches_fp16["ffn_entry"][FFN16]
     kernels = []
     for name in KERNELS:
         c = main_case[name]
@@ -4325,6 +4710,9 @@ def main():
         k["launches_serving"] = launches_serving[k["name"]]
         k["launches_fp16"] = sum(run[k["name"]]
                                  for run in launches_fp16.values())
+    idle = [k["name"] for k in kernels if not k["launches"]]
+    if idle:
+        fail(f"kernels never launched on their main path: {idle}")
     result["kernels"] = kernels
     result["expected_launches"] = expected
     result["phase_s"] = phase_s
@@ -4427,7 +4815,7 @@ def probe_decode(lib, args, l1, l2, act="gelu_tanh"):
     x, w1, b1, w2 = args
     (n, h), i, h2 = x.shape, w1.shape[1], w2.shape[1]
     dt = x.dtype
-    cw = 64 if dt == torch.bfloat16 else 32
+    cw = 128 // dt.itemsize
     hbuf = torch.empty((n, i), dtype=dt, device="cuda")
     y = torch.empty((n, h2), dtype=dt, device="cuda")
     p1 = torch.empty((h // (32 * l1), n, i), device="cuda")
@@ -4439,7 +4827,7 @@ def probe_decode(lib, args, l1, l2, act="gelu_tanh"):
                     w2.data_ptr(), hbuf.data_ptr(), y.data_ptr(),
                     p1.data_ptr(), p2.data_ptr(), tk.data_ptr(), n, h, i,
                     h2, l1, l2, ("gelu", "gelu_tanh", "relu").index(act),
-                    int(dt == torch.bfloat16),
+                    _build.dtype_code(dt),
                     torch.cuda.current_stream().cuda_stream),
                  "fused_ffn_decode")
     return y
@@ -4456,11 +4844,12 @@ def probe_tc(lib, args, tiles, act="gelu_tanh"):
     hbuf = torch.empty((n, i), dtype=x.dtype, device="cuda")
     y = torch.empty((n, h2), dtype=x.dtype, device="cuda")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn = _c_fn(lib, "fused_ffn_tc", [vp] * 6 + [ci] * 9 + [vp])
+    fn = _c_fn(lib, "fused_ffn_tc", [vp] * 6 + [ci] * 10 + [vp])
     _build.check(fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
                     w2.data_ptr(), hbuf.data_ptr(), y.data_ptr(), n, h, i,
                     h2, ("gelu", "gelu_tanh", "relu").index(act), g1, n1,
-                    g2, n2, torch.cuda.current_stream().cuda_stream),
+                    g2, n2, _build.dtype_code(x.dtype),
+                    torch.cuda.current_stream().cuda_stream),
                  "fused_ffn_tc")
     return y
 
@@ -4509,8 +4898,8 @@ def probe_kernel_ms(fn, calls=20):
 
 
 def probe_cuda_core(lib, args, act):
-    """The CUDA-core FFN through `lib` (whose C interface is unchanged
-    since it was first ported)."""
+    """The CUDA-core FFN through `lib` (its type a code: 0 fp32, as the
+    bf16 flag of a tree from before reads it)."""
     import ctypes
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import fused_mlp as fm
@@ -4527,7 +4916,7 @@ def probe_cuda_core(lib, args, act):
                     w2.data_ptr(), y.data_ptr(), part.data_ptr(),
                     _build.tickets(x.device, tiles * (groups + 1)).data_ptr(),
                     n, h, i, h2, bi, ("gelu", "gelu_tanh", "relu").index(act),
-                    int(x.dtype == torch.bfloat16),
+                    _build.dtype_code(x.dtype),
                     torch.cuda.current_stream().cuda_stream), "fused_ffn")
     return y
 
@@ -4537,7 +4926,8 @@ def probe_ln(lib, x, w, b):
     import ctypes
     from paddle_tpu_torch.ops import _build
     n, h = x.shape
-    y = torch.empty((n, h), dtype=x.dtype, device="cuda")
+    y = torch.empty((n, h), dtype=torch.promote_types(x.dtype, w.dtype),
+                    device="cuda")
     mu = torch.empty((n, 1), device="cuda")
     rs = torch.empty((n, 1), device="cuda")
     vp, ci = ctypes.c_void_p, ctypes.c_int
@@ -4545,9 +4935,8 @@ def probe_ln(lib, x, w, b):
                [vp] * 6 + [ci] * 4 + [ctypes.c_float, vp])
     _build.check(fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
                     mu.data_ptr(), rs.data_ptr(), n, h,
-                    int(x.dtype == torch.bfloat16),
-                    int(w.dtype == torch.bfloat16), 1e-5,
-                    torch.cuda.current_stream().cuda_stream),
+                    _build.dtype_code(x.dtype), _build.dtype_code(w.dtype),
+                    1e-5, torch.cuda.current_stream().cuda_stream),
                  "fused_layernorm")
     return y
 
@@ -4568,7 +4957,7 @@ def probe_ln_bwd(lib, x, w, mu, rs, dy, plan):
         dy.data_ptr(), dx.data_ptr(), dw.data_ptr(), db.data_ptr(), part,
         _build.tickets(x.device, plan.groups + 1).data_ptr(), n, h,
         plan.grid, plan.warps, plan.s, plan.seg, plan.k, int(plan.wide),
-        int(x.dtype == torch.bfloat16), int(w.dtype == torch.bfloat16),
+        _build.dtype_code(x.dtype), _build.dtype_code(w.dtype),
         torch.cuda.current_stream().cuda_stream)
     if err:
         fail(f"layernorm backward probe: CUDA error {err}")
@@ -4622,8 +5011,8 @@ def probe_check_ln(fm, tol, hidden, xdt, pdt, off, n=37):
     y, mu, rs = fm.fused_layernorm_arrays(x, w, b, return_stats=True)
     yr, mur, rsr = fm.fused_layernorm_reference(x, w, b)
     torch.cuda.synchronize()
-    lim = (TOL_FP32 if y.dtype == torch.float32 else tol.bf16_limit(
-        y, yr, tol.ln_magnitude(x, w, b), tol.LN_COEF))
+    lim = (TOL_FP32 if y.dtype == torch.float32 else tol.ln_limit(
+        y, yr, x, w, b))
     err, ratio, good = tol.compare(y, yr, lim)
     stats = bool(((mu - mur).abs() <= 1e-5 * mur.abs() + 1e-6).all()
                  and ((rs - rsr).abs() <= 1e-5 * rsr.abs()).all())
@@ -4637,10 +5026,11 @@ def probe(argv):
     """Build the FFN's four sources and the LayerNorm forward and backward
     and print their registers and spills; hold every FFN design at the rows it may
     take and every activation, and the LayerNorm forward at H 768, 1000,
-    1002 and 4096 (bf16, fp32, mixed; a base one element past 16 bytes
-    too), against their plain versions with phase 2's limits and a
+    1002 and 4096 (bf16, fp16, fp32, mixed; a base one element past 16
+    bytes too), against their plain versions with phase 2's limits and a
     repeat bitwise.  Unless ``--quick``, then time at H=768 I=3072
-    gelu_tanh (this script's timer): each design at 8 to 8192 rows beside
+    gelu_tanh (this script's timer): each design in bf16, fp16 and fp32
+    at 8 to 8192 rows beside
     the cuBLAS composite and the bound (fp32: split TF32); the decode
     design against its second product queued after the first, and with
     every number of loads a thread of each product at 8 rows; the two
@@ -4669,23 +5059,29 @@ def probe(argv):
             for fn, regs, st, ld in ptxas_table(f.read()):
                 print(f"ptxas {name} {fn}: {regs} registers, spill "
                       f"{st}/{ld} bytes", flush=True)
-    bf16, f32 = torch.bfloat16, torch.float32
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
     ok = True
     for design, dtype, rows in (("tc", bf16, (64, 200, 256, 512, 8192)),
+                                ("tc", f16, (24, 64, 200, 512, 8192)),
                                 ("tc32", f32, (8, 64, 200, 256, 512, 1024,
                                                8192)),
                                 ("decode", bf16, (8, 40, 64, 256)),
+                                ("decode", f16, (8, 16, 40, 256)),
                                 ("decode", f32, (8, 40, 64, 256)),
-                                ("cuda_core", f32, (8, 512))):
+                                ("cuda_core", f32, (8, 512)),
+                                ("cuda_core", f16, (8, 512))):
         for n in rows:
             ok &= probe_check_ffn(fm, tol, design, n, dtype)
     for act in ("gelu", "relu"):
         ok &= probe_check_ffn(fm, tol, "tc", 512, bf16, act)
+        ok &= probe_check_ffn(fm, tol, "tc", 512, f16, act)
         ok &= probe_check_ffn(fm, tol, "tc32", 512, f32, act)
         ok &= probe_check_ffn(fm, tol, "decode", 8, bf16, act)
+        ok &= probe_check_ffn(fm, tol, "decode", 8, f16, act)
         ok &= probe_check_ffn(fm, tol, "decode", 8, f32, act)
     for hidden in (768, 1000, 1002, 4096):
-        for xdt, pdt in ((bf16, bf16), (f32, f32), (bf16, f32)):
+        for xdt, pdt in ((bf16, bf16), (f32, f32), (bf16, f32), (f16, f16),
+                         (f16, f32)):
             for off in (0, 1):
                 ok &= probe_check_ln(fm, tol, hidden, xdt, pdt, off)
     sources = {label: (os.path.join(_build.SRC_DIR, src + ".cu"), edits)
@@ -4717,8 +5113,8 @@ def probe(argv):
         return
     own = {name: _build.load(name) for name in (FFN_TC, FFN_TC32, FFN_DEC)}
     timer = Timer()
-    for dtype in (bf16, f32):
-        item = 2 if dtype == bf16 else 4
+    for dtype in (bf16, f16, f32):
+        item = dtype.itemsize
         for n in PROBE_ROWS:
             args = probe_ffn_args(n, dtype, 1)
             x, w1, b1, w2 = args
@@ -4729,7 +5125,7 @@ def probe(argv):
                 torch.addmm(b1, x, w1), approximate="tanh"), w2))
             line = (f"ffn n={n} {dtype}: bound {bms:.4f} ({by}), cuBLAS "
                     f"addmm+gelu+mm {cub:.4f}")
-            for design in (("tc", "decode") if dtype == bf16
+            for design in (("tc", "decode") if dtype != f32
                            else ("decode", "tc32", "cuda_core")):
                 if design == "decode" and n > (4096 if dtype == f32
                                                else 1024):
@@ -4746,7 +5142,7 @@ def probe(argv):
             print(f"{line}; picked {fm.ffn_design(n, 768, 3072, dtype)}",
                   flush=True)
             del args, x, w1, b1, w2
-    for dtype in (bf16, f32):
+    for dtype in (bf16, f16, f32):
         args = probe_ffn_args(8, dtype, 3)
         for l1 in (4, 8, 16):
             for l2 in (4, 8, 16):
@@ -4793,7 +5189,7 @@ def probe(argv):
     del hb, hc
     ln_libs = {1: _build.load(LN), 4: libs["ln_rows4"], 8: libs["ln_rows8"]}
     for n in (8, 64, 8192):
-        for dtype in (bf16, f32):
+        for dtype in (bf16, f16, f32):
             g = torch.Generator().manual_seed(n)
             x = (torch.randn(n, 768, generator=g) * 2 + 0.5).to("cuda", dtype)
             w = (1 + 0.1 * torch.randn(768, generator=g)).to("cuda", dtype)

@@ -80,6 +80,14 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p,
   x[2] = b.x;
   x[3] = b.y;
 }
+__device__ __forceinline__ void load4(const __half* p, float (&x)[VEC]) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  const float2 a = unpack2<__half>(v.x), b = unpack2<__half>(v.y);
+  x[0] = a.x;
+  x[1] = a.y;
+  x[2] = b.x;
+  x[3] = b.y;
+}
 
 // V consecutive elements of T at p as floats (fused_layernorm.cu,
 // fused_layernorm_bwd.cu, ragged_paged_attention.cu): one or two 16-byte loads

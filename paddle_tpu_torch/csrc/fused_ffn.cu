@@ -36,7 +36,8 @@
 // x's type before the second product, y is cast once.
 //
 // Layout: x contiguous [n, H]; w1 [H, I]; b1 [I]; w2 [I, H2]; y [n, H2];
-// all one type.  act: 0 gelu (erf), 1 gelu (tanh), 2 relu.
+// all one type: float, `__nv_bfloat16` or `__half`.  act: 0 gelu (erf),
+// 1 gelu (tanh), 2 relu.
 #include "decode_common.cuh"
 
 namespace {
@@ -179,22 +180,24 @@ cudaError_t launch(const void* x, const void* w1, const void* b1,
 
 }  // namespace
 
-// Returns the launch's CUDA error (cudaGetLastError()); 1
-// (cudaErrorInvalidValue) when BI is not a power of two from 16 to 512 that
+// dtype: the element type's code (0 fp32, 1 bf16, 2 fp16).  Returns the
+// launch's CUDA error (cudaGetLastError()); 1 (cudaErrorInvalidValue) for
+// another type code, when BI is not a power of two from 16 to 512 that
 // divides I, or for an unknown activation.
 extern "C" int fused_ffn(const void* x, const void* w1, const void* b1,
                          const void* w2, void* y, void* part, void* tickets,
                          int n, int H, int I, int H2, int BI, int act,
-                         int is_bf16, void* stream) {
-  if (BI < 16 || BI > 512 || (BI & (BI - 1)) || I % BI || act < 0 ||
-      act > 2)
+                         int dtype, void* stream) {
+  if (dtype < 0 || dtype > 2 || BI < 16 || BI > 512 || (BI & (BI - 1)) ||
+      I % BI || act < 0 || act > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      is_bf16 ? launch<__nv_bfloat16>(x, w1, b1, w2, y, part, tickets, n, H,
-                                      I, H2, BI, act, s)
-              : launch<float>(x, w1, b1, w2, y, part, tickets, n, H, I, H2,
-                              BI, act, s);
+#define FFN_LAUNCH(T) \
+  launch<T>(x, w1, b1, w2, y, part, tickets, n, H, I, H2, BI, act, s)
+  const cudaError_t err = dtype == 0   ? FFN_LAUNCH(float)
+                          : dtype == 1 ? FFN_LAUNCH(__nv_bfloat16)
+                                       : FFN_LAUNCH(__half);
+#undef FFN_LAUNCH
   return static_cast<int>(err);
 }

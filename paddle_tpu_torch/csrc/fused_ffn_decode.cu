@@ -1,21 +1,22 @@
 // Fused feed-forward forward, act(x W1 + b1) W2, for a few rows (the decode
-// step), bf16 or fp32, on Hopper (sm_90a), plain C interface.
+// step), bf16, fp16 or fp32, on Hopper (sm_90a), plain C interface.
 //
 // Replaces: paddle_tpu/ops/pallas_ops.py `_ffn_fwd_kernel` (reached via
 // `fused_ffn_2d` <- `fused_ffn_arrays`) at the row counts where
 // `ops/fused_mlp.py` `ffn_design` picks "decode".
 //
 // What bounds it on this card: memory -- the two weight matrices are read
-// once (2 H I elements: 9.4 MB in bf16 at GPT-2 width, 2.8 us at 3.35 TB/s)
-// for 4 n H I FLOPs, a few per weight byte at n = 8.
+// once (2 H I elements: 9.4 MB in bf16 or fp16 at GPT-2 width, 2.8 us at
+// 3.35 TB/s) for 4 n H I FLOPs, a few per weight byte at n = 8.
 //
 // What the design does about it: two launches of one skinny product, out =
 // epilogue(in W) for in [n, K] and W [K, N].  A block owns 128 bytes of W's
-// columns (64 bf16 or 32 fp32) and a chunk of R = 32 L of its rows: each of
-// 256 threads holds L 16-byte loads of W (8 threads per 128-byte row
-// segment, 32 rows at once), all issued before anything else, and multiplies
-// them with the 8 rows of `in` of its row tile (read with 16-byte loads, all
-// at once, and staged in fp32 in shared memory).  The sums over the block's
+// columns (64 bf16 / fp16 or 32 fp32) and a chunk of R = 32 L of its rows:
+// each of 256 threads holds L 16-byte loads of W (8 threads per 128-byte
+// row segment, 32 rows at once), all issued before anything else, and
+// multiplies them with the 8 rows of `in` of its row tile (read with
+// 16-byte loads, all at once, and staged in fp32 in shared memory).  The
+// sums over the block's
 // rows are reduced by shuffles and then across warps in warp order; a block
 // writes an fp32 partial [8, 64 or 32] per chunk, and the last block of a
 // column slice (a self-resetting ticket, `last_of`) adds the K / R partials
@@ -33,8 +34,8 @@
 // of each product and waiting on per-slice flags for h.)
 //
 // Layout: x [n, H], w1 [H, I], b1 [I], w2 [I, H2], y [n, H2], h [n, I];
-// one type, contiguous, 16-byte aligned.  act: 0 gelu (erf), 1 gelu (tanh),
-// 2 relu.
+// one type (float, `__nv_bfloat16` or `__half`), contiguous, 16-byte
+// aligned.  act: 0 gelu (erf), 1 gelu (tanh), 2 relu.
 #include <stdint.h>
 
 #include "decode_common.cuh"
@@ -42,7 +43,6 @@
 namespace {
 
 using namespace decode;
-using bf16 = __nv_bfloat16;
 
 constexpr int THREADS = 256;
 constexpr int RT = 8;                  // rows per tile
@@ -56,18 +56,20 @@ struct Vec {
   static constexpr int CW = SEG * N;         // columns of a block
 };
 
-__device__ __forceinline__ void unpack(const uint4& r, float (&v)[4]) {
-  v[0] = __uint_as_float(r.x);
-  v[1] = __uint_as_float(r.y);
-  v[2] = __uint_as_float(r.z);
-  v[3] = __uint_as_float(r.w);
-}
-__device__ __forceinline__ void unpack(const uint4& r, float (&v)[8]) {
+// The Vec<T>::N elements of T in 16 bytes as floats
+template <typename T>
+__device__ __forceinline__ void unpack(const uint4& r,
+                                       float (&v)[Vec<T>::N]) {
   const uint32_t w[4] = {r.x, r.y, r.z, r.w};
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    v[2 * j] = __uint_as_float(w[j] << 16);
-    v[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
+    if constexpr (sizeof(T) == 4) {
+      v[j] = __uint_as_float(w[j]);
+    } else {
+      const float2 f = unpack2<T>(w[j]);
+      v[2 * j] = f.x;
+      v[2 * j + 1] = f.y;
+    }
   }
 }
 
@@ -115,7 +117,7 @@ __global__ void __launch_bounds__(THREADS) ffn_dec_kernel(
     const int e = tid + q * THREADS, r = e / (R / V), k = e % (R / V) * V;
     if (e >= XN) continue;
     float v[V];
-    unpack(raw[q], v);
+    unpack<T>(raw[q], v);
 #pragma unroll
     for (int j = 0; j < V; ++j) xs[k + j][r] = v[j];
   }
@@ -129,7 +131,7 @@ __global__ void __launch_bounds__(THREADS) ffn_dec_kernel(
 #pragma unroll
   for (int l = 0; l < L; ++l) {
     float wv[V];
-    unpack(wr[l], wv);
+    unpack<T>(wr[l], wv);
     const float4 a = *reinterpret_cast<const float4*>(xs[grp + GROUPS * l]);
     const float4 b =
         *reinterpret_cast<const float4*>(xs[grp + GROUPS * l] + 4);
@@ -246,27 +248,30 @@ bool chunk_ok(int L, int K) {
 // L1, L2 (4, 8 or 16): the 16-byte loads a thread makes per chunk of each
 // product (chunks of 32 L rows of w1, w2).  part1, part2: fp32 scratch of
 // (H / (32 L1)) n I and (I / (32 L2)) n H2 floats; tickets: zero, at
-// least ceil(n / 8) (I + H2) / (64 bf16, 32 fp32) of them.  The second
-// product is launched as the programmatic dependent of the first.  Returns
-// the first launch error; 1 (cudaErrorInvalidValue) for an unknown
-// activation, a chunk that does not divide H or I, or an I or H2 that is
-// not a multiple of 64 (bf16) or 32 (fp32) columns.
+// least ceil(n / 8) (I + H2) / (64 bf16 / fp16, 32 fp32) of them; dtype
+// the element type's code (0 fp32, 1 bf16, 2 fp16).  The second product
+// is launched as the programmatic dependent of the first.  Returns the
+// first launch error; 1 (cudaErrorInvalidValue) for another type code, an
+// unknown activation, a chunk that does not divide H or I, or an I or H2
+// that is not a multiple of 64 (bf16, fp16) or 32 (fp32) columns.
 extern "C" int fused_ffn_decode(const void* x, const void* w1, const void* b1,
                                 const void* w2, void* h, void* y, void* part1,
                                 void* part2, void* tickets, int n, int H,
                                 int I, int H2, int L1, int L2, int act,
-                                int is_bf16, void* stream) {
-  const int cw = is_bf16 ? Vec<bf16>::CW : Vec<float>::CW;
+                                int dtype, void* stream) {
+  if (dtype < 0 || dtype > 2) return static_cast<int>(cudaErrorInvalidValue);
+  const int cw = dtype ? Vec<__half>::CW : Vec<float>::CW;
   if (act < 0 || act > 2 || !chunk_ok(L1, H) || !chunk_ok(L2, I) ||
       I % cw || H2 % cw)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int* tk = static_cast<int*>(tickets);
-  const cudaError_t err =
-      is_bf16 ? launch<bf16>(x, w1, b1, w2, h, y, part1, part2, tk, n, H, I,
-                             H2, L1, L2, act, s)
-              : launch<float>(x, w1, b1, w2, h, y, part1, part2, tk, n, H, I,
-                              H2, L1, L2, act, s);
+#define FFN_DEC_LAUNCH(T) \
+  launch<T>(x, w1, b1, w2, h, y, part1, part2, tk, n, H, I, H2, L1, L2, act, s)
+  const cudaError_t err = dtype == 0   ? FFN_DEC_LAUNCH(float)
+                          : dtype == 1 ? FFN_DEC_LAUNCH(__nv_bfloat16)
+                                       : FFN_DEC_LAUNCH(__half);
+#undef FFN_DEC_LAUNCH
   return static_cast<int>(err);
 }

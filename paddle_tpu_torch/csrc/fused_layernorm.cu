@@ -23,13 +23,15 @@
 // elements up to the next 16-byte boundary, and its last elements past the
 // last whole chunk, as scalars (lanes 0 .. 6 at most); w, b and y chunks
 // that are not on 16 bytes are read and written as scalars.  Rows wider
-// than 32 chunks a lane (8192 bf16, 4096 fp32 elements) take
+// than 32 chunks a lane (8192 bf16 or fp16, 4096 fp32 elements) take
 // `ln_fwd_wide_kernel`, which reads the row three times.  A block holds ROWS = 1 row, so a few rows
 // spread over as many SMs (4 and 8 rows a block measured no faster at 8,
 // 64 or 8192 rows: PERF.md).
 //
-// Types: x float or bf16; w and b of one type, float or bf16; y in
-// promote(x, w, b) (`pallas_ops.py:1455`): bf16 only when all three are.
+// Types: x float, bf16 or fp16; w and b of one type, float, bf16 or fp16 --
+// the nine (x, w) pairs, as the TPU kernel takes any; y in promote(x, w, b)
+// (`pallas_ops.py:1455`): bf16 or fp16 only when all three are that type,
+// else float (bf16 with fp16 promotes to float, as in JAX and torch).
 // Layout: x, y contiguous [n, H]; w, b [H]; mu, rstd contiguous fp32 [n, 1].
 #include <stdint.h>
 
@@ -38,7 +40,6 @@
 namespace {
 
 using namespace decode;
-using bf16 = __nv_bfloat16;
 
 constexpr int ROWS = 1;           // rows (one warp each) of a block
 constexpr int SM_THREADS = 1024;  // threads of an SM at 64 registers each
@@ -102,8 +103,9 @@ __global__ void __launch_bounds__(
       if constexpr (sizeof(TX) == 4) {
         v[j] = __uint_as_float(q[j]);
       } else {
-        v[2 * j] = __uint_as_float(q[j] << 16);
-        v[2 * j + 1] = __uint_as_float(q[j] & 0xffff0000u);
+        const float2 f = unpack2<TX>(q[j]);
+        v[2 * j] = f.x;
+        v[2 * j + 1] = f.y;
       }
     }
   };
@@ -232,21 +234,33 @@ cudaError_t launch(const void* x, const void* w, const void* b, void* y,
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launch.
+// x_dtype, p_dtype: the element-type codes (0 fp32, 1 bf16, 2 fp16) of x
+// and of w and b.  Returns cudaGetLastError() after the launch; 1
+// (cudaErrorInvalidValue) for another code.
 extern "C" int fused_layernorm(const void* x, const void* w, const void* b,
                                void* y, void* mu, void* rstd, int n, int H,
-                               int x_bf16, int p_bf16, float eps,
+                               int x_dtype, int p_dtype, float eps,
                                void* stream) {
+  if (x_dtype < 0 || x_dtype > 2 || p_dtype < 0 || p_dtype > 2)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using bf = __nv_bfloat16;
+  using hf = __half;
   cudaError_t err;
-  if (x_bf16 && p_bf16)
-    err = launch<bf16, bf16, bf16>(x, w, b, y, mu, rstd, n, H, eps, s);
-  else if (x_bf16)
-    err = launch<bf16, float, float>(x, w, b, y, mu, rstd, n, H, eps, s);
-  else if (p_bf16)
-    err = launch<float, bf16, float>(x, w, b, y, mu, rstd, n, H, eps, s);
-  else
-    err = launch<float, float, float>(x, w, b, y, mu, rstd, n, H, eps, s);
+#define LN_LAUNCH(TX, TP, TO) \
+  err = launch<TX, TP, TO>(x, w, b, y, mu, rstd, n, H, eps, s)
+  switch (x_dtype * 3 + p_dtype) {   // y: one type only when x and w agree
+    case 0: LN_LAUNCH(float, float, float); break;
+    case 1: LN_LAUNCH(float, bf, float); break;
+    case 2: LN_LAUNCH(float, hf, float); break;
+    case 3: LN_LAUNCH(bf, float, float); break;
+    case 4: LN_LAUNCH(bf, bf, bf); break;
+    case 5: LN_LAUNCH(bf, hf, float); break;
+    case 6: LN_LAUNCH(hf, float, float); break;
+    case 7: LN_LAUNCH(hf, bf, float); break;
+    default: LN_LAUNCH(hf, hf, hf); break;
+  }
+#undef LN_LAUNCH
   return static_cast<int>(err);
 }

@@ -13,7 +13,8 @@
 // across blocks, which the TPU kernel's sequential grid made trivial.
 //
 // What the design does about it (`ln_bwd_kernel`, rows of up to 16 warps'
-// columns: 8192 with x in bf16, 6144 in fp32; the launch is planned in
+// columns: 8192 with x in bf16 or fp16, 6144 in fp32; the launch is
+// planned in
 // Python, `ops/fused_mlp.py` `ln_bwd_plan`):
 // - One launch.  Each block writes one fp32 partial row of dw and db; the
 //   last block of each group of K blocks to finish (a self-resetting
@@ -22,10 +23,11 @@
 //   dw and db, 16 bytes a load and 16 loads of a thread in flight.  No
 //   float atomics: the grid depends only on n, H and x's type, and every
 //   sum runs in a fixed order, so a result is the same in every run.
-// - S warps share a row (S from H: a lane holds 8 columns with x in bf16,
-//   16 where 16 warps of 8 do not cover the row, and 12 in fp32; NC_MAX
-//   bounds it), each a segment of `seg` chunks of 16 bytes of x (8 bf16
-//   or 4 fp32 values), lane l the chunks l, l + 32, ... of it; the S
+// - S warps share a row (S from H: a lane holds 8 columns with x in a
+//   2-byte type, bf16 or fp16, 16 where 16 warps of 8 do not cover the
+//   row, and 12 in fp32; NC_MAX bounds it), each a segment of `seg` chunks
+//   of 16 bytes of x (8 bf16 / fp16 or 4 fp32 values), lane l the chunks
+//   l, l + 32, ... of it; the S
 //   warps add their two row sums through shared memory (a named barrier
 //   of the group's warps a step).  A block holds G = 16 / S such groups,
 //   one block an SM.
@@ -51,9 +53,10 @@
 // twice (the second pass from L1), the partial sums in shared memory, and
 // the same merge.
 //
-// Types: x float or bf16; w float or bf16; dy in promote(x, w, b) (bf16 only
-// when x and w are); dx in x's type, dw and db in w's (the forward kernel
-// takes w and b of one type).
+// Types: x float, bf16 or fp16; w float, bf16 or fp16 (the nine pairs); dy
+// in promote(x, w, b) (bf16 or fp16 only when x and w are that type, else
+// float); dx in x's type, dw and db in w's (the forward kernel takes w and
+// b of one type).
 // Layout: x, dy, dx contiguous [n, H]; w, dw, db [H]; mu, rstd contiguous
 // fp32 [n, 1]; part fp32 scratch of grid + ceil(grid / K) rows of L =
 // 2H rounded up to 4 floats (dw's H, then db's), from a 16-byte boundary;
@@ -73,7 +76,7 @@ using flash_tc::smem_addr;
 
 constexpr int MAX_THREADS = 512;   // 16 warps: at most 128 registers each
 constexpr int NBUF = 3;            // rows of a group's shared-memory ring
-// chunks of 16 bytes of x a lane holds at most: 16 bf16 or 12 fp32
+// chunks of 16 bytes of x a lane holds at most: 16 bf16 / fp16 or 12 fp32
 // columns, so that w, the dw and db partials and a step's rows fit in 128
 // registers
 template <typename TX>
@@ -99,10 +102,11 @@ struct Raw {
       for (int k = 0; k < 4; ++k) {
         if constexpr (sizeof(T) == 4) {
           w[k] = __float_as_uint(to_f(p[4 * i + k]));
-        } else {
-          const T* e = p + 8 * i + 2 * k;
-          w[k] = (__float_as_uint(to_f(e[0])) >> 16) |
-                 (__float_as_uint(to_f(e[1])) & 0xffff0000u);
+        } else {   // the two elements' bits, as they are in memory
+          const uint16_t* e =
+              reinterpret_cast<const uint16_t*>(p + 8 * i + 2 * k);
+          w[k] = static_cast<uint32_t>(e[0]) |
+                 static_cast<uint32_t>(e[1]) << 16;
         }
       }
       q[i] = make_uint4(w[0], w[1], w[2], w[3]);
@@ -121,7 +125,8 @@ struct Raw {
                          : k / 2 == 1 ? r.y
                          : k / 2 == 2 ? r.z
                                       : r.w;
-      return __uint_as_float(k % 2 ? w & 0xffff0000u : w << 16);
+      const float2 f = unpack2<T>(w);
+      return k % 2 ? f.y : f.x;
     }
   }
 };
@@ -453,14 +458,11 @@ __device__ __forceinline__ void load_v(const T* p, float (&v)[V]) {
 __device__ __forceinline__ void store4(float* p, const float (&v)[VEC]) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
 }
-__device__ __forceinline__ void store4(__nv_bfloat16* p,
-                                       const float (&v)[VEC]) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
-  uint2 u;
-  u.x = *reinterpret_cast<unsigned int*>(&lo);
-  u.y = *reinterpret_cast<unsigned int*>(&hi);
-  *reinterpret_cast<uint2*>(p) = u;
+// four floats rounded to a 2-byte type (bf16 or fp16), one 8-byte store
+template <typename T>
+__device__ __forceinline__ void store4(T* p, const float (&v)[VEC]) {
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(pack2f<T>(v[0], v[1]), pack2f<T>(v[2], v[3]));
 }
 template <int V, typename T>
 __device__ __forceinline__ void store_v(T* p, const float (&v)[V]) {
@@ -635,33 +637,39 @@ cudaError_t launch(const void* x, const void* w, const void* mu,
 // rows' groups a multiple of their alignment period; the wide design
 // (wide 1): one warp a row.  Both merge the blocks' partials in groups of
 // K.  part holds (grid + ceil(grid / K)) * 2 * H floats, tickets
-// ceil(grid / K) + 1 ints, zero.  Returns the first launch error,
-// cudaErrorInvalidValue (1) for a plan the kernels do not take, or
-// cudaSuccess.
+// ceil(grid / K) + 1 ints, zero.  x_dtype, p_dtype: the element-type codes
+// (0 fp32, 1 bf16, 2 fp16) of x and of w.  Returns the first launch error,
+// cudaErrorInvalidValue (1) for a plan the kernels do not take or another
+// type code, or cudaSuccess.
 extern "C" int fused_layernorm_bwd(const void* x, const void* w,
                                    const void* mu, const void* rstd,
                                    const void* dy, void* dx, void* dw,
                                    void* db, void* part, void* tickets, int n,
                                    int H, int grid, int warps, int S, int seg,
-                                   int K, int wide, int x_bf16, int p_bf16,
+                                   int K, int wide, int x_dtype, int p_dtype,
                                    void* stream) {
   if (grid < 1 || warps < 1 || warps * 32 > MAX_THREADS || K < 1 ||
-      (!wide && (S < 1 || warps % S || seg < 1)))
+      (!wide && (S < 1 || warps % S || seg < 1)) || x_dtype < 0 ||
+      x_dtype > 2 || p_dtype < 0 || p_dtype > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using bf = __nv_bfloat16;
+  using hf = __half;
   cudaError_t err;
 #define LN_BWD_LAUNCH(TX, TP, TD)                                          \
   err = launch<TX, TP, TD>(x, w, mu, rstd, dy, dx, dw, db, part, tickets, n, \
                            H, grid, warps, S, seg, K, wide, s)
-  if (x_bf16 && p_bf16)
-    LN_BWD_LAUNCH(bf, bf, bf);
-  else if (x_bf16)
-    LN_BWD_LAUNCH(bf, float, float);
-  else if (p_bf16)
-    LN_BWD_LAUNCH(float, bf, float);
-  else
-    LN_BWD_LAUNCH(float, float, float);
+  switch (x_dtype * 3 + p_dtype) {   // dy: one type only when x and w agree
+    case 0: LN_BWD_LAUNCH(float, float, float); break;
+    case 1: LN_BWD_LAUNCH(float, bf, float); break;
+    case 2: LN_BWD_LAUNCH(float, hf, float); break;
+    case 3: LN_BWD_LAUNCH(bf, float, float); break;
+    case 4: LN_BWD_LAUNCH(bf, bf, bf); break;
+    case 5: LN_BWD_LAUNCH(bf, hf, float); break;
+    case 6: LN_BWD_LAUNCH(hf, float, float); break;
+    case 7: LN_BWD_LAUNCH(hf, bf, float); break;
+    default: LN_BWD_LAUNCH(hf, hf, hf); break;
+  }
 #undef LN_BWD_LAUNCH
   return static_cast<int>(err);
 }

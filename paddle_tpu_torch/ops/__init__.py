@@ -47,9 +47,11 @@ _KERNELS = (flash_attention, flash_attention.masked, flash_attention.segs,
             *flash_attention.flash_bwd_dkv.types.values(),
             ragged_paged_attention, ragged_paged_attention.int8,
             ragged_paged_attention.fp16, ragged_paged_attention.int8_fp16,
-            flash_decode, flash_decode.fp16, fused_decode, fused_mlp.ln_fwd, fused_mlp.ln_bwd,
-            fused_mlp.ffn_fwd, fused_mlp.ffn_tc, fused_mlp.ffn_tc32,
-            fused_mlp.ffn_decode)
+            flash_decode, flash_decode.fp16, fused_decode, fused_mlp.ln_fwd,
+            fused_mlp.ln_bwd, fused_mlp.ffn_fwd, fused_mlp.ffn_tc,
+            fused_mlp.ffn_tc32, fused_mlp.ffn_decode, fused_mlp.ln_fwd16,
+            fused_mlp.ln_bwd16, fused_mlp.ffn_fwd16, fused_mlp.ffn_tc16,
+            fused_mlp.ffn_decode16)
 
 
 def launch_counts() -> dict:

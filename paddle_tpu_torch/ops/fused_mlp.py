@@ -8,12 +8,16 @@ On a CUDA tensor each launches its kernels (``csrc/fused_layernorm.cu``,
 the port of `_ln_fwd_kernel` `:1391`; ``csrc/fused_layernorm_bwd.cu``, of
 `_ln_bwd_kernel` `:1404`; of `_ffn_fwd_kernel` `:1548` one of four
 designs that `ffn_design` picks from the rows, widths and dtype:
-``csrc/fused_ffn_tc.cu``, bf16 on the tensor cores, for many rows;
-``csrc/fused_ffn_tc32.cu``, fp32 on the tensor cores in split TF32, for
-many rows; ``csrc/fused_ffn_decode.cu``, a bandwidth design for a few
-rows, bf16 or fp32; ``csrc/fused_ffn.cu``, on the CUDA cores, for widths
-the other three do not take); on a CPU tensor each computes its plain
-version.  Both are
+``csrc/fused_ffn_tc.cu``, bf16 or fp16 on the tensor cores, for many
+rows; ``csrc/fused_ffn_tc32.cu``, fp32 on the tensor cores in split TF32,
+for many rows; ``csrc/fused_ffn_decode.cu``, a bandwidth design for a few
+rows, any of the three types; ``csrc/fused_ffn.cu``, on the CUDA cores,
+for widths the other three do not take); on a CPU tensor each computes
+its plain version.  The kernels take float32, bfloat16 and float16, each
+entry its types as `_build.dtype_code` codes (the LayerNorm any of the
+nine pairs of x's and w's types, as the TPU kernels do); each wrapper
+counts its float16 launches once more under ``<kernel>:fp16`` (`ln_fwd16`,
+...).  Both are
 differentiable, as the JAX custom VJPs are: the LayerNorm's backward is the
 backward kernel (`LayerNormFunction`), the FFN's recomputes the intermediate
 in plain PyTorch (`FusedFFNFunction`, `_ffn_vjp_bwd` `:1607`).  Under
@@ -38,7 +42,8 @@ __all__ = ["fused_layernorm_arrays", "fused_layernorm_reference",
            "LayerNormFunction", "fused_ffn_arrays", "fused_ffn_reference",
            "FusedFFNFunction", "maybe_fused_ffn", "ln_geometry_ok",
            "ffn_geometry_ok", "ln_fwd", "ln_bwd", "ffn_fwd", "ffn_tc",
-           "ffn_tc32", "ffn_decode", "ln_block_rows", "ffn_design",
+           "ffn_tc32", "ffn_decode", "ln_fwd16", "ln_bwd16", "ffn_fwd16",
+           "ffn_tc16", "ffn_decode16", "ln_block_rows", "ffn_design",
            "ffn_tc_tiles", "ffn_decode_loads", "ln_bwd_plan",
            "LnBwdPlan"]
 
@@ -65,9 +70,23 @@ class _Launcher:
 ln_fwd = _Launcher("fused_layernorm")
 ln_bwd = _Launcher("fused_layernorm_bwd")
 ffn_fwd = _Launcher("fused_ffn")            # the CUDA-core design
-ffn_tc = _Launcher("fused_ffn_tc")          # bf16 on the tensor cores
+ffn_tc = _Launcher("fused_ffn_tc")          # bf16, fp16 on the tensor cores
 ffn_tc32 = _Launcher("fused_ffn_tc32")      # fp32 on the tensor cores
 ffn_decode = _Launcher("fused_ffn_decode")  # a few rows, bandwidth
+# the float16 launches of each (a float16 x or w), counted once more
+ln_fwd16, ln_bwd16, ffn_fwd16, ffn_tc16, ffn_decode16 = (
+    _build.Counter(k.KERNEL + ":fp16", k.SOURCE)
+    for k in (ln_fwd, ln_bwd, ffn_fwd, ffn_tc, ffn_decode))
+_FP16 = {ln_fwd: ln_fwd16, ln_bwd: ln_bwd16, ffn_fwd: ffn_fwd16,
+         ffn_tc: ffn_tc16, ffn_decode: ffn_decode16}
+
+
+def _count(launcher, *ts):
+    """One launch of ``launcher``, and of its float16 counter where one
+    of the tensors ``ts`` is float16."""
+    launcher.launches += 1
+    if any(t.dtype == torch.float16 for t in ts):
+        _FP16[launcher].launches += 1
 
 
 def ln_block_rows(n):
@@ -143,11 +162,10 @@ def _ln_launch(x2, w, b, eps):
                 or t.device != x2.device:
             raise ValueError(f"{name} must be a contiguous ({h},) on "
                              f"{x2.device}")
-    kinds = (torch.float32, torch.bfloat16)
-    if x2.dtype not in kinds or w.dtype not in kinds or w.dtype != b.dtype:
-        raise ValueError(f"kernel takes float32 / bfloat16 x and one such "
-                         f"dtype for w and b, got {x2.dtype}, {w.dtype}, "
+    if w.dtype != b.dtype:
+        raise ValueError(f"kernel takes w and b of one dtype, got {w.dtype}, "
                          f"{b.dtype}")
+    codes = _build.dtype_code(x2.dtype), _build.dtype_code(w.dtype)
     x2 = x2.contiguous()
     out_dt = _out_dtype(x2, w, b)
     y = torch.empty((n, h), dtype=out_dt, device=x2.device)
@@ -156,11 +174,10 @@ def _ln_launch(x2, w, b, eps):
     vp, i = ctypes.c_void_p, ctypes.c_int
     fn = ln_fwd.fn([vp] * 6 + [i] * 4 + [ctypes.c_float, vp])
     err = fn(x2.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
-             mu.data_ptr(), rs.data_ptr(), n, h,
-             int(x2.dtype == torch.bfloat16), int(w.dtype == torch.bfloat16),
-             eps, torch.cuda.current_stream(x2.device).cuda_stream)
+             mu.data_ptr(), rs.data_ptr(), n, h, *codes, eps,
+             torch.cuda.current_stream(x2.device).cuda_stream)
     _build.check(err, ln_fwd.KERNEL)
-    ln_fwd.launches += 1
+    _count(ln_fwd, x2, w)
     return y, mu, rs
 
 
@@ -193,23 +210,23 @@ class LnBwdPlan(NamedTuple):
 def ln_bwd_plan(n, h, x_dtype, sms=H100_SMS):
     """`LnBwdPlan` of the LayerNorm backward for ``n`` rows of width
     ``h``, x in ``x_dtype``, on a card of ``sms`` SMs, from host values
-    only.  The row design: a lane holds 8 columns with x in bf16 (16 where
-    16 warps of 8 do not cover the row) and 12 in fp32 (their w and dw
-    and db partials in registers: `NC_MAX` of the source; fewer warps a
-    row measured no faster in bf16, more slower in fp32: PERF.md), so s
-    is the fewest warps whose lanes cover a row, at most 16; a block
-    holds 16 // s groups of s warps (one block an SM: 128 registers a
-    thread, and the shared-memory ring of rows in flight); as many blocks
-    as give each group two rows, at most one an SM, and a multiple that
-    makes the groups a multiple of the rows' alignment period (16 /
-    gcd(h * itemsize, 16)).  Wider rows
-    take the wide design: up to 16 warps a block, as many as leave each
-    its fp32 row of both partial sums in shared memory, at most
-    `_LN_BWD_WIDE_GRID` blocks; raises ValueError for an h that leaves no
-    room for one warp.  k, the blocks of a first-level group of the
-    merge, is the grid up to `_LN_BWD_ONE_LEVEL` blocks (one level: a
-    ticket's round trip fewer), else ceil(sqrt(grid)), so that neither
-    level adds more than ~sqrt(grid) partials in sequence."""
+    only.  The row design: a lane holds 8 columns with x in a 2-byte type,
+    bf16 or fp16 (16 where 16 warps of 8 do not cover the row) and 12 in
+    fp32 (their w and dw and db partials in registers: `NC_MAX` of the
+    source; fewer warps a row measured no faster in bf16, more slower in
+    fp32: PERF.md), so s is the fewest warps whose lanes cover a row, at
+    most 16; a block holds 16 // s groups of s warps (one block an SM: 128
+    registers a thread, and the shared-memory ring of rows in flight); as
+    many blocks as give each group two rows, at most one an SM, and a
+    multiple that makes the groups a multiple of the rows' alignment
+    period (16 / gcd(h * itemsize, 16)).  Wider rows take the wide design:
+    up to 16 warps a block, as many as leave each its fp32 row of both
+    partial sums in shared memory, at most `_LN_BWD_WIDE_GRID` blocks;
+    raises ValueError for an h that leaves no room for one warp.  k, the
+    blocks of a first-level group of the merge, is the grid up to
+    `_LN_BWD_ONE_LEVEL` blocks (one level: a ticket's round trip fewer),
+    else ceil(sqrt(grid)), so that neither level adds more than
+    ~sqrt(grid) partials in sequence."""
     xb = x_dtype.itemsize
     v = 16 // xb                           # x's values in a chunk
     nvec = h // v
@@ -241,19 +258,21 @@ def ln_bwd_plan(n, h, x_dtype, sms=H100_SMS):
 def fused_layernorm_bwd(x2, w, mu, rs, dy, b_dtype=None):
     """LayerNorm backward of [n, H] -> (dx, dw, db), the counterpart of
     `_ln_vjp_bwd`.  On a CUDA tensor this launches ``csrc/
-    fused_layernorm_bwd.cu`` (x float32 or bfloat16, w float32 or bfloat16
-    with ``b_dtype`` the same, dy in ``promote(x, w)``, made contiguous
-    here) and raises on anything it does not take; on a CPU tensor it
-    computes `fused_layernorm_bwd_reference`."""
+    fused_layernorm_bwd.cu`` (x and w each float32, bfloat16 or float16,
+    ``b_dtype`` w's, dy in ``promote(x, w)``, made contiguous here) and
+    raises on anything it does not take; on a CPU tensor it computes
+    `fused_layernorm_bwd_reference`."""
     if not x2.is_cuda:
         return fused_layernorm_bwd_reference(x2, w, mu, rs, dy, b_dtype)
+    return _ln_bwd_launch(x2, w, mu, rs, dy, b_dtype)
+
+
+def _ln_bwd_launch(x2, w, mu, rs, dy, b_dtype):
     n, h = x2.shape
-    kinds = (torch.float32, torch.bfloat16)
-    if x2.dtype not in kinds or w.dtype not in kinds \
-            or (b_dtype or w.dtype) != w.dtype:
-        raise ValueError(f"kernel takes float32 / bfloat16 x and one such "
-                         f"dtype for w and b, got {x2.dtype}, {w.dtype}, "
+    if (b_dtype or w.dtype) != w.dtype:
+        raise ValueError(f"kernel takes w and b of one dtype, got {w.dtype}, "
                          f"{b_dtype}")
+    codes = _build.dtype_code(x2.dtype), _build.dtype_code(w.dtype)
     dt = _out_dtype(x2, w)
     if tuple(dy.shape) != (n, h) or dy.dtype != dt:
         raise ValueError(f"dy must be a {dt} {(n, h)}, got {dy.dtype} "
@@ -284,11 +303,10 @@ def fused_layernorm_bwd(x2, w, mu, rs, dy, b_dtype=None):
     err = fn(x2.data_ptr(), w.data_ptr(), mu.data_ptr(), rs.data_ptr(),
              dy.data_ptr(), dx.data_ptr(), dw.data_ptr(), db.data_ptr(),
              part, tickets.data_ptr(), n, h, plan.grid, plan.warps, plan.s,
-             plan.seg, plan.k, int(plan.wide),
-             int(x2.dtype == torch.bfloat16), int(w.dtype == torch.bfloat16),
+             plan.seg, plan.k, int(plan.wide), *codes,
              torch.cuda.current_stream(x2.device).cuda_stream)
     _build.check(err, ln_bwd.KERNEL)
-    ln_bwd.launches += 1
+    _count(ln_bwd, x2, w)
     return dx, dw, db
 
 
@@ -322,8 +340,8 @@ def fused_layernorm_arrays(x, w, b, eps=1e-5, return_stats=False):
     rows of ``x.reshape(-1, H)``.  Differentiable in x, w and b
     (`LayerNormFunction`).
 
-    On a CUDA tensor this launches the kernels (x, w, b float32 or
-    bfloat16, w and b of one dtype) and raises on anything they do not
+    On a CUDA tensor this launches the kernels (x, w, b float32, bfloat16
+    or float16, w and b of one dtype) and raises on anything they do not
     take; on a CPU tensor it computes the plain versions.  Callers gate on
     `ln_geometry_ok` first, as the JAX package's do."""
     h = x.shape[-1]
@@ -400,8 +418,8 @@ def fused_ffn_arrays(x, w1, b1, w2, act="gelu"):
     (`FusedFFNFunction`).
 
     On a CUDA tensor this launches the kernel (x, w1, b1, w2 of one dtype,
-    float32 or bfloat16) and raises on anything it does not take; on a
-    CPU tensor it computes `fused_ffn_reference`."""
+    float32, bfloat16 or float16) and raises on anything it does not take;
+    on a CPU tensor it computes `fused_ffn_reference`."""
     if act not in _ACTS:
         raise ValueError(f"fused_ffn: unsupported activation {act!r}")
     h = x.shape[-1]
@@ -431,10 +449,11 @@ def maybe_fused_ffn(x, w1, b1, w2, act):
 
 # Measured on an H100 at GPT-2 width (PERF.md, `chip_smoke.py --probe`):
 # in bf16 the decode design wins at 8 and 16 rows, the tensor cores from
-# 24; in fp32 the decode design wins up to 64 rows (0.0916 ms against the
-# split-TF32 tensor cores' 0.1116), the tensor cores from 128 (0.1119
-# against 0.1588), and the CUDA-core kernel at no row count.
-FFN_TC_MIN_ROWS = 24         # bf16 rows from which the tensor cores win
+# 24 (fp16, the same designs in the other 2-byte type, takes the same
+# crossover); in fp32 the decode design wins up to 64 rows (0.0916 ms
+# against the split-TF32 tensor cores' 0.1116), the tensor cores from 128
+# (0.1119 against 0.1588), and the CUDA-core kernel at no row count.
+FFN_TC_MIN_ROWS = 24         # 2-byte rows from which the tensor cores win
 FFN_DECODE_MAX_ROWS = 64     # fp32 rows up to which the decode design wins
 _TC_TILES = ((2, 256), (2, 128), (1, 256), (1, 128))   # (warpgroups, BN)
 # fp32's: BN at most 128, the output and each k-tile's sum both in
@@ -445,16 +464,17 @@ _TC32_TILES = ((2, 128), (2, 64), (1, 128), (1, 64))
 def ffn_design(n, h, i, dtype, h2=None):
     """The FFN design for ``n`` rows of width ``h`` through an ``i``-wide
     intermediate to ``h2`` (default ``h``) columns in ``dtype``:
-    ``"tc"`` (``csrc/fused_ffn_tc.cu``, bf16 from `FFN_TC_MIN_ROWS` rows),
-    ``"tc32"`` (``csrc/fused_ffn_tc32.cu``, fp32 above
-    `FFN_DECODE_MAX_ROWS` rows, on the tensor cores in split TF32, as
-    accurate as fp32 products), ``"decode"`` (``csrc/fused_ffn_decode.cu``,
-    bf16 below `FFN_TC_MIN_ROWS` and fp32 up to `FFN_DECODE_MAX_ROWS`
-    rows) or ``"cuda_core"`` (``csrc/fused_ffn.cu``: any width that is not
-    a multiple of 128, which the other three do not take)."""
+    ``"tc"`` (``csrc/fused_ffn_tc.cu``, bf16 and fp16 from
+    `FFN_TC_MIN_ROWS` rows), ``"tc32"`` (``csrc/fused_ffn_tc32.cu``, fp32
+    only, above `FFN_DECODE_MAX_ROWS` rows, on the tensor cores in split
+    TF32, as accurate as fp32 products), ``"decode"``
+    (``csrc/fused_ffn_decode.cu``, bf16 and fp16 below `FFN_TC_MIN_ROWS`
+    and fp32 up to `FFN_DECODE_MAX_ROWS` rows) or ``"cuda_core"``
+    (``csrc/fused_ffn.cu``: any width that is not a multiple of 128, which
+    the other three do not take)."""
     if any(d % 128 for d in (h, i, h if h2 is None else h2)):
         return "cuda_core"
-    if dtype == torch.bfloat16:
+    if dtype in (torch.bfloat16, torch.float16):
         return "tc" if n >= FFN_TC_MIN_ROWS else "decode"
     return "decode" if n <= FFN_DECODE_MAX_ROWS else "tc32"
 
@@ -489,7 +509,7 @@ def ffn_decode_loads(n, k, cols, dtype, sms=H100_SMS):
     32·loads rows of the weights and 128 bytes of its columns; the most
     loads that divide ``k`` and still leave a full wave of ``sms`` blocks,
     else the fewest."""
-    cw = 128 // (2 if dtype == torch.bfloat16 else 4)
+    cw = 128 // dtype.itemsize
     tiles = -(-n // 8)
     fits = [l for l in (4, 8, 16) if k % (32 * l) == 0]
     if not fits:
@@ -544,10 +564,9 @@ def _cuda_core_launch(x2, w1, b1, w2, act):
              y.data_ptr(), part.data_ptr(),
              _build.tickets(x2.device, tiles * (groups + 1)).data_ptr(), n, h,
              i, h2, bi,
-             _ACTS.index(act), int(x2.dtype == torch.bfloat16),
-             _stream(x2))
+             _ACTS.index(act), _build.dtype_code(x2.dtype), _stream(x2))
     _build.check(err, ffn_fwd.KERNEL)
-    ffn_fwd.launches += 1
+    _count(ffn_fwd, x2)
     return y
 
 
@@ -579,12 +598,12 @@ def _tc_launch(x2, w1, b1, w2, act):
     hbuf = torch.empty((n, i), dtype=x2.dtype, device=x2.device)
     y = torch.empty((n, h2), dtype=x2.dtype, device=x2.device)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn = ffn_tc.fn([vp] * 6 + [ci] * 9 + [vp])
+    fn = ffn_tc.fn([vp] * 6 + [ci] * 10 + [vp])
     err = fn(x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
              hbuf.data_ptr(), y.data_ptr(), n, h, i, h2, _ACTS.index(act),
-             g1, n1, g2, n2, _stream(x2))
+             g1, n1, g2, n2, _build.dtype_code(x2.dtype), _stream(x2))
     _build.check(err, ffn_tc.KERNEL)
-    ffn_tc.launches += 1
+    _count(ffn_tc, x2)
     return y
 
 
@@ -596,7 +615,7 @@ def _decode_plan(n, h, i, h2, dtype, sms):
     each from a 256-byte boundary."""
     l1 = ffn_decode_loads(n, h, i, dtype, sms)
     l2 = ffn_decode_loads(n, i, h2, dtype, sms)
-    item = 2 if dtype == torch.bfloat16 else 4
+    item = dtype.itemsize
 
     def pad(nbytes):
         return -(-nbytes // 256) * 256
@@ -627,9 +646,9 @@ def _decode_launch(x2, w1, b1, w2, act):
     err = fn(x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
              base, y.data_ptr(), base + off1, base + off2,
              _build.tickets(dev, n_tickets).data_ptr(), n, h, i, h2, l1, l2,
-             _ACTS.index(act), int(dt == torch.bfloat16), _stream(x2))
+             _ACTS.index(act), _build.dtype_code(dt), _stream(x2))
     _build.check(err, ffn_decode.KERNEL)
-    ffn_decode.launches += 1
+    _count(ffn_decode, x2)
     return y
 
 
@@ -647,9 +666,7 @@ def _ffn_launch(x2, w1, b1, w2, act):
                 or t.dtype != x2.dtype or t.device != x2.device):
             raise ValueError(f"{name} must be a contiguous {x2.dtype} "
                              f"{shape} on {x2.device}")
-    if x2.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"kernel takes float32 or bfloat16, got "
-                         f"{x2.dtype}")
+    _build.dtype_code(x2.dtype)          # float32, bfloat16 or float16
     x2 = x2.contiguous()
     design = ffn_design(n, h, i, x2.dtype, h2)
     if design != "cuda_core":

@@ -131,6 +131,23 @@ the magnitudes it multiplies:
 - decode (``FP16_DECODE_COEF = 0``): neither rounds p (the TPU kernel's
   ``fast`` type is fp32 for an fp16 cache, `pallas_ops.py:1038`, and the
   plain version mirrors it), so the fp32 limit plus the output's step.
+- LayerNorm (`ln_limit`): y is computed in fp32 from the fp16 inputs and
+  rounded once, no intermediate is rounded: one fp16 step of the output,
+  the bf16 argument's ``LN_COEF`` of the LN terms for the fp32 noise, and
+  2^-24 for a subnormal output -- ``2^-10 max(|out|, |ref|) + LN_COEF
+  mag + 2^-24``.
+- LayerNorm backward (`ln_bwd_limits`): fp32 throughout from the same
+  fp16 x and dy, each output rounded once: ``2^-10 max(|out|, |ref|) +
+  LN_BWD_COEF mag + 2^-24``.
+- FFN (`ffn_limit`, ``FP16_FFN_COEF = 2^-10``): ``u = x W1 + b1`` and h =
+  act(u) in fp32 within ``e_h = 1.2 FP32_SUM (|x| |W1| + |b1|)`` (as in
+  bf16); each side rounds h to fp16, within 2^-11 of it each, so the two
+  h are within ``2^-10 |h| + e_h`` (a subnormal h: 2^-25 absolute each);
+  ``y32 = h W2`` within ``e_y = 2^-10 |h| |W2| + e_h |W2| + FP32_SUM |h|
+  |W2| + 2^-24 sum_i |W2_ij|`` (the last for subnormal h); each side
+  rounds y once: ``2^-10 |y32| + (1 + 2^-10) e_y + 2^-24``.  An
+  h past 65504 becomes inf on both sides, as in the TPU kernel (nothing
+  clamps it); the limit holds only where y is finite.
 
 A kernel whose partner rounds each ``q_d k_d`` product to bf16 before the
 per-head sum (the TPU decode kernels) moves each score by up to
@@ -150,7 +167,8 @@ from .fused_mlp import _act, fused_layernorm_reference
 __all__ = ["BF16_STEP", "FWD_COEF", "FLASH_FWD_COEF", "BWD_COEF", "DECODE_COEF", "LN_COEF",
            "LN_BWD_COEF", "FP32_SUM", "FP16_STEP", "FP16_TINY",
            "FP16_FLASH_FWD_COEF", "FP16_BWD_COEF", "FP16_FWD_COEF",
-           "FP16_DECODE_COEF", "bf16_limit", "fp16_limit", "half_limit",
+           "FP16_DECODE_COEF", "FP16_FFN_COEF", "bf16_limit", "fp16_limit",
+           "half_limit", "ln_limit",
            "flash_fwd_subnormal", "flash_bwd_subnormal", "flash_fwd_limit",
            "flash_bwd_limits", "compare",
            "flash_fwd_magnitude", "flash_bwd_magnitudes", "decode_magnitude",
@@ -172,6 +190,7 @@ FP16_FLASH_FWD_COEF = 2.0 ** -10
 FP16_BWD_COEF = 2.0 ** -10
 FP16_FWD_COEF = 2.0 ** -11
 FP16_DECODE_COEF = 0.0
+FP16_FFN_COEF = 2.0 ** -10
 # the bf16 coefficient of each kind of kernel and its fp16 counterpart
 _COEFS = {"flash_fwd": (FLASH_FWD_COEF, FP16_FLASH_FWD_COEF),
           "bwd": (BWD_COEF, FP16_BWD_COEF), "fwd": (FWD_COEF, FP16_FWD_COEF),
@@ -323,6 +342,22 @@ def ln_magnitude(x2, w, b, eps=1e-5):
             * w.float().abs() + b.float().abs())
 
 
+def _fp16_step_limit(out, want, noise):
+    """One fp16 step of the larger of ``out`` and ``want``, the fp32
+    ``noise`` before the rounding, and 2^-24 for a subnormal output."""
+    return (FP16_STEP * torch.maximum(out.float().abs(), want.float().abs())
+            + noise + FP16_TINY)
+
+
+def ln_limit(out, want, x2, w, b, eps=1e-5):
+    """Per-element limit of a bf16 or fp16 LayerNorm output (by
+    ``out``'s dtype) against the plain version (module docstring)."""
+    mag = ln_magnitude(x2, w, b, eps)
+    if out.dtype == torch.float16:
+        return _fp16_step_limit(out, want, LN_COEF * mag)
+    return bf16_limit(out, want, mag, LN_COEF)
+
+
 def ln_bwd_magnitudes(x2, w, mu, rs, dy):
     """(mag_dx [n, H], mag_dw [H], mag_db [H]) in fp32: each gradient's
     sum over the magnitudes of its terms."""
@@ -337,11 +372,16 @@ def ln_bwd_magnitudes(x2, w, mu, rs, dy):
 def ln_bwd_limits(got, want, x2, w, mu, rs, dy):
     """Per-element limits of the LayerNorm backward's (dx, dw, db) ``got``
     against ``want`` (module docstring): ``LN_BWD_COEF`` of each output's
-    magnitude, plus one bf16 step for an output in bf16."""
+    magnitude, plus one bf16 step for an output in bf16, one fp16 step
+    and 2^-24 for an output in fp16."""
     limits = []
     for g, r, mag in zip(got, want, ln_bwd_magnitudes(x2, w, mu, rs, dy)):
-        limits.append(LN_BWD_COEF * mag if g.dtype == torch.float32
-                      else bf16_limit(g, r, mag, LN_BWD_COEF))
+        if g.dtype == torch.float32:
+            limits.append(LN_BWD_COEF * mag)
+        elif g.dtype == torch.float16:
+            limits.append(_fp16_step_limit(g, r, LN_BWD_COEF * mag))
+        else:
+            limits.append(bf16_limit(g, r, mag, LN_BWD_COEF))
     return limits
 
 
@@ -390,12 +430,20 @@ def fused_decode_limits(plain, args, k_cache, v_cache, t, n_heads, scale,
 
 
 def ffn_limit(x2, w1, b1, w2, act):
-    """Per-element limit of the FFN's output against the plain version's
-    (module docstring)."""
+    """Per-element limit of the FFN's bf16 or fp16 output against the
+    plain version's (module docstring): bf16 by the spreads of the
+    rounded values, fp16 in `fp16_limit`'s form."""
     xa, aw1, aw2 = x2.float().abs(), w1.float().abs(), w2.float().abs()
     u = x2.float() @ w1.float() + b1.float()
     e_h = 1.2 * FP32_SUM * (xa @ aw1 + b1.float().abs())
     h32 = _act(u, act)
+    if x2.dtype == torch.float16:
+        h = h32.half().float()
+        e_y = ((FP16_FFN_COEF + FP32_SUM) * (h.abs() @ aw2) + e_h @ aw2
+               + FP16_TINY * aw2.sum(0))
+        # each side rounds its y32 (within e_y of the plain one) once
+        return (FP16_STEP * (h @ w2.float()).abs() + (1 + FP16_STEP) * e_y
+                + FP16_TINY)
     dh = rounding_spread(h32, e_h, x2.dtype)
     h = h32.to(x2.dtype).float()
     e_y = dh @ aw2 + FP32_SUM * (h.abs() @ aw2)

@@ -19,6 +19,15 @@ and scales bitwise.  Each fp16 launch counts once more under its fp16
 counter (``:tc16``, ``:fp16``, ``:int8:fp16``), and a C entry given a
 type code it does not instantiate returns an error, which the wrapper
 raises on.
+
+The LayerNorm forward and backward and the FFN's designs in fp16
+(`tolerance.ln_limit`, `ln_bwd_limits`, `ffn_limit`: one fp16 step of
+the output, the fp32 noise of the bf16 argument, 2^-24 for a subnormal
+output; the FFN's h rounded to fp16 by both sides, 2^-10 of |h| |W2|):
+every (x, w) type pair of the LayerNorm entries at the shapes of
+``chip_smoke.py`` phase 12a and a width off 16-byte chunks, the
+backward's wide design, each FFN design, a second launch bitwise the
+first, and the five entries' refusal of a type code they do not take.
 """
 import ctypes
 
@@ -29,6 +38,7 @@ from paddle_tpu_torch import ops
 from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import flash_decode as fd
+from paddle_tpu_torch.ops import fused_mlp as fm
 from paddle_tpu_torch.ops import ragged_paged_attention as rpa
 from paddle_tpu_torch.ops import tolerance as tol
 
@@ -257,3 +267,161 @@ def test_c_entries_refuse_unknown_type_codes():
                            _build.tickets(qd.device, 2).data_ptr(), 0, 1, 2,
                            64, 128, 5, 3, 0, ctypes.c_float(0.125), stream)
     assert err == 1
+
+
+# ---------------------------------------------------------------------------
+# the LayerNorm and FFN kernels in fp16
+# ---------------------------------------------------------------------------
+
+TYPES = (torch.float32, torch.bfloat16, F16)
+PAIRS = [(x, w) for x in TYPES for w in TYPES]
+
+
+def _ln_inputs(n, h, xdt, pdt, seed):
+    g = torch.Generator().manual_seed(seed)
+    x = (torch.randn(n, h, generator=g) * 2 + 0.5).to("cuda", xdt)
+    w = (1 + 0.1 * torch.randn(h, generator=g)).to("cuda", pdt)
+    b = (0.1 * torch.randn(h, generator=g)).to("cuda", pdt)
+    return x, w, b
+
+
+def _ln_fwd_limit(y, yr, x, w, b):
+    if y.dtype == torch.float32:
+        return 2e-5           # chip_smoke.py's TOL_FP32: fp32 on both sides
+    return tol.ln_limit(y, yr, x, w, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.usefixtures("needs_cuda")
+@pytest.mark.parametrize("xdt,pdt", PAIRS)
+@pytest.mark.parametrize("n,h", [(8192, 768), (8, 768), (37, 1002)])
+def test_layernorm_forward_every_type_pair_matches_plain(xdt, pdt, n, h):
+    """y in promote(x, w, b) within its limit, mu and rstd to 1e-5
+    relative, a second launch bitwise; an fp16 x or w counted under
+    ``fused_layernorm:fp16``."""
+    x, w, b = _ln_inputs(n, h, xdt, pdt, n + h)
+    ops.reset_launch_counts()
+    y, mu, rs = fm.fused_layernorm_arrays(x, w, b, return_stats=True)
+    again = fm.fused_layernorm_arrays(x, w, b)
+    yr, mur, rsr = fm.fused_layernorm_reference(x, w, b)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert y.dtype == yr.dtype == torch.promote_types(xdt, pdt)
+    assert torch.equal(y, again)
+    _within(y, yr, _ln_fwd_limit(y, yr, x, w, b), f"LN {xdt} {pdt}")
+    _within(mu, mur, 1e-5 * mur.abs() + 1e-6, "mu")
+    _within(rs, rsr, 1e-5 * rsr.abs(), "rstd")
+    half = F16 in (xdt, pdt)
+    assert counts[fm.ln_fwd.KERNEL] == 2
+    assert counts[fm.ln_fwd16.KERNEL] == (2 if half else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.usefixtures("needs_cuda")
+@pytest.mark.parametrize("xdt,pdt", PAIRS)
+@pytest.mark.parametrize("n,h", [(8192, 768), (200, 768), (37, 1002),
+                                 (64, 12288)])
+def test_layernorm_backward_every_type_pair_matches_plain(xdt, pdt, n, h):
+    """dx, dw, db within `tolerance.ln_bwd_limits`, a second launch
+    bitwise (no atomics); H=12288 takes the wide design in every type
+    (past 8192 2-byte and 6144 fp32 columns)."""
+    x, w, b = _ln_inputs(n, h, xdt, pdt, n + h + 1)
+    g = torch.Generator().manual_seed(n)
+    dy = torch.randn(n, h, generator=g).to("cuda",
+                                           torch.promote_types(xdt, pdt))
+    _, mu, rs = fm.fused_layernorm_reference(x, w, b)
+    assert fm.ln_bwd_plan(n, h, xdt).wide == (h == 12288)
+    ops.reset_launch_counts()
+    got = fm.fused_layernorm_bwd(x, w, mu, rs, dy)
+    again = fm.fused_layernorm_bwd(x, w, mu, rs, dy)
+    want = fm.fused_layernorm_bwd_reference(x, w, mu, rs, dy)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    for name, gv, wv, lim in zip(("dx", "dw", "db"), got, want,
+                                 tol.ln_bwd_limits(got, want, x, w, mu, rs,
+                                                   dy)):
+        assert gv.dtype == wv.dtype
+        _within(gv, wv, lim, f"LN backward {name} {xdt} {pdt}")
+    assert counts[fm.ln_bwd16.KERNEL] == (2 if F16 in (xdt, pdt) else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.usefixtures("needs_cuda")
+@pytest.mark.parametrize("n,inter,act", [
+    (8, 3072, "gelu_tanh"), (16, 3072, "gelu"), (8, 3072, "relu"),
+    (2048, 3072, "gelu_tanh"), (8192, 3072, "gelu_tanh"),
+    (512, 3072, "gelu"), (512, 3072, "relu"), (1024, 3008, "gelu_tanh"),
+    (8, 3008, "relu")])
+def test_fp16_ffn_designs_match_plain(n, inter, act):
+    """Each design in fp16 (decode below 24 rows, the tensor cores from
+    24, the CUDA cores at widths off 128) within `tolerance.ffn_limit`,
+    a second launch bitwise, counted under the design and its fp16
+    counter; never the split-TF32 design."""
+    g = torch.Generator().manual_seed(n + inter)
+    x = torch.randn(n, 768, generator=g).to("cuda", F16)
+    w1 = (torch.randn(768, inter, generator=g) * 768 ** -0.5).to("cuda", F16)
+    b1 = (torch.randn(inter, generator=g) * 0.1).to("cuda", F16)
+    w2 = (torch.randn(inter, 768, generator=g) * inter ** -0.5).to("cuda",
+                                                                   F16)
+    design = fm.ffn_design(n, 768, inter, F16)
+    assert design == ("cuda_core" if inter % 128 else
+                      "tc" if n >= fm.FFN_TC_MIN_ROWS else "decode")
+    ops.reset_launch_counts()
+    y = fm.fused_ffn_arrays(x, w1, b1, w2, act)
+    again = fm.fused_ffn_arrays(x, w1, b1, w2, act)
+    yr = fm.fused_ffn_reference(x, w1, b1, w2, act)
+    torch.cuda.synchronize()
+    counter = {"tc": (fm.ffn_tc, fm.ffn_tc16),
+               "decode": (fm.ffn_decode, fm.ffn_decode16),
+               "cuda_core": (fm.ffn_fwd, fm.ffn_fwd16)}[design]
+    assert {k: v for k, v in ops.launch_counts().items() if v} == {
+        c.KERNEL: 2 for c in counter}
+    assert y.dtype == F16 and torch.equal(y, again)
+    _within(y, yr, tol.ffn_limit(x, w1, b1, w2, act), f"FFN {design} {n}")
+
+
+@pytest.mark.cuda
+@pytest.mark.usefixtures("needs_cuda")
+def test_ln_and_ffn_entries_refuse_unknown_type_codes():
+    """The LayerNorm forward and backward and the three FFN designs that
+    take fp16 return cudaErrorInvalidValue (1) for a type code they do not
+    instantiate (the tensor-core design: anything but bf16 and fp16)."""
+    stream = torch.cuda.current_stream().cuda_stream
+    x, w, b = _ln_inputs(8, 768, F16, F16, 0)
+    y = torch.empty_like(x)
+    mu = torch.empty(8, 1, device="cuda")
+    rs = torch.empty(8, 1, device="cuda")
+    ln = fm.ln_fwd.fn([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                      + [ctypes.c_float, ctypes.c_void_p])
+    for codes in ((3, 2), (2, 3), (-1, 0)):
+        assert ln(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
+                  mu.data_ptr(), rs.data_ptr(), 8, 768, *codes, 1e-5,
+                  stream) == 1
+    plan = fm.ln_bwd_plan(8, 768, F16)
+    bwd = fm.ln_bwd.fn([ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
+                       + [ctypes.c_void_p])
+    part = torch.empty((plan.grid + plan.groups) * 2 * 768, device="cuda")
+    tickets = _build.tickets(x.device, plan.groups + 1)
+    for codes in ((3, 2), (2, 3)):
+        assert bwd(x.data_ptr(), w.data_ptr(), mu.data_ptr(), rs.data_ptr(),
+                   x.data_ptr(), y.data_ptr(), w.clone().data_ptr(),
+                   b.clone().data_ptr(), part.data_ptr(), tickets.data_ptr(),
+                   8, 768, plan.grid, plan.warps, plan.s, plan.seg, plan.k,
+                   int(plan.wide), *codes, stream) == 1
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    w1 = torch.zeros(768, 3072, dtype=F16, device="cuda")
+    h = torch.empty(8, 3072, dtype=F16, device="cuda")
+    tc = fm.ffn_tc.fn([vp] * 6 + [ci] * 10 + [vp])
+    for code in (0, 3):
+        assert tc(x.data_ptr(), w1.data_ptr(), w1.data_ptr(), w1.data_ptr(),
+                  h.data_ptr(), y.data_ptr(), 8, 768, 3072, 768, 1, 1, 128, 1,
+                  128, code, stream) == 1
+    dec = fm.ffn_decode.fn([vp] * 9 + [ci] * 8 + [vp])
+    assert dec(x.data_ptr(), w1.data_ptr(), w1.data_ptr(), w1.data_ptr(), 0,
+               y.data_ptr(), 0, 0, tickets.data_ptr(), 8, 768, 3072, 768, 4,
+               4, 1, 3, stream) == 1
+    core = fm.ffn_fwd.fn([vp] * 7 + [ci] * 7 + [vp])
+    assert core(x.data_ptr(), w1.data_ptr(), w1.data_ptr(), w1.data_ptr(),
+                y.data_ptr(), 0, tickets.data_ptr(), 8, 768, 3072, 768, 16,
+                1, 3, stream) == 1

@@ -423,21 +423,23 @@ def test_fp16_amp_steps_match_jax(level, jax_runs):
 
 
 def test_ln_ffn_launchers_and_fused_layer_refuse_fp16(monkeypatch):
-    """What the fp16 paths leave out: the LayerNorm and FFN launchers
-    still take fp32 and bf16 only and raise on fp16 before building
-    anything, and the fused decode layer's gate refuses fp16 as JAX's
-    does (`pallas_ops.py:1370-1374`)."""
+    """What the fp16 paths leave out: the fused decode layer's gate
+    refuses fp16 as JAX's does (`pallas_ops.py:1370-1374`).  The LayerNorm
+    and FFN launchers take fp16 (`tests/test_torch_port_fp16_ln_ffn.py`)
+    and raise on any type their kernels do not instantiate (float64 here)
+    before building anything."""
     from paddle_tpu_torch.ops import fused_decode as fdl
     from paddle_tpu_torch.ops import fused_mlp as fm
-    x = torch.zeros(8, 128, dtype=torch.float16)
-    w, b = torch.ones(128, dtype=torch.float16), torch.zeros(
-        128, dtype=torch.float16)
-    with pytest.raises(ValueError, match="bfloat16"):
+    x = torch.zeros(8, 128, dtype=torch.float64)
+    w, b = torch.ones(128, dtype=torch.float64), torch.zeros(
+        128, dtype=torch.float64)
+    with pytest.raises(ValueError, match="float16"):
         fm._ln_launch(x, w, b, 1e-5)
-    w1, b1, w2 = (torch.zeros(s, dtype=torch.float16)
+    w1, b1, w2 = (torch.zeros(s, dtype=torch.float64)
                   for s in ((128, 256), (256,), (256, 128)))
-    with pytest.raises(ValueError, match="bfloat16"):
+    with pytest.raises(ValueError, match="float16"):
         fm._ffn_launch(x, w1, b1, w2, "gelu")
+    x = x.half()
     monkeypatch.setenv("PTPU_FUSED_DECODE", "1")
     ring = torch.zeros(8, 16, 128, dtype=torch.float16)
     assert not fdl.fused_decode_ok(x, torch.zeros(128, 384).half(), ring,

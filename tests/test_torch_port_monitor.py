@@ -171,7 +171,27 @@ def test_loss_spike_detector_matches_jax():
     assert [s["kind"] for _, s in fired] == ["spike", "nonfinite", "spike"]
 
 
-def test_goodput_meter_matches_jax():
+def _drop_series(drop):
+    """Remove the series whose names ``drop`` accepts from both
+    packages' process-wide registries."""
+    for mon, _, _, _ in PKGS:
+        metrics = mon.get_registry()._metrics
+        for name in [n for n in metrics if drop(n)]:
+            del metrics[name]
+
+
+@pytest.fixture
+def _no_train_series():
+    """Both registries without any ``train/*`` series: a reset zeroes a
+    series in place and keeps its labels, so the per-layer gauges that
+    another test file wrote earlier in the process (one set a package,
+    each with its own layers) would stay in the snapshots.  The train
+    module looks each series up anew, so one dropped here is made again
+    on use."""
+    _drop_series(lambda name: name.startswith("train/"))
+
+
+def test_goodput_meter_matches_jax(_no_train_series):
     figures = []
     for mon, _, _, train in PKGS:
         meter = train.GoodputMeter(window=3)
@@ -196,7 +216,7 @@ ROWS = [("gpt.h_0.attn.qkv_proj.weight", 0.5, 3.0, 0.003),
 
 
 @pytest.mark.parametrize("top", [30, 2])
-def test_layer_stats_and_report_match_jax(top):
+def test_layer_stats_and_report_match_jax(top, _no_train_series):
     out = []
     for mon, _, _, train in PKGS:
         train.observe_layer_stats(ROWS, step=3)
@@ -241,9 +261,7 @@ def _no_perf_series():
     series in place and keeps its labels, so segments that another test
     ran earlier in the process would stay listed.  Each observation looks
     its histogram up anew, so one dropped here is made again on use."""
-    for mon, _, _, _ in PKGS:
-        for name in PERF_SERIES:
-            mon.get_registry()._metrics.pop(name, None)
+    _drop_series(lambda name: name in PERF_SERIES)
 
 
 def test_perf_segments_match_jax(_no_perf_series):

@@ -146,7 +146,9 @@ def test_bwd_wrappers_on_cpu_compute_the_plain_backward():
         "ragged_paged_attention:fp16", "ragged_paged_attention:int8:fp16",
         "flash_decode", "flash_decode:fp16", "fused_decode_layer",
         "fused_layernorm", "fused_layernorm_bwd", "fused_ffn",
-        "fused_ffn_tc", "fused_ffn_tc32", "fused_ffn_decode"}
+        "fused_ffn_tc", "fused_ffn_tc32", "fused_ffn_decode",
+        "fused_layernorm:fp16", "fused_layernorm_bwd:fp16", "fused_ffn:fp16",
+        "fused_ffn_tc:fp16", "fused_ffn_decode:fp16"}
     assert set(ops.launch_counts().values()) == {0}
 
 
