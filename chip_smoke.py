@@ -9,11 +9,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
    flash instantiations' registers and spills from ``-Xptxas -v`` are
    printed, and those of the FFN's designs and the LayerNorm forward),
    read the flash and FFN libraries' machine code (`cuobjdump -sass`:
-   all 16 instantiations each of the bf16 forward, dQ and dK/dV, of the
-   fp32 split-TF32 forward, dQ and dK/dV (the tensor-core kernels) and
-   all 16 of each of the FFN's two tensor-core designs' products must
-   hold HGMMA, and the CUDA-core fp32 forward, dQ and dK/dV must be
-   gone), then hold each kernel
+   all 24 instantiations of the bf16 forward (D 64, 128 and 256), all 16
+   each of dQ and dK/dV, of the fp32 split-TF32 forward, dQ and dK/dV (the
+   tensor-core kernels) and all 16 of each of the FFN's two tensor-core
+   designs' products must hold HGMMA, the CUDA-core fp32 forward, dQ and
+   dK/dV of before must be gone, and the fp32 forward at D = 256 must be
+   the CUDA-core kernel, FFMA and no HGMMA), then hold each kernel
    against its plain PyTorch version on the card, in float32 and bfloat16,
    and time kernel, plain version and a PyTorch yardstick (SDPA, and for
    the backward `torch.autograd.grad` through SDPA).  Forward kernels run
@@ -337,6 +338,33 @@ Phases, in order; any failure exits non-zero and prints no result line:
    flags within the stated fp16 limits of the step without them.  12g:
    the FFN's CUDA-core design in fp16 through ``fused_ffn_arrays`` at
    I=3008 (`ffn_entry_fp16`).
+13. head_dim 256 (run after phase 12, before the summary's lines).
+   13a: the forward attention kernels at D = 256, H = 8, against their
+   plain versions at the limits of `ops/tolerance.py` (fp32 ``FP32_FWD``,
+   2e-5, derived there for D = 256), timed as phase 2 with their bounds
+   and SDPA where one call computes the function (`head256_kernel_cases`):
+   the flash forward (bf16 and fp16 on the tensor cores, key tiles of 32;
+   fp32 on the CUDA cores, `FWD_SIMT`) causal at the prefill B=1 S=2048
+   and at B=8 S=1024, with the pad mask and kv_lens at B=8 S=896, the
+   packed batch's segment ids and non-causal at B=8 S=1024; the ragged
+   kernel at the decode step on fp32, bf16 and fp16 pools and on int8
+   pools (growing scales) with q of each type, and a chunk of C=512 (bf16,
+   both pool kinds); flash decode at S_max 2048 (full context in the three
+   types; 1152 keys in bf16); the fused decode layer at t = 1023, hidden
+   2048 (fp32; bf16 without and with a row mask).  13b: a GPT of GPT-3
+   1.3B's widths with 8 heads of 256 (``gpt3_1p3b_config(
+   num_attention_heads=8)``, stacked), 2 layers, fp32, on the card and on
+   the CPU: the engine on fp and int8 pools (phase 3's prompts) and
+   ``generate`` B=8 256 + 32 in the default and fused modes, captured:
+   tokens identical, launches as expected (every D = 256 counter), one
+   capture each.  13c: the same widths at full depth (24 layers) in bf16,
+   8 heads of 256 and the preset's 16 of 128 (the same FLOPs) in turns
+   (256, 128, 128, 256): the engine (five greedy prompts of 7-1500
+   tokens, 32 new) on fp and int8 pools and ``generate`` B=8 1024 + 128 in
+   the default and fused modes, all decode steps captured: ms a decode
+   step, tokens/s, captures, the launches (every D = 256 variant on its
+   path), each cell's tokens the same in every turn of its geometry, and
+   a profiled window per cell and geometry (device ms, busy share).
 8. Summary: one JSON line of the thirty-nine entries (the nine kernels,
    the int8 variant, the mask, segment and non-causal variants of the
    flash kernels, the tensor-core forward, dQ and dK/dV -- every bf16
@@ -355,9 +383,15 @@ Phases, in order; any failure exits non-zero and prints no result line:
    launches from 12d's O1 run with the flags), decode design (8 rows,
    launches from 12e) and CUDA cores (I=3008, launches from 12g); each
    entry also carries its launches in phase 7's per-layer bf16 run, in
-   phase 10's bf16 fit, in phase 11 and in phase 12); it fails if an
-   entry's main path launched it no time; the card line, then the result
-   line.
+   phase 10's bf16 fit, in phase 11 and in phase 12); and the six D = 256
+   entries: the flash forward's (timed at the bf16 prefill B=1 S=2048,
+   launches from 13c's fp engine), its fp32 CUDA-core kernel's (fp32
+   prefill; 13b's fp32 engine), the ragged kernel's on fp and int8 pools
+   (the bf16 decode step; 13c's engines), flash decode's (bf16 full
+   context; 13c's default generate) and the fused layer's (bf16 t = 1023;
+   13c's fused generate), each with its launches in phase 13 as a whole;
+   it fails if an entry's main path launched it no time; the card line,
+   then the result line.
 
 Every time is a median of CUDA-event timings (L2 flushed before each
 launch, the host's enqueue hidden behind a spin on the stream); every
@@ -444,6 +478,15 @@ RAGGED16, RAGGED8_16, DECODE16 = (RAGGED + ":fp16", RAGGED + ":int8:fp16",
 LN16, LN_BWD16, FFN16, FFN_TC16, FFN_DEC16 = (
     k + ":fp16" for k in (LN, LN_BWD, FFN, FFN_TC, FFN_DEC))
 FFN_COUNTER16 = {"cuda_core": FFN16, "tc": FFN_TC16, "decode": FFN_DEC16}
+# head_dim 256 (phase 13): every launch at D = 256 of the flash forward,
+# the ragged kernel (fp and int8 pools), flash decode and the fused layer,
+# each counted once more; and the fp32 flash forward at 256 (the CUDA-core
+# kernel, counted in place of FWD_TC32)
+FWD_D256, FWD_SIMT = FWD + ":d256", FWD + ":simt"
+RAGGED_D256, RAGGED8_D256 = RAGGED + ":d256", RAGGED + ":int8:d256"
+DECODE_D256, FUSED_D256 = DECODE + ":d256", FUSED + ":d256"
+D256_ALL = (FWD_D256, FWD_SIMT, RAGGED_D256, RAGGED8_D256, DECODE_D256,
+            FUSED_D256)
 HALF_AND_FP32 = (torch.bfloat16, torch.float16, torch.float32)
 FWD_ALL = (FWD, FWD_MASK, FWD_SEGS, FWD_NC)
 DQ_ALL = (DQ, DQ_MASK, DQ_SEGS, DQ_NC)
@@ -453,7 +496,7 @@ KERNELS = (FWD, FWD_MASK, FWD_SEGS, FWD_NC, FWD_TC, FWD_TC32, RAGGED,
            DKV_MASK, DKV_SEGS, DKV_NC, DKV_TC, DKV_TC32, DECODE, FUSED, LN,
            LN_BWD, FFN, FFN_TC, FFN_TC32, FFN_DEC, FWD_TC16, DQ_TC16,
            DKV_TC16, RAGGED16, RAGGED8_16, DECODE16, LN16, LN_BWD16, FFN16,
-           FFN_TC16, FFN_DEC16)
+           FFN_TC16, FFN_DEC16, *D256_ALL)
 REPLACES = {
     FWD: "paddle_tpu/ops/pallas_ops.py:135",
     FWD_MASK: "paddle_tpu/ops/pallas_ops.py:135",
@@ -494,11 +537,18 @@ REPLACES = {
     FFN16: "paddle_tpu/ops/pallas_ops.py:1548",
     FFN_TC16: "paddle_tpu/ops/pallas_ops.py:1548",
     FFN_DEC16: "paddle_tpu/ops/pallas_ops.py:1548",
+    FWD_D256: "paddle_tpu/ops/pallas_ops.py:135",
+    FWD_SIMT: "paddle_tpu/ops/pallas_ops.py:135",
+    RAGGED_D256: "paddle_tpu/ops/ragged_paged_attention.py:125",
+    RAGGED8_D256: "paddle_tpu/ops/ragged_paged_attention.py:125",
+    DECODE_D256: "paddle_tpu/ops/pallas_ops.py:1008",
+    FUSED_D256: "paddle_tpu/ops/pallas_ops.py:1186",
 }
 # the __global__ functions of paddle_tpu_torch/csrc, as the profiler names
 # (template names: the flash variants are instantiations of the flash
 # kernels, the int8 one of ragged_attend_kernel)
 PORT_SYMBOLS = ("flash_fwd_tc32_kernel", "flash_fwd_tc_kernel",
+                "flash_fwd_simt_kernel",
                 "flash_bwd_dq_tc32_kernel", "flash_bwd_dq_tc_kernel",
                 "flash_bwd_dkv_tc32_kernel",
                 "flash_bwd_dkv_tc_kernel", "ragged_write_kernel",
@@ -620,7 +670,7 @@ def tflops(flops, ms):
     return flops / (ms * 1e-3) / 1e12
 
 
-def with_tc(want, dtype, ln_dtype=None):
+def with_tc(want, dtype, ln_dtype=None, d=64):
     """`want` with the counts by type: in bf16 every forward, dQ and dK/dV
     launch counts once more under FWD_TC, DQ_TC and DKV_TC; in fp32 under
     FWD_TC32, DQ_TC32 and DKV_TC32; in fp16 under FWD_TC16, DQ_TC16 and
@@ -629,7 +679,10 @@ def with_tc(want, dtype, ln_dtype=None):
     ``dtype``: the torch type the kernels ran in; ``ln_dtype`` (default
     ``dtype``) the LayerNorms' (float32 under ``auto_cast``, whose black
     list holds ``layer_norm``): in fp16 each LayerNorm launch counts once
-    more under LN16 and LN_BWD16."""
+    more under LN16 and LN_BWD16.  ``d``: the head dim; at 256 every
+    forward, ragged, decode and fused-layer launch counts once more under
+    its D = 256 counter, and an fp32 forward under FWD_SIMT in place of
+    FWD_TC32."""
     for counters, names in (((FWD_TC, FWD_TC16, FWD_TC32), FWD_ALL),
                             ((DQ_TC, DQ_TC16, DQ_TC32), DQ_ALL),
                             ((DKV_TC, DKV_TC16, DKV_TC32), DKV_ALL)):
@@ -644,6 +697,14 @@ def with_tc(want, dtype, ln_dtype=None):
     ln16 = (dtype if ln_dtype is None else ln_dtype) == torch.float16
     for counter, name in ((LN16, LN), (LN_BWD16, LN_BWD)):
         want[counter] = want[name] if ln16 else 0
+    big = d == 256
+    want[FWD_SIMT] = want[FWD_TC32] if big else 0
+    if big:
+        want[FWD_TC32] = 0
+    want[FWD_D256] = sum(want[name] for name in FWD_ALL) if big else 0
+    for counter, name in ((RAGGED_D256, RAGGED), (RAGGED8_D256, RAGGED8),
+                          (DECODE_D256, DECODE), (FUSED_D256, FUSED)):
+        want[counter] = want[name] if big else 0
     return want
 
 
@@ -668,9 +729,9 @@ def check_sass(paths):
     """The design behind each flash entry and the FFN's tensor-core
     designs, from the built libraries' machine code: every instantiation
     of the bf16 and fp16 forward, dQ and dK/dV kernels
-    (``flash_fwd_tc_kernel``, ``flash_bwd_dq_tc_kernel``,
-    ``flash_bwd_dkv_tc_kernel``; 32 each, 2 types x 8 flag combinations x
-    D 64 and 128), of the fp32
+    (``flash_fwd_tc_kernel``: 48, 2 types x 8 flag combinations x D 64,
+    128 and 256; ``flash_bwd_dq_tc_kernel``, ``flash_bwd_dkv_tc_kernel``:
+    32 each, D 64 and 128), of the fp32
     split-TF32 forward, dQ and dK/dV (``flash_fwd_tc32_kernel``,
     ``flash_bwd_dq_tc32_kernel``, ``flash_bwd_dkv_tc32_kernel``; 16 each,
     8 flag combinations x D 64 and 128) and of the FFN's products
@@ -679,11 +740,13 @@ def check_sass(paths):
     contains HGMMA (warpgroup
     tensor-core products); and the CUDA-core fp32 forward, dQ and dK/dV
     (``flash_fwd_causal_kernel``, ``flash_bwd_dq_kernel``,
-    ``flash_bwd_dkv_kernel``) are gone.  Returns {kernel: [instantiations,
-    of them with HGMMA, with FFMA]}."""
+    ``flash_bwd_dkv_kernel``) are gone; the fp32 forward at D = 256
+    (``flash_fwd_simt_kernel``: 8, the flag combinations) is on the CUDA
+    cores: FFMA and no HGMMA.  Returns {kernel: [instantiations, of them
+    with HGMMA, with FFMA]}."""
     fwd, bwd = "flash_fwd_causal", "flash_bwd_causal"
     # kernel: (library, instantiations on the tensor cores, or None: gone)
-    wants = {"flash_fwd_tc_kernel": (fwd, 32),
+    wants = {"flash_fwd_tc_kernel": (fwd, 48),
              "flash_fwd_tc32_kernel": (fwd, 16),
              "flash_fwd_causal_kernel": (fwd, None),
              "flash_bwd_dq_tc_kernel": (bwd, 32),
@@ -707,6 +770,16 @@ def check_sass(paths):
         ok = (not found) if tensor_cores is None else (
             len(found) == tensor_cores and hgmma == tensor_cores)
         if not ok:
+            fail(f"SASS of {kernel}: {len(found)} instantiations, {hgmma} "
+                 f"with HGMMA, {ffma} with FFMA ({sorted(found)[:4]} ...)")
+    # the CUDA-core fp32 forward at D = 256: fp32 FMAs, no tensor cores
+    kernel = "flash_fwd_simt_kernel"
+    found = {n: body for n, body in funcs[fwd].items()
+             if f"{len(kernel)}{kernel}I" in n}
+    hgmma = sum("HGMMA" in body for body in found.values())
+    ffma = sum("FFMA" in body for body in found.values())
+    counts[kernel] = [len(found), hgmma, ffma]
+    if len(found) != 8 or hgmma or ffma != 8:
             fail(f"SASS of {kernel}: {len(found)} instantiations, {hgmma} "
                  f"with HGMMA, {ffma} with FFMA ({sorted(found)[:4]} ...)")
     return counts
@@ -1881,7 +1954,7 @@ def check_gen_launches(launches, mode, cfg, batch, steps, what, padded=False,
         want[ffn_counter(batch * prompt, cfg, dtype)] += layers
     if ln_f:
         want[LN] = steps + 1
-    with_tc(want, dtype)
+    with_tc(want, dtype, d=cfg.hidden_size // cfg.num_attention_heads)
     if launches != want:
         fail(f"{what}: launches {launches}, expected {want}")
     return want
@@ -3474,7 +3547,7 @@ def engine_launches(eng, dtype):
     want[FWD] = layers * eng.step_counts["prefill"]
     want[RAGGED8 if eng.kv_quant else RAGGED] = layers * (
         eng.step_counts["decode"] + eng.step_counts["chunk"])
-    return with_tc(want, dtype)
+    return with_tc(want, dtype, d=eng.head_dim)
 
 
 def cpu_differences(ref32, card, cpu, prompts, params, limit, what):
@@ -3964,6 +4037,295 @@ def fp16_phase(ops, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 13: head_dim 256
+# ---------------------------------------------------------------------------
+
+H256 = 8                     # GPT-3 1.3B's widths with 8 heads of 256
+# the serving cell's greedy prompts (the 900- and 1500-token ones prefill
+# 512 and go on in ragged chunks) and the dense generate cell
+PROMPT_LENS_13 = (7, 100, 400, 900, 1500)
+GEN_BATCH_13, GEN_PROMPT_13, GEN_NEW_13 = 8, 1024, 128
+# the two head geometries of GPT-3 1.3B's widths (hidden 2048), run in
+# turns: 8 heads of 256 (this phase's) and the preset's 16 heads of 128
+GEOMETRIES = {"8x256": 8, "16x128": 16}
+GEO_TURNS = ("8x256", "16x128", "16x128", "8x256")
+
+
+def head256_kernel_cases(fa, fd, fdl, rpa, tol, timer, cases, kernel_segs):
+    """Phase 13a: every D = 256 kernel against its plain version at the
+    limits of `tolerance` (fp32 ``FP32_FWD``, derived there for D = 256),
+    H = 8, timed as phase 2 with its bound and SDPA where one call
+    computes the function: the flash forward at the prefill B=1 S=2048 and
+    at B=8 S=1024, its masked (pad, kv_lens; B=8 S=896), segment (the
+    packed batch's ids) and non-causal (B=8 S=1024) branches, each in
+    bf16, fp16 and fp32 (fp32 on the CUDA cores, under `FWD_SIMT`); the
+    ragged kernel at the decode step on fp32, bf16 and fp16 pools and on
+    int8 pools with q of each type, and a chunk of C = 512 (bf16, both
+    pool kinds); flash decode at S_max 2048 (full context in the three
+    types, the generate cell's 1152 in bf16); the fused decode layer at
+    t = 1023, hidden 2048 (fp32, bf16, bf16 with a row mask)."""
+    h, d, bf16 = H256, 256, torch.bfloat16
+    for dtype in HALF_AND_FP32:
+        fwd = FWD_SIMT if dtype == torch.float32 else FWD_D256
+        cases[fwd].append(check_flash(fa, tol, timer, 2048, h, d, dtype,
+                                      seed=2048))
+        cases[fwd].append(check_flash(fa, tol, timer, 1024, h, d, dtype,
+                                      seed=1024, b=8))
+        for kind in ("pad", "lens"):
+            cases[fwd].append(check_flash_masked(fa, tol, timer, kind, dtype,
+                                                 seed=9, b=8, s=896, h=h,
+                                                 d=d))
+        for kind in ("segs", "nc"):
+            cases[fwd] += check_flash_variant(
+                fa, tol, timer, kind, 8, 1024, h, d, dtype, seed=1032,
+                segs=kernel_segs if kind == "segs" else None,
+                bwd=False).values()
+        torch.cuda.empty_cache()
+        cases[RAGGED_D256].append(check_ragged(rpa, tol, timer, DECODE_ROWS,
+                                               1, dtype, seed=2, h=h, d=d))
+        cases[RAGGED8_D256].append(check_ragged_int8(
+            rpa, tol, timer, DECODE_ROWS, 1, dtype, seed=2, h=h, d=d))
+        cases[DECODE_D256].append(check_decode(fd, tol, timer, 8, 2048, h, d,
+                                               2048, dtype, seed=2048))
+    cases[RAGGED_D256].append(check_ragged(rpa, tol, timer, [(700, 512)],
+                                           512, bf16, seed=3, h=h, d=d))
+    cases[RAGGED8_D256].append(check_ragged_int8(
+        rpa, tol, timer, [(700, 512)], 512, bf16, seed=3, h=h, d=d))
+    cases[DECODE_D256].append(check_decode(fd, tol, timer, 8, 2048, h, d,
+                                           GEN_PROMPT_13 + GEN_NEW_13, bf16,
+                                           seed=1152))
+    for dtype, masked in ((torch.float32, False), (bf16, False),
+                          (bf16, True)):
+        cases[FUSED_D256].append(check_fused_layer(
+            fdl, tol, timer, 8, h, d, 2048, 1023, masked, dtype,
+            seed=1023 + masked))
+    torch.cuda.empty_cache()
+
+
+def head256_fp32_card_vs_cpu(ops, card):
+    """Phase 13b: the GPT of GPT-3 1.3B's widths with 8 heads of 256
+    (``gpt3_1p3b_config(num_attention_heads=8)``, stacked), 2 layers,
+    weights from seed 0, fp32, on the card and on the CPU (plain
+    versions): the engine (phase 3's prompts and settings; decode steps
+    captured) on fp and int8 pools, and ``generate`` B=8, 256 + 32 in the
+    default and the fused mode (captured): the card's tokens identical to
+    the CPU's, its launches as expected (the flash prefill on the CUDA
+    cores, `FWD_SIMT`; every D = 256 counter), one capture each.
+    Returns the record and the launches by run."""
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt3_1p3b_config
+    f32 = torch.float32
+    cfg = gpt3_1p3b_config(num_attention_heads=H256, num_hidden_layers=2,
+                           stacked_blocks=True)
+    models = {dev: GPTForCausalLM(cfg, device=dev,
+                                  generator=torch.Generator().manual_seed(0))
+              for dev in ("cuda", "cpu")}
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in PROMPT_LENS]
+    rec, launches = {}, {}
+    for kv, key in ((None, "engine"), ("int8", "engine_int8")):
+        what = f"float32 head_dim 256 engine, {kv or 'fp'} pools"
+        with graphs_env(True):
+            outs, eng, lc, stats = serve(models["cuda"], prompts, "cuda",
+                                         f32, ops, kv)
+        check_launches(eng, lc, what)
+        t0 = time.perf_counter()
+        cpu = serve(models["cpu"], prompts, "cpu", f32, None, kv)[0]
+        cpu_s = time.perf_counter() - t0
+        same_tokens(outs, cpu, f"{what}: card vs CPU")
+        launches[key] = lc
+        rec[key] = {"steps": dict(eng.step_counts), "cpu_s": cpu_s,
+                    "launches": lc}
+        print(f"{what}: the card's tokens equal the CPU run's (prompts "
+              f"{list(PROMPT_LENS)}, {NEW_TOKENS} new; steps "
+              f"{eng.step_counts}); launches "
+              f"{ {k: n for k, n in lc.items() if n} } ({card})", flush=True)
+    batch, prompt, new = 8, 256, 32
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (batch, prompt))
+                           .astype(np.int32))
+    for mode in ("default", "fused"):
+        what = f"float32 head_dim 256 generate ({mode})"
+        before = _captures(models["cuda"])
+        out = {}
+        with flag_env(GEN_MODES[mode]), graphs_env(True):
+            for dev, model in models.items():
+                ops.reset_launch_counts()
+                out[dev] = model.generate(ids.to(dev),
+                                          max_new_tokens=new).cpu()
+                if dev == "cuda":
+                    lc = ops.launch_counts()
+        check_gen_launches(lc, mode, cfg, batch, new - 1, what,
+                           prompt=prompt)
+        after = _captures(models["cuda"])
+        if after.get("decode", 0) != before.get("decode", 0) + 1:
+            fail(f"{what}: captures {before} -> {after}, expected one")
+        if not torch.equal(out["cuda"], out["cpu"]):
+            r, j = (int(i) for i in torch.nonzero(out["cuda"] != out["cpu"])
+                    [0])
+            fail(f"{what}: card tokens differ from the CPU run at row {r} "
+                 f"position {j}")
+        launches[mode] = lc
+        rec[mode] = {"launches": lc}
+        print(f"{what} B={batch} {prompt}+{new}: the card's tokens equal the "
+              f"CPU run's; 1 capture; launches "
+              f"{ {k: n for k, n in lc.items() if n} } ({card})", flush=True)
+    del models
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+def _serve_cell(ops, model, prompts, kv, what):
+    """One captured run of the bf16 engine (``serve``): the launches as
+    expected, one ``ragged`` capture, the longest prompt in ragged
+    chunks.  Returns (outputs, launches, the run's numbers)."""
+    with graphs_env(True):
+        outs, eng, lc, stats = serve(model, prompts, "cuda", torch.bfloat16,
+                                     ops, kv)
+    want = engine_launches(eng, torch.bfloat16)
+    if lc != want or eng.compiles != {"ragged": 1} \
+            or not eng.step_counts["chunk"]:
+        fail(f"{what}: launches {lc}, expected {want}; captures "
+             f"{eng.compiles}; steps {eng.step_counts}")
+    steps = eng.step_counts["decode"]
+    return outs, lc, {
+        "steps": dict(eng.step_counts), "capture_ms": stats["capture_ms"],
+        "prefill_tok_s": stats["prefill_tokens"] / stats["prefill_s"],
+        "decode_tok_s": stats["decode_tokens"] / stats["decode_s"],
+        "decode_ms_per_step": stats["decode_s"] * 1e3 / steps}
+
+
+def _generate_cell(ops, model, cfg, ids, mode, what):
+    """One captured bf16 ``generate`` of ``ids`` (`GEN_NEW_13` new) in
+    ``mode``: decode ms a step as phase 4 takes it (a prefill-only
+    generate's time taken off), the launches as expected.  Returns (tokens,
+    launches, the run's numbers)."""
+    b, p = ids.shape
+    new = GEN_NEW_13
+    with flag_env(GEN_MODES[mode]), graphs_env(True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.generate(ids, max_new_tokens=1)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = model.generate(ids, max_new_tokens=new)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        lc = ops.launch_counts()
+    check_gen_launches(lc, mode, cfg, b, new - 1, what, dtype=torch.bfloat16,
+                       prompt=p)
+    decode_s = total_s - prefill_s
+    return out, lc, {"prefill_s": prefill_s, "total_s": total_s,
+                     "decode_ms_per_step": decode_s * 1e3 / (new - 1),
+                     "decode_tok_s": b * (new - 1) / decode_s}
+
+
+def head256_bf16(ops, card):
+    """Phase 13c: GPT-3 1.3B's widths at full depth (24 layers, hidden
+    2048, I=8192, vocab 50304), stacked, bf16 weights from seed 0, in two
+    head geometries run in turns (`GEO_TURNS`): 8 heads of 256 and the
+    preset's 16 of 128 (the same FLOPs).  Each turn: the engine (block 16,
+    8 sequences, 512 batched tokens; `PROMPT_LENS_13`, 32 new, greedy) on
+    fp and int8 pools, decode steps captured; dense ``generate`` B=8,
+    1024 + 128 in the default and the fused mode, captured (warmed up and
+    captured before the first turn).  Each run's launches as expected
+    (at 256 every D = 256 counter, the ``ragged`` and ``decode`` captures
+    one each), each cell's tokens the same in every turn of its geometry.
+    Then one profiled window a cell and geometry (`profile_decode`,
+    `profile_generate`): device ms and busy share.  Returns the record and
+    the launches of the 8 x 256 runs by cell."""
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt3_1p3b_config
+    bf16 = torch.bfloat16
+    cfgs = {g: gpt3_1p3b_config(num_attention_heads=n, stacked_blocks=True)
+            for g, n in GEOMETRIES.items()}
+    models = {g: GPTForCausalLM(cfg, device="cuda", dtype=bf16,
+                                generator=torch.Generator().manual_seed(0))
+              for g, cfg in cfgs.items()}
+    rng = np.random.RandomState(13)
+    vocab = cfgs["8x256"].vocab_size
+    prompts = [rng.randint(0, vocab, (n,)).astype(np.int32)
+               for n in PROMPT_LENS_13]
+    ids = torch.from_numpy(rng.randint(
+        0, vocab, (GEN_BATCH_13, GEN_PROMPT_13)).astype(np.int32)).cuda()
+    for g, model in models.items():          # warm-up and capture
+        for mode in ("default", "fused"):
+            with flag_env(GEN_MODES[mode]), graphs_env(True):
+                model.generate(ids, max_new_tokens=3)
+    cells = ("engine", "engine_int8", "default", "fused")
+    rec = {g: {c: [] for c in cells} for g in GEOMETRIES}
+    toks, launches = {}, {}
+    for g in GEO_TURNS:
+        model, cfg = models[g], cfgs[g]
+        for cell in cells:
+            what = f"bfloat16 GPT-3 1.3B widths {g} {cell}"
+            if cell.startswith("engine"):
+                out, lc, r = _serve_cell(
+                    ops, model, prompts,
+                    "int8" if cell == "engine_int8" else None, what)
+                if (g, cell) in toks:
+                    same_tokens(toks[g, cell], out, f"{what}: turns")
+            else:
+                out, lc, r = _generate_cell(ops, model, cfg, ids, cell, what)
+                if (g, cell) in toks and not torch.equal(toks[g, cell], out):
+                    fail(f"{what}: tokens differ between turns")
+            toks.setdefault((g, cell), out)
+            r["launches"] = {k: n for k, n in lc.items() if n}
+            rec[g][cell].append(r)
+            if g == "8x256":
+                launches[cell] = lc
+    for g, model in models.items():
+        for cell in cells:
+            if cell.startswith("engine"):
+                kv = "int8" if cell == "engine_int8" else None
+                with graphs_env(True):
+                    pr = profile_decode(model, prompts, bf16,
+                                        kv_cache_dtype=kv)
+            else:
+                with flag_env(GEN_MODES[cell]), graphs_env(True):
+                    pr = profile_generate(model, ids)
+            rec[g][f"{cell}_profile"] = pr
+    print_head256(rec, card)
+    captures = {g: _captures(m) for g, m in models.items()}
+    for g, c in captures.items():
+        if c.get("decode") != 2:
+            fail(f"bfloat16 GPT-3 1.3B widths {g}: generate captures {c}, "
+                 f"expected one a mode")
+    rec["captures"] = captures
+    del models
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+def print_head256(rec, card):
+    """Phase 13c's lines: a cell and geometry each, its turns' ms a decode
+    step and tokens/s, the profiled window's device ms and busy share."""
+    for g in GEOMETRIES:
+        for cell in ("engine", "engine_int8", "default", "fused"):
+            runs, pr = rec[g][cell], rec[g][f"{cell}_profile"]
+            busy = ("not measured" if pr["device_ms_per_step"] <= 0 else
+                    f"device {pr['device_ms_per_step']:.3f} ms a step, busy "
+                    f"{pr['device_busy_share']:.3f}")
+            kind = ("engine, " + ("int8" if cell == "engine_int8" else "fp")
+                    + f" pools, prompts {list(PROMPT_LENS_13)}, "
+                    f"{NEW_TOKENS} new" if cell.startswith("engine") else
+                    f"generate {cell}, B={GEN_BATCH_13} "
+                    f"{GEN_PROMPT_13}+{GEN_NEW_13}")
+            extra = ""
+            if cell.startswith("engine"):
+                extra = ("; prefill tokens/s " + " / ".join(
+                    f"{r['prefill_tok_s']:.1f}" for r in runs)
+                    + f"; steps {runs[0]['steps']}")
+            print(f"head256 {g} {kind} (captured, turns): decode ms a step "
+                  + " / ".join(f"{r['decode_ms_per_step']:.3f}" for r in runs)
+                  + ", decode tokens/s " + " / ".join(
+                      f"{r['decode_tok_s']:.1f}" for r in runs)
+                  + f"{extra}; profiled window wall "
+                  f"{pr['wall_ms_per_step']:.3f} ms a step, {busy}; "
+                  f"launches {runs[0]['launches']} ({card})", flush=True)
+
+
+# ---------------------------------------------------------------------------
 
 def print_cases(cases):
     for name, rows in cases.items():
@@ -3974,7 +4336,7 @@ def print_cases(cases):
                 tol = c["tol"]
             elif c["dtype"] != str(torch.float32):
                 tol = "tol scaled to each output"
-            elif name in (FWD, RAGGED, RAGGED8):
+            elif name in (FWD, RAGGED, RAGGED8, *D256_ALL):
                 tol = f"tol {TOL_FP32}"
             else:
                 tol = f"tol {BWD_REL_FP32} max|ref|"
@@ -4052,7 +4414,10 @@ def main():
                 FFN: fm.ffn_fwd, FFN_TC: fm.ffn_tc, FFN_TC32: fm.ffn_tc32,
                 FFN_DEC: fm.ffn_decode, LN16: fm.ln_fwd16,
                 LN_BWD16: fm.ln_bwd16, FFN16: fm.ffn_fwd16,
-                FFN_TC16: fm.ffn_tc16, FFN_DEC16: fm.ffn_decode16}
+                FFN_TC16: fm.ffn_tc16, FFN_DEC16: fm.ffn_decode16,
+                FWD_D256: fa.d256, FWD_SIMT: fa.simt, RAGGED_D256: rpa.d256,
+                RAGGED8_D256: rpa.int8_d256, DECODE_D256: fd.d256,
+                FUSED_D256: fdl.d256}
     for bwd in (fa.flash_bwd_dq, fa.flash_bwd_dkv):
         wrappers.update({v.KERNEL: v for v in bwd.variants.values()})
     assert set(wrappers) == set(ops.launch_counts())
@@ -4597,6 +4962,17 @@ def main():
     result["fp16"], launches_fp16 = fp16_phase(ops, card)
     mark("12b-g fp16 engine, generate, recipe A, per-layer flags, pure")
 
+    # -- 13. head_dim 256 ---------------------------------------------------
+    n_before = {name: len(c) for name, c in cases.items()}
+    head256_kernel_cases(fa, fd, fdl, rpa, tol, timer, cases, kernel_segs)
+    print_cases({name: c[n_before[name]:] for name, c in cases.items()})
+    mark("13a head_dim 256 kernels")
+    result["head256_fp32"], launches_h32 = head256_fp32_card_vs_cpu(ops,
+                                                                    card)
+    mark("13b head_dim 256 fp32 card vs CPU")
+    result["head256_bf16"], launches_h16 = head256_bf16(ops, card)
+    mark("13c head_dim 256 bf16 at GPT-3 1.3B widths")
+
     # -- 8. summary --------------------------------------------------------
     # the serving kernels at fp32 S=384 / the decode step (the int8 one
     # too); the backward kernels at the training shape in bf16, the
@@ -4652,7 +5028,15 @@ def main():
                  FFN_TC16: pick(FFN_TC16, "n=8192 H=768 I=3072 gelu_tanh",
                                 f16),
                  FFN_DEC16: pick(FFN_DEC16, "n=8 H=768 I=3072 gelu_tanh",
-                                 f16)}
+                                 f16),
+                 FWD_D256: pick(FWD_D256, "B=1 S=2048 H=8 D=256"),
+                 FWD_SIMT: pick(FWD_SIMT, "B=1 S=2048 H=8 D=256", f32),
+                 RAGGED_D256: pick(RAGGED_D256, "B=8 C=1 "),
+                 RAGGED8_D256: pick(RAGGED8_D256, "B=8 C=1 "),
+                 DECODE_D256: pick(DECODE_D256,
+                                   "B=8 S_max=2048 length=2048 H=8 D=256"),
+                 FUSED_D256: pick(FUSED_D256, "B=8 hd=2048 H=8 S_max=2048 "
+                                              "t=1023 mask=False")}
     path_launches = {FWD: launches[FWD], RAGGED: launches[RAGGED],
                      RAGGED8: launches8[RAGGED8],
                      FWD_MASK: launches_gen["stacked default padded"][FWD_MASK],
@@ -4691,6 +5075,15 @@ def main():
     path_launches[FFN_TC16] = launches_fp16["O1_flags"][FFN_TC16]
     path_launches[FFN_DEC16] = launches_fp16["generate_flags"][FFN_DEC16]
     path_launches[FFN16] = launches_fp16["ffn_entry"][FFN16]
+    # the D = 256 counters: phase 13c's bf16 runs at 8 heads of 256 (the
+    # engine's prefill and decode on fp and int8 pools, generate's two
+    # modes), the CUDA-core fp32 forward in 13b's fp32 engine
+    path_launches[FWD_D256] = launches_h16["engine"][FWD_D256]
+    path_launches[RAGGED_D256] = launches_h16["engine"][RAGGED_D256]
+    path_launches[RAGGED8_D256] = launches_h16["engine_int8"][RAGGED8_D256]
+    path_launches[DECODE_D256] = launches_h16["default"][DECODE_D256]
+    path_launches[FUSED_D256] = launches_h16["fused"][FUSED_D256]
+    path_launches[FWD_SIMT] = launches_h32["engine"][FWD_SIMT]
     kernels = []
     for name in KERNELS:
         c = main_case[name]
@@ -4710,6 +5103,9 @@ def main():
         k["launches_serving"] = launches_serving[k["name"]]
         k["launches_fp16"] = sum(run[k["name"]]
                                  for run in launches_fp16.values())
+        k["launches_head256"] = sum(
+            run[k["name"]] for runs in (launches_h32, launches_h16)
+            for run in runs.values())
     idle = [k["name"] for k in kernels if not k["launches"]]
     if idle:
         fail(f"kernels never launched on their main path: {idle}")

@@ -227,11 +227,14 @@ __device__ __forceinline__ bool warp_last_of(int* ticket, int count) {
 // (paddle_tpu/ops/pallas_ops.py), which the TPU's decode kernels share the
 // same way.  A block of WARPS warps takes one split -- a run of keys of one
 // (query, head) -- and each warp keeps its own online softmax:
-//  - LPK = D / VE lanes cover one key row with 16-byte loads (VE = 4 fp32,
-//    8 bf16 / fp16 or 16 int8 values a load), so a warp reads KPW = 32 / LPK
-//    whole rows per load, and U such loads of K and of V are in flight
-//    before any arithmetic;
-//  - each lane dots its VE values with q, the LPK lanes of a key add
+//  - LPK lanes cover one key row with 16-byte loads (VE = 4 fp32, 8 bf16 /
+//    fp16 or 16 int8 values a load), LPK = D / VE where that is at most a
+//    warp; a wider row (fp32 at D = 256: 64 loads) takes all 32 lanes and
+//    NV = D / (32 VE) loads a lane, STEP = 32 VE elements apart, so that
+//    neighbouring lanes still read neighbouring 16 bytes (`RowLanes`).  A
+//    warp reads KPW = 32 / LPK whole rows per load, and U such loads of K
+//    and of V (NV vectors each) are in flight before any arithmetic;
+//  - each lane dots its NV VE values with q, the LPK lanes of a key add
 //    theirs (shuffles inside the group only), the warp's running max m
 //    moves once per U loads, and each probability exp(s - m) goes to the
 //    value product through the policy's `weight` (rounded to the cache
@@ -240,7 +243,13 @@ __device__ __forceinline__ bool warp_last_of(int* ticket, int count) {
 //    split's fp32 partial (m, l, acc[D]) and, in the last block of the
 //    (query, head) to finish (a self-resetting ticket, `last_of`), merges
 //    the partials in split order, so the result does not depend on the
-//    order in which blocks ran.
+//    order in which blocks ran.  Each thread of the block merges the
+//    dimensions tid, tid + 32 WARPS, ... below D (`block_dims` of them: one
+//    up to D = 128 with four warps, two at D = 256).
+//  Up to D = 128 (NV = 1, one dimension a thread) each lane does one
+//  load and each thread merges one dimension, in the same order whatever
+//  the layout's parameters: keep it so, the outputs at D = 64 and 128 are
+//  held bitwise across trees (`scripts/decode_outputs.py`).
 //
 // A key policy `Keys` addresses the rows and owns the arithmetic that
 // differs between the callers:
@@ -284,6 +293,25 @@ __device__ __forceinline__ void widen(uint4 v, float (&x)[16]) {
 // Values a 16-byte load of pool element type P holds.
 template <typename P>
 constexpr int VE = 16 / static_cast<int>(sizeof(P));
+
+// How the lanes of a warp cover one key row of D values of P (header of
+// this section): LPK lanes a row, NV 16-byte loads a lane STEP elements
+// apart, KPW rows a warp load, PER values a lane holds; this lane's first
+// dimension is (lane % LPK) * VE, its value x = j VE + i dimension
+// d0 + j STEP + i.
+template <typename P, int D>
+struct RowLanes {
+  static constexpr int LPK = D / VE<P> < 32 ? D / VE<P> : 32;
+  static constexpr int NV = D / (VE<P> * LPK);
+  static constexpr int KPW = 32 / LPK;
+  static constexpr int PER = NV * VE<P>;
+  static constexpr int STEP = LPK * VE<P>;
+  static_assert(NV * VE<P> * LPK == D, "D must fill whole 16-byte loads");
+};
+
+// Dimensions of D each thread of a block of WARPS warps merges.
+template <int D, int WARPS>
+constexpr int block_dims = (D + 32 * WARPS - 1) / (32 * WARPS);
 
 // A 16-byte load of P widened (`widen` by the number of values, which
 // takes 8 values for bf16; fp16 here).
@@ -336,29 +364,28 @@ struct RingKeys {
   }
 };
 
-// One warp's online softmax of q (this lane's VE values `qv`, dims d0 ..
-// d0 + VE - 1 with d0 = (lane % LPK) * VE) over keys [first, hi) in runs
-// of RUN keys: [first, first + RUN), [first + stride, ...), each cut at
-// hi.  Returns the warp's m (the same in every lane), and its l and acc
-// summed over the warp's key groups (the same in the LPK lanes of one d0).
-// A warp with no key keeps m = NEG, l = 0, acc = 0.
+// One warp's online softmax of q (this lane's PER values `qv`, as
+// `RowLanes` lays them out) over keys [first, hi) in runs of RUN keys:
+// [first, first + RUN), [first + stride, ...), each cut at hi.  Returns
+// the warp's m (the same in every lane), and its l and acc summed over the
+// warp's key groups (the same in the LPK lanes of one d0).  A warp with no
+// key keeps m = NEG, l = 0, acc = 0.
 template <typename P, int D, int U, int RUN, class Keys>
-__device__ __forceinline__ void warp_attend(const Keys& keys,
-                                            const float (&qv)[VE<P>],
-                                            int first, int hi, int stride,
-                                            float& m, float& l,
-                                            float (&acc)[VE<P>]) {
-  constexpr int LPK = D / VE<P>;        // lanes per key row
-  constexpr int KPW = 32 / LPK;         // key rows per warp load
+__device__ __forceinline__ void warp_attend(
+    const Keys& keys, const float (&qv)[RowLanes<P, D>::PER], int first,
+    int hi, int stride, float& m, float& l,
+    float (&acc)[RowLanes<P, D>::PER]) {
+  using L = RowLanes<P, D>;
+  constexpr int LPK = L::LPK, KPW = L::KPW, NV = L::NV;
   const int grp = (threadIdx.x % 32) / LPK;
   m = NEG;
   l = 0.f;
 #pragma unroll
-  for (int i = 0; i < VE<P>; ++i) acc[i] = 0.f;
+  for (int i = 0; i < L::PER; ++i) acc[i] = 0.f;
   for (int r0 = first; r0 < hi; r0 += stride) {
     const int r1 = min(r0 + RUN, hi);
     for (int k0 = r0; k0 < r1; k0 += U * KPW) {
-      uint4 kr[U], vr[U];
+      uint4 kr[U][NV], vr[U][NV];
       bool ok[U];
       typename Keys::Row row[U];
 #pragma unroll
@@ -366,16 +393,24 @@ __device__ __forceinline__ void warp_attend(const Keys& keys,
         const int key = k0 + u * KPW + grp;
         ok[u] = key < r1;
         row[u] = keys.locate(ok[u] ? key : r0);
-        kr[u] = load16(keys.k(row[u]));
-        vr[u] = load16(keys.v(row[u]));
+#pragma unroll
+        for (int j = 0; j < NV; ++j) {
+          kr[u][j] = load16(keys.k(row[u]) + j * L::STEP);
+          vr[u][j] = load16(keys.v(row[u]) + j * L::STEP);
+        }
       }
       float s[U], mx = NEG;
 #pragma unroll
       for (int u = 0; u < U; ++u) {
-        float kx[VE<P>], dot = 0.f;
-        widen_as<P>(kr[u], kx);
+        float dot = 0.f;
 #pragma unroll
-        for (int i = 0; i < VE<P>; ++i) dot = fmaf(kx[i], qv[i], dot);
+        for (int j = 0; j < NV; ++j) {
+          float kx[VE<P>];
+          widen_as<P>(kr[u][j], kx);
+#pragma unroll
+          for (int i = 0; i < VE<P>; ++i)
+            dot = fmaf(kx[i], qv[j * VE<P> + i], dot);
+        }
 #pragma unroll
         for (int o = LPK / 2; o > 0; o >>= 1)
           dot += __shfl_xor_sync(0xffffffffu, dot, o);
@@ -389,16 +424,20 @@ __device__ __forceinline__ void warp_attend(const Keys& keys,
       const float alpha = expf(m - mnew);
       l *= alpha;
 #pragma unroll
-      for (int i = 0; i < VE<P>; ++i) acc[i] *= alpha;
+      for (int i = 0; i < L::PER; ++i) acc[i] *= alpha;
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         const float p = ok[u] ? expf(s[u] - mnew) : 0.f;
         l += p;
         const float pr = keys.weight(p, row[u]);
-        float vx[VE<P>];
-        widen_as<P>(vr[u], vx);
 #pragma unroll
-        for (int i = 0; i < VE<P>; ++i) acc[i] = fmaf(pr, vx[i], acc[i]);
+        for (int j = 0; j < NV; ++j) {
+          float vx[VE<P>];
+          widen_as<P>(vr[u][j], vx);
+#pragma unroll
+          for (int i = 0; i < VE<P>; ++i)
+            acc[j * VE<P> + i] = fmaf(pr, vx[i], acc[j * VE<P> + i]);
+        }
       }
       m = mnew;
     }
@@ -408,7 +447,7 @@ __device__ __forceinline__ void warp_attend(const Keys& keys,
   for (int o = LPK; o < 32; o <<= 1) {
     l += __shfl_xor_sync(0xffffffffu, l, o);
 #pragma unroll
-    for (int i = 0; i < VE<P>; ++i)
+    for (int i = 0; i < L::PER; ++i)
       acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], o);
   }
 }
@@ -421,20 +460,23 @@ struct SplitSmem {
 };
 
 // The block's (m, l, acc) from its warps' `warp_attend` results, warps in
-// order: bm and bl in every thread, ba (dim tid) in threads tid < D.
-// Every thread calls; ends with the block's shared memory free again only
-// after the caller's next barrier.
+// order: bm and bl in every thread, ba[x] (dim tid + 32 WARPS x) in the
+// threads where that is below D.  Every thread calls; ends with the
+// block's shared memory free again only after the caller's next barrier.
 template <typename P, int D, int WARPS>
-__device__ __forceinline__ void block_state(SplitSmem<WARPS, D>& sh, float m,
-                                            float l,
-                                            const float (&acc)[VE<P>],
-                                            float& bm, float& bl,
-                                            float& ba) {
-  constexpr int LPK = D / VE<P>;
+__device__ __forceinline__ void block_state(
+    SplitSmem<WARPS, D>& sh, float m, float l,
+    const float (&acc)[RowLanes<P, D>::PER], float& bm, float& bl,
+    float (&ba)[block_dims<D, WARPS>]) {
+  using L = RowLanes<P, D>;
+  constexpr int DPT = block_dims<D, WARPS>;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  if (lane < LPK) {
+  if (lane < L::LPK) {
 #pragma unroll
-    for (int i = 0; i < VE<P>; ++i) sh.wacc[warp][lane * VE<P> + i] = acc[i];
+    for (int j = 0; j < L::NV; ++j)
+#pragma unroll
+      for (int i = 0; i < VE<P>; ++i)
+        sh.wacc[warp][lane * VE<P> + j * L::STEP + i] = acc[j * VE<P> + i];
   }
   if (lane == 0) {
     sh.wm[warp] = m;
@@ -445,29 +487,38 @@ __device__ __forceinline__ void block_state(SplitSmem<WARPS, D>& sh, float m,
 #pragma unroll
   for (int w = 1; w < WARPS; ++w) bm = fmaxf(bm, sh.wm[w]);
   bl = 0.f;
-  ba = 0.f;
+#pragma unroll
+  for (int x = 0; x < DPT; ++x) ba[x] = 0.f;
 #pragma unroll
   for (int w = 0; w < WARPS; ++w) {
     const float f = expf(sh.wm[w] - bm);
     bl += sh.wl[w] * f;
-    if (tid < D) ba += sh.wacc[w][tid] * f;
+#pragma unroll
+    for (int x = 0; x < DPT; ++x) {
+      const int d = tid + 32 * WARPS * x;
+      if (d < D) ba[x] += sh.wacc[w][d] * f;
+    }
   }
 }
 
 // Writes split `split`'s partial: (m, l) to ml[split], acc to pacc[split *
 // D ...].  In the last block of the `splits` to finish (ticket), merges
 // the partials in split order and returns true, with gm and gl in every
-// thread and ga (dim tid) in threads tid < D; false elsewhere.  Every
-// thread calls.
+// thread and ga[x] (dim tid + 32 WARPS x) where that is below D; false
+// elsewhere.  Every thread calls.
 template <int D, int WARPS>
-__device__ __forceinline__ bool merge_splits(SplitSmem<WARPS, D>& sh,
-                                             float2* ml, float* pacc,
-                                             int* ticket, int split,
-                                             int splits, float bm, float bl,
-                                             float ba, float& gm, float& gl,
-                                             float& ga) {
+__device__ __forceinline__ bool merge_splits(
+    SplitSmem<WARPS, D>& sh, float2* ml, float* pacc, int* ticket,
+    int split, int splits, float bm, float bl,
+    const float (&ba)[block_dims<D, WARPS>], float& gm, float& gl,
+    float (&ga)[block_dims<D, WARPS>]) {
+  constexpr int DPT = block_dims<D, WARPS>;
   const int tid = threadIdx.x;
-  if (tid < D) pacc[(long long)split * D + tid] = ba;
+#pragma unroll
+  for (int x = 0; x < DPT; ++x) {
+    const int d = tid + 32 * WARPS * x;
+    if (d < D) pacc[(long long)split * D + d] = ba[x];
+  }
   if (tid == 0) ml[split] = make_float2(bm, bl);
   if (!last_of(ticket, splits, &sh.is_last)) return false;
   // unrolled so that eight splits' loads are in flight at once; the sums
@@ -476,15 +527,32 @@ __device__ __forceinline__ bool merge_splits(SplitSmem<WARPS, D>& sh,
 #pragma unroll 8
   for (int x = 0; x < splits; ++x) gm = fmaxf(gm, __ldcg(ml + x).x);
   gl = 0.f;
-  ga = 0.f;
+#pragma unroll
+  for (int x = 0; x < DPT; ++x) ga[x] = 0.f;
 #pragma unroll 8
   for (int x = 0; x < splits; ++x) {
     const float2 p = __ldcg(ml + x);
     const float f = expf(p.x - gm);
     gl += p.y * f;
-    if (tid < D) ga += __ldcg(pacc + (long long)x * D + tid) * f;
+#pragma unroll
+    for (int y = 0; y < DPT; ++y) {
+      const int d = tid + 32 * WARPS * y;
+      if (d < D) ga[y] += __ldcg(pacc + (long long)x * D + d) * f;
+    }
   }
   return true;
+}
+
+// The block's output of one (query, head): dimension tid + 32 WARPS x of
+// acc / max(l, 1e-30), rounded to T, for each x where that is below D.
+template <typename T, int D, int WARPS>
+__device__ __forceinline__ void store_dims(
+    T* out, const float (&acc)[block_dims<D, WARPS>], float l) {
+#pragma unroll
+  for (int x = 0; x < block_dims<D, WARPS>; ++x) {
+    const int d = threadIdx.x + 32 * WARPS * x;
+    if (d < D) out[d] = from_f<T>(acc[x] / fmaxf(l, 1e-30f));
+  }
 }
 
 }  // namespace decode

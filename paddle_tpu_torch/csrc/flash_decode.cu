@@ -26,8 +26,10 @@
 // LPK = D / VE lanes cover one key row with 16-byte loads (VE = 8 bf16 or
 // fp16, or 4 fp32 values each), so a warp reads 32 / LPK whole rows -- whole
 // 128-byte lines -- per load, and U = 4 such loads of K and of V are in
-// flight before any arithmetic.  Each lane dots its VE values with q, the
-// LPK lanes of a key add theirs (shuffles inside the group only), and
+// flight before any arithmetic (at D = 256 a bf16 or fp16 row takes the
+// whole warp, an fp32 row two loads a lane: `RowLanes`).  Each lane dots
+// its values with q, the LPK lanes of a key add theirs (shuffles inside
+// the group only), and
 // the warp keeps its own online softmax (fp32 m, l and its lanes' share
 // of the accumulator); the four warps merge in shared memory.  One split
 // writes out directly.  With more, each block writes its fp32 partial (m,
@@ -74,7 +76,7 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(
     const T* __restrict__ vc, T* __restrict__ out, float* __restrict__ part,
     int* __restrict__ tickets, const int* __restrict__ len, int H,
     int S_max, int length, long long qsb, float scale) {
-  constexpr int LPK = D / VE<T>;        // lanes per key row
+  using L = RowLanes<T, D>;             // lanes and loads of a key row
   __shared__ SplitSmem<WARPS, D> sh;
   if (len) length += __ldg(len);
   length = min(max(length, 1), S_max);
@@ -83,26 +85,29 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(
   if (split >= splits) return;
   const int h = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
-  const int d0 = (lane % LPK) * VE<T>;
+  const int d0 = (lane % L::LPK) * VE<T>;
   const long long HD = (long long)H * D;
   const long long bh = (long long)b * H + h;
 
-  float qv[VE<T>];
+  float qv[L::PER];
   const T* qp = q + b * qsb + h * D + d0;
 #pragma unroll
-  for (int i = 0; i < VE<T>; ++i) qv[i] = to_f(qp[i]);
+  for (int j = 0; j < L::NV; ++j)
+#pragma unroll
+    for (int i = 0; i < VE<T>; ++i)
+      qv[j * VE<T> + i] = to_f(qp[j * L::STEP + i]);
 
   const long long base = (long long)b * S_max * HD + h * D + d0;
   const RingKeys<T, false> keys{kc + base, vc + base, HD, scale, nullptr};
   const int lo = split * CHUNK;
-  float m, l, acc[VE<T>];
+  float m, l, acc[L::PER];
   warp_attend<T, D, U, RUN>(keys, qv, lo + warp * RUN,
                             min(lo + CHUNK, length), CHUNK, m, l, acc);
-  float bm, bl, ba;
+  float bm, bl, ba[block_dims<D, WARPS>];
   block_state<T, D, WARPS>(sh, m, l, acc, bm, bl, ba);
   T* op = out + bh * D;
   if (splits == 1) {
-    if (tid < D) op[tid] = from_f<T>(ba / fmaxf(bl, 1e-30f));
+    store_dims<T, D, WARPS>(op, ba, bl);
     return;
   }
 
@@ -111,12 +116,10 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(
   float2* ml = reinterpret_cast<float2*>(part) + bh * most;     // (m, l)
   float* pacc = part + 2LL * gridDim.y * gridDim.z * most +
                 bh * most * D;                         // acc[D] per split
-  float gm, gl, ga;
-  if (!merge_splits<D, WARPS>(sh, ml, pacc, tickets + bh, split, splits, bm,
-                              bl, ba, gm, gl, ga) ||
-      tid >= D)
-    return;
-  op[tid] = from_f<T>(ga / fmaxf(gl, 1e-30f));
+  float gm, gl, ga[block_dims<D, WARPS>];
+  if (merge_splits<D, WARPS>(sh, ml, pacc, tickets + bh, split, splits, bm,
+                             bl, ba, gm, gl, ga))
+    store_dims<T, D, WARPS>(op, ga, gl);
 }
 
 template <typename T, int D>
@@ -144,7 +147,8 @@ extern "C" int flash_decode_splits(int length) {
 // `len` in device memory (a ring position, with `length` 1).  dtype: the
 // element type's code (0 fp32, 1 bf16, 2 fp16).  Returns
 // cudaGetLastError() after the launch; 1 (cudaErrorInvalidValue) for a
-// head size or type code the kernel does not take.
+// head size (64, 128 and 256 are taken) or type code the kernel does not
+// take.
 extern "C" int flash_decode(const void* q, const void* kc, const void* vc,
                             void* out, void* part, void* tickets,
                             const void* len, int B, int H, int D, int S_max,
@@ -155,14 +159,18 @@ extern "C" int flash_decode(const void* q, const void* kc, const void* vc,
 #define FD_LAUNCH(T, DIM)                                                    \
   launch<T, DIM>(q, kc, vc, out, part, tickets, n, B, H, S_max, length, qsb, \
                  scale, s)
-  if (D != 64 && D != 128) return static_cast<int>(cudaErrorInvalidValue);
-  switch (dtype * 2 + (D == 128)) {
+  if (D != 64 && D != 128 && D != 256)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (dtype * 3 + (D == 128) + 2 * (D == 256)) {
     case 0: FD_LAUNCH(float, 64); break;
     case 1: FD_LAUNCH(float, 128); break;
-    case 2: FD_LAUNCH(__nv_bfloat16, 64); break;
-    case 3: FD_LAUNCH(__nv_bfloat16, 128); break;
-    case 4: FD_LAUNCH(__half, 64); break;
-    case 5: FD_LAUNCH(__half, 128); break;
+    case 2: FD_LAUNCH(float, 256); break;
+    case 3: FD_LAUNCH(__nv_bfloat16, 64); break;
+    case 4: FD_LAUNCH(__nv_bfloat16, 128); break;
+    case 5: FD_LAUNCH(__nv_bfloat16, 256); break;
+    case 6: FD_LAUNCH(__half, 64); break;
+    case 7: FD_LAUNCH(__half, 128); break;
+    case 8: FD_LAUNCH(__half, 256); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef FD_LAUNCH

@@ -14,8 +14,8 @@
 // above the H100's ridge point, so the tensor cores bound a fast kernel:
 // bf16 and fp16 at 989 TFLOP/s, fp32 at 495 / 3 (split TF32, below).
 //
-// Two designs behind the one entry (the type is a code: 0 fp32, 1 bf16, 2
-// fp16):
+// Three designs behind the one entry (the type is a code: 0 fp32, 1 bf16,
+// 2 fp16; the third, fp32 at D = 256, below):
 //
 // bf16 and fp16: `flash_fwd_tc_kernel<T>`, on the tensor cores
 // (`flash_tc.cuh`), one instantiation per 16-bit type T.  One block per
@@ -73,7 +73,26 @@
 // 252-254 at D = 128.  S needs no second level: it is summed afresh for
 // every tile.
 //
-// In both the loop over key tiles stops at the diagonal, the online
+// D = 256 (Gemma 2B's and GPT-J's head size): bf16 and fp16 take the
+// tensor-core kernel with key tiles of 32 keys, its S = Q K^T an m64n32k16
+// `wgmma` and its P V an m64n256k16 one: O holds 64 x 256 fp32 a
+// warpgroup, 128 registers a thread, and with S and P of 64 keys (32 and
+// 16 more) the kernel spilled 28-100 bytes at 255 registers; of 32 keys
+// they take half.  Q and two stages of K and V take (64 + 4 * 32) * 256 *
+// 2 + 1024 = 99,328 bytes of shared memory.  fp32 does not fit the
+// split-TF32 design there: O and its per-tile sum (the two levels above)
+// would take 256 registers, and Q's hi and lo with two stages of K and V
+// 321 KB of shared memory.  It takes `flash_fwd_simt_kernel`, on the CUDA
+// cores (fp32 FMAs, bound by the 67 TFLOP/s of fp32): one block of eight
+// warps per (32-query tile, head, batch), Q in shared memory, K and V tiles
+// of 32 keys copied in per tile (rows padded by 4 floats against bank
+// conflicts, 104 KB: two blocks an SM); each thread sums 2 x 2 scores over
+// d in order, each warp runs the online softmax of four rows, a key a lane
+// (p written over its score), and holds those rows of O, 8 columns a lane.
+// The same masking, branches, statistics and longest-first order as the
+// tensor-core kernels.
+//
+// In all three the loop over key tiles stops at the diagonal, the online
 // softmax (max m, sum l) stays in fp32, and the ragged tile edge is
 // masked here, so any S works (the TPU kernel needed S % 128 == 0).
 // Masked logits are -1e30 as in the reference, and a masked key
@@ -137,14 +156,17 @@ namespace tc {
 using namespace flash_tc;
 
 constexpr int BQ = 64;          // query rows per block: one warpgroup
-constexpr int BK = 64;          // keys per tile
 constexpr int THREADS = WG;     // 128
+// keys per tile: 64, or 32 at D = 256, where O alone takes 128 registers a
+// thread and S and P of 64 keys left the kernel 28-100 bytes of spills
+template <int D>
+constexpr int key_tile = D == 256 ? 32 : 64;
 
-// Q, then two stages of K and V, each [64, D] of a 2-byte type; 1024 bytes
-// of slack to align the tiles for the swizzle.
+// Q [64, D], then two stages of K and V, each [BK, D], of a 2-byte type;
+// 1024 bytes of slack to align the tiles for the swizzle.
 template <int D>
 constexpr int smem_bytes() {
-  return 5 * BK * D * 2 + 1024;
+  return (BQ + 4 * key_tile<D>) * D * 2 + 1024;
 }
 
 // T: __nv_bfloat16 or __half, the inputs' and the output's type and the
@@ -160,10 +182,12 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_tc_kernel(
     long long kss, long long vsb, long long vss, long long msb,
     long long msh, long long msq, long long msk, long long ssb,
     float scale) {
-  constexpr uint32_t TILE = BK * D * 2;   // bytes of one [64, D] tile
+  constexpr int BK = key_tile<D>;
+  constexpr uint32_t QTILE = BQ * D * 2;  // bytes of the [64, D] Q tile
+  constexpr uint32_t TILE = BK * D * 2;   // ... of one [BK, D] K or V tile
   extern __shared__ uint8_t smem[];
   __shared__ int red[SEGS ? 2 * THREADS / 32 : 1];
-  // Q at sq; stage st holds K at sq + TILE (1 + 2 st) and V after it
+  // Q at sq; stage st holds K at sq + QTILE + 2 TILE st and V after it
   const uint32_t sq = (smem_addr(smem) + 1023u) & ~1023u;
   const int tile = gridDim.x - 1 - blockIdx.x;   // longest rows first
   const int h = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
@@ -195,8 +219,8 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_tc_kernel(
   const int ntiles = kend > kbeg ? (kend - kbeg + BK - 1) / BK : 0;
   load_tile<BQ, D, THREADS>(sq, q + b * qsb + h * D, qss, q0, Sq, tid);
   if (ntiles > 0) {
-    load_tile<BK, D, THREADS>(sq + TILE, kb, kss, kbeg, Sk, tid);
-    load_tile<BK, D, THREADS>(sq + 2 * TILE, vb, vss, kbeg, Sk, tid);
+    load_tile<BK, D, THREADS>(sq + QTILE, kb, kss, kbeg, Sk, tid);
+    load_tile<BK, D, THREADS>(sq + QTILE + TILE, vb, vss, kbeg, Sk, tid);
   }
   cp_async_commit();
 
@@ -232,12 +256,12 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_tc_kernel(
 
   for (int it = 0; it < ntiles; ++it) {
     const int k0 = kbeg + it * BK;
-    const uint32_t sk = sq + TILE * (1 + 2 * (it & 1)), sv = sk + TILE;
+    const uint32_t sk = sq + QTILE + 2 * TILE * (it & 1), sv = sk + TILE;
     cp_async_wait<0>();
     fence_async_smem();
     __syncthreads();   // tile it has landed; tile it - 1 is no longer read
     if (it + 1 < ntiles) {
-      const uint32_t nk = sq + TILE * (1 + 2 * ((it + 1) & 1));
+      const uint32_t nk = sq + QTILE + 2 * TILE * ((it + 1) & 1);
       load_tile<BK, D, THREADS>(nk, kb, kss, k0 + BK, Sk, tid);
       load_tile<BK, D, THREADS>(nk + TILE, vb, vss, k0 + BK, Sk, tid);
     }
@@ -249,7 +273,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_tc_kernel(
     mma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      mma_ss_n64<T>(s, desc_k<BQ>(sq, kk), desc_k<BK>(sk, kk), 1);
+      mma_ss_nk<BK, T>(s, desc_k<BQ>(sq, kk), desc_k<BK>(sk, kk), 1);
     mma_commit();
     mma_wait<0>();
     fence_regs(s);
@@ -578,6 +602,228 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_tc32_kernel(
 
 }  // namespace tc32
 
+// ---------------------------------------------------------------------------
+// fp32 at D = 256: the CUDA-core kernel (header comment)
+// ---------------------------------------------------------------------------
+
+namespace simt {
+
+constexpr int BQ = 32;          // query rows per block
+constexpr int BK = 32;          // keys per tile
+constexpr int THREADS = 256;    // eight warps
+constexpr int PAD = 4;          // floats after each Q and K row (banks)
+
+template <int D>
+struct Cfg {
+  static constexpr int QS = D + PAD;                 // Q, K row strides
+  static constexpr int CPL = D / 128;                // float4s of O a lane
+  static constexpr int SMEM =
+      4 * (BQ * QS + BK * QS + BK * D + BQ * (BK + 1));
+};
+
+// Copy rows row0 .. row0 + ROWS - 1 of an [n, D] fp32 matrix (row stride
+// `stride` elements, 16-byte aligned rows) into shared rows of `ld`
+// floats; rows at or past n are zeros.  All THREADS threads call.
+template <int ROWS, int D>
+__device__ __forceinline__ void load_rows(float* dst, int ld,
+                                          const float* __restrict__ g,
+                                          long long stride, int row0, int n,
+                                          int tid) {
+  constexpr int CPR = D / 4;   // float4s a row
+#pragma unroll
+  for (int i = 0; i < ROWS * CPR / THREADS; ++i) {
+    const int e = tid + i * THREADS, r = e / CPR, c = e % CPR;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row0 + r < n)
+      x = __ldg(reinterpret_cast<const float4*>(
+          g + (long long)(row0 + r) * stride + 4 * c));
+    *reinterpret_cast<float4*>(dst + r * ld + 4 * c) = x;
+  }
+}
+
+template <int D, bool MASKED, bool SEGS, bool CAUSAL>
+__global__ void __launch_bounds__(THREADS) flash_fwd_simt_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ out,
+    float* __restrict__ lse, float* __restrict__ rowmax,
+    float* __restrict__ logsum, const float* __restrict__ mask,
+    const int* __restrict__ kv_lens, const int* __restrict__ segs, int H,
+    int Sq, int Sk, long long qsb, long long qss, long long ksb,
+    long long kss, long long vsb, long long vss, long long msb,
+    long long msh, long long msq, long long msk, long long ssb,
+    float scale) {
+  using C = Cfg<D>;
+  constexpr int QS = C::QS, CPL = C::CPL;
+  extern __shared__ __align__(16) float fsm[];
+  float* qs = fsm;                    // [BQ][QS]
+  float* ks = qs + BQ * QS;           // [BK][QS]
+  float* vs = ks + BK * QS;           // [BK][D]
+  float* ss = vs + BK * D;            // [BQ][BK + 1]: scores, then p
+  __shared__ int red[SEGS ? 2 * THREADS / 32 : 1];
+  __shared__ int qids[SEGS ? BQ : 1];
+  const int tile = gridDim.x - 1 - blockIdx.x;   // longest rows first
+  const int h = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int q0 = tile * BQ, offset = Sk - Sq;
+  const int klen = MASKED && kv_lens ? min(max(kv_lens[b], 0), Sk) : Sk;
+  const float* kb = k + b * ksb + h * D;
+  const float* vb = v + b * vsb + h * D;
+  const float* mb = MASKED && mask ? mask + b * msb + h * msh : nullptr;
+  const int* sb = SEGS ? segs + b * ssb : nullptr;
+  int kbeg = 0;
+  int kend = CAUSAL ? min(klen, q0 + BQ + offset) : klen;   // exclusive
+  if constexpr (SEGS) {
+    const int own = sb[min(q0 + tid % BQ, Sq - 1)];
+    if (tid < BQ) qids[tid] = own;
+    const int2 env = flash::seg_envelope<THREADS>(sb, Sk, own, red);
+    kbeg = env.x / BK * BK;
+    kend = min(kend, env.y);
+  }
+  const int ntiles = kend > kbeg ? (kend - kbeg + BK - 1) / BK : 0;
+  load_rows<BQ, D>(qs, QS, q + b * qsb + h * D, qss, q0, Sq, tid);
+
+  // scores: rows sr, sr + 1 and keys sc, sc + 16 of the tile a thread
+  const int sr = 2 * (tid / 16), sc = tid % 16;
+  // O and the softmax: warp w holds rows 4w .. 4w + 3, lane l columns
+  // 4 (l + 32 j) .. + 3 of each (j < CPL)
+  const int orow = 4 * warp;
+  float o[4][4 * CPL];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int i = 0; i < 4 * CPL; ++i) o[r][i] = 0.f;
+  // running max (the same in every lane) and this lane's part of the sum
+  // of each row; an excluded key is -inf, and the max starts at -1e30
+  // (-inf when MASKED, so that any finite mask value stays exact)
+  float m[4], l[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    m[r] = MASKED ? -INFINITY : NEG;
+    l[r] = 0.f;
+  }
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int k0 = kbeg + it * BK;
+    __syncthreads();   // the previous tile is no longer read (Q written)
+    load_rows<BK, D>(ks, QS, kb, kss, k0, Sk, tid);
+    load_rows<BK, D>(vs, D, vb, vss, k0, Sk, tid);
+    __syncthreads();
+
+    // S = Q K^T, fp32 products summed over d in order
+    float acc[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll 4
+    for (int d = 0; d < D; d += 4) {
+      const float4 qa = *reinterpret_cast<const float4*>(qs + sr * QS + d);
+      const float4 qb =
+          *reinterpret_cast<const float4*>(qs + (sr + 1) * QS + d);
+      const float4 ka = *reinterpret_cast<const float4*>(ks + sc * QS + d);
+      const float4 kc =
+          *reinterpret_cast<const float4*>(ks + (sc + 16) * QS + d);
+      const float qv[2][4] = {{qa.x, qa.y, qa.z, qa.w},
+                              {qb.x, qb.y, qb.z, qb.w}};
+      const float kv[2][4] = {{ka.x, ka.y, ka.z, ka.w},
+                              {kc.x, kc.y, kc.z, kc.w}};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            acc[i][j] = fmaf(qv[i][e], kv[j][e], acc[i][j]);
+    }
+    // scale, mask and exclude
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int qp = q0 + sr + i, qc = min(qp, Sq - 1);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int kp = k0 + sc + 16 * j;
+        float x = acc[i][j] * scale;
+        if constexpr (MASKED) {
+          if (mb && kp < Sk) x += mb[(long long)qc * msq + kp * msk];
+        }
+        bool ok = (!CAUSAL || kp <= qp + offset) && kp < klen;
+        if constexpr (SEGS) ok = ok && sb[min(kp, Sk - 1)] == qids[sr + i];
+        ss[(sr + i) * (BK + 1) + sc + 16 * j] = ok ? x : -INFINITY;
+      }
+    }
+    __syncthreads();
+
+    // online softmax of the warp's four rows, a key a lane; p over the
+    // score it comes from (each lane its own key)
+    float alpha[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      float* sp = ss + (orow + r) * (BK + 1) + lane;
+      const float x = *sp;
+      float mx = x;
+#pragma unroll
+      for (int s = 16; s > 0; s >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, s));
+      mx = fmaxf(m[r], mx);
+      const bool empty = MASKED && mx == -INFINITY;   // no key yet
+      alpha[r] = empty ? 1.f : expf(m[r] - mx);
+      const float base = empty ? 0.f : mx;
+      m[r] = mx;
+      const float p = expf(x - base);
+      l[r] = l[r] * alpha[r] + p;
+      *sp = p;
+    }
+    __syncwarp();   // the warp's rows of p
+
+    // O = alpha O + P V
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int i = 0; i < 4 * CPL; ++i) o[r][i] *= alpha[r];
+#pragma unroll 4
+    for (int j = 0; j < BK; ++j) {
+      float pr[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) pr[r] = ss[(orow + r) * (BK + 1) + j];
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) {
+        const float4 v4 = *reinterpret_cast<const float4*>(
+            vs + j * D + 4 * (lane + 32 * c));
+        const float vv[4] = {v4.x, v4.y, v4.z, v4.w};
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            o[r][4 * c + e] = fmaf(pr[r], vv[e], o[r][4 * c + e]);
+      }
+    }
+  }
+
+  float* ob = out + ((long long)b * Sq * H + h) * D;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    float lt = l[r];
+#pragma unroll
+    for (int s = 16; s > 0; s >>= 1)
+      lt += __shfl_xor_sync(0xffffffffu, lt, s);
+    const float ls = fmaxf(lt, 1e-30f);
+    const int qp = q0 + orow + r;
+    if (qp >= Sq) continue;
+    float* op = ob + (long long)qp * H * D;
+#pragma unroll
+    for (int c = 0; c < CPL; ++c)
+      *reinterpret_cast<float4*>(op + 4 * (lane + 32 * c)) =
+          make_float4(o[r][4 * c] / ls, o[r][4 * c + 1] / ls,
+                      o[r][4 * c + 2] / ls, o[r][4 * c + 3] / ls);
+    if (lane == 0) {
+      const long long row = ((long long)b * H + h) * Sq + qp;
+      lse[row] = m[r] + logf(ls);
+      if constexpr (MASKED) {
+        rowmax[row] = m[r];
+        logsum[row] = logf(ls);
+      }
+    }
+  }
+}
+
+}  // namespace simt
+
 struct Args {
   const void *q, *k, *v;
   void *out, *lse, *rowmax, *logsum;
@@ -623,13 +869,36 @@ void launch_tc32(const Args& a) {
       a.msk, a.ssb, a.scale);
 }
 
+template <int D, bool MASKED, bool SEGS, bool CAUSAL>
+void launch_simt(const Args& a) {
+  constexpr int smem = simt::Cfg<D>::SMEM;
+  auto* kernel = simt::flash_fwd_simt_kernel<D, MASKED, SEGS, CAUSAL>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  (void)attr;   // a refusal shows as the launch's error
+  dim3 grid((a.Sq + simt::BQ - 1) / simt::BQ, a.H, a.B);
+  kernel<<<grid, simt::THREADS, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<float*>(a.out),
+      static_cast<float*>(a.lse), static_cast<float*>(a.rowmax),
+      static_cast<float*>(a.logsum), a.mask, a.kv_lens, a.segs, a.H, a.Sq,
+      a.Sk, a.qsb, a.qss, a.ksb, a.kss, a.vsb, a.vss, a.msb, a.msh, a.msq,
+      a.msk, a.ssb, a.scale);
+}
+
 // The element type by its code (0 fp32, 1 bf16, 2 fp16): bf16 and fp16
-// take the 16-bit tensor-core kernel, fp32 the split-TF32 one; any other
-// code or head size is refused.
+// take the 16-bit tensor-core kernel, fp32 the split-TF32 one (D = 64,
+// 128) or the CUDA-core one (D = 256); any other code or head size is
+// refused.
 template <int D, bool MASKED, bool SEGS, bool CAUSAL>
 int dispatch_type(const Args& a, int dtype) {
   switch (dtype) {
-    case 0: launch_tc32<D, MASKED, SEGS, CAUSAL>(a); break;
+    case 0:
+      if constexpr (D == 256)
+        launch_simt<D, MASKED, SEGS, CAUSAL>(a);
+      else
+        launch_tc32<D, MASKED, SEGS, CAUSAL>(a);
+      break;
     case 1: launch_tc<__nv_bfloat16, D, MASKED, SEGS, CAUSAL>(a); break;
     case 2: launch_tc<__half, D, MASKED, SEGS, CAUSAL>(a); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
@@ -641,6 +910,7 @@ template <bool MASKED, bool SEGS, bool CAUSAL>
 int dispatch(const Args& a, int D, int dtype) {
   if (D == 64) return dispatch_type<64, MASKED, SEGS, CAUSAL>(a, dtype);
   if (D == 128) return dispatch_type<128, MASKED, SEGS, CAUSAL>(a, dtype);
+  if (D == 256) return dispatch_type<256, MASKED, SEGS, CAUSAL>(a, dtype);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -652,7 +922,8 @@ int dispatch(const Args& a, int D, int dtype) {
 // [B, H, Sq] outputs of m and log l, written with a mask or kv_lens (null
 // otherwise).  dtype: the element type's code (0 fp32, 1 bf16, 2 fp16).
 // Returns cudaGetLastError() after the launch; 1 (cudaErrorInvalidValue)
-// for a head size or type code the kernel does not take.
+// for a head size (64, 128 and 256 are taken) or type code the kernel does
+// not take.
 extern "C" int flash_fwd(
     const void* q, const void* k, const void* v, void* out, void* lse,
     void* rowmax, void* logsum, const void* mask, const void* kv_lens,

@@ -48,9 +48,10 @@
 //     t = 1023, PERF.md).  A warp sums its q from the k-chunk partials in chunk
 //     order (+ the fp32 bias) straight into registers, runs the key loop
 //     of `decode_common.cuh` (shared with flash_decode and the ragged
-//     kernel: 16-byte loads, D / VE lanes a key, a whole run of 32 keys in
-//     flight where that is at most 8 loads a lane, an online softmax; the
-//     mask added to the scores) and writes its fp32 partial (m, l,
+//     kernel: 16-byte loads, D / VE lanes a key (the whole warp, and two
+//     loads a lane in fp32, at D = 256), a whole run of 32 keys in flight
+//     where that is at most 8 loads a lane, an online softmax; the mask
+//     added to the scores) and writes its fp32 partial (m, l,
 //     acc[D]).  The last warp of the (row, head) to finish (a
 //     self-resetting ticket, `warp_last_of`) merges the splits in split
 //     order, its loads issued eight chunks and eight splits at a time,
@@ -103,10 +104,12 @@ constexpr int SEG = 8;                   // threads per 128-byte row segment
 constexpr int GROUPS = THREADS / SEG;    // weight rows loaded at once
 constexpr int RUN = 32;                  // keys a warp task walks at once
 // loads of K (and V) a lane keeps in flight: a whole run of 32 keys where
-// that is at most 8 loads (bf16 at D = 64; 16 keys in fp32)
+// that is at most 8 16-byte loads (bf16 at D = 64; 16 keys in fp32; 8 keys
+// at D = 256 in bf16, 4 in fp32, whose rows take two loads a lane)
 template <typename T, int D>
-constexpr int U = RUN / (32 / (D / VE<T>)) < 8 ? RUN / (32 / (D / VE<T>))
-                                               : 8;
+constexpr int U = RUN / RowLanes<T, D>::KPW < 8 / RowLanes<T, D>::NV
+                      ? RUN / RowLanes<T, D>::KPW
+                      : 8 / RowLanes<T, D>::NV;
 
 // columns of a unit (128 bytes of a weight row), loads a thread at most
 template <typename T>
@@ -242,7 +245,7 @@ template <typename T, int D>
 __global__ void __launch_bounds__(THREADS) fused_decode_layer_kernel(
     Args<T> a) {
   constexpr int C = CW<T>;
-  constexpr int LPK = D / VE<T>;
+  using L = RowLanes<T, D>;             // lanes and loads of a key row
   extern __shared__ __align__(16) float xs[];   // [ceil(B/RB)][hd][RB]
   __shared__ __align__(16) float red[WARPS * RB * C];
   __shared__ int is_last;
@@ -360,7 +363,7 @@ __global__ void __launch_bounds__(THREADS) fused_decode_layer_kernel(
   const int span = ((t + want - 1) / want + RUN - 1) / RUN * RUN;
   const int splits = (t + span - 1) / span;      // keys a split: span
   const int bhs = B * H;
-  const int d0 = (lane % LPK) * VE<T>;
+  const int d0 = (lane % L::LPK) * VE<T>;
   constexpr int DPL = D / 32;                    // dims a lane merges
   for (int task = blockIdx.x * WARPS + warp; task < bhs * splits;
        task += gridDim.x * WARPS) {
@@ -369,38 +372,48 @@ __global__ void __launch_bounds__(THREADS) fused_decode_layer_kernel(
     // this lane's q, straight into registers (nothing waits on it before
     // the K and V loads are in flight): the k-chunk partials in chunk
     // order, then the bias, as `chunk_sum`
-    float qv[VE<T>];
+    float qv[L::PER];
 #pragma unroll
-    for (int i = 0; i < VE<T>; ++i) qv[i] = 0.f;
+    for (int i = 0; i < L::PER; ++i) qv[i] = 0.f;
     for (int c = 0; c < chunks1; ++c) {
       const float* p = a.part1 + ((long long)c * B + b) * ncol3 + h * D + d0;
 #pragma unroll
-      for (int i = 0; i < VE<T>; i += 4) {
-        const float4 v = __ldcg(reinterpret_cast<const float4*>(p + i));
-        qv[i] += v.x;
-        qv[i + 1] += v.y;
-        qv[i + 2] += v.z;
-        qv[i + 3] += v.w;
-      }
+      for (int j = 0; j < L::NV; ++j)
+#pragma unroll
+        for (int i = 0; i < VE<T>; i += 4) {
+          const float4 v = __ldcg(
+              reinterpret_cast<const float4*>(p + j * L::STEP + i));
+          const int x = j * VE<T> + i;
+          qv[x] += v.x;
+          qv[x + 1] += v.y;
+          qv[x + 2] += v.z;
+          qv[x + 3] += v.w;
+        }
     }
 #pragma unroll
-    for (int i = 0; i < VE<T>; ++i) qv[i] += to_f(a.bqkv[h * D + d0 + i]);
+    for (int j = 0; j < L::NV; ++j)
+#pragma unroll
+      for (int i = 0; i < VE<T>; ++i)
+        qv[j * VE<T> + i] += to_f(a.bqkv[h * D + d0 + j * L::STEP + i]);
     const long long base = (long long)b * S_max * hd + h * D;
     const RingKeys<T, true> keys{
         a.kc + base + d0, a.vc + base + d0, hd, a.scale,
         a.mask ? a.mask + (long long)b * S_max : nullptr};
     const int lo = split * span;
-    float m, l, acc[VE<T>];
+    float m, l, acc[L::PER];
     warp_attend<T, D, U<T, D>, RUN>(keys, qv, lo, min(lo + span, t),
                                     RUN, m, l, acc);
     // this split's partial; the last warp of the (row, head) to finish
     // merges the splits in split order
     float2* ml = reinterpret_cast<float2*>(a.part2) + (long long)bh * splits;
     float* pacc = a.part2 + 2LL * bhs * splits + (long long)bh * splits * D;
-    if (lane < LPK) {
+    if (lane < L::LPK) {
 #pragma unroll
-      for (int i = 0; i < VE<T>; ++i)
-        pacc[(long long)split * D + d0 + i] = acc[i];
+      for (int j = 0; j < L::NV; ++j)
+#pragma unroll
+        for (int i = 0; i < VE<T>; ++i)
+          pacc[(long long)split * D + d0 + j * L::STEP + i] =
+              acc[j * VE<T> + i];
     }
     if (lane == 0) ml[split] = make_float2(m, l);
     if (!warp_last_of(a.tickets + bh, splits)) continue;
@@ -599,7 +612,8 @@ cudaError_t launch(const Args<T>& args, int grid, cudaStream_t stream) {
 
 // The co-resident blocks of the kernel for B rows of H heads of D dims
 // (the most a launch's grid may have); a negative CUDA error on failure,
-// -1 (cudaErrorInvalidValue) for a head size the kernel does not take.
+// -1 (cudaErrorInvalidValue) for a head size the kernel does not take (64,
+// 128 and 256 are taken).
 extern "C" int fused_decode_layer_blocks(int B, int H, int D, int is_bf16) {
   int blocks = 0;
   cudaError_t err;
@@ -611,6 +625,10 @@ extern "C" int fused_decode_layer_blocks(int B, int H, int D, int is_bf16) {
     err = blocks_of<__nv_bfloat16, 128>(B, H, &blocks);
   else if (D == 128)
     err = blocks_of<float, 128>(B, H, &blocks);
+  else if (D == 256 && is_bf16)
+    err = blocks_of<__nv_bfloat16, 256>(B, H, &blocks);
+  else if (D == 256)
+    err = blocks_of<float, 256>(B, H, &blocks);
   else
     err = cudaErrorInvalidValue;
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
@@ -652,6 +670,10 @@ extern "C" int fused_decode_layer(
     FDL_LAUNCH(__nv_bfloat16, 128);
   else if (D == 128)
     FDL_LAUNCH(float, 128);
+  else if (D == 256 && is_bf16)
+    FDL_LAUNCH(__nv_bfloat16, 256);
+  else if (D == 256)
+    FDL_LAUNCH(float, 256);
   else
     return static_cast<int>(cudaErrorInvalidValue);
 #undef FDL_LAUNCH

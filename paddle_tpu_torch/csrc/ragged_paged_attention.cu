@@ -39,7 +39,9 @@
 //     table with 16-byte loads (4 fp32, 8 bf16 / fp16 or 16 int8 values a
 //     lane;
 //     D / those lanes a key row, whole 64- to 512-byte rows per warp
-//     load), 4 loads of K and of V a lane in flight, and an online
+//     load; at D = 256 a 2-byte row takes the whole warp and an fp32 row
+//     two loads a lane: `RowLanes`), 4 loads of K and of V a lane in
+//     flight (two vectors each for an fp32 row of 256), and an online
 //     softmax in fp32.  p stays in fp32 in every type (the plain version
 //     rounds the normalised p to a bf16 pool's type, the kernel does not:
 //     the FWD_COEF limit; fp16 pools are computed in fp32 with p unrounded,
@@ -209,13 +211,13 @@ __global__ void __launch_bounds__(A_THREADS) ragged_attend_kernel(
     int C, int H, int nb, int bs, int maxb, int chunk_keys, long long qsb,
     long long qsc, long long ksb, long long ksc, long long vsb,
     long long vsc, float scale) {
-  constexpr int LPK = D / VE<P>;        // lanes per key row
+  using L = RowLanes<P, D>;             // lanes and loads of a key row
   __shared__ SplitSmem<A_WARPS, D> sh;
   __shared__ int tbl[TBL];
   const int split = blockIdx.x, max_splits = gridDim.x;
   const int h = blockIdx.y, rj = blockIdx.z, r = rj / C, jq = rj % C;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int d0 = (lane % LPK) * VE<P>;
+  const int d0 = (lane % L::LPK) * VE<P>;
   const long long HD = (long long)H * D;
   const long long g = (long long)rj * H + h;       // the (row, query, head)
   T* op = out + g * D;
@@ -225,10 +227,13 @@ __global__ void __launch_bounds__(A_THREADS) ragged_attend_kernel(
   // keys if its chunk is chunk_keys (every split of a decode step, whose
   // grid covers the table's width)
   const int len_r = lens[r], pos_r = pos0[r];
-  float qv[VE<P>];
+  float qv[L::PER];
   const T* qp = q + r * qsb + jq * qsc + h * D + d0;
 #pragma unroll
-  for (int i = 0; i < VE<P>; ++i) qv[i] = to_f(qp[i]);
+  for (int j = 0; j < L::NV; ++j)
+#pragma unroll
+    for (int i = 0; i < VE<P>; ++i)
+      qv[j * VE<P> + i] = to_f(qp[j * L::STEP + i]);
   const int first_e = split * chunk_keys / bs;
   const int n_e = min((split * chunk_keys + chunk_keys - 1) / bs, maxb - 1) -
                   first_e + 1;
@@ -272,24 +277,23 @@ __global__ void __launch_bounds__(A_THREADS) ragged_attend_kernel(
                           vscale ? vscale + h : nullptr,
                           bs, nb, H, HD, scale};
   const int lo = split * chunk;
-  float m, l, acc[VE<P>];
+  float m, l, acc[L::PER];
   warp_attend<P, D, U, RUN>(keys, qv, lo + warp * RUN,
                             min(lo + chunk, bound), A_WARPS * RUN, m, l, acc);
-  float bm, bl, ba;
+  float bm, bl, ba[block_dims<D, A_WARPS>];
   block_state<P, D, A_WARPS>(sh, m, l, acc, bm, bl, ba);
   if (splits == 1) {
-    if (tid < D) op[tid] = from_f<T>(ba / fmaxf(bl, 1e-30f));
+    store_dims<T, D, A_WARPS>(op, ba, bl);
     if (first) wait_prior_grid();
     return;
   }
   const long long groups = (long long)gridDim.y * gridDim.z;
   float2* ml = reinterpret_cast<float2*>(part) + g * max_splits;
   float* pacc = part + 2 * groups * max_splits + g * max_splits * D;
-  float gm, gl, ga;
+  float gm, gl, ga[block_dims<D, A_WARPS>];
   if (merge_splits<D, A_WARPS>(sh, ml, pacc, tickets + g, split, splits, bm,
-                               bl, ba, gm, gl, ga) &&
-      tid < D)
-    op[tid] = from_f<T>(ga / fmaxf(gl, 1e-30f));
+                               bl, ba, gm, gl, ga))
+    store_dims<T, D, A_WARPS>(op, ga, gl);
   if (first) wait_prior_grid();
 }
 
@@ -545,8 +549,8 @@ cudaError_t launch(const void* q, const void* knew, const void* vnew,
 // tickets B * C * H ints, zero before and after every launch (both unread
 // with max_splits 1).  dtype: the element type's code of q, k_new, v_new,
 // the pools and out (0 fp32, 1 bf16, 2 fp16).  Returns the first CUDA
-// error (cudaGetLastError()); 1 (cudaErrorInvalidValue) for a head size or
-// type code the kernel does not take.
+// error (cudaGetLastError()); 1 (cudaErrorInvalidValue) for a head size
+// (64, 128 and 256 are taken) or type code the kernel does not take.
 extern "C" int ragged_paged_attention(
     const void* q, const void* knew, const void* vnew, void* kpool,
     void* vpool, const void* table, const void* pos0, const void* lens,
@@ -568,14 +572,18 @@ extern "C" int ragged_paged_attention(
   err = launch<T, DIM>(q, knew, vnew, kpool, vpool, t, p, n, sl, out, pt,    \
                        tk, B, C, H, nb, bs, maxb, max_splits, chunk_keys,    \
                        parts, qsb, qsc, ksb, ksc, vsb, vsc, scale, s)
-  if (D != 64 && D != 128) return static_cast<int>(cudaErrorInvalidValue);
-  switch (dtype * 2 + (D == 128)) {
+  if (D != 64 && D != 128 && D != 256)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (dtype * 3 + (D == 128) + 2 * (D == 256)) {
     case 0: RPA_LAUNCH(float, 64); break;
     case 1: RPA_LAUNCH(float, 128); break;
-    case 2: RPA_LAUNCH(__nv_bfloat16, 64); break;
-    case 3: RPA_LAUNCH(__nv_bfloat16, 128); break;
-    case 4: RPA_LAUNCH(__half, 64); break;
-    case 5: RPA_LAUNCH(__half, 128); break;
+    case 2: RPA_LAUNCH(float, 256); break;
+    case 3: RPA_LAUNCH(__nv_bfloat16, 64); break;
+    case 4: RPA_LAUNCH(__nv_bfloat16, 128); break;
+    case 5: RPA_LAUNCH(__nv_bfloat16, 256); break;
+    case 6: RPA_LAUNCH(__half, 64); break;
+    case 7: RPA_LAUNCH(__half, 128); break;
+    case 8: RPA_LAUNCH(__half, 256); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef RPA_LAUNCH
@@ -585,8 +593,8 @@ extern "C" int ragged_paged_attention(
 // The int8-pool entry: the write launch, then the attend launch (parts as
 // above).  dtype: the code of q, k_new, v_new and out (0 fp32, 1 bf16, 2
 // fp16; the pools are int8).  Returns the first CUDA error; 1
-// (cudaErrorInvalidValue) for a head size or type code the kernel does
-// not take.
+// (cudaErrorInvalidValue) for a head size (64, 128 and 256 are taken) or
+// type code the kernel does not take.
 extern "C" int ragged_paged_attention_int8(
     const void* q, const void* knew, const void* vnew, void* kpool,
     void* vpool, void* kscale, void* vscale, const void* table,
@@ -611,14 +619,18 @@ extern "C" int ragged_paged_attention_int8(
                             p, n, sl, out, pt, tk, B, C, H, nb, bs, maxb,    \
                             max_splits, chunk_keys, parts, qsb, qsc, ksb,    \
                             ksc, vsb, vsc, scale, inv_qmax, s)
-  if (D != 64 && D != 128) return static_cast<int>(cudaErrorInvalidValue);
-  switch (dtype * 2 + (D == 128)) {
+  if (D != 64 && D != 128 && D != 256)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (dtype * 3 + (D == 128) + 2 * (D == 256)) {
     case 0: RPA8_LAUNCH(float, 64); break;
     case 1: RPA8_LAUNCH(float, 128); break;
-    case 2: RPA8_LAUNCH(__nv_bfloat16, 64); break;
-    case 3: RPA8_LAUNCH(__nv_bfloat16, 128); break;
-    case 4: RPA8_LAUNCH(__half, 64); break;
-    case 5: RPA8_LAUNCH(__half, 128); break;
+    case 2: RPA8_LAUNCH(float, 256); break;
+    case 3: RPA8_LAUNCH(__nv_bfloat16, 64); break;
+    case 4: RPA8_LAUNCH(__nv_bfloat16, 128); break;
+    case 5: RPA8_LAUNCH(__nv_bfloat16, 256); break;
+    case 6: RPA8_LAUNCH(__half, 64); break;
+    case 7: RPA8_LAUNCH(__half, 128); break;
+    case 8: RPA8_LAUNCH(__half, 256); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef RPA8_LAUNCH

@@ -39,6 +39,7 @@ __all__ = ["flash_attention_arrays", "mha_reference", "FlashAttention",
 _KERNELS = (flash_attention, flash_attention.masked, flash_attention.segs,
             flash_attention.noncausal, flash_attention.tc,
             flash_attention.tc16, flash_attention.tc32,
+            flash_attention.d256, flash_attention.simt,
             flash_attention.flash_bwd_dq,
             *flash_attention.flash_bwd_dq.variants.values(),
             *flash_attention.flash_bwd_dq.types.values(),
@@ -47,7 +48,9 @@ _KERNELS = (flash_attention, flash_attention.masked, flash_attention.segs,
             *flash_attention.flash_bwd_dkv.types.values(),
             ragged_paged_attention, ragged_paged_attention.int8,
             ragged_paged_attention.fp16, ragged_paged_attention.int8_fp16,
-            flash_decode, flash_decode.fp16, fused_decode, fused_mlp.ln_fwd,
+            ragged_paged_attention.d256, ragged_paged_attention.int8_d256,
+            flash_decode, flash_decode.fp16, flash_decode.d256, fused_decode,
+            fused_decode.d256, fused_mlp.ln_fwd,
             fused_mlp.ln_bwd, fused_mlp.ffn_fwd, fused_mlp.ffn_tc,
             fused_mlp.ffn_tc32, fused_mlp.ffn_decode, fused_mlp.ln_fwd16,
             fused_mlp.ln_bwd16, fused_mlp.ffn_fwd16, fused_mlp.ffn_tc16,

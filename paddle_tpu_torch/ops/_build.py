@@ -37,7 +37,8 @@ import subprocess
 import threading
 
 __all__ = ["SRC_DIR", "BUILD_DIR", "build", "load", "check", "tickets",
-           "scratch", "sms", "device_int", "dtype_code", "Counter"]
+           "scratch", "sms", "device_int", "dtype_code", "Counter",
+           "HEAD_DIMS"]
 
 SRC_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
@@ -127,6 +128,8 @@ class Counter:
 
 
 _DTYPE_CODES = ("float32", "bfloat16", "float16")
+# the head dims the attention kernels take (the flash backward 64 and 128)
+HEAD_DIMS = (64, 128, 256)
 
 
 def dtype_code(dtype) -> int:

@@ -30,11 +30,20 @@ apart, by the first of: ``segs`` (any call with segment ids), ``mask`` (a
 mask or ``kv_lens``), ``noncausal``.  The tensor-core launches are counted
 once more, apart, any branch: bfloat16 under ``flash_fwd_causal:tc``,
 ``flash_bwd_dq_causal:tc`` and ``flash_bwd_dkv_causal:tc``, float16 under
-``:tc16`` and float32 under ``:tc32`` of the same names.  The kernels copy
-16-byte rows: on the card q, k, v (and dO) must start on 16 bytes, with
-batch and sequence strides of a multiple of 16 bytes (8 bfloat16 or
-float16, or 4 float32 elements; the slices of a fused ``[B, S, 3, H, D]``
-projection are); anything else raises.
+``:tc16`` and float32 under ``:tc32`` of the same names.
+
+Head dims: the forward takes 64, 128 and 256 (Gemma 2B's and GPT-J's
+head size), the backward 64 and 128.  A forward launch at 256 counts once
+more under ``flash_fwd_causal:d256``; in float32 it runs on the CUDA cores
+(``flash_fwd_simt_kernel``: split TF32 does not fit a block there) and
+counts under ``flash_fwd_causal:simt`` in place of ``:tc32``.  A backward
+at 256 raises its own ValueError before any launch (the dQ and dK/dV
+kernels at 256 need a register and shared-memory plan of their own).
+
+The kernels copy 16-byte rows: on the card q, k, v (and dO) must start on
+16 bytes, with batch and sequence strides of a multiple of 16 bytes (8
+bfloat16 or float16, or 4 float32 elements; the slices of a fused
+``[B, S, 3, H, D]`` projection are); anything else raises.
 
 The softmax statistic the backward reads is the logsumexp, except with a
 mask or ``kv_lens``: there it is the pair (row max ``m``, ``log l``), which
@@ -58,7 +67,8 @@ __all__ = ["flash_attention_arrays", "mha_reference", "FlashAttention",
            "flash_attention_bwd_reference", "softmax_stats",
            "recompute_probs",
            "attention_delta", "flash_bwd_dq", "flash_bwd_dkv", "masked",
-           "segs", "noncausal", "normalize_mask", "variant_name"]
+           "segs", "noncausal", "d256", "simt", "normalize_mask",
+           "variant_name"]
 
 KERNEL = "flash_fwd_causal"
 SOURCE = KERNEL       # csrc/<SOURCE>.cu
@@ -76,11 +86,17 @@ noncausal = _build.Counter(KERNEL + ":noncausal", SOURCE)
 tc = _build.Counter(KERNEL + ":tc", SOURCE)
 tc16 = _build.Counter(KERNEL + ":tc16", SOURCE)
 tc32 = _build.Counter(KERNEL + ":tc32", SOURCE)
+# forward launches at head_dim 256 (any type), and the float32 ones among
+# them (the CUDA-core kernel, counted here in place of ``tc32``)
+d256 = _build.Counter(KERNEL + ":d256", SOURCE)
+simt = _build.Counter(KERNEL + ":simt", SOURCE)
 _FWD_VARIANTS = {"mask": masked, "segs": segs, "noncausal": noncausal}
 # the counter suffix of each type the kernels take
 _TYPE_SUFFIX = {torch.bfloat16: "tc", torch.float16: "tc16",
                 torch.float32: "tc32"}
 _FWD_TYPES = {torch.bfloat16: tc, torch.float16: tc16, torch.float32: tc32}
+# the head dims the backward kernels take (the forward: _build.HEAD_DIMS)
+BWD_HEAD_DIMS = (64, 128)
 
 
 def variant_name(is_causal, mask, kv_lens, segment_ids):
@@ -254,7 +270,7 @@ def flash_attention_bwd_reference(q, k, v, out, lse, do, scale, *,
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check_qkv(q, k, v, causal=True):
+def _check_qkv(q, k, v, causal=True, head_dims=_build.HEAD_DIMS):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dim() != 4:
             raise ValueError(f"{name} must be [B, S, H, D], got "
@@ -271,8 +287,9 @@ def _check_qkv(q, k, v, causal=True):
     if q.dtype not in _TYPE_SUFFIX:
         raise ValueError(f"kernel takes float32, bfloat16 or float16, got "
                          f"{q.dtype}")
-    if d not in (64, 128):
-        raise ValueError(f"kernel takes head_dim 64 or 128, got {d}")
+    if d not in head_dims:
+        raise ValueError(f"kernel takes head_dim "
+                         f"{', '.join(map(str, head_dims))}, got {d}")
     if causal and k.shape[1] < sq:
         raise ValueError("causal attention needs Sk >= Sq")
     if q.is_cuda:
@@ -363,7 +380,10 @@ def _launch(q, k, v, scale, causal=True, mask=None, lens=None, sid=None):
         launches += 1
     else:
         _FWD_VARIANTS[name].launches += 1
-    _FWD_TYPES[q.dtype].launches += 1
+    if d == 256:
+        d256.launches += 1
+    (simt if d == 256 and q.dtype == torch.float32
+     else _FWD_TYPES[q.dtype]).launches += 1
     return out, lse, pair
 
 
@@ -407,7 +427,13 @@ class _BwdKernel:
 
     def _launch(self, q, k, v, do, lse, delta, scale, causal, mask, lens,
                 segs, row_max):
-        _check_qkv(q, k, v, causal)
+        if q.shape[-1] == 256:
+            raise ValueError(
+                f"{self.KERNEL}: the flash backward takes head_dim 64 or "
+                f"128; its dQ and dK/dV kernels at head_dim 256 are not "
+                f"ported yet (they need a register and shared-memory plan "
+                f"of their own: ROADMAP.md, the head_dim 256 backward)")
+        _check_qkv(q, k, v, causal, BWD_HEAD_DIMS)
         if do.shape != q.shape or do.dtype != q.dtype \
                 or do.device != q.device or not _head_layout(do):
             raise ValueError(f"do must match q in shape, dtype, device and "
@@ -518,9 +544,9 @@ def flash_attention_arrays(q, k, v, attn_mask=None, is_causal=False,
     compose with each other and with causal as in `mha_reference`.
 
     On a CUDA tensor this launches the hand-written kernels — any S, head
-    dims 64 and 128, float32, bfloat16 or float16, every branch — and
-    raises on anything they do not take; it never falls back.  On a CPU
-    tensor it computes `mha_reference`.  When grad is enabled and q, k or
+    dims 64, 128 and 256 (the backward 64 and 128), float32, bfloat16 or
+    float16, every branch — and raises on anything they do not take; it
+    never falls back.  On a CPU tensor it computes `mha_reference`.  When grad is enabled and q, k or
     v requires it, the call goes through `FlashAttention`, whose backward
     is the two backward kernels (CUDA) or the plain backward (CPU); the
     mask, kv_lens and ids get no gradient, as on the JAX kernel path.  On the CPU a mask

@@ -40,15 +40,16 @@ import torch
 from . import _build
 
 __all__ = ["cached_attention_arrays", "flash_decode_arrays",
-           "flash_decode_reference", "fp16"]
+           "flash_decode_reference", "fp16", "d256"]
 
 KERNEL = "flash_decode"
 SOURCE = KERNEL       # csrc/<SOURCE>.cu
 launches = 0          # kernel launches since the last reset
 
 
-# the float16 launches, counted once more
+# the float16 launches, and those at head_dim 256, each counted once more
 fp16 = _build.Counter(KERNEL + ":fp16", SOURCE)
+d256 = _build.Counter(KERNEL + ":d256", SOURCE)
 
 _NEG_INF = -1e30
 
@@ -87,8 +88,8 @@ def _check(q, k_cache, v_cache, length):
     if q.dtype not in (torch.float32, torch.bfloat16, torch.float16):
         raise ValueError(f"kernel takes float32, bfloat16 or float16, got "
                          f"{q.dtype}")
-    if d not in (64, 128):
-        raise ValueError(f"kernel takes head_dim 64 or 128, got {d}")
+    if d not in _build.HEAD_DIMS:
+        raise ValueError(f"kernel takes head_dim 64, 128 or 256, got {d}")
     if q.stride(3) != 1 or (h > 1 and q.stride(2) != d):
         raise ValueError(f"q needs unit stride in D and stride D between "
                          f"heads, got strides {q.stride()}")
@@ -130,9 +131,9 @@ def flash_decode_arrays(q, k_cache, v_cache, length, scale=None):
     [1, S_max]).
 
     On a CUDA tensor this launches the kernel (float32 / bfloat16 /
-    float16, head dims 64 and 128, q and rings of one dtype) and raises on
-    anything it does not take; it never falls back.  On a CPU tensor it computes
-    `flash_decode_reference`."""
+    float16, head dims 64, 128 and 256, q and rings of one dtype) and
+    raises on anything it does not take; it never falls back.  On a CPU
+    tensor it computes `flash_decode_reference`."""
     return _decode(q, k_cache, v_cache, length, 0, scale)
 
 
@@ -168,6 +169,8 @@ def _decode(q, k_cache, v_cache, n, add, scale):
     launches += 1
     if q.dtype == torch.float16:
         fp16.launches += 1
+    if d == 256:
+        d256.launches += 1
     return out
 
 

@@ -35,11 +35,13 @@ from . import _build
 
 __all__ = ["fused_decode_layer_arrays", "fused_decode_layer_reference",
            "fused_decode_plain", "fused_decode_ok", "fused_plan",
-           "fused_loads", "fused_split"]
+           "fused_loads", "fused_split", "d256"]
 
 KERNEL = "fused_decode_layer"
 SOURCE = KERNEL       # csrc/<SOURCE>.cu
 launches = 0          # kernel launches since the last reset
+# the launches at head_dim 256, counted once more
+d256 = _build.Counter(KERNEL + ":d256", SOURCE)
 
 # shared memory a block may hold on sm_90 (232,448 bytes)
 _SMEM_LIMIT = 232448
@@ -225,8 +227,8 @@ def _check(x, ln_w, ln_b, wqkv, bqkv, wo, bo, k_cache, v_cache, t, n_heads,
     d = hd // n_heads
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"kernel takes float32 or bfloat16, got {x.dtype}")
-    if d not in (64, 128):
-        raise ValueError(f"kernel takes head_dim 64 or 128, got {d}")
+    if d not in _build.HEAD_DIMS:
+        raise ValueError(f"kernel takes head_dim 64, 128 or 256, got {d}")
     shapes = (("ln_w", ln_w, (hd,)), ("ln_b", ln_b, (hd,)),
               ("wqkv", wqkv, (hd, 3 * hd)), ("bqkv", bqkv, (3 * hd,)),
               ("wo", wo, (hd, hd)), ("bo", bo, (hd,)))
@@ -294,9 +296,9 @@ def fused_decode_layer_arrays(x, ln_w, ln_b, wqkv, bqkv, wo, bo, k_cache,
     is always attended.
 
     On a CUDA tensor this launches the kernel (one launch; float32 /
-    bfloat16, head dims 64 and 128, everything of one dtype) and raises on
-    anything it does not take; it never falls back.  On a CPU tensor it
-    computes `fused_decode_layer_reference`."""
+    bfloat16, head dims 64, 128 and 256, everything of one dtype) and
+    raises on anything it does not take; it never falls back.  On a CPU
+    tensor it computes `fused_decode_layer_reference`."""
     global launches
     b, hd = x.shape
     d = hd // n_heads
@@ -308,6 +310,8 @@ def fused_decode_layer_arrays(x, ln_w, ln_b, wqkv, bqkv, wo, bo, k_cache,
     y = _launch(x, ln_w, ln_b, wqkv, bqkv, wo, bo, k_cache, v_cache, t,
                 n_heads, eps, scale, cache_mask)
     launches += 1
+    if d == 256:
+        d256.launches += 1
     return y, k_cache, v_cache
 
 

@@ -6,7 +6,8 @@ On a CUDA tensor `ragged_paged_attention_arrays` launches a kernel of
 ``csrc/ragged_paged_attention.cu`` (any chunk width C >= 1: decode rows and
 chunked-prefill continuations): ``ragged_paged_attention`` for fp pools,
 ``ragged_paged_attention_int8`` (counted apart, as `int8`) for int8 pools;
-a float16 launch counts once more, as `fp16` or `int8_fp16`.
+a float16 launch counts once more, as `fp16` or `int8_fp16`, and a
+launch at head_dim 256 once more, as `d256` or `int8_d256`.
 Its attend launch is split-K: `ragged_splits` takes the grid's splits
 per (row, query, head) from host-known shapes alone (B, C, H and the
 table's width), and each block finds its row's own split count from
@@ -39,7 +40,7 @@ from .paged_attention import (INV_QMAX, _NEG_INF, paged_attention_arrays,
 __all__ = ["ragged_paged_attention_arrays",
            "ragged_paged_attention_reference", "folded_quant_attention",
            "ragged_paged_attention_part", "ragged_splits", "int8", "fp16",
-           "int8_fp16"]
+           "int8_fp16", "d256", "int8_d256"]
 
 KERNEL = "ragged_paged_attention"
 SOURCE = KERNEL       # csrc/<SOURCE>.cu
@@ -54,6 +55,9 @@ int8 = _build.Counter(KERNEL + ":int8", SOURCE)   # the int8-pool entry
 # fp16 q (the fp16 instantiations of the two entries)
 fp16 = _build.Counter(KERNEL + ":fp16", SOURCE)
 int8_fp16 = _build.Counter(KERNEL + ":int8:fp16", SOURCE)
+# launches at head_dim 256, counted once more: fp pools, int8 pools
+d256 = _build.Counter(KERNEL + ":d256", SOURCE)
+int8_d256 = _build.Counter(KERNEL + ":int8:d256", SOURCE)
 
 
 def folded_quant_attention(q, k_blocks, v_blocks, k_scales, v_scales,
@@ -167,8 +171,8 @@ def _check(q, k_new, v_new, k_blocks, v_blocks, block_table, pos0, kv_lens,
     if q.dtype not in (torch.float32, torch.bfloat16, torch.float16):
         raise ValueError(f"kernel takes float32, bfloat16 or float16, got "
                          f"{q.dtype}")
-    if d not in (64, 128):
-        raise ValueError(f"kernel takes head_dim 64 or 128, got {d}")
+    if d not in _build.HEAD_DIMS:
+        raise ValueError(f"kernel takes head_dim 64, 128 or 256, got {d}")
     shapes = (("block_table", block_table, 2), ("pos0", pos0, 1),
               ("kv_lens", kv_lens, 1), ("slots", slots, 2))
     for name, t, nd in shapes:
@@ -260,8 +264,9 @@ def ragged_paged_attention_arrays(q, k_new, v_new, k_blocks, v_blocks,
     Output at padding rows and padded query positions is unspecified.
 
     On a CUDA tensor this launches the kernel (q float32 / bfloat16 /
-    float16, fp pools of q's type or int8 pools; head dims 64 and 128) and
-    raises on anything it does not take; it never falls back.  Any block
+    float16, fp pools of q's type or int8 pools; head dims 64, 128 and
+    256) and raises on anything it does not take; it never falls back.
+    Any block
     size the engine takes is taken, fp16 pools too (the TPU kernel's gate
     asks a sublane multiple of the pool type: 8 rows for fp16,
     `ragged_paged_attention.py:106`; the card has no such tiling).  On a
@@ -280,6 +285,8 @@ def ragged_paged_attention_arrays(q, k_new, v_new, k_blocks, v_blocks,
                   pos0, kv_lens, slots, k_scales, v_scales, scale)
     if q.dtype == torch.float16:
         (int8_fp16 if quant else fp16).launches += 1
+    if d == 256:
+        (int8_d256 if quant else d256).launches += 1
     if quant:
         int8.launches += 1
         return out, k_blocks, v_blocks, k_scales, v_scales

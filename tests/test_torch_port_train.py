@@ -148,7 +148,10 @@ def test_bwd_wrappers_on_cpu_compute_the_plain_backward():
         "fused_layernorm", "fused_layernorm_bwd", "fused_ffn",
         "fused_ffn_tc", "fused_ffn_tc32", "fused_ffn_decode",
         "fused_layernorm:fp16", "fused_layernorm_bwd:fp16", "fused_ffn:fp16",
-        "fused_ffn_tc:fp16", "fused_ffn_decode:fp16"}
+        "fused_ffn_tc:fp16", "fused_ffn_decode:fp16",
+        "flash_fwd_causal:d256", "flash_fwd_causal:simt",
+        "ragged_paged_attention:d256", "ragged_paged_attention:int8:d256",
+        "flash_decode:d256", "fused_decode_layer:d256"}
     assert set(ops.launch_counts().values()) == {0}
 
 
