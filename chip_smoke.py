@@ -351,21 +351,33 @@ Phases, in order; any failure exits non-zero and prints no result line:
    pools (growing scales) with q of each type, and a chunk of C=512 (bf16,
    both pool kinds); flash decode at S_max 2048 (full context in the three
    types; 1152 keys in bf16); the fused decode layer at t = 1023, hidden
-   2048 (fp32; bf16 without and with a row mask).  13b: a GPT of GPT-3
+   2048 (fp32; bf16 without and with a row mask); the flash dQ and dK/dV
+   (`head256_bwd_cases`; fp32 1e-4 max|ref|, on the CUDA cores,
+   `DQ_SIMT`, `DKV_SIMT`) causal at recipe B's B=2 S=2048 in the three
+   types and at B=8 S=1024 in bf16 in every branch (causal, pad mask,
+   kv_lens, the packed batch's ids, non-causal), SDPA's whole backward
+   the library call.  13b: a GPT of GPT-3
    1.3B's widths with 8 heads of 256 (``gpt3_1p3b_config(
    num_attention_heads=8)``, stacked), 2 layers, fp32, on the card and on
    the CPU: the engine on fp and int8 pools (phase 3's prompts) and
    ``generate`` B=8 256 + 32 in the default and fused modes, captured:
    tokens identical, launches as expected (every D = 256 counter), one
-   capture each.  13c: the same widths at full depth (24 layers) in bf16,
+   capture each; and fp32 training of 2 layers of two heads of 256
+   (hidden 512), stacked and per-layer, 3 AdamW steps at B=1 S=1024,
+   losses within 1e-5 of the CPU's, the backward on its CUDA-core
+   kernels.  13c: the same widths at full depth (24 layers) in bf16,
    8 heads of 256 and the preset's 16 of 128 (the same FLOPs) in turns
    (256, 128, 128, 256): the engine (five greedy prompts of 7-1500
    tokens, 32 new) on fp and int8 pools and ``generate`` B=8 1024 + 128 in
    the default and fused modes, all decode steps captured: ms a decode
    step, tokens/s, captures, the launches (every D = 256 variant on its
    path), each cell's tokens the same in every turn of its geometry, and
-   a profiled window per cell and geometry (device ms, busy share).
-8. Summary: one JSON line of the thirty-nine entries (the nine kernels,
+   a profiled window per cell and geometry (device ms, busy share).  13d:
+   recipe B (GPT-3 1.3B stacked, bf16, B=2 S=2048, ``ln_f`` under
+   PTPU_PALLAS_LN) at 8 heads of 256 in turns with the preset's 16 of 128
+   (`head256_train`): losses finite, ms a step, tokens/s, peak memory, the
+   launches (at 256 the forward, dQ and dK/dV 24 a step each on `:d256`).
+8. Summary: one JSON line of forty-nine entries: thirty-nine (the nine kernels,
    the int8 variant, the mask, segment and non-causal variants of the
    flash kernels, the tensor-core forward, dQ and dK/dV -- every bf16
    launch of those three, timed at the bf16 training shape -- the fp32
@@ -389,9 +401,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
    prefill; 13b's fp32 engine), the ragged kernel's on fp and int8 pools
    (the bf16 decode step; 13c's engines), flash decode's (bf16 full
    context; 13c's default generate) and the fused layer's (bf16 t = 1023;
-   13c's fused generate), each with its launches in phase 13 as a whole;
-   it fails if an entry's main path launched it no time; the card line,
-   then the result line.
+   13c's fused generate); and the four backward D = 256 entries: dQ's
+   and dK/dV's (timed at recipe B's bf16 B=2 S=2048, launches from 13d's
+   first 8 x 256 turn) and their fp32 CUDA-core kernels' (fp32 at the
+   same shape, launches from 13b's stacked fp32 training), each D = 256
+   entry with its launches in phase 13 as a whole; it fails if an entry's
+   main path launched it no time; the card line, then the result line.
 
 Every time is a median of CUDA-event timings (L2 flushed before each
 launch, the host's enqueue hidden behind a spin on the stream); every
@@ -487,6 +502,12 @@ RAGGED_D256, RAGGED8_D256 = RAGGED + ":d256", RAGGED + ":int8:d256"
 DECODE_D256, FUSED_D256 = DECODE + ":d256", FUSED + ":d256"
 D256_ALL = (FWD_D256, FWD_SIMT, RAGGED_D256, RAGGED8_D256, DECODE_D256,
             FUSED_D256)
+# ... and of the flash dQ and dK/dV (phase 13a, 13b, 13d): every launch at
+# D = 256 once more, and the fp32 ones (the CUDA-core kernels) in place
+# of DQ_TC32 and DKV_TC32
+DQ_D256, DQ_SIMT = DQ + ":d256", DQ + ":simt"
+DKV_D256, DKV_SIMT = DKV + ":d256", DKV + ":simt"
+D256_BWD = (DQ_D256, DQ_SIMT, DKV_D256, DKV_SIMT)
 HALF_AND_FP32 = (torch.bfloat16, torch.float16, torch.float32)
 FWD_ALL = (FWD, FWD_MASK, FWD_SEGS, FWD_NC)
 DQ_ALL = (DQ, DQ_MASK, DQ_SEGS, DQ_NC)
@@ -496,7 +517,7 @@ KERNELS = (FWD, FWD_MASK, FWD_SEGS, FWD_NC, FWD_TC, FWD_TC32, RAGGED,
            DKV_MASK, DKV_SEGS, DKV_NC, DKV_TC, DKV_TC32, DECODE, FUSED, LN,
            LN_BWD, FFN, FFN_TC, FFN_TC32, FFN_DEC, FWD_TC16, DQ_TC16,
            DKV_TC16, RAGGED16, RAGGED8_16, DECODE16, LN16, LN_BWD16, FFN16,
-           FFN_TC16, FFN_DEC16, *D256_ALL)
+           FFN_TC16, FFN_DEC16, *D256_ALL, *D256_BWD)
 REPLACES = {
     FWD: "paddle_tpu/ops/pallas_ops.py:135",
     FWD_MASK: "paddle_tpu/ops/pallas_ops.py:135",
@@ -543,6 +564,10 @@ REPLACES = {
     RAGGED8_D256: "paddle_tpu/ops/ragged_paged_attention.py:125",
     DECODE_D256: "paddle_tpu/ops/pallas_ops.py:1008",
     FUSED_D256: "paddle_tpu/ops/pallas_ops.py:1186",
+    DQ_D256: "paddle_tpu/ops/pallas_ops.py:210",
+    DQ_SIMT: "paddle_tpu/ops/pallas_ops.py:210",
+    DKV_D256: "paddle_tpu/ops/pallas_ops.py:272",
+    DKV_SIMT: "paddle_tpu/ops/pallas_ops.py:272",
 }
 # the __global__ functions of paddle_tpu_torch/csrc, as the profiler names
 # (template names: the flash variants are instantiations of the flash
@@ -550,8 +575,9 @@ REPLACES = {
 PORT_SYMBOLS = ("flash_fwd_tc32_kernel", "flash_fwd_tc_kernel",
                 "flash_fwd_simt_kernel",
                 "flash_bwd_dq_tc32_kernel", "flash_bwd_dq_tc_kernel",
-                "flash_bwd_dkv_tc32_kernel",
-                "flash_bwd_dkv_tc_kernel", "ragged_write_kernel",
+                "flash_bwd_dq_simt_kernel", "flash_bwd_dkv_tc32_kernel",
+                "flash_bwd_dkv_tc_kernel", "flash_bwd_dkv_simt_kernel",
+                "ragged_write_kernel",
                 "ragged_attend_kernel", "ragged_write_int8_kernel",
                 "flash_decode_kernel", "fused_decode_layer_kernel",
                 "ln_fwd_kernel", "ln_fwd_wide_kernel", "ln_bwd_kernel",
@@ -680,9 +706,10 @@ def with_tc(want, dtype, ln_dtype=None, d=64):
     ``dtype``) the LayerNorms' (float32 under ``auto_cast``, whose black
     list holds ``layer_norm``): in fp16 each LayerNorm launch counts once
     more under LN16 and LN_BWD16.  ``d``: the head dim; at 256 every
-    forward, ragged, decode and fused-layer launch counts once more under
-    its D = 256 counter, and an fp32 forward under FWD_SIMT in place of
-    FWD_TC32."""
+    forward, dQ, dK/dV, ragged, decode and fused-layer launch counts once
+    more under its D = 256 counter, and an fp32 forward, dQ or dK/dV under
+    FWD_SIMT, DQ_SIMT or DKV_SIMT in place of FWD_TC32, DQ_TC32 or
+    DKV_TC32."""
     for counters, names in (((FWD_TC, FWD_TC16, FWD_TC32), FWD_ALL),
                             ((DQ_TC, DQ_TC16, DQ_TC32), DQ_ALL),
                             ((DKV_TC, DKV_TC16, DKV_TC32), DKV_ALL)):
@@ -698,10 +725,14 @@ def with_tc(want, dtype, ln_dtype=None, d=64):
     for counter, name in ((LN16, LN), (LN_BWD16, LN_BWD)):
         want[counter] = want[name] if ln16 else 0
     big = d == 256
-    want[FWD_SIMT] = want[FWD_TC32] if big else 0
-    if big:
-        want[FWD_TC32] = 0
-    want[FWD_D256] = sum(want[name] for name in FWD_ALL) if big else 0
+    for simt, tc32, d256, names in (
+            (FWD_SIMT, FWD_TC32, FWD_D256, FWD_ALL),
+            (DQ_SIMT, DQ_TC32, DQ_D256, DQ_ALL),
+            (DKV_SIMT, DKV_TC32, DKV_D256, DKV_ALL)):
+        want[simt] = want[tc32] if big else 0
+        if big:
+            want[tc32] = 0
+        want[d256] = sum(want[name] for name in names) if big else 0
     for counter, name in ((RAGGED_D256, RAGGED), (RAGGED8_D256, RAGGED8),
                           (DECODE_D256, DECODE), (FUSED_D256, FUSED)):
         want[counter] = want[name] if big else 0
@@ -729,9 +760,9 @@ def check_sass(paths):
     """The design behind each flash entry and the FFN's tensor-core
     designs, from the built libraries' machine code: every instantiation
     of the bf16 and fp16 forward, dQ and dK/dV kernels
-    (``flash_fwd_tc_kernel``: 48, 2 types x 8 flag combinations x D 64,
-    128 and 256; ``flash_bwd_dq_tc_kernel``, ``flash_bwd_dkv_tc_kernel``:
-    32 each, D 64 and 128), of the fp32
+    (``flash_fwd_tc_kernel``, ``flash_bwd_dq_tc_kernel``,
+    ``flash_bwd_dkv_tc_kernel``: 48 each, 2 types x 8 flag combinations x
+    D 64, 128 and 256), of the fp32
     split-TF32 forward, dQ and dK/dV (``flash_fwd_tc32_kernel``,
     ``flash_bwd_dq_tc32_kernel``, ``flash_bwd_dkv_tc32_kernel``; 16 each,
     8 flag combinations x D 64 and 128) and of the FFN's products
@@ -740,19 +771,20 @@ def check_sass(paths):
     contains HGMMA (warpgroup
     tensor-core products); and the CUDA-core fp32 forward, dQ and dK/dV
     (``flash_fwd_causal_kernel``, ``flash_bwd_dq_kernel``,
-    ``flash_bwd_dkv_kernel``) are gone; the fp32 forward at D = 256
-    (``flash_fwd_simt_kernel``: 8, the flag combinations) is on the CUDA
-    cores: FFMA and no HGMMA.  Returns {kernel: [instantiations, of them
-    with HGMMA, with FFMA]}."""
+    ``flash_bwd_dkv_kernel``) are gone; the fp32 forward, dQ and dK/dV at
+    D = 256 (``flash_fwd_simt_kernel``, ``flash_bwd_dq_simt_kernel``,
+    ``flash_bwd_dkv_simt_kernel``: 8 each, the flag combinations) are on
+    the CUDA cores: FFMA and no HGMMA.  Returns {kernel: [instantiations,
+    of them with HGMMA, with FFMA]}."""
     fwd, bwd = "flash_fwd_causal", "flash_bwd_causal"
     # kernel: (library, instantiations on the tensor cores, or None: gone)
     wants = {"flash_fwd_tc_kernel": (fwd, 48),
              "flash_fwd_tc32_kernel": (fwd, 16),
              "flash_fwd_causal_kernel": (fwd, None),
-             "flash_bwd_dq_tc_kernel": (bwd, 32),
+             "flash_bwd_dq_tc_kernel": (bwd, 48),
              "flash_bwd_dq_tc32_kernel": (bwd, 16),
              "flash_bwd_dq_kernel": (bwd, None),
-             "flash_bwd_dkv_tc_kernel": (bwd, 32),
+             "flash_bwd_dkv_tc_kernel": (bwd, 48),
              "flash_bwd_dkv_tc32_kernel": (bwd, 16),
              "flash_bwd_dkv_kernel": (bwd, None),
              "ffn_tc_kernel": (FFN_TC, 32),
@@ -772,14 +804,17 @@ def check_sass(paths):
         if not ok:
             fail(f"SASS of {kernel}: {len(found)} instantiations, {hgmma} "
                  f"with HGMMA, {ffma} with FFMA ({sorted(found)[:4]} ...)")
-    # the CUDA-core fp32 forward at D = 256: fp32 FMAs, no tensor cores
-    kernel = "flash_fwd_simt_kernel"
-    found = {n: body for n, body in funcs[fwd].items()
-             if f"{len(kernel)}{kernel}I" in n}
-    hgmma = sum("HGMMA" in body for body in found.values())
-    ffma = sum("FFMA" in body for body in found.values())
-    counts[kernel] = [len(found), hgmma, ffma]
-    if len(found) != 8 or hgmma or ffma != 8:
+    # the CUDA-core fp32 forward, dQ and dK/dV at D = 256: fp32 FMAs, no
+    # tensor cores
+    for lib, kernel in ((fwd, "flash_fwd_simt_kernel"),
+                        (bwd, "flash_bwd_dq_simt_kernel"),
+                        (bwd, "flash_bwd_dkv_simt_kernel")):
+        found = {n: body for n, body in funcs[lib].items()
+                 if f"{len(kernel)}{kernel}I" in n}
+        hgmma = sum("HGMMA" in body for body in found.values())
+        ffma = sum("FFMA" in body for body in found.values())
+        counts[kernel] = [len(found), hgmma, ffma]
+        if len(found) != 8 or hgmma or ffma != 8:
             fail(f"SASS of {kernel}: {len(found)} instantiations, {hgmma} "
                  f"with HGMMA, {ffma} with FFMA ({sorted(found)[:4]} ...)")
     return counts
@@ -875,6 +910,8 @@ def check_flash_bwd(fa, tol, timer, b, s, h, d, dtype, seed):
               if dtype == torch.float32 else tol.flash_bwd_limits(
                   (dq, dk, dv), want, q, k, v, out, lse, do, scale))
     torch.cuda.synchronize()
+    ref_max = _nonzero_refs(want, f"flash backward B={b} S={s} H={h} D={d} "
+                                  f"{dtype}")
     checks = {}
     for name, got, ref, limit in zip(("dq", "dk", "dv"), (dq, dk, dv), want,
                                      limits):
@@ -908,8 +945,19 @@ def check_flash_bwd(fa, tol, timer, b, s, h, d, dtype, seed):
             err_over_limit=max(checks[e][1] for e in errs), ms=ms,
             plain_ms=plain_ms,
             **flash_bound((4 + n_out) * slab + stats, fl * d * pairs, dtype),
-            library_ms=lib_ms, tflops=tflops(fl * d * pairs, ms))
+            library_ms=lib_ms, tflops=tflops(fl * d * pairs, ms),
+            ref_abs_max=ref_max)
     return cases
+
+
+def _nonzero_refs(refs, what):
+    """The largest |value| of the plain backward's (dq, dk, dv); fails if
+    one of them is all zeros (a check against it, at a limit relative to
+    its largest value, would hold for a kernel that wrote zeros)."""
+    maxes = [r.abs().max().item() for r in refs]
+    if not min(maxes) > 0:
+        fail(f"{what}: a plain gradient is all zeros ({maxes})")
+    return max(maxes)
 
 
 def ragged_case(rows, c, nb, bs, h, d, dtype, seed):
@@ -1390,6 +1438,7 @@ def check_flash_variant(fa, tol, timer, kind, b, s, h, d, dtype, seed,
                   (dq, dk, dv), ref, q, k, v, out, stat, do, scale,
                   row_max=row_max, **br))
     torch.cuda.synchronize()
+    ref_max = _nonzero_refs(ref, f"backward {what}")
     checks = {}
     for which, got, r, limit in zip(("dq", "dk", "dv"), (dq, dk, dv), ref,
                                     limits):
@@ -1418,7 +1467,8 @@ def check_flash_variant(fa, tol, timer, kind, b, s, h, d, dtype, seed,
             plain_ms=plain_ms,
             **flash_bound((4 + n_out) * slab + stats + extra,
                           fl * d * pairs, dtype),
-            library_ms=lib_ms, tflops=tflops(fl * d * pairs, ms))
+            library_ms=lib_ms, tflops=tflops(fl * d * pairs, ms),
+            ref_abs_max=ref_max)
     return cases
 
 
@@ -2308,7 +2358,9 @@ def train_launches(cfg, steps, env, packed=False, dtype=torch.float32,
     CUDA cores); nothing else.  Under ``auto_cast`` (``amp`` its level)
     the LayerNorms run in fp32 (its black list), and under O2 the FFN
     gate refuses the fp32 LayerNorm output beside the cast weights, as
-    the JAX gate does (``x.dtype == w1.dtype``): no FFN launch."""
+    the JAX gate does (``x.dtype == w1.dtype``): no FFN launch.  At
+    head_dim 256 the flash launches count once more under their D = 256
+    counters, and in fp32 under their CUDA-core ones (`with_tc`)."""
     layers = cfg.num_hidden_layers
     want = dict.fromkeys(KERNELS, 0)
     for name in (FWD_SEGS, DQ_SEGS, DKV_SEGS) if packed else (FWD, DQ, DKV):
@@ -2321,7 +2373,8 @@ def train_launches(cfg, steps, env, packed=False, dtype=torch.float32,
     if env.get("PTPU_PALLAS_FFN") == "1" and not cfg.stacked_blocks \
             and amp != "O2":
         want[ffn_counter(rows, cfg, dtype)] = layers * steps
-    return with_tc(want, dtype, torch.float32 if amp else None)
+    return with_tc(want, dtype, torch.float32 if amp else None,
+                   d=cfg.hidden_size // cfg.num_attention_heads)
 
 
 def check_train_launches(launches, want, what):
@@ -2723,6 +2776,24 @@ def step_memory(model, opt, batch):
             "update_peak_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
+def timed_steps(ops, step, data, warmup, timed):
+    """``warmup`` then ``timed`` steps of `step` on ``data``, the launch
+    counts reset before them: (losses, ms a timed step on the host clock
+    after a sync, the launches, peak GB, GB allocated before)."""
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    losses = [step(data) for _ in range(warmup)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [step(data) for _ in range(timed)]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / timed
+    return ([x.item() for x in losses], step_ms, ops.launch_counts(),
+            torch.cuda.max_memory_allocated() / 1e9, before / 1e9)
+
+
 def train_1p3b(ops, warmup=2, timed=5, batch=2, seq=2048):
     """Configuration B: GPT-3 1.3B stacked, bf16 weights and AdamW moments
     (``multi_precision=False``), the recipe at lr 2e-4, B=2 S=2048 (the
@@ -2751,21 +2822,11 @@ def train_1p3b(ops, warmup=2, timed=5, batch=2, seq=2048):
                               {"steps": warmup + timed,
                                "multi_precision": False})
         with flag_env(env):
-            ops.reset_launch_counts()
-            torch.cuda.reset_peak_memory_stats()
-            base = torch.cuda.memory_allocated()
-            losses = [step(data) for _ in range(warmup)]
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            losses += [step(data) for _ in range(timed)]
-            torch.cuda.synchronize()
-            step_ms = (time.perf_counter() - t0) * 1e3 / timed
-            launches = ops.launch_counts()
-            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            losses, step_ms, launches, peak_gb, base_gb = timed_steps(
+                ops, step, data, warmup, timed)
             weights_gb = sum(p.numel() * p.element_size()
                              for p in model.parameters()) / 1e9
             split = step_memory(model, opt, data)
-        losses = [x.item() for x in losses]
         check_train_launches(launches, train_launches(
             model.cfg, warmup + timed, env, dtype=torch.bfloat16,
             rows=batch * seq),
@@ -2776,7 +2837,7 @@ def train_1p3b(ops, warmup=2, timed=5, batch=2, seq=2048):
         recs[rc] = {"losses": losses, "ms_per_step": step_ms,
                     "tokens_per_s": batch * seq * 1e3 / step_ms,
                     "peak_memory_gb": peak_gb,
-                    "before_run_gb": base / 1e9, "weights_gb": weights_gb,
+                    "before_run_gb": base_gb, "weights_gb": weights_gb,
                     "step_memory": split, "launches": launches}
         del step, opt
         torch.cuda.empty_cache()
@@ -4049,6 +4110,8 @@ GEN_BATCH_13, GEN_PROMPT_13, GEN_NEW_13 = 8, 1024, 128
 # turns: 8 heads of 256 (this phase's) and the preset's 16 heads of 128
 GEOMETRIES = {"8x256": 8, "16x128": 16}
 GEO_TURNS = ("8x256", "16x128", "16x128", "8x256")
+# the fp32 training of phase 13b: 2 layers of two heads of 256
+TRAIN_H256_HIDDEN = 512
 
 
 def head256_kernel_cases(fa, fd, fdl, rpa, tol, timer, cases, kernel_segs):
@@ -4100,6 +4163,45 @@ def head256_kernel_cases(fa, fd, fdl, rpa, tol, timer, cases, kernel_segs):
             fdl, tol, timer, 8, h, d, 2048, 1023, masked, dtype,
             seed=1023 + masked))
     torch.cuda.empty_cache()
+    head256_bwd_cases(fa, tol, timer, cases, kernel_segs)
+
+
+def _bwd_d256(dtype, kernel):
+    """The D = 256 counter a backward case of `kernel` (DQ or DKV, or one
+    of their variant names) is filed under: the CUDA-core kernel's in
+    fp32, else the D = 256 one."""
+    dq = kernel.startswith(DQ)
+    if dtype == torch.float32:
+        return DQ_SIMT if dq else DKV_SIMT
+    return DQ_D256 if dq else DKV_D256
+
+
+def head256_bwd_cases(fa, tol, timer, cases, kernel_segs):
+    """Phase 13a's backward: the flash dQ and dK/dV kernels at D = 256, H =
+    8, against the plain backward (`check_flash_bwd`, fp32 1e-4 max|ref|,
+    bf16 / fp16 `flash_bwd_limits`), q, k and v slices of one fused qkv
+    tensor: causal at recipe B's shape B=2 S=2048 in bf16, fp16 and fp32
+    (the CUDA-core kernels, `DQ_SIMT`, `DKV_SIMT`); and at B=8 S=1024 in
+    bf16, every branch (`check_flash_variant`: causal, the pad mask,
+    kv_lens, the packed batch's segment ids, non-causal).  Each with its
+    bound, the plain backward's time and SDPA's whole backward as the
+    library call."""
+    h, d, bf16 = H256, 256, torch.bfloat16
+    for dtype in HALF_AND_FP32:
+        for kernel, c in check_flash_bwd(fa, tol, timer, 2, 2048, h, d,
+                                         dtype, seed=4096).items():
+            cases[_bwd_d256(dtype, kernel)].append(c)
+        torch.cuda.empty_cache()
+    for kernel, c in check_flash_bwd(fa, tol, timer, 8, 1024, h, d, bf16,
+                                     seed=8192).items():
+        cases[_bwd_d256(bf16, kernel)].append(c)
+    for kind in ("pad", "lens", "segs", "nc"):
+        for kernel, c in check_flash_variant(
+                fa, tol, timer, kind, 8, 1024, h, d, bf16, seed=1033,
+                segs=kernel_segs if kind == "segs" else None,
+                fwd=False).items():
+            cases[_bwd_d256(bf16, kernel)].append(c)
+        torch.cuda.empty_cache()
 
 
 def head256_fp32_card_vs_cpu(ops, card):
@@ -4110,7 +4212,13 @@ def head256_fp32_card_vs_cpu(ops, card):
     captured) on fp and int8 pools, and ``generate`` B=8, 256 + 32 in the
     default and the fused mode (captured): the card's tokens identical to
     the CPU's, its launches as expected (the flash prefill on the CUDA
-    cores, `FWD_SIMT`; every D = 256 counter), one capture each.
+    cores, `FWD_SIMT`; every D = 256 counter), one capture each.  Then
+    fp32 training at D = 256 (`train_fp32_card_vs_cpu`): 2 layers of two
+    heads of 256 (hidden `TRAIN_H256_HIDDEN`, I = 4 x hidden, GPT-3
+    1.3B's vocab and positions), stacked and per-layer, 3 AdamW steps at
+    B=1 S=1024 on the card and on the CPU: losses within 1e-5 relative at
+    every step, step-1 gradients within 1e-3 max|g|, the launches on the
+    CUDA-core forward, dQ and dK/dV (`FWD_SIMT`, `DQ_SIMT`, `DKV_SIMT`).
     Returns the record and the launches by run."""
     from paddle_tpu_torch.models import GPTForCausalLM, gpt3_1p3b_config
     f32 = torch.float32
@@ -4171,6 +4279,29 @@ def head256_fp32_card_vs_cpu(ops, card):
               f"{ {k: n for k, n in lc.items() if n} } ({card})", flush=True)
     del models
     torch.cuda.empty_cache()
+    for layout, stacked in (("stacked", True), ("per-layer", False)):
+        tcfg = gpt3_1p3b_config(hidden_size=TRAIN_H256_HIDDEN,
+                                num_attention_heads=2, num_hidden_layers=2,
+                                intermediate_size=4 * TRAIN_H256_HIDDEN,
+                                stacked_blocks=stacked)
+        tr = train_fp32_card_vs_cpu(ops, tcfg, {}, steps=3)
+        rel = tr["loss_rel_diff"]
+        if not max(rel) <= 1e-5:
+            fail(f"float32 head_dim 256 training ({layout}): card losses "
+                 f"{tr['card_losses']} vs CPU {tr['cpu_losses']} (relative "
+                 f"{rel}; limit 1e-5 at every step)")
+        key = f"train_{layout}"
+        launches[key] = tr["launches"]
+        rec[key] = tr
+        print(f"float32 head_dim 256 training, {layout}, 2 layers of 2 heads "
+              f"of 256 (hidden {TRAIN_H256_HIDDEN}), {tr['batch']}, 3 AdamW "
+              f"steps: card losses {tr['card_losses']} vs CPU "
+              f"{tr['cpu_losses']} (relative {rel}, limit 1e-5); step-1 "
+              f"gradients at most {max(tr['grad_err_over_limit'].values()):.3g}"
+              f" of 1e-3 max|g|; launches "
+              f"{ {k: n for k, n in tr['launches'].items() if n} } ({card})",
+              flush=True)
+        torch.cuda.empty_cache()
     return rec, launches
 
 
@@ -4297,6 +4428,76 @@ def head256_bf16(ops, card):
     return rec, launches
 
 
+def head256_train(ops, card, warmup=2, timed=5, batch=2, seq=2048):
+    """Phase 13d: configuration B's recipe (`train_1p3b`: GPT-3 1.3B
+    stacked, bf16 weights and AdamW moments, ``multi_precision=False``, lr
+    2e-4, B=2 S=2048, ``ln_f`` under PTPU_PALLAS_LN) in the two head
+    geometries in turns (`GEO_TURNS`): 8 heads of 256 and the preset's 16
+    of 128 (the same FLOPs outside attention, and the same attention
+    FLOPs), each model from seed 0 with its own optimizer and schedule
+    over all its turns' steps, one batch.  Each turn: ``warmup`` +
+    ``timed`` steps; losses finite, the launches as `train_launches` (at
+    256 the flash forward, dQ and dK/dV 24 a step each, all on `:d256`
+    and `:tc`), ms a step (host clock over the timed steps, synced), tokens
+    per second and peak memory beside what was allocated when the turn
+    began.  Returns the record and the launches of the 8 x 256 turns."""
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt3_1p3b_config
+    bf16 = torch.bfloat16
+    env = TRAIN_MODES["flags"]
+    steps = warmup + timed
+    cfgs = {g: gpt3_1p3b_config(num_attention_heads=n, stacked_blocks=True)
+            for g, n in GEOMETRIES.items()}
+    rng = np.random.RandomState(3)
+    data = [torch.from_numpy(rng.randint(0, cfgs["8x256"].vocab_size,
+                                         (batch, seq))).cuda()
+            for _ in range(2)]
+    models, steppers = {}, {}
+    for g, cfg in cfgs.items():
+        models[g] = GPTForCausalLM(cfg, device="cuda", dtype=bf16,
+                                   generator=torch.Generator().manual_seed(0))
+        steppers[g] = make_step(models[g], RECIPE_LR_1P3B,
+                                {"steps": GEO_TURNS.count(g) * steps,
+                                 "multi_precision": False})
+    rec = {g: [] for g in GEOMETRIES}
+    launches = {}
+    for turn, g in enumerate(GEO_TURNS, 1):
+        step, opt = steppers[g]
+        with flag_env(env):
+            losses, step_ms, lc, peak_gb, before_gb = timed_steps(
+                ops, step, data, warmup, timed)
+        what = f"recipe B at GPT-3 1.3B widths, {g}, turn {turn}"
+        check_train_launches(lc, train_launches(
+            cfgs[g], steps, env, dtype=bf16, rows=batch * seq), what)
+        if not all(np.isfinite(losses)) or opt._master_weights:
+            fail(f"{what}: losses {losses}, {len(opt._master_weights)} "
+                 f"masters")
+        rec[g].append({"turn": turn, "losses": losses, "ms_per_step": step_ms,
+                       "tokens_per_s": batch * seq * 1e3 / step_ms,
+                       "peak_memory_gb": peak_gb,
+                       "before_turn_gb": before_gb,
+                       "launches": {k: n for k, n in lc.items() if n}})
+        if g == "8x256":
+            launches[f"turn{turn}"] = lc
+    del models, steppers
+    torch.cuda.empty_cache()
+    for g, runs in rec.items():
+        print(f"head256 train {g}: recipe B, GPT-3 1.3B widths, bf16, "
+              f"B={batch} S={seq}, {warmup} + {timed} steps a turn (turns "
+              f"{', '.join(str(r['turn']) for r in runs)}): ms a step "
+              + " / ".join(f"{r['ms_per_step']:.3f}" for r in runs)
+              + ", tokens/s " + " / ".join(f"{r['tokens_per_s']:.1f}"
+                                           for r in runs)
+              + "; losses " + " / ".join(
+                  f"{r['losses'][0]:.4f} -> {r['losses'][-1]:.4f}"
+                  for r in runs)
+              + "; peak GB " + " / ".join(
+                  f"{r['peak_memory_gb']:.2f} (before {r['before_turn_gb']:.2f})"
+                  for r in runs)
+              + f"; launches {runs[0]['launches']} ({card})", flush=True)
+    return {"batch": f"B={batch} S={seq}", "warmup": warmup,
+            "timed_steps": timed, "turns": list(GEO_TURNS), **rec}, launches
+
+
 def print_head256(rec, card):
     """Phase 13c's lines: a cell and geometry each, its turns' ms a decode
     step and tokens/s, the profiled window's device ms and busy share."""
@@ -4417,7 +4618,10 @@ def main():
                 FFN_TC16: fm.ffn_tc16, FFN_DEC16: fm.ffn_decode16,
                 FWD_D256: fa.d256, FWD_SIMT: fa.simt, RAGGED_D256: rpa.d256,
                 RAGGED8_D256: rpa.int8_d256, DECODE_D256: fd.d256,
-                FUSED_D256: fdl.d256}
+                FUSED_D256: fdl.d256, DQ_D256: fa.flash_bwd_dq.d256,
+                DQ_SIMT: fa.flash_bwd_dq.simt,
+                DKV_D256: fa.flash_bwd_dkv.d256,
+                DKV_SIMT: fa.flash_bwd_dkv.simt}
     for bwd in (fa.flash_bwd_dq, fa.flash_bwd_dkv):
         wrappers.update({v.KERNEL: v for v in bwd.variants.values()})
     assert set(wrappers) == set(ops.launch_counts())
@@ -4972,6 +5176,8 @@ def main():
     mark("13b head_dim 256 fp32 card vs CPU")
     result["head256_bf16"], launches_h16 = head256_bf16(ops, card)
     mark("13c head_dim 256 bf16 at GPT-3 1.3B widths")
+    result["head256_train"], launches_h13d = head256_train(ops, card)
+    mark("13d head_dim 256 recipe B training")
 
     # -- 8. summary --------------------------------------------------------
     # the serving kernels at fp32 S=384 / the decode step (the int8 one
@@ -5036,7 +5242,11 @@ def main():
                  DECODE_D256: pick(DECODE_D256,
                                    "B=8 S_max=2048 length=2048 H=8 D=256"),
                  FUSED_D256: pick(FUSED_D256, "B=8 hd=2048 H=8 S_max=2048 "
-                                              "t=1023 mask=False")}
+                                              "t=1023 mask=False"),
+                 DQ_D256: pick(DQ_D256, "B=2 S=2048 H=8 D=256"),
+                 DKV_D256: pick(DKV_D256, "B=2 S=2048 H=8 D=256"),
+                 DQ_SIMT: pick(DQ_SIMT, "B=2 S=2048 H=8 D=256", f32),
+                 DKV_SIMT: pick(DKV_SIMT, "B=2 S=2048 H=8 D=256", f32)}
     path_launches = {FWD: launches[FWD], RAGGED: launches[RAGGED],
                      RAGGED8: launches8[RAGGED8],
                      FWD_MASK: launches_gen["stacked default padded"][FWD_MASK],
@@ -5084,6 +5294,12 @@ def main():
     path_launches[DECODE_D256] = launches_h16["default"][DECODE_D256]
     path_launches[FUSED_D256] = launches_h16["fused"][FUSED_D256]
     path_launches[FWD_SIMT] = launches_h32["engine"][FWD_SIMT]
+    # ... the backward's: phase 13d's first 8 x 256 turn of recipe B (bf16),
+    # the CUDA-core fp32 dQ and dK/dV in 13b's stacked fp32 training
+    for name in (DQ_D256, DKV_D256):
+        path_launches[name] = launches_h13d["turn1"][name]
+    for name in (DQ_SIMT, DKV_SIMT):
+        path_launches[name] = launches_h32["train_stacked"][name]
     kernels = []
     for name in KERNELS:
         c = main_case[name]
@@ -5104,7 +5320,8 @@ def main():
         k["launches_fp16"] = sum(run[k["name"]]
                                  for run in launches_fp16.values())
         k["launches_head256"] = sum(
-            run[k["name"]] for runs in (launches_h32, launches_h16)
+            run[k["name"]]
+            for runs in (launches_h32, launches_h16, launches_h13d)
             for run in runs.values())
     idle = [k["name"] for k in kernels if not k["launches"]]
     if idle:

@@ -64,6 +64,32 @@
 // accumulate in fp32 registers (D = 128: 255 registers, a few spilled in
 // the masked and segment instantiations).
 //
+// bf16 / fp16 at D = 256 (Gemma 2B's and GPT-J's head size), where one
+// warpgroup cannot hold its accumulators.  dQ: the layout above with key
+// tiles of 32 (`dq_key_tile`): dQ takes 64 x 256 fp32 a warpgroup, 128
+// registers a thread, and S and dP of 32 keys 16 each (m64n32k16
+// products); dQ += ds K is an m64n256k16 product.  Q and dO with two
+// stages of K and V: (2 * 64 + 4 * 32) * 256 * 2 + 1024 = 132,096 bytes.
+// dK/dV (`Dkv`): dK and dV of 64 keys x 256 would take 256 registers a
+// thread in one warpgroup, so a block is two warpgroups over the same 64
+// keys, each owning 128 of the 256 columns of dK and dV.  Of the three
+// ways to split the work -- (a) two warpgroups that compute S^T and dP^T
+// once and share them, (b) a grid axis over the halves of D, each block
+// computing S^T and dP^T over the full D itself (12 D FLOPs a pair
+// against 8 D), (c) one pass for dV and one for dK (10 D) -- this is (a):
+// per query tile (32 queries; the ring's two stages of Q and dO), the
+// first warpgroup takes S^T = K Q^T and the second dP^T = V dO^T, each an
+// m64n32k16 product over the full D, and each hands its accumulator to
+// the other through shared memory (16 KB, a value a thread at a time, no
+// bank conflict), so both hold S^T and dP^T in their fragments and both
+// compute p and ds (the exponentials twice, the products once); then each
+// runs dV += p^T dO and dK += ds^T Q over its 128 columns (m64n128k16,
+// the A operands from its registers, dO and Q read MN-major from their
+// 64-column blocks 2w and 2w + 1).  dK and dV: 128 registers a thread;
+// shared memory (2 * 64 + 4 * 32) * 256 * 2 + 16,384 + 1024 = 148,480
+// bytes.  At D = 64 and 128 both kernels are the instantiations of before
+// (one warpgroup, 64-key and 64-query tiles).
+//
 // fp32 dK/dV: `flash_bwd_dkv_tc32_kernel`, on the tensor cores in split
 // TF32 (`flash_tc.cuh`, last section): each fp32 product is three TF32
 // `wgmma` products (m64nNk8) of the operands' hi and lo parts, lo_a hi_b
@@ -123,6 +149,24 @@
 // skips the products of a key tile that lies past all of its queries.
 // Measured at the training shape on the H100 (PERF.md, PR 11): 0.36 ms,
 // against 1.45 for the CUDA-core kernel it replaced.
+//
+// fp32 at D = 256: `flash_bwd_dq_simt_kernel` and
+// `flash_bwd_dkv_simt_kernel`, on the CUDA cores (fp32 FMAs, bound by the
+// 67 TFLOP/s of fp32).  Split TF32 does not fit a block there: the sizes
+// above (4 KT + 6 QT + 1024) come to ~449 KB at 32-row tiles, and dK and
+// dV alone would take 256 registers a thread.  One block of eight warps
+// per (32-query tile, head, batch) for dQ, per (32-key tile, head, batch)
+// for dK/dV, the forward's CUDA-core layout (`flash_fwd_causal.cu`
+// `flash_fwd_simt_kernel`): the block's own rows (Q and dO, or K and V)
+// copied into shared memory once, the other side's tiles of 32 rows per
+// step (rows padded by 4 floats against bank conflicts; four [32, 260]
+// tiles and two [32, 33] ones, 141,568 bytes, one block an SM); each
+// thread sums 2 x 2 scores and 2 x 2 dO.v over d in order (`dot2x2`),
+// forms p and ds for those pairs (dK/dV keeps p too) in shared memory,
+// and each warp then sums its four rows of dQ (or of dK and dV) over the
+// tile's 32 rows, 8 columns a lane (`rows_times`).  The same statistics,
+// branches, per-pair tests and loop bounds as the kernels above; every
+// pair is tested.
 // In the dK/dV kernels, causal, the loop starts at the first query tile
 // that can see the key tile (the query at max(k0 - (Sk - Sq), 0)) and
 // runs to the end; in the dQ kernels it stops at min(kv_len, the causal
@@ -183,18 +227,38 @@ namespace tc {
 
 using namespace flash_tc;
 
-constexpr int BKV = 64;         // keys per block (dK/dV) or per tile (dQ)
-constexpr int BQ = 64;          // queries per tile (dK/dV) or per block (dQ)
-constexpr int THREADS = WG;     // 128
+constexpr int BKV = 64;         // keys per block (dK/dV)
+constexpr int BQ = 64;          // queries per block (dQ)
+constexpr int THREADS = WG;     // 128 (dQ)
 
-// Both kernels hold two [64, D] tiles once and a two-stage ring of two
-// more (dQ: Q and dO, then K and V; dK/dV: K and V, then Q and dO), all
-// of the 2-byte type T; 1024 bytes of slack to align the tiles for the
-// swizzle.
+// keys per tile of the dQ kernel: 64, or 32 at D = 256, where dQ alone
+// takes 128 registers a thread (S and dP of 32 keys 16 each)
 template <int D>
-constexpr int smem_bytes() {
-  return (2 * BKV + 4 * BQ) * D * 2 + 1024;
+constexpr int dq_key_tile = D == 256 ? 32 : 64;
+
+// dQ holds Q and dO ([64, D]) once and a two-stage ring of K and V ([BK,
+// D]), all of the 2-byte type T; 1024 bytes of slack to align the tiles
+// for the swizzle.
+template <int D>
+constexpr int dq_smem_bytes() {
+  return (2 * BQ + 4 * dq_key_tile<D>) * D * 2 + 1024;
 }
+
+// dK/dV per head size: warpgroups a block, each owning DC = D / WGS
+// columns of dK and dV (two at D = 256, where dK and dV of 64 keys would
+// take 256 registers a thread in one), and queries per tile.  The shared
+// memory: K and V ([64, D]) once, a two-stage ring of Q and dO ([BQ, D]),
+// all of type T, and at D = 256 the hand-over of S^T and dP^T (fp32, one
+// [64, BQ] accumulator a warpgroup); 1024 bytes of slack.
+template <int D>
+struct Dkv {
+  static constexpr int WGS = D == 256 ? 2 : 1;
+  static constexpr int BQ = D == 256 ? 32 : 64;
+  static constexpr int THREADS = WGS * WG;
+  static constexpr int DC = D / WGS;
+  static constexpr int XCH = WGS > 1 ? WGS * BKV * BQ * 4 : 0;
+  static constexpr int SMEM = (2 * BKV + 4 * BQ) * D * 2 + XCH + 1024;
+};
 
 // T: __nv_bfloat16 or __half, the inputs' and the outputs' type and the
 // operand type of every product (p and ds rounded to T).
@@ -207,15 +271,17 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_tc_kernel(
     long long qss, long long ksb, long long kss, long long vsb,
     long long vss, long long dsb, long long dss, float scale,
     const Branches br) {
-  constexpr uint32_t TILE = BQ * D * 2;   // bytes of one [64, D] tile
+  constexpr int BK = dq_key_tile<D>;
+  constexpr uint32_t QT = BQ * D * 2;   // bytes of the [64, D] Q or dO tile
+  constexpr uint32_t KT = BK * D * 2;   // ... of one [BK, D] K or V tile
   extern __shared__ uint8_t smem[];
   // the key tile's ids, and the least and greatest of them per warp that
-  // loads them (warps 0 and 1), one set per stage
-  __shared__ int kids[SEGS ? 2 : 1][SEGS ? BKV : 1];
-  __shared__ int kext[SEGS ? 2 : 1][SEGS ? 4 : 1];
+  // loads them (warps 0 .. BK / 32 - 1), one set per stage
+  __shared__ int kids[SEGS ? 2 : 1][SEGS ? BK : 1];
+  __shared__ int kext[SEGS ? 2 : 1][SEGS ? 2 * BK / 32 : 1];
   __shared__ int red[SEGS ? 2 * THREADS / 32 : 1];
-  // Q at sq, dO at sdo; stage st holds K at sq + TILE (2 + 2 st), V after
-  const uint32_t sq = (smem_addr(smem) + 1023u) & ~1023u, sdo = sq + TILE;
+  // Q at sq, dO at sdo; stage st holds K at sdo + QT + 2 KT st, V after
+  const uint32_t sq = (smem_addr(smem) + 1023u) & ~1023u, sdo = sq + QT;
   const int tile = gridDim.x - 1 - blockIdx.x;   // longest rows first
   const int h = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
   const int q0 = tile * BQ, offset = Sk - Sq;
@@ -254,19 +320,19 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_tc_kernel(
     qhi = max(qid[0], qid[1]);
     flash::block_min_max<THREADS>(qlo, qhi, red);
     const int2 env = flash::seg_envelope<THREADS>(sb, Sk, qlo, qhi, red);
-    kbeg = env.x / BKV * BKV;
+    kbeg = env.x / BK * BK;
     kend = min(kend, env.y);
   }
-  const int ntiles = kend > kbeg ? (kend - kbeg + BKV - 1) / BKV : 0;
+  const int ntiles = kend > kbeg ? (kend - kbeg + BK - 1) / BK : 0;
 
   // issue the copies of key tile `it` into its stage
   auto stage = [&](int it) {
-    const int k0 = kbeg + it * BKV, st = it & 1;
-    const uint32_t dst = sq + TILE * (2 + 2 * st);
-    load_tile<BKV, D, THREADS>(dst, kb, kss, k0, Sk, tid);
-    load_tile<BKV, D, THREADS>(dst + TILE, vb, vss, k0, Sk, tid);
+    const int k0 = kbeg + it * BK, st = it & 1;
+    const uint32_t dst = sdo + QT + 2 * KT * st;
+    load_tile<BK, D, THREADS>(dst, kb, kss, k0, Sk, tid);
+    load_tile<BK, D, THREADS>(dst + KT, vb, vss, k0, Sk, tid);
     if constexpr (SEGS) {
-      if (tid < BKV) {   // warps 0 and 1
+      if (tid < BK) {   // warps 0 .. BK / 32 - 1
         const int id = sb[min(k0 + tid, Sk - 1)];
         kids[st][tid] = id;
         const int lo = __reduce_min_sync(0xffffffffu, id);
@@ -286,13 +352,13 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_tc_kernel(
   float acc[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-  float s[BKV / 2], dp[BKV / 2];   // S and dP: rows queries, columns keys
+  float s[BK / 2], dp[BK / 2];   // S and dP: rows queries, columns keys
 
   // ds = p (dP - delta) (in dp) of key tile k0 in stage st
   auto probs = [&](int k0, int st, auto test) {
     constexpr bool TEST = decltype(test)::value;
 #pragma unroll
-    for (int i = 0; i < BKV / 2; ++i) {
+    for (int i = 0; i < BK / 2; ++i) {
       const int r = (i / 2) % 2, c = acc_col(i, tid), kp = k0 + c;
       float x = s[i] * scale;
       float p;
@@ -312,8 +378,8 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_tc_kernel(
   };
 
   for (int it = 0; it < ntiles; ++it) {
-    const int k0 = kbeg + it * BKV, st = it & 1;
-    const uint32_t sk = sq + TILE * (2 + 2 * st), sv = sk + TILE;
+    const int k0 = kbeg + it * BK, st = it & 1;
+    const uint32_t sk = sdo + QT + 2 * KT * st, sv = sk + KT;
     cp_async_wait<0>();
     fence_async_smem();
     __syncthreads();   // tile it has landed; tile it - 1 is no longer read
@@ -322,14 +388,14 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_tc_kernel(
 
     // S = Q K^T and dP = dO V^T
 #pragma unroll
-    for (int i = 0; i < BKV / 2; ++i) s[i] = dp[i] = 0.f;
+    for (int i = 0; i < BK / 2; ++i) s[i] = dp[i] = 0.f;
     mma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      mma_ss_n64<T>(s, desc_k<BQ>(sq, kk), desc_k<BKV>(sk, kk), 1);
+      mma_ss_nk<BK, T>(s, desc_k<BQ>(sq, kk), desc_k<BK>(sk, kk), 1);
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      mma_ss_n64<T>(dp, desc_k<BQ>(sdo, kk), desc_k<BKV>(sv, kk), 1);
+      mma_ss_nk<BK, T>(dp, desc_k<BQ>(sdo, kk), desc_k<BK>(sv, kk), 1);
     mma_commit();
     mma_wait<0>();
     fence_regs(s);
@@ -338,23 +404,25 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_tc_kernel(
     // a segment tile needs no test when its keys and the query tile all
     // carry one id
     bool mixed = false;
-    if constexpr (SEGS)
-      mixed = qlo != qhi || kext[st][0] != qlo || kext[st][1] != qlo ||
-              kext[st][2] != qlo || kext[st][3] != qlo;
-    if (mixed || k0 + BKV > klen || (CAUSAL && k0 + BKV - 1 > q0 + offset))
+    if constexpr (SEGS) {
+      mixed = qlo != qhi;
+#pragma unroll
+      for (int w = 0; w < 2 * BK / 32; ++w) mixed = mixed || kext[st][w] != qlo;
+    }
+    if (mixed || k0 + BK > klen || (CAUSAL && k0 + BK - 1 > q0 + offset))
       probs(k0, st, std::true_type{});
     else
       probs(k0, st, std::false_type{});
 
     // dQ += T(ds) K, the A operand from the dP accumulator, K read
     // MN-major from its tile
-    uint32_t da[BKV / 16][4];
+    uint32_t da[BK / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < BKV / 16; ++kk) pack_a<T>(da[kk], dp, kk);
+    for (int kk = 0; kk < BK / 16; ++kk) pack_a<T>(da[kk], dp, kk);
     mma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BKV / 16; ++kk)
-      mma_rs<D, T>(acc, da[kk], desc_mn<BKV>(sk, kk));
+    for (int kk = 0; kk < BK / 16; ++kk)
+      mma_rs<D, T>(acc, da[kk], desc_mn<BK>(sk, kk));
     mma_commit();
     mma_wait<0>();
     fence_regs(acc);
@@ -372,7 +440,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_tc_kernel(
 }
 
 template <typename T, int D, bool MASKED, bool SEGS, bool CAUSAL>
-__global__ void __launch_bounds__(THREADS) flash_bwd_dkv_tc_kernel(
+__global__ void __launch_bounds__(Dkv<D>::THREADS) flash_bwd_dkv_tc_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, const T* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
@@ -380,6 +448,8 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_tc_kernel(
     long long qsb, long long qss, long long ksb, long long kss,
     long long vsb, long long vss, long long dsb, long long dss,
     float scale, const Branches br) {
+  using C = Dkv<D>;
+  constexpr int BQ = C::BQ, WGS = C::WGS, THREADS = C::THREADS, DC = C::DC;
   constexpr uint32_t KT = BKV * D * 2, QT = BQ * D * 2;   // tile bytes
   extern __shared__ uint8_t smem[];
   // the query tile's statistics (and ids), one set per stage
@@ -387,17 +457,22 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_tc_kernel(
   __shared__ float mrs[MASKED ? 2 : 1][MASKED ? BQ : 1];
   __shared__ int qids[SEGS ? 2 : 1][SEGS ? BQ : 1];
   __shared__ int red[SEGS ? 2 * THREADS / 32 : 1];
-  // K at sk, V at sv; stage st holds Q at sv + KT + 2 QT st and dO after it
-  const uint32_t sk = (smem_addr(smem) + 1023u) & ~1023u, sv = sk + KT;
+  // K at sk, V at sv; stage st holds Q at sv + KT + 2 QT st and dO after
+  // it; with two warpgroups the hand-over of S^T and dP^T after the ring
+  const uint32_t base = smem_addr(smem);
+  const uint32_t sk = (base + 1023u) & ~1023u, sv = sk + KT;
+  float* const xch = reinterpret_cast<float*>(smem + (sv + KT + 4 * QT - base));
   const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x;
+  const int wg = WGS > 1 ? tid / WG : 0, wtid = WGS > 1 ? tid % WG : tid;
   const int k0 = kt * BKV, offset = Sk - Sq;
   const int klen =
       MASKED && br.kv_lens ? min(max(br.kv_lens[b], 0), Sk) : Sk;
-  // this thread's two key rows (accumulator values i with (i/2)%2 = r)
+  // this thread's two key rows (accumulator values i with (i/2)%2 = r),
+  // the same in every warpgroup
   int kpos[2];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) kpos[r] = k0 + acc_row(2 * r, tid);
+  for (int r = 0; r < 2; ++r) kpos[r] = k0 + acc_row(2 * r, wtid);
 
   const T* qb = q + b * qsb + h * D;
   const T* db = dout + b * dsb + h * D;
@@ -440,9 +515,10 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_tc_kernel(
   if (ntiles > 0) stage(0);
   cp_async_commit();
 
-  float dka[D / 2], dva[D / 2];
+  // this warpgroup's DC columns of dK and dV
+  float dka[DC / 2], dva[DC / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+  for (int i = 0; i < DC / 2; ++i) dka[i] = dva[i] = 0.f;
   float s[BQ / 2], dp[BQ / 2];   // S^T and dP^T: rows keys, columns queries
 
   // p (in s) and ds = p (dP - delta) (in dp) of query tile q0 in stage st
@@ -450,7 +526,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_tc_kernel(
     constexpr bool TEST = decltype(test)::value;
 #pragma unroll
     for (int i = 0; i < BQ / 2; ++i) {
-      const int r = (i / 2) % 2, c = acc_col(i, tid), qp = q0 + c;
+      const int r = (i / 2) % 2, c = acc_col(i, wtid), qp = q0 + c;
       float x = s[i] * scale;
       float p;
       if constexpr (MASKED) {
@@ -481,19 +557,46 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_tc_kernel(
     cp_async_commit();
 
     // S^T = K Q^T and dP^T = V dO^T
+    if constexpr (WGS == 1) {
 #pragma unroll
-    for (int i = 0; i < BQ / 2; ++i) s[i] = dp[i] = 0.f;
-    mma_fence();
+      for (int i = 0; i < BQ / 2; ++i) s[i] = dp[i] = 0.f;
+      mma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      mma_ss_n64<T>(s, desc_k<BKV>(sk, kk), desc_k<BQ>(sq, kk), 1);
+      for (int kk = 0; kk < D / 16; ++kk)
+        mma_ss_nk<BQ, T>(s, desc_k<BKV>(sk, kk), desc_k<BQ>(sq, kk), 1);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      mma_ss_n64<T>(dp, desc_k<BKV>(sv, kk), desc_k<BQ>(sdo, kk), 1);
-    mma_commit();
-    mma_wait<0>();
-    fence_regs(s);
-    fence_regs(dp);
+      for (int kk = 0; kk < D / 16; ++kk)
+        mma_ss_nk<BQ, T>(dp, desc_k<BKV>(sv, kk), desc_k<BQ>(sdo, kk), 1);
+      mma_commit();
+      mma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+    } else {
+      // warpgroup 0 takes S^T, warpgroup 1 dP^T, each over the full D;
+      // each hands its accumulator to the other through shared memory
+      // (value i of thread t at [w][i][t]), so both hold both
+      float mine[BQ / 2];
+#pragma unroll
+      for (int i = 0; i < BQ / 2; ++i) mine[i] = 0.f;
+      const uint32_t sa = wg ? sv : sk, sbt = wg ? sdo : sq;
+      mma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        mma_ss_nk<BQ, T>(mine, desc_k<BKV>(sa, kk), desc_k<BQ>(sbt, kk), 1);
+      mma_commit();
+      mma_wait<0>();
+      fence_regs(mine);
+#pragma unroll
+      for (int i = 0; i < BQ / 2; ++i)
+        xch[(wg * (BQ / 2) + i) * WG + wtid] = mine[i];
+      __syncthreads();   // both accumulators are handed over
+#pragma unroll
+      for (int i = 0; i < BQ / 2; ++i) {
+        const float other = xch[((1 - wg) * (BQ / 2) + i) * WG + wtid];
+        s[i] = wg ? other : mine[i];
+        dp[i] = wg ? mine[i] : other;
+      }
+    }
 
     if (SEGS || (MASKED && k0 + BKV > klen) || q0 + BQ > Sq ||
         (CAUSAL && q0 + offset < k0 + BKV - 1))
@@ -501,8 +604,10 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_tc_kernel(
     else
       probs(q0, st, std::false_type{});
 
-    // dV += T(p)^T dO and dK += T(ds)^T Q, the A operands from the
-    // accumulators, dO and Q read MN-major from their tiles
+    // dV += T(p)^T dO and dK += T(ds)^T Q over this warpgroup's columns,
+    // the A operands from the accumulators, dO and Q read MN-major from
+    // their tiles (DC / 64 of their 64-column blocks)
+    const uint32_t col = wg * (DC / 64) * (BQ * 128);
     uint32_t pa[BQ / 16][4], da[BQ / 16][4];
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk) {
@@ -512,10 +617,10 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_tc_kernel(
     mma_fence();
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk)
-      mma_rs<D, T>(dva, pa[kk], desc_mn<BQ>(sdo, kk));
+      mma_rs<DC, T>(dva, pa[kk], desc_mn<BQ>(sdo + col, kk));
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk)
-      mma_rs<D, T>(dka, da[kk], desc_mn<BQ>(sq, kk));
+      mma_rs<DC, T>(dka, da[kk], desc_mn<BQ>(sq + col, kk));
     mma_commit();
     mma_wait<0>();
     fence_regs(dva);
@@ -526,10 +631,11 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_tc_kernel(
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (kpos[r] >= Sk) continue;
-    const long long o = (((long long)b * Sk + kpos[r]) * H + h) * D;
+    const long long o =
+        (((long long)b * Sk + kpos[r]) * H + h) * D + wg * DC;
 #pragma unroll
-    for (int i = 2 * r; i < D / 2; i += 4) {
-      const int c = acc_col(i, tid);
+    for (int i = 2 * r; i < DC / 2; i += 4) {
+      const int c = acc_col(i, wtid);
       store2<T>(dk + o + c, dka[i] * scale, dka[i + 1] * scale);
       store2<T>(dv + o + c, dva[i], dva[i + 1]);
     }
@@ -1021,6 +1127,340 @@ __global__ void __launch_bounds__(DqCfg<D>::THREADS) flash_bwd_dq_tc32_kernel(
 
 }  // namespace tc32
 
+// ---------------------------------------------------------------------------
+// fp32 at D = 256: the CUDA-core kernels (header comment)
+// ---------------------------------------------------------------------------
+
+namespace simt {
+
+constexpr int BQ = 32;          // queries per tile (dK/dV) or per block (dQ)
+constexpr int BK = 32;          // keys per block (dK/dV) or per tile (dQ)
+constexpr int THREADS = 256;    // eight warps
+constexpr int PAD = 4;          // floats after each row (banks)
+
+// Four [32, D] fp32 tiles (rows padded by PAD floats) and two [32, 33]
+// tiles of p or ds: 141.5 KB at D = 256, one block an SM.
+template <int D>
+struct Cfg {
+  static constexpr int RS = D + PAD;                 // row stride
+  static constexpr int CPL = D / 128;                // float4s a lane
+  static constexpr int SMEM = 4 * (4 * 32 * RS + 2 * 32 * (32 + 1));
+};
+
+// Copy rows row0 .. row0 + ROWS - 1 of an [n, D] fp32 matrix (row stride
+// `stride` elements, 16-byte aligned rows) into shared rows of `ld`
+// floats; rows at or past n are zeros.  All THREADS threads call.
+template <int ROWS, int D>
+__device__ __forceinline__ void load_rows(float* dst, int ld,
+                                          const float* __restrict__ g,
+                                          long long stride, int row0, int n,
+                                          int tid) {
+  constexpr int CPR = D / 4;   // float4s a row
+  static_assert(ROWS * CPR % THREADS == 0, "tile must split evenly");
+#pragma unroll
+  for (int i = 0; i < ROWS * CPR / THREADS; ++i) {
+    const int e = tid + i * THREADS, r = e / CPR, c = e % CPR;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row0 + r < n)
+      x = __ldg(reinterpret_cast<const float4*>(
+          g + (long long)(row0 + r) * stride + 4 * c));
+    *reinterpret_cast<float4*>(dst + r * ld + 4 * c) = x;
+  }
+}
+
+// acc[i][j] (+)= sum_d a[ra + i][d] b[rb + 16 j][d] and the same of c and
+// e into acc2, for i, j < 2: two 2 x 2 blocks of products of rows of
+// shared [32, RS] tiles, fp32 FMAs summed over d in order.
+template <int D, int RS>
+__device__ __forceinline__ void dot2x2(const float* a, const float* b,
+                                       const float* c, const float* e,
+                                       int ra, int rb, float (&acc)[2][2],
+                                       float (&acc2)[2][2]) {
+#pragma unroll 2
+  for (int d = 0; d < D; d += 4) {
+    float4 x[2], y[2], z[2], w[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      x[i] = *reinterpret_cast<const float4*>(a + (ra + i) * RS + d);
+      y[i] = *reinterpret_cast<const float4*>(b + (rb + 16 * i) * RS + d);
+      z[i] = *reinterpret_cast<const float4*>(c + (ra + i) * RS + d);
+      w[i] = *reinterpret_cast<const float4*>(e + (rb + 16 * i) * RS + d);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        acc[i][j] = fmaf(x[i].x, y[j].x, acc[i][j]);
+        acc[i][j] = fmaf(x[i].y, y[j].y, acc[i][j]);
+        acc[i][j] = fmaf(x[i].z, y[j].z, acc[i][j]);
+        acc[i][j] = fmaf(x[i].w, y[j].w, acc[i][j]);
+        acc2[i][j] = fmaf(z[i].x, w[j].x, acc2[i][j]);
+        acc2[i][j] = fmaf(z[i].y, w[j].y, acc2[i][j]);
+        acc2[i][j] = fmaf(z[i].z, w[j].z, acc2[i][j]);
+        acc2[i][j] = fmaf(z[i].w, w[j].w, acc2[i][j]);
+      }
+  }
+}
+
+// o[r][.] += sum_j w[row0 + r][j] m[j][cols of this lane] over the 32 rows
+// j of a shared [32, RS] tile, for the warp's four rows r: lane l holds
+// columns 4 (l + 32 c) .. + 3 (c < CPL); w a shared [32, 33] tile.
+template <int D, int RS>
+__device__ __forceinline__ void rows_times(const float* w, const float* m,
+                                           int row0, int lane,
+                                           float (&o)[4][4 * (D / 128)]) {
+  constexpr int CPL = D / 128;
+#pragma unroll 4
+  for (int j = 0; j < 32; ++j) {
+    float pr[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) pr[r] = w[(row0 + r) * 33 + j];
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) {
+      const float4 m4 =
+          *reinterpret_cast<const float4*>(m + j * RS + 4 * (lane + 32 * c));
+      const float mv[4] = {m4.x, m4.y, m4.z, m4.w};
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          o[r][4 * c + e] = fmaf(pr[r], mv[e], o[r][4 * c + e]);
+    }
+  }
+}
+
+// The warp's four rows of o (times `mul`) to rows row0 .. row0 + 3 of
+// [B, n, H, D] at `out` (batch b, head h), rows at or past n skipped.
+template <int D>
+__device__ __forceinline__ void store_rows(float* out, const float (&o)[4][4 * (D / 128)],
+                                           float mul, int b, int h, int H,
+                                           int n, int row0, int lane) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int row = row0 + r;
+    if (row >= n) continue;
+    float* op = out + (((long long)b * n + row) * H + h) * D;
+#pragma unroll
+    for (int c = 0; c < D / 128; ++c)
+      *reinterpret_cast<float4*>(op + 4 * (lane + 32 * c)) =
+          make_float4(o[r][4 * c] * mul, o[r][4 * c + 1] * mul,
+                      o[r][4 * c + 2] * mul, o[r][4 * c + 3] * mul);
+  }
+}
+
+template <int D, bool MASKED, bool SEGS, bool CAUSAL>
+__global__ void __launch_bounds__(THREADS) flash_bwd_dq_simt_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ dq, int H, int Sq, int Sk, long long qsb,
+    long long qss, long long ksb, long long kss, long long vsb,
+    long long vss, long long dsb, long long dss, float scale,
+    const Branches br) {
+  constexpr int RS = Cfg<D>::RS, CPL = Cfg<D>::CPL;
+  extern __shared__ __align__(16) float fsm[];
+  float* qs = fsm;                    // Q [BQ][RS]
+  float* dos = qs + BQ * RS;          // dO [BQ][RS]
+  float* ks = dos + BQ * RS;          // K [BK][RS]
+  float* vs = ks + BK * RS;           // V [BK][RS]
+  float* dss_ = vs + BK * RS;         // ds [BQ][BK + 1]
+  __shared__ float ls[BQ], dls[BQ], mrs[MASKED ? BQ : 1];
+  __shared__ int qids[SEGS ? BQ : 1];
+  __shared__ int red[SEGS ? 2 * THREADS / 32 : 1];
+  const int tile = gridDim.x - 1 - blockIdx.x;   // longest rows first
+  const int h = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int q0 = tile * BQ, offset = Sk - Sq;
+  const int klen =
+      MASKED && br.kv_lens ? min(max(br.kv_lens[b], 0), Sk) : Sk;
+  const float* kb = k + b * ksb + h * D;
+  const float* vb = v + b * vsb + h * D;
+  const float* mb =
+      MASKED && br.mask ? br.mask + b * br.msb + h * br.msh : nullptr;
+  const int* sb = SEGS ? br.segs + b * br.ssb : nullptr;
+  // the tile's rows' statistics (rows past Sq read row Sq - 1 and are
+  // never written)
+  if (tid < BQ) {
+    const long long stat =
+        ((long long)b * H + h) * Sq + min(q0 + tid, Sq - 1);
+    ls[tid] = lse[stat];
+    dls[tid] = delta[stat];
+    if constexpr (MASKED) mrs[tid] = br.rowmax[stat];
+  }
+  int kbeg = 0;
+  int kend = CAUSAL ? min(klen, q0 + BQ + offset) : klen;   // exclusive
+  if constexpr (SEGS) {
+    const int own = sb[min(q0 + tid % BQ, Sq - 1)];
+    if (tid < BQ) qids[tid] = own;
+    const int2 env = flash::seg_envelope<THREADS>(sb, Sk, own, red);
+    kbeg = env.x / BK * BK;
+    kend = min(kend, env.y);
+  }
+  const int ntiles = kend > kbeg ? (kend - kbeg + BK - 1) / BK : 0;
+  load_rows<BQ, D>(qs, RS, q + b * qsb + h * D, qss, q0, Sq, tid);
+  load_rows<BQ, D>(dos, RS, dout + b * dsb + h * D, dss, q0, Sq, tid);
+
+  // S and dP: rows sr, sr + 1 and keys sc, sc + 16 of the tile a thread;
+  // dQ: warp w holds rows 4w .. 4w + 3, lane l columns 4 (l + 32 c) ..
+  const int sr = 2 * (tid / 16), sc = tid % 16, orow = 4 * warp;
+  float o[4][4 * CPL];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int i = 0; i < 4 * CPL; ++i) o[r][i] = 0.f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int k0 = kbeg + it * BK;
+    __syncthreads();   // the previous tile is no longer read
+    load_rows<BK, D>(ks, RS, kb, kss, k0, Sk, tid);
+    load_rows<BK, D>(vs, RS, vb, vss, k0, Sk, tid);
+    __syncthreads();
+
+    // S = Q K^T and dP = dO V^T
+    float sa[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+    float pa[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+    dot2x2<D, RS>(qs, ks, dos, vs, sr, sc, sa, pa);
+    // ds = p (dP - delta)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = sr + i, qp = q0 + row, qc = min(qp, Sq - 1);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int kp = k0 + sc + 16 * j;
+        float x = sa[i][j] * scale;
+        float p;
+        if constexpr (MASKED) {
+          if (mb && kp < Sk)
+            x += mb[(long long)qc * br.msq + (long long)kp * br.msk];
+          p = expf((x - mrs[row]) - ls[row]);
+        } else {
+          p = expf(x - ls[row]);
+        }
+        bool ok = (!CAUSAL || kp <= qp + offset) && kp < klen;
+        if constexpr (SEGS) ok = ok && sb[min(kp, Sk - 1)] == qids[row];
+        p = ok ? p : 0.f;
+        dss_[row * (BK + 1) + sc + 16 * j] = p * (pa[i][j] - dls[row]);
+      }
+    }
+    __syncthreads();   // the tile's ds
+
+    // dQ += dS K
+    rows_times<D, RS>(dss_, ks, orow, lane, o);
+  }
+  store_rows<D>(dq, o, scale, b, h, H, Sq, q0 + orow, lane);
+}
+
+template <int D, bool MASKED, bool SEGS, bool CAUSAL>
+__global__ void __launch_bounds__(THREADS) flash_bwd_dkv_simt_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ dk, float* __restrict__ dv, int H, int Sq, int Sk,
+    long long qsb, long long qss, long long ksb, long long kss,
+    long long vsb, long long vss, long long dsb, long long dss,
+    float scale, const Branches br) {
+  constexpr int RS = Cfg<D>::RS, CPL = Cfg<D>::CPL;
+  extern __shared__ __align__(16) float fsm[];
+  float* ks = fsm;                    // K [BK][RS]
+  float* vs = ks + BK * RS;           // V [BK][RS]
+  float* qs = vs + BK * RS;           // Q [BQ][RS]
+  float* dos = qs + BQ * RS;          // dO [BQ][RS]
+  float* ps = dos + BQ * RS;          // p [BK][BQ + 1]
+  float* dss_ = ps + BK * (BQ + 1);   // ds [BK][BQ + 1]
+  __shared__ float ls[BQ], dls[BQ], mrs[MASKED ? BQ : 1];
+  __shared__ int qids[SEGS ? BQ : 1], kids[SEGS ? BK : 1];
+  __shared__ int red[SEGS ? 2 * THREADS / 32 : 1];
+  const int h = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int k0 = blockIdx.x * BK, offset = Sk - Sq;
+  const int klen =
+      MASKED && br.kv_lens ? min(max(br.kv_lens[b], 0), Sk) : Sk;
+  const float* qb = q + b * qsb + h * D;
+  const float* db = dout + b * dsb + h * D;
+  const long long stat0 = ((long long)b * H + h) * Sq;
+  const float* mb =
+      MASKED && br.mask ? br.mask + b * br.msb + h * br.msh : nullptr;
+  const int* sb = SEGS ? br.segs + b * br.ssb : nullptr;
+  // causal: the first query that sees this block's first key, rounded down
+  // to a tile; no query when every key lies past kv_len
+  int qstart = CAUSAL ? (max(k0 - offset, 0) / BQ) * BQ : 0;
+  int qend = MASKED && k0 >= klen ? 0 : Sq;
+  if constexpr (SEGS) {
+    const int own = sb[min(k0 + tid % BK, Sk - 1)];
+    if (tid < BK) kids[tid] = own;
+    const int2 env = flash::seg_envelope<THREADS>(sb, Sq, own, red);
+    qstart = max(qstart, env.x / BQ * BQ);
+    qend = min(qend, env.y);
+  }
+  const int ntiles = qend > qstart ? (qend - qstart + BQ - 1) / BQ : 0;
+  load_rows<BK, D>(ks, RS, k + b * ksb + h * D, kss, k0, Sk, tid);
+  load_rows<BK, D>(vs, RS, v + b * vsb + h * D, vss, k0, Sk, tid);
+
+  // S^T and dP^T: keys sr, sr + 1 and queries sc, sc + 16 of the tile a
+  // thread; dK and dV: warp w holds keys 4w .. 4w + 3, lane l columns
+  // 4 (l + 32 c) ..
+  const int sr = 2 * (tid / 16), sc = tid % 16, orow = 4 * warp;
+  float dka[4][4 * CPL], dva[4][4 * CPL];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int i = 0; i < 4 * CPL; ++i) dka[r][i] = dva[r][i] = 0.f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int q0 = qstart + it * BQ;
+    __syncthreads();   // the previous tile is no longer read
+    load_rows<BQ, D>(qs, RS, qb, qss, q0, Sq, tid);
+    load_rows<BQ, D>(dos, RS, db, dss, q0, Sq, tid);
+    if (tid < BQ) {
+      const int qp = q0 + tid;
+      const bool in = qp < Sq;
+      ls[tid] = in ? lse[stat0 + qp] : 0.f;
+      dls[tid] = in ? delta[stat0 + qp] : 0.f;
+      if constexpr (MASKED) mrs[tid] = in ? br.rowmax[stat0 + qp] : 0.f;
+      if constexpr (SEGS) qids[tid] = in ? sb[qp] : 0;
+    }
+    __syncthreads();
+
+    // S^T = K Q^T and dP^T = V dO^T
+    float sa[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+    float pa[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+    dot2x2<D, RS>(ks, qs, vs, dos, sr, sc, sa, pa);
+    // p^T and ds^T = p (dP - delta)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = sr + i, kp = k0 + row;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int c = sc + 16 * j, qp = q0 + c;
+        float x = sa[i][j] * scale;
+        float p;
+        if constexpr (MASKED) {
+          if (mb && qp < Sq && kp < Sk)
+            x += mb[(long long)qp * br.msq + (long long)kp * br.msk];
+          p = expf((x - mrs[c]) - ls[c]);
+        } else {
+          p = expf(x - ls[c]);
+        }
+        bool ok = qp < Sq && (!CAUSAL || qp + offset >= kp);
+        if constexpr (MASKED) ok = ok && kp < klen;
+        if constexpr (SEGS) ok = ok && qids[c] == kids[row];
+        p = ok ? p : 0.f;
+        ps[row * (BQ + 1) + c] = p;
+        dss_[row * (BQ + 1) + c] = p * (pa[i][j] - dls[c]);
+      }
+    }
+    __syncthreads();   // the tile's p and ds
+
+    // dV += P^T dO and dK += dS^T Q
+    rows_times<D, RS>(ps, dos, orow, lane, dva);
+    rows_times<D, RS>(dss_, qs, orow, lane, dka);
+  }
+  store_rows<D>(dk, dka, scale, b, h, H, Sk, k0 + orow, lane);
+  store_rows<D>(dv, dva, 1.f, b, h, H, Sk, k0 + orow, lane);
+}
+
+}  // namespace simt
+
 struct Args {
   const void *q, *k, *v, *dout, *lse, *delta;
   int B, H, Sq, Sk;
@@ -1032,7 +1472,7 @@ struct Args {
 
 template <typename T, int D, bool MASKED, bool SEGS, bool CAUSAL>
 void launch_dq_tc(const Args& a, void* dq) {
-  constexpr int smem = tc::smem_bytes<D>();
+  constexpr int smem = tc::dq_smem_bytes<D>();
   auto* kernel = tc::flash_bwd_dq_tc_kernel<T, D, MASKED, SEGS, CAUSAL>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -1048,13 +1488,13 @@ void launch_dq_tc(const Args& a, void* dq) {
 
 template <typename T, int D, bool MASKED, bool SEGS, bool CAUSAL>
 void launch_dkv_tc(const Args& a, void* dk, void* dv) {
-  constexpr int smem = tc::smem_bytes<D>();
+  using C = tc::Dkv<D>;
   auto* kernel = tc::flash_bwd_dkv_tc_kernel<T, D, MASKED, SEGS, CAUSAL>;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   (void)attr;   // a refusal shows as the launch's error
   dim3 grid((a.Sk + tc::BKV - 1) / tc::BKV, a.H, a.B);
-  kernel<<<grid, tc::THREADS, smem, a.stream>>>(
+  kernel<<<grid, C::THREADS, C::SMEM, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
@@ -1097,18 +1537,57 @@ void launch_dq_tc32(const Args& a, void* dq) {
       a.vsb, a.vss, a.dsb, a.dss, a.scale, a.br);
 }
 
+template <int D, bool MASKED, bool SEGS, bool CAUSAL>
+void launch_dkv_simt(const Args& a, void* dk, void* dv) {
+  constexpr int smem = simt::Cfg<D>::SMEM;
+  auto* kernel = simt::flash_bwd_dkv_simt_kernel<D, MASKED, SEGS, CAUSAL>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  (void)attr;   // a refusal shows as the launch's error
+  dim3 grid((a.Sk + simt::BK - 1) / simt::BK, a.H, a.B);
+  kernel<<<grid, simt::THREADS, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<float*>(dk), static_cast<float*>(dv), a.H, a.Sq, a.Sk,
+      a.qsb, a.qss, a.ksb, a.kss, a.vsb, a.vss, a.dsb, a.dss, a.scale, a.br);
+}
+
+template <int D, bool MASKED, bool SEGS, bool CAUSAL>
+void launch_dq_simt(const Args& a, void* dq) {
+  constexpr int smem = simt::Cfg<D>::SMEM;
+  auto* kernel = simt::flash_bwd_dq_simt_kernel<D, MASKED, SEGS, CAUSAL>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  (void)attr;   // a refusal shows as the launch's error
+  dim3 grid((a.Sq + simt::BQ - 1) / simt::BQ, a.H, a.B);
+  kernel<<<grid, simt::THREADS, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<float*>(dq), a.H, a.Sq, a.Sk, a.qsb, a.qss, a.ksb, a.kss,
+      a.vsb, a.vss, a.dsb, a.dss, a.scale, a.br);
+}
+
 // One launch of the dQ (dv null) or the dK/dV kernel for a head size and
 // type code (0 fp32, 1 bf16, 2 fp16); cudaErrorInvalidValue for one the
 // kernels do not take.  bf16 and fp16 take the 16-bit tensor-core kernels,
-// fp32 the split-TF32 ones.
+// fp32 the split-TF32 ones (D = 64, 128) or the CUDA-core ones (D = 256).
 template <int D, bool MASKED, bool SEGS, bool CAUSAL>
 int dispatch_type(const Args& a, int dtype, void* dq_or_dk, void* dv) {
   switch (dtype) {
     case 0:
-      if (dv)
-        launch_dkv_tc32<D, MASKED, SEGS, CAUSAL>(a, dq_or_dk, dv);
-      else
-        launch_dq_tc32<D, MASKED, SEGS, CAUSAL>(a, dq_or_dk);
+      if constexpr (D == 256) {
+        if (dv)
+          launch_dkv_simt<D, MASKED, SEGS, CAUSAL>(a, dq_or_dk, dv);
+        else
+          launch_dq_simt<D, MASKED, SEGS, CAUSAL>(a, dq_or_dk);
+      } else {
+        if (dv)
+          launch_dkv_tc32<D, MASKED, SEGS, CAUSAL>(a, dq_or_dk, dv);
+        else
+          launch_dq_tc32<D, MASKED, SEGS, CAUSAL>(a, dq_or_dk);
+      }
       break;
     case 1:
       if (dv)
@@ -1135,6 +1614,8 @@ int dispatch(const Args& a, int D, int dtype, void* dq_or_dk, void* dv) {
     return dispatch_type<64, MASKED, SEGS, CAUSAL>(a, dtype, dq_or_dk, dv);
   if (D == 128)
     return dispatch_type<128, MASKED, SEGS, CAUSAL>(a, dtype, dq_or_dk, dv);
+  if (D == 256)
+    return dispatch_type<256, MASKED, SEGS, CAUSAL>(a, dtype, dq_or_dk, dv);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -43,9 +43,13 @@ _KERNELS = (flash_attention, flash_attention.masked, flash_attention.segs,
             flash_attention.flash_bwd_dq,
             *flash_attention.flash_bwd_dq.variants.values(),
             *flash_attention.flash_bwd_dq.types.values(),
+            flash_attention.flash_bwd_dq.d256,
+            flash_attention.flash_bwd_dq.simt,
             flash_attention.flash_bwd_dkv,
             *flash_attention.flash_bwd_dkv.variants.values(),
             *flash_attention.flash_bwd_dkv.types.values(),
+            flash_attention.flash_bwd_dkv.d256,
+            flash_attention.flash_bwd_dkv.simt,
             ragged_paged_attention, ragged_paged_attention.int8,
             ragged_paged_attention.fp16, ragged_paged_attention.int8_fp16,
             ragged_paged_attention.d256, ragged_paged_attention.int8_d256,

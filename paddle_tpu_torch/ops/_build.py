@@ -128,7 +128,7 @@ class Counter:
 
 
 _DTYPE_CODES = ("float32", "bfloat16", "float16")
-# the head dims the attention kernels take (the flash backward 64 and 128)
+# the head dims the attention kernels take, forward and backward
 HEAD_DIMS = (64, 128, 256)
 
 

@@ -32,13 +32,16 @@ once more, apart, any branch: bfloat16 under ``flash_fwd_causal:tc``,
 ``flash_bwd_dq_causal:tc`` and ``flash_bwd_dkv_causal:tc``, float16 under
 ``:tc16`` and float32 under ``:tc32`` of the same names.
 
-Head dims: the forward takes 64, 128 and 256 (Gemma 2B's and GPT-J's
-head size), the backward 64 and 128.  A forward launch at 256 counts once
-more under ``flash_fwd_causal:d256``; in float32 it runs on the CUDA cores
-(``flash_fwd_simt_kernel``: split TF32 does not fit a block there) and
-counts under ``flash_fwd_causal:simt`` in place of ``:tc32``.  A backward
-at 256 raises its own ValueError before any launch (the dQ and dK/dV
-kernels at 256 need a register and shared-memory plan of their own).
+Head dims: the forward and the backward take 64, 128 and 256 (Gemma
+2B's and GPT-J's head size); any other raises the gate's ValueError
+before a launch (D = 384, 512, ...: ROADMAP.md Queue 2 item 3).  A launch
+at 256 counts once more under ``flash_fwd_causal:d256``,
+``flash_bwd_dq_causal:d256`` or ``flash_bwd_dkv_causal:d256``; in float32
+the three run on the CUDA cores there (``flash_fwd_simt_kernel``,
+``flash_bwd_dq_simt_kernel``, ``flash_bwd_dkv_simt_kernel``: split TF32
+does not fit a block) and count under ``:simt`` of their names in place
+of ``:tc32``.  In bfloat16 and float16 the dK/dV kernel at 256 is two
+warpgroups a block, each owning half of dK's and dV's columns.
 
 The kernels copy 16-byte rows: on the card q, k, v (and dO) must start on
 16 bytes, with batch and sequence strides of a multiple of 16 bytes (8
@@ -95,8 +98,6 @@ _FWD_VARIANTS = {"mask": masked, "segs": segs, "noncausal": noncausal}
 _TYPE_SUFFIX = {torch.bfloat16: "tc", torch.float16: "tc16",
                 torch.float32: "tc32"}
 _FWD_TYPES = {torch.bfloat16: tc, torch.float16: tc16, torch.float32: tc32}
-# the head dims the backward kernels take (the forward: _build.HEAD_DIMS)
-BWD_HEAD_DIMS = (64, 128)
 
 
 def variant_name(is_causal, mask, kv_lens, segment_ids):
@@ -270,7 +271,7 @@ def flash_attention_bwd_reference(q, k, v, out, lse, do, scale, *,
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check_qkv(q, k, v, causal=True, head_dims=_build.HEAD_DIMS):
+def _check_qkv(q, k, v, causal=True):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dim() != 4:
             raise ValueError(f"{name} must be [B, S, H, D], got "
@@ -287,9 +288,11 @@ def _check_qkv(q, k, v, causal=True, head_dims=_build.HEAD_DIMS):
     if q.dtype not in _TYPE_SUFFIX:
         raise ValueError(f"kernel takes float32, bfloat16 or float16, got "
                          f"{q.dtype}")
-    if d not in head_dims:
+    if d not in _build.HEAD_DIMS:
         raise ValueError(f"kernel takes head_dim "
-                         f"{', '.join(map(str, head_dims))}, got {d}")
+                         f"{', '.join(map(str, _build.HEAD_DIMS))}, got {d} "
+                         f"(flash at head_dim 384 and up is ROADMAP.md "
+                         f"Queue 2 item 3)")
     if causal and k.shape[1] < sq:
         raise ValueError("causal attention needs Sk >= Sq")
     if q.is_cuda:
@@ -393,7 +396,9 @@ class _BwdKernel:
     with no other branch, one per variant (``variants``), and one per type
     (``types``): its bf16 launches (``tc``: the 16-bit tensor-core
     kernel), its fp16 launches (``tc16``: the same kernel in fp16) and its
-    fp32 launches (``tc32``: the split-TF32 tensor-core kernel).
+    fp32 launches (``tc32``: the split-TF32 tensor-core kernel; at head_dim
+    256 ``simt``, the CUDA-core kernel, in its place); ``d256`` counts
+    every launch at head_dim 256 once more.
     ``(q, k, v, do, lse, delta, scale)`` plus the branches -> ``dq`` (the dQ kernel, one output) or ``(dk, dv)`` (the
     dK/dV kernel, two), each a contiguous [B, S, H, D] in the inputs'
     dtype; with a mask or kv_lens, ``lse`` is log l and ``row_max`` the
@@ -414,6 +419,8 @@ class _BwdKernel:
         self.tc, self.tc16, self.tc32 = (
             self.types[dt] for dt in (torch.bfloat16, torch.float16,
                                       torch.float32))
+        self.d256 = _build.Counter(f"{kernel}:d256", BWD_SOURCE)
+        self.simt = _build.Counter(f"{kernel}:simt", BWD_SOURCE)
         self._n_out = n_out
 
     def __call__(self, q, k, v, do, lse, delta, scale, *, causal=True,
@@ -427,13 +434,7 @@ class _BwdKernel:
 
     def _launch(self, q, k, v, do, lse, delta, scale, causal, mask, lens,
                 segs, row_max):
-        if q.shape[-1] == 256:
-            raise ValueError(
-                f"{self.KERNEL}: the flash backward takes head_dim 64 or "
-                f"128; its dQ and dK/dV kernels at head_dim 256 are not "
-                f"ported yet (they need a register and shared-memory plan "
-                f"of their own: ROADMAP.md, the head_dim 256 backward)")
-        _check_qkv(q, k, v, causal, BWD_HEAD_DIMS)
+        _check_qkv(q, k, v, causal)
         if do.shape != q.shape or do.dtype != q.dtype \
                 or do.device != q.device or not _head_layout(do):
             raise ValueError(f"do must match q in shape, dtype, device and "
@@ -470,7 +471,10 @@ class _BwdKernel:
         _build.check(err, self.KERNEL)
         counter = self if name is None else self.variants[name]
         counter.launches += 1
-        self.types[q.dtype].launches += 1
+        if d == 256:
+            self.d256.launches += 1
+        (self.simt if d == 256 and q.dtype == torch.float32
+         else self.types[q.dtype]).launches += 1
         return outs[0] if self._n_out == 1 else tuple(outs)
 
 
@@ -544,7 +548,7 @@ def flash_attention_arrays(q, k, v, attn_mask=None, is_causal=False,
     compose with each other and with causal as in `mha_reference`.
 
     On a CUDA tensor this launches the hand-written kernels — any S, head
-    dims 64, 128 and 256 (the backward 64 and 128), float32, bfloat16 or
+    dims 64, 128 and 256 in both directions, float32, bfloat16 or
     float16, every branch — and raises on anything they do not take; it
     never falls back.  On a CPU tensor it computes `mha_reference`.  When grad is enabled and q, k or
     v requires it, the call goes through `FlashAttention`, whose backward

@@ -25,6 +25,38 @@ same argument gives 7e-6 at D = 128 and S = 512, and the card measured
 every rounding in one direction (n 2^-24 = 1.2e-4 at n = 2048) is not
 reached by random inputs, as at D <= 128.
 
+The attention backward in float32 (dQ, dK, dV of the flash kernels) is
+held to ``1e-4 max|ref|`` of each output (the card tests and
+``chip_smoke.py``, ``BWD_REL_FP32``), set at head dims 64 and 128.  At
+256 the sums over D that the two sides take in other orders, the score
+q.k and dP = dO.v, are twice as long; for unit-scale inputs:
+
+- the score moves by ~sqrt(D) 2^-24 (1e-6, as above), so p = exp(s -
+  lse) by that relative; dP, unscaled, by ~D 2^-24 (1.5e-5 at D = 256,
+  7.6e-6 at 128), so ds = p (dP - delta) by p 1.5e-5 (delta is the same
+  tensor on both sides);
+- dQ = scale sum_k ds_k k_k and dK = scale sum_q ds_q q_q then move by
+  ~scale D 2^-24 P|k| ~ sqrt(D) 2^-24 ~ 1e-6 (dV = sum_q p_q dO_q by ~1e-6
+  P|dO|), and their own sums over the n keys of a row (or queries of a
+  key) in other orders by ~sqrt(n) 2^-24 of the sum of term magnitudes:
+  ~3e-6 of it at n = 2048;
+- against max|ref| (at least the typical row's magnitude: dQ and dK
+  grow with sqrt(D) as dP does) these come to a few 1e-6 of max|ref|,
+  under a tenth of the limit at D = 256, as at D = 128 (the split-TF32
+  kernels measured 1e-6 to 1e-5 of max|ref| there).
+
+The CUDA-core kernels that take fp32 at D = 256 sum each q.k and dO.v
+over d in order in one fp32 accumulator (256 terms in sequence: a bound
+of 255 2^-24 = 1.5e-5 of the sum of term magnitudes, ~sqrt(256) 2^-24 =
+1e-6 typical for random signs), and dQ, dK, dV over the row's tiles of 32
+in order, one accumulator across the tiles (n terms in sequence:
+~sqrt(n) 2^-24 typical, n 2^-24 = 1.2e-4 of the magnitude sum as the
+bound at n = 2048).  The plain version's einsums sum in blocks, so the
+sequential order costs a few 1e-6 of max|ref| more on random inputs; the
+sequential bound, which could pass the limit on a long row whose terms
+all round one way, is not reached by random signs.  The limit stands at
+D = 256.
+
 bfloat16: a flat limit is too weak where outputs are small (long rows), so
 the limit is per element and scales with the values it bounds:
 

@@ -1,12 +1,13 @@
-"""Hold the fp32 flash kernels of two trees of paddle_tpu_torch bitwise
-against each other on one NVIDIA GPU.
+"""Hold the flash kernels of two trees of paddle_tpu_torch bitwise against
+each other on one NVIDIA GPU, in float32 (the default) or in the type
+named last (bfloat16, float16).
 
-    PYTHONPATH=<tree A> python3 scripts/flash_fp32_outputs.py save a.pt
-    PYTHONPATH=<tree B> python3 scripts/flash_fp32_outputs.py save b.pt
+    PYTHONPATH=<tree A> python3 scripts/flash_fp32_outputs.py save a.pt [TYPE]
+    PYTHONPATH=<tree B> python3 scripts/flash_fp32_outputs.py save b.pt [TYPE]
     python3 scripts/flash_fp32_outputs.py compare a.pt b.pt
 
 ``save`` runs the forward (out, lse and, with a mask or kv_lens, the
-(row max, log l) pair), dQ and dK/dV kernels in float32 on fixed inputs
+(row max, log l) pair), dQ and dK/dV kernels in that type on fixed inputs
 made from seeds -- causal, non-causal (Sk = Sq + 70), a pad mask with
 rows it closes entirely, kv_lens, segment ids (documents across the
 64-row tiles, permuted in row 1) and all of mask, kv_lens and segments
@@ -21,12 +22,12 @@ import torch
 KINDS = ("causal", "nc", "pad", "lens", "segs", "all")
 
 
-def _inputs(kind, d, b=2, s=200, h=2):
+def _inputs(kind, d, b=2, s=200, h=2, dtype=torch.float32):
     g = torch.Generator().manual_seed(d + len(kind))
     sk = s + 70 if kind == "nc" else s
-    qkv = torch.randn(b, sk, 3, h, d, generator=g).cuda()
+    qkv = torch.randn(b, sk, 3, h, d, generator=g).to("cuda", dtype)
     q, k, v = qkv[:, :s, 0], qkv[:, :, 1], qkv[:, :, 2]
-    do = torch.randn(b, s, h, d, generator=g).cuda()
+    do = torch.randn(b, s, h, d, generator=g).to("cuda", dtype)
     mask = lens = segs = None
     if kind in ("pad", "all"):
         m = torch.zeros(b, 1, s, s)
@@ -45,12 +46,13 @@ def _inputs(kind, d, b=2, s=200, h=2):
     return q, k, v, do, kind != "nc", mask, lens, segs
 
 
-def save(path):
+def save(path, dtype="float32"):
     from paddle_tpu_torch.ops import flash_attention as fa
     out = {}
     for d in (64, 128):
         for kind in KINDS:
-            q, k, v, do, causal, mask, lens, segs = _inputs(kind, d)
+            q, k, v, do, causal, mask, lens, segs = _inputs(
+                kind, d, dtype=getattr(torch, dtype))
             b, s, h, _ = q.shape
             scale = d ** -0.5
             m4 = None if mask is None else fa.normalize_mask(
@@ -68,20 +70,20 @@ def save(path):
             out.update({f"{kind}-{d}-{n}": t.cpu() for n, t in got.items()})
     torch.cuda.synchronize()
     torch.save(out, path)
-    print(f"saved {len(out)} fp32 outputs to {path}")
+    print(f"saved {len(out)} {dtype} outputs to {path}")
 
 
 def compare(path_a, path_b):
     a, b = torch.load(path_a), torch.load(path_b)
     bad = sorted(set(a) ^ set(b)) + [
         n for n in sorted(set(a) & set(b)) if not torch.equal(a[n], b[n])]
-    print(f"fp32 outputs compared: {len(a)}, bitwise different or missing: "
+    print(f"outputs compared: {len(a)}, bitwise different or missing: "
           f"{bad}")
     return 1 if bad else 0
 
 
 if __name__ == "__main__":
     if sys.argv[1] == "save":
-        save(sys.argv[2])
+        save(*sys.argv[2:4])
     else:
         sys.exit(compare(sys.argv[2], sys.argv[3]))

@@ -24,8 +24,9 @@ D = 256 (Gemma 2B's and GPT-J's head size):
     (``PTPU_FUSED_DECODE=1 PTPU_PALLAS_FFN=1``), identical to the JAX
     package's;
 (f) what the card side rests on, checked here: each wrapper's gate
-    takes 256 and still refuses other sizes, the flash backward refuses
-    256 with its own ValueError before any launch, the split-K loop's
+    takes 256 and still refuses other sizes, the flash backward's gate
+    takes 256 (it reaches the kernel's load) and refuses 96 and 384
+    with its own ValueError before any launch, the split-K loop's
     lane layout (`decode_common.cuh` `RowLanes`, mirrored) covers a row
     once with neighbouring lanes on neighbouring 16 bytes and is the
     layout of before at D <= 128, and `fused_plan` sizes the fused
@@ -57,6 +58,7 @@ from paddle_tpu.serving import SamplingParams as JaxSamplingParams
 from paddle_tpu_torch import ops
 from paddle_tpu_torch.convert import params_from_numpy
 from paddle_tpu_torch.models import GPTForCausalLM, gpt_test_config
+from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import flash_decode as fd
 from paddle_tpu_torch.ops import fused_decode as fdl
@@ -473,20 +475,34 @@ def test_gates_refuse_other_head_dims(d):
 
 
 @pytest.mark.parametrize("kernel", [fa.flash_bwd_dq, fa.flash_bwd_dkv])
-def test_backward_refuses_d256_before_any_launch(kernel):
-    """The launcher raises its own ValueError, naming the missing piece,
-    before it loads or launches anything; D = 128 passes the same point
-    (and fails later, at the load, on this machine without nvcc)."""
-    q, k, v, do = (_zeros(1, 8, 2, D) for _ in range(4))
+def test_backward_refuses_d256_before_any_launch(kernel, monkeypatch):
+    """The backward's gate since the D = 256 kernels: D = 256 passes it and
+    reaches the kernel's load (refused here by a stub, as it fails on a
+    machine without nvcc); D = 96 and 384 are refused with the gate's own
+    ValueError, which names the ROADMAP item of larger head dims, before
+    anything is loaded or launched."""
+    loads = []
+
+    def refuse_load(name):
+        loads.append(name)
+        raise LookupError(f"load {name}")
+
+    monkeypatch.setattr(_build, "load", refuse_load)
     stats = _zeros(1, 2, 8)
     ops.reset_launch_counts()
-    with pytest.raises(ValueError, match="head_dim 256.*not ported"):
+    q, k, v, do = (_zeros(1, 8, 2, D) for _ in range(4))
+    with pytest.raises(LookupError, match="flash_bwd_causal"):
         kernel._launch(q, k, v, do, stats, stats, 0.0625, True, None, None,
                        None, None)
+    assert loads == ["flash_bwd_causal"]
+    for d in (96, 384):
+        with pytest.raises(ValueError,
+                           match="head_dim 64, 128, 256, got .*Queue 2 "
+                                 "item 3"):
+            kernel._launch(*(_zeros(1, 8, 2, d) for _ in range(4)), stats,
+                           stats, d ** -0.5, True, None, None, None, None)
+    assert loads == ["flash_bwd_causal"]
     assert set(ops.launch_counts().values()) == {0}
-    with pytest.raises(ValueError, match="head_dim 64, 128"):
-        kernel._launch(*(_zeros(1, 8, 2, 96) for _ in range(4)), stats,
-                       stats, 0.1, True, None, None, None, None)
 
 
 def test_plain_backward_still_runs_at_d256_on_the_cpu():

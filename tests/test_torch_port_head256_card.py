@@ -1,4 +1,4 @@
-"""The port's forward attention kernels at head_dim 256 against their plain
+"""The port's attention kernels at head_dim 256 against their plain
 versions, on the card.
 
 Needs a CUDA device and nvcc; every test skips where
@@ -11,16 +11,20 @@ without it run:
 At D = 256: the flash forward in every branch (causal, an additive mask,
 kv_lens, segment ids, non-causal) in bfloat16, float16 (the tensor-core
 kernel, its P V an m64n256k16 product) and float32 (the CUDA-core
-kernel), the ragged kernel on fp32, bf16 and fp16 pools and on int8
+kernel); the flash dQ and dK/dV kernels in every branch in the same
+three types (bf16 / fp16: dQ with 32-key tiles, dK/dV two warpgroups a
+block; fp32: the CUDA-core kernels), q, k and v slices of one fused qkv
+tensor, and through autograd; the ragged kernel on fp32, bf16 and fp16 pools and on int8
 pools with q of each type, flash decode in the three types and the fused
 decode layer in fp32 and bf16.  Limits (`paddle_tpu_torch.ops.tolerance`):
 float32 ``FP32_FWD`` (2e-5 absolute; the module docstring derives it at
-D = 256), bf16 / fp16 the per-element limits of each kernel kind.  Pool
+D = 256; the backward ``1e-4 max|ref|``, derived there too), bf16 / fp16
+the per-element limits of each kernel kind.  Pool
 writes, int8 codes and scales, and the fused layer's untouched ring rows
 bitwise.  Each launch at 256 counts once more under its ``:d256``
-counter, a float32 flash forward under ``flash_fwd_causal:simt`` (not
-``:tc32``); the backward at 256 raises before any launch, and other head
-sizes stay refused by the wrappers and the C entries.
+counter, a float32 flash forward, dQ or dK/dV under the ``:simt`` of its
+name (not ``:tc32``); other head sizes stay refused by the wrappers and
+the C entries.
 """
 import ctypes
 
@@ -115,23 +119,104 @@ def test_flash_forward_d256_matches_plain(dtype, name, s):
     assert counts[fa.tc16.KERNEL] == int(dtype == torch.float16)
 
 
+BWD_REL_FP32 = 1e-4     # fp32 backward: of max|ref| (tolerance docstring)
+
+
+def _bwd_limits(got, want, q, k, v, out, stat, do, scale, **br):
+    if q.dtype == torch.float32:
+        return [BWD_REL_FP32 * w.abs().max().item() for w in want]
+    return tol.flash_bwd_limits(got, want, q, k, v, out, stat, do, scale,
+                                **br)
+
+
 @pytest.mark.cuda
 @pytest.mark.usefixtures("needs_cuda")
 @pytest.mark.parametrize("dtype", TYPES)
-def test_flash_backward_d256_refused_before_any_launch(dtype):
-    """Through autograd: the forward launches, the backward raises its own
-    ValueError (not a CUDA error) before the dQ kernel launches."""
-    g = torch.Generator().manual_seed(0)
-    q, k, v = (torch.randn(1, 64, 2, D, generator=g).to("cuda", dtype)
-               .requires_grad_() for _ in range(3))
+@pytest.mark.parametrize("name", [c[0] for c in BRANCHES])
+@pytest.mark.parametrize("s", [130, 1000])
+def test_flash_backward_d256_matches_plain(dtype, name, s):
+    """dQ and dK/dV at D = 256 from the kernel forward's statistics, q, k
+    and v slices of one fused [B, S, 3, H, D] tensor and a strided dO,
+    against the plain backward; one launch of each, counted under its
+    branch, ``:d256`` and its type (``:simt`` in fp32)."""
+    b, h = 2, 3
+    g = torch.Generator().manual_seed(s + 1)
+    q, k, v = torch.randn(b, s, 3, h, D, generator=g).to(
+        "cuda", dtype).unbind(2)
+    do = torch.randn(b, s, 2, h, D, generator=g).to("cuda", dtype)[:, :, 1]
+    causal, mask, lens, segs = _branch(name, b, s)
+    scale = D ** -0.5
+    m4 = None if mask is None else fa.normalize_mask(mask, b, h, s, s)
+    out, lse, pair = fa._launch(q, k, v, scale, causal, m4, lens, segs)
+    row_max, stat = (None, lse) if pair is None else pair
+    delta = fa.attention_delta(out, do)
+    br = dict(causal=causal, mask=m4, lens=lens, segs=segs)
     ops.reset_launch_counts()
-    out = fa.flash_attention_arrays(q, k, v, is_causal=True)
-    with pytest.raises(ValueError, match="head_dim 256"):
-        out.float().sum().backward()
+    dq = fa.flash_bwd_dq(q, k, v, do, stat, delta, scale, row_max=row_max,
+                         **br)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, stat, delta, scale,
+                              row_max=row_max, **br)
     counts = ops.launch_counts()
-    assert counts[fa.d256.KERNEL] == 1
-    assert not any(n for name, n in counts.items()
-                   if name.startswith(("flash_bwd_dq", "flash_bwd_dkv")))
+    want = fa.flash_attention_bwd_reference(
+        q, k, v, out, stat, do, scale, is_causal=causal, mask=m4,
+        kv_lens=lens, segment_ids=segs, row_max=row_max)
+    limits = _bwd_limits((dq, dk, dv), want, q, k, v, out, stat, do, scale,
+                         row_max=row_max, **br)
+    torch.cuda.synchronize()
+    for which, got, w, lim in zip(("dq", "dk", "dv"), (dq, dk, dv), want,
+                                  limits):
+        assert got.shape == w.shape and got.dtype == dtype
+        assert w.abs().max().item() > 0, f"{which}: a reference of zeros"
+        _within(got, w, lim, f"backward {which} {name} S={s} {dtype}")
+    variant = fa.variant_name(causal, m4, lens, segs)
+    f32 = dtype == torch.float32
+    for kern in (fa.flash_bwd_dq, fa.flash_bwd_dkv):
+        assert counts[kern.KERNEL if variant is None
+                      else kern.variants[variant].KERNEL] == 1
+        assert counts[kern.d256.KERNEL] == 1
+        assert counts[kern.simt.KERNEL] == int(f32)
+        assert counts[kern.tc32.KERNEL] == 0
+        assert counts[kern.tc.KERNEL] == int(dtype == torch.bfloat16)
+        assert counts[kern.tc16.KERNEL] == int(dtype == torch.float16)
+    assert counts[fa.d256.KERNEL] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.usefixtures("needs_cuda")
+@pytest.mark.parametrize("dtype", TYPES)
+@pytest.mark.parametrize("name", ["causal", "kv_lens", "segs"])
+def test_flash_autograd_d256_launches_both_backward_kernels(dtype, name):
+    """`flash_attention_arrays` at D = 256 under autograd: the forward and
+    both backward kernels launch once each, and the gradients agree with
+    the plain backward fed the kernel forward's out and statistics."""
+    b, h, s = 2, 2, 200
+    g = torch.Generator().manual_seed(7)
+    q, k, v = (torch.randn(b, s, h, D, generator=g).to("cuda", dtype)
+               .requires_grad_() for _ in range(3))
+    do = torch.randn(b, s, h, D, generator=g).to("cuda", dtype)
+    causal, _, lens, segs = _branch(name, b, s)
+    ops.reset_launch_counts()
+    out = fa.flash_attention_arrays(q, k, v, is_causal=causal, kv_lens=lens,
+                                    segment_ids=segs)
+    out.backward(do)
+    counts = ops.launch_counts()
+    for kern in (fa, fa.flash_bwd_dq, fa.flash_bwd_dkv):
+        assert counts[kern.d256.KERNEL] == 1
+    scale = D ** -0.5
+    qd, kd, vd = (t.detach() for t in (q, k, v))
+    o2, lse, pair = fa._launch(qd, kd, vd, scale, causal, None, lens, segs)
+    row_max, stat = (None, lse) if pair is None else pair
+    want = fa.flash_attention_bwd_reference(
+        qd, kd, vd, o2, stat, do, scale, is_causal=causal, kv_lens=lens,
+        segment_ids=segs, row_max=row_max)
+    limits = _bwd_limits((q.grad, k.grad, v.grad), want, qd, kd, vd, o2,
+                         stat, do, scale, causal=causal, lens=lens,
+                         segs=segs, row_max=row_max)
+    torch.cuda.synchronize()
+    assert torch.equal(out.detach(), o2)
+    for which, t, w, lim in zip(("dq", "dk", "dv"), (q, k, v), want,
+                                limits):
+        _within(t.grad, w, lim, f"autograd {which} {name} {dtype}")
 
 
 @pytest.mark.cuda
@@ -139,10 +224,15 @@ def test_flash_backward_d256_refused_before_any_launch(dtype):
 @pytest.mark.parametrize("d", [32, 96, 192, 384])
 def test_other_head_dims_stay_refused(d):
     """The wrappers raise ValueError, the C entries return
-    cudaErrorInvalidValue (1), for every head size but 64, 128, 256."""
+    cudaErrorInvalidValue (1), for every head size but 64, 128, 256: the
+    flash forward and backward, decode and the fused layer."""
     q, k, v = (torch.zeros(1, 16, 2, d, device="cuda") for _ in range(3))
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention_arrays(q, k, v, is_causal=True)
+    stats = torch.zeros(1, 2, 16, device="cuda")
+    for kern in (fa.flash_bwd_dq, fa.flash_bwd_dkv):
+        with pytest.raises(ValueError, match="Queue 2 item 3"):
+            kern(q, k, v, q, stats, stats, 0.125)
     kc = torch.zeros(1, 32, 2 * d, device="cuda")
     with pytest.raises(ValueError, match="head_dim"):
         fd.flash_decode_arrays(q[:, :1], kc, kc, 4)
@@ -154,6 +244,16 @@ def test_other_head_dims_stay_refused(d):
              q.stride(0), q.stride(1), k.stride(0), k.stride(1),
              v.stride(0), v.stride(1), 0, 0, 0, 0, 0, 0.125, stream)
     assert err == 1
+    for entry, n_out in (("flash_bwd_dq", 1), ("flash_bwd_dkv", 2)):
+        fn = fa._bind(getattr(_build.load(fa.BWD_SOURCE), entry),
+                      10 + n_out, 7, 13)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), q.data_ptr(),
+                 lse.data_ptr(), lse.data_ptr(), 0, 0, 0, 0,
+                 *[out.data_ptr()] * n_out, 1, 2, 16, 16, d, 0, 1,
+                 q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+                 v.stride(0), v.stride(1), q.stride(0), q.stride(1),
+                 0, 0, 0, 0, 0, 0.125, stream)
+        assert err == 1, entry
     err = fd._lib().flash_decode(
         q.data_ptr(), kc.data_ptr(), kc.data_ptr(), out.data_ptr(), 0,
         _build.tickets(q.device, 2).data_ptr(), 0, 1, 2, d, 32, 4, 0, 0,

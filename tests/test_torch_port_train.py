@@ -151,7 +151,9 @@ def test_bwd_wrappers_on_cpu_compute_the_plain_backward():
         "fused_ffn_tc:fp16", "fused_ffn_decode:fp16",
         "flash_fwd_causal:d256", "flash_fwd_causal:simt",
         "ragged_paged_attention:d256", "ragged_paged_attention:int8:d256",
-        "flash_decode:d256", "fused_decode_layer:d256"}
+        "flash_decode:d256", "fused_decode_layer:d256",
+        "flash_bwd_dq_causal:d256", "flash_bwd_dq_causal:simt",
+        "flash_bwd_dkv_causal:d256", "flash_bwd_dkv_causal:simt"}
     assert set(ops.launch_counts().values()) == {0}
 
 
