@@ -436,6 +436,7 @@ two trees in turns in one call to compare them.
 """
 import contextlib
 import dataclasses
+import gc
 import hashlib
 import json
 import os
@@ -443,7 +444,9 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
+import urllib.request
 
 import numpy as np
 import torch
@@ -4589,6 +4592,337 @@ def print_train(label, rec, launches, card, dtype="bfloat16"):
               f"device time (not measured)", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 14: HTTP serving
+# ---------------------------------------------------------------------------
+
+HTTP_LENS = tuple(int(n) for n in np.linspace(7, 700, 16).round())
+HTTP_SEEDED = {"temperature": 0.8, "top_k": 50, "top_p": 0.95, "seed": 3}
+HTTP_TURNS = ("api", "direct", "direct", "api")
+# the telemetry gates for the decode step's cost, in turns
+GATE_TURNS = (False, True, True, False)
+GATE_SLO = "ttft_p95<1;tpot_p99<0.1;error_rate<0.01"
+
+
+def http_requests(vocab):
+    """Phase 14's requests: (path, body, SamplingParams fields, prompt ids)
+    of 16 streamed completions of 7-700 tokens, a streamed and a JSON
+    chat, and a seeded JSON completion; 32 new tokens each."""
+    rng = np.random.RandomState(14)
+
+    def ids(n):
+        return rng.randint(0, vocab, (n,)).tolist()
+
+    reqs = []
+    for n in HTTP_LENS:
+        p = ids(n)
+        reqs.append(("/v1/completions", {"prompt": p, "max_tokens": NEW_TOKENS,
+                                         "stream": True}, {}, p))
+    for stream, (a, b) in ((True, (12, 90)), (False, (40, 300))):
+        system, user = ids(a), ids(b)
+        reqs.append(("/v1/chat/completions", {
+            "messages": [{"role": "system", "content": system},
+                         {"role": "user", "content": user}],
+            "max_tokens": NEW_TOKENS, "stream": stream}, {}, system + user))
+    p = ids(150)
+    reqs.append(("/v1/completions",
+                 dict({"prompt": p, "max_tokens": NEW_TOKENS}, **HTTP_SEEDED),
+                 dict(HTTP_SEEDED, do_sample=True), p))
+    return reqs
+
+
+def engine14(model, **kw):
+    """Phase 14's engine: bf16 on the card, fp pools, block 16, 8
+    sequences, whole prompts a step, decode steps captured."""
+    from paddle_tpu_torch.serving import EngineConfig, LLMEngine
+    return LLMEngine(model, EngineConfig(block_size=16, max_num_seqs=8,
+                                         device="cuda",
+                                         dtype=torch.bfloat16, **kw))
+
+
+def http_client(url, path, body):
+    """One request from a client thread: its token ids, finish reason and
+    the host time of the send and of each chunk that carried tokens (one
+    chunk an engine step; a JSON body's arrival)."""
+    req = urllib.request.Request(url + path, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    out = {"tokens": [], "times": [], "finish": None,
+           "sent": time.perf_counter()}
+    with urllib.request.urlopen(req, timeout=300) as resp:
+        if not body.get("stream"):
+            choice = json.loads(resp.read())["choices"][0]
+            out["times"].append(time.perf_counter())
+            out["tokens"] = choice["token_ids"]
+            out["finish"] = choice["finish_reason"]
+            return out
+        for line in resp:
+            line = line.strip()
+            if not line:
+                continue
+            if line == b"data: [DONE]":
+                out["done"] = True
+                break
+            choice = json.loads(line[len(b"data: "):])["choices"][0]
+            if choice["token_ids"]:
+                out["times"].append(time.perf_counter())
+                out["tokens"].extend(choice["token_ids"])
+            if choice["finish_reason"] is not None:
+                out["finish"] = choice["finish_reason"]
+    if not out.get("done"):
+        raise RuntimeError(f"{path}: the stream ended without [DONE]")
+    return out
+
+
+def prom_value(text, name, labels=""):
+    """One series' value from a Prometheus exposition (None if absent)."""
+    m = re.search(rf"^{re.escape(name + labels)} (\S+)$", text, re.M)
+    return None if m is None else float(m.group(1))
+
+
+@contextlib.contextmanager
+def capture_windows(windows):
+    """Record the host-clock (start, end) of every `StepGraph` capture
+    (its ``capture_ms`` back from its return)."""
+    from paddle_tpu_torch.graphs import StepGraph
+    orig = StepGraph._capture
+
+    def timed(self):
+        orig(self)
+        t1 = time.perf_counter()
+        windows.append((t1 - self.capture_ms / 1e3, t1))
+
+    StepGraph._capture = timed
+    try:
+        yield
+    finally:
+        StepGraph._capture = orig
+
+
+def http_api_turn(ops, model, reqs, what):
+    """The requests sent at once from one client thread each to a fresh
+    engine behind the port's `ApiServer`, while one more thread scrapes
+    the engine's ``/metrics`` and ``/healthz`` in a loop from the end of
+    the first decode step until the capture of the second has ended (a
+    tighter loop than any scraper runs; outside it, its load would be in
+    the turn's latencies): every response
+    complete and finished by "stop", every scrape answered 200, at least
+    one scrape in flight during the decode step's capture, and the
+    endpoint's finished-request and decode-token counters equal to the
+    client's counts.  Returns the turn's record, its tokens and the
+    kernel launches of the turn."""
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.serving import ApiServer
+    monitor.reset()
+    monitor.enable(True)
+    eng = engine14(model, metrics_port=0)
+    murl = eng.metrics_server.url
+    srv = ApiServer(engine=eng, api_keys={})
+    results, errors, scrapes, windows = [None] * len(reqs), [], [], []
+    stop = threading.Event()
+
+    def scraper():
+        # from the end of the first decode step (the eager warm-up) until
+        # the second (the capture) has ended: the engine's step counts
+        # and the capture's window are host ints, read without a lock
+        while eng.step_counts["decode"] < 1 and not stop.is_set():
+            time.sleep(0.0005)
+        while not (windows or stop.is_set()):
+            for route in ("/metrics", "/healthz"):
+                t0 = time.perf_counter()
+                try:
+                    with urllib.request.urlopen(murl + route,
+                                                timeout=60) as r:
+                        code, body = r.status, r.read()
+                    if route == "/healthz":
+                        json.loads(body)
+                except Exception as e:     # reported as the turn's failure
+                    errors.append(f"scrape {route}: {e!r}")
+                    return
+                scrapes.append((t0, time.perf_counter(), code))
+
+    def client(i):
+        path, body = reqs[i][:2]
+        try:
+            results[i] = http_client(srv.url, path, body)
+        except Exception as e:             # reported as the turn's failure
+            errors.append(f"request {i}: {e!r}")
+
+    gc.collect()
+    ops.reset_launch_counts()
+    threads = [threading.Thread(target=scraper)] + [
+        threading.Thread(target=client, args=(i,)) for i in range(len(reqs))]
+    with capture_windows(windows):
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads[1:]:
+            t.join()
+        wall = time.perf_counter() - t0
+        stop.set()
+        threads[0].join()
+    launches = ops.launch_counts()
+    with urllib.request.urlopen(murl + "/metrics", timeout=60) as r:
+        text = r.read().decode()
+    srv.stop()
+    monitor.stop_server()
+    if errors:
+        fail(f"{what}: " + "; ".join(errors[:5]))
+    if any(r["finish"] != "stop" or len(r["tokens"]) != NEW_TOKENS
+           for r in results):
+        fail(f"{what}: finishes {[r['finish'] for r in results]}, lengths "
+             f"{[len(r['tokens']) for r in results]}")
+    if eng.compiles != {"ragged": 1} or len(windows) != 1:
+        fail(f"{what}: captures {eng.compiles} ({len(windows)} windows)")
+    if any(code != 200 for *_, code in scrapes):
+        fail(f"{what}: scrapes answered {sorted({c for *_, c in scrapes})}")
+    (c0, c1), = windows
+    during = sum(1 for a, b, _ in scrapes if a < c1 and b > c0)
+    if not during:
+        fail(f"{what}: no scrape in flight during the capture "
+             f"({len(scrapes)} scrapes)")
+    want = {"finished": len(reqs),
+            "decode_tokens": sum(len(r["tokens"]) - 1 for r in results)}
+    got = {"finished": prom_value(text, "serving_requests_finished"),
+           "decode_tokens": prom_value(text, "serving_decode_tokens")}
+    if got != want or prom_value(text, "serving_finish_reason",
+                                 '{reason="stop"}') != len(reqs):
+        fail(f"{what}: /metrics counts {got}, the client's {want}")
+    expected = engine_launches(eng, torch.bfloat16)
+    if launches != expected:
+        fail(f"{what}: launches {launches}, expected {expected}")
+    streamed = [r for r in results if len(r["times"]) > 1]
+    ttft = [(r["times"][0] - r["sent"]) * 1e3 for r in streamed]
+    tpot = [(r["times"][-1] - r["times"][0]) * 1e3 / (len(r["tokens"]) - 1)
+            for r in streamed]
+    rec = {"wall_s": wall, "ttft_ms": ttft, "tpot_ms": tpot,
+           "ttft_p50_ms": float(np.percentile(ttft, 50)),
+           "ttft_p95_ms": float(np.percentile(ttft, 95)),
+           "tpot_p50_ms": float(np.percentile(tpot, 50)),
+           "tpot_p95_ms": float(np.percentile(tpot, 95)),
+           "scrapes": len(scrapes), "scrapes_during_capture": during,
+           "capture_ms": (c1 - c0) * 1e3, "step_counts": eng.step_counts,
+           "metrics": got}
+    return rec, [r["tokens"] for r in results], launches
+
+
+def http_direct_turn(model, reqs):
+    """The same requests through `LLMEngine.generate` on a fresh engine:
+    (wall seconds, tokens)."""
+    from paddle_tpu_torch.serving import SamplingParams
+    eng = engine14(model)
+    prompts = [np.asarray(r[3], np.int32) for r in reqs]
+    params = [SamplingParams(max_new_tokens=NEW_TOKENS, **r[2]) for r in reqs]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = eng.generate(prompts, params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return wall, [o[len(p):].tolist() for o, p in zip(outs, prompts)]
+
+
+@contextlib.contextmanager
+def telemetry_gates(on):
+    """Every serving telemetry gate on (monitor, trace, reqlog, an SLO
+    engine ticking each second) or off; as the environment says after."""
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.monitor import reqlog, slo, trace
+    monitor.enable(on)
+    trace.enable(on)
+    reqlog.enable(on)
+    slo.install(slo.SloEngine(GATE_SLO) if on else None)
+    try:
+        yield
+    finally:
+        slo.install(None)
+        slo.refresh()
+        for m in (monitor, trace, reqlog):
+            m.refresh()
+        trace.reset()
+        reqlog.reset()
+
+
+def decode_ms_gated(model, reqs, on):
+    """Median wall ms of the engine's decode steps past the capture (each
+    step synced alone), the first 8 requests served straight from the
+    engine, the telemetry gates ``on`` or off."""
+    from paddle_tpu_torch.serving import SamplingParams
+    with telemetry_gates(on):
+        eng = engine14(model)
+        ids = [eng.add_request(np.asarray(r[3], np.int32),
+                               SamplingParams(max_new_tokens=NEW_TOKENS))
+               for r in reqs[:8]]
+        times = []
+        while eng.has_unfinished():
+            decodes = eng.step_counts["decode"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.step()
+            torch.cuda.synchronize()
+            if eng.step_counts["decode"] > decodes >= 2:
+                times.append((time.perf_counter() - t0) * 1e3)
+        for i in ids:
+            eng.release_request(i)
+    return statistics.median(times)
+
+
+def http_phase(ops, card):
+    """Phase 14 (module docstring): GPT-2 124M served over HTTP.  Returns
+    its record and the launches of its first API turn."""
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt2_124m_config
+    cfg = gpt2_124m_config(stacked_blocks=True)
+    model = GPTForCausalLM(cfg, device="cpu",
+                           generator=torch.Generator().manual_seed(0))
+    reqs = http_requests(cfg.vocab_size)
+    turns, tokens, launches = [], [], None
+    for i, kind in enumerate(HTTP_TURNS):
+        if kind == "api":
+            rec, toks, ran = http_api_turn(ops, model, reqs,
+                                           f"phase 14 API turn {i + 1}")
+            launches = launches or ran
+        else:
+            wall, toks = http_direct_turn(model, reqs)
+            rec = {"wall_s": wall}
+        rec["turn"] = kind
+        turns.append(rec)
+        tokens.append(toks)
+        torch.cuda.empty_cache()
+    for i, toks in enumerate(tokens[1:], 2):
+        for j, (a, b) in enumerate(zip(tokens[0], toks)):
+            if a != b:
+                first = next(k for k, (x, y) in enumerate(zip(a, b))
+                             if x != y)
+                fail(f"phase 14: request {j} ({reqs[j][0]}) in turn {i} "
+                     f"({HTTP_TURNS[i - 1]}) differs from turn 1 (api) at "
+                     f"token {first}")
+    gated = [{"on": on, "decode_ms": decode_ms_gated(model, reqs, on)}
+             for on in GATE_TURNS]
+    api = [t for t in turns if t["turn"] == "api"]
+    for t in turns:
+        line = f"phase 14 {t['turn']} turn: wall {t['wall_s']:.3f} s"
+        if t["turn"] == "api":
+            line += (f", TTFT p50 {t['ttft_p50_ms']:.3f} / p95 "
+                     f"{t['ttft_p95_ms']:.3f} ms, TPOT p50 "
+                     f"{t['tpot_p50_ms']:.3f} / p95 {t['tpot_p95_ms']:.3f} ms"
+                     f" ({len(t['ttft_ms'])} streamed), {t['scrapes']} "
+                     f"scrapes ({t['scrapes_during_capture']} during the "
+                     f"{t['capture_ms']:.1f} ms capture), /metrics "
+                     f"{t['metrics']}")
+        print(line + f" ({card})", flush=True)
+    print(f"phase 14: {len(reqs)} requests (16 streamed of "
+          f"{HTTP_LENS[0]}-{HTTP_LENS[-1]} tokens, 2 chats, 1 seeded; "
+          f"{NEW_TOKENS} new), API tokens identical to the direct engine's "
+          f"in every turn; engine wall ms a decode step, telemetry gates "
+          + ", ".join(f"{'on' if g['on'] else 'off'} {g['decode_ms']:.3f}"
+                      for g in gated)
+          + f"; launches of the first API turn: flash forward "
+          f"{launches[FWD]} ({launches[FWD_TC]} on the tensor cores), "
+          f"ragged {launches[RAGGED]} ({card})", flush=True)
+    return {"turns": turns, "gated_decode_ms": gated,
+            "api_ttft_p50_ms": [t["ttft_p50_ms"] for t in api],
+            "requests": len(reqs)}, launches
+
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs a GPU")
@@ -5179,6 +5513,10 @@ def main():
     result["head256_train"], launches_h13d = head256_train(ops, card)
     mark("13d head_dim 256 recipe B training")
 
+    # -- 14. HTTP serving ---------------------------------------------------
+    result["http"], launches_http = http_phase(ops, card)
+    mark("14 HTTP serving")
+
     # -- 8. summary --------------------------------------------------------
     # the serving kernels at fp32 S=384 / the decode step (the int8 one
     # too); the backward kernels at the training shape in bf16, the
@@ -5323,6 +5661,7 @@ def main():
             run[k["name"]]
             for runs in (launches_h32, launches_h16, launches_h13d)
             for run in runs.values())
+        k["launches_http"] = launches_http[k["name"]]
     idle = [k["name"] for k in kernels if not k["launches"]]
     if idle:
         fail(f"kernels never launched on their main path: {idle}")

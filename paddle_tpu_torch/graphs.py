@@ -16,12 +16,20 @@ switch at 0) every call runs the step eagerly: the same code over the
 same static buffers.  A failed capture or replay raises; nothing falls
 back to the eager step.
 
+Python's garbage collector is held off during a capture.  Callers drop
+engines and models that hold captured graphs, and such an object lives
+in a reference cycle (its steps refer back to it), so it is freed by a
+collection, which can fall at any allocation.  Freeing a graph during
+another's capture is a CUDA call the capture forbids: the capture
+fails.
+
 The kernel wrappers count their launches in Python, which a replay does
 not run: the capture's counts are taken back, and added again at every
 replay, so that `ops.launch_counts()` keeps counting launches run.
 """
 from __future__ import annotations
 
+import gc
 import os
 import time
 
@@ -44,14 +52,17 @@ def graphs_on(device) -> bool:
 class StepGraph:
     """``step()`` run eagerly once, then captured and replayed (module
     docstring).  ``counts``: the owner's ``{kind: captures}``, raised by
-    one at each capture.  After a capture, ``launches`` holds the kernel
-    launches of one replay and ``capture_ms`` the capture's host time."""
+    one at each capture; ``on_capture(kind)``, when given, is called
+    after each capture (the engine's ``serving/compiles`` counter).
+    After a capture, ``launches`` holds the kernel launches of one replay
+    and ``capture_ms`` the capture's host time."""
 
-    def __init__(self, step, device, kind, counts):
+    def __init__(self, step, device, kind, counts, on_capture=None):
         self.step = step
         self.device = torch.device(device)
         self.kind = kind
         self.counts = counts
+        self.on_capture = on_capture
         self.warm = False
         self.graph = None
         self.outputs = None
@@ -71,12 +82,18 @@ class StepGraph:
     def _capture(self):
         before = ops.launch_counts()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.device(self.device):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            with torch.cuda.graph(graph):
-                outputs = self.step()
-            torch.cuda.synchronize()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.device(self.device):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with torch.cuda.graph(graph):
+                    outputs = self.step()
+                torch.cuda.synchronize()
+        finally:
+            if collecting:
+                gc.enable()
         self.capture_ms = (time.perf_counter() - t0) * 1e3
         after = ops.launch_counts()
         self.launches = {k: n - before[k] for k, n in after.items()
@@ -84,3 +101,5 @@ class StepGraph:
         ops.add_launches({k: -n for k, n in self.launches.items()})
         self.graph, self.outputs = graph, outputs
         self.counts[self.kind] = self.counts.get(self.kind, 0) + 1
+        if self.on_capture is not None:
+            self.on_capture(self.kind)

@@ -27,10 +27,11 @@ Exporters: `export_prometheus()` (text exposition format),
 Naming convention: ``subsystem/metric`` (e.g. ``train/step_time``);
 slashes are mapped to ``_`` for Prometheus.
 
-Submodules ported so far: `flight`, `perf` (its segment timers) and
-`train`.  Still to come with the rest of ``monitor`` (trace, serve,
-fleet, hlo, reqlog, slo, memory): the fleet federation merge
-(``StatRegistry.merge_snapshot``) and the live endpoint.
+Submodules: `trace` (spans, liveness), `flight` (with the stall
+watchdog), `serve` (the live endpoint), `reqlog`, `slo`, `wire`, `perf`
+(its segment timers) and `train`.  Still to come with the rest of
+``monitor`` (fleet, hlo, memory; ROADMAP Queue 1 item 8): the fleet
+federation merge (``StatRegistry.merge_snapshot``).
 """
 from __future__ import annotations
 
@@ -654,14 +655,18 @@ def STAT_RESET(name):
     _default.gauge(name).set(0)
 
 
-# -- the submodules ported so far -------------------------------------------
+# -- the submodules ---------------------------------------------------------
 # Guarded relative imports: a test loads THIS file standalone
 # (spec_from_file_location, no package) to prove the core registry
 # imports neither torch nor jax; in that mode the submodules — equally
 # stdlib-only — are simply absent.
 try:
-    from . import flight, perf, train  # noqa: E402,F401
+    from . import trace, flight, serve, perf, train  # noqa: E402,F401
+    from . import reqlog, slo, wire               # noqa: E402,F401
+    from .flight import watchdog                  # noqa: E402,F401
+    from .serve import start_server, stop_server  # noqa: E402,F401
 
-    __all__ += ["flight", "perf", "train"]
-except ImportError:   # standalone module load — core registry only
+    __all__ += ["trace", "flight", "serve", "perf", "train", "reqlog",
+                "slo", "wire", "watchdog", "start_server", "stop_server"]
+except ImportError:   # loaded standalone, outside the package
     pass

@@ -1,10 +1,10 @@
 """Flight recorder — the port of `paddle_tpu/monitor/flight.py`: the
-post-mortem story for crashes and preemptions.
+post-mortem story for crashes, preemptions and hangs.
 
 A fixed-size, lock-cheap ring buffer keeps the last N observability
-records of this process (explicit ``flight.note(...)`` breadcrumbs, such
-as `train.LossSpikeDetector`'s, and the finished spans that
-``monitor.trace`` records once it is ported).  On the events below, the
+records of this process (the finished spans of ``monitor.trace`` and
+explicit ``flight.note(...)`` breadcrumbs, such as
+`train.LossSpikeDetector`'s).  On the events below, the
 ring — with a monitor snapshot and optionally a py-stack of every live
 thread — is dumped as one JSON file into ``PTPU_FLIGHT_DIR``:
 
@@ -13,12 +13,10 @@ thread — is dumped as one JSON file into ``PTPU_FLIGHT_DIR``:
   after the dump);
 - an unhandled exception (``sys.excepthook`` wrapper);
 - an explicit :func:`maybe_dump` (active whenever ``PTPU_FLIGHT_DIR``
-  is set).
-
-The JAX package's stall ``watchdog`` reads ``trace.heartbeat()``, the
-liveness signal of ``monitor.trace``; it comes with that module.  Until
-then a dump's ``last_activity_age_s`` is None: the import of ``trace`` is
-guarded, as ``monitor/__init__.py`` guards its submodules.
+  is set);
+- the :func:`watchdog` thread: when no span or engine step has completed
+  for ``stall_s`` seconds (``trace.heartbeat()`` is the liveness signal),
+  the ring plus a stack snapshot of all threads is dumped.
 
 Ring size: ``PTPU_FLIGHT_RING`` (default 512 records).  Everything here
 is stdlib-only; the monitor snapshot is imported lazily at dump time.
@@ -36,8 +34,8 @@ from collections import deque
 
 __all__ = [
     "FlightRecorder", "get_recorder", "record_span", "note", "dump",
-    "maybe_dump", "dump_from_signal", "install", "uninstall",
-    "flight_dir", "latest_dump",
+    "maybe_dump", "dump_from_signal", "install", "uninstall", "watchdog",
+    "Watchdog", "flight_dir", "latest_dump",
 ]
 
 _DEFAULT_RING = 512
@@ -88,7 +86,7 @@ class FlightRecorder:
         `dir` defaults to PTPU_FLIGHT_DIR, then <tmp>/ptpu_flight."""
         import tempfile
 
-        from . import snapshot
+        from . import snapshot, trace
 
         dir = dir or flight_dir() or os.path.join(tempfile.gettempdir(),
                                                   "ptpu_flight")
@@ -100,7 +98,7 @@ class FlightRecorder:
             "ts": time.time(),
             "pid": os.getpid(),
             "argv": list(sys.argv),
-            "last_activity_age_s": _last_activity_age(),
+            "last_activity_age_s": trace.last_activity_age(),
             "ring": self.records(),
             "metrics": _safe_snapshot(snapshot),
         }
@@ -117,16 +115,6 @@ class FlightRecorder:
             os.fsync(f.fileno())
         os.rename(tmp, path)   # a reader never sees a half-written dump
         return path
-
-
-def _last_activity_age():
-    """Seconds since the last span or step ended (``trace``), or None
-    while ``monitor.trace`` is not there."""
-    try:
-        from . import trace
-    except ImportError:
-        return None
-    return trace.last_activity_age()
 
 
 def _safe_snapshot(snapshot_fn) -> dict:
@@ -282,3 +270,69 @@ def uninstall() -> None:
     if _prev_excepthook is not None:
         sys.excepthook = _prev_excepthook
         _prev_excepthook = None
+
+
+# -- the watchdog -----------------------------------------------------------
+
+class Watchdog(threading.Thread):
+    """Daemon thread dumping the ring + all-thread stacks when no span or
+    step has completed for `stall_s` seconds, then re-arming (one dump
+    per distinct stall, not one per poll).  Counts
+    ``monitor/watchdog_dumps``."""
+
+    def __init__(self, stall_s: float, dir: str = None, interval=None):
+        super().__init__(name="ptpu-watchdog", daemon=True)
+        self.stall_s = float(stall_s)
+        self.dir = dir
+        self.interval = interval or max(0.05, self.stall_s / 4.0)
+        self.dump_paths: list = []
+        self._stop_evt = threading.Event()
+
+    def run(self):
+        from . import counter, trace
+
+        ctr = counter("monitor/watchdog_dumps",
+                      "flight dumps triggered by a detected stall")
+        errs = counter("monitor/watchdog_errors",
+                       "watchdog dump attempts that failed")
+        dumped_beat = None
+        while not self._stop_evt.wait(self.interval):
+            age = trace.last_activity_age()
+            if age <= self.stall_s:
+                continue
+            # re-arm by remembering which beat was dumped, not by calling
+            # trace.heartbeat(): a forged beat would reset /healthz's
+            # last_activity_age_s and hide the ongoing stall
+            beat = trace._last_beat[0]
+            if beat == dumped_beat:
+                continue
+            try:
+                path = _recorder.dump(
+                    "stall", dir=self.dir,
+                    extra={"stall_s": self.stall_s, "stalled_for_s": age})
+                self.dump_paths.append(path)
+                ctr.inc()
+            except Exception:   # a failed dump (disk full, dir gone) must
+                # not kill the watchdog: the next stall still deserves an
+                # attempt; failures are counted
+                errs.inc()
+            dumped_beat = beat   # the next dump needs a new stall
+
+    def stop(self, timeout: float = 5.0):
+        self._stop_evt.set()
+        self.join(timeout)
+
+
+def watchdog(stall_s: float, dir: str = None, interval=None) -> Watchdog:
+    """Start a stall watchdog; returns the (stoppable) thread::
+
+        w = monitor.watchdog(stall_s=120)
+        ...
+        w.stop()
+    """
+    from . import trace
+
+    trace.heartbeat()   # the clock starts now, not at module import
+    w = Watchdog(stall_s, dir=dir, interval=interval)
+    w.start()
+    return w

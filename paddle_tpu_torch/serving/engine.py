@@ -67,23 +67,59 @@ The final LayerNorm and tied LM head follow the JAX ``_model_logits``
 ``kv_lens = 0``, table entries ``num_blocks`` and slots ``num_slots``:
 their writes are dropped and their outputs ignored.
 
-Left out for later slices: SLO-aware shedding (``monitor.slo``), the
-monitor and tracing (``metrics_port`` raises), ``decode_breakdown``, and
-CUDA-graph capture of the prefill and chunk steps.
+Telemetry, as the JAX engine's (all default off, each hook a flag check
+when its gate is unset):
+
+- the registry (``PTPU_MONITOR``): ``serving/queue_depth``,
+  ``running``, ``waiting``, ``blocks_in_use``, ``block_utilization``,
+  ``kv_free_blocks``, ``kv_parked_blocks``, ``prefill_tokens``,
+  ``decode_tokens``, ``prefill_tps``, ``decode_tps``, ``preemptions``,
+  ``requests_finished``, ``deadline_expired``, ``step_time{phase}``,
+  ``ttft`` / ``tpot`` (with ``{tenant}`` series and trace-id exemplars),
+  ``queue_wait``, ``finish_reason{reason}``, ``tenant_tokens`` /
+  ``tenant_admitted`` / ``tenant_shed``, ``compiles{kind}`` (raised at
+  each `StepGraph` capture: the port's compiles are its captures, kinds
+  "ragged" and "verify"), ``attention_impl{kind}``,
+  ``kernels_per_step`` (the decode step's dispatches: its step and the
+  sampler), ``padding_waste{kind}``, ``goodput_tokens_per_s``,
+  ``spec_proposed`` / ``spec_accepted`` / ``spec_accept_rate``, and the
+  int8 pool's ``lowbit/kv_blocks{dtype}`` / ``lowbit/bytes_saved{wing}``.
+  Every value is a host number: a scrape from another thread never
+  touches the card, so it cannot break a capture on the engine's thread.
+- spans (``PTPU_TRACE``): a root ``serving/request`` span a request with
+  ``serving/queue_wait``, ``serving/prefill`` (one a chunk) and
+  ``serving/decode_step`` children (`request_trace`).
+- the wide ``monitor.reqlog`` event a finished request (``PTPU_REQLOG``),
+  the ``monitor.slo`` tick a step (``PTPU_SLO``), with SLO-violating
+  traces kept by tail sampling and best-effort requests still queued
+  shed while the burn rate breaches ``PTPU_SHED_BURN``.
+- ``EngineConfig(metrics_port=...)`` starts ``monitor.serve``'s endpoint.
+
+TTFT and TPOT are host times, taken when a step's tokens have reached
+the host.  Left out for later slices: ``decode_breakdown``, the memory
+microscope (``PTPU_MEMOBS``), the fault injection of
+``resilience/faults`` and CUDA-graph capture of the prefill and chunk
+steps.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
+import time
+from collections import OrderedDict
 from typing import Optional
 
 import numpy as np
 import torch
 
+from .. import monitor
 from ..core import random as _random
 from ..device import resolve_device
 from ..graphs import StepGraph
 from ..models.gpt import BLOCK_PARAMS, _filter_logits, _stacked_block_body
+from ..monitor import reqlog as mreqlog
+from ..monitor import slo as mslo
+from ..monitor import trace as mtrace
 from ..nn.functional import layer_norm_arrays
 from ..ops.flash_attention import flash_attention_arrays
 from ..ops.paged_attention import (paged_attention_arrays,
@@ -93,7 +129,8 @@ from ..ops.ragged_paged_attention import ragged_paged_attention_arrays
 from ..resilience.retry import Deadline
 from .kv_cache import (BlockKVCache, prefix_block_keys, snapshot_from_handoff,
                        snapshot_to_handoff)
-from .scheduler import Request, SamplingParams, Scheduler
+from .scheduler import (Request, SamplingParams, Scheduler, priority_rank,
+                        should_shed, worst_fast_burn)
 from .spec import propose_ngram
 
 __all__ = ["EngineConfig", "LLMEngine"]
@@ -111,8 +148,10 @@ class EngineConfig:
     # num_blocks then fills the fp pool's bytes (~2x blocks for bf16, ~4x
     # for fp32).  None = pools in the engine's dtype.
     kv_cache_dtype: Optional[str] = None
-    # the JAX engine's live metrics endpoint: kept for its position; the
-    # port has no monitor.serve yet, so setting it raises
+    # launch monitor.serve's live endpoint (/metrics, /healthz,
+    # /traces/<id>, ...) on this port when the engine boots; 0 =
+    # ephemeral (read it back from engine.metrics_server.port), None = no
+    # server
     metrics_port: Optional[int] = None
     # "ragged" (default) or "bucketed" (kept for parity with JAX, eager
     # and slower on the card); None reads PTPU_RAGGED ("0", "false",
@@ -135,13 +174,6 @@ class EngineConfig:
     _: dataclasses.KW_ONLY
     device: Optional[str] = None           # None = "cuda"
     dtype: Optional[torch.dtype] = None    # None = the model's dtype
-
-    def __post_init__(self):
-        if self.metrics_port is not None:
-            raise NotImplementedError(
-                "EngineConfig.metrics_port: the live metrics endpoint "
-                "(monitor.serve) is not ported yet (ROADMAP Queue 1 item "
-                "8)")
 
 
 class LLMEngine:
@@ -214,6 +246,20 @@ class LLMEngine:
             cfg.num_hidden_layers, num_blocks, c.block_size, self.num_heads,
             self.head_dim, dtype=self.dtype, device=self.device,
             kv_quant=self.kv_quant)
+        if monitor.enabled():
+            monitor.gauge("lowbit/kv_blocks",
+                          "paged KV pool size in blocks").labels(
+                dtype=self.kv_quant or _dtype_name(self.dtype)).set(
+                    num_blocks)
+            if self.kv_quant:
+                # what this pool's block count would cost at the engine's
+                # dtype, minus what the quantized pool costs
+                fp_cost = num_blocks * cfg.num_hidden_layers \
+                    * BlockKVCache.block_bytes(c.block_size, self.num_heads,
+                                               self.head_dim, self.dtype)
+                monitor.counter("lowbit/bytes_saved").labels(
+                    wing="kv_cache").add(max(0, fp_cost
+                                             - self.cache.pool_bytes))
         self.scheduler = Scheduler(
             self.cache, max_num_seqs=c.max_num_seqs,
             max_num_batched_tokens=(c.max_num_batched_tokens
@@ -233,6 +279,96 @@ class LLMEngine:
         # captured step graphs by kind, and the static steps by JAX key
         self.compiles: dict = {}
         self._steps: dict = {}
+        self._init_metrics()
+        self._wall_s_total = 0.0
+        self._goodput_toks = 0
+        # rid -> trace_id survives release_request (the spans live in the
+        # bounded monitor.trace store), bounded like that store
+        self._trace_ids: "OrderedDict" = OrderedDict()
+        self.metrics_server = None
+        if c.metrics_port is not None:
+            from ..monitor import serve as mserve
+
+            self.metrics_server = mserve.start_server(c.metrics_port)
+
+    def _init_metrics(self):
+        """The JAX engine's metric handles (no-ops with PTPU_MONITOR
+        off); every value they take is a host number."""
+        m = monitor
+        self._m_queue = m.gauge("serving/queue_depth",
+                                "requests waiting for admission")
+        self._m_running = m.gauge("serving/running", "requests decoding")
+        self._m_waiting = m.gauge("serving/waiting",
+                                  "waiting incl. preempted")
+        self._m_blocks = m.gauge("serving/blocks_in_use", "KV blocks held")
+        self._m_util = m.gauge("serving/block_utilization",
+                               "blocks_in_use / num_blocks")
+        self._m_pre_toks = m.counter("serving/prefill_tokens")
+        self._m_dec_toks = m.counter("serving/decode_tokens")
+        self._m_pre_tps = m.gauge("serving/prefill_tps")
+        self._m_dec_tps = m.gauge("serving/decode_tps")
+        self._m_preempt = m.counter("serving/preemptions")
+        self._m_done = m.counter("serving/requests_finished")
+        self._m_expired = m.counter("serving/deadline_expired",
+                                    "requests aborted past deadline_s")
+        self._m_step = m.histogram("serving/step_time")
+        self._m_ttft = m.histogram("serving/ttft",
+                                   "arrival to first token, seconds")
+        self._m_tpot = m.histogram("serving/tpot",
+                                   "inter-token latency after the first, "
+                                   "seconds")
+        self._m_queue_wait = m.histogram(
+            "serving/queue_wait",
+            "arrival to first prefill compute, seconds")
+        self._m_finish = m.counter(
+            "serving/finish_reason",
+            "finished requests by outcome "
+            "(stop|abort|deadline|released|migrated|shed)")
+        # tenant-labeled series materialize only for requests that carry
+        # a tenant
+        self._m_tenant_tokens = m.counter(
+            "serving/tenant_tokens", "generated tokens by tenant")
+        self._m_tenant_admitted = m.counter(
+            "serving/tenant_admitted", "requests accepted by tenant")
+        self._m_tenant_shed = m.counter(
+            "serving/tenant_shed",
+            "best-effort requests shed by SLO admission control, "
+            "by tenant")
+        self._m_compiles = m.counter("serving/compiles",
+                                     "step-program cache misses")
+        self._m_attn_impl = m.counter(
+            "serving/attention_impl",
+            "decode steps served, by attention path")
+        self._m_kernels = m.gauge(
+            "serving/kernels_per_step",
+            "distinct compiled programs dispatched per decode step")
+        pad = m.gauge(
+            "serving/padding_waste",
+            "padded fraction of the fixed-shape decode program")
+        self._m_pad_rows = pad.labels(kind="rows")
+        self._m_pad_toks = pad.labels(kind="tokens")
+        self._m_goodput = m.gauge(
+            "serving/goodput_tokens_per_s",
+            "generated tokens per second of total engine step wall "
+            "time (prefill/idle/scheduling included)")
+        self._m_spec_prop = m.counter(
+            "serving/spec_proposed", "draft tokens proposed")
+        self._m_spec_acc = m.counter(
+            "serving/spec_accepted", "draft tokens accepted by verify")
+        self._m_spec_rate = m.gauge(
+            "serving/spec_accept_rate",
+            "cumulative accepted/proposed draft-token ratio")
+        self._m_kv_free = m.gauge(
+            "serving/kv_free_blocks",
+            "truly free KV blocks (free list only, parked excluded)")
+        self._m_kv_parked = m.gauge(
+            "serving/kv_parked_blocks",
+            "LRU-parked prefix blocks (adoptable AND reclaimable)")
+
+    def _count_capture(self, kind: str) -> None:
+        """A `StepGraph` capture: the port's counterpart of the JAX
+        engine's step-program compile (``serving/compiles{kind}``)."""
+        self._m_compiles.labels(kind=kind).inc()
 
     # -- request API --------------------------------------------------------
 
@@ -251,7 +387,8 @@ class LLMEngine:
             req.deadline = Deadline(params.deadline_s)
         return req
 
-    def _enqueue(self, req) -> int:
+    def _enqueue(self, req, **trace_attrs) -> int:
+        self._begin_trace(req, **trace_attrs)
         self._requests[req.req_id] = req
         self.scheduler.add(req)
         return req.req_id
@@ -268,7 +405,10 @@ class LLMEngine:
             # fills the blocks
             req.prefix_keys = prefix_block_keys(prompt,
                                                 self.cache.block_size)
-        return self._enqueue(req)
+        rid = self._enqueue(req)
+        if monitor.enabled() and params.tenant:
+            self._m_tenant_admitted.labels(tenant=params.tenant).inc()
+        return rid
 
     def fork_request(self, parent_id, sampling_params=None) -> int:
         """A new request continuing the parent's current text, sharing
@@ -289,7 +429,7 @@ class LLMEngine:
         req.num_computed = parent.total_len - 1
         self.cache.fork(parent_id, req.req_id)
         self.cache.privatize_last_block(req.req_id)
-        return self._enqueue(req)
+        return self._enqueue(req, forked_from=parent_id)
 
     def export_request(self, req_id) -> dict:
         """Detach a running, fully-prefilled request for migration to
@@ -316,7 +456,7 @@ class LLMEngine:
             "kv": snapshot_to_handoff(self.cache.swap_out(req_id)),
         }
         self.scheduler.running.remove(req)
-        req.finish_reason = "migrated"
+        self._finish_request(req, "migrated")
         req.state = Request.FINISHED
         del self._requests[req_id]
         return handoff
@@ -345,7 +485,115 @@ class LLMEngine:
         # last emitted token is fed by the next decode step
         req.num_computed = req.total_len - 1
         req.swap = snapshot_from_handoff(kv)
-        return self._enqueue(req)
+        return self._enqueue(req, adopted=True)
+
+    # -- telemetry ----------------------------------------------------------
+
+    def _begin_trace(self, req, **attrs) -> None:
+        """Stamp arrival (TTFT's zero point) and, with tracing on, open
+        the request's root span and its queue-wait child."""
+        req.arrival_t = time.perf_counter()
+        req.arrival_ts = time.time()   # wall clock for the reqlog event
+        if mtrace.enabled():
+            root = mtrace.start_span(
+                "serving/request", rid=req.req_id,
+                prompt_len=req.prompt_len,
+                max_new_tokens=req.params.max_new_tokens, **attrs)
+            req.trace = root
+            req.queue_span = mtrace.start_span("serving/queue_wait",
+                                               parent=root)
+            self._trace_ids[req.req_id] = root.trace_id
+            while len(self._trace_ids) > mtrace._MAX_TRACES:
+                self._trace_ids.popitem(last=False)
+
+    def _end_trace(self, req, finish: str, keep: bool = False) -> None:
+        """Close the request's open spans (idempotent).  ``keep=True``
+        marks the root for tail sampling's always-keep path."""
+        if req.queue_span is not None:
+            req.queue_span.end(finish=finish)
+            req.queue_span = None
+        if req.trace is not None:
+            extra = {"keep": True} if keep else {}
+            req.trace.end(finish=finish, tokens=len(req.output_ids),
+                          **extra)
+            req.trace = None
+
+    def _finish_request(self, req, reason: str) -> None:
+        """The one request-finish choke point (idempotent): stamp the
+        reason, close spans (SLO violators kept for tail sampling), count
+        the outcome, and emit the wide reqlog event.  Reasons: "stop",
+        "deadline", "abort" (released mid-flight), "released" (released
+        while still queued), "migrated" (exported to another engine),
+        "shed" (best-effort work dropped by SLO-aware admission)."""
+        if req.finish_reason is not None:
+            return
+        req.finish_reason = reason
+        gen = len(req.output_ids)
+        ttft = tpot_avg = None
+        if req.first_token_t is not None and req.arrival_t is not None:
+            ttft = req.first_token_t - req.arrival_t
+        if gen >= 2 and req.first_token_t is not None \
+                and req.last_token_t is not None:
+            tpot_avg = (req.last_token_t - req.first_token_t) / (gen - 1)
+        keep = mslo.enabled() and mslo.violates(
+            ttft_s=ttft, tpot_avg_s=tpot_avg,
+            queue_wait_s=req.queue_wait_s)
+        self._end_trace(req, reason, keep=keep)
+        tenant = req.params.tenant
+        if monitor.enabled():
+            self._m_finish.labels(reason=reason).inc()
+            if tenant and gen:
+                self._m_tenant_tokens.labels(tenant=tenant).inc(gen)
+        if mreqlog.enabled():
+            mreqlog.emit(mreqlog.event(
+                req.req_id,
+                trace_id=self._trace_ids.get(req.req_id),
+                arrival_ts=req.arrival_ts,
+                prompt_tokens=req.prompt_len,
+                generated_tokens=gen,
+                queue_wait_s=req.queue_wait_s,
+                ttft_s=ttft,
+                tpot_avg_s=tpot_avg,
+                tpot_max_s=req.tpot_max,
+                prefill_chunks=req.prefill_chunks,
+                prefix_hit_tokens=req.prefix_hit_tokens,
+                spec_proposed=req.spec_proposed,
+                spec_accepted=req.spec_accepted,
+                preemptions=req.num_preemptions,
+                peak_kv_blocks=req.peak_kv_blocks,
+                finish_reason=reason,
+                tenant=tenant,
+                priority=req.params.priority))
+
+    def request_trace(self, req_id) -> list:
+        """The request's finished spans (start-ordered dicts), valid after
+        the request is released; [] when it was never traced (PTPU_TRACE
+        off at add time) or its trace aged out of the bounded store."""
+        tid = self._trace_ids.get(req_id)
+        return [] if tid is None else mtrace.get_trace(tid)
+
+    def _record_latency(self, req, now) -> None:
+        """Per-token TTFT / TPOT at host time ``now`` (tokens emitted in
+        one step share it); each observation carries the request's
+        trace_id as an exemplar, and a tenant's request also observes
+        into its tenant's series."""
+        tid = req.trace.trace_id if req.trace is not None else None
+        tenant = req.params.tenant
+        if req.first_token_t is None:
+            req.first_token_t = now
+            if req.arrival_t is not None:
+                ttft = now - req.arrival_t
+                self._m_ttft.observe(ttft, trace_id=tid)
+                if tenant:
+                    self._m_ttft.labels(tenant=tenant).observe(ttft)
+        else:
+            gap = now - req.last_token_t
+            self._m_tpot.observe(gap, trace_id=tid)
+            if tenant:
+                self._m_tpot.labels(tenant=tenant).observe(gap)
+            if req.tpot_max is None or gap > req.tpot_max:
+                req.tpot_max = gap
+        req.last_token_t = now
 
     @staticmethod
     def _init_key(params: SamplingParams):
@@ -376,13 +624,12 @@ class LLMEngine:
         if req is None:
             return
         if req.finished:
-            if req.finish_reason is None:
-                req.finish_reason = "stop"
+            self._finish_request(req, "stop")
             return
         if reason is None:
             reason = ("released" if req.state == Request.WAITING
                       else "abort")
-        req.finish_reason = reason
+        self._finish_request(req, reason)
         sched = self.scheduler
         if req in sched.running:
             sched.running.remove(req)
@@ -430,32 +677,136 @@ class LLMEngine:
                    and r.deadline.expired]
         for rid in expired:
             self.release_request(rid, reason="deadline")
+            self._m_expired.inc()
         self.num_expired += len(expired)
         return expired
+
+    def _shed_best_effort(self) -> list:
+        """SLO-aware load shedding: while the live fast-window burn rate
+        breaches ``PTPU_SHED_BURN``, release every still-waiting
+        best-effort request with reason "shed".  Interactive and batch
+        requests are never shed (they defer).  Returns the shed ids."""
+        floor = priority_rank("best-effort")
+        cand = [r for r in self._requests.values()
+                if r.state == Request.WAITING and not r.finished
+                and priority_rank(r.params.priority) >= floor]
+        if not cand or not mslo.enabled():
+            return []
+        burn = worst_fast_burn()
+        shed = [r for r in cand if should_shed(r.params.priority, burn=burn)]
+        for r in shed:
+            self.release_request(r.req_id, reason="shed")
+            if monitor.enabled() and r.params.tenant:
+                self._m_tenant_shed.labels(tenant=r.params.tenant).inc()
+        return [r.req_id for r in shed]
 
     @torch.no_grad()
     def step(self) -> list:
         """One scheduler decision and one step body.  Returns the requests
         that FINISHED this step."""
+        t0 = time.perf_counter()
         self._expire_deadlines()
+        self._shed_best_effort()
         out = self.scheduler.schedule()
-        self.num_preemptions += len(out.preempted)
+        if out.preempted:
+            self.num_preemptions += len(out.preempted)
+            self._m_preempt.inc(len(out.preempted))
+            for r in out.preempted:
+                r.num_preemptions += 1
         if out.kind == "prefill":
-            self._prefill_body(out.prefill_request, out.chunk_start,
-                               out.chunk_len)
+            self._step_prefill(out)
+            phase, toks = "prefill", out.chunk_len
         elif out.kind == "decode":
-            self._decode_body(list(out.decode_requests))
+            # a speculative step can emit more tokens than rows
+            toks = self._step_decode(out)
+            phase = "decode"
+        else:
+            phase, toks = "idle", 0
+        if mreqlog.enabled():
+            # peak KV blocks a request: walked only while the wide events
+            # are collected
+            for r in self.scheduler.running:
+                blocks = len(self.cache._tables.get(r.req_id, ()))
+                if blocks > r.peak_kv_blocks:
+                    r.peak_kv_blocks = blocks
         done = list(self.scheduler.retire_finished())
         for req in done:
-            if req.finish_reason is None:
-                req.finish_reason = "stop"
+            self._m_done.inc()
+            self._finish_request(req, "stop")
+        mslo.maybe_tick()   # one module-global read with PTPU_SLO unset
+        dt = time.perf_counter() - t0
+        mtrace.heartbeat()   # the watchdog's signal, tracing on or off
+        if monitor.enabled():
+            self._step_metrics(phase, toks, dt)
         return done
+
+    def _step_metrics(self, phase, toks, dt) -> None:
+        """Per-phase step time and tokens, goodput (generated tokens over
+        all step wall time) and the queue and pool gauges."""
+        self._m_step.labels(phase=phase).observe(dt)
+        self._wall_s_total += dt
+        if phase == "prefill":
+            self._m_pre_toks.inc(toks)
+            self._m_pre_tps.set(toks / max(dt, 1e-9))
+        elif phase == "decode":
+            self._m_dec_toks.inc(toks)
+            self._m_dec_tps.set(toks / max(dt, 1e-9))
+            self._goodput_toks += toks
+        self._m_goodput.set(self._goodput_toks
+                            / max(self._wall_s_total, 1e-9))
+        sched = self.scheduler
+        # queue_depth: never-started requests; waiting: all not running,
+        # preempted included
+        self._m_queue.set(sum(1 for r in sched.waiting
+                              if r.state == Request.WAITING))
+        self._m_running.set(len(sched.running))
+        self._m_waiting.set(len(sched.waiting))
+        c = self.cache.counts()
+        self._m_blocks.set(c["in_use"])
+        self._m_util.set(c["in_use"] / max(c["total"], 1))
+        self._m_kv_free.set(c["free"])
+        self._m_kv_parked.set(c["parked"])
 
     # -- step bodies --------------------------------------------------------
 
     def _int_tensor(self, a):
         return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(
             self.device)
+
+    def _step_prefill(self, out):
+        req = out.prefill_request
+        start, chunk = out.chunk_start, out.chunk_len
+        req.prefill_chunks += 1
+        if req.queue_wait_s is None and req.arrival_t is not None:
+            # first compute: the queue wait is over
+            req.queue_wait_s = time.perf_counter() - req.arrival_t
+            self._m_queue_wait.observe(
+                req.queue_wait_s,
+                trace_id=req.trace.trace_id if req.trace is not None
+                else None)
+        if req.queue_span is not None:
+            req.queue_span.end()
+            req.queue_span = None
+        sp = None
+        if req.trace is not None:
+            sp = mtrace.start_span("serving/prefill", parent=req.trace,
+                                   chunk_start=start, chunk_len=chunk)
+        try:
+            self._prefill_body(req, start, chunk)
+        finally:
+            if sp is not None:
+                sp.end()
+
+    def _step_decode(self, out) -> int:
+        rows = list(out.decode_requests)
+        spans = [mtrace.start_span("serving/decode_step", parent=r.trace,
+                                   pos=r.total_len - 1, batch=len(rows))
+                 for r in rows if r.trace is not None]
+        try:
+            return self._decode_body(rows)
+        finally:
+            for sp in spans:
+                sp.end()
 
     def _prefill_body(self, req, start, chunk):
         ids = self._int_tensor([req.prompt_ids[start:start + chunk]])
@@ -547,10 +898,22 @@ class LLMEngine:
         bb = self.scheduler.max_num_seqs
         step = self._static_step(_DecodeStep, ("ragged", bb, 1))
         self._fill_rows(step, rows)
+        self._m_attn_impl.labels(kind=self.attention_impl).inc()
         logits = step.run()
         self.step_counts["decode"] += 1
         self._sample_rows(rows, logits)
+        self._decode_metrics(bb, len(rows), len(rows))
         return len(rows)
+
+    def _decode_metrics(self, bb, n, real_q, cw=1) -> None:
+        """The decode step's padding (rows and query tokens of the
+        fixed-shape step that were padding) and its dispatches: the
+        step and the sampler, as the JAX engine's two programs."""
+        if not monitor.enabled():
+            return
+        self._m_pad_rows.set((bb - n) / max(bb, 1))
+        self._m_pad_toks.set((bb * cw - real_q) / max(bb * cw, 1))
+        self._m_kernels.set(2)
 
     def _decode_body_bucketed(self, rows) -> int:
         n = len(rows)
@@ -559,11 +922,13 @@ class LLMEngine:
         pos0, lens = np.empty((2, bb), np.int32)
         tables = np.empty((bb, self.blocks_per_seq), np.int32)
         self._encode_rows(rows, toks, pos0, lens, slots, tables)
+        self._m_attn_impl.labels(kind=self.attention_impl).inc()
         logits = self._chunk_logits(
             self._int_tensor(toks), self._int_tensor(pos0),
             self._int_tensor(tables), self._int_tensor(slots))
         self.step_counts["decode"] += 1
         self._sample_rows(rows, logits)
+        self._decode_metrics(bb, n, n)
         return n
 
     def _bucket_batch(self, n: int) -> int:
@@ -601,6 +966,7 @@ class LLMEngine:
         bb, cw = self.scheduler.max_num_seqs, self.spec_tokens + 1
         step = self._static_step(_VerifyStep, ("verify", bb, cw))
         self._fill_rows(step, rows, drafts)
+        self._m_attn_impl.labels(kind=self.attention_impl).inc()
         logits0, greedy = step.run()
         self.step_counts["decode"] += 1
         self.verify_steps += 1
@@ -608,6 +974,8 @@ class LLMEngine:
                                   greedy[:len(rows)].tolist())
         for req in rows:
             self.cache.truncate_to(req.req_id, req.total_len)
+        self._decode_metrics(bb, len(rows),
+                             len(rows) + sum(len(d) for d in drafts), cw)
         return emitted
 
     def _emit_spec(self, rows, drafts, logits0, greedy) -> int:
@@ -618,6 +986,7 @@ class LLMEngine:
         position j's greedy token each time (the correction token ends
         the run)."""
         toks = self._sample_tokens(rows, logits0)
+        now = time.perf_counter()   # the tokens are on the host
         emitted = proposed = accepted = 0
         for i, req in enumerate(rows):
             out = [toks[i]]
@@ -633,6 +1002,7 @@ class LLMEngine:
             for tok in out:
                 req.record_token(tok)
                 row += 1
+                self._record_latency(req, now)
                 if req.finished:
                     break          # eos inside the accepted run
             emitted += row
@@ -641,6 +1011,14 @@ class LLMEngine:
             req.spec_accepted += row - 1
         self._spec_proposed_total += proposed
         self._spec_accepted_total += accepted
+        if monitor.enabled():
+            if proposed:
+                self._m_spec_prop.inc(proposed)
+            if accepted:
+                self._m_spec_acc.inc(accepted)
+            if self._spec_proposed_total:
+                self._m_spec_rate.set(self._spec_accepted_total
+                                      / self._spec_proposed_total)
         return emitted
 
     # -- device programs ----------------------------------------------------
@@ -782,8 +1160,11 @@ class LLMEngine:
         return toks.tolist()
 
     def _sample_rows(self, rows, logits):
-        for req, tok in zip(rows, self._sample_tokens(rows, logits)):
+        toks = self._sample_tokens(rows, logits)
+        now = time.perf_counter()   # the tokens are on the host
+        for req, tok in zip(rows, toks):
             req.record_token(tok)
+            self._record_latency(req, now)
 
 
 class _DecodeStep:
@@ -810,7 +1191,8 @@ class _DecodeStep:
         toks, pos0, lens, slots, tables = self.views(self.inputs)
         body = self.body(engine)
         self.run = StepGraph(lambda: body(toks, pos0, lens, tables, slots),
-                             dev, self.KIND, engine.compiles)
+                             dev, self.KIND, engine.compiles,
+                             on_capture=engine._count_capture)
 
     def views(self, buf):
         """(toks [bb, cw], pos0 [bb], lens [bb], slots [bb, cw], tables
@@ -834,3 +1216,8 @@ class _VerifyStep(_DecodeStep):
 
     def body(self, engine):
         return engine._verify_logits
+
+
+def _dtype_name(dtype) -> str:
+    """``torch.float32`` -> ``"float32"``, the JAX package's dtype label."""
+    return str(dtype).replace("torch.", "")

@@ -23,8 +23,10 @@ uncached tokens.  With speculative decoding on, the decode branch
 reserves each greedy row's draft extent (`_decode_reserve_len`); the
 engine rolls the tables back to the accepted length after the step.
 
-Left out for later slices: SLO-burn shedding (``should_shed`` /
-``worst_fast_burn``: they read ``monitor.slo``).
+SLO-aware admission: `should_shed` drops best-effort work while the
+worst fast-window burn rate of ``monitor.slo`` (`worst_fast_burn`)
+reaches ``PTPU_SHED_BURN``; the engine sheds queued requests with it and
+the HTTP front door (`serving.api`) answers 429 before admission.
 """
 from __future__ import annotations
 
@@ -34,11 +36,16 @@ from collections import deque
 from typing import Optional
 
 __all__ = ["SamplingParams", "Request", "Scheduler", "SchedulerOutput",
-           "PRIORITIES", "priority_rank", "tenant_weights"]
+           "PRIORITIES", "priority_rank", "tenant_weights", "should_shed",
+           "worst_fast_burn"]
 
 # Priority classes, best first.  Unknown strings rank with "best-effort".
 PRIORITIES = ("interactive", "batch", "best-effort")
 _PRIORITY_RANK = {name: i for i, name in enumerate(PRIORITIES)}
+
+# Shed threshold: best-effort traffic is shed once the worst fast-window
+# SLO burn rate reaches this multiple of budget burn
+_SHED_DEFAULT_BURN = 2.0
 
 
 def priority_rank(priority) -> int:
@@ -65,6 +72,41 @@ def tenant_weights(spec: Optional[str] = None) -> dict:
         if name.strip() and weight > 0:
             out[name.strip()] = weight
     return out
+
+
+def worst_fast_burn(report=None) -> float:
+    """Worst fast-window burn rate across all SLO objectives, 0.0 when
+    the SLO engine is off (shedding never triggers without live SLOs)."""
+    if report is None:
+        from ..monitor import slo as mslo
+        report = mslo.report()
+    if not report or not report.get("enabled"):
+        return 0.0
+    worst = 0.0
+    for obj in report.get("objectives", ()):
+        rate = (obj.get("burn_rate") or {}).get("fast")
+        if rate is not None:
+            worst = max(worst, float(rate))
+    return worst
+
+
+def should_shed(priority, burn: Optional[float] = None) -> bool:
+    """SLO-aware admission control: shed `priority`-class work right now?
+
+    Only "best-effort" is ever shed; interactive and batch classes defer
+    (stay queued).  The input is the worst fast-window burn rate of the
+    live `monitor.slo` engine (``burn`` injects it), against the
+    ``PTPU_SHED_BURN`` threshold."""
+    if priority_rank(priority) < priority_rank("best-effort"):
+        return False
+    if burn is None:
+        burn = worst_fast_burn()
+    try:
+        threshold = float(os.environ.get("PTPU_SHED_BURN",
+                                         _SHED_DEFAULT_BURN))
+    except ValueError:
+        threshold = _SHED_DEFAULT_BURN
+    return burn >= threshold
 
 
 @dataclasses.dataclass
@@ -108,10 +150,23 @@ class Request:
         self.prefix_hit_tokens = 0         # prompt tokens adopted cached
         self.arrival = None                # admission tiebreak (set by add)
         self.deadline = None               # resilience.Deadline (engine)
+        # -- telemetry (engine-owned) --------------------------------------
+        self.trace = None                  # root Span, or None (trace off)
+        self.queue_span = None             # open queue-wait child Span
+        self.arrival_t = None              # perf_counter at add_request
+        self.first_token_t = None          # perf_counter of token 1 (TTFT)
+        self.last_token_t = None           # perf_counter of latest token
+        self.arrival_ts = None             # wall clock at add_request
+        self.queue_wait_s = None           # arrival to first compute
+        self.tpot_max = None               # worst inter-token gap, seconds
+        self.prefill_chunks = 0            # prefill passes this prompt took
+        self.num_preemptions = 0           # times evicted mid-flight
+        self.peak_kv_blocks = 0            # high-water KV blocks held
         self.spec_proposed = 0             # draft tokens proposed
         self.spec_accepted = 0             # draft tokens accepted
         self.finish_reason = None          # stop|abort|deadline|released|
-        #                                    migrated, set once at finish
+        #                                    migrated|shed, set once at
+        #                                    finish
 
     @property
     def prompt_len(self) -> int:

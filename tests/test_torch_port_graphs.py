@@ -30,13 +30,18 @@ On the card (marked ``cuda``; skipped here):
   engine (fp and int8 pools) give the same tokens captured as eager
   (``PTPU_CUDA_GRAPHS=0``), with one capture per key and the same
   replay-counted launches; with prefix caching and speculative decoding
-  the engine keeps one ``ragged`` and one ``verify`` capture.
+  the engine keeps one ``ragged`` and one ``verify`` capture;
+- no garbage collection starts during a capture, with the collector
+  run at every allocation, and an engine whose graph is cyclic garbage
+  leaves the next engine's tokens alone.
 
 On a machine without JAX run:
 
     python -m pytest --noconftest -p no:cacheprovider -q \
         tests/test_torch_port_graphs.py
 """
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -479,3 +484,43 @@ def test_engine_captures_stay_flat_with_prefix_and_spec(kv, monkeypatch):
     assert eng.compiles == {"ragged": 1, "verify": 1}
     assert eng.cache.prefix_hits > 0 and eng.verify_steps > 0
     assert runs["0"][1].compiles == {}
+
+
+@pytest.mark.cuda
+@pytest.mark.usefixtures("needs_cuda")
+def test_no_collection_during_a_capture():
+    # an engine holds its captured graph in a reference cycle, so only a
+    # collection frees it; a collection during another capture would
+    # free that graph inside it, a CUDA call the capture forbids.  With
+    # the collector run at every allocation, none may start while a
+    # stream captures, and a dead engine's graph leaves the next
+    # engine's tokens alone
+    model = GPTForCausalLM(gpt_test_config(stacked_blocks=True, **CARD_CFG),
+                           device="cuda")
+    prompts = [np.arange(1, n + 1, dtype=np.int32) for n in (5, 9)]
+    sp = SamplingParams(max_new_tokens=6)
+
+    def run():
+        eng = LLMEngine(model, EngineConfig(device="cuda"))
+        out = eng.generate(prompts, sp)
+        assert eng.compiles == {"ragged": 1}
+        return out
+
+    want = run()                 # its engine is garbage from here on
+    during = []
+
+    def watch(phase, info):
+        if phase == "start" and torch.cuda.is_current_stream_capturing():
+            during.append(info["generation"])
+
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    gc.callbacks.append(watch)
+    try:
+        got = run()
+    finally:
+        gc.callbacks.remove(watch)
+        gc.set_threshold(*thresholds)
+    assert during == []
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g, w)

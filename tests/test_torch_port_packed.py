@@ -505,10 +505,9 @@ def test_positional_calls_mean_what_they_mean_in_jax():
     want = dataclasses.asdict(JaxEngineConfig(*thirteen))
     got = dataclasses.asdict(EngineConfig(*thirteen))
     assert {k: got[k] for k in want} == want
-    # the JAX engine's metrics endpoint is not ported: setting it raises
+    # the live metrics endpoint's port, in JAX's position
     assert JaxEngineConfig(*six, 9090).metrics_port == 9090
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        EngineConfig(*six, 9090)
+    assert EngineConfig(*six, 9090).metrics_port == 9090
     with pytest.raises(TypeError):
         EngineConfig(*thirteen, "cpu")
     cfg = EngineConfig(*six, device="cpu", dtype=torch.bfloat16)
