@@ -377,6 +377,38 @@ Phases, in order; any failure exits non-zero and prints no result line:
    PTPU_PALLAS_LN) at 8 heads of 256 in turns with the preset's 16 of 128
    (`head256_train`): losses finite, ms a step, tokens/s, peak memory, the
    launches (at 256 the forward, dQ and dK/dV 24 a step each on `:d256`).
+14. HTTP serving (`http_phase`): bf16 GPT-2 124M behind ``ApiServer``,
+   19 requests at once (16 streamed of 7-700 tokens, 2 chats, 1 seeded;
+   32 new) in turns api, direct, direct, api: tokens equal to
+   ``engine.generate``'s, ``/metrics`` counters equal to the client's,
+   scrapes during the first capture, TTFT / TPOT p50 / p95, the decode
+   step's wall ms with the telemetry gates off and on.
+15. Weight-only low-bit generate (`lowbit_phase`): bf16 per-layer GPT-2
+   124M captures its decode step, then `quantize_for_inference` copies it
+   at int8 and at int4 (per channel): 48 linears swapped, the linears'
+   dense and packed bytes, the bytes each copy asked of the caching
+   allocator within 1 MiB of its tensors' bytes (its blocks' bytes
+   printed), no captured step carried over; ``generate`` B=8 896
+   + 128 captured in turns fp, int8, int4, int4, int8, fp (ms a decode
+   step, launches as expected, each model's tokens the same in both its
+   turns, one capture each), a profiled window each (device ms by group),
+   greedy agreement with fp (printed: random weights); under both kernel
+   flags the int8 copy launches no FFN and 25 LayerNorms a forward, the
+   fp model the FFN; the original still generates its tokens; a 2-layer
+   fp32 model at GPT-2's widths quantized on the card and on the CPU:
+   codes and scales bitwise, tokens identical.
+16. Mixture of experts (`moe_phase`): a 2-layer fp32 MoE GPT at GPT-2's
+   widths (block 1 with 8 experts) on the card and on the CPU, 2 AdamW
+   steps at B=1 S=1024 (losses within 1e-5 relative, step-1 gradients
+   within 1e-3 max|g|), greedy tokens identical; then
+   ``gpt2_124m_config(moe_every_n=2, moe_num_experts=8)`` (six MoE blocks,
+   top-2, capacity factor 1.25) in bf16 with fp32 masters, AdamW at B=8
+   S=1024, routing telemetry on then off: losses finite and falling,
+   every ``aux_loss`` finite, ms a step, peak GB, a profiled step, the
+   flash forward, dQ and dK/dV 12 a step each; an eager forward's
+   ``moe/*`` series consistent (48 observations, kept + dropped = the
+   slots); ``generate`` B=8 128 + 32 eager and captured, tokens identical,
+   no routing recorded inside it.
 8. Summary: one JSON line of forty-nine entries: thirty-nine (the nine kernels,
    the int8 variant, the mask, segment and non-causal variants of the
    flash kernels, the tensor-core forward, dQ and dK/dV -- every bf16
@@ -405,7 +437,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    and dK/dV's (timed at recipe B's bf16 B=2 S=2048, launches from 13d's
    first 8 x 256 turn) and their fp32 CUDA-core kernels' (fp32 at the
    same shape, launches from 13b's stacked fp32 training), each D = 256
-   entry with its launches in phase 13 as a whole; it fails if an entry's
+   entry with its launches in phase 13 as a whole (and every entry its
+   launches in phases 14, 15 and 16); it fails if an entry's
    main path launched it no time; the card line, then the result line.
 
 Every time is a median of CUDA-event timings (L2 flushed before each
@@ -4923,6 +4956,411 @@ def http_phase(ops, card):
 
 
 
+# ---------------------------------------------------------------------------
+# phase 15: weight-only low-bit generate
+# ---------------------------------------------------------------------------
+
+# the models of phase 15's timed turns, in order
+LOWBIT_TURNS = ("fp", "int8", "int4", "int4", "int8", "fp")
+LOWBIT_DTYPES = ("int8", "int4")
+# the FFN's launch counters, every design and type: none may run for a
+# quantized MLP
+FFN_ALL = (FFN, FFN_TC, FFN_TC32, FFN_DEC, FFN16, FFN_TC16, FFN_DEC16)
+
+
+@contextlib.contextmanager
+def monitor_on(on):
+    """The port's monitor gate ``on`` or off; as the environment says
+    after."""
+    from paddle_tpu_torch import monitor
+    monitor.enable(on)
+    try:
+        yield monitor
+    finally:
+        monitor.refresh()
+
+
+def _tensor_bytes(model):
+    """Bytes of a model's parameters and buffers."""
+    return sum(t.numel() * t.element_size()
+               for t in model.param_arrays().values())
+
+
+def _card_bytes():
+    """(bytes the caching allocator was asked for, bytes of its blocks in
+    use): a block can hold up to 1 MiB more than was asked of it."""
+    stats = torch.cuda.memory_stats()
+    return (stats.get("requested_bytes.all.current",
+                      stats["allocated_bytes.all.current"]),
+            torch.cuda.memory_allocated())
+
+
+def _same_tokens(a, b, what):
+    if not torch.equal(a, b):
+        r, j = (int(i) for i in torch.nonzero(a != b)[0])
+        fail(f"{what}: tokens differ at row {r} position {j} ({int(a[r, j])}"
+             f" against {int(b[r, j])})")
+
+
+def lowbit_fp32_card_vs_cpu(ops, batch=2, prompt=64, new=16):
+    """A 2-layer GPT at GPT-2's widths in fp32 from one seed on the card
+    and on the CPU, quantized at int8 and int4 on each: codes and scales
+    bitwise equal, greedy tokens identical (the card's decode steps
+    captured), the card's launches as expected."""
+    from paddle_tpu_torch.lowbit import quantize_for_inference
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt2_124m_config
+    cfg = gpt2_124m_config(num_hidden_layers=2)
+    rng = np.random.RandomState(16)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (batch, prompt))
+                           .astype(np.int32))
+    fp = {dev: GPTForCausalLM(cfg, device=dev,
+                              generator=torch.Generator().manual_seed(0))
+          for dev in ("cuda", "cpu")}
+    ref = fp["cuda"].generate(ids.cuda(), max_new_tokens=new).cpu()
+    rec = {}
+    for dt in LOWBIT_DTYPES:
+        q = {dev: quantize_for_inference(m, dt) for dev, m in fp.items()}
+        card, cpu = (q[d].param_arrays() for d in ("cuda", "cpu"))
+        for name, t in cpu.items():
+            if name.endswith((".qweight", ".scale")) and not torch.equal(
+                    card[name].cpu(), t):
+                fail(f"float32 {dt} quantization: {name} differs between "
+                     f"the card and the CPU")
+        out = {}
+        for dev, m in q.items():
+            ops.reset_launch_counts()
+            out[dev] = m.generate(ids.to(dev), max_new_tokens=new).cpu()
+            launches = ops.launch_counts()
+            if dev == "cuda":
+                check_gen_launches(launches, "default", cfg, batch, new - 1,
+                                   f"float32 {dt} generate", prompt=prompt)
+            elif set(launches.values()) != {0}:
+                fail(f"float32 {dt} generate on the CPU launched kernels: "
+                     f"{launches}")
+        _same_tokens(out["cuda"], out["cpu"],
+                     f"float32 {dt} generate, card against CPU")
+        rec[dt] = {"tokens_identical": True,
+                   "agreement_with_fp": _agreement(out["cuda"], ref, prompt)}
+    return rec
+
+
+def lowbit_phase(ops, card, batch=8, prompt=896, new=128):
+    """Phase 15 (module docstring): bf16 GPT-2 124M, per-layer, quantized
+    at int8 and int4 from a model that has captured its decode step;
+    returns its record and the launches of its runs by name."""
+    from paddle_tpu_torch.lowbit import (WeightOnlyLinear,
+                                         quantize_for_inference)
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt2_124m_config
+    from paddle_tpu_torch.nn.layer import Linear
+    cfg = gpt2_124m_config()
+    rng = np.random.RandomState(15)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (batch, prompt))
+                           .astype(np.int32)).cuda()
+    torch.cuda.empty_cache()
+    fp = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                        generator=torch.Generator().manual_seed(0))
+    fp.generate(ids, max_new_tokens=3)            # warm-up and capture
+    if _captures(fp) != {"decode": 1}:
+        fail(f"phase 15: fp model captures {_captures(fp)}")
+    models, rec, launches_by = {"fp": fp}, {"bytes": {}}, {}
+    linears = sum(m.weight.numel() for m in fp.modules()
+                  if isinstance(m, Linear))
+    for dt in LOWBIT_DTYPES:
+        with monitor_on(True) as monitor:
+            monitor.reset()
+            gc.collect()
+            torch.cuda.synchronize()
+            before = _card_bytes()
+            q = quantize_for_inference(fp, dt)
+            gc.collect()
+            torch.cuda.synchronize()
+            requested, allocated = (a - b for a, b in
+                                    zip(_card_bytes(), before))
+            snap = monitor.snapshot()
+            monitor.reset()
+        wols = [m for m in q.modules() if isinstance(m, WeightOnlyLinear)]
+        if len(wols) != 4 * cfg.num_hidden_layers or \
+                snap.get("lowbit/weight_layers") != len(wols):
+            fail(f"phase 15 {dt}: {len(wols)} layers swapped, "
+                 f"lowbit/weight_layers {snap.get('lowbit/weight_layers')}")
+        want = _tensor_bytes(q)
+        if abs(requested - want) > 2 ** 20:
+            fail(f"phase 15 {dt}: the copy asked the allocator for "
+                 f"{requested} bytes ({allocated} in blocks), its tensors "
+                 f"hold {want}")
+        if q.compiles or q._decode_steps:
+            fail(f"phase 15 {dt}: the copy carries captured steps")
+        rec["bytes"][dt] = {
+            "linear_elements": linears,
+            "dense_bytes_fp32": sum(m.dense_bytes for m in wols),
+            "dense_bytes_bf16": 2 * linears,
+            "packed_bytes": sum(m.packed_bytes for m in wols),
+            "bytes_saved": snap["lowbit/bytes_saved"]["wing=weights"],
+            "model_bytes": want, "requested": requested,
+            "allocated": allocated,
+            "fp_model_bytes": _tensor_bytes(fp)}
+        models[dt] = q
+    # the timed turns: each decode step one captured graph
+    turns, toks = [], {}
+    for name in LOWBIT_TURNS:
+        m = models[name]
+        what = f"phase 15 {name} generate"
+        if name not in toks and name != "fp":
+            m.generate(ids, max_new_tokens=3)          # warm-up, capture
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m.generate(ids, max_new_tokens=1)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = m.generate(ids, max_new_tokens=new)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        check_gen_launches(launches, "default", cfg, batch, new - 1, what,
+                           dtype=torch.bfloat16, prompt=prompt)
+        launches_by.setdefault(name, launches)
+        if name in toks:
+            _same_tokens(out, toks[name], f"{what}, second turn")
+        toks.setdefault(name, out)
+        turns.append({"model": name, "prefill_s": prefill_s,
+                      "decode_ms_per_step": (total_s - prefill_s) * 1e3
+                      / (new - 1)})
+    for name, m in models.items():
+        if _captures(m) != {"decode": 1}:
+            fail(f"phase 15 {name}: captures {_captures(m)}, expected one")
+    rec["turns"] = turns
+    rec["agreement_with_fp"] = {dt: _agreement(toks[dt], toks["fp"], prompt)
+                                for dt in LOWBIT_DTYPES}
+    rec["profile"] = {name: profile_generate(m, ids)
+                      for name, m in models.items()}
+    # under both kernel flags: the LayerNorm kernel, and the FFN only for
+    # the float model
+    short = ids[:, :128]
+    flags = {}
+    with flag_env(TRAIN_MODES["flags"]):
+        for name in ("fp", "int8"):
+            ops.reset_launch_counts()
+            models[name].generate(short, max_new_tokens=4)
+            flags[name] = ops.launch_counts()
+    layers = cfg.num_hidden_layers
+    if any(flags["int8"][k] for k in FFN_ALL) or \
+            flags["int8"][LN] != (2 * layers + 1) * 4:
+        fail(f"phase 15: int8 generate under the flags launched "
+             f"{flags['int8']}")
+    if not sum(flags["fp"][k] for k in FFN_ALL):
+        fail("phase 15: the float model launched no FFN under the flags")
+    launches_by["int8 flags"] = flags["int8"]
+    rec["flags_launches"] = {k: {n: c for n, c in v.items() if c}
+                             for k, v in flags.items()}
+    # the original still generates what it did before it was copied
+    _same_tokens(fp.generate(ids, max_new_tokens=new), toks["fp"],
+                 "phase 15 fp generate after the copies")
+    del models
+    torch.cuda.empty_cache()
+    rec["fp32"] = lowbit_fp32_card_vs_cpu(ops)
+    by = {n: [t["decode_ms_per_step"] for t in turns if t["model"] == n]
+          for n in ("fp", "int8", "int4")}
+    b8 = rec["bytes"]["int8"]
+    print(f"phase 15 weight-only generate, bf16 per-layer GPT-2 124M, "
+          f"B={batch} {prompt}+{new}, {4 * layers} linears swapped: linear "
+          f"bytes bf16 {b8['dense_bytes_bf16']} (JAX's fp32 count "
+          f"{b8['dense_bytes_fp32']}), int8 {b8['packed_bytes']}, int4 "
+          f"{rec['bytes']['int4']['packed_bytes']}; copies asked the "
+          f"allocator for {b8['requested']} / "
+          f"{rec['bytes']['int4']['requested']} bytes (blocks "
+          f"{b8['allocated']} / {rec['bytes']['int4']['allocated']}), "
+          f"their tensors hold {b8['model_bytes']} / "
+          f"{rec['bytes']['int4']['model_bytes']} (fp model "
+          f"{b8['fp_model_bytes']}); ms a captured decode step "
+          f"(turns fp, int8, int4, int4, int8, fp): "
+          + ", ".join(f"{t['model']} {t['decode_ms_per_step']:.3f}"
+                      for t in turns)
+          + "; device ms a step (port kernels / matmul / other): "
+          + "; ".join(f"{n} {p['device_ms_per_step']:.3f} ("
+                      + " / ".join(f"{v:.3f}" for v in
+                                   p["ms_per_step_by_group"].values())
+                      + ")" for n, p in rec["profile"].items())
+          + f"; greedy agreement with fp int8 "
+          f"{rec['agreement_with_fp']['int8']:.3f}, int4 "
+          f"{rec['agreement_with_fp']['int4']:.3f} (random weights); the "
+          f"fp model captured before the copies, all three captured once; "
+          f"under both flags int8 FFN 0, LN {flags['int8'][LN]}; fp32 "
+          f"2-layer int8 / int4 codes and tokens equal to the CPU's "
+          f"({card})", flush=True)
+    rec["decode_ms_per_step"] = by
+    return rec, launches_by
+
+
+# ---------------------------------------------------------------------------
+# phase 16: mixture-of-experts GPT
+# ---------------------------------------------------------------------------
+
+MOE = {"moe_every_n": 2, "moe_num_experts": 8}
+
+
+def _moe_layers(model):
+    from paddle_tpu_torch.models.gpt import GPTMoEMLP
+    return [m for m in model.modules() if isinstance(m, GPTMoEMLP)]
+
+
+def moe_fp32_card_vs_cpu(ops, steps=2, seq=1024, batch=2, prompt=64,
+                         new=16):
+    """A 2-layer MoE GPT at GPT-2's widths (block 1 holds 8 experts) in
+    fp32 on the card and on the CPU: `steps` AdamW steps at B=1 (losses
+    within 1e-5 relative, step-1 gradients within 1e-3 max|g|,
+    `train_fp32_card_vs_cpu`), then greedy generate from one seed's
+    weights, tokens identical."""
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt2_124m_config
+    cfg = gpt2_124m_config(num_hidden_layers=2, **MOE)
+    rec = train_fp32_card_vs_cpu(ops, cfg, {}, steps=steps, seq=seq)
+    if max(rec["loss_rel_diff"]) > 1e-5:
+        fail(f"float32 MoE training: card losses {rec['card_losses']} "
+             f"against the CPU's {rec['cpu_losses']} (limit 1e-5 relative)")
+    rng = np.random.RandomState(17)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (batch, prompt))
+                           .astype(np.int32))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        m = GPTForCausalLM(cfg, device=dev,
+                           generator=torch.Generator().manual_seed(0))
+        out[dev] = m.generate(ids.to(dev), max_new_tokens=new).cpu()
+    _same_tokens(out["cuda"], out["cpu"],
+                 "float32 MoE generate, card against CPU")
+    return rec
+
+
+def moe_phase(ops, card, batch=8, seq=1024, warmup=2, timed=4,
+              prompt=128, new=32):
+    """Phase 16 (module docstring): the top-2 MoE GPT at GPT-2's widths;
+    returns its record and the launches of its runs by name."""
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt2_124m_config
+    cfg = gpt2_124m_config(**MOE)
+    rec, launches_by = {}, {}
+    rec["fp32"] = moe_fp32_card_vs_cpu(ops)
+    launches_by["fp32 train"] = rec["fp32"]["launches"]
+    torch.cuda.empty_cache()
+    rng = np.random.RandomState(2)
+    data = [torch.from_numpy(rng.randint(0, cfg.vocab_size, (batch, seq)))
+            .cuda() for _ in range(2)]
+    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                           generator=torch.Generator().manual_seed(0))
+    moes = _moe_layers(model)
+    n_params = sum(p.numel() for p in model.parameters())
+    step, _ = make_step(model)
+    losses, aux, ms = [], [], {}
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    steps = 0
+    # routing telemetry on (the default: one read-back a MoE layer a
+    # forward), then off
+    for on in (True, False):
+        with monitor_on(on):
+            for i in range(warmup + timed):
+                if i == warmup:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                losses.append(step(data))
+                aux.append(torch.stack([m.aux_loss.detach().float()
+                                        for m in moes]))
+                steps += 1
+            torch.cuda.synchronize()
+            ms["telemetry on" if on else "telemetry off"] = (
+                time.perf_counter() - t0) * 1e3 / timed
+    launches = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check_train_launches(launches, train_launches(
+        cfg, steps, {}, dtype=torch.bfloat16, rows=batch * seq),
+        "bfloat16 MoE training")
+    launches_by["bf16 train"] = launches
+    losses = [x.item() for x in losses]
+    aux = torch.stack(aux).cpu()
+    if not (all(np.isfinite(losses)) and bool(torch.isfinite(aux).all())):
+        fail(f"bfloat16 MoE training: losses {losses}, aux {aux.tolist()}")
+    if not losses[-1] < losses[0]:
+        fail(f"bfloat16 MoE training: loss did not fall, {losses}")
+    with monitor_on(False):
+        prof = profile_step(step, data)
+    rec["train"] = {"batch": f"B={batch} S={seq}", "parameters": n_params,
+                    "moe_layers": len(moes), "losses": losses,
+                    "aux_first_last": [aux[0].tolist(), aux[-1].tolist()],
+                    "ms_per_step": ms, "tokens_per_s": {
+                        k: batch * seq * 1e3 / v for k, v in ms.items()},
+                    "peak_memory_gb": peak_gb, "profile": prof}
+    # an eager forward's routing series
+    with monitor_on(True) as monitor, torch.no_grad():
+        monitor.reset()
+        model(data[0])
+        snap = {k: v for k, v in monitor.snapshot().items()
+                if k.startswith("moe/")}
+        monitor.reset()
+        hist = snap.get("moe/tokens_per_expert", {})
+        slots = len(moes) * batch * seq * cfg.moe_top_k
+        kept = hist.get("sum", 0)
+        if hist.get("count") != len(moes) * cfg.moe_num_experts or \
+                kept + snap.get("moe/dropped_tokens", -1) != slots or \
+                not snap.get("moe/imbalance", 0) >= 1:
+            fail(f"phase 16: the eager forward's moe/* series {snap}")
+        # generate records nothing: JAX's is one compiled program
+        ids = data[0][:, :prompt].to(torch.int32)
+        out = {}
+        for on in (False, True):
+            with graphs_env(on):
+                model.generate(ids, max_new_tokens=3)   # warm-up, capture
+                ops.reset_launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out[on] = model.generate(ids, max_new_tokens=new)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                gl = ops.launch_counts()
+                check_gen_launches(gl, "default", cfg, batch, new - 1,
+                                   f"bfloat16 MoE generate "
+                                   f"{'captured' if on else 'eager'}",
+                                   dtype=torch.bfloat16, prompt=prompt)
+                launches_by["generate captured" if on else
+                            "generate eager"] = gl
+                rec[f"generate_{'captured' if on else 'eager'}_s"] = secs
+        after = {k: v for k, v in monitor.snapshot().items()
+                 if k.startswith("moe/")}
+    _same_tokens(out[True], out[False],
+                 "bfloat16 MoE generate, captured against eager")
+    if _captures(model) != {"decode": 1}:
+        fail(f"phase 16: generate captures {_captures(model)}")
+    if after.get("moe/tokens_per_expert", {}).get("count"):
+        fail(f"phase 16: generate recorded routing {after}")
+    rec["routing"] = {"tokens_per_expert_mean": hist["sum"] / hist["count"],
+                      "dropped_tokens": snap["moe/dropped_tokens"],
+                      "imbalance": snap["moe/imbalance"], "slots": slots}
+    t = rec["train"]
+    print(f"phase 16 MoE GPT (GPT-2 124M widths, {len(moes)} of "
+          f"{cfg.num_hidden_layers} blocks with {cfg.moe_num_experts} "
+          f"experts, top-{cfg.moe_top_k}, capacity factor "
+          f"{cfg.moe_capacity_factor}; {n_params} parameters), bf16 AdamW "
+          f"B={batch} S={seq}: losses {losses[0]:.4f} -> {losses[-1]:.4f}, "
+          f"aux finite; ms a step telemetry on "
+          f"{ms['telemetry on']:.3f} / off {ms['telemetry off']:.3f} "
+          f"({t['tokens_per_s']['telemetry off']:.1f} tokens/s off); peak "
+          f"{peak_gb:.2f} GB; profiled step device {prof['device_ms']:.3f} "
+          f"ms (port kernels / matmul / other "
+          + " / ".join(f"{v:.3f}" for v in prof["ms_by_group"].values())
+          + f"), busy {prof['device_busy_share']:.3f}; launches a step "
+          f"flash forward {launches[FWD] // steps}, dQ {launches[DQ] // steps}"
+          f", dK/dV {launches[DKV] // steps}; eager forward: "
+          f"{hist['count']} tokens_per_expert observations, "
+          f"{snap['moe/dropped_tokens']:.0f} of {slots} slots dropped, "
+          f"imbalance {snap['moe/imbalance']:.3f}; generate B={batch} "
+          f"{prompt}+{new} captured tokens identical to eager, none "
+          f"recorded; fp32 2 layers card vs CPU: losses "
+          f"{rec['fp32']['card_losses']} (relative "
+          f"{max(rec['fp32']['loss_rel_diff']):.3g}), gradients within "
+          f"1e-3 max|g|, tokens identical ({card})", flush=True)
+    del model, step
+    torch.cuda.empty_cache()
+    return rec, launches_by
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs a GPU")
@@ -5517,6 +5955,14 @@ def main():
     result["http"], launches_http = http_phase(ops, card)
     mark("14 HTTP serving")
 
+    # -- 15. weight-only low-bit generate -----------------------------------
+    result["lowbit"], launches_lowbit = lowbit_phase(ops, card)
+    mark("15 weight-only low-bit generate")
+
+    # -- 16. mixture of experts ---------------------------------------------
+    result["moe"], launches_moe = moe_phase(ops, card)
+    mark("16 MoE training and generate")
+
     # -- 8. summary --------------------------------------------------------
     # the serving kernels at fp32 S=384 / the decode step (the int8 one
     # too); the backward kernels at the training shape in bf16, the
@@ -5662,6 +6108,10 @@ def main():
             for runs in (launches_h32, launches_h16, launches_h13d)
             for run in runs.values())
         k["launches_http"] = launches_http[k["name"]]
+        k["launches_lowbit"] = sum(run[k["name"]]
+                                   for run in launches_lowbit.values())
+        k["launches_moe"] = sum(run[k["name"]]
+                                for run in launches_moe.values())
     idle = [k["name"] for k in kernels if not k["launches"]]
     if idle:
         fail(f"kernels never launched on their main path: {idle}")

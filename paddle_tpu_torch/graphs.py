@@ -26,20 +26,49 @@ fails.
 The kernel wrappers count their launches in Python, which a replay does
 not run: the capture's counts are taken back, and added again at every
 replay, so that `ops.launch_counts()` keeps counting launches run.
+
+`tracing()` tells host telemetry that reads device values (the MoE
+routing counts) or counts calls (``lowbit/dequant_calls``) whether it
+runs where the JAX package runs a traced program: inside ``generate``
+(`traced`; JAX compiles it as one program) or a stream capture.  There
+it records nothing, as JAX's telemetry sees only tracers.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import os
+import threading
 import time
 
 import torch
 
 from . import ops
 
-__all__ = ["ENV", "graphs_on", "StepGraph"]
+__all__ = ["ENV", "graphs_on", "StepGraph", "traced", "tracing"]
 
 ENV = "PTPU_CUDA_GRAPHS"
+
+_traced = threading.local()
+
+
+@contextlib.contextmanager
+def traced():
+    """Mark the code inside as one traced program of the JAX package
+    (``generate``) for `tracing`."""
+    depth = getattr(_traced, "depth", 0)
+    _traced.depth = depth + 1
+    try:
+        yield
+    finally:
+        _traced.depth = depth
+
+
+def tracing() -> bool:
+    """True inside `traced` or while this thread's CUDA stream captures."""
+    return (getattr(_traced, "depth", 0) > 0
+            or (torch.cuda.is_available()
+                and torch.cuda.is_current_stream_capturing()))
 
 
 def graphs_on(device) -> bool:

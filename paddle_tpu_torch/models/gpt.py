@@ -45,6 +45,21 @@ body with `ops.cached_attention_arrays` (the flash-decode kernel); under
 under ``PTPU_PALLAS_FFN=1`` as well the MLP half as the fused LayerNorm
 and FFN kernels.
 
+Mixture of experts (per-layer only, as in JAX; `gpt.py:283-325`,
+`:698-711`): with ``moe_every_n`` > 0 and ``moe_num_experts`` > 1, block
+``i`` holds a `GPTMoEMLP` where ``(i + 1) % moe_every_n == 0`` (GShard's
+every other block at 2): a ``gate`` `Linear` and the experts' ``w_in``
+[E, H, M] and ``w_out`` [E, M, H], routed top-k with capacity factor
+(`parallel.moe`), its GShard aux loss of the last forward in
+``aux_loss`` (which `GPTPretrainingCriterion` does not add, as in JAX).
+The stacked layout refuses MoE with JAX's error.
+
+Weight-only low-bit inference (`lowbit.quantize_for_inference`) swaps
+the per-layer model's `Linear` layers for `WeightOnlyLinear` ones:
+``out_proj`` and ``fc_out`` are then called as layers (bias after the
+product, as JAX's), and the MLP takes the fused FFN only while both its
+projections hold a float ``weight`` (`gpt.py:266-279`).
+
 Training takes the JAX recipe's two switches.  Dropout
 (``hidden_dropout_prob``: after the embeddings and on each block's
 attention and MLP outputs; ``attention_dropout_prob``: on the flash
@@ -59,11 +74,12 @@ inputs by the names JAX dispatches them under (`amp`): the layers' ops,
 ``lm_head`` (`gpt.py:887`), and the stacked blocks as the one op
 ``gpt_stacked_blocks`` (`gpt.py:553`, `:563`).
 
-Left out for later slices: MoE, pipeline execution (and the 1F1B fused
-loss), and the stacked-cache layer-scan decode.
+Left out for later slices: expert parallelism, pipeline execution (and
+the 1F1B fused loss), and the stacked-cache layer-scan decode.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import os
 
@@ -75,7 +91,7 @@ from ..amp import cast_inputs
 from ..core import random as _random
 from ..device import resolve_device
 from ..distributed.fleet.utils.recompute import recompute
-from ..graphs import StepGraph
+from ..graphs import StepGraph, traced
 from ..nn.functional import (cross_entropy, embedding, flash_attention,
                              fused_ln_applies, layer_norm, layer_norm_arrays,
                              linear)
@@ -85,10 +101,11 @@ from ..ops.flash_decode import cached_attention_arrays
 from ..ops.fused_decode import fused_decode_layer_arrays, fused_decode_ok
 from ..ops.fused_mlp import (ffn_geometry_ok, fused_ffn_arrays,
                              fused_layernorm_arrays, maybe_fused_ffn)
+from ..parallel.moe import moe_mlp_arrays
 
 __all__ = ["GPTConfig", "GPTForCausalLM", "GPTPretrainingCriterion",
-           "GPTEmbeddings", "GPTAttention", "GPTMLP", "GPTBlock", "GPTModel",
-           "gpt_test_config",
+           "GPTEmbeddings", "GPTAttention", "GPTMLP", "GPTMoEMLP", "GPTBlock",
+           "GPTModel", "gpt_test_config",
            "gpt2_124m_config", "gpt3_1p3b_config", "gpt3_6p7b_config"]
 
 _NEG_INF = -1e30
@@ -96,12 +113,15 @@ _NEG_INF = -1e30
 
 @dataclasses.dataclass
 class GPTConfig:
-    """The fields of the JAX `GPTConfig` that the port reads.  The others
-    (MoE, sequence/context/pipeline parallelism) select behaviour the port
-    does not have yet, so they cannot be set: the port runs on one device.
-    ``stacked_blocks`` picks the layout, per-layer by default as in the
-    JAX package; the dropout probabilities and ``recompute`` act as the
-    module docstring says."""
+    """The fields of the JAX `GPTConfig` that the port reads, in JAX's
+    relative order.  The others (sequence, context and pipeline
+    parallelism) select behaviour the port does not have yet, so they
+    cannot be set: the port runs on one device.  The fields up to
+    ``layer_norm_epsilon`` take the positions they have in JAX; the rest
+    are keyword-only, since JAX's eleventh positional field is one the
+    port lacks.  ``stacked_blocks`` picks the layout, per-layer by
+    default as in the JAX package; the dropout probabilities, the MoE
+    fields and ``recompute`` act as the module docstring says."""
     vocab_size: int = 50304
     hidden_size: int = 768
     num_hidden_layers: int = 12
@@ -112,6 +132,12 @@ class GPTConfig:
     attention_dropout_prob: float = 0.0
     initializer_range: float = 0.02
     layer_norm_epsilon: float = 1e-5
+    _: dataclasses.KW_ONLY
+    # MoE: a mixture of experts in place of the dense FFN every n blocks
+    moe_every_n: int = 0
+    moe_num_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
     stacked_blocks: bool = False
     recompute: bool = False
 
@@ -276,8 +302,22 @@ def _row_linear(layer, x):
     """A `Linear` as the JAX ``RowParallelLinear`` computes it
     (`parallel/mp_layers.py:89-97`): the op ``linear`` without the bias,
     then the bias added, so under `amp.auto_cast` the sum takes the
-    wider of the two dtypes."""
+    wider of the two dtypes.  A layer without a float ``weight`` (a
+    `WeightOnlyLinear`) is called as a layer, which adds its bias after
+    the product, as JAX's does."""
+    if getattr(layer, "weight", None) is None:
+        return layer(x)
     return linear(x, layer.weight) + layer.bias
+
+
+def _copy_without(obj, memo, fresh):
+    """A deep copy of ``obj`` whose attributes named in ``fresh`` are new
+    values (``fresh[name]()``) instead of copies."""
+    new = obj.__class__.__new__(obj.__class__)
+    memo[id(obj)] = new
+    for k, v in obj.__dict__.items():
+        new.__dict__[k] = fresh[k]() if k in fresh else copy.deepcopy(v, memo)
+    return new
 
 
 def _lm_head(h, wte):
@@ -381,7 +421,8 @@ class GPTAttention(nn.Module):
 class GPTMLP(nn.Module):
     """``fc_out(gelu_tanh(fc_in(x)))`` (``fc_out`` as `_row_linear`), or
     under ``PTPU_PALLAS_FFN=1`` the fused FFN plus ``fc_out.bias`` where
-    `maybe_fused_ffn` takes it (`gpt.py:254-280`)."""
+    `maybe_fused_ffn` takes it (`gpt.py:254-280`): only while both
+    projections hold a float ``weight`` (quantized ones do not)."""
 
     def __init__(self, cfg: GPTConfig, device, dtype, generator):
         super().__init__()
@@ -390,26 +431,76 @@ class GPTMLP(nn.Module):
         self.fc_out = Linear(cfg.intermediate_size, cfg.hidden_size, **kw)
 
     def forward(self, x):
-        y = maybe_fused_ffn(x, self.fc_in.weight, self.fc_in.bias,
-                            self.fc_out.weight, "gelu_tanh")
-        if y is not None:
-            return y + self.fc_out.bias
+        w1 = getattr(self.fc_in, "weight", None)
+        w2 = getattr(self.fc_out, "weight", None)
+        b2 = self.fc_out.bias
+        if w1 is not None and w2 is not None and b2 is not None:
+            y = maybe_fused_ffn(x, w1, self.fc_in.bias, w2, "gelu_tanh")
+            if y is not None:
+                return y + b2
         return _row_linear(self.fc_out,
                            F.gelu(self.fc_in(x), approximate="tanh"))
 
 
-class GPTBlock(nn.Module):
-    """Pre-LN block (`gpt.py:698-723`, no MoE), dropout
-    (``hidden_dropout_prob``) on the attention and MLP outputs; with
-    ``cache`` it returns ``(x, cache)`` (`GPTAttention`)."""
+class GPTMoEMLP(nn.Module):
+    """Mixture-of-experts FFN (`gpt.py:283-325`): the ``gate`` `Linear` (H
+    -> E), then `parallel.moe.moe_mlp_arrays` over the experts' ``w_in``
+    [E, H, M] and ``w_out`` [E, M, H] (drawn normal with std
+    ``initializer_range``), dispatched as the op ``moe_mlp``
+    (`amp.cast_inputs`).  ``aux_loss`` holds the GShard load-balance loss
+    of the last forward (a deep copy starts without one)."""
 
     def __init__(self, cfg: GPTConfig, device, dtype, generator):
+        super().__init__()
+        self.num_experts = cfg.moe_num_experts
+        self.top_k = cfg.moe_top_k
+        self.capacity_factor = cfg.moe_capacity_factor
+        e, h, m = cfg.moe_num_experts, cfg.hidden_size, cfg.intermediate_size
+        kw = dict(device=device, dtype=dtype, generator=generator)
+        self.gate = Linear(h, e, **kw)
+        dev = resolve_device(device)
+        g = generator if generator is not None \
+            else torch.Generator().manual_seed(0)
+        for name, shape in (("w_in", (e, h, m)), ("w_out", (e, m, h))):
+            t = torch.empty(shape).normal_(0.0, cfg.initializer_range,
+                                           generator=g)
+            self.register_parameter(name, nn.Parameter(
+                t.to(device=dev, dtype=dtype)))
+        self.aux_loss = None
+
+    def __deepcopy__(self, memo):
+        # the last forward's loss may hold an autograd graph, which a
+        # deep copy refuses
+        return _copy_without(self, memo, {"aux_loss": lambda: None})
+
+    def forward(self, x):
+        logits = self.gate(x)                        # [b, s, E]
+        x, logits, w_in, w_out = cast_inputs("moe_mlp", x, logits,
+                                             self.w_in, self.w_out)
+        out, aux = moe_mlp_arrays(x, logits, w_in, w_out, top_k=self.top_k,
+                                  capacity_factor=self.capacity_factor)
+        self.aux_loss = aux
+        return out
+
+
+class GPTBlock(nn.Module):
+    """Pre-LN block (`gpt.py:698-723`), dropout (``hidden_dropout_prob``)
+    on the attention and MLP outputs; with ``cache`` it returns ``(x,
+    cache)`` (`GPTAttention`).  Its FFN is a `GPTMoEMLP` where
+    ``moe_every_n`` > 0, ``moe_num_experts`` > 1 and ``(layer_idx + 1) %
+    moe_every_n == 0``, else a `GPTMLP`."""
+
+    def __init__(self, cfg: GPTConfig, layer_idx=0, device=None,
+                 dtype=torch.float32, generator=None):
         super().__init__()
         eps = cfg.layer_norm_epsilon
         self.ln_1 = LayerNorm(cfg.hidden_size, eps, device, dtype)
         self.attn = GPTAttention(cfg, device, dtype, generator)
         self.ln_2 = LayerNorm(cfg.hidden_size, eps, device, dtype)
-        self.mlp = GPTMLP(cfg, device, dtype, generator)
+        use_moe = (cfg.moe_every_n > 0 and cfg.moe_num_experts > 1
+                   and (layer_idx + 1) % cfg.moe_every_n == 0)
+        self.mlp = (GPTMoEMLP if use_moe else GPTMLP)(cfg, device, dtype,
+                                                      generator)
         self.dropout = Dropout(cfg.hidden_dropout_prob)
 
     def forward(self, x, cache=None, time_step=None):
@@ -431,8 +522,8 @@ class GPTModel(nn.Module):
     def __init__(self, cfg: GPTConfig, device, dtype, generator):
         super().__init__()
         self.embeddings = GPTEmbeddings(cfg, device, dtype, generator)
-        self.h = [GPTBlock(cfg, device, dtype, generator)
-                  for _ in range(cfg.num_hidden_layers)]
+        self.h = [GPTBlock(cfg, i, device, dtype, generator)
+                  for i in range(cfg.num_hidden_layers)]
         for i, blk in enumerate(self.h):
             self.add_module(f"h_{i}", blk)
         self.ln_f = LayerNorm(cfg.hidden_size, cfg.layer_norm_epsilon,
@@ -494,6 +585,10 @@ class GPTForCausalLM(nn.Module):
         if cfg.hidden_dropout_prob or cfg.attention_dropout_prob:
             raise ValueError(
                 "stacked_blocks path does not support dropout yet")
+        if cfg.moe_every_n > 0:
+            raise ValueError(
+                "stacked_blocks path does not support MoE; use "
+                "stacked_blocks=False")
         L, H, I = (cfg.num_hidden_layers, cfg.hidden_size,
                    cfg.intermediate_size)
         shapes = {
@@ -517,6 +612,12 @@ class GPTForCausalLM(nn.Module):
                     0.0, cfg.initializer_range, generator=g)
             self.register_parameter(name, nn.Parameter(
                 t.to(device=dev, dtype=dtype)))
+
+    def __deepcopy__(self, memo):
+        # generate's decode steps hold CUDA graphs over this model's
+        # buffers: a copy captures its own (`gpt.py:859-871`)
+        return _copy_without(self, memo, {"_decode_steps": dict,
+                                          "compiles": dict})
 
     @property
     def word_embeddings(self):
@@ -575,14 +676,17 @@ class GPTForCausalLM(nn.Module):
     def param_arrays(self) -> dict:
         """{name: tensor}: stacked, keyed like the JAX engine's
         ``_param_arrays``; per-layer, like the JAX model's
-        ``state_dict()`` (``gpt.h_0.attn.qkv_proj.weight``, ...)."""
-        return dict(self.named_parameters())
+        ``state_dict()`` (``gpt.h_0.attn.qkv_proj.weight``, ...; a
+        quantized model's ``...qweight`` and ``...scale`` buffers too)."""
+        return {**dict(self.named_parameters()),
+                **dict(self.named_buffers())}
 
     @torch.no_grad()
     def load_params(self, params: dict) -> "GPTForCausalLM":
-        """Copy tensors keyed like `param_arrays` into this model (cast to
-        its device and dtype); every name must be present, shapes must
-        match."""
+        """Copy tensors keyed like `param_arrays` into this model, each
+        cast to the device and dtype of the tensor it replaces (a
+        quantized model's int8 / uint8 codes and fp32 scales keep theirs);
+        every name must be present, shapes must match."""
         mine = self.param_arrays()
         if set(params) != set(mine):
             raise ValueError(f"parameter names differ: missing "
@@ -668,13 +772,14 @@ class GPTForCausalLM(nn.Module):
         """The `_DecodeStep` of ``generate`` for this shape key — JAX's
         ``gen_key`` less the sampling parameters, which stay outside the
         step: (B, S_max, dtype, layout, the kernel flags that pick the
-        step's path, padded).  It is made anew when the weights have moved
-        (the graph holds their addresses)."""
+        step's path, padded).  It is made anew when the weights or buffers
+        (a quantized model's codes and scales) have moved: the graph holds
+        their addresses."""
         wte = self.word_embeddings
         s_max = -(-max_length // 128) * 128
         key = (batch, s_max, wte.dtype, self.cfg.stacked_blocks,
                tuple(os.environ.get(k) for k in _DECODE_FLAGS), padded)
-        weights = tuple(p.data_ptr() for p in self.parameters())
+        weights = tuple(p.data_ptr() for p in self.param_arrays().values())
         step = self._decode_steps.get(key)
         if step is None or step.weights != weights:
             step = self._decode_steps[key] = _DecodeStep(
@@ -682,6 +787,7 @@ class GPTForCausalLM(nn.Module):
         return step
 
     @torch.no_grad()
+    @traced()
     def generate(self, input_ids, max_new_tokens=32, do_sample=False,
                  temperature=1.0, top_k=0, top_p=1.0, eos_token_id=None,
                  seed=None, pad_token_id=None):
@@ -706,9 +812,11 @@ class GPTForCausalLM(nn.Module):
         (`gpt.py:1081-1113`, `:1143-1150`).
 
         The loop is driven from the host and syncs with it only to test
-        the finished flags when ``eos_token_id`` is set.  Each decode step
-        is the key's `_DecodeStep` (`_decode_step`): on the card one CUDA
-        graph replay, then the sampler."""
+        the finished flags when ``eos_token_id`` is set.  For telemetry it
+        is one traced program (`graphs.traced`: no MoE routing read-back,
+        no ``lowbit/dequant_calls``), as JAX's is one compiled program.
+        Each decode step is the key's `_DecodeStep` (`_decode_step`): on
+        the card one CUDA graph replay, then the sampler."""
         cfg = self.cfg
         dev = self.word_embeddings.device
         ids = torch.as_tensor(input_ids).to(dev, torch.int32)
@@ -787,8 +895,9 @@ class _DecodeStep:
         def step():
             pos = (None if self.shift is None
                    else (self.t - self.shift)[:, None])
-            logits = model._forward_cached(self.tok, self.caches, self.t,
-                                           False, pos, self.mask)
+            with traced():
+                logits = model._forward_cached(self.tok, self.caches,
+                                               self.t, False, pos, self.mask)
             self.t += 1
             return logits
 

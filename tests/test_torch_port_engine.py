@@ -131,10 +131,34 @@ def test_kv_cache_raises_without_cuda(monkeypatch):
     "context_parallel", "hidden_dropout_prob", "moe_every_n", "recompute"])
 def test_config_has_no_unported_options(option):
     # the JAX config's field exists; the port's cannot be set unless the
-    # port has the behaviour (dropout and recompute: the training recipe)
+    # port has the behaviour (dropout and recompute: the training recipe;
+    # moe_every_n: the mixture-of-experts blocks)
     assert option in {f.name for f in dataclasses.fields(jax_test_config())}
-    if option in ("hidden_dropout_prob", "recompute"):
+    if option in ("hidden_dropout_prob", "recompute", "moe_every_n"):
         assert getattr(gpt_test_config(**{option: 1}), option) == 1
         return
     with pytest.raises(TypeError):
         gpt_test_config(**{option: 1})
+
+
+def test_config_positional_fields_mean_what_they_mean_in_jax():
+    # the port's positional fields are JAX's first ten, in JAX's order;
+    # the rest are keyword-only (JAX's eleventh positional field,
+    # use_flash_attention, is one the port lacks) and keep JAX's
+    # relative order
+    from paddle_tpu.models import GPTConfig as JaxConfig
+    from paddle_tpu_torch.models import GPTConfig
+    jax_names = [f.name for f in dataclasses.fields(JaxConfig)]
+    fields = dataclasses.fields(GPTConfig)
+    positional = [f.name for f in fields if not f.kw_only]
+    assert positional == jax_names[:10]
+    assert positional[-1] == "layer_norm_epsilon"
+    rest = [f.name for f in fields if f.kw_only]
+    assert rest == [n for n in jax_names if n in rest]
+    values = (99, 32, 3, 2, 64, 16, 0.0, 0.0, 0.03, 1e-6)
+    port, jax_cfg = GPTConfig(*values), JaxConfig(*values)
+    for name in positional:
+        assert getattr(port, name) == getattr(jax_cfg, name), name
+    assert JaxConfig(*values, False).use_flash_attention is False
+    with pytest.raises(TypeError):
+        GPTConfig(*values, True)
