@@ -409,7 +409,31 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``moe/*`` series consistent (48 observations, kept + dropped = the
    slots); ``generate`` B=8 128 + 32 eager and captured, tokens identical,
    no routing recorded inside it.
-8. Summary: one JSON line of forty-nine entries: thirty-nine (the nine kernels,
+17. BERT fine-tuning (`bert_kernel_cases`, `bert_phase`): 17a the
+   non-causal flash forward, dQ and dK/dV at BERT-base's shapes (H=12
+   D=64; B=32 S=128 and B=8 S=512) without a mask and with BERT's
+   [B, 1, 1, S] padding mask (seeded lengths 16-S, read as a stride-0
+   view over the queries), fp32 and bf16, against their plain versions
+   with phase 2's limits, timed beside SDPA given the same mask, with
+   their bounds, and the dropout kernel (`ops.threefry`: JAX's threefry
+   keep mask, no Pallas counterpart) at BERT-base's dropout shapes,
+   bitwise against its plain version, timed with its bound (no PyTorch
+   call draws JAX's bits; `torch.rand` < keep printed beside it as a
+   yardstick); 17b a 2-layer fp32 BERT at BERT-base's widths, B=2
+   S=128, dropout 0.1 (on the key stack: the same masks on both devices)
+   and the padding mask, 3 AdamW steps on the card and on the CPU: losses
+   within 1e-5 relative, step-1 gradients within 1e-3 max|g|; 17c
+   BERT-base (12 layers, random weights from seed 0) fine-tuned in bf16
+   with fp32 masters at B=32 S=128 (`bench.py:276-313`: AdamW lr 2e-5,
+   cross entropy over 2 classes), turns the bench's form (dropout 0, no
+   mask), dropout 0.1 with the padding mask, and that under
+   ``PTPU_PALLAS_LN=1``: 2 + 10 steps each, ms a step, tokens/s, a
+   profiled step's device ms by group and busy share, peak GB, and the
+   launches a step checked (flash forward, dQ, dK/dV 12 each, under
+   ``:noncausal`` or ``:mask``; LayerNorm forward and backward 25 each
+   under the flag; the dropout kernel 50 a step with dropout: the
+   embeddings, four sites a layer and the pooled output).
+8. Summary: one JSON line of fifty entries: thirty-nine (the nine kernels,
    the int8 variant, the mask, segment and non-causal variants of the
    flash kernels, the tensor-core forward, dQ and dK/dV -- every bf16
    launch of those three, timed at the bf16 training shape -- the fp32
@@ -438,7 +462,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    first 8 x 256 turn) and their fp32 CUDA-core kernels' (fp32 at the
    same shape, launches from 13b's stacked fp32 training), each D = 256
    entry with its launches in phase 13 as a whole (and every entry its
-   launches in phases 14, 15 and 16); it fails if an entry's
+   launches in phases 14, 15, 16 and 17); and the dropout kernel's
+   (`threefry_bernoulli`, timed at BERT-base's FFN dropout [32, 128,
+   3072], launches from 17c's dropout turn; it replaces no Pallas kernel:
+   its "replaces" names the JAX draw XLA fuses); it fails if an entry's
    main path launched it no time; the card line, then the result line.
 
 Every time is a median of CUDA-event timings (L2 flushed before each
@@ -544,6 +571,14 @@ D256_ALL = (FWD_D256, FWD_SIMT, RAGGED_D256, RAGGED8_D256, DECODE_D256,
 DQ_D256, DQ_SIMT = DQ + ":d256", DQ + ":simt"
 DKV_D256, DKV_SIMT = DKV + ":d256", DKV + ":simt"
 D256_BWD = (DQ_D256, DQ_SIMT, DKV_D256, DKV_SIMT)
+# dropout's keep masks on JAX's keys (`ops.threefry`)
+THREEFRY = "threefry_bernoulli"
+# its integer operations an element (`csrc/threefry_bernoulli.cu`: 20
+# rounds of add, rotate and xor, 10 key injections, 2 counter adds, the
+# bits' xor, shift, or, subtract and compare), and the most instructions
+# the card issues: 4 warp instructions a clock an SM, 128 lanes, 132 SMs
+# at 1.98 GHz (the lanes behind the 67 TFLOP/s of fp32, 2 FLOP an FMA)
+THREEFRY_OPS, INT32_OPS = 78, 33.45e12
 HALF_AND_FP32 = (torch.bfloat16, torch.float16, torch.float32)
 FWD_ALL = (FWD, FWD_MASK, FWD_SEGS, FWD_NC)
 DQ_ALL = (DQ, DQ_MASK, DQ_SEGS, DQ_NC)
@@ -553,7 +588,7 @@ KERNELS = (FWD, FWD_MASK, FWD_SEGS, FWD_NC, FWD_TC, FWD_TC32, RAGGED,
            DKV_MASK, DKV_SEGS, DKV_NC, DKV_TC, DKV_TC32, DECODE, FUSED, LN,
            LN_BWD, FFN, FFN_TC, FFN_TC32, FFN_DEC, FWD_TC16, DQ_TC16,
            DKV_TC16, RAGGED16, RAGGED8_16, DECODE16, LN16, LN_BWD16, FFN16,
-           FFN_TC16, FFN_DEC16, *D256_ALL, *D256_BWD)
+           FFN_TC16, FFN_DEC16, *D256_ALL, *D256_BWD, THREEFRY)
 REPLACES = {
     FWD: "paddle_tpu/ops/pallas_ops.py:135",
     FWD_MASK: "paddle_tpu/ops/pallas_ops.py:135",
@@ -604,6 +639,8 @@ REPLACES = {
     DQ_SIMT: "paddle_tpu/ops/pallas_ops.py:210",
     DKV_D256: "paddle_tpu/ops/pallas_ops.py:272",
     DKV_SIMT: "paddle_tpu/ops/pallas_ops.py:272",
+    # no Pallas kernel: the JAX package's dropout draw, which XLA fuses
+    THREEFRY: "paddle_tpu/nn/functional/__init__.py:903",
 }
 # the __global__ functions of paddle_tpu_torch/csrc, as the profiler names
 # (template names: the flash variants are instantiations of the flash
@@ -618,7 +655,8 @@ PORT_SYMBOLS = ("flash_fwd_tc32_kernel", "flash_fwd_tc_kernel",
                 "flash_decode_kernel", "fused_decode_layer_kernel",
                 "ln_fwd_kernel", "ln_fwd_wide_kernel", "ln_bwd_kernel",
                 "ln_bwd_wide_kernel", "fused_ffn_kernel", "ffn_tc_kernel",
-                "ffn_tc32_kernel", "wt_split_kernel", "ffn_dec_kernel")
+                "ffn_tc32_kernel", "wt_split_kernel", "ffn_dec_kernel",
+                "threefry_bernoulli_kernel")
 # ... and those a tree from before has, so that `--paths` groups a
 # parent's profile as its own (the CUDA-core fp32 forward, dQ and dK/dV;
 # the LayerNorm backward's second launch)
@@ -1373,9 +1411,10 @@ def variant_inputs(kind, b, s, h, d, dtype, seed, segs=None):
     branches (causal, attn_mask, kv_lens, segment ids) of a variant case:
     ``segs`` the given packed ids, causal; ``nc`` non-causal; ``pad`` the
     stride-0 [B, 1, S, S] view of a left-pad key row (`PAD_COUNTS`; its
-    pad queries have every key masked), causal; ``lens`` kv_lens S .. S -
-    37 (B - 1), causal.  Everything but the packed ids is drawn from
-    ``seed``."""
+    pad queries have every key masked), causal; ``key`` BERT's additive
+    [B, 1, 1, S] padding mask (`bert_key_mask`), non-causal; ``lens``
+    kv_lens S .. S - 37 (B - 1), causal.  Everything but the packed ids is
+    drawn from ``seed``."""
     g = torch.Generator().manual_seed(seed)
     q, k, v = torch.randn(b, s, 3, h, d, generator=g).to(
         "cuda", dtype).unbind(2)
@@ -1385,10 +1424,12 @@ def variant_inputs(kind, b, s, h, d, dtype, seed, segs=None):
         pads = torch.tensor(PAD_COUNTS[:b])
         row = torch.where(torch.arange(s)[None] < pads[:, None], -1e30, 0.0)
         mask = row.cuda()[:, None, None, :].expand(b, 1, s, s)
+    if kind == "key":
+        mask = torch.where(bert_key_mask(b, s, seed), 0.0, -1e30)
     if kind == "lens":
         lens = torch.tensor([s - 37 * i for i in range(b)],
                             dtype=torch.int32).cuda()
-    return (q, k, v, do, kind != "nc", mask, lens,
+    return (q, k, v, do, kind not in ("nc", "key"), mask, lens,
             None if segs is None else segs.cuda().int())
 
 
@@ -1397,6 +1438,8 @@ def _library_mask(allowed, mask, dtype):
     given, else additive (-1e30 outside ``allowed``, plus the mask)."""
     if mask is None:
         return allowed[:, None]
+    if mask.shape[2] == 1 and bool(allowed.all()):
+        return mask.to(dtype)          # a key mask: SDPA broadcasts it
     return (torch.where(allowed[:, None], 0.0, -1e30) + mask).to(dtype)
 
 
@@ -2391,7 +2434,9 @@ def train_launches(cfg, steps, env, packed=False, dtype=torch.float32,
     alone stacked); under PTPU_PALLAS_FFN the FFN once per per-layer
     block (the stacked blocks keep their own MLP), of the design its rows
     and dtype take (bf16 8192 rows: the tensor cores; fp32 1024 rows: the
-    CUDA cores); nothing else.  Under ``auto_cast`` (``amp`` its level)
+    CUDA cores); with dropout the keep-mask kernel once a site (the
+    embeddings and two a block, and each flash output); nothing else.
+    Under ``auto_cast`` (``amp`` its level)
     the LayerNorms run in fp32 (its black list), and under O2 the FFN
     gate refuses the fp32 LayerNorm output beside the cast weights, as
     the JAX gate does (``x.dtype == w1.dtype``): no FFN launch.  At
@@ -2409,6 +2454,11 @@ def train_launches(cfg, steps, env, packed=False, dtype=torch.float32,
     if env.get("PTPU_PALLAS_FFN") == "1" and not cfg.stacked_blocks \
             and amp != "O2":
         want[ffn_counter(rows, cfg, dtype)] = layers * steps
+    # dropout's keep masks: the embeddings' and two a block (hidden), the
+    # flash output's (attention)
+    want[THREEFRY] = steps * (
+        (1 + 2 * layers if cfg.hidden_dropout_prob else 0)
+        + (layers if cfg.attention_dropout_prob else 0))
     return with_tc(want, dtype, torch.float32 if amp else None,
                    d=cfg.hidden_size // cfg.num_attention_heads)
 
@@ -4588,6 +4638,10 @@ def print_cases(cases):
             if "splits" in c:
                 rate += (f" {c['splits']} splits ({c['blocks']} blocks), "
                          f"{c['gb_per_s']:.1f} GB/s achieved")
+            if "torch_rand_ms" in c:     # the dropout kernel's yardstick
+                rate += (f"; kept {c['kept']:.5f}; torch.rand < keep "
+                         f"(torch's Philox, not JAX's bits) "
+                         f"{c['torch_rand_ms']:.4f} ms")
             if "write_ms" in c:      # the ragged kernels' two launches
                 rate += (f" write alone {c['write_ms']:.4f}, attend alone "
                          f"{c['attend_ms']:.4f} ms; {c['max_splits']} "
@@ -5051,7 +5105,7 @@ def lowbit_phase(ops, card, batch=8, prompt=896, new=128):
     from paddle_tpu_torch.lowbit import (WeightOnlyLinear,
                                          quantize_for_inference)
     from paddle_tpu_torch.models import GPTForCausalLM, gpt2_124m_config
-    from paddle_tpu_torch.nn.layer import Linear
+    from paddle_tpu_torch.nn import Linear
     cfg = gpt2_124m_config()
     rng = np.random.RandomState(15)
     ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (batch, prompt))
@@ -5361,6 +5415,270 @@ def moe_phase(ops, card, batch=8, seq=1024, warmup=2, timed=4,
     return rec, launches_by
 
 
+# ---------------------------------------------------------------------------
+# 17. BERT fine-tuning (the layer API and the masked, non-causal flash path)
+# ---------------------------------------------------------------------------
+
+# BERT-base's fine-tuning shape (`bench.py:276-313`) and BERT's longest
+BERT_SHAPES = ((32, 128), (8, 512))
+BERT_B, BERT_S, BERT_LR = 32, 128, 2e-5
+# the turns of 17c: the bench's form (dropout 0, no mask), dropout 0.1 with
+# the padding mask, and that again with the LayerNorm kernels
+BERT_TURNS = {"bench": (False, {}), "dropout": (True, {}),
+              "dropout_ln": (True, {"PTPU_PALLAS_LN": "1"})}
+
+
+def bert_key_mask(b, s, seed):
+    """BERT's padding mask, bool [B, 1, 1, S] on the card (True keeps):
+    row i keeps its first len_i keys, lengths drawn in 16 .. S from
+    ``seed``, the first row whole."""
+    g = torch.Generator().manual_seed(seed)
+    lens = torch.randint(16, s + 1, (b,), generator=g)
+    lens[0] = s
+    keep = torch.arange(s)[None, :] < lens[:, None]
+    return keep[:, None, None, :].cuda()
+
+
+def bert_kernel_cases(fa, tf, tol, timer, cases):
+    """Phase 17a: the non-causal flash forward, dQ and dK/dV at BERT-base's
+    shapes (H=12 D=64, B=32 S=128 and B=8 S=512), without a mask and with
+    the padding mask (`bert_key_mask`, additive [B, 1, 1, S], read by the
+    kernels as a stride-0 view over the queries), fp32 and bf16, each
+    against its plain version (`check_flash_variant`: the limits of phase
+    2), timed beside SDPA given the same mask; the dropout kernel at
+    BERT-base's three dropout shapes (`check_threefry`)."""
+    for b, s in BERT_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for kind in ("nc", "key"):
+                for name, c in check_flash_variant(
+                        fa, tol, timer, kind, b, s, 12, 64, dtype,
+                        seed=s + b).items():
+                    cases[name].append(c)
+        torch.cuda.empty_cache()
+    for shape in ((BERT_B, BERT_S, 768), (BERT_B, BERT_S, 12, 64),
+                  (BERT_B, BERT_S, 3072)):
+        cases[THREEFRY].append(check_threefry(tf, timer, shape, 0.9,
+                                              seed=len(shape)))
+
+
+def check_threefry(tf, timer, shape, keep, seed):
+    """The dropout kernel against its plain version (`core.random.
+    bernoulli` on the card, the same key): bitwise.  Timed with its bound:
+    max(the mask's bytes written once over the memory rate, `THREEFRY_OPS`
+    32-bit integer operations an element over `INT32_OPS`); no PyTorch call
+    draws JAX's bits (library_ms None), so ``torch.rand(shape) < keep``
+    (torch's own Philox stream) is timed beside it as a yardstick."""
+    from paddle_tpu_torch.core import random as R
+    key = R.split(R.PRNGKey(seed))[1]
+    got = tf.bernoulli(key, keep, shape, "cuda")
+    want = R.bernoulli(key.cuda(), keep, shape)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        fail(f"threefry_bernoulli {list(shape)}: "
+             f"{int((got != want).sum())} of {got.numel()} keep decisions "
+             f"differ from the plain version's")
+    n = got.numel()
+    ms = timer(lambda: tf.bernoulli(key, keep, shape, "cuda"))
+    plain_ms = timer(lambda: R.bernoulli(key.cuda(), keep, shape), reps=10)
+    rand_ms = timer(lambda: torch.rand(shape, device="cuda") < keep)
+    by_bytes, by_ops = n / HBM_BPS * 1e3, THREEFRY_OPS * n / INT32_OPS * 1e3
+    return dict(shape=f"{list(shape)} keep {keep}", dtype="torch.bool",
+                max_abs_err=0.0, err_over_limit=0.0, ms=ms,
+                plain_ms=plain_ms, bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations",
+                library_ms=None, tol="bitwise", gb_per_s=n / ms / 1e6,
+                torch_rand_ms=rand_ms, kept=got.float().mean().item())
+
+
+def bert_launches(layers, steps, masked, dtype, ln=False):
+    """Expected launches of `steps` BERT training steps, its dropout and
+    padding mask on (``masked``) or off: the non-causal flash forward, dQ
+    and dK/dV once a layer, under ``:mask`` with the padding mask,
+    ``:noncausal`` without; with dropout the keep-mask kernel once a site
+    (the embeddings, four a layer, the pooled output); under
+    PTPU_PALLAS_LN the LayerNorm forward and backward 2 a layer and the
+    embeddings' one."""
+    want = dict.fromkeys(KERNELS, 0)
+    for name in ((FWD_MASK, DQ_MASK, DKV_MASK) if masked
+                 else (FWD_NC, DQ_NC, DKV_NC)):
+        want[name] = layers * steps
+    if masked:
+        want[THREEFRY] = (2 + 4 * layers) * steps
+    if ln:
+        want[LN] = want[LN_BWD] = (2 * layers + 1) * steps
+    return with_tc(want, dtype)
+
+
+def bert_batch(cfg, batch, seq, seed):
+    """ids [B, S], labels [B] over 2 classes and the padding mask."""
+    rng = np.random.RandomState(seed)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (batch, seq)))
+    labels = torch.from_numpy(rng.randint(0, 2, (batch,)))
+    return ids.cuda(), labels.cuda(), bert_key_mask(batch, seq, seed)
+
+
+def bert_step(model, opt, data, masked, grads=None):
+    """One fine-tuning step (`bench.py:296-301`): cross entropy over the
+    classifier's logits, backward, AdamW step, clear; returns the loss."""
+    from paddle_tpu_torch.nn import functional as PF
+    ids, labels, mask = data
+    loss = PF.cross_entropy(model(ids, attention_mask=mask if masked
+                                  else None), labels)
+    loss.backward()
+    if grads is not None:
+        grads.update({n: p.grad.detach().float().cpu()
+                      for n, p in model.named_parameters()})
+    opt.step()
+    opt.clear_grad()
+    return loss.detach()
+
+
+def bert_fp32_card_vs_cpu(ops, steps=3, batch=2, seq=BERT_S):
+    """Phase 17b: a 2-layer fp32 BERT at BERT-base's widths (vocab 30522),
+    B=2 S=128, dropout 0.1 and the padding mask, `steps` AdamW steps on the
+    card and on the CPU from the same weights (drawn on the card from seed
+    0, copied) and the same seed of the key stack, so the same dropout
+    masks (threefry is bitwise on both): losses within 1e-5 relative,
+    step-1 gradients within 1e-3 max|g| (a key bias's, rounding noise
+    around 0 since softmax ignores it, 1e-3 max|g| of its key weight), the
+    masked kernels 2 a step."""
+    import paddle_tpu_torch
+    from paddle_tpu_torch.models import (BertForSequenceClassification,
+                                         bert_base_config)
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = bert_base_config(num_hidden_layers=2)
+    paddle_tpu_torch.seed(0)
+    card = BertForSequenceClassification(cfg, device="cuda")
+    cpu = BertForSequenceClassification(cfg, device="cpu")
+    cpu.set_state_dict(card.state_dict())
+    data = bert_batch(cfg, batch, seq, seed=5)
+    runs = {}
+    for dev, model in (("cuda", card), ("cpu", cpu)):
+        opt = AdamW(learning_rate=TRAIN_LR, parameters=model.parameters())
+        model.train()
+        paddle_tpu_torch.seed(17)
+        grads = {}
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        losses = [bert_step(model, opt, [t.to(dev) for t in data], True,
+                            grads if i == 0 else None).item()
+                  for i in range(steps)]
+        runs[dev] = dict(losses=losses, grads=grads,
+                         launches=ops.launch_counts(),
+                         seconds=time.perf_counter() - t0)
+    gpu, cpu_run = runs["cuda"], runs["cpu"]
+    check_train_launches(gpu["launches"], bert_launches(
+        2, steps, True, torch.float32), "float32 BERT training")
+    rel = [abs(g - c) / abs(c) for g, c in zip(gpu["losses"],
+                                                cpu_run["losses"])]
+    if not all(np.isfinite(gpu["losses"])) or max(rel) > 1e-5:
+        fail(f"float32 BERT: card losses {gpu['losses']} against the CPU's "
+             f"{cpu_run['losses']} (relative {rel}; limit 1e-5)")
+    worst = 0.0
+    for name, gc in cpu_run["grads"].items():
+        err = (gpu["grads"][name] - gc).abs().max().item()
+        scale = gc.abs().max().item()
+        if name.endswith("k_proj.bias"):
+            # softmax ignores the key bias: its gradient is rounding
+            # noise around 0 on both devices, held at its layer's scale
+            scale = cpu_run["grads"][name[:-4] + "weight"].abs().max().item()
+        limit = 1e-3 * scale
+        if not err <= limit:
+            fail(f"float32 BERT: step-1 gradient of {name} differs by {err} "
+                 f"(limit {limit})")
+        worst = max(worst, err / limit if limit else 0.0)
+    del card, cpu
+    return {"batch": f"B={batch} S={seq}", "steps": steps,
+            "card_losses": gpu["losses"], "cpu_losses": cpu_run["losses"],
+            "loss_rel_diff": rel, "grad_err_over_limit_max": worst,
+            "launches": gpu["launches"], "card_s": gpu["seconds"],
+            "cpu_s": cpu_run["seconds"]}
+
+
+def bert_train(ops, card, warmup=2, timed=10, batch=BERT_B, seq=BERT_S):
+    """Phase 17c: BERT-base (12 layers, vocab 30522, random weights from
+    seed 0) fine-tuned in bf16 with fp32 masters, `bench.py:276-313`'s
+    recipe (AdamW lr 2e-5, cross entropy over 2 classes), B=32 S=128, in
+    turns (`BERT_TURNS`): ms a step, tokens/s, peak GB, a profiled step
+    (device ms by group, busy share) and the launches a step, checked."""
+    import paddle_tpu_torch
+    from paddle_tpu_torch.models import (BertForSequenceClassification,
+                                         bert_base_config)
+    from paddle_tpu_torch.optimizer import AdamW
+    rec, launches_by = {}, {}
+    for turn, (drop, env) in BERT_TURNS.items():
+        p = 0.1 if drop else 0.0
+        cfg = bert_base_config(hidden_dropout_prob=p,
+                               attention_probs_dropout_prob=p)
+        paddle_tpu_torch.seed(0)
+        model = BertForSequenceClassification(cfg, device="cuda").bfloat16()
+        model.train()
+        n_params = sum(t.numel() for t in model.parameters())
+        opt = AdamW(learning_rate=BERT_LR, parameters=model.parameters())
+        data = bert_batch(cfg, batch, seq, seed=7)
+        with flag_env(env):
+            losses, ms, launches, peak, before = timed_steps(
+                ops, lambda d: bert_step(model, opt, d, drop), data, warmup,
+                timed)
+            check_train_launches(launches, bert_launches(
+                cfg.num_hidden_layers, warmup + timed, drop, torch.bfloat16,
+                ln=bool(env)), f"bfloat16 BERT-base {turn}")
+            prof = profile_step(lambda d: bert_step(model, opt, d, drop),
+                                data)
+        if not all(np.isfinite(losses)):
+            fail(f"bfloat16 BERT-base {turn}: losses {losses}")
+        steps = warmup + timed
+        rec[turn] = {"batch": f"B={batch} S={seq}", "parameters": n_params,
+                     "dropout": p, "mask": drop, "flags": env,
+                     "losses": losses, "ms_per_step": ms,
+                     "tokens_per_s": batch * seq * 1e3 / ms,
+                     "peak_memory_gb": peak, "allocated_before_gb": before,
+                     "profile": prof, "launches_per_step": {
+                         k: n // steps for k, n in launches.items() if n}}
+        launches_by[turn] = launches
+        t = rec[turn]
+        print(f"phase 17c BERT-base bf16 {turn} (dropout {p}, "
+              f"{'padding mask' if drop else 'no mask'}"
+              f"{', PTPU_PALLAS_LN=1' if env else ''}), {n_params} "
+              f"parameters, B={batch} S={seq}, AdamW lr {BERT_LR} with fp32 "
+              f"masters: losses {losses[0]:.4f} -> {losses[-1]:.4f}; "
+              f"{ms:.3f} ms a step after {warmup} ({t['tokens_per_s']:.1f} "
+              f"tokens/s); profiled step wall {prof['wall_ms']:.3f} ms, "
+              f"device {prof['device_ms']:.3f} ms (port kernels / matmul / "
+              f"other " + " / ".join(
+                  f"{v:.3f}" for v in prof["ms_by_group"].values())
+              + f"), busy {prof['device_busy_share']:.3f}, "
+              f"{prof['device_ops']:.0f} device ops; peak {peak:.2f} GB; "
+              f"launches a step {t['launches_per_step']} ({card})",
+              flush=True)
+        del model, opt
+        torch.cuda.empty_cache()
+    return rec, launches_by
+
+
+def bert_phase(ops, card):
+    """Phase 17b and 17c (module docstring); returns the record and the
+    launches of its runs by name."""
+    rec, launches_by = {}, {}
+    t0 = time.perf_counter()
+    rec["fp32"] = f32 = bert_fp32_card_vs_cpu(ops)
+    launches_by["fp32"] = f32["launches"]
+    print(f"phase 17b 2-layer fp32 BERT at BERT-base's widths, "
+          f"{f32['batch']}, dropout 0.1, padding mask, {f32['steps']} AdamW "
+          f"steps, card against CPU: losses {f32['card_losses']} (relative "
+          f"{max(f32['loss_rel_diff']):.3g}, limit 1e-5), step-1 gradients "
+          f"{f32['grad_err_over_limit_max']:.3g} of 1e-3 max|g|; masked "
+          f"flash launches {f32['launches'][FWD_MASK]} / "
+          f"{f32['launches'][DQ_MASK]} / {f32['launches'][DKV_MASK]}; card "
+          f"{f32['card_s']:.1f} s, CPU {f32['cpu_s']:.1f} s ({card})",
+          flush=True)
+    torch.cuda.empty_cache()
+    rec["train"], runs = bert_train(ops, card)
+    launches_by.update(runs)
+    rec["seconds"] = time.perf_counter() - t0
+    return rec, launches_by
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs a GPU")
@@ -5372,6 +5690,7 @@ def main():
     from paddle_tpu_torch.ops import fused_decode as fdl
     from paddle_tpu_torch.ops import fused_mlp as fm
     from paddle_tpu_torch.ops import ragged_paged_attention as rpa
+    from paddle_tpu_torch.ops import threefry as tf
     from paddle_tpu_torch.ops import tolerance as tol
     wrappers = {FWD: fa, FWD_MASK: fa.masked, FWD_SEGS: fa.segs,
                 FWD_NC: fa.noncausal, FWD_TC: fa.tc, FWD_TC32: fa.tc32,
@@ -5393,7 +5712,7 @@ def main():
                 FUSED_D256: fdl.d256, DQ_D256: fa.flash_bwd_dq.d256,
                 DQ_SIMT: fa.flash_bwd_dq.simt,
                 DKV_D256: fa.flash_bwd_dkv.d256,
-                DKV_SIMT: fa.flash_bwd_dkv.simt}
+                DKV_SIMT: fa.flash_bwd_dkv.simt, THREEFRY: tf}
     for bwd in (fa.flash_bwd_dq, fa.flash_bwd_dkv):
         wrappers.update({v.KERNEL: v for v in bwd.variants.values()})
     assert set(wrappers) == set(ops.launch_counts())
@@ -5963,6 +6282,14 @@ def main():
     result["moe"], launches_moe = moe_phase(ops, card)
     mark("16 MoE training and generate")
 
+    # -- 17. BERT fine-tuning -----------------------------------------------
+    n_before = {name: len(c) for name, c in cases.items()}
+    bert_kernel_cases(fa, tf, tol, timer, cases)
+    print_cases({name: c[n_before[name]:] for name, c in cases.items()})
+    mark("17a BERT kernels")
+    result["bert"], launches_bert = bert_phase(ops, card)
+    mark("17b-c BERT fp32 card vs CPU, BERT-base bf16 fine-tune")
+
     # -- 8. summary --------------------------------------------------------
     # the serving kernels at fp32 S=384 / the decode step (the int8 one
     # too); the backward kernels at the training shape in bf16, the
@@ -6030,7 +6357,8 @@ def main():
                  DQ_D256: pick(DQ_D256, "B=2 S=2048 H=8 D=256"),
                  DKV_D256: pick(DKV_D256, "B=2 S=2048 H=8 D=256"),
                  DQ_SIMT: pick(DQ_SIMT, "B=2 S=2048 H=8 D=256", f32),
-                 DKV_SIMT: pick(DKV_SIMT, "B=2 S=2048 H=8 D=256", f32)}
+                 DKV_SIMT: pick(DKV_SIMT, "B=2 S=2048 H=8 D=256", f32),
+                 THREEFRY: pick(THREEFRY, "[32, 128, 3072]", "torch.bool")}
     path_launches = {FWD: launches[FWD], RAGGED: launches[RAGGED],
                      RAGGED8: launches8[RAGGED8],
                      FWD_MASK: launches_gen["stacked default padded"][FWD_MASK],
@@ -6084,6 +6412,8 @@ def main():
         path_launches[name] = launches_h13d["turn1"][name]
     for name in (DQ_SIMT, DKV_SIMT):
         path_launches[name] = launches_h32["train_stacked"][name]
+    # dropout's keep masks: phase 17c's BERT-base turn with dropout
+    path_launches[THREEFRY] = launches_bert["dropout"][THREEFRY]
     kernels = []
     for name in KERNELS:
         c = main_case[name]
@@ -6112,14 +6442,18 @@ def main():
                                    for run in launches_lowbit.values())
         k["launches_moe"] = sum(run[k["name"]]
                                 for run in launches_moe.values())
+        k["launches_bert"] = sum(run[k["name"]]
+                                 for run in launches_bert.values())
     idle = [k["name"] for k in kernels if not k["launches"]]
     if idle:
         fail(f"kernels never launched on their main path: {idle}")
     result["kernels"] = kernels
     result["expected_launches"] = expected
     result["phase_s"] = phase_s
+    result["seconds"] = sum(phase_s.values())
     print("seconds by phase: " + ", ".join(f"{k} {v:.1f}"
-                                          for k, v in phase_s.items()),
+                                          for k, v in phase_s.items())
+          + f"; the whole run {result['seconds']:.1f} s of its 1200 s limit",
           flush=True)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

@@ -19,7 +19,9 @@ def params_from_numpy(d: dict, device=None, dtype=torch.float32) -> dict:
     `GPTForCausalLM.load_params`: for the stacked layout the JAX
     ``LLMEngine._param_arrays()`` (the stacked block weights plus ``wte``,
     ``wpe``, ``lnf_w``, ``lnf_b``), for the per-layer layout the JAX
-    model's ``state_dict()``.  A quantized model's ``...qweight`` and
+    model's ``state_dict()``; for a model built of `nn.Layer`s (BERT, the
+    transformer layers) the JAX model's ``state_dict()`` too, for
+    `Layer.set_state_dict`.  A quantized model's ``...qweight`` and
     ``...scale`` keep their own dtype."""
     dev = resolve_device(device)
     return {name: torch.from_numpy(np.array(a)).to(

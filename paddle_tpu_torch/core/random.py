@@ -20,6 +20,9 @@ on (`jax/_src/prng.py`):
   mantissa of a float in [1, 2), minus 1, scaled into [minval, maxval)
   by one fused multiply-add (as XLA contracts it), then ``max`` with
   minval;
+- `bernoulli` — `_bernoulli`, mode "low": ``uniform(key, shape) < p``
+  (the uniform in [0, 1) needs no multiply-add: it is the mantissa's
+  float minus 1);
 - `gumbel` — `_gumbel`, mode "low": ``-log(-log(uniform(tiny, 1)))``;
 - `categorical` — the argmax of gumbel noise plus the logits, the first
   maximal index.
@@ -37,13 +40,16 @@ import threading
 
 import torch
 
-__all__ = ["PRNGKey", "split", "random_bits", "uniform", "gumbel",
+__all__ = ["PRNGKey", "split", "random_bits", "uniform", "bernoulli",
+           "gumbel",
            "categorical", "threefry2x32", "seed", "next_key", "get_state",
            "set_state", "key_scope"]
 
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
+# the most ways one CPU key is split on Python ints (`split`)
+_HOST_SPLIT = 16
 # float32's smallest normal, gumbel's lower bound (`finfo(float32).tiny`)
 _TINY = 1.1754943508222875e-38
 
@@ -97,8 +103,14 @@ def _words(key, ndim):
 
 def split(key, num=2):
     """``jax.random.split``: [2] -> [num, 2]; a batch [R, 2] -> [R, num,
-    2], row r split from key r."""
+    2], row r split from key r.  One key on the CPU split a few ways is
+    hashed on Python ints (`threefry2x32` takes them as it takes tensors):
+    the same bits without a hundred small tensor ops."""
     key = _as_key(key)
+    if key.dim() == 1 and key.device.type == "cpu" and num <= _HOST_SPLIT:
+        k1, k2 = key.tolist()
+        return torch.tensor([threefry2x32(k1, k2, 0, i) for i in range(num)],
+                            dtype=torch.int64)
     k1, k2 = _words(key, 1)
     lo = torch.arange(num, dtype=torch.int64, device=key.device)
     b1, b2 = threefry2x32(k1, k2, torch.zeros_like(lo), lo)
@@ -125,11 +137,16 @@ def random_bits(key, shape):
     return b1 ^ b2
 
 
+def _unit(bits):
+    """Floats in [0, 1) from 32 random bits: the top 23 as the mantissa of
+    a float in [1, 2), minus 1."""
+    one = 0x3F800000                        # 1.0f's bits
+    return ((bits >> 9) | one).to(torch.int32).view(torch.float32) - 1.0
+
+
 def uniform(key, shape, minval=0.0, maxval=1.0):
     """``jax.random.uniform(key, shape, float32, minval, maxval)``."""
-    bits = random_bits(key, shape)
-    one = 0x3F800000                        # 1.0f's bits
-    f = ((bits >> 9) | one).to(torch.int32).view(torch.float32) - 1.0
+    f = _unit(random_bits(key, shape))
     lo = torch.tensor(minval, dtype=torch.float32, device=f.device)
     hi = torch.tensor(maxval, dtype=torch.float32, device=f.device)
     # XLA contracts the scale and shift into one fused multiply-add: the
@@ -137,6 +154,13 @@ def uniform(key, shape, minval=0.0, maxval=1.0):
     # the final rounding give its result
     fma = (f.double() * (hi - lo).double() + lo.double()).float()
     return torch.maximum(lo, fma)
+
+
+def bernoulli(key, p, shape):
+    """``jax.random.bernoulli(key, p, shape)`` for a Python float ``p``
+    (float32, as JAX takes it): bool, True with probability ``p``."""
+    f = _unit(random_bits(key, shape))
+    return f < torch.tensor(p, dtype=torch.float32, device=f.device)
 
 
 def gumbel(key, shape):

@@ -5,17 +5,41 @@ JAX wraps the function in ``jax.checkpoint``; here it goes through
 `torch.utils.checkpoint.checkpoint` with ``use_reentrant=False``: the
 forward keeps none of the function's intermediates, and the backward runs
 the function again to rebuild them.  With ``preserve_rng_state`` (the
-default) the CPU generator and the default CUDA generators of the inputs'
-devices are put back for the second run, so dropout drawn from them (the
-port's default, `nn.functional.dropout`) keeps the same mask, as JAX's
-replay under the same key does.  ``use_reentrant`` is accepted and
+default) the `core.random` key stack, the CPU generator and the default
+CUDA generators of the inputs' devices are put back for the second run, so
+dropout keeps the same mask (drawn on the key stack, the port's default,
+`nn.functional.dropout`, or from a generator), as JAX's replay under the
+same key does; the key stack is left after the second run as the first
+run left it.  ``use_reentrant`` is accepted and
 ignored: the port always takes the non-reentrant form, which needs no
 input that requires grad and passes keyword arguments through."""
 from __future__ import annotations
 
 from torch.utils.checkpoint import checkpoint
 
+from ....core import random as _random
+
 __all__ = ["recompute", "recompute_sequential"]
+
+
+def _replaying_keys(function):
+    """``function``, whose second and later calls (the backward's reruns)
+    start from the key stack's state at its first call and leave the
+    stack as they found it."""
+    first = []
+
+    def run(*args, **kwargs):
+        if not first:
+            first.append(_random.get_state())
+            return function(*args, **kwargs)
+        now = _random.get_state()
+        _random.set_state(first[0])
+        try:
+            return function(*args, **kwargs)
+        finally:
+            _random.set_state(now)
+
+    return run
 
 
 def recompute(function, *args, **kwargs):
@@ -23,6 +47,8 @@ def recompute(function, *args, **kwargs):
     backward."""
     preserve = kwargs.pop("preserve_rng_state", True)
     kwargs.pop("use_reentrant", None)
+    if preserve:
+        function = _replaying_keys(function)
     return checkpoint(function, *args, use_reentrant=False,
                       preserve_rng_state=preserve, **kwargs)
 

@@ -69,7 +69,7 @@ def _to_list(x):
 def _device(net):
     """The device of the network's first parameter; the card when it has
     none."""
-    p = next(net.parameters(), None)
+    p = next(iter(net.parameters()), None)
     return p.device if p is not None else resolve_device(None)
 
 

@@ -23,7 +23,7 @@ from torch import nn
 from .. import monitor
 from ..amp import cast_inputs
 from ..device import resolve_device
-from ..nn.layer import Linear
+from ..nn.common import Linear
 from ..ops.lowbit import (pack_int4_arrays, qmax_for_bits,
                           quantize_absmax_arrays, quantize_with_scale_arrays,
                           quantized_bytes, quantized_matmul_arrays)

@@ -63,8 +63,9 @@ projections hold a float ``weight`` (`gpt.py:266-279`).
 Training takes the JAX recipe's two switches.  Dropout
 (``hidden_dropout_prob``: after the embeddings and on each block's
 attention and MLP outputs; ``attention_dropout_prob``: on the flash
-output, after the kernel), per-layer only, drawn from the default
-generator of the weights' device, in training mode (``self.training``);
+output, after the kernel), per-layer only, drawn on the `core.random`
+key stack as JAX draws it (`nn.functional.dropout`), in training mode
+(``self.training``);
 the stacked layout raises on it, as the JAX one does (`gpt.py:445-446`).
 ``recompute`` (stacked only; the JAX per-layer layout ignores it, and so
 does the port's): each block's body runs under `recompute`, so the
@@ -95,7 +96,10 @@ from ..graphs import StepGraph, traced
 from ..nn.functional import (cross_entropy, embedding, flash_attention,
                              fused_ln_applies, layer_norm, layer_norm_arrays,
                              linear)
-from ..nn.layer import Dropout, Embedding, LayerNorm, Linear
+from ..nn.common import Dropout, Embedding, Linear
+from ..nn.initializer import Normal
+from ..nn.layer import ParamAttr
+from ..nn.norm import LayerNorm
 from ..ops.flash_attention import flash_attention_arrays
 from ..ops.flash_decode import cached_attention_arrays
 from ..ops.fused_decode import fused_decode_layer_arrays, fused_decode_ok
@@ -364,7 +368,8 @@ class GPTEmbeddings(nn.Module):
     def __init__(self, cfg: GPTConfig, device, dtype, generator):
         super().__init__()
         kw = dict(device=device, dtype=dtype, generator=generator,
-                  std=cfg.initializer_range)
+                  weight_attr=ParamAttr(
+                      initializer=Normal(0.0, cfg.initializer_range)))
         self.word_embeddings = Embedding(cfg.vocab_size, cfg.hidden_size,
                                          **kw)
         self.position_embeddings = Embedding(cfg.max_position_embeddings,
@@ -494,9 +499,11 @@ class GPTBlock(nn.Module):
                  dtype=torch.float32, generator=None):
         super().__init__()
         eps = cfg.layer_norm_epsilon
-        self.ln_1 = LayerNorm(cfg.hidden_size, eps, device, dtype)
+        self.ln_1 = LayerNorm(cfg.hidden_size, eps, device=device,
+                              dtype=dtype)
         self.attn = GPTAttention(cfg, device, dtype, generator)
-        self.ln_2 = LayerNorm(cfg.hidden_size, eps, device, dtype)
+        self.ln_2 = LayerNorm(cfg.hidden_size, eps, device=device,
+                              dtype=dtype)
         use_moe = (cfg.moe_every_n > 0 and cfg.moe_num_experts > 1
                    and (layer_idx + 1) % cfg.moe_every_n == 0)
         self.mlp = (GPTMoEMLP if use_moe else GPTMLP)(cfg, device, dtype,
@@ -527,7 +534,7 @@ class GPTModel(nn.Module):
         for i, blk in enumerate(self.h):
             self.add_module(f"h_{i}", blk)
         self.ln_f = LayerNorm(cfg.hidden_size, cfg.layer_norm_epsilon,
-                              device, dtype)
+                              device=device, dtype=dtype)
 
     def forward(self, input_ids, position_ids=None, caches=None,
                 time_step=None, segment_ids=None, cache_mask=None):

@@ -1,17 +1,31 @@
 """Functional ops — the counterparts of
 `paddle_tpu/nn/functional/__init__.py` (and of the Tensor-level
-`pallas_ops.flash_attention`) that the serving and training paths need.
+`pallas_ops.flash_attention`) that the port's layers and models call.
 
-The ops that the JAX package dispatches under a name its AMP lists or
-`cast_plan` decide on (``linear``, ``layer_norm``, ``cross_entropy``,
-``softmax``, ``embedding``, ``flash_attention``) cast their inputs first
-with `amp.cast_inputs` under that name, as the JAX dispatch layer does;
+Every op casts its inputs first with `amp.cast_inputs` under the name the
+JAX package dispatches it by (``linear``, ``layer_norm``, ``softmax``,
+``relu``, ``dropout``, ``flash_attention``, ...), as the JAX dispatch
+layer does, so the AMP lists and O2 treat each op alike in both packages;
 outside `amp.auto_cast` that is a no-op.
 
-Dropout keeps an element where a uniform draw in [0, 1) falls below
-``1 - p`` (JAX's ``bernoulli(key, 1 - p)``); the draws come from the
-``generator`` given, else from the default `torch.Generator` of the
-tensor's device (`_keep_mask`), which `recompute` preserves."""
+Dropout keeps an element where ``jax.random.bernoulli(next_key(), 1 - p,
+shape)`` draws True, on a key split off the `core.random` key stack, one
+key a call, in JAX's order (`ops.threefry.bernoulli`: the kernel
+``csrc/threefry_bernoulli.cu`` on the card, `core.random.bernoulli` on the
+CPU, bit for bit the same), so one
+`paddle_tpu_torch.seed` gives the JAX package's masks bit for bit
+(`_keep_mask`; `recompute` puts the stack back for its second run).  An
+explicit ``generator`` (keyword-only) draws from that `torch.Generator`
+instead.
+
+`flash_attention` (``scaled_dot_product_attention``) keeps JAX's head-dim
+gate (`pallas_ops.py:646-648`): a head_dim that is neither 64, 128 nor a
+multiple of 128 runs the plain `mha_reference`, on every device, and
+counts ``attn_fallback:head_dim`` under ``PTPU_ATTN_DEBUG=1``
+(`ops.flash_attention.attention_path_counts`); any other head_dim goes to
+the kernels, which raise where they cannot run (D = 384, 512, ...: ROADMAP
+Queue 2 item 3).  A kernel that fails to build or launch is never replaced
+by the plain version."""
 from __future__ import annotations
 
 import math
@@ -20,12 +34,50 @@ import os
 import torch
 
 from ..amp import cast_inputs
-from ..ops.flash_attention import flash_attention_arrays
+from ..core import random as _random
+from ..ops.flash_attention import (count_path, flash_attention_arrays,
+                                   mha_reference)
+from ..ops import threefry
 from ..ops.fused_mlp import fused_layernorm_arrays, ln_geometry_ok
 
 __all__ = ["linear", "layer_norm", "layer_norm_arrays", "fused_ln_applies",
-           "cross_entropy", "softmax", "embedding", "dropout",
-           "flash_attention"]
+           "rms_norm", "cross_entropy", "softmax", "log_softmax",
+           "embedding", "dropout", "dropout2d", "dropout3d", "alpha_dropout",
+           "flash_attention", "scaled_dot_product_attention", "relu",
+           "relu6", "sigmoid", "tanh", "silu", "gelu"]
+
+
+def _unary(fn, op_name):
+    """The op ``op_name``: ``fn`` of x cast by `amp.cast_inputs`; its
+    ``name`` is accepted and unused, as in JAX."""
+    def op(x, name=None):
+        (x,) = cast_inputs(op_name, x)
+        return fn(x)
+
+    op.__name__ = op_name
+    return op
+
+
+relu = _unary(torch.relu, "relu")
+relu6 = _unary(lambda a: torch.clamp(a, 0, 6), "relu6")
+sigmoid = _unary(torch.sigmoid, "sigmoid")
+tanh = _unary(torch.tanh, "tanh")
+silu = _unary(torch.nn.functional.silu, "silu")
+
+
+def gelu(x, approximate=False, name=None):
+    """``jax.nn.gelu``: exact (erf) unless ``approximate`` (tanh)."""
+    (x,) = cast_inputs("gelu", x)
+    return torch.nn.functional.gelu(
+        x, approximate="tanh" if approximate else "none")
+
+
+def log_softmax(x, axis=-1, dtype=None, name=None):
+    """Log-softmax over ``axis``, first cast to ``dtype`` when given."""
+    (x,) = cast_inputs("log_softmax", x)
+    if dtype is not None:
+        x = x.to(dtype)
+    return torch.log_softmax(x, dim=axis)
 
 
 def linear(x, weight, bias=None, name=None):
@@ -61,9 +113,13 @@ def embedding(x, weight, padding_idx=None, sparse=False, name=None):
 
 
 def _keep_mask(shape, keep, device, generator=None):
-    """Bool keep mask of ``shape``: uniform draws in [0, 1) below
-    ``keep``, from ``generator`` or the default generator of ``device``."""
-    return torch.rand(shape, device=device, generator=generator) < keep
+    """Bool keep mask of ``shape`` on ``device``: ``jax.random.bernoulli(
+    next_key(), keep, shape)`` (`ops.threefry.bernoulli`: the kernel on the
+    card, `core.random.bernoulli` on the CPU), or uniform draws of
+    ``generator`` below ``keep`` where one is given."""
+    if generator is not None:
+        return torch.rand(shape, device=device, generator=generator) < keep
+    return threefry.bernoulli(_random.next_key(), keep, shape, device)
 
 
 def _drop(x, keep_mask, p):
@@ -79,12 +135,15 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
     p``, ``downscale_in_infer`` keeps it as it is; ``axis`` (an int or a
     list) draws one decision per index of those axes, shared along the
     others.  Outside training ``downscale_in_infer`` multiplies by ``1 -
-    p`` and ``upscale_in_train`` returns x; p = 0 returns x.  ``name`` is
-    accepted and unused, as in JAX; ``generator`` is keyword-only."""
+    p`` and ``upscale_in_train`` returns x; p = 0 returns x.  The op
+    ``dropout``; ``name`` is accepted and unused, as in JAX; ``generator``
+    is keyword-only (module docstring)."""
     if not training or p == 0.0:
         if mode == "downscale_in_infer" and not training and p > 0.0:
+            (x,) = cast_inputs("dropout", x)
             return x * (1.0 - p)
         return x
+    (x,) = cast_inputs("dropout", x)
     shape = list(x.shape)
     if axis is not None:
         axes = axis if isinstance(axis, (list, tuple)) else [axis]
@@ -96,21 +155,82 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
                                             device=x.device))
 
 
+def dropout2d(x, p=0.5, training=True, data_format="NCHW", name=None):
+    """One decision per (sample, channel) of a 4-D input."""
+    ax = [0, 1] if data_format == "NCHW" else [0, 3]
+    return dropout(x, p=p, axis=ax, training=training)
+
+
+def dropout3d(x, p=0.5, training=True, data_format="NCDHW", name=None):
+    """One decision per (sample, channel) of a 5-D input."""
+    ax = [0, 1] if data_format == "NCDHW" else [0, 4]
+    return dropout(x, p=p, axis=ax, training=training)
+
+
+_SELU_ALPHA = 1.6732632423543772848170429916717
+_SELU_SCALE = 1.0507009873554804934193349852946
+
+
+def alpha_dropout(x, p=0.5, training=True, name=None):
+    """Dropout that keeps SELU's mean and variance: a dropped element
+    takes ``-alpha * scale``, then ``a * x + b`` (`nn/functional/
+    __init__.py:922-941`); the op ``alpha_dropout``."""
+    if not training or p == 0.0:
+        return x
+    (x,) = cast_inputs("alpha_dropout", x)
+    keep = _keep_mask(tuple(x.shape), 1.0 - p, x.device)
+    alpha_p = -_SELU_ALPHA * _SELU_SCALE
+    q = 1.0 - p
+    a_coef = (q + alpha_p ** 2 * q * p) ** -0.5
+    b_coef = -a_coef * alpha_p * p
+    kept = torch.where(keep, x, torch.full((), alpha_p, dtype=x.dtype,
+                                           device=x.device))
+    return (a_coef * kept + b_coef).to(x.dtype)
+
+
+def _kernel_head_dim(d):
+    """JAX's head-dim gate (`_pallas_ok`, `pallas_ops.py:646-648`)."""
+    return d % 128 == 0 or d in (64, 128, 256)
+
+
 def flash_attention(query, key, value, attn_mask=None, dropout_p=0.0,
-                    is_causal=False, training=True, segment_ids=None,
-                    generator=None):
+                    is_causal=False, training=True, name=None,
+                    segment_ids=None, *, generator=None):
     """The Tensor-level flash attention (`pallas_ops.flash_attention`,
-    `pallas_ops.py:880-905`): the op ``flash_attention`` over
-    `flash_attention_arrays` (the kernels on the card), then, in training
-    with ``dropout_p > 0``, dropout of its output: ``where(keep, out / (1 -
-    p), 0)`` in out's dtype, after the kernel, as JAX applies it."""
+    `pallas_ops.py:880-905`), [B, S, H, D]: the op ``flash_attention``
+    over `flash_attention_arrays` (the kernels on the card), or
+    `mha_reference` where JAX's head-dim gate sends it (module docstring);
+    then, in training with ``dropout_p > 0``, dropout of its output:
+    ``where(keep, out / (1 - p), 0)`` in out's dtype, after the kernel, as
+    JAX applies it, the key drawn before the attention as JAX draws it.
+    ``attn_mask``: bool (True attends) or additive, [Sq, Sk], [B, Sq, Sk],
+    [Bm, Hm, Sq, Sk] or a key mask [Bm, Hm, 1, Sk] (`normalize_mask`)."""
     query, key, value = cast_inputs("flash_attention", query, key, value)
-    out = flash_attention_arrays(query, key, value, attn_mask, is_causal,
-                                 segment_ids=segment_ids)
+    keep = None
     if dropout_p > 0.0 and training:
-        out = _drop(out, _keep_mask(out.shape, 1.0 - dropout_p, out.device,
-                                    generator), dropout_p)
+        b, sq, h, d = query.shape
+        keep = _keep_mask((b, sq, h, value.shape[-1]), 1.0 - dropout_p,
+                          query.device, generator)
+    if _kernel_head_dim(query.shape[-1]):
+        out = flash_attention_arrays(query, key, value, attn_mask,
+                                     is_causal, segment_ids=segment_ids)
+    else:
+        count_path("attn_fallback:head_dim")
+        out = mha_reference(query, key, value, attn_mask, is_causal,
+                            segment_ids=segment_ids).to(query.dtype)
+    if keep is not None:
+        out = _drop(out, keep, dropout_p)
     return out
+
+
+def scaled_dot_product_attention(query, key, value, attn_mask=None,
+                                 dropout_p=0.0, is_causal=False,
+                                 training=True, name=None):
+    """`nn/functional/__init__.py:1325-1337`: `flash_attention` in the
+    layout [batch, seq, heads, head_dim]."""
+    return flash_attention(query, key, value, attn_mask=attn_mask,
+                           dropout_p=dropout_p, is_causal=is_causal,
+                           training=training)
 
 
 def layer_norm_arrays(a, w, b, epsilon=1e-5, naxes=(-1,)):
@@ -155,6 +275,16 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5,
         return fused_layernorm_arrays(x, weight, bias, eps=epsilon)
     return layer_norm_arrays(x, weight, bias, epsilon,
                              tuple(range(-n_axes, 0)))
+
+
+def rms_norm(x, weight=None, epsilon=1e-6, name=None):
+    """``(x * rsqrt(mean(x^2) + eps))`` over the last axis in fp32, cast
+    back to x's dtype, times ``weight``; the op ``rms_norm``."""
+    x, weight = cast_inputs("rms_norm", x, weight)
+    x32 = x.float()
+    var = x32.square().mean(-1, keepdim=True)
+    out = (x32 * torch.rsqrt(var + epsilon)).to(x.dtype)
+    return out if weight is None else out * weight
 
 
 def cross_entropy(input, label, weight=None, ignore_index=-100,

@@ -18,7 +18,7 @@ from .paged_attention import (paged_attention_arrays,
 from .ragged_paged_attention import (ragged_paged_attention_arrays,
                                      ragged_paged_attention_reference)
 from . import (flash_attention, flash_decode, fused_decode, fused_mlp,
-               ragged_paged_attention)
+               ragged_paged_attention, threefry)
 
 __all__ = ["flash_attention_arrays", "mha_reference", "FlashAttention",
            "flash_attention_bwd_reference",
@@ -58,7 +58,7 @@ _KERNELS = (flash_attention, flash_attention.masked, flash_attention.segs,
             fused_mlp.ln_bwd, fused_mlp.ffn_fwd, fused_mlp.ffn_tc,
             fused_mlp.ffn_tc32, fused_mlp.ffn_decode, fused_mlp.ln_fwd16,
             fused_mlp.ln_bwd16, fused_mlp.ffn_fwd16, fused_mlp.ffn_tc16,
-            fused_mlp.ffn_decode16)
+            fused_mlp.ffn_decode16, threefry)
 
 
 def launch_counts() -> dict:

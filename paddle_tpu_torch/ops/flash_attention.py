@@ -59,8 +59,10 @@ and rebuild ``exp(0) = 1`` in place of ``1/n`` on such a row).
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
+import os
 
 import torch
 
@@ -71,7 +73,8 @@ __all__ = ["flash_attention_arrays", "mha_reference", "FlashAttention",
            "recompute_probs",
            "attention_delta", "flash_bwd_dq", "flash_bwd_dkv", "masked",
            "segs", "noncausal", "d256", "simt", "normalize_mask",
-           "variant_name"]
+           "variant_name", "count_path", "attention_path_counts",
+           "reset_attention_path_counts"]
 
 KERNEL = "flash_fwd_causal"
 SOURCE = KERNEL       # csrc/<SOURCE>.cu
@@ -80,6 +83,26 @@ launches = 0          # causal (no mask, kv_lens or segments) launches
 
 _NEG_INF = -1e30
 VARIANTS = ("mask", "segs", "noncausal")
+
+# the attention paths taken, counted under PTPU_ATTN_DEBUG=1 as JAX counts
+# them (`pallas_ops.py:45-59`); the port counts its one fallback,
+# "attn_fallback:head_dim" (`nn.functional.flash_attention`)
+_PATH_COUNTS = collections.Counter()
+
+
+def count_path(name):
+    if os.environ.get("PTPU_ATTN_DEBUG") == "1":
+        _PATH_COUNTS[name] += 1
+
+
+def attention_path_counts():
+    """{path name: calls} since the last reset, under PTPU_ATTN_DEBUG=1."""
+    return dict(_PATH_COUNTS)
+
+
+def reset_attention_path_counts():
+    _PATH_COUNTS.clear()
+
 
 # the variants' counters (module docstring); by type: bf16 and fp16 the
 # tensor-core kernel, fp32 the split-TF32 one
@@ -187,12 +210,27 @@ def softmax_stats(q, k, scale, is_causal, mask=None, kv_lens=None,
     return m, torch.exp(logits - m[..., None]).sum(-1).log()
 
 
+def _key_mask_view(m, b, h, sq, sk):
+    """A mask one row of which serves every query, [..., 1, Sk], as 4-D
+    the way the JAX reference broadcasts it against [B, H, Sq, Sk]
+    (leading 1s), or None unless it is [Bm, Hm, 1, Sk] with Bm in {1, B},
+    Hm in {1, H}."""
+    if m.dim() > 4 or m.dim() < 2 or tuple(m.shape[-2:]) != (1, sk):
+        return None
+    m = m.reshape((1,) * (4 - m.dim()) + tuple(m.shape))
+    return m if m.shape[0] in (1, b) and m.shape[1] in (1, h) else None
+
+
 def normalize_mask(attn_mask, b, h, sq, sk):
     """A 2-, 3- or 4-D bool or additive mask as an additive fp32
     [B, H, Sq, Sk] view (`_normalize_mask`, `pallas_ops.py:735-748`):
     broadcast dims keep stride 0, so nothing is copied but a bool or
-    non-fp32 mask's conversion.  Raises unless the mask is [Bm, Hm, Sq, Sk]
-    with Bm in {1, B}, Hm in {1, H} (`_mask_shape_ok`, `:628-637`)."""
+    non-fp32 mask's conversion.  Takes what JAX's kernel gate takes
+    (`_mask_shape_ok`, `:628-637`: [Sq, Sk], [B, Sq, Sk], [Bm, Hm, Sq, Sk]
+    with Bm in {1, B}, Hm in {1, H}) and, as a stride-0 view over the
+    queries, a key mask [Bm, Hm, 1, Sk] (BERT's padding mask; 2- and 3-D
+    forms broadcast as the JAX reference broadcasts them, leading 1s),
+    which JAX's gate sends to `mha_reference`; raises on anything else."""
     m = attn_mask
     if m.dim() == 2:
         m = m[None, None]
@@ -200,9 +238,11 @@ def normalize_mask(attn_mask, b, h, sq, sk):
         m = m[:, None]
     if m.dim() != 4 or tuple(m.shape[2:]) != (sq, sk) \
             or m.shape[0] not in (1, b) or m.shape[1] not in (1, h):
-        raise ValueError(f"attn_mask must be [Sq, Sk], [B, Sq, Sk] or "
-                         f"[Bm, Hm, Sq, Sk] with Bm in (1, {b}), Hm in "
-                         f"(1, {h}), Sq={sq}, Sk={sk}; got "
+        m = _key_mask_view(attn_mask, b, h, sq, sk)
+    if m is None:
+        raise ValueError(f"attn_mask must be [Sq, Sk], [B, Sq, Sk], "
+                         f"[Bm, Hm, Sq, Sk] or [Bm, Hm, 1, Sk] with Bm in "
+                         f"(1, {b}), Hm in (1, {h}), Sq={sq}, Sk={sk}; got "
                          f"{tuple(attn_mask.shape)}")
     if m.dtype == torch.bool:
         m = torch.where(m, 0.0, _NEG_INF)

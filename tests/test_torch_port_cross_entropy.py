@@ -27,7 +27,7 @@ import paddle_tpu.nn as jnn
 import paddle_tpu.nn.functional as JF
 
 import paddle_tpu_torch.nn.functional as PF
-from paddle_tpu_torch.nn.layer import Dropout
+from paddle_tpu_torch.nn import Dropout
 
 RNG = np.random.RandomState(7)
 X = RNG.randn(6, 5).astype(np.float32)

@@ -44,7 +44,7 @@ from paddle_tpu_torch import lowbit
 from paddle_tpu_torch.convert import params_from_numpy, params_to_numpy
 from paddle_tpu_torch.lowbit import WeightOnlyLinear, quantize_for_inference
 from paddle_tpu_torch.models import GPTForCausalLM, gpt_test_config
-from paddle_tpu_torch.nn.layer import Linear
+from paddle_tpu_torch.nn import Linear
 from paddle_tpu_torch.ops import fused_mlp as fm
 
 DTYPES = ("int8", "int4")

@@ -153,7 +153,8 @@ def test_bwd_wrappers_on_cpu_compute_the_plain_backward():
         "ragged_paged_attention:d256", "ragged_paged_attention:int8:d256",
         "flash_decode:d256", "fused_decode_layer:d256",
         "flash_bwd_dq_causal:d256", "flash_bwd_dq_causal:simt",
-        "flash_bwd_dkv_causal:d256", "flash_bwd_dkv_causal:simt"}
+        "flash_bwd_dkv_causal:d256", "flash_bwd_dkv_causal:simt",
+        "threefry_bernoulli"}
     assert set(ops.launch_counts().values()) == {0}
 
 
