@@ -4,7 +4,9 @@
 
 Phases, in order; any failure exits non-zero and prints no result line:
 
-1. Card: name and power limit (nvidia-smi); TF32 off for matmuls and cuDNN.
+1. Card: name and power limit (nvidia-smi); TF32 off for matmuls.  cuDNN's
+   flags stay torch's defaults (TF32 allowed): the port's float32
+   convolutions run at float32 under them (phase 18a).
 2. Kernels: build every CUDA source (all at once; the build time and the
    flash instantiations' registers and spills from ``-Xptxas -v`` are
    printed, and those of the FFN's designs and the LayerNorm forward),
@@ -433,6 +435,25 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``:noncausal`` or ``:mask``; LayerNorm forward and backward 25 each
    under the flag; the dropout kernel 50 a step with dropout: the
    embeddings, four sites a layer and the pooled output).
+18. The conv path (`conv_phase`; no kernel of the port's own: cuDNN's
+   convolutions, torch's pools and BatchNorm's composite, as JAX runs
+   them outside Pallas): 18a under torch's default cuDNN flags (TF32
+   allowed), fp32 ResNet-18 (10 classes, B=4, 64 x 64) and the ResNeXt
+   bottleneck (32 groups of 4, stride 2, [4, 256, 16, 16]) in NCHW and
+   NHWC, two Momentum(0.01, 0.9) steps on the card and on the CPU: step-1
+   losses within 1e-5 relative, later ones 1e-3, step-1 gradients within
+   5e-3 of their norm (a ReLU input within rounding of 0 may take the
+   other branch on one device), running statistics after step 1 within
+   1e-5 and after step 2 within 1e-3; 18b `bench.py:316-365`'s ResNet-50
+   (1000 classes, random weights from seed 0) in bf16 with fp32 masters,
+   bf16 images 224 x 224, B=64, Momentum(0.1, 0.9), turns NCHW, NHWC,
+   NHWC, NCHW of 2 + 10 steps: ms a step, images/s, model TFLOP/s
+   (bench.py's 3 x 4.1 G an image) against the bf16 peak, peak GB, a
+   profiled step's device ms by group (conv, BN and elementwise, layout
+   transforms, other), busy share, device ops and layout-transform
+   kernels, the port's launches (none) checked, ``cudnn.benchmark`` left
+   at torch's default; 18c LeNet through ``Model.fit`` on the synthetic
+   ``MNIST(size=256)``, two epochs of 4 batches, the loss falling.
 8. Summary: one JSON line of fifty entries: thirty-nine (the nine kernels,
    the int8 variant, the mask, segment and non-causal variants of the
    flash kernels, the tensor-core forward, dQ and dK/dV -- every bf16
@@ -462,7 +483,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
    first 8 x 256 turn) and their fp32 CUDA-core kernels' (fp32 at the
    same shape, launches from 13b's stacked fp32 training), each D = 256
    entry with its launches in phase 13 as a whole (and every entry its
-   launches in phases 14, 15, 16 and 17); and the dropout kernel's
+   launches in phases 14 to 18); and the dropout kernel's
    (`threefry_bernoulli`, timed at BERT-base's FFN dropout [32, 128,
    3072], launches from 17c's dropout turn; it replaces no Pallas kernel:
    its "replaces" names the JAX draw XLA fuses); it fails if an entry's
@@ -5679,6 +5700,355 @@ def bert_phase(ops, card):
     return rec, launches_by
 
 
+# ---------------------------------------------------------------------------
+# 18. The conv path: ResNet on cuDNN (no kernel of the port's own) and LeNet
+# ---------------------------------------------------------------------------
+
+# `bench.py:316-365` (`bench_resnet50`): ResNet-50, bf16 weights and
+# images, 224 x 224, B=64, Momentum(0.1, 0.9); bench.py:360-361 counts
+# 3 x 4.1 G operations an image a training step (4.1 G: ResNet-50's
+# forward multiply-adds at 224 x 224)
+RESNET_B, RESNET_HW, RESNET_LR = 64, 224, 0.1
+RESNET_OPS_PER_IMAGE = 3 * 4.1e9
+RESNET_TURNS = ("NCHW", "NHWC", "NHWC", "NCHW")
+# kernel names by group: cuDNN's (and cuBLAS's) products, cuDNN's layout
+# transforms, torch's elementwise and reduction kernels (BatchNorm's
+# composite, ReLU, the residual adds, casts)
+CONV_NAMES = ("conv", "xmma", "implicit", "fprop", "dgrad", "wgrad",
+              "cudnn", "cutlass", "nvjet", "gemm")
+TRANSFORM_NAMES = ("nchwtonhwc", "nhwctonchw", "nchw2nhwc", "nhwc2nchw",
+                   "transpose")
+ELEMENTWISE_NAMES = ("elementwise", "reduce", "vectorized", "unrolled",
+                     "norm", "welford")
+
+
+def resnet_group(name):
+    low = name.lower()
+    if any(n in low for n in TRANSFORM_NAMES):
+        return "layout_transform"
+    if any(n in low for n in CONV_NAMES):
+        return "conv"
+    if any(n in low for n in ELEMENTWISE_NAMES):
+        return "bn_elementwise"
+    return "other"
+
+
+def profile_resnet_step(step, data):
+    """One more step timed alone, then one under torch.profiler: wall ms,
+    device ms, busy share, device ops, the top kernels, device ms by
+    `resnet_group` and the layout-transform kernels of the step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(data)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(data)
+        torch.cuda.synchronize()
+    kernels = sorted(((ev.self_device_time_total, ev.count, ev.key)
+                      for ev in prof.key_averages()
+                      if ev.device_type == DeviceType.CUDA
+                      and ev.self_device_time_total > 0), reverse=True)
+    groups = dict.fromkeys(("conv", "bn_elementwise", "layout_transform",
+                            "other"), 0.0)
+    transforms = 0
+    for us, n, name in kernels:
+        g = resnet_group(name)
+        groups[g] += us / 1e3
+        transforms += n if g == "layout_transform" else 0
+    device_ms = sum(k[0] for k in kernels) / 1e3
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "device_busy_share": device_ms / wall_ms,
+            "device_ops": sum(k[1] for k in kernels),
+            "layout_transforms": transforms, "ms_by_group": groups,
+            "top": [{"name": name[:100], "ms": us / 1e3, "launches": n}
+                    for us, n, name in kernels[:12]]}
+
+
+def resnet_step(model, opt, data, grads=None):
+    """One training step of `bench_resnet50`: cross entropy over the
+    logits, backward, Momentum step, clear; returns the loss."""
+    from paddle_tpu_torch.nn import functional as PF
+    x, labels = data
+    loss = PF.cross_entropy(model(x), labels)
+    loss.backward()
+    if grads is not None:
+        grads.update({n: p.grad.detach().float().cpu().clone()
+                      for n, p in model.named_parameters()})
+    opt.step()
+    opt.clear_grad()
+    return loss.detach()
+
+
+def _running_stats(model):
+    """A copy of the BatchNorms' buffers (a CPU model's would alias its
+    live ones)."""
+    return {k: v.detach().float().cpu().clone() for k, v in
+            model.state_dict().items() if k.endswith(("_mean", "_variance"))}
+
+
+def conv_card_vs_cpu(what, build, data, steps):
+    """``steps`` Momentum(0.01, 0.9) steps of the model ``build(device)``
+    on the card and on the CPU from the same weights (the card's, copied)
+    and inputs ``data`` (on the CPU): the step-1 loss within 1e-5
+    relative, every step-1 gradient within 5e-3 of its norm (a ReLU input
+    within rounding of 0 may take the other branch on one device: its
+    element's gradient moves by O(1), every tensor before it by ~1e-3 of
+    its norm), running statistics after step 1 within 1e-5 and after the
+    last within 1e-3 of max(1, max|CPU|), later losses within 1e-3
+    relative.  Returns the record."""
+    from paddle_tpu_torch.optimizer import Momentum
+    card = build("cuda")
+    cpu = build("cpu")
+    cpu.set_state_dict(card.state_dict())
+    runs = {}
+    for dev, model in (("cuda", card), ("cpu", cpu)):
+        opt = Momentum(learning_rate=0.01, momentum=0.9,
+                       parameters=model.parameters())
+        model.train()
+        d = [t.to(dev) for t in data]
+        grads, stats, losses = {}, [], []
+        t0 = time.perf_counter()
+        for i in range(steps):
+            losses.append(resnet_step(model, opt, d,
+                                      grads if i == 0 else None).item())
+            stats.append(_running_stats(model))
+        runs[dev] = dict(losses=losses, grads=grads, stats=stats,
+                         seconds=time.perf_counter() - t0)
+    gpu, ref = runs["cuda"], runs["cpu"]
+    rel = [abs(g - c) / abs(c) for g, c in zip(gpu["losses"], ref["losses"])]
+    if not all(np.isfinite(gpu["losses"])) or rel[0] > 1e-5 or \
+            max(rel) > 1e-3:
+        fail(f"{what}: card losses {gpu['losses']} against the CPU's "
+             f"{ref['losses']} (relative {rel}; limits 1e-5 at step 1, "
+             f"1e-3 after)")
+    worst_l2 = worst_max = 0.0
+    for name, gc in ref["grads"].items():
+        d = gpu["grads"][name] - gc
+        l2 = d.norm().item() / max(gc.norm().item(), 1e-30)
+        if not l2 <= 5e-3:
+            fail(f"{what}: step-1 gradient of {name} off by {l2:.3g} of its "
+                 f"norm (limit 5e-3)")
+        worst_l2 = max(worst_l2, l2)
+        worst_max = max(worst_max, d.abs().max().item()
+                        / max(gc.abs().max().item(), 1e-30))
+    worst_stats = []
+    for i, limit in ((0, 1e-5), (steps - 1, 1e-3)):
+        worst = 0.0
+        for k, v in ref["stats"][i].items():
+            err = (gpu["stats"][i][k] - v).abs().max().item()
+            lim = limit * max(1.0, v.abs().max().item())
+            if not err <= lim:
+                fail(f"{what}: running statistic {k} after step {i + 1} off "
+                     f"by {err} (limit {lim})")
+            worst = max(worst, err / lim)
+        worst_stats.append(worst)
+    return {"steps": steps, "card_losses": gpu["losses"],
+            "cpu_losses": ref["losses"], "loss_rel_diff": rel,
+            "grad_l2_rel_max": worst_l2, "grad_max_over_max_g": worst_max,
+            "stats_err_over_limit": worst_stats,
+            "card_s": gpu["seconds"], "cpu_s": ref["seconds"]}
+
+
+def resnet_fp32_card_vs_cpu(card, batch=4, hw=64):
+    """Phase 18a, under torch's default cuDNN flags (TF32 allowed: the
+    port's fp32 convolutions pin fp32 themselves): ResNet-18 (10 classes)
+    at B=4, 64 x 64, and the ResNeXt bottleneck (``BottleneckBlock(256,
+    64, stride=2, downsample, groups=32, base_width=4)``) on [4, 256, 16,
+    16], each in NCHW and NHWC, two Momentum steps on the card and on the
+    CPU (`conv_card_vs_cpu`)."""
+    import paddle_tpu_torch
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.vision.models import BottleneckBlock, resnet18
+    if not torch.backends.cudnn.allow_tf32:
+        fail("phase 18a must run under torch's default cuDNN flags")
+    rec = {}
+    g = torch.Generator().manual_seed(18)
+    images = torch.randn(batch, 3, hw, hw, generator=g)
+    labels = torch.randint(0, 10, (batch,), generator=g)
+    feats = torch.randn(batch, 256, 16, 16, generator=g)
+    for df in ("NCHW", "NHWC"):
+        x = images.permute(0, 2, 3, 1).contiguous() if df == "NHWC" \
+            else images
+        paddle_tpu_torch.seed(0)
+        rec[f"resnet18_{df}"] = r = conv_card_vs_cpu(
+            f"fp32 ResNet-18 {df}", lambda dev: resnet18(
+                num_classes=10, data_format=df, device=dev), (x, labels), 2)
+        print(f"phase 18a fp32 ResNet-18 {df} B={batch} {hw}x{hw}, default "
+              f"cuDNN flags (allow_tf32 "
+              f"{torch.backends.cudnn.allow_tf32}), 2 Momentum steps, card "
+              f"against CPU: losses {r['card_losses']} (relative "
+              f"{max(r['loss_rel_diff']):.3g}), step-1 gradients "
+              f"{r['grad_l2_rel_max']:.3g} of their norm (limit 5e-3; max "
+              f"|err| {r['grad_max_over_max_g']:.3g} of max|g|), running "
+              f"statistics {r['stats_err_over_limit'][0]:.3g} / "
+              f"{r['stats_err_over_limit'][1]:.3g} of their limits; card "
+              f"{r['card_s']:.1f} s, CPU {r['cpu_s']:.1f} s ({card})",
+              flush=True)
+        xf = feats.permute(0, 2, 3, 1).contiguous() if df == "NHWC" \
+            else feats
+
+        class _Head(nn.Layer):
+            """The block, then a mean over its output as the loss's
+            logits (10 classes from the first channels)."""
+
+            def __init__(self, dev):
+                super().__init__()
+                self.block = BottleneckBlock(
+                    256, 64, stride=2, downsample=nn.Sequential(
+                        nn.Conv2D(256, 256, 1, stride=2, bias_attr=False,
+                                  data_format=df, device=dev),
+                        nn.BatchNorm2D(256, data_format=df, device=dev)),
+                    groups=32, base_width=4, data_format=df, device=dev)
+
+            def forward(self, x):
+                y = self.block(x)
+                y = y.mean((1, 2) if df == "NHWC" else (2, 3))
+                return y[:, :10]
+
+        paddle_tpu_torch.seed(1)
+        rec[f"resnext_block_{df}"] = r = conv_card_vs_cpu(
+            f"fp32 ResNeXt block {df}", _Head, (xf, labels), 2)
+        print(f"phase 18a fp32 ResNeXt bottleneck (32 groups of 4) {df} "
+              f"[{batch}, 256, 16, 16]: losses {r['card_losses']} (relative "
+              f"{max(r['loss_rel_diff']):.3g}), step-1 gradients "
+              f"{r['grad_l2_rel_max']:.3g} of their norm, running statistics "
+              f"{r['stats_err_over_limit'][0]:.3g} / "
+              f"{r['stats_err_over_limit'][1]:.3g} of their limits ({card})",
+              flush=True)
+    return rec
+
+
+def resnet50_train(ops, card, warmup=2, timed=10, batch=RESNET_B,
+                   hw=RESNET_HW):
+    """Phase 18b: `bench_resnet50`'s step, ResNet-50 (1000 classes, random
+    weights from seed 0), ``model.bfloat16()``, bf16 images, Momentum(0.1,
+    0.9) with fp32 masters, in turns `RESNET_TURNS`: ms a step, images/s,
+    model TFLOP/s (bench.py's count) against the bf16 peak, peak GB, a
+    profiled step (device ms by group, busy share, device ops, layout
+    transforms) and the port's kernel launches (none: the path runs
+    cuDNN, cuBLAS and torch's kernels)."""
+    import paddle_tpu_torch
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet50
+    rng = np.random.RandomState(0)
+    images = torch.from_numpy(rng.randn(batch, 3, hw, hw).astype(
+        np.float32)).to("cuda", torch.bfloat16)
+    labels = torch.from_numpy(rng.randint(0, 1000, (batch,))).cuda()
+    rec = {"cudnn_benchmark": torch.backends.cudnn.benchmark,
+           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32, "turns": []}
+    launches_by = {}
+    for i, df in enumerate(RESNET_TURNS):
+        paddle_tpu_torch.seed(0)
+        model = resnet50(num_classes=1000, data_format=df,
+                         device="cuda").bfloat16()
+        model.train()
+        opt = Momentum(learning_rate=RESNET_LR, momentum=0.9,
+                       parameters=model.parameters())
+        x = images.permute(0, 2, 3, 1).contiguous() if df == "NHWC" \
+            else images
+        step = lambda d: resnet_step(model, opt, d)      # noqa: E731
+        losses, ms, launches, peak, before = timed_steps(
+            ops, step, (x, labels), warmup, timed)
+        check_train_launches(launches, dict.fromkeys(launches, 0),
+                             f"bfloat16 ResNet-50 {df}")
+        if not all(np.isfinite(losses)):
+            fail(f"bfloat16 ResNet-50 {df}: losses {losses}")
+        prof = profile_resnet_step(step, (x, labels))
+        tflops = RESNET_OPS_PER_IMAGE * batch / (ms / 1e3) / 1e12
+        t = {"layout": df, "batch": batch, "hw": hw, "losses": losses,
+             "ms_per_step": ms, "images_per_s": batch * 1e3 / ms,
+             "model_tflops": tflops,
+             "share_of_bf16_peak": tflops * 1e12 / PEAK[torch.bfloat16],
+             "peak_memory_gb": peak, "allocated_before_gb": before,
+             "profile": prof}
+        rec["turns"].append(t)
+        launches_by[f"turn{i + 1}_{df}"] = launches
+        print(f"phase 18b ResNet-50 bf16 {df} (turn {i + 1}), B={batch} "
+              f"{hw}x{hw}, Momentum lr {RESNET_LR} with fp32 masters, "
+              f"cudnn.benchmark {torch.backends.cudnn.benchmark}: losses "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f}; {ms:.3f} ms a step "
+              f"after {warmup} ({t['images_per_s']:.1f} images/s, "
+              f"{tflops:.1f} model TFLOP/s by bench.py's count, "
+              f"{t['share_of_bf16_peak']:.3f} of 989); profiled step wall "
+              f"{prof['wall_ms']:.3f} ms, device {prof['device_ms']:.3f} ms "
+              f"(conv / BN and elementwise / layout transforms / other "
+              + " / ".join(f"{v:.3f}" for v in prof["ms_by_group"].values())
+              + f"), busy {prof['device_busy_share']:.3f}, "
+              f"{prof['device_ops']} device ops, "
+              f"{prof['layout_transforms']} layout transforms; peak "
+              f"{peak:.2f} GB; top: " + "; ".join(
+                  f"{k['name'][:60]} {k['ms']:.3f} ms x{k['launches']}"
+                  for k in prof["top"][:6]) + f" ({card})", flush=True)
+        del model, opt, x
+        torch.cuda.empty_cache()
+    return rec, launches_by
+
+
+def lenet_fit(card, steps_per_epoch=4, epochs=2, batch=64):
+    """Phase 18c, rung 1 of the ladder: LeNet on the card through
+    ``Model.fit`` on the synthetic ``MNIST(size=256)``, Momentum(0.01,
+    0.9), cross entropy, 4 batches of 64 an epoch, two epochs: the loss of
+    every step finite, the second epoch's below the first's."""
+    import paddle_tpu_torch
+    from paddle_tpu_torch import Model, nn
+    from paddle_tpu_torch.hapi.callbacks import Callback
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.datasets import MNIST
+    from paddle_tpu_torch.vision.models import LeNet
+
+    class Losses(Callback):
+        def __init__(self):
+            super().__init__()
+            self.losses = []
+
+        def on_train_batch_end(self, step, logs=None):
+            self.losses.append(float(np.ravel(logs["loss"])[0]))
+
+    data = MNIST(mode="train", size=steps_per_epoch * batch)
+    if not data.synthetic:
+        fail("phase 18c expects the synthetic MNIST (no files here)")
+    paddle_tpu_torch.seed(0)
+    net = LeNet(device="cuda")
+    model = Model(net)
+    model.prepare(Momentum(learning_rate=0.01, momentum=0.9,
+                           parameters=net.parameters()),
+                  nn.CrossEntropyLoss())
+    rec_losses = Losses()
+    t0 = time.perf_counter()
+    model.fit(data, batch_size=batch, epochs=epochs, shuffle=False,
+              verbose=0, callbacks=[rec_losses])
+    seconds = time.perf_counter() - t0
+    losses = rec_losses.losses
+    first = np.mean(losses[:steps_per_epoch])
+    second = np.mean(losses[steps_per_epoch:])
+    if len(losses) != steps_per_epoch * epochs or \
+            not all(np.isfinite(losses)) or not second < first:
+        fail(f"LeNet fit: losses {losses}")
+    print(f"phase 18c LeNet Model.fit on synthetic MNIST(size="
+          f"{steps_per_epoch * batch}), B={batch}, {epochs} epochs: losses "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} (epoch means {first:.4f}, "
+          f"{second:.4f}); {seconds:.2f} s ({card})", flush=True)
+    return {"losses": losses, "epoch_means": [first, second],
+            "seconds": seconds}
+
+
+def conv_phase(ops, card):
+    """Phase 18 (module docstring); returns the record and the launches of
+    its runs by name."""
+    rec = {}
+    t0 = time.perf_counter()
+    rec["fp32"] = resnet_fp32_card_vs_cpu(card)
+    torch.cuda.empty_cache()
+    rec["resnet50"], launches_by = resnet50_train(ops, card)
+    rec["lenet"] = lenet_fit(card)
+    rec["seconds"] = time.perf_counter() - t0
+    return rec, launches_by
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs a GPU")
@@ -5729,7 +6099,6 @@ def main():
     card = card_line()
     print(f"card: {card}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     result = {"card": card, "device": torch.cuda.get_device_name(0),
               "torch": torch.__version__, "cuda": torch.version.cuda}
 
@@ -6290,6 +6659,10 @@ def main():
     result["bert"], launches_bert = bert_phase(ops, card)
     mark("17b-c BERT fp32 card vs CPU, BERT-base bf16 fine-tune")
 
+    # -- 18. the conv path ----------------------------------------------------
+    result["conv"], launches_conv = conv_phase(ops, card)
+    mark("18 ResNet fp32 card vs CPU, ResNet-50 bf16, LeNet fit")
+
     # -- 8. summary --------------------------------------------------------
     # the serving kernels at fp32 S=384 / the decode step (the int8 one
     # too); the backward kernels at the training shape in bf16, the
@@ -6444,6 +6817,8 @@ def main():
                                 for run in launches_moe.values())
         k["launches_bert"] = sum(run[k["name"]]
                                  for run in launches_bert.values())
+        k["launches_resnet"] = sum(run[k["name"]]
+                                   for run in launches_conv.values())
     idle = [k["name"] for k in kernels if not k["launches"]]
     if idle:
         fail(f"kernels never launched on their main path: {idle}")

@@ -6,8 +6,9 @@
 parameters live on (None means ``cuda``), their dtype (float32 unless
 given) and a `torch.Generator` for the normal initializers (`initializer`;
 without one they draw on the `core.random` key stack, as JAX does).
-`Pad*`, `Upsample*`, `Unfold`, `Fold` and `CosineSimilarity` wait for the
-vision slice (ROADMAP.md Queue 1 item 9).
+`Pad*`, `Upsample*`, `Unfold`, `Fold` and `CosineSimilarity` are still
+to come (ROADMAP.md Queue 1 item 9); the conv, pooling and BatchNorm
+layers are in `conv`, `pooling` and `norm`.
 """
 from __future__ import annotations
 

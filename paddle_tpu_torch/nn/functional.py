@@ -25,7 +25,36 @@ counts ``attn_fallback:head_dim`` under ``PTPU_ATTN_DEBUG=1``
 (`ops.flash_attention.attention_path_counts`); any other head_dim goes to
 the kernels, which raise where they cannot run (D = 384, 512, ...: ROADMAP
 Queue 2 item 3).  A kernel that fails to build or launch is never replaced
-by the plain version."""
+by the plain version.
+
+The conv path (`conv1d` .. `conv3d_transpose`, the pools, `batch_norm`)
+has no kernel of the port's own: JAX computes it outside any Pallas
+kernel (``lax.conv_general_dilated``, ``reduce_window``, jnp), and the
+port with cuDNN's convolutions and torch's pools and elementwise ops, in
+JAX's arithmetic:
+
+- float32 convolutions run at float32, forward and backward, whatever
+  ``torch.backends.cudnn.allow_tf32`` says (torch's default, True, runs
+  them in TF32): `_Convolution` clears the flag around each call and
+  puts it back;
+- a channel-last input (``NHWC``, ``NLC``, ``NDHWC``) is permuted to a
+  channels-first view, which for a contiguous input is a
+  ``channels_last`` tensor that cuDNN and the pools take as it is, and
+  the output is permuted back: no copy of the activation around a call;
+- padding takes every Paddle form (`_conv_padding`: an int, one int a
+  dimension, the flat ``[lo0, hi0, lo1, hi1, ...]``, pairs, ``"SAME"`` /
+  ``"VALID"``), resolved to XLA's pairs (``"SAME"`` puts the odd pixel
+  on the high side; torch's ``padding="same"`` refuses strides), unequal
+  pairs padded explicitly;
+- pooling keeps Paddle's ceil windows that start inside the right
+  padding (`_ceil_extra`), ``exclusive`` divisors and the clipped
+  divisor of an inclusive ceil window; max pooling pads with -inf;
+- `batch_norm` normalises in float32, casts to x's dtype, then applies
+  weight and bias in that dtype (two roundings in bf16, as JAX), and
+  updates the running statistics as Paddle does: ``m * running + (1 -
+  m) * batch`` with the biased batch variance, in float32, cast to the
+  buffer's dtype (torch's ``F.batch_norm`` would weigh them the other
+  way round and take the unbiased variance)."""
 from __future__ import annotations
 
 import math
@@ -44,7 +73,12 @@ __all__ = ["linear", "layer_norm", "layer_norm_arrays", "fused_ln_applies",
            "rms_norm", "cross_entropy", "softmax", "log_softmax",
            "embedding", "dropout", "dropout2d", "dropout3d", "alpha_dropout",
            "flash_attention", "scaled_dot_product_attention", "relu",
-           "relu6", "sigmoid", "tanh", "silu", "gelu"]
+           "relu6", "sigmoid", "tanh", "silu", "gelu", "conv1d", "conv2d",
+           "conv3d", "conv1d_transpose", "conv2d_transpose",
+           "conv3d_transpose", "max_pool1d", "max_pool2d", "max_pool3d",
+           "avg_pool1d", "avg_pool2d", "avg_pool3d", "adaptive_avg_pool1d",
+           "adaptive_avg_pool2d", "adaptive_avg_pool3d",
+           "adaptive_max_pool2d", "batch_norm"]
 
 
 def _unary(fn, op_name):
@@ -362,3 +396,473 @@ def _reduce_loss(loss, reduction):
     if reduction == "sum":
         return loss.sum()
     return loss
+
+
+# ---------------------------------------------------------------------------
+# conv / pool / batch norm (`nn/functional/__init__.py:253-810`)
+# ---------------------------------------------------------------------------
+
+_CHANNEL_LAST = ("NHWC", "NLC", "NDHWC")
+
+
+def _tuplize(v, n):
+    """An int or a sequence as an ``n``-tuple of ints (a 1-sequence
+    repeated; any other length kept as it is)."""
+    if isinstance(v, (list, tuple)):
+        if len(v) == n:
+            return tuple(int(i) for i in v)
+        if len(v) == 1:
+            return tuple(int(v[0]) for _ in range(n))
+        return tuple(int(i) for i in v)
+    return tuple(int(v) for _ in range(n))
+
+
+def _conv_padding(padding, nd):
+    """A Paddle padding as ``nd`` (lo, hi) pairs, or ``"SAME"`` /
+    ``"VALID"``."""
+    if isinstance(padding, str):
+        return padding.upper()
+    if isinstance(padding, int):
+        return [(padding, padding)] * nd
+    padding = list(padding)
+    if len(padding) == nd and all(isinstance(p, int) for p in padding):
+        return [(p, p) for p in padding]
+    if len(padding) == 2 * nd:
+        return [(padding[2 * i], padding[2 * i + 1]) for i in range(nd)]
+    if all(isinstance(p, (list, tuple)) for p in padding):
+        return [tuple(p) for p in padding]
+    raise ValueError(f"bad padding {padding}")
+
+
+def _same_pads(sizes, windows, strides):
+    """XLA's ``"SAME"``: ``ceil(n / s)`` outputs, the odd pixel of the
+    total padding on the high side."""
+    pads = []
+    for n, k, s in zip(sizes, windows, strides):
+        total = max((-(-n // s) - 1) * s + k - n, 0)
+        pads.append((total // 2, total - total // 2))
+    return pads
+
+
+def _flat_pads(pads):
+    """(lo, hi) pairs of the leading spatial axes as `F.pad` takes them
+    (last axis first)."""
+    return [v for lo, hi in reversed(pads) for v in (lo, hi)]
+
+
+def _channels_first(x, data_format):
+    """x as channels-first: a channel-last input permuted (a view)."""
+    if data_format in _CHANNEL_LAST:
+        return x.movedim(-1, 1)
+    return x
+
+
+def _restore(y, data_format):
+    return y.movedim(1, -1) if data_format in _CHANNEL_LAST else y
+
+
+class _Fp32Convs:
+    """cuDNN's TF32 switch off while a float32 CUDA convolution runs."""
+
+    def __init__(self, x):
+        self.on = x.dtype == torch.float32 and x.is_cuda
+
+    def __enter__(self):
+        if self.on:
+            self.prev = torch.backends.cudnn.allow_tf32
+            torch.backends.cudnn.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        if self.on:
+            torch.backends.cudnn.allow_tf32 = self.prev
+
+
+class _Convolution(torch.autograd.Function):
+    """``torch.convolution`` and its backward (``aten.convolution_backward``),
+    each under `_Fp32Convs`: a float32 convolution runs at float32 in both
+    directions, whatever the global cuDNN flags (the backward runs on
+    autograd's thread, long after a flag set around the forward is
+    back)."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride, padding, dilation, transposed, groups):
+        ctx.save_for_backward(x, w)
+        ctx.conf = (stride, padding, dilation, transposed, groups)
+        zeros = [0] * len(stride)
+        with _Fp32Convs(x):
+            return torch.convolution(x, w, None, stride, padding, dilation,
+                                     transposed, zeros, groups)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        stride, padding, dilation, transposed, groups = ctx.conf
+        with _Fp32Convs(x):
+            gx, gw, _ = torch.ops.aten.convolution_backward(
+                gy, x, w, None, stride, padding, dilation, transposed,
+                [0] * len(stride), groups,
+                [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
+        return gx, gw, None, None, None, None, None
+
+
+def _conv_nd(x, weight, bias, stride, padding, dilation, groups, nd,
+             data_format, transpose=False, output_padding=0):
+    """`nn/functional/__init__.py:280-358`: the convolution of x by
+    ``weight`` ([out, in/groups, *k]; a transpose [in, out/groups, *k])
+    with Paddle's padding, strides and dilation, plus ``bias`` after it in
+    the output's dtype (promoted as JAX adds it); the op ``conv{nd}d`` or
+    ``conv{nd}d_transpose``.  A float input meeting float weights of
+    another dtype is cast to theirs.
+
+    A transpose runs unpadded and is cropped (or extended) to JAX's
+    output: XLA's lhs-dilated convolution with pads ``(k_eff - 1 - lo,
+    k_eff - 1 - hi + output_padding)``; a string padding raises there,
+    as ``lax`` raises."""
+    name = f"conv{nd}d{'_transpose' if transpose else ''}"
+    if bias is None:
+        x, weight = cast_inputs(name, x, weight)
+    else:
+        x, weight, bias = cast_inputs(name, x, weight, bias)
+    if x.dtype != weight.dtype and weight.is_floating_point():
+        x = x.to(weight.dtype)
+    strides = _tuplize(stride, nd)
+    dils = _tuplize(dilation, nd)
+    pad = _conv_padding(padding, nd)
+    xc = _channels_first(x, data_format)
+    if transpose:
+        if isinstance(pad, str):
+            raise ValueError(
+                "String padding is not implemented for transposed "
+                "convolution using this op. Please either exactly specify "
+                "the required padding or use conv_transpose.")
+        opad = _tuplize(output_padding, nd)
+        out = _Convolution.apply(xc, weight, strides, [0] * nd, dils, True,
+                                 groups)
+        crop = [(lo, hi - op) for (lo, hi), op in zip(pad, opad)]
+        if any(c for pair in crop for c in pair):
+            out = torch.nn.functional.pad(
+                out, [-c for c in _flat_pads(crop)])
+    else:
+        if isinstance(pad, str):
+            k_eff = [d * (k - 1) + 1 for d, k in zip(dils, weight.shape[2:])]
+            pad = (_same_pads(xc.shape[2:], k_eff, strides)
+                   if pad == "SAME" else [(0, 0)] * nd)
+        if any(lo != hi for lo, hi in pad):
+            xc = torch.nn.functional.pad(xc, _flat_pads(pad))
+            pad = [(0, 0)] * nd
+        out = _Convolution.apply(xc, weight, strides, [lo for lo, _ in pad],
+                                 dils, False, groups)
+    if bias is not None:
+        out = out + bias.reshape([1, -1] + [1] * nd)
+    return _restore(out, data_format)
+
+
+def _fmt1d(data_format):
+    return "NLC" if data_format == "NLC" else "NCL"
+
+
+def conv1d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCL", name=None):
+    return _conv_nd(x, weight, bias, stride, padding, dilation, groups, 1,
+                    _fmt1d(data_format))
+
+
+def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCHW", name=None):
+    return _conv_nd(x, weight, bias, stride, padding, dilation, groups, 2,
+                    data_format)
+
+
+def conv3d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCDHW", name=None):
+    return _conv_nd(x, weight, bias, stride, padding, dilation, groups, 3,
+                    data_format)
+
+
+def conv1d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, dilation=1, groups=1,
+                     data_format="NCL", name=None):
+    return _conv_nd(x, weight, bias, stride, padding, dilation, groups, 1,
+                    _fmt1d(data_format), transpose=True,
+                    output_padding=output_padding)
+
+
+def conv2d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, dilation=1, groups=1,
+                     data_format="NCHW", name=None):
+    return _conv_nd(x, weight, bias, stride, padding, dilation, groups, 2,
+                    data_format, transpose=True,
+                    output_padding=output_padding)
+
+
+def conv3d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, dilation=1, groups=1,
+                     data_format="NCDHW", name=None):
+    return _conv_nd(x, weight, bias, stride, padding, dilation, groups, 3,
+                    data_format, transpose=True,
+                    output_padding=output_padding)
+
+
+def _ceil_extra(size, k, s, lo, hi):
+    """Extra high-side padding so that the output size is the ceil
+    division: Paddle keeps a window that starts inside the right padding
+    (phi/kernels/funcs/pooling.h:368), torch's ``ceil_mode`` drops it."""
+    floor_out = (size + lo + hi - k) // s + 1
+    ceil_out = -((size + lo + hi - k) // -s) + 1
+    return (ceil_out - floor_out) * s
+
+
+def _pool_pads(spatial, ks, st, padding, nd, ceil_mode):
+    """(pads with the ceil extra, pads without it) as (lo, hi) pairs."""
+    pad = _conv_padding(padding, nd)
+    if isinstance(pad, str):
+        pad = ([(0, 0)] * nd if pad == "VALID"
+               else _same_pads(spatial, ks, st))
+    base = list(pad)
+    if ceil_mode:
+        pad = [(lo, hi + _ceil_extra(spatial[i], ks[i], st[i], lo, hi))
+               for i, (lo, hi) in enumerate(pad)]
+    return pad, base
+
+
+_MAX_POOL = {1: torch.nn.functional.max_pool1d,
+             2: torch.nn.functional.max_pool2d,
+             3: torch.nn.functional.max_pool3d}
+
+
+def _max_pool_cf(xc, ks, st, pads, return_mask=False):
+    """Max over windows of channels-first ``xc`` padded by ``pads`` with
+    -inf (torch's own padding where it is equal and at most k // 2, else
+    `F.pad`); with ``return_mask`` (2-D) also the flat H * W index of each
+    window's first maximum in the input, int32, clipped into it as JAX's
+    `_max_pool_mask` (a window wholly in the padding points at its first
+    in-range cell)."""
+    pool = _MAX_POOL[len(ks)]
+    if all(lo == hi and lo <= k // 2 for (lo, hi), k in zip(pads, ks)):
+        out = pool(xc, ks, st, [lo for lo, _ in pads],
+                   return_indices=return_mask)
+        if not return_mask:
+            return out
+        out, idx = out
+        return out, idx.to(torch.int32)
+    fill = (-math.inf if xc.is_floating_point()
+            else torch.iinfo(xc.dtype).min)
+    xp = torch.nn.functional.pad(xc, _flat_pads(pads), value=fill)
+    out = pool(xp, ks, st, 0, return_indices=return_mask)
+    if not return_mask:
+        return out
+    out, idx = out
+    h, w = xc.shape[-2:]
+    gi = (idx // xp.shape[-1] - pads[0][0]).clamp(0, h - 1)
+    gj = (idx % xp.shape[-1] - pads[1][0]).clamp(0, w - 1)
+    return out, (gi * w + gj).to(torch.int32)
+
+
+def _window_sums(xc, ks, st, pads):
+    """Sums over windows of ``xc`` padded by ``pads`` with zeros."""
+    if any(p for pair in pads for p in pair):
+        xc = torch.nn.functional.pad(xc, _flat_pads(pads))
+    if len(ks) == 1:
+        return torch.nn.functional.avg_pool2d(
+            xc.unsqueeze(-2), (1, ks[0]), (1, st[0]),
+            divisor_override=1).squeeze(-2)
+    pool = (torch.nn.functional.avg_pool2d if len(ks) == 2
+            else torch.nn.functional.avg_pool3d)
+    return pool(xc, ks, st, divisor_override=1)
+
+
+def _avg_divisor(spatial, ks, st, pads, base, exclusive, dtype, device):
+    """The divisor of each window, broadcast over [1, 1, *out]: with
+    ``exclusive`` the count of input cells in it (at least 1), in x's
+    dtype; else the window clipped to the input plus its original high
+    pad, left padding counted (reference pooling.cc:84), float32 as JAX's
+    (at least 1)."""
+    div = None
+    nd = len(ks)
+    for i in range(nd):
+        lo, hi = pads[i]
+        out_i = (spatial[i] + lo + hi - ks[i]) // st[i] + 1
+        starts = torch.arange(out_i, dtype=torch.float64) * st[i] - lo
+        ends = starts + ks[i]
+        if exclusive:
+            ext = (ends.clamp(max=spatial[i]) - starts.clamp(min=0)).clamp(
+                min=0)
+        else:
+            ext = (ends.clamp(max=spatial[i] + base[i][1]) - starts).clamp(
+                min=1)
+        shape = [1] * (nd + 2)
+        shape[2 + i] = out_i
+        ext = ext.reshape(shape)
+        div = ext if div is None else div * ext
+    if exclusive:
+        return div.clamp(min=1).to(device=device, dtype=dtype)
+    return div.to(device=device, dtype=torch.float32)
+
+
+def _pool_nd(x, kernel, stride, padding, nd, op, data_format,
+             ceil_mode=False, exclusive=True):
+    """`nn/functional/__init__.py:387-460`: ``op`` ``"max"``, ``"avg"`` or
+    ``"sum"`` over windows (stride defaults to the window); the op
+    ``{op}_pool{nd}d``."""
+    (x,) = cast_inputs(f"{op}_pool{nd}d", x)
+    ks = _tuplize(kernel, nd)
+    st = _tuplize(stride if stride is not None else kernel, nd)
+    xc = _channels_first(x, data_format)
+    spatial = tuple(xc.shape[2:])
+    pads, base = _pool_pads(spatial, ks, st, padding, nd, ceil_mode)
+    if op == "max":
+        return _restore(_max_pool_cf(xc, ks, st, pads), data_format)
+    s = _window_sums(xc, ks, st, pads)
+    if op == "sum":
+        out = s
+    elif not exclusive and not ceil_mode:
+        out = s / float(math.prod(ks))
+    else:
+        out = s / _avg_divisor(spatial, ks, st, pads, base, exclusive,
+                               s.dtype, s.device)
+    return _restore(out, data_format)
+
+
+def max_pool1d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               return_mask=False, data_format="NCL", name=None):
+    """``return_mask`` is accepted and unused, as in JAX."""
+    return _pool_nd(x, kernel_size, stride, padding, 1, "max",
+                    _fmt1d(data_format), ceil_mode=ceil_mode)
+
+
+def max_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               return_mask=False, data_format="NCHW", name=None):
+    """With ``return_mask`` also the flat H * W index of each window's
+    maximum (`_max_pool_cf`); for a string padding JAX takes the mask's
+    windows unpadded, and so does the port."""
+    out = _pool_nd(x, kernel_size, stride, padding, 2, "max", data_format,
+                   ceil_mode=ceil_mode)
+    if not return_mask:
+        return out
+    ks = _tuplize(kernel_size, 2)
+    st = _tuplize(stride if stride is not None else kernel_size, 2)
+    pad = _conv_padding(padding, 2)
+    if isinstance(pad, str):
+        pad = [(0, 0), (0, 0)]
+    xc = _channels_first(x, data_format)
+    if ceil_mode:
+        pad = [(lo, hi + _ceil_extra(xc.shape[2 + i], ks[i], st[i], lo, hi))
+               for i, (lo, hi) in enumerate(pad)]
+    with torch.no_grad():
+        _, mask = _max_pool_cf(xc, ks, st, pad, return_mask=True)
+    return out, _restore(mask, data_format)
+
+
+def max_pool3d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               return_mask=False, data_format="NCDHW", name=None):
+    """``return_mask`` is accepted and unused, as in JAX."""
+    return _pool_nd(x, kernel_size, stride, padding, 3, "max", data_format,
+                    ceil_mode=ceil_mode)
+
+
+def avg_pool1d(x, kernel_size, stride=None, padding=0, exclusive=True,
+               ceil_mode=False, data_format="NCL", name=None):
+    return _pool_nd(x, kernel_size, stride, padding, 1, "avg",
+                    _fmt1d(data_format), ceil_mode=ceil_mode,
+                    exclusive=exclusive)
+
+
+def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               exclusive=True, divisor_override=None, data_format="NCHW",
+               name=None):
+    """With ``divisor_override`` the window sums times ``1 /
+    divisor_override``."""
+    if divisor_override:
+        s = _pool_nd(x, kernel_size, stride, padding, 2, "sum", data_format,
+                     ceil_mode=ceil_mode)
+        return s * (1.0 / float(divisor_override))
+    return _pool_nd(x, kernel_size, stride, padding, 2, "avg", data_format,
+                    ceil_mode=ceil_mode, exclusive=exclusive)
+
+
+def avg_pool3d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               exclusive=True, divisor_override=None, data_format="NCDHW",
+               name=None):
+    """``divisor_override`` is accepted and unused, as in JAX."""
+    return _pool_nd(x, kernel_size, stride, padding, 3, "avg", data_format,
+                    ceil_mode=ceil_mode, exclusive=exclusive)
+
+
+_ADAPTIVE_AVG = {1: torch.nn.functional.adaptive_avg_pool1d,
+                 2: torch.nn.functional.adaptive_avg_pool2d,
+                 3: torch.nn.functional.adaptive_avg_pool3d}
+
+
+def _adaptive_avg(x, output_size, nd, data_format):
+    """Means over the bins ``[floor(j n / o), ceil((j + 1) n / o))`` of
+    each spatial axis (`_adaptive_pool_core`); the op
+    ``adaptive_avg_pool{nd}d``."""
+    (x,) = cast_inputs(f"adaptive_avg_pool{nd}d", x)
+    out = _ADAPTIVE_AVG[nd](_channels_first(x, data_format),
+                            _tuplize(output_size, nd))
+    return _restore(out, data_format)
+
+
+def adaptive_avg_pool1d(x, output_size, data_format="NCL", name=None):
+    return _adaptive_avg(x, output_size, 1, _fmt1d(data_format))
+
+
+def adaptive_avg_pool2d(x, output_size, data_format="NCHW", name=None):
+    return _adaptive_avg(x, output_size, 2, data_format)
+
+
+def adaptive_avg_pool3d(x, output_size, data_format="NCDHW", name=None):
+    return _adaptive_avg(x, output_size, 3, data_format)
+
+
+def adaptive_max_pool2d(x, output_size, return_mask=False,
+                        data_format="NCHW", name=None):
+    """Maxima over the adaptive bins; with ``return_mask`` also the flat
+    H * W index of each bin's first maximum, int32; the op
+    ``adaptive_max_pool2d``."""
+    (x,) = cast_inputs("adaptive_max_pool2d", x)
+    out = torch.nn.functional.adaptive_max_pool2d(
+        _channels_first(x, data_format), _tuplize(output_size, 2),
+        return_indices=return_mask)
+    if not return_mask:
+        return _restore(out, data_format)
+    out, idx = out
+    return (_restore(out, data_format),
+            _restore(idx.to(torch.int32), data_format))
+
+
+def batch_norm(x, running_mean, running_var, weight=None, bias=None,
+               training=False, momentum=0.9, epsilon=1e-5,
+               data_format="NCHW", use_global_stats=None, name=None):
+    """`nn/functional/__init__.py:734-810`, over every axis but the
+    channel's (the last for ``NHWC`` / ``NLC`` / ``NDHWC``, else axis 1);
+    the op ``batch_norm`` (module docstring).  In training, unless
+    ``use_global_stats``, the batch's float32 mean and biased variance
+    normalise x (gradients flow through them) and update
+    ``running_mean`` / ``running_var`` in place; otherwise the running
+    statistics normalise it."""
+    ch = x.dim() - 1 if data_format in _CHANNEL_LAST else 1
+    shape = [1] * x.dim()
+    shape[ch] = x.shape[ch]
+    if training and not use_global_stats:
+        x, weight, bias = cast_inputs("batch_norm", x, weight, bias)
+        xf = x.float()
+        var, mu = torch.var_mean(
+            xf, dim=[i for i in range(x.dim()) if i != ch], correction=0)
+        out = ((xf - mu.reshape(shape)) * torch.rsqrt(var.reshape(shape)
+                                                      + epsilon))
+        with torch.no_grad():
+            for buf, stat in ((running_mean, mu), (running_var, var)):
+                buf.copy_((momentum * buf.float()
+                           + (1 - momentum) * stat).to(buf.dtype))
+    else:
+        x, running_mean, running_var, weight, bias = cast_inputs(
+            "batch_norm", x, running_mean, running_var, weight, bias)
+        out = ((x.float() - running_mean.float().reshape(shape))
+               * torch.rsqrt(running_var.float().reshape(shape) + epsilon))
+    out = out.to(x.dtype)
+    if weight is not None:
+        out = out * weight.reshape(shape)
+    if bias is not None:
+        out = out + bias.reshape(shape)
+    return out
