@@ -367,7 +367,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    capture each; and fp32 training of 2 layers of two heads of 256
    (hidden 512), stacked and per-layer, 3 AdamW steps at B=1 S=1024,
    losses within 1e-5 of the CPU's, the backward on its CUDA-core
-   kernels.  13c: the same widths at full depth (24 layers) in bf16,
+   kernels.  13c: the same widths at a third of the depth (`H256_LAYERS`,
+   8 of 24, so that the run with phase 19 stays near 1000 s) in bf16,
    8 heads of 256 and the preset's 16 of 128 (the same FLOPs) in turns
    (256, 128, 128, 256): the engine (five greedy prompts of 7-1500
    tokens, 32 new) on fp and int8 pools and ``generate`` B=8 1024 + 128 in
@@ -376,9 +377,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    path), each cell's tokens the same in every turn of its geometry, and
    a profiled window per cell and geometry (device ms, busy share).  13d:
    recipe B (GPT-3 1.3B stacked, bf16, B=2 S=2048, ``ln_f`` under
-   PTPU_PALLAS_LN) at 8 heads of 256 in turns with the preset's 16 of 128
-   (`head256_train`): losses finite, ms a step, tokens/s, peak memory, the
-   launches (at 256 the forward, dQ and dK/dV 24 a step each on `:d256`).
+   PTPU_PALLAS_LN; `H256_LAYERS` deep) at 8 heads of 256 in turns with the
+   preset's 16 of 128 (`head256_train`): losses finite, ms a step,
+   tokens/s, peak memory, the launches (at 256 the forward, dQ and dK/dV
+   one a layer and step each on `:d256`).
 14. HTTP serving (`http_phase`): bf16 GPT-2 124M behind ``ApiServer``,
    19 requests at once (16 streamed of 7-700 tokens, 2 chats, 1 seeded;
    32 new) in turns api, direct, direct, api: tokens equal to
@@ -454,7 +456,34 @@ Phases, in order; any failure exits non-zero and prints no result line:
    kernels, the port's launches (none) checked, ``cudnn.benchmark`` left
    at torch's default; 18c LeNet through ``Model.fit`` on the synthetic
    ``MNIST(size=256)``, two epochs of 4 batches, the loss falling.
-8. Summary: one JSON line of fifty entries: thirty-nine (the nine kernels,
+19. head_dim 384, 512, ... (run after phase 18, before the summary's
+   lines): 19a the flash forward, dQ and dK/dV at D = 384, 512 and 1024
+   (``csrc/flash_wide_fwd.cu``, ``csrc/flash_wide_bwd.cu``: D a runtime
+   argument, a grid axis of D / 128 output slices, on the CUDA cores in
+   every type) against their plain versions at the limits of
+   `ops/tolerance.py` (fp32 ``FP32_FWD`` forward, derived there for
+   D = 512 and 1024, 1e-4 max|ref| backward), timed beside SDPA with their
+   bounds (`head512_kernel_cases`): causal at recipe B's B=2 S=2048 H=4
+   D=512 in bf16, fp16 and fp32, every other branch (pad mask, kv_lens,
+   the packed batch's ids, non-causal) in bf16 at B=2 S=1024, D = 384 in
+   the three types and its masked branches in fp32 and fp16, D = 1024
+   causal in bf16, segments in fp16 and non-causal in fp32; 19b a GPT of
+   hidden 1024 with two heads of 512 (GPT-3 1.3B's vocab and positions,
+   stacked), 2 layers, fp32, on the card and on the CPU: the engine on fp
+   and int8 pools (phase 3's prompts) and ``generate`` B=8 256 + 32 in the
+   default and fused modes, captured: tokens identical, the prefill on
+   the wide forward, every decode step on the plain attention by the
+   decode gates (counted under JAX's names), one capture each; fp32
+   training of the same widths, stacked and per-layer, 3 AdamW steps at
+   B=1 S=512 (losses within 1e-5 of the CPU's); 19c GPT-3 1.3B's widths
+   at full depth with 4 heads of 512 in bf16: the engine (five greedy
+   prompts of 7-1500 tokens, 32 new) on fp and int8 pools and
+   ``generate`` B=8 1024 + 128 in the default and fused modes, decode
+   steps captured: ms a decode step, tokens/s, the gates' counts, the
+   launches; 19d recipe B at 4 heads of 512 (B=2 S=2048, 2 + 5 steps):
+   losses finite, ms a step, tokens/s, peak memory, the wide forward, dQ
+   and dK/dV 24 a step each.
+8. Summary: one JSON line of fifty-three entries: thirty-nine (the nine kernels,
    the int8 variant, the mask, segment and non-causal variants of the
    flash kernels, the tensor-core forward, dQ and dK/dV -- every bf16
    launch of those three, timed at the bf16 training shape -- the fp32
@@ -486,8 +515,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
    launches in phases 14 to 18); and the dropout kernel's
    (`threefry_bernoulli`, timed at BERT-base's FFN dropout [32, 128,
    3072], launches from 17c's dropout turn; it replaces no Pallas kernel:
-   its "replaces" names the JAX draw XLA fuses); it fails if an entry's
-   main path launched it no time; the card line, then the result line.
+   its "replaces" names the JAX draw XLA fuses); and the three entries at
+   head_dim 384, 512, ... (`FWD_WIDE`, `DQ_WIDE`, `DKV_WIDE`: timed at
+   recipe B's bf16 B=2 S=2048 H=4 D=512, the forward's launches from 19c's
+   fp engine, dQ's and dK/dV's from 19d), each entry with its launches in
+   phase 19 as a whole; it fails if an entry's main path launched it no
+   time; the card line, then the result line.
 
 Every time is a median of CUDA-event timings (L2 flushed before each
 launch, the host's enqueue hidden behind a spin on the stream); every
@@ -592,6 +625,12 @@ D256_ALL = (FWD_D256, FWD_SIMT, RAGGED_D256, RAGGED8_D256, DECODE_D256,
 DQ_D256, DQ_SIMT = DQ + ":d256", DQ + ":simt"
 DKV_D256, DKV_SIMT = DKV + ":d256", DKV + ":simt"
 D256_BWD = (DQ_D256, DQ_SIMT, DKV_D256, DKV_SIMT)
+# head_dim 384, 512, ... (phase 19): every launch of the flash forward, dQ
+# and dK/dV at a multiple of 128 past 256 (the kernels of
+# csrc/flash_wide_fwd.cu and csrc/flash_wide_bwd.cu, any type), counted in
+# place of the type's counter
+FWD_WIDE, DQ_WIDE, DKV_WIDE = FWD + ":wide", DQ + ":wide", DKV + ":wide"
+WIDE_ALL = (FWD_WIDE, DQ_WIDE, DKV_WIDE)
 # dropout's keep masks on JAX's keys (`ops.threefry`)
 THREEFRY = "threefry_bernoulli"
 # its integer operations an element (`csrc/threefry_bernoulli.cu`: 20
@@ -609,7 +648,8 @@ KERNELS = (FWD, FWD_MASK, FWD_SEGS, FWD_NC, FWD_TC, FWD_TC32, RAGGED,
            DKV_MASK, DKV_SEGS, DKV_NC, DKV_TC, DKV_TC32, DECODE, FUSED, LN,
            LN_BWD, FFN, FFN_TC, FFN_TC32, FFN_DEC, FWD_TC16, DQ_TC16,
            DKV_TC16, RAGGED16, RAGGED8_16, DECODE16, LN16, LN_BWD16, FFN16,
-           FFN_TC16, FFN_DEC16, *D256_ALL, *D256_BWD, THREEFRY)
+           FFN_TC16, FFN_DEC16, *D256_ALL, *D256_BWD, THREEFRY,
+           *WIDE_ALL)
 REPLACES = {
     FWD: "paddle_tpu/ops/pallas_ops.py:135",
     FWD_MASK: "paddle_tpu/ops/pallas_ops.py:135",
@@ -662,6 +702,9 @@ REPLACES = {
     DKV_SIMT: "paddle_tpu/ops/pallas_ops.py:272",
     # no Pallas kernel: the JAX package's dropout draw, which XLA fuses
     THREEFRY: "paddle_tpu/nn/functional/__init__.py:903",
+    FWD_WIDE: "paddle_tpu/ops/pallas_ops.py:135",
+    DQ_WIDE: "paddle_tpu/ops/pallas_ops.py:210",
+    DKV_WIDE: "paddle_tpu/ops/pallas_ops.py:272",
 }
 # the __global__ functions of paddle_tpu_torch/csrc, as the profiler names
 # (template names: the flash variants are instantiations of the flash
@@ -677,7 +720,8 @@ PORT_SYMBOLS = ("flash_fwd_tc32_kernel", "flash_fwd_tc_kernel",
                 "ln_fwd_kernel", "ln_fwd_wide_kernel", "ln_bwd_kernel",
                 "ln_bwd_wide_kernel", "fused_ffn_kernel", "ffn_tc_kernel",
                 "ffn_tc32_kernel", "wt_split_kernel", "ffn_dec_kernel",
-                "threefry_bernoulli_kernel")
+                "threefry_bernoulli_kernel", "flash_wide_fwd_kernel",
+                "flash_wide_dq_kernel", "flash_wide_dkv_kernel")
 # ... and those a tree from before has, so that `--paths` groups a
 # parent's profile as its own (the CUDA-core fp32 forward, dQ and dK/dV;
 # the LayerNorm backward's second launch)
@@ -804,13 +848,23 @@ def with_tc(want, dtype, ln_dtype=None, d=64):
     forward, dQ, dK/dV, ragged, decode and fused-layer launch counts once
     more under its D = 256 counter, and an fp32 forward, dQ or dK/dV under
     FWD_SIMT, DQ_SIMT or DKV_SIMT in place of FWD_TC32, DQ_TC32 or
-    DKV_TC32."""
-    for counters, names in (((FWD_TC, FWD_TC16, FWD_TC32), FWD_ALL),
-                            ((DQ_TC, DQ_TC16, DQ_TC32), DQ_ALL),
-                            ((DKV_TC, DKV_TC16, DKV_TC32), DKV_ALL)):
+    DKV_TC32.  At a larger multiple of 128 (384, 512, ...) every forward,
+    dQ and dK/dV launch counts once more under FWD_WIDE, DQ_WIDE or
+    DKV_WIDE in place of its type's counter, and the ragged, decode and
+    fused-layer kernels, which take 64, 128 and 256 only, launch nothing:
+    their gates send the step to the plain versions."""
+    wide = d not in (64, 128, 256)
+    if wide:
+        for name in (RAGGED, RAGGED8, DECODE, FUSED):
+            want[name] = 0
+    for counters, names, counter_wide in (
+            ((FWD_TC, FWD_TC16, FWD_TC32), FWD_ALL, FWD_WIDE),
+            ((DQ_TC, DQ_TC16, DQ_TC32), DQ_ALL, DQ_WIDE),
+            ((DKV_TC, DKV_TC16, DKV_TC32), DKV_ALL, DKV_WIDE)):
         n = sum(want[name] for name in names)
         for dt, counter in zip(HALF_AND_FP32, counters):
-            want[counter] = n if dtype == dt else 0
+            want[counter] = n if dtype == dt and not wide else 0
+        want[counter_wide] = n if wide else 0
     fp16 = dtype == torch.float16
     for counter, name in ((RAGGED16, RAGGED), (RAGGED8_16, RAGGED8),
                           (DECODE16, DECODE), (FFN16, FFN),
@@ -869,8 +923,11 @@ def check_sass(paths):
     ``flash_bwd_dkv_kernel``) are gone; the fp32 forward, dQ and dK/dV at
     D = 256 (``flash_fwd_simt_kernel``, ``flash_bwd_dq_simt_kernel``,
     ``flash_bwd_dkv_simt_kernel``: 8 each, the flag combinations) are on
-    the CUDA cores: FFMA and no HGMMA.  Returns {kernel: [instantiations,
-    of them with HGMMA, with FFMA]}."""
+    the CUDA cores: FFMA and no HGMMA, and so are the forward, dQ and
+    dK/dV at 384, 512, ... (``flash_wide_fwd_kernel``,
+    ``flash_wide_dq_kernel``, ``flash_wide_dkv_kernel``: 24 each, 3 types
+    x 8 flag combinations).  Returns {kernel: [instantiations, of them
+    with HGMMA, with FFMA]}."""
     fwd, bwd = "flash_fwd_causal", "flash_bwd_causal"
     # kernel: (library, instantiations on the tensor cores, or None: gone)
     wants = {"flash_fwd_tc_kernel": (fwd, 48),
@@ -884,8 +941,9 @@ def check_sass(paths):
              "flash_bwd_dkv_kernel": (bwd, None),
              "ffn_tc_kernel": (FFN_TC, 32),
              "ffn_tc32_kernel": (FFN_TC32, 16)}
+    wfwd, wbwd = "flash_wide_fwd", "flash_wide_bwd"
     funcs = {src: _sass_functions(paths[src])
-             for src in (fwd, bwd, FFN_TC, FFN_TC32)}
+             for src in (fwd, bwd, FFN_TC, FFN_TC32, wfwd, wbwd)}
     counts = {}
     for kernel, (lib, tensor_cores) in wants.items():
         # mangled: ..._kernel I <template arguments> E
@@ -901,15 +959,19 @@ def check_sass(paths):
                  f"with HGMMA, {ffma} with FFMA ({sorted(found)[:4]} ...)")
     # the CUDA-core fp32 forward, dQ and dK/dV at D = 256: fp32 FMAs, no
     # tensor cores
-    for lib, kernel in ((fwd, "flash_fwd_simt_kernel"),
-                        (bwd, "flash_bwd_dq_simt_kernel"),
-                        (bwd, "flash_bwd_dkv_simt_kernel")):
+    # ... and every instantiation at D = 384, 512, ...
+    for lib, kernel, count in ((fwd, "flash_fwd_simt_kernel", 8),
+                               (bwd, "flash_bwd_dq_simt_kernel", 8),
+                               (bwd, "flash_bwd_dkv_simt_kernel", 8),
+                               (wfwd, "flash_wide_fwd_kernel", 24),
+                               (wbwd, "flash_wide_dq_kernel", 24),
+                               (wbwd, "flash_wide_dkv_kernel", 24)):
         found = {n: body for n, body in funcs[lib].items()
                  if f"{len(kernel)}{kernel}I" in n}
         hgmma = sum("HGMMA" in body for body in found.values())
         ffma = sum("FFMA" in body for body in found.values())
         counts[kernel] = [len(found), hgmma, ffma]
-        if len(found) != 8 or hgmma or ffma != 8:
+        if len(found) != count or hgmma or ffma != count:
             fail(f"SASS of {kernel}: {len(found)} instantiations, {hgmma} "
                  f"with HGMMA, {ffma} with FFMA ({sorted(found)[:4]} ...)")
     return counts
@@ -2035,7 +2097,10 @@ def check_launches(eng, launches, what, dtype=torch.float32, captured=True):
     nothing else.  The decode steps ran as one captured graph (its
     replays counted) where ``captured``, eagerly otherwise."""
     want = engine_launches(eng, dtype)
-    ragged = want[RAGGED8 if eng.kv_quant else RAGGED]
+    # at a head dim the ragged kernel does not take, its gate sends every
+    # decode and chunk step to the plain version
+    ragged = (want[RAGGED8 if eng.kv_quant else RAGGED]
+              or eng.head_dim not in (64, 128, 256))
     if launches != want or not (want[FWD] and ragged):
         fail(f"{what}: launches {launches}, expected {want} "
              f"({eng.step_counts})")
@@ -2089,13 +2154,17 @@ def check_gen_launches(launches, mode, cfg, batch, steps, what, padded=False,
     batch row, then each step) two LayerNorms a layer and ``ln_f`` and
     the FFN of each layer, the FFN on the design its rows take.  ``ln_f``:
     a stacked model under PTPU_PALLAS_LN alone, whose ``ln_f`` launches
-    the LayerNorm once a forward."""
+    the LayerNorm once a forward.  At a head dim the decode kernels do
+    not take (384, 512, ...) a decode step launches nothing: the decode
+    gates send it to the plain path in either mode."""
     layers = cfg.num_hidden_layers
     want = dict.fromkeys(KERNELS, 0)
     want[FWD_MASK if padded else FWD] = layers
     ffn = ffn_counter(batch, cfg, dtype)
     names = (FUSED, LN, ffn) if mode == "fused" else (
         () if padded else (DECODE,))
+    if cfg.hidden_size // cfg.num_attention_heads not in (64, 128, 256):
+        names = ()     # the decode gates send the steps to the plain path
     for name in names:
         want[name] = layers * steps
     if mode == "flags":
@@ -3695,7 +3764,7 @@ def near_argmax_gap(model, outs, prompts):
     logit of the token chosen, teacher-forced on the whole sequence (one
     forward a sequence, on the model's device)."""
     gap = 0.0
-    dev = next(model.parameters()).device
+    dev = next(iter(model.parameters())).device
     with torch.no_grad():
         for out, p in zip(outs, prompts):
             ids = torch.as_tensor(np.asarray(out, np.int64))[None].to(dev)
@@ -3724,7 +3793,7 @@ def cpu_differences(ref32, card, cpu, prompts, params, limit, what):
     j is a near-tie: the card's and the CPU's token at j both within
     ``limit`` of ``ref32``'s top logit on the common prefix.  Returns
     [(row, j, the two gaps)] of the rows that differ."""
-    dev = next(ref32.parameters()).device
+    dev = next(iter(ref32.parameters())).device
     differ = []
     for i, (a, b, p, sp) in enumerate(zip(card, cpu, prompts, params)):
         a, b = np.asarray(a), np.asarray(b)
@@ -4219,6 +4288,9 @@ GEOMETRIES = {"8x256": 8, "16x128": 16}
 GEO_TURNS = ("8x256", "16x128", "16x128", "8x256")
 # the fp32 training of phase 13b: 2 layers of two heads of 256
 TRAIN_H256_HIDDEN = 512
+# the depth of phases 13c and 13d: a third of GPT-3 1.3B's 24 layers, so
+# that the whole run, phase 19 included, stays near 1000 of its 1200 s
+H256_LAYERS = 8
 
 
 def head256_kernel_cases(fa, fd, fdl, rpa, tol, timer, cases, kernel_segs):
@@ -4460,8 +4532,8 @@ def _generate_cell(ops, model, cfg, ids, mode, what):
 
 
 def head256_bf16(ops, card):
-    """Phase 13c: GPT-3 1.3B's widths at full depth (24 layers, hidden
-    2048, I=8192, vocab 50304), stacked, bf16 weights from seed 0, in two
+    """Phase 13c: GPT-3 1.3B's widths (hidden 2048, I=8192, vocab 50304)
+    at `H256_LAYERS` layers, stacked, bf16 weights from seed 0, in two
     head geometries run in turns (`GEO_TURNS`): 8 heads of 256 and the
     preset's 16 of 128 (the same FLOPs).  Each turn: the engine (block 16,
     8 sequences, 512 batched tokens; `PROMPT_LENS_13`, 32 new, greedy) on
@@ -4475,7 +4547,8 @@ def head256_bf16(ops, card):
     the launches of the 8 x 256 runs by cell."""
     from paddle_tpu_torch.models import GPTForCausalLM, gpt3_1p3b_config
     bf16 = torch.bfloat16
-    cfgs = {g: gpt3_1p3b_config(num_attention_heads=n, stacked_blocks=True)
+    cfgs = {g: gpt3_1p3b_config(num_attention_heads=n, stacked_blocks=True,
+                                num_hidden_layers=H256_LAYERS)
             for g, n in GEOMETRIES.items()}
     models = {g: GPTForCausalLM(cfg, device="cuda", dtype=bf16,
                                 generator=torch.Generator().manual_seed(0))
@@ -4538,21 +4611,23 @@ def head256_bf16(ops, card):
 def head256_train(ops, card, warmup=2, timed=5, batch=2, seq=2048):
     """Phase 13d: configuration B's recipe (`train_1p3b`: GPT-3 1.3B
     stacked, bf16 weights and AdamW moments, ``multi_precision=False``, lr
-    2e-4, B=2 S=2048, ``ln_f`` under PTPU_PALLAS_LN) in the two head
-    geometries in turns (`GEO_TURNS`): 8 heads of 256 and the preset's 16
+    2e-4, B=2 S=2048, ``ln_f`` under PTPU_PALLAS_LN; `H256_LAYERS` deep)
+    in the two head geometries in turns (`GEO_TURNS`): 8 heads of 256 and
+    the preset's 16
     of 128 (the same FLOPs outside attention, and the same attention
     FLOPs), each model from seed 0 with its own optimizer and schedule
     over all its turns' steps, one batch.  Each turn: ``warmup`` +
     ``timed`` steps; losses finite, the launches as `train_launches` (at
-    256 the flash forward, dQ and dK/dV 24 a step each, all on `:d256`
-    and `:tc`), ms a step (host clock over the timed steps, synced), tokens
+    256 the flash forward, dQ and dK/dV one a layer and step each, all on
+    `:d256` and `:tc`), ms a step (host clock over the timed steps, synced), tokens
     per second and peak memory beside what was allocated when the turn
     began.  Returns the record and the launches of the 8 x 256 turns."""
     from paddle_tpu_torch.models import GPTForCausalLM, gpt3_1p3b_config
     bf16 = torch.bfloat16
     env = TRAIN_MODES["flags"]
     steps = warmup + timed
-    cfgs = {g: gpt3_1p3b_config(num_attention_heads=n, stacked_blocks=True)
+    cfgs = {g: gpt3_1p3b_config(num_attention_heads=n, stacked_blocks=True,
+                                num_hidden_layers=H256_LAYERS)
             for g, n in GEOMETRIES.items()}
     rng = np.random.RandomState(3)
     data = [torch.from_numpy(rng.randint(0, cfgs["8x256"].vocab_size,
@@ -4588,7 +4663,8 @@ def head256_train(ops, card, warmup=2, timed=5, batch=2, seq=2048):
     del models, steppers
     torch.cuda.empty_cache()
     for g, runs in rec.items():
-        print(f"head256 train {g}: recipe B, GPT-3 1.3B widths, bf16, "
+        print(f"head256 train {g}: recipe B, GPT-3 1.3B widths at "
+              f"{H256_LAYERS} layers, bf16, "
               f"B={batch} S={seq}, {warmup} + {timed} steps a turn (turns "
               f"{', '.join(str(r['turn']) for r in runs)}): ms a step "
               + " / ".join(f"{r['ms_per_step']:.3f}" for r in runs)
@@ -4624,13 +4700,338 @@ def print_head256(rec, card):
                 extra = ("; prefill tokens/s " + " / ".join(
                     f"{r['prefill_tok_s']:.1f}" for r in runs)
                     + f"; steps {runs[0]['steps']}")
-            print(f"head256 {g} {kind} (captured, turns): decode ms a step "
+            print(f"head256 {g} {kind} ({H256_LAYERS} layers, captured, "
+                  f"turns): decode ms a step "
                   + " / ".join(f"{r['decode_ms_per_step']:.3f}" for r in runs)
                   + ", decode tokens/s " + " / ".join(
                       f"{r['decode_tok_s']:.1f}" for r in runs)
                   + f"{extra}; profiled window wall "
                   f"{pr['wall_ms_per_step']:.3f} ms a step, {busy}; "
                   f"launches {runs[0]['launches']} ({card})", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 19: head_dim 384, 512, ... (any multiple of 128 past 256)
+# ---------------------------------------------------------------------------
+
+H512 = 4                     # GPT-3 1.3B's widths with 4 heads of 512
+# the fp32 model of phase 19b: 2 layers of two heads of 512
+H512_HIDDEN = 1024
+# the decode paths the gates count under PTPU_ATTN_DEBUG=1 (JAX's names)
+DECODE_PATHS = ("decode_fallback:head_geometry",
+                "ragged_fallback:head_geometry",
+                "fused_decode_fallback:head_geometry")
+
+
+def _wide_counter(kernel):
+    """The wide counter a phase 19a case of `kernel` (a flash kernel or
+    one of its variant names) is filed under."""
+    if kernel.startswith(DQ):
+        return DQ_WIDE
+    return DKV_WIDE if kernel.startswith(DKV) else FWD_WIDE
+
+
+def head512_kernel_cases(fa, tol, timer, cases, kernel_segs):
+    """Phase 19a: the flash forward, dQ and dK/dV at D = 384, 512 and 1024
+    (``csrc/flash_wide_fwd.cu``, ``csrc/flash_wide_bwd.cu``: one kernel a
+    direction and type for every multiple of 128, D a runtime argument)
+    against their plain versions at the limits of `tolerance` (fp32
+    forward ``FP32_FWD``, backward 1e-4 max|ref|), q, k and v slices of
+    one fused qkv tensor, each timed with its bound, the plain version's
+    time and SDPA's (its whole backward for dQ and dK/dV), filed under
+    `FWD_WIDE`, `DQ_WIDE` and `DKV_WIDE`:
+
+    - D = 512, H = 4 (GPT-3 1.3B's widths): causal forward and backward
+      at recipe B's B=2 S=2048 in bf16, fp16 and fp32; in bf16 at B=2
+      S=1024 every other branch forward and backward (the pad mask,
+      kv_lens, the packed batch's segment ids, non-causal);
+    - D = 384, H = 4: causal forward and backward at B=2 S=1024 in the
+      three types, the pad mask (forward and backward) in fp32 and fp16,
+      kv_lens in fp16;
+    - D = 1024, H = 2: causal forward and backward in bf16 at B=1 S=1024,
+      the segment ids in fp16 and non-causal in fp32 at B=2 S=1024."""
+    h = H512
+    segs2 = kernel_segs[:2]
+    for dtype in HALF_AND_FP32:
+        cases[FWD_WIDE].append(check_flash(fa, tol, timer, 2048, h, 512,
+                                           dtype, seed=512, b=2))
+        for kernel, c in check_flash_bwd(fa, tol, timer, 2, 2048, h, 512,
+                                         dtype, seed=4097).items():
+            cases[_wide_counter(kernel)].append(c)
+        torch.cuda.empty_cache()
+    for kind in ("pad", "lens", "segs", "nc"):
+        for kernel, c in check_flash_variant(
+                fa, tol, timer, kind, 2, 1024, h, 512, torch.bfloat16,
+                seed=1034, segs=segs2 if kind == "segs" else None).items():
+            cases[_wide_counter(kernel)].append(c)
+    for dtype in HALF_AND_FP32:
+        cases[FWD_WIDE].append(check_flash(fa, tol, timer, 1024, h, 384,
+                                           dtype, seed=384, b=2))
+        for kernel, c in check_flash_bwd(fa, tol, timer, 2, 1024, h, 384,
+                                         dtype, seed=3840).items():
+            cases[_wide_counter(kernel)].append(c)
+    variants = ((384, "pad", torch.float32), (384, "pad", torch.float16),
+                (384, "lens", torch.float16), (1024, "segs", torch.float16),
+                (1024, "nc", torch.float32))
+    for d, kind, dtype in variants:
+        for kernel, c in check_flash_variant(
+                fa, tol, timer, kind, 2, 1024, 2 if d == 1024 else h, d,
+                dtype, seed=d + 1, segs=segs2 if kind == "segs" else None
+        ).items():
+            cases[_wide_counter(kernel)].append(c)
+    cases[FWD_WIDE].append(check_flash(fa, tol, timer, 1024, 2, 1024,
+                                       torch.bfloat16, seed=1024))
+    for kernel, c in check_flash_bwd(fa, tol, timer, 1, 1024, 2, 1024,
+                                     torch.bfloat16, seed=10240).items():
+        cases[_wide_counter(kernel)].append(c)
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def path_counts():
+    """``PTPU_ATTN_DEBUG=1`` and the attention path counts reset inside;
+    yields the dict they are copied into at the end."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    saved = os.environ.get("PTPU_ATTN_DEBUG")
+    os.environ["PTPU_ATTN_DEBUG"] = "1"
+    fa.reset_attention_path_counts()
+    counts = {}
+    try:
+        yield counts
+    finally:
+        counts.update(fa.attention_path_counts())
+        if saved is None:
+            os.environ.pop("PTPU_ATTN_DEBUG", None)
+        else:
+            os.environ["PTPU_ATTN_DEBUG"] = saved
+
+
+def check_paths(counts, want, what):
+    """The decode gates' counts of a run hold exactly the ``want`` names
+    (each counted at least once) among `DECODE_PATHS`."""
+    got = {n for n, c in counts.items() if n in DECODE_PATHS and c}
+    if got != set(want):
+        fail(f"{what}: decode paths {counts}, expected {sorted(want)}")
+
+
+def head512_fp32_card_vs_cpu(ops, card):
+    """Phase 19b: a GPT of hidden `H512_HIDDEN` with two heads of 512
+    (GPT-3 1.3B's vocab and positions, I = 4 x hidden, stacked), 2
+    layers, weights from seed 0, fp32, on the card and on the CPU: the
+    engine (phase 3's prompts and settings; decode steps captured) on fp
+    and int8 pools, and ``generate`` B=8, 256 + 32 in the default and the
+    fused mode (captured): the card's tokens identical to the CPU's; the
+    prefill on the wide forward (`FWD_WIDE`), every decode and chunk step
+    on the plain attention by the decode gates (their counts under JAX's
+    names: the ragged gate's in the engine, the decode gate's, and in the
+    fused mode the fused layer's too, in ``generate``), one capture each.
+    Then fp32 training of the same widths, stacked and per-layer, 3 AdamW
+    steps at B=1 S=512 (`train_fp32_card_vs_cpu`): losses within 1e-5 of
+    the CPU's at every step, step-1 gradients within 1e-3 max|g|, the
+    launches on the wide forward, dQ and dK/dV.  Returns the record and
+    the launches by run."""
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt3_1p3b_config
+    f32 = torch.float32
+    cfg = gpt3_1p3b_config(hidden_size=H512_HIDDEN, num_attention_heads=2,
+                           num_hidden_layers=2,
+                           intermediate_size=4 * H512_HIDDEN,
+                           stacked_blocks=True)
+    models = {dev: GPTForCausalLM(cfg, device=dev,
+                                  generator=torch.Generator().manual_seed(0))
+              for dev in ("cuda", "cpu")}
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in PROMPT_LENS]
+    rec, launches = {}, {}
+    for kv, key in ((None, "engine"), ("int8", "engine_int8")):
+        what = f"float32 head_dim 512 engine, {kv or 'fp'} pools"
+        with graphs_env(True), path_counts() as paths:
+            outs, eng, lc, stats = serve(models["cuda"], prompts, "cuda",
+                                         f32, ops, kv)
+        check_launches(eng, lc, what)
+        check_paths(paths, ("ragged_fallback:head_geometry",), what)
+        cpu = serve(models["cpu"], prompts, "cpu", f32, None, kv)[0]
+        same_tokens(outs, cpu, f"{what}: card vs CPU")
+        launches[key] = lc
+        rec[key] = {"steps": dict(eng.step_counts), "paths": paths,
+                    "launches": lc}
+        print(f"{what}: the card's tokens equal the CPU run's (prompts "
+              f"{list(PROMPT_LENS)}, {NEW_TOKENS} new; steps "
+              f"{eng.step_counts}); captures {eng.compiles}; paths {paths}; "
+              f"launches { {k: n for k, n in lc.items() if n} } ({card})",
+              flush=True)
+    batch, prompt, new = 8, 256, 32
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (batch, prompt))
+                           .astype(np.int32))
+    for mode in ("default", "fused"):
+        what = f"float32 head_dim 512 generate ({mode})"
+        before = _captures(models["cuda"])
+        out = {}
+        with flag_env(GEN_MODES[mode]), graphs_env(True):
+            for dev, model in models.items():
+                ops.reset_launch_counts()
+                with path_counts() as paths:
+                    out[dev] = model.generate(ids.to(dev),
+                                              max_new_tokens=new).cpu()
+                if dev == "cuda":
+                    lc, card_paths = ops.launch_counts(), paths
+        check_gen_launches(lc, mode, cfg, batch, new - 1, what,
+                           prompt=prompt)
+        check_paths(card_paths, ("decode_fallback:head_geometry",) + (
+            ("fused_decode_fallback:head_geometry",) if mode == "fused"
+            else ()), what)
+        after = _captures(models["cuda"])
+        if after.get("decode", 0) != before.get("decode", 0) + 1:
+            fail(f"{what}: captures {before} -> {after}, expected one")
+        if not torch.equal(out["cuda"], out["cpu"]):
+            r, j = (int(i) for i in torch.nonzero(out["cuda"] != out["cpu"])
+                    [0])
+            fail(f"{what}: card tokens differ from the CPU run at row {r} "
+                 f"position {j}")
+        launches[mode] = lc
+        rec[mode] = {"launches": lc, "paths": card_paths}
+        print(f"{what} B={batch} {prompt}+{new}: the card's tokens equal the "
+              f"CPU run's; 1 capture; paths {card_paths}; launches "
+              f"{ {k: n for k, n in lc.items() if n} } ({card})", flush=True)
+    del models
+    torch.cuda.empty_cache()
+    for layout, stacked in (("stacked", True), ("per-layer", False)):
+        tcfg = dataclasses.replace(cfg, stacked_blocks=stacked)
+        tr = train_fp32_card_vs_cpu(ops, tcfg, {}, steps=3, seq=512)
+        rel = tr["loss_rel_diff"]
+        if not max(rel) <= 1e-5:
+            fail(f"float32 head_dim 512 training ({layout}): card losses "
+                 f"{tr['card_losses']} vs CPU {tr['cpu_losses']} (relative "
+                 f"{rel}; limit 1e-5 at every step)")
+        key = f"train_{layout}"
+        launches[key] = tr["launches"]
+        rec[key] = tr
+        print(f"float32 head_dim 512 training, {layout}, 2 layers of 2 heads "
+              f"of 512 (hidden {H512_HIDDEN}), {tr['batch']}, 3 AdamW "
+              f"steps: card losses {tr['card_losses']} vs CPU "
+              f"{tr['cpu_losses']} (relative {rel}, limit 1e-5); step-1 "
+              f"gradients at most {max(tr['grad_err_over_limit'].values()):.3g}"
+              f" of 1e-3 max|g|; launches "
+              f"{ {k: n for k, n in tr['launches'].items() if n} } ({card})",
+              flush=True)
+        torch.cuda.empty_cache()
+    return rec, launches
+
+
+def head512_bf16(ops, card):
+    """Phase 19c: GPT-3 1.3B's widths at full depth (24 layers, hidden
+    2048, I=8192, vocab 50304) with 4 heads of 512 (``gpt3_1p3b_config(
+    num_attention_heads=4)``, stacked), bf16 weights from seed 0: the
+    engine (block 16, 8 sequences, 512 batched tokens; `PROMPT_LENS_13`,
+    32 new, greedy) on fp and int8 pools, its prefill on the wide forward,
+    its decode steps captured with the plain attention by the ragged gate;
+    dense ``generate`` B=8, 1024 + 128 in the default and the fused mode,
+    warmed up and captured first (one capture a mode), each decode step
+    on the plain attention by the decode gates.  Each run's launches as
+    expected, its gate counts (JAX's names; ``generate``'s from its
+    warm-up, whose steps run the gates eagerly and in the capture, the
+    timed ones replaying them) and its wall ms a decode step.
+    Returns the record and the launches by cell."""
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt3_1p3b_config
+    cfg = gpt3_1p3b_config(num_attention_heads=H512, stacked_blocks=True)
+    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                           generator=torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(19)
+    prompts = [rng.randint(0, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in PROMPT_LENS_13]
+    ids = torch.from_numpy(rng.randint(
+        0, cfg.vocab_size, (GEN_BATCH_13, GEN_PROMPT_13)).astype(
+            np.int32)).cuda()
+    warm_paths = {}
+    for mode in ("default", "fused"):          # warm-up and capture
+        with flag_env(GEN_MODES[mode]), graphs_env(True), \
+                path_counts() as warm_paths[mode]:
+            model.generate(ids, max_new_tokens=3)
+        check_paths(warm_paths[mode], ("decode_fallback:head_geometry",) + (
+            ("fused_decode_fallback:head_geometry",) if mode == "fused"
+            else ()), f"bfloat16 GPT-3 1.3B widths 4x512 {mode} warm-up")
+    rec, launches = {}, {}
+    for cell in ("engine", "engine_int8", "default", "fused"):
+        what = f"bfloat16 GPT-3 1.3B widths 4x512 {cell}"
+        if cell.startswith("engine"):
+            # a new engine: its first decode step runs eagerly, the second
+            # is captured, both through the gate
+            with path_counts() as paths:
+                _, lc, r = _serve_cell(
+                    ops, model, prompts,
+                    "int8" if cell == "engine_int8" else None, what)
+            check_paths(paths, ("ragged_fallback:head_geometry",), what)
+        else:
+            # the captured steps replay: the gate ran in the warm-up
+            _, lc, r = _generate_cell(ops, model, cfg, ids, cell, what)
+            paths = warm_paths[cell]
+        r["launches"] = {k: n for k, n in lc.items() if n}
+        r["paths"] = paths
+        rec[cell] = r
+        launches[cell] = lc
+        kind = ("engine, " + ("int8" if cell == "engine_int8" else "fp")
+                + f" pools, prompts {list(PROMPT_LENS_13)}, {NEW_TOKENS} "
+                f"new: prefill tokens/s {r['prefill_tok_s']:.1f}, steps "
+                f"{r['steps']}" if cell.startswith("engine") else
+                f"generate {cell}, B={GEN_BATCH_13} "
+                f"{GEN_PROMPT_13}+{GEN_NEW_13}: prefill "
+                f"{r['prefill_s'] * 1e3:.1f} ms")
+        print(f"head512 4x512 {kind} (captured): decode ms a step "
+              f"{r['decode_ms_per_step']:.3f}, decode tokens/s "
+              f"{r['decode_tok_s']:.1f}; paths {paths}; launches "
+              f"{r['launches']} ({card})", flush=True)
+    captures = _captures(model)
+    if captures.get("decode") != 2:
+        fail(f"bfloat16 GPT-3 1.3B widths 4x512: generate captures "
+             f"{captures}, expected one a mode")
+    rec["captures"] = captures
+    del model
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+def head512_train(ops, card, warmup=2, timed=5, batch=2, seq=2048):
+    """Phase 19d: configuration B's recipe (as `head256_train`: GPT-3 1.3B
+    stacked, bf16 weights and AdamW moments, lr 2e-4, B=2 S=2048,
+    ``ln_f`` under PTPU_PALLAS_LN) at 4 heads of 512, from seed 0:
+    ``warmup`` + ``timed`` steps; losses finite, the launches as
+    `train_launches` (the wide forward, dQ and dK/dV 24 a step each), ms a
+    step (host clock over the timed steps, synced), tokens per second and
+    peak memory.  Returns the record and the launches."""
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt3_1p3b_config
+    bf16 = torch.bfloat16
+    env = TRAIN_MODES["flags"]
+    cfg = gpt3_1p3b_config(num_attention_heads=H512, stacked_blocks=True)
+    rng = np.random.RandomState(3)
+    data = [torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                         (batch, seq))).cuda()
+            for _ in range(2)]
+    model = GPTForCausalLM(cfg, device="cuda", dtype=bf16,
+                           generator=torch.Generator().manual_seed(0))
+    step, opt = make_step(model, RECIPE_LR_1P3B,
+                          {"steps": warmup + timed, "multi_precision": False})
+    with flag_env(env):
+        losses, step_ms, lc, peak_gb, before_gb = timed_steps(
+            ops, step, data, warmup, timed)
+    what = "recipe B at GPT-3 1.3B widths, 4x512"
+    check_train_launches(lc, train_launches(
+        cfg, warmup + timed, env, dtype=bf16, rows=batch * seq), what)
+    if not all(np.isfinite(losses)) or opt._master_weights:
+        fail(f"{what}: losses {losses}, {len(opt._master_weights)} masters")
+    del model, step, opt
+    torch.cuda.empty_cache()
+    rec = {"batch": f"B={batch} S={seq}", "warmup": warmup,
+           "timed_steps": timed, "losses": losses, "ms_per_step": step_ms,
+           "tokens_per_s": batch * seq * 1e3 / step_ms,
+           "peak_memory_gb": peak_gb, "before_gb": before_gb,
+           "launches": {k: n for k, n in lc.items() if n}}
+    print(f"head512 train 4x512: recipe B, GPT-3 1.3B widths, bf16, "
+          f"B={batch} S={seq}, {warmup} + {timed} steps: ms a step "
+          f"{step_ms:.3f}, tokens/s {rec['tokens_per_s']:.1f}; losses "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; peak GB {peak_gb:.2f} "
+          f"(before {before_gb:.2f}); launches {rec['launches']} ({card})",
+          flush=True)
+    return rec, lc
 
 
 # ---------------------------------------------------------------------------
@@ -4644,7 +5045,7 @@ def print_cases(cases):
                 tol = c["tol"]
             elif c["dtype"] != str(torch.float32):
                 tol = "tol scaled to each output"
-            elif name in (FWD, RAGGED, RAGGED8, *D256_ALL):
+            elif name in (FWD, RAGGED, RAGGED8, FWD_WIDE, *D256_ALL):
                 tol = f"tol {TOL_FP32}"
             else:
                 tol = f"tol {BWD_REL_FP32} max|ref|"
@@ -6082,7 +6483,9 @@ def main():
                 FUSED_D256: fdl.d256, DQ_D256: fa.flash_bwd_dq.d256,
                 DQ_SIMT: fa.flash_bwd_dq.simt,
                 DKV_D256: fa.flash_bwd_dkv.d256,
-                DKV_SIMT: fa.flash_bwd_dkv.simt, THREEFRY: tf}
+                DKV_SIMT: fa.flash_bwd_dkv.simt, THREEFRY: tf,
+                FWD_WIDE: fa.wide, DQ_WIDE: fa.flash_bwd_dq.wide,
+                DKV_WIDE: fa.flash_bwd_dkv.wide}
     for bwd in (fa.flash_bwd_dq, fa.flash_bwd_dkv):
         wrappers.update({v.KERNEL: v for v in bwd.variants.values()})
     assert set(wrappers) == set(ops.launch_counts())
@@ -6115,7 +6518,8 @@ def main():
           flush=True)
     # registers and spills of the flash kernels' instantiations
     regs = {}
-    for name in ("flash_fwd_causal", "flash_bwd_causal"):
+    for name in ("flash_fwd_causal", "flash_bwd_causal", "flash_wide_fwd",
+                 "flash_wide_bwd"):
         for fn, n_regs, st, ld in ptxas_table(result["ptxas"][name]):
             regs[short_name(fn)] = (n_regs, st, ld)
     result["flash_registers"] = regs
@@ -6663,6 +7067,19 @@ def main():
     result["conv"], launches_conv = conv_phase(ops, card)
     mark("18 ResNet fp32 card vs CPU, ResNet-50 bf16, LeNet fit")
 
+    # -- 19. head_dim 384, 512, ... -----------------------------------------
+    n_before = {name: len(c) for name, c in cases.items()}
+    head512_kernel_cases(fa, tol, timer, cases, kernel_segs)
+    print_cases({name: c[n_before[name]:] for name, c in cases.items()})
+    mark("19a head_dim 384 / 512 / 1024 kernels")
+    result["head512_fp32"], launches_h512_32 = head512_fp32_card_vs_cpu(
+        ops, card)
+    mark("19b head_dim 512 fp32 card vs CPU")
+    result["head512_bf16"], launches_h512_16 = head512_bf16(ops, card)
+    mark("19c head_dim 512 bf16 serving and generate at GPT-3 1.3B widths")
+    result["head512_train"], launches_h19d = head512_train(ops, card)
+    mark("19d head_dim 512 recipe B training")
+
     # -- 8. summary --------------------------------------------------------
     # the serving kernels at fp32 S=384 / the decode step (the int8 one
     # too); the backward kernels at the training shape in bf16, the
@@ -6731,7 +7148,10 @@ def main():
                  DKV_D256: pick(DKV_D256, "B=2 S=2048 H=8 D=256"),
                  DQ_SIMT: pick(DQ_SIMT, "B=2 S=2048 H=8 D=256", f32),
                  DKV_SIMT: pick(DKV_SIMT, "B=2 S=2048 H=8 D=256", f32),
-                 THREEFRY: pick(THREEFRY, "[32, 128, 3072]", "torch.bool")}
+                 THREEFRY: pick(THREEFRY, "[32, 128, 3072]", "torch.bool"),
+                 FWD_WIDE: pick(FWD_WIDE, "B=2 S=2048 H=4 D=512"),
+                 DQ_WIDE: pick(DQ_WIDE, "B=2 S=2048 H=4 D=512"),
+                 DKV_WIDE: pick(DKV_WIDE, "B=2 S=2048 H=4 D=512")}
     path_launches = {FWD: launches[FWD], RAGGED: launches[RAGGED],
                      RAGGED8: launches8[RAGGED8],
                      FWD_MASK: launches_gen["stacked default padded"][FWD_MASK],
@@ -6787,6 +7207,11 @@ def main():
         path_launches[name] = launches_h32["train_stacked"][name]
     # dropout's keep masks: phase 17c's BERT-base turn with dropout
     path_launches[THREEFRY] = launches_bert["dropout"][THREEFRY]
+    # head_dim 512: the forward in 19c's bf16 fp engine (its prefill), dQ
+    # and dK/dV in 19d's recipe B run
+    path_launches[FWD_WIDE] = launches_h512_16["engine"][FWD_WIDE]
+    for name in (DQ_WIDE, DKV_WIDE):
+        path_launches[name] = launches_h19d[name]
     kernels = []
     for name in KERNELS:
         c = main_case[name]
@@ -6819,6 +7244,9 @@ def main():
                                  for run in launches_bert.values())
         k["launches_resnet"] = sum(run[k["name"]]
                                    for run in launches_conv.values())
+        k["launches_head512"] = launches_h19d[k["name"]] + sum(
+            run[k["name"]] for runs in (launches_h512_32, launches_h512_16)
+            for run in runs.values())
     idle = [k["name"] for k in kernels if not k["launches"]]
     if idle:
         fail(f"kernels never launched on their main path: {idle}")

@@ -98,7 +98,7 @@ from ..nn.functional import (cross_entropy, embedding, flash_attention,
                              linear)
 from ..nn.common import Dropout, Embedding, Linear
 from ..nn.initializer import Normal
-from ..nn.layer import ParamAttr
+from ..nn.layer import Layer, ParamAttr
 from ..nn.norm import LayerNorm
 from ..ops.flash_attention import flash_attention_arrays
 from ..ops.flash_decode import cached_attention_arrays
@@ -338,7 +338,7 @@ def _packed_attn(segment_ids):
     return attn
 
 
-class GPTPretrainingCriterion(nn.Module):
+class GPTPretrainingCriterion(Layer):
     """Causal-LM loss over logits [B, S, V] and labels [B, S] — the
     counterpart of `paddle_tpu.models.gpt.GPTPretrainingCriterion`:
     per-position `cross_entropy` (fp32, ignore_index -100), then with
@@ -360,7 +360,7 @@ class GPTPretrainingCriterion(nn.Module):
 # per-layer layout (`gpt.py:143-280`, `:698-811`)
 # ---------------------------------------------------------------------------
 
-class GPTEmbeddings(nn.Module):
+class GPTEmbeddings(Layer):
     """``word_embeddings[ids] + position_embeddings[pos]``, both drawn
     normal with std ``initializer_range``, then dropout
     (``hidden_dropout_prob``; `gpt.py:143-169`)."""
@@ -384,7 +384,7 @@ class GPTEmbeddings(nn.Module):
                             + self.position_embeddings(position_ids))
 
 
-class GPTAttention(nn.Module):
+class GPTAttention(Layer):
     """Causal self-attention (`gpt.py:172-251`): the fused ``qkv_proj``,
     ``[b, s, 3, heads, head_dim]``, causal flash attention
     (differentiable; `nn.functional.flash_attention`, with the attention
@@ -423,7 +423,7 @@ class GPTAttention(nn.Module):
         return _row_linear(self.out_proj, o.reshape(b, s, h))
 
 
-class GPTMLP(nn.Module):
+class GPTMLP(Layer):
     """``fc_out(gelu_tanh(fc_in(x)))`` (``fc_out`` as `_row_linear`), or
     under ``PTPU_PALLAS_FFN=1`` the fused FFN plus ``fc_out.bias`` where
     `maybe_fused_ffn` takes it (`gpt.py:254-280`): only while both
@@ -447,7 +447,7 @@ class GPTMLP(nn.Module):
                            F.gelu(self.fc_in(x), approximate="tanh"))
 
 
-class GPTMoEMLP(nn.Module):
+class GPTMoEMLP(Layer):
     """Mixture-of-experts FFN (`gpt.py:283-325`): the ``gate`` `Linear` (H
     -> E), then `parallel.moe.moe_mlp_arrays` over the experts' ``w_in``
     [E, H, M] and ``w_out`` [E, M, H] (drawn normal with std
@@ -488,7 +488,7 @@ class GPTMoEMLP(nn.Module):
         return out
 
 
-class GPTBlock(nn.Module):
+class GPTBlock(Layer):
     """Pre-LN block (`gpt.py:698-723`), dropout (``hidden_dropout_prob``)
     on the attention and MLP outputs; with ``cache`` it returns ``(x,
     cache)`` (`GPTAttention`).  Its FFN is a `GPTMoEMLP` where
@@ -520,7 +520,7 @@ class GPTBlock(nn.Module):
         return x + self.dropout(self.mlp(self.ln_2(x)))
 
 
-class GPTModel(nn.Module):
+class GPTModel(Layer):
     """Embeddings, blocks ``h_0 .. h_{L-1}`` and ``ln_f``
     (`gpt.py:726-811`, the per-layer branches).  With ``caches`` (one
     ``(k, v)`` ring pair a layer) it returns ``(ln_f(x), caches)``, the
@@ -564,7 +564,7 @@ class GPTModel(nn.Module):
         return self.ln_f(x)
 
 
-class GPTForCausalLM(nn.Module):
+class GPTForCausalLM(Layer):
     """GPT with a tied LM head, in the layout ``cfg.stacked_blocks``
     picks (module docstring).
 
@@ -750,7 +750,7 @@ class GPTForCausalLM(nn.Module):
         h = self.wte[ids] + self.wpe[pos]
         mb, s, H = h.shape
         fused = (not prefill and s == 1 and fused_decode_ok(
-            h, self.qkv_w, caches[0][0], caches[0][1]))
+            h, self.qkv_w, caches[0][0], caches[0][1], nh))
         for layer, (kc, vc) in enumerate(caches):
             p = {n: getattr(self, n)[layer] for n in BLOCK_PARAMS}
             if fused:

@@ -23,9 +23,9 @@ gate (`pallas_ops.py:646-648`): a head_dim that is neither 64, 128 nor a
 multiple of 128 runs the plain `mha_reference`, on every device, and
 counts ``attn_fallback:head_dim`` under ``PTPU_ATTN_DEBUG=1``
 (`ops.flash_attention.attention_path_counts`); any other head_dim goes to
-the kernels, which raise where they cannot run (D = 384, 512, ...: ROADMAP
-Queue 2 item 3).  A kernel that fails to build or launch is never replaced
-by the plain version.
+the kernels (D = 384, 512, ... to those of ``csrc/flash_wide_fwd.cu`` and
+``csrc/flash_wide_bwd.cu``).  A kernel that fails to build or launch is
+never replaced by the plain version.
 
 The conv path (`conv1d` .. `conv3d_transpose`, the pools, `batch_norm`)
 has no kernel of the port's own: JAX computes it outside any Pallas
@@ -65,7 +65,7 @@ import torch
 from ..amp import cast_inputs
 from ..core import random as _random
 from ..ops.flash_attention import (count_path, flash_attention_arrays,
-                                   mha_reference)
+                                   head_dim_ok, mha_reference)
 from ..ops import threefry
 from ..ops.fused_mlp import fused_layernorm_arrays, ln_geometry_ok
 
@@ -222,11 +222,6 @@ def alpha_dropout(x, p=0.5, training=True, name=None):
     return (a_coef * kept + b_coef).to(x.dtype)
 
 
-def _kernel_head_dim(d):
-    """JAX's head-dim gate (`_pallas_ok`, `pallas_ops.py:646-648`)."""
-    return d % 128 == 0 or d in (64, 128, 256)
-
-
 def flash_attention(query, key, value, attn_mask=None, dropout_p=0.0,
                     is_causal=False, training=True, name=None,
                     segment_ids=None, *, generator=None):
@@ -245,7 +240,7 @@ def flash_attention(query, key, value, attn_mask=None, dropout_p=0.0,
         b, sq, h, d = query.shape
         keep = _keep_mask((b, sq, h, value.shape[-1]), 1.0 - dropout_p,
                           query.device, generator)
-    if _kernel_head_dim(query.shape[-1]):
+    if head_dim_ok(query.shape[-1]):          # JAX's gate, `:646-648`
         out = flash_attention_arrays(query, key, value, attn_mask,
                                      is_causal, segment_ids=segment_ids)
     else:
@@ -417,21 +412,58 @@ def _tuplize(v, n):
     return tuple(int(v) for _ in range(n))
 
 
-def _conv_padding(padding, nd):
+def _conv_padding(padding, nd, kind="conv"):
     """A Paddle padding as ``nd`` (lo, hi) pairs, or ``"SAME"`` /
-    ``"VALID"``."""
+    ``"VALID"``.  A list of pairs of another length than ``nd`` (Paddle's
+    form with the N and C pairs included, say) raises what JAX raises at
+    the functional of ``kind``: ``"conv"`` a TypeError (a ValueError for
+    2 nd pairs, which JAX reads as 2 nd ints), ``"pool"`` a ValueError (a
+    TypeError for 2 nd pairs); a ``"transpose"`` takes the first nd of
+    more pairs (a TypeError for 2 nd) and raises an IndexError for fewer,
+    as JAX's does."""
     if isinstance(padding, str):
         return padding.upper()
     if isinstance(padding, int):
         return [(padding, padding)] * nd
     padding = list(padding)
-    if len(padding) == nd and all(isinstance(p, int) for p in padding):
-        return [(p, p) for p in padding]
-    if len(padding) == 2 * nd:
-        return [(padding[2 * i], padding[2 * i + 1]) for i in range(nd)]
-    if all(isinstance(p, (list, tuple)) for p in padding):
-        return [tuple(p) for p in padding]
+    if all(isinstance(p, int) for p in padding):
+        if len(padding) == nd:
+            return [(p, p) for p in padding]
+        if len(padding) == 2 * nd:
+            return [(padding[2 * i], padding[2 * i + 1]) for i in range(nd)]
+    elif all(isinstance(p, (list, tuple)) for p in padding):
+        pairs = [tuple(p) for p in padding]
+        n = len(pairs)
+        if n == nd or (kind == "transpose" and nd < n != 2 * nd):
+            return pairs[:nd]
+        if kind == "transpose" and n < nd:
+            raise IndexError(f"{n} padding pairs for a {nd}-D transposed "
+                             f"convolution")
+        if (n == 2 * nd) == (kind == "conv"):
+            raise ValueError(f"padding of a {nd}-D {kind} must be {nd} "
+                             f"(low, high) pairs, got {n}")
+        if kind == "conv":
+            raise TypeError(f"Wrong number of explicit pads for "
+                            f"convolution: expected {nd}, got {n}.")
+        raise TypeError(f"padding of a {nd}-D {kind} must be {nd} (low, "
+                        f"high) pairs, got {n}")
     raise ValueError(f"bad padding {padding}")
+
+
+def _window_outs(spatial, windows, strides, pads):
+    """Outputs along each axis of windows over ``spatial`` padded by
+    ``pads`` (0 where the window is larger than the padded input)."""
+    return [max((n + lo + hi - k) // s + 1, 0) for n, k, s, (lo, hi)
+            in zip(spatial, windows, strides, pads)]
+
+
+def _empty_like_windows(xc, channels, outs, *others):
+    """JAX's empty output [N, channels, *outs] (some out 0) of a window
+    larger than its padded input, where torch raises; in the autograd
+    graph of ``xc`` and ``others`` (their gradients zeros)."""
+    shape = (xc.shape[0], channels, *outs)
+    link = sum((t.sum() for t in (xc, *others)), xc.new_zeros(()))
+    return torch.zeros(shape, dtype=xc.dtype, device=xc.device) + link * 0
 
 
 def _same_pads(sizes, windows, strides):
@@ -527,7 +559,7 @@ def _conv_nd(x, weight, bias, stride, padding, dilation, groups, nd,
         x = x.to(weight.dtype)
     strides = _tuplize(stride, nd)
     dils = _tuplize(dilation, nd)
-    pad = _conv_padding(padding, nd)
+    pad = _conv_padding(padding, nd, "transpose" if transpose else "conv")
     xc = _channels_first(x, data_format)
     if transpose:
         if isinstance(pad, str):
@@ -543,15 +575,20 @@ def _conv_nd(x, weight, bias, stride, padding, dilation, groups, nd,
             out = torch.nn.functional.pad(
                 out, [-c for c in _flat_pads(crop)])
     else:
+        k_eff = [d * (k - 1) + 1 for d, k in zip(dils, weight.shape[2:])]
         if isinstance(pad, str):
-            k_eff = [d * (k - 1) + 1 for d, k in zip(dils, weight.shape[2:])]
             pad = (_same_pads(xc.shape[2:], k_eff, strides)
                    if pad == "SAME" else [(0, 0)] * nd)
-        if any(lo != hi for lo, hi in pad):
-            xc = torch.nn.functional.pad(xc, _flat_pads(pad))
-            pad = [(0, 0)] * nd
-        out = _Convolution.apply(xc, weight, strides, [lo for lo, _ in pad],
-                                 dils, False, groups)
+        outs = _window_outs(xc.shape[2:], k_eff, strides, pad)
+        if not all(outs):
+            out = _empty_like_windows(xc, weight.shape[0], outs, weight)
+        else:
+            if any(lo != hi for lo, hi in pad):
+                xc = torch.nn.functional.pad(xc, _flat_pads(pad))
+                pad = [(0, 0)] * nd
+            out = _Convolution.apply(xc, weight, strides,
+                                     [lo for lo, _ in pad], dils, False,
+                                     groups)
     if bias is not None:
         out = out + bias.reshape([1, -1] + [1] * nd)
     return _restore(out, data_format)
@@ -614,7 +651,7 @@ def _ceil_extra(size, k, s, lo, hi):
 
 def _pool_pads(spatial, ks, st, padding, nd, ceil_mode):
     """(pads with the ceil extra, pads without it) as (lo, hi) pairs."""
-    pad = _conv_padding(padding, nd)
+    pad = _conv_padding(padding, nd, "pool")
     if isinstance(pad, str):
         pad = ([(0, 0)] * nd if pad == "VALID"
                else _same_pads(spatial, ks, st))
@@ -638,6 +675,13 @@ def _max_pool_cf(xc, ks, st, pads, return_mask=False):
     `_max_pool_mask` (a window wholly in the padding points at its first
     in-range cell)."""
     pool = _MAX_POOL[len(ks)]
+    outs = _window_outs(xc.shape[2:], ks, st, pads)
+    if not all(outs):
+        out = _empty_like_windows(xc, xc.shape[1], outs)
+        if not return_mask:
+            return out
+        return out, torch.zeros(out.shape, dtype=torch.int32,
+                                device=xc.device)
     if all(lo == hi and lo <= k // 2 for (lo, hi), k in zip(pads, ks)):
         out = pool(xc, ks, st, [lo for lo, _ in pads],
                    return_indices=return_mask)
@@ -660,6 +704,9 @@ def _max_pool_cf(xc, ks, st, pads, return_mask=False):
 
 def _window_sums(xc, ks, st, pads):
     """Sums over windows of ``xc`` padded by ``pads`` with zeros."""
+    outs = _window_outs(xc.shape[2:], ks, st, pads)
+    if not all(outs):
+        return _empty_like_windows(xc, xc.shape[1], outs)
     if any(p for pair in pads for p in pair):
         xc = torch.nn.functional.pad(xc, _flat_pads(pads))
     if len(ks) == 1:
@@ -681,7 +728,7 @@ def _avg_divisor(spatial, ks, st, pads, base, exclusive, dtype, device):
     nd = len(ks)
     for i in range(nd):
         lo, hi = pads[i]
-        out_i = (spatial[i] + lo + hi - ks[i]) // st[i] + 1
+        out_i = max((spatial[i] + lo + hi - ks[i]) // st[i] + 1, 0)
         starts = torch.arange(out_i, dtype=torch.float64) * st[i] - lo
         ends = starts + ks[i]
         if exclusive:
@@ -741,7 +788,7 @@ def max_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
         return out
     ks = _tuplize(kernel_size, 2)
     st = _tuplize(stride if stride is not None else kernel_size, 2)
-    pad = _conv_padding(padding, 2)
+    pad = _conv_padding(padding, 2, "pool")
     if isinstance(pad, str):
         pad = [(0, 0), (0, 0)]
     xc = _channels_first(x, data_format)

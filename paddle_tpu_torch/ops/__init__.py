@@ -40,16 +40,18 @@ _KERNELS = (flash_attention, flash_attention.masked, flash_attention.segs,
             flash_attention.noncausal, flash_attention.tc,
             flash_attention.tc16, flash_attention.tc32,
             flash_attention.d256, flash_attention.simt,
-            flash_attention.flash_bwd_dq,
+            flash_attention.wide, flash_attention.flash_bwd_dq,
             *flash_attention.flash_bwd_dq.variants.values(),
             *flash_attention.flash_bwd_dq.types.values(),
             flash_attention.flash_bwd_dq.d256,
             flash_attention.flash_bwd_dq.simt,
+            flash_attention.flash_bwd_dq.wide,
             flash_attention.flash_bwd_dkv,
             *flash_attention.flash_bwd_dkv.variants.values(),
             *flash_attention.flash_bwd_dkv.types.values(),
             flash_attention.flash_bwd_dkv.d256,
             flash_attention.flash_bwd_dkv.simt,
+            flash_attention.flash_bwd_dkv.wide,
             ragged_paged_attention, ragged_paged_attention.int8,
             ragged_paged_attention.fp16, ragged_paged_attention.int8_fp16,
             ragged_paged_attention.d256, ragged_paged_attention.int8_d256,

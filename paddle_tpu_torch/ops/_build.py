@@ -128,7 +128,9 @@ class Counter:
 
 
 _DTYPE_CODES = ("float32", "bfloat16", "float16")
-# the head dims the attention kernels take, forward and backward
+# the head dims the decode kernels take, and those of flash_fwd_causal.cu
+# and flash_bwd_causal.cu (the flash gate takes every larger multiple of
+# 128 too, in flash_wide_*.cu: `flash_attention.head_dim_ok`)
 HEAD_DIMS = (64, 128, 256)
 
 

@@ -32,16 +32,24 @@ once more, apart, any branch: bfloat16 under ``flash_fwd_causal:tc``,
 ``flash_bwd_dq_causal:tc`` and ``flash_bwd_dkv_causal:tc``, float16 under
 ``:tc16`` and float32 under ``:tc32`` of the same names.
 
-Head dims: the forward and the backward take 64, 128 and 256 (Gemma
-2B's and GPT-J's head size); any other raises the gate's ValueError
-before a launch (D = 384, 512, ...: ROADMAP.md Queue 2 item 3).  A launch
-at 256 counts once more under ``flash_fwd_causal:d256``,
-``flash_bwd_dq_causal:d256`` or ``flash_bwd_dkv_causal:d256``; in float32
-the three run on the CUDA cores there (``flash_fwd_simt_kernel``,
-``flash_bwd_dq_simt_kernel``, ``flash_bwd_dkv_simt_kernel``: split TF32
-does not fit a block) and count under ``:simt`` of their names in place
-of ``:tc32``.  In bfloat16 and float16 the dK/dV kernel at 256 is two
-warpgroups a block, each owning half of dK's and dV's columns.
+Head dims: the forward and the backward take 64, 128, 256 (Gemma 2B's
+and GPT-J's head size) and every larger multiple of 128, the head dims
+JAX's flash gate admits (`pallas_ops.py:646`); any other raises the
+gate's ValueError before a launch.  A launch at 256 counts once more
+under ``flash_fwd_causal:d256``, ``flash_bwd_dq_causal:d256`` or
+``flash_bwd_dkv_causal:d256``; in float32 the three run on the CUDA cores
+there (``flash_fwd_simt_kernel``, ``flash_bwd_dq_simt_kernel``,
+``flash_bwd_dkv_simt_kernel``: split TF32 does not fit a block) and count
+under ``:simt`` of their names in place of ``:tc32``.  In bfloat16 and
+float16 the dK/dV kernel at 256 is two warpgroups a block, each owning
+half of dK's and dV's columns.  D = 384, 512, ... take the kernels of
+``csrc/flash_wide_fwd.cu`` (entry ``flash_wide_fwd``) and
+``csrc/flash_wide_bwd.cu`` (``flash_wide_dq``, ``flash_wide_dkv``): D a
+runtime argument, a grid axis of D / 128 output slices, on the CUDA cores
+in every type; their launches count under the base and branch counters
+as any other and under ``:wide`` of the kernel's name in place of the
+type's (``flash_fwd_causal:wide``, ``flash_bwd_dq_causal:wide``,
+``flash_bwd_dkv_causal:wide``).
 
 The kernels copy 16-byte rows: on the card q, k, v (and dO) must start on
 16 bytes, with batch and sequence strides of a multiple of 16 bytes (8
@@ -72,13 +80,17 @@ __all__ = ["flash_attention_arrays", "mha_reference", "FlashAttention",
            "flash_attention_bwd_reference", "softmax_stats",
            "recompute_probs",
            "attention_delta", "flash_bwd_dq", "flash_bwd_dkv", "masked",
-           "segs", "noncausal", "d256", "simt", "normalize_mask",
+           "segs", "noncausal", "d256", "simt", "wide", "normalize_mask",
+           "head_dim_ok",
            "variant_name", "count_path", "attention_path_counts",
            "reset_attention_path_counts"]
 
 KERNEL = "flash_fwd_causal"
 SOURCE = KERNEL       # csrc/<SOURCE>.cu
 BWD_SOURCE = "flash_bwd_causal"
+# the kernels at head_dim 384, 512, ... (every multiple of 128 past 256)
+WIDE_SOURCE = "flash_wide_fwd"
+WIDE_BWD_SOURCE = "flash_wide_bwd"
 launches = 0          # causal (no mask, kv_lens or segments) launches
 
 _NEG_INF = -1e30
@@ -116,6 +128,9 @@ tc32 = _build.Counter(KERNEL + ":tc32", SOURCE)
 # them (the CUDA-core kernel, counted here in place of ``tc32``)
 d256 = _build.Counter(KERNEL + ":d256", SOURCE)
 simt = _build.Counter(KERNEL + ":simt", SOURCE)
+# forward launches at head_dim 384, 512, ... (any type; counted in place of
+# the type's counter)
+wide = _build.Counter(KERNEL + ":wide", WIDE_SOURCE)
 _FWD_VARIANTS = {"mask": masked, "segs": segs, "noncausal": noncausal}
 # the counter suffix of each type the kernels take
 _TYPE_SUFFIX = {torch.bfloat16: "tc", torch.float16: "tc16",
@@ -311,6 +326,13 @@ def flash_attention_bwd_reference(q, k, v, out, lse, do, scale, *,
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
+def head_dim_ok(d):
+    """The flash gate's head dims: 64, 128, 256 and every larger multiple
+    of 128, as JAX's (`pallas_ops.py:646`).  The decode kernels take only
+    `_build.HEAD_DIMS`."""
+    return d in _build.HEAD_DIMS or (d > 0 and d % 128 == 0)
+
+
 def _check_qkv(q, k, v, causal=True):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dim() != 4:
@@ -328,11 +350,10 @@ def _check_qkv(q, k, v, causal=True):
     if q.dtype not in _TYPE_SUFFIX:
         raise ValueError(f"kernel takes float32, bfloat16 or float16, got "
                          f"{q.dtype}")
-    if d not in _build.HEAD_DIMS:
+    if not head_dim_ok(d):
         raise ValueError(f"kernel takes head_dim "
-                         f"{', '.join(map(str, _build.HEAD_DIMS))}, got {d} "
-                         f"(flash at head_dim 384 and up is ROADMAP.md "
-                         f"Queue 2 item 3)")
+                         f"{', '.join(map(str, _build.HEAD_DIMS))} or a "
+                         f"larger multiple of 128, got {d}")
     if causal and k.shape[1] < sq:
         raise ValueError("causal attention needs Sk >= Sq")
     if q.is_cuda:
@@ -411,7 +432,9 @@ def _launch(q, k, v, scale, causal=True, mask=None, lens=None, sid=None):
     if mask is not None or lens is not None:
         pair = tuple(torch.empty_like(lse) for _ in range(2))
     pair_ptrs = (0, 0) if pair is None else (t.data_ptr() for t in pair)
-    fn = _bind(_build.load(SOURCE).flash_fwd, 10, 7, 11)
+    lib, entry = ((SOURCE, "flash_fwd") if d in _build.HEAD_DIMS
+                  else (WIDE_SOURCE, "flash_wide_fwd"))
+    fn = _bind(getattr(_build.load(lib), entry), 10, 7, 11)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              lse.data_ptr(), *pair_ptrs, *ptrs, b, h, sq, sk, d,
              _build.dtype_code(q.dtype), c, q.stride(0), q.stride(1),
@@ -425,8 +448,11 @@ def _launch(q, k, v, scale, causal=True, mask=None, lens=None, sid=None):
         _FWD_VARIANTS[name].launches += 1
     if d == 256:
         d256.launches += 1
-    (simt if d == 256 and q.dtype == torch.float32
-     else _FWD_TYPES[q.dtype]).launches += 1
+    if d not in _build.HEAD_DIMS:
+        wide.launches += 1
+    else:
+        (simt if d == 256 and q.dtype == torch.float32
+         else _FWD_TYPES[q.dtype]).launches += 1
     return out, lse, pair
 
 
@@ -438,7 +464,9 @@ class _BwdKernel:
     kernel), its fp16 launches (``tc16``: the same kernel in fp16) and its
     fp32 launches (``tc32``: the split-TF32 tensor-core kernel; at head_dim
     256 ``simt``, the CUDA-core kernel, in its place); ``d256`` counts
-    every launch at head_dim 256 once more.
+    every launch at head_dim 256 once more; ``wide`` the launches at 384,
+    512, ... (the entry ``wide_entry`` of ``csrc/flash_wide_bwd.cu``, any
+    type), in place of the type's counter.
     ``(q, k, v, do, lse, delta, scale)`` plus the branches -> ``dq`` (the dQ kernel, one output) or ``(dk, dv)`` (the
     dK/dV kernel, two), each a contiguous [B, S, H, D] in the inputs'
     dtype; with a mask or kv_lens, ``lse`` is log l and ``row_max`` the
@@ -448,10 +476,11 @@ class _BwdKernel:
 
     SOURCE = BWD_SOURCE
 
-    def __init__(self, kernel, entry, n_out):
+    def __init__(self, kernel, entry, wide_entry, n_out):
         self.KERNEL = kernel
         self.launches = 0          # causal launches since the reset
         self._entry = entry
+        self._wide_entry = wide_entry
         self.variants = {n: _build.Counter(f"{kernel}:{n}", BWD_SOURCE)
                          for n in VARIANTS}
         self.types = {dt: _build.Counter(f"{kernel}:{n}", BWD_SOURCE)
@@ -461,6 +490,7 @@ class _BwdKernel:
                                       torch.float32))
         self.d256 = _build.Counter(f"{kernel}:d256", BWD_SOURCE)
         self.simt = _build.Counter(f"{kernel}:simt", BWD_SOURCE)
+        self.wide = _build.Counter(f"{kernel}:wide", WIDE_BWD_SOURCE)
         self._n_out = n_out
 
     def __call__(self, q, k, v, do, lse, delta, scale, *, causal=True,
@@ -501,8 +531,9 @@ class _BwdKernel:
         qkvd = (q.stride(0), q.stride(1), k.stride(0), k.stride(1),
                 v.stride(0), v.stride(1), do.stride(0), do.stride(1))
         ptrs, strides, c = _branch_args(q, causal, mask, lens, segs)
-        fn = _bind(getattr(_build.load(self.SOURCE), self._entry),
-                   10 + self._n_out, 7, 13)
+        lib, entry = ((self.SOURCE, self._entry) if d in _build.HEAD_DIMS
+                      else (WIDE_BWD_SOURCE, self._wide_entry))
+        fn = _bind(getattr(_build.load(lib), entry), 10 + self._n_out, 7, 13)
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                  lse.data_ptr(), delta.data_ptr(),
                  0 if row_max is None else row_max.data_ptr(), *ptrs,
@@ -513,13 +544,18 @@ class _BwdKernel:
         counter.launches += 1
         if d == 256:
             self.d256.launches += 1
-        (self.simt if d == 256 and q.dtype == torch.float32
-         else self.types[q.dtype]).launches += 1
+        if d not in _build.HEAD_DIMS:
+            self.wide.launches += 1
+        else:
+            (self.simt if d == 256 and q.dtype == torch.float32
+             else self.types[q.dtype]).launches += 1
         return outs[0] if self._n_out == 1 else tuple(outs)
 
 
-flash_bwd_dq = _BwdKernel("flash_bwd_dq_causal", "flash_bwd_dq", 1)
-flash_bwd_dkv = _BwdKernel("flash_bwd_dkv_causal", "flash_bwd_dkv", 2)
+flash_bwd_dq = _BwdKernel("flash_bwd_dq_causal", "flash_bwd_dq",
+                          "flash_wide_dq", 1)
+flash_bwd_dkv = _BwdKernel("flash_bwd_dkv_causal", "flash_bwd_dkv",
+                           "flash_wide_dkv", 2)
 
 
 def _forward(q, k, v, scale, causal, mask, lens, sid):
@@ -588,7 +624,8 @@ def flash_attention_arrays(q, k, v, attn_mask=None, is_causal=False,
     compose with each other and with causal as in `mha_reference`.
 
     On a CUDA tensor this launches the hand-written kernels — any S, head
-    dims 64, 128 and 256 in both directions, float32, bfloat16 or
+    dims 64, 128, 256 and every larger multiple of 128 in both
+    directions, float32, bfloat16 or
     float16, every branch — and raises on anything they do not take; it
     never falls back.  On a CPU tensor it computes `mha_reference`.  When grad is enabled and q, k or
     v requires it, the call goes through `FlashAttention`, whose backward

@@ -24,10 +24,18 @@ same way and writes the rings at that device index.  Everything else
 (prefill chunks, an extra mask) runs the masked-softmax branch of
 `:862-877`, which is XLA in the JAX package and torch code here.
 
-The JAX gate `_decode_ok` (`:1133-1174`) also sends short rings
-(``S_max < PTPU_FLASH_DECODE_MIN_SMAX``) and non-TPU backends to that
-branch, and honours ``PTPU_FLASH_DECODE``.  Those state TPU tuning
-limits; here every mask-free S_q = 1 step takes the kernel, at any
+The JAX gate `_decode_ok` (`:1133-1174`) sends a head dim outside the
+kernel's (64, 128, 256) to that branch, and so does the port, on every
+device, by shape, before any launch: counted as
+``decode_fallback:head_geometry`` under ``PTPU_ATTN_DEBUG=1``
+(`flash_attention.count_path`), as JAX counts it.  A direct
+`flash_decode_arrays` call at such a head dim takes that branch too,
+its length read on the device (no host read, so a captured step stays
+one graph).  The kernel's own check still refuses those head dims.
+JAX's gate also sends short rings (``S_max <
+PTPU_FLASH_DECODE_MIN_SMAX``) and non-TPU backends to the branch, and
+honours ``PTPU_FLASH_DECODE``.  Those state TPU tuning
+limits; here every other mask-free S_q = 1 step takes the kernel, at any
 ``S_max``.
 """
 from __future__ import annotations
@@ -38,6 +46,7 @@ import math
 import torch
 
 from . import _build
+from .flash_attention import count_path
 
 __all__ = ["cached_attention_arrays", "flash_decode_arrays",
            "flash_decode_reference", "fp16", "d256"]
@@ -133,7 +142,8 @@ def flash_decode_arrays(q, k_cache, v_cache, length, scale=None):
     On a CUDA tensor this launches the kernel (float32 / bfloat16 /
     float16, head dims 64, 128 and 256, q and rings of one dtype) and
     raises on anything it does not take; it never falls back.  On a CPU
-    tensor it computes `flash_decode_reference`."""
+    tensor it computes `flash_decode_reference`.  Any other head dim takes
+    the masked branch on every device (module docstring)."""
     return _decode(q, k_cache, v_cache, length, 0, scale)
 
 
@@ -143,6 +153,11 @@ def _decode(q, k_cache, v_cache, n, add, scale):
     global launches
     d = q.shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    if d not in _build.HEAD_DIMS:
+        # JAX's gate sends the step to its XLA branch: rows [0, n + add)
+        count_path("decode_fallback:head_geometry")
+        return _masked_cached_attention(q, k_cache, v_cache, n + add - 1,
+                                        scale, None)
     if not q.is_cuda:
         return flash_decode_reference(q, k_cache, v_cache, int(n) + add,
                                       scale)
@@ -222,7 +237,9 @@ def cached_attention_arrays(q, k, v, k_cache, v_cache, t, scale=None,
         t = int(t)
         k_cache[:, t:t + s] = kn
         v_cache[:, t:t + s] = vn
-    if mask is None and s == 1 and q.dtype == k_cache.dtype == v_cache.dtype:
+    if mask is None and s == 1 and (
+            q.dtype == k_cache.dtype == v_cache.dtype
+            or d not in _build.HEAD_DIMS):     # JAX's gate sees D first
         out = _decode(q, k_cache, v_cache, t, 1, scale)
     else:
         out = _masked_cached_attention(q, k_cache, v_cache, t, scale, mask)

@@ -18,8 +18,9 @@ prefetch of t lets one compiled program serve every step.
 
 The JAX gate's VMEM budget (resident weights above 8 MiB go unfused) and
 its tile and backend conditions state TPU limits and are not ported:
-`fused_decode_ok` keeps only the flag and the dtype agreement, which
-choose the arithmetic.
+`fused_decode_ok` keeps the flag, the head geometry (a head dim the
+kernel does not take goes to the plain block by shape, as in JAX) and
+the dtype agreement, which choose the arithmetic.
 """
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ from typing import NamedTuple
 import torch
 
 from . import _build
+from .flash_attention import count_path
 
 __all__ = ["fused_decode_layer_arrays", "fused_decode_layer_reference",
            "fused_decode_plain", "fused_decode_ok", "fused_plan",
@@ -53,10 +55,17 @@ _ROWS = 32            # weight rows a unit loads at once (256 threads / 8)
 _WARPS = 8            # warps a block
 
 
-def fused_decode_ok(x, wqkv, k_cache, v_cache) -> bool:
-    """``PTPU_FUSED_DECODE == "1"``, and x, the weights and the rings share
-    one dtype, float32 or bfloat16 (`pallas_ops.py:1354`, `:1367-1374`)."""
+def fused_decode_ok(x, wqkv, k_cache, v_cache, n_heads) -> bool:
+    """``PTPU_FUSED_DECODE == "1"``, a head dim ``hidden / n_heads`` of the
+    kernel's (64, 128, 256), and x, the weights and the rings share one
+    dtype, float32 or bfloat16 (`pallas_ops.py:1354`, `:1361-1374`).
+    Another head dim is refused by shape, before any launch, counted as
+    ``fused_decode_fallback:head_geometry`` under ``PTPU_ATTN_DEBUG=1``, as
+    JAX counts it; the caller then runs the plain block."""
     if os.environ.get("PTPU_FUSED_DECODE") != "1":
+        return False
+    if x.shape[-1] // n_heads not in _build.HEAD_DIMS:
+        count_path("fused_decode_fallback:head_geometry")
         return False
     return (x.dtype == wqkv.dtype == k_cache.dtype == v_cache.dtype
             and x.dtype in (torch.float32, torch.bfloat16))

@@ -55,15 +55,31 @@ def paged_cache_update_arrays(blocks, rows, slots):
     blocks: [num_blocks, block_size, H, D]; rows: [B, S, H, D]; slots:
     [B, S] int physical slots.  Out-of-range entries (padding / inactive
     rows) are DROPPED, never clamped — a clamp would silently corrupt the
-    last block.  Returns ``blocks``."""
+    last block — with no read to the host (`_kept_entries`), so a
+    captured step may call it.  Returns ``blocks``."""
     nb, bs = blocks.shape[0], blocks.shape[1]
     feat = tuple(blocks.shape[2:])
     flat = blocks.view((nb * bs,) + feat)
-    s = slots.reshape(-1).long()
-    keep = (s >= 0) & (s < nb * bs)
+    s, src, any_kept = _kept_entries(slots, nb * bs)
     r = rows.reshape((-1,) + feat).to(blocks.dtype)
-    flat.index_copy_(0, s[keep], r[keep])
+    flat.index_copy_(0, s, torch.where(any_kept, r[src], flat[s]))
     return blocks
+
+
+def _kept_entries(slots, n):
+    """(slot, row, any): for each entry of ``slots`` a slot in [0, n) and
+    the row it writes, found on the device with no read to the host (a
+    CUDA-graph capture allows none, so no boolean indexing).  An entry
+    outside [0, n) repeats the first kept entry, its slot and its row, so
+    the write puts that row twice at its own slot; with no kept entry
+    (``any`` False) every entry points at slot 0, and the caller writes
+    back what is there."""
+    s = slots.reshape(-1).long()
+    keep = (s >= 0) & (s < n)
+    first = keep.to(torch.int32).argmax()       # 0 when none is kept
+    src = torch.where(keep, torch.arange(s.numel(), device=s.device), first)
+    any_kept = keep.any()
+    return torch.where(any_kept, s[src], 0), src, any_kept
 
 
 def paged_gather_kv_arrays(blocks, block_table):
@@ -82,7 +98,8 @@ def quantized_cache_update_arrays(blocks, scales, rows, slots):
 
     blocks: int8 [num_blocks, block_size, H, D] codes; scales: fp32
     [num_blocks, H]; rows: [B, S, H, D] float; slots: [B, S] physical
-    slots, entries outside the pool dropped (and left out of the amax).
+    slots, entries outside the pool dropped (and left out of the amax),
+    with no read to the host (`_kept_entries`).
 
     A block's scale only grows: ``new = max(old, amax * (1/127))`` over
     every row this call writes into the block.  Where it grew, the block's
@@ -91,13 +108,12 @@ def quantized_cache_update_arrays(blocks, scales, rows, slots):
     ``round(x / new)``.  Rounding is half to even, codes are clipped to
     +-127.  Returns ``(blocks, scales)``."""
     nb, bs, h, d = blocks.shape
-    s = slots.reshape(-1).long()
-    keep = (s >= 0) & (s < nb * bs)
-    s = s[keep]
-    x = rows.reshape(-1, h, d)[keep].float()
+    s, src, any_kept = _kept_entries(slots, nb * bs)
+    x = rows.reshape(-1, h, d)[src].float()
     bid = torch.div(s, bs, rounding_mode="floor")
     cand = torch.zeros((nb, h), dtype=torch.float32, device=blocks.device)
-    cand.scatter_reduce_(0, bid[:, None].expand(-1, h), x.abs().amax(-1),
+    cand.scatter_reduce_(0, bid[:, None].expand(-1, h),
+                         torch.where(any_kept, x.abs().amax(-1), 0.0),
                          "amax")
     new = torch.maximum(scales, cand * INV_QMAX)
     factor = torch.where(new > 0, scales / torch.where(new > 0, new, 1.0),
@@ -109,7 +125,8 @@ def quantized_cache_update_arrays(blocks, scales, rows, slots):
     ws = new[bid]
     ws = torch.where(ws > 0, ws, 1.0)[:, :, None]
     codes = torch.round(x / ws).clamp(-QMAX, QMAX).to(torch.int8)
-    blocks.view(nb * bs, h, d).index_copy_(0, s, codes)
+    flat = blocks.view(nb * bs, h, d)
+    flat.index_copy_(0, s, torch.where(any_kept, codes, flat[s]))
     scales.copy_(new)
     return blocks, scales
 

@@ -33,6 +33,7 @@ import math
 import torch
 
 from . import _build
+from .flash_attention import count_path
 from .paged_attention import (INV_QMAX, _NEG_INF, paged_attention_arrays,
                               paged_cache_update_arrays,
                               quantized_cache_update_arrays, ragged_causal)
@@ -266,7 +267,11 @@ def ragged_paged_attention_arrays(q, k_new, v_new, k_blocks, v_blocks,
     On a CUDA tensor this launches the kernel (q float32 / bfloat16 /
     float16, fp pools of q's type or int8 pools; head dims 64, 128 and
     256) and raises on anything it does not take; it never falls back.
-    Any block
+    Another head dim takes the reference on every device, by shape, as
+    JAX's gate (`ragged_paged_attention.py:100`) sends it to the fallback,
+    counted as ``ragged_fallback:head_geometry`` under
+    ``PTPU_ATTN_DEBUG=1``; the reference reads nothing back to the host,
+    so a captured step stays one graph.  Any block
     size the engine takes is taken, fp16 pools too (the TPU kernel's gate
     asks a sublane multiple of the pool type: 8 rows for fp16,
     `ragged_paged_attention.py:106`; the card has no such tiling).  On a
@@ -277,7 +282,10 @@ def ragged_paged_attention_arrays(q, k_new, v_new, k_blocks, v_blocks,
     quant = k_scales is not None
     if quant != (v_scales is not None):
         raise ValueError("pass both k_scales and v_scales, or neither")
-    if not q.is_cuda:
+    plain_dim = d not in _build.HEAD_DIMS
+    if plain_dim:
+        count_path("ragged_fallback:head_geometry")
+    if plain_dim or not q.is_cuda:
         return ragged_paged_attention_reference(
             q, k_new, v_new, k_blocks, v_blocks, block_table, pos0, kv_lens,
             slots, k_scales, v_scales, scale=scale)

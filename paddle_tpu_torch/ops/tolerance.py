@@ -57,6 +57,18 @@ sequential bound, which could pass the limit on a long row whose terms
 all round one way, is not reached by random signs.  The limit stands at
 D = 256.
 
+At D = 384, 512, ... (``csrc/flash_wide_fwd.cu``, ``flash_wide_bwd.cu``,
+on the CUDA cores in every type) each q.k and dO.v is summed over d in
+order in one fp32 accumulator, 128 columns at a time, and dQ, dK, dV
+over the row's tiles of 32 in order, as the D = 256 CUDA-core kernels
+sum.  The forward's three places then give ~sqrt(D) 2^-24 for a score
+(1.3e-6 at D = 512, 1.9e-6 at 1024), ~4e for the output (5.4e-6,
+7.6e-6) and 2.7e-6 for the value sum over 2048 keys: 1.1e-5 at 1024,
+under the 2e-5 limit, which stands.  The backward's dP moves by ~D
+2^-24 of its term magnitudes (3e-5 at 512) against a max|ref| that
+grows with sqrt(D) as dP does: a few 1e-6 of max|ref| again, under the
+1e-4 limit.  ``chip_smoke.py`` phase 19a measures both on the card.
+
 bfloat16: a flat limit is too weak where outputs are small (long rows), so
 the limit is per element and scales with the values it bounds:
 

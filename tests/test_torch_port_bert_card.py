@@ -16,7 +16,8 @@ without it run:
 - `nn.functional.scaled_dot_product_attention` under autograd with that
   mask: one launch of each kernel, gradients as the plain backward's;
 - the head-dim gate: head_dim 32 takes `mha_reference` with no launch,
-  head_dim 384 raises (ROADMAP Queue 2 item 3);
+  head_dim 384 one launch of the forward kernel at that head dim
+  (``flash_fwd_causal:wide``), within the bf16 limit of the plain version;
 - dropout's keep masks: the threefry kernel (``csrc/threefry_bernoulli.cu``)
   bitwise equal to the plain `core.random.bernoulli` (JAX's keys) on the
   card and on the CPU;
@@ -167,8 +168,14 @@ def test_head_dim_gate(monkeypatch):
     assert fa.attention_path_counts() == {"attn_fallback:head_dim": 1}
     _within(out, fa.mha_reference(q, k, v), 1e-6, "head_dim 32")
     q, k, v, _ = _qkv(1, 64, 1, 384, torch.bfloat16, 6)
-    with pytest.raises(ValueError, match="Queue 2 item 3"):
-        PF.scaled_dot_product_attention(q, k, v)
+    ops.reset_launch_counts()
+    out = PF.scaled_dot_product_attention(q, k, v)
+    counts = {n: c for n, c in ops.launch_counts().items() if c}
+    assert counts == {"flash_fwd_causal:noncausal": 1,
+                      "flash_fwd_causal:wide": 1}, counts
+    want = fa.mha_reference(q, k, v).to(q.dtype)
+    _within(out, want, tol.flash_fwd_limit(out, want, q, k, v, False),
+            "head_dim 384")
 
 
 @pytest.mark.cuda

@@ -443,6 +443,6 @@ def test_ln_ffn_launchers_and_fused_layer_refuse_fp16(monkeypatch):
     monkeypatch.setenv("PTPU_FUSED_DECODE", "1")
     ring = torch.zeros(8, 16, 128, dtype=torch.float16)
     assert not fdl.fused_decode_ok(x, torch.zeros(128, 384).half(), ring,
-                                   ring)
+                                   ring, 2)
     assert fdl.fused_decode_ok(x.bfloat16(), torch.zeros(128, 384).bfloat16(),
-                               ring.bfloat16(), ring.bfloat16())
+                               ring.bfloat16(), ring.bfloat16(), 2)

@@ -24,8 +24,9 @@ D = 256 (Gemma 2B's and GPT-J's head size):
     (``PTPU_FUSED_DECODE=1 PTPU_PALLAS_FFN=1``), identical to the JAX
     package's;
 (f) what the card side rests on, checked here: each wrapper's gate
-    takes 256 and still refuses other sizes, the flash backward's gate
-    takes 256 (it reaches the kernel's load) and refuses 96 and 384
+    takes 256 and still refuses other sizes (the flash gate takes the
+    larger multiples of 128 too), the flash backward's gate
+    takes 256 and 384 (each reaches its kernel's load) and refuses 96
     with its own ValueError before any launch, the split-K loop's
     lane layout (`decode_common.cuh` `RowLanes`, mirrored) covers a row
     once with neighbouring lanes on neighbouring 16 bytes and is the
@@ -454,9 +455,14 @@ def test_gates_take_d256(d):
 
 @pytest.mark.parametrize("d", [32, 96, 192, 384, 512])
 def test_gates_refuse_other_head_dims(d):
+    """The decode kernels take 64, 128 and 256 only; the flash gate also
+    takes every larger multiple of 128 (384, 512), as JAX's does."""
     q, k, v = (_zeros(1, 8, 2, d) for _ in range(3))
-    with pytest.raises(ValueError, match="head_dim"):
+    if d % 128 == 0:
         fa._check_qkv(q, k, v)
+    else:
+        with pytest.raises(ValueError, match="head_dim"):
+            fa._check_qkv(q, k, v)
     with pytest.raises(ValueError, match="head_dim"):
         fd._check(q[:, :1], _zeros(1, 16, 2 * d), _zeros(1, 16, 2 * d), 4)
     idx = (torch.zeros(1, 4, dtype=torch.int32),
@@ -476,11 +482,11 @@ def test_gates_refuse_other_head_dims(d):
 
 @pytest.mark.parametrize("kernel", [fa.flash_bwd_dq, fa.flash_bwd_dkv])
 def test_backward_refuses_d256_before_any_launch(kernel, monkeypatch):
-    """The backward's gate since the D = 256 kernels: D = 256 passes it and
-    reaches the kernel's load (refused here by a stub, as it fails on a
-    machine without nvcc); D = 96 and 384 are refused with the gate's own
-    ValueError, which names the ROADMAP item of larger head dims, before
-    anything is loaded or launched."""
+    """The backward's gate: D = 256 passes it and reaches the kernel's
+    load, D = 384 the load of the kernels at larger multiples of 128
+    (each refused here by a stub, as it fails on a machine without nvcc);
+    D = 96 is refused with the gate's own ValueError before anything is
+    loaded or launched."""
     loads = []
 
     def refuse_load(name):
@@ -495,13 +501,16 @@ def test_backward_refuses_d256_before_any_launch(kernel, monkeypatch):
         kernel._launch(q, k, v, do, stats, stats, 0.0625, True, None, None,
                        None, None)
     assert loads == ["flash_bwd_causal"]
-    for d in (96, 384):
-        with pytest.raises(ValueError,
-                           match="head_dim 64, 128, 256, got .*Queue 2 "
-                                 "item 3"):
-            kernel._launch(*(_zeros(1, 8, 2, d) for _ in range(4)), stats,
-                           stats, d ** -0.5, True, None, None, None, None)
-    assert loads == ["flash_bwd_causal"]
+    with pytest.raises(LookupError, match="flash_wide_bwd"):
+        kernel._launch(*(_zeros(1, 8, 2, 384) for _ in range(4)), stats,
+                       stats, 384 ** -0.5, True, None, None, None, None)
+    assert loads == ["flash_bwd_causal", "flash_wide_bwd"]
+    with pytest.raises(ValueError,
+                       match="head_dim 64, 128, 256 or a larger multiple "
+                             "of 128, got 96"):
+        kernel._launch(*(_zeros(1, 8, 2, 96) for _ in range(4)), stats,
+                       stats, 96 ** -0.5, True, None, None, None, None)
+    assert loads == ["flash_bwd_causal", "flash_wide_bwd"]
     assert set(ops.launch_counts().values()) == {0}
 
 

@@ -23,8 +23,10 @@ the per-element limits of each kernel kind.  Pool
 writes, int8 codes and scales, and the fused layer's untouched ring rows
 bitwise.  Each launch at 256 counts once more under its ``:d256``
 counter, a float32 flash forward, dQ or dK/dV under the ``:simt`` of its
-name (not ``:tc32``); other head sizes stay refused by the wrappers and
-the C entries.
+name (not ``:tc32``); other head sizes stay refused by these sources' C
+entries and by the flash wrappers where they are no multiple of 128
+(384 goes to the kernels of ``flash_wide_*.cu``), and flash decode takes
+them on its plain path.
 """
 import ctypes
 
@@ -223,19 +225,38 @@ def test_flash_autograd_d256_launches_both_backward_kernels(dtype, name):
 @pytest.mark.usefixtures("needs_cuda")
 @pytest.mark.parametrize("d", [32, 96, 192, 384])
 def test_other_head_dims_stay_refused(d):
-    """The wrappers raise ValueError, the C entries return
-    cudaErrorInvalidValue (1), for every head size but 64, 128, 256: the
-    flash forward and backward, decode and the fused layer."""
+    """The C entries of these sources return cudaErrorInvalidValue (1) for
+    every head size but 64, 128, 256 (the flash forward and backward,
+    decode and the fused layer); the flash wrappers raise ValueError for
+    a head size that is no multiple of 128 and send 384 to the kernels of
+    ``flash_wide_*.cu``; flash decode's check raises, and its wrapper
+    takes the plain version there by shape, with no launch."""
     q, k, v = (torch.zeros(1, 16, 2, d, device="cuda") for _ in range(3))
-    with pytest.raises(ValueError, match="head_dim"):
-        fa.flash_attention_arrays(q, k, v, is_causal=True)
     stats = torch.zeros(1, 2, 16, device="cuda")
-    for kern in (fa.flash_bwd_dq, fa.flash_bwd_dkv):
-        with pytest.raises(ValueError, match="Queue 2 item 3"):
+    ops.reset_launch_counts()
+    if d % 128:
+        with pytest.raises(ValueError, match="head_dim"):
+            fa.flash_attention_arrays(q, k, v, is_causal=True)
+        for kern in (fa.flash_bwd_dq, fa.flash_bwd_dkv):
+            with pytest.raises(ValueError, match="head_dim"):
+                kern(q, k, v, q, stats, stats, 0.125)
+    else:
+        fa.flash_attention_arrays(q, k, v, is_causal=True)
+        for kern in (fa.flash_bwd_dq, fa.flash_bwd_dkv):
             kern(q, k, v, q, stats, stats, 0.125)
+        torch.cuda.synchronize()
+    counts = {n: c for n, c in ops.launch_counts().items() if c}
+    assert counts == ({} if d % 128 else {
+        fa.KERNEL: 1, fa.wide.KERNEL: 1, fa.flash_bwd_dq.KERNEL: 1,
+        fa.flash_bwd_dq.wide.KERNEL: 1, fa.flash_bwd_dkv.KERNEL: 1,
+        fa.flash_bwd_dkv.wide.KERNEL: 1}), counts
     kc = torch.zeros(1, 32, 2 * d, device="cuda")
     with pytest.raises(ValueError, match="head_dim"):
-        fd.flash_decode_arrays(q[:, :1], kc, kc, 4)
+        fd._check(q[:, :1], kc, kc, 4)
+    ops.reset_launch_counts()
+    got = fd.flash_decode_arrays(q[:, :1], kc, kc, 4)
+    assert got.shape == (1, 1, 2, d)
+    assert set(ops.launch_counts().values()) == {0}
     out, lse = torch.empty_like(q), torch.empty(1, 2, 16, device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
     fn = fa._bind(_build.load(fa.SOURCE).flash_fwd, 10, 7, 11)

@@ -154,7 +154,8 @@ def test_bwd_wrappers_on_cpu_compute_the_plain_backward():
         "flash_decode:d256", "fused_decode_layer:d256",
         "flash_bwd_dq_causal:d256", "flash_bwd_dq_causal:simt",
         "flash_bwd_dkv_causal:d256", "flash_bwd_dkv_causal:simt",
-        "threefry_bernoulli"}
+        "threefry_bernoulli", "flash_fwd_causal:wide",
+        "flash_bwd_dq_causal:wide", "flash_bwd_dkv_causal:wide"}
     assert set(ops.launch_counts().values()) == {0}
 
 
