@@ -458,16 +458,23 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``MNIST(size=256)``, two epochs of 4 batches, the loss falling.
 19. head_dim 384, 512, ... (run after phase 18, before the summary's
    lines): 19a the flash forward, dQ and dK/dV at D = 384, 512 and 1024
-   (``csrc/flash_wide_fwd.cu``, ``csrc/flash_wide_bwd.cu``: D a runtime
-   argument, a grid axis of D / 128 output slices, on the CUDA cores in
-   every type) against their plain versions at the limits of
+   (bf16 and fp16 forward and dK/dV on the tensor cores,
+   ``csrc/flash_wide_tc.cu``: a cluster of D / 128 blocks, each owning
+   128 columns, the scores' parts summed across it; fp32, and dQ in every
+   type, on the CUDA cores, ``csrc/flash_wide_fwd.cu``,
+   ``csrc/flash_wide_bwd.cu``: D a runtime argument, a grid axis of D /
+   128 output slices; each case's tensor-core counters checked) against
+   their plain versions at the limits of
    `ops/tolerance.py` (fp32 ``FP32_FWD`` forward, derived there for
    D = 512 and 1024, 1e-4 max|ref| backward), timed beside SDPA with their
    bounds (`head512_kernel_cases`): causal at recipe B's B=2 S=2048 H=4
    D=512 in bf16, fp16 and fp32, every other branch (pad mask, kv_lens,
    the packed batch's ids, non-causal) in bf16 at B=2 S=1024, D = 384 in
    the three types and its masked branches in fp32 and fp16, D = 1024
-   causal in bf16, segments in fp16 and non-causal in fp32; 19b a GPT of
+   causal in bf16, segments in fp16 and non-causal in fp32 (the SASS
+   check: HGMMA in all 16 instantiations of each tensor-core kernel,
+   FFMA and no HGMMA in the CUDA-core ones, whose 16-bit instantiations
+   serve D past 1024); 19b a GPT of
    hidden 1024 with two heads of 512 (GPT-3 1.3B's vocab and positions,
    stacked), 2 layers, fp32, on the card and on the CPU: the engine on fp
    and int8 pools (phase 3's prompts) and ``generate`` B=8 256 + 32 in the
@@ -480,10 +487,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
    prompts of 7-1500 tokens, 32 new) on fp and int8 pools and
    ``generate`` B=8 1024 + 128 in the default and fused modes, decode
    steps captured: ms a decode step, tokens/s, the gates' counts, the
-   launches; 19d recipe B at 4 heads of 512 (B=2 S=2048, 2 + 5 steps):
-   losses finite, ms a step, tokens/s, peak memory, the wide forward, dQ
-   and dK/dV 24 a step each.
-8. Summary: one JSON line of fifty-three entries: thirty-nine (the nine kernels,
+   launches (the prefill on the tensor-core forward); 19d recipe B at 4
+   heads of 512 (B=2 S=2048, 2 + 5 steps): losses finite, ms a step,
+   tokens/s, peak memory, the wide forward, dQ and dK/dV 24 a step each,
+   the forward and dK/dV on the tensor cores.
+8. Summary: one JSON line of fifty-five entries: thirty-nine (the nine kernels,
    the int8 variant, the mask, segment and non-causal variants of the
    flash kernels, the tensor-core forward, dQ and dK/dV -- every bf16
    launch of those three, timed at the bf16 training shape -- the fp32
@@ -515,12 +523,15 @@ Phases, in order; any failure exits non-zero and prints no result line:
    launches in phases 14 to 18); and the dropout kernel's
    (`threefry_bernoulli`, timed at BERT-base's FFN dropout [32, 128,
    3072], launches from 17c's dropout turn; it replaces no Pallas kernel:
-   its "replaces" names the JAX draw XLA fuses); and the three entries at
-   head_dim 384, 512, ... (`FWD_WIDE`, `DQ_WIDE`, `DKV_WIDE`: timed at
-   recipe B's bf16 B=2 S=2048 H=4 D=512, the forward's launches from 19c's
-   fp engine, dQ's and dK/dV's from 19d), each entry with its launches in
-   phase 19 as a whole; it fails if an entry's main path launched it no
-   time; the card line, then the result line.
+   its "replaces" names the JAX draw XLA fuses); and the five entries at
+   head_dim 384, 512, ... (all at recipe B's B=2 S=2048 H=4 D=512): the
+   tensor-core forward and dK/dV (`FWD_WIDE_TC`, `DKV_WIDE_TC`: bf16,
+   launches from 19c's fp engine and 19d), the CUDA-core dQ (`DQ_WIDE`:
+   bf16, launches from 19d) and the CUDA-core forward and dK/dV
+   (`FWD_WIDE`, `DKV_WIDE`: fp32, launches from 19b's fp32 engine and
+   stacked training), each entry with its launches in phase 19 as a
+   whole; it fails if an entry's main path launched it no time; the card
+   line, then the result line.
 
 Every time is a median of CUDA-event timings (L2 flushed before each
 launch, the host's enqueue hidden behind a spin on the stream); every
@@ -631,6 +642,11 @@ D256_BWD = (DQ_D256, DQ_SIMT, DKV_D256, DKV_SIMT)
 # place of the type's counter
 FWD_WIDE, DQ_WIDE, DKV_WIDE = FWD + ":wide", DQ + ":wide", DKV + ":wide"
 WIDE_ALL = (FWD_WIDE, DQ_WIDE, DKV_WIDE)
+# ... and, once more, the bf16 and fp16 forward and dK/dV launches there up
+# to WIDE_TC_MAX_D, the tensor-core kernels of csrc/flash_wide_tc.cu
+FWD_WIDE_TC, DKV_WIDE_TC = FWD + ":wide_tc", DKV + ":wide_tc"
+WIDE_TC_ALL = (FWD_WIDE_TC, DKV_WIDE_TC)
+WIDE_TC, WIDE_TC_MAX_D = "flash_wide_tc", 1024     # their source, largest D
 # dropout's keep masks on JAX's keys (`ops.threefry`)
 THREEFRY = "threefry_bernoulli"
 # its integer operations an element (`csrc/threefry_bernoulli.cu`: 20
@@ -649,7 +665,7 @@ KERNELS = (FWD, FWD_MASK, FWD_SEGS, FWD_NC, FWD_TC, FWD_TC32, RAGGED,
            LN_BWD, FFN, FFN_TC, FFN_TC32, FFN_DEC, FWD_TC16, DQ_TC16,
            DKV_TC16, RAGGED16, RAGGED8_16, DECODE16, LN16, LN_BWD16, FFN16,
            FFN_TC16, FFN_DEC16, *D256_ALL, *D256_BWD, THREEFRY,
-           *WIDE_ALL)
+           *WIDE_ALL, *WIDE_TC_ALL)
 REPLACES = {
     FWD: "paddle_tpu/ops/pallas_ops.py:135",
     FWD_MASK: "paddle_tpu/ops/pallas_ops.py:135",
@@ -705,6 +721,8 @@ REPLACES = {
     FWD_WIDE: "paddle_tpu/ops/pallas_ops.py:135",
     DQ_WIDE: "paddle_tpu/ops/pallas_ops.py:210",
     DKV_WIDE: "paddle_tpu/ops/pallas_ops.py:272",
+    FWD_WIDE_TC: "paddle_tpu/ops/pallas_ops.py:135",
+    DKV_WIDE_TC: "paddle_tpu/ops/pallas_ops.py:272",
 }
 # the __global__ functions of paddle_tpu_torch/csrc, as the profiler names
 # (template names: the flash variants are instantiations of the flash
@@ -721,7 +739,8 @@ PORT_SYMBOLS = ("flash_fwd_tc32_kernel", "flash_fwd_tc_kernel",
                 "ln_bwd_wide_kernel", "fused_ffn_kernel", "ffn_tc_kernel",
                 "ffn_tc32_kernel", "wt_split_kernel", "ffn_dec_kernel",
                 "threefry_bernoulli_kernel", "flash_wide_fwd_kernel",
-                "flash_wide_dq_kernel", "flash_wide_dkv_kernel")
+                "flash_wide_dq_kernel", "flash_wide_dkv_kernel",
+                "flash_wide_tc_fwd_kernel", "flash_wide_tc_dkv_kernel")
 # ... and those a tree from before has, so that `--paths` groups a
 # parent's profile as its own (the CUDA-core fp32 forward, dQ and dK/dV;
 # the LayerNorm backward's second launch)
@@ -850,9 +869,11 @@ def with_tc(want, dtype, ln_dtype=None, d=64):
     FWD_SIMT, DQ_SIMT or DKV_SIMT in place of FWD_TC32, DQ_TC32 or
     DKV_TC32.  At a larger multiple of 128 (384, 512, ...) every forward,
     dQ and dK/dV launch counts once more under FWD_WIDE, DQ_WIDE or
-    DKV_WIDE in place of its type's counter, and the ragged, decode and
-    fused-layer kernels, which take 64, 128 and 256 only, launch nothing:
-    their gates send the step to the plain versions."""
+    DKV_WIDE in place of its type's counter, in bf16 and fp16 up to
+    `WIDE_TC_MAX_D` every forward and dK/dV launch once more under
+    FWD_WIDE_TC or DKV_WIDE_TC (the tensor-core kernels), and the ragged,
+    decode and fused-layer kernels, which take 64, 128 and 256 only,
+    launch nothing: their gates send the step to the plain versions."""
     wide = d not in (64, 128, 256)
     if wide:
         for name in (RAGGED, RAGGED8, DECODE, FUSED):
@@ -865,6 +886,9 @@ def with_tc(want, dtype, ln_dtype=None, d=64):
         for dt, counter in zip(HALF_AND_FP32, counters):
             want[counter] = n if dtype == dt and not wide else 0
         want[counter_wide] = n if wide else 0
+    wide_tc = wide and dtype != torch.float32 and d <= WIDE_TC_MAX_D
+    for counter, names in ((FWD_WIDE_TC, FWD_ALL), (DKV_WIDE_TC, DKV_ALL)):
+        want[counter] = sum(want[name] for name in names) if wide_tc else 0
     fp16 = dtype == torch.float16
     for counter, name in ((RAGGED16, RAGGED), (RAGGED8_16, RAGGED8),
                           (DECODE16, DECODE), (FFN16, FFN),
@@ -926,8 +950,12 @@ def check_sass(paths):
     the CUDA cores: FFMA and no HGMMA, and so are the forward, dQ and
     dK/dV at 384, 512, ... (``flash_wide_fwd_kernel``,
     ``flash_wide_dq_kernel``, ``flash_wide_dkv_kernel``: 24 each, 3 types
-    x 8 flag combinations).  Returns {kernel: [instantiations, of them
-    with HGMMA, with FFMA]}."""
+    x 8 flag combinations; float32 at every such D, 16-bit past
+    `WIDE_TC_MAX_D`, dQ in every type), while every instantiation of the
+    bf16 and fp16 forward and dK/dV there up to `WIDE_TC_MAX_D`
+    (``flash_wide_tc_fwd_kernel``, ``flash_wide_tc_dkv_kernel``: 16 each,
+    2 types x 8 flag combinations, D a runtime argument) contains HGMMA.
+    Returns {kernel: [instantiations, of them with HGMMA, with FFMA]}."""
     fwd, bwd = "flash_fwd_causal", "flash_bwd_causal"
     # kernel: (library, instantiations on the tensor cores, or None: gone)
     wants = {"flash_fwd_tc_kernel": (fwd, 48),
@@ -940,10 +968,12 @@ def check_sass(paths):
              "flash_bwd_dkv_tc32_kernel": (bwd, 16),
              "flash_bwd_dkv_kernel": (bwd, None),
              "ffn_tc_kernel": (FFN_TC, 32),
-             "ffn_tc32_kernel": (FFN_TC32, 16)}
+             "ffn_tc32_kernel": (FFN_TC32, 16),
+             "flash_wide_tc_fwd_kernel": (WIDE_TC, 16),
+             "flash_wide_tc_dkv_kernel": (WIDE_TC, 16)}
     wfwd, wbwd = "flash_wide_fwd", "flash_wide_bwd"
     funcs = {src: _sass_functions(paths[src])
-             for src in (fwd, bwd, FFN_TC, FFN_TC32, wfwd, wbwd)}
+             for src in (fwd, bwd, FFN_TC, FFN_TC32, wfwd, wbwd, WIDE_TC)}
     counts = {}
     for kernel, (lib, tensor_cores) in wants.items():
         # mangled: ..._kernel I <template arguments> E
@@ -4723,23 +4753,28 @@ DECODE_PATHS = ("decode_fallback:head_geometry",
                 "fused_decode_fallback:head_geometry")
 
 
-def _wide_counter(kernel):
-    """The wide counter a phase 19a case of `kernel` (a flash kernel or
-    one of its variant names) is filed under."""
+def _wide_counter(kernel, tc):
+    """The counter a phase 19a case of `kernel` (a flash kernel or one of
+    its variant names) is filed under: the tensor-core forward or dK/dV
+    (``tc``: bf16 or fp16 up to `WIDE_TC_MAX_D`), else the CUDA cores'."""
     if kernel.startswith(DQ):
         return DQ_WIDE
-    return DKV_WIDE if kernel.startswith(DKV) else FWD_WIDE
+    if kernel.startswith(DKV):
+        return DKV_WIDE_TC if tc else DKV_WIDE
+    return FWD_WIDE_TC if tc else FWD_WIDE
 
 
 def head512_kernel_cases(fa, tol, timer, cases, kernel_segs):
     """Phase 19a: the flash forward, dQ and dK/dV at D = 384, 512 and 1024
-    (``csrc/flash_wide_fwd.cu``, ``csrc/flash_wide_bwd.cu``: one kernel a
-    direction and type for every multiple of 128, D a runtime argument)
     against their plain versions at the limits of `tolerance` (fp32
     forward ``FP32_FWD``, backward 1e-4 max|ref|), q, k and v slices of
     one fused qkv tensor, each timed with its bound, the plain version's
-    time and SDPA's (its whole backward for dQ and dK/dV), filed under
-    `FWD_WIDE`, `DQ_WIDE` and `DKV_WIDE`:
+    time and SDPA's (its whole backward for dQ and dK/dV).  The bf16 and
+    fp16 forward and dK/dV run on the tensor cores
+    (``csrc/flash_wide_tc.cu``, filed under `FWD_WIDE_TC` and
+    `DKV_WIDE_TC`; each such case must move their counters, and no other
+    case may), fp32 and dQ on the CUDA cores (``csrc/flash_wide_fwd.cu``,
+    ``csrc/flash_wide_bwd.cu``: `FWD_WIDE`, `DQ_WIDE`, `DKV_WIDE`):
 
     - D = 512, H = 4 (GPT-3 1.3B's widths): causal forward and backward
       at recipe B's B=2 S=2048 in bf16, fp16 and fp32; in bf16 at B=2
@@ -4752,38 +4787,50 @@ def head512_kernel_cases(fa, tol, timer, cases, kernel_segs):
       the segment ids in fp16 and non-causal in fp32 at B=2 S=1024."""
     h = H512
     segs2 = kernel_segs[:2]
+    tc_counters = (fa.wide_tc, fa.flash_bwd_dkv.wide_tc)
+
+    def run(d, dtype, check):
+        """File the cases of one check ({kernel: case}, or the forward's
+        case) and hold the tensor-core counters to its type."""
+        before = [c.launches for c in tc_counters]
+        found = check()
+        if "shape" in found:
+            found = {FWD: found}
+        tc = dtype != torch.float32 and d <= WIDE_TC_MAX_D
+        for kernel, c in found.items():
+            cases[_wide_counter(kernel, tc)].append(c)
+        moved = [c.launches > n for c, n in zip(tc_counters, before)]
+        want = [tc, tc and any(k.startswith(DKV) for k in found)]
+        if moved != want:
+            fail(f"head_dim {d} {dtype} {sorted(found)}: the tensor-core "
+                 f"forward / dK/dV launched {moved}, expected {want}")
+
     for dtype in HALF_AND_FP32:
-        cases[FWD_WIDE].append(check_flash(fa, tol, timer, 2048, h, 512,
-                                           dtype, seed=512, b=2))
-        for kernel, c in check_flash_bwd(fa, tol, timer, 2, 2048, h, 512,
-                                         dtype, seed=4097).items():
-            cases[_wide_counter(kernel)].append(c)
+        run(512, dtype, lambda: check_flash(fa, tol, timer, 2048, h, 512,
+                                            dtype, seed=512, b=2))
+        run(512, dtype, lambda: check_flash_bwd(fa, tol, timer, 2, 2048, h,
+                                                512, dtype, seed=4097))
         torch.cuda.empty_cache()
     for kind in ("pad", "lens", "segs", "nc"):
-        for kernel, c in check_flash_variant(
-                fa, tol, timer, kind, 2, 1024, h, 512, torch.bfloat16,
-                seed=1034, segs=segs2 if kind == "segs" else None).items():
-            cases[_wide_counter(kernel)].append(c)
+        run(512, torch.bfloat16, lambda: check_flash_variant(
+            fa, tol, timer, kind, 2, 1024, h, 512, torch.bfloat16,
+            seed=1034, segs=segs2 if kind == "segs" else None))
     for dtype in HALF_AND_FP32:
-        cases[FWD_WIDE].append(check_flash(fa, tol, timer, 1024, h, 384,
-                                           dtype, seed=384, b=2))
-        for kernel, c in check_flash_bwd(fa, tol, timer, 2, 1024, h, 384,
-                                         dtype, seed=3840).items():
-            cases[_wide_counter(kernel)].append(c)
+        run(384, dtype, lambda: check_flash(fa, tol, timer, 1024, h, 384,
+                                            dtype, seed=384, b=2))
+        run(384, dtype, lambda: check_flash_bwd(fa, tol, timer, 2, 1024, h,
+                                                384, dtype, seed=3840))
     variants = ((384, "pad", torch.float32), (384, "pad", torch.float16),
                 (384, "lens", torch.float16), (1024, "segs", torch.float16),
                 (1024, "nc", torch.float32))
     for d, kind, dtype in variants:
-        for kernel, c in check_flash_variant(
-                fa, tol, timer, kind, 2, 1024, 2 if d == 1024 else h, d,
-                dtype, seed=d + 1, segs=segs2 if kind == "segs" else None
-        ).items():
-            cases[_wide_counter(kernel)].append(c)
-    cases[FWD_WIDE].append(check_flash(fa, tol, timer, 1024, 2, 1024,
-                                       torch.bfloat16, seed=1024))
-    for kernel, c in check_flash_bwd(fa, tol, timer, 1, 1024, 2, 1024,
-                                     torch.bfloat16, seed=10240).items():
-        cases[_wide_counter(kernel)].append(c)
+        run(d, dtype, lambda: check_flash_variant(
+            fa, tol, timer, kind, 2, 1024, 2 if d == 1024 else h, d,
+            dtype, seed=d + 1, segs=segs2 if kind == "segs" else None))
+    run(1024, torch.bfloat16, lambda: check_flash(
+        fa, tol, timer, 1024, 2, 1024, torch.bfloat16, seed=1024))
+    run(1024, torch.bfloat16, lambda: check_flash_bwd(
+        fa, tol, timer, 1, 1024, 2, 1024, torch.bfloat16, seed=10240))
     torch.cuda.empty_cache()
 
 
@@ -6485,7 +6532,8 @@ def main():
                 DKV_D256: fa.flash_bwd_dkv.d256,
                 DKV_SIMT: fa.flash_bwd_dkv.simt, THREEFRY: tf,
                 FWD_WIDE: fa.wide, DQ_WIDE: fa.flash_bwd_dq.wide,
-                DKV_WIDE: fa.flash_bwd_dkv.wide}
+                DKV_WIDE: fa.flash_bwd_dkv.wide, FWD_WIDE_TC: fa.wide_tc,
+                DKV_WIDE_TC: fa.flash_bwd_dkv.wide_tc}
     for bwd in (fa.flash_bwd_dq, fa.flash_bwd_dkv):
         wrappers.update({v.KERNEL: v for v in bwd.variants.values()})
     assert set(wrappers) == set(ops.launch_counts())
@@ -6519,7 +6567,7 @@ def main():
     # registers and spills of the flash kernels' instantiations
     regs = {}
     for name in ("flash_fwd_causal", "flash_bwd_causal", "flash_wide_fwd",
-                 "flash_wide_bwd"):
+                 "flash_wide_bwd", WIDE_TC):
         for fn, n_regs, st, ld in ptxas_table(result["ptxas"][name]):
             regs[short_name(fn)] = (n_regs, st, ld)
     result["flash_registers"] = regs
@@ -7149,9 +7197,11 @@ def main():
                  DQ_SIMT: pick(DQ_SIMT, "B=2 S=2048 H=8 D=256", f32),
                  DKV_SIMT: pick(DKV_SIMT, "B=2 S=2048 H=8 D=256", f32),
                  THREEFRY: pick(THREEFRY, "[32, 128, 3072]", "torch.bool"),
-                 FWD_WIDE: pick(FWD_WIDE, "B=2 S=2048 H=4 D=512"),
+                 FWD_WIDE: pick(FWD_WIDE, "B=2 S=2048 H=4 D=512", f32),
                  DQ_WIDE: pick(DQ_WIDE, "B=2 S=2048 H=4 D=512"),
-                 DKV_WIDE: pick(DKV_WIDE, "B=2 S=2048 H=4 D=512")}
+                 DKV_WIDE: pick(DKV_WIDE, "B=2 S=2048 H=4 D=512", f32),
+                 FWD_WIDE_TC: pick(FWD_WIDE_TC, "B=2 S=2048 H=4 D=512"),
+                 DKV_WIDE_TC: pick(DKV_WIDE_TC, "B=2 S=2048 H=4 D=512")}
     path_launches = {FWD: launches[FWD], RAGGED: launches[RAGGED],
                      RAGGED8: launches8[RAGGED8],
                      FWD_MASK: launches_gen["stacked default padded"][FWD_MASK],
@@ -7207,11 +7257,14 @@ def main():
         path_launches[name] = launches_h32["train_stacked"][name]
     # dropout's keep masks: phase 17c's BERT-base turn with dropout
     path_launches[THREEFRY] = launches_bert["dropout"][THREEFRY]
-    # head_dim 512: the forward in 19c's bf16 fp engine (its prefill), dQ
-    # and dK/dV in 19d's recipe B run
-    path_launches[FWD_WIDE] = launches_h512_16["engine"][FWD_WIDE]
-    for name in (DQ_WIDE, DKV_WIDE):
+    # head_dim 512: the tensor-core forward in 19c's bf16 fp engine (its
+    # prefill), dQ and the tensor-core dK/dV in 19d's recipe B run; the
+    # CUDA-core forward and dK/dV in 19b's fp32 engine and stacked training
+    path_launches[FWD_WIDE_TC] = launches_h512_16["engine"][FWD_WIDE_TC]
+    for name in (DQ_WIDE, DKV_WIDE_TC):
         path_launches[name] = launches_h19d[name]
+    path_launches[FWD_WIDE] = launches_h512_32["engine"][FWD_WIDE]
+    path_launches[DKV_WIDE] = launches_h512_32["train_stacked"][DKV_WIDE]
     kernels = []
     for name in KERNELS:
         c = main_case[name]

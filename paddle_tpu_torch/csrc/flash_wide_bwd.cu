@@ -7,7 +7,10 @@
 // `_flash_attn_core`'s custom_vjp) at the head dims the JAX gate admits
 // past 256 (any multiple of 128, `pallas_ops.py:646`), in all their
 // branches and the three types, through one entry each, `flash_wide_dq`
-// and `flash_wide_dkv`.  `flash_bwd_causal.cu` keeps D = 64, 128 and 256.
+// and `flash_wide_dkv`.  `flash_bwd_causal.cu` keeps D = 64, 128 and 256;
+// the wrapper sends the bf16 and fp16 dK/dV up to D = 1024 to the
+// tensor-core kernel of `flash_wide_tc.cu`, so `flash_wide_dkv` runs fp32
+// at every such D and 16-bit past 1024, `flash_wide_dq` every type.
 //
 // Both rebuild the probabilities from the forward's statistics, as
 // `flash_bwd_causal.cu` does (its header gives the formulas, the masked

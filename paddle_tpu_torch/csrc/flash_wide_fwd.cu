@@ -6,7 +6,9 @@
 // admits past 256 (`pallas_ops.py:646`: any multiple of 128), in all its
 // branches (causal, the additive mask and kv_lens, segment ids,
 // non-causal) and the three types, through one entry, `flash_wide_fwd`.
-// `flash_fwd_causal.cu` keeps D = 64, 128 and 256.
+// `flash_fwd_causal.cu` keeps D = 64, 128 and 256; the wrapper sends bf16
+// and fp16 up to D = 1024 to the tensor-core kernel of `flash_wide_tc.cu`,
+// so this one runs fp32 at every such D and 16-bit past 1024.
 //
 // What bounds it on this card: per visible (query, key) pair 4 D FLOPs
 // over 4 [S, D] slabs of bytes a head, so at D = 512 and S = 2048 some

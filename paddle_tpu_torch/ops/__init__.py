@@ -40,7 +40,8 @@ _KERNELS = (flash_attention, flash_attention.masked, flash_attention.segs,
             flash_attention.noncausal, flash_attention.tc,
             flash_attention.tc16, flash_attention.tc32,
             flash_attention.d256, flash_attention.simt,
-            flash_attention.wide, flash_attention.flash_bwd_dq,
+            flash_attention.wide, flash_attention.wide_tc,
+            flash_attention.flash_bwd_dq,
             *flash_attention.flash_bwd_dq.variants.values(),
             *flash_attention.flash_bwd_dq.types.values(),
             flash_attention.flash_bwd_dq.d256,
@@ -52,6 +53,7 @@ _KERNELS = (flash_attention, flash_attention.masked, flash_attention.segs,
             flash_attention.flash_bwd_dkv.d256,
             flash_attention.flash_bwd_dkv.simt,
             flash_attention.flash_bwd_dkv.wide,
+            flash_attention.flash_bwd_dkv.wide_tc,
             ragged_paged_attention, ragged_paged_attention.int8,
             ragged_paged_attention.fp16, ragged_paged_attention.int8_fp16,
             ragged_paged_attention.d256, ragged_paged_attention.int8_d256,

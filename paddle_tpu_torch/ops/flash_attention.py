@@ -42,14 +42,21 @@ there (``flash_fwd_simt_kernel``, ``flash_bwd_dq_simt_kernel``,
 ``flash_bwd_dkv_simt_kernel``: split TF32 does not fit a block) and count
 under ``:simt`` of their names in place of ``:tc32``.  In bfloat16 and
 float16 the dK/dV kernel at 256 is two warpgroups a block, each owning
-half of dK's and dV's columns.  D = 384, 512, ... take the kernels of
-``csrc/flash_wide_fwd.cu`` (entry ``flash_wide_fwd``) and
-``csrc/flash_wide_bwd.cu`` (``flash_wide_dq``, ``flash_wide_dkv``): D a
-runtime argument, a grid axis of D / 128 output slices, on the CUDA cores
-in every type; their launches count under the base and branch counters
-as any other and under ``:wide`` of the kernel's name in place of the
-type's (``flash_fwd_causal:wide``, ``flash_bwd_dq_causal:wide``,
-``flash_bwd_dkv_causal:wide``).
+half of dK's and dV's columns.  D = 384, 512, ... (`kernel_route`): in
+bfloat16 and float16 up to ``WIDE_TC_MAX_D`` (1024) the forward and dK/dV
+run on the tensor cores (``csrc/flash_wide_tc.cu``, entries
+``flash_wide_tc_fwd`` and ``flash_wide_tc_dkv``: a cluster of D / 128
+blocks, each owning 128 columns, the scores' parts summed across the
+cluster); float32 at every such D, 16-bit past 1024, and dQ in every type
+take the CUDA-core kernels of ``csrc/flash_wide_fwd.cu`` (entry
+``flash_wide_fwd``) and ``csrc/flash_wide_bwd.cu`` (``flash_wide_dq``,
+``flash_wide_dkv``: D a runtime argument, a grid axis of D / 128 output
+slices).  Their launches count under the base and branch counters as
+any other, under ``:wide`` of the kernel's name (every launch at such a
+D, in place of the type's counter: ``flash_fwd_causal:wide``,
+``flash_bwd_dq_causal:wide``, ``flash_bwd_dkv_causal:wide``) and, the
+tensor-core ones, once more under ``:wide_tc`` (``flash_fwd_causal:wide_tc``,
+``flash_bwd_dkv_causal:wide_tc``).
 
 The kernels copy 16-byte rows: on the card q, k, v (and dO) must start on
 16 bytes, with batch and sequence strides of a multiple of 16 bytes (8
@@ -80,17 +87,21 @@ __all__ = ["flash_attention_arrays", "mha_reference", "FlashAttention",
            "flash_attention_bwd_reference", "softmax_stats",
            "recompute_probs",
            "attention_delta", "flash_bwd_dq", "flash_bwd_dkv", "masked",
-           "segs", "noncausal", "d256", "simt", "wide", "normalize_mask",
-           "head_dim_ok",
+           "segs", "noncausal", "d256", "simt", "wide", "wide_tc",
+           "normalize_mask", "head_dim_ok", "kernel_route",
            "variant_name", "count_path", "attention_path_counts",
            "reset_attention_path_counts"]
 
 KERNEL = "flash_fwd_causal"
 SOURCE = KERNEL       # csrc/<SOURCE>.cu
 BWD_SOURCE = "flash_bwd_causal"
-# the kernels at head_dim 384, 512, ... (every multiple of 128 past 256)
+# the kernels at head_dim 384, 512, ... (every multiple of 128 past 256):
+# on the CUDA cores, and in bf16 / fp16 up to WIDE_TC_MAX_D on the tensor
+# cores (a cluster of D / 128 blocks; 8, the portable cluster size, at most)
 WIDE_SOURCE = "flash_wide_fwd"
 WIDE_BWD_SOURCE = "flash_wide_bwd"
+WIDE_TC_SOURCE = "flash_wide_tc"
+WIDE_TC_MAX_D = 1024
 launches = 0          # causal (no mask, kv_lens or segments) launches
 
 _NEG_INF = -1e30
@@ -129,13 +140,16 @@ tc32 = _build.Counter(KERNEL + ":tc32", SOURCE)
 d256 = _build.Counter(KERNEL + ":d256", SOURCE)
 simt = _build.Counter(KERNEL + ":simt", SOURCE)
 # forward launches at head_dim 384, 512, ... (any type; counted in place of
-# the type's counter)
+# the type's counter), and the tensor-core ones among them
 wide = _build.Counter(KERNEL + ":wide", WIDE_SOURCE)
+wide_tc = _build.Counter(KERNEL + ":wide_tc", WIDE_TC_SOURCE)
 _FWD_VARIANTS = {"mask": masked, "segs": segs, "noncausal": noncausal}
 # the counter suffix of each type the kernels take
 _TYPE_SUFFIX = {torch.bfloat16: "tc", torch.float16: "tc16",
                 torch.float32: "tc32"}
-_FWD_TYPES = {torch.bfloat16: tc, torch.float16: tc16, torch.float32: tc32}
+# every design counter of the forward, by its suffix (`kernel_route`)
+_FWD_DESIGNS = {"tc": tc, "tc16": tc16, "tc32": tc32, "d256": d256,
+                "simt": simt, "wide": wide, "wide_tc": wide_tc}
 
 
 def variant_name(is_causal, mask, kv_lens, segment_ids):
@@ -333,6 +347,30 @@ def head_dim_ok(d):
     return d in _build.HEAD_DIMS or (d > 0 and d % 128 == 0)
 
 
+def kernel_route(kind, d, dtype):
+    """``(source, entry, designs)`` of the kernel a launch of ``kind``
+    ("fwd", "dq" or "dkv") takes at head_dim ``d`` in ``dtype``: the
+    ``csrc/<source>.cu`` library, its C entry, and the suffixes of the
+    counters the launch counts under besides its branch counter (module
+    docstring): the type's (``tc``, ``tc16``, ``tc32``) or, at 256 in
+    float32, ``simt``, with ``d256`` at 256; ``wide`` past 256, and
+    ``wide_tc`` for the tensor-core wide kernels (forward and dK/dV in
+    bfloat16 and float16 up to `WIDE_TC_MAX_D`).  Decided by shape and
+    type alone, before a launch."""
+    if d in _build.HEAD_DIMS:
+        source = SOURCE if kind == "fwd" else BWD_SOURCE
+        entry = "flash_fwd" if kind == "fwd" else f"flash_bwd_{kind}"
+        if d != 256:
+            return source, entry, (_TYPE_SUFFIX[dtype],)
+        return source, entry, ("d256", "simt" if dtype == torch.float32
+                               else _TYPE_SUFFIX[dtype])
+    if (kind != "dq" and dtype in (torch.bfloat16, torch.float16)
+            and d <= WIDE_TC_MAX_D):
+        return WIDE_TC_SOURCE, f"flash_wide_tc_{kind}", ("wide", "wide_tc")
+    return (WIDE_SOURCE if kind == "fwd" else WIDE_BWD_SOURCE,
+            f"flash_wide_{kind}", ("wide",))
+
+
 def _check_qkv(q, k, v, causal=True):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dim() != 4:
@@ -432,8 +470,7 @@ def _launch(q, k, v, scale, causal=True, mask=None, lens=None, sid=None):
     if mask is not None or lens is not None:
         pair = tuple(torch.empty_like(lse) for _ in range(2))
     pair_ptrs = (0, 0) if pair is None else (t.data_ptr() for t in pair)
-    lib, entry = ((SOURCE, "flash_fwd") if d in _build.HEAD_DIMS
-                  else (WIDE_SOURCE, "flash_wide_fwd"))
+    lib, entry, designs = kernel_route("fwd", d, q.dtype)
     fn = _bind(getattr(_build.load(lib), entry), 10, 7, 11)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              lse.data_ptr(), *pair_ptrs, *ptrs, b, h, sq, sk, d,
@@ -446,13 +483,8 @@ def _launch(q, k, v, scale, causal=True, mask=None, lens=None, sid=None):
         launches += 1
     else:
         _FWD_VARIANTS[name].launches += 1
-    if d == 256:
-        d256.launches += 1
-    if d not in _build.HEAD_DIMS:
-        wide.launches += 1
-    else:
-        (simt if d == 256 and q.dtype == torch.float32
-         else _FWD_TYPES[q.dtype]).launches += 1
+    for design in designs:
+        _FWD_DESIGNS[design].launches += 1
     return out, lse, pair
 
 
@@ -465,8 +497,8 @@ class _BwdKernel:
     fp32 launches (``tc32``: the split-TF32 tensor-core kernel; at head_dim
     256 ``simt``, the CUDA-core kernel, in its place); ``d256`` counts
     every launch at head_dim 256 once more; ``wide`` the launches at 384,
-    512, ... (the entry ``wide_entry`` of ``csrc/flash_wide_bwd.cu``, any
-    type), in place of the type's counter.
+    512, ... (any type), in place of the type's counter, and ``wide_tc``
+    the dK/dV kernel's tensor-core ones among them (`kernel_route`).
     ``(q, k, v, do, lse, delta, scale)`` plus the branches -> ``dq`` (the dQ kernel, one output) or ``(dk, dv)`` (the
     dK/dV kernel, two), each a contiguous [B, S, H, D] in the inputs'
     dtype; with a mask or kv_lens, ``lse`` is log l and ``row_max`` the
@@ -476,11 +508,10 @@ class _BwdKernel:
 
     SOURCE = BWD_SOURCE
 
-    def __init__(self, kernel, entry, wide_entry, n_out):
+    def __init__(self, kernel, kind, n_out):
         self.KERNEL = kernel
         self.launches = 0          # causal launches since the reset
-        self._entry = entry
-        self._wide_entry = wide_entry
+        self._kind = kind
         self.variants = {n: _build.Counter(f"{kernel}:{n}", BWD_SOURCE)
                          for n in VARIANTS}
         self.types = {dt: _build.Counter(f"{kernel}:{n}", BWD_SOURCE)
@@ -491,6 +522,14 @@ class _BwdKernel:
         self.d256 = _build.Counter(f"{kernel}:d256", BWD_SOURCE)
         self.simt = _build.Counter(f"{kernel}:simt", BWD_SOURCE)
         self.wide = _build.Counter(f"{kernel}:wide", WIDE_BWD_SOURCE)
+        self._designs = {**{_TYPE_SUFFIX[dt]: c
+                            for dt, c in self.types.items()},
+                         "d256": self.d256, "simt": self.simt,
+                         "wide": self.wide}
+        if kind == "dkv":
+            self.wide_tc = _build.Counter(f"{kernel}:wide_tc",
+                                          WIDE_TC_SOURCE)
+            self._designs["wide_tc"] = self.wide_tc
         self._n_out = n_out
 
     def __call__(self, q, k, v, do, lse, delta, scale, *, causal=True,
@@ -531,8 +570,7 @@ class _BwdKernel:
         qkvd = (q.stride(0), q.stride(1), k.stride(0), k.stride(1),
                 v.stride(0), v.stride(1), do.stride(0), do.stride(1))
         ptrs, strides, c = _branch_args(q, causal, mask, lens, segs)
-        lib, entry = ((self.SOURCE, self._entry) if d in _build.HEAD_DIMS
-                      else (WIDE_BWD_SOURCE, self._wide_entry))
+        lib, entry, designs = kernel_route(self._kind, d, q.dtype)
         fn = _bind(getattr(_build.load(lib), entry), 10 + self._n_out, 7, 13)
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                  lse.data_ptr(), delta.data_ptr(),
@@ -542,20 +580,13 @@ class _BwdKernel:
         _build.check(err, self.KERNEL)
         counter = self if name is None else self.variants[name]
         counter.launches += 1
-        if d == 256:
-            self.d256.launches += 1
-        if d not in _build.HEAD_DIMS:
-            self.wide.launches += 1
-        else:
-            (self.simt if d == 256 and q.dtype == torch.float32
-             else self.types[q.dtype]).launches += 1
+        for design in designs:
+            self._designs[design].launches += 1
         return outs[0] if self._n_out == 1 else tuple(outs)
 
 
-flash_bwd_dq = _BwdKernel("flash_bwd_dq_causal", "flash_bwd_dq",
-                          "flash_wide_dq", 1)
-flash_bwd_dkv = _BwdKernel("flash_bwd_dkv_causal", "flash_bwd_dkv",
-                           "flash_wide_dkv", 2)
+flash_bwd_dq = _BwdKernel("flash_bwd_dq_causal", "dq", 1)
+flash_bwd_dkv = _BwdKernel("flash_bwd_dkv_causal", "dkv", 2)
 
 
 def _forward(q, k, v, scale, causal, mask, lens, sid):

@@ -1,9 +1,23 @@
-"""Inputs shared by the port's op tests (numpy only, no JAX)."""
+"""Inputs and a fixture shared by the port's tests (no JAX)."""
 import zlib
 
 import numpy as np
+import pytest
+import torch
 
-__all__ = ["MIXES", "mix"]
+__all__ = ["MIXES", "mix", "one_torch_thread"]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch intra-op thread a worker, for a module that imports this
+    fixture: under ``-n`` the workers' torch thread pools and JAX's contend
+    for the cores, which slowed small ops many times over.  Put back after
+    the module."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
 
 MIXES = ["all_decode", "all_prefill_chunk", "mixed", "single_row",
          "evicted_mid_batch"]

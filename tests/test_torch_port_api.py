@@ -45,6 +45,8 @@ from paddle_tpu_torch.monitor.wire import API_ERROR_KEYS
 from paddle_tpu_torch.serving import (EngineConfig, LLMEngine,
                                       SamplingParams)
 from paddle_tpu_torch.serving import api as tapi
+from _torch_port_util import one_torch_thread  # noqa: F401 (autouse)
+
 
 PKGS = {"jax": SimpleNamespace(api=japi, slo=jslo),
         "port": SimpleNamespace(api=tapi, slo=tslo)}

@@ -41,6 +41,8 @@ from paddle_tpu_torch import optimizer as topt
 from paddle_tpu_torch.convert import params_from_numpy
 from paddle_tpu_torch.models import (BertForSequenceClassification,
                                      bert_base_config)
+from _torch_port_util import one_torch_thread  # noqa: F401 (autouse)
+
 
 CFG = dict(hidden_size=128, num_hidden_layers=2, num_attention_heads=2,
            intermediate_size=256, vocab_size=512)

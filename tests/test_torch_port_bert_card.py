@@ -16,8 +16,9 @@ without it run:
 - `nn.functional.scaled_dot_product_attention` under autograd with that
   mask: one launch of each kernel, gradients as the plain backward's;
 - the head-dim gate: head_dim 32 takes `mha_reference` with no launch,
-  head_dim 384 one launch of the forward kernel at that head dim
-  (``flash_fwd_causal:wide``), within the bf16 limit of the plain version;
+  head_dim 384 one launch of the forward kernel at that head dim, the
+  tensor-core one in bf16 (``flash_fwd_causal:wide`` and ``:wide_tc``),
+  within the bf16 limit of the plain version;
 - dropout's keep masks: the threefry kernel (``csrc/threefry_bernoulli.cu``)
   bitwise equal to the plain `core.random.bernoulli` (JAX's keys) on the
   card and on the CPU;
@@ -172,7 +173,8 @@ def test_head_dim_gate(monkeypatch):
     out = PF.scaled_dot_product_attention(q, k, v)
     counts = {n: c for n, c in ops.launch_counts().items() if c}
     assert counts == {"flash_fwd_causal:noncausal": 1,
-                      "flash_fwd_causal:wide": 1}, counts
+                      "flash_fwd_causal:wide": 1,
+                      "flash_fwd_causal:wide_tc": 1}, counts
     want = fa.mha_reference(q, k, v).to(q.dtype)
     _within(out, want, tol.flash_fwd_limit(out, want, q, k, v, False),
             "head_dim 384")

@@ -51,19 +51,9 @@ import paddle_tpu_torch
 import paddle_tpu_torch.nn as pnn
 import paddle_tpu_torch.nn.functional as PF
 from paddle_tpu_torch import amp as pamp
+from _torch_port_util import one_torch_thread  # noqa: F401 (autouse)
 
 REL = 1e-5
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The port's ops here are small; one intra-op thread a worker keeps
-    torch's thread pool from contending with JAX's and with the other
-    workers' under ``-n``.  The count is put back after the module."""
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
 
 
 def _np(t):

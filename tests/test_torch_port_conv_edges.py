@@ -20,21 +20,12 @@ import paddle_tpu as paddle
 import paddle_tpu.nn.functional as JF
 
 import paddle_tpu_torch.nn.functional as PF
+from _torch_port_util import one_torch_thread  # noqa: F401 (autouse)
 
 # (functional kind, spatial dims, pairs)
 PAIR_CASES = [(kind, nd, n) for nd in (1, 2, 3)
               for kind in ("conv", "conv_transpose", "max_pool", "avg_pool")
               for n in sorted({1, nd - 1, nd + 1, nd + 2, 2 * nd} - {0, nd})]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread a worker (as `tests/test_torch_port_conv.py`);
-    the count is put back after the module."""
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
 
 
 def _call(pkg, kind, nd, x, **kw):

@@ -28,6 +28,8 @@ import paddle_tpu.nn.functional as JF
 
 import paddle_tpu_torch.nn.functional as PF
 from paddle_tpu_torch.nn import Dropout
+from _torch_port_util import one_torch_thread  # noqa: F401 (autouse)
+
 
 RNG = np.random.RandomState(7)
 X = RNG.randn(6, 5).astype(np.float32)

@@ -46,6 +46,8 @@ from paddle_tpu_torch.ops import flash_decode as fd
 from paddle_tpu_torch.ops import fused_decode as fdl
 from paddle_tpu_torch.ops import fused_mlp as fm
 from paddle_tpu_torch.ops import tolerance as tol
+from _torch_port_util import one_torch_thread  # noqa: F401 (autouse)
+
 
 TOL_FP32 = 1e-5
 QK_ROUNDING = 2.0 ** -8

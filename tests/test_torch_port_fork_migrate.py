@@ -29,6 +29,8 @@ from paddle_tpu.serving import SamplingParams as JaxSamplingParams
 from paddle_tpu_torch.convert import params_from_numpy
 from paddle_tpu_torch.models import GPTForCausalLM, gpt_test_config
 from paddle_tpu_torch.serving import EngineConfig, LLMEngine, SamplingParams
+from _torch_port_util import one_torch_thread  # noqa: F401 (autouse)
+
 
 NEW = 8
 STEPS_BEFORE_EXPORT = 5

@@ -52,6 +52,8 @@ from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import flash_decode as fd
 from paddle_tpu_torch.ops import ragged_paged_attention as rpa
 from paddle_tpu_torch.ops import tolerance as tol
+from _torch_port_util import one_torch_thread  # noqa: F401 (autouse)
+
 
 B, H, D = 2, 2, 64
 LSE_TOL = 1e-5

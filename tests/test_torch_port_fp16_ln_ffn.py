@@ -73,6 +73,8 @@ from paddle_tpu_torch.models import (GPTForCausalLM, GPTPretrainingCriterion,
 from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.ops import fused_mlp as fm
 from paddle_tpu_torch.ops import tolerance as tol
+from _torch_port_util import one_torch_thread  # noqa: F401 (autouse)
+
 
 F16 = torch.float16
 TYPES = {"float16": (jnp.float16, torch.float16),

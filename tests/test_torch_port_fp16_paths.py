@@ -68,6 +68,8 @@ from paddle_tpu_torch.models import (GPTForCausalLM, GPTPretrainingCriterion,
                                      gpt_test_config)
 from paddle_tpu_torch.models.gpt import _filter_logits
 from paddle_tpu_torch.serving import EngineConfig, LLMEngine, SamplingParams
+from _torch_port_util import one_torch_thread  # noqa: F401 (autouse)
+
 
 CFG = dict(stacked_blocks=True, hidden_size=128, num_attention_heads=2,
            intermediate_size=256, vocab_size=503,

@@ -22,6 +22,8 @@ from paddle_tpu.models.gpt import GPTPretrainingCriterion as JaxCriterion
 import paddle_tpu_torch.models as pmodels
 from paddle_tpu_torch.models import gpt as pgpt
 from paddle_tpu_torch.nn.layer import Layer
+from _torch_port_util import one_torch_thread  # noqa: F401 (autouse)
+
 
 CFG = dict(num_hidden_layers=2)
 GPT_CLASSES = ("GPTPretrainingCriterion", "GPTEmbeddings", "GPTAttention",

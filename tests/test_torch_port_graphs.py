@@ -54,6 +54,8 @@ from paddle_tpu_torch.ops import fused_decode as fdl
 from paddle_tpu_torch.ops import fused_mlp as fm
 from paddle_tpu_torch.ops import ragged_paged_attention as rpa
 from paddle_tpu_torch.serving import EngineConfig, LLMEngine, SamplingParams
+from _torch_port_util import one_torch_thread  # noqa: F401 (autouse)
+
 
 S_MAX = 256
 T_EDGES = [1, 127, 128, S_MAX - 1]

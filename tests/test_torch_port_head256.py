@@ -66,6 +66,8 @@ from paddle_tpu_torch.ops import fused_decode as fdl
 from paddle_tpu_torch.ops import ragged_paged_attention as rpa
 from paddle_tpu_torch.ops import tolerance as tol
 from paddle_tpu_torch.serving import EngineConfig, LLMEngine, SamplingParams
+from _torch_port_util import one_torch_thread  # noqa: F401 (autouse)
+
 
 B, H, D = 1, 2, 256
 LSE_TOL = 1e-5

@@ -50,6 +50,8 @@ from paddle_tpu_torch.models import (GPTForCausalLM,
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import tolerance as tol
 from paddle_tpu_torch.optimizer import AdamW
+from _torch_port_util import one_torch_thread  # noqa: F401 (autouse)
+
 
 B, H, S, D = 1, 2, 128, 256
 BWD_REL_FP32 = 1e-4

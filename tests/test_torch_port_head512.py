@@ -60,6 +60,7 @@ from paddle_tpu_torch.ops import ragged_paged_attention as rpa
 from paddle_tpu_torch.ops import tolerance as tol
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.serving import EngineConfig, LLMEngine, SamplingParams
+from _torch_port_util import one_torch_thread  # noqa: F401 (autouse)
 
 B, H, S = 1, 2, 128
 LSE_TOL = 1e-5
@@ -82,17 +83,6 @@ FWD_CASES = [(d, name, dt) for d in (384, 512) for name in BRANCHES
 BWD_CASES = [(384 if (i + j) % 2 else 512, name, dt)
              for i, name in enumerate(BRANCHES)
              for j, dt in enumerate(DTYPES)]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """The port's ops here are small; one intra-op thread a worker keeps
-    torch's thread pool from contending with JAX's and with the other
-    workers' under ``-n``.  The count is put back after the module."""
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
 
 
 def _t(a, dtype=torch.float32):

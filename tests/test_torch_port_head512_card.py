@@ -8,13 +8,16 @@ without it run:
     python -m pytest --noconftest -p no:cacheprovider -q \\
         tests/test_torch_port_head512_card.py
 
-The forward (``csrc/flash_wide_fwd.cu``), dQ and dK/dV
-(``csrc/flash_wide_bwd.cu``) at D = 384 and 512 in every branch (causal,
+The forward, dQ and dK/dV at D = 384 and 512 in every branch (causal,
 an additive mask, kv_lens, segment ids, non-causal, mask and kv_lens
 non-causal) in float32, bfloat16 and float16, q, k and v slices of one
 fused qkv tensor and a strided dO, at a ragged S; D = 640 and 1024 (the
-runtime D) causal; through autograd; each launch counted under its branch
-and ``:wide``, never under a type's counter.  And the decode gates at
+runtime D) causal, and D = 640 at a ragged S in three branches; through
+autograd; each launch counted under its branch and ``:wide``, never under
+a type's counter.  In bfloat16 and float16 the forward and dK/dV run on
+the tensor cores (``csrc/flash_wide_tc.cu``) and count once more under
+``:wide_tc``; float32, and dQ in every type, run on the CUDA cores
+(``csrc/flash_wide_fwd.cu``, ``csrc/flash_wide_bwd.cu``) and do not.  And the decode gates at
 D = 512 on the card: ``generate`` (default and fused mode) and the engine
 (fp and int8 pools) with their decode steps captured, one graph each,
 their attention the plain path (no decode kernel launched), the tokens
@@ -104,9 +107,12 @@ def _check_forward(d, dtype, name, b, s, h):
         _within(pair[0], rm, 1e-5, f"row max {name}")
         _within(pair[1], ls, 1e-5, f"log l {name}")
     variant = fa.variant_name(causal, m4, lens, segs)
-    assert {n: c for n, c in counts.items() if c} == {
+    want_counts = {
         fa.KERNEL if variant is None else f"{fa.KERNEL}:{variant}": 1,
         fa.wide.KERNEL: 1}
+    if dtype != torch.float32:      # the tensor-core forward
+        want_counts[fa.wide_tc.KERNEL] = 1
+    assert {n: c for n, c in counts.items() if c} == want_counts
 
 
 def _bwd_limits(got, want, q, k, v, out, stat, do, scale, **br):
@@ -148,6 +154,8 @@ def _check_backward(d, dtype, name, b, s, h):
         want_counts[kern.KERNEL if variant is None
                     else kern.variants[variant].KERNEL] = 1
         want_counts[kern.wide.KERNEL] = 1
+    if dtype != torch.float32:      # the tensor-core dK/dV; dQ's CUDA cores
+        want_counts[fa.flash_bwd_dkv.wide_tc.KERNEL] = 1
     assert {n: c for n, c in counts.items() if c} == want_counts
 
 
@@ -183,6 +191,17 @@ def test_wide_kernels_take_any_multiple_of_128(d, dtype):
 @pytest.mark.cuda
 @pytest.mark.usefixtures("needs_cuda")
 @pytest.mark.parametrize("dtype", TYPES)
+@pytest.mark.parametrize("name", ["causal", "mask", "segs"])
+def test_wide_kernels_at_640_and_a_ragged_s(name, dtype):
+    """D = 640, a cluster of five blocks on the tensor cores in 16-bit,
+    at S = 330 (no multiple of the 64-row tiles)."""
+    _check_forward(640, dtype, name, 2, 330, 2)
+    _check_backward(640, dtype, name, 2, 330, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.usefixtures("needs_cuda")
+@pytest.mark.parametrize("dtype", TYPES)
 @pytest.mark.parametrize("name", ["causal", "kv_lens", "segs"])
 def test_wide_autograd_launches_both_backward_kernels(dtype, name):
     """`flash_attention_arrays` at D = 512 under autograd: the forward and
@@ -201,6 +220,9 @@ def test_wide_autograd_launches_both_backward_kernels(dtype, name):
     counts = ops.launch_counts()
     for kern in (fa, fa.flash_bwd_dq, fa.flash_bwd_dkv):
         assert counts[kern.wide.KERNEL] == 1
+    tc = int(dtype != torch.float32)
+    assert counts[fa.wide_tc.KERNEL] == tc
+    assert counts[fa.flash_bwd_dkv.wide_tc.KERNEL] == tc
     scale = d ** -0.5
     qd, kd, vd = (t.detach() for t in (q, k, v))
     o2, lse, pair = fa._launch(qd, kd, vd, scale, causal, None, lens, segs)
@@ -233,7 +255,7 @@ def _model(dtype):
 @pytest.mark.parametrize("mode", ["default", "fused"])
 def test_generate_d512_captures_the_plain_decode(mode, monkeypatch):
     """bf16 ``generate`` at D = 512: one captured decode graph, the prefill
-    on the wide forward and no decode kernel (the gates' plain path), the
+    on the tensor-core wide forward and no decode kernel (the gates' plain path), the
     tokens those of the eager run."""
     if mode == "fused":
         monkeypatch.setenv("PTPU_FUSED_DECODE", "1")
@@ -249,7 +271,8 @@ def test_generate_d512_captures_the_plain_decode(mode, monkeypatch):
         ops.reset_launch_counts()
         outs[graphs] = model.generate(ids, max_new_tokens=12)
         counts = {n: c for n, c in ops.launch_counts().items() if c}
-        assert counts == {fa.KERNEL: 2, fa.wide.KERNEL: 2}, counts
+        assert counts == {fa.KERNEL: 2, fa.wide.KERNEL: 2,
+                          fa.wide_tc.KERNEL: 2}, counts
     assert model.compiles == {"decode": 1}
     assert torch.equal(outs["0"], outs["1"])
 
@@ -260,7 +283,7 @@ def test_generate_d512_captures_the_plain_decode(mode, monkeypatch):
 def test_engine_d512_captures_the_plain_ragged_step(kv, monkeypatch):
     """The bf16 engine at D = 512 on fp and int8 pools: one captured
     decode graph (``ragged``), no ragged launch, the flash prefill on the
-    wide forward, the tokens those of the eager run."""
+    tensor-core wide forward, the tokens those of the eager run."""
     from paddle_tpu_torch.serving import (EngineConfig, LLMEngine,
                                           SamplingParams)
     model = _model(torch.bfloat16)
@@ -277,8 +300,10 @@ def test_engine_d512_captures_the_plain_ragged_step(kv, monkeypatch):
         outs[graphs] = eng.generate(prompts,
                                     SamplingParams(max_new_tokens=10))
         counts = {n: c for n, c in ops.launch_counts().items() if c}
-        assert set(counts) <= {fa.KERNEL, fa.wide.KERNEL}, counts
+        assert set(counts) <= {fa.KERNEL, fa.wide.KERNEL,
+                               fa.wide_tc.KERNEL}, counts
         assert counts[fa.wide.KERNEL] > 0
+        assert counts[fa.wide_tc.KERNEL] == counts[fa.wide.KERNEL]
         assert eng.compiles == ({"ragged": 1} if graphs == "1" else {})
     for a, b in zip(outs["0"], outs["1"]):
         np.testing.assert_array_equal(a, b)

@@ -50,6 +50,8 @@ from paddle_tpu_torch.serving import (BlockKVCache, EngineConfig, LLMEngine,
                                       SamplingParams)
 
 from _torch_port_util import MIXES, mix
+from _torch_port_util import one_torch_thread  # noqa: F401 (autouse)
+
 
 TOL = 1e-5
 DTYPES = {"float32": (jnp.float32, torch.float32),

@@ -81,6 +81,8 @@ from paddle_tpu_torch.ops import ragged_paged_attention as rpa
 from paddle_tpu_torch.ops import tolerance as tol
 
 from _torch_port_util import MIXES, mix
+from _torch_port_util import one_torch_thread  # noqa: F401 (autouse)
+
 
 TOL_FP32 = 2e-5
 BWD_REL_FP32 = 1e-4

@@ -38,6 +38,8 @@ import torch
 from paddle_tpu_torch.ops import fused_mlp as fm
 from paddle_tpu_torch.ops import paged_attention as pa
 from paddle_tpu_torch.ops import tolerance as tol
+from _torch_port_util import one_torch_thread  # noqa: F401 (autouse)
+
 
 BF, F32 = torch.bfloat16, torch.float32
 LN_MIXES = [(F32, F32), (BF, BF), (BF, F32)]

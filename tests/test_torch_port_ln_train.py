@@ -63,6 +63,8 @@ from paddle_tpu_torch.ops import fused_mlp as fm
 from paddle_tpu_torch.ops import tolerance as tol
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.serving import EngineConfig, LLMEngine
+from _torch_port_util import one_torch_thread  # noqa: F401 (autouse)
+
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}

@@ -46,6 +46,8 @@ from paddle_tpu_torch.lowbit import WeightOnlyLinear, quantize_for_inference
 from paddle_tpu_torch.models import GPTForCausalLM, gpt_test_config
 from paddle_tpu_torch.nn import Linear
 from paddle_tpu_torch.ops import fused_mlp as fm
+from _torch_port_util import one_torch_thread  # noqa: F401 (autouse)
+
 
 DTYPES = ("int8", "int4")
 B, P, NEW = 4, 6, 8

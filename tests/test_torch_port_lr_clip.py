@@ -42,6 +42,8 @@ from paddle_tpu.optimizer import lr as jlr
 from paddle_tpu_torch import optimizer as topt
 from paddle_tpu_torch.optimizer import clip as tclip
 from paddle_tpu_torch.optimizer import lr as tlr
+from _torch_port_util import one_torch_thread  # noqa: F401 (autouse)
+
 
 SHAPES = [(5, 3), (4,), (2, 3, 2)]
 NAMES = ["w0", "b0", "w1"]

@@ -50,6 +50,8 @@ from paddle_tpu_torch.models import (GPTForCausalLM, GPTPretrainingCriterion,
 from paddle_tpu_torch.models.gpt import GPTMoEMLP
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.parallel import moe
+from _torch_port_util import one_torch_thread  # noqa: F401 (autouse)
+
 
 MOE = dict(moe_every_n=2, moe_num_experts=4)
 B, S, NEW = 4, 12, 6

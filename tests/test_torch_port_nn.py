@@ -47,6 +47,8 @@ import paddle_tpu_torch.nn as pnn
 import paddle_tpu_torch.nn.functional as PF
 from paddle_tpu_torch.core import random as prandom
 from paddle_tpu_torch.ops import flash_attention as pfa
+from _torch_port_util import one_torch_thread  # noqa: F401 (autouse)
+
 
 TOL = 1e-5
 

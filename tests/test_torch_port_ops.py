@@ -32,6 +32,8 @@ from paddle_tpu_torch.ops import ragged_paged_attention as rpa
 from paddle_tpu_torch.serving.kv_cache import BlockKVCache
 
 from _torch_port_util import MIXES, mix as _mix
+from _torch_port_util import one_torch_thread  # noqa: F401 (autouse)
+
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 

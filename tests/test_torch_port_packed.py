@@ -64,6 +64,8 @@ from paddle_tpu_torch.models import gpt as port_gpt
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.serving import EngineConfig, SamplingParams
+from _torch_port_util import one_torch_thread  # noqa: F401 (autouse)
+
 
 TOL = 1e-5
 

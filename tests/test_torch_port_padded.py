@@ -36,6 +36,8 @@ from paddle_tpu_torch.convert import params_from_numpy
 from paddle_tpu_torch.models import GPTForCausalLM, gpt_test_config
 from paddle_tpu_torch.models import gpt as port_gpt
 from paddle_tpu_torch.ops import flash_attention as fa
+from _torch_port_util import one_torch_thread  # noqa: F401 (autouse)
+
 
 TOL = 1e-5
 B, H, D = 2, 2, 64

@@ -39,6 +39,8 @@ from paddle_tpu_torch.convert import params_from_numpy
 from paddle_tpu_torch.models import GPTForCausalLM, gpt_test_config
 from paddle_tpu_torch.ops import fused_mlp as fm
 from paddle_tpu_torch.serving import EngineConfig, LLMEngine, SamplingParams
+from _torch_port_util import one_torch_thread  # noqa: F401 (autouse)
+
 
 CFG = dict(hidden_size=128, num_attention_heads=4, intermediate_size=256,
            max_position_embeddings=64, vocab_size=128)

@@ -40,6 +40,8 @@ from paddle_tpu_torch.serving import (BlockKVCache, EngineConfig,
                                       LLMEngine, Request, SamplingParams,
                                       Scheduler, prefix_block_keys,
                                       propose_ngram)
+from _torch_port_util import one_torch_thread  # noqa: F401 (autouse)
+
 
 NEW = 6
 BS = 4

@@ -56,20 +56,10 @@ from paddle_tpu_torch.convert import params_from_numpy
 from paddle_tpu_torch.hapi import callbacks as pcb
 from paddle_tpu_torch.vision import datasets as pds
 from paddle_tpu_torch.vision import models as pvm
+from _torch_port_util import one_torch_thread  # noqa: F401 (autouse)
 
 B, HW, LR, STEPS, REL = 2, 64, 0.01, 2, 1e-5
 GRAD_REL, GRAD_L2, CARRIED = 1e-4, 5e-3, 1e-3
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The port's ops here are small; one intra-op thread a worker keeps
-    torch's thread pool from contending with JAX's and with the other
-    workers' under ``-n``.  The count is put back after the module."""
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
 
 
 def _np(t):

@@ -46,6 +46,8 @@ from paddle_tpu.ops import ragged_paged_attention as jrp
 from paddle_tpu_torch.ops import fused_decode as fdl
 from paddle_tpu_torch.ops import ragged_paged_attention as rpa
 from paddle_tpu_torch.ops import tolerance as tol
+from _torch_port_util import one_torch_thread  # noqa: F401 (autouse)
+
 
 TOL_FP32 = 2e-5          # the kernels' fp32 limit against the plain version
 TOL_JAX_FP32 = 1e-5      # the CPU parity limit against the JAX package

@@ -72,6 +72,8 @@ import torch
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import fused_mlp as fm
 from paddle_tpu_torch.ops import tolerance as tol
+from _torch_port_util import one_torch_thread  # noqa: F401 (autouse)
+
 
 B, H, S = 2, 2, 256
 PADS = (0, 37)

@@ -65,6 +65,8 @@ from paddle_tpu_torch.monitor import trace as ttrace
 from paddle_tpu_torch.monitor import wire as twire
 from paddle_tpu_torch.serving import EngineConfig, LLMEngine, SamplingParams
 from paddle_tpu_torch.serving import scheduler as tsched
+from _torch_port_util import one_torch_thread  # noqa: F401 (autouse)
+
 
 PKGS = {
     "jax": SimpleNamespace(mon=jmon, trace=jtrace, reqlog=jreqlog,

@@ -55,6 +55,8 @@ import pytest
 import torch
 
 from paddle_tpu_torch.ops import flash_attention as fa
+from _torch_port_util import one_torch_thread  # noqa: F401 (autouse)
+
 
 S, H = 1024, 2
 FWD_ABS = 2e-5

@@ -39,6 +39,8 @@ from paddle_tpu_torch.ops import fused_mlp as fm
 from paddle_tpu_torch.ops import tolerance as tol
 from test_torch_port_tf32 import _causal, _err, _heads, _inputs, \
     mm_tf32_rz, split, trunc_tf32
+from _torch_port_util import one_torch_thread  # noqa: F401 (autouse)
+
 
 S, H = 1024, 2
 BWD_REL = 1e-4

@@ -28,6 +28,8 @@ from paddle_tpu_torch.convert import params_from_numpy
 from paddle_tpu_torch.core import random as R
 from paddle_tpu_torch.models import GPTForCausalLM, gpt_test_config
 from paddle_tpu_torch.serving import EngineConfig, LLMEngine, SamplingParams
+from _torch_port_util import one_torch_thread  # noqa: F401 (autouse)
+
 
 SEEDS = [0, 7, 2 ** 31 + 3, 2 ** 32 + 5, 2 ** 40 + 9, -1, -5, 2 ** 63 - 1,
          -2 ** 63]

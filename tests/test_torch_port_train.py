@@ -45,6 +45,7 @@ from paddle_tpu_torch.models import (GPTForCausalLM,
 from paddle_tpu_torch.nn.functional import cross_entropy
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.optimizer import AdamW
+from _torch_port_util import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _t(a):
@@ -155,7 +156,8 @@ def test_bwd_wrappers_on_cpu_compute_the_plain_backward():
         "flash_bwd_dq_causal:d256", "flash_bwd_dq_causal:simt",
         "flash_bwd_dkv_causal:d256", "flash_bwd_dkv_causal:simt",
         "threefry_bernoulli", "flash_fwd_causal:wide",
-        "flash_bwd_dq_causal:wide", "flash_bwd_dkv_causal:wide"}
+        "flash_bwd_dq_causal:wide", "flash_bwd_dkv_causal:wide",
+        "flash_fwd_causal:wide_tc", "flash_bwd_dkv_causal:wide_tc"}
     assert set(ops.launch_counts().values()) == {0}
 
 
